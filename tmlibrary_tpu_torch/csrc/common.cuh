@@ -1,0 +1,35 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Layout convention: every kernel takes a batch of sites laid out as
+// (B, H, W) contiguous arrays and launches one block per site
+// (grid = B).  A 256x256 int32 site is 256 KB, more than the 227 KB of
+// shared memory one block can use, so the fixpoint kernels iterate over
+// the site in global memory; a batch of 64 sites with two 256 KB planes
+// each is ~33 MB and stays resident in the 50 MB L2.  Keeping a site on
+// chip (a narrower label type, or a thread-block cluster sharing
+// distributed shared memory) is later work.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define TM_BLOCK 1024
+
+// "no label yet" in min-propagation (tmlibrary_tpu/ops/pallas_kernels.py BIG)
+#define TM_BIG (1 << 30)
+
+// Neighbour j's offset: j < 4 is the 4-neighbourhood (up, down, left,
+// right), j < 8 adds the diagonals.
+__device__ __forceinline__ int tm_dy(int j) {
+    return j == 0 ? -1 : j == 1 ? 1 : j < 4 ? 0 : j < 6 ? -1 : 1;
+}
+__device__ __forceinline__ int tm_dx(int j) {
+    return j < 2 ? 0 : j == 2 ? -1 : j == 3 ? 1 : (j & 1) ? 1 : -1;
+}
+
+// Pixel visited by thread `t` at step `k` of a sweep.  Odd sweeps walk
+// the site backwards, so in-place floods travel both ways quickly.
+__device__ __forceinline__ int tm_sweep_pixel(int k, int t, int n, int sweep) {
+    int i = k + t;
+    return (sweep & 1) ? n - 1 - i : i;
+}
