@@ -2,9 +2,11 @@
 
 The same synthetic sites go through ``build_batch_fn(jit=False)`` of the
 JAX package and through the port on ``device="cpu"``: labels and object
-counts bit for bit, features within the reference's tiers (sums and
-means ``rtol=1e-6``, std ``rtol=1e-3, atol=1e-4``, min/max exact).  The
-frozen golden (``tests/golden/cell_painting.npz``) is held the same way.
+counts bit for bit, every feature within the tier that ``FEATURE_TIERS``
+(``chip_smoke.py``) names for it (min/max, counts and quantiles exact,
+sums and means ``rtol=1e-6``, std ``rtol=1e-3, atol=1e-4``, the
+transcendental families their own).  The frozen golden
+(``tests/golden/cell_painting.npz``) is held the same way.
 """
 
 import subprocess
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import CARD_TIERS, FEATURE_TIERS, feature_tier
 from tmlibrary_tpu.benchmarks import cell_painting_description as j_desc
 from tmlibrary_tpu.benchmarks import synthetic_cell_painting_batch as j_synth
 from tmlibrary_tpu.jterator.pipeline import ImageAnalysisPipeline as JPipeline
@@ -51,6 +54,14 @@ def _run_jax(data, stats=None, max_objects=32, desc=None):
               jnp.zeros((n, 2), jnp.int32))
 
 
+def assert_feature(name, got, want):
+    rtol, atol = feature_tier(name)
+    if rtol == atol == 0.0:
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    else:
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=name)
+
+
 def _assert_same(port, ref):
     assert sorted(port.objects) == sorted(ref.objects)
     for name in ref.objects:
@@ -63,13 +74,7 @@ def _assert_same(port, ref):
             got, want = port.measurements[obj][feat], np.asarray(arr)
             assert got.shape == want.shape and got.dtype == np.float32
             for s, n in enumerate(counts):
-                g, w = got[s, :n], want[s, :n]
-                if "std" in feat:
-                    np.testing.assert_allclose(g, w, rtol=1e-3, atol=1e-4, err_msg=feat)
-                elif "sum" in feat or "mean" in feat:
-                    np.testing.assert_allclose(g, w, rtol=1e-6, atol=0, err_msg=feat)
-                else:
-                    np.testing.assert_array_equal(g, w, err_msg=feat)
+                assert_feature(feat, got[s, :n], want[s, :n])
 
 
 @pytest.fixture(scope="module")
@@ -180,4 +185,44 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=root.parent)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(mods) >= 17
+    assert len(mods) >= 20
+    assert {"tmlibrary_tpu_torch.ops.fused_measure", "tmlibrary_tpu_torch.ops.measure",
+            "tmlibrary_tpu_torch.jterator.modules", "tmlibrary_tpu_torch.benchmarks"} <= set(mods)
+
+
+def test_feature_tiers_cover_names_and_match_chip_smoke():
+    """Every feature name has exactly one tier, an unknown name fails, and
+    the card-vs-CPU table of chip_smoke.py is the reference table but for
+    Zernike, which both sides compute in the same float32 formulation and
+    so is held tighter there."""
+    assert feature_tier("Intensity_std_DAPI") == (1e-3, 1e-4)
+    assert feature_tier("Intensity_median_Actin") == (0.0, 0.0)
+    assert feature_tier("Texture_sum_variance_Actin") == FEATURE_TIERS["Texture_*"]
+    assert feature_tier("Zernike_6_2") == FEATURE_TIERS["Zernike_*"]
+    assert feature_tier("Morphology_orientation") == (1e-5, 1e-6)
+    assert {k: v for k, v in CARD_TIERS.items() if k != "Zernike_*"} == {
+        k: v for k, v in FEATURE_TIERS.items() if k != "Zernike_*"}
+    card, ref = feature_tier("Zernike_6_2", CARD_TIERS), FEATURE_TIERS["Zernike_*"]
+    assert card[0] < ref[0] and card[1] < ref[1]
+    for name in ("Intensity_mode_DAPI", "Morphology_solidity", "sum"):
+        for tiers in (FEATURE_TIERS, CARD_TIERS):
+            with pytest.raises(KeyError):
+                feature_tier(name, tiers)
+
+
+def test_quantile_option_matches_jax(batch):
+    """``measure_intensity(quantiles=True)``: p25/median/p75 bit for bit."""
+    pipe = {**benchmarks.CELL_PAINTING_PIPE}
+    pipe["pipeline"] = [
+        {"handles": {**item["handles"], "input": item["handles"]["input"] + [
+            {"name": "quantiles", "type": "Boolean", "value": True}]}}
+        if item["handles"]["module"] == "measure_intensity" else item
+        for item in pipe["pipeline"]
+    ]
+    from tmlibrary_tpu.jterator.description import PipelineDescription as JDesc
+
+    port = _run_port(batch, desc=PipelineDescription.from_dict(pipe))
+    _assert_same(port, _run_jax(batch, desc=JDesc.from_dict(pipe)))
+    for obj, ch in (("nuclei", "DAPI"), ("cells", "Actin")):
+        assert {f"Intensity_{q}_{ch}" for q in ("p25", "median", "p75")} <= set(
+            port.measurements[obj])

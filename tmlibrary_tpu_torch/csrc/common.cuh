@@ -33,3 +33,17 @@ __device__ __forceinline__ int tm_sweep_pixel(int k, int t, int n, int sweep) {
     int i = k + t;
     return (sweep & 1) ? n - 1 - i : i;
 }
+
+// Per-object gray-level stretch, the expression of quantize_per_object
+// (tmlibrary_tpu/ops/measure.py:835) and of the TPU kernels
+// _hist_kernel / _glcm_kernel:
+//     floor((v - lo) * (levels - 1) / max(span, 1e-6)), clipped to
+//     [0, levels - 1].
+// Rounded intrinsics keep the operation order (subtract, multiply,
+// divide) and forbid contraction, so every bucket is bit-identical to
+// the CPU's.
+__device__ __forceinline__ int tm_quantize(float v, float lo, float span, int levels) {
+    float top = (float)(levels - 1);
+    float q = floorf(__fdiv_rn(__fmul_rn(__fsub_rn(v, lo), top), fmaxf(span, 1e-6f)));
+    return (int)fminf(fmaxf(q, 0.0f), top);
+}

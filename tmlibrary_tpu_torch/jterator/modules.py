@@ -1,6 +1,6 @@
 """Module registry and the ported module implementations.
 
-Counterpart: ``tmlibrary_tpu/jterator/modules.py:34-300`` (reference: the
+Counterpart: ``tmlibrary_tpu/jterator/modules.py:34-344`` (reference: the
 external ``jtmodules`` package).  Modules register under a name and a
 ``backend`` key; the descriptions written for the JAX package name
 ``backend: tpu`` (the default), so the port registers its twins under
@@ -159,10 +159,42 @@ def segment_secondary(
 def measure_intensity(
     objects_image, intensity_image, max_objects: int = 256, quantiles: bool = False
 ):
-    """Reference ``jtmodules/measure_intensity.py``; the quantile features
-    (``quantiles=True``) are not ported yet."""
-    from tmlibrary_tpu_torch.ops.measure import intensity_features
+    """Reference ``jtmodules/measure_intensity.py``; ``quantiles=True``
+    adds the per-object p25/median/p75."""
+    from tmlibrary_tpu_torch.ops.measure import intensity_features, intensity_quantiles
 
+    feats = intensity_features(objects_image, intensity_image, max_objects)
     if quantiles:
-        raise NotSupportedError("measure_intensity(quantiles=True) is not ported yet")
-    return {"measurements": intensity_features(objects_image, intensity_image, max_objects)}
+        feats.update(intensity_quantiles(objects_image, intensity_image, max_objects))
+    return {"measurements": feats}
+
+
+@register_module("measure_morphology")
+def measure_morphology(objects_image, max_objects: int = 256):
+    """Reference ``jtmodules/measure_morphology.py``."""
+    from tmlibrary_tpu_torch.ops.measure import morphology_features
+
+    return {"measurements": morphology_features(objects_image, max_objects)}
+
+
+@register_module("measure_texture")
+def measure_texture(
+    objects_image, intensity_image, levels: int = 32, distance: int = 1,
+    max_objects: int = 256,
+):
+    """Reference ``jtmodules/measure_texture.py`` (Haralick); only
+    ``distance=1`` is ported."""
+    from tmlibrary_tpu_torch.ops.measure import haralick_features
+
+    return {"measurements": haralick_features(
+        objects_image, intensity_image, max_objects, levels=levels, distance=distance)}
+
+
+@register_module("measure_zernike")
+def measure_zernike(objects_image, degree: int = 9, patch: int = 64, max_objects: int = 256):
+    """Reference ``jtmodules/measure_zernike.py``; ``patch`` is accepted
+    and ignored, as in the reference."""
+    from tmlibrary_tpu_torch.ops.measure import zernike_features
+
+    return {"measurements": zernike_features(
+        objects_image, max_objects, degree=degree, patch=patch)}

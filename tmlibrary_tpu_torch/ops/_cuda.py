@@ -43,6 +43,8 @@ SIGNATURES = {
     "tm_cc_min_propagate": [_P, _P, _I, _I, _I, _I, _P],
     "tm_watershed_flood": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tm_grouped_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tm_intensity_hist": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "tm_glcm_all": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *[_I] * 8, _P],
 }
 
 _LIB: "ctypes.CDLL | None" = None

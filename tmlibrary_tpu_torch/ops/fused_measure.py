@@ -1,16 +1,29 @@
-"""Per-object grouped statistics: CUDA kernel and plain version.
+"""Fused per-object reductions: CUDA kernels and their plain versions.
 
-Counterpart: ``tmlibrary_tpu/ops/fused_measure.py:133-221``
-(``grouped_stats``, TPU kernel ``_stats_kernel``): ONE pass emitting the
-per-object sum, min and max of several pixel channels.  The Hopper
-kernel is ``tmlibrary_tpu_torch/csrc/grouped_stats.cu``.
+Counterpart: ``tmlibrary_tpu/ops/fused_measure.py`` — the TPU kernels of
+the ``"fused"`` reduction strategy:
 
-Both versions sum each object's pixels left to right in row-major pixel
-order, in float32 — the order of the reference's scatter-add on the
-CPU — so sums are bit-identical to it, identical between the kernel and
-the plain version, and identical run to run (no float atomics).  Min and
-max are exact in any order.  Rows ``0..n`` do not depend on
-``max_objects`` (``ops/reduction.capacity_segments``).
+- :func:`grouped_stats` (``_stats_kernel``, ``:133-221``): ONE pass
+  emitting the per-object sum, min and max of several pixel channels.
+  Hopper kernel: ``csrc/grouped_stats.cu``.
+- :func:`intensity_hist` (``_hist_kernel``, ``:225-326``): per-(object,
+  bucket) counts with the bounds lookup and quantisation in the kernel.
+  Hopper kernel: ``csrc/intensity_hist.cu``.
+- :func:`glcm_all` (``_glcm_kernel``, ``:330-460``): all directions'
+  per-object GLCM counts, quantisation in the kernel, symmetrised.
+  Hopper kernel: ``csrc/glcm_all.cu``.
+
+Every function takes a batch of sites ``(B, H, W)``.  The wrapper
+dispatches on the tensor's device: a CPU tensor goes to the ``*_plain``
+version, a CUDA tensor to the kernel, which launches or raises.  Each
+wrapper counts its kernel launches in ``.launches``.
+
+``grouped_stats`` sums each object's pixels left to right in row-major
+pixel order, in float32 — the order of the reference's scatter-add on
+the CPU — so sums are bit-identical to it, identical between the kernel
+and the plain version, and identical run to run (no float atomics).  Min
+and max, histogram and GLCM counts are exact in any order.  Rows ``0..n``
+do not depend on ``max_objects`` (``ops/reduction.capacity_segments``).
 """
 
 from __future__ import annotations
@@ -18,28 +31,42 @@ from __future__ import annotations
 import torch
 
 from tmlibrary_tpu_torch.ops import _cuda
+from tmlibrary_tpu_torch.ops.kernels import shift_with_fill
 from tmlibrary_tpu_torch.ops.reduction import capacity_segments
 
+#: channels one ``grouped_stats`` kernel launch takes; more are split
+#: into groups of at most this many (each channel's row is independent)
 MAX_CHANNELS = 8
 
 
-def _stack(labels: torch.Tensor, channels: list[torch.Tensor]):
+def _check_sites(name: str, labels: torch.Tensor, *others: torch.Tensor) -> None:
     if labels.dim() != 3:
-        raise ValueError(f"grouped_stats: expected (B, H, W) labels, got {tuple(labels.shape)}")
-    if not 1 <= len(channels) <= MAX_CHANNELS:
-        raise ValueError(f"grouped_stats: 1..{MAX_CHANNELS} channels, got {len(channels)}")
-    for c in channels:
-        if c.shape != labels.shape:
-            raise ValueError("grouped_stats: channel shape differs from labels")
+        raise ValueError(f"{name}: expected (B, H, W) labels, got {tuple(labels.shape)}")
+    for t in others:
+        if t.shape != labels.shape:
+            raise ValueError(f"{name}: image shape differs from labels")
+
+
+def _groups(channels: list) -> list[list]:
+    if not channels:
+        raise ValueError("grouped_stats: at least one channel")
+    return [channels[i : i + MAX_CHANNELS] for i in range(0, len(channels), MAX_CHANNELS)]
+
+
+def _concat(parts: list[tuple[torch.Tensor, ...]]):
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(torch.cat(cols, dim=-1) for cols in zip(*parts))
+
+
+def _stack(labels: torch.Tensor, channels: list[torch.Tensor]):
+    _check_sites("grouped_stats", labels, *channels)
     values = torch.stack([c.to(torch.float32) for c in channels], dim=1)
     return labels.to(torch.int32), values
 
 
-def grouped_stats_plain(
-    labels: torch.Tensor, channels: list[torch.Tensor], max_objects: int
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Stable sort by object id, then one vectorised add per rank within
-    the largest object: a sequential pixel-order sum for every object."""
+# ------------------------------------------------------------ grouped stats
+def _grouped_stats_plain_group(labels, channels, max_objects):
     labels, values = _stack(labels, channels)
     b, n_ch = values.shape[:2]
     k = int(max_objects)
@@ -69,19 +96,20 @@ def grouped_stats_plain(
     return sums.transpose(1, 2), mins.transpose(1, 2), maxs.transpose(1, 2)
 
 
-def grouped_stats(
+def grouped_stats_plain(
     labels: torch.Tensor, channels: list[torch.Tensor], max_objects: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Per-object ``(sums, mins, maxs)`` of several pixel channels, each
-    ``(B, max_objects, n_channels)`` float32, label ids 1..max_objects
-    (background dropped), absent rows ``(0, +inf, -inf)``."""
-    if labels.device.type == "cpu":
-        return grouped_stats_plain(labels, channels, max_objects)
+    """Stable sort by object id, then one vectorised add per rank within
+    the largest object: a sequential pixel-order sum for every object.
+    Channels go in the kernel's groups of :data:`MAX_CHANNELS`."""
+    return _concat([_grouped_stats_plain_group(labels, g, max_objects)
+                    for g in _groups(channels)])
+
+
+def _grouped_stats_launch(labels, channels, max_objects):
     labels, values = _stack(labels, channels)
     labels, values = labels.contiguous(), values.contiguous()
     b, n_ch, h, w = values.shape
-    if 16 * max_objects > 48 * 1024:
-        raise ValueError("grouped_stats: max_objects above 3072 is not supported")
     sums, mins, maxs = (
         torch.empty((b, max_objects, n_ch), dtype=torch.float32, device=labels.device)
         for _ in range(3)
@@ -94,4 +122,177 @@ def grouped_stats(
     return sums, mins, maxs
 
 
+def grouped_stats(
+    labels: torch.Tensor, channels: list[torch.Tensor], max_objects: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-object ``(sums, mins, maxs)`` of any number of pixel channels,
+    each ``(B, max_objects, n_channels)`` float32, label ids
+    1..max_objects (background dropped), absent rows ``(0, +inf, -inf)``.
+    More than :data:`MAX_CHANNELS` channels take one launch per group;
+    the result is bit-identical to one call per channel."""
+    if labels.device.type == "cpu":
+        return grouped_stats_plain(labels, channels, max_objects)
+    if 16 * max_objects > 48 * 1024:
+        raise ValueError("grouped_stats: max_objects above 3072 is not supported")
+    return _concat([_grouped_stats_launch(labels, g, max_objects)
+                    for g in _groups(channels)])
+
+
 grouped_stats.launches = 0
+
+
+# ------------------------------------------------- bounds and quantisation
+def masked_bounds(
+    raw_lo: torch.Tensor, raw_hi: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Raw per-object ``(min, max)`` ``(B, M)`` (±inf for absent objects)
+    → ``(lo_full, span_full)`` ``(B, M + 1)`` with the background row
+    prepended: the expression tree of ``_masked_bounds``
+    (``tmlibrary_tpu/ops/fused_measure.py:292``)."""
+    present = raw_hi >= raw_lo
+    lo = torch.where(present, raw_lo, 0.0)
+    span = torch.where(present, raw_hi - lo, 1.0)
+    b = lo.shape[0]
+    lo_full = torch.cat([lo.new_zeros((b, 1)), lo], dim=1)
+    span_full = torch.cat([span.new_ones((b, 1)), span], dim=1)
+    return lo_full, span_full
+
+
+def quantize(
+    labels: torch.Tensor, img: torch.Tensor, lo_full: torch.Tensor,
+    span_full: torch.Tensor, levels: int,
+) -> torch.Tensor:
+    """Per-pixel ``floor((v - lo) * (levels - 1) / max(span, 1e-6))``
+    clipped to ``[0, levels - 1]``, with ``lo``/``span`` looked up by
+    the pixel's label (ids clipped into the table, as
+    ``lookup_by_label`` does) — ``quantize_per_object``'s expression,
+    the same one the kernels evaluate with rounded intrinsics."""
+    b = labels.shape[0]
+    idx = labels.reshape(b, -1).to(torch.int64).clamp(0, lo_full.shape[1] - 1)
+    lo_pix = lo_full.gather(1, idx).reshape(labels.shape)
+    span_pix = torch.clamp(span_full.gather(1, idx).reshape(labels.shape), min=1e-6)
+    q = torch.floor((img.to(torch.float32) - lo_pix) * float(levels - 1) / span_pix)
+    return torch.clamp(q, 0, levels - 1).to(torch.int64)
+
+
+def _bounds_inputs(name, labels, intensity, max_objects, bounds):
+    _check_sites(name, labels, intensity)
+    lo_full, span_full = masked_bounds(*bounds)
+    if lo_full.shape != (labels.shape[0], max_objects + 1):
+        raise ValueError(f"{name}: bounds must be (B, max_objects)")
+    return (labels.to(torch.int32).contiguous(),
+            intensity.to(torch.float32).contiguous(),
+            lo_full.contiguous(), span_full.contiguous())
+
+
+# ---------------------------------------------------------------- histogram
+def intensity_hist_plain(
+    labels: torch.Tensor, intensity: torch.Tensor, max_objects: int, bins: int,
+    bounds: tuple[torch.Tensor, torch.Tensor],
+) -> torch.Tensor:
+    """Quantise every pixel, then one ``scatter_add_`` over the fused
+    ``(site, label, bucket)`` index; pixels outside 1..M are dropped."""
+    labels, img, lo_full, span_full = _bounds_inputs(
+        "intensity_hist", labels, intensity, max_objects, bounds)
+    b = labels.shape[0]
+    q = quantize(labels, img, lo_full, span_full, bins).reshape(b, -1)
+    lab = labels.reshape(b, -1).to(torch.int64)
+    keep = (lab >= 1) & (lab <= max_objects)
+    site = torch.arange(b, device=lab.device)[:, None].expand_as(lab)
+    idx = ((site * max_objects + lab - 1) * bins + q)[keep]
+    counts = torch.zeros(b * max_objects * bins, dtype=torch.float32, device=lab.device)
+    counts.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
+    return counts.reshape(b, max_objects, bins)
+
+
+def intensity_hist(
+    labels: torch.Tensor, intensity: torch.Tensor, max_objects: int, bins: int,
+    bounds: tuple[torch.Tensor, torch.Tensor],
+) -> torch.Tensor:
+    """Per-object intensity histogram ``(B, max_objects, bins)`` float32
+    for ``intensity_quantiles``.  ``bounds`` is the raw per-object
+    ``(min, max)`` of ``intensity`` (±inf for absent objects), normally
+    :func:`grouped_stats`' min/max of the same image."""
+    if labels.device.type == "cpu":
+        return intensity_hist_plain(labels, intensity, max_objects, bins, bounds)
+    labels, img, lo_full, span_full = _bounds_inputs(
+        "intensity_hist", labels, intensity, max_objects, bounds)
+    b, h, w = labels.shape
+    out = torch.empty((b, max_objects, bins), dtype=torch.float32, device=labels.device)
+    _cuda.require_cuda("intensity_hist", labels, img, lo_full, span_full, out)
+    intensity_hist.launches += 1
+    _cuda.check("tm_intensity_hist", _cuda.lib().tm_intensity_hist(
+        labels.data_ptr(), img.data_ptr(), lo_full.data_ptr(), span_full.data_ptr(),
+        out.data_ptr(), b, h, w, max_objects, bins, _cuda.stream()))
+    return out
+
+
+intensity_hist.launches = 0
+
+
+# --------------------------------------------------------------------- GLCM
+def _check_offsets(offsets) -> list[tuple[int, int]]:
+    offsets = [(int(dy), int(dx)) for dy, dx in offsets]
+    if not 1 <= len(offsets) <= 4:
+        raise ValueError(f"glcm_all: 1..4 offsets, got {len(offsets)}")
+    return offsets
+
+
+def glcm_all_plain(
+    labels: torch.Tensor, intensity: torch.Tensor, max_objects: int, levels: int,
+    offsets: list[tuple[int, int]], bounds: tuple[torch.Tensor, torch.Tensor],
+) -> list[torch.Tensor]:
+    """Quantise every pixel and its partner, then one ``scatter_add_``
+    over the fused ``(site, direction, label, q1, q2)`` index of the
+    valid pairs; symmetrised like the reference (``c + cᵀ``)."""
+    offsets = _check_offsets(offsets)
+    labels, img, lo_full, span_full = _bounds_inputs(
+        "glcm_all", labels, intensity, max_objects, bounds)
+    b = labels.shape[0]
+    n_dir = len(offsets)
+    q1 = quantize(labels, img, lo_full, span_full, levels).reshape(b, -1)
+    lab = labels.reshape(b, -1).to(torch.int64)
+    site = torch.arange(b, device=lab.device)[:, None].expand_as(lab)
+    cells = levels * levels
+    counts = torch.zeros(b * n_dir * max_objects * cells, dtype=torch.float32,
+                         device=lab.device)
+    for d, (dy, dx) in enumerate(offsets):
+        lab2 = shift_with_fill(labels, -dy, -dx, 0)
+        q2 = quantize(lab2, shift_with_fill(img, -dy, -dx, 0.0), lo_full, span_full, levels)
+        valid = (lab >= 1) & (lab <= max_objects) & (lab2.reshape(b, -1) == lab)
+        row = (site * n_dir + d) * max_objects + lab - 1
+        idx = (row * cells + q1 * levels + q2.reshape(b, -1))[valid]
+        counts.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
+    glcm = counts.reshape(b, n_dir, max_objects, levels, levels)
+    glcm = glcm + glcm.transpose(-1, -2)
+    return [glcm[:, d] for d in range(n_dir)]
+
+
+def glcm_all(
+    labels: torch.Tensor, intensity: torch.Tensor, max_objects: int, levels: int,
+    offsets: list[tuple[int, int]], bounds: tuple[torch.Tensor, torch.Tensor],
+) -> list[torch.Tensor]:
+    """All directions' symmetrised per-object GLCMs, one ``(B,
+    max_objects, levels, levels)`` float32 per offset, quantisation
+    included.  A pixel at ``(y, x)`` pairs with ``(y - dy, x - dx)`` when
+    that pixel is in the image and has the same label.  ``bounds`` is the
+    raw per-object ``(min, max)`` of ``intensity``."""
+    if labels.device.type == "cpu":
+        return glcm_all_plain(labels, intensity, max_objects, levels, offsets, bounds)
+    offsets = _check_offsets(offsets)
+    labels, img, lo_full, span_full = _bounds_inputs(
+        "glcm_all", labels, intensity, max_objects, bounds)
+    b, h, w = labels.shape
+    n_dir = len(offsets)
+    out = torch.empty((b, n_dir, max_objects, levels, levels), dtype=torch.float32,
+                      device=labels.device)
+    dyx = [v for o in offsets + [(0, 0)] * (4 - n_dir) for v in o]
+    _cuda.require_cuda("glcm_all", labels, img, lo_full, span_full, out)
+    glcm_all.launches += 1
+    _cuda.check("tm_glcm_all", _cuda.lib().tm_glcm_all(
+        labels.data_ptr(), img.data_ptr(), lo_full.data_ptr(), span_full.data_ptr(),
+        out.data_ptr(), b, h, w, max_objects, levels, n_dir, *dyx, _cuda.stream()))
+    return [out[:, d] for d in range(n_dir)]
+
+
+glcm_all.launches = 0

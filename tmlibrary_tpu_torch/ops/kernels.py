@@ -45,12 +45,14 @@ def neighbor_shifts(connectivity: int) -> list[tuple[int, int]]:
 
 def shift_with_fill(arr: torch.Tensor, dy: int, dx: int, fill) -> torch.Tensor:
     """``out[..., y, x] = arr[..., y + dy, x + dx]`` with ``fill`` at exposed
-    borders, over the last two axes."""
+    borders, over the last two axes.  Pads by the shift's own reach (the
+    reference pads by one pixel, so its shifts beyond 1 land short)."""
     h, w = arr.shape[-2:]
     if arr.dtype == torch.bool:
         return shift_with_fill(arr.to(torch.uint8), dy, dx, int(fill)).to(torch.bool)
-    padded = F.pad(arr, (1, 1, 1, 1), value=fill)
-    return padded[..., 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w]
+    r = max(abs(dy), abs(dx), 1)
+    padded = F.pad(arr, (r, r, r, r), value=fill)
+    return padded[..., r + dy : r + dy + h, r + dx : r + dx + w]
 
 
 def _fixpoint(step, state: torch.Tensor) -> torch.Tensor:
