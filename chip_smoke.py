@@ -10,23 +10,28 @@ Phases (any failure exits non-zero before the last line):
 1. Print the card's name and power limit (``nvidia-smi``); build the
    kernels from ``tmlibrary_tpu_torch/csrc`` with ``nvcc`` and print the
    build seconds.
-2. At the main paths' shapes (64 sites of 256x256, ``max_objects=256``,
-   synthetic Cell Painting data, plus edge-case sites), hold each of the
-   six kernels against its plain PyTorch version on the card — exact for
-   labels, masks, counts, min and max, ``rtol=1e-6`` for fractional sums;
-   ``grouped_stats`` also on every channel list that morphology and
-   Zernike hand it (1, 3, 7 and 32 channels) — and time the kernel, the plain version and, where one PyTorch call
-   computes the same function, that call (a yardstick the port never
-   calls) with CUDA events after warm-up.
-3. Drive three paths through ``build_batch_fn`` on the card, each with
+2. At the main paths' shapes (64 sites of 256x256 and 16 z-stacks of
+   16x128x128, ``max_objects=256``, synthetic data, plus edge cases),
+   hold each of the nine kernels against its plain PyTorch version on
+   the card — exact for labels, masks, counts, distances, min and max,
+   ``rtol=1e-6`` for fractional sums; ``grouped_stats`` also on every
+   channel list that morphology and Zernike hand it (1, 3, 7 and 32
+   channels); the distance transform also at a cap of 2, the 3-D
+   labeling at connectivity 6, 18 and 26, the 3-D flood on a tied
+   plateau — and time the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call (a yardstick the
+   port never calls) with CUDA events after warm-up.
+3. Drive six paths through ``build_batch_fn`` on the card, each with
    every launch counter set to 0 just before it and read just after:
    (a) the Cell Painting pipeline (BASELINE config 3), (b) the full
-   feature stack (config 4: five channels, intensity, morphology,
-   Haralick texture, Zernike moments) and (c) config 3 with
-   ``measure_intensity(quantiles=True)``.  Each path must launch its
-   kernels; labels and counts of the first 8 sites equal the port's run
-   on ``device="cpu"`` and every feature lies within its tier of
-   ``CARD_TIERS``.  Print sites/sec and a stage breakdown.
+   feature stack (config 4), (c) config 3 with
+   ``measure_intensity(quantiles=True)``, (d) config 3 with declumping,
+   (e) config 2 (smooth, adaptive threshold, label) and (f) config 5 (the
+   3-D z-stack pipeline).  Each path must launch its kernels (paths d-f
+   exactly as often as listed in ``main``); labels and counts of the
+   first 8 sites equal the port's run on ``device="cpu"`` and every
+   feature lies within its tier of ``CARD_TIERS``.  Print sites/sec and a
+   stage breakdown, each time beside the card's name and power limit.
 4. Print ``kernels: ...``, the per-kernel JSON record, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -44,6 +49,9 @@ from pathlib import Path
 
 B, SIZE, MAX_OBJECTS, N_CPU_SITES = 64, 256, 256, 8
 SEED = 0
+#: the volume path (BASELINE config 5, bench.py:138-139, 824-826): 16
+#: z-stacks of 16 planes of 128x128, 8 flooding levels
+B_V, DEPTH_V, SIZE_V, N_LEVELS_V = 16, 16, 128, 8
 
 #: HBM bandwidth by card (NVIDIA data sheets); the SXM part is the default
 HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H100", 3.35e12))
@@ -83,8 +91,14 @@ FEATURE_TIERS = {
     "Morphology_major_axis_length": _SUMS,
     "Morphology_minor_axis_length": _SUMS,
     "Morphology_eccentricity": _SUMS,
+    # voxel counts exact; centroids, sums and means as fractional sums
+    "Volume_voxels": _EXACT,
+    "Volume_centroid_*": _SUMS,
+    "Volume_intensity_sum": _SUMS,
+    "Volume_intensity_mean": _SUMS,
     # sqrt of a difference of sums: cancellation (tests/test_parity_fuzz.py)
     "Intensity_std": (1e-3, 1e-4),
+    "Volume_intensity_std": (1e-3, 1e-4),
     # atan2 differs by ulps between libraries and devices
     "Morphology_orientation": (1e-5, 1e-6),
     # log and exp over L*L terms, differing by ulps; info_measure_corr_1
@@ -177,21 +191,15 @@ def feature_edge_sites(torch, device):
     return lab.to(device), img.to(device)
 
 
-def phase_kernels(torch, pkg, inputs, bw):
-    """Phase 2: every kernel against its plain version on the card."""
+def phase_kernels(torch, pkg, inputs):
+    """Phase 2, rows 1-6: each kernel against its plain version on the
+    card at config 3's and config 4's shapes, edge sites included."""
     kernels, fm, measure = pkg["kernels"], pkg["fused_measure"], pkg["measure"]
     dapi_mask, filled, nuclei, actin, actin_mask, dapi, cells = inputs
     edges = edge_sites(torch, dapi.device)
     px = B * SIZE * SIZE
     records = []
-
-    def compare(name, got, want, exact=True):
-        if exact:
-            if not torch.equal(got, want):
-                raise SmokeFailure(f"{name}: kernel differs from its plain version")
-        else:
-            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
-        return max_abs_err(torch, got, want)
+    compare = make_compare(torch)
 
     # fill_holes_flood: the Otsu masks of the main path, plus edge sites
     err = compare("fill_holes_flood", kernels.fill_holes_flood(dapi_mask),
@@ -347,6 +355,120 @@ def phase_kernels(torch, pkg, inputs, bw):
         library_ms=cuda_ms(torch, lambda: torch.bincount(
             g_idx, minlength=len(OFFSETS) * B * MAX_OBJECTS * LEVELS * LEVELS), 20),
     ))
+    return records
+
+
+def make_compare(torch):
+    """``compare(name, got, want, exact=True)``: raise unless the kernel's
+    output equals its plain version's (``rtol=1e-6`` where not exact);
+    return the largest difference."""
+    def compare(name, got, want, exact=True):
+        if exact:
+            if not torch.equal(got, want):
+                raise SmokeFailure(f"{name}: kernel differs from its plain version")
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        return max_abs_err(torch, got, want)
+
+    return compare
+
+
+def edge_volumes(torch, device):
+    """Empty, full, single-voxel and noise volumes at the volume path's
+    shape."""
+    m = torch.zeros((4, DEPTH_V, SIZE_V, SIZE_V), dtype=torch.bool)
+    m[1] = True
+    m[2, -1, -1, -1] = True
+    m[3] = torch.rand(m[3].shape, generator=torch.Generator().manual_seed(SEED)) < 0.3
+    return m.to(device)
+
+
+def tied_plateau(torch, device):
+    """A flat volume, full mask, two seeds at mirrored places: voxels
+    equidistant from both are a tie the Jacobi flood must break the
+    reference's way (the larger label)."""
+    shape = (1, DEPTH_V, SIZE_V, SIZE_V)
+    img = torch.ones(shape, device=device)
+    seeds = torch.zeros(shape, dtype=torch.int32, device=device)
+    seeds[0, DEPTH_V // 2, SIZE_V // 2, SIZE_V // 4] = 1
+    seeds[0, DEPTH_V // 2, SIZE_V // 2, 3 * SIZE_V // 4] = 2
+    return img, seeds, torch.ones(shape, dtype=torch.bool, device=device)
+
+
+def phase_kernels_declump_volume(torch, pkg, filled, vol_inputs, compare) -> list[dict]:
+    """Phase 2, rows 7-9: the distance transform on the filled DAPI masks
+    (path D's input), the 3-D kernels on the volume path's masks and
+    seeds; each exact against its plain version, edge cases included."""
+    kernels, volume = pkg["kernels"], pkg["volume"]
+    vol, vmask, nuclei3d, cmask = vol_inputs
+    records = []
+    edges = edge_sites(torch, filled.device)
+    err = compare("distance_transform", kernels.distance_transform(filled),
+                  kernels.distance_transform_plain(filled))
+    for cap in (64, 2):  # 2: a cap every nucleus reaches
+        for name, m in (("edge", edges), ("main", filled)):
+            err = max(err, compare(f"distance_transform[{name},{cap}]",
+                                   kernels.distance_transform(m, cap),
+                                   kernels.distance_transform_plain(m, cap)))
+    px = B * SIZE * SIZE
+    records.append(dict(
+        name="distance_transform",
+        source="tmlibrary_tpu_torch/csrc/distance_transform.cu",
+        replaces="tmlibrary_tpu/ops/pallas_kernels.py:581",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: kernels.distance_transform(filled), 20),
+        plain_ms=cuda_ms(torch, lambda: kernels.distance_transform_plain(filled), 3, 1),
+        bytes=px * (1 + 4), ops=px * 8, library_ms=None,
+    ))
+
+    vox = B_V * DEPTH_V * SIZE_V * SIZE_V
+    e_vol = edge_volumes(torch, vol.device)
+    err = 0.0
+    for conn in (26, 18, 6):
+        for name, m in (("main", vmask), ("edge", e_vol)):
+            err = max(err, compare(f"cc3d_min_propagate[{name},{conn}]",
+                                   volume.cc3d_min_propagate(m, conn),
+                                   volume.cc3d_min_propagate_plain(m, conn)))
+    records.append(dict(
+        name="cc3d_min_propagate",
+        source="tmlibrary_tpu_torch/csrc/cc3d_min_propagate.cu",
+        replaces="tmlibrary_tpu/ops/pallas_kernels.py:424",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: volume.cc3d_min_propagate(vmask), 20),
+        plain_ms=cuda_ms(torch, lambda: volume.cc3d_min_propagate_plain(vmask), 2, 1),
+        bytes=vox * (1 + 4), ops=vox * 26, library_ms=None,
+    ))
+
+    args = (vol, nuclei3d, cmask, N_LEVELS_V)
+    got = volume.watershed3d_flood(*args)
+    err = compare("watershed3d_flood", got, volume.watershed3d_flood_plain(*args))
+    seeded = nuclei3d > 0
+    if not torch.equal(got[seeded], nuclei3d[seeded]):
+        raise SmokeFailure("watershed3d_flood: a seed lost its label")
+    t_img, t_seeds, t_mask = tied_plateau(torch, vol.device)
+    zeros = torch.zeros_like(e_vol[:1], dtype=torch.int32)
+    for name, a in (("tie", (t_img, t_seeds, t_mask)),
+                    ("empty", (t_img, zeros, e_vol[:1])),
+                    ("single", (t_img, zeros, e_vol[2:3]))):
+        got_e = volume.watershed3d_flood(*a, N_LEVELS_V)
+        err = max(err, compare(f"watershed3d_flood[{name}]", got_e,
+                               volume.watershed3d_flood_plain(*a, N_LEVELS_V)))
+        if name == "tie" and int(got_e[0, DEPTH_V // 2, SIZE_V // 2, SIZE_V // 2]) != 2:
+            raise SmokeFailure("watershed3d_flood: the tie did not go to the larger label")
+    records.append(dict(
+        name="watershed3d_flood",
+        source="tmlibrary_tpu_torch/csrc/watershed3d_flood.cu",
+        replaces="tmlibrary_tpu/ops/pallas_kernels.py:506",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: volume.watershed3d_flood(*args), 10),
+        plain_ms=cuda_ms(torch, lambda: volume.watershed3d_flood_plain(*args), 2, 1),
+        bytes=vox * (4 + 4 + 1 + 4), ops=vox * 26, library_ms=None,
+    ))
+    return records
+
+
+def finish_records(records, bw) -> None:
+    """Route and bound of each record, then its phase-2 line."""
     for r in records:
         r["route"] = "cuda"
         t_bytes = r.pop("bytes") / bw * 1e3
@@ -356,7 +478,6 @@ def phase_kernels(torch, pkg, inputs, bw):
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}, "
               f"library {r['library_ms']}), max_abs_err {r['max_abs_err']}")
-    return records
 
 
 def compare_grouped_stats(torch, name, got, want, compare) -> float:
@@ -411,8 +532,9 @@ def main() -> int:
         from tmlibrary_tpu_torch import benchmarks
         from tmlibrary_tpu_torch.jterator import pipeline
         from tmlibrary_tpu_torch.jterator.description import PipelineDescription
+        from tmlibrary_tpu_torch.jterator.modules import get_module
         from tmlibrary_tpu_torch.ops import (
-            _cuda, fused_measure, kernels, label, measure, smooth, threshold,
+            _cuda, fused_measure, kernels, label, measure, smooth, threshold, volume,
         )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -443,11 +565,22 @@ def main() -> int:
             MAX_OBJECTS, min_area=20)
         actin_mask = threshold.threshold_otsu(actin, correction_factor=0.8)
         cells = kernels.watershed_flood(actin, nuclei, actin_mask, n_levels=16)
-        print(f"phase 2: kernels vs plain versions at B={B}, {SIZE}x{SIZE}, "
-              f"max_objects={MAX_OBJECTS} ({bw / 1e12:.2f} TB/s for the bound)")
+        data_v = benchmarks.synthetic_volume_batch(B_V, size=SIZE_V, depth=DEPTH_V, seed=SEED)
+        vol = get_module("generate_volume_image")(
+            torch.from_numpy(data_v["DAPI"]).to(dev), mode="focus")["volume_image"]
+        t_v = threshold.otsu_value(vol)[:, None, None, None]
+        vmask = vol > t_v
+        nuclei3d = label.clip_label_count(volume.connected_components_3d(vmask)[0], MAX_OBJECTS)
+        print(f"phase 2: kernels vs plain versions at B={B}, {SIZE}x{SIZE} and B={B_V}, "
+              f"{DEPTH_V}x{SIZE_V}x{SIZE_V}, max_objects={MAX_OBJECTS} "
+              f"({bw / 1e12:.2f} TB/s for the bound); times on {card}")
         records = phase_kernels(
             torch, {"kernels": kernels, "fused_measure": fused_measure, "measure": measure},
-            (dapi_mask, filled, nuclei, actin, actin_mask, dapi, cells), bw)
+            (dapi_mask, filled, nuclei, actin, actin_mask, dapi, cells))
+        records += phase_kernels_declump_volume(
+            torch, {"kernels": kernels, "volume": volume}, filled,
+            (vol, vmask, nuclei3d, vol > t_v * 0.8), make_compare(torch))
+        finish_records(records, bw)
 
         # ---------------------------------------------------------- phase 3
         wrappers = {
@@ -457,28 +590,28 @@ def main() -> int:
             "grouped_stats": fused_measure.grouped_stats,
             "intensity_hist": fused_measure.intensity_hist,
             "glcm_all": fused_measure.glcm_all,
+            "distance_transform": kernels.distance_transform,
+            "cc3d_min_propagate": volume.cc3d_min_propagate,
+            "watershed3d_flood": volume.watershed3d_flood,
         }
         segment = ["fill_holes_flood", "cc_min_propagate", "watershed_flood", "grouped_stats"]
         # (a) config 3
         desc3 = benchmarks.cell_painting_description()
-        run3 = drive_path(torch, pipeline, "config 3", desc3, data, wrappers, need=segment)
+        run3 = drive_path(torch, pipeline, "config 3", desc3, data, wrappers, need=segment,
+                          card=card)
         kernel_ms = sum(r["ms"] * run3["launches"][r["name"]] for r in records)
-        print(f"  the kernels: {kernel_ms:.2f} ms of a batch at their phase-2 times")
-        stages = stage_breakdown(
+        print(f"  the kernels: {kernel_ms:.2f} ms of a batch at their phase-2 times ({card})")
+        print_stages(card, stage_breakdown(
             torch, pkg_ops={"smooth": smooth, "threshold": threshold, "label": label,
                             "kernels": kernels},
-            dapi=dapi, actin=actin, nuclei=nuclei, actin_mask=actin_mask)
-        print("  stages (ms per batch): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-              + f"; sum {sum(stages.values()):.3f}")
+            dapi=dapi, actin=actin, nuclei=nuclei, actin_mask=actin_mask))
 
         # (b) config 4, the full feature stack
         data4 = benchmarks.synthetic_full_stack_batch(B, size=SIZE, seed=SEED)
         desc4 = benchmarks.full_feature_description()
         run4 = drive_path(torch, pipeline, "config 4", desc4, data4, wrappers,
-                          need=segment + ["glcm_all"])
-        stages = stage_breakdown_full(torch, data4, run4["objects"])
-        print("  stages (ms per batch): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-              + f"; sum {sum(stages.values()):.3f}")
+                          need=segment + ["glcm_all"], card=card)
+        print_stages(card, stage_breakdown_full(torch, data4, run4["objects"]))
 
         # (c) config 3 with measure_intensity(quantiles=True)
         pipe = dict(benchmarks.CELL_PAINTING_PIPE)
@@ -490,12 +623,39 @@ def main() -> int:
         ]
         desc_q = PipelineDescription.from_dict(pipe)
         run_q = drive_path(torch, pipeline, "quantiles", desc_q, data, wrappers,
-                           need=segment + ["intensity_hist"])
+                           need=segment + ["intensity_hist"], card=card)
         if run_q["launches"]["intensity_hist"] != 2:
             raise SmokeFailure("intensity_hist: expected 2 launches per batch, got "
                                f"{run_q['launches']['intensity_hist']}")
+
+        # (d) config 3 with declumping, on config 3's batch
+        run_d = drive_path(
+            torch, pipeline, "declump", benchmarks.cell_painting_declump_description(), data,
+            wrappers, need=[], card=card, expect={
+                "fill_holes_flood": 1, "cc_min_propagate": 1, "distance_transform": 1,
+                "watershed_flood": 2, "grouped_stats": 2})
+        gained = int(run_d["counts"]["nuclei"].sum() - run3["counts"]["nuclei"].sum())
+        print(f"  declumping finds {gained} more nuclei than config 3 in the batch of {B} "
+              f"({int(run3['counts']['nuclei'].sum())} -> "
+              f"{int(run_d['counts']['nuclei'].sum())})")
+        print_stages(card, stage_breakdown_declump(torch, label, filled))
+
+        # (e) config 2: smooth, adaptive threshold, label (DAPI only)
+        data2 = benchmarks.synthetic_cell_painting_batch(B, size=SIZE, seed=SEED, dapi_only=True)
+        drive_path(torch, pipeline, "config 2", benchmarks.smooth_threshold_description(),
+                   data2, wrappers, need=[], card=card, expect={"cc_min_propagate": 1})
+
+        # (f) config 5, the 3-D z-stack pipeline
+        run_v = drive_path(
+            torch, pipeline, "config 5 (volume)",
+            benchmarks.volume_description(n_levels=N_LEVELS_V), data_v, wrappers, need=[],
+            card=card, expect={"cc3d_min_propagate": 1, "watershed3d_flood": 1,
+                               "grouped_stats": 1})
+        print_stages(card, stage_breakdown_volume(torch, data_v, get_module))
+
         # each kernel's launches: the path that brought it to the port
-        path_of = {"intensity_hist": run_q, "glcm_all": run4}
+        path_of = {"intensity_hist": run_q, "glcm_all": run4, "distance_transform": run_d,
+                   "cc3d_min_propagate": run_v, "watershed3d_flood": run_v}
         for r in records:
             r["launches"] = path_of.get(r["name"], run3)["launches"][r["name"]]
         if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules:
@@ -542,12 +702,15 @@ def stage_breakdown(torch, pkg_ops, dapi, actin, nuclei, actin_mask) -> dict:
     return {name: cuda_ms(torch, fn, 5) for name, fn in steps.items()}
 
 
-def drive_path(torch, pipeline, title, desc, data, wrappers, need) -> dict:
+def drive_path(torch, pipeline, title, desc, data, wrappers, need, card,
+               expect=None) -> dict:
     """Drive one path through ``build_batch_fn`` on the card: a warm-up
     call, then every launch counter set to 0, one call, the counters read
-    (each kernel in ``need`` must have launched), the first sites held to
-    the port's CPU run, and the batch timed over 5 calls."""
-    raw, stats, shifts = pipeline.from_jax_inputs(data, {}, [[0, 0]] * B, device="cuda")
+    (each kernel in ``need`` must have launched, each in ``expect``
+    exactly that often), the first sites held to the port's CPU run, and
+    the batch timed over 5 calls."""
+    n = next(iter(data.values())).shape[0]
+    raw, stats, shifts = pipeline.from_jax_inputs(data, {}, [[0, 0]] * n, device="cuda")
     fn = pipeline.ImageAnalysisPipeline(desc, MAX_OBJECTS, device="cuda").build_batch_fn()
     fn(raw, stats, shifts)  # warm-up: allocator and first launches
     torch.cuda.synchronize()
@@ -562,6 +725,9 @@ def drive_path(torch, pipeline, title, desc, data, wrappers, need) -> dict:
     for k in need:
         if launches[k] < 1:
             raise SmokeFailure(f"{title}: {k} was not launched on this path")
+    for k, count in (expect or {}).items():
+        if launches[k] != count:
+            raise SmokeFailure(f"{title}: {k} launched {launches[k]} times, expected {count}")
 
     card_res = pipeline.site_result_to_numpy(result)
     sub = {k: v[:N_CPU_SITES] for k, v in data.items()}
@@ -582,11 +748,56 @@ def drive_path(torch, pipeline, title, desc, data, wrappers, need) -> dict:
         fn(raw, stats, shifts)
     torch.cuda.synchronize()
     batch_s = (time.perf_counter() - t0) / reps
-    print(f"  pipeline: {B / batch_s:.1f} sites/s ({batch_s * 1e3:.2f} ms per batch "
-          f"of {B}; main-path run {main_s * 1e3:.2f} ms)")
-    print(f"  counts: nuclei {card_res.counts['nuclei'][:N_CPU_SITES].tolist()} "
-          f"cells {card_res.counts['cells'][:N_CPU_SITES].tolist()}")
-    return {"launches": launches, "objects": result.objects}
+    print(f"  pipeline: {n / batch_s:.1f} sites/s ({batch_s * 1e3:.2f} ms per batch "
+          f"of {n}; main-path run {main_s * 1e3:.2f} ms) on {card}")
+    print("  counts: " + " ".join(
+        f"{obj} {c[:N_CPU_SITES].tolist()}" for obj, c in card_res.counts.items()))
+    return {"launches": launches, "objects": result.objects, "counts": card_res.counts}
+
+
+def print_stages(card: str, stages: dict) -> None:
+    print("  stages (ms per batch): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f"; sum {sum(stages.values()):.3f} on {card}")
+
+
+def stage_breakdown_declump(torch, label, filled) -> dict:
+    """CUDA-event time of each declumping step on the batch's filled DAPI
+    masks (the steps ``segment_primary(declump=True)`` adds)."""
+    from tmlibrary_tpu_torch.ops.segment_primary import (
+        distance_transform_approx, local_maxima_seeds,
+    )
+    from tmlibrary_tpu_torch.ops.segment_secondary import watershed_from_seeds
+
+    dist = distance_transform_approx(filled)
+    seeds = local_maxima_seeds(dist, filled, min_distance=5, smooth_sigma=2.5)
+    split = watershed_from_seeds(dist, seeds, filled)
+    steps = {
+        "distance_transform": lambda: distance_transform_approx(filled),
+        "local_maxima_seeds": lambda: local_maxima_seeds(
+            dist, filled, min_distance=5, smooth_sigma=2.5),
+        "watershed_declump": lambda: watershed_from_seeds(dist, seeds, filled),
+        "relabel_by_scan_order": lambda: label.relabel_by_scan_order(
+            label.clip_label_count(split, MAX_OBJECTS), MAX_OBJECTS),
+    }
+    return {name: cuda_ms(torch, fn, 5) for name, fn in steps.items()}
+
+
+def stage_breakdown_volume(torch, data, get_module) -> dict:
+    """CUDA-event time of each module of the volume path at the batch's
+    shapes, through the module functions the pipeline calls."""
+    zstack = torch.from_numpy(data["DAPI"]).to("cuda")
+    vol = get_module("generate_volume_image")(zstack, mode="focus")["volume_image"]
+    nuc = get_module("segment_volume")(vol, max_objects=MAX_OBJECTS)["objects"]
+    steps = {
+        "generate_volume_image": lambda: get_module("generate_volume_image")(
+            zstack, mode="focus"),
+        "segment_volume": lambda: get_module("segment_volume")(vol, max_objects=MAX_OBJECTS),
+        "segment_volume_secondary": lambda: get_module("segment_volume_secondary")(
+            vol, nuc, correction_factor=0.8, n_levels=N_LEVELS_V, max_objects=MAX_OBJECTS),
+        "measure_volume": lambda: get_module("measure_volume")(
+            nuc, vol, max_objects=MAX_OBJECTS),
+    }
+    return {name: cuda_ms(torch, fn, 3, 1) for name, fn in steps.items()}
 
 
 def stage_breakdown_full(torch, data, objects) -> dict:

@@ -1,13 +1,16 @@
-"""The Cell Painting pipelines and their synthetic data.
+"""The benchmark pipelines and their synthetic data.
 
-Counterpart: ``tmlibrary_tpu/benchmarks.py:24-125,186-381``.  The port's
-own copies of ``CELL_PAINTING_PIPE`` (BASELINE.json config 3:
-``smooth`` → ``segment_primary`` on DAPI → ``segment_secondary`` on Actin
-→ ``measure_intensity`` on both), of ``full_feature_description``
-(config 4: the same segmentation, then intensity on five channels,
-morphology, Haralick texture and Zernike moments) and of the numpy
-generators, which draw the same random sequence as the reference's, so
-both packages see the same pixels for the same seed.
+Counterpart: ``tmlibrary_tpu/benchmarks.py:24-125,186-381,628-725,
+795-847``.  The port's own copies of ``CELL_PAINTING_PIPE`` (BASELINE.json
+config 3: ``smooth`` → ``segment_primary`` on DAPI → ``segment_secondary``
+on Actin → ``measure_intensity`` on both; with ``declump: true`` the
+declumping path), of ``full_feature_description`` (config 4: the same
+segmentation, then intensity on five channels, morphology, Haralick
+texture and Zernike moments), of ``SMOOTH_THRESHOLD_PIPE`` (config 2:
+smooth → adaptive threshold → label), of ``volume_description``
+(config 5, the 3-D z-stack pipeline) and of the numpy generators, which
+draw the same random sequence as the reference's, so both packages see
+the same pixels for the same seed.
 """
 
 from __future__ import annotations
@@ -237,6 +240,18 @@ def synthetic_full_stack_batch(
     return {ch: np.clip(v, 0, 65535) for ch, v in out.items()}
 
 
+def cell_painting_declump_description() -> PipelineDescription:
+    """Config 3 with ``declump: true`` on ``segment_primary``: touching
+    nuclei split by a watershed of the distance transform."""
+    pipeline = [
+        {"handles": {**item["handles"], "input": item["handles"]["input"] + [
+            {"name": "declump", "type": "Boolean", "value": True}]}}
+        if item["handles"]["module"] == "segment_primary" else item
+        for item in CELL_PAINTING_PIPE["pipeline"]
+    ]
+    return PipelineDescription.from_dict({**CELL_PAINTING_PIPE, "pipeline": pipeline})
+
+
 def synthetic_cell_painting_batch(
     n_sites: int, size: int = 256, n_cells: int = 12, seed: int = 0,
     dapi_only: bool = False,
@@ -262,3 +277,115 @@ def synthetic_cell_painting_batch(
     if not dapi_only:
         out["Actin"] = np.clip(actin, 0, 65535)
     return out
+
+
+#: BASELINE.json config 2: the minimum end-to-end slice — smooth +
+#: adaptive threshold + 8-connected labeling of single-channel sites
+SMOOTH_THRESHOLD_PIPE = {
+    "description": "smooth + adaptive threshold (BASELINE config 2)",
+    "input": {"channels": [{"name": "DAPI", "correct": False, "align": False}]},
+    "pipeline": [
+        {
+            "handles": {
+                "module": "smooth",
+                "input": [
+                    {"name": "intensity_image", "type": "IntensityImage", "key": "DAPI"},
+                    {"name": "sigma", "type": "Numeric", "value": 1.5},
+                ],
+                "output": [
+                    {"name": "smoothed_image", "type": "IntensityImage", "key": "sm"}
+                ],
+            }
+        },
+        {
+            "handles": {
+                "module": "threshold_adaptive",
+                "input": [
+                    {"name": "intensity_image", "type": "IntensityImage", "key": "sm"},
+                    {"name": "method", "type": "Character", "value": "mean"},
+                    {"name": "kernel_size", "type": "Numeric", "value": 31},
+                    {"name": "constant", "type": "Numeric", "value": 2},
+                ],
+                "output": [{"name": "mask", "type": "BinaryImage", "key": "mask"}],
+            }
+        },
+        {
+            "handles": {
+                "module": "label",
+                "input": [{"name": "mask", "type": "BinaryImage", "key": "mask"}],
+                "output": [
+                    {"name": "label_image", "type": "SegmentedObjects",
+                     "key": "fg", "objects": "fg"}
+                ],
+            }
+        },
+    ],
+}
+
+
+def smooth_threshold_description() -> PipelineDescription:
+    return PipelineDescription.from_dict(SMOOTH_THRESHOLD_PIPE)
+
+
+def volume_description(n_levels: int = 8) -> PipelineDescription:
+    """BASELINE.json config 5: the 3-D z-stack pipeline — focus-weighted
+    volume generation, 3-D primary segmentation (Otsu + 26-connected
+    components), 3-D secondary growth by level-ordered flooding and the
+    volumetric measurements of the nuclei."""
+    def h(module, inputs, outputs):
+        return {"handles": {"module": module, "input": inputs, "output": outputs}}
+
+    def objects(name):
+        return [{"name": "objects", "type": "SegmentedObjects", "key": name, "objects": name}]
+
+    vol = {"name": "volume_image", "type": "IntensityImage", "key": "vol"}
+    return PipelineDescription.from_dict({
+        "description": "3-D volume segment+measure",
+        "input": {"channels": [{"name": "DAPI", "correct": False, "zstack": True}]},
+        "pipeline": [
+            h("generate_volume_image",
+              [{"name": "zstack", "type": "IntensityImage", "key": "DAPI"},
+               {"name": "mode", "type": "Character", "value": "focus"}],
+              [{"name": "volume_image", "type": "IntensityImage", "key": "vol"}]),
+            h("segment_volume",
+              [vol, {"name": "threshold_method", "type": "Character", "value": "otsu"}],
+              objects("nuclei3d")),
+            h("segment_volume_secondary",
+              [vol,
+               {"name": "primary_label_image", "type": "LabelImage", "key": "nuclei3d"},
+               {"name": "correction_factor", "type": "Numeric", "value": 0.8},
+               {"name": "n_levels", "type": "Numeric", "value": n_levels}],
+              objects("cells3d")),
+            h("measure_volume",
+              [{"name": "objects_image", "type": "LabelImage", "key": "nuclei3d"},
+               {"name": "intensity_image", "type": "IntensityImage", "key": "vol"}],
+              [{"name": "measurements", "type": "Measurement", "objects": "nuclei3d"}]),
+        ],
+        "output": {"objects": [{"name": "nuclei3d"}, {"name": "cells3d"}]},
+    })
+
+
+def synthetic_volume_batch(
+    n_sites: int, size: int = 128, depth: int = 16, n_cells: int = 8, seed: int = 0
+) -> dict[str, np.ndarray]:
+    """Synthetic ``(B, Z, H, W)`` DAPI z-stacks, float32: 3-D Gaussian
+    nuclei at random depths over a noisy background.  Draws the reference
+    generator's random sequence."""
+    rng = np.random.default_rng(seed)
+    zz, yy, xx = np.mgrid[0:depth, 0:size, 0:size].astype(np.float32)
+    out = rng.normal(300.0, 25.0, (n_sites, depth, size, size)).astype(np.float32)
+    margin = size // 8
+    for s in range(n_sites):
+        for _ in range(n_cells):
+            y = rng.integers(margin, size - margin)
+            x = rng.integers(margin, size - margin)
+            z = rng.integers(depth // 4, 3 * depth // 4)
+            r_xy = rng.uniform(4.0, 6.0)
+            r_z = rng.uniform(1.5, 2.5)
+            out[s] += 4000.0 * np.exp(
+                -(
+                    ((zz - z) ** 2) / (2 * r_z**2)
+                    + ((yy - y) ** 2 + (xx - x) ** 2) / (2 * r_xy**2)
+                )
+            )
+    return {"DAPI": np.clip(out, 0, 65535)}

@@ -27,6 +27,14 @@ __device__ __forceinline__ int tm_dx(int j) {
     return j < 2 ? 0 : j == 2 ? -1 : j == 3 ? 1 : (j & 1) ? 1 : -1;
 }
 
+// Whether the 3-D offset (dz, dy, dx) is a neighbour at `connectivity`
+// 6 (faces), 18 (faces and edges) or 26 (the full cube).
+__device__ __forceinline__ bool tm_neighbour3(int dz, int dy, int dx, int connectivity) {
+    int nonzero = (dz != 0) + (dy != 0) + (dx != 0);
+    return nonzero > 0 && (connectivity == 26 || nonzero < 2 ||
+                           (connectivity == 18 && nonzero == 2));
+}
+
 // Pixel visited by thread `t` at step `k` of a sweep.  Odd sweeps walk
 // the site backwards, so in-place floods travel both ways quickly.
 __device__ __forceinline__ int tm_sweep_pixel(int k, int t, int n, int sweep) {

@@ -9,13 +9,15 @@ package.
 
 Module contract: ``fn(**kwargs) -> dict`` mapping output-handle names to
 tensors (or, for ``Measurement`` outputs, to ``{feature: (B, max_objects)
-tensor}`` dicts).  Array kwargs are ``(B, H, W)`` batches; everything
-else is a constant from the handle description.
+tensor}`` dicts).  Array kwargs are ``(B, H, W)`` batches, or ``(B, Z, H,
+W)`` for the volume modules; everything else is a constant from the
+handle description.
 """
 
 from __future__ import annotations
 
 import inspect
+import math
 from typing import Callable
 
 import torch
@@ -24,6 +26,7 @@ from tmlibrary_tpu_torch.errors import NotSupportedError, RegistryError
 from tmlibrary_tpu_torch.ops import label as label_ops
 from tmlibrary_tpu_torch.ops import smooth as smooth_ops
 from tmlibrary_tpu_torch.ops import threshold as threshold_ops
+from tmlibrary_tpu_torch.ops._exact import div
 
 #: name -> backend -> (fn, version)
 _REGISTRY: dict[str, dict[str, tuple[Callable, str]]] = {}
@@ -62,17 +65,45 @@ def module_accepts(name: str, backend: str, kwarg: str) -> bool:
 
 @register_module("smooth")
 def smooth(intensity_image, method: str = "gaussian", sigma: float = 2.0, size: int = 3):
-    """Smoothing (reference ``jtmodules/smooth.py``); only the gaussian
-    method is ported."""
-    if method != "gaussian":
+    """Smoothing (reference ``jtmodules/smooth.py``); the gaussian and
+    average methods are ported, median and bilateral are not."""
+    if method == "gaussian":
+        out = smooth_ops.gaussian_smooth(intensity_image, sigma)
+    elif method == "average":
+        out = smooth_ops.uniform_smooth(intensity_image, size)
+    elif method in ("median", "bilateral"):
         raise NotSupportedError(f"smooth method '{method}' is not ported yet")
-    return {"smoothed_image": smooth_ops.gaussian_smooth(intensity_image, sigma)}
+    else:
+        raise ValueError(f"unknown smooth method '{method}'")
+    return {"smoothed_image": out}
 
 
 @register_module("threshold_manual")
 def threshold_manual(intensity_image, threshold: float = 0.0):
     """Reference ``jtmodules/threshold_manual.py``."""
     return {"mask": threshold_ops.threshold_manual(intensity_image, threshold)}
+
+
+@register_module("threshold_adaptive")
+def threshold_adaptive(
+    intensity_image,
+    method: str = "gaussian",
+    kernel_size: int = 31,
+    constant: float = 0.0,
+    min_threshold: float | None = None,
+    max_threshold: float | None = None,
+):
+    """Reference ``jtmodules/threshold_adaptive.py``."""
+    return {
+        "mask": threshold_ops.threshold_adaptive(
+            intensity_image,
+            method=method,
+            kernel_size=kernel_size,
+            constant=constant,
+            min_threshold=min_threshold,
+            max_threshold=max_threshold,
+        )
+    }
 
 
 @register_module("threshold_otsu")
@@ -103,11 +134,14 @@ def segment_primary(
     threshold_method: str = "otsu",
     threshold_value: float = 0.0,
     correction_factor: float = 1.0,
+    kernel_size: int = 31,
+    constant: float = 0.0,
     smooth_sigma: float = 1.0,
     fill: bool = True,
     min_area: int = 0,
     max_area: int | None = None,
     declump: bool = False,
+    declump_min_distance: int = 5,
     max_objects: int = 256,
 ):
     """Reference ``jtmodules/segment_primary.py`` (nuclei)."""
@@ -118,11 +152,14 @@ def segment_primary(
         threshold_method=threshold_method,
         threshold_value=threshold_value,
         correction_factor=correction_factor,
+        kernel_size=kernel_size,
+        constant=constant,
         smooth_sigma=smooth_sigma,
         fill=fill,
         min_area=min_area,
         max_area=max_area,
         declump=declump,
+        declump_min_distance=declump_min_distance,
         max_objects=max_objects,
     )
     return {"objects": labels}
@@ -198,3 +235,156 @@ def measure_zernike(objects_image, degree: int = 9, patch: int = 64, max_objects
 
     return {"measurements": zernike_features(
         objects_image, max_objects, degree=degree, patch=patch)}
+
+
+@register_module("separate_clumps")
+def separate_clumps(
+    label_image,
+    min_distance: int = 5,
+    max_objects: int = 256,
+    max_form_factor: float = 1.0,
+    min_area_to_cut: int = 0,
+):
+    """Split touching objects by distance-transform watershed (reference
+    ``jtmodules/separate_clumps.py``).  An object is cut when its form
+    factor ``4π area / perimeter²`` (perimeter: exposed 4-neighbour
+    edges) is below ``max_form_factor`` and its area is at least
+    ``min_area_to_cut``; ``max_form_factor >= 1`` cuts every object.  The
+    kept and the split objects are renumbered together by first pixel
+    (scipy order)."""
+    from tmlibrary_tpu_torch.ops.fused_measure import grouped_stats
+    from tmlibrary_tpu_torch.ops.kernels import shift_with_fill
+    from tmlibrary_tpu_torch.ops.segment_primary import (
+        distance_transform_approx,
+        local_maxima_seeds,
+    )
+    from tmlibrary_tpu_torch.ops.segment_secondary import watershed_from_seeds
+
+    labels = label_ops.clip_label_count(label_image.to(torch.int32), max_objects)
+    mask = labels > 0
+    edge_count = torch.zeros(labels.shape, dtype=torch.float32, device=labels.device)
+    for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+        edge_count = edge_count + (shift_with_fill(labels, dy, dx, 0) != labels).to(torch.float32)
+    edge_count = torch.where(mask, edge_count, 0.0)
+    sums = grouped_stats(labels, [torch.ones_like(edge_count), edge_count], max_objects)[0]
+    area, perim = sums[..., 0], sums[..., 1]
+    ff = div(4.0 * math.pi * area, torch.clamp(perim * perim, min=1.0))
+    eligible = (ff < max_form_factor) & (area >= min_area_to_cut) & (area > 0)
+    if max_form_factor >= 1.0:
+        eligible = torch.ones_like(eligible)
+    table = torch.cat([torch.zeros_like(eligible[:, :1]), eligible], dim=1).to(torch.int32)
+    elig_pix = label_ops.remap_labels(labels, table).to(torch.bool) & mask
+
+    dist = distance_transform_approx(elig_pix)
+    seeds = local_maxima_seeds(
+        dist, elig_pix, min_distance=min_distance, smooth_sigma=min_distance / 2.0)
+    split = watershed_from_seeds(dist, seeds, elig_pix)
+    # clip before relabeling: seed ids are not bounded by max_objects
+    combined = torch.where(elig_pix, split + max_objects, labels)
+    combined = torch.where(mask, combined, 0)
+    combined = label_ops.clip_label_count(combined, 2 * max_objects)
+    out = label_ops.relabel_by_scan_order(combined, 2 * max_objects)
+    return {"separated_label_image": label_ops.clip_label_count(out, max_objects)}
+
+
+# --------------------------------------------------------------- volumes
+@register_module("generate_volume_image")
+def generate_volume_image(zstack, focus_window: int = 5, mode: str = "volume"):
+    """Volume image from ``(B, Z, H, W)`` z-stacks (reference
+    ``jtmodules/generate_volume_image.py``).  Per-plane focus is the
+    box-filtered squared 5-point Laplacian on an edge-replicated pad;
+    outputs the stack unchanged (``mode="volume"``) or scaled by each
+    voxel's focus relative to its sharpest plane (``"focus"``), the
+    ``(B, H, W)`` sharpest-plane index (ties to the first plane) and the
+    all-in-focus composite."""
+    vol = zstack.to(torch.float32)
+    h, w = vol.shape[-2:]
+    rows = torch.arange(h, device=vol.device)
+    cols = torch.arange(w, device=vol.device)
+    up = vol.index_select(-2, torch.clamp(rows - 1, min=0))
+    down = vol.index_select(-2, torch.clamp(rows + 1, max=h - 1))
+    left = vol.index_select(-1, torch.clamp(cols - 1, min=0))
+    right = vol.index_select(-1, torch.clamp(cols + 1, max=w - 1))
+    lap = -4.0 * vol + up + down + left + right
+    focus = smooth_ops.uniform_smooth(lap * lap, focus_window)
+    depth = torch.argmax(focus, dim=1)  # the first maximum, like jnp.argmax
+    best = focus.amax(dim=1)
+    in_focus = vol.gather(1, depth[:, None])[:, 0]
+    if mode == "focus":
+        # uniform pixels (focus 0 in every plane) keep full weight
+        weights = torch.where(
+            best[:, None] > 1e-6, div(focus, torch.clamp(best[:, None], min=1e-6)), 1.0)
+        out_vol = vol * weights
+    elif mode == "volume":
+        out_vol = vol
+    else:
+        raise ValueError(f"unknown volume mode '{mode}'")
+    return {
+        "volume_image": out_vol,
+        "depth_image": depth.to(torch.float32),
+        "focus_image": in_focus,
+    }
+
+
+def _volume_mask(vol, threshold_method, threshold_value, correction_factor):
+    if threshold_method == "otsu":
+        t = threshold_ops.otsu_value(vol) * correction_factor
+        return vol > t[:, None, None, None]
+    if threshold_method == "manual":
+        return vol > threshold_value
+    raise ValueError(f"unknown threshold method '{threshold_method}'")
+
+
+@register_module("segment_volume")
+def segment_volume(
+    volume_image,
+    threshold_method: str = "otsu",
+    threshold_value: float = 0.0,
+    correction_factor: float = 1.0,
+    connectivity: int = 26,
+    max_objects: int = 256,
+):
+    """3-D segmentation: threshold + 3-D connected components at
+    ``connectivity`` 6, 18 or 26 (anything else raises ``ValueError``)."""
+    from tmlibrary_tpu_torch.ops.volume import connected_components_3d
+
+    vol = volume_image.to(torch.float32)
+    mask = _volume_mask(vol, threshold_method, threshold_value, correction_factor)
+    labels, _ = connected_components_3d(mask, connectivity)
+    return {"objects": label_ops.clip_label_count(labels, max_objects)}
+
+
+@register_module("segment_volume_secondary")
+def segment_volume_secondary(
+    volume_image,
+    primary_label_image,
+    threshold_value: float = 0.0,
+    correction_factor: float = 1.0,
+    n_levels: int = 16,
+    max_objects: int = 256,
+):
+    """3-D secondary segmentation: grow cell volumes outward from the
+    primary 3-D seeds by level-ordered flooding, keeping seed ids; the
+    mask is Otsu (or ``threshold_value`` when positive) times
+    ``correction_factor``."""
+    from tmlibrary_tpu_torch.ops.volume import watershed_from_seeds_3d
+
+    vol = volume_image.to(torch.float32)
+    if threshold_value > 0.0:
+        t = torch.tensor(threshold_value, dtype=torch.float32) * correction_factor
+        mask = vol > t.to(vol.device)
+    else:
+        mask = _volume_mask(vol, "otsu", 0.0, correction_factor)
+    out = watershed_from_seeds_3d(
+        vol, label_ops.clip_label_count(primary_label_image, max_objects), mask,
+        n_levels=n_levels,
+    )
+    return {"objects": label_ops.clip_label_count(out, max_objects)}
+
+
+@register_module("measure_volume")
+def measure_volume(objects_image, intensity_image, max_objects: int = 256):
+    """3-D per-object measurements (voxels, centroid, intensity stats)."""
+    from tmlibrary_tpu_torch.ops.volume import volume_features
+
+    return {"measurements": volume_features(objects_image, intensity_image, max_objects)}

@@ -10,8 +10,10 @@ The JAX package traces the chain for ONE site and gets the site axis from
 ``vmap``.  The port runs eagerly with an explicit leading site axis
 ``(B, H, W)`` through every op and kernel (``torch.func.vmap`` cannot map
 the data-dependent fixpoint loops), so :meth:`build_site_fn` already
-takes a batch.  Object-indexed outputs are padded to ``max_objects`` per
-site; rows past a site's object count are padding.
+takes a batch.  A z-stack channel is a batch of volumes ``(B, Z, H, W)``
+and its objects are label volumes.  Object-indexed outputs are padded
+to ``max_objects`` per site; rows past a site's object count are
+padding.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from tmlibrary_tpu_torch.device import resolve_device
-from tmlibrary_tpu_torch.errors import NotSupportedError, PipelineError
+from tmlibrary_tpu_torch.errors import PipelineError
 from tmlibrary_tpu_torch.jterator import modules as module_registry
 from tmlibrary_tpu_torch.jterator.description import PipelineDescription
 from tmlibrary_tpu_torch.ops import image_ops
@@ -33,7 +35,7 @@ from tmlibrary_tpu_torch.ops import image_ops
 class SiteResult:
     """One batch's pipeline output; every leaf has a leading site axis."""
 
-    objects: dict[str, Any]  # objects name -> (B, H, W) int32 labels
+    objects: dict[str, Any]  # objects name -> (B, H, W) or (B, Z, H, W) int32 labels
     counts: dict[str, Any]  # objects name -> (B,) int32
     measurements: dict[str, dict[str, Any]]  # objects -> feature -> (B, M)
 
@@ -150,15 +152,23 @@ class ImageAnalysisPipeline:
         """Per-batch channel preprocessing: illumination correction + cycle
         alignment.  ``fn(raw: {ch: (B, H, W)}, stats: {ch: (mean_log,
         std_log)}, shifts: (B, 2)) -> {ch: (B, H', W') float32}``; a
-        channel absent from ``stats`` is not corrected."""
+        channel absent from ``stats`` is not corrected.  A z-stack
+        channel ``(B, Z, H, W)`` is neither corrected nor aligned; the
+        window crops its last two axes."""
         desc = self.description
 
         def preprocess(raw, stats, shifts):
             out: dict[str, torch.Tensor] = {}
             for ch in desc.channels:
-                if ch.zstack:
-                    raise NotSupportedError("z-stack channels are not ported yet")
                 img = raw[ch.name].to(torch.float32)
+                if ch.zstack:
+                    # volumes skip correction and alignment; the window
+                    # still crops their last two axes, so every channel
+                    # shares one frame
+                    if window is not None:
+                        img = image_ops.crop_window(img, *window)
+                    out[ch.name] = img
+                    continue
                 if ch.correct and ch.name in stats:
                     mean_log, std_log = stats[ch.name]
                     img = image_ops.correct_illumination(img, mean_log, std_log)

@@ -45,6 +45,9 @@ SIGNATURES = {
     "tm_grouped_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tm_intensity_hist": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tm_glcm_all": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *[_I] * 8, _P],
+    "tm_distance_transform": [_P, _P, _I, _I, _I, _I, _P],
+    "tm_cc3d_min_propagate": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "tm_watershed3d_flood": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB: "ctypes.CDLL | None" = None

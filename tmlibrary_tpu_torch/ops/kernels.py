@@ -2,10 +2,11 @@
 
 Counterpart: ``tmlibrary_tpu/ops/pallas_kernels.py`` — the TPU kernels
 ``fill_holes_flood`` (``_fill_kernel``), ``cc_min_propagate``
-(``_cc_kernel``) and ``watershed_flood`` (``_watershed_kernel``).  The
-Hopper kernels are in ``tmlibrary_tpu_torch/csrc/{fill_holes,
-cc_min_propagate,watershed_flood}.cu`` (design and bounds in each
-source's header).
+(``_cc_kernel``), ``watershed_flood`` (``_watershed_kernel``) and
+``distance_transform`` (``_distance_kernel``).  The Hopper kernels are
+in ``tmlibrary_tpu_torch/csrc/{fill_holes,cc_min_propagate,
+watershed_flood,distance_transform}.cu`` (design and bounds in each
+source's header).  The 3-D fixpoints are in :mod:`.volume`.
 
 Every function here takes a batch of sites ``(B, H, W)``.  The wrapper
 dispatches on the tensor's device: a CPU tensor goes to the ``*_plain``
@@ -239,3 +240,62 @@ def watershed_flood(
 
 
 watershed_flood.launches = 0
+
+
+# ------------------------------------------------------- distance transform
+#: the kernel holds a distance in one byte, up to the cap max_distance + 1
+MAX_DISTANCE = 254
+#: shared memory one block can use on Hopper (the kernel keeps a site there)
+SMEM_BYTES = 227 * 1024
+
+
+def binary_erode(mask: torch.Tensor, connectivity: int = 8, iterations: int = 1) -> torch.Tensor:
+    """Erosion of ``(B, H, W)`` masks; out-of-image neighbours count as
+    foreground (reference ``label.binary_erode``)."""
+    mask = mask.to(torch.bool)
+    shifts = neighbor_shifts(connectivity)
+    for _ in range(iterations):
+        out = mask
+        for dy, dx in shifts:
+            out = out & shift_with_fill(mask, dy, dx, True)
+        mask = out
+    return mask
+
+
+def distance_transform_plain(mask: torch.Tensor, max_distance: int = 64) -> torch.Tensor:
+    """Erosion counting: each foreground pixel counts 1 plus one per
+    8-connected erosion it survives, at most ``max_distance`` erosions,
+    stopping once every site has eroded away."""
+    cur = mask.to(torch.bool)
+    dist = cur.to(torch.float32)
+    for _ in range(max_distance):
+        if not bool(cur.any()):
+            break
+        cur = binary_erode(cur)
+        dist = dist + cur.to(torch.float32)
+    return dist
+
+
+def distance_transform(mask: torch.Tensor, max_distance: int = 64) -> torch.Tensor:
+    """Capped chessboard distance to the background of ``(B, H, W)``
+    masks, float32: ``min(D, max_distance + 1)`` for a foreground pixel
+    whose nearest in-image background pixel is ``D`` away (pixels beyond
+    the image count as foreground), 0 on the background."""
+    _check_sites("distance_transform", mask)
+    if not 0 <= max_distance <= MAX_DISTANCE:
+        raise ValueError(f"max_distance must be in [0, {MAX_DISTANCE}]")
+    if mask.device.type == "cpu":
+        return distance_transform_plain(mask, max_distance)
+    mask = mask.to(torch.bool).contiguous()
+    b, h, w = mask.shape
+    if h * w > SMEM_BYTES:
+        raise ValueError(f"distance_transform: a {h}x{w} site exceeds one block's shared memory")
+    out = torch.empty(mask.shape, dtype=torch.float32, device=mask.device)
+    _cuda.require_cuda("distance_transform", mask, out)
+    distance_transform.launches += 1
+    _cuda.check("tm_distance_transform", _cuda.lib().tm_distance_transform(
+        mask.data_ptr(), out.data_ptr(), b, h, w, max_distance, _cuda.stream()))
+    return out
+
+
+distance_transform.launches = 0

@@ -3,8 +3,9 @@
 Counterpart: ``tmlibrary_tpu/ops/label.py`` (``connected_components``
 with the scipy-order compaction at ``:182-188``, ``fill_holes``,
 ``areas_by_label``, ``remap_labels``, ``relabel_sequential``,
-``filter_by_area``, ``clip_label_count``).  Every function takes a batch
-of sites ``(B, H, W)``.  The fixpoints run in
+``filter_by_area``, ``clip_label_count``, ``first_pixel_by_label``,
+``relabel_by_scan_order``).  Every function takes a batch of sites
+``(B, H, W)``; the compaction and relabeling also take volumes.  The fixpoints run in
 :mod:`tmlibrary_tpu_torch.ops.kernels` (CUDA kernel on the card, plain
 PyTorch on the CPU); everything around them is plain PyTorch.
 
@@ -28,18 +29,26 @@ def connected_components(
     Returns ``(labels, count)``: int32 labels (0 = background, 1..N in
     scipy scan order) and the ``(B,)`` int32 component counts."""
     mask = mask.to(torch.bool)
-    b, h, w = mask.shape
-    roots = kernels.cc_min_propagate(mask, connectivity)
-    linear = torch.arange(h * w, dtype=torch.int32, device=mask.device)
+    return compact_roots(mask, kernels.cc_min_propagate(mask, connectivity))
+
+
+def compact_roots(
+    mask: torch.Tensor, roots: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Min-linear-index labels of ``(B, ...)`` sites or volumes → labels
+    1..N in row-major order of the component roots (scipy order) and the
+    ``(B,)`` counts."""
+    b = mask.shape[0]
     flat_mask = mask.reshape(b, -1)
     flat_roots = roots.reshape(b, -1)
-    # compact to 1..N in row-major order of component roots (scipy order)
+    n = flat_mask.shape[1]
+    linear = torch.arange(n, dtype=torch.int32, device=mask.device)
     is_root = flat_mask & (flat_roots == linear)
     ranks = torch.cumsum(is_root.to(torch.int32), dim=1, dtype=torch.int32)
     count = ranks[:, -1]
-    root_rank = ranks.gather(1, torch.clamp(flat_roots, 0, h * w - 1).to(torch.int64))
+    root_rank = ranks.gather(1, torch.clamp(flat_roots, 0, n - 1).to(torch.int64))
     out = torch.where(flat_mask, root_rank, torch.zeros_like(root_rank))
-    return out.reshape(b, h, w), count
+    return out.reshape(mask.shape), count
 
 
 def label(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
@@ -91,6 +100,35 @@ def relabel_sequential(labels: torch.Tensor, keep: torch.Tensor) -> torch.Tensor
 def clip_label_count(labels: torch.Tensor, max_objects: int) -> torch.Tensor:
     """Zero out labels beyond ``max_objects``."""
     return torch.where(labels <= max_objects, labels, torch.zeros_like(labels))
+
+
+def first_pixel_by_label(labels: torch.Tensor, max_labels: int) -> torch.Tensor:
+    """Minimum row-major linear pixel index of each label id
+    1..max_labels → ``(B, max_labels)`` int32, ``H*W`` for absent ids;
+    ids outside that range count nowhere."""
+    b = labels.shape[0]
+    flat = labels.reshape(b, -1).to(torch.int64)
+    n = flat.shape[1]
+    valid = (flat >= 1) & (flat <= max_labels)
+    linear = torch.arange(n, dtype=torch.int32, device=labels.device).expand(b, n)
+    first = torch.full((b, max_labels + 2), n, dtype=torch.int32, device=labels.device)
+    first = first.scatter_reduce(1, torch.where(valid, flat, max_labels + 1), linear, "amin")
+    return first[:, 1 : max_labels + 1]
+
+
+def relabel_by_scan_order(labels: torch.Tensor, max_labels: int) -> torch.Tensor:
+    """Renumber labels 1..K by each region's first pixel in row-major
+    scan order (scipy's order); absent ids map to 0, ids above
+    ``max_labels`` clamp into the table, as in the reference."""
+    b = labels.shape[0]
+    n = labels[0].numel()
+    first = first_pixel_by_label(labels, max_labels)
+    order = torch.argsort(first, dim=1, stable=True)  # ids sorted by first pixel
+    ids = torch.arange(1, max_labels + 1, dtype=torch.int32, device=labels.device)
+    ranks = torch.zeros_like(first).scatter(1, order, ids.expand(b, max_labels))
+    mapping = torch.cat(
+        [torch.zeros_like(first[:, :1]), torch.where(first < n, ranks, 0)], dim=1)
+    return remap_labels(labels, mapping)
 
 
 def filter_by_area(

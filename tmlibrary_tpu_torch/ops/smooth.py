@@ -1,9 +1,13 @@
-"""Gaussian smoothing.
+"""Gaussian and box smoothing.
 
-Counterpart: ``tmlibrary_tpu/ops/smooth.py:21-75`` (``gaussian_smooth``,
-matching ``scipy.ndimage.gaussian_filter``).  Separable correlation with
+Counterpart: ``tmlibrary_tpu/ops/smooth.py:21-125`` (``gaussian_smooth``,
+matching ``scipy.ndimage.gaussian_filter``, and ``uniform_smooth``'s XLA
+taps, matching ``uniform_filter``).  Separable correlation with
 symmetric padding (scipy ``mode='reflect'``), accumulated in float32 as
-``out = out + k[i] * shifted`` tap by tap.
+``out = out + k[i] * shifted`` tap by tap.  (On the CPU the JAX package
+sends ``uniform_smooth`` to a native box mean when its library is
+loaded, which is only within a tolerance of the taps; the port
+reproduces the taps, the path the TPU runs.)
 
 Rounding: each multiply and each add is rounded separately (two PyTorch
 ops), on the CPU and on the card alike.  The taps are computed on the
@@ -45,8 +49,10 @@ def _symmetric_index(n: int, offset: int, device) -> torch.Tensor:
     return torch.where(idx >= n, 2 * n - 1 - idx, idx)
 
 
-def _correlate1d(img: torch.Tensor, taps: np.ndarray, dim: int) -> torch.Tensor:
-    r = taps.shape[0] // 2
+def _correlate1d(img: torch.Tensor, taps: np.ndarray, dim: int, left: int | None = None) -> torch.Tensor:
+    """``out = out + k[i] * shifted`` tap by tap; tap ``i`` reads offset
+    ``i - left`` (``left`` defaults to the centre)."""
+    r = taps.shape[0] // 2 if left is None else left
     n = img.shape[dim]
     out = torch.zeros_like(img)
     for i, k in enumerate(taps):
@@ -63,3 +69,16 @@ def gaussian_smooth(
     img = img.to(torch.float32)
     out = _correlate1d(img, taps, img.dim() - 2)
     return _correlate1d(out, taps, img.dim() - 1)
+
+
+def uniform_smooth(img: torch.Tensor, size: int) -> torch.Tensor:
+    """Separable box (mean) filter over the last two axes of ``(..., H,
+    W)``, scipy ``uniform_filter`` centring (an even window's extra tap
+    on the left), as the reference's XLA taps: every tap is
+    ``float32(1 / size)``, rows then columns."""
+    if size < 1:
+        raise ValueError("size must be >= 1")
+    taps = np.full((size,), 1.0 / size, dtype=np.float32)
+    img = img.to(torch.float32)
+    out = _correlate1d(img, taps, img.dim() - 2, left=size // 2)
+    return _correlate1d(out, taps, img.dim() - 1, left=size // 2)

@@ -1,8 +1,9 @@
 """Thresholding ops.
 
-Counterpart: ``tmlibrary_tpu/ops/threshold.py:19-140``
+Counterpart: ``tmlibrary_tpu/ops/threshold.py:19-175``
 (``threshold_manual``, ``otsu_value``, ``_otsu_argmax``,
-``threshold_otsu``).  Every function takes a batch ``(B, H, W)`` and
+``threshold_otsu``, ``threshold_adaptive``).  Every function takes a
+batch ``(B, H, W)`` (the Otsu cut also ``(B, Z, H, W)`` volumes) and
 thresholds each site on its own.
 
 The Otsu cut decides every mask, so it must be bit-exact: the
@@ -19,6 +20,7 @@ import torch
 
 from tmlibrary_tpu_torch.ops._exact import cumsum_xla_cpu, div
 from tmlibrary_tpu_torch.ops.histogram import histogram_fixed_bins
+from tmlibrary_tpu_torch.ops.smooth import gaussian_smooth, uniform_smooth
 
 
 def threshold_manual(img: torch.Tensor, value) -> torch.Tensor:
@@ -66,3 +68,31 @@ def threshold_otsu(
     img_f = img.to(torch.float32)
     t = otsu_value(img_f, bins=bins) * correction_factor
     return img_f > t.reshape((-1,) + (1,) * (img_f.dim() - 1))
+
+
+def threshold_adaptive(
+    img: torch.Tensor,
+    method: str = "gaussian",
+    kernel_size: int = 31,
+    constant: float = 0.0,
+    min_threshold: float | None = None,
+    max_threshold: float | None = None,
+) -> torch.Tensor:
+    """Local threshold: a pixel is foreground when it exceeds the
+    ``method``-weighted mean of its ``kernel_size`` neighbourhood plus
+    ``constant`` (reference ``jtmodules/threshold_adaptive``), the local
+    threshold clamped to ``[min_threshold, max_threshold]``."""
+    img_f = img.to(torch.float32)
+    if method == "gaussian":
+        # cv2 derives sigma from the block size this way
+        local = gaussian_smooth(img_f, sigma=0.3 * ((kernel_size - 1) * 0.5 - 1) + 0.8)
+    elif method == "mean":
+        local = uniform_smooth(img_f, size=kernel_size)
+    else:
+        raise ValueError(f"unknown adaptive threshold method '{method}'")
+    t = local + constant
+    if min_threshold is not None:
+        t = torch.clamp(t, min=min_threshold)
+    if max_threshold is not None:
+        t = torch.clamp(t, max=max_threshold)
+    return img_f > t
