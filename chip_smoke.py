@@ -18,9 +18,20 @@ Phases (any failure exits non-zero before the last line):
    channel list that morphology and Zernike hand it (1, 3, 7 and 32
    channels); the distance transform also at a cap of 2, the 3-D
    labeling at connectivity 6, 18 and 26, the 3-D flood on a tied
-   plateau — and time the kernel, the plain version and, where one
-   PyTorch call computes the same function, that call (a yardstick the
-   port never calls) with CUDA events after warm-up.
+   plateau; the histogram (2, 16, 256 buckets) and GLCM (8, 16, 32
+   levels, 1 and 4 offsets) kernels, and the first designs kept for the
+   A/B harness, also on a site with all 256 object slots present, a
+   site-sized object at one value, bounds that call present objects
+   absent, M=255, planes that are not 16-byte aligned, and every window
+   plan — and time the public wrapper (for these two also the launch
+   alone), the plain version and, where one PyTorch call computes the
+   same function, that call (a yardstick the port never calls) with CUDA
+   events after warm-up.
+   Then ``tmlibrary_tpu_torch/shootout.py``, the interleaved A/B
+   harness: best-of-7 times of row 2's kernel against its plain labeling
+   and of the histogram and GLCM kernels against their window sizes,
+   their first designs (taken apart: memset, counting on zero, real and
+   flat inputs) and the ``bincount``/``index_add_`` yardsticks.
 3. Drive six paths through ``build_batch_fn`` on the card, each with
    every launch counter set to 0 just before it and read just after:
    (a) the Cell Painting pipeline (BASELINE config 3), (b) the full
@@ -53,8 +64,6 @@ SEED = 0
 #: z-stacks of 16 planes of 128x128, 8 flooding levels
 B_V, DEPTH_V, SIZE_V, N_LEVELS_V = 16, 16, 128, 8
 
-#: HBM bandwidth by card (NVIDIA data sheets); the SXM part is the default
-HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H100", 3.35e12))
 #: float32 peak outside the tensor cores, H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12
 #: Haralick quantisation levels, GLCM offsets and Zernike degree of
@@ -129,13 +138,6 @@ def card_line() -> str:
     return out[0]
 
 
-def hbm_rate(name: str) -> float:
-    for key, rate in HBM_BYTES_PER_S:
-        if key in name:
-            return rate
-    return HBM_BYTES_PER_S[-1][1]
-
-
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     """Mean milliseconds per call over ``reps`` calls, CUDA events."""
     for _ in range(warmup):
@@ -193,9 +195,11 @@ def feature_edge_sites(torch, device):
 
 def phase_kernels(torch, pkg, inputs):
     """Phase 2, rows 1-6: each kernel against its plain version on the
-    card at config 3's and config 4's shapes, edge sites included."""
+    card at config 3's and config 4's shapes, edge sites included (rows
+    5-6 in :func:`phase_table_kernels`)."""
     kernels, fm, measure = pkg["kernels"], pkg["fused_measure"], pkg["measure"]
-    dapi_mask, filled, nuclei, actin, actin_mask, dapi, cells = inputs
+    dapi_mask, filled, nuclei, actin, actin_mask, dapi, cells = (inputs[k] for k in (
+        "dapi_mask", "filled", "nuclei", "actin", "actin_mask", "dapi", "cells"))
     edges = edge_sites(torch, dapi.device)
     px = B * SIZE * SIZE
     records = []
@@ -290,71 +294,169 @@ def phase_kernels(torch, pkg, inputs):
         library_ms=cuda_ms(torch, library, 20),
     ))
 
+    records += phase_table_kernels(torch, pkg, inputs, compare)
+    return records
+
+
+def table_edge_batches(torch, device) -> dict:
+    """Label and image batches at the count tables' edges: a site with all
+    256 object slots present (a 16x16 grid of 16x16 blocks, ids 1..256,
+    so every window is live) beside one object covering the whole site at
+    one value (a count of 65,536 in one cell), the feature edge sites, the
+    first two cut to 255x253, and the first two as contiguous views that
+    start one element into their storage (planes that are not 16-byte
+    aligned)."""
+    yy, xx = torch.meshgrid(torch.arange(SIZE), torch.arange(SIZE), indexing="ij")
+    grid = ((yy // 16) * 16 + xx // 16 + 1).to(torch.int32)
+    lab = torch.stack([grid, torch.ones_like(grid)])
+    noise = torch.rand((SIZE, SIZE), generator=torch.Generator().manual_seed(SEED + 1)) * 4096
+    img = torch.stack([noise, torch.full((SIZE, SIZE), 777.0)])
+    e_lab, e_img = feature_edge_sites(torch, device)
+    lab, img = lab.to(device), img.to(device)
+    # an odd width and height: the kernels' one-pixel (not 16-byte) paths
+    odd = (lab[:, 1:, 3:].contiguous(), img[:, 1:, 3:].contiguous())
+    shifted = tuple(torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+                    for t in (lab, img))
+    if shifted[0].data_ptr() % 16 == 0 or not shifted[0].is_contiguous():
+        raise SmokeFailure("table_edge_batches: the shifted view is aligned")
+    return {"capacity": (lab, img), "edge": (e_lab, e_img), "odd": odd, "shifted": shifted}
+
+
+def absent_bounds(torch, bounds):
+    """The raw bounds with every third object called absent (min +inf,
+    max -inf) although its pixels are there: the kernels must count them
+    with lo 0, span 1, as the reference does."""
+    lo, hi = (t.clone() for t in bounds)
+    lo[:, ::3], hi[:, ::3] = float("inf"), float("-inf")
+    return lo, hi
+
+
+def table_variants(fm, kind, m, size, n_dir=4) -> list[tuple[str, object, dict]]:
+    """``(name, plan)`` of every way the count-table kernels can run: the
+    wrapper's plan, 8 KB windows (window edges next to many labels) and a
+    flat plan (a budget below one row: windows of single cells)."""
+    plan = (lambda b: fm.plan_hist(m, size, b)) if kind == "hist" else (
+        lambda b: fm.plan_glcm(m, size, n_dir, b))
+    row = 4 * (size if kind == "hist" else n_dir * size * (size + 1))
+    out = [("plan", None), ("8KB", plan(8192))]
+    if row >= 64:  # a budget below one row that still holds 4 cells
+        out.append(("flat", plan(max(row // 2, 32))))
+    return out
+
+
+def check_table_kernels(torch, fm, measure, batches, compare) -> tuple[float, float]:
+    """``intensity_hist`` at 2, 16 and 256 buckets and ``glcm_all`` at 8,
+    16 and 32 levels with 1 and 4 offsets, each exact against its plain
+    version on every batch, at ``max_objects`` 256 and 255 (an M that is
+    no multiple of the window), with the true bounds and with
+    absent-called objects, under every variant of :func:`table_variants`.
+    Returns the largest errors."""
+    hist_err = glcm_err = 0.0
+    for name, (lab, img) in batches.items():
+        for m in (MAX_OBJECTS, MAX_OBJECTS - 1):
+            true = measure.grouped_minmax(lab, img, m)
+            for b_name, bounds in (("true", true), ("absent", absent_bounds(torch, true))):
+                for bins in (2, 16, BINS):
+                    want = fm.intensity_hist_plain(lab, img, m, bins, bounds)
+                    for v_name, plan in table_variants(fm, "hist", m, bins):
+                        got = fm.intensity_hist_launcher(lab, img, m, bins, bounds, plan)()
+                        hist_err = max(hist_err, compare(
+                            f"intensity_hist[{name},M={m},{b_name},bins={bins},{v_name}]",
+                            got, want))
+                for levels in (8, LEVELS, 32):
+                    for offsets in (OFFSETS[:1], OFFSETS):
+                        want = torch.stack(
+                            fm.glcm_all_plain(lab, img, m, levels, offsets, bounds), dim=1)
+                        for v_name, plan in table_variants(fm, "glcm", m, levels,
+                                                           len(offsets)):
+                            got = fm.glcm_all_launcher(lab, img, m, levels, offsets, bounds,
+                                                       plan)()
+                            glcm_err = max(glcm_err, compare(
+                                f"glcm_all[{name},M={m},{b_name},L={levels},"
+                                f"D={len(offsets)},{v_name}]", got, want))
+    return hist_err, glcm_err
+
+
+def phase_table_kernels(torch, pkg, inputs, compare) -> list[dict]:
+    """Phase 2, rows 5-6: the count-table kernels and the first design
+    kept for the A/B harness, each exact against the plain versions on the
+    main path's inputs and on :func:`check_table_kernels`' matrix.  Like
+    every row, ``ms`` times the public wrapper (input checks and the
+    launch, what a path pays); ``launch_ms`` times the launch alone on a
+    preallocated output, as the A/B harness does."""
+    fm, measure, shootout = pkg["fused_measure"], pkg["measure"], pkg["shootout"]
+    dapi, nuclei, actin, cells = (inputs[k] for k in ("dapi", "nuclei", "actin", "cells"))
+    batches = table_edge_batches(torch, dapi.device)
+    hist_err, glcm_err = check_table_kernels(torch, fm, measure, batches, compare)
+    b, h, w = nuclei.shape
+    records = []
+
     # intensity_hist: DAPI in the nuclei at 256 buckets (the quantile
-    # path), plus edge sites; bounds from grouped_stats as on that path
-    site = torch.arange(B, device=dapi.device)[:, None]
-    e_lab, e_img = feature_edge_sites(torch, dapi.device)
-    e_bounds = measure.grouped_minmax(e_lab, e_img, MAX_OBJECTS)
-    h_args = (nuclei, dapi, MAX_OBJECTS, BINS, measure.grouped_minmax(nuclei, dapi, MAX_OBJECTS))
-    err = compare("intensity_hist", fm.intensity_hist(*h_args), fm.intensity_hist_plain(*h_args))
-    err = max(err, compare("intensity_hist[edge]",
-                           fm.intensity_hist(e_lab, e_img, MAX_OBJECTS, BINS, e_bounds),
-                           fm.intensity_hist_plain(e_lab, e_img, MAX_OBJECTS, BINS, e_bounds)))
-    lo_full, span_full = fm.masked_bounds(*h_args[4])
-    lab = nuclei.reshape(B, -1).long()
-    q = fm.quantize(nuclei, dapi, lo_full, span_full, BINS).reshape(B, -1)
-    keep = (lab >= 1) & (lab <= MAX_OBJECTS)
-    h_idx = ((site * MAX_OBJECTS + lab - 1) * BINS + q)[keep]
+    # path's first launch; cells/Actin is its second); bounds from
+    # grouped_stats as on that path
+    timed = {}
+    for key, (lab, img) in {"nuclei": (nuclei, dapi), "cells": (cells, actin),
+                            **batches}.items():
+        args = (lab, img, MAX_OBJECTS, BINS, measure.grouped_minmax(lab, img, MAX_OBJECTS))
+        want = fm.intensity_hist_plain(*args)
+        launch = fm.intensity_hist_launcher(*args)
+        hist_err = max(hist_err, compare(f"intensity_hist[{key}]", launch(), want))
+        hist_err = max(hist_err, compare(f"intensity_hist_atomic[{key}]",
+                                         shootout.intensity_hist_atomic(*args)(), want))
+        if key in ("nuclei", "cells"):
+            timed[key] = (args, launch)
+    args, launch = timed["nuclei"]
+    cells_args = timed["cells"][0]
+    cells_ms = cuda_ms(torch, lambda: fm.intensity_hist(*cells_args), 20)
+    idx = shootout.hist_index(*args)
     records.append(dict(
         name="intensity_hist",
         source="tmlibrary_tpu_torch/csrc/intensity_hist.cu",
         replaces="tmlibrary_tpu/ops/fused_measure.py:276",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: fm.intensity_hist(*h_args), 20),
-        plain_ms=cuda_ms(torch, lambda: fm.intensity_hist_plain(*h_args), 5, 1),
-        bytes=px * (4 + 4) + 2 * B * (MAX_OBJECTS + 1) * 4 + B * MAX_OBJECTS * BINS * 4,
-        ops=px * 6,
+        max_abs_err=hist_err,
+        ms=cuda_ms(torch, lambda: fm.intensity_hist(*args), 20),
+        launch_ms=cuda_ms(torch, launch, 20),
+        plain_ms=cuda_ms(torch, lambda: fm.intensity_hist_plain(*args), 5, 1),
+        bytes=shootout.hist_bytes(b, h * w, MAX_OBJECTS, BINS), ops=b * h * w * 6,
         # yardstick: counting already-quantised pixels (quantisation left out)
         library_ms=cuda_ms(torch, lambda: torch.bincount(
-            h_idx, minlength=B * MAX_OBJECTS * BINS), 20),
+            idx, minlength=b * MAX_OBJECTS * BINS), 20),
     ))
+    print(f"  intensity_hist: second call of the quantile path (cells/Actin) "
+          f"{cells_ms:.4f} ms beside nuclei/DAPI {records[-1]['ms']:.4f} ms (the public "
+          f"wrapper); the launch alone {records[-1]['launch_ms']:.4f} ms")
 
     # glcm_all: Actin in the cells at 16 levels, 4 directions (config 4's
-    # texture), plus edge sites
-    g_args = (cells, actin, MAX_OBJECTS, LEVELS, OFFSETS,
-              measure.grouped_minmax(cells, actin, MAX_OBJECTS))
-    got, want = fm.glcm_all(*g_args), fm.glcm_all_plain(*g_args)
-    err = max(compare(f"glcm_all[{d}]", g_, w_) for d, (g_, w_) in enumerate(zip(got, want)))
-    e_args = (e_lab, e_img, MAX_OBJECTS, LEVELS, OFFSETS, e_bounds)
-    for d, (g_, w_) in enumerate(zip(fm.glcm_all(*e_args), fm.glcm_all_plain(*e_args))):
-        err = max(err, compare(f"glcm_all[edge,{d}]", g_, w_))
-    lo_full, span_full = fm.masked_bounds(*g_args[5])
-    lab = cells.reshape(B, -1).long()
-    q1 = fm.quantize(cells, actin, lo_full, span_full, LEVELS).reshape(B, -1)
-    pairs = []
-    for d, (dy, dx) in enumerate(OFFSETS):
-        lab2 = kernels.shift_with_fill(cells, -dy, -dx, 0)
-        q2 = fm.quantize(lab2, kernels.shift_with_fill(actin, -dy, -dx, 0.0), lo_full,
-                         span_full, LEVELS).reshape(B, -1)
-        valid = (lab >= 1) & (lab <= MAX_OBJECTS) & (lab2.reshape(B, -1) == lab)
-        row = (site * len(OFFSETS) + d) * MAX_OBJECTS + lab - 1
-        pairs.append(((row * LEVELS + q1) * LEVELS + q2)[valid])
-    g_idx = torch.cat(pairs)
+    # texture)
+    for key, (lab, img) in {"cells": (cells, actin), **batches}.items():
+        args = (lab, img, MAX_OBJECTS, LEVELS, OFFSETS,
+                measure.grouped_minmax(lab, img, MAX_OBJECTS))
+        want = torch.stack(fm.glcm_all_plain(*args), dim=1)
+        launch = fm.glcm_all_launcher(*args)
+        glcm_err = max(glcm_err, compare(f"glcm_all[{key}]", launch(), want))
+        glcm_err = max(glcm_err, compare(f"glcm_all_atomic[{key}]",
+                                         shootout.glcm_all_atomic(*args)(), want))
+        if key == "cells":
+            timed = (args, launch)
+    args, launch = timed
+    idx = shootout.glcm_index(*args)
     records.append(dict(
         name="glcm_all",
         source="tmlibrary_tpu_torch/csrc/glcm_all.cu",
         replaces="tmlibrary_tpu/ops/fused_measure.py:412",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: fm.glcm_all(*g_args), 20),
-        plain_ms=cuda_ms(torch, lambda: fm.glcm_all_plain(*g_args), 5, 1),
-        bytes=(px * (4 + 4) + 2 * B * (MAX_OBJECTS + 1) * 4
-               + len(OFFSETS) * B * MAX_OBJECTS * LEVELS * LEVELS * 4),
-        ops=px * 6 * (1 + len(OFFSETS)),
+        max_abs_err=glcm_err,
+        ms=cuda_ms(torch, lambda: fm.glcm_all(*args), 20),
+        launch_ms=cuda_ms(torch, launch, 20),
+        plain_ms=cuda_ms(torch, lambda: fm.glcm_all_plain(*args), 5, 1),
+        bytes=shootout.glcm_bytes(b, h * w, MAX_OBJECTS, LEVELS, len(OFFSETS)),
+        ops=b * h * w * 6 * (1 + len(OFFSETS)),
         # yardstick: counting already-formed pairs (quantisation, pairing
         # and symmetrisation left out)
         library_ms=cuda_ms(torch, lambda: torch.bincount(
-            g_idx, minlength=len(OFFSETS) * B * MAX_OBJECTS * LEVELS * LEVELS), 20),
+            idx, minlength=len(OFFSETS) * b * MAX_OBJECTS * LEVELS * LEVELS), 20),
     ))
+    print(f"  glcm_all: the public wrapper {records[-1]['ms']:.4f} ms; the launch alone "
+          f"{records[-1]['launch_ms']:.4f} ms")
     return records
 
 
@@ -529,7 +631,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
-        from tmlibrary_tpu_torch import benchmarks
+        from tmlibrary_tpu_torch import benchmarks, shootout
         from tmlibrary_tpu_torch.jterator import pipeline
         from tmlibrary_tpu_torch.jterator.description import PipelineDescription
         from tmlibrary_tpu_torch.jterator.modules import get_module
@@ -545,7 +647,7 @@ def main() -> int:
         card = card_line()
         print(f"card: {card}")
         name = torch.cuda.get_device_name(0)
-        bw = hbm_rate(name)
+        bw = shootout.hbm_rate(name)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         t0 = time.perf_counter()
@@ -555,16 +657,9 @@ def main() -> int:
 
         # ---------------------------------------------------------- phase 2
         dev = torch.device("cuda")
-        data = benchmarks.synthetic_cell_painting_batch(B, size=SIZE, seed=SEED)
-        dapi = torch.from_numpy(data["DAPI"]).to(dev)
-        actin = torch.from_numpy(data["Actin"]).to(dev)
-        dapi_mask = threshold.threshold_otsu(smooth.gaussian_smooth(dapi, 1.5))
-        filled = label.fill_holes(dapi_mask)
-        nuclei = label.filter_by_area(
-            label.clip_label_count(label.connected_components(filled)[0], MAX_OBJECTS),
-            MAX_OBJECTS, min_area=20)
-        actin_mask = threshold.threshold_otsu(actin, correction_factor=0.8)
-        cells = kernels.watershed_flood(actin, nuclei, actin_mask, n_levels=16)
+        inputs = shootout.main_path_inputs(dev, B, SIZE, MAX_OBJECTS, SEED)
+        data, dapi, actin, filled, nuclei, actin_mask = (inputs[k] for k in (
+            "data", "dapi", "actin", "filled", "nuclei", "actin_mask"))
         data_v = benchmarks.synthetic_volume_batch(B_V, size=SIZE_V, depth=DEPTH_V, seed=SEED)
         vol = get_module("generate_volume_image")(
             torch.from_numpy(data_v["DAPI"]).to(dev), mode="focus")["volume_image"]
@@ -575,12 +670,16 @@ def main() -> int:
               f"{DEPTH_V}x{SIZE_V}x{SIZE_V}, max_objects={MAX_OBJECTS} "
               f"({bw / 1e12:.2f} TB/s for the bound); times on {card}")
         records = phase_kernels(
-            torch, {"kernels": kernels, "fused_measure": fused_measure, "measure": measure},
-            (dapi_mask, filled, nuclei, actin, actin_mask, dapi, cells))
+            torch, {"kernels": kernels, "fused_measure": fused_measure, "measure": measure,
+                    "shootout": shootout}, inputs)
         records += phase_kernels_declump_volume(
             torch, {"kernels": kernels, "volume": volume}, filled,
             (vol, vmask, nuclei3d, vol > t_v * 0.8), make_compare(torch))
         finish_records(records, bw)
+
+        # ---------------------------------------------------------- shootout
+        print(f"shootout: interleaved best-of-7 A/B on the main path's inputs; times on {card}")
+        shootout.run(inputs, MAX_OBJECTS, bytes_per_s=bw)
 
         # ---------------------------------------------------------- phase 3
         wrappers = {
@@ -670,7 +769,9 @@ def main() -> int:
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print("kernels: " + ", ".join(r["name"] for r in records))
-    print(json.dumps({"kernels": [{k: r[k] for k in order} for r in records]}))
+    # rows 5-6 add the launch alone beside the wrapper's `ms`
+    print(json.dumps({"kernels": [{k: r[k] for k in order + ["launch_ms"] if k in r}
+                                  for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -239,6 +239,137 @@ def test_feature_kernels_capacity_invariant(sites):
         np.testing.assert_array_equal(a.numpy(), b.numpy()[:, :8])
 
 
+# ------------------------------------------- full capacity and table edges
+#: every object slot of the capacity site is present
+CAP_M = 256
+
+
+@pytest.fixture(scope="module")
+def capacity_sites():
+    """A 16x16 grid of 4x4 blocks labelled 1..256 over noise, and one
+    object covering the whole site at one value (4,096 pixels in one
+    bucket)."""
+    rng = np.random.default_rng(11)
+    yy, xx = np.mgrid[:SIZE, :SIZE]
+    grid = ((yy // 4) * 16 + xx // 4 + 1).astype(np.int32)
+    noise = (rng.random((SIZE, SIZE)) * 4096).astype(np.float32)
+    whole = np.ones((SIZE, SIZE), np.int32)
+    return [(grid, noise), (whole, np.full((SIZE, SIZE), 777.0, np.float32))]
+
+
+def jax_bounds(lab, img, m, kind):
+    """The reference's raw bounds; ``"absent"`` calls every third object
+    absent (min +inf, max -inf) though its pixels are there."""
+    lo, hi = (np.array(a) for a in jm.grouped_minmax(
+        jnp.asarray(lab), jnp.asarray(img), m, method="scatter"))
+    if kind == "absent":
+        lo[::3], hi[::3] = np.inf, -np.inf
+    return lo, hi
+
+
+@pytest.mark.parametrize("bounds_kind", ["true", "absent"])
+@pytest.mark.parametrize("bins", [2, 16, 256])
+def test_intensity_hist_full_capacity_matches_pallas(capacity_sites, bins, bounds_kind):
+    """All 256 slots present, a site-sized object, bounds that call
+    present objects absent: the plain version equals the TPU kernel in
+    interpret mode, and counts every pixel of ids 1..M."""
+    labs, imgs = zip(*capacity_sites)
+    bounds = [jax_bounds(lab, img, CAP_M, bounds_kind) for lab, img in capacity_sites]
+    got = tfm.intensity_hist(t(*labs), t(*imgs), CAP_M, bins,
+                             tuple(t(*b) for b in zip(*bounds))).numpy()
+    for i, (lab, img) in enumerate(capacity_sites):
+        pallas = jfm.intensity_hist(jnp.asarray(lab), jnp.asarray(img), CAP_M, bins,
+                                    tuple(jnp.asarray(b) for b in bounds[i]), interpret=True)
+        np.testing.assert_array_equal(got[i], np.asarray(pallas))
+        np.testing.assert_array_equal(
+            got[i].sum(axis=1), np.bincount(lab.ravel(), minlength=CAP_M + 1)[1:])
+    assert got[1, 0].max() == SIZE * SIZE  # the whole site in one cell
+
+
+@pytest.mark.parametrize("bounds_kind", ["true", "absent"])
+@pytest.mark.parametrize("levels", [16, 32])
+def test_glcm_all_full_capacity_matches_pallas_and_scatter(capacity_sites, levels,
+                                                           bounds_kind):
+    labs, imgs = zip(*capacity_sites)
+    bounds = [jax_bounds(lab, img, CAP_M, bounds_kind) for lab, img in capacity_sites]
+    got = tfm.glcm_all(t(*labs), t(*imgs), CAP_M, levels, OFFSETS,
+                       tuple(t(*b) for b in zip(*bounds)))
+    for i, (lab, img) in enumerate(capacity_sites):
+        jl, ji = jnp.asarray(lab), jnp.asarray(img)
+        jb = tuple(jnp.asarray(b) for b in bounds[i])
+        pallas = jfm.glcm_all(jl, ji, CAP_M, levels, OFFSETS, jb, interpret=True)
+        q = jm.quantize_per_object(jl, ji, CAP_M, levels, bounds=jb)
+        for d, off in enumerate(OFFSETS):
+            g = got[d].numpy()[i]
+            np.testing.assert_array_equal(g, np.asarray(pallas[d]), f"pallas {off}")
+            scatter = jm._glcm_scatter(jl, q, CAP_M, levels, off, "scatter")
+            np.testing.assert_array_equal(g, np.asarray(scatter), f"scatter {off}")
+    # the site-sized constant object: every horizontal pair in one diagonal cell, doubled
+    assert got[0][1, 0].max() == 2 * SIZE * (SIZE - 1)
+
+
+# --------------------------------------------------- count-table planner
+def _check_plan(plan, budget):
+    assert plan.smem_bytes <= budget
+    ranges = plan.ranges()
+    assert len(ranges) == plan.windows and ranges[-1][1] == plan.total
+    assert all(stop - first <= plan.window for first, stop in ranges)
+    covered = [u for first, stop in ranges for u in range(first, stop)]
+    assert covered == list(range(plan.total))  # every row in exactly one window
+    assert all(stop > first for first, stop in ranges)  # and no window empty
+
+
+@pytest.mark.parametrize("budget", [tfm.SMEM_BYTES, tfm.SMEM_BYTES // 2, 8192, 512])
+@pytest.mark.parametrize("m,bins", [(256, 256), (255, 256), (256, 2), (1, 16), (300, 17),
+                                    (3, 70000)])
+def test_plan_hist_puts_each_row_in_one_window(m, bins, budget):
+    """Every object row lies in exactly one window, and no window exceeds
+    the per-block budget; where one row does, windows of single cells."""
+    plan = tfm.plan_hist(m, bins, budget)
+    _check_plan(plan, budget)
+    if bins + 2 <= budget // 4 - 3:  # a row and its staged bounds fit
+        assert (plan.total, plan.row_words, plan.flat) == (m, bins, False)
+    else:
+        assert (plan.total, plan.row_words, plan.flat) == (m * bins, 1, True)
+        assert plan.window % 4 == 0
+
+
+@pytest.mark.parametrize("budget", [tfm.SMEM_BYTES, tfm.SMEM_BYTES // 2, 8192])
+@pytest.mark.parametrize("m,levels,n_dirs", [(256, 16, 4), (256, 32, 4), (255, 8, 1),
+                                             (12, 32, 2), (2, 241, 1)])
+def test_plan_glcm_puts_each_object_in_one_window(m, levels, n_dirs, budget):
+    """An object's row (its block for every direction, padded to L x
+    (L + 1) words) lies in exactly one window; a row above the budget
+    switches to windows of single cells of the table c + cᵀ."""
+    plan = tfm.plan_glcm(m, levels, n_dirs, budget)
+    _check_plan(plan, budget)
+    row = n_dirs * levels * (levels + 1)
+    assert plan.flat == (row + 2 > budget // 4 - 3)
+    if plan.flat:
+        assert (plan.total, plan.row_words) == (n_dirs * m * levels**2, 1)
+    else:
+        assert (plan.total, plan.row_words) == (m, row)
+
+
+def test_plans_at_the_main_path_shapes():
+    """In half a block's shared memory, the histogram's 256 rows go in
+    three windows of 86 (87 KB a block with the staged bounds), config
+    4's GLCM objects in ten windows of 26 (111 KB), L=32's in 43 of 6."""
+    hist = tfm.plan_hist(256, 256)
+    assert (hist.window, hist.windows, hist.smem_bytes) == (86, 3, (86 * 256 + 172) * 4)
+    glcm = tfm.plan_glcm(256, 16, 4)
+    assert (glcm.window, glcm.windows, glcm.flat) == (26, 10, False)
+    assert glcm.smem_bytes == (26 * 4 * 16 * 17 + 52) * 4 <= tfm.SMEM_BYTES // 2
+    assert (tfm.plan_glcm(256, 32, 4).window, tfm.plan_glcm(256, 32, 4).windows) == (6, 43)
+
+
+def test_planner_refuses_what_no_launch_takes():
+    with pytest.raises(ValueError):
+        tfm.plan_hist(0, 256)
+    with pytest.raises(ValueError):
+        tfm.plan_hist(256, 256, budget=8)
+
+
 # ------------------------------------------------- grouped_stats channel split
 @pytest.mark.parametrize("n_channels", [9, 32])
 def test_grouped_stats_channel_split_is_per_channel(sites, n_channels):

@@ -55,3 +55,15 @@ __device__ __forceinline__ int tm_quantize(float v, float lo, float span, int le
     float q = floorf(__fdiv_rn(__fmul_rn(__fsub_rn(v, lo), top), fmaxf(span, 1e-6f)));
     return (int)fminf(fmaxf(q, 0.0f), top);
 }
+
+// lo and span of object `l` (1..M) from the raw per-object min and max
+// (+inf/-inf where absent): the expression of masked_bounds
+// (tmlibrary_tpu/ops/fused_measure.py `_masked_bounds`).  An object the
+// bounds call absent gets lo 0, span 1, and its pixels are still counted.
+__device__ __forceinline__ void tm_object_bounds(const float* raw_lo, const float* raw_hi,
+                                                 int l, float* lo, float* span) {
+    float a = raw_lo[l - 1], b = raw_hi[l - 1];
+    bool present = b >= a;
+    *lo = present ? a : 0.0f;
+    *span = present ? __fsub_rn(b, *lo) : 1.0f;
+}

@@ -43,8 +43,13 @@ SIGNATURES = {
     "tm_cc_min_propagate": [_P, _P, _I, _I, _I, _I, _P],
     "tm_watershed_flood": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "tm_grouped_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "tm_intensity_hist": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "tm_glcm_all": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, *[_I] * 8, _P],
+    # labels, img, raw_lo, raw_hi, out, B, H, W, M, bins, window, windows, flat, stream
+    "tm_intensity_hist": [*[_P] * 5, *[_I] * 8, _P],
+    # ..., out, B, H, W, M, L, D, 8 offsets, window, windows, flat, stream
+    "tm_glcm_all": [*[_P] * 5, *[_I] * 17, _P],
+    # the first designs, for the A/B harness: ..., phases (1 memset, 2 kernel), stream
+    "tm_intensity_hist_atomic": [_P, _P, _P, _P, _P, *[_I] * 6, _P],
+    "tm_glcm_all_atomic": [_P, _P, _P, _P, _P, *[_I] * 15, _P],
     "tm_distance_transform": [_P, _P, _I, _I, _I, _I, _P],
     "tm_cc3d_min_propagate": [_P, _P, _I, _I, _I, _I, _I, _P],
     "tm_watershed3d_flood": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -24,9 +24,17 @@ the CPU — so sums are bit-identical to it, identical between the kernel
 and the plain version, and identical run to run (no float atomics).  Min
 and max, histogram and GLCM counts are exact in any order.  Rows ``0..n``
 do not depend on ``max_objects`` (``ops/reduction.capacity_segments``).
+
+The histogram and GLCM kernels count each site's table of uint32 in
+shared memory, window by window, in a thread-block cluster of two
+replicas (``csrc/count_table.cuh``); :func:`plan_hist` and
+:func:`plan_glcm` cut the table into windows.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -37,6 +45,12 @@ from tmlibrary_tpu_torch.ops.reduction import capacity_segments
 #: channels one ``grouped_stats`` kernel launch takes; more are split
 #: into groups of at most this many (each channel's row is independent)
 MAX_CHANNELS = 8
+
+#: dynamic shared memory one block may use on Hopper (227 KB)
+SMEM_BYTES = 232448
+#: shared memory a block's window may take: half of it leaves L1 for
+#: the scan and still holds 86 histogram rows or 26 GLCM objects
+HIST_SMEM = GLCM_SMEM = SMEM_BYTES // 2
 
 
 def _check_sites(name: str, labels: torch.Tensor, *others: torch.Tensor) -> None:
@@ -175,6 +189,84 @@ def quantize(
     return torch.clamp(q, 0, levels - 1).to(torch.int64)
 
 
+# ------------------------------------------------------ count-table windows
+@dataclass(frozen=True)
+class TablePlan:
+    """How a site's count table is cut into windows (``csrc/count_table.cuh``).
+    The table has ``total`` rows (objects) of ``row_words`` uint32 words;
+    ``windows`` windows of ``window`` rows each cover them, the last one
+    maybe shorter.  Each block of the cluster that handles a site holds a
+    replica of one window and the window's staged lo and span (two words
+    a row) in shared memory.  ``flat``: one row exceeds a
+    block's shared memory, so ``total`` counts cells and a window is a
+    range of single cells (``row_words`` 1, nothing staged)."""
+
+    total: int
+    window: int
+    windows: int
+    row_words: int
+    flat: bool = False
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block: the replica (words rounded
+        up to 4), then the staged bounds."""
+        staged = 0 if self.flat else 2 * self.window
+        return (-(-self.window * self.row_words // 4) * 4 + staged) * 4
+
+    def ranges(self) -> list[tuple[int, int]]:
+        """``[first, stop)`` rows (cells) of each window, the kernel's
+        arithmetic (``first = w * window``)."""
+        return [(min(self.total, w * self.window), min(self.total, (w + 1) * self.window))
+                for w in range(self.windows)]
+
+
+@functools.lru_cache(maxsize=None)
+def plan_table(rows: int, row_words: int, cells: int, budget: int) -> TablePlan:
+    """Windows of whole rows, as few as fit ``budget`` bytes a block and
+    as even as they can be; where one row exceeds the budget, windows of
+    ``cells`` single cells (in fours, for 16-byte stores)."""
+    if rows < 1:
+        raise ValueError(f"count table: {rows} rows")
+    words = budget // 4 - 3  # room to round the replica up to 4 words
+    per = words // (row_words + 2)
+    if per >= 1:
+        windows = -(-rows // per)
+        return TablePlan(rows, -(-rows // windows), windows, row_words)
+    words -= words % 4
+    if words < 4:
+        raise ValueError(f"count table: a budget of {budget} bytes holds no cells")
+    windows = -(-cells // words)
+    window = -(-cells // windows)
+    return TablePlan(cells, -(-window // 4) * 4, windows, 1, flat=True)
+
+
+def plan_hist(max_objects: int, bins: int, budget: int = HIST_SMEM) -> TablePlan:
+    """Windows of whole histogram rows (one object's ``bins`` counts)."""
+    return plan_table(max_objects, bins, max_objects * bins, budget)
+
+
+def plan_glcm(max_objects: int, levels: int, n_dirs: int,
+              budget: int = GLCM_SMEM) -> TablePlan:
+    """Windows of whole objects: an object's row holds its ``levels x
+    levels`` block for every direction, each padded to ``levels x (levels
+    + 1)`` words."""
+    return plan_table(max_objects, n_dirs * levels * (levels + 1),
+                      n_dirs * max_objects * levels * levels, budget)
+
+
+def _kernel_inputs(name, labels, intensity, max_objects, bounds):
+    """Labels int32, image float32 and the raw per-object ``(min, max)``
+    ``(B, max_objects)`` float32, contiguous: what the kernels read (they
+    evaluate :func:`masked_bounds` per object themselves)."""
+    _check_sites(name, labels, intensity)
+    raw_lo, raw_hi = (t.to(torch.float32).contiguous() for t in bounds)
+    if raw_lo.shape != (labels.shape[0], max_objects) or raw_hi.shape != raw_lo.shape:
+        raise ValueError(f"{name}: bounds must be (B, max_objects)")
+    return (labels.to(torch.int32).contiguous(), intensity.to(torch.float32).contiguous(),
+            raw_lo, raw_hi)
+
+
 def _bounds_inputs(name, labels, intensity, max_objects, bounds):
     _check_sites(name, labels, intensity)
     lo_full, span_full = masked_bounds(*bounds)
@@ -183,6 +275,26 @@ def _bounds_inputs(name, labels, intensity, max_objects, bounds):
     return (labels.to(torch.int32).contiguous(),
             intensity.to(torch.float32).contiguous(),
             lo_full.contiguous(), span_full.contiguous())
+
+
+def bind_launch(name: str, counter, tensors: tuple, *scalars):
+    """``launch()``: one call of the C entry point ``tm_<name>`` on the
+    pointers of ``tensors`` (the inputs, then the output), the scalars and
+    the current stream, adding one to ``counter.launches`` unless
+    ``counter`` is None; it returns the output.  The closure holds
+    ``tensors``, so the memory behind every pointer it passes stays theirs
+    for as long as ``launch`` lives, whatever the caller keeps."""
+    _cuda.require_cuda(name, *tensors)
+    fn = getattr(_cuda.lib(), f"tm_{name}")
+    args = (*(t.data_ptr() for t in tensors), *scalars, _cuda.stream())
+
+    def launch() -> torch.Tensor:
+        if counter is not None:
+            counter.launches += 1
+        _cuda.check(f"tm_{name}", fn(*args))
+        return tensors[-1]
+
+    return launch
 
 
 # ---------------------------------------------------------------- histogram
@@ -215,16 +327,23 @@ def intensity_hist(
     :func:`grouped_stats`' min/max of the same image."""
     if labels.device.type == "cpu":
         return intensity_hist_plain(labels, intensity, max_objects, bins, bounds)
-    labels, img, lo_full, span_full = _bounds_inputs(
+    return intensity_hist_launcher(labels, intensity, max_objects, bins, bounds)()
+
+
+def intensity_hist_launcher(
+    labels: torch.Tensor, intensity: torch.Tensor, max_objects: int, bins: int,
+    bounds: tuple[torch.Tensor, torch.Tensor], plan: "TablePlan | None" = None,
+):
+    """Check the inputs, allocate the output and return ``launch()``,
+    which runs the histogram kernel into it (every cell written) and
+    returns it.  ``plan`` defaults to :func:`plan_hist`'s."""
+    labels, img, raw_lo, raw_hi = _kernel_inputs(
         "intensity_hist", labels, intensity, max_objects, bounds)
+    plan = plan or plan_hist(max_objects, bins)
     b, h, w = labels.shape
     out = torch.empty((b, max_objects, bins), dtype=torch.float32, device=labels.device)
-    _cuda.require_cuda("intensity_hist", labels, img, lo_full, span_full, out)
-    intensity_hist.launches += 1
-    _cuda.check("tm_intensity_hist", _cuda.lib().tm_intensity_hist(
-        labels.data_ptr(), img.data_ptr(), lo_full.data_ptr(), span_full.data_ptr(),
-        out.data_ptr(), b, h, w, max_objects, bins, _cuda.stream()))
-    return out
+    return bind_launch("intensity_hist", intensity_hist, (labels, img, raw_lo, raw_hi, out),
+                       b, h, w, max_objects, bins, plan.window, plan.windows, int(plan.flat))
 
 
 intensity_hist.launches = 0
@@ -279,20 +398,34 @@ def glcm_all(
     raw per-object ``(min, max)`` of ``intensity``."""
     if labels.device.type == "cpu":
         return glcm_all_plain(labels, intensity, max_objects, levels, offsets, bounds)
+    out = glcm_all_launcher(labels, intensity, max_objects, levels, offsets, bounds)()
+    return [out[:, d] for d in range(out.shape[1])]
+
+
+def glcm_all_launcher(
+    labels: torch.Tensor, intensity: torch.Tensor, max_objects: int, levels: int,
+    offsets: list[tuple[int, int]], bounds: tuple[torch.Tensor, torch.Tensor],
+    plan: "TablePlan | None" = None,
+):
+    """As :func:`intensity_hist_launcher`, for the GLCM kernel: ``launch()``
+    returns the ``(B, D, max_objects, levels, levels)`` output; ``plan``
+    defaults to :func:`plan_glcm`'s."""
     offsets = _check_offsets(offsets)
-    labels, img, lo_full, span_full = _bounds_inputs(
+    labels, img, raw_lo, raw_hi = _kernel_inputs(
         "glcm_all", labels, intensity, max_objects, bounds)
+    plan = plan or plan_glcm(max_objects, levels, len(offsets))
     b, h, w = labels.shape
     n_dir = len(offsets)
     out = torch.empty((b, n_dir, max_objects, levels, levels), dtype=torch.float32,
                       device=labels.device)
-    dyx = [v for o in offsets + [(0, 0)] * (4 - n_dir) for v in o]
-    _cuda.require_cuda("glcm_all", labels, img, lo_full, span_full, out)
-    glcm_all.launches += 1
-    _cuda.check("tm_glcm_all", _cuda.lib().tm_glcm_all(
-        labels.data_ptr(), img.data_ptr(), lo_full.data_ptr(), span_full.data_ptr(),
-        out.data_ptr(), b, h, w, max_objects, levels, n_dir, *dyx, _cuda.stream()))
-    return [out[:, d] for d in range(n_dir)]
+    return bind_launch("glcm_all", glcm_all, (labels, img, raw_lo, raw_hi, out),
+                       b, h, w, max_objects, levels, n_dir, *padded_offsets(offsets),
+                       plan.window, plan.windows, int(plan.flat))
+
+
+def padded_offsets(offsets: list[tuple[int, int]]) -> list[int]:
+    """``dy0, dx0, ..., dy3, dx3`` for the C entry points (unused slots 0)."""
+    return [v for o in offsets + [(0, 0)] * (4 - len(offsets)) for v in o]
 
 
 glcm_all.launches = 0
