@@ -14,7 +14,12 @@ Phases (any failure exits non-zero before the last line):
    16x128x128, ``max_objects=256``, synthetic data, plus edge cases),
    hold each of the nine kernels against its plain PyTorch version on
    the card — exact for labels, masks, counts, distances, min and max,
-   ``rtol=1e-6`` for fractional sums; ``grouped_stats`` also on every
+   ``rtol=1e-6`` for fractional sums; the two 2-D floods on every route
+   (on chip, on chip with frontier lists of 16, the first design as
+   ``global``) on the main and declumping inputs, edge sites, a 1-px
+   spiral, a tied plateau, seed ids beyond 16 bits and negative, 1, 254
+   and 255 levels, connectivity 4 and 8, a 255x253 crop and
+   a 1024x1024 site, printing the routes taken; ``grouped_stats`` also on every
    channel list that morphology and Zernike hand it (1, 3, 7 and 32
    channels); the distance transform also at a cap of 2, the 3-D
    labeling at connectivity 6, 18 and 26, the 3-D flood on a tied
@@ -23,12 +28,14 @@ Phases (any failure exits non-zero before the last line):
    A/B harness, also on a site with all 256 object slots present, a
    site-sized object at one value, bounds that call present objects
    absent, M=255, planes that are not 16-byte aligned, and every window
-   plan — and time the public wrapper (for these two also the launch
-   alone), the plain version and, where one PyTorch call computes the
+   plan — and time the public wrapper (for the floods and these two
+   also the launch alone), the plain version and, where one PyTorch call computes the
    same function, that call (a yardstick the port never calls) with CUDA
    events after warm-up.
    Then ``tmlibrary_tpu_torch/shootout.py``, the interleaved A/B
-   harness: best-of-7 times of row 2's kernel against its plain labeling
+   harness: best-of-7 times of the two floods against their first designs
+   (taken apart: fully labelled sites, one level, all-foreground masks),
+   of row 2's kernel against its plain labeling
    and of the histogram and GLCM kernels against their window sizes,
    their first designs (taken apart: memset, counting on zero, real and
    flat inputs) and the ``bincount``/``index_add_`` yardsticks.
@@ -198,27 +205,13 @@ def phase_kernels(torch, pkg, inputs):
     card at config 3's and config 4's shapes, edge sites included (rows
     5-6 in :func:`phase_table_kernels`)."""
     kernels, fm, measure = pkg["kernels"], pkg["fused_measure"], pkg["measure"]
-    dapi_mask, filled, nuclei, actin, actin_mask, dapi, cells = (inputs[k] for k in (
-        "dapi_mask", "filled", "nuclei", "actin", "actin_mask", "dapi", "cells"))
+    filled, nuclei, dapi, cells = (inputs[k] for k in ("filled", "nuclei", "dapi", "cells"))
     edges = edge_sites(torch, dapi.device)
     px = B * SIZE * SIZE
     records = []
     compare = make_compare(torch)
 
-    # fill_holes_flood: the Otsu masks of the main path, plus edge sites
-    err = compare("fill_holes_flood", kernels.fill_holes_flood(dapi_mask),
-                  kernels.fill_holes_flood_plain(dapi_mask))
-    err = max(err, compare("fill_holes_flood[edge]", kernels.fill_holes_flood(edges),
-                           kernels.fill_holes_flood_plain(edges)))
-    records.append(dict(
-        name="fill_holes_flood",
-        source="tmlibrary_tpu_torch/csrc/fill_holes.cu",
-        replaces="tmlibrary_tpu/ops/pallas_kernels.py:323",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: kernels.fill_holes_flood(dapi_mask), 20),
-        plain_ms=cuda_ms(torch, lambda: kernels.fill_holes_flood_plain(dapi_mask), 3, 1),
-        bytes=px * (1 + 1), ops=px * 4, library_ms=None,
-    ))
+    records += phase_floods(torch, kernels, pkg["shootout"], inputs, compare)
 
     # cc_min_propagate: the filled masks, plus edge sites (serpentine, noise)
     err = compare("cc_min_propagate", kernels.cc_min_propagate(filled),
@@ -235,26 +228,6 @@ def phase_kernels(torch, pkg, inputs):
         ms=cuda_ms(torch, lambda: kernels.cc_min_propagate(filled), 20),
         plain_ms=cuda_ms(torch, lambda: kernels.cc_min_propagate_plain(filled), 3, 1),
         bytes=px * (1 + 4), ops=px * 8, library_ms=None,
-    ))
-
-    # watershed_flood: Actin through its Otsu mask from the nuclei seeds
-    got = kernels.watershed_flood(actin, nuclei, actin_mask, n_levels=16)
-    err = compare("watershed_flood", got,
-                  kernels.watershed_flood_plain(actin, nuclei, actin_mask, 16))
-    seeded = nuclei > 0
-    if not torch.equal(got[seeded], nuclei[seeded]):
-        raise SmokeFailure("watershed_flood: a seed lost its label")
-    if bool((got[~(actin_mask | seeded)] != 0).any()):
-        raise SmokeFailure("watershed_flood: label outside mask | seeds")
-    records.append(dict(
-        name="watershed_flood",
-        source="tmlibrary_tpu_torch/csrc/watershed_flood.cu",
-        replaces="tmlibrary_tpu/ops/pallas_kernels.py:244",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: kernels.watershed_flood(actin, nuclei, actin_mask, 16), 10),
-        plain_ms=cuda_ms(
-            torch, lambda: kernels.watershed_flood_plain(actin, nuclei, actin_mask, 16), 2, 1),
-        bytes=px * (4 + 4 + 1 + 4), ops=px * 8, library_ms=None,
     ))
 
     # grouped_stats: intensity_features' channels [1, v, v^2] of DAPI
@@ -298,6 +271,162 @@ def phase_kernels(torch, pkg, inputs):
     return records
 
 
+def spiral_site(torch, cells):
+    """A one-pixel background corridor carved through foreground from a
+    door on the border to the centre, in a rectangular spiral over
+    ``cells`` x ``cells`` cells (``2 * cells + 1`` pixels a side), its
+    last cell cut off (a hole): every turn costs the on-chip fill a pass."""
+    m = torch.ones((2 * cells + 1, 2 * cells + 1), dtype=torch.bool)
+    top, left, bottom, right = 0, 0, cells - 1, cells - 1
+    order = []
+    while top <= bottom and left <= right:
+        order += [(top, j) for j in range(left, right + 1)]
+        order += [(i, right) for i in range(top + 1, bottom + 1)]
+        if top < bottom:
+            order += [(bottom, j) for j in range(right - 1, left - 1, -1)]
+        if left < right:
+            order += [(i, left) for i in range(bottom - 1, top, -1)]
+        top, left, bottom, right = top + 1, left + 1, bottom - 1, right - 1
+    m[0, 1] = False
+    for i, j in order:
+        m[2 * i + 1, 2 * j + 1] = False
+    for (a, b), (c, d) in zip(order[:-2], order[1:-1]):
+        m[a + c + 1, b + d + 1] = False
+    return m
+
+
+def flood_cases(torch, shootout, inputs):
+    """Inputs of the edge checks for the two floods.  Watershed: name ->
+    (intensity, seeds, mask, n_levels, connectivity); fill: name ->
+    (masks, connectivity).  The main path's and the declumping path's
+    inputs, edge sites, a 2-D tied plateau, seed ids at and beyond 16 bits
+    and negative, 1, 254 (the most on chip) and 255 levels, both
+    connectivities, a 255x253 crop
+    and one 1024x1024 site (too large for the on-chip routes)."""
+    actin, nuclei, am, dapi_mask = (inputs[k] for k in ("actin", "nuclei", "actin_mask",
+                                                        "dapi_mask"))
+    dev = actin.device
+    edges = edge_sites(torch, dev)
+    g = torch.Generator().manual_seed(SEED + 2)
+    e_img = torch.rand(edges.shape, generator=g).to(dev)
+    e_seeds = torch.zeros(edges.shape, dtype=torch.int32, device=dev)
+    e_seeds[:, 0, 0], e_seeds[:, SIZE // 2, SIZE // 3], e_seeds[:, -1, -1] = 1, 2, 3
+    flat = torch.ones((1, SIZE, SIZE), device=dev)
+    tie = torch.zeros((1, SIZE, SIZE), dtype=torch.int32, device=dev)
+    tie[0, SIZE // 2, SIZE // 4], tie[0, SIZE // 2, 3 * SIZE // 4] = 1, 3
+    tie[0, SIZE // 4, SIZE // 2] = 2
+    ids = nuclei[:4].clone()
+    ids[0][ids[0] == 1] = 70000          # beyond 16 bits: the global loop, same launch
+    ids[0][ids[0] == 2] = 2**31 - 1
+    ids[1][ids[1] == 1] = 65534          # the largest id on chip
+    ids[2, 10:20, 10:20] = -5            # negative: keeps its value, never spreads
+    ids[3][ids[3] == 1] = -1
+    crop = tuple(t[:8, 1:, 3:].contiguous() for t in (actin, nuclei, am))
+    large = tuple(t[:1].repeat(1, 4, 4) for t in (actin, nuclei, am))
+    ws = {
+        "main": (actin, nuclei, am, 16, 8),
+        "main,4": (actin, nuclei, am, 16, 4),
+        "declump": (*shootout.declump_inputs(inputs["filled"]), 32, 8),
+        "edge": (e_img, e_seeds, edges, 16, 8),
+        "edge,4": (e_img, e_seeds, edges, 16, 4),
+        "plateau": (flat, tie, torch.ones_like(flat, dtype=torch.bool), 16, 8),
+        "plateau,4": (flat, tie, torch.ones_like(flat, dtype=torch.bool), 16, 4),
+        "ids": (actin[:4], ids, am[:4], 16, 8),
+        "levels1": (actin, nuclei, am, 1, 8),
+        "levels254": (actin[:8], nuclei[:8], am[:8], 254, 8),
+        "levels255": (actin[:8], nuclei[:8], am[:8], 255, 8),
+        "crop": (*crop, 16, 8),
+        "1024": (*large, 16, 8),
+    }
+    spiral = torch.zeros((1, SIZE, SIZE), dtype=torch.bool)
+    spiral[0, : SIZE - 1, : SIZE - 1] = spiral_site(torch, (SIZE - 1) // 2)
+    fill = {}
+    for conn in (4, 8):
+        fill.update({f"main,{conn}": (dapi_mask, conn), f"edge,{conn}": (edges, conn),
+                     f"spiral,{conn}": (spiral.to(dev), conn),
+                     f"crop,{conn}": (dapi_mask[:8, 1:, 3:].contiguous(), conn),
+                     f"1024,{conn}": (dapi_mask[:1].repeat(1, 4, 4), conn)})
+    return ws, fill
+
+
+def phase_floods(torch, kernels, shootout, inputs, compare) -> list[dict]:
+    """Phase 2, rows 1 and 3: ``fill_holes_flood`` and ``watershed_flood``
+    on every route -- the public wrapper (the route its planner picks),
+    the on-chip kernel with frontier lists of 16 (most steps overflow into
+    scans) and the first design on global planes (``global``) -- each
+    exact against the plain version on every input of
+    :func:`flood_cases`; prints the routes each input took.
+    ``ms`` times the public wrapper on the main path's inputs,
+    ``launch_ms`` the launch alone."""
+    ws_cases, fill_cases = flood_cases(torch, shootout, inputs)
+    glob = kernels.FloodPlan("global")
+    fill_err = 0.0
+    for name, (masks, conn) in fill_cases.items():
+        want = kernels.fill_holes_flood_plain(masks, conn)
+        plan = kernels.fill_plan(masks.shape)
+        runs = {f"wrapper({plan.route})": lambda: kernels.fill_holes_flood(masks, conn),
+                "global": kernels.fill_holes_launcher(masks, conn, glob)}
+        for who, run in runs.items():
+            fill_err = max(fill_err, compare(f"fill_holes_flood[{name},{who}]", run(), want))
+        print(f"  fill_holes_flood[{name}]: {tuple(masks.shape)}, exact on "
+              + ", ".join(runs))
+    ws_err = 0.0
+    for name, (img, seeds, mask, levels, conn) in ws_cases.items():
+        args = (img, seeds, mask, levels, conn)
+        want = kernels.watershed_flood_plain(*args)
+        plan = kernels.watershed_plan(img.shape, levels)
+        got = kernels.watershed_flood(*args)
+        ws_err = max(ws_err, compare(f"watershed_flood[{name},wrapper]", got, want))
+        site = kernels.watershed_flood.site_routes.tolist()
+        runs = {"global": kernels.watershed_flood_launcher(*args, plan=glob)}
+        if plan.route == "onchip":
+            runs["cap16"] = kernels.watershed_flood_launcher(
+                *args, plan=kernels.watershed_plan(img.shape, levels, 16))
+        for who, launch in runs.items():
+            ws_err = max(ws_err, compare(f"watershed_flood[{name},{who}]", launch(), want))
+        if name in ("main", "ids") and runs.get("cap16") is not None:
+            if runs["cap16"].site_routes.tolist() != site:
+                raise SmokeFailure(f"watershed_flood[{name}]: site routes differ with cap 16")
+        seeded = seeds > 0
+        if not torch.equal(got[seeded], seeds[seeded]):
+            raise SmokeFailure(f"watershed_flood[{name}]: a seed lost its label")
+        if bool((got[~(mask | seeded)] != 0).any()):
+            raise SmokeFailure(f"watershed_flood[{name}]: label outside mask | seeds")
+        if name.startswith("plateau") and int(got[0, SIZE // 2, SIZE // 2]) != 3:
+            raise SmokeFailure(f"watershed_flood[{name}]: the tie did not go to the larger label")
+        if name == "levels254" and plan.route != "onchip":
+            raise SmokeFailure("watershed_flood[levels254]: 254 levels must run on chip")
+        expect = [1] if plan.route == "global" else [0]
+        if name == "ids":
+            expect = [1, 0, 0, 0]
+            neg = seeds < 0
+            if not torch.equal(got[neg & mask], seeds[neg & mask]):
+                raise SmokeFailure("watershed_flood[ids]: a negative seed changed")
+        if set(site) != set(expect) or (name == "ids" and site != expect):
+            raise SmokeFailure(f"watershed_flood[{name}]: site routes {site}, expected {expect}")
+        print(f"  watershed_flood[{name}]: {tuple(img.shape)}, {levels} levels, "
+              f"connectivity {conn}: wrapper route {plan.route}"
+              f"{f' (cap {plan.cap})' if plan.cap else ''}, sites on chip {site.count(0)}, "
+              f"global {site.count(1)}; exact on wrapper, " + ", ".join(runs))
+
+    dapi_mask, actin, nuclei, am = (inputs[k] for k in ("dapi_mask", "actin", "nuclei",
+                                                        "actin_mask"))
+    px = B * SIZE * SIZE
+    ws_args = (actin, nuclei, am, 16)
+    return [
+        dict(name="fill_holes_flood", source="tmlibrary_tpu_torch/csrc/fill_holes.cu",
+             replaces="tmlibrary_tpu/ops/pallas_kernels.py:323", max_abs_err=fill_err,
+             ms=cuda_ms(torch, lambda: kernels.fill_holes_flood(dapi_mask), 20),
+             launch_ms=cuda_ms(torch, kernels.fill_holes_launcher(dapi_mask), 20),
+             plain_ms=cuda_ms(torch, lambda: kernels.fill_holes_flood_plain(dapi_mask), 3, 1),
+             bytes=px * (1 + 1), ops=px * 4, library_ms=None),
+        dict(name="watershed_flood", source="tmlibrary_tpu_torch/csrc/watershed_flood.cu",
+             replaces="tmlibrary_tpu/ops/pallas_kernels.py:244", max_abs_err=ws_err,
+             ms=cuda_ms(torch, lambda: kernels.watershed_flood(*ws_args), 20),
+             launch_ms=cuda_ms(torch, kernels.watershed_flood_launcher(*ws_args), 20),
+             plain_ms=cuda_ms(torch, lambda: kernels.watershed_flood_plain(*ws_args), 2, 1),
+             bytes=px * (4 + 4 + 1 + 4), ops=px * 8, library_ms=None),
+    ]
 def table_edge_batches(torch, device) -> dict:
     """Label and image batches at the count tables' edges: a site with all
     256 object slots present (a 16x16 grid of 16x16 blocks, ids 1..256,
@@ -694,10 +823,12 @@ def main() -> int:
             "watershed3d_flood": volume.watershed3d_flood,
         }
         segment = ["fill_holes_flood", "cc_min_propagate", "watershed_flood", "grouped_stats"]
+        floods = ["fill_holes_flood", "watershed_flood"]  # every launch and site on chip
         # (a) config 3
         desc3 = benchmarks.cell_painting_description()
         run3 = drive_path(torch, pipeline, "config 3", desc3, data, wrappers, need=segment,
-                          card=card)
+                          card=card, expect={"fill_holes_flood": 1, "watershed_flood": 1},
+                          onchip=floods)
         kernel_ms = sum(r["ms"] * run3["launches"][r["name"]] for r in records)
         print(f"  the kernels: {kernel_ms:.2f} ms of a batch at their phase-2 times ({card})")
         print_stages(card, stage_breakdown(
@@ -709,7 +840,7 @@ def main() -> int:
         data4 = benchmarks.synthetic_full_stack_batch(B, size=SIZE, seed=SEED)
         desc4 = benchmarks.full_feature_description()
         run4 = drive_path(torch, pipeline, "config 4", desc4, data4, wrappers,
-                          need=segment + ["glcm_all"], card=card)
+                          need=segment + ["glcm_all"], card=card, onchip=floods)
         print_stages(card, stage_breakdown_full(torch, data4, run4["objects"]))
 
         # (c) config 3 with measure_intensity(quantiles=True)
@@ -722,7 +853,7 @@ def main() -> int:
         ]
         desc_q = PipelineDescription.from_dict(pipe)
         run_q = drive_path(torch, pipeline, "quantiles", desc_q, data, wrappers,
-                           need=segment + ["intensity_hist"], card=card)
+                           need=segment + ["intensity_hist"], card=card, onchip=floods)
         if run_q["launches"]["intensity_hist"] != 2:
             raise SmokeFailure("intensity_hist: expected 2 launches per batch, got "
                                f"{run_q['launches']['intensity_hist']}")
@@ -732,7 +863,7 @@ def main() -> int:
             torch, pipeline, "declump", benchmarks.cell_painting_declump_description(), data,
             wrappers, need=[], card=card, expect={
                 "fill_holes_flood": 1, "cc_min_propagate": 1, "distance_transform": 1,
-                "watershed_flood": 2, "grouped_stats": 2})
+                "watershed_flood": 2, "grouped_stats": 2}, onchip=floods)
         gained = int(run_d["counts"]["nuclei"].sum() - run3["counts"]["nuclei"].sum())
         print(f"  declumping finds {gained} more nuclei than config 3 in the batch of {B} "
               f"({int(run3['counts']['nuclei'].sum())} -> "
@@ -804,12 +935,14 @@ def stage_breakdown(torch, pkg_ops, dapi, actin, nuclei, actin_mask) -> dict:
 
 
 def drive_path(torch, pipeline, title, desc, data, wrappers, need, card,
-               expect=None) -> dict:
+               expect=None, onchip=()) -> dict:
     """Drive one path through ``build_batch_fn`` on the card: a warm-up
     call, then every launch counter set to 0, one call, the counters read
     (each kernel in ``need`` must have launched, each in ``expect``
-    exactly that often), the first sites held to the port's CPU run, and
-    the batch timed over 5 calls."""
+    exactly that often, each flood in ``onchip`` every time on the on-chip
+    route, the watershed with every site of its last launch on chip), the
+    first sites held to the port's CPU run, and the batch timed over 5
+    calls."""
     n = next(iter(data.values())).shape[0]
     raw, stats, shifts = pipeline.from_jax_inputs(data, {}, [[0, 0]] * n, device="cuda")
     fn = pipeline.ImageAnalysisPipeline(desc, MAX_OBJECTS, device="cuda").build_batch_fn()
@@ -817,18 +950,29 @@ def drive_path(torch, pipeline, title, desc, data, wrappers, need, card,
     torch.cuda.synchronize()
     for w in wrappers.values():
         w.launches = 0
+        if hasattr(w, "routes"):
+            w.routes = dict.fromkeys(w.routes, 0)
     t0 = time.perf_counter()
     result = fn(raw, stats, shifts)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"phase 3, {title}: launches {launches}")
+    routes = {k: {r: c for r, c in w.routes.items() if c}
+              for k, w in wrappers.items() if hasattr(w, "routes") and w.launches}
+    print(f"phase 3, {title}: launches {launches}; routes {routes}")
     for k in need:
         if launches[k] < 1:
             raise SmokeFailure(f"{title}: {k} was not launched on this path")
     for k, count in (expect or {}).items():
         if launches[k] != count:
             raise SmokeFailure(f"{title}: {k} launched {launches[k]} times, expected {count}")
+    for k in onchip:
+        if wrappers[k].routes != {"onchip": launches[k], "global": 0}:
+            raise SmokeFailure(f"{title}: {k} routes {wrappers[k].routes}, expected all "
+                               "launches on chip")
+        site = getattr(wrappers[k], "site_routes", None)
+        if k == "watershed_flood" and (site is None or bool((site != 0).any())):
+            raise SmokeFailure(f"{title}: watershed_flood sites off chip: {site}")
 
     card_res = pipeline.site_result_to_numpy(result)
     sub = {k: v[:N_CPU_SITES] for k, v in data.items()}

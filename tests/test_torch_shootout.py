@@ -19,6 +19,7 @@ import torch
 from tmlibrary_tpu_torch import shootout
 from tmlibrary_tpu_torch.errors import DeviceError
 from tmlibrary_tpu_torch.ops import fused_measure as tfm
+from tmlibrary_tpu_torch.ops import kernels as tk
 from tmlibrary_tpu_torch.ops.measure import grouped_minmax
 
 torch.set_num_threads(1)
@@ -97,7 +98,8 @@ class _RecordingLib:
         return lambda *args: self.calls.append((entry, args)) or 0
 
 
-@pytest.mark.parametrize("name", ["hist", "glcm", "hist_atomic", "glcm_atomic"])
+@pytest.mark.parametrize("name", ["hist", "glcm", "hist_atomic", "glcm_atomic", "watershed",
+                                  "watershed_global", "fill", "fill_global"])
 def test_launchers_hold_the_memory_they_pass(monkeypatch, name):
     """The harness builds every launcher first and times them later, while
     other variants allocate: a launcher must hold each tensor whose
@@ -109,6 +111,8 @@ def test_launchers_hold_the_memory_they_pass(monkeypatch, name):
     monkeypatch.setattr(tfm._cuda, "stream", lambda: 0)
     monkeypatch.setattr(tfm.intensity_hist, "launches", 0)
     monkeypatch.setattr(tfm.glcm_all, "launches", 0)
+    monkeypatch.setattr(tk.watershed_flood, "launches", 0)
+    monkeypatch.setattr(tk.fill_holes_flood, "launches", 0)
     passed = []
     data_ptr = torch.Tensor.data_ptr
 
@@ -123,20 +127,31 @@ def test_launchers_hold_the_memory_they_pass(monkeypatch, name):
     img = torch.rand((1, 8, 8), dtype=torch.float64)
     bounds = (torch.zeros((1, 4), dtype=torch.float64),
               torch.ones((1, 4), dtype=torch.float64))
-    launch = {
-        "hist": lambda: tfm.intensity_hist_launcher(lab, img, 4, 16, bounds),
-        "glcm": lambda: tfm.glcm_all_launcher(lab, img, 4, 8, shootout.OFFSETS, bounds),
-        "hist_atomic": lambda: shootout.intensity_hist_atomic(lab, img, 4, 16, bounds),
-        "glcm_atomic": lambda: shootout.glcm_all_atomic(lab, img, 4, 8, shootout.OFFSETS,
-                                                        bounds),
-    }[name]()
-    del lab, img, bounds
+    # (a uint8 mask: the flood launchers' bool masks are theirs too)
+    mask = torch.ones((1, 8, 8), dtype=torch.uint8)
+    glob = tk.FloodPlan("global")
+    launch, n_passed = {
+        "hist": (lambda: tfm.intensity_hist_launcher(lab, img, 4, 16, bounds), 5),
+        "glcm": (lambda: tfm.glcm_all_launcher(lab, img, 4, 8, shootout.OFFSETS, bounds), 5),
+        "hist_atomic": (lambda: shootout.intensity_hist_atomic(lab, img, 4, 16, bounds), 5),
+        "glcm_atomic": (lambda: shootout.glcm_all_atomic(lab, img, 4, 8, shootout.OFFSETS,
+                                                         bounds), 5),
+        # intensity, seeds, mask, scratch, site routes, labels
+        "watershed": (lambda: tk.watershed_flood_launcher(img, lab, mask, 4), 6),
+        "watershed_global": (lambda: tk.watershed_flood_launcher(img, lab, mask, 4, plan=glob),
+                             6),
+        # mask, (reached flags,) output
+        "fill": (lambda: tk.fill_holes_launcher(mask), 2),
+        "fill_global": (lambda: tk.fill_holes_launcher(mask, plan=glob), 3),
+    }[name]
+    launch = launch()
+    del lab, img, bounds, mask
     gc.collect()
-    assert len(passed) == 5 and all(r() is not None for r in passed)
+    assert len(passed) == n_passed and all(r() is not None for r in passed)
     out = launch()
     assert out is passed[-1]()
     ((entry, args),) = lib.calls
-    assert entry.startswith("tm_") and list(args[:5]) == [data_ptr(r()) for r in passed]
+    assert entry.startswith("tm_") and list(args[:n_passed]) == [data_ptr(r()) for r in passed]
     del launch, out
     gc.collect()
     assert all(r() is None for r in passed)

@@ -3,11 +3,12 @@
 // Layout convention: every kernel takes a batch of sites laid out as
 // (B, H, W) contiguous arrays and launches one block per site
 // (grid = B).  A 256x256 int32 site is 256 KB, more than the 227 KB of
-// shared memory one block can use, so the fixpoint kernels iterate over
-// the site in global memory; a batch of 64 sites with two 256 KB planes
-// each is ~33 MB and stays resident in the 50 MB L2.  Keeping a site on
-// chip (a narrower label type, or a thread-block cluster sharing
-// distributed shared memory) is later work.
+// shared memory one block can use, so the 3-D fixpoints and the CC
+// kernel iterate over the site in global memory; a batch of 64 sites with
+// two 256 KB planes each is ~33 MB and stays resident in the 50 MB L2.
+// The 2-D floods keep a site on chip in narrower types (16-bit labels and
+// a byte of band, or bit planes) and take the global planes only for
+// sites that do not fit.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -39,9 +39,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
-    "tm_fill_holes": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # mask, out, B, H, W, connectivity, stream
+    "tm_fill_holes": [_P, _P, _I, _I, _I, _I, _P],
+    # mask, reach, out, B, H, W, connectivity, stream
+    "tm_fill_holes_global": [_P, _P, _P, *[_I] * 4, _P],
     "tm_cc_min_propagate": [_P, _P, _I, _I, _I, _I, _P],
-    "tm_watershed_flood": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # intensity, seeds, mask, scratch, site_route, out, B, H, W, n_levels,
+    # connectivity, (on chip) the list capacity, stream
+    "tm_watershed_flood": [*[_P] * 6, *[_I] * 6, _P],
+    "tm_watershed_flood_global": [*[_P] * 6, *[_I] * 5, _P],
     "tm_grouped_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # labels, img, raw_lo, raw_hi, out, B, H, W, M, bins, window, windows, flat, stream
     "tm_intensity_hist": [*[_P] * 5, *[_I] * 8, _P],
@@ -153,3 +159,26 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise DeviceError(f"{name}: expected CUDA tensors, got {t.device}")
         if not t.is_contiguous():
             raise DeviceError(f"{name}: expected contiguous tensors")
+
+
+def bind_launch(name: str, counter, tensors: tuple, *scalars, route: "str | None" = None):
+    """``launch()``: one call of the C entry point ``tm_<name>`` on the
+    pointers of ``tensors`` (the inputs, then the output), the scalars and
+    the current stream, adding one to ``counter.launches`` (and, with a
+    ``route``, to ``counter.routes[route]``) unless ``counter`` is None; it
+    returns the output.  The closure holds ``tensors``, so the memory
+    behind every pointer it passes stays theirs for as long as ``launch``
+    lives, whatever the caller keeps."""
+    require_cuda(name, *tensors)
+    fn = getattr(lib(), f"tm_{name}")
+    args = (*(t.data_ptr() for t in tensors), *scalars, stream())
+
+    def launch() -> torch.Tensor:
+        if counter is not None:
+            counter.launches += 1
+            if route is not None:
+                counter.routes[route] += 1
+        check(f"tm_{name}", fn(*args))
+        return tensors[-1]
+
+    return launch

@@ -39,6 +39,7 @@ from dataclasses import dataclass
 import torch
 
 from tmlibrary_tpu_torch.ops import _cuda
+from tmlibrary_tpu_torch.ops._cuda import bind_launch
 from tmlibrary_tpu_torch.ops.kernels import shift_with_fill
 from tmlibrary_tpu_torch.ops.reduction import capacity_segments
 
@@ -275,26 +276,6 @@ def _bounds_inputs(name, labels, intensity, max_objects, bounds):
     return (labels.to(torch.int32).contiguous(),
             intensity.to(torch.float32).contiguous(),
             lo_full.contiguous(), span_full.contiguous())
-
-
-def bind_launch(name: str, counter, tensors: tuple, *scalars):
-    """``launch()``: one call of the C entry point ``tm_<name>`` on the
-    pointers of ``tensors`` (the inputs, then the output), the scalars and
-    the current stream, adding one to ``counter.launches`` unless
-    ``counter`` is None; it returns the output.  The closure holds
-    ``tensors``, so the memory behind every pointer it passes stays theirs
-    for as long as ``launch`` lives, whatever the caller keeps."""
-    _cuda.require_cuda(name, *tensors)
-    fn = getattr(_cuda.lib(), f"tm_{name}")
-    args = (*(t.data_ptr() for t in tensors), *scalars, _cuda.stream())
-
-    def launch() -> torch.Tensor:
-        if counter is not None:
-            counter.launches += 1
-        _cuda.check(f"tm_{name}", fn(*args))
-        return tensors[-1]
-
-    return launch
 
 
 # ---------------------------------------------------------------- histogram

@@ -13,14 +13,25 @@ dispatches on the tensor's device: a CPU tensor goes to the ``*_plain``
 version (synchronous PyTorch steps to the same fixpoint), a CUDA tensor
 to the kernel, which launches or raises — there is no fallback from one
 to the other.  Each wrapper counts its kernel launches in ``.launches``.
+
+The two 2-D floods have two routes each, picked from the shapes (and
+the level count) before the launch, never after a failure:
+``"onchip"``, the site in one block's shared memory, and ``"global"``,
+the first design, on planes in global memory, for sites that do not fit
+(:func:`watershed_plan`, :func:`fill_plan`).  Their wrappers also count
+launches by route in ``.routes``; ``*_launcher`` builds a launch on a
+given plan, for the A/B harness and the chip smoke.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from tmlibrary_tpu_torch.ops import _cuda
+from tmlibrary_tpu_torch.ops._cuda import bind_launch
 from tmlibrary_tpu_torch.ops._exact import div
 
 #: sentinel for "no label yet" in min-propagation (same value as the JAX
@@ -78,6 +89,65 @@ def _check_sites(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: site too large for int32 linear labels")
 
 
+# ------------------------------------------------------ routes of the floods
+#: shared memory one block can use on Hopper (the on-chip floods and the
+#: distance kernel keep a site there)
+SMEM_BYTES = 227 * 1024
+#: the on-chip watershed holds labels in 16 bits (0xFFFF marks a pixel
+#: claimed in the current step), a pixel index of its frontier lists in 16
+#: bits and each pixel's band in one byte (255: never eligible)
+WS_MAX_ID, WS_MAX_PIXELS, WS_MAX_LEVELS = 65534, 65536, 254
+#: static shared memory of the on-chip watershed (levels, reductions, counts)
+WS_STATIC_BYTES = 2048
+
+
+@dataclass(frozen=True)
+class FloodPlan:
+    """How a flood kernel runs a batch: ``route`` ``"onchip"`` (a site in
+    one block's shared memory) or ``"global"`` (the first design's planes
+    in global memory); ``cap``, the length of each of the on-chip watershed's two
+    frontier lists."""
+
+    route: str
+    cap: int = 0
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def watershed_plan(shape, n_levels: int, cap: "int | None" = None) -> FloodPlan:
+    """The watershed's route for ``(..., H, W)`` sites: on chip when a site
+    has at most :data:`WS_MAX_PIXELS` pixels and ``n_levels`` is at most
+    :data:`WS_MAX_LEVELS`, with frontier lists as long as the rest of
+    shared memory allows (a shorter ``cap`` makes steps overflow into
+    scans of the site, which give the same labels); else global."""
+    h, w = shape[-2:]
+    n = h * w
+    if n > WS_MAX_PIXELS or n_levels > WS_MAX_LEVELS:
+        return FloodPlan("global")
+    room = (SMEM_BYTES - WS_STATIC_BYTES - 2 * _round_up(n, 8) - _round_up(n, 16)) // 4
+    if cap is None:
+        cap = max(1, min(room, n))
+    if not 1 <= cap <= room:
+        raise ValueError(f"watershed_plan: cap must be in [1, {room}], got {cap}")
+    return FloodPlan("onchip", cap)
+
+
+def fill_plane_bytes(h: int, w: int) -> int:
+    """Shared memory of the on-chip fill: four bit planes (background and
+    reached, row-major and transposed) over the site padded to 32x32
+    tiles."""
+    return 4 * 4 * 32 * (_round_up(h, 32) // 32) * (_round_up(w, 32) // 32)
+
+
+def fill_plan(shape) -> FloodPlan:
+    """The fill's route for ``(..., H, W)`` sites: on chip when its bit
+    planes fit one block's shared memory (up to 672x672), else global."""
+    h, w = shape[-2:]
+    return FloodPlan("onchip" if fill_plane_bytes(h, w) <= SMEM_BYTES else "global")
+
+
 # -------------------------------------------------------------- fill holes
 def fill_holes_flood_plain(mask: torch.Tensor, connectivity: int = 4) -> torch.Tensor:
     """Border flood through ``connectivity``-connected background; what the
@@ -101,6 +171,23 @@ def fill_holes_flood_plain(mask: torch.Tensor, connectivity: int = 4) -> torch.T
     return mask | (bg & ~reach)
 
 
+def fill_holes_launcher(mask: torch.Tensor, connectivity: int = 4,
+                        plan: "FloodPlan | None" = None, counter=None):
+    """``launch()`` of the fill kernel on ``(B, H, W)`` CUDA masks by
+    ``plan`` (default :func:`fill_plan`), returning the filled masks; it
+    counts in ``counter``'s record."""
+    plan = plan or fill_plan(mask.shape)
+    mask = mask.to(torch.bool).contiguous()
+    out = torch.empty_like(mask)
+    b, h, w = mask.shape
+    if plan.route == "onchip":
+        return bind_launch("fill_holes", counter, (mask, out), b, h, w, connectivity,
+                           route="onchip")
+    reach = torch.empty(mask.shape, dtype=torch.uint8, device=mask.device)
+    return bind_launch("fill_holes_global", counter, (mask, reach, out), b, h, w,
+                       connectivity, route="global")
+
+
 def fill_holes_flood(mask: torch.Tensor, connectivity: int = 4) -> torch.Tensor:
     """Filled ``(B, H, W)`` bool masks (scipy ``binary_fill_holes`` at
     background connectivity 4)."""
@@ -109,19 +196,11 @@ def fill_holes_flood(mask: torch.Tensor, connectivity: int = 4) -> torch.Tensor:
         raise ValueError("connectivity must be 4 or 8")
     if mask.device.type == "cpu":
         return fill_holes_flood_plain(mask, connectivity)
-    mask = mask.to(torch.bool).contiguous()
-    out = torch.empty_like(mask)
-    reach = torch.empty(mask.shape, dtype=torch.uint8, device=mask.device)
-    _cuda.require_cuda("fill_holes_flood", mask, out, reach)
-    b, h, w = mask.shape
-    fill_holes_flood.launches += 1
-    _cuda.check("tm_fill_holes", _cuda.lib().tm_fill_holes(
-        mask.data_ptr(), out.data_ptr(), reach.data_ptr(), b, h, w,
-        connectivity, _cuda.stream()))
-    return out
+    return fill_holes_launcher(mask, connectivity, counter=fill_holes_flood)()
 
 
 fill_holes_flood.launches = 0
+fill_holes_flood.routes = {"onchip": 0, "global": 0}
 
 
 # ------------------------------------------------------- CC min-propagate
@@ -209,6 +288,39 @@ def watershed_flood_plain(
     return torch.where(mask, labels, torch.zeros_like(labels))
 
 
+def watershed_flood_launcher(
+    intensity: torch.Tensor,
+    seeds: torch.Tensor,
+    mask: torch.Tensor,
+    n_levels: int = 32,
+    connectivity: int = 8,
+    plan: "FloodPlan | None" = None,
+    counter=None,
+):
+    """``launch()`` of the watershed kernel on ``(B, H, W)`` CUDA sites by
+    ``plan`` (default :func:`watershed_plan`), returning the labels; it
+    counts in ``counter``'s record.  ``launch.site_routes`` is the
+    ``(B,)`` int32 route each site took at the last launch: 0 on chip, 1
+    global (on the on-chip route, a site whose largest seed id exceeds
+    :data:`WS_MAX_ID`)."""
+    plan = plan or watershed_plan(intensity.shape, n_levels)
+    intensity = intensity.to(torch.float32).contiguous()
+    seeds = seeds.to(torch.int32).contiguous()
+    mask = mask.to(torch.bool).contiguous()
+    b, h, w = intensity.shape
+    site_routes = torch.empty(b, dtype=torch.int32, device=seeds.device)
+    tensors = (intensity, seeds, mask, torch.empty_like(seeds), site_routes,
+               torch.empty_like(seeds))
+    if plan.route == "onchip":
+        launch = bind_launch("watershed_flood", counter, tensors, b, h, w, n_levels,
+                             connectivity, plan.cap, route="onchip")
+    else:
+        launch = bind_launch("watershed_flood_global", counter, tensors, b, h, w, n_levels,
+                             connectivity, route="global")
+    launch.site_routes = site_routes
+    return launch
+
+
 def watershed_flood(
     intensity: torch.Tensor,
     seeds: torch.Tensor,
@@ -225,28 +337,21 @@ def watershed_flood(
         raise ValueError("n_levels must be >= 1")
     if intensity.device.type == "cpu":
         return watershed_flood_plain(intensity, seeds, mask, n_levels, connectivity)
-    intensity = intensity.to(torch.float32).contiguous()
-    seeds = seeds.to(torch.int32).contiguous()
-    mask = mask.to(torch.bool).contiguous()
-    out = torch.empty_like(seeds)
-    scratch = torch.empty_like(seeds)
-    _cuda.require_cuda("watershed_flood", intensity, seeds, mask, out, scratch)
-    b, h, w = intensity.shape
-    watershed_flood.launches += 1
-    _cuda.check("tm_watershed_flood", _cuda.lib().tm_watershed_flood(
-        intensity.data_ptr(), seeds.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), b, h, w, n_levels, connectivity, _cuda.stream()))
-    return out
+    launch = watershed_flood_launcher(intensity, seeds, mask, n_levels, connectivity,
+                                      counter=watershed_flood)
+    watershed_flood.site_routes = launch.site_routes
+    return launch()
 
 
 watershed_flood.launches = 0
+watershed_flood.routes = {"onchip": 0, "global": 0}
+#: ``(B,)`` route of each site at the last launch (0 on chip, 1 global)
+watershed_flood.site_routes = None
 
 
 # ------------------------------------------------------- distance transform
 #: the kernel holds a distance in one byte, up to the cap max_distance + 1
 MAX_DISTANCE = 254
-#: shared memory one block can use on Hopper (the kernel keeps a site there)
-SMEM_BYTES = 227 * 1024
 
 
 def binary_erode(mask: torch.Tensor, connectivity: int = 8, iterations: int = 1) -> torch.Tensor:

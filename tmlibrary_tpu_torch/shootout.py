@@ -32,6 +32,18 @@ sites of 256², ``max_objects=256``):
   pays); and two yardsticks, one PyTorch call each that counts indices
   already quantised (and, for the GLCM, paired): ``bincount`` and
   ``index_add``.
+- ``watershed`` (cells/Actin from the nuclei, 16 levels),
+  ``watershed_declump`` (the declumping path's distance image, local
+  maxima seeds and filled DAPI masks, 32 levels) and ``fill`` (DAPI's
+  Otsu masks): the shipped on-chip kernel (``kernel``); the first design
+  on global planes (``global``); the public wrapper (``wrapper``); and
+  the plain version (``plain``).
+- ``watershed_split``/``fill_split``: the first design taken apart beside
+  the kernel — the watershed on its real inputs (``*_real``), on the
+  same sites with every mask pixel a seed (``*_labelled``: each level
+  one quiet step, so the first design's time is 17 full scans) and with one level
+  (``*_levels1``); the fill on the real masks (``*_real``) and on an
+  all-foreground batch (``*_full``: no background, one sweep).
 - ``hist_split``/``glcm_split``: the first design taken apart — the
   memset alone (``memset``), the counting kernel alone on an all-zero
   label batch (``atomic_zero``: a launch and a read of every pixel, no
@@ -198,6 +210,59 @@ def main_path_inputs(device="cuda", batch: int = 64, size: int = 256,
                 nuclei=nuclei, actin_mask=actin_mask, cells=cells)
 
 
+def declump_inputs(filled) -> tuple:
+    """The declumping path's watershed inputs on the filled DAPI masks:
+    the distance image, its local-maxima seeds and the masks
+    (``segment_primary(declump=True)``, 32 levels)."""
+    from tmlibrary_tpu_torch.ops.segment_primary import (
+        distance_transform_approx, local_maxima_seeds,
+    )
+
+    dist = distance_transform_approx(filled)
+    return dist, local_maxima_seeds(dist, filled, min_distance=5, smooth_sigma=2.5), filled
+
+
+def watershed_set(intensity, seeds, mask, n_levels) -> dict:
+    args = (intensity, seeds, mask, n_levels)
+    glob = kernels.FloodPlan("global")
+    return {
+        "kernel": kernels.watershed_flood_launcher(*args),
+        "global": kernels.watershed_flood_launcher(*args, plan=glob),
+        "wrapper": lambda: kernels.watershed_flood(*args),
+        "plain": lambda: kernels.watershed_flood_plain(*args),
+    }
+
+
+def fill_set(masks) -> dict:
+    glob = kernels.FloodPlan("global")
+    return {
+        "kernel": kernels.fill_holes_launcher(masks),
+        "global": kernels.fill_holes_launcher(masks, plan=glob),
+        "wrapper": lambda: kernels.fill_holes_flood(masks),
+        "plain": lambda: kernels.fill_holes_flood_plain(masks),
+    }
+
+
+def flood_split_set(kind: str, inputs: dict) -> dict:
+    """The first design (``global_*``) and the shipped kernel
+    (``kernel_*``) on the inputs of :data:`run`'s ``watershed_split``/
+    ``fill_split``."""
+    glob = kernels.FloodPlan("global")
+    if kind == "fill":
+        masks = inputs["dapi_mask"]
+        cases = {"real": masks, "full": torch.ones_like(masks)}
+        return {f"{who}_{case}": kernels.fill_holes_launcher(
+                    m, plan=glob if who == "global" else None)
+                for case, m in cases.items() for who in ("global", "kernel")}
+    actin, nuclei, mask = inputs["actin"], inputs["nuclei"], inputs["actin_mask"]
+    everywhere = torch.where(mask, torch.where(nuclei > 0, nuclei, 1), nuclei)
+    cases = {"real": (actin, nuclei, mask, 16), "labelled": (actin, everywhere, mask, 16),
+             "levels1": (actin, nuclei, mask, 1)}
+    return {f"{who}_{case}": kernels.watershed_flood_launcher(
+                *a, plan=glob if who == "global" else None)
+            for case, a in cases.items() for who in ("global", "kernel")}
+
+
 def cc_set(masks) -> dict:
     return {"kernel": lambda: kernels.cc_min_propagate(masks),
             "plain": lambda: kernels.cc_min_propagate_plain(masks)}
@@ -266,7 +331,13 @@ def run(inputs: dict, max_objects: int = 256, reps: int = 7, bytes_per_s: float 
     nuclei, cells, dapi, actin = (inputs[k] for k in ("nuclei", "cells", "dapi", "actin"))
     b, h, w = nuclei.shape
     n = h * w
+    ws_bytes, fill_bytes = b * n * (4 + 4 + 1 + 4), b * n * (1 + 1)
     sets = {
+        "watershed": (watershed_set(actin, nuclei, inputs["actin_mask"], 16), ws_bytes),
+        "watershed_declump": (watershed_set(*declump_inputs(inputs["filled"]), 32), ws_bytes),
+        "fill": (fill_set(inputs["dapi_mask"]), fill_bytes),
+        "watershed_split": (flood_split_set("watershed", inputs), ws_bytes),
+        "fill_split": (flood_split_set("fill", inputs), fill_bytes),
         "cc": (cc_set(inputs["dapi_mask"]), b * n * (1 + 4)),
         "hist": (hist_set(nuclei, dapi, max_objects, BINS),
                  hist_bytes(b, n, max_objects, BINS)),
