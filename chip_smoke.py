@@ -13,29 +13,38 @@ Phases (any failure exits non-zero before the last line):
 2. At the main paths' shapes (64 sites of 256x256 and 16 z-stacks of
    16x128x128, ``max_objects=256``, synthetic data, plus edge cases),
    hold each of the nine kernels against its plain PyTorch version on
-   the card — exact for labels, masks, counts, distances, min and max,
-   ``rtol=1e-6`` for fractional sums; the two 2-D floods on every route
-   (on chip, on chip with frontier lists of 16, the first design as
+   the card -- exact for labels, masks, counts, distances, sums, min and
+   max (NaN where the plain version has NaN); the two 2-D floods on every
+   route (on chip, on chip with frontier lists of 16, the first design as
    ``global``) on the main and declumping inputs, edge sites, a 1-px
-   spiral, a tied plateau, seed ids beyond 16 bits and negative, 1, 254
-   and 255 levels, connectivity 4 and 8, a 255x253 crop and
-   a 1024x1024 site, printing the routes taken; ``grouped_stats`` also on every
-   channel list that morphology and Zernike hand it (1, 3, 7 and 32
-   channels); the distance transform also at a cap of 2, the 3-D
-   labeling at connectivity 6, 18 and 26, the 3-D flood on a tied
-   plateau; the histogram (2, 16, 256 buckets) and GLCM (8, 16, 32
-   levels, 1 and 4 offsets) kernels, and the first designs kept for the
-   A/B harness, also on a site with all 256 object slots present, a
-   site-sized object at one value, bounds that call present objects
-   absent, M=255, planes that are not 16-byte aligned, and every window
-   plan — and time the public wrapper (for the floods and these two
-   also the launch alone), the plain version and, where one PyTorch call computes the
-   same function, that call (a yardstick the port never calls) with CUDA
-   events after warm-up.
+   spiral, a tied plateau, seed ids beyond 16 bits and negative, NaN
+   intensities, 1, 254 and 255 levels, connectivity 4 and 8, a 255x253
+   crop and a 1024x1024 site, printing the routes taken;
+   ``grouped_stats`` also on every channel list that morphology and
+   Zernike hand it (1, 3, 7 and 32 channels), on NaN pixels, on more
+   than 3072 objects at ``max_objects=4096``, at two band counts and on the
+   volume path's call (3-D boxes, and 2-D over a ``(B, Z*H, W)`` view);
+   the distance transform on
+   both routes, at a cap of 2, on 1024x1024 and 483x483 sites and inside
+   ``segment_primary(declump=True)`` on 512x512 sites against the CPU;
+   the 3-D labeling at connectivity 6, 18 and 26; the 3-D flood on every
+   route (cluster, ``global``) on the volume
+   path's inputs, a tied plateau, empty and single-voxel masks, id
+   edges, NaN, 1, 254 and 255 levels, a 5x37x41 crop and one plane; the
+   histogram (2, 16, 256 buckets) and GLCM (8, 16, 32 levels, 1 and 4
+   offsets) kernels, and the first designs kept for the A/B harness,
+   also on a site with all 256 object slots present, a site-sized object
+   at one value, bounds that call present objects absent, M=255, planes
+   that are not 16-byte aligned, and every window plan -- and time the
+   public wrapper (for the floods, ``grouped_stats`` and the
+   count-table kernels also the launch alone), the plain version and,
+   where one PyTorch call computes the same function, that call (a
+   yardstick the port never calls) with CUDA events after warm-up.
    Then ``tmlibrary_tpu_torch/shootout.py``, the interleaved A/B
-   harness: best-of-7 times of the two floods against their first designs
-   (taken apart: fully labelled sites, one level, all-foreground masks),
-   of row 2's kernel against its plain labeling
+   harness: best-of-7 times of the two 2-D floods, ``grouped_stats`` and
+   the 3-D flood against their first designs (taken apart: fully
+   labelled sites, one level, all-foreground masks, the box phase alone,
+   a site-sized object), of row 2's kernel against its plain labeling
    and of the histogram and GLCM kernels against their window sizes,
    their first designs (taken apart: memset, counting on zero, real and
    flat inputs) and the ``bincount``/``index_add_`` yardsticks.
@@ -46,10 +55,12 @@ Phases (any failure exits non-zero before the last line):
    ``measure_intensity(quantiles=True)``, (d) config 3 with declumping,
    (e) config 2 (smooth, adaptive threshold, label) and (f) config 5 (the
    3-D z-stack pipeline).  Each path must launch its kernels (paths d-f
-   exactly as often as listed in ``main``); labels and counts of the
+   exactly as often as listed in ``main``; the floods on their main
+   routes); labels and counts of the
    first 8 sites equal the port's run on ``device="cpu"`` and every
    feature lies within its tier of ``CARD_TIERS``.  Print sites/sec and a
-   stage breakdown, each time beside the card's name and power limit.
+   stage breakdown, each time beside the card's name and power limit;
+   for the volume path split ``measure_volume``.
 4. Print ``kernels: ...``, the per-kernel JSON record, and as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -161,9 +172,10 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
 
 
 def max_abs_err(torch, a, b) -> float:
-    """Largest |a - b| over entries that differ (equal infinities count 0)."""
+    """Largest |a - b| over entries that differ (equal infinities and NaN
+    against NaN count 0)."""
     a, b = a.double(), b.double()
-    same = a == b
+    same = (a == b) | (a.isnan() & b.isnan())
     if bool(same.all()):
         return 0.0
     return float((a - b).abs()[~same].max())
@@ -232,7 +244,8 @@ def phase_kernels(torch, pkg, inputs):
 
     # grouped_stats: intensity_features' channels [1, v, v^2] of DAPI
     # (timed below), then every call morphology and Zernike make on the
-    # nuclei and the cells: 1, 3, 7 and 32 (four groups of 8) channels
+    # nuclei and the cells: 1, 3, 7 and 32 (one launch) channels; then
+    # NaN pixels, 4096 objects and ids above the capacity
     err = grouped_stats_on_feature_paths(torch, fm, measure, (nuclei, cells), compare)
     chans = [torch.ones_like(dapi), dapi, dapi * dapi]
     got = fm.grouped_stats(nuclei, chans, MAX_OBJECTS)
@@ -244,17 +257,8 @@ def phase_kernels(torch, pkg, inputs):
     n = int(nuclei.amax())
     if n <= 32 and not all(torch.equal(a[:, :n], b[:, :n]) for a, b in zip(small, got)):
         raise SmokeFailure("grouped_stats: rows depend on max_objects")
-    values = torch.stack(chans, dim=-1).reshape(B, -1, 3)
-    flat = nuclei.reshape(B, -1).long()
-    seg = (flat + torch.arange(B, device=flat.device)[:, None] * (MAX_OBJECTS + 1)).reshape(-1)
-
-    def library():
-        v = values.reshape(-1, 3)
-        idx = seg[:, None].expand(-1, 3)
-        s = torch.zeros((B * (MAX_OBJECTS + 1), 3), device=v.device).index_add_(0, seg, v)
-        lo = torch.full_like(s, float("inf")).scatter_reduce_(0, idx, v, "amin")
-        hi = torch.full_like(s, float("-inf")).scatter_reduce_(0, idx, v, "amax")
-        return s, lo, hi
+    err = max(err, grouped_stats_edges(torch, fm, nuclei, dapi, compare))
+    library = pkg["shootout"].grouped_stats_library(nuclei, chans, MAX_OBJECTS)
 
     records.append(dict(
         name="grouped_stats",
@@ -262,8 +266,9 @@ def phase_kernels(torch, pkg, inputs):
         replaces="tmlibrary_tpu/ops/fused_measure.py:178",
         max_abs_err=err,
         ms=cuda_ms(torch, lambda: fm.grouped_stats(nuclei, chans, MAX_OBJECTS), 20),
+        launch_ms=cuda_ms(torch, fm.grouped_stats_launcher(nuclei, chans, MAX_OBJECTS), 20),
         plain_ms=cuda_ms(torch, lambda: fm.grouped_stats_plain(nuclei, chans, MAX_OBJECTS), 3, 1),
-        bytes=px * (4 + 3 * 4) + 3 * B * MAX_OBJECTS * 3 * 4, ops=px * 3 * 3,
+        bytes=pkg["shootout"].grouped_stats_bytes(nuclei, 3, MAX_OBJECTS), ops=px * 3 * 3,
         library_ms=cuda_ms(torch, library, 20),
     ))
 
@@ -300,7 +305,8 @@ def flood_cases(torch, shootout, inputs):
     (intensity, seeds, mask, n_levels, connectivity); fill: name ->
     (masks, connectivity).  The main path's and the declumping path's
     inputs, edge sites, a 2-D tied plateau, seed ids at and beyond 16 bits
-    and negative, 1, 254 (the most on chip) and 255 levels, both
+    and negative, NaN intensities (in the mask, outside it, at a seed,
+    everywhere), 1, 254 (the most on chip) and 255 levels, both
     connectivities, a 255x253 crop
     and one 1024x1024 site (too large for the on-chip routes)."""
     actin, nuclei, am, dapi_mask = (inputs[k] for k in ("actin", "nuclei", "actin_mask",
@@ -321,6 +327,12 @@ def flood_cases(torch, shootout, inputs):
     ids[1][ids[1] == 1] = 65534          # the largest id on chip
     ids[2, 10:20, 10:20] = -5            # negative: keeps its value, never spreads
     ids[3][ids[3] == 1] = -1
+    nan = actin[:4].clone()  # NaN in the mask, outside it only, at a seed, everywhere
+    y, x = (am[0] & (nuclei[0] == 0)).nonzero()[7].tolist()
+    nan[0, y, x] = float("nan")
+    nan[1][~(am[1] | (nuclei[1] > 0))] = float("nan")
+    nan[2][nuclei[2] == 1] = float("nan")
+    nan[3][am[3]] = float("nan")
     crop = tuple(t[:8, 1:, 3:].contiguous() for t in (actin, nuclei, am))
     large = tuple(t[:1].repeat(1, 4, 4) for t in (actin, nuclei, am))
     ws = {
@@ -332,6 +344,8 @@ def flood_cases(torch, shootout, inputs):
         "plateau": (flat, tie, torch.ones_like(flat, dtype=torch.bool), 16, 8),
         "plateau,4": (flat, tie, torch.ones_like(flat, dtype=torch.bool), 16, 4),
         "ids": (actin[:4], ids, am[:4], 16, 8),
+        "nan": (nan, nuclei[:4], am[:4], 16, 8),
+        "nan,4": (nan, nuclei[:4], am[:4], 16, 4),
         "levels1": (actin, nuclei, am, 1, 8),
         "levels254": (actin[:8], nuclei[:8], am[:8], 254, 8),
         "levels255": (actin[:8], nuclei[:8], am[:8], 255, 8),
@@ -591,11 +605,16 @@ def phase_table_kernels(torch, pkg, inputs, compare) -> list[dict]:
 
 def make_compare(torch):
     """``compare(name, got, want, exact=True)``: raise unless the kernel's
-    output equals its plain version's (``rtol=1e-6`` where not exact);
-    return the largest difference."""
+    output equals its plain version's (NaN where it has NaN; ``rtol=1e-6``
+    where not exact); return the largest difference."""
     def compare(name, got, want, exact=True):
         if exact:
-            if not torch.equal(got, want):
+            nan = want.isnan() if want.is_floating_point() else None
+            if nan is not None and bool(nan.any()):
+                same = torch.equal(got.isnan(), nan) and torch.equal(got[~nan], want[~nan])
+            else:
+                same = torch.equal(got, want)
+            if not same:
                 raise SmokeFailure(f"{name}: kernel differs from its plain version")
         else:
             torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
@@ -626,21 +645,36 @@ def tied_plateau(torch, device):
     return img, seeds, torch.ones(shape, dtype=torch.bool, device=device)
 
 
-def phase_kernels_declump_volume(torch, pkg, filled, vol_inputs, compare) -> list[dict]:
+def phase_kernels_declump_volume(torch, pkg, filled, vi, compare):
     """Phase 2, rows 7-9: the distance transform on the filled DAPI masks
-    (path D's input), the 3-D kernels on the volume path's masks and
-    seeds; each exact against its plain version, edge cases included."""
-    kernels, volume = pkg["kernels"], pkg["volume"]
-    vol, vmask, nuclei3d, cmask = vol_inputs
+    (path D's input) on both routes, on 1024x1024 and 483x483 sites (which
+    must take ``global``) and inside ``segment_primary(declump=True)`` on
+    512x512 sites against the CPU; the 3-D kernels on the volume path's
+    masks and seeds, the 3-D flood on every route and on edge volumes,
+    ``grouped_stats`` on the volume path's view; each exact against its
+    plain version.  Returns the records of rows 7-9 and the largest
+    ``grouped_stats`` error on the view."""
+    kernels, volume, fm = pkg["kernels"], pkg["volume"], pkg["fused_measure"]
+    vol, vmask, nuclei3d, cmask = (vi[k] for k in ("vol", "vmask", "nuclei", "cmask"))
+    glob = kernels.FloodPlan("global")
     records = []
     edges = edge_sites(torch, filled.device)
-    err = compare("distance_transform", kernels.distance_transform(filled),
-                  kernels.distance_transform_plain(filled))
+    err = 0.0
     for cap in (64, 2):  # 2: a cap every nucleus reaches
         for name, m in (("edge", edges), ("main", filled)):
+            want = kernels.distance_transform_plain(m, cap)
             err = max(err, compare(f"distance_transform[{name},{cap}]",
-                                   kernels.distance_transform(m, cap),
-                                   kernels.distance_transform_plain(m, cap)))
+                                   kernels.distance_transform(m, cap), want))
+            err = max(err, compare(f"distance_transform[{name},{cap},global]",
+                                   kernels.distance_transform_launcher(m, cap, glob)(), want))
+    for name, m in (("1024", filled[:1].repeat(1, 4, 4)),
+                    ("483", filled[:2].repeat(1, 2, 2)[:, :483, :483].contiguous())):
+        if kernels.distance_plan(m.shape).route != "global":
+            raise SmokeFailure(f"distance_transform[{name}]: expected the global route")
+        err = max(err, compare(f"distance_transform[{name}]", kernels.distance_transform(m),
+                               kernels.distance_transform_plain(m)))
+        print(f"  distance_transform[{name}]: {tuple(m.shape)}, route global, exact")
+    declump_512(torch, pkg["segment_primary"], kernels)
     px = B * SIZE * SIZE
     records.append(dict(
         name="distance_transform",
@@ -671,31 +705,109 @@ def phase_kernels_declump_volume(torch, pkg, filled, vol_inputs, compare) -> lis
     ))
 
     args = (vol, nuclei3d, cmask, N_LEVELS_V)
-    got = volume.watershed3d_flood(*args)
-    err = compare("watershed3d_flood", got, volume.watershed3d_flood_plain(*args))
-    seeded = nuclei3d > 0
-    if not torch.equal(got[seeded], nuclei3d[seeded]):
-        raise SmokeFailure("watershed3d_flood: a seed lost its label")
-    t_img, t_seeds, t_mask = tied_plateau(torch, vol.device)
-    zeros = torch.zeros_like(e_vol[:1], dtype=torch.int32)
-    for name, a in (("tie", (t_img, t_seeds, t_mask)),
-                    ("empty", (t_img, zeros, e_vol[:1])),
-                    ("single", (t_img, zeros, e_vol[2:3]))):
-        got_e = volume.watershed3d_flood(*a, N_LEVELS_V)
-        err = max(err, compare(f"watershed3d_flood[{name}]", got_e,
-                               volume.watershed3d_flood_plain(*a, N_LEVELS_V)))
-        if name == "tie" and int(got_e[0, DEPTH_V // 2, SIZE_V // 2, SIZE_V // 2]) != 2:
+    err = 0.0
+    for name, (img, seeds, mask, levels) in flood3d_cases(torch, vi, e_vol).items():
+        a = (img, seeds, mask, levels)
+        want = volume.watershed3d_flood_plain(*a)
+        plan = volume.watershed3d_plan(levels)
+        got = volume.watershed3d_flood(*a)
+        runs = {"wrapper": lambda: got, "global": volume.watershed3d_flood_launcher(*a, plan=glob)}
+        for who, run in runs.items():
+            err = max(err, compare(f"watershed3d_flood[{name},{who}]", run(), want))
+        seeded = seeds > 0
+        if not torch.equal(got[seeded], seeds[seeded]):
+            raise SmokeFailure(f"watershed3d_flood[{name}]: a seed lost its label")
+        if bool((got[~(mask | seeded)] != 0).any()):
+            raise SmokeFailure(f"watershed3d_flood[{name}]: label outside mask | seeds")
+        if name == "tie" and int(got[0, DEPTH_V // 2, SIZE_V // 2, SIZE_V // 2]) != 2:
             raise SmokeFailure("watershed3d_flood: the tie did not go to the larger label")
+        if (levels > volume.W3_MAX_LEVELS) != (plan.route == "global"):
+            raise SmokeFailure(f"watershed3d_flood[{name}]: route {plan.route}")
+        print(f"  watershed3d_flood[{name}]: {tuple(img.shape)}, {levels} levels: wrapper "
+              f"route {plan.route}; exact on " + ", ".join(runs))
     records.append(dict(
         name="watershed3d_flood",
         source="tmlibrary_tpu_torch/csrc/watershed3d_flood.cu",
         replaces="tmlibrary_tpu/ops/pallas_kernels.py:506",
         max_abs_err=err,
         ms=cuda_ms(torch, lambda: volume.watershed3d_flood(*args), 10),
+        launch_ms=cuda_ms(torch, volume.watershed3d_flood_launcher(*args), 10),
         plain_ms=cuda_ms(torch, lambda: volume.watershed3d_flood_plain(*args), 2, 1),
         bytes=vox * (4 + 4 + 1 + 4), ops=vox * 26, library_ms=None,
     ))
-    return records
+
+    # grouped_stats on the volume path's call: 3-D boxes, and 2-D boxes
+    # over the (B, Z*H, W) view
+    lab, chans = volume.volume_stat_channels(vi["cells"], vol)
+    want = fm.grouped_stats_plain(lab, chans, MAX_OBJECTS)
+    flat = (B_V, DEPTH_V * SIZE_V, SIZE_V)
+    g_err = 0.0
+    for who, (lab_, chans_) in (("3-D", (lab, chans)),
+                                ("2-D", (lab.reshape(flat), [c.reshape(flat) for c in chans]))):
+        g_err = max(g_err, compare_grouped_stats(
+            torch, f"grouped_stats[volume,{who}]",
+            fm.grouped_stats(lab_, chans_, MAX_OBJECTS), want, compare))
+    print(f"  grouped_stats[volume]: {tuple(lab.shape)}, 6 channels: "
+          "exact with 3-D and 2-D boxes")
+    return records, g_err
+
+
+def flood3d_cases(torch, vi, e_vol) -> dict:
+    """Inputs of the 3-D flood's holds, name -> (intensity, seeds, mask,
+    n_levels): the volume path's, a tied plateau, empty and single-voxel
+    masks, seed ids beyond 16 bits, at 2**31 - 1 and negative, NaN
+    intensities (in the mask, outside it, at a seed, everywhere), 1, 254
+    (the most on the cluster route) and 255 levels, a 5x37x41 crop and
+    one plane."""
+    vol, nuclei, cmask = vi["vol"], vi["nuclei"], vi["cmask"]
+    t_img, t_seeds, t_mask = tied_plateau(torch, vol.device)
+    zeros = torch.zeros_like(e_vol[:1], dtype=torch.int32)
+    ids = nuclei[:4].clone()
+    ids[0][ids[0] == 1] = 70000
+    ids[1][ids[1] == 2] = 2**31 - 1
+    ids[2, 3, 10:20, 10:20] = -5
+    ids[3][ids[3] == 1] = -1
+    nan = vol[:4].clone()
+    z, y, x = (cmask[0] & (nuclei[0] == 0)).nonzero()[7].tolist()
+    nan[0, z, y, x] = float("nan")
+    nan[1][~(cmask[1] | (nuclei[1] > 0))] = float("nan")
+    nan[2][nuclei[2] == 1] = float("nan")
+    nan[3][cmask[3]] = float("nan")
+    crop = tuple(t[:4, 3:8, 5:42, 7:48].contiguous() for t in (vol, nuclei, cmask))
+    one = tuple(t[:4, 7:8].contiguous() for t in (vol, nuclei, cmask))
+    n = N_LEVELS_V
+    return {
+        "main": (vol, nuclei, cmask, n),
+        "tie": (t_img, t_seeds, t_mask, n),
+        "empty": (t_img, zeros, e_vol[:1], n),
+        "single": (t_img, zeros, e_vol[2:3], n),
+        "ids": (vol[:4], ids, cmask[:4], n),
+        "nan": (nan, nuclei[:4], cmask[:4], n),
+        "levels1": (vol[:4], nuclei[:4], cmask[:4], 1),
+        "levels254": (vol[:2], nuclei[:2], cmask[:2], 254),
+        "levels255": (vol[:2], nuclei[:2], cmask[:2], 255),
+        "crop": (*crop, n),
+        "z1": (*one, n),
+    }
+
+
+def declump_512(torch, sp, kernels) -> None:
+    """``segment_primary(declump=True)`` on four 512x512 sites on the card
+    (the distance transform and the watershed take ``global``) against
+    the same call on the CPU: labels and counts equal."""
+    from tmlibrary_tpu_torch import benchmarks
+
+    dapi = torch.from_numpy(benchmarks.synthetic_cell_painting_batch(
+        4, size=512, seed=SEED)["DAPI"])
+    before = dict(kernels.distance_transform.routes)
+    card = sp.segment_primary(dapi.to("cuda"), declump=True, max_objects=MAX_OBJECTS)
+    cpu = sp.segment_primary(dapi, declump=True, max_objects=MAX_OBJECTS)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)):
+        raise SmokeFailure("segment_primary(declump=True) at 512x512: card differs from CPU")
+    if kernels.distance_transform.routes["global"] <= before["global"]:
+        raise SmokeFailure("segment_primary(declump=True) at 512x512: distance not global")
+    print(f"  segment_primary(declump=True): 4 sites of 512x512, labels and counts equal the "
+          f"CPU's ({cpu[1].tolist()} objects)")
 
 
 def finish_records(records, bw) -> None:
@@ -712,10 +824,48 @@ def finish_records(records, bw) -> None:
 
 
 def compare_grouped_stats(torch, name, got, want, compare) -> float:
-    """Sums at ``rtol=1e-6``, mins and maxs exact; the largest error."""
+    """Sums, mins and maxs all exact (the kernel adds each object's pixels
+    in the plain version's order); the largest error."""
     err = 0.0
     for part, g_, w_ in zip(("sums", "mins", "maxs"), got, want):
-        err = max(err, compare(f"{name}.{part}", g_, w_, exact=part != "sums"))
+        err = max(err, compare(f"{name}.{part}", g_, w_))
+    return err
+
+
+def grouped_stats_edges(torch, fm, nuclei, dapi, compare) -> float:
+    """``grouped_stats`` against its plain version on NaN pixels (in one
+    object, in the background, in every object of a site), on more than
+    3072 objects at ``max_objects=4096`` and with ids above the capacity,
+    each with the planner's bands and with 3 bands a site."""
+    dev = dapi.device
+    img = dapi[:4].clone()
+    lab = nuclei[:4]
+    img[0][lab[0] == 1] = float("nan")
+    img[1][lab[1] == 0] = float("nan")
+    for k in range(1, int(lab[2].amax()) + 1):
+        where = (lab[2] == k).nonzero()
+        if len(where):
+            img[2, where[-1, 0], where[-1, 1]] = float("nan")
+    cases = {"nan": (lab, [img, img * img], MAX_OBJECTS)}
+    grid = torch.arange(SIZE * SIZE, device=dev).reshape(SIZE, SIZE)
+    many = (grid // 4 % 64 + (grid // (4 * SIZE)) * 64 + 1).to(torch.int32)  # 4x4 tiles
+    many = torch.stack([many, torch.where(many > 4000, 0, many), many.flip(1)])
+    cases["4096"] = (many, [dapi[:3], dapi[:3] * dapi[:3]], 4096)
+    over = nuclei[:4].clone()
+    over[over == 1] = MAX_OBJECTS + 1
+    cases["ids"] = (over, [dapi[:4]], MAX_OBJECTS)
+    err = 0.0
+    for name, (lab_, chans, m) in cases.items():
+        want = fm.grouped_stats_plain(lab_, chans, m)
+        plans = {"wrapper": None, "bands3": fm.StatsPlan(3)}
+        for who, plan in plans.items():
+            got = fm.grouped_stats_launcher(lab_, chans, m, plan=plan)()
+            err = max(err, compare_grouped_stats(torch, f"grouped_stats[{name},{who}]", got,
+                                                 want, compare))
+        print(f"  grouped_stats[{name}]: {tuple(lab_.shape)}, {len(chans)} channels, "
+              f"max_objects {m} (largest id {int(lab_.amax())}): exact on wrapper, bands3")
+    if int(many[0].amax()) <= 3072:
+        raise SmokeFailure("grouped_stats[4096]: the site must hold more than 3072 objects")
     return err
 
 
@@ -765,7 +915,8 @@ def main() -> int:
         from tmlibrary_tpu_torch.jterator.description import PipelineDescription
         from tmlibrary_tpu_torch.jterator.modules import get_module
         from tmlibrary_tpu_torch.ops import (
-            _cuda, fused_measure, kernels, label, measure, smooth, threshold, volume,
+            _cuda, fused_measure, kernels, label, measure, segment_primary, smooth,
+            threshold, volume,
         )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -789,26 +940,25 @@ def main() -> int:
         inputs = shootout.main_path_inputs(dev, B, SIZE, MAX_OBJECTS, SEED)
         data, dapi, actin, filled, nuclei, actin_mask = (inputs[k] for k in (
             "data", "dapi", "actin", "filled", "nuclei", "actin_mask"))
-        data_v = benchmarks.synthetic_volume_batch(B_V, size=SIZE_V, depth=DEPTH_V, seed=SEED)
-        vol = get_module("generate_volume_image")(
-            torch.from_numpy(data_v["DAPI"]).to(dev), mode="focus")["volume_image"]
-        t_v = threshold.otsu_value(vol)[:, None, None, None]
-        vmask = vol > t_v
-        nuclei3d = label.clip_label_count(volume.connected_components_3d(vmask)[0], MAX_OBJECTS)
+        vi = shootout.volume_inputs(dev, B_V, SIZE_V, DEPTH_V, MAX_OBJECTS, SEED, N_LEVELS_V)
+        data_v = vi["data"]
         print(f"phase 2: kernels vs plain versions at B={B}, {SIZE}x{SIZE} and B={B_V}, "
               f"{DEPTH_V}x{SIZE_V}x{SIZE_V}, max_objects={MAX_OBJECTS} "
               f"({bw / 1e12:.2f} TB/s for the bound); times on {card}")
         records = phase_kernels(
             torch, {"kernels": kernels, "fused_measure": fused_measure, "measure": measure,
                     "shootout": shootout}, inputs)
-        records += phase_kernels_declump_volume(
-            torch, {"kernels": kernels, "volume": volume}, filled,
-            (vol, vmask, nuclei3d, vol > t_v * 0.8), make_compare(torch))
+        more, gs_err = phase_kernels_declump_volume(
+            torch, {"kernels": kernels, "volume": volume, "fused_measure": fused_measure,
+                    "segment_primary": segment_primary}, filled, vi, make_compare(torch))
+        records += more
+        gs = next(r for r in records if r["name"] == "grouped_stats")
+        gs["max_abs_err"] = max(gs["max_abs_err"], gs_err)
         finish_records(records, bw)
 
         # ---------------------------------------------------------- shootout
         print(f"shootout: interleaved best-of-7 A/B on the main path's inputs; times on {card}")
-        shootout.run(inputs, MAX_OBJECTS, bytes_per_s=bw)
+        shootout.run(inputs, MAX_OBJECTS, bytes_per_s=bw, vol_inputs=vi)
 
         # ---------------------------------------------------------- phase 3
         wrappers = {
@@ -823,12 +973,13 @@ def main() -> int:
             "watershed3d_flood": volume.watershed3d_flood,
         }
         segment = ["fill_holes_flood", "cc_min_propagate", "watershed_flood", "grouped_stats"]
-        floods = ["fill_holes_flood", "watershed_flood"]  # every launch and site on chip
+        # every launch of these on one route, and every watershed site on chip
+        on_chip = {"fill_holes_flood": "onchip", "watershed_flood": "onchip"}
         # (a) config 3
         desc3 = benchmarks.cell_painting_description()
         run3 = drive_path(torch, pipeline, "config 3", desc3, data, wrappers, need=segment,
                           card=card, expect={"fill_holes_flood": 1, "watershed_flood": 1},
-                          onchip=floods)
+                          only=on_chip)
         kernel_ms = sum(r["ms"] * run3["launches"][r["name"]] for r in records)
         print(f"  the kernels: {kernel_ms:.2f} ms of a batch at their phase-2 times ({card})")
         print_stages(card, stage_breakdown(
@@ -840,7 +991,7 @@ def main() -> int:
         data4 = benchmarks.synthetic_full_stack_batch(B, size=SIZE, seed=SEED)
         desc4 = benchmarks.full_feature_description()
         run4 = drive_path(torch, pipeline, "config 4", desc4, data4, wrappers,
-                          need=segment + ["glcm_all"], card=card, onchip=floods)
+                          need=segment + ["glcm_all"], card=card, only=on_chip)
         print_stages(card, stage_breakdown_full(torch, data4, run4["objects"]))
 
         # (c) config 3 with measure_intensity(quantiles=True)
@@ -853,7 +1004,7 @@ def main() -> int:
         ]
         desc_q = PipelineDescription.from_dict(pipe)
         run_q = drive_path(torch, pipeline, "quantiles", desc_q, data, wrappers,
-                           need=segment + ["intensity_hist"], card=card, onchip=floods)
+                           need=segment + ["intensity_hist"], card=card, only=on_chip)
         if run_q["launches"]["intensity_hist"] != 2:
             raise SmokeFailure("intensity_hist: expected 2 launches per batch, got "
                                f"{run_q['launches']['intensity_hist']}")
@@ -863,7 +1014,8 @@ def main() -> int:
             torch, pipeline, "declump", benchmarks.cell_painting_declump_description(), data,
             wrappers, need=[], card=card, expect={
                 "fill_holes_flood": 1, "cc_min_propagate": 1, "distance_transform": 1,
-                "watershed_flood": 2, "grouped_stats": 2}, onchip=floods)
+                "watershed_flood": 2, "grouped_stats": 2},
+            only={**on_chip, "distance_transform": "onchip"})
         gained = int(run_d["counts"]["nuclei"].sum() - run3["counts"]["nuclei"].sum())
         print(f"  declumping finds {gained} more nuclei than config 3 in the batch of {B} "
               f"({int(run3['counts']['nuclei'].sum())} -> "
@@ -880,8 +1032,12 @@ def main() -> int:
             torch, pipeline, "config 5 (volume)",
             benchmarks.volume_description(n_levels=N_LEVELS_V), data_v, wrappers, need=[],
             card=card, expect={"cc3d_min_propagate": 1, "watershed3d_flood": 1,
-                               "grouped_stats": 1})
+                               "grouped_stats": 1},
+            only={"watershed3d_flood": "cluster"})
         print_stages(card, stage_breakdown_volume(torch, data_v, get_module))
+        split = measure_volume_split(torch, data_v, get_module)
+        print("  measure_volume split (ms per batch): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items()) + f" on {card}")
 
         # each kernel's launches: the path that brought it to the port
         path_of = {"intensity_hist": run_q, "glcm_all": run4, "distance_transform": run_d,
@@ -935,13 +1091,13 @@ def stage_breakdown(torch, pkg_ops, dapi, actin, nuclei, actin_mask) -> dict:
 
 
 def drive_path(torch, pipeline, title, desc, data, wrappers, need, card,
-               expect=None, onchip=()) -> dict:
+               expect=None, only=None) -> dict:
     """Drive one path through ``build_batch_fn`` on the card: a warm-up
     call, then every launch counter set to 0, one call, the counters read
     (each kernel in ``need`` must have launched, each in ``expect``
-    exactly that often, each flood in ``onchip`` every time on the on-chip
-    route, the watershed with every site of its last launch on chip), the
-    first sites held to the port's CPU run, and the batch timed over 5
+    exactly that often, each kernel in ``only`` every time on the route
+    named there, the watershed with every site of its last launch on chip),
+    the first sites held to the port's CPU run, and the batch timed over 5
     calls."""
     n = next(iter(data.values())).shape[0]
     raw, stats, shifts = pipeline.from_jax_inputs(data, {}, [[0, 0]] * n, device="cuda")
@@ -966,10 +1122,11 @@ def drive_path(torch, pipeline, title, desc, data, wrappers, need, card,
     for k, count in (expect or {}).items():
         if launches[k] != count:
             raise SmokeFailure(f"{title}: {k} launched {launches[k]} times, expected {count}")
-    for k in onchip:
-        if wrappers[k].routes != {"onchip": launches[k], "global": 0}:
+    for k, route in (only or {}).items():
+        taken = {r: c for r, c in wrappers[k].routes.items() if c}
+        if launches[k] < 1 or taken != {route: launches[k]}:
             raise SmokeFailure(f"{title}: {k} routes {wrappers[k].routes}, expected all "
-                               "launches on chip")
+                               f"{launches[k]} launches on {route}")
         site = getattr(wrappers[k], "site_routes", None)
         if k == "watershed_flood" and (site is None or bool((site != 0).any())):
             raise SmokeFailure(f"{title}: watershed_flood sites off chip: {site}")
@@ -1043,6 +1200,26 @@ def stage_breakdown_volume(torch, data, get_module) -> dict:
             nuc, vol, max_objects=MAX_OBJECTS),
     }
     return {name: cuda_ms(torch, fn, 3, 1) for name, fn in steps.items()}
+
+
+def measure_volume_split(torch, data, get_module) -> dict:
+    """Where ``measure_volume`` goes, CUDA events at the batch's shapes:
+    the module, building its six channels, its ``grouped_stats`` call (the
+    wrapper) and the kernel's launch alone."""
+    from tmlibrary_tpu_torch.ops import fused_measure as fm
+    from tmlibrary_tpu_torch.ops.volume import volume_stat_channels
+
+    zstack = torch.from_numpy(data["DAPI"]).to("cuda")
+    vol = get_module("generate_volume_image")(zstack, mode="focus")["volume_image"]
+    nuc = get_module("segment_volume")(vol, max_objects=MAX_OBJECTS)["objects"]
+    lab, chans = volume_stat_channels(nuc, vol)
+    steps = {
+        "measure_volume": lambda: get_module("measure_volume")(nuc, vol, max_objects=MAX_OBJECTS),
+        "channel_views": lambda: volume_stat_channels(nuc, vol),
+        "grouped_stats_wrapper": lambda: fm.grouped_stats(lab, chans, MAX_OBJECTS),
+        "grouped_stats_launch": fm.grouped_stats_launcher(lab, chans, MAX_OBJECTS),
+    }
+    return {name: cuda_ms(torch, fn, 5, 1) for name, fn in steps.items()}
 
 
 def stage_breakdown_full(torch, data, objects) -> dict:

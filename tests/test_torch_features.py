@@ -371,16 +371,17 @@ def test_planner_refuses_what_no_launch_takes():
 
 
 # ------------------------------------------------- grouped_stats channel split
-@pytest.mark.parametrize("n_channels", [9, 32])
+@pytest.mark.parametrize("n_channels", [9, 32, 33, 64])
 def test_grouped_stats_channel_split_is_per_channel(sites, n_channels):
-    """More channels than one launch takes are split into groups; the
-    result equals one call per channel bit for bit."""
+    """Channels are independent: one launch of up to ``MAX_CHANNELS``
+    (9, 32), and more split into groups (33, 64), equal one call per
+    channel bit for bit."""
     rng = np.random.default_rng(n_channels)
     labs, _ = zip(*sites)
     lab = t(*labs)
     chans = [torch.from_numpy(rng.normal(size=lab.shape).astype(np.float32))
              for _ in range(n_channels)]
-    assert n_channels > tfm.MAX_CHANNELS
+    assert (n_channels > tfm.MAX_CHANNELS) == (n_channels > 32)
     sums, mins, maxs = tfm.grouped_stats(lab, chans, EDGE_M)
     assert sums.shape == (2, EDGE_M, n_channels)
     for c, ch in enumerate(chans):

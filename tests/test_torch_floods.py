@@ -34,13 +34,15 @@ PENDING, NEVER = 0xFFFF, 0xFF
 
 # ------------------------------------------------------- watershed model
 def ws_levels(intensity, seeds, mask, n_levels):
-    """lo, hi, span and the levels in float32, one IEEE op at a time (lo
-    and hi skip NaN, as the kernel's fminf/fmaxf do)."""
+    """lo, hi, span and the levels in float32, one IEEE op at a time; a
+    NaN in the mask makes lo, hi, the span and every level NaN, as in the
+    plain version and the reference (the kernel's tm_nanmin/tm_nanmax/
+    tm_span)."""
     mp = mask | (seeds > 0)
     f32 = np.float32
-    lo = np.fmin.reduce(intensity[mp], initial=f32(np.inf))
-    hi = np.fmax.reduce(intensity[mp], initial=f32(-np.inf))
-    span = max(f32(hi - lo), f32(1e-6))
+    lo = np.minimum.reduce(intensity[mp], initial=f32(np.inf))
+    hi = np.maximum.reduce(intensity[mp], initial=f32(-np.inf))
+    span = f32(hi - lo) if np.isnan(f32(hi - lo)) else max(f32(hi - lo), f32(1e-6))
     return np.array([f32(hi - f32(f32(span * f32(i + 1)) / f32(n_levels)))
                      for i in range(n_levels)], np.float32)
 

@@ -8,6 +8,7 @@ it times raise for tensors off the card instead of falling back, and a
 launcher holds the memory behind every pointer it passes.
 """
 
+import ctypes
 import gc
 import weakref
 
@@ -20,6 +21,7 @@ from tmlibrary_tpu_torch import shootout
 from tmlibrary_tpu_torch.errors import DeviceError
 from tmlibrary_tpu_torch.ops import fused_measure as tfm
 from tmlibrary_tpu_torch.ops import kernels as tk
+from tmlibrary_tpu_torch.ops import volume as tv
 from tmlibrary_tpu_torch.ops.measure import grouped_minmax
 
 torch.set_num_threads(1)
@@ -155,3 +157,112 @@ def test_launchers_hold_the_memory_they_pass(monkeypatch, name):
     del launch, out
     gc.collect()
     assert all(r() is None for r in passed)
+
+
+@pytest.mark.parametrize("name", ["grouped_stats", "grouped_stats_volume", "grouped_stats_original",
+                                  "watershed3d", "watershed3d_global", "distance",
+                                  "distance_global"])
+def test_launchers_of_this_slice_hold_the_memory_they_pass(monkeypatch, name):
+    """As above, for the redesigned ``grouped_stats`` and 3-D flood, their
+    first designs and the distance transform's two routes: every tensor
+    whose pointer a launcher passes lives as long as the launcher."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(tfm._cuda, "require_cuda", lambda *tensors, **checks: None)
+    monkeypatch.setattr(tfm._cuda, "lib", lambda: lib)
+    monkeypatch.setattr(tfm._cuda, "stream", lambda: 0)
+    passed = []
+    data_ptr = torch.Tensor.data_ptr
+
+    def recording(t):
+        passed.append(weakref.ref(t))
+        return data_ptr(t)
+
+    monkeypatch.setattr(torch.Tensor, "data_ptr", recording)
+    lab = torch.ones((1, 8, 8), dtype=torch.int64)
+    img = torch.rand((1, 8, 8), dtype=torch.float64)
+    mask = torch.ones((1, 8, 8), dtype=torch.uint8)
+    vol, seeds, vmask = img.reshape(1, 2, 4, 8), lab.reshape(1, 2, 4, 8), mask.reshape(1, 2, 4, 8)
+    glob = tk.FloodPlan("global")
+    launch, n_passed = {
+        # labels, boxes, sums, mins, maxs, then the channels in a table
+        "grouped_stats": (lambda: tfm.grouped_stats_launcher(lab, [img, img], 4), 7),
+        # volumes, one channel broadcast over the batch (passed as a view)
+        "grouped_stats_volume": (lambda: tfm.grouped_stats_launcher(
+            lab.reshape(2, 1, 4, 8), [img.float().reshape(2, 1, 4, 8)[:1].expand(2, 1, 4, 8)], 4),
+            6),
+        "grouped_stats_original": (lambda: shootout.grouped_stats_original(lab, [img], 4), 5),
+        # intensity, seeds, mask, bands, lists, counts, labels
+        "watershed3d": (lambda: tv.watershed3d_flood_launcher(vol, seeds, vmask, 4), 7),
+        "watershed3d_global": (lambda: tv.watershed3d_flood_launcher(vol, seeds, vmask, 4,
+                                                                     plan=glob), 5),
+        "distance": (lambda: tk.distance_transform_launcher(mask), 2),
+        "distance_global": (lambda: tk.distance_transform_launcher(mask, plan=glob), 3),
+    }[name]
+    launch = launch()
+    del lab, img, mask, vol, seeds, vmask
+    gc.collect()
+    assert len(passed) == n_passed and all(r() is not None for r in passed)
+    launch()
+    ((entry, args),) = lib.calls
+    # a table of pointers passes its entries in order
+    flat = [x for a in args for x in (list(a) if isinstance(a, ctypes.Array) else [a])]
+    assert entry.startswith("tm_") and sorted(flat[:n_passed]) == sorted(
+        data_ptr(r()) for r in passed)
+    del launch
+    gc.collect()
+    assert all(r() is None for r in passed)
+
+
+@pytest.mark.parametrize("name", ["grouped_stats", "grouped_stats_original", "watershed3d",
+                                  "distance"])
+def test_launchers_of_this_slice_raise_off_the_card(name):
+    lab = torch.zeros((1, 8, 8), dtype=torch.int32, device="meta")
+    img = torch.zeros((1, 8, 8), device="meta")
+    make = {
+        "grouped_stats": lambda: tfm.grouped_stats_launcher(lab, [img], 4),
+        "grouped_stats_original": lambda: shootout.grouped_stats_original(lab, [img], 4),
+        "watershed3d": lambda: tv.watershed3d_flood_launcher(
+            img.reshape(1, 2, 4, 8), lab.reshape(1, 2, 4, 8), img.reshape(1, 2, 4, 8) > 0, 4),
+        "distance": lambda: tk.distance_transform_launcher(img > 0),
+    }[name]
+    with pytest.raises(DeviceError):
+        make()
+
+
+def test_grouped_stats_yardstick_computes_the_function(site):
+    """The library yardstick's sums (any order) are within float32
+    rounding of the plain version's and its min/max are exact; ids above
+    the capacity are dropped."""
+    lab, img, _ = site
+    lab = lab.clone()
+    lab[0, :3, :3] = M + 5
+    chans = [torch.ones_like(img), img, img * img]
+    s, lo, hi = shootout.grouped_stats_library(lab, chans, M)()
+    want = tfm.grouped_stats_plain(lab, chans, M)
+    rows = lambda t: t.reshape(2, M + 1, 3)[:, 1:]  # noqa: E731
+    torch.testing.assert_close(rows(s), want[0], rtol=1e-6, atol=0)
+    assert torch.equal(rows(lo), want[1]) and torch.equal(rows(hi), want[2])
+
+
+def test_feature_channel_calls_and_the_ab_inputs(site):
+    """The A/B's grouped_stats inputs are the very calls morphology (7
+    channels) and Zernike at degree 6 (32) make, and config 3's three."""
+    lab, img, _ = site
+    calls = shootout.feature_channel_calls(lab, M)
+    assert {7, 32} <= set(calls) and calls[7][0] is lab
+    inputs = {"nuclei": lab, "cells": lab, "dapi": img}
+    ab = shootout.grouped_stats_inputs(inputs, M)
+    assert {k: len(v[1]) for k, v in ab.items()} == {"c3": 3, "c4_7": 7, "c4_32": 32}
+    vol = img.reshape(1, 2, 48, 48)
+    cells = lab.reshape(1, 2, 48, 48)
+    ab = shootout.grouped_stats_inputs(inputs, M, {"cells": cells, "vol": vol})
+    v_lab, v_chans = ab["v6"]
+    assert v_lab.shape == (1, 2, 48, 48) and len(v_chans) == 6
+    assert all(c.shape == v_lab.shape for c in v_chans)
+
+
+def test_grouped_stats_bytes_count_what_the_data_needs():
+    """Every label, the channels of the pixels with an id in 1..M only,
+    and three outputs of M rows a site."""
+    lab = torch.tensor([[[0, 1, 2, 300], [5, 0, 0, -1]]])
+    assert shootout.grouped_stats_bytes(lab, 3, 256) == 8 * 4 + 3 * 3 * 4 + 3 * 256 * 3 * 4

@@ -36,6 +36,20 @@ __device__ __forceinline__ bool tm_neighbour3(int dz, int dy, int dx, int connec
                            (connectivity == 18 && nonzero == 2));
 }
 
+// Min and max in which a NaN operand wins, as in torch.amin/amax,
+// scatter_reduce and jnp.minimum/maximum; fminf/fmaxf would skip it.
+__device__ __forceinline__ float tm_nanmin(float a, float b) { return (a != a || a < b) ? a : b; }
+__device__ __forceinline__ float tm_nanmax(float a, float b) { return (a != a || a > b) ? a : b; }
+
+// The floods' level span max(hi - lo, 1e-6), NaN where hi - lo is NaN
+// (torch.clamp and jnp.maximum keep it; fmaxf would give 1e-6).  With a
+// NaN span every level is NaN, `v >= level` never holds, and only the
+// mop-up admits a pixel.
+__device__ __forceinline__ float tm_span(float hi, float lo) {
+    const float d = __fsub_rn(hi, lo);
+    return d != d ? d : fmaxf(d, 1e-6f);
+}
+
 // Pixel visited by thread `t` at step `k` of a sweep.  Odd sweeps walk
 // the site backwards, so in-place floods travel both ways quickly.
 __device__ __forceinline__ int tm_sweep_pixel(int k, int t, int n, int sweep) {

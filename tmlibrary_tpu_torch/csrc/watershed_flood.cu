@@ -12,7 +12,9 @@
 // mask' (the mop-up).  Seeds keep their labels; the output is zero outside
 // mask'.  A negative seed keeps its value and never spreads.  The level
 // expression uses explicitly rounded intrinsics so no contraction can move
-// a band edge.
+// a band edge.  A NaN intensity in mask' makes lo, hi, the span and every
+// level NaN (tm_nanmin/tm_nanmax/tm_span), as in the reference, so no
+// pixel is eligible before the mop-up: its band comes out n_levels.
 //
 // Two routes; the wrapper picks one from the shapes and n_levels
 // (ops/kernels.py `watershed_plan`).
@@ -76,8 +78,8 @@ __device__ __forceinline__ void ws_block_reduce(float& lo, float& hi, int& top) 
     __shared__ float s_lo[TM_BLOCK / 32], s_hi[TM_BLOCK / 32];
     __shared__ int s_top[TM_BLOCK / 32];
     for (int off = 16; off > 0; off >>= 1) {
-        lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-        hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+        lo = tm_nanmin(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+        hi = tm_nanmax(hi, __shfl_xor_sync(0xffffffffu, hi, off));
         top = max(top, __shfl_xor_sync(0xffffffffu, top, off));
     }
     if ((threadIdx.x & 31) == 0) {
@@ -90,8 +92,8 @@ __device__ __forceinline__ void ws_block_reduce(float& lo, float& hi, int& top) 
     hi = -INFINITY;
     top = 0;
     for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
-        lo = fminf(lo, s_lo[i]);
-        hi = fmaxf(hi, s_hi[i]);
+        lo = tm_nanmin(lo, s_lo[i]);
+        hi = tm_nanmax(hi, s_hi[i]);
         top = max(top, s_top[i]);
     }
 }
@@ -131,7 +133,7 @@ __device__ void ws_global_flood(const float* __restrict__ I, const int* __restri
                                 const uint8_t* __restrict__ M, int* out, int* scratch,
                                 int H, int W, int n_levels, int n_neigh, float lo, float hi) {
     const int n = H * W;
-    const float span = fmaxf(__fsub_rn(hi, lo), 1e-6f);
+    const float span = tm_span(hi, lo);
     int* cur = out;
     int* nxt = scratch;
     for (int li = 0; li <= n_levels; ++li) {
@@ -164,8 +166,8 @@ ws_global_kernel(const float* __restrict__ intensity, const int* __restrict__ se
     for (int p = threadIdx.x; p < n; p += blockDim.x) {
         out[p] = S[p];
         if (M[p] || S[p] > 0) {
-            lo = fminf(lo, I[p]);
-            hi = fmaxf(hi, I[p]);
+            lo = tm_nanmin(lo, I[p]);
+            hi = tm_nanmax(hi, I[p]);
         }
     }
     ws_block_reduce(lo, hi, top);
@@ -324,8 +326,8 @@ __device__ __forceinline__ void ws_resolve(uint16_t* lab, const uint8_t* band,
 __device__ __forceinline__ uint32_t ws_first(int s, uint8_t m, float v, float& lo, float& hi,
                                              int& top) {
     if (m || s > 0) {
-        lo = fminf(lo, v);
-        hi = fmaxf(hi, v);
+        lo = tm_nanmin(lo, v);
+        hi = tm_nanmax(hi, v);
     }
     top = max(top, s);
     return (uint32_t)(s > 0 ? min(s, WS_MAX_ID) : 0);
@@ -389,7 +391,7 @@ ws_onchip_kernel(const float* __restrict__ intensity, const int* __restrict__ se
         return;
     }
     if (threadIdx.x == 0) site_route[blockIdx.x] = 0;
-    const float span = fmaxf(__fsub_rn(hi, lo), 1e-6f);
+    const float span = tm_span(hi, lo);
     for (int i = threadIdx.x; i < n_levels; i += blockDim.x)
         s_level[i] = ws_level(hi, span, i, n_levels);
     __syncthreads();

@@ -48,7 +48,11 @@ SIGNATURES = {
     # connectivity, (on chip) the list capacity, stream
     "tm_watershed_flood": [*[_P] * 6, *[_I] * 6, _P],
     "tm_watershed_flood_global": [*[_P] * 6, *[_I] * 5, _P],
-    "tm_grouped_stats": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # labels, box, sums, mins, maxs, channel pointers and site strides (host
+    # arrays), B, Z, H, W, C, K, bands, stream
+    "tm_grouped_stats": [*[_P] * 7, *[_I] * 7, _P],
+    # the first design, for the A/B harness: ..., B, H, W, C, K, phases, stream
+    "tm_grouped_stats_original": [*[_P] * 5, *[_I] * 6, _P],
     # labels, img, raw_lo, raw_hi, out, B, H, W, M, bins, window, windows, flat, stream
     "tm_intensity_hist": [*[_P] * 5, *[_I] * 8, _P],
     # ..., out, B, H, W, M, L, D, 8 offsets, window, windows, flat, stream
@@ -57,8 +61,13 @@ SIGNATURES = {
     "tm_intensity_hist_atomic": [_P, _P, _P, _P, _P, *[_I] * 6, _P],
     "tm_glcm_all_atomic": [_P, _P, _P, _P, _P, *[_I] * 15, _P],
     "tm_distance_transform": [_P, _P, _I, _I, _I, _I, _P],
+    # mask, plane, out, B, H, W, max_distance, stream
+    "tm_distance_transform_global": [_P, _P, _P, _I, _I, _I, _I, _P],
     "tm_cc3d_min_propagate": [_P, _P, _I, _I, _I, _I, _I, _P],
-    "tm_watershed3d_flood": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # intensity, seeds, mask, band, lists, misc, out, B, Z, H, W, n_levels, stream
+    "tm_watershed3d_flood": [*[_P] * 7, *[_I] * 5, _P],
+    # intensity, seeds, mask, scratch, out, B, Z, H, W, n_levels, stream
+    "tm_watershed3d_flood_global": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _LIB: "ctypes.CDLL | None" = None
@@ -152,23 +161,26 @@ def check(name: str, code: int) -> None:
         raise DeviceError(f"{name}: CUDA error {code} at launch")
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Device/contiguity checks before handing pointers to a kernel."""
+def require_cuda(name: str, *tensors: torch.Tensor, contiguous: bool = True) -> None:
+    """Device (and, with ``contiguous``, contiguity) checks before handing
+    pointers to a kernel."""
     for t in tensors:
         if t.device.type != "cuda":
             raise DeviceError(f"{name}: expected CUDA tensors, got {t.device}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise DeviceError(f"{name}: expected contiguous tensors")
 
 
-def bind_launch(name: str, counter, tensors: tuple, *scalars, route: "str | None" = None):
+def bind_launch(name: str, counter, tensors: tuple, *scalars, route: "str | None" = None,
+                held: tuple = ()):
     """``launch()``: one call of the C entry point ``tm_<name>`` on the
     pointers of ``tensors`` (the inputs, then the output), the scalars and
     the current stream, adding one to ``counter.launches`` (and, with a
     ``route``, to ``counter.routes[route]``) unless ``counter`` is None; it
-    returns the output.  The closure holds ``tensors``, so the memory
-    behind every pointer it passes stays theirs for as long as ``launch``
-    lives, whatever the caller keeps."""
+    returns the output.  The closure holds ``tensors`` and ``held`` (the
+    tensors whose pointers go in a scalar, a host table of pointers), so
+    the memory behind every pointer it passes stays theirs for as long as
+    ``launch`` lives, whatever the caller keeps."""
     require_cuda(name, *tensors)
     fn = getattr(lib(), f"tm_{name}")
     args = (*(t.data_ptr() for t in tensors), *scalars, stream())
@@ -181,4 +193,5 @@ def bind_launch(name: str, counter, tensors: tuple, *scalars, route: "str | None
         check(f"tm_{name}", fn(*args))
         return tensors[-1]
 
+    launch.held = tuple(held)
     return launch

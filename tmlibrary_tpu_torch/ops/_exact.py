@@ -13,6 +13,11 @@ same way on both devices and the same way as the JAX reference:
   sequential scan inside each block, the block totals scanned the same
   way, then added), so the Otsu between-class variance is bit-identical
   to the reference and identical on both devices.
+- PyTorch's vectorised CPU ``sqrt`` is one ulp off the correctly
+  rounded root on some inputs (float32 and float64); the card's is
+  correctly rounded (``chip_smoke.py``'s op trace of ``Intensity_std``
+  and the ellipse axes).  :func:`sqrt` gives the correctly rounded
+  float32 root on both devices.
 """
 
 from __future__ import annotations
@@ -20,6 +25,23 @@ from __future__ import annotations
 import torch
 
 _SCAN_BLOCK = 16
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of float32 ``x`` on either device.
+    The float64 root rounded to float32 is checked against the squares of
+    its two rounding midpoints -- 25-bit numbers, so their squares are
+    exact in float64 and no float32 ``x`` equals one -- and moved by one
+    ulp where ``x`` lies beyond a midpoint."""
+    xd = x.double()
+    r = torch.sqrt(xd).to(torch.float32)
+    up = torch.nextafter(r, torch.full_like(r, float("inf")))
+    down = torch.nextafter(r, torch.zeros_like(r))
+    rd = r.double()
+    hi = (rd + up.double()) * 0.5
+    lo = (rd + down.double()) * 0.5
+    r = torch.where(hi * hi < xd, up, r)
+    return torch.where(lo * lo > xd, down, r)
 
 
 def div(a: torch.Tensor, b) -> torch.Tensor:

@@ -13,7 +13,8 @@ the ``"fused"`` reduction strategy:
   per-object GLCM counts, quantisation in the kernel, symmetrised.
   Hopper kernel: ``csrc/glcm_all.cu``.
 
-Every function takes a batch of sites ``(B, H, W)``.  The wrapper
+Every function takes a batch of sites ``(B, H, W)``; ``grouped_stats``
+also takes volumes ``(B, Z, H, W)``.  The wrapper
 dispatches on the tensor's device: a CPU tensor goes to the ``*_plain``
 version, a CUDA tensor to the kernel, which launches or raises.  Each
 wrapper counts its kernel launches in ``.launches``.
@@ -24,6 +25,8 @@ the CPU — so sums are bit-identical to it, identical between the kernel
 and the plain version, and identical run to run (no float atomics).  Min
 and max, histogram and GLCM counts are exact in any order.  Rows ``0..n``
 do not depend on ``max_objects`` (``ops/reduction.capacity_segments``).
+Min and max propagate NaN.  The kernel takes any ``max_objects``: its
+box pass widens the boxes in global memory.
 
 The histogram and GLCM kernels count each site's table of uint32 in
 shared memory, window by window, in a thread-block cluster of two
@@ -33,6 +36,7 @@ replicas (``csrc/count_table.cuh``); :func:`plan_hist` and
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 
@@ -43,9 +47,10 @@ from tmlibrary_tpu_torch.ops._cuda import bind_launch
 from tmlibrary_tpu_torch.ops.kernels import shift_with_fill
 from tmlibrary_tpu_torch.ops.reduction import capacity_segments
 
-#: channels one ``grouped_stats`` kernel launch takes; more are split
-#: into groups of at most this many (each channel's row is independent)
-MAX_CHANNELS = 8
+#: channels one ``grouped_stats`` kernel launch takes (one lane of the
+#: chain's warp each); more are split into groups of at most this many
+#: (each channel's row is independent)
+MAX_CHANNELS = 32
 
 #: dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_BYTES = 232448
@@ -74,8 +79,17 @@ def _concat(parts: list[tuple[torch.Tensor, ...]]):
     return tuple(torch.cat(cols, dim=-1) for cols in zip(*parts))
 
 
+def _check_stats(labels: torch.Tensor, channels: list[torch.Tensor]) -> None:
+    if labels.dim() not in (3, 4):
+        raise ValueError("grouped_stats: expected (B, H, W) or (B, Z, H, W) labels, got "
+                         f"{tuple(labels.shape)}")
+    for c in channels:
+        if c.shape != labels.shape:
+            raise ValueError("grouped_stats: channel shape differs from labels")
+
+
 def _stack(labels: torch.Tensor, channels: list[torch.Tensor]):
-    _check_sites("grouped_stats", labels, *channels)
+    _check_stats(labels, channels)
     values = torch.stack([c.to(torch.float32) for c in channels], dim=1)
     return labels.to(torch.int32), values
 
@@ -121,20 +135,73 @@ def grouped_stats_plain(
                     for g in _groups(channels)])
 
 
-def _grouped_stats_launch(labels, channels, max_objects):
-    labels, values = _stack(labels, channels)
-    labels, values = labels.contiguous(), values.contiguous()
-    b, n_ch, h, w = values.shape
-    sums, mins, maxs = (
-        torch.empty((b, max_objects, n_ch), dtype=torch.float32, device=labels.device)
-        for _ in range(3)
-    )
-    _cuda.require_cuda("grouped_stats", labels, values, sums, mins, maxs)
-    grouped_stats.launches += 1
-    _cuda.check("tm_grouped_stats", _cuda.lib().tm_grouped_stats(
-        labels.data_ptr(), values.data_ptr(), sums.data_ptr(), mins.data_ptr(),
-        maxs.data_ptr(), b, h, w, n_ch, max_objects, _cuda.stream()))
-    return sums, mins, maxs
+#: blocks of 512 threads the box pass aims for (four an SM on 132 SMs)
+STATS_BOX_BLOCKS = 528
+
+
+@dataclass(frozen=True)
+class StatsPlan:
+    """How ``grouped_stats`` runs: ``bands``, the blocks of the box pass
+    per site."""
+
+    bands: int
+
+
+def stats_plan(shape) -> StatsPlan:
+    """The plan for ``(B, H, W)`` or ``(B, Z, H, W)`` labels: enough bands
+    that the box pass has about :data:`STATS_BOX_BLOCKS` blocks, each at
+    least 2048 pixels."""
+    b, n = int(shape[0]), 1
+    for d in shape[1:]:
+        n *= int(d)
+    return StatsPlan(max(1, min(-(-STATS_BOX_BLOCKS // max(b, 1)), -(-n // 2048))))
+
+
+def _site_channels(channels: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Each channel as float32 in which every site is one contiguous run,
+    at any distance from the next site (0 for a channel broadcast over the
+    batch, C sites for a view of a stacked tensor): the kernel reads these
+    tensors where they lie, so only a channel that is not so is copied."""
+    _cuda.require_cuda("grouped_stats", *channels, contiguous=False)
+    out = []
+    for c in channels:
+        if c.dtype != torch.float32:
+            c = c.to(torch.float32)
+        if not c.is_contiguous() and not c[0].is_contiguous():
+            c = c.contiguous()
+        out.append(c)
+    return out
+
+
+def grouped_stats_launcher(labels, channels, max_objects,
+                           plan: "StatsPlan | None" = None, counter=None):
+    """``launch()`` of the kernel on ``(B, H, W)`` or ``(B, Z, H, W)``
+    CUDA labels and at most :data:`MAX_CHANNELS` channels by ``plan``
+    (default :func:`stats_plan`), returning ``(sums, mins, maxs)``; on
+    volumes an object's box is 3-D.  The kernel gets each channel's
+    pointer and site stride, and reads the caller's tensors.  It counts
+    in ``counter``'s record."""
+    if len(channels) > MAX_CHANNELS:
+        raise ValueError(f"grouped_stats: at most {MAX_CHANNELS} channels a launch")
+    _check_stats(labels, channels)
+    plan = plan or stats_plan(labels.shape)
+    b, z, h, w = labels.shape if labels.dim() == 4 else (labels.shape[0], 1, *labels.shape[1:])
+    labels = labels.to(torch.int32).contiguous()
+    chans = _site_channels(channels)
+    out = torch.empty((3, b, max_objects, len(chans)), dtype=torch.float32,
+                      device=labels.device)
+    box = torch.empty((b, max_objects, 6), dtype=torch.int32, device=labels.device)
+    tensors = (labels, box, *out)
+    pointers = (ctypes.c_void_p * MAX_CHANNELS)(*(c.data_ptr() for c in chans))
+    site_strides = (ctypes.c_longlong * MAX_CHANNELS)(*(c.stride(0) for c in chans))
+    launch = bind_launch("grouped_stats", counter, tensors, pointers, site_strides, b, z, h,
+                         w, len(chans), max_objects, plan.bands, held=chans)
+
+    def run():
+        launch()
+        return out[0], out[1], out[2]
+
+    return run
 
 
 def grouped_stats(
@@ -142,14 +209,15 @@ def grouped_stats(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-object ``(sums, mins, maxs)`` of any number of pixel channels,
     each ``(B, max_objects, n_channels)`` float32, label ids
-    1..max_objects (background dropped), absent rows ``(0, +inf, -inf)``.
-    More than :data:`MAX_CHANNELS` channels take one launch per group;
-    the result is bit-identical to one call per channel."""
+    1..max_objects (background dropped), absent rows ``(0, +inf, -inf)``,
+    NaN propagating into min and max.  ``labels`` are ``(B, H, W)``
+    sites or ``(B, Z, H, W)`` volumes (pixels in row-major order either
+    way; on volumes the kernel walks 3-D boxes).  More than
+    :data:`MAX_CHANNELS` channels take one launch per group; the result
+    is bit-identical to one call per channel."""
     if labels.device.type == "cpu":
         return grouped_stats_plain(labels, channels, max_objects)
-    if 16 * max_objects > 48 * 1024:
-        raise ValueError("grouped_stats: max_objects above 3072 is not supported")
-    return _concat([_grouped_stats_launch(labels, g, max_objects)
+    return _concat([grouped_stats_launcher(labels, g, max_objects, counter=grouped_stats)()
                     for g in _groups(channels)])
 
 

@@ -14,11 +14,12 @@ version (synchronous PyTorch steps to the same fixpoint), a CUDA tensor
 to the kernel, which launches or raises — there is no fallback from one
 to the other.  Each wrapper counts its kernel launches in ``.launches``.
 
-The two 2-D floods have two routes each, picked from the shapes (and
-the level count) before the launch, never after a failure:
-``"onchip"``, the site in one block's shared memory, and ``"global"``,
-the first design, on planes in global memory, for sites that do not fit
-(:func:`watershed_plan`, :func:`fill_plan`).  Their wrappers also count
+The two 2-D floods and the distance transform have two routes each,
+picked from the shapes (and the level count) before the launch, never
+after a failure: ``"onchip"``, the site in one block's shared memory,
+and ``"global"``, planes in global memory (for the floods, the first
+design) for sites that do not fit (:func:`watershed_plan`,
+:func:`fill_plan`, :func:`distance_plan`).  Their wrappers also count
 launches by route in ``.routes``; ``*_launcher`` builds a launch on a
 given plan, for the A/B harness and the chip smoke.
 """
@@ -381,6 +382,34 @@ def distance_transform_plain(mask: torch.Tensor, max_distance: int = 64) -> torc
     return dist
 
 
+def distance_plan(shape) -> FloodPlan:
+    """The distance transform's route for ``(..., H, W)`` sites: on chip
+    when a site's byte plane fits one block's shared memory
+    (:data:`SMEM_BYTES` pixels, up to 482x482), else global (the same
+    sweeps on a plane in global memory)."""
+    h, w = shape[-2:]
+    return FloodPlan("onchip" if h * w <= SMEM_BYTES else "global")
+
+
+def distance_transform_launcher(mask: torch.Tensor, max_distance: int = 64,
+                                plan: "FloodPlan | None" = None, counter=None):
+    """``launch()`` of the distance kernel on ``(B, H, W)`` CUDA masks by
+    ``plan`` (default :func:`distance_plan`), returning the distances; it
+    counts in ``counter``'s record."""
+    plan = plan or distance_plan(mask.shape)
+    mask = mask.to(torch.bool).contiguous()
+    out = torch.empty(mask.shape, dtype=torch.float32, device=mask.device)
+    b, h, w = mask.shape
+    if plan.route == "onchip":
+        if h * w > SMEM_BYTES:
+            raise ValueError(f"distance_transform: a {h}x{w} site does not fit on chip")
+        return bind_launch("distance_transform", counter, (mask, out), b, h, w,
+                           max_distance, route="onchip")
+    plane = torch.empty(mask.shape, dtype=torch.uint8, device=mask.device)
+    return bind_launch("distance_transform_global", counter, (mask, plane, out), b, h, w,
+                       max_distance, route="global")
+
+
 def distance_transform(mask: torch.Tensor, max_distance: int = 64) -> torch.Tensor:
     """Capped chessboard distance to the background of ``(B, H, W)``
     masks, float32: ``min(D, max_distance + 1)`` for a foreground pixel
@@ -391,16 +420,8 @@ def distance_transform(mask: torch.Tensor, max_distance: int = 64) -> torch.Tens
         raise ValueError(f"max_distance must be in [0, {MAX_DISTANCE}]")
     if mask.device.type == "cpu":
         return distance_transform_plain(mask, max_distance)
-    mask = mask.to(torch.bool).contiguous()
-    b, h, w = mask.shape
-    if h * w > SMEM_BYTES:
-        raise ValueError(f"distance_transform: a {h}x{w} site exceeds one block's shared memory")
-    out = torch.empty(mask.shape, dtype=torch.float32, device=mask.device)
-    _cuda.require_cuda("distance_transform", mask, out)
-    distance_transform.launches += 1
-    _cuda.check("tm_distance_transform", _cuda.lib().tm_distance_transform(
-        mask.data_ptr(), out.data_ptr(), b, h, w, max_distance, _cuda.stream()))
-    return out
+    return distance_transform_launcher(mask, max_distance, counter=distance_transform)()
 
 
 distance_transform.launches = 0
+distance_transform.routes = {"onchip": 0, "global": 0}

@@ -11,7 +11,9 @@ are padding and must be masked by the caller using the object count.
 Expression trees follow the reference operation by operation, so the
 features built from exact sums, counts and IEEE ``+ - * / sqrt`` equal
 it bit for bit.  Divisions by a constant go through ``_exact.div`` (CUDA
-divides by a Python scalar through its reciprocal).  ``log``, ``exp``,
+divides by a Python scalar through its reciprocal), square roots of the
+exact-tier features through ``_exact.sqrt`` (PyTorch's CPU root is an
+ulp off on some inputs).  ``log``, ``exp``,
 ``atan2``, ``sin`` and ``cos`` differ by ulps between the CPU and the
 card, so the Haralick and Zernike families and the morphology angle
 carry a stated tolerance.
@@ -24,7 +26,7 @@ import math
 import torch
 
 from tmlibrary_tpu_torch.errors import NotSupportedError
-from tmlibrary_tpu_torch.ops._exact import div
+from tmlibrary_tpu_torch.ops._exact import div, sqrt
 from tmlibrary_tpu_torch.ops.fused_measure import (
     glcm_all,
     grouped_stats,
@@ -99,7 +101,7 @@ def intensity_features(
         "Intensity_mean": mean,
         "Intensity_min": torch.where(present, mn, zero),
         "Intensity_sum": total,
-        "Intensity_std": torch.sqrt(var),
+        "Intensity_std": sqrt(var),
     }
 
 
@@ -187,15 +189,15 @@ def morphology_features(labels: torch.Tensor, max_objects: int) -> dict[str, tor
     mu_xx = sums[..., 4] / safe_a - cx * cx + 1.0 / 12.0
     mu_yx = sums[..., 5] / safe_a - cy * cx
     d = mu_yy - mu_xx
-    common = torch.sqrt(torch.clamp(d * d + 4.0 * (mu_yx * mu_yx), min=0.0))
+    common = sqrt(torch.clamp(d * d + 4.0 * (mu_yx * mu_yx), min=0.0))
     l1 = (mu_yy + mu_xx + common) / 2.0
     l2 = torch.clamp((mu_yy + mu_xx - common) / 2.0, min=1e-12)
-    major = 4.0 * torch.sqrt(torch.clamp(l1, min=0.0))
-    minor = 4.0 * torch.sqrt(torch.clamp(l2, min=0.0))
-    eccentricity = torch.sqrt(torch.clamp(1.0 - l2 / torch.clamp(l1, min=1e-12), 0.0, 1.0))
+    major = 4.0 * sqrt(torch.clamp(l1, min=0.0))
+    minor = 4.0 * sqrt(torch.clamp(l2, min=0.0))
+    eccentricity = sqrt(torch.clamp(1.0 - l2 / torch.clamp(l1, min=1e-12), 0.0, 1.0))
     # major-axis angle from the +x (column) axis in (-pi/2, pi/2]
     orientation = 0.5 * torch.atan2(2.0 * mu_yx, mu_xx - mu_yy)
-    equivalent_diameter = torch.sqrt(div(4.0 * area, math.pi))
+    equivalent_diameter = sqrt(div(4.0 * area, math.pi))
     form_factor = (4.0 * math.pi) * area / torch.clamp(perimeter * perimeter, min=1.0)
 
     def m(v):
@@ -346,7 +348,7 @@ def zernike_features(
     carries its own object's unit-disk coordinates by label lookups of the
     centroid and radius, the basis is evaluated per pixel in float32, and
     all ``(n, m)`` projections reduce in one grouped sum over the 2K
-    channels (``grouped_stats`` splits them into launches of 8).
+    channels (one ``grouped_stats`` launch for up to 32).
     ``patch`` is accepted and ignored, as in the reference."""
     del patch
     labels = labels.to(torch.int32)

@@ -13,6 +13,10 @@ Volumes are batches ``(B, Z, H, W)``.  The wrappers dispatch on the
 tensor's device as in :mod:`.kernels`: a CPU tensor goes to the
 ``*_plain`` version, a CUDA tensor to the kernel, which launches or
 raises.  Each wrapper counts its kernel launches in ``.launches``.
+The 3-D flood has two routes, picked by :func:`watershed3d_plan` before
+the launch: ``"cluster"`` (the frontier flood, one thread-block cluster
+a volume) and ``"global"`` (the first design, for more than 254 levels);
+its wrapper counts launches by route in ``.routes``.
 """
 
 from __future__ import annotations
@@ -21,9 +25,10 @@ import torch
 import torch.nn.functional as F
 
 from tmlibrary_tpu_torch.ops import _cuda
-from tmlibrary_tpu_torch.ops._exact import div
+from tmlibrary_tpu_torch.ops._cuda import bind_launch
+from tmlibrary_tpu_torch.ops._exact import div, sqrt
 from tmlibrary_tpu_torch.ops.fused_measure import grouped_stats
-from tmlibrary_tpu_torch.ops.kernels import BIG, _fixpoint, watershed_levels
+from tmlibrary_tpu_torch.ops.kernels import BIG, FloodPlan, _fixpoint, watershed_levels
 from tmlibrary_tpu_torch.ops.label import compact_roots
 
 
@@ -145,6 +150,42 @@ def watershed3d_flood_plain(
     return torch.where(mask, labels, torch.zeros_like(labels))
 
 
+#: the cluster route holds each voxel's band (first eligible level, the
+#: mop-up, or never) in one byte
+W3_MAX_LEVELS = 254
+
+
+def watershed3d_plan(n_levels: int) -> FloodPlan:
+    """The 3-D flood's route: ``"cluster"`` (one thread-block cluster a
+    volume, state and two frontier lists as long as the volume in global
+    memory, so any size and seed id) up to :data:`W3_MAX_LEVELS` levels;
+    else ``"global"``, the first design."""
+    return FloodPlan("global" if n_levels > W3_MAX_LEVELS else "cluster")
+
+
+def watershed3d_flood_launcher(intensity, seeds, mask, n_levels: int = 16,
+                               plan: "FloodPlan | None" = None, counter=None):
+    """``launch()`` of the 3-D flood kernel on ``(B, Z, H, W)`` CUDA
+    volumes by ``plan`` (default :func:`watershed3d_plan`), returning the
+    labels; it counts in ``counter``'s record."""
+    plan = plan or watershed3d_plan(n_levels)
+    intensity = intensity.to(torch.float32).contiguous()
+    seeds = seeds.to(torch.int32).contiguous()
+    mask = mask.to(torch.bool).contiguous()
+    out = torch.empty_like(seeds)
+    b, z, h, w = intensity.shape
+    if plan.route == "cluster":
+        band = torch.empty(seeds.shape, dtype=torch.uint8, device=seeds.device)
+        lists = torch.empty((b, 2, z * h * w), dtype=torch.int32, device=seeds.device)
+        misc = torch.empty((b, 32), dtype=torch.int32, device=seeds.device)
+        return bind_launch("watershed3d_flood", counter,
+                           (intensity, seeds, mask, band, lists, misc, out), b, z, h, w,
+                           n_levels, route="cluster")
+    return bind_launch("watershed3d_flood_global", counter,
+                       (intensity, seeds, mask, torch.empty_like(seeds), out), b, z, h, w,
+                       n_levels, route="global")
+
+
 def watershed3d_flood(
     intensity: torch.Tensor, seeds: torch.Tensor, mask: torch.Tensor, n_levels: int = 16
 ) -> torch.Tensor:
@@ -156,21 +197,12 @@ def watershed3d_flood(
         raise ValueError("n_levels must be >= 1")
     if intensity.device.type == "cpu":
         return watershed3d_flood_plain(intensity, seeds, mask, n_levels)
-    intensity = intensity.to(torch.float32).contiguous()
-    seeds = seeds.to(torch.int32).contiguous()
-    mask = mask.to(torch.bool).contiguous()
-    out = torch.empty_like(seeds)
-    scratch = torch.empty_like(seeds)
-    _cuda.require_cuda("watershed3d_flood", intensity, seeds, mask, out, scratch)
-    b, z, h, w = intensity.shape
-    watershed3d_flood.launches += 1
-    _cuda.check("tm_watershed3d_flood", _cuda.lib().tm_watershed3d_flood(
-        intensity.data_ptr(), seeds.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), b, z, h, w, n_levels, _cuda.stream()))
-    return out
+    return watershed3d_flood_launcher(intensity, seeds, mask, n_levels,
+                                      counter=watershed3d_flood)()
 
 
 watershed3d_flood.launches = 0
+watershed3d_flood.routes = {"cluster": 0, "global": 0}
 
 
 # ------------------------------------------------------------ ops on top
@@ -195,27 +227,31 @@ def watershed_from_seeds_3d(
     )
 
 
+def volume_stat_channels(
+    labels: torch.Tensor, intensity: torch.Tensor
+) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """``(B, Z, H, W)`` labels and the six channels :func:`volume_features`
+    sums (1, z, y, x, v, v²); the first four are one ``(Z, H, W)`` volume
+    each, broadcast over the batch without a copy."""
+    labels = labels.to(torch.int32)
+    img = intensity.to(torch.float32)
+    b, z, h, w = labels.shape
+    grid = torch.meshgrid(
+        *(torch.arange(n, dtype=torch.float32, device=labels.device) for n in (z, h, w)),
+        indexing="ij",
+    )
+    shared = [torch.ones((z, h, w), device=labels.device), *(g.contiguous() for g in grid)]
+    return labels, [c.expand(b, z, h, w) for c in shared] + [img, img * img]
+
+
 def volume_features(
     labels: torch.Tensor, intensity: torch.Tensor, max_objects: int
 ) -> dict[str, torch.Tensor]:
     """Per-object voxel count, centroid and intensity statistics of
     ``(B, Z, H, W)`` label volumes, each ``(B, max_objects)``.  The six
-    channels go to ONE :func:`grouped_stats` pass through a ``(B, Z*H,
-    W)`` view, which keeps row-major voxel order (the reference's
-    scatter order)."""
-    labels = labels.to(torch.int32)
-    img = intensity.to(torch.float32)
-    b, z, h, w = labels.shape
-    zz, yy, xx = torch.meshgrid(
-        *(torch.arange(n, dtype=torch.float32, device=labels.device) for n in (z, h, w)),
-        indexing="ij",
-    )
-    chans = [torch.ones_like(img), zz, yy, xx, img, img * img]
-
-    def view(t):
-        return t.expand(b, z, h, w).reshape(b, z * h, w)
-
-    sums = grouped_stats(view(labels), [view(c) for c in chans], max_objects)[0]
+    channels go to ONE :func:`grouped_stats` pass over the volumes, in
+    row-major voxel order (the reference's scatter order)."""
+    sums = grouped_stats(*volume_stat_channels(labels, intensity), max_objects)[0]
     vol = sums[..., 0]
     safe = torch.clamp(vol, min=1.0)
     total = sums[..., 4]
@@ -233,5 +269,5 @@ def volume_features(
         "Volume_centroid_x": m(div(sums[..., 3], safe)),
         "Volume_intensity_mean": m(mean),
         "Volume_intensity_sum": total,
-        "Volume_intensity_std": m(torch.sqrt(var)),
+        "Volume_intensity_std": m(sqrt(var)),
     }

@@ -51,6 +51,29 @@ sites of 256², ``max_objects=256``):
   over a constant image (``atomic_flat``: each object's pixels in one
   bucket, the worst contention) — beside the shipped kernel on the same
   three inputs (``kernel_zero``, ``kernel_real``, ``kernel_flat``).
+- ``grouped_stats_c3`` (config 3's 3-channel call on the nuclei),
+  ``grouped_stats_c4_7`` and ``grouped_stats_c4_32`` (config 4's
+  morphology call on the cells and Zernike call on the nuclei) and
+  ``grouped_stats_v6`` (the volume path's 6-channel call on ``(B, Z, H,
+  W)`` volumes): the kernel (``kernel``, every channel in one launch,
+  read where the caller keeps it), the kernel on views of one stacked
+  copy of the channels (``kernel_stacked``: the layout the wrapper once
+  built, without building it), on the volumes also with 2-D
+  boxes over the ``(B, Z*H, W)`` view (``kernel_2d``), the first design
+  (``original``, one launch a group of 8 channels, over that view), the
+  public wrapper (``wrapper``: the kernel and what the call costs around
+  it) and the yardstick ``library`` (``index_add_`` and two
+  ``scatter_reduce_``).
+- ``grouped_stats_split``: the first design taken apart on config 3's call --
+  its box phase alone (``original_boxes_*``) and whole (``original_*``)
+  on the real nuclei and on one object the size of the site (``*_site``)
+  -- beside the kernel on both.
+- ``watershed3d`` (the volume path's cells from its nuclei, 8 levels): the
+  cluster kernel (``kernel``), the first design (``global``), the public
+  wrapper and the plain version; ``watershed3d_split``: both designs on
+  the real volumes, with every mask voxel a seed (``*_labelled``) and at
+  one level (``*_levels1``).  These two need the volume path's inputs
+  (:func:`volume_inputs`).
 
 Run on a card: ``python -m tmlibrary_tpu_torch.shootout [--reps N]``.
 """
@@ -66,12 +89,17 @@ import torch
 from tmlibrary_tpu_torch.errors import DeviceError
 from tmlibrary_tpu_torch.ops import fused_measure as fm
 from tmlibrary_tpu_torch.ops import kernels
+from tmlibrary_tpu_torch.ops import volume
+from tmlibrary_tpu_torch.ops._cuda import bind_launch
 from tmlibrary_tpu_torch.ops.measure import grouped_minmax
 
 #: HBM bandwidth by card (NVIDIA data sheets); the SXM part is the default
 HBM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H100", 3.35e12))
 #: ``phases`` of the first designs' entry points
 PHASE_MEMSET, PHASE_KERNEL = 1, 2
+#: ``phases`` of the first grouped_stats design (the boxes, the walk) and its
+#: channels a launch
+GS_BOXES, GS_WALK, ORIGINAL_CHANNELS = 1, 2, 8
 #: window budgets the harness sets against the shipped plan
 SMEM_LEVERS = (("full", fm.SMEM_BYTES), ("half", fm.SMEM_BYTES // 2),
                ("quarter", fm.SMEM_BYTES // 4))
@@ -145,6 +173,48 @@ def glcm_all_atomic(labels, intensity, max_objects, levels, offsets, bounds,
 
 
 # ------------------------------------------------------------- yardsticks
+def grouped_stats_original(labels, channels, max_objects, phases=GS_BOXES | GS_WALK):
+    """The first ``grouped_stats`` design as a ``launch()``: one block a site,
+    boxes by shared atomics, then one thread an object walking its box;
+    ``phases`` ``GS_BOXES`` alone stops after the boxes.  It took at most
+    8 channels a launch, so more take one launch a group of 8, as its
+    wrapper did."""
+    launches = []
+    for i in range(0, len(channels), ORIGINAL_CHANNELS):
+        lab, values = fm._stack(labels, channels[i : i + ORIGINAL_CHANNELS])
+        lab, values = lab.contiguous(), values.contiguous()
+        b, c, h, w = values.shape
+        out = torch.empty((3, b, max_objects, c), dtype=torch.float32, device=lab.device)
+        launches.append(bind_launch("grouped_stats_original", None, (lab, values, *out),
+                                    b, h, w, c, max_objects, phases))
+
+    def launch():
+        for one in launches:
+            one()
+
+    return launch
+
+
+def grouped_stats_library(labels, channels, max_objects):
+    """One ``index_add_`` and two ``scatter_reduce_`` calls over the
+    pixels of every site at once: the same function from PyTorch's own
+    kernels (not bit-identical: ``index_add_`` adds in any order)."""
+    b, k, c = labels.shape[0], max_objects, len(channels)
+    values = torch.stack([ch.to(torch.float32) for ch in channels], dim=-1).reshape(-1, c)
+    flat = labels.reshape(b, -1).long()
+    flat = torch.where((flat >= 1) & (flat <= k), flat, 0)
+    seg = (flat + torch.arange(b, device=flat.device)[:, None] * (k + 1)).reshape(-1)
+    idx = seg[:, None].expand(-1, c)
+
+    def library():
+        s = torch.zeros((b * (k + 1), c), device=values.device).index_add_(0, seg, values)
+        lo = torch.full_like(s, float("inf")).scatter_reduce_(0, idx, values, "amin")
+        hi = torch.full_like(s, float("-inf")).scatter_reduce_(0, idx, values, "amax")
+        return s, lo, hi
+
+    return library
+
+
 def hist_index(labels, intensity, max_objects, bins, bounds) -> torch.Tensor:
     """The fused ``(site, object, bucket)`` index of every counted pixel:
     what ``torch.bincount`` counts in the histogram's yardstick."""
@@ -263,6 +333,136 @@ def flood_split_set(kind: str, inputs: dict) -> dict:
             for case, a in cases.items() for who in ("global", "kernel")}
 
 
+def volume_inputs(device="cuda", batch: int = 16, size: int = 128, depth: int = 16,
+                  max_objects: int = 256, seed: int = 0, n_levels: int = 8) -> dict:
+    """Config 5's batch segmented the volume path's way: the focus-stacked
+    volume, its Otsu mask, the 3-D nuclei, the cell mask (0.8 of the cut)
+    and the cells flooded from the nuclei (``n_levels`` levels)."""
+    from tmlibrary_tpu_torch import benchmarks
+    from tmlibrary_tpu_torch.jterator.modules import get_module
+    from tmlibrary_tpu_torch.ops import label, threshold
+
+    data = benchmarks.synthetic_volume_batch(batch, size=size, depth=depth, seed=seed)
+    vol = get_module("generate_volume_image")(
+        torch.from_numpy(data["DAPI"]).to(device), mode="focus")["volume_image"]
+    cut = threshold.otsu_value(vol)[:, None, None, None]
+    vmask = vol > cut
+    nuclei = label.clip_label_count(volume.connected_components_3d(vmask)[0], max_objects)
+    cmask = vol > cut * 0.8
+    cells = volume.watershed3d_flood(vol, nuclei, cmask, n_levels)
+    return dict(data=data, vol=vol, vmask=vmask, nuclei=nuclei, cmask=cmask, cells=cells,
+                n_levels=n_levels)
+
+
+def feature_channel_calls(labels, max_objects: int, degree: int = 6) -> dict:
+    """``{n_channels: (labels, channels)}`` of the ``grouped_stats`` calls
+    that ``morphology_features`` (7 channels) and ``zernike_features``
+    (32 at degree 6) make on ``labels``."""
+    from tmlibrary_tpu_torch.ops import measure
+
+    real, seen = measure.grouped_stats, {}
+
+    def record(lab, channels, m):
+        seen.setdefault(len(channels), (lab, channels))
+        return real(lab, channels, m)
+
+    measure.grouped_stats = record
+    try:
+        measure.morphology_features(labels, max_objects)
+        measure.zernike_features(labels, max_objects, degree=degree)
+    finally:
+        measure.grouped_stats = real
+    return seen
+
+
+def grouped_stats_inputs(inputs: dict, max_objects: int, vol_inputs=None) -> dict:
+    """The A/B's inputs, ``{name: (labels, channels)}``: config 3's
+    3-channel call (nuclei/DAPI), config 4's 7-channel morphology call
+    (cells) and 32-channel Zernike call (nuclei), and with ``vol_inputs``
+    the volume path's 6-channel call on ``(B, Z, H, W)`` volumes."""
+    nuclei, dapi = inputs["nuclei"], inputs["dapi"]
+    out = {"c3": (nuclei, [torch.ones_like(dapi), dapi, dapi * dapi]),
+           "c4_7": feature_channel_calls(inputs["cells"], max_objects)[7],
+           "c4_32": feature_channel_calls(nuclei, max_objects)[32]}
+    if vol_inputs is not None:
+        out["v6"] = volume.volume_stat_channels(vol_inputs["cells"], vol_inputs["vol"])
+    return out
+
+
+def grouped_stats_set(labels, channels, max_objects) -> dict:
+    """The kernel (one launch, every channel) on the caller's channels and
+    on views of one stacked copy of them, the first design
+    (``original``), the public wrapper and the library yardstick; on
+    volumes also the kernel with 2-D boxes over the ``(B, Z*H, W)`` view
+    (``kernel_2d``), the view the first design takes."""
+    stacked = torch.stack([c.to(torch.float32) for c in channels], dim=1).unbind(1)
+    out = {"kernel": fm.grouped_stats_launcher(labels, channels, max_objects),
+           "kernel_stacked": fm.grouped_stats_launcher(labels, list(stacked), max_objects)}
+    flat_lab, flat_chans = labels, channels
+    if labels.dim() == 4:
+        b, z, h, w = labels.shape
+        flat_lab = labels.reshape(b, z * h, w)
+        flat_chans = [c.reshape(b, z * h, w) for c in channels]
+        out["kernel_2d"] = fm.grouped_stats_launcher(flat_lab, flat_chans, max_objects)
+    out.update({
+        "original": grouped_stats_original(flat_lab, flat_chans, max_objects),
+        "wrapper": lambda: fm.grouped_stats(labels, channels, max_objects),
+        "library": grouped_stats_library(labels, channels, max_objects),
+    })
+    return out
+
+
+def grouped_stats_split_set(inputs: dict, max_objects: int) -> dict:
+    """The first design taken apart on config 3's 3-channel call: its box
+    phase alone (``original_boxes_*``) and whole (``original_*``) on the
+    real nuclei and on one object as large as the site (``*_site``: the
+    box phase on one shared address, the walk one thread's chain of every
+    pixel) -- beside the kernel on the same inputs."""
+    nuclei, dapi = inputs["nuclei"], inputs["dapi"]
+    chans = [torch.ones_like(dapi), dapi, dapi * dapi]
+    cases = {"real": nuclei, "site": torch.ones_like(nuclei)}
+    out = {}
+    for case, lab in cases.items():
+        out[f"original_boxes_{case}"] = grouped_stats_original(lab, chans, max_objects, GS_BOXES)
+        out[f"original_{case}"] = grouped_stats_original(lab, chans, max_objects)
+        out[f"kernel_{case}"] = fm.grouped_stats_launcher(lab, chans, max_objects)
+    return out
+
+
+def grouped_stats_bytes(labels, n_channels: int, max_objects: int) -> int:
+    """What the function must move on these labels: every label, the
+    channels of the pixels with an id in 1..``max_objects`` (no other
+    value enters a result) and the three outputs."""
+    kept = int(((labels >= 1) & (labels <= max_objects)).sum())
+    return labels.numel() * 4 + kept * n_channels * 4 + 3 * labels.shape[0] * max_objects * n_channels * 4
+
+
+def watershed3d_set(vol_inputs: dict) -> dict:
+    args = (vol_inputs["vol"], vol_inputs["nuclei"], vol_inputs["cmask"], vol_inputs["n_levels"])
+    return {
+        "kernel": volume.watershed3d_flood_launcher(*args),
+        "global": volume.watershed3d_flood_launcher(*args, plan=kernels.FloodPlan("global")),
+        "wrapper": lambda: volume.watershed3d_flood(*args),
+        "plain": lambda: volume.watershed3d_flood_plain(*args),
+    }
+
+
+def watershed3d_split_set(vol_inputs: dict) -> dict:
+    """The first design (``global_*``) and the cluster kernel
+    (``kernel_*``) on the volume path's inputs (``real``), with every
+    voxel of the mask a seed (``labelled``: each level one quiet step, so
+    the first design's time is 9 full scans) and at one level
+    (``levels1``)."""
+    vol, nuclei, cmask, n = (vol_inputs[k] for k in ("vol", "nuclei", "cmask", "n_levels"))
+    everywhere = torch.where(cmask, torch.where(nuclei > 0, nuclei, 1), nuclei)
+    cases = {"real": (vol, nuclei, cmask, n), "labelled": (vol, everywhere, cmask, n),
+             "levels1": (vol, nuclei, cmask, 1)}
+    glob = kernels.FloodPlan("global")
+    return {f"{who}_{case}": volume.watershed3d_flood_launcher(
+                *a, plan=glob if who == "global" else None)
+            for case, a in cases.items() for who in ("global", "kernel")}
+
+
 def cc_set(masks) -> dict:
     return {"kernel": lambda: kernels.cc_min_propagate(masks),
             "plain": lambda: kernels.cc_min_propagate_plain(masks)}
@@ -324,8 +524,9 @@ def split_set(kind: str, labels, img, max_objects: int) -> dict:
 
 
 def run(inputs: dict, max_objects: int = 256, reps: int = 7, bytes_per_s: float = 3.35e12,
-        echo=print) -> dict:
-    """Every variant set on the main path's inputs; returns ``{set:
+        echo=print, vol_inputs: "dict | None" = None) -> dict:
+    """Every variant set on the main path's inputs (and, with
+    ``vol_inputs``, the volume path's sets); returns ``{set:
     {"ms": {variant: ms}, "bound_ms": ms or None}}`` and echoes one line
     a set with each variant's bound share (bound ms / ms)."""
     nuclei, cells, dapi, actin = (inputs[k] for k in ("nuclei", "cells", "dapi", "actin"))
@@ -350,6 +551,15 @@ def run(inputs: dict, max_objects: int = 256, reps: int = 7, bytes_per_s: float 
         "glcm_split": (split_set("glcm", cells, actin, max_objects),
                        glcm_bytes(b, n, max_objects, LEVELS, len(OFFSETS))),
     }
+    for name, (lab, chans) in grouped_stats_inputs(inputs, max_objects, vol_inputs).items():
+        sets[f"grouped_stats_{name}"] = (grouped_stats_set(lab, chans, max_objects),
+                                         grouped_stats_bytes(lab, len(chans), max_objects))
+    sets["grouped_stats_split"] = (grouped_stats_split_set(inputs, max_objects),
+                                   grouped_stats_bytes(nuclei, 3, max_objects))
+    if vol_inputs is not None:
+        vox_bytes = vol_inputs["vol"].numel() * (4 + 4 + 1 + 4)
+        sets["watershed3d"] = (watershed3d_set(vol_inputs), vox_bytes)
+        sets["watershed3d_split"] = (watershed3d_split_set(vol_inputs), vox_bytes)
     results = {}
     for name, (variants, nbytes) in sets.items():
         ms = best_of(variants, reps=reps)
@@ -367,7 +577,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise DeviceError("shootout: needs a CUDA card")
     name = torch.cuda.get_device_name(0)
-    results = run(main_path_inputs(), reps=args.reps, bytes_per_s=hbm_rate(name))
+    results = run(main_path_inputs(), reps=args.reps, bytes_per_s=hbm_rate(name),
+                  vol_inputs=volume_inputs())
     print(json.dumps({"device": name, "shootout": results}))
     return 0
 
