@@ -27,7 +27,13 @@ Phases (any failure exits non-zero before the last line):
    the distance transform on
    both routes, at a cap of 2, on 1024x1024 and 483x483 sites and inside
    ``segment_primary(declump=True)`` on 512x512 sites against the CPU;
-   the 3-D labeling at connectivity 6, 18 and 26; the 3-D flood on every
+   the 2-D labeling (union-find, and the first design kept for the A/B) at
+   connectivity 8 and 4 on the main path's masks, edge sites at 256x256,
+   257x130 and 1024x1024, a comb of 1-px lines on the tile edges (256x256
+   and 1024x1024) and a 1-px spiral; the 3-D labeling (and its first
+   design) at connectivity 26, 18 and 6 on the volume path's masks, edge
+   volumes, a 64x256x256 volume, 17x100x37 noise and one plane; both on
+   45% (30% in 3-D) noise ten launches in a row; the 3-D flood on every
    route (cluster, ``global``) on the volume
    path's inputs, a tied plateau, empty and single-voxel masks, id
    edges, NaN, 1, 254 and 255 levels, a 5x37x41 crop and one plane; the
@@ -44,8 +50,10 @@ Phases (any failure exits non-zero before the last line):
    harness: best-of-7 times of the two 2-D floods, ``grouped_stats`` and
    the 3-D flood against their first designs (taken apart: fully
    labelled sites, one level, all-foreground masks, the box phase alone,
-   a site-sized object), of row 2's kernel against its plain labeling
-   and of the histogram and GLCM kernels against their window sizes,
+   a site-sized object), of rows 2 and 8 against their first
+   designs, their wrappers and plain labelings (taken apart: real,
+   all-foreground and noise masks with the first designs' sweep counts,
+   the union-find's phases by prefix) and of the histogram and GLCM kernels against their window sizes,
    their first designs (taken apart: memset, counting on zero, real and
    flat inputs) and the ``bincount``/``index_add_`` yardsticks.
 3. Drive six paths through ``build_batch_fn`` on the card, each with
@@ -55,14 +63,16 @@ Phases (any failure exits non-zero before the last line):
    ``measure_intensity(quantiles=True)``, (d) config 3 with declumping,
    (e) config 2 (smooth, adaptive threshold, label) and (f) config 5 (the
    3-D z-stack pipeline).  Each path must launch its kernels (paths d-f
-   exactly as often as listed in ``main``; the floods on their main
-   routes); labels and counts of the
+   exactly as often as listed in ``main``, paths a-e the 2-D labeling and
+   f the 3-D labeling once; the floods on their main routes); labels and
+   counts of the
    first 8 sites equal the port's run on ``device="cpu"`` and every
    feature lies within its tier of ``CARD_TIERS``.  Print sites/sec and a
    stage breakdown, each time beside the card's name and power limit;
    for the volume path split ``measure_volume``.
-4. Print ``kernels: ...``, the per-kernel JSON record, and as the last
-   line ``{"ok": true, "device": {...}}``.
+4. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+   and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
+   in the A/B harness), and as the last line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of ``tmlibrary_tpu``.
 """
@@ -181,19 +191,92 @@ def max_abs_err(torch, a, b) -> float:
     return float((a - b).abs()[~same].max())
 
 
-def edge_sites(torch, device):
+def edge_sites(torch, device, h=SIZE, w=SIZE):
     """Empty, full, single-pixel, serpentine and checkerboard-noise sites."""
-    m = torch.zeros((5, SIZE, SIZE), dtype=torch.bool)
+    m = torch.zeros((5, h, w), dtype=torch.bool)
     m[1] = True
-    m[2, SIZE - 1, SIZE - 1] = True
-    for r in range(0, SIZE, 4):  # a 1-px serpentine through the whole site
+    m[2, h - 1, w - 1] = True
+    for r in range(0, h, 4):  # a 1-px serpentine through the whole site
         m[3, r, :] = True
-        if r + 4 < SIZE:
-            col = SIZE - 1 if (r // 4) % 2 == 0 else 0
+        if r + 4 < h:
+            col = w - 1 if (r // 4) % 2 == 0 else 0
             m[3, r : r + 5, col] = True
     g = torch.Generator().manual_seed(SEED)
-    m[4] = torch.rand((SIZE, SIZE), generator=g) < 0.45
+    m[4] = torch.rand((h, w), generator=g) < 0.45
     return m.to(device)
+
+
+def tile_comb(torch, device, size, tile=32):
+    """A comb of 1-px lines on the union-find kernel's tile edges: a spine
+    along the first row and a tooth down the last column of every tile,
+    stepping to the next tile's first column at every tile row, so the
+    tooth's halves touch only diagonally where four tiles meet."""
+    m = torch.zeros((1, size, size), dtype=torch.bool)
+    m[0, 0] = True
+    for k in range(1, size // tile):
+        for y0 in range(0, size, tile):
+            col = tile * k - 1 if (y0 // tile) % 2 == 0 else tile * k
+            m[0, max(y0, 1) : y0 + tile, col] = True
+    return m.to(device)
+
+
+def cc_cases_2d(torch, filled, dapi_mask) -> dict:
+    """Inputs of the 2-D labeling's holds: the main path's filled masks and
+    Otsu masks, edge sites at 256x256 and at a ragged 257x130, the tile
+    comb at 256x256 and 1024x1024, edge sites at 1024x1024 (the
+    serpentine left out: the plain propagation would walk its 262,144
+    pixels one step each) and a 1-px spiral corridor in a 256x256 site."""
+    dev = filled.device
+    big = edge_sites(torch, dev, 1024, 1024)
+    spiral = torch.zeros((1, SIZE, SIZE), dtype=torch.bool)
+    spiral[0, : SIZE - 1, : SIZE - 1] = ~spiral_site(torch, (SIZE - 1) // 2)
+    return {"main": filled, "otsu": dapi_mask, "edge": edge_sites(torch, dev),
+            "edge257x130": edge_sites(torch, dev, 257, 130),
+            "comb": tile_comb(torch, dev, SIZE), "comb1024": tile_comb(torch, dev, 1024),
+            "edge1024": big[[0, 1, 2, 4]], "spiral": spiral.to(dev)}
+
+
+def repeat_hold(torch, name, compare, run, want, times: int = 10) -> float:
+    """``run()`` exact against ``want`` ``times`` times over: the union-find
+    kernels' blocks meet in another order every launch, and a race that
+    loses a union shows on some launches only."""
+    err = 0.0
+    for i in range(times):
+        err = max(err, compare(f"{name}, launch {i + 1} of {times}", run(), want))
+    print(f"  {name}: {tuple(want.shape)}, exact on {times} launches in a row")
+    return err
+
+
+def cc_record(torch, kernels, shootout, filled, dapi_mask, compare) -> dict:
+    """Row 2: the union-find kernel (the wrapper) and the first design kept
+    for the A/B harness, each exact against the plain version at
+    connectivity 8 and 4 on every input of :func:`cc_cases_2d`."""
+    err = 0.0
+    for name, m in cc_cases_2d(torch, filled, dapi_mask).items():
+        for conn in (8, 4):
+            want = kernels.cc_min_propagate_plain(m, conn)
+            err = max(err, compare(f"cc_min_propagate[{name},{conn}]",
+                                   kernels.cc_min_propagate(m, conn), want))
+            original = shootout.cc_original(m, conn)
+            err = max(err, compare(f"cc_min_propagate[{name},{conn},original]", original(), want))
+        print(f"  cc_min_propagate[{name}]: {tuple(m.shape)}, connectivity 8 and 4: exact on the "
+              f"kernel and the first design (its sweeps per site up to {int(original.sweeps.max())})")
+    noise = shootout.cc_cases(dapi_mask)["noise"]
+    for conn in (8, 4):
+        err = max(err, repeat_hold(torch, f"cc_min_propagate[noise,{conn}]", compare,
+                                   lambda: kernels.cc_min_propagate(noise, conn),
+                                   kernels.cc_min_propagate_plain(noise, conn)))
+    px = B * SIZE * SIZE
+    return dict(
+        name="cc_min_propagate",
+        source="tmlibrary_tpu_torch/csrc/cc_min_propagate.cu",
+        replaces="tmlibrary_tpu/ops/pallas_kernels.py:162",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: kernels.cc_min_propagate(filled), 20),
+        launch_ms=cuda_ms(torch, kernels.cc_min_propagate_launcher(filled), 20),
+        plain_ms=cuda_ms(torch, lambda: kernels.cc_min_propagate_plain(filled), 3, 1),
+        bytes=px * (1 + 4), ops=px * 8, library_ms=None,
+    )
 
 
 def feature_edge_sites(torch, device):
@@ -218,29 +301,14 @@ def phase_kernels(torch, pkg, inputs):
     5-6 in :func:`phase_table_kernels`)."""
     kernels, fm, measure = pkg["kernels"], pkg["fused_measure"], pkg["measure"]
     filled, nuclei, dapi, cells = (inputs[k] for k in ("filled", "nuclei", "dapi", "cells"))
-    edges = edge_sites(torch, dapi.device)
     px = B * SIZE * SIZE
     records = []
     compare = make_compare(torch)
 
     records += phase_floods(torch, kernels, pkg["shootout"], inputs, compare)
 
-    # cc_min_propagate: the filled masks, plus edge sites (serpentine, noise)
-    err = compare("cc_min_propagate", kernels.cc_min_propagate(filled),
-                  kernels.cc_min_propagate_plain(filled))
-    for conn in (8, 4):
-        err = max(err, compare(f"cc_min_propagate[edge,{conn}]",
-                               kernels.cc_min_propagate(edges, conn),
-                               kernels.cc_min_propagate_plain(edges, conn)))
-    records.append(dict(
-        name="cc_min_propagate",
-        source="tmlibrary_tpu_torch/csrc/cc_min_propagate.cu",
-        replaces="tmlibrary_tpu/ops/pallas_kernels.py:162",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: kernels.cc_min_propagate(filled), 20),
-        plain_ms=cuda_ms(torch, lambda: kernels.cc_min_propagate_plain(filled), 3, 1),
-        bytes=px * (1 + 4), ops=px * 8, library_ms=None,
-    ))
+    records.append(cc_record(torch, kernels, pkg["shootout"], filled, inputs["dapi_mask"],
+                             compare))
 
     # grouped_stats: intensity_features' channels [1, v, v^2] of DAPI
     # (timed below), then every call morphology and Zernike make on the
@@ -688,21 +756,7 @@ def phase_kernels_declump_volume(torch, pkg, filled, vi, compare):
 
     vox = B_V * DEPTH_V * SIZE_V * SIZE_V
     e_vol = edge_volumes(torch, vol.device)
-    err = 0.0
-    for conn in (26, 18, 6):
-        for name, m in (("main", vmask), ("edge", e_vol)):
-            err = max(err, compare(f"cc3d_min_propagate[{name},{conn}]",
-                                   volume.cc3d_min_propagate(m, conn),
-                                   volume.cc3d_min_propagate_plain(m, conn)))
-    records.append(dict(
-        name="cc3d_min_propagate",
-        source="tmlibrary_tpu_torch/csrc/cc3d_min_propagate.cu",
-        replaces="tmlibrary_tpu/ops/pallas_kernels.py:424",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: volume.cc3d_min_propagate(vmask), 20),
-        plain_ms=cuda_ms(torch, lambda: volume.cc3d_min_propagate_plain(vmask), 2, 1),
-        bytes=vox * (1 + 4), ops=vox * 26, library_ms=None,
-    ))
+    records.append(cc3d_record(torch, volume, pkg["shootout"], vmask, e_vol, compare))
 
     args = (vol, nuclei3d, cmask, N_LEVELS_V)
     err = 0.0
@@ -750,6 +804,53 @@ def phase_kernels_declump_volume(torch, pkg, filled, vi, compare):
     print(f"  grouped_stats[volume]: {tuple(lab.shape)}, 6 channels: "
           "exact with 3-D and 2-D boxes")
     return records, g_err
+
+
+def cc3d_cases(torch, vmask, e_vol) -> dict:
+    """Inputs of the 3-D labeling's holds: the volume path's masks, the
+    edge volumes, one 64x256x256 volume (16 MB of labels, larger than a
+    cluster of the 3-D flood holds) tiled from the path's masks, two
+    ragged 17x100x37 volumes of 30% noise and one plane of each path
+    volume."""
+    big = torch.cat(list(vmask[:4]), dim=0).repeat(1, 2, 2)[None].contiguous()
+    g = torch.Generator().manual_seed(SEED + 3)
+    ragged = (torch.rand((2, 17, 100, 37), generator=g) < 0.3).to(vmask.device)
+    return {"main": vmask, "edge": e_vol, "64x256x256": big, "17x100x37": ragged,
+            "z1": vmask[:, 7:8].contiguous()}
+
+
+def cc3d_record(torch, volume, shootout, vmask, e_vol, compare) -> dict:
+    """Row 8: the union-find kernel (the wrapper) and the first design kept
+    for the A/B harness, each exact against the plain version at
+    connectivity 26, 18 and 6 on every input of :func:`cc3d_cases`."""
+    err = 0.0
+    for name, m in cc3d_cases(torch, vmask, e_vol).items():
+        for conn in (26, 18, 6):
+            want = volume.cc3d_min_propagate_plain(m, conn)
+            err = max(err, compare(f"cc3d_min_propagate[{name},{conn}]",
+                                   volume.cc3d_min_propagate(m, conn), want))
+            original = shootout.cc_original(m, conn)
+            err = max(err, compare(f"cc3d_min_propagate[{name},{conn},original]", original(),
+                                   want))
+        print(f"  cc3d_min_propagate[{name}]: {tuple(m.shape)}, connectivity 26, 18 and 6: "
+              f"exact on the kernel and the first design (its sweeps per volume up to "
+              f"{int(original.sweeps.max())})")
+    noise = shootout.cc_cases(vmask)["noise"]
+    for conn in (26, 6):
+        err = max(err, repeat_hold(torch, f"cc3d_min_propagate[noise,{conn}]", compare,
+                                   lambda: volume.cc3d_min_propagate(noise, conn),
+                                   volume.cc3d_min_propagate_plain(noise, conn)))
+    vox = vmask.numel()
+    return dict(
+        name="cc3d_min_propagate",
+        source="tmlibrary_tpu_torch/csrc/cc3d_min_propagate.cu",
+        replaces="tmlibrary_tpu/ops/pallas_kernels.py:424",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: volume.cc3d_min_propagate(vmask), 20),
+        launch_ms=cuda_ms(torch, volume.cc3d_min_propagate_launcher(vmask), 20),
+        plain_ms=cuda_ms(torch, lambda: volume.cc3d_min_propagate_plain(vmask), 2, 1),
+        bytes=vox * (1 + 4), ops=vox * 26, library_ms=None,
+    )
 
 
 def flood3d_cases(torch, vi, e_vol) -> dict:
@@ -938,8 +1039,8 @@ def main() -> int:
         # ---------------------------------------------------------- phase 2
         dev = torch.device("cuda")
         inputs = shootout.main_path_inputs(dev, B, SIZE, MAX_OBJECTS, SEED)
-        data, dapi, actin, filled, nuclei, actin_mask = (inputs[k] for k in (
-            "data", "dapi", "actin", "filled", "nuclei", "actin_mask"))
+        data, dapi, actin, filled, nuclei, actin_mask, dapi_mask = (inputs[k] for k in (
+            "data", "dapi", "actin", "filled", "nuclei", "actin_mask", "dapi_mask"))
         vi = shootout.volume_inputs(dev, B_V, SIZE_V, DEPTH_V, MAX_OBJECTS, SEED, N_LEVELS_V)
         data_v = vi["data"]
         print(f"phase 2: kernels vs plain versions at B={B}, {SIZE}x{SIZE} and B={B_V}, "
@@ -950,7 +1051,8 @@ def main() -> int:
                     "shootout": shootout}, inputs)
         more, gs_err = phase_kernels_declump_volume(
             torch, {"kernels": kernels, "volume": volume, "fused_measure": fused_measure,
-                    "segment_primary": segment_primary}, filled, vi, make_compare(torch))
+                    "segment_primary": segment_primary, "shootout": shootout}, filled, vi,
+            make_compare(torch))
         records += more
         gs = next(r for r in records if r["name"] == "grouped_stats")
         gs["max_abs_err"] = max(gs["max_abs_err"], gs_err)
@@ -958,7 +1060,19 @@ def main() -> int:
 
         # ---------------------------------------------------------- shootout
         print(f"shootout: interleaved best-of-7 A/B on the main path's inputs; times on {card}")
-        shootout.run(inputs, MAX_OBJECTS, bytes_per_s=bw, vol_inputs=vi)
+        ab = shootout.run(inputs, MAX_OBJECTS, bytes_per_s=bw, vol_inputs=vi)
+        # row 10, scripts/cc_kernel_shootout.py: row 2's function in the A/B
+        # harness, timed there on the Otsu masks
+        row10 = dict(name="cc_kernel_shootout", wrapper="cc_min_propagate",
+                     source="tmlibrary_tpu_torch/csrc/cc_min_propagate.cu",
+                     replaces="scripts/cc_kernel_shootout.py:41",
+                     max_abs_err=next(r for r in records
+                                      if r["name"] == "cc_min_propagate")["max_abs_err"],
+                     ms=ab["cc"]["ms"]["kernel"], plain_ms=ab["cc"]["ms"]["plain"],
+                     bytes=shootout.cc_bytes(dapi_mask), ops=dapi_mask.numel() * 8,
+                     library_ms=None)
+        finish_records([row10], bw)
+        records.append(row10)
 
         # ---------------------------------------------------------- phase 3
         wrappers = {
@@ -978,20 +1092,27 @@ def main() -> int:
         # (a) config 3
         desc3 = benchmarks.cell_painting_description()
         run3 = drive_path(torch, pipeline, "config 3", desc3, data, wrappers, need=segment,
-                          card=card, expect={"fill_holes_flood": 1, "watershed_flood": 1},
+                          card=card, expect={"fill_holes_flood": 1, "watershed_flood": 1,
+                                             "cc_min_propagate": 1},
                           only=on_chip)
-        kernel_ms = sum(r["ms"] * run3["launches"][r["name"]] for r in records)
+        kernel_ms = sum(r["ms"] * run3["launches"][r["name"]] for r in records
+                        if r["name"] in run3["launches"])
         print(f"  the kernels: {kernel_ms:.2f} ms of a batch at their phase-2 times ({card})")
         print_stages(card, stage_breakdown(
             torch, pkg_ops={"smooth": smooth, "threshold": threshold, "label": label,
                             "kernels": kernels},
             dapi=dapi, actin=actin, nuclei=nuclei, actin_mask=actin_mask))
+        split = labeling_split(torch, kernels.cc_min_propagate_launcher, label.compact_roots,
+                               filled)
+        print("  connected_components split (ms per batch): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items()) + f" on {card}")
 
         # (b) config 4, the full feature stack
         data4 = benchmarks.synthetic_full_stack_batch(B, size=SIZE, seed=SEED)
         desc4 = benchmarks.full_feature_description()
         run4 = drive_path(torch, pipeline, "config 4", desc4, data4, wrappers,
-                          need=segment + ["glcm_all"], card=card, only=on_chip)
+                          need=segment + ["glcm_all"], card=card,
+                          expect={"cc_min_propagate": 1}, only=on_chip)
         print_stages(card, stage_breakdown_full(torch, data4, run4["objects"]))
 
         # (c) config 3 with measure_intensity(quantiles=True)
@@ -1004,7 +1125,8 @@ def main() -> int:
         ]
         desc_q = PipelineDescription.from_dict(pipe)
         run_q = drive_path(torch, pipeline, "quantiles", desc_q, data, wrappers,
-                           need=segment + ["intensity_hist"], card=card, only=on_chip)
+                           need=segment + ["intensity_hist"], card=card,
+                           expect={"cc_min_propagate": 1}, only=on_chip)
         if run_q["launches"]["intensity_hist"] != 2:
             raise SmokeFailure("intensity_hist: expected 2 launches per batch, got "
                                f"{run_q['launches']['intensity_hist']}")
@@ -1035,6 +1157,10 @@ def main() -> int:
                                "grouped_stats": 1},
             only={"watershed3d_flood": "cluster"})
         print_stages(card, stage_breakdown_volume(torch, data_v, get_module))
+        split = labeling_split(torch, volume.cc3d_min_propagate_launcher, label.compact_roots,
+                               vi["vmask"])
+        print("  connected_components_3d split (ms per batch): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items()) + f" on {card}")
         split = measure_volume_split(torch, data_v, get_module)
         print("  measure_volume split (ms per batch): " + ", ".join(
             f"{k} {v:.3f}" for k, v in split.items()) + f" on {card}")
@@ -1043,7 +1169,8 @@ def main() -> int:
         path_of = {"intensity_hist": run_q, "glcm_all": run4, "distance_transform": run_d,
                    "cc3d_min_propagate": run_v, "watershed3d_flood": run_v}
         for r in records:
-            r["launches"] = path_of.get(r["name"], run3)["launches"][r["name"]]
+            wrapper = r.pop("wrapper", r["name"])
+            r["launches"] = path_of.get(wrapper, run3)["launches"][wrapper]
         if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except Exception as e:  # the smoke's boundary: report and exit non-zero
@@ -1056,7 +1183,7 @@ def main() -> int:
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print("kernels: " + ", ".join(r["name"] for r in records))
-    # rows 5-6 add the launch alone beside the wrapper's `ms`
+    # rows 1-6, 8 and 9 add the launch alone beside the wrapper's `ms`
     print(json.dumps({"kernels": [{k: r[k] for k in order + ["launch_ms"] if k in r}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {
@@ -1200,6 +1327,16 @@ def stage_breakdown_volume(torch, data, get_module) -> dict:
             nuc, vol, max_objects=MAX_OBJECTS),
     }
     return {name: cuda_ms(torch, fn, 3, 1) for name, fn in steps.items()}
+
+
+def labeling_split(torch, launcher, compact_roots, masks) -> dict:
+    """Where a labeling stage goes, CUDA events on the path's masks: the
+    union-find kernel's launch and the compaction to scipy order
+    (``compact_roots``, plain ops)."""
+    launch = launcher(masks)
+    roots = launch()
+    return {"kernel": cuda_ms(torch, launch, 10),
+            "compact_roots": cuda_ms(torch, lambda: compact_roots(masks, roots), 10)}
 
 
 def measure_volume_split(torch, data, get_module) -> dict:

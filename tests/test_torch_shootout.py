@@ -266,3 +266,108 @@ def test_grouped_stats_bytes_count_what_the_data_needs():
     and three outputs of M rows a site."""
     lab = torch.tensor([[[0, 1, 2, 300], [5, 0, 0, -1]]])
     assert shootout.grouped_stats_bytes(lab, 3, 256) == 8 * 4 + 3 * 3 * 4 + 3 * 256 * 3 * 4
+
+
+CC_LAUNCHERS = {
+    # mask, labels
+    "cc": (lambda m: tk.cc_min_propagate_launcher(m), 2),
+    "cc_local": (lambda m: tk.cc_min_propagate_launcher(m, phases=tk.CC_LOCAL), 2),
+    "cc3d": (lambda m: tv.cc3d_min_propagate_launcher(m.reshape(1, 2, 4, 8)), 2),
+    # mask, sweeps, labels
+    "cc_original": (lambda m: shootout.cc_original(m), 3),
+    "cc3d_original": (lambda m: shootout.cc_original(m.reshape(1, 2, 4, 8)), 3),
+}
+
+
+@pytest.mark.parametrize("name", list(CC_LAUNCHERS))
+def test_cc_launchers_hold_the_memory_they_pass(monkeypatch, name):
+    """The union-find launchers and the first designs kept for the A/B:
+    every tensor whose pointer a launcher passes (its bool copy of the
+    mask, the sweep counts, the labels) lives as long as the launcher,
+    the last is what a launch returns, and the phases reach the C call."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(tfm._cuda, "require_cuda", lambda *tensors, **checks: None)
+    monkeypatch.setattr(tfm._cuda, "lib", lambda: lib)
+    monkeypatch.setattr(tfm._cuda, "stream", lambda: 0)
+    passed = []
+    data_ptr = torch.Tensor.data_ptr
+
+    def recording(t):
+        passed.append(weakref.ref(t))
+        return data_ptr(t)
+
+    monkeypatch.setattr(torch.Tensor, "data_ptr", recording)
+    make, n_passed = CC_LAUNCHERS[name]
+    launch = make(torch.ones((1, 8, 8), dtype=torch.uint8))
+    gc.collect()
+    assert len(passed) == n_passed and all(r() is not None for r in passed)
+    out = launch()
+    assert out is passed[-1]() and out.dtype == torch.int32
+    ((entry, args),) = lib.calls
+    stem, _, variant = name.partition("_")
+    assert entry == f"tm_{stem}_min_propagate" + ("_original" if variant == "original" else "")
+    assert list(args[:n_passed]) == [data_ptr(r()) for r in passed]
+    if "original" not in name:
+        assert args[-2] == (tk.CC_LOCAL if name == "cc_local" else tk.CC_PHASES)
+    if "original" in name:
+        assert launch.sweeps is passed[1]()
+    del launch, out
+    gc.collect()
+    assert all(r() is None for r in passed)
+
+
+@pytest.mark.parametrize("name", list(CC_LAUNCHERS))
+def test_cc_launchers_raise_off_the_card(name):
+    with pytest.raises(DeviceError):
+        CC_LAUNCHERS[name][0](torch.zeros((1, 8, 8), dtype=torch.bool, device="meta"))
+
+
+@pytest.mark.parametrize("rank", [3, 4])
+def test_cc_sets_name_their_variants(monkeypatch, rank):
+    """The ``cc``/``cc3d`` sets hold the kernel, the first design, the
+    wrapper and the plain version; the splits both designs on the real,
+    all-foreground and noise masks and the kernel's phase prefixes."""
+    monkeypatch.setattr(tfm._cuda, "require_cuda", lambda *tensors, **checks: None)
+    monkeypatch.setattr(tfm._cuda, "lib", lambda: _RecordingLib())
+    monkeypatch.setattr(tfm._cuda, "stream", lambda: 0)
+    masks = torch.ones((2, 3, 8, 8) if rank == 4 else (2, 8, 8), dtype=torch.bool)
+    assert set(shootout.cc_set(masks)) == {"kernel", "original", "wrapper", "plain"}
+    split = shootout.cc_split_set(masks)
+    assert set(split) == {f"{who}_{case}" for who in ("original", "kernel")
+                          for case in ("real", "full", "noise")} | {"local_real", "border_real"}
+    noise = shootout.cc_cases(masks)["noise"]
+    assert noise.shape == masks.shape and noise.dtype == torch.bool
+    share = float(noise.float().mean())
+    assert abs(share - (0.3 if rank == 4 else 0.45)) < 0.15
+    assert torch.equal(shootout.cc_set(masks)["plain"](),
+                       (tv.cc3d_min_propagate_plain if rank == 4 else tk.cc_min_propagate_plain)(
+                           masks))
+
+
+def test_cc_bytes_bound_at_the_paths_shapes():
+    """One byte of mask read and four of labels written a pixel: 20.97 MB,
+    6.26 us at 3.35 TB/s, for V's 16 volumes of 16x128x128 and for config
+    3's 64 sites of 256x256 alike."""
+    vol = torch.zeros((16, 16, 128, 128), dtype=torch.bool, device="meta")
+    sites = torch.zeros((64, 256, 256), dtype=torch.bool, device="meta")
+    assert shootout.cc_bytes(vol) == shootout.cc_bytes(sites) == 16 * 16 * 128 * 128 * 5
+    assert abs(shootout.cc_bytes(vol) / 3.35e12 * 1e3 - 0.00626) < 1e-5
+
+
+def test_cc_cas_lever_rewrites_the_shipped_union_find(tmp_path):
+    """The lever script's variant of ``csrc/cc_union_find.cuh`` swaps both
+    atomicMin links for compare-and-swap hooks and both finds for
+    compressing ones, and renames the entry template so it links beside
+    the shipped kernels; a header the patterns no longer match stops it."""
+    from pathlib import Path
+
+    from tmlibrary_tpu_torch.levers import cc_cas_hooks
+
+    csrc = Path(tk.__file__).resolve().parent.parent / "csrc"
+    src = cc_cas_hooks.variant_source(csrc)
+    assert src.count("atomicCAS(") == 2 and "atomicMin(&s[b], a)" not in src
+    assert src.count("up = atomicMin(") == 2 and "tm_cc_union_find" not in src
+    assert 'extern "C" int cas2d' in src and 'extern "C" int cas3d' in src
+    (tmp_path / "cc_union_find.cuh").write_text(src)
+    with pytest.raises(SystemExit):
+        cc_cas_hooks.variant_source(tmp_path)

@@ -8,23 +8,42 @@
 // order stays in PyTorch (tmlibrary_tpu_torch/ops/volume.py), as it
 // stays in XLA in the JAX package (ops/volume.py:152-157).
 //
-// Design: the 3-D case of cc_min_propagate.cu.  One block of 1024
-// threads per volume; labels live in the output volume in global memory
-// (a 16x128x128 int32 volume is 1 MB, a batch of 16 stays in L2).  Each
-// sweep takes, for every foreground voxel, the minimum label of itself
-// and its neighbours, follows label pointers to that label's root
-// (union-find "find": a label is always the index of a voxel of the same
-// component, never above the voxel's own index) and links the voxel's
-// old root to the new one.  Every write is an atomicMin, so labels only
-// fall and the in-place sweeps land on the unique fixpoint; a sweep that
-// changes nothing (__syncthreads_or) ends the loop.
+// Design: block union-find (cc_union_find.cuh) over tiles of 2x16x32
+// voxels: a 16x128x128 volume is 256 tiles, the volume path's batch of 16
+// is 4,096 blocks over every SM (the first design ran 16).  Phase 1, 256
+// threads a tile, starts each voxel at the first voxel of its run along
+// x (a warp ballot a tile row) and unions the other 2, 8 or 12 backward
+// neighbours inside the tile in shared memory (two 16-byte loads a tile
+// row where W % 16 == 0); phase 2 unions the voxels that face each
+// other across a tile face, edge or corner in global memory; phase 3
+// points every voxel at its root.  Where the voxel below is foreground,
+// the other neighbours in the plane below are implied and skipped.
+//
+// Invariants (argued in full in cc_union_find.cuh): parent[p] <= p and
+// in p's component; every label write while unions run is an atomicMin on
+// a node found to be a root, and finds write nothing then, so no write
+// raises a label or loses a concurrent union; phase 2 reads only what
+// phase 1 wrote (a launch boundary); each component ends with one root,
+// its minimum index, in whatever order the blocks run.
 //
 // Bound: one read of the 1-byte mask and one write of the 4-byte labels
-// per voxel; every extra sweep re-reads the volume from L2.  One block
-// per volume keeps 16 of 132 SMs busy at a batch of 16.
-#include "common.cuh"
+// per voxel.
+//
+// `tm_cc3d_min_propagate_original` keeps the first design for the
+// A/B harness alone: one block of 1024 threads a volume, Gauss-Seidel
+// sweeps of neighbour minima and pointer jumps in global memory until a
+// sweep changes nothing; it writes each volume's sweep count to
+// `sweeps`.
+#include "cc_union_find.cuh"
 
-__device__ __forceinline__ int cc3d_find(const int* lab, int r) {
+extern "C" int tm_cc3d_min_propagate(const void* mask, void* labels, int B, int Z, int H,
+                                     int W, int connectivity, int phases, void* stream) {
+    return tm_cc_union_find<2, 16, 32, 256>(mask, labels, B, Z, H, W, connectivity, phases,
+                                       (cudaStream_t)stream);
+}
+
+// ------------------------------------------------------- the first design
+__device__ __forceinline__ int cc3d_find_original(const int* lab, int r) {
     for (;;) {
         int up = lab[r];
         if (up >= r) return r;
@@ -33,8 +52,8 @@ __device__ __forceinline__ int cc3d_find(const int* lab, int r) {
 }
 
 __global__ void __launch_bounds__(TM_BLOCK)
-cc3d_kernel(const uint8_t* __restrict__ mask, int* lab_all, int Z, int H, int W,
-            int connectivity) {
+cc3d_kernel_original(const uint8_t* __restrict__ mask, int* sweeps, int* lab_all, int Z, int H,
+                     int W, int connectivity) {
     const int plane = H * W;
     const int n = Z * plane;
     const size_t base = (size_t)blockIdx.x * n;
@@ -68,18 +87,23 @@ cc3d_kernel(const uint8_t* __restrict__ mask, int* lab_all, int Z, int H, int W,
                     }
                 }
             }
-            int root = cc3d_find(lab, best);
+            int root = cc3d_find_original(lab, best);
             if (root < cur && atomicMin(&lab[p], root) > root) changed = 1;
-            int old_root = cc3d_find(lab, cur);
+            int old_root = cc3d_find_original(lab, cur);
             if (root < old_root && atomicMin(&lab[old_root], root) > root) changed = 1;
         }
-        if (!__syncthreads_or(changed)) break;
+        if (!__syncthreads_or(changed)) {
+            if (threadIdx.x == 0) sweeps[blockIdx.x] = sweep + 1;
+            break;
+        }
     }
 }
 
-extern "C" int tm_cc3d_min_propagate(const void* mask, void* labels, int B, int Z,
-                                     int H, int W, int connectivity, void* stream) {
-    cc3d_kernel<<<B, TM_BLOCK, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)mask, (int*)labels, Z, H, W, connectivity);
+extern "C" int tm_cc3d_min_propagate_original(const void* mask, void* sweeps, void* labels,
+                                              int B, int Z, int H, int W, int connectivity,
+                                              void* stream) {
+    if (B <= 0) return (int)cudaGetLastError();
+    cc3d_kernel_original<<<B, TM_BLOCK, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)mask, (int*)sweeps, (int*)labels, Z, H, W, connectivity);
     return (int)cudaGetLastError();
 }

@@ -43,7 +43,11 @@ SIGNATURES = {
     "tm_fill_holes": [_P, _P, _I, _I, _I, _I, _P],
     # mask, reach, out, B, H, W, connectivity, stream
     "tm_fill_holes_global": [_P, _P, _P, *[_I] * 4, _P],
-    "tm_cc_min_propagate": [_P, _P, _I, _I, _I, _I, _P],
+    # mask, labels, B, H, W, connectivity, phases (1 local, 2 border, 4 flatten), stream
+    "tm_cc_min_propagate": [_P, _P, *[_I] * 5, _P],
+    # the first design, for the A/B harness: mask, sweeps, labels, B, H, W,
+    # connectivity, stream
+    "tm_cc_min_propagate_original": [_P, _P, _P, *[_I] * 4, _P],
     # intensity, seeds, mask, scratch, site_route, out, B, H, W, n_levels,
     # connectivity, (on chip) the list capacity, stream
     "tm_watershed_flood": [*[_P] * 6, *[_I] * 6, _P],
@@ -63,7 +67,10 @@ SIGNATURES = {
     "tm_distance_transform": [_P, _P, _I, _I, _I, _I, _P],
     # mask, plane, out, B, H, W, max_distance, stream
     "tm_distance_transform_global": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "tm_cc3d_min_propagate": [_P, _P, _I, _I, _I, _I, _I, _P],
+    # mask, labels, B, Z, H, W, connectivity, phases, stream
+    "tm_cc3d_min_propagate": [_P, _P, *[_I] * 6, _P],
+    # the first design: mask, sweeps, labels, B, Z, H, W, connectivity, stream
+    "tm_cc3d_min_propagate_original": [_P, _P, _P, *[_I] * 5, _P],
     # intensity, seeds, mask, band, lists, misc, out, B, Z, H, W, n_levels, stream
     "tm_watershed3d_flood": [*[_P] * 7, *[_I] * 5, _P],
     # intensity, seeds, mask, scratch, out, B, Z, H, W, n_levels, stream

@@ -31,7 +31,6 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from tmlibrary_tpu_torch.ops import _cuda
 from tmlibrary_tpu_torch.ops._cuda import bind_launch
 from tmlibrary_tpu_torch.ops._exact import div
 
@@ -205,6 +204,12 @@ fill_holes_flood.routes = {"onchip": 0, "global": 0}
 
 
 # ------------------------------------------------------- CC min-propagate
+#: phases of the union-find kernels (``csrc/cc_union_find.cuh``): local
+#: unions in shared memory, unions across tile borders, flatten
+CC_LOCAL, CC_BORDER, CC_FLATTEN = 1, 2, 4
+CC_PHASES = CC_LOCAL | CC_BORDER | CC_FLATTEN
+
+
 def cc_min_propagate_plain(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
     """Synchronous neighbour-min propagation of linear indices."""
     mask = mask.to(torch.bool)
@@ -222,6 +227,18 @@ def cc_min_propagate_plain(mask: torch.Tensor, connectivity: int = 8) -> torch.T
     return _fixpoint(step, torch.where(mask, linear.expand(b, h, w), big))
 
 
+def cc_min_propagate_launcher(mask: torch.Tensor, connectivity: int = 8,
+                              phases: int = CC_PHASES, counter=None):
+    """``launch()`` of the union-find kernel on ``(B, H, W)`` CUDA masks,
+    returning the labels: the phases in ``phases`` (all three by default;
+    fewer leave the labels unfinished, for the A/B harness's split), one
+    C call; it counts in ``counter``'s record."""
+    mask = mask.to(torch.bool).contiguous()
+    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    b, h, w = mask.shape
+    return bind_launch("cc_min_propagate", counter, (mask, out), b, h, w, connectivity, phases)
+
+
 def cc_min_propagate(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
     """Converged min-linear-index labels of ``(B, H, W)`` masks; background
     holds ``BIG``."""
@@ -230,14 +247,7 @@ def cc_min_propagate(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
         raise ValueError("connectivity must be 4 or 8")
     if mask.device.type == "cpu":
         return cc_min_propagate_plain(mask, connectivity)
-    mask = mask.to(torch.bool).contiguous()
-    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
-    _cuda.require_cuda("cc_min_propagate", mask, out)
-    b, h, w = mask.shape
-    cc_min_propagate.launches += 1
-    _cuda.check("tm_cc_min_propagate", _cuda.lib().tm_cc_min_propagate(
-        mask.data_ptr(), out.data_ptr(), b, h, w, connectivity, _cuda.stream()))
-    return out
+    return cc_min_propagate_launcher(mask, connectivity, counter=cc_min_propagate)()
 
 
 cc_min_propagate.launches = 0

@@ -24,11 +24,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tmlibrary_tpu_torch.ops import _cuda
 from tmlibrary_tpu_torch.ops._cuda import bind_launch
 from tmlibrary_tpu_torch.ops._exact import div, sqrt
 from tmlibrary_tpu_torch.ops.fused_measure import grouped_stats
-from tmlibrary_tpu_torch.ops.kernels import BIG, FloodPlan, _fixpoint, watershed_levels
+from tmlibrary_tpu_torch.ops.kernels import (
+    BIG, CC_PHASES, FloodPlan, _fixpoint, watershed_levels,
+)
 from tmlibrary_tpu_torch.ops.label import compact_roots
 
 
@@ -95,6 +96,18 @@ def cc3d_min_propagate_plain(mask: torch.Tensor, connectivity: int = 26) -> torc
     return _fixpoint(step, torch.where(mask, linear.expand(mask.shape), big))
 
 
+def cc3d_min_propagate_launcher(mask: torch.Tensor, connectivity: int = 26,
+                                phases: int = CC_PHASES, counter=None):
+    """``launch()`` of the union-find kernel on ``(B, Z, H, W)`` CUDA
+    masks, returning the labels (``phases`` as in
+    :func:`.kernels.cc_min_propagate_launcher`)."""
+    mask = mask.to(torch.bool).contiguous()
+    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    b, z, h, w = mask.shape
+    return bind_launch("cc3d_min_propagate", counter, (mask, out), b, z, h, w, connectivity,
+                       phases)
+
+
 def cc3d_min_propagate(mask: torch.Tensor, connectivity: int = 26) -> torch.Tensor:
     """Converged min-linear-index labels of ``(B, Z, H, W)`` masks;
     background holds ``BIG``."""
@@ -102,14 +115,7 @@ def cc3d_min_propagate(mask: torch.Tensor, connectivity: int = 26) -> torch.Tens
     neighbor_shifts_3d(connectivity)  # validates before dispatch
     if mask.device.type == "cpu":
         return cc3d_min_propagate_plain(mask, connectivity)
-    mask = mask.to(torch.bool).contiguous()
-    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
-    _cuda.require_cuda("cc3d_min_propagate", mask, out)
-    b, z, h, w = mask.shape
-    cc3d_min_propagate.launches += 1
-    _cuda.check("tm_cc3d_min_propagate", _cuda.lib().tm_cc3d_min_propagate(
-        mask.data_ptr(), out.data_ptr(), b, z, h, w, connectivity, _cuda.stream()))
-    return out
+    return cc3d_min_propagate_launcher(mask, connectivity, counter=cc3d_min_propagate)()
 
 
 cc3d_min_propagate.launches = 0

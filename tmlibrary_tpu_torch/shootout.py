@@ -17,10 +17,18 @@ while other variants allocate.
 Variant sets, on the main path's inputs (:func:`main_path_inputs`: 64
 sites of 256², ``max_objects=256``):
 
-- ``cc``: row 2's kernel (``kernel``) against the port's plain labeling
-  (``plain``) on the Otsu masks of the smoothed DAPI — the script's
-  ``shipped`` against ``xla``.  Its ``chunk16``/``chunk4`` variants set
-  the TPU kernel's tile (``CHUNK``) and have no CUDA counterpart.
+- ``cc``: row 2's union-find kernel (``kernel``, the launch) against the
+  first design (``original``, the sweeping one, kept as
+  ``tm_cc_min_propagate_original`` for this harness alone), the public
+  wrapper (``wrapper``) and the port's plain labeling (``plain``) on the
+  Otsu masks of the smoothed DAPI — the script's ``shipped`` against
+  ``xla``.  Its ``chunk16``/``chunk4`` variants set the TPU kernel's
+  tile (``CHUNK``) and have no CUDA counterpart.
+- ``cc_split``: both designs on the Otsu masks (``*_real``), on an
+  all-foreground batch (``*_full``) and on 45% noise (``*_noise``),
+  each first-design launch also reporting its sweeps per site; and the
+  kernel's first phase alone (``local_real``) and first two
+  (``border_real``), so each phase's time follows by difference.
 - ``hist`` (nuclei/DAPI, 256 buckets), ``hist_cells`` (cells/Actin, the
   quantile path's second launch) and ``glcm`` (cells/Actin, 16 levels, 4
   offsets): the shipped kernel (``kernel``); the kernel with windows of
@@ -72,8 +80,11 @@ sites of 256², ``max_objects=256``):
   cluster kernel (``kernel``), the first design (``global``), the public
   wrapper and the plain version; ``watershed3d_split``: both designs on
   the real volumes, with every mask voxel a seed (``*_labelled``) and at
-  one level (``*_levels1``).  These two need the volume path's inputs
-  (:func:`volume_inputs`).
+  one level (``*_levels1``).
+- ``cc3d`` and ``cc3d_split``: the same variants as ``cc`` and
+  ``cc_split`` for row 8 on the volume path's Otsu masks (noise at 30%),
+  against the first 3-D design (``tm_cc3d_min_propagate_original``).  These
+  four need the volume path's inputs (:func:`volume_inputs`).
 
 Run on a card: ``python -m tmlibrary_tpu_torch.shootout [--reps N]``.
 """
@@ -463,9 +474,70 @@ def watershed3d_split_set(vol_inputs: dict) -> dict:
             for case, a in cases.items() for who in ("global", "kernel")}
 
 
+def cc_original(masks, connectivity: "int | None" = None):
+    """The first CC design as a ``launch()``: the 2-D one on ``(B, H, W)``
+    sites (connectivity 8 unless given), the 3-D one on ``(B, Z, H, W)`` volumes
+    (26): one block a site or volume sweeping it in global memory until a
+    sweep changes nothing; ``launch.sweeps`` holds each one's sweep count
+    after a launch."""
+    mask = masks.to(torch.bool).contiguous()
+    three_d = mask.dim() == 4
+    sweeps = torch.empty(mask.shape[0], dtype=torch.int32, device=mask.device)
+    out = torch.empty(mask.shape, dtype=torch.int32, device=mask.device)
+    launch = bind_launch("cc3d_min_propagate_original" if three_d else "cc_min_propagate_original",
+                         None, (mask, sweeps, out), *mask.shape,
+                         connectivity or (26 if three_d else 8))
+    launch.sweeps = sweeps
+    return launch
+
+
+def _cc_kind(masks):
+    """The wrapper, launcher and plain version of the 2-D or the 3-D
+    labeling, by the masks' rank."""
+    if masks.dim() == 4:
+        return (volume.cc3d_min_propagate, volume.cc3d_min_propagate_launcher,
+                volume.cc3d_min_propagate_plain)
+    return kernels.cc_min_propagate, kernels.cc_min_propagate_launcher, kernels.cc_min_propagate_plain
+
+
+def cc_bytes(masks) -> int:
+    """What the labeling must move: the 1-byte mask read once and the
+    4-byte labels written once."""
+    return masks.numel() * (1 + 4)
+
+
 def cc_set(masks) -> dict:
-    return {"kernel": lambda: kernels.cc_min_propagate(masks),
-            "plain": lambda: kernels.cc_min_propagate_plain(masks)}
+    """The union-find kernel's launch (``kernel``), the first design
+    (``original``), the public wrapper and the plain labeling, on ``(B,
+    H, W)`` sites or ``(B, Z, H, W)`` volumes."""
+    wrapper, launcher, plain = _cc_kind(masks)
+    return {"kernel": launcher(masks), "original": cc_original(masks),
+            "wrapper": lambda: wrapper(masks), "plain": lambda: plain(masks)}
+
+
+def cc_cases(masks, seed: int = 0) -> dict:
+    """The split's inputs: the real masks, all foreground, and seeded
+    noise (45% of the pixels in 2-D, 30% of the voxels in 3-D, near the
+    percolation thresholds of 8- and 26-connectivity)."""
+    g = torch.Generator().manual_seed(seed)
+    share = 0.3 if masks.dim() == 4 else 0.45
+    noise = (torch.rand(masks.shape, generator=g) < share).to(masks.device)
+    return {"real": masks, "full": torch.ones_like(masks, dtype=torch.bool), "noise": noise}
+
+
+def cc_split_set(masks) -> dict:
+    """The first design (``original_*``) and the union-find kernel
+    (``kernel_*``) on :func:`cc_cases`; on the real masks also the
+    kernel's first phase alone (``local_real``) and its first two
+    (``border_real``), so the three phases' times follow by difference."""
+    launcher = _cc_kind(masks)[1]
+    out = {}
+    for case, m in cc_cases(masks).items():
+        out[f"original_{case}"] = cc_original(m)
+        out[f"kernel_{case}"] = launcher(m)
+    out["local_real"] = launcher(masks, phases=kernels.CC_LOCAL)
+    out["border_real"] = launcher(masks, phases=kernels.CC_LOCAL | kernels.CC_BORDER)
+    return out
 
 
 def yardsticks(idx: torch.Tensor, cells: int) -> dict:
@@ -539,7 +611,8 @@ def run(inputs: dict, max_objects: int = 256, reps: int = 7, bytes_per_s: float 
         "fill": (fill_set(inputs["dapi_mask"]), fill_bytes),
         "watershed_split": (flood_split_set("watershed", inputs), ws_bytes),
         "fill_split": (flood_split_set("fill", inputs), fill_bytes),
-        "cc": (cc_set(inputs["dapi_mask"]), b * n * (1 + 4)),
+        "cc": (cc_set(inputs["dapi_mask"]), cc_bytes(inputs["dapi_mask"])),
+        "cc_split": (cc_split_set(inputs["dapi_mask"]), cc_bytes(inputs["dapi_mask"])),
         "hist": (hist_set(nuclei, dapi, max_objects, BINS),
                  hist_bytes(b, n, max_objects, BINS)),
         "hist_cells": (hist_set(cells, actin, max_objects, BINS),
@@ -560,6 +633,8 @@ def run(inputs: dict, max_objects: int = 256, reps: int = 7, bytes_per_s: float 
         vox_bytes = vol_inputs["vol"].numel() * (4 + 4 + 1 + 4)
         sets["watershed3d"] = (watershed3d_set(vol_inputs), vox_bytes)
         sets["watershed3d_split"] = (watershed3d_split_set(vol_inputs), vox_bytes)
+        sets["cc3d"] = (cc_set(vol_inputs["vmask"]), cc_bytes(vol_inputs["vmask"]))
+        sets["cc3d_split"] = (cc_split_set(vol_inputs["vmask"]), cc_bytes(vol_inputs["vmask"]))
     results = {}
     for name, (variants, nbytes) in sets.items():
         ms = best_of(variants, reps=reps)
@@ -567,6 +642,12 @@ def run(inputs: dict, max_objects: int = 256, reps: int = 7, bytes_per_s: float 
         results[name] = {"ms": ms, "bound_ms": bound}
         echo(f"  shootout {name} (bound {bound:.4f} ms): " + ", ".join(
             f"{v} {t:.4f} ms ({bound / t:.2f} of bound)" for v, t in ms.items()))
+        sweeps = {v: fn.sweeps for v, fn in variants.items() if hasattr(fn, "sweeps")}
+        if sweeps:
+            results[name]["sweeps"] = {v: t.tolist() for v, t in sweeps.items()}
+            echo(f"  shootout {name} sweeps per site (min/mean/max): " + ", ".join(
+                f"{v} {int(t.min())}/{t.float().mean():.1f}/{int(t.max())}"
+                for v, t in sweeps.items()))
     return results
 
 
