@@ -24,8 +24,12 @@ Phases (any failure exits non-zero before the last line):
    Zernike hand it (1, 3, 7 and 32 channels), on NaN pixels, on more
    than 3072 objects at ``max_objects=4096``, at two band counts and on the
    volume path's call (3-D boxes, and 2-D over a ``(B, Z*H, W)`` view);
-   the distance transform on
-   both routes, at a cap of 2, on 1024x1024 and 483x483 sites and inside
+   the distance transform (two passes, and the first design kept for the
+   A/B where it takes the input)
+   at max_distance 0, 2, 64, 254 and 300 on path D's masks, edge,
+   all-foreground, centre-pixel, noise and empty sites, 257x130,
+   1x4096, 4096x1, 483x483 and 1024x1024 sites, at 100,000 on 1x70000
+   and 70000x1 sites, on noise ten launches in a row, and inside
    ``segment_primary(declump=True)`` on 512x512 sites against the CPU;
    the 2-D labeling (union-find, and the first design kept for the A/B) at
    connectivity 8 and 4 on the main path's masks, edge sites at 256x256,
@@ -50,7 +54,10 @@ Phases (any failure exits non-zero before the last line):
    harness: best-of-7 times of the two 2-D floods, ``grouped_stats`` and
    the 3-D flood against their first designs (taken apart: fully
    labelled sites, one level, all-foreground masks, the box phase alone,
-   a site-sized object), of rows 2 and 8 against their first
+   a site-sized object), of row 7 against its first design (taken
+   apart: the column pass alone, on all-foreground, centre-pixel, noise
+   and empty sites, with the first design's sweep counts), of rows 2 and
+   8 against their first
    designs, their wrappers and plain labelings (taken apart: real,
    all-foreground and noise masks with the first designs' sweep counts,
    the union-find's phases by prefix) and of the histogram and GLCM kernels against their window sizes,
@@ -714,10 +721,8 @@ def tied_plateau(torch, device):
 
 
 def phase_kernels_declump_volume(torch, pkg, filled, vi, compare):
-    """Phase 2, rows 7-9: the distance transform on the filled DAPI masks
-    (path D's input) on both routes, on 1024x1024 and 483x483 sites (which
-    must take ``global``) and inside ``segment_primary(declump=True)`` on
-    512x512 sites against the CPU; the 3-D kernels on the volume path's
+    """Phase 2, rows 7-9: the distance transform (:func:`distance_record`);
+    the 3-D kernels on the volume path's
     masks and seeds, the 3-D flood on every route and on edge volumes,
     ``grouped_stats`` on the volume path's view; each exact against its
     plain version.  Returns the records of rows 7-9 and the largest
@@ -725,34 +730,8 @@ def phase_kernels_declump_volume(torch, pkg, filled, vi, compare):
     kernels, volume, fm = pkg["kernels"], pkg["volume"], pkg["fused_measure"]
     vol, vmask, nuclei3d, cmask = (vi[k] for k in ("vol", "vmask", "nuclei", "cmask"))
     glob = kernels.FloodPlan("global")
-    records = []
-    edges = edge_sites(torch, filled.device)
-    err = 0.0
-    for cap in (64, 2):  # 2: a cap every nucleus reaches
-        for name, m in (("edge", edges), ("main", filled)):
-            want = kernels.distance_transform_plain(m, cap)
-            err = max(err, compare(f"distance_transform[{name},{cap}]",
-                                   kernels.distance_transform(m, cap), want))
-            err = max(err, compare(f"distance_transform[{name},{cap},global]",
-                                   kernels.distance_transform_launcher(m, cap, glob)(), want))
-    for name, m in (("1024", filled[:1].repeat(1, 4, 4)),
-                    ("483", filled[:2].repeat(1, 2, 2)[:, :483, :483].contiguous())):
-        if kernels.distance_plan(m.shape).route != "global":
-            raise SmokeFailure(f"distance_transform[{name}]: expected the global route")
-        err = max(err, compare(f"distance_transform[{name}]", kernels.distance_transform(m),
-                               kernels.distance_transform_plain(m)))
-        print(f"  distance_transform[{name}]: {tuple(m.shape)}, route global, exact")
-    declump_512(torch, pkg["segment_primary"], kernels)
-    px = B * SIZE * SIZE
-    records.append(dict(
-        name="distance_transform",
-        source="tmlibrary_tpu_torch/csrc/distance_transform.cu",
-        replaces="tmlibrary_tpu/ops/pallas_kernels.py:581",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: kernels.distance_transform(filled), 20),
-        plain_ms=cuda_ms(torch, lambda: kernels.distance_transform_plain(filled), 3, 1),
-        bytes=px * (1 + 4), ops=px * 8, library_ms=None,
-    ))
+    records = [distance_record(torch, kernels, pkg["shootout"], pkg["segment_primary"], filled,
+                               compare)]
 
     vox = B_V * DEPTH_V * SIZE_V * SIZE_V
     e_vol = edge_volumes(torch, vol.device)
@@ -804,6 +783,82 @@ def phase_kernels_declump_volume(torch, pkg, filled, vi, compare):
     print(f"  grouped_stats[volume]: {tuple(lab.shape)}, 6 channels: "
           "exact with 3-D and 2-D boxes")
     return records, g_err
+
+
+def distance_cases(torch, shootout, filled) -> dict:
+    """Row 7's inputs, name -> masks: path D's filled masks, the edge
+    sites, the A/B's all-foreground, centre-pixel, 45% noise and empty
+    sites, a ragged 257x130 batch, 1x4096 and 4096x1 sites (16 chunks of
+    the column pass; at max_distance 300 a band of 16-bit rows of g past
+    48 KB of shared memory), a 483x483 site (past a byte plane in one
+    block) and a 1024x1024 one."""
+    dev = filled.device
+    g = torch.Generator().manual_seed(SEED + 4)
+    ragged = (torch.rand((3, 257, 130), generator=g) < 0.9).to(dev)
+    ragged[0, :40, :3] = False
+    wide = torch.ones((2, 1, 4096), dtype=torch.bool, device=dev)
+    wide[0, 0, [7, 2000, 2001]] = False
+    tall = torch.ones((2, 4096, 1), dtype=torch.bool, device=dev)
+    tall[0, [0, 3000], 0] = False
+    out = {"main": filled, "edge": edge_sites(torch, dev)}
+    out.update({k: m for k, (m, _) in shootout.distance_cases(filled).items() if k != "real"})
+    out.update({"257x130": ragged, "1x4096": wide, "4096x1": tall,
+                "483": filled[:2].repeat(1, 2, 2)[:, :483, :483].contiguous(),
+                "1024": filled[:1].repeat(1, 4, 4)})
+    return out
+
+
+def distance_record(torch, kernels, shootout, sp, filled, compare) -> dict:
+    """Row 7: the two-pass kernel (the wrapper) exact against the plain
+    version on every input of :func:`distance_cases` at max_distance 0,
+    2, 64, 254 and 300 -- with the first design, kept for the A/B, where it
+    takes the site and the cap -- on 1x70000 and
+    70000x1 sites at 100,000 (32-bit g, rows read from L2), on noise ten
+    launches in a row, and inside ``segment_primary(declump=True)`` on
+    512x512 sites against the CPU."""
+    err = 0.0
+    for name, m in distance_cases(torch, shootout, filled).items():
+        original = []
+        for cap in (0, 2, 64, 254, 300):
+            want = kernels.distance_transform_plain(m, cap)
+            err = max(err, compare(f"distance_transform[{name},{cap}]",
+                                   kernels.distance_transform(m, cap), want))
+            if shootout.distance_original_takes(m.shape, cap):
+                err = max(err, compare(f"distance_transform[{name},{cap},original]",
+                                       shootout.distance_original(m, cap)(), want))
+                original.append(cap)
+        print(f"  distance_transform[{name}]: {tuple(m.shape)}, max_distance 0, 2, 64, 254, 300: "
+              f"exact; the first design exact at {original or 'none (it does not take them)'}")
+    for name, shape in (("1x70000", (1, 1, 70000)), ("70000x1", (1, 70000, 1))):
+        m = torch.ones(shape, dtype=torch.bool, device=filled.device).reshape(-1)
+        m[::997] = False
+        m = m.reshape(shape)
+        if kernels.distance_reach(shape, 100000).dtype != torch.int32:
+            raise SmokeFailure(f"distance_transform[{name}]: expected a 32-bit g")
+        err = max(err, compare(f"distance_transform[{name},100000]",
+                               kernels.distance_transform(m, 100000),
+                               kernels.distance_transform_plain(m, 100000)))
+        print(f"  distance_transform[{name}]: max_distance 100000, 32-bit g: exact")
+    noise = shootout.distance_cases(filled)["noise"][0]
+    err = max(err, repeat_hold(torch, "distance_transform[noise,64]", compare,
+                               lambda: kernels.distance_transform(noise, 64),
+                               kernels.distance_transform_plain(noise, 64)))
+    px = B * SIZE * SIZE
+    record = dict(
+        name="distance_transform",
+        source="tmlibrary_tpu_torch/csrc/distance_transform.cu",
+        replaces="tmlibrary_tpu/ops/pallas_kernels.py:581",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: kernels.distance_transform(filled), 20),
+        launch_ms=cuda_ms(torch, kernels.distance_transform_launcher(filled), 20),
+        plain_ms=cuda_ms(torch, lambda: kernels.distance_transform_plain(filled), 3, 1),
+        bytes=px * (1 + 4), ops=px * 8, library_ms=None,
+    )
+    # after the timings: the wrapper is host-bound, and this hold's CPU run
+    # can leave the host's cores busy (on one H100 at 700 W a reading
+    # right after it gave 0.4251 ms against 0.0352 in the A/B of the call)
+    declump_512(torch, sp, kernels)
+    return record
 
 
 def cc3d_cases(torch, vmask, e_vol) -> dict:
@@ -894,19 +949,19 @@ def flood3d_cases(torch, vi, e_vol) -> dict:
 
 def declump_512(torch, sp, kernels) -> None:
     """``segment_primary(declump=True)`` on four 512x512 sites on the card
-    (the distance transform and the watershed take ``global``) against
-    the same call on the CPU: labels and counts equal."""
+    (the watershed takes ``global``) against the same call on the CPU:
+    labels and counts equal, and the distance kernel launched."""
     from tmlibrary_tpu_torch import benchmarks
 
     dapi = torch.from_numpy(benchmarks.synthetic_cell_painting_batch(
         4, size=512, seed=SEED)["DAPI"])
-    before = dict(kernels.distance_transform.routes)
+    before = kernels.distance_transform.launches
     card = sp.segment_primary(dapi.to("cuda"), declump=True, max_objects=MAX_OBJECTS)
     cpu = sp.segment_primary(dapi, declump=True, max_objects=MAX_OBJECTS)
     if not all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)):
         raise SmokeFailure("segment_primary(declump=True) at 512x512: card differs from CPU")
-    if kernels.distance_transform.routes["global"] <= before["global"]:
-        raise SmokeFailure("segment_primary(declump=True) at 512x512: distance not global")
+    if kernels.distance_transform.launches <= before:
+        raise SmokeFailure("segment_primary(declump=True) at 512x512: distance not launched")
     print(f"  segment_primary(declump=True): 4 sites of 512x512, labels and counts equal the "
           f"CPU's ({cpu[1].tolist()} objects)")
 
@@ -1073,6 +1128,10 @@ def main() -> int:
                      library_ms=None)
         finish_records([row10], bw)
         records.append(row10)
+        # row 7's A/B in the same call: the two-pass launch and the first
+        # design on path D's masks
+        row7 = next(r for r in records if r["name"] == "distance_transform")
+        row7["ab_ms"] = {k: ab["distance"]["ms"][k] for k in ("kernel", "original")}
 
         # ---------------------------------------------------------- phase 3
         wrappers = {
@@ -1137,7 +1196,7 @@ def main() -> int:
             wrappers, need=[], card=card, expect={
                 "fill_holes_flood": 1, "cc_min_propagate": 1, "distance_transform": 1,
                 "watershed_flood": 2, "grouped_stats": 2},
-            only={**on_chip, "distance_transform": "onchip"})
+            only=on_chip)
         gained = int(run_d["counts"]["nuclei"].sum() - run3["counts"]["nuclei"].sum())
         print(f"  declumping finds {gained} more nuclei than config 3 in the batch of {B} "
               f"({int(run3['counts']['nuclei'].sum())} -> "
@@ -1183,8 +1242,8 @@ def main() -> int:
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print("kernels: " + ", ".join(r["name"] for r in records))
-    # rows 1-6, 8 and 9 add the launch alone beside the wrapper's `ms`
-    print(json.dumps({"kernels": [{k: r[k] for k in order + ["launch_ms"] if k in r}
+    # rows 1-9 add the launch alone beside the wrapper's `ms`, row 7 its A/B
+    print(json.dumps({"kernels": [{k: r[k] for k in order + ["launch_ms", "ab_ms"] if k in r}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -115,11 +115,21 @@ def test_distance_transform_matches_pallas_xla_native_and_closed_form(
         np.testing.assert_array_equal(g, closed_form(m, max_distance))
 
 
-def test_distance_transform_cap_range():
+def test_distance_transform_cap_range(masks):
+    """Any ``max_distance >= 0``, as the reference: 0 gives the mask, and
+    caps past a byte (255, 300, 1000) equal the XLA loop and the native
+    chamfer on path D's masks and on full and single-pixel sites."""
     m = torch.ones((1, 4, 4), dtype=torch.bool)
     np.testing.assert_array_equal(tk.distance_transform(m, 0).numpy(), m.float().numpy())
     with pytest.raises(ValueError):
-        tk.distance_transform(m, tk.MAX_DISTANCE + 1)
+        tk.distance_transform(m, -1)
+    ms = [*masks, _edge_masks()["full"], _edge_masks()["single"]]
+    for cap in (255, 300, 1000):
+        for m in ms:
+            got = tk.distance_transform(torch.from_numpy(m[None]), cap).numpy()[0]
+            for method in ("xla", "native"):
+                np.testing.assert_array_equal(got, np.asarray(
+                    j_sp.distance_transform_approx(m, cap, method=method)))
 
 
 def test_binary_erode_matches_jax(masks):

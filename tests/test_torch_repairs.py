@@ -7,9 +7,9 @@
   the mop-up admits a pixel; in ``grouped_stats`` it makes its own
   object's min, max and sum NaN and no other row.  The card kernels are
   held to these plain versions by ``chip_smoke.py``.
-- Size: the route planners that let the card take any site for
-  ``distance_transform`` and any ``max_objects`` for ``grouped_stats``,
-  and the plain versions at those sizes against the reference.
+- Size: the planner that lets the card take any ``max_objects`` for
+  ``grouped_stats``, and the plain versions of it and of
+  ``distance_transform`` at those sizes against the reference.
 - Rounding: ``_exact.sqrt``, the correctly rounded float32 root the
   exact-tier features take on both devices (PyTorch's vectorised CPU
   root is an ulp off on some inputs).
@@ -159,29 +159,16 @@ def test_grouped_stats_plain_at_4096_objects_matches_the_scatter_reference():
     assert sums.shape == (4096, 1) and (sums[:, 0] > 0).sum() == 4096
 
 
-@pytest.mark.parametrize("shape, route", [((64, 256, 256), "onchip"), ((1, 482, 482), "onchip"),
-                                          ((1, 483, 483), "global"), ((1, 512, 512), "global"),
-                                          ((1, 1024, 1024), "global"), ((2, 100, 2325), "global")])
-def test_distance_plan_routes(shape, route):
-    assert tk.distance_plan(shape).route == route
-    assert (shape[1] * shape[2] <= tk.SMEM_BYTES) == (route == "onchip")
-
-
-@pytest.mark.parametrize("plan", [None, tk.FloodPlan("onchip"), tk.FloodPlan("global")])
-def test_distance_launcher_raises_off_the_card(plan):
+@pytest.mark.parametrize("phases", [tk.DT_COLUMNS, tk.DT_ROW_PASS, tk.DT_PHASES])
+def test_distance_launcher_raises_off_the_card(phases):
     with pytest.raises(DeviceError):
-        tk.distance_transform_launcher(torch.zeros((1, 16, 16), dtype=torch.bool), 64, plan)
-
-
-def test_distance_launcher_refuses_an_on_chip_plan_too_large():
-    with pytest.raises(ValueError):
-        tk.distance_transform_launcher(torch.zeros((1, 483, 483), dtype=torch.bool), 64,
-                                       tk.FloodPlan("onchip"))
+        tk.distance_transform_launcher(torch.zeros((1, 16, 16), dtype=torch.bool), 64,
+                                       phases=phases)
 
 
 def test_distance_transform_plain_on_a_site_past_shared_memory():
-    """At 483x483 (the global route's size) the plain version equals the
-    reference's XLA fixpoint."""
+    """At 483x483 (past one block's shared memory as a byte plane) the
+    plain version equals the reference's XLA fixpoint."""
     rng = np.random.default_rng(4)
     m = np.zeros((483, 483), bool)
     for _ in range(40):

@@ -161,11 +161,12 @@ def test_launchers_hold_the_memory_they_pass(monkeypatch, name):
 
 @pytest.mark.parametrize("name", ["grouped_stats", "grouped_stats_volume", "grouped_stats_original",
                                   "watershed3d", "watershed3d_global", "distance",
-                                  "distance_global"])
+                                  "distance_columns", "distance_original"])
 def test_launchers_of_this_slice_hold_the_memory_they_pass(monkeypatch, name):
     """As above, for the redesigned ``grouped_stats`` and 3-D flood, their
-    first designs and the distance transform's two routes: every tensor
-    whose pointer a launcher passes lives as long as the launcher."""
+    first designs, the distance transform (both passes, the column pass
+    alone) and its two rivals in the A/B: every tensor whose pointer a
+    launcher passes lives as long as the launcher."""
     lib = _RecordingLib()
     monkeypatch.setattr(tfm._cuda, "require_cuda", lambda *tensors, **checks: None)
     monkeypatch.setattr(tfm._cuda, "lib", lambda: lib)
@@ -195,8 +196,12 @@ def test_launchers_of_this_slice_hold_the_memory_they_pass(monkeypatch, name):
         "watershed3d": (lambda: tv.watershed3d_flood_launcher(vol, seeds, vmask, 4), 7),
         "watershed3d_global": (lambda: tv.watershed3d_flood_launcher(vol, seeds, vmask, 4,
                                                                      plan=glob), 5),
-        "distance": (lambda: tk.distance_transform_launcher(mask), 2),
-        "distance_global": (lambda: tk.distance_transform_launcher(mask, plan=glob), 3),
+        # mask, g, distances
+        "distance": (lambda: tk.distance_transform_launcher(mask), 3),
+        "distance_columns": (lambda: tk.distance_transform_launcher(
+            mask, phases=tk.DT_COLUMNS), 3),
+        # mask, sweeps, distances
+        "distance_original": (lambda: shootout.distance_original(mask), 3),
     }[name]
     launch = launch()
     del lab, img, mask, vol, seeds, vmask
@@ -214,7 +219,7 @@ def test_launchers_of_this_slice_hold_the_memory_they_pass(monkeypatch, name):
 
 
 @pytest.mark.parametrize("name", ["grouped_stats", "grouped_stats_original", "watershed3d",
-                                  "distance"])
+                                  "distance", "distance_original"])
 def test_launchers_of_this_slice_raise_off_the_card(name):
     lab = torch.zeros((1, 8, 8), dtype=torch.int32, device="meta")
     img = torch.zeros((1, 8, 8), device="meta")
@@ -224,6 +229,7 @@ def test_launchers_of_this_slice_raise_off_the_card(name):
         "watershed3d": lambda: tv.watershed3d_flood_launcher(
             img.reshape(1, 2, 4, 8), lab.reshape(1, 2, 4, 8), img.reshape(1, 2, 4, 8) > 0, 4),
         "distance": lambda: tk.distance_transform_launcher(img > 0),
+        "distance_original": lambda: shootout.distance_original(img > 0),
     }[name]
     with pytest.raises(DeviceError):
         make()
@@ -371,3 +377,66 @@ def test_cc_cas_lever_rewrites_the_shipped_union_find(tmp_path):
     (tmp_path / "cc_union_find.cuh").write_text(src)
     with pytest.raises(SystemExit):
         cc_cas_hooks.variant_source(tmp_path)
+
+
+@pytest.mark.parametrize("which", ["distance_set", "distance_split_set"])
+def test_distance_sets_hold_the_memory_they_pass(monkeypatch, which):
+    """The ``distance`` set (the kernel, the first design, the wrapper, the
+    plain version) and its split (both designs on the real, full, centre,
+    noise and empty masks, the column pass alone):
+    every launcher keeps each tensor whose pointer it passes after the
+    caller drops the masks, and frees them when the set goes."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(tfm._cuda, "require_cuda", lambda *tensors, **checks: None)
+    monkeypatch.setattr(tfm._cuda, "lib", lambda: lib)
+    monkeypatch.setattr(tfm._cuda, "stream", lambda: 0)
+    passed = []
+    data_ptr = torch.Tensor.data_ptr
+
+    def recording(t):
+        passed.append(weakref.ref(t))
+        return data_ptr(t)
+
+    monkeypatch.setattr(torch.Tensor, "data_ptr", recording)
+    masks = torch.rand((2, 8, 8)) < 0.5
+    variants = getattr(shootout, which)(masks)
+    cases = ("real", "full", "centre", "noise", "empty")
+    assert set(variants) == ({"kernel", "original", "wrapper", "plain"}
+                             if which == "distance_set" else
+                             {f"{who}_{case}" for who in ("original", "columns", "kernel")
+                              for case in cases})
+    launchers = {k: v for k, v in variants.items() if k not in ("wrapper", "plain")}
+    assert len(passed) == 3 * len(launchers)
+    del masks
+    gc.collect()
+    assert all(r() is not None for r in passed)
+    for fn in launchers.values():
+        fn()
+    assert len(lib.calls) == len(launchers)
+    if which == "distance_split_set":
+        centre = next(args for (_, args), k in zip(lib.calls, launchers) if k == "kernel_centre")
+        assert centre[-4:-1] == (255, 8, tk.DT_PHASES)  # cap 255, reach 8 on 8x8 sites
+    del variants, launchers, fn
+    gc.collect()
+    assert all(r() is None for r in passed)
+
+
+def test_distance_cases_and_rivals_refuse_what_they_cannot_take():
+    """The split's inputs: the filled masks, all foreground, one background
+    pixel at the centre at cap 254, 45% noise, empty; the first design takes
+    caps up to 254 on sites of a block's shared memory."""
+    filled = torch.rand((3, 16, 12)) < 0.7
+    cases = shootout.distance_cases(filled)
+    assert {k: (tuple(m.shape), cap) for k, (m, cap) in cases.items()} == {
+        k: ((3, 16, 12), 254 if k == "centre" else 64)
+        for k in ("real", "full", "centre", "noise", "empty")}
+    assert torch.equal(cases["real"][0], filled)
+    assert int((~cases["centre"][0]).sum()) == 3 and not bool(cases["centre"][0][:, 8, 6].any())
+    assert bool(cases["full"][0].all()) and not bool(cases["empty"][0].any())
+    assert abs(float(cases["noise"][0].float().mean()) - 0.45) < 0.1
+    with pytest.raises(ValueError):
+        shootout.distance_original(filled, 255)
+    with pytest.raises(ValueError):
+        shootout.distance_original(torch.zeros((1, 483, 483), dtype=torch.bool))
+    assert shootout.distance_original_takes((64, 256, 256), 254)
+    assert not shootout.distance_original_takes((1, 482, 483), 64)

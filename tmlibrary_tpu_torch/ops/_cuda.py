@@ -64,9 +64,11 @@ SIGNATURES = {
     # the first designs, for the A/B harness: ..., phases (1 memset, 2 kernel), stream
     "tm_intensity_hist_atomic": [_P, _P, _P, _P, _P, *[_I] * 6, _P],
     "tm_glcm_all_atomic": [_P, _P, _P, _P, _P, *[_I] * 15, _P],
-    "tm_distance_transform": [_P, _P, _I, _I, _I, _I, _P],
-    # mask, plane, out, B, H, W, max_distance, stream
-    "tm_distance_transform_global": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # mask, g, out, B, H, W, cap, reach, phases (1 columns, 2 rows), stream
+    "tm_distance_transform": [_P, _P, _P, *[_I] * 6, _P],
+    # the first design, for the A/B harness: mask, sweeps, out, B, H, W,
+    # max_distance, stream
+    "tm_distance_transform_original": [_P, _P, _P, *[_I] * 4, _P],
     # mask, labels, B, Z, H, W, connectivity, phases, stream
     "tm_cc3d_min_propagate": [_P, _P, *[_I] * 6, _P],
     # the first design: mask, sweeps, labels, B, Z, H, W, connectivity, stream

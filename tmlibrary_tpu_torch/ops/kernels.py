@@ -14,14 +14,14 @@ version (synchronous PyTorch steps to the same fixpoint), a CUDA tensor
 to the kernel, which launches or raises — there is no fallback from one
 to the other.  Each wrapper counts its kernel launches in ``.launches``.
 
-The two 2-D floods and the distance transform have two routes each,
-picked from the shapes (and the level count) before the launch, never
-after a failure: ``"onchip"``, the site in one block's shared memory,
-and ``"global"``, planes in global memory (for the floods, the first
-design) for sites that do not fit (:func:`watershed_plan`,
-:func:`fill_plan`, :func:`distance_plan`).  Their wrappers also count
-launches by route in ``.routes``; ``*_launcher`` builds a launch on a
-given plan, for the A/B harness and the chip smoke.
+The two 2-D floods have two routes each, picked from the shapes (and
+the level count) before the launch, never after a failure:
+``"onchip"``, the site in one block's shared memory, and ``"global"``,
+the first design's planes in global memory, for sites that do not fit
+(:func:`watershed_plan`, :func:`fill_plan`).  Their wrappers also count
+launches by route in ``.routes``.  The distance transform has one route
+for any site (two passes over every SM).  ``*_launcher`` builds a
+launch (on a given plan), for the A/B harness and the chip smoke.
 """
 
 from __future__ import annotations
@@ -90,8 +90,8 @@ def _check_sites(name: str, *tensors: torch.Tensor) -> None:
 
 
 # ------------------------------------------------------ routes of the floods
-#: shared memory one block can use on Hopper (the on-chip floods and the
-#: distance kernel keep a site there)
+#: shared memory one block can use on Hopper (the on-chip floods keep a
+#: site there)
 SMEM_BYTES = 227 * 1024
 #: the on-chip watershed holds labels in 16 bits (0xFFFF marks a pixel
 #: claimed in the current step), a pixel index of its frontier lists in 16
@@ -361,8 +361,13 @@ watershed_flood.site_routes = None
 
 
 # ------------------------------------------------------- distance transform
-#: the kernel holds a distance in one byte, up to the cap max_distance + 1
-MAX_DISTANCE = 254
+#: the reference sums ones in float32, which stop growing at 2**24: no
+#: distance or cap beyond it is written
+CAP_LIMIT = 2**24
+#: ``phases`` of the distance kernel (``csrc/distance_transform.cu``): the
+#: column pass, the row pass
+DT_COLUMNS, DT_ROW_PASS = 1, 2
+DT_PHASES = DT_COLUMNS | DT_ROW_PASS
 
 
 def binary_erode(mask: torch.Tensor, connectivity: int = 8, iterations: int = 1) -> torch.Tensor:
@@ -392,46 +397,58 @@ def distance_transform_plain(mask: torch.Tensor, max_distance: int = 64) -> torc
     return dist
 
 
-def distance_plan(shape) -> FloodPlan:
-    """The distance transform's route for ``(..., H, W)`` sites: on chip
-    when a site's byte plane fits one block's shared memory
-    (:data:`SMEM_BYTES` pixels, up to 482x482), else global (the same
-    sweeps on a plane in global memory)."""
+@dataclass(frozen=True)
+class DistanceReach:
+    """What the distance kernel is handed for ``(..., H, W)`` sites:
+    ``cap``, the value of a foreground pixel whose D passes
+    ``max_distance`` (``max_distance + 1``, at most 2**24); ``reach`` =
+    ``min(cap, max(H, W))``, the sentinel for "no background in reach"
+    (no in-image D reaches ``max(H, W)``), at which the column pass
+    saturates g; and the scratch g's row ``pitch`` (W rounded up to 16
+    entries) and ``dtype``, the narrowest that holds ``reach`` (8 bits, 16
+    past 255, 32 past 65,535; storage only, never read in PyTorch)."""
+
+    cap: int
+    reach: int
+    pitch: int
+    dtype: torch.dtype
+
+
+def distance_reach(shape, max_distance: int) -> DistanceReach:
     h, w = shape[-2:]
-    return FloodPlan("onchip" if h * w <= SMEM_BYTES else "global")
+    cap = min(max_distance, CAP_LIMIT - 1) + 1
+    reach = min(cap, max(h, w))
+    dtype = torch.uint8 if reach <= 255 else torch.int16 if reach <= 65535 else torch.int32
+    return DistanceReach(cap, reach, _round_up(w, 16), dtype)
 
 
-def distance_transform_launcher(mask: torch.Tensor, max_distance: int = 64,
-                                plan: "FloodPlan | None" = None, counter=None):
-    """``launch()`` of the distance kernel on ``(B, H, W)`` CUDA masks by
-    ``plan`` (default :func:`distance_plan`), returning the distances; it
+def distance_transform_launcher(mask: torch.Tensor, max_distance: int = 64, counter=None,
+                                phases: int = DT_PHASES):
+    """``launch()`` of the distance kernel on ``(B, H, W)`` CUDA masks,
+    returning the distances: the column pass into a scratch g, then the
+    row pass (``phases`` picks either alone, for the A/B harness); it
     counts in ``counter``'s record."""
-    plan = plan or distance_plan(mask.shape)
     mask = mask.to(torch.bool).contiguous()
-    out = torch.empty(mask.shape, dtype=torch.float32, device=mask.device)
     b, h, w = mask.shape
-    if plan.route == "onchip":
-        if h * w > SMEM_BYTES:
-            raise ValueError(f"distance_transform: a {h}x{w} site does not fit on chip")
-        return bind_launch("distance_transform", counter, (mask, out), b, h, w,
-                           max_distance, route="onchip")
-    plane = torch.empty(mask.shape, dtype=torch.uint8, device=mask.device)
-    return bind_launch("distance_transform_global", counter, (mask, plane, out), b, h, w,
-                       max_distance, route="global")
+    r = distance_reach(mask.shape, max_distance)
+    g = torch.empty((b, h, r.pitch), dtype=r.dtype, device=mask.device)
+    out = torch.empty(mask.shape, dtype=torch.float32, device=mask.device)
+    return bind_launch("distance_transform", counter, (mask, g, out), b, h, w, r.cap, r.reach,
+                       phases)
 
 
 def distance_transform(mask: torch.Tensor, max_distance: int = 64) -> torch.Tensor:
     """Capped chessboard distance to the background of ``(B, H, W)``
     masks, float32: ``min(D, max_distance + 1)`` for a foreground pixel
     whose nearest in-image background pixel is ``D`` away (pixels beyond
-    the image count as foreground), 0 on the background."""
+    the image count as foreground), 0 on the background; any
+    ``max_distance >= 0``, as the reference."""
     _check_sites("distance_transform", mask)
-    if not 0 <= max_distance <= MAX_DISTANCE:
-        raise ValueError(f"max_distance must be in [0, {MAX_DISTANCE}]")
+    if max_distance < 0:
+        raise ValueError("max_distance must be >= 0")
     if mask.device.type == "cpu":
         return distance_transform_plain(mask, max_distance)
     return distance_transform_launcher(mask, max_distance, counter=distance_transform)()
 
 
 distance_transform.launches = 0
-distance_transform.routes = {"onchip": 0, "global": 0}

@@ -29,6 +29,14 @@ sites of 256², ``max_objects=256``):
   each first-design launch also reporting its sweeps per site; and the
   kernel's first phase alone (``local_real``) and first two
   (``border_real``), so each phase's time follows by difference.
+- ``distance`` (row 7 on path D's filled DAPI masks, ``max_distance``
+  64): the two-pass kernel's launch (``kernel``), the first, sweeping design
+  (``original``, kept as ``tm_distance_transform_original`` for this
+  harness alone), the public wrapper and the plain version;
+  ``distance_split``: on the real masks, all-foreground sites, one
+  background pixel at the centre (``max_distance`` 254), 45% noise and
+  empty sites, the first design with its sweeps per site, the column
+  pass alone (``columns_*``) and both passes (``kernel_*``).
 - ``hist`` (nuclei/DAPI, 256 buckets), ``hist_cells`` (cells/Actin, the
   quantile path's second launch) and ``glcm`` (cells/Actin, 16 levels, 4
   offsets): the shipped kernel (``kernel``); the kernel with windows of
@@ -540,6 +548,73 @@ def cc_split_set(masks) -> dict:
     return out
 
 
+# -------------------------------------------------- the distance transform
+#: the first distance design holds a distance in a byte, up to the cap 255
+ORIGINAL_MAX_DISTANCE = 254
+
+
+def distance_original_takes(shape, max_distance: int) -> bool:
+    """Whether the first design takes ``(B, H, W)`` sites at ``max_distance``:
+    caps up to 254 (a byte a pixel), a site's byte plane in one block."""
+    h, w = shape[-2:]
+    return 0 <= max_distance <= ORIGINAL_MAX_DISTANCE and h * w <= kernels.SMEM_BYTES
+
+
+def distance_original(masks, max_distance: int = 64):
+    """the first distance design as a ``launch()``: one block of 1024 threads
+    a site, a byte plane in shared memory swept until a sweep changes
+    nothing; ``launch.sweeps`` holds each site's sweep count after a
+    launch.  It takes ``max_distance`` up to 254 and sites of at most
+    ``kernels.SMEM_BYTES`` pixels."""
+    mask = masks.to(torch.bool).contiguous()
+    b, h, w = mask.shape
+    if not distance_original_takes(mask.shape, max_distance):
+        raise ValueError(f"distance_original: max_distance {max_distance} on {h}x{w} sites")
+    sweeps = torch.empty(b, dtype=torch.int32, device=mask.device)
+    out = torch.empty(mask.shape, dtype=torch.float32, device=mask.device)
+    launch = bind_launch("distance_transform_original", None, (mask, sweeps, out), b, h, w,
+                         max_distance)
+    launch.sweeps = sweeps
+    return launch
+
+
+def distance_cases(filled, seed: int = 0) -> dict:
+    """``{name: (masks, max_distance)}``: path D's filled DAPI masks, all
+    foreground (every pixel at the cap), one background pixel at the
+    centre of a full site at ``max_distance`` 254 (D up to half the
+    side), seeded 45% noise and empty sites."""
+    g = torch.Generator().manual_seed(seed)
+    b, h, w = filled.shape
+    full = torch.ones_like(filled, dtype=torch.bool)
+    centre = full.clone()
+    centre[:, h // 2, w // 2] = False
+    noise = (torch.rand(filled.shape, generator=g) < 0.45).to(filled.device)
+    return {"real": (filled, 64), "full": (full, 64), "centre": (centre, 254),
+            "noise": (noise, 64), "empty": (torch.zeros_like(full), 64)}
+
+
+def distance_set(masks, max_distance: int = 64) -> dict:
+    """The two-pass kernel's launch (``kernel``), the first design
+    (``original``), the public wrapper and the plain version."""
+    return {"kernel": kernels.distance_transform_launcher(masks, max_distance),
+            "original": distance_original(masks, max_distance),
+            "wrapper": lambda: kernels.distance_transform(masks, max_distance),
+            "plain": lambda: kernels.distance_transform_plain(masks, max_distance)}
+
+
+def distance_split_set(filled) -> dict:
+    """On each of :func:`distance_cases`: the first design (``original_*``,
+    with its sweeps), the column pass alone (``columns_*``) and both
+    passes (``kernel_*``; the row pass by difference)."""
+    out = {}
+    for case, (m, cap) in distance_cases(filled).items():
+        out[f"original_{case}"] = distance_original(m, cap)
+        out[f"columns_{case}"] = kernels.distance_transform_launcher(
+            m, cap, phases=kernels.DT_COLUMNS)
+        out[f"kernel_{case}"] = kernels.distance_transform_launcher(m, cap)
+    return out
+
+
 def yardsticks(idx: torch.Tensor, cells: int) -> dict:
     """One PyTorch call that counts ready-made indices: ``bincount`` (the
     yardstick of PRs 2-3; it reads the largest index back to the host)
@@ -613,6 +688,9 @@ def run(inputs: dict, max_objects: int = 256, reps: int = 7, bytes_per_s: float 
         "fill_split": (flood_split_set("fill", inputs), fill_bytes),
         "cc": (cc_set(inputs["dapi_mask"]), cc_bytes(inputs["dapi_mask"])),
         "cc_split": (cc_split_set(inputs["dapi_mask"]), cc_bytes(inputs["dapi_mask"])),
+        # a mask byte in and 4 bytes out a pixel, as the labeling
+        "distance": (distance_set(inputs["filled"]), cc_bytes(inputs["filled"])),
+        "distance_split": (distance_split_set(inputs["filled"]), cc_bytes(inputs["filled"])),
         "hist": (hist_set(nuclei, dapi, max_objects, BINS),
                  hist_bytes(b, n, max_objects, BINS)),
         "hist_cells": (hist_set(cells, actin, max_objects, BINS),
