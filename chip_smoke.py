@@ -77,7 +77,24 @@ Phases (any failure exits non-zero before the last line):
    feature lies within its tier of ``CARD_TIERS``.  Print sites/sec and a
    stage breakdown, each time beside the card's name and power limit;
    for the volume path split ``measure_volume``.
-4. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+4. The illumination and stitching path, held against the port's CPU
+   run: corilla (BASELINE config 1) -- the channel-batched Welford scan
+   and finalize over 8 channels x 96 sites of 256x256 (channels/sec, the
+   ms and kernel launches of one update step), the corilla step's order
+   (chunks of 32, merged) and a nearly flat channel; ``n``, the histogram
+   and the percentiles exact, the log-domain fields within
+   ``STATS_TIERS``.  Align: 64 pairs of config 3's sites rolled by known
+   shifts within +-40 (shifts exact, quality within its tier) and an
+   unrelated noise pair the filter must zero (ms per batch).  Illuminati:
+   an 8x8 grid of DAPI sites corrected with corilla's statistics,
+   stitched, four pyramid levels, uint8 and tiles (every level exact,
+   Mpix/s and tiles/s).  QC: config 3 through ``build_batch_fn(qc=True)``
+   (statistics within ``QC_TIERS``, outputs bit-identical to QC off).
+   The production chain: corilla's statistics of config 3's DAPI and
+   Actin, computed on the card, feed config 3 with ``correct: true``,
+   launch counters as on path (a), labels and counts exact against the
+   CPU pipeline run on the card's corrected images.
+5. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness), and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -98,6 +115,10 @@ SEED = 0
 #: the volume path (BASELINE config 5, bench.py:138-139, 824-826): 16
 #: z-stacks of 16 planes of 128x128, 8 flooding levels
 B_V, DEPTH_V, SIZE_V, N_LEVELS_V = 16, 16, 128, 8
+#: corilla (BASELINE config 1, bench.py:196-197): 8 channels of 96 sites;
+#: illuminati's well (bench.py:199-200,1081-1084): an 8x8 grid of sites;
+#: align: rolled targets within +-40 px
+C_CORILLA, S_CORILLA, GRID, MAX_DRIFT = 8, 96, 8, 40
 
 #: float32 peak outside the tensor cores, H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12
@@ -157,6 +178,28 @@ FEATURE_TIERS = {
 #: to the card-vs-CPU spread (largest |card - cpu| 1.19e-07, PERF.md) with
 #: room for cos/sin ulps, not to the JAX float64 twin's tier.
 CARD_TIERS = {**FEATURE_TIERS, "Zernike_*": (1e-5, 1e-6)}
+#: (rtol, atol) of the port's corilla fields against the JAX package and of
+#: the card's against the CPU's.  ``n``, ``hist`` and ``percentile_values``
+#: are exact; the fields go through ``log10``, which differs by ulps between
+#: libraries and devices (an ulp is 4.8e-7 at log10(65536)), then IEEE
+#: + - * / and a correctly rounded root.  The atols are a few such ulps: a
+#: nearly flat channel's std (4e-6) moves by 3% on one.
+STATS_TIERS = {"mean_log": (0.0, 2e-6), "std_log": (1e-5, 1e-6), "var_log": (1e-4, 1e-11)}
+#: (rtol, atol) of the nearly flat channel's fields against the float64
+#: truth (``benchmarks.cpu_reference_channel``), as ``tests/test_stats.py``
+#: holds the reference's scan: relative, since that channel's std (4e-6)
+#: is below every atol of :data:`STATS_TIERS`
+FLAT_TRUTH_TIERS = {"mean_log": (1e-6, 0.0), "std_log": (0.05, 1e-8)}
+#: registration: shifts exact (rolled content has one peak); the peak's
+#: height and the subpixel peak through the FFTs' rounding
+REGISTRATION_TIERS = {"shift": _EXACT, "quality": (0.0, 1e-5), "subpixel": (0.0, 1e-6)}
+#: per-site QC statistics: a count over the pixel count is exact; means
+#: are summed in another order than XLA's or the other device's
+QC_TIERS = {"saturation_frac": _EXACT, "background": (1e-5, 0.0),
+            "focus_tenengrad": (1e-4, 0.0), "laplacian_var": (1e-4, 0.0)}
+#: illumination correction (``image_ops.correct_illumination``): log10, pow
+#: and the two field means
+CORRECTION_TIER = (1e-5, 1e-3)
 
 
 class SmokeFailure(Exception):
@@ -1071,8 +1114,8 @@ def main() -> int:
         from tmlibrary_tpu_torch.jterator.description import PipelineDescription
         from tmlibrary_tpu_torch.jterator.modules import get_module
         from tmlibrary_tpu_torch.ops import (
-            _cuda, fused_measure, kernels, label, measure, segment_primary, smooth,
-            threshold, volume,
+            _cuda, fused_measure, image_ops, kernels, label, measure, pyramid, qc,
+            registration, segment_primary, smooth, stats, threshold, volume,
         )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -1224,6 +1267,17 @@ def main() -> int:
         print("  measure_volume split (ms per batch): " + ", ".join(
             f"{k} {v:.3f}" for k, v in split.items()) + f" on {card}")
 
+        # ---------------------------------------------------------- phase 4
+        print(f"phase 4: corilla, align, illuminati, QC, corilla -> config 3; times on {card}")
+        corilla_out = phase_corilla(torch, stats, benchmarks, bw, card)
+        targets, shifts = phase_align(torch, registration, dapi, card)
+        phase_illuminati(torch, {"image_ops": image_ops, "pyramid": pyramid,
+                                 "benchmarks": benchmarks, "registration": registration},
+                         targets, shifts, corilla_out, card)
+        phase_qc(torch, pipeline, desc3, data, qc, card)
+        phase_chain(torch, {"stats": stats, "image_ops": image_ops}, pipeline, benchmarks,
+                    PipelineDescription, data, wrappers, card, on_chip)
+
         # each kernel's launches: the path that brought it to the port
         path_of = {"intensity_hist": run_q, "glcm_all": run4, "distance_transform": run_d,
                    "cc3d_min_propagate": run_v, "watershed3d_flood": run_v}
@@ -1277,16 +1331,18 @@ def stage_breakdown(torch, pkg_ops, dapi, actin, nuclei, actin_mask) -> dict:
 
 
 def drive_path(torch, pipeline, title, desc, data, wrappers, need, card,
-               expect=None, only=None) -> dict:
+               expect=None, only=None, stats=None, cpu_result=None) -> dict:
     """Drive one path through ``build_batch_fn`` on the card: a warm-up
     call, then every launch counter set to 0, one call, the counters read
     (each kernel in ``need`` must have launched, each in ``expect``
     exactly that often, each kernel in ``only`` every time on the route
     named there, the watershed with every site of its last launch on chip),
-    the first sites held to the port's CPU run, and the batch timed over 5
-    calls."""
+    the first sites held to the port's CPU run (``cpu_result`` where
+    given), and the batch timed over 5 calls.  ``stats`` are
+    corilla's ``{channel: (mean_log, std_log)}`` numpy fields."""
     n = next(iter(data.values())).shape[0]
-    raw, stats, shifts = pipeline.from_jax_inputs(data, {}, [[0, 0]] * n, device="cuda")
+    raw, stats, shifts = pipeline.from_jax_inputs(data, stats or {}, [[0, 0]] * n,
+                                                  device="cuda")
     fn = pipeline.ImageAnalysisPipeline(desc, MAX_OBJECTS, device="cuda").build_batch_fn()
     fn(raw, stats, shifts)  # warm-up: allocator and first launches
     torch.cuda.synchronize()
@@ -1318,12 +1374,14 @@ def drive_path(torch, pipeline, title, desc, data, wrappers, need, card,
             raise SmokeFailure(f"{title}: watershed_flood sites off chip: {site}")
 
     card_res = pipeline.site_result_to_numpy(result)
-    sub = {k: v[:N_CPU_SITES] for k, v in data.items()}
-    craw, cstats, cshifts = pipeline.from_jax_inputs(
-        sub, {}, [[0, 0]] * N_CPU_SITES, device="cpu")
-    cpu_res = pipeline.site_result_to_numpy(
-        pipeline.ImageAnalysisPipeline(desc, MAX_OBJECTS, device="cpu")
-        .build_batch_fn()(craw, cstats, cshifts))
+    cpu_res = cpu_result
+    if cpu_res is None:
+        sub = {k: v[:N_CPU_SITES] for k, v in data.items()}
+        craw, cstats, cshifts = pipeline.from_jax_inputs(
+            sub, {}, [[0, 0]] * N_CPU_SITES, device="cpu")
+        cpu_res = pipeline.site_result_to_numpy(
+            pipeline.ImageAnalysisPipeline(desc, MAX_OBJECTS, device="cpu")
+            .build_batch_fn()(craw, cstats, cshifts))
     worst = compare_with_cpu(card_res, cpu_res)
     print(f"  cpu check: labels, counts and {sum(len(f) for f in cpu_res.measurements.values())}"
           f" features of {N_CPU_SITES} sites agree; largest |card - cpu| by family "
@@ -1446,6 +1504,367 @@ def stage_breakdown_full(torch, data, objects) -> dict:
                                                          max_objects=m),
     }
     return {name: cuda_ms(torch, fn, 3, 1) for name, fn in steps.items()}
+
+
+def hold_tier(name, got, want, tier) -> float:
+    """``got`` within ``tier`` (rtol, atol) of ``want`` (exact where both
+    are 0); returns the largest absolute difference."""
+    rtol, atol = tier
+    if rtol == atol == 0.0:
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise SmokeFailure(f"{name}: {got.dtype} {tuple(got.shape)} held exact against "
+                               f"{want.dtype} {tuple(want.shape)}")
+        if not got.equal(want):
+            raise SmokeFailure(f"{name}: differs (held exact)")
+    else:
+        import numpy as np
+
+        np.testing.assert_allclose(got.double().numpy(), want.double().numpy(), rtol=rtol,
+                                   atol=atol, err_msg=name)
+    return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+
+
+def tier_share(got, want, tier) -> float:
+    """The largest ``|got - want| / (atol + rtol * |want|)``: the share of
+    its tier that a hold used (1 is the limit)."""
+    rtol, atol = tier
+    d = (got.double() - want.double()).abs()
+    return float((d / (atol + rtol * want.double().abs())).max()) if got.numel() else 0.0
+
+
+def hold_stats(title, card_out, cpu_out) -> dict:
+    """corilla's output on the card against the CPU's: ``n``, ``hist``,
+    ``percentile_keys`` and ``percentile_values`` exact, the log-domain
+    fields within :data:`STATS_TIERS`.  Returns each field's largest
+    difference."""
+    errs = {}
+    for k in ("n", "hist", "percentile_keys", "percentile_values"):
+        errs[k] = hold_tier(f"{title}.{k}", card_out[k].cpu(), cpu_out[k], _EXACT)
+    for k, tier in STATS_TIERS.items():
+        errs[k] = hold_tier(f"{title}.{k}", card_out[k].cpu(), cpu_out[k], tier)
+    return errs
+
+
+def kernel_launches(torch, fn) -> int:
+    """CUDA kernels that one call of ``fn`` launches, counted by
+    ``torch.profiler`` (0 where the profiler sees no device activity)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def host_ms(torch, fn, reps: int = 3) -> float:
+    """Mean milliseconds per call on the host clock, after one call, each
+    call ending in ``torch.cuda.synchronize()``."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_corilla(torch, stats, benchmarks, bw, card) -> dict:
+    """BASELINE config 1: the channel-batched scan and finalize over
+    ``synthetic_channel_stack(8, 96, 256)`` on the card, timed after a
+    warm-up (channels/sec, the ms and launches of one update step), then
+    the corilla step's order (chunks of 32, merged); both held against the
+    port's run on the CPU, and both on one nearly flat channel.  Returns
+    the card's statistics of the stack."""
+    import numpy as np
+
+    stack_np = benchmarks.synthetic_channel_stack(C_CORILLA, S_CORILLA, SIZE, seed=SEED)
+    stack = torch.from_numpy(stack_np).to("cuda")
+    def run():
+        return stats.welford_finalize(stats.welford_scan(stack))
+
+    run()
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = run()
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / reps
+    state = stats.welford_init((SIZE, SIZE), "cuda", lead=(C_CORILLA,))
+
+    def step():
+        return stats.welford_update(state, stack[:, 0])
+
+    step_ms = cuda_ms(torch, step, 20)
+    idx = stack[:, 0].clamp(0, stats.HIST_BINS - 1).to(torch.int32)
+    hist_ms = cuda_ms(torch, lambda: stats.histogram_fixed_bins(idx, stats.HIST_BINS), 20)
+    launches = kernel_launches(torch, step)
+    # per step and channel: x, mean, m2 and offset read, mean and m2 written
+    byte_ms = C_CORILLA * S_CORILLA * SIZE * SIZE * 4 * 6 / bw * 1e3
+    print(f"  corilla: {C_CORILLA} channels x {S_CORILLA} sites of {SIZE}x{SIZE}, scan and "
+          f"finalize {sec * 1e3:.2f} ms = {C_CORILLA / sec:.1f} channels/s; one update step "
+          f"(all {C_CORILLA} channels) {step_ms:.4f} ms, its histogram {hist_ms:.4f} ms, "
+          f"device activities a step (profiler) {launches or 'not measured'}; "
+          f"bound {byte_ms:.4f} ms by bytes, on {card}")
+
+    cpu_stack = torch.from_numpy(stack_np)
+    errs = hold_stats("corilla[scan]", out, stats.welford_finalize(stats.welford_scan(cpu_stack)))
+    step_order = stats.corilla_statistics(stack)
+    errs_step = hold_stats("corilla[step]", step_order, stats.corilla_statistics(cpu_stack))
+    g = np.random.default_rng(SEED + 6)
+    flat_np = (60000.0 + g.normal(0.0, 0.5, (48, SIZE, SIZE))).astype(np.float32)
+    flat = torch.from_numpy(flat_np)
+    card_flat = stats.welford_finalize(stats.welford_scan(flat.to("cuda")))
+    errs_flat = hold_stats("corilla[flat,scan]", card_flat,
+                           stats.welford_finalize(stats.welford_scan(flat)))
+    hold_stats("corilla[flat,step]", stats.corilla_statistics(flat.to("cuda")),
+               stats.corilla_statistics(flat))
+    truth = benchmarks.cpu_reference_channel(flat_np)  # float64, unshifted
+    hold_tier("corilla[flat,truth].hist", card_flat["hist"].cpu(),
+              torch.from_numpy(truth["hist"].astype(np.float32)), _EXACT)
+    share = {}
+    for k, tier in FLAT_TRUTH_TIERS.items():
+        got, want = card_flat[k].cpu(), torch.from_numpy(truth[k])
+        hold_tier(f"corilla[flat,truth].{k}", got, want, tier)
+        share[k] = tier_share(got, want, tier)
+    print("  corilla: n, hist, percentiles exact against the CPU on the scan, the step's "
+          "order (chunks of 32, merged) and a nearly flat channel; largest |card - cpu| "
+          + ", ".join(f"{k} {errs[k]:.3g}/{errs_step[k]:.3g}/{errs_flat[k]:.3g}"
+                      for k in STATS_TIERS) + " (scan/step/flat); the flat channel against "
+          "its float64 truth: hist exact, share of tier used " + ", ".join(
+              f"{k} {v:.3g} of (rtol, atol) {FLAT_TRUTH_TIERS[k]}" for k, v in share.items()))
+    return out
+
+
+def phase_align(torch, registration, dapi, card):
+    """The align step on 64 pairs of config 3's 256x256 DAPI sites, each
+    target rolled by a known shift within +-40: shifts exact against the
+    known ones and the CPU's, quality within its tier; one pair of
+    unrelated noise images, which the filter must zero at min_quality 0.5.
+    Returns the targets and their filtered shifts, which illuminati
+    applies."""
+    import numpy as np
+
+    drift = np.random.default_rng(SEED + 5).integers(-MAX_DRIFT, MAX_DRIFT + 1, (len(dapi), 2))
+    target = torch.stack([torch.roll(s, tuple(int(v) for v in d), dims=(0, 1))
+                          for s, d in zip(dapi, drift)])
+    shifts, quality = registration.batch_phase_correlation_quality(dapi, target)
+    known = torch.from_numpy(-drift).to(torch.int32)
+    hold_tier("align.shifts[known]", shifts.cpu(), known, _EXACT)
+    c_shifts, c_quality = registration.batch_phase_correlation_quality(dapi.cpu(), target.cpu())
+    hold_tier("align.shifts[cpu]", shifts.cpu(), c_shifts, REGISTRATION_TIERS["shift"])
+    q_err = hold_tier("align.quality", quality.cpu(), c_quality, REGISTRATION_TIERS["quality"])
+    kept, bad = registration.filter_shifts(shifts, quality, max_shift=50, min_quality=0.5)
+    if bool(bad.any()) or not torch.equal(kept, shifts):
+        raise SmokeFailure("align: the filter zeroed a rolled pair")
+    g = torch.Generator().manual_seed(SEED + 7)
+    noise = (torch.rand((2, 1, SIZE, SIZE), generator=g) * 4096).to("cuda")
+    n_shift, n_q = registration.batch_phase_correlation_quality(noise[0], noise[1])
+    zeroed, n_bad = registration.filter_shifts(n_shift, n_q, max_shift=50, min_quality=0.5)
+    if not bool(n_bad.all()) or bool(zeroed.any()):
+        raise SmokeFailure(f"align: unrelated noise kept shift {n_shift.tolist()} "
+                           f"at quality {n_q.tolist()}")
+    ms = cuda_ms(torch, lambda: registration.batch_phase_correlation_quality(dapi, target), 10)
+    print(f"  align: {len(dapi)} pairs of {SIZE}x{SIZE}, shifts within +-{MAX_DRIFT} exact "
+          f"against the known ones and the CPU, quality {float(quality.min()):.6f}-"
+          f"{float(quality.max()):.6f} (largest |card - cpu| {q_err:.3g}); unrelated noise "
+          f"quality {float(n_q[0]):.4f}, zeroed at min_quality 0.5; "
+          f"{ms:.4f} ms per batch of {len(dapi)} on {card}")
+    return target, kept
+
+
+def phase_illuminati(torch, ops, sites, shifts, corilla_out, card) -> None:
+    """illuminati on an 8x8 grid of the align phase's 256x256 targets:
+    ``make_batch_prep`` (the correction against corilla's channel-0
+    statistics, each site's shift from the align step, the intersection
+    crop), ``join_grid``, four pyramid levels, ``to_uint8`` with the 0.1
+    and 99.9 percentiles and ``cut_tiles``.  The prepared sites are held
+    against the CPU's within :data:`CORRECTION_TIER`; every float level and
+    every uint8 level exact against the CPU chain on the card's prepared
+    sites, and the uint8 levels against the numpy pyramid job
+    (``benchmarks.cpu_reference_pyramid``: level 0 exact, the others
+    within one display step, since numpy sums a window in its own order)."""
+    image_ops, pyramid, benchmarks = ops["image_ops"], ops["pyramid"], ops["benchmarks"]
+    registration = ops["registration"]
+    mean_log, std_log = corilla_out["mean_log"][0], corilla_out["std_log"][0]
+    pct = corilla_out["percentile_values"][0].tolist()
+    lower, upper = pct[0], pct[-1]  # the 0.1 and 99.9 percentiles
+    crop = registration.intersection_window(shifts)
+    window = (crop["top"], crop["bottom"], crop["left"], crop["right"])
+    prep = image_ops.make_batch_prep(mean_log, std_log, window)
+
+    def device_chain():
+        corrected = prep(sites, shifts)
+        levels = pyramid.pyramid_levels(image_ops.join_grid(corrected, GRID, GRID))
+        return corrected, levels, [pyramid.to_uint8(lv, lower, upper) for lv in levels]
+
+    def chain():
+        out = device_chain()
+        return (*out, [pyramid.cut_tiles(u) for u in out[2]])
+
+    chain()
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        corrected, levels, u8, tiles = chain()
+    sec = (time.perf_counter() - t0) / reps
+    device_ms = cuda_ms(torch, device_chain, 5)
+    n_tiles = sum(len(t) for t in tiles)
+    h, w = levels[0].shape
+    want_shape = (GRID * (SIZE - window[0] - window[1]), GRID * (SIZE - window[2] - window[3]))
+    want_levels = pyramid.n_pyramid_levels(h, w)  # 4 for any crop within +-40
+    want_tiles = sum(-(-lv.shape[0] // pyramid.TILE_SIZE) * -(-lv.shape[1] // pyramid.TILE_SIZE)
+                     for lv in levels)
+    if (h, w) != want_shape or len(levels) != want_levels or n_tiles != want_tiles:
+        raise SmokeFailure(f"illuminati: level 0 {(h, w)}, {len(levels)} levels, "
+                           f"{n_tiles} tiles")
+
+    c_prep = image_ops.make_batch_prep(mean_log.cpu(), std_log.cpu(), window)
+    c_corr = c_prep(sites.cpu(), shifts.cpu())
+    corr_err = hold_tier("illuminati.prep", corrected.cpu(), c_corr, CORRECTION_TIER)
+    corr_share = tier_share(corrected.cpu(), c_corr, CORRECTION_TIER)
+    c_levels = pyramid.pyramid_levels(image_ops.join_grid(corrected.cpu(), GRID, GRID))
+    numpy_u8 = benchmarks.cpu_reference_pyramid(corrected.cpu().numpy(), (GRID, GRID),
+                                                len(levels), lower, upper)
+    for i, (lv, c_lv) in enumerate(zip(levels, c_levels)):
+        hold_tier(f"illuminati.level{i}", lv.cpu(), c_lv, _EXACT)
+        hold_tier(f"illuminati.uint8[{i}]", u8[i].cpu(), pyramid.to_uint8(c_lv, lower, upper),
+                  _EXACT)
+        hold_tier(f"illuminati.uint8[{i}] against numpy", u8[i].cpu().to(torch.int16),
+                  torch.from_numpy(numpy_u8[i]).to(torch.int16), (0.0, 0.0 if i == 0 else 1.0))
+    mosaic = image_ops.join_grid(corrected, GRID, GRID)
+    stages = {
+        "prep": cuda_ms(torch, lambda: prep(sites, shifts), 5),
+        "join_grid": cuda_ms(torch, lambda: image_ops.join_grid(corrected, GRID, GRID), 5),
+        "levels": cuda_ms(torch, lambda: pyramid.pyramid_levels(mosaic), 5),
+        "to_uint8": cuda_ms(torch, lambda: [pyramid.to_uint8(lv, lower, upper)
+                                            for lv in levels], 5),
+        "tiles_on_host": host_ms(torch, lambda: [pyramid.cut_tiles(u) for u in u8]),
+    }
+    mpix = levels[0].numel() / 1e6
+    print(f"  illuminati: {GRID}x{GRID} sites of {SIZE}x{SIZE} -> {tuple(levels[0].shape)}, "
+          f"{len(levels)} levels, {n_tiles} tiles, display {lower:g}-{upper:g}, crop {window}; "
+          f"prepared sites within their tier (largest |card - cpu| {corr_err:.3g}, "
+          f"{corr_share:.3g} of the tier), every float and uint8 level exact, the uint8 "
+          f"levels within a step of numpy's; {sec * 1e3:.2f} ms with tiles on the host = {mpix / sec:.1f} Mpix/s, "
+          f"{n_tiles / sec:.1f} tiles/s (on the card alone {device_ms:.3f} ms) on {card}")
+    print_stages(card, stages)
+
+
+def phase_qc(torch, pipeline, desc3, data, qc_ops, card) -> None:
+    """Config 3 through ``build_batch_fn(qc=True)`` on the card (a few DAPI
+    pixels of two sites set to the sensor ceiling): the QC statistics of the
+    first sites within :data:`QC_TIERS` of the CPU's, and every output of
+    the run bit-identical to the ``qc=False`` run."""
+    data = {k: v.copy() for k, v in data.items()}
+    data["DAPI"][0, :5, :5] = qc_ops.SATURATION_LEVEL
+    data["DAPI"][1, 7, :] = qc_ops.SATURATION_LEVEL + 1000.0
+    n = next(iter(data.values())).shape[0]
+    raw, st, sh = pipeline.from_jax_inputs(data, {}, [[0, 0]] * n, device="cuda")
+    pipe = pipeline.ImageAnalysisPipeline(desc3, MAX_OBJECTS, device="cuda")
+    fn_qc, fn = pipe.build_batch_fn(qc=True), pipe.build_batch_fn()
+    result, qstats = fn_qc(raw, st, sh)
+    plain = fn(raw, st, sh)
+    for part in ("objects", "counts"):
+        for k, v in getattr(plain, part).items():
+            if not torch.equal(getattr(result, part)[k], v):
+                raise SmokeFailure(f"qc: {part} {k} differ with QC on")
+    for obj, feats in plain.measurements.items():
+        for feat, v in feats.items():
+            if not torch.equal(result.measurements[obj][feat], v):
+                raise SmokeFailure(f"qc: {obj}/{feat} differs with QC on")
+    sub = {k: v[:N_CPU_SITES] for k, v in data.items()}
+    craw, cst, csh = pipeline.from_jax_inputs(sub, {}, [[0, 0]] * N_CPU_SITES, device="cpu")
+    _, cstats = pipeline.ImageAnalysisPipeline(desc3, MAX_OBJECTS, device="cpu").build_batch_fn(
+        qc=True)(craw, cst, csh)
+    worst = {}
+    for ch, metrics in cstats.items():
+        for k, want in metrics.items():
+            err = hold_tier(f"qc.{ch}.{k}", qstats[ch][k][:N_CPU_SITES].cpu(), want, QC_TIERS[k])
+            worst[k] = max(worst.get(k, 0.0), err)
+    if not float(qstats["DAPI"]["saturation_frac"][:2].min()) > 0:
+        raise SmokeFailure("qc: the saturated pixels were not counted")
+
+    def timed(f):
+        f(raw, st, sh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            f(raw, st, sh)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 5 * 1e3
+
+    off_ms, on_ms = timed(fn), timed(fn_qc)
+    stats_ms = cuda_ms(torch, lambda: [qc_ops.site_qc_stats(raw[ch]) for ch in raw], 5)
+    print(f"  qc: outputs bit-identical with QC on and off; statistics of {N_CPU_SITES} sites "
+          "within their tiers of the CPU's (largest |card - cpu| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f"); {on_ms:.2f} ms per batch of {n} with QC, {off_ms:.2f} without, the "
+          f"statistics of both channels alone {stats_ms:.3f} ms, on {card}")
+
+
+def phase_chain(torch, ops, pipeline, benchmarks, description, data, wrappers, card,
+                on_chip) -> None:
+    """corilla -> config 3 with ``correct: true``: corilla's statistics of
+    config 3's 64 DAPI and Actin sites computed on the card (the step's
+    order; held against the CPU's), config 3 with both channels corrected
+    through ``build_batch_fn`` on the card with the launch counters as on
+    path (a), labels, counts and features of the first sites against the
+    port's CPU pipeline (``correct: false``) run on the card's corrected
+    images (the pipeline's own preprocessing on the card), and those
+    images within :data:`CORRECTION_TIER` of the CPU's correction.  The CPU
+    pipeline with ``correct: true`` on the card's statistics is compared
+    too, and how many label pixels differ is printed."""
+    import numpy as np
+
+    stats_mod, image_ops = ops["stats"], ops["image_ops"]
+    stack = torch.stack([torch.from_numpy(data[ch]) for ch in ("DAPI", "Actin")])
+    card_stats = stats_mod.corilla_statistics(stack.to("cuda"))
+    errs = hold_stats("chain.corilla", card_stats, stats_mod.corilla_statistics(stack))
+    if not bool(card_stats["mean_log"].isfinite().all() & card_stats["std_log"].isfinite().all()):
+        raise SmokeFailure("chain: corilla's fields are not finite")
+    stats = {ch: (card_stats["mean_log"][i].cpu().numpy(), card_stats["std_log"][i].cpu().numpy())
+             for i, ch in enumerate(("DAPI", "Actin"))}
+    desc_c = description.from_dict({**benchmarks.CELL_PAINTING_PIPE, "input": {"channels": [
+        {"name": "DAPI", "correct": True}, {"name": "Actin", "correct": True}]}})
+
+    n = next(iter(data.values())).shape[0]
+    raw, st, sh = pipeline.from_jax_inputs(data, stats, [[0, 0]] * n, device="cuda")
+    corrected = pipeline.ImageAnalysisPipeline(desc_c, MAX_OBJECTS, device="cuda") \
+        .build_preprocess_fn()(raw, st, sh)
+    images = {k: v[:N_CPU_SITES].cpu() for k, v in corrected.items()}
+    cpu_result = pipeline.site_result_to_numpy(pipeline.ImageAnalysisPipeline(
+        benchmarks.cell_painting_description(), MAX_OBJECTS, device="cpu").build_batch_fn()(
+        images, {}, sh[:N_CPU_SITES].cpu()))
+    run = drive_path(torch, pipeline, "corilla -> config 3 (correct: true)", desc_c, data,
+                     wrappers, need=list(on_chip) + ["cc_min_propagate", "grouped_stats"],
+                     card=card, expect={"fill_holes_flood": 1, "watershed_flood": 1,
+                                        "cc_min_propagate": 1, "grouped_stats": 2},
+                     only=on_chip, stats=stats, cpu_result=cpu_result)
+
+    sub = {k: torch.from_numpy(v[:N_CPU_SITES]) for k, v in data.items()}
+    corr_err = corr_share = 0.0
+    for ch, (mean_log, std_log) in stats.items():
+        want = image_ops.correct_illumination(sub[ch], torch.from_numpy(mean_log),
+                                              torch.from_numpy(std_log))
+        corr_err = max(corr_err, hold_tier(f"chain.correction.{ch}", images[ch], want,
+                                           CORRECTION_TIER))
+        corr_share = max(corr_share, tier_share(images[ch], want, CORRECTION_TIER))
+    craw, cst, csh = pipeline.from_jax_inputs({k: v.numpy() for k, v in sub.items()}, stats,
+                                              [[0, 0]] * N_CPU_SITES, device="cpu")
+    cpu_corrected = pipeline.ImageAnalysisPipeline(desc_c, MAX_OBJECTS, device="cpu") \
+        .build_batch_fn()(craw, cst, csh)
+    differ = {obj: int((lab != run["objects"][obj][:N_CPU_SITES].cpu()).sum())
+              for obj, lab in cpu_corrected.objects.items()}
+    print("  chain: corilla's statistics of DAPI and Actin against the CPU's: n, hist, "
+          "percentiles exact, largest |card - cpu| " + ", ".join(
+              f"{k} {errs[k]:.3g}" for k in STATS_TIERS)
+          + f"; corrected images within their tier of the CPU's correction (largest "
+          f"|card - cpu| {corr_err:.3g}, {corr_share:.3g} of the tier); label pixels that "
+          f"differ from the CPU pipeline corrected on the CPU with the card's statistics: {differ} "
+          f"({'equal' if not any(differ.values()) else 'see ROADMAP C'})")
 
 
 def feature_tier(name: str, tiers: dict = FEATURE_TIERS) -> tuple[float, float]:

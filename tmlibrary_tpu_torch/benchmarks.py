@@ -1,7 +1,7 @@
 """The benchmark pipelines and their synthetic data.
 
 Counterpart: ``tmlibrary_tpu/benchmarks.py:24-125,186-381,628-725,
-795-847``.  The port's own copies of ``CELL_PAINTING_PIPE`` (BASELINE.json
+759-791,795-847,861-891``.  The port's own copies of ``CELL_PAINTING_PIPE`` (BASELINE.json
 config 3: ``smooth`` → ``segment_primary`` on DAPI → ``segment_secondary``
 on Actin → ``measure_intensity`` on both; with ``declump: true`` the
 declumping path), of ``full_feature_description`` (config 4: the same
@@ -10,7 +10,8 @@ texture and Zernike moments), of ``SMOOTH_THRESHOLD_PIPE`` (config 2:
 smooth → adaptive threshold → label), of ``volume_description``
 (config 5, the 3-D z-stack pipeline) and of the numpy generators, which
 draw the same random sequence as the reference's, so both packages see
-the same pixels for the same seed.
+the same pixels for the same seed; corilla's (config 1) stack and
+single-thread numpy channel job, and illuminati's numpy pyramid job.
 """
 
 from __future__ import annotations
@@ -389,3 +390,59 @@ def synthetic_volume_batch(
                 )
             )
     return {"DAPI": np.clip(out, 0, 65535)}
+
+
+# ------------------------------------------------------------ corilla config
+def synthetic_channel_stack(
+    n_channels: int, n_sites: int, size: int, seed: int = 0
+) -> np.ndarray:
+    """``(C, S, H, W)`` float32 uint16-range site stack for the corilla
+    benchmark (BASELINE config 1)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 5000, (n_channels, n_sites, size, size)).astype(np.float32)
+
+
+def cpu_reference_channel(sites: np.ndarray) -> dict[str, np.ndarray]:
+    """Single-thread numpy equivalent of one corilla channel job, in
+    float64: online log-domain Welford mean/std (unshifted) and the exact
+    65,536-bin raw-intensity histogram (reference
+    ``OnlineStatistics.update`` per site)."""
+    mean = np.zeros(sites.shape[1:], np.float64)
+    m2 = np.zeros_like(mean)
+    hist = np.zeros(65536, np.int64)
+    for i, raw in enumerate(sites):
+        x = np.log10(1.0 + raw)
+        delta = x - mean
+        mean += delta / (i + 1)
+        m2 += delta * (x - mean)
+        hist += np.bincount(np.clip(raw, 0, 65535).astype(np.int64).ravel(), minlength=65536)
+    return {"mean_log": mean, "std_log": np.sqrt(m2 / max(len(sites), 1)), "hist": hist}
+
+
+# ---------------------------------------------------------- illuminati config
+def cpu_reference_pyramid(
+    sites: np.ndarray, grid: tuple[int, int], n_levels: int, lower: float, upper: float,
+) -> list[np.ndarray]:
+    """Single-thread numpy equivalent of one illuminati mosaic job: stitch
+    the site grid, then the level chain (2x2 mean, odd sides edge-padded),
+    each level stretched to uint8 (numpy's own summation order, so a level
+    can differ from the device chain's by a rounding)."""
+    gy, gx = grid
+    n, h, w = sites.shape
+    mosaic = (sites.reshape(gy, gx, h, w).transpose(0, 2, 1, 3)
+              .reshape(gy * h, gx * w).astype(np.float32))
+    span = max(upper - lower, 1e-6)
+
+    def stretch(lvl):
+        return np.clip((lvl - lower) / span * 255.0, 0, 255).astype(np.uint8)
+
+    levels = [stretch(mosaic)]
+    cur = mosaic
+    for _ in range(n_levels - 1):
+        hh, ww = cur.shape
+        if hh % 2 or ww % 2:
+            cur = np.pad(cur, ((0, hh % 2), (0, ww % 2)), mode="edge")
+        cur = cur.reshape(cur.shape[0] // 2, 2, cur.shape[1] // 2, 2).mean((1, 3))
+        levels.append(stretch(cur))
+    return levels
+

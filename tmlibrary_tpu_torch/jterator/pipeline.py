@@ -29,6 +29,7 @@ from tmlibrary_tpu_torch.errors import PipelineError
 from tmlibrary_tpu_torch.jterator import modules as module_registry
 from tmlibrary_tpu_torch.jterator.description import PipelineDescription
 from tmlibrary_tpu_torch.ops import image_ops
+from tmlibrary_tpu_torch.ops import qc as qc_ops
 
 
 @dataclasses.dataclass
@@ -183,16 +184,26 @@ class ImageAnalysisPipeline:
 
     # ------------------------------------------------------------ batch fn
     def build_batch_fn(
-        self, window: tuple[int, int, int, int] | None = None
+        self, window: tuple[int, int, int, int] | None = None, qc: bool = False
     ) -> Callable:
         """preprocess ∘ site_fn over a batch of sites.
 
         Signature: ``fn(raw: {ch: (B,H,W)}, stats: {ch: (mean_log,
         std_log)}, shifts: (B,2)) -> SiteResult`` with a leading batch
-        axis on every leaf.  Inputs are moved to the pipeline's device."""
+        axis on every leaf.  Inputs are moved to the pipeline's device.
+
+        ``qc=True`` also computes the per-site image QC statistics
+        (:func:`~tmlibrary_tpu_torch.ops.qc.site_qc_stats`) of every
+        channel's RAW images, before correction and alignment, and the
+        function returns ``(SiteResult, {channel: {metric: (B,)}})``.  The
+        statistics only read the inputs, so the ``SiteResult`` is the same
+        with QC on and off.  The reference's ``MODEL_QC_KEY`` diagnostics
+        come from the DL segmenters, which the port does not have yet, so
+        that entry is never present."""
         site_fn = self.build_site_fn()
         preprocess = self.build_preprocess_fn(window)
         device = self.device
+        channels = [ch.name for ch in self.description.channels]
 
         def batch_fn(raw, stats, shifts) -> SiteResult:
             raw = {k: torch.as_tensor(v, device=device) for k, v in raw.items()}
@@ -208,7 +219,10 @@ class ImageAnalysisPipeline:
                     if window is not None and val.dim() == 3:
                         val = image_ops.crop_window(val, *window)
                     images[key] = val
-            return site_fn(images)
+            result = site_fn(images)
+            if not qc:
+                return result
+            return result, {ch: qc_ops.site_qc_stats(raw[ch]) for ch in channels}
 
         return batch_fn
 

@@ -1,9 +1,10 @@
 """Per-site pixel preprocessing: illumination correction and alignment.
 
-Counterpart: ``tmlibrary_tpu/ops/image_ops.py:21-86``
-(``correct_illumination``, ``shift_image``, ``crop_window``, ``align``),
-reference ``tmlib/image.py`` ``ChannelImage.correct``/``align``.  Images
-are batches ``(B, H, W)``; shifts are per site.
+Counterpart: ``tmlibrary_tpu/ops/image_ops.py:21-86,121-152``
+(``correct_illumination``, ``shift_image``, ``crop_window``, ``align``,
+``join_grid``, ``make_batch_prep``), reference ``tmlib/image.py``
+``ChannelImage.correct``/``align`` and ``Image.join``.  Images are
+batches ``(B, H, W)``; shifts are per site.
 """
 
 from __future__ import annotations
@@ -68,3 +69,30 @@ def align(
     if window is not None:
         out = crop_window(out, *window)
     return out
+
+
+def join_grid(tiles: torch.Tensor, grid_rows: int, grid_cols: int) -> torch.Tensor:
+    """Stitch a ``(grid_rows * grid_cols, H, W)`` stack, row-major, into
+    one mosaic (illuminati's level 0)."""
+    n, h, w = tiles.shape
+    if n != grid_rows * grid_cols:
+        raise ValueError(f"{n} tiles do not fill a {grid_rows}x{grid_cols} grid")
+    return (tiles.reshape(grid_rows, grid_cols, h, w).permute(0, 2, 1, 3)
+            .reshape(grid_rows * h, grid_cols * w))
+
+
+def make_batch_prep(mean_log: torch.Tensor, std_log: torch.Tensor,
+                    window: tuple[int, int, int, int]):
+    """``prep(stack (B, H, W), shifts (B, 2)) -> (B, H', W') float32``:
+    illumination correction against corilla's ``mean_log``/``std_log``
+    fields of the channel, then each site's shift, then the intersection
+    crop ``window`` (top, bottom, left, right) -- the site preparation that
+    illuminati stitches from.  The reference makes each of the three
+    optional; the port's one caller runs all three, and zero shifts with a
+    zero window leave a site as the correction made it."""
+
+    def prep(stack: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+        out = correct_illumination(stack.to(torch.float32), mean_log, std_log)
+        return align(out, shifts, window)
+
+    return prep
