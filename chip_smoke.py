@@ -94,7 +94,24 @@ Phases (any failure exits non-zero before the last line):
    Actin, computed on the card, feed config 3 with ``correct: true``,
    launch counters as on path (a), labels and counts exact against the
    CPU pipeline run on the card's corrected images.
-5. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+5. The store-bound workflow steps, run as a user runs them: one 96-well
+   plate at 2x2 sites of 256x256 (384 sites, DAPI and Actin, 2 cycles,
+   cycle 1 rolled within +-40) written to an experiment store under
+   ``build/``; the ``corilla``, ``align`` and ``jterator`` steps on the
+   card (config 3 with both channels corrected and aligned, from a
+   ``.pipe.json``; batches of 64 through the pipelined executor; the
+   bucket router from a cold start), the jterator step with the launch
+   counters set to 0 before and read after (1, 1, 1, 2 per launched
+   batch, escalation re-launches included, the floods on chip); step
+   sites/s end to end, the executor's phase times, rungs and
+   escalations, corilla channels/s and align ms per batch, the host
+   syncs inside one launch, and a warm pass over a fresh root.  The CPU
+   hold: corilla and align with ``device="cpu"`` (fields by
+   ``STATS_TIERS``, ``n``, percentiles, shifts and window exact), then
+   two jterator batches on the CPU over the card's statistics and
+   shifts, held by site index (labels exact, features by
+   ``CARD_TIERS``).  The store is removed at the end.
+6. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness), and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -105,6 +122,8 @@ from __future__ import annotations
 
 import fnmatch
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -119,6 +138,10 @@ B_V, DEPTH_V, SIZE_V, N_LEVELS_V = 16, 16, 128, 8
 #: illuminati's well (bench.py:199-200,1081-1084): an 8x8 grid of sites;
 #: align: rolled targets within +-40 px
 C_CORILLA, S_CORILLA, GRID, MAX_DRIFT = 8, 96, 8, 40
+#: phase 5's store: one 96-well plate (8x12 wells) at 2x2 sites of 256x256,
+#: DAPI and Actin, 2 cycles (384 sites); jterator batches of 64; the
+#: batches the CPU reruns
+PLATE, SITES_PER_WELL, STEP_BATCH, CPU_BATCHES = (8, 12), (2, 2), 64, (0, 5)
 
 #: float32 peak outside the tensor cores, H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12
@@ -200,6 +223,22 @@ QC_TIERS = {"saturation_frac": _EXACT, "background": (1e-5, 0.0),
 #: illumination correction (``image_ops.correct_illumination``): log10, pow
 #: and the two field means
 CORRECTION_TIER = (1e-5, 1e-3)
+
+
+def corrected_tiers(tiers: dict) -> dict:
+    """``tiers`` for features measured on illumination-corrected pixels,
+    where each pixel lies within :data:`CORRECTION_TIER` of the other
+    side's: the intensity families take the larger of their own tier and
+    that one (labels, and so every shape feature, stay exact)."""
+    return {k: (max(r, CORRECTION_TIER[0]), max(a, CORRECTION_TIER[1]))
+            if k.startswith(("Intensity_", "Volume_intensity_")) else (r, a)
+            for k, (r, a) in tiers.items()}
+
+
+#: features of a corrected pipeline, the port against the JAX package (the
+#: port corrects in float64, the same on the card and the CPU, so the card
+#: is held to the CPU by :data:`CARD_TIERS`)
+CORRECTED_FEATURE_TIERS = corrected_tiers(FEATURE_TIERS)
 
 
 class SmokeFailure(Exception):
@@ -1275,8 +1314,11 @@ def main() -> int:
                                  "benchmarks": benchmarks, "registration": registration},
                          targets, shifts, corilla_out, card)
         phase_qc(torch, pipeline, desc3, data, qc, card)
-        phase_chain(torch, {"stats": stats, "image_ops": image_ops}, pipeline, benchmarks,
-                    PipelineDescription, data, wrappers, card, on_chip)
+        chain_sps = phase_chain(torch, {"stats": stats, "image_ops": image_ops}, pipeline,
+                                benchmarks, PipelineDescription, data, wrappers, card, on_chip)
+
+        # ---------------------------------------------------------- phase 5
+        phase_steps(torch, wrappers, card, on_chip, chain_sps)
 
         # each kernel's launches: the path that brought it to the port
         path_of = {"intensity_hist": run_q, "glcm_all": run4, "distance_transform": run_d,
@@ -1398,7 +1440,8 @@ def drive_path(torch, pipeline, title, desc, data, wrappers, need, card,
           f"of {n}; main-path run {main_s * 1e3:.2f} ms) on {card}")
     print("  counts: " + " ".join(
         f"{obj} {c[:N_CPU_SITES].tolist()}" for obj, c in card_res.counts.items()))
-    return {"launches": launches, "objects": result.objects, "counts": card_res.counts}
+    return {"launches": launches, "objects": result.objects, "counts": card_res.counts,
+            "sites_per_s": n / batch_s}
 
 
 def print_stages(card: str, stages: dict) -> None:
@@ -1806,7 +1849,7 @@ def phase_qc(torch, pipeline, desc3, data, qc_ops, card) -> None:
 
 
 def phase_chain(torch, ops, pipeline, benchmarks, description, data, wrappers, card,
-                on_chip) -> None:
+                on_chip) -> float:
     """corilla -> config 3 with ``correct: true``: corilla's statistics of
     config 3's 64 DAPI and Actin sites computed on the card (the step's
     order; held against the CPU's), config 3 with both channels corrected
@@ -1865,6 +1908,352 @@ def phase_chain(torch, ops, pipeline, benchmarks, description, data, wrappers, c
           f"|card - cpu| {corr_err:.3g}, {corr_share:.3g} of the tier); label pixels that "
           f"differ from the CPU pipeline corrected on the CPU with the card's statistics: {differ} "
           f"({'equal' if not any(differ.values()) else 'see ROADMAP C'})")
+    return run["sites_per_s"]
+
+
+def phase_steps(torch, wrappers, card, on_chip, chain_sps: float) -> None:
+    """The store-bound steps on the card (BASELINE config 3 corrected and
+    aligned, run as a user runs it): one 96-well plate at 2x2 sites of
+    256x256 (384 sites, DAPI and Actin; cycle 1 is cycle 0 with each site
+    rolled within +-40) written with ``ExperimentStore.write_sites`` under
+    ``build/``; ``corilla``, ``align`` (ref_cycle 0) and ``jterator``
+    (cycle 1, both channels ``correct: true`` and ``align: true`` from a
+    ``.pipe.json``, batches of 64, ``max_objects=256``,
+    ``object_buckets="auto"``) through their own verbs on ``cuda``, the
+    jterator step (``init``, ``run_batches_pipelined`` at the default
+    depth, ``collect``) with the launch counters set to 0 just before and
+    read just after; a warm pass over a fresh root; then the CPU hold:
+    corilla and align on ``device="cpu"`` over a copy of the images, and
+    jterator batches :data:`CPU_BATCHES` on the CPU over the card's
+    statistics and shifts, held by site index against the card's store.
+    The directory is removed at the end."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks, capacity
+    from tmlibrary_tpu_torch.models.experiment import grid_experiment
+    from tmlibrary_tpu_torch.models.mapobject import MapobjectTypeRegistry
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import get_step
+
+    base = Path(__file__).resolve().parent / "build" / f"phase5.{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        exp = grid_experiment("phase5", well_rows=PLATE[0], well_cols=PLATE[1],
+                              sites_per_well=SITES_PER_WELL, channel_names=("DAPI", "Actin"),
+                              site_shape=(SIZE, SIZE), n_cycles=2)
+        n = exp.n_sites
+        data = benchmarks.synthetic_cell_painting_batch(n, size=SIZE, seed=SEED)
+        drift = np.random.default_rng(SEED + 8).integers(-MAX_DRIFT, MAX_DRIFT + 1, (n, 2))
+        store = ExperimentStore.create(base / "card", exp)
+        for c, ch in enumerate(("DAPI", "Actin")):
+            px = data[ch].astype(np.uint16)
+            store.write_sites(px, list(range(n)), cycle=0, channel=c)
+            store.write_sites(np.stack([np.roll(s, tuple(d), axis=(0, 1))
+                                        for s, d in zip(px, drift)]),
+                              list(range(n)), cycle=1, channel=c)
+        del data
+        pipe = dict(benchmarks.CELL_PAINTING_PIPE)
+        pipe["input"] = {"channels": [{"name": ch, "correct": True, "align": True}
+                                      for ch in ("DAPI", "Actin")]}
+        (store.root / "cp.pipe.json").write_text(json.dumps(pipe))
+        setup_s = time.perf_counter() - t0
+        print(f"phase 5: the steps over a store of {n} sites ({PLATE[0]}x{PLATE[1]} wells at "
+              f"{SITES_PER_WELL[0]}x{SITES_PER_WELL[1]} sites of {SIZE}x{SIZE}, DAPI and Actin, "
+              f"2 cycles; written in {setup_s:.2f} s) on {card}")
+
+        # corilla and align on the card
+        steps = {name: get_step(name)(store) for name in ("corilla", "align")}
+        for name, step in steps.items():
+            if step.device.type != "cuda":
+                raise SmokeFailure(f"steps: {name} runs on {step.device}")
+        corilla = steps["corilla"]
+        corilla.init({})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in corilla.list_batches():
+            corilla.run(i)
+        corilla_s = time.perf_counter() - t0
+        n_channels = len(corilla.list_batches())
+        align = steps["align"]
+        align.init({"ref_cycle": 0, "batch_size": STEP_BATCH})
+        t0 = time.perf_counter()
+        for i in align.list_batches():
+            align.run(i)
+        align_s = time.perf_counter() - t0
+        n_align = len(align.list_batches())
+        window = align.collect()["window"]
+        if not np.array_equal(store.read_shifts(1), -drift):
+            raise SmokeFailure("steps: align's shifts differ from the known drift")
+        print(f"  corilla step: {n_channels} channels of {n} sites in {corilla_s:.3f} s = "
+              f"{n_channels / corilla_s:.2f} channels/s; align step: {n_align} batches of "
+              f"{STEP_BATCH} pairs in {align_s:.3f} s = {align_s / n_align * 1e3:.2f} ms per "
+              f"batch, shifts exact against the known drift, window {window}; on {card}")
+
+        # jterator on the card: the main path of this phase
+        args = {"pipe": "cp.pipe.json", "cycle": 1, "batch_size": STEP_BATCH,
+                "max_objects": MAX_OBJECTS, "object_buckets": "auto"}
+        capacity.reset_routing_history()
+        run = run_jterator_step(torch, get_step, store, args, wrappers)
+        launches, results, collected = run["launches"], run["results"], run["collected"]
+        jt = run["step"]
+        n_launched = len(results) + sum(r.get("bucket_escalations", 0) for r in results)
+        want = {"fill_holes_flood": n_launched, "cc_min_propagate": n_launched,
+                "watershed_flood": n_launched, "grouped_stats": 2 * n_launched}
+        print(f"  jterator step: launches {launches} over {len(results)} batches and "
+              f"{n_launched - len(results)} escalation re-launches")
+        for k, count in want.items():
+            if launches[k] != count:
+                raise SmokeFailure(f"steps: {k} launched {launches[k]} times, expected {count}")
+        for k, route in on_chip.items():
+            taken = {r: c for r, c in wrappers[k].routes.items() if c}
+            if taken != {route: launches[k]}:
+                raise SmokeFailure(f"steps: {k} routes {taken}, expected all on {route}")
+        site = wrappers["watershed_flood"].site_routes
+        if site is None or bool((site != 0).any()):
+            raise SmokeFailure(f"steps: watershed_flood sites off chip: {site}")
+        registry = MapobjectTypeRegistry(store.root).names()
+        if registry != ["cells", "nuclei"]:
+            raise SmokeFailure(f"steps: mapobject types {registry}")
+        for name in ("nuclei", "cells"):
+            persisted = sum(r["objects"][name] for r in results)
+            rows = len(store.read_features(name)["label"])
+            if not collected["objects_total"][name] == persisted == rows:
+                raise SmokeFailure(f"steps: {name} objects_total "
+                                   f"{collected['objects_total'][name]}, persisted {persisted}, "
+                                   f"feature rows {rows}")
+        labels = store.read_labels(None, "nuclei")
+        top, left = window["top"], window["left"]
+        if labels.max() < 1 or labels[:, :top].any() or labels[:, :, :left].any():
+            raise SmokeFailure("steps: nuclei labels empty or outside the window")
+        print_step_run(run, n, card, chain_sps, "cold router, fresh process history")
+        reads_s = sum_reads(jt)
+        persist_s = run["stats"]["phases"].get("persist", {}).get("total_s", 0.0)
+        print(f"  jterator step IO: store reads timed alone {reads_s:.3f} s, persist (on the "
+              f"worker) {persist_s:.3f} s = {(reads_s + persist_s) / run['seconds']:.1%} of the "
+              f"step's {run['seconds']:.3f} s (they overlap the device; an upper bound)")
+        print("  host syncs inside one launch_batch (torch.cuda sync debug mode): "
+              + syncs_in_launch(torch, jt))
+
+        # a warm pass over a fresh root (kernels built, the routing history
+        # warm, so a packed plan), then object_buckets="off": both stores
+        # must be the cold run's, bit for bit
+        for title, run_args in (("warm pass, fresh root, packed plan", args),
+                                ('object_buckets="off"', {**args, "object_buckets": "off"})):
+            for name in ("images", "illumstats", "alignment"):
+                copy_part(store.root, base / "again", name)
+            again = ExperimentStore.open(base / "again")
+            (again.root / "cp.pipe.json").write_text(json.dumps(pipe))
+            print_step_run(run_jterator_step(torch, get_step, again, run_args, wrappers), n,
+                           card, chain_sps, title)
+            same_store(again, store, title)
+            shutil.rmtree(base / "again")
+
+        hold_steps_on_cpu(torch, store, base, pipe, args, card)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def same_store(a, b, title: str) -> None:
+    """Labels and feature shards of ``a`` bit for bit those of ``b``."""
+    import numpy as np
+
+    for name in ("nuclei", "cells"):
+        if not np.array_equal(a.read_labels(None, name), b.read_labels(None, name)):
+            raise SmokeFailure(f"steps ({title}): {name} labels differ from the cold run")
+        fa, fb = (rows_of_sites(s.read_features(name), range(s.n_sites)) for s in (a, b))
+        if list(fa) != list(fb) or any(not np.array_equal(fa[k], fb[k]) for k in fa):
+            raise SmokeFailure(f"steps ({title}): {name} features differ from the cold run")
+
+
+def copy_part(src: Path, dst: Path, part: str) -> None:
+    """``src/part`` into the store at ``dst``, created from ``src``'s
+    manifest when absent (the store's layout)."""
+    if not (dst / "manifest.json").exists():
+        dst.mkdir(parents=True, exist_ok=True)
+        shutil.copy(src / "manifest.json", dst / "manifest.json")
+        for sub in ("images", "illumstats", "segmentations", "features", "alignment",
+                    "pyramids", "workflow", "tools"):
+            (dst / sub).mkdir(exist_ok=True)
+    shutil.rmtree(dst / part)
+    shutil.copytree(src / part, dst / part)
+
+
+def run_jterator_step(torch, get_step, store, args, wrappers) -> dict:
+    """``init``, ``run_batches_pipelined`` at the default depth and
+    ``collect`` of the jterator step on the card, on one clock, with every
+    launch counter set to 0 just before and read just after."""
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "routes"):
+            w.routes = dict.fromkeys(w.routes, 0)
+    t0 = time.perf_counter()
+    jt = get_step("jterator")(store)
+    jt.init(args)
+    batches = [jt.load_batch(i) for i in jt.list_batches()]
+    results = [r for _, r in jt.run_batches_pipelined(batches)]
+    collected = jt.collect()
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if jt.device.type != "cuda":
+        raise SmokeFailure(f"steps: jterator runs on {jt.device}")
+    return {"step": jt, "results": results, "collected": collected, "seconds": seconds,
+            "launches": launches, "stats": jt.pipeline_stats,
+            "per_batch": jt.pipeline_batch_times}
+
+
+def print_step_run(run, n, card, chain_sps, title) -> None:
+    """Sites/s of one jterator step run, the executor's phase totals, each
+    batch's dispatch and device block, and the rungs routed."""
+    import collections
+
+    results, stats = run["results"], run["stats"]
+    rungs = collections.Counter(r["bucket_capacity"] for r in results)
+    escalations = sum(r.get("bucket_escalations", 0) for r in results)
+    phases = ", ".join(f"{k} {v['total_s']:.3f}" for k, v in stats["phases"].items())
+    print(f"  jterator step ({title}): {n} sites in {run['seconds']:.3f} s = "
+          f"{n / run['seconds']:.1f} sites/s end to end (init + pipelined run + collect; "
+          f"phase 4's in-memory chain {chain_sps:.1f} sites/s in this call) on {card}")
+    print(f"    executor at depth {stats['depth']} ({stats['source']}), totals (s): {phases}; "
+          f"rungs routed {dict(sorted(rungs.items()))}, escalations {escalations}")
+    print("    per batch (ms) dispatch/device block: " + ", ".join(
+        f"{b}: {t.get('dispatch', 0) * 1e3:.1f}/{t.get('device_block', 0) * 1e3:.1f}"
+        for b, t in run["per_batch"].items()))
+
+
+def sum_reads(jt) -> float:
+    """Seconds of the step's store reads for every batch, timed alone."""
+    t0 = time.perf_counter()
+    for i in jt.list_batches():
+        jt._load_inputs(jt._effective_batch(jt.load_batch(i)))
+    return time.perf_counter() - t0
+
+
+def syncs_in_launch(torch, jt) -> str:
+    """Where one ``launch_batch`` (inputs already read) makes the host wait
+    for the card, as PyTorch's sync debug mode reports it: for each
+    report inside the port, its innermost line on the stack, with their
+    counts."""
+    import collections
+    import traceback
+    import warnings
+
+    batch = jt._effective_batch(jt.load_batch(0))
+    inputs = jt._load_inputs(batch)
+    root = Path(__file__).resolve().parent
+    package = root / "tmlibrary_tpu_torch"
+    where = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message).lower():
+            return
+        port = [f for f in traceback.extract_stack()
+                if Path(f.filename).resolve().is_relative_to(package)]
+        if port:  # the innermost line of the port: the op that waited
+            where[f"{Path(port[-1].filename).resolve().relative_to(root)}:"
+                  f"{port[-1].lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _, ctx = jt.launch_batch(batch, inputs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    jt.block_batch(ctx)
+    return (", ".join(f"{k} x{v}" for k, v in sorted(where.items()))
+            or "none reported") + f" ({sum(where.values())} in all)"
+
+
+def hold_steps_on_cpu(torch, store, base, pipe, args, card) -> None:
+    """The CPU hold: corilla and align with ``device="cpu"`` over a copy of
+    the card store's images (statistics by :data:`STATS_TIERS`, ``n`` and
+    percentiles exact; shifts and window exact), then, over the card's
+    statistics and shifts, jterator batches :data:`CPU_BATCHES` on the CPU
+    (``Step.run``): their sites' labels equal the card's and their feature
+    rows hold by :data:`CARD_TIERS`, site by site (the card's
+    routing history may pack the CPU's batches differently)."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import get_step
+
+    copy_part(store.root, base / "cpu", "images")
+    cpu = ExperimentStore.open(base / "cpu")
+    (cpu.root / "cp.pipe.json").write_text(json.dumps(pipe))
+    t0 = time.perf_counter()
+    corilla = get_step("corilla")(cpu, device="cpu")
+    corilla.init({})
+    for i in corilla.list_batches():
+        corilla.run(i)
+    align = get_step("align")(cpu, device="cpu")
+    align.init({"ref_cycle": 0, "batch_size": STEP_BATCH})
+    for i in align.list_batches():
+        align.run(i)
+    cpu_window = align.collect()["window"]
+    prep_s = time.perf_counter() - t0
+    errs = {}
+    for cycle in range(2):
+        for ch in range(2):
+            got, want = store.read_illumstats(cycle, ch), cpu.read_illumstats(cycle, ch)
+            if list(got) != list(want):
+                raise SmokeFailure(f"steps: illumstats fields {list(got)} vs {list(want)}")
+            for k in ("n", "percentile_keys", "percentile_values"):
+                hold_tier(f"steps.corilla[{cycle},{ch}].{k}", torch.from_numpy(got[k]),
+                          torch.from_numpy(want[k]), _EXACT)
+            for k, tier in STATS_TIERS.items():
+                errs[k] = max(errs.get(k, 0.0), hold_tier(
+                    f"steps.corilla[{cycle},{ch}].{k}", torch.from_numpy(got[k]),
+                    torch.from_numpy(want[k]), tier))
+    if not np.array_equal(store.read_shifts(1), cpu.read_shifts(1)) or \
+            cpu_window != store.read_intersection():
+        raise SmokeFailure("steps: the CPU's shifts or window differ from the card's")
+
+    for part in ("illumstats", "alignment"):
+        copy_part(store.root, cpu.root, part)
+    t0 = time.perf_counter()
+    jt = get_step("jterator")(cpu, device="cpu")
+    jt.init(args)
+    sites = []
+    for i in CPU_BATCHES:
+        jt.run(i)
+        sites += list(jt.load_batch(i)["sites"])
+    cpu_s = time.perf_counter() - t0
+    worst = {}
+    for name in ("nuclei", "cells"):
+        if not np.array_equal(cpu.read_labels(sites, name), store.read_labels(sites, name)):
+            raise SmokeFailure(f"steps: the CPU's {name} labels differ from the card's")
+        got, want = (rows_of_sites(s.read_features(name), sites) for s in (store, cpu))
+        if list(got) != list(want):
+            raise SmokeFailure(f"steps: {name} feature columns differ")
+        for k in ("site_index", "label", "well_row", "well_col", "site_y", "site_x"):
+            if not np.array_equal(got[k], want[k]):
+                raise SmokeFailure(f"steps: {name} rows differ in {k}")
+        for k, v in got.items():
+            if v.dtype.kind != "f":
+                continue
+            rtol, atol = feature_tier(k, CARD_TIERS)
+            np.testing.assert_allclose(v, want[k], rtol=rtol, atol=atol, err_msg=f"{name}/{k}")
+            if v.size:
+                worst[k] = max(worst.get(k, 0.0), float(np.abs(v - want[k]).max()))
+    print(f"  CPU hold: corilla and align on the CPU in {prep_s:.2f} s: n, percentiles exact, "
+          "largest |card - cpu| " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; shifts and window exact; jterator batches {list(CPU_BATCHES)} on the CPU "
+          f"({len(sites)} sites, {cpu_s:.2f} s) over the card's statistics and shifts: labels "
+          "equal, features within CARD_TIERS, largest |card - cpu| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+
+
+def rows_of_sites(table: dict, sites) -> dict:
+    """The feature rows of ``sites``, ordered by (site_index, label)."""
+    import numpy as np
+
+    keep = np.isin(table["site_index"], np.asarray(sites))
+    order = np.lexsort((table["label"][keep], table["site_index"][keep]))
+    return {k: v[keep][order] for k, v in table.items()}
 
 
 def feature_tier(name: str, tiers: dict = FEATURE_TIERS) -> tuple[float, float]:

@@ -1,0 +1,497 @@
+"""The port's corilla -> align -> jterator steps (sites layout) against
+the JAX package's, end to end over an experiment store.
+
+One store (a 2x2-well plate at 2x2 sites of 64x64, DAPI and Actin, two
+cycles; cycle 1 is cycle 0 rolled by a seeded drift within +-6) is
+copied twice; the reference's steps (JAX on the CPU) run over one copy,
+the port's (``device="cpu"``) over the other, with config 3's pipeline
+corrected and aligned from a ``.pipe.json``: illumination statistics by
+``STATS_TIERS`` (``n`` and percentiles exact), shifts and windows exact,
+label stacks identical, feature rows in (site_index, label) order by
+``CORRECTED_FEATURE_TIERS`` (the corrected pixels differ within
+``CORRECTION_TIER``; the same pipeline aligned but not corrected holds by
+``FEATURE_TIERS``), ``collect`` and the mapobject types equal.  Then the
+port's jterator over the reference's statistics and shifts, bucket
+settings and pipeline depths, auto-resegmentation from a cap of 4, the
+window pad-back against the reference's, and the refusals.
+"""
+
+import json
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import CORRECTED_FEATURE_TIERS, FEATURE_TIERS, STATS_TIERS, feature_tier
+from tmlibrary_tpu.models.store import ExperimentStore as JStore
+from tmlibrary_tpu.workflow.registry import get_step as j_get_step
+from tmlibrary_tpu.workflow.steps.jterator import ImageAnalysisRunner as JRunner
+from tmlibrary_tpu_torch import benchmarks, capacity
+from tmlibrary_tpu_torch.errors import NotSupportedError
+from tmlibrary_tpu_torch.jterator.description import PipelineDescription
+from tmlibrary_tpu_torch.jterator.pipeline import ImageAnalysisPipeline
+from tmlibrary_tpu_torch.models.experiment import grid_experiment
+from tmlibrary_tpu_torch.models.store import ExperimentStore
+from tmlibrary_tpu_torch.workflow import get_step
+from tmlibrary_tpu_torch.workflow.steps.jterator import feature_table, to_site_frame
+
+torch.set_num_threads(1)
+
+SIZE, N_SITES, DRIFT = 64, 16, 6
+CORILLA = {"chunk_size": 6, "n_devices": 1}
+ALIGN = {"batch_size": 4}
+#: two rungs under a few objects a site, so a cold router escalates
+JTERATOR = {"pipe": "cp.pipe.json", "cycle": 1, "batch_size": 4, "max_objects": 64,
+            "n_devices": 1, "object_buckets": "2,4"}
+
+
+@pytest.fixture(autouse=True)
+def _cold_port_router():
+    capacity.reset_routing_history()
+    yield
+    capacity.reset_routing_history()
+
+
+def corrected_aligned_pipe(morphology: bool = False, correct: bool = True) -> dict:
+    pipe = dict(benchmarks.CELL_PAINTING_PIPE)
+    correct = correct and not morphology
+    pipe["input"] = {"channels": [{"name": "DAPI", "correct": correct, "align": True},
+                                  {"name": "Actin", "correct": correct, "align": True}]}
+    if morphology:
+        pipe["pipeline"] = pipe["pipeline"] + [{"handles": {
+            "module": "measure_morphology",
+            "input": [{"name": "objects_image", "type": "LabelImage", "key": "nuclei"}],
+            "output": [{"name": "measurements", "type": "Measurement",
+                        "objects": "nuclei"}]}}]
+    return pipe
+
+
+def make_store(root) -> ExperimentStore:
+    exp = grid_experiment("wf", well_rows=2, well_cols=2, sites_per_well=(2, 2),
+                          channel_names=("DAPI", "Actin"), site_shape=(SIZE, SIZE),
+                          n_cycles=2)
+    st = ExperimentStore.create(root, exp)
+    data = benchmarks.synthetic_cell_painting_batch(N_SITES, size=SIZE, n_cells=10, seed=0)
+    drift = np.random.default_rng(1).integers(-DRIFT, DRIFT + 1, (N_SITES, 2))
+    for c, name in enumerate(("DAPI", "Actin")):
+        px = data[name].astype(np.uint16)
+        st.write_sites(px, list(range(N_SITES)), cycle=0, channel=c)
+        rolled = np.stack([np.roll(s, tuple(d), axis=(0, 1)) for s, d in zip(px, drift)])
+        st.write_sites(rolled, list(range(N_SITES)), cycle=1, channel=c)
+    (st.root / "cp.pipe.json").write_text(json.dumps(corrected_aligned_pipe()))
+    (st.root / "morph.pipe.json").write_text(json.dumps(corrected_aligned_pipe(True)))
+    (st.root / "raw.pipe.json").write_text(json.dumps(corrected_aligned_pipe(correct=False)))
+    return st
+
+
+def copy_store(src, dst, parts=("images",)):
+    dst.mkdir(parents=True)
+    shutil.copy(src / "manifest.json", dst / "manifest.json")
+    for f in src.glob("*.pipe.json"):
+        shutil.copy(f, dst / f.name)
+    for sub in ("images", "illumstats", "segmentations", "features", "alignment",
+                "pyramids", "workflow", "tools"):
+        if sub in parts:
+            shutil.copytree(src / sub, dst / sub)
+        else:
+            (dst / sub).mkdir()
+
+
+def run_steps(get, store, jterator_args, device=None, depth=None, sequential=False):
+    """corilla -> align -> jterator through each step's own verbs; returns
+    the jterator batch summaries and collect summary."""
+    kw = {} if device is None else {"device": device}
+    for name, args in (("corilla", CORILLA), ("align", ALIGN)):
+        step = get(name)(store, **kw)
+        step.init(args)
+        for i in step.list_batches():
+            step.run(i)
+        if name == "align":
+            step.collect()
+    return run_jterator(get, store, jterator_args, kw, depth, sequential)
+
+
+def run_jterator(get, store, args, kw, depth=None, sequential=False):
+    jt = get("jterator")(store, **kw)
+    jt.init(args)
+    if sequential:
+        results = [jt.run(i) for i in jt.list_batches()]
+    else:
+        batches = [jt.load_batch(i) for i in jt.list_batches()]
+        results = [r for _, r in jt.run_batches_pipelined(batches, depth=depth)]
+    return results, jt.collect()
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    base = tmp_path_factory.mktemp("wf")
+    make_store(base / "src")
+    copy_store(base / "src", base / "ref")
+    copy_store(base / "src", base / "port")
+    j_capacity_reset()
+    ref_store = JStore.open(base / "ref")
+    # batch by batch: routing then follows the persisted peaks in batch
+    # order on both sides, so the summaries compare too
+    ref = run_steps(j_get_step, ref_store, JTERATOR, sequential=True)
+    j_capacity_reset()
+    port_store = ExperimentStore.open(base / "port")
+    port = run_steps(get_step, port_store, JTERATOR, device="cpu", sequential=True)
+    # the same pipeline aligned but not corrected, on copies of both
+    raw = {**JTERATOR, "pipe": "raw.pipe.json"}
+    stores = {}
+    for name, src, get, kw, store_cls in (
+            ("ref_raw", base / "ref", j_get_step, {}, JStore),
+            ("port_raw", base / "port", get_step, {"device": "cpu"}, ExperimentStore)):
+        copy_store(src, base / name, parts=("images", "illumstats", "alignment"))
+        stores[name] = store_cls.open(base / name)
+        j_capacity_reset()
+        capacity.reset_routing_history()
+        run_jterator(get, stores[name], raw, kw)
+    capacity.reset_routing_history()
+    return {"base": base, "ref_store": ref_store, "port_store": port_store,
+            "ref": ref, "port": port, **stores}
+
+
+def j_capacity_reset():
+    from tmlibrary_tpu import capacity as j_capacity
+
+    j_capacity.reset_routing_history()
+
+
+def sorted_rows(table) -> tuple[np.ndarray, dict]:
+    """Row order by (site_index, label) of a pandas frame or a dict of
+    columns, and the columns in that order."""
+    cols = {k: np.asarray(table[k]) for k in table}
+    order = np.lexsort((cols["label"], cols["site_index"]))
+    return order, {k: v[order] for k, v in cols.items()}
+
+
+def assert_same_features(ref_frame, port_cols, tiers=CORRECTED_FEATURE_TIERS):
+    _, want = sorted_rows(ref_frame)
+    _, got = sorted_rows(port_cols)
+    assert list(got) == list(ref_frame.columns)
+    for k in ("site_index", "well_row", "well_col", "site_y", "site_x", "label"):
+        np.testing.assert_array_equal(got[k], want[k].astype(np.int64), err_msg=k)
+        assert got[k].dtype == np.int64
+    assert got["plate"].tolist() == [str(p) for p in want["plate"]]
+    for k in got:
+        if k in ("site_index", "plate", "well_row", "well_col", "site_y", "site_x", "label"):
+            continue
+        assert got[k].dtype == np.float64
+        rtol, atol = feature_tier(k, tiers)
+        np.testing.assert_allclose(got[k], want[k].astype(np.float64), rtol=rtol, atol=atol,
+                                   err_msg=k)
+
+
+def assert_same_labels(a, b, names=("nuclei", "cells")):
+    for name in names:
+        x, y = a.read_labels(None, name), b.read_labels(None, name)
+        assert x.dtype == y.dtype == np.int32
+        np.testing.assert_array_equal(x, y, err_msg=name)
+
+
+# ---------------------------------------------------------- end to end
+def test_corilla_matches_the_reference(runs):
+    ref, port = runs["ref_store"], runs["port_store"]
+    for cycle in range(2):
+        for ch in range(2):
+            a, b = port.read_illumstats(cycle, ch), ref.read_illumstats(cycle, ch)
+            assert list(a) == list(b)
+            for k in ("n", "percentile_keys", "percentile_values"):
+                assert a[k].dtype == b[k].dtype
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+            for k, (rtol, atol) in STATS_TIERS.items():
+                assert a[k].dtype == b[k].dtype == np.float32
+                np.testing.assert_allclose(a[k], b[k], rtol=rtol, atol=atol, err_msg=k)
+            assert int(a["n"]) == N_SITES
+
+
+def test_align_matches_the_reference(runs):
+    ref, port = runs["ref_store"], runs["port_store"]
+    a, b = port.read_shifts(1), ref.read_shifts(1)
+    assert a.dtype == b.dtype == np.int32
+    np.testing.assert_array_equal(a, b)
+    drift = np.random.default_rng(1).integers(-DRIFT, DRIFT + 1, (N_SITES, 2))
+    np.testing.assert_array_equal(a, -drift)
+    assert port.read_intersection() == ref.read_intersection()
+    assert not port.has_shifts(0)
+
+
+def test_jterator_labels_and_features_match_the_reference(runs):
+    ref, port = runs["ref_store"], runs["port_store"]
+    assert_same_labels(port, ref)
+    for name in ("nuclei", "cells"):
+        assert_same_features(ref.read_features(name), port.read_features(name))
+    assert_same_labels(runs["port_raw"], runs["ref_raw"])
+    for name in ("nuclei", "cells"):
+        assert_same_features(runs["ref_raw"].read_features(name),
+                             runs["port_raw"].read_features(name), FEATURE_TIERS)
+    # the window crop: labels outside the intersection were padded back
+    w = port.read_intersection()
+    lab = port.read_labels(None, "nuclei")
+    assert not lab[:, : w["top"]].any() and not lab[:, :, : w["left"]].any()
+    assert lab.max() > 0
+
+
+def test_jterator_summaries_and_collect_match_the_reference(runs):
+    (ref_results, ref_collect), (port_results, port_collect) = runs["ref"], runs["port"]
+    assert port_results == ref_results
+    assert port_collect == ref_collect
+    types = "mapobject_types.json"
+    assert json.loads((runs["port_store"].root / types).read_text()) == \
+        json.loads((runs["ref_store"].root / types).read_text())
+    assert port_collect["objects_total"]["nuclei"] == sum(
+        r["objects"]["nuclei"] for r in port_results)
+    # a cold router starts at the smallest rung and escalates
+    assert {r["bucket_capacity"] for r in port_results} >= {4, 64}
+    assert sum(r.get("bucket_escalations", 0) for r in port_results) >= 1
+
+
+def test_jterator_over_the_reference_statistics_and_shifts(runs, tmp_path):
+    """Cross-backend state: the port's jterator over illumination
+    statistics and shifts that the reference's corilla and align wrote
+    gives the reference's labels."""
+    src = runs["ref_store"].root
+    copy_store(src, tmp_path / "x", parts=("images", "illumstats", "alignment"))
+    st = ExperimentStore.open(tmp_path / "x")
+    run_jterator(get_step, st, JTERATOR, {"device": "cpu"})
+    assert_same_labels(st, runs["ref_store"])
+    for name in ("nuclei", "cells"):
+        assert_same_features(runs["ref_store"].read_features(name), st.read_features(name))
+
+
+@pytest.mark.parametrize("buckets,depth,sequential", [
+    ("off", None, False), ("auto", 1, False), ("auto", 3, False), ("8,32", None, False),
+    ("auto", None, True), ("2,4", 2, False),
+])
+def test_bucket_settings_and_depths_write_identical_stores(runs, tmp_path, buckets, depth,
+                                                           sequential):
+    copy_store(runs["port_store"].root, tmp_path / "x",
+               parts=("images", "illumstats", "alignment"))
+    st = ExperimentStore.open(tmp_path / "x")
+    results, summary = run_jterator(get_step, st, {**JTERATOR, "object_buckets": buckets},
+                                    {"device": "cpu"}, depth=depth, sequential=sequential)
+    assert_same_labels(st, runs["port_store"])
+    for name in ("nuclei", "cells"):
+        a, b = st.read_features(name), runs["port_store"].read_features(name)
+        assert list(a) == list(b)
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    summary.pop("pipeline_stats", None)
+    assert summary == runs["port"][1]
+    # which rung a batch ran at depends on when the peaks before it were
+    # persisted; what it found does not
+    keep = ("n_sites", "objects", "saturated")
+    assert [{k: r[k] for k in keep if k in r} for r in results] == \
+        [{k: r[k] for k in keep if k in r} for r in runs["port"][0]]
+    caps = {r["bucket_capacity"] for r in results}
+    if buckets == "off":
+        assert caps == {64}
+    elif buckets == "8,32":
+        assert caps <= {8, 32, 64}
+
+
+def test_a_second_init_packs_from_history_like_the_reference(runs, tmp_path):
+    """After a run, ``init`` harvests the persisted per-site counts and
+    packs rung-homogeneous batches: the plan's sites, rungs and
+    predictions equal the reference's, and the store is unchanged."""
+    copy_store(runs["port_store"].root, tmp_path / "p",
+               parts=("images", "illumstats", "alignment", "features", "segmentations"))
+    copy_store(runs["ref_store"].root, tmp_path / "r",
+               parts=("images", "illumstats", "alignment", "features", "segmentations"))
+    port = get_step("jterator")(ExperimentStore.open(tmp_path / "p"), device="cpu")
+    ref = j_get_step("jterator")(JStore.open(tmp_path / "r"))
+    port.init(JTERATOR)
+    ref.init(JTERATOR)
+    plan = json.loads((port.step_dir / "schedule_plan.json").read_text())
+    ref_plan = json.loads((ref.step_dir / "schedule_plan.json").read_text())
+    keep = ("sites", "predicted", "rung", "shard_work", "shard_work_naive")
+    assert [{k: b[k] for k in keep} for b in plan["batches"]] == \
+        [{k: b[k] for k in keep} for b in ref_plan["batches"]]
+    assert plan["history"] == ref_plan["history"] and plan["ladder"] == ref_plan["ladder"]
+    assert [port.load_batch(i)["sites"] for i in port.list_batches()] == \
+        [ref.load_batch(i)["sites"] for i in ref.list_batches()]
+    for i in port.list_batches():
+        port.run(i)
+    assert_same_labels(port.store, runs["port_store"])
+
+
+def test_auto_resegment_from_a_cap_of_four_matches_the_reference(runs, tmp_path):
+    args = {**JTERATOR, "max_objects": 4}
+    copy_store(runs["ref_store"].root, tmp_path / "r",
+               parts=("images", "illumstats", "alignment"))
+    copy_store(runs["ref_store"].root, tmp_path / "p",
+               parts=("images", "illumstats", "alignment"))
+    j_capacity_reset()
+    ref = JStore.open(tmp_path / "r")
+    ref_results, ref_collect = run_jterator(j_get_step, ref, args, {}, sequential=True)
+    port = ExperimentStore.open(tmp_path / "p")
+    port_results, port_collect = run_jterator(get_step, port, args, {"device": "cpu"},
+                                              sequential=True)
+    assert any("saturated" in r for r in port_results)
+    assert port_results == ref_results
+    assert port_collect == ref_collect
+    assert port_collect["resegmented"] and "saturated_sites" not in port_collect
+    step_dir = "workflow/jterator"
+    for f in ("cap_overrides.json", "saturation.json"):
+        assert json.loads((port.root / step_dir / f).read_text()) == \
+            json.loads((ref.root / step_dir / f).read_text())
+    assert_same_labels(port, ref)
+    for name in ("nuclei", "cells"):
+        assert_same_features(ref.read_features(name), port.read_features(name))
+    # the full-cap run's store: the resegmented batches now hold every object
+    assert_same_labels(port, runs["ref_store"])
+
+
+# ------------------------------------------------------------ pieces
+def test_window_pad_back_and_centroid_shift_match_the_reference(runs, tmp_path):
+    """The reference persists morphology (with its host-side solidity) in
+    the site frame; the port's pipeline on the same cropped inputs, put
+    back through :func:`to_site_frame`, gives its labels and centroids."""
+    copy_store(runs["ref_store"].root, tmp_path / "r", parts=("images", "alignment"))
+    ref = JStore.open(tmp_path / "r")
+    args = {**JTERATOR, "pipe": "morph.pipe.json", "object_buckets": "off"}
+    run_jterator(j_get_step, ref, args, {})
+    w = ref.read_intersection()
+    window = (w["top"], w["bottom"], w["left"], w["right"])
+    assert window != (0, 0, 0, 0)
+    port = ExperimentStore.open(tmp_path / "r")
+    desc = PipelineDescription.load(port.root / "morph.pipe.json")
+    fn = ImageAnalysisPipeline(desc, 64, device="cpu").build_batch_fn(window)
+    sites = list(range(N_SITES))
+    raw = {ch: torch.from_numpy(port.read_sites(sites, cycle=1, channel=i))
+           for i, ch in enumerate(("DAPI", "Actin"))}
+    res = fn(raw, {}, torch.from_numpy(port.read_shifts(1)))
+    objects = {k: v.numpy() for k, v in res.objects.items()}
+    meas = {o: {f: v.numpy() for f, v in feats.items()} for o, feats in res.measurements.items()}
+    cropped_cy = meas["nuclei"]["Morphology_centroid_y"].copy()
+    objects, meas = to_site_frame(objects, meas, window)
+    assert objects["nuclei"].shape == (N_SITES, SIZE, SIZE)
+    np.testing.assert_array_equal(objects["nuclei"], ref.read_labels(None, "nuclei"))
+    np.testing.assert_array_equal(objects["cells"], ref.read_labels(None, "cells"))
+    assert meas["nuclei"]["Morphology_centroid_y"].dtype == np.float32
+    np.testing.assert_array_equal(meas["nuclei"]["Morphology_centroid_y"],
+                                  cropped_cy + np.float32(window[0]))
+    frame = ref.read_features("nuclei")
+    _, want = sorted_rows(frame)
+    counts = res.counts["nuclei"].numpy()
+    for axis in ("y", "x"):
+        got = np.concatenate([meas["nuclei"][f"Morphology_centroid_{axis}"][b, :c]
+                              for b, c in enumerate(counts)])
+        rtol, atol = feature_tier(f"Morphology_centroid_{axis}", FEATURE_TIERS)
+        np.testing.assert_allclose(got, want[f"Morphology_centroid_{axis}"], rtol=rtol,
+                                   atol=atol)
+    # volumes pad their last two axes; no window is the identity
+    vol = np.ones((2, 3, 5, 4), np.int32)
+    padded, _ = to_site_frame({"v": vol}, {}, (1, 2, 3, 4))
+    assert padded["v"].shape == (2, 3, 8, 11) and padded["v"][:, :, 1:6, 3:7].all()
+    assert to_site_frame({"v": vol}, {"v": {}}, None)[0]["v"] is vol
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_feature_table_equals_the_reference_rows(seed):
+    rng = np.random.default_rng(seed)
+    b, m = 5, 8
+    counts = rng.integers(0, m + 3, b)
+    counts[0] = 0
+    feats = {"Intensity_sum_DAPI": rng.normal(size=(b, m)).astype(np.float32),
+             "Intensity_max_DAPI": rng.integers(0, 9, (b, m)).astype(np.float32)}
+    feats["Intensity_sum_DAPI"][1, 0] = np.nan
+    meta = [{"site_index": s, "plate": f"plate{s % 2:02d}", "well_row": s // 3,
+             "well_col": s % 3, "site_y": 1, "site_x": s % 2} for s in (7, 2, 9, 0, 4)]
+    got = feature_table(counts, feats, meta, m)
+    want = JRunner._feature_table("nuclei", counts, feats, meta, m)
+    assert list(got) == list(want.columns)
+    assert len(got["label"]) == len(want) == int(np.minimum(counts, m).sum())
+    for k in got:
+        if k == "plate":
+            assert got[k].tolist() == want[k].tolist()
+            continue
+        np.testing.assert_array_equal(got[k], want[k].to_numpy(dtype=got[k].dtype), err_msg=k)
+    empty = feature_table(np.zeros(0, np.int32), {"f": np.zeros((0, m))}, [], m)
+    assert all(len(v) == 0 for v in empty.values()) and empty["f"].dtype == np.float64
+
+
+@pytest.mark.parametrize("args,kw", [
+    ({"layout": "spatial"}, {}),
+    ({"n_devices": 2}, {}),
+    ({"as_polygons": True}, {}),
+    ({"figures": True}, {}),
+    ({}, {"qc": True}),
+])
+def test_unsupported_arguments_raise(tmp_path, args, kw):
+    make_store(tmp_path / "s")
+    st = ExperimentStore.open(tmp_path / "s")
+    with pytest.raises(NotSupportedError):
+        get_step("jterator")(st, device="cpu", **kw).init({**JTERATOR, **args})
+
+
+def test_a_morphology_pipeline_raises_until_solidity_is_ported(tmp_path):
+    make_store(tmp_path / "s")
+    st = ExperimentStore.open(tmp_path / "s")
+    jt = get_step("jterator")(st, device="cpu")
+    jt.init({**JTERATOR, "pipe": "morph.pipe.json", "cycle": 0})
+    with pytest.raises(NotSupportedError, match="solidity"):
+        jt.run(0)
+    assert not (st.root / "features" / "nuclei").exists() or \
+        not any((st.root / "features" / "nuclei").iterdir())
+
+
+def test_a_reference_batch_file_with_an_unported_layout_is_refused(tmp_path):
+    make_store(tmp_path / "s")
+    ref = j_get_step("jterator")(JStore.open(tmp_path / "s"))
+    ref.init({"layout": "spatial", "n_devices": 1})
+    port = get_step("jterator")(ExperimentStore.open(tmp_path / "s"), device="cpu")
+    with pytest.raises(NotSupportedError, match="spatial"):
+        port.run(0)
+
+
+def test_escalation_sees_objects_dropped_before_the_area_filter(tmp_path):
+    """The capacity clip runs before the area filter, so a site can lose
+    an object to the clip and still end below the cap: nine squares, the
+    first too small for ``min_area``, at a rung of 8.  The reference's
+    router persists that run (7 objects, not its ``"off"`` store's 8;
+    ROADMAP C); the port escalates on the objects found before the clip
+    and writes the ``"off"`` store."""
+    exp = grid_experiment("clip", well_rows=1, well_cols=1, sites_per_well=(1, 2),
+                          channel_names=("DAPI",), site_shape=(SIZE, SIZE))
+    img = np.full((2, SIZE, SIZE), 100, np.uint16)
+    img[:, 2:5, 2:5] = 5000  # 9 px: first in scan order, below min_area
+    for i in range(8):
+        y, x = 12 + 12 * (i // 4), 4 + 14 * (i % 4)
+        img[:, y:y + 6, x:x + 6] = 5000
+    pipe = {"input": {"channels": [{"name": "DAPI", "correct": False}]},
+            "pipeline": [{"handles": {
+                "module": "segment_primary",
+                "input": [{"name": "intensity_image", "type": "IntensityImage", "key": "DAPI"},
+                          {"name": "threshold_method", "type": "Character", "value": "manual"},
+                          {"name": "threshold_value", "type": "Numeric", "value": 1000},
+                          {"name": "smooth_sigma", "type": "Numeric", "value": 0.0},
+                          {"name": "min_area", "type": "Numeric", "value": 20}],
+                "output": [{"name": "objects", "type": "SegmentedObjects", "key": "nuclei",
+                            "objects": "nuclei"}]}}],
+            "output": {"objects": [{"name": "nuclei"}]}}
+    args = {"pipe": "clip.pipe.json", "batch_size": 2, "max_objects": 64, "n_devices": 1}
+    stores = {}
+    for name, get, store_cls, kw, buckets in (
+            ("ref_8", j_get_step, JStore, {}, "8"), ("ref_off", j_get_step, JStore, {}, "off"),
+            ("port_8", get_step, ExperimentStore, {"device": "cpu"}, "8"),
+            ("port_off", get_step, ExperimentStore, {"device": "cpu"}, "off")):
+        st = ExperimentStore.create(tmp_path / name, exp)
+        st.write_sites(img, [0, 1])
+        (st.root / "clip.pipe.json").write_text(json.dumps(pipe))
+        stores[name] = store_cls.open(st.root)
+        j_capacity_reset()
+        capacity.reset_routing_history()
+        results, _ = run_jterator(get, stores[name], {**args, "object_buckets": buckets}, kw,
+                                  sequential=True)
+        stores[name + "_results"] = results
+    counts = {k: int(stores[k].read_labels(None, "nuclei").max(axis=(1, 2)).max())
+              for k in ("ref_8", "ref_off", "port_8", "port_off")}
+    assert counts == {"ref_8": 7, "ref_off": 8, "port_8": 8, "port_off": 8}
+    assert stores["port_8_results"][0]["bucket_capacity"] == 64
+    assert stores["port_8_results"][0]["bucket_escalations"] == 1
+    assert stores["ref_8_results"][0]["bucket_capacity"] == 8
+    assert_same_labels(stores["port_8"], stores["ref_off"], names=("nuclei",))
+    assert_same_labels(stores["port_8"], stores["port_off"], names=("nuclei",))

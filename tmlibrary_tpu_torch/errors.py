@@ -1,8 +1,8 @@
 """Exception hierarchy of the PyTorch port.
 
 Counterpart: ``tmlibrary_tpu/errors.py``.  The port keeps its own copy of
-the classes the Cell Painting slice raises, with the same names, so error
-handling written against the JAX package maps directly.  ``DeviceError``
+the classes its slices raise, with the same names and the same hierarchy,
+so error handling written against the JAX package maps directly.  ``DeviceError``
 is new: the port's entry points run on the card unless the caller asks
 for the CPU, and a missing card is an error, never a silent fallback.
 """
@@ -10,6 +10,10 @@ for the CPU, and a missing card is an error, never a silent fallback.
 
 class TmError(Exception):
     """Base class for all framework errors."""
+
+
+class MetadataError(TmError):
+    """Error in experiment/image metadata handling."""
 
 
 class PipelineError(TmError):
@@ -24,8 +28,34 @@ class HandleError(PipelineError):
     """Invalid module handle description or binding."""
 
 
+class JobDescriptionError(TmError):
+    """Error in a batch/job description."""
+
+
 class RegistryError(TmError):
     """Error looking up a registered step/module/tool."""
+
+
+class StoreError(TmError):
+    """Error in the array/feature store layer."""
+
+
+class PreemptedError(TmError):
+    """The run was asked to stop and has finished draining: every
+    in-flight batch persisted, the rest were never launched.
+    ``in_flight`` is the pipelined window size when the drain began,
+    ``drained`` how many of those persisted during the drain, and
+    ``abandoned`` how many planned batches were never launched."""
+
+    def __init__(self, message: str, step: str | None = None,
+                 in_flight: int = 0, drained: int = 0, abandoned: int = 0,
+                 reason: str = "signal"):
+        super().__init__(message)
+        self.step = step
+        self.in_flight = in_flight
+        self.drained = drained
+        self.abandoned = abandoned
+        self.reason = reason
 
 
 class NotSupportedError(TmError):

@@ -2,8 +2,11 @@
 
 Counterpart: ``tmlibrary_tpu/jterator/description.py`` (reference
 ``tmlib/workflow/jterator/description.py``).  Same schema and validation.
-``yaml`` is imported only on the file-reading path, so
-:meth:`PipelineDescription.from_dict` works on hosts without PyYAML.
+A file is read by its suffix: ``.json`` (``*.pipe.json``, handles
+``*.handles.json``) with the standard ``json`` module, anything else as
+YAML, whose module is imported only then.  The card's machine has no
+``yaml``, so a pipeline that runs there is a ``.pipe.json``; the JAX
+package reads the same file unchanged, since a JSON document is YAML.
 """
 
 from __future__ import annotations
@@ -37,10 +40,16 @@ class ObjectOutput:
     as_polygons: bool = True
 
 
-def _read_yaml(path: Path):
+def _read_document(path: Path):
+    """A ``.json`` file through ``json``, any other through ``yaml``."""
+    path = Path(path)
+    if path.suffix.lower() == ".json":
+        import json
+
+        return json.loads(path.read_text())
     import yaml
 
-    return yaml.safe_load(Path(path).read_text())
+    return yaml.safe_load(path.read_text())
 
 
 @dataclasses.dataclass
@@ -78,7 +87,7 @@ class PipelineDescription:
                 hpath = base_dir / item["handles"]
                 if not hpath.exists():
                     raise PipelineDescriptionError(f"handles file missing: {hpath}")
-                hd = _read_yaml(hpath)
+                hd = _read_document(hpath)
             elif "handles" in item:
                 hd = item["handles"]  # inline dict
             else:
@@ -120,7 +129,7 @@ class PipelineDescription:
     @classmethod
     def load(cls, pipe_path: Path) -> "PipelineDescription":
         pipe_path = Path(pipe_path)
-        return cls.from_dict(_read_yaml(pipe_path), base_dir=pipe_path.parent)
+        return cls.from_dict(_read_document(pipe_path), base_dir=pipe_path.parent)
 
     def validate(self) -> None:
         """Check store-key dataflow: every module input key must be produced

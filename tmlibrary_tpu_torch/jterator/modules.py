@@ -11,7 +11,10 @@ Module contract: ``fn(**kwargs) -> dict`` mapping output-handle names to
 tensors (or, for ``Measurement`` outputs, to ``{feature: (B, max_objects)
 tensor}`` dicts).  Array kwargs are ``(B, H, W)`` batches, or ``(B, Z, H,
 W)`` for the volume modules; everything else is a constant from the
-handle description.
+handle description.  A module that drops objects beyond ``max_objects``
+before a filter may also return ``"<output name>" + FOUND``: the ``(B,)``
+number of objects it found before the clip (the workflow step's capacity
+router escalates on it).
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ from tmlibrary_tpu_torch.ops import label as label_ops
 from tmlibrary_tpu_torch.ops import smooth as smooth_ops
 from tmlibrary_tpu_torch.ops import threshold as threshold_ops
 from tmlibrary_tpu_torch.ops._exact import div
+
+#: suffix of a segmentation output's pre-clip object count
+FOUND = "__found"
 
 #: name -> backend -> (fn, version)
 _REGISTRY: dict[str, dict[str, tuple[Callable, str]]] = {}
@@ -147,7 +153,7 @@ def segment_primary(
     """Reference ``jtmodules/segment_primary.py`` (nuclei)."""
     from tmlibrary_tpu_torch.ops.segment_primary import segment_primary as _sp
 
-    labels, _count = _sp(
+    labels, _count, found = _sp(
         intensity_image,
         threshold_method=threshold_method,
         threshold_value=threshold_value,
@@ -161,8 +167,9 @@ def segment_primary(
         declump=declump,
         declump_min_distance=declump_min_distance,
         max_objects=max_objects,
+        with_found=True,
     )
-    return {"objects": labels}
+    return {"objects": labels, "objects" + FOUND: found}
 
 
 @register_module("segment_secondary")

@@ -19,6 +19,8 @@ padding.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
 from typing import Any, Callable
 
 import numpy as np
@@ -39,6 +41,9 @@ class SiteResult:
     objects: dict[str, Any]  # objects name -> (B, H, W) or (B, Z, H, W) int32 labels
     counts: dict[str, Any]  # objects name -> (B,) int32
     measurements: dict[str, dict[str, Any]]  # objects -> feature -> (B, M)
+    #: objects name -> (B,) int32 objects found before the capacity clip,
+    #: for the objects whose module reports it (``modules.FOUND``)
+    found: dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 class ImageAnalysisPipeline:
@@ -75,6 +80,7 @@ class ImageAnalysisPipeline:
         def site_fn(initial_store: dict[str, torch.Tensor]) -> SiteResult:
             store: dict[str, Any] = dict(initial_store)
             objects: dict[str, torch.Tensor] = {}
+            found: dict[str, torch.Tensor] = {}
             measurements: dict[str, dict[str, torch.Tensor]] = {}
 
             for mod in desc.modules:
@@ -118,6 +124,9 @@ class ImageAnalysisPipeline:
                     if h.type == "SegmentedObjects":
                         labels = val.to(torch.int32)
                         objects[h.objects] = labels
+                        if h.name + module_registry.FOUND in outs:
+                            found[h.objects] = outs[h.name + module_registry.FOUND].to(
+                                torch.int32)
                         if h.key:
                             store[h.key] = labels
                     elif h.type == "Measurement":
@@ -142,6 +151,7 @@ class ImageAnalysisPipeline:
                 objects={k: v for k, v in objects.items() if k in wanted},
                 counts={k: v for k, v in counts.items() if k in wanted},
                 measurements={k: v for k, v in measurements.items() if k in wanted},
+                found={k: v for k, v in found.items() if k in wanted},
             )
 
         return site_fn
@@ -227,6 +237,15 @@ class ImageAnalysisPipeline:
         return batch_fn
 
 
+def description_digest(description: PipelineDescription) -> str:
+    """Short content digest of a pipeline description: the identity two
+    runs share when they run the same pipeline
+    (``tmlibrary_tpu/jterator/pipeline.py:181``).  It scopes the bucket
+    router's history (:func:`tmlibrary_tpu_torch.capacity.routing_key`)."""
+    blob = json.dumps(dataclasses.asdict(description), sort_keys=True, default=repr)
+    return hashlib.sha1(blob.encode()).hexdigest()[:16]
+
+
 def from_jax_inputs(
     raw: dict, stats: dict, shifts, device: "str | torch.device" = "cuda"
 ) -> tuple[dict, dict, torch.Tensor]:
@@ -258,4 +277,5 @@ def site_result_to_numpy(result: SiteResult) -> SiteResult:
             o: {f: host(v) for f, v in feats.items()}
             for o, feats in result.measurements.items()
         },
+        found={k: host(v) for k, v in result.found.items()},
     )

@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -180,6 +181,11 @@ def require_cuda(name: str, *tensors: torch.Tensor, contiguous: bool = True) -> 
             raise DeviceError(f"{name}: expected contiguous tensors")
 
 
+#: guards the launch counters: the workflow step launches on its engine
+#: thread and re-launches an escalated batch on its persist worker
+_COUNT_LOCK = threading.Lock()
+
+
 def bind_launch(name: str, counter, tensors: tuple, *scalars, route: "str | None" = None,
                 held: tuple = ()):
     """``launch()``: one call of the C entry point ``tm_<name>`` on the
@@ -196,9 +202,10 @@ def bind_launch(name: str, counter, tensors: tuple, *scalars, route: "str | None
 
     def launch() -> torch.Tensor:
         if counter is not None:
-            counter.launches += 1
-            if route is not None:
-                counter.routes[route] += 1
+            with _COUNT_LOCK:
+                counter.launches += 1
+                if route is not None:
+                    counter.routes[route] += 1
         check(f"tm_{name}", fn(*args))
         return tensors[-1]
 

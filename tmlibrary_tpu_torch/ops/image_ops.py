@@ -22,16 +22,24 @@ def correct_illumination(
 
     corrected = 10 ** ((log10(1+img) - mean_log) / std_log * mean(std_log)
                        + mean(mean_log)) - 1, clipped to the uint16 range.
+
+    Evaluated in float64 and rounded once to float32, so the card and the
+    CPU agree: in float32 their ``log10`` and ``pow`` differ by ulps and
+    the field means by summation order, which moved Otsu thresholds and
+    labels between the two.  The reference evaluates it in float32; the
+    port is within :data:`chip_smoke.CORRECTION_TIER` of it.
     """
-    img_f = img.to(torch.float32)
-    mean_log = mean_log.to(torch.float32)
-    std_log = std_log.to(torch.float32)
-    log_img = torch.log10(1.0 + img_f)
-    std_safe = torch.where(std_log > 1e-6, std_log, torch.ones_like(std_log))
-    z = (log_img - mean_log) / std_safe
-    corrected_log = z * torch.mean(std_log) + torch.mean(mean_log)
+    img_d = img.to(torch.float64)
+    mean_d = mean_log.to(torch.float64)
+    std_d = std_log.to(torch.float64)
+    log_img = torch.log10(1.0 + img_d)
+    std_safe = torch.where(std_d > 1e-6, std_d, torch.ones_like(std_d))
+    z = (log_img - mean_d) / std_safe
+    # true divisions by the pixel count, made on the device (no copy)
+    count = torch.full((), std_d.numel(), dtype=torch.float64, device=std_d.device)
+    corrected_log = z * (std_d.sum() / count) + mean_d.sum() / count
     corrected = torch.pow(10.0, corrected_log) - 1.0
-    return torch.clamp(corrected, 0.0, UINT16_MAX)
+    return torch.clamp(corrected, 0.0, UINT16_MAX).to(torch.float32)
 
 
 def shift_image(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:

@@ -60,9 +60,13 @@ def segment_primary(
     declump: bool = False,
     declump_min_distance: int = 5,
     max_objects: int = 256,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    with_found: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """Segment primary objects of ``(B, H, W)`` sites; returns
-    ``(labels, count)`` with ``(B,)`` counts."""
+    ``(labels, count)`` with ``(B,)`` counts, and with ``with_found`` also
+    the ``(B,)`` number of objects found before the capacity clip (the
+    area filter runs after the clip, so ``count < max_objects`` does not
+    show that none were dropped; ``found > max_objects`` does)."""
     img = intensity_image.to(torch.float32)
     if smooth_sigma > 0:
         img = gaussian_smooth(img, smooth_sigma)
@@ -87,16 +91,19 @@ def segment_primary(
             smooth_sigma=declump_min_distance / 2.0,
         )
         labels = watershed_from_seeds(dist, seeds, mask)
+        found = labels.reshape(labels.shape[0], -1).amax(dim=1)
         # seed ids follow peak scan order: clip (ids beyond capacity drop),
         # then renumber by each region's first pixel (scipy order)
         labels = label_ops.clip_label_count(labels, max_objects)
         labels = label_ops.relabel_by_scan_order(labels, max_objects)
     else:
-        labels, _ = label_ops.connected_components(mask, connectivity=8)
+        labels, found = label_ops.connected_components(mask, connectivity=8)
     labels = label_ops.clip_label_count(labels, max_objects)
     if min_area > 0 or max_area is not None:
         labels = label_ops.filter_by_area(
             labels, max_objects=max_objects, min_area=min_area, max_area=max_area
         )
     count = labels.reshape(labels.shape[0], -1).amax(dim=1)
+    if with_found:
+        return labels.to(torch.int32), count.to(torch.int32), found.to(torch.int32)
     return labels.to(torch.int32), count.to(torch.int32)

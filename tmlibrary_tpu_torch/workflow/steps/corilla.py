@@ -1,0 +1,99 @@
+"""corilla: online illumination statistics per channel.
+
+Counterpart: ``tmlibrary_tpu/workflow/steps/corilla.py`` (reference
+``tmlib/workflow/corilla/api.py`` ``IlluminationStatisticsCalculator``):
+one batch per (cycle, channel), folding every site of the channel through
+the Welford scan and writing the statistics with
+``ExperimentStore.write_illumstats``.
+
+Sites are read in chunks of ``chunk_size`` through
+:func:`~tmlibrary_tpu_torch.workflow.pipelined.prefetch_iter` (the store
+read of chunk N+1 runs while the device scans chunk N), scanned with
+:func:`~tmlibrary_tpu_torch.ops.stats.welford_scan` and merged with
+:func:`~tmlibrary_tpu_torch.ops.stats.welford_merge` in chunk order, the
+reference's order (``:105-146``).  ``n_devices > 1`` raises
+:class:`~tmlibrary_tpu_torch.errors.NotSupportedError`: the sharded
+Welford over several cards is not ported yet.  The QC session's
+``observe_illumination`` comes with the QC session.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tmlibrary_tpu_torch.errors import NotSupportedError
+from tmlibrary_tpu_torch.ops.smooth import gaussian_smooth
+from tmlibrary_tpu_torch.ops.stats import (
+    welford_finalize,
+    welford_init,
+    welford_merge,
+    welford_scan,
+)
+from tmlibrary_tpu_torch.utils import create_partitions
+from tmlibrary_tpu_torch.workflow.api import Step
+from tmlibrary_tpu_torch.workflow.args import Argument, ArgumentCollection
+from tmlibrary_tpu_torch.workflow.pipelined import prefetch_iter
+from tmlibrary_tpu_torch.workflow.registry import register_step
+
+
+@register_step("corilla")
+class IlluminationStatisticsCalculator(Step):
+    batch_args = ArgumentCollection(
+        Argument("chunk_size", int, default=32,
+                 help="sites per device-resident chunk"),
+        Argument("n_devices", int, default=0,
+                 help="mesh size (0 = all visible devices)"),
+        Argument("smooth_sigma", float, default=0.0,
+                 help="pre-smooth stat fields before storing (0 = off)"),
+        Argument("prefetch_chunks", int, default=2,
+                 help="site chunks read ahead on worker threads while the "
+                      "device scans the current chunk (1 = sequential)"),
+    )
+
+    def create_batches(self, args):
+        if args["n_devices"] > 1:
+            raise NotSupportedError(
+                "corilla: n_devices > 1 (the sharded Welford) is not ported "
+                "yet (ROADMAP A7)")
+        # one batch per (cycle, channel), exactly the reference's job split
+        exp = self.store.experiment
+        return [
+            {"cycle": cycle, "channel": ch.index}
+            for cycle in range(exp.n_cycles)
+            for ch in exp.channels
+            if self.store.has_plane(cycle=cycle, channel=ch.index)
+        ]
+
+    def run_batch(self, batch: dict) -> dict:
+        args = batch["args"]
+        if args["n_devices"] > 1:
+            raise NotSupportedError(
+                "corilla: n_devices > 1 (the sharded Welford) is not ported "
+                "yet (ROADMAP A7)")
+        cycle, channel = batch["cycle"], batch["channel"]
+        exp = self.store.experiment
+        chunks = create_partitions(range(self.store.n_sites), max(args["chunk_size"], 1))
+        loaded = prefetch_iter(
+            chunks,
+            lambda part: self.store.read_sites(part, cycle=cycle, channel=channel),
+            depth=max(args.get("prefetch_chunks", 2), 1),
+        )
+        state = None
+        for stack in loaded:
+            part = welford_scan(torch.from_numpy(stack).to(self.device))
+            state = part if state is None else welford_merge(state, part)
+        if state is None:
+            state = welford_init((exp.site_height, exp.site_width), self.device)
+        out = welford_finalize(state)
+        if args["smooth_sigma"] > 0:
+            out["mean_log"] = gaussian_smooth(out["mean_log"], args["smooth_sigma"])
+            out["std_log"] = gaussian_smooth(out["std_log"], args["smooth_sigma"])
+        out.pop("hist", None)
+        # sorted keys: the reference's file lists its fields in that order
+        host = {k: out[k].cpu().numpy() for k in sorted(out)}
+        self.store.write_illumstats(host, cycle=cycle, channel=channel)
+        return {"cycle": cycle, "channel": channel, "n_sites": int(host["n"])}
+
+    def delete_previous_output(self) -> None:
+        for p in (self.store.root / "illumstats").glob("*.npz"):
+            p.unlink()

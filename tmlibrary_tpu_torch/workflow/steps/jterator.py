@@ -1,0 +1,867 @@
+"""jterator: run the image-analysis pipeline over all sites (sites layout).
+
+Counterpart: ``tmlibrary_tpu/workflow/steps/jterator.py``
+(``ImageAnalysisRunner``, ``:110-1949``; reference
+``tmlib/workflow/jterator/api.py`` ``ImageAnalysisPipeline``): plan
+batches of sites (with the work-aware schedule), load each batch's
+channels from the store, correct them with corilla's statistics, align
+them with the align step's shift table and crop them to its intersection
+window, run the pipeline on ``device``, route each batch to an
+object-capacity bucket (escalating one rung up when a batch saturates
+it), write label stacks and feature shards, and register mapobject types
+in ``collect``.
+
+The batch arguments are the reference's, with the same names, types,
+defaults and choices, so a ``batch_*.json`` written by either package
+resolves in the other.  What the port does with them:
+
+- ``layout="spatial"``, ``n_devices > 1`` (ROADMAP A7), ``as_polygons``
+  and ``figures`` (A8), the QC session (``qc=True``; the port's
+  ``build_batch_fn(qc=True)`` exists) and a pipeline that emits
+  ``Morphology_area`` (the reference joins a host-side
+  ``Morphology_solidity``, ``tmlibrary_tpu/native.py:323,370``, not ported
+  yet) raise :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.
+- ``donate_buffers`` and ``reduction_strategy`` are accepted and have no
+  effect: the port has no buffer donation, and it has only the fused
+  measure that the reference's ``"fused"`` strategy runs.
+- ``batch_size=0`` is 32 (the port has no tuning sweep of the card).
+- The reference's compile-ahead speculation (``:1303-1423``) has no
+  meaning without a compile step and is left out, as are its telemetry
+  gauges.
+- Feature shards are ``.npz`` files of columns
+  (:meth:`~tmlibrary_tpu_torch.models.store.ExperimentStore.append_features`),
+  built column-wise with the reference's rows, order and values.
+
+The pipeline cache holds one
+:class:`~tmlibrary_tpu_torch.jterator.pipeline.ImageAnalysisPipeline` per
+capacity, with the intersection window read once from the store.  In the
+launch/persist split (:mod:`~tmlibrary_tpu_torch.workflow.pipelined`),
+:meth:`ImageAnalysisRunner.launch_batch` moves the inputs to the device,
+calls the batch function and records a CUDA event; ``block_batch`` waits
+on that event alone, and ``persist_batch`` fetches the results with
+``.cpu()`` on the persist worker and writes them.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import json
+import logging
+import os
+import shutil
+import threading
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from tmlibrary_tpu_torch import capacity
+from tmlibrary_tpu_torch.errors import (
+    JobDescriptionError,
+    NotSupportedError,
+    PipelineError,
+    StoreError,
+)
+from tmlibrary_tpu_torch.jterator.description import PipelineDescription
+from tmlibrary_tpu_torch.jterator.pipeline import ImageAnalysisPipeline, description_digest
+from tmlibrary_tpu_torch.models.image import IllumstatsContainer
+from tmlibrary_tpu_torch.models.mapobject import (
+    MapobjectType,
+    MapobjectTypeRegistry,
+    min_poly_zoom,
+    plate_mosaic_shape,
+)
+from tmlibrary_tpu_torch.ops.pyramid import n_pyramid_levels
+from tmlibrary_tpu_torch.utils import create_partitions
+from tmlibrary_tpu_torch.workflow import schedule as schedule_mod
+from tmlibrary_tpu_torch.workflow.api import Step
+from tmlibrary_tpu_torch.workflow.args import Argument, ArgumentCollection
+from tmlibrary_tpu_torch.workflow.pipelined import (
+    PipelinedExecutor,
+    PipelineStats,
+    resolve_pipeline_depth,
+)
+from tmlibrary_tpu_torch.workflow.registry import register_step
+
+logger = logging.getLogger(__name__)
+
+#: the feature table's leading columns, in the reference's order
+SITE_COLUMNS = ("site_index", "plate", "well_row", "well_col", "site_y", "site_x")
+
+
+def to_site_frame(objects: dict, measurements: dict, window) -> tuple[dict, dict]:
+    """Labels computed in the cropped intersection frame, back in the
+    site frame: each label array's last two axes padded with the window's
+    ``(top, bottom, left, right)`` margins, ``Morphology_centroid_y``/``_x``
+    shifted by ``top``/``left`` (``tmlibrary_tpu/workflow/steps/jterator.py:1480-1497``).
+    ``window=None`` returns the inputs."""
+    if window is None:
+        return objects, measurements
+    top, bottom, left, right = window
+    objects = {
+        name: np.pad(lab, [(0, 0)] * (lab.ndim - 2) + [(top, bottom), (left, right)])
+        for name, lab in objects.items()
+    }
+    shifted = {}
+    for obj, feats in measurements.items():
+        feats = dict(feats)
+        if "Morphology_centroid_y" in feats:
+            feats["Morphology_centroid_y"] = feats["Morphology_centroid_y"] + top
+            feats["Morphology_centroid_x"] = feats["Morphology_centroid_x"] + left
+        shifted[obj] = feats
+    return objects, shifted
+
+
+def feature_table(counts, feats: dict, site_meta: list[dict], max_objects: int) -> dict:
+    """The (objects x features) table of one batch, column by column: for
+    each site ``b`` its rows ``label = 1..min(counts[b], max_objects)``,
+    the site's metadata repeated, and each feature's ``float(arr[b,
+    label - 1])`` as float64; the rows, order and values of the
+    reference's row-by-row ``_feature_table`` (``:1685-1702``)."""
+    n = np.minimum(np.asarray(counts, np.int64), int(max_objects))
+    n = np.maximum(n, 0)
+    table: dict[str, np.ndarray] = {}
+    for k in SITE_COLUMNS:
+        values = [meta[k] for meta in site_meta]
+        dtype = str if k == "plate" else np.int64
+        table[k] = np.repeat(np.asarray(values, dtype=dtype), n)
+    table["label"] = (
+        np.concatenate([np.arange(1, c + 1, dtype=np.int64) for c in n])
+        if len(n) else np.zeros(0, np.int64)
+    )
+    for fname, arr in feats.items():
+        arr = np.asarray(arr)
+        table[fname] = (
+            np.concatenate([arr[b, :c] for b, c in enumerate(n)]).astype(np.float64)
+            if len(n) else np.zeros(0, np.float64)
+        )
+    return table
+
+
+@register_step("jterator")
+class ImageAnalysisRunner(Step):
+    batch_args = ArgumentCollection(
+        Argument("pipe", str, default="",
+                 help="path to the .pipe.yaml pipeline description "
+                      "(required for --layout sites)"),
+        Argument("layout", str, default="sites", choices=("sites", "spatial"),
+                 help="'sites': vmap the module chain over per-site batches; "
+                      "'spatial': stitch each well into one mosaic, row-shard "
+                      "it over the device mesh and segment it with halo "
+                      "exchange + distributed connected components — objects "
+                      "crossing site borders get ONE id (the reference splits "
+                      "them, SURVEY.md §6 long-context row)"),
+        Argument("spatial_channel", str, default="",
+                 help="channel segmented in spatial layout "
+                      "(default: first experiment channel)"),
+        Argument("spatial_sigma", float, default=1.5,
+                 help="gaussian sigma for spatial-layout smoothing"),
+        Argument("spatial_grid", str, default="auto",
+                 choices=("auto", "rows", "grid"),
+                 help="spatial-layout mesh shape: 'rows' shards the mosaic "
+                      "row axis 1-D; 'grid' tiles it rows x cols (2-D halo "
+                      "exchange, corner-exact seams); 'auto' picks whichever "
+                      "uses more devices — results are identical either way"),
+        Argument("spatial_objects", str, default="mosaic_cells",
+                 help="objects name for spatial-layout segmentation output"),
+        Argument("spatial_zernike_degree", int, default=9,
+                 help="Zernike moment degree for spatial-layout features "
+                      "(matches measure_zernike's default; 0 disables)"),
+        Argument("spatial_secondary_channel", str, default="",
+                 help="grow secondary objects (cells) from the primary "
+                      "mosaic objects through THIS channel via distributed "
+                      "watershed — ids stay the primary's global ids "
+                      "(empty: disabled)"),
+        Argument("spatial_secondary_objects", str, default="mosaic_secondary",
+                 help="objects name for the spatial secondary segmentation"),
+        Argument("spatial_secondary_factor", float, default=1.0,
+                 help="otsu correction factor for the secondary mask "
+                      "(segment_secondary's correction_factor)"),
+        Argument("spatial_secondary_levels", int, default=32,
+                 help="watershed flooding levels for the secondary mask "
+                      "(segment_secondary's n_levels)"),
+        Argument("spatial_align", bool, default=True,
+                 help="apply align-step shifts when stitching (the sites "
+                      "layout gates this per pipe channel; disable if the "
+                      "stored registration is untrusted)"),
+        Argument("batch_size", int, default=0,
+                 help="sites per device batch (0 = auto: the tuning "
+                      "sweep's best_batch on device backends, else 32)"),
+        Argument("max_objects", int, default=256,
+                 help="static per-site object capacity"),
+        Argument("object_buckets", str, default="auto",
+                 help="object-capacity bucket ladder (capacity.py): "
+                      "'auto' compiles power-of-two buckets up to "
+                      "max_objects and routes each batch by observed "
+                      "object counts; 'off' pins every batch at "
+                      "max_objects; or an explicit comma list of "
+                      "capacities, e.g. '8,32'. Results are bit-identical "
+                      "across bucket choices — routing is purely a "
+                      "performance decision"),
+        Argument("schedule", str, default="auto",
+                 choices=("auto", "pack", "off"),
+                 help="work-aware site scheduling (workflow/schedule.py): "
+                      "'pack' plans cost-model batches (rung-homogeneous "
+                      "packing + straggler-balanced shard order) from the "
+                      "per-site count history; 'off' keeps directory-order "
+                      "batching; 'auto' follows TMX_SCHEDULE / config / "
+                      "the tuned verdict, then packs. Results are "
+                      "bit-identical per site either way — scheduling is "
+                      "purely a performance decision"),
+        Argument("reduction_strategy", str, default="auto",
+                 choices=("auto", "onehot", "sort", "scatter", "fused"),
+                 help="grouped-reduction strategy for the measurement "
+                      "stack (ops/reduction.py): one-hot MXU matmuls, "
+                      "deterministic sort+segment reductions, direct "
+                      "scatters, or the single-pass Pallas measure "
+                      "megakernels (ops/fused_measure.py); 'auto' "
+                      "follows TMX_REDUCTION_STRATEGY / config / the "
+                      "tuned verdict, then a backend-safe default"),
+        Argument("donate_buffers", bool, default=True,
+                 help="donate each batch's raw-image/stats/shift device "
+                      "buffers to the compiled program so XLA reuses "
+                      "their memory for outputs (safe: the engine "
+                      "transfers fresh arrays per batch)"),
+        Argument("auto_resegment", bool, default=True,
+                 help="collect re-runs saturated batches at doubled "
+                      "max_objects (bounded at 4096) until counts fit; "
+                      "disable to keep the manual warn-and-rerun flow"),
+        Argument("n_devices", int, default=0, help="mesh size (0 = all)"),
+        Argument("cycle", int, default=0),
+        Argument("tpoint", int, default=0),
+        Argument("zplane", int, default=0),
+        Argument("as_polygons", bool, default=False,
+                 help="also trace object outlines host-side"),
+        Argument("figures", bool, default=False,
+                 help="write segmentation-overlay PNGs: per site in the "
+                      "sites layout, one downsampled whole-well mosaic per "
+                      "object family in the spatial layout (reference: "
+                      "jterator module plot/Figure artifacts)"),
+    )
+
+
+    def __init__(self, store, device: "str | torch.device" = "cuda", qc: bool = False):
+        super().__init__(store, device)
+        if qc:
+            raise NotSupportedError(
+                "jterator: the QC session is not ported yet (the port's "
+                "build_batch_fn(qc=True) exists; the session that records its "
+                "statistics does not)")
+        # capacity -> batch function; the bucket router builds one pipeline
+        # per capacity it routes to, collect's resegmentation one per raised cap
+        self._pipelines: dict[int, object] = {}
+        self._desc = None
+        self._window: tuple[int, int, int, int] | None = None
+        self._window_resolved = False
+        # prefetch workers read the description while the engine thread
+        # builds pipelines; the persist worker routes escalations
+        self._pipeline_lock = threading.Lock()
+        self._bucket_lock = threading.Lock()
+        self._routing_keys: dict[tuple, str] = {}
+        #: the last pipelined run's phase times (``PipelineStats.summary``)
+        #: and each batch's (``PipelineStats.per_batch``)
+        self.pipeline_stats: dict | None = None
+        self.pipeline_batch_times: dict | None = None
+
+    # ---------------------------------------------------------------- checks
+    @staticmethod
+    def _check_supported(args) -> None:
+        """Raise for the arguments whose paths the port does not have yet."""
+        if args.get("layout", "sites") == "spatial":
+            raise NotSupportedError(
+                "jterator: layout='spatial' is not ported yet (ROADMAP A7)")
+        if int(args.get("n_devices") or 0) > 1:
+            raise NotSupportedError(
+                "jterator: n_devices > 1 is not ported yet (ROADMAP A7)")
+        for name in ("as_polygons", "figures"):
+            if args.get(name):
+                raise NotSupportedError(
+                    f"jterator: {name}=True is not ported yet (ROADMAP A8)")
+
+    # ------------------------------------------------------------------ plan
+    def create_batches(self, args):
+        self._check_supported(args)
+        if not args["pipe"]:
+            raise ValueError("--pipe is required for --layout sites")
+        sites = list(range(self.store.n_sites))
+        batch_size = args["batch_size"] or 32
+        plan = self._schedule_plan(args, sites, batch_size)
+        if plan is not None:
+            schedule_mod.write_plan(self._schedule_plan_path, plan)
+            return [
+                {
+                    "sites": b["sites"],
+                    "schedule": {
+                        "rung": b["rung"],
+                        "predicted": b["predicted"],
+                        "shard_work": b["shard_work"],
+                        "shard_work_naive": b["shard_work_naive"],
+                        "plan_digest": plan["digest"],
+                    },
+                }
+                for b in plan["batches"]
+            ]
+        return [
+            {"sites": part} for part in create_partitions(sites, batch_size)
+        ]
+
+    def init(self, args=None):
+        """Harvest the previous run's persisted per-site object counts
+        into the scheduler's cost model before ``delete_previous_output``
+        wipes the feature shards they live in."""
+        resolved = self.batch_args.resolve(args)
+        if resolved.get("layout", "sites") == "sites" and resolved.get("pipe"):
+            self._seed_schedule_history(resolved)
+        return super().init(args)
+
+    def _seed_schedule_history(self, args) -> None:
+        try:
+            mode, _ = schedule_mod.resolve_schedule(args.get("schedule"))
+            if not schedule_mod.schedule_enabled(mode):
+                return
+            counts = schedule_mod.harvest_store_counts(self.store)
+            if not counts:
+                return
+            ceiling = int(args["max_objects"])
+            ladder = capacity.resolve_bucket_ladder(
+                ceiling, args.get("object_buckets", "auto"))
+            seeded = capacity.seed_site_counts(
+                self._routing_key(args, ceiling, ladder), counts)
+            if seeded:
+                logger.info("schedule: seeded %d site cost(s) from persisted "
+                            "feature shards", seeded)
+        except Exception:
+            # the cost model is a performance input, never a planning
+            # dependency: a broken harvest degrades to the prior
+            logger.debug("schedule history harvest failed", exc_info=True)
+
+    def _schedule_plan(self, args, sites: list, batch_size: int):
+        """The packing plan for the run, or None when scheduling is off,
+        the run is too small to pack, or nothing is known of any site."""
+        mode, source = schedule_mod.resolve_schedule(args.get("schedule"))
+        if not schedule_mod.schedule_enabled(mode) or len(sites) <= 1:
+            schedule_mod.write_plan(self._schedule_plan_path, None)
+            return None
+        ceiling = int(args["max_objects"])
+        ladder = capacity.resolve_bucket_ladder(ceiling, args.get("object_buckets", "auto"))
+        key = self._routing_key(args, ceiling, ladder)
+        table = capacity.site_count_snapshot(key)
+        peak = capacity.observed_peak(key)
+        if not table and peak is None:
+            # cold start: a uniform prediction cannot beat directory order
+            schedule_mod.write_plan(self._schedule_plan_path, None)
+            return None
+        prior = float(peak) if peak is not None else float(max(table.values()))
+        predicted = schedule_mod.predict_site_counts(key, sites, prior)
+        return schedule_mod.pack_plan(
+            sites, predicted, batch_size, ladder, 1,
+            seed=description_digest(self._description(args)),
+            mode=mode, source=source,
+        )
+
+    # -------------------------------------------------------------- pipeline
+    def _description(self, args) -> PipelineDescription:
+        """The parsed pipeline description (a ``.pipe.json`` is read with
+        ``json``; a path relative to the store root resolves there)."""
+        with self._pipeline_lock:
+            if self._desc is None:
+                pipe_path = Path(args["pipe"])
+                if not pipe_path.is_absolute():
+                    pipe_path = self.store.root / pipe_path
+                self._desc = PipelineDescription.load(pipe_path)
+            return self._desc
+
+    def _pipeline(self, args, capacity_: int | None = None):
+        """``(description, batch function)`` for ``capacity_`` (default:
+        the ``max_objects`` ceiling): one :class:`ImageAnalysisPipeline`
+        per capacity, cropping to the intersection window when a channel
+        aligns and the align step stored one."""
+        desc = self._description(args)
+        cap = int(capacity_ if capacity_ is not None else args["max_objects"])
+        with self._pipeline_lock:
+            if not self._window_resolved:
+                if any(ch.align for ch in desc.channels):
+                    try:
+                        w = self.store.read_intersection()
+                        self._window = (w["top"], w["bottom"], w["left"], w["right"])
+                    except StoreError:
+                        self._window = None  # align step didn't run: no crop
+                    if self._window == (0, 0, 0, 0):
+                        self._window = None
+                self._window_resolved = True
+            if cap not in self._pipelines:
+                self._pipelines[cap] = ImageAnalysisPipeline(
+                    desc, max_objects=cap, device=self.device
+                ).build_batch_fn(self._window)
+            return desc, self._pipelines[cap]
+
+    # ---------------------------------------------------------------- routing
+    def _effective_batch(self, batch: dict) -> dict:
+        """Fold in collect's auto-resegmentation cap escalation, which
+        lives in a side file (``cap_overrides.json``), not in the batch
+        file."""
+        self._check_supported(batch["args"])
+        override = self._cap_overrides().get(str(batch["index"]))
+        if override and override > batch["args"].get("max_objects", 0):
+            return {**batch, "args": {**batch["args"], "max_objects": int(override)}}
+        return batch
+
+    def _ladder(self, args) -> tuple[int, ...]:
+        return capacity.resolve_bucket_ladder(
+            int(args["max_objects"]), args.get("object_buckets", "auto"))
+
+    def _route_capacity(self, batch: dict) -> int:
+        """The object-capacity bucket of a batch at launch: its planned
+        rung when the schedule packed it, else the smallest rung that
+        holds the peak count persisted so far, else (a cold router; the
+        port has no tuning verdict) the ladder's smallest rung.  A
+        mis-route only costs a re-launch one rung up."""
+        args = batch["args"]
+        ceiling = int(args["max_objects"])
+        ladder = self._ladder(args)
+        if len(ladder) == 1:
+            return ceiling
+        planned = (batch.get("schedule") or {}).get("rung")
+        if planned and int(planned) in ladder:
+            return int(planned)
+        observed = capacity.observed_peak(self._routing_key(args, ceiling, ladder))
+        if observed is None:
+            return ladder[0]
+        return capacity.select_capacity(observed, ladder)
+
+    def _routing_key(self, args, ceiling: int, ladder: tuple[int, ...]) -> str:
+        """The pipeline-family key scoping this step's bucket history
+        (memoized per (ceiling, ladder))."""
+        desc = self._description(args)
+        cache_key = (int(ceiling), tuple(ladder))
+        with self._bucket_lock:
+            key = self._routing_keys.get(cache_key)
+            if key is None:
+                key = capacity.routing_key(description_digest(desc), ceiling, ladder)
+                self._routing_keys[cache_key] = key
+            return key
+
+    def _note_peak(self, args, peak: int) -> None:
+        """Feed one batch's peak per-site count into the routing history
+        (persist-worker side)."""
+        ceiling = int(args["max_objects"])
+        capacity.note_observed_peak(
+            self._routing_key(args, ceiling, self._ladder(args)), peak)
+
+    def _note_site_costs(self, args, sites, site_counts) -> None:
+        """Feed one batch's per-site counts into the scheduler's EWMA
+        history (persist-worker side; fed whether or not this run packs)."""
+        try:
+            ceiling = int(args["max_objects"])
+            capacity.note_site_counts(
+                self._routing_key(args, ceiling, self._ladder(args)),
+                {int(s): float(c) for s, c in zip(sites, site_counts)},
+            )
+        except Exception:
+            logger.debug("site-cost history update failed", exc_info=True)
+
+    # -------------------------------------------------------------------- run
+    def run_batch(self, batch: dict) -> dict:
+        batch = self._effective_batch(batch)
+        cap = self._route_capacity(batch)
+        result = self._launch(batch, capacity_=cap)
+        return self._persist(batch, result, capacity_=cap)
+
+    def run_batches_pipelined(self, batches, depth: int | None = None):
+        """Generator over ``(batch, result_summary)`` in batch order, with
+        store reads and writes overlapped against the device through
+        :class:`~tmlibrary_tpu_torch.workflow.pipelined.PipelinedExecutor`
+        (``depth=None``: 8 on the card, 2 on the CPU).  The phase times
+        land in :attr:`pipeline_stats` and :attr:`pipeline_batch_times`."""
+        depth, source = resolve_pipeline_depth(depth, self.device)
+        stats = PipelineStats(depth, source)
+        try:
+            yield from PipelinedExecutor(self, depth=depth, stats=stats).run(batches)
+        finally:
+            self.pipeline_stats = stats.summary()
+            self.pipeline_batch_times = stats.per_batch()
+
+    # ------------------------------------------------- launch/persist split
+    def prefetch_batch(self, batch: dict) -> dict:
+        """Host-side input loading only: safe on a prefetch worker."""
+        return self._load_inputs(self._effective_batch(batch))
+
+    def launch_batch(self, batch: dict, prefetched=None):
+        """Dispatch; returns ``(effective_batch, ctx)`` with the un-fetched
+        results and a CUDA event recorded after the launch in ``ctx``."""
+        batch = self._effective_batch(batch)
+        cap = self._route_capacity(batch)
+        result = self._launch(batch, prefetched, capacity_=cap)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return batch, (result, cap, done)
+
+    def block_batch(self, ctx) -> None:
+        """Wait for this batch's launched work alone (its event), not for
+        the whole device."""
+        done = ctx[2]
+        if done is not None:
+            done.synchronize()
+
+    def persist_batch(self, batch: dict, ctx) -> dict:
+        """Fetch and write one launched batch (the effective batch from
+        :meth:`launch_batch`)."""
+        result, cap, _ = ctx
+        return self._persist(batch, result, capacity_=cap)
+
+    def _load_inputs(self, batch: dict) -> dict:
+        """A batch's store reads, illumination statistics and shift rows,
+        all numpy: no device transfer, so a prefetch worker can run it."""
+        args = batch["args"]
+        sites = list(batch["sites"])
+        desc = self._description(args)
+        exp = self.store.experiment
+        cycle, tpoint, zplane = args["cycle"], args["tpoint"], args["zplane"]
+
+        raw = {}
+        for ch in desc.channels:
+            idx = exp.channel_index(ch.name)
+            if ch.zstack:
+                planes = [
+                    self.store.read_sites(sites, cycle=cycle, channel=idx,
+                                          tpoint=tpoint, zplane=zp)
+                    for zp in range(exp.n_zplanes)
+                ]
+                raw[ch.name] = np.stack(planes, axis=1)  # (B, Z, H, W)
+            else:
+                raw[ch.name] = self.store.read_sites(sites, cycle=cycle, channel=idx,
+                                                     tpoint=tpoint, zplane=zplane)
+        for obj in desc.objects_in:
+            raw[obj.name] = self.store.read_labels(sites, obj.name, tpoint=tpoint,
+                                                   zplane=zplane)
+
+        stats = {}
+        for ch in desc.channels:
+            # volumes skip correction: don't demand stats they never use
+            if ch.correct and not ch.zstack:
+                idx = exp.channel_index(ch.name)
+                if not self.store.has_illumstats(cycle=cycle, channel=idx):
+                    raise PipelineError(
+                        f"channel '{ch.name}' wants illumination correction but "
+                        f"corilla statistics are missing — run corilla first"
+                    )
+                cont = IllumstatsContainer.from_store(
+                    self.store.read_illumstats(cycle=cycle, channel=idx))
+                stats[ch.name] = (cont.mean_log, cont.std_log)
+
+        shifts = np.zeros((len(sites), 2), np.int32)
+        if any(ch.align for ch in desc.channels) and self.store.has_shifts(cycle):
+            shifts = self.store.read_shifts(cycle)[np.asarray(sites)]
+        return {"raw": raw, "stats": stats, "shifts": shifts}
+
+    def _launch(self, batch: dict, inputs: dict | None = None,
+                capacity_: int | None = None):
+        """Move the (possibly prefetched) inputs to the device and call the
+        batch function; on the card this returns once the work is queued
+        (less any host syncs inside the pipeline)."""
+        _, fn = self._pipeline(batch["args"], capacity_)
+        if inputs is None:
+            inputs = self._load_inputs(batch)
+        dev = self.device
+        raw = {k: torch.from_numpy(v).to(dev) for k, v in inputs["raw"].items()}
+        stats = {k: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in pair)
+                 for k, pair in inputs["stats"].items()}
+        shifts = torch.from_numpy(np.ascontiguousarray(inputs["shifts"], np.int32)).to(dev)
+        return fn(raw, stats, shifts)
+
+    @staticmethod
+    def _host(result, n_valid: int) -> tuple[dict, dict, dict, dict]:
+        """The batch's counts, labels, measurements and pre-clip object
+        counts on the host, each dict in key order: the reference's jitted
+        result comes back with sorted keys, which orders its feature
+        columns."""
+
+        def host(d):
+            return {k: d[k].detach().cpu().numpy()[:n_valid] for k in sorted(d)}
+
+        return (
+            host(result.counts),
+            host(result.objects),
+            {obj: host(result.measurements[obj]) for obj in sorted(result.measurements)},
+            host(result.found),
+        )
+
+    @staticmethod
+    def _saturates(cap: int, counts: dict, found: dict) -> bool:
+        """Whether a run at ``cap`` may have dropped objects: a count AT the
+        cap (the reference's rule), or more objects found before the clip
+        than the cap holds.  The second catches what the first cannot: the
+        area filter runs after the clip, so a site whose found objects
+        exceed the cap can still end below it (ROADMAP C)."""
+        return any(int(v.max(initial=0)) >= cap for v in counts.values()) or \
+            any(int(v.max(initial=0)) > cap for v in found.values())
+
+    def _persist(self, batch: dict, result, capacity_: int | None = None) -> dict:
+        """Fetch one launched batch's results, escalate its capacity until
+        the counts fit, and write labels, feature shards and the
+        saturation record."""
+        args = batch["args"]
+        sites = batch["sites"]
+        tpoint, zplane = args["tpoint"], args["zplane"]
+        n_valid = len(sites)
+        ceiling = int(args["max_objects"])
+        cap = int(capacity_) if capacity_ is not None else ceiling
+        escalations = 0
+        counts, objects, measurements, found = self._host(result, n_valid)
+        if cap < ceiling:
+            # nothing below the ceiling is persisted from a saturated run,
+            # so every rung gives the ceiling's store
+            ladder = self._ladder(args)
+            while cap < ceiling and self._saturates(cap, counts, found):
+                new_cap = capacity.select_capacity(cap, ladder)
+                logger.info(
+                    "batch %s saturated its routed object-capacity bucket "
+                    "(capacity %d) — re-running at capacity %d",
+                    batch.get("index"), cap, new_cap,
+                )
+                escalations += 1
+                cap = new_cap
+                counts, objects, measurements, found = self._host(
+                    self._launch(batch, capacity_=cap), n_valid)
+
+        objects, measurements = to_site_frame(objects, measurements, self._window)
+        for name, feats in measurements.items():
+            if "Morphology_area" in feats and objects.get(name) is not None \
+                    and objects[name].ndim == 3:
+                raise NotSupportedError(
+                    "jterator: the pipeline measures morphology, whose host-side "
+                    "Morphology_solidity join is not ported yet (ROADMAP A3)")
+
+        for name, labels in objects.items():
+            if labels.ndim == 4:  # (B, Z, H, W) volume labels: one stack per z
+                for zp in range(labels.shape[1]):
+                    self.store.write_labels(labels[:, zp], sites, name,
+                                            tpoint=tpoint, zplane=zp)
+            else:
+                self.store.write_labels(labels, sites, name, tpoint=tpoint, zplane=zplane)
+
+        shard = f"batch_{batch['index']:03d}"
+        site_meta = self._site_metadata(sites)
+        max_obj = args["max_objects"]
+        for name in objects:
+            self.store.append_features(
+                name, feature_table(counts[name], measurements.get(name, {}), site_meta,
+                                    max_obj),
+                shard=shard)
+
+        summary = {
+            "n_sites": n_valid,
+            "objects": {k: int(v.sum()) for k, v in counts.items()},
+        }
+        peak = max((int(v.max(initial=0)) for v in counts.values()), default=0)
+        self._note_peak(args, peak)
+        if counts:
+            site_counts = np.maximum.reduce([np.asarray(v) for v in counts.values()])
+            self._note_site_costs(args, sites, site_counts)
+        plan = batch.get("schedule") or {}
+        if plan.get("rung"):
+            summary["schedule_rung"] = int(plan["rung"])
+        total_objects = sum(summary["objects"].values())
+        slots = len(counts) * n_valid * cap
+        summary["bucket_capacity"] = cap
+        summary["bucket_ceiling"] = ceiling
+        summary["slot_occupancy"] = round(capacity.slot_occupancy(total_objects, slots), 4)
+        if escalations:
+            summary["bucket_escalations"] = escalations
+        # saturation at the ceiling must be loud: objects beyond the cap
+        # were dropped
+        saturated = {k: int((v >= max_obj).sum()) for k, v in counts.items()}
+        saturated = {k: n for k, n in saturated.items() if n}
+        # record unconditionally: a clean re-run clears a stale entry
+        self._record_saturation(batch["index"], saturated)
+        if saturated:
+            summary["saturated"] = saturated
+            logger.warning(
+                "object capacity saturated (count == max_objects == %d) for "
+                "%s — objects beyond the cap were dropped; re-run the step "
+                "with a higher max_objects",
+                max_obj,
+                ", ".join(f"{n} site(s) of '{k}'" for k, n in saturated.items()),
+            )
+        return summary
+
+    # ---------------------------------------------------------------- helpers
+    def _site_metadata(self, sites: list[int]) -> list[dict]:
+        refs = list(self.store.experiment.sites())
+        return [
+            {
+                "site_index": s,
+                "plate": refs[s].plate,
+                "well_row": refs[s].well_row,
+                "well_col": refs[s].well_column,
+                "site_y": refs[s].site_y,
+                "site_x": refs[s].site_x,
+            }
+            for s in sites
+        ]
+
+    def collect(self) -> dict:
+        """Register mapobject types and summarize counts per object type
+        (the reference's collect creates ``MapobjectType`` rows with their
+        polygon-zoom threshold)."""
+        # resegment first: min_poly_zoom below comes from the mean object
+        # area, which capped shards would misstate
+        resegmented = self._resegment_saturated()
+
+        registry = MapobjectTypeRegistry(self.store.root)
+        exp = self.store.experiment
+        n_levels = 1
+        for plate in exp.plates:
+            n_levels = max(n_levels, n_pyramid_levels(*plate_mosaic_shape(exp, plate.name)))
+        summary = {}
+        for name in self.store.list_objects():
+            try:
+                feats = self.store.read_features(name)
+            except Exception:
+                continue
+            summary[name] = int(len(feats["site_index"]))
+            mean_px = 0.0
+            area_col = next((c for c in ("Morphology_area", "area") if c in feats), None)
+            if area_col is not None:
+                mean_px = float(feats[area_col].mean())
+            registry.register(MapobjectType(
+                name=name, ref_type="segmented",
+                min_poly_zoom=min_poly_zoom(n_levels, mean_px)))
+        out = {"objects_total": summary}
+        if resegmented:
+            out["resegmented"] = resegmented
+        totals = self._saturation_totals()
+        if totals:
+            out["saturated_sites"] = totals
+            logger.warning(
+                "object capacity was saturated during this run: %s — those "
+                "sites' feature tables and label stacks are missing the "
+                "objects beyond the cap; re-run with a higher "
+                "max_objects to recover them",
+                ", ".join(f"'{k}': {n} site(s)" for k, n in totals.items()),
+            )
+        if self.pipeline_stats is not None:
+            out["pipeline_stats"] = self.pipeline_stats
+        return out
+
+    # ------------------------------------------------- saturation bookkeeping
+    #: bounded escalation: up to 4 doublings of the init-time cap, never
+    #: past the absolute ceiling
+    _RESEGMENT_DOUBLINGS = 4
+    _RESEGMENT_CEILING = 4096
+
+    def _resegment_saturated(self) -> dict:
+        """Re-run just the saturated batches at a doubled ``max_objects``
+        until their counts fit, the doubling budget runs out or the
+        ceiling is hit.  The raised cap lives in ``cap_overrides.json``
+        and is applied by :meth:`_effective_batch`."""
+        done: dict[str, int] = {}
+        for _ in range(self._RESEGMENT_DOUBLINGS):
+            state = self._saturation_state()
+            if not state:
+                break
+            progressed = False
+            for bidx_str in sorted(state):
+                try:
+                    batch = self.load_batch(int(bidx_str))
+                except JobDescriptionError:
+                    continue  # batches re-planned since; stale entry
+                args = batch.get("args", {})
+                if not args.get("auto_resegment", True):
+                    return done  # manual mode: leave the warning flow
+                cap = max(int(args.get("max_objects", 256)),
+                          self._cap_overrides().get(bidx_str, 0))
+                new_cap = min(cap * 2, self._RESEGMENT_CEILING)
+                if new_cap <= cap:
+                    continue  # ceiling reached; the collect warning fires
+                self._write_cap_override(bidx_str, new_cap)
+                logger.warning(
+                    "auto-resegmenting batch %d at max_objects=%d (saturated: %s)",
+                    batch["index"], new_cap, state[bidx_str],
+                )
+                self.run(batch["index"])  # re-records/clears saturation
+                done[bidx_str] = new_cap
+                progressed = True
+            if not progressed:
+                break
+        return done
+
+    @property
+    def _schedule_plan_path(self) -> Path:
+        return self.step_dir / "schedule_plan.json"
+
+    @property
+    def _cap_override_path(self) -> Path:
+        return self.step_dir / "cap_overrides.json"
+
+    def _cap_overrides(self) -> dict:
+        try:
+            return json.loads(self._cap_override_path.read_text())
+        except (OSError, ValueError):
+            return {}
+
+    def _write_cap_override(self, bidx_str: str, cap: int) -> None:
+        state = self._cap_overrides()
+        state[bidx_str] = int(cap)
+        tmp = self._cap_override_path.with_suffix(f".tmp{os.getpid()}")
+        tmp.write_text(json.dumps(state, sort_keys=True))
+        os.replace(tmp, self._cap_override_path)
+
+    @property
+    def _saturation_path(self) -> Path:
+        return self.step_dir / "saturation.json"
+
+    def _record_saturation(self, batch_index: int, saturated: dict) -> None:
+        """Persist per-batch saturation keyed by batch index, so collect
+        sees it from a fresh process and a re-run overwrites (or clears)
+        its own entry; the read-modify-write is flock-serialized and the
+        write atomic, since batches may run as concurrent processes."""
+        path = self._saturation_path
+        if not saturated and not path.exists():
+            return
+        with open(path.with_suffix(".lock"), "w") as lockf:
+            fcntl.flock(lockf, fcntl.LOCK_EX)
+            try:
+                state = json.loads(path.read_text()) if path.exists() else {}
+            except ValueError:
+                state = {}  # torn by a crashed writer; rebuilt from here on
+            if saturated:
+                state[str(batch_index)] = saturated
+            else:
+                state.pop(str(batch_index), None)
+            tmp = path.with_suffix(f".tmp{os.getpid()}")
+            tmp.write_text(json.dumps(state, sort_keys=True))
+            os.replace(tmp, path)
+
+    def _saturation_state(self) -> dict:
+        """Raw per-batch saturation map: {batch_index_str: {objects: n}}."""
+        path = self._saturation_path
+        if not path.exists():
+            return {}
+        try:
+            return json.loads(path.read_text())
+        except ValueError:
+            logger.warning("saturation.json is unreadable (crashed writer?)")
+            return {}
+
+    def _saturation_totals(self) -> dict:
+        totals: dict[str, int] = {}
+        for per_batch in self._saturation_state().values():
+            for k, n in per_batch.items():
+                totals[k] = totals.get(k, 0) + n
+        return totals
+
+    def delete_previous_output(self) -> None:
+        for sub in ("segmentations", "features", "figures"):
+            d = self.store.root / sub
+            if d.exists():
+                shutil.rmtree(d)
+            d.mkdir()
+        # the saturation record, cap escalations and the packing plan
+        # belong to the deleted outputs
+        self._saturation_path.unlink(missing_ok=True)
+        self._saturation_path.with_suffix(".lock").unlink(missing_ok=True)
+        self._cap_override_path.unlink(missing_ok=True)
+        self._schedule_plan_path.unlink(missing_ok=True)
