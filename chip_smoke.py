@@ -8,8 +8,9 @@ Run from the root of a checkout on a machine with one CUDA card:
 Phases (any failure exits non-zero before the last line):
 
 1. Print the card's name and power limit (``nvidia-smi``); build the
-   kernels from ``tmlibrary_tpu_torch/csrc`` with ``nvcc`` and print the
-   build seconds.
+   kernels from ``tmlibrary_tpu_torch/csrc`` with ``nvcc`` and the host
+   library (``csrc/host/hull.cpp``, solidity) with the host compiler,
+   and print the build seconds.
 2. At the main paths' shapes (64 sites of 256x256 and 16 z-stacks of
    16x128x128, ``max_objects=256``, synthetic data, plus edge cases),
    hold each of the nine kernels against its plain PyTorch version on
@@ -163,6 +164,8 @@ FEATURE_TIERS = {
     "Morphology_bbox_height": _EXACT,
     "Morphology_bbox_width": _EXACT,
     "Morphology_perimeter": _EXACT,
+    # integer hull counts on the host, one float64 ratio cast to float32
+    "Morphology_solidity": _EXACT,
     # histogram buckets mapped back by IEEE + * / (divisions by a tensor)
     "Intensity_p25": _EXACT,
     "Intensity_median": _EXACT,
@@ -1137,6 +1140,7 @@ def grouped_stats_on_feature_paths(torch, fm, measure, label_sets, compare) -> f
 
 
 def main() -> int:
+    started = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1148,7 +1152,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
-        from tmlibrary_tpu_torch import benchmarks, shootout
+        from tmlibrary_tpu_torch import benchmarks, native, shootout
         from tmlibrary_tpu_torch.jterator import pipeline
         from tmlibrary_tpu_torch.jterator.description import PipelineDescription
         from tmlibrary_tpu_torch.jterator.modules import get_module
@@ -1172,6 +1176,9 @@ def main() -> int:
         _cuda.lib()
         wall, nvcc_s = time.perf_counter() - t0, _cuda.last_build_seconds
         print(f"build: {wall:.2f} s wall (nvcc {nvcc_s:.2f} s) -> {_cuda.build().name}")
+        t0 = time.perf_counter()
+        native.lib()
+        print(f"build: host library {time.perf_counter() - t0:.2f} s -> {native.build().name}")
 
         # ---------------------------------------------------------- phase 2
         dev = torch.device("cuda")
@@ -1320,6 +1327,9 @@ def main() -> int:
         # ---------------------------------------------------------- phase 5
         phase_steps(torch, wrappers, card, on_chip, chain_sps)
 
+        # ---------------------------------------------------------- phase 6
+        phase_engine(torch, wrappers, card, on_chip)
+
         # each kernel's launches: the path that brought it to the port
         path_of = {"intensity_hist": run_q, "glcm_all": run4, "distance_transform": run_d,
                    "cc3d_min_propagate": run_v, "watershed3d_flood": run_v}
@@ -1335,6 +1345,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    print(f"total: {time.perf_counter() - started:.1f} s of command")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print("kernels: " + ", ".join(r["name"] for r in records))
@@ -2052,6 +2063,314 @@ def phase_steps(torch, wrappers, card, on_chip, chain_sps: float) -> None:
         hold_steps_on_cpu(torch, store, base, pipe, args, card)
     finally:
         shutil.rmtree(base, ignore_errors=True)
+
+
+def run_cli(cli, argv: list[str]) -> str:
+    """``cli.main(argv)`` in this process (so the launch counters see its
+    kernels), its standard output returned; a non-zero exit fails."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise SmokeFailure(f"cli {' '.join(argv[:2])} exited {rc}: {buf.getvalue()[-500:]}")
+    return buf.getvalue()
+
+
+def ledger_sequence(engine, root: Path) -> list[tuple]:
+    return [(e.get("event"), e.get("step"), e.get("batch"))
+            for e in engine.RunLedger(root / "workflow" / "ledger.jsonl").events()]
+
+
+def phase_engine(torch, wrappers, card, on_chip) -> None:
+    """Phase 6, ``workflow_engine_p96x4_256_c4``: the ``Workflow`` engine
+    through the port's CLI, as a user submits a workflow.  Phase 5's
+    plate (96 wells at 2x2 sites of 256x256, 384 sites, 2 cycles, cycle 1
+    rolled within +-40) with config 4's five stains, written under
+    ``build/``; a JSON description of corilla -> align (ref_cycle 0,
+    batches of 64) -> jterator (config 4 with every channel corrected and
+    aligned, from a ``.pipe.json``; cycle 1, batches of 64,
+    ``max_objects=256``) run by ``workflow submit --device cuda`` in this
+    process with the launch counters set to 0 just before and read just
+    after, then ``workflow resume`` on the finished ledger (nothing may
+    re-run or launch) and ``workflow status``.  Holds: the shards read
+    back equal the rows persisted; the same description through ``workflow
+    submit --device cpu`` over a copy of the images gives the ledger's
+    (event, step, batch) sequence, statistics by ``STATS_TIERS``, shifts
+    exactly, and on jterator's batch 0 (64 sites) labels, counts and
+    ``Morphology_solidity`` exactly, the other features by
+    ``corrected_tiers(CARD_TIERS)``.  The directory is removed at the end."""
+    import threading
+
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks, capacity, cli
+    from tmlibrary_tpu_torch.io import parquet
+    from tmlibrary_tpu_torch.models.experiment import grid_experiment
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import engine
+    from tmlibrary_tpu_torch.workflow.steps import jterator as jterator_step
+
+    base = Path(__file__).resolve().parent / "build" / f"phase6.{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        channels = benchmarks.FULL_STACK_CHANNELS
+        exp = grid_experiment("phase6", well_rows=PLATE[0], well_cols=PLATE[1],
+                              sites_per_well=SITES_PER_WELL, channel_names=channels,
+                              site_shape=(SIZE, SIZE), n_cycles=2)
+        n = exp.n_sites
+        data = benchmarks.synthetic_full_stack_batch(n, size=SIZE, seed=SEED)
+        drift = np.random.default_rng(SEED + 9).integers(-MAX_DRIFT, MAX_DRIFT + 1, (n, 2))
+        store = ExperimentStore.create(base / "card", exp)
+        for c, ch in enumerate(channels):
+            px = data.pop(ch).astype(np.uint16)
+            store.write_sites(px, list(range(n)), cycle=0, channel=c)
+            store.write_sites(np.stack([np.roll(s, tuple(d), axis=(0, 1))
+                                        for s, d in zip(px, drift)]),
+                              list(range(n)), cycle=1, channel=c)
+        pipe = benchmarks.full_feature_pipe(texture_levels=LEVELS, zernike_degree=ZERNIKE_DEGREE,
+                                            correct=True, align=True)
+        (store.root / "c4.pipe.json").write_text(json.dumps(pipe))
+        desc_path = base / "workflow.json"
+        engine.WorkflowDescription.canonical({
+            "corilla": {},
+            "align": {"ref_cycle": 0, "batch_size": STEP_BATCH},
+            "jterator": {"pipe": "c4.pipe.json", "cycle": 1, "batch_size": STEP_BATCH,
+                         "max_objects": MAX_OBJECTS},
+        }).save(desc_path)
+        root = str(store.root)
+        print(f"phase 6, workflow_engine_p96x4_256_c4: corilla -> align -> jterator (config 4, "
+              f"{len(channels)} channels corrected and aligned) through `workflow submit "
+              f"--device cuda` over {n} sites ({PLATE[0]}x{PLATE[1]} wells at "
+              f"{SITES_PER_WELL[0]}x{SITES_PER_WELL[1]} sites of {SIZE}x{SIZE}, 2 cycles; "
+              f"written in {time.perf_counter() - t0:.2f} s) on {card}")
+
+        # the persist worker's solidity and Parquet time, and every table
+        # it hands the Parquet writer
+        lock = threading.Lock()
+        spent = {"solidity": 0.0, "parquet": 0.0}
+        written: dict[str, dict] = {}
+        solidity, write_table = jterator_step.solidity_batch, parquet.write_table
+
+        def timed_solidity(*a, **kw):
+            t = time.perf_counter()
+            out = solidity(*a, **kw)
+            with lock:
+                spent["solidity"] += time.perf_counter() - t
+            return out
+
+        def timed_write(path, columns):
+            t = time.perf_counter()
+            out = write_table(path, columns)
+            with lock:
+                spent["parquet"] += time.perf_counter() - t
+                written[str(path)] = columns
+            return out
+
+        submit = ["workflow", "submit", "--root", root, "--description", str(desc_path)]
+        capacity.reset_routing_history()
+        jterator_step.solidity_batch, parquet.write_table = timed_solidity, timed_write
+        try:
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+                if hasattr(w, "routes"):
+                    w.routes = dict.fromkeys(w.routes, 0)
+            t0 = time.perf_counter()
+            summary = json.loads(run_cli(cli, submit + ["--device", "cuda"]))
+            torch.cuda.synchronize()
+            engine_s = time.perf_counter() - t0
+            launches = {k: w.launches for k, w in wrappers.items()}
+        finally:
+            jterator_step.solidity_batch, parquet.write_table = solidity, write_table
+
+        events = engine.RunLedger(store.workflow_dir / "ledger.jsonl").events()
+        done = {e["step"]: e for e in events if e["event"] == "step_done"}
+        steps = ["corilla", "align", "jterator"]
+        if list(summary) != steps or sorted(done) != sorted(steps):
+            raise SmokeFailure(f"engine: summary {list(summary)}, steps done {sorted(done)}")
+        results = [e["result"] for e in events
+                   if e["event"] == "batch_done" and e["step"] == "jterator"]
+        n_launched = len(results) + sum(r.get("bucket_escalations", 0) for r in results)
+        expected = {k: 0 for k in wrappers}
+        expected.update({"fill_holes_flood": n_launched, "cc_min_propagate": n_launched,
+                         "watershed_flood": n_launched, "grouped_stats": 16 * n_launched,
+                         "glcm_all": n_launched})
+        print(f"  launches {launches} over {len(results)} jterator batches and "
+              f"{n_launched - len(results)} escalation re-launches")
+        if launches != expected:
+            raise SmokeFailure(f"engine: launches {launches}, expected {expected}")
+        for k, route in on_chip.items():
+            taken = {r: c for r, c in wrappers[k].routes.items() if c}
+            if taken != {route: launches[k]}:
+                raise SmokeFailure(f"engine: {k} routes {taken}, expected all on {route}")
+        stats = done["jterator"]["pipeline_stats"]
+        persist_s = stats["phases"]["persist"]["total_s"]
+        walls = {s: done[s]["elapsed"] for s in steps}
+        print(f"  engine: {n} sites in {engine_s:.3f} s = {n / engine_s:.1f} sites/s end to end "
+              f"(CLI submit: corilla, align, jterator); step walls (s): "
+              + ", ".join(f"{s} {walls[s]:.3f}" for s in steps)
+              + f"; jterator {n / walls['jterator']:.1f} sites/s; on {card}")
+        print(f"    executor at depth {stats['depth']} ({stats['source']}), totals (s): "
+              + ", ".join(f"{k} {v['total_s']:.3f}" for k, v in stats["phases"].items())
+              + f"; rungs routed {sorted({r['bucket_capacity'] for r in results})}")
+        # the same solidity calls alone, the persist worker's neighbours idle
+        alone = []
+        for name in ("nuclei", "cells"):
+            stack = store.read_labels(list(range(STEP_BATCH)), name)
+            t0 = time.perf_counter()
+            for _ in range(3):
+                solidity(stack, MAX_OBJECTS)
+            alone.append((time.perf_counter() - t0) / 3 / STEP_BATCH * 1e3)
+        print(f"    persist {persist_s:.3f} s: solidity {spent['solidity']:.3f} s "
+              f"({spent['solidity'] / persist_s:.1%}), Parquet writes {spent['parquet']:.3f} s "
+              f"({spent['parquet'] / persist_s:.1%}) of it; solidity alone (a batch, nothing "
+              f"else running) nuclei {alone[0]:.3f}, cells {alone[1]:.3f} ms a site; on {card}")
+
+        # the shards read back equal the rows persisted
+        nan_cells = {}
+        for path, cols in written.items():
+            back = parquet.read_table(path)
+            if list(back) != list(cols):
+                raise SmokeFailure(f"engine: {path} reads back columns {list(back)}")
+            for k, v in cols.items():
+                v = np.asarray(v)
+                same = (back[k].tolist() == v.tolist() if v.dtype.kind in "UO" else
+                        back[k].dtype == v.dtype and
+                        np.array_equal(back[k], v, equal_nan=v.dtype.kind == "f"))
+                if not same:
+                    raise SmokeFailure(f"engine: {Path(path).name} column {k} reads back "
+                                       "other values")
+                if v.dtype.kind == "f":
+                    family = Path(path).parent.name
+                    nan_cells[family] = nan_cells.get(family, 0) + int(np.isnan(v).sum())
+        for name in ("nuclei", "cells"):
+            rows = len(store.read_features(name)["label"])
+            persisted = sum(r["objects"][name] for r in results)
+            total = summary["jterator"]["collected"]["objects_total"][name]
+            if not rows == persisted == total:
+                raise SmokeFailure(f"engine: {name} rows {rows}, persisted {persisted}, "
+                                   f"objects_total {total}")
+        solid = store.read_features("nuclei")["Morphology_solidity"]
+        if not ((solid > 0) & (solid <= 1)).all():
+            raise SmokeFailure("engine: Morphology_solidity outside (0, 1]")
+        print(f"  shards: {len(written)} Parquet shards read back equal to the rows persisted; "
+              f"NaN feature values per family {nan_cells}")
+
+        # resume on the finished ledger: nothing re-runs, nothing launches
+        before = ledger_sequence(engine, store.root)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        resumed = json.loads(run_cli(cli, ["workflow", "resume", "--root", root, "--description",
+                                           str(desc_path), "--device", "cuda"]))
+        resume_s = time.perf_counter() - t0
+        relaunched = {k: w.launches for k, w in wrappers.items() if w.launches}
+        if resumed != {} or relaunched or \
+                ledger_sequence(engine, store.root) != before + [("run_started", None, None)]:
+            raise SmokeFailure(f"engine: resume re-ran {resumed} / launched {relaunched}")
+        status = run_cli(cli, ["workflow", "status", "--root", root])
+        states = [line.split()[:2] for line in status.splitlines() if not line.startswith(" ")]
+        if states != [[s, "done"] for s in steps]:
+            raise SmokeFailure(f"engine: status {states}")
+        print(f"  resume on the finished ledger: nothing re-ran or launched ({resume_s:.3f} s); "
+              "status:\n" + "\n".join("    " + line for line in status.splitlines()))
+
+        # the same description on the CPU
+        copy_part(store.root, base / "cpu", "images")
+        cpu = ExperimentStore.open(base / "cpu")
+        (cpu.root / "c4.pipe.json").write_text(json.dumps(pipe))
+        capacity.reset_routing_history()
+        t0 = time.perf_counter()
+        run_cli(cli, ["workflow", "submit", "--root", str(cpu.root), "--description",
+                      str(desc_path), "--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+        if ledger_sequence(engine, cpu.root) != before:
+            raise SmokeFailure("engine: the CPU run's ledger events differ from the card's")
+        errs = {}
+        for cycle in range(2):
+            for ch in range(len(channels)):
+                got, want = store.read_illumstats(cycle, ch), cpu.read_illumstats(cycle, ch)
+                for k in ("n", "percentile_keys", "percentile_values"):
+                    hold_tier(f"engine.corilla[{cycle},{ch}].{k}", torch.from_numpy(got[k]),
+                              torch.from_numpy(want[k]), _EXACT)
+                for k, tier in STATS_TIERS.items():
+                    errs[k] = max(errs.get(k, 0.0), hold_tier(
+                        f"engine.corilla[{cycle},{ch}].{k}", torch.from_numpy(got[k]),
+                        torch.from_numpy(want[k]), tier))
+        if not np.array_equal(store.read_shifts(1), cpu.read_shifts(1)):
+            raise SmokeFailure("engine: the CPU's shifts differ from the card's")
+        sites = json.loads((store.workflow_dir / "jterator" / "batch_000.json").read_text())[
+            "sites"]
+        # batch 0 as the CPU run wrote it, each side corrected with its own
+        # statistics: labels, counts and solidity exact; the features it
+        # puts outside the corrected tiers are counted (an intensity
+        # standard deviation's cancellation magnifies the statistics'
+        # ulps by (mean / std)^2)
+        outside, worst_own = hold_batch(store, cpu, sites, corrected_tiers(CARD_TIERS),
+                                        gate=False)
+        # batch 0 again on the CPU over the card's statistics (the CPU
+        # engine's batch file, `jterator run --job 0`): every feature by
+        # CARD_TIERS
+        copy_part(store.root, cpu.root, "illumstats")
+        t0 = time.perf_counter()
+        run_cli(cli, ["jterator", "run", "--root", str(cpu.root), "--device", "cpu",
+                      "--job", "0"])
+        rerun_s = time.perf_counter() - t0
+        _, worst = hold_batch(store, cpu, sites, CARD_TIERS, gate=True)
+        print(f"  CPU hold: the same description on the CPU in {cpu_s:.2f} s: ledger events "
+              f"equal ({len(before)}), corilla n/percentiles exact, largest |card - cpu| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f"; shifts exact; batch 0 ({len(sites)} sites): labels, counts and "
+              "Morphology_solidity exact; features with each side's own statistics: "
+              f"{outside} values outside corrected CARD_TIERS, largest |card - cpu| by family "
+              + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst_own.items()))
+              + f"; batch 0 rerun on the CPU over the card's statistics ({rerun_s:.2f} s): "
+              "features within CARD_TIERS, largest |card - cpu| by family "
+              + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def hold_batch(store, cpu, sites, tiers: dict, gate: bool) -> tuple[int, dict]:
+    """The card store's rows of ``sites`` against the CPU store's: labels,
+    rows (site, label, metadata) and ``Morphology_solidity`` exact; each
+    float feature within its tier of ``tiers``, which fails when ``gate``
+    and is otherwise counted.  Returns the values outside their tier and
+    the largest |card - cpu| of each feature family."""
+    import numpy as np
+
+    outside, worst = 0, {}
+    for name in ("nuclei", "cells"):
+        a, b = store.read_labels(sites, name), cpu.read_labels(sites, name)
+        if not np.array_equal(a, b):
+            raise SmokeFailure(f"engine: {name} labels of batch 0 differ from the CPU's in "
+                               f"{int((a != b).sum())} pixels")
+        got, want = (rows_of_sites(s.read_features(name), sites) for s in (store, cpu))
+        if list(got) != list(want):
+            raise SmokeFailure(f"engine: {name} feature columns differ from the CPU's")
+        for k in ("site_index", "label", "plate", "well_row", "well_col", "site_y", "site_x",
+                  "Morphology_solidity"):
+            if k in got and got[k].tolist() != want[k].tolist():
+                raise SmokeFailure(f"engine: {name} {k} differs from the CPU's")
+        for k, v in got.items():
+            if v.dtype.kind != "f":
+                continue
+            rtol, atol = feature_tier(k, tiers)
+            if gate:
+                np.testing.assert_allclose(v, want[k], rtol=rtol, atol=atol,
+                                           err_msg=f"engine {name}/{k}")
+            else:
+                outside += int((~np.isclose(v, want[k], rtol=rtol, atol=atol,
+                                            equal_nan=True)).sum())
+            if v.size:
+                family = k.split("_")[0]
+                worst[family] = max(worst.get(family, 0.0),
+                                    float(np.nanmax(np.abs(v - want[k]), initial=0.0)))
+    return outside, worst
 
 
 def same_store(a, b, title: str) -> None:

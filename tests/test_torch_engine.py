@@ -1,0 +1,351 @@
+"""The port's ``Workflow`` engine, run ledger and CLI against the JAX
+package's.
+
+One description (corilla -> align -> jterator with config 3 corrected
+and aligned, from ``test_torch_workflow_steps``) runs under both engines
+over two copies of one 16-site store of 64x64: the stores are equal
+(labels exact, features within ``CORRECTED_FEATURE_TIERS``) and so are
+the ledgers' (event, step, batch) sequences, with the reference's
+telemetry off.  Then resume, an interrupted run resumed, quarantine,
+drift, the ledgers read across packages, descriptions, refusals and the
+CLI on the CPU.
+"""
+
+import json
+import shutil
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_workflow_steps import (
+    ALIGN,
+    CORILLA,
+    JTERATOR,
+    assert_same_features,
+    assert_same_labels,
+    copy_store,
+    make_store,
+)
+from tmlibrary_tpu import capacity as j_capacity
+from tmlibrary_tpu import resilience as j_resilience
+from tmlibrary_tpu import telemetry
+from tmlibrary_tpu.models.store import ExperimentStore as JStore
+from tmlibrary_tpu.workflow.engine import RunLedger as JLedger
+from tmlibrary_tpu.workflow.engine import Workflow as JWorkflow
+from tmlibrary_tpu.workflow.engine import WorkflowDescription as JDescription
+from tmlibrary_tpu_torch import capacity, cli, resilience
+from tmlibrary_tpu_torch.errors import DeviceError, NotSupportedError, WorkflowError
+from tmlibrary_tpu_torch.models.store import ExperimentStore
+from tmlibrary_tpu_torch.workflow.engine import RunLedger, Workflow, WorkflowDescription
+from tmlibrary_tpu_torch.workflow.steps.jterator import ImageAnalysisRunner
+
+torch.set_num_threads(1)
+
+STEP_ARGS = {"corilla": CORILLA, "align": ALIGN, "jterator": JTERATOR}
+
+
+def sequence(root) -> list[tuple]:
+    return [(e.get("event"), e.get("step"), e.get("batch"))
+            for e in RunLedger(root / "workflow" / "ledger.jsonl").events()]
+
+
+def reset_routers():
+    j_capacity.reset_routing_history()
+    capacity.reset_routing_history()
+
+
+def run_port(root, desc=None, resume=False, **kw):
+    reset_routers()
+    desc = desc or WorkflowDescription.canonical(STEP_ARGS)
+    return Workflow(ExperimentStore.open(root), desc, device="cpu", **kw).run(resume=resume)
+
+
+def run_reference(root, desc_path, resume=False):
+    reset_routers()
+    was = telemetry.enabled()
+    telemetry.set_enabled(False)
+    try:
+        return JWorkflow(JStore.open(root), JDescription.load(desc_path)).run(resume=resume)
+    finally:
+        telemetry.set_enabled(was)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    base = tmp_path_factory.mktemp("engine")
+    make_store(base / "src")
+    for name in ("ref", "port"):
+        copy_store(base / "src", base / name)
+    WorkflowDescription.canonical(STEP_ARGS).save(base / "wf.json")
+    ref = run_reference(base / "ref", base / "wf.json")
+    port = run_port(base / "port", WorkflowDescription.load(base / "wf.json"))
+    reset_routers()
+    return {"base": base, "ref": ref, "port": port}
+
+
+# ---------------------------------------------------------- both engines
+def test_both_engines_write_equal_stores(runs):
+    base = runs["base"]
+    ref, port = JStore.open(base / "ref"), ExperimentStore.open(base / "port")
+    assert_same_labels(port, ref)
+    for name in ("nuclei", "cells"):
+        assert_same_features(ref.read_features(name), port.read_features(name))
+    np.testing.assert_array_equal(port.read_shifts(1), ref.read_shifts(1))
+    assert port.read_intersection() == ref.read_intersection()
+    for ch in range(2):
+        a, b = port.read_illumstats(1, ch), ref.read_illumstats(1, ch)
+        np.testing.assert_array_equal(a["n"], b["n"])
+    assert runs["port"]["jterator"]["collected"]["objects_total"] == \
+        runs["ref"]["jterator"]["collected"]["objects_total"]
+    assert list(runs["port"]) == list(runs["ref"]) == ["corilla", "align", "jterator"]
+
+
+def test_both_ledgers_carry_the_same_events(runs):
+    base = runs["base"]
+    want = sequence(base / "ref")
+    assert sequence(base / "port") == want
+    assert want[0] == ("run_started", None, None)
+    assert ("first_batch", "jterator", None) in want
+    assert want[-1] == ("step_done", "jterator", None)
+
+
+def test_each_status_reads_the_other_ledger(runs):
+    for name in ("ref", "port"):
+        path = runs["base"] / name / "workflow" / "ledger.jsonl"
+        assert RunLedger(path).status() == JLedger(path).status()
+        assert RunLedger(path).completed_steps() == JLedger(path).completed_steps()
+        assert RunLedger(path).last_description_hash() == JLedger(path).last_description_hash()
+    port = RunLedger(runs["base"] / "port" / "workflow" / "ledger.jsonl").status()
+    assert {s: e["state"] for s, e in port.items()} == \
+        {"corilla": "done", "align": "done", "jterator": "done"}
+    assert port["jterator"]["pipeline_stats"]["n_batches"] == 4
+
+
+def test_description_hashes_and_json_agree_with_the_reference(runs):
+    path = runs["base"] / "wf.json"
+    ours = WorkflowDescription.load(path)
+    ref = JDescription.load(path)  # the reference's YAML loader reads the JSON
+    assert ref.to_dict() == ours.to_dict()
+    assert Workflow(ExperimentStore.open(runs["base"] / "port"), ours,
+                    device="cpu").description_hash() == \
+        JWorkflow(JStore.open(runs["base"] / "ref"), ref).description_hash()
+    events = JLedger(runs["base"] / "ref" / "workflow" / "ledger.jsonl").events()
+    assert events[0]["description_hash"] == \
+        RunLedger(runs["base"] / "port" / "workflow" / "ledger.jsonl").events()[0][
+            "description_hash"]
+    for wtype in ("canonical", "multiplexing"):
+        assert WorkflowDescription.for_type(wtype, STEP_ARGS).to_dict() == \
+            JDescription.for_type(wtype, STEP_ARGS).to_dict()
+
+
+# ---------------------------------------------------------------- resume
+def test_resume_after_a_completed_run_reruns_nothing(runs, tmp_path):
+    for name in ("ref", "port"):
+        shutil.copytree(runs["base"] / name, tmp_path / name)
+    shards = sorted((tmp_path / "port" / "features").rglob("*.parquet"))
+    stamps = [p.stat().st_mtime_ns for p in shards]
+    before = sequence(tmp_path / "port")
+    assert run_port(tmp_path / "port", resume=True) == {}
+    assert run_reference(tmp_path / "ref", runs["base"] / "wf.json", resume=True) == {}
+    assert sequence(tmp_path / "port") == before + [("run_started", None, None)]
+    assert sequence(tmp_path / "port") == sequence(tmp_path / "ref")
+    assert [p.stat().st_mtime_ns for p in shards] == stamps
+
+
+@pytest.fixture
+def fail_batch(monkeypatch):
+    """Make the jterator step's launch of ``state["batch"]`` raise while
+    ``state["on"]``."""
+    state = {"on": True, "batch": 2}
+    launch = ImageAnalysisRunner.launch_batch
+
+    def failing(self, batch, prefetched=None):
+        if state["on"] and batch["index"] == state["batch"]:
+            raise RuntimeError("injected launch failure")
+        return launch(self, batch, prefetched)
+
+    monkeypatch.setattr(ImageAnalysisRunner, "launch_batch", failing)
+    return state
+
+
+def test_an_interrupted_run_resumes_to_the_uninterrupted_store(runs, tmp_path, fail_batch):
+    copy_store(runs["base"] / "src", tmp_path / "x")
+    strict = resilience.ResilienceConfig(max_batch_failures=0)
+    with pytest.raises(WorkflowError, match="quarantine budget"):
+        run_port(tmp_path / "x", resilience=strict)
+    status = RunLedger(tmp_path / "x" / "workflow" / "ledger.jsonl").status()
+    assert status["jterator"]["state"] == "failed"
+    assert status["jterator"]["quarantined"] == [2]
+    assert RunLedger(tmp_path / "x" / "workflow" / "ledger.jsonl").completed_batches(
+        "jterator") == {0, 1}
+    assert JLedger(tmp_path / "x" / "workflow" / "ledger.jsonl").status() == status
+    fail_batch["on"] = False
+    summary = run_port(tmp_path / "x", resume=True)
+    assert list(summary) == ["jterator"]
+    resumed = [s for s in sequence(tmp_path / "x") if s[1] == "jterator"]
+    assert resumed[-4:] == [("batch_done", "jterator", 2), ("first_batch", "jterator", None),
+                            ("batch_done", "jterator", 3), ("step_done", "jterator", None)]
+    got, want = ExperimentStore.open(tmp_path / "x"), ExperimentStore.open(runs["base"] / "port")
+    assert_same_labels(got, want)
+    for name in ("nuclei", "cells"):
+        a, b = got.read_features(name), want.read_features(name)
+        order_a = np.lexsort((a["label"], a["site_index"]))
+        order_b = np.lexsort((b["label"], b["site_index"]))
+        for k in a:
+            np.testing.assert_array_equal(a[k][order_a], b[k][order_b], err_msg=k)
+
+
+def test_a_failing_batch_is_quarantined_and_retried_first_on_resume(runs, tmp_path,
+                                                                    fail_batch):
+    copy_store(runs["base"] / "src", tmp_path / "x")
+    summary = run_port(tmp_path / "x")
+    assert summary["jterator"]["quarantined"] == [2]
+    ledger = RunLedger(tmp_path / "x" / "workflow" / "ledger.jsonl")
+    failed = [e for e in ledger.events() if e["event"] == "batch_failed"]
+    assert len(failed) == 1 and failed[0]["classification"] == "permanent"
+    assert failed[0]["exception"] == "RuntimeError"
+    assert ledger.status()["jterator"]["state"] == "partial"
+    assert ledger.quarantined_batches("jterator") == {2}
+    fail_batch["on"] = False
+    run_port(tmp_path / "x", resume=True)
+    assert ledger.quarantined_batches("jterator") == set()
+    assert sequence(tmp_path / "x")[-3:] == [("batch_done", "jterator", 2),
+                                             ("first_batch", "jterator", None),
+                                             ("step_done", "jterator", None)]
+
+
+def test_a_changed_description_drifts_and_replans(runs, tmp_path):
+    copy_store(runs["base"] / "src", tmp_path / "x")
+    run_port(tmp_path / "x")
+    changed = WorkflowDescription.canonical({**STEP_ARGS,
+                                             "jterator": {**JTERATOR, "batch_size": 8}})
+    summary = run_port(tmp_path / "x", changed, resume=True)
+    assert summary == {}  # every step had completed: nothing re-runs
+    seq = sequence(tmp_path / "x")
+    assert seq[-2:] == [("description_drift", None, None), ("run_started", None, None)]
+
+
+# ----------------------------------------------------------- the ledger
+def test_ledger_lines_are_sealed_as_the_reference_seals_them(tmp_path):
+    body = json.dumps({"step": "jterator", "event": "batch_done", "batch": 3, "ts": 1.5})
+    assert RunLedger._seal(body) == JLedger._seal(body)
+    sealed = RunLedger._seal(body)
+    assert sealed.endswith(f'"crc": "{zlib.crc32(body.encode()):08x}"}}')
+    assert RunLedger._line_ok(sealed) and JLedger._line_ok(sealed)
+    assert not RunLedger._line_ok(sealed.replace('"batch": 3', '"batch": 4'))
+    path = tmp_path / "ledger.jsonl"
+    ours = RunLedger(path)
+    ours.append(step="a", event="init_done", n_batches=2)
+    assert ours.append_batch_done("a", 0, elapsed=0.1)
+    assert not ours.append_batch_done("a", 0, elapsed=0.1)  # idempotent
+    JLedger(path).append(step="a", event="batch_done", batch=1)
+    with open(path, "a") as f:
+        f.write('{"step": "a", "event": "batch_done", "batch": 9, "crc": "00')  # torn
+    assert RunLedger(path).completed_batches("a") == {0, 1}
+    fresh = RunLedger(path)
+    assert fresh.recover() > 0
+    assert path.read_text().endswith("\n")
+    fresh.append(step="a", event="step_done")
+    assert [e["event"] for e in JLedger(path).events()] == \
+        ["init_done", "batch_done", "batch_done", "step_done"]
+    assert RunLedger(path).status() == JLedger(path).status()
+
+
+def test_resilience_matches_the_reference():
+    for exc in (TimeoutError(), OSError("nfs"), MemoryError(), ValueError("x"), KeyError(1),
+                RuntimeError("CUDA out of memory"), RuntimeError("device lost"),
+                RuntimeError("bug"), ConnectionError()):
+        assert resilience.classify(exc) == j_resilience.classify(exc), exc
+    assert resilience.classify(DeviceError("no card")) == "permanent"
+    assert resilience.classify(NotSupportedError("later")) == "permanent"
+    ours, ref = resilience.RetryPolicy(seed=3), j_resilience.RetryPolicy(seed=3)
+    assert [ours.delay(a) for a in range(1, 6)] == [ref.delay(a) for a in range(1, 6)]
+    calls = []
+
+    def flaky():
+        calls.append(1)
+        if len(calls) < 3:
+            raise TimeoutError("slow")
+        return "ok"
+
+    out = resilience.retry_call(flaky, ours, sleep=lambda s: None)
+    assert out.ok and out.value == "ok" and out.attempts == 3
+    out = resilience.retry_call(lambda: 1 / 0, ours, sleep=lambda s: None)
+    assert not out.ok and out.attempts == 1 and out.classification == "permanent"
+    for budget, n, want in ((0.5, 4, 2), (0, 9, 0), (3, 100, 3)):
+        assert resilience.ResilienceConfig(max_batch_failures=budget).failure_budget(n) == \
+            j_resilience.ResilienceConfig(max_batch_failures=budget).failure_budget(n) == want
+
+
+# ------------------------------------------------------------- refusals
+def test_descriptions_and_refusals(tmp_path):
+    for step in ("metaconfig", "imextract", "illuminati"):
+        desc = WorkflowDescription.canonical({**STEP_ARGS, step: {}})
+        with pytest.raises(NotSupportedError, match="ROADMAP A item"):
+            desc.validate()
+    WorkflowDescription.for_type("multiplexing", STEP_ARGS).validate()  # inactive: accepted
+    desc = WorkflowDescription.canonical(STEP_ARGS)
+    desc.stages[0].steps.append(type(desc.stages[0].steps[0])(name="nope"))
+    with pytest.raises(WorkflowError, match="unknown step"):
+        desc.validate()
+    with pytest.raises(WorkflowError):
+        WorkflowDescription.for_type("nope")
+    JDescription.canonical(STEP_ARGS).save(tmp_path / "wf.yaml")
+    with pytest.raises(NotSupportedError, match="YAML"):
+        WorkflowDescription.load(tmp_path / "wf.yaml")
+    make_store(tmp_path / "s")
+    with pytest.raises(DeviceError):  # the default device is the card
+        Workflow(ExperimentStore.open(tmp_path / "s"), WorkflowDescription.canonical(STEP_ARGS))
+
+
+# ------------------------------------------------------------------ CLI
+def test_cli_submit_status_and_log_on_the_cpu(runs, tmp_path, capsys):
+    copy_store(runs["base"] / "src", tmp_path / "x")
+    root = str(tmp_path / "x")
+    desc = str(runs["base"] / "wf.json")
+    reset_routers()
+    assert cli.main(["workflow", "submit", "--root", root, "--description", desc,
+                     "--device", "cpu"]) == 0
+    summary = json.loads(capsys.readouterr().out)
+    assert summary["jterator"]["collected"]["objects_total"] == \
+        runs["port"]["jterator"]["collected"]["objects_total"]
+    assert sequence(tmp_path / "x") == sequence(runs["base"] / "port")
+    assert cli.main(["workflow", "resume", "--root", root, "--description", desc,
+                     "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out) == {}
+    assert cli.main(["workflow", "status", "--root", root]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert [line.split()[:2] for line in out if not line.startswith(" ")] == \
+        [["corilla", "done"], ["align", "done"], ["jterator", "done"]]
+    assert any("pipeline depth 2 (default) over 4 batches" in line for line in out)
+    assert cli.main(["log", "--root", root, "--tail", "3"]) == 0
+    tail = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    assert [e["event"] for e in tail] == ["batch_done", "step_done", "run_started"]
+    assert cli.main(["jterator", "info", "--root", root, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.count("batch ") == 4
+    assert cli.main(["corilla", "args"]) == 0
+    assert [a["name"] for a in json.loads(capsys.readouterr().out)] == \
+        ["chunk_size", "n_devices", "smooth_sigma", "prefetch_chunks"]
+    assert_same_labels(ExperimentStore.open(tmp_path / "x"),
+                       ExperimentStore.open(runs["base"] / "port"))
+
+
+def test_cli_step_verbs_and_refusals(runs, tmp_path, capsys):
+    copy_store(runs["base"] / "src", tmp_path / "x")
+    root = str(tmp_path / "x")
+    assert cli.main(["corilla", "init", "--root", root, "--device", "cpu",
+                     "--chunk-size", "6"]) == 0
+    assert "planned 4 batches" in capsys.readouterr().out
+    assert cli.main(["corilla", "run", "--root", root, "--device", "cpu", "--job", "0"]) == 0
+    assert capsys.readouterr().out.startswith("corilla batch 0: {")
+    assert cli.main(["corilla", "collect", "--root", root, "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out) == {}
+    assert cli.main(["illuminati", "init", "--root", root]) == 2
+    assert "ROADMAP A item 4" in capsys.readouterr().err
+    assert cli.main(["workflow", "submit", "--root", root, "--description",
+                     str(runs["base"] / "wf.json")]) == 1  # no card here
+    assert "is_available" in capsys.readouterr().err
+    assert cli.main(["workflow", "submit", "--root", root, "--device", "cpu"]) == 1
+    assert "no workflow description" in capsys.readouterr().err

@@ -204,7 +204,8 @@ def test_feature_tiers_cover_names_and_match_chip_smoke():
         k: v for k, v in FEATURE_TIERS.items() if k != "Zernike_*"}
     card, ref = feature_tier("Zernike_6_2", CARD_TIERS), FEATURE_TIERS["Zernike_*"]
     assert card[0] < ref[0] and card[1] < ref[1]
-    for name in ("Intensity_mode_DAPI", "Morphology_solidity", "sum"):
+    assert feature_tier("Morphology_solidity") == (0.0, 0.0)  # ported: exact
+    for name in ("Intensity_mode_DAPI", "Morphology_convexity", "sum"):
         for tiers in (FEATURE_TIERS, CARD_TIERS):
             with pytest.raises(KeyError):
                 feature_tier(name, tiers)

@@ -146,21 +146,28 @@ def test_manifest_round_trips_between_packages(tmp_path):
 
 
 def test_feature_shards_are_npz_columns(tmp_path):
+    """Feature shards were ``.npz`` columns; they are now Parquet both
+    ways: the port's round trip, and the JAX package's store reading the
+    port's shards as the DataFrame it would have written."""
+    import pandas as pd
+
     st = ExperimentStore.create(tmp_path / "exp", _grid(experiment))
     with pytest.raises(StoreError):
         st.read_features("nuclei")
     a = {"site_index": np.array([0, 0, 2]), "plate": np.array(["p", "p", "p"]),
-         "label": np.array([1, 2, 1]), "Intensity_sum_DAPI": np.array([1.5, 2.0, 3.0])}
+         "label": np.array([1, 2, 1]), "Intensity_sum_DAPI": np.array([1.5, np.nan, 3.0])}
     b = {k: v[:1] for k, v in a.items()}
     path = st.append_features("nuclei", a, shard="batch_001")
     st.append_features("nuclei", b, shard="batch_000")
-    assert path.name == "batch_001.npz"
+    assert path.name == "batch_001.parquet"
+    assert path.read_bytes()[:4] == path.read_bytes()[-4:] == b"PAR1"
     got = st.read_features("nuclei")
     assert list(got) == list(a)
     for k in a:
         np.testing.assert_array_equal(got[k], np.concatenate([b[k], a[k]]))
-    with np.load(path, allow_pickle=False) as z:  # plain, uncompressed columns
-        assert z.files == list(a)
+    want = pd.concat([pd.DataFrame({k: v.tolist() for k, v in t.items()}) for t in (b, a)],
+                     ignore_index=True)
+    pd.testing.assert_frame_equal(JStore.open(st.root).read_features("nuclei"), want)
     st.append_features("nuclei", a, shard="batch_001")  # a re-run overwrites
     assert len(st.read_features("nuclei")["label"]) == 4
     with pytest.raises(StoreError):

@@ -427,15 +427,57 @@ def test_unsupported_arguments_raise(tmp_path, args, kw):
         get_step("jterator")(st, device="cpu", **kw).init({**JTERATOR, **args})
 
 
+#: the reference's jitted step and its eager pipeline differ in these by
+#: up to 1.1e-4 (eccentricity) and 4.8e-3 (orientation) on this store:
+#: XLA fuses their second-moment sums in another order
+MOMENTS = ("Morphology_eccentricity", "Morphology_major_axis_length",
+           "Morphology_minor_axis_length", "Morphology_orientation")
+
+
 def test_a_morphology_pipeline_raises_until_solidity_is_ported(tmp_path):
+    """Solidity's host pass is ported: a morphology pipeline runs through
+    the port's step, and its store equals the reference's, with
+    ``Morphology_solidity`` bit-exact and last among the nuclei columns.
+    The second-moment features are held against the reference's eager
+    pipeline on the same sites, as ``test_torch_full_stack.py`` holds
+    them; every other column against the reference's store."""
+    import jax.numpy as jnp
+
+    from tmlibrary_tpu.jterator.description import PipelineDescription as JDesc
+    from tmlibrary_tpu.jterator.pipeline import ImageAnalysisPipeline as JPipeline
+
     make_store(tmp_path / "s")
+    copy_store(tmp_path / "s", tmp_path / "r")
+    args = {**JTERATOR, "pipe": "morph.pipe.json", "cycle": 0}
     st = ExperimentStore.open(tmp_path / "s")
-    jt = get_step("jterator")(st, device="cpu")
-    jt.init({**JTERATOR, "pipe": "morph.pipe.json", "cycle": 0})
-    with pytest.raises(NotSupportedError, match="solidity"):
-        jt.run(0)
-    assert not (st.root / "features" / "nuclei").exists() or \
-        not any((st.root / "features" / "nuclei").iterdir())
+    run_jterator(get_step, st, args, {"device": "cpu"}, sequential=True)
+    j_capacity_reset()
+    ref = JStore.open(tmp_path / "r")
+    run_jterator(j_get_step, ref, args, {}, sequential=True)
+    assert_same_labels(st, ref)
+    for name in ("nuclei", "cells"):
+        want = ref.read_features(name)
+        assert_same_features(want.drop(columns=[m for m in MOMENTS if m in want]),
+                             {k: v for k, v in st.read_features(name).items()
+                              if k not in MOMENTS}, FEATURE_TIERS)
+    got, want = st.read_features("nuclei"), ref.read_features("nuclei")
+    assert list(got)[-1] == list(want.columns)[-1] == "Morphology_solidity"
+    _, got_rows = sorted_rows(got)
+    _, want_rows = sorted_rows(want)
+    np.testing.assert_array_equal(got_rows["Morphology_solidity"],
+                                  want_rows["Morphology_solidity"])
+    assert (got["Morphology_solidity"] > 0.5).all() and (got["Morphology_solidity"] <= 1).all()
+    sites = list(range(N_SITES))
+    raw = {ch: jnp.asarray(ref.read_sites(sites, cycle=0, channel=i))
+           for i, ch in enumerate(("DAPI", "Actin"))}
+    eager = JPipeline(JDesc.load(ref.root / "morph.pipe.json"), max_objects=64).build_batch_fn(
+        jit=False)(raw, {}, jnp.zeros((N_SITES, 2), jnp.int32))
+    counts = np.asarray(eager.counts["nuclei"])
+    for m in MOMENTS:
+        arr = np.asarray(eager.measurements["nuclei"][m])
+        rows = np.concatenate([arr[b, :c] for b, c in enumerate(counts)]).astype(np.float64)
+        rtol, atol = feature_tier(m, FEATURE_TIERS)
+        np.testing.assert_allclose(got_rows[m], rows, rtol=rtol, atol=atol, err_msg=m)
 
 
 def test_a_reference_batch_file_with_an_unported_layout_is_refused(tmp_path):

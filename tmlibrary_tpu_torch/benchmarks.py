@@ -138,6 +138,19 @@ def full_feature_description(
     channel for both object types, ``measure_morphology`` on both,
     Haralick texture of the cells on the second channel and Zernike
     moments of the nuclei."""
+    return PipelineDescription.from_dict(
+        full_feature_pipe(channels, texture_levels, zernike_degree))
+
+
+def full_feature_pipe(
+    channels: tuple[str, ...] = FULL_STACK_CHANNELS,
+    texture_levels: int = 16,
+    zernike_degree: int = 6,
+    correct: bool = False,
+    align: bool = False,
+) -> dict:
+    """Config 4 as the dict a ``.pipe.json`` holds, every channel with
+    ``correct`` and ``align`` as given."""
     nucleus_ch, cell_ch = channels[0], channels[1]
 
     def _measure(module, inputs, objects, channel=None):
@@ -201,13 +214,13 @@ def full_feature_description(
         "measure_zernike",
         [_labels("nuclei"), {"name": "degree", "type": "Numeric", "value": zernike_degree}],
         "nuclei"))
-    return PipelineDescription.from_dict({
+    return {
         "description": "Cell Painting full feature stack (config 4)",
         "input": {"channels": [
-            {"name": ch, "correct": False, "align": False} for ch in channels]},
+            {"name": ch, "correct": correct, "align": align} for ch in channels]},
         "pipeline": pipeline,
         "output": {"objects": [{"name": "nuclei"}, {"name": "cells"}]},
-    })
+    }
 
 
 def synthetic_full_stack_batch(

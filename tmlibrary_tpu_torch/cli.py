@@ -1,0 +1,238 @@
+"""Command-line interface of the port.
+
+Counterpart: ``tmlibrary_tpu/cli.py`` (``tmx``), with the verbs of the
+steps the port has, the same argument names and the same JSON output::
+
+    python -m tmlibrary_tpu_torch.cli workflow submit --root DIR [--description wf.json]
+                                                      [--resume] [--device cuda]
+    python -m tmlibrary_tpu_torch.cli workflow resume --root DIR ...
+    python -m tmlibrary_tpu_torch.cli workflow status --root DIR
+    python -m tmlibrary_tpu_torch.cli <step> init|run|collect|info|args --root DIR ...
+    python -m tmlibrary_tpu_torch.cli log --root DIR [--tail N] [--step S [--job N]]
+
+``<step>`` is ``corilla``, ``align`` or ``jterator``; the installed
+console script is ``tmx-torch``.  Every verb takes ``--device``, ``cuda``
+unless ``cpu`` is asked for; without a card, ``cuda`` raises.  Asking for
+a step that is not ported (``metaconfig``, ``imextract``, ``illuminati``)
+says so and names its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import logging
+import sys
+from pathlib import Path
+
+from tmlibrary_tpu_torch.models.store import ExperimentStore
+from tmlibrary_tpu_torch.resilience import ResilienceConfig
+from tmlibrary_tpu_torch.workflow.engine import (
+    UNPORTED_STEPS,
+    RunLedger,
+    Workflow,
+    WorkflowDescription,
+)
+from tmlibrary_tpu_torch.workflow.registry import get_step, list_steps
+
+
+def _add_common(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--root", required=True, help="experiment store directory")
+    parser.add_argument("-v", "--verbosity", action="count", default=0)
+    parser.add_argument("--device", default="cuda",
+                        help="device the work runs on: cuda (default) or cpu")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="tmx-torch", description="microscopy image analysis on the card (PyTorch port)")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p_log = sub.add_parser("log", help="show the run ledger or captured step logs")
+    _add_common(p_log)
+    p_log.add_argument("--tail", type=int, default=20)
+    p_log.add_argument("--step", default=None, help="print a step's captured log file instead")
+    p_log.add_argument("--job", type=int, default=None,
+                       help="batch index (with --step); omit for the whole-step run log")
+
+    p_wf = sub.add_parser("workflow", help="full workflow orchestration")
+    wf_sub = p_wf.add_subparsers(dest="verb", required=True)
+    shared = argparse.ArgumentParser(add_help=False)
+    shared.add_argument("--description",
+                        help="workflow description, JSON (default: the store's "
+                             "workflow/workflow.json)")
+    shared.add_argument("--pipeline-depth", type=int, default=None, metavar="N",
+                        help="in-flight device batches for the pipelined executor "
+                             "(default: 8 on the card, 2 on the CPU)")
+    shared.add_argument("--max-batch-failures", type=float, default=None, metavar="X",
+                        help="per-step quarantine budget before the step fails: < 1 a "
+                             "fraction of the step's batches, >= 1 a count (default 0.5)")
+    shared.add_argument("--retry-attempts", type=int, default=None, metavar="N",
+                        help="total tries per batch for transient faults (1 = no retry)")
+    shared.add_argument("--retry-delay", type=float, default=None, metavar="SECONDS",
+                        help="first backoff delay; doubles per retry, with jitter")
+    p_submit = wf_sub.add_parser("submit", help="run the workflow", parents=[shared])
+    _add_common(p_submit)
+    p_submit.add_argument("--resume", action="store_true",
+                          help="skip work completed in a previous run")
+    p_resume = wf_sub.add_parser("resume", help="shorthand for submit --resume",
+                                 parents=[shared])
+    _add_common(p_resume)
+    p_resume.set_defaults(resume=True)
+    p_status = wf_sub.add_parser("status", help="per-step progress")
+    _add_common(p_status)
+
+    for name in list_steps():
+        step_cls = get_step(name)
+        p_step = sub.add_parser(name, help=f"{name} step")
+        verb_sub = p_step.add_subparsers(dest="verb", required=True)
+        p_init = verb_sub.add_parser("init", help="plan batches")
+        _add_common(p_init)
+        step_cls.batch_args.add_to_parser(p_init)
+        p_run = verb_sub.add_parser("run", help="run one batch (or all)")
+        _add_common(p_run)
+        p_run.add_argument("--job", type=int, default=None, help="batch index (default: all)")
+        p_collect = verb_sub.add_parser("collect", help="merge phase")
+        _add_common(p_collect)
+        p_info = verb_sub.add_parser("info", help="planned batches")
+        _add_common(p_info)
+        p_args = verb_sub.add_parser("args", help="argument schema as JSON")
+        p_args.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
+    return parser
+
+
+def _open_store(args) -> ExperimentStore:
+    return ExperimentStore.open(Path(args.root))
+
+
+def cmd_workflow(args) -> int:
+    store = _open_store(args)
+    if args.verb == "status":
+        status = RunLedger(store.workflow_dir / "ledger.jsonl").status()
+        if not status:
+            print("no workflow runs recorded")
+            return 0
+        for step, entry in status.items():
+            done, total = entry["batches_done"], entry["n_batches"]
+            frac = f"{done}/{total}" if total is not None else str(done)
+            line = f"{step:12s} {entry['state']:8s} batches {frac} ({entry['elapsed']:.1f}s)"
+            if entry.get("quarantined"):
+                line += f" quarantined: {sorted(entry['quarantined'])}"
+            if entry.get("error"):
+                line += f" error: {entry['error']}"
+            print(line)
+            ps = entry.get("pipeline_stats")
+            if ps:
+                phases = " ".join(f"{ph}={v['total_s']:.2f}s"
+                                  for ph, v in ps.get("phases", {}).items())
+                print(f"{'':12s} pipeline depth {ps.get('depth')} ({ps.get('source')}) "
+                      f"over {ps.get('n_batches')} batches: {phases}")
+            for clamp in entry.get("depth_clamps", []):
+                print(f"{'':12s} depth clamped {clamp.get('from')} -> {clamp.get('to')} "
+                      "(resource exhausted)")
+            buckets = entry.get("buckets")
+            if buckets:
+                routed = " ".join(f"cap{c}x{n}" for c, n in sorted(
+                    buckets["routed"].items(), key=lambda kv: int(kv[0])))
+                line = f"{'':12s} buckets: {routed}"
+                if buckets.get("occupancy_n"):
+                    occ = buckets["occupancy_sum"] / buckets["occupancy_n"]
+                    line += f" slot occupancy {occ:.1%}"
+                if buckets.get("escalations"):
+                    line += f" escalations {buckets['escalations']}"
+                print(line)
+        return 0
+    if args.description:
+        desc = WorkflowDescription.load(Path(args.description))
+    else:
+        default = store.workflow_dir / "workflow.json"
+        if not default.exists():
+            print("error: no workflow description (pass --description or put "
+                  "workflow.json in the store's workflow dir)", file=sys.stderr)
+            return 1
+        desc = WorkflowDescription.load(default)
+    resilience = ResilienceConfig.from_library_config()
+    if args.max_batch_failures is not None:
+        resilience.max_batch_failures = args.max_batch_failures
+    overrides = {k: v for k, v in (("max_attempts", args.retry_attempts),
+                                   ("base_delay", args.retry_delay)) if v is not None}
+    if overrides:
+        resilience.policy = dataclasses.replace(resilience.policy, **overrides)
+    summary = Workflow(store, desc, resilience=resilience, pipeline_depth=args.pipeline_depth,
+                       device=args.device).run(resume=args.resume)
+    print(json.dumps(summary, default=str, indent=2))
+    return 0
+
+
+def cmd_step(args) -> int:
+    if args.verb == "args":
+        print(json.dumps(get_step(args.command).batch_args.to_schema(), indent=2))
+        return 0
+    store = _open_store(args)
+    step = get_step(args.command)(store, device=args.device)
+    if args.verb == "init":
+        step_args = {a.name: getattr(args, a.name) for a in step.batch_args
+                     if getattr(args, a.name, None) is not None}
+        batches = step.init(step_args)
+        print(f"{args.command}: planned {len(batches)} batches")
+        return 0
+    if args.verb == "run":
+        indices = [args.job] if args.job is not None else step.list_batches()
+        for i in indices:
+            result = step.run(i)
+            print(f"{args.command} batch {i}: {json.dumps(result, default=str)}")
+        return 0
+    if args.verb == "collect":
+        print(json.dumps(step.collect(), default=str))
+        return 0
+    if args.verb == "info":
+        for i in step.list_batches():
+            batch = step.load_batch(i)
+            keys = {k: v for k, v in batch.items() if k != "args"}
+            print(f"batch {i}: {json.dumps(keys, default=str)[:200]}")
+        return 0
+    return 1
+
+
+def cmd_log(args) -> int:
+    store = _open_store(args)
+    if args.step:
+        name = "run" if args.job is None else f"batch_{args.job:03d}"
+        path = store.workflow_dir / args.step / "logs" / f"{name}.log"
+        if not path.exists():
+            print(f"error: no captured log at {path}", file=sys.stderr)
+            return 1
+        lines = path.read_text().splitlines()
+        for line in lines[-args.tail:] if args.tail else lines:
+            print(line)
+        return 0
+    for event in RunLedger(store.workflow_dir / "ledger.jsonl").events()[-args.tail:]:
+        print(json.dumps(event, default=str))
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    command = next((a for a in argv if not a.startswith("-")), None)
+    if command in UNPORTED_STEPS:
+        print(f"error: step '{command}' is not ported to the PyTorch package yet "
+              f"({UNPORTED_STEPS[command]})", file=sys.stderr)
+        return 2
+    args = build_parser().parse_args(argv)
+    level = max(logging.DEBUG, logging.WARNING - 10 * getattr(args, "verbosity", 0))
+    logging.basicConfig(level=level, format="%(levelname)s %(name)s: %(message)s")
+    logging.getLogger("tmlibrary_tpu_torch").setLevel(level)
+    try:
+        if args.command == "workflow":
+            return cmd_workflow(args)
+        if args.command == "log":
+            return cmd_log(args)
+        return cmd_step(args)
+    except Exception as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

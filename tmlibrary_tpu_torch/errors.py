@@ -40,6 +40,10 @@ class StoreError(TmError):
     """Error in the array/feature store layer."""
 
 
+class WorkflowError(TmError):
+    """Error in workflow orchestration (stage/step DAG, ledger, resume)."""
+
+
 class PreemptedError(TmError):
     """The run was asked to stop and has finished draining: every
     in-flight batch persisted, the rest were never launched.
@@ -65,3 +69,7 @@ class NotSupportedError(TmError):
 class DeviceError(TmError):
     """The requested device is absent, or a kernel failed to build or
     launch on it."""
+
+
+class BuildError(TmError):
+    """A host library of the port failed to build or load."""

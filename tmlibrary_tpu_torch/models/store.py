@@ -15,13 +15,14 @@ read back byte for byte:
   label stack.
 - **alignment**: per cycle, an ``(n_sites, 2)`` int32 shift array, plus
   the experiment-wide intersection window (``intersection.json``).
-- **features**: per mapobject type, one shard per batch.  The JAX
-  package writes Parquet through ``pandas``/``pyarrow``; the port's
-  target machine has neither, so the port writes each shard as an
-  uncompressed ``.npz`` of columns, with the reference's column names
-  and order, and :meth:`ExperimentStore.read_features` returns the
-  concatenated columns as a dict of numpy arrays.  The port's feature
-  shards are not Parquet until an install with ``pyarrow`` exists.
+- **features**: per mapobject type, one Parquet shard per batch
+  (``<shard>.parquet``), written and read by the port's own codec
+  (:mod:`tmlibrary_tpu_torch.io.parquet`; the target machine has no
+  ``pandas`` or ``pyarrow``).  The shards are what the JAX package's
+  ``DataFrame.to_parquet`` writes for the same rows: the same columns in
+  the same order, no index, NaN features as nulls, so either package
+  reads the other's.  :meth:`ExperimentStore.read_features` returns the
+  concatenated columns as a dict of numpy arrays.
 
 Everything is addressed through the manifest's canonical site
 enumeration (:meth:`tmlibrary_tpu_torch.models.experiment.Experiment.sites`).
@@ -37,6 +38,7 @@ from typing import Mapping, Sequence
 import numpy as np
 
 from tmlibrary_tpu_torch.errors import StoreError
+from tmlibrary_tpu_torch.io import parquet
 from tmlibrary_tpu_torch.models.experiment import Experiment
 
 PIXEL_DTYPE = np.uint16
@@ -266,30 +268,25 @@ class ExperimentStore:
 
     def append_features(self, objects_name: str, table: Mapping[str, np.ndarray],
                         shard: str) -> Path:
-        """Write one shard of the (objects x features) table as an
-        uncompressed ``.npz`` of columns, in the table's column order.
+        """Write one Parquet shard of the (objects x features) table, in
+        the table's column order.
 
         ``table`` maps column name to a 1-D array (every column one row
         per object); ``shard`` names the shard (the batch id) so re-runs
         overwrite idempotently rather than duplicating."""
-        columns = {k: np.asarray(v) for k, v in table.items()}
-        lengths = {len(v) for v in columns.values()}
-        if len(lengths) > 1 or any(v.ndim != 1 for v in columns.values()):
-            raise StoreError(f"feature shard '{shard}': columns of unequal length")
-        path = self.features_dir(objects_name) / f"{shard}.npz"
-        np.savez(path, **columns)
-        return path
+        path = self.features_dir(objects_name) / f"{shard}.parquet"
+        try:
+            return parquet.write_table(path, table)
+        except parquet.ParquetError as e:
+            raise StoreError(f"feature shard '{shard}': {e}") from None
 
     def read_features(self, objects_name: str) -> dict[str, np.ndarray]:
         """Every shard's columns concatenated in shard-name order, as a
         dict of numpy arrays in the first shard's column order."""
-        shards = sorted(self.features_dir(objects_name).glob("*.npz"))
+        shards = sorted(self.features_dir(objects_name).glob("*.parquet"))
         if not shards:
             raise StoreError(f"no feature shards for '{objects_name}'")
-        parts = []
-        for p in shards:
-            with np.load(p, allow_pickle=False) as z:
-                parts.append({k: z[k] for k in z.files})
+        parts = [parquet.read_table(p) for p in shards]
         names = list(parts[0])
         for p, part in zip(shards, parts):
             if list(part) != names:

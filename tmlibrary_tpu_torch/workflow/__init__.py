@@ -1,11 +1,10 @@
-"""Workflow steps of the port.
+"""Workflow steps and engine of the port.
 
 Counterpart: ``tmlibrary_tpu/workflow/``: the step API
 (:mod:`~tmlibrary_tpu_torch.workflow.api`), typed arguments, the step
-registry, the pipelined executor and the work-aware schedule.  The
-``Workflow`` engine with its run ledger is not ported yet: each step is
-driven through its own verbs (``init``, ``run``/``run_batches_pipelined``,
-``collect``).
+registry, the pipelined executor, the work-aware schedule and the
+``Workflow`` engine with its run ledger
+(:mod:`~tmlibrary_tpu_torch.workflow.engine`).
 """
 
 from tmlibrary_tpu_torch.workflow.registry import get_step, list_steps, register_step

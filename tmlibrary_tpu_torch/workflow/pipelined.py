@@ -22,15 +22,16 @@ Semantics (the same as the reference's):
 - **Window drain**: a launch failure first persists and yields every
   already-launched batch, then propagates.
 - **Depth auto-clamp**: an out-of-memory failure at depth > 1 drains the
-  window, halves the depth, records the clamp in the stats and retries
-  the failed batch at the lower depth.
+  window, halves the depth, records the clamp in the stats, reports a
+  ``depth_clamped`` event through ``on_event`` (the engine appends it
+  to the run ledger) and retries the failed batch at the lower depth.
 - **Bit-identity**: dispatch happens on the calling thread in batch
   order and one persist worker drains in submission order.
 
-The reference also emits spans and ledger events, telemetry gauges,
-fault-injection hooks, a phase watchdog, a graceful drain on preemption
-and compile-ahead warming; the port keeps plain per-phase wall times
-(:class:`PipelineStats`) and none of the rest yet.
+The reference also emits spans, telemetry gauges, fault-injection
+hooks, a phase watchdog, a graceful drain on preemption and
+compile-ahead warming; the port keeps plain per-phase wall times
+(:class:`PipelineStats`) and none of the rest yet (ROADMAP A item 11).
 """
 
 from __future__ import annotations
@@ -175,7 +176,8 @@ class PipelinedExecutor:
     """Bounded in-flight window over a step's launch/persist split.
 
     ``run(batches)`` is a generator of ``(batch, result)`` in submission
-    order; ``stats`` is an optional :class:`PipelineStats`.  One persist
+    order; ``stats`` is an optional :class:`PipelineStats`;
+    ``on_event(**event)`` receives ``depth_clamped`` events.  One persist
     worker drains the window in submission order."""
 
     def __init__(
@@ -183,12 +185,14 @@ class PipelinedExecutor:
         step,
         depth: int | None = None,
         stats: PipelineStats | None = None,
+        on_event: Callable[..., None] | None = None,
     ):
         if depth is None:
             depth, _ = resolve_pipeline_depth(None, getattr(step, "device", None))
         self.step = step
         self.depth = max(1, int(depth))
         self.stats = stats
+        self.on_event = on_event
 
     # ------------------------------------------------------------------ run
     def run(self, batches: Iterable[dict]) -> Iterator[tuple[dict, dict]]:
@@ -209,6 +213,9 @@ class PipelinedExecutor:
                         "depth %d and retrying batch %s",
                         exc, self.depth, new_depth, failing,
                     )
+                    if self.on_event is not None:
+                        self.on_event(event="depth_clamped", from_depth=self.depth,
+                                      to_depth=new_depth, batch=failing, error=str(exc))
                     if self.stats is not None:
                         self.stats.record_clamp(self.depth, new_depth)
                     self.depth = new_depth

@@ -26,8 +26,9 @@ index, so packing on or off gives the same store.
 The mode is the step's explicit ``schedule`` argument, else ``pack``.
 The JAX package lets a ``TMX_SCHEDULE`` env, an install setting or a
 tuning verdict stand in for ``"auto"``; with none of them present it
-packs, which is what the port does.  The port reads its own feature
-shards (``.npz``) for the harvest.
+packs, which is what the port does.  The harvest reads the
+``site_index`` column of the Parquet feature shards either package
+writes.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from pathlib import Path
 import numpy as np
 
 from tmlibrary_tpu_torch.capacity import select_capacity, site_count_snapshot
+from tmlibrary_tpu_torch.io import parquet
 
 #: accepted mode spellings; "pack"/"on" force packing, "off" disables,
 #: "auto" defers down the precedence chain (and ultimately packs)
@@ -111,10 +113,9 @@ def harvest_store_counts(store) -> dict[int, int]:
         for family_dir in sorted(features_root.iterdir()):
             if not family_dir.is_dir():
                 continue
-            for shard in sorted(family_dir.glob("*.npz")):
+            for shard in sorted(family_dir.glob("*.parquet")):
                 try:
-                    with np.load(shard, allow_pickle=False) as z:
-                        column = z["site_index"]
+                    column = parquet.read_table(shard, columns=["site_index"])["site_index"]
                 except Exception:
                     continue
                 sites, n = np.unique(column, return_counts=True)
@@ -252,6 +253,44 @@ def plan_digest(plan: dict) -> str:
     body = {k: v for k, v in plan.items() if k != "digest"}
     blob = json.dumps(body, sort_keys=True, separators=(",", ":"))
     return hashlib.sha1(blob.encode()).hexdigest()[:16]
+
+
+def _skew(loads: list[float]) -> float:
+    return (max(loads) - min(loads)) if len(loads) > 1 else 0.0
+
+
+def plan_event(plan: dict) -> dict:
+    """The compact ``schedule_plan`` ledger-event payload: the plan's
+    identity and the occupancy and shard skew it predicts packed and
+    unpacked (the reference's ``plan_event``, field for field)."""
+    batches = plan.get("batches") or []
+    ladder = plan.get("ladder") or []
+    ceiling = ladder[-1] if ladder else 0
+    pred_total = sum(sum(b.get("predicted") or []) for b in batches)
+    packed_slots = sum(b["rung"] * len(b.get("sites") or []) for b in batches)
+    # the unpacked counterfactual: every batch at the rung the global
+    # predicted peak selects (what peak-routing converges to)
+    peak = max((max(b.get("predicted") or [0.0]) for b in batches), default=0.0)
+    flat_rung = select_capacity(int(math.ceil(peak)), tuple(ladder)) if ladder else ceiling
+    flat_slots = sum(flat_rung * len(b.get("sites") or []) for b in batches)
+    skew_packed = sum(_skew(b.get("shard_work") or [0.0]) for b in batches)
+    skew_naive = sum(_skew(b.get("shard_work_naive") or [0.0]) for b in batches)
+    rungs: dict[str, int] = {}
+    for b in batches:
+        rungs[str(b["rung"])] = rungs.get(str(b["rung"]), 0) + 1
+    return {
+        "plan_digest": plan.get("digest"),
+        "mode": plan.get("mode"),
+        "source": plan.get("source"),
+        "n_batches": len(batches),
+        "n_sites": int(plan.get("n_sites") or 0),
+        "n_devices": int(plan.get("n_devices") or 1),
+        "rungs": rungs,
+        "pred_occupancy_packed": round(pred_total / packed_slots, 4) if packed_slots else 0.0,
+        "pred_occupancy_unpacked": round(pred_total / flat_slots, 4) if flat_slots else 0.0,
+        "pred_skew_packed": round(skew_packed, 3),
+        "pred_skew_unpacked": round(skew_naive, 3),
+    }
 
 
 # -------------------------------------------------------------- plan file

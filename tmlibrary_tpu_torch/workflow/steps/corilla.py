@@ -54,7 +54,7 @@ class IlluminationStatisticsCalculator(Step):
         if args["n_devices"] > 1:
             raise NotSupportedError(
                 "corilla: n_devices > 1 (the sharded Welford) is not ported "
-                "yet (ROADMAP A7)")
+                "yet (ROADMAP A item 10)")
         # one batch per (cycle, channel), exactly the reference's job split
         exp = self.store.experiment
         return [
@@ -69,7 +69,7 @@ class IlluminationStatisticsCalculator(Step):
         if args["n_devices"] > 1:
             raise NotSupportedError(
                 "corilla: n_devices > 1 (the sharded Welford) is not ported "
-                "yet (ROADMAP A7)")
+                "yet (ROADMAP A item 10)")
         cycle, channel = batch["cycle"], batch["channel"]
         exp = self.store.experiment
         chunks = create_partitions(range(self.store.n_sites), max(args["chunk_size"], 1))

@@ -15,12 +15,15 @@ The batch arguments are the reference's, with the same names, types,
 defaults and choices, so a ``batch_*.json`` written by either package
 resolves in the other.  What the port does with them:
 
-- ``layout="spatial"``, ``n_devices > 1`` (ROADMAP A7), ``as_polygons``
-  and ``figures`` (A8), the QC session (``qc=True``; the port's
-  ``build_batch_fn(qc=True)`` exists) and a pipeline that emits
-  ``Morphology_area`` (the reference joins a host-side
-  ``Morphology_solidity``, ``tmlibrary_tpu/native.py:323,370``, not ported
-  yet) raise :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.
+- ``layout="spatial"`` and ``n_devices > 1`` (ROADMAP A item 10),
+  ``as_polygons`` and ``figures`` (item 11) and the QC session
+  (``qc=True``, item 5; the port's ``build_batch_fn(qc=True)`` exists)
+  raise :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.
+- A family that measures ``Morphology_area`` on 2-D labels gets
+  ``Morphology_solidity`` joined on the host when the batch persists,
+  from the exported, padded-back labels
+  (:func:`~tmlibrary_tpu_torch.native.solidity_batch`), as the reference does
+  (``:1499-1511``).
 - ``donate_buffers`` and ``reduction_strategy`` are accepted and have no
   effect: the port has no buffer donation, and it has only the fused
   measure that the reference's ``"fused"`` strategy runs.
@@ -28,7 +31,7 @@ resolves in the other.  What the port does with them:
 - The reference's compile-ahead speculation (``:1303-1423``) has no
   meaning without a compile step and is left out, as are its telemetry
   gauges.
-- Feature shards are ``.npz`` files of columns
+- Feature shards are Parquet
   (:meth:`~tmlibrary_tpu_torch.models.store.ExperimentStore.append_features`),
   built column-wise with the reference's rows, order and values.
 
@@ -71,6 +74,7 @@ from tmlibrary_tpu_torch.models.mapobject import (
     min_poly_zoom,
     plate_mosaic_shape,
 )
+from tmlibrary_tpu_torch.native import solidity_batch
 from tmlibrary_tpu_torch.ops.pyramid import n_pyramid_levels
 from tmlibrary_tpu_torch.utils import create_partitions
 from tmlibrary_tpu_torch.workflow import schedule as schedule_mod
@@ -244,9 +248,9 @@ class ImageAnalysisRunner(Step):
         super().__init__(store, device)
         if qc:
             raise NotSupportedError(
-                "jterator: the QC session is not ported yet (the port's "
-                "build_batch_fn(qc=True) exists; the session that records its "
-                "statistics does not)")
+                "jterator: the QC session is not ported yet (ROADMAP A item 5; the "
+                "port's build_batch_fn(qc=True) exists, the session that records "
+                "its statistics does not)")
         # capacity -> batch function; the bucket router builds one pipeline
         # per capacity it routes to, collect's resegmentation one per raised cap
         self._pipelines: dict[int, object] = {}
@@ -269,14 +273,14 @@ class ImageAnalysisRunner(Step):
         """Raise for the arguments whose paths the port does not have yet."""
         if args.get("layout", "sites") == "spatial":
             raise NotSupportedError(
-                "jterator: layout='spatial' is not ported yet (ROADMAP A7)")
+                "jterator: layout='spatial' is not ported yet (ROADMAP A item 10)")
         if int(args.get("n_devices") or 0) > 1:
             raise NotSupportedError(
-                "jterator: n_devices > 1 is not ported yet (ROADMAP A7)")
+                "jterator: n_devices > 1 is not ported yet (ROADMAP A item 10)")
         for name in ("as_polygons", "figures"):
             if args.get(name):
                 raise NotSupportedError(
-                    f"jterator: {name}=True is not ported yet (ROADMAP A8)")
+                    f"jterator: {name}=True is not ported yet (ROADMAP A item 11)")
 
     # ------------------------------------------------------------------ plan
     def create_batches(self, args):
@@ -627,12 +631,13 @@ class ImageAnalysisRunner(Step):
                     self._launch(batch, capacity_=cap), n_valid)
 
         objects, measurements = to_site_frame(objects, measurements, self._window)
+        # solidity is hull-based and ragged, so it is measured on the host
+        # from the exported labels and joined into the morphology features
+        max_obj = args["max_objects"]
         for name, feats in measurements.items():
             if "Morphology_area" in feats and objects.get(name) is not None \
                     and objects[name].ndim == 3:
-                raise NotSupportedError(
-                    "jterator: the pipeline measures morphology, whose host-side "
-                    "Morphology_solidity join is not ported yet (ROADMAP A3)")
+                feats["Morphology_solidity"] = solidity_batch(objects[name], max_obj)
 
         for name, labels in objects.items():
             if labels.ndim == 4:  # (B, Z, H, W) volume labels: one stack per z
@@ -644,7 +649,6 @@ class ImageAnalysisRunner(Step):
 
         shard = f"batch_{batch['index']:03d}"
         site_meta = self._site_metadata(sites)
-        max_obj = args["max_objects"]
         for name in objects:
             self.store.append_features(
                 name, feature_table(counts[name], measurements.get(name, {}), site_meta,
@@ -791,6 +795,13 @@ class ImageAnalysisRunner(Step):
     @property
     def _schedule_plan_path(self) -> Path:
         return self.step_dir / "schedule_plan.json"
+
+    def schedule_plan_info(self) -> dict | None:
+        """The recorded packing plan's summary (the engine's
+        ``schedule_plan`` ledger event), re-read from the side file so a
+        resume records the digest that ``init`` planned."""
+        plan = schedule_mod.load_plan(self._schedule_plan_path)
+        return schedule_mod.plan_event(plan) if plan else None
 
     @property
     def _cap_override_path(self) -> Path:
