@@ -112,7 +112,19 @@ Phases (any failure exits non-zero before the last line):
    two jterator batches on the CPU over the card's statistics and
    shifts, held by site index (labels exact, features by
    ``CARD_TIERS``).  The store is removed at the end.
-6. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+6. The ``Workflow`` engine through the CLI (``phase_engine``): config 4
+   corrected and aligned over phase 5's plate, ``workflow submit
+   --device cuda``, resume, status, and the same description on the CPU.
+7. The canonical workflow from the microscope's files
+   (``phase_canonical``, ``workflow_canonical_p96x4_256``): phase 5's
+   plate as 768 TIFF files written by the port's ``ImageWriter``,
+   ``create`` and ``workflow submit --device cuda`` of metaconfig ->
+   imextract -> corilla -> illuminati -> jterator (config 3, both
+   channels corrected), launch counters as in phase 5, ``workflow
+   resume``; the ingested pixels exact, metaconfig's artifacts, every
+   tile and ``layer.json`` against CPU runs, the static mapobject shards
+   read back, jterator's batch 0 against the CPU.
+8. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness), and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -1330,6 +1342,9 @@ def main() -> int:
         # ---------------------------------------------------------- phase 6
         phase_engine(torch, wrappers, card, on_chip)
 
+        # ---------------------------------------------------------- phase 7
+        phase_canonical(torch, wrappers, card, on_chip)
+
         # each kernel's launches: the path that brought it to the port
         path_of = {"intensity_hist": run_q, "glcm_all": run4, "distance_transform": run_d,
                    "cc3d_min_propagate": run_v, "watershed3d_flood": run_v}
@@ -2333,6 +2348,273 @@ def phase_engine(torch, wrappers, card, on_chip) -> None:
               + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
     finally:
         shutil.rmtree(base, ignore_errors=True)
+
+
+def phase_canonical(torch, wrappers, card, on_chip) -> None:
+    """Phase 7, ``workflow_canonical_p96x4_256``: the canonical workflow
+    from a directory of microscope files, as a user runs it.  Phase 5's
+    plate (96 wells at 2x2 sites of 256x256, 384 sites) with config 3's
+    DAPI and Actin (seed 0) written by the port's ``ImageWriter`` as
+    ``{well}_s{site}_{channel}.tif`` under ``build/``; ``create``, then
+    ``workflow submit --device cuda`` in this process of metaconfig
+    (``sites_per_well_x`` 2) -> imextract -> corilla -> illuminati (its
+    defaults) -> jterator (config 3 with both channels corrected, from a
+    ``.pipe.json``, batches of 64, ``max_objects=256``), with the launch
+    counters set to 0 just before and read just after (1, 1, 1, 2 per
+    launched batch), then ``workflow resume`` (nothing re-runs or
+    launches).  Holds: the ingested store equals the generator's pixels;
+    ``file_mapping.json`` and ``experiment.ome.xml`` equal a CPU
+    metaconfig's over the same directory; every tile, decoded by the
+    port's codec, and ``layer.json`` equal a CPU illuminati's over the
+    card's statistics; the static mapobject shards read back equal to the
+    rows written (right after they are written: jterator's ``init``
+    clears ``segmentations/``, as in the reference); jterator's batch 0
+    on the CPU over the card's statistics: labels exact, features by
+    ``CARD_TIERS``.  The directory is removed at the end."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks, capacity, cli
+    from tmlibrary_tpu_torch.io import parquet, png
+    from tmlibrary_tpu_torch.models.experiment import Experiment
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import engine, get_step
+    from tmlibrary_tpu_torch.writers import ImageWriter
+
+    base = Path(__file__).resolve().parent / "build" / f"phase7.{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        wells = [f"{chr(65 + r)}{c + 1:02d}" for r in range(PLATE[0]) for c in range(PLATE[1])]
+        per_well = SITES_PER_WELL[0] * SITES_PER_WELL[1]
+        n = len(wells) * per_well
+        data = benchmarks.synthetic_cell_painting_batch(n, size=SIZE, seed=SEED)
+        pixels = {ch: data[ch].astype(np.uint16) for ch in ("DAPI", "Actin")}
+        del data
+        src = base / "src"
+        for i in range(n):
+            for ch, px in pixels.items():
+                with ImageWriter(src / f"{wells[i // per_well]}_s{i % per_well}_{ch}.tif") as w:
+                    w.write(px[i])
+        files = sorted(src.iterdir())
+        mbytes = sum(f.stat().st_size for f in files) / 2**20
+        write_s = time.perf_counter() - t0
+        pipe = dict(benchmarks.CELL_PAINTING_PIPE)
+        pipe["input"] = {"channels": [{"name": ch, "correct": True, "align": False}
+                                      for ch in ("DAPI", "Actin")]}
+        args = {"pipe": "cp.pipe.json", "batch_size": STEP_BATCH, "max_objects": MAX_OBJECTS}
+        desc_path = base / "workflow.json"
+        engine.WorkflowDescription.canonical({
+            "metaconfig": {"source_dir": str(src), "sites_per_well_x": SITES_PER_WELL[1]},
+            "imextract": {},
+            "corilla": {},
+            "illuminati": {},
+            "jterator": args,
+        }).save(desc_path)
+        root = str(base / "card")
+        run_cli(cli, ["create", "--root", root, "--name", "canonical"])
+        (base / "card" / "cp.pipe.json").write_text(json.dumps(pipe))
+        print(f"phase 7, workflow_canonical_p96x4_256: metaconfig -> imextract -> corilla -> "
+              f"illuminati -> jterator (config 3, both channels corrected) through `create` and "
+              f"`workflow submit --device cuda` from {len(files)} TIFF files ({mbytes:.1f} MiB, "
+              f"{PLATE[0]}x{PLATE[1]} wells at {SITES_PER_WELL[0]}x{SITES_PER_WELL[1]} sites of "
+              f"{SIZE}x{SIZE}; written by the port's ImageWriter in {write_s:.2f} s) on {card}")
+
+        # the static shards, read back right after they are written
+        shards: dict[str, tuple[dict, dict]] = {}
+        write_table = parquet.write_table
+
+        def recording_write(path, columns):
+            out = write_table(path, columns)
+            if "_polygons_" in Path(path).name:
+                shards[Path(path).name] = (columns, parquet.read_table(path))
+            return out
+
+        submit = ["workflow", "submit", "--root", root, "--description", str(desc_path)]
+        capacity.reset_routing_history()
+        parquet.write_table = recording_write
+        try:
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+                if hasattr(w, "routes"):
+                    w.routes = dict.fromkeys(w.routes, 0)
+            t0 = time.perf_counter()
+            summary = json.loads(run_cli(cli, submit + ["--device", "cuda"]))
+            torch.cuda.synchronize()
+            engine_s = time.perf_counter() - t0
+            launches = {k: w.launches for k, w in wrappers.items()}
+        finally:
+            parquet.write_table = write_table
+
+        store = ExperimentStore.open(base / "card")
+        events = engine.RunLedger(store.workflow_dir / "ledger.jsonl").events()
+        steps = ["metaconfig", "imextract", "corilla", "illuminati", "jterator"]
+        done = {e["step"]: e for e in events if e["event"] == "step_done"}
+        if list(summary) != steps or sorted(done) != sorted(steps):
+            raise SmokeFailure(f"canonical: summary {list(summary)}, steps done {sorted(done)}")
+        results = {s: [e["result"] for e in events
+                       if e["event"] == "batch_done" and e["step"] == s] for s in steps}
+        jt = results["jterator"]
+        n_launched = len(jt) + sum(r.get("bucket_escalations", 0) for r in jt)
+        expected = {k: 0 for k in wrappers}
+        expected.update({"fill_holes_flood": n_launched, "cc_min_propagate": n_launched,
+                         "watershed_flood": n_launched, "grouped_stats": 2 * n_launched})
+        print(f"  launches {launches} over {len(jt)} jterator batches and "
+              f"{n_launched - len(jt)} escalation re-launches")
+        if launches != expected:
+            raise SmokeFailure(f"canonical: launches {launches}, expected {expected}")
+        for k, route in on_chip.items():
+            taken = {r: c for r, c in wrappers[k].routes.items() if c}
+            if taken != {route: launches[k]}:
+                raise SmokeFailure(f"canonical: {k} routes {taken}, expected all on {route}")
+        walls = {s: done[s]["elapsed"] for s in steps}
+        ill = results["illuminati"]
+        n_tiles = sum(r["n_tiles"] for r in ill)
+        mpix = sum(int(np.prod(r["mosaic_shape"])) for r in ill) / 1e6
+        stats = done["jterator"]["pipeline_stats"]
+        print(f"  engine: {n} sites in {engine_s:.3f} s = {n / engine_s:.1f} sites/s end to end "
+              "(CLI submit, five steps); step walls (s): "
+              + ", ".join(f"{s} {walls[s]:.3f}" for s in steps) + f"; on {card}")
+        print(f"    imextract: {len(files)} files in {walls['imextract']:.3f} s = "
+              f"{len(files) / walls['imextract']:.1f} files/s "
+              f"({mbytes / walls['imextract']:.1f} MiB/s); on {card}")
+        print(f"    illuminati: mosaic {tuple(ill[0]['mosaic_shape'])} x {len(ill)} channels, "
+              f"{ill[0]['n_levels']} levels, {n_tiles} tiles in {walls['illuminati']:.3f} s = "
+              f"{n_tiles / walls['illuminati']:.1f} tiles/s, {mpix / walls['illuminati']:.1f} "
+              f"Mpix/s of level 0; on {card}")
+        print(f"    jterator: {n / walls['jterator']:.1f} sites/s; executor at depth "
+              f"{stats['depth']} ({stats['source']}), totals (s): "
+              + ", ".join(f"{k} {v['total_s']:.3f}" for k, v in stats["phases"].items())
+              + f"; rungs routed {sorted({r['bucket_capacity'] for r in jt})}; on {card}")
+
+        print_stages(card, illuminati_split(torch, store))
+
+        # resume on the finished ledger: nothing re-runs, nothing launches
+        before = ledger_sequence(engine, store.root)
+        for w in wrappers.values():
+            w.launches = 0
+        resumed = json.loads(run_cli(cli, ["workflow", "resume", "--root", root,
+                                           "--description", str(desc_path), "--device",
+                                           "cuda"]))
+        relaunched = {k: w.launches for k, w in wrappers.items() if w.launches}
+        if resumed != {} or relaunched or \
+                ledger_sequence(engine, store.root) != before + [("run_started", None, None)]:
+            raise SmokeFailure(f"canonical: resume re-ran {resumed} / launched {relaunched}")
+
+        # the ingested store: the generator's pixels at every site and channel
+        channels = {c.name: c.index for c in store.experiment.channels}
+        for ch, px in pixels.items():
+            if not np.array_equal(store.read_sites(None, channel=channels[ch]), px):
+                raise SmokeFailure(f"canonical: the ingested {ch} pixels differ from the files'")
+        # metaconfig's artifacts against a CPU run over the same directory
+        meta = ExperimentStore.create(base / "meta", Experiment(
+            name="canonical", plates=[], channels=[], site_height=1, site_width=1))
+        step = get_step("metaconfig")(meta, device="cpu")
+        step.init({"source_dir": str(src), "sites_per_well_x": SITES_PER_WELL[1]})
+        step.run(0)
+        for name in ("file_mapping.json", "experiment.ome.xml"):
+            if (store.workflow_dir / "metaconfig" / name).read_text() != \
+                    (meta.workflow_dir / "metaconfig" / name).read_text():
+                raise SmokeFailure(f"canonical: {name} differs from the CPU metaconfig's")
+        # every tile against a CPU illuminati over the card's statistics
+        for part in ("images", "illumstats"):
+            copy_part(store.root, base / "cpu", part)
+        cpu = ExperimentStore.open(base / "cpu")
+        t0 = time.perf_counter()
+        step = get_step("illuminati")(cpu, device="cpu")
+        step.init({})
+        for i in step.list_batches():
+            step.run(i)
+        cpu_ill_s = time.perf_counter() - t0
+        tiles = sorted(p.relative_to(store.root) for p in (store.root / "pyramids").rglob("*.png"))
+        if len(tiles) != n_tiles or tiles != sorted(
+                p.relative_to(cpu.root) for p in (cpu.root / "pyramids").rglob("*.png")):
+            raise SmokeFailure(f"canonical: {len(tiles)} card tiles, {n_tiles} reported, or "
+                               "another tile set than the CPU's")
+        for rel in tiles:
+            got, want = png.read(store.root / rel), png.read(cpu.root / rel)
+            if got.shape != (256, 256) or not np.array_equal(got, want):
+                raise SmokeFailure(f"canonical: tile {rel} differs from the CPU's in "
+                                   f"{int((got != want).sum())} pixels")
+        for layer in sorted((store.root / "pyramids").rglob("layer.json")):
+            if layer.read_text() != (cpu.root / layer.relative_to(store.root)).read_text():
+                raise SmokeFailure(f"canonical: {layer.name} differs from the CPU's")
+        # the static mapobject shards read back
+        if sorted(shards) != [f"{t}_polygons_plate00.parquet" for t in ("Plates", "Sites",
+                                                                       "Wells")]:
+            raise SmokeFailure(f"canonical: static shards {sorted(shards)}")
+        for name, (cols, back) in shards.items():
+            for k, v in cols.items():
+                same = (all(np.array_equal(a, b) for a, b in zip(back[k], v))
+                        and len(back[k]) == len(v)) if v.dtype == object else \
+                    back[k].tolist() == v.tolist()
+                if not same:
+                    raise SmokeFailure(f"canonical: {name} column {k} reads back other values")
+        # jterator's batch 0 on the CPU over the card's statistics
+        (cpu.root / "cp.pipe.json").write_text(json.dumps(pipe))
+        capacity.reset_routing_history()
+        t0 = time.perf_counter()
+        step = get_step("jterator")(cpu, device="cpu")
+        step.init(args)
+        step.run(0)
+        cpu_jt_s = time.perf_counter() - t0
+        sites = list(step.load_batch(0)["sites"])
+        _, worst = hold_batch(store, cpu, sites, CARD_TIERS, gate=True)
+        print(f"  holds: resume re-ran and launched nothing; the {n} sites x 2 channels "
+              "ingested equal the files' pixels; file_mapping.json and experiment.ome.xml "
+              f"equal a CPU metaconfig's; {len(tiles)} tiles and layer.json equal a CPU "
+              f"illuminati's over the card's statistics ({cpu_ill_s:.2f} s); "
+              f"{sum(len(cols['name']) for cols, _ in shards.values())} static mapobject rows "
+              f"read back equal; jterator batch 0 on the CPU ({len(sites)} sites, "
+              f"{cpu_jt_s:.2f} s): labels exact, features within CARD_TIERS, largest "
+              "|card - cpu| by family " + ", ".join(f"{k} {v:.3g}"
+                                                   for k, v in sorted(worst.items())))
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def illuminati_split(torch, store) -> dict:
+    """Seconds of each part of the illuminati step's run on channel 0 of
+    ``store``, timed apart in its order on the card: the stitched mosaic
+    (reads, correction), its fetch and host percentiles, the levels, the
+    uint8 levels fetched, the tiles cut, and their PNG encodes on the
+    step's thread pool (the file writes left out)."""
+    import concurrent.futures as cf
+
+    import numpy as np
+
+    from tmlibrary_tpu_torch.io import png
+    from tmlibrary_tpu_torch.models.image import IllumstatsContainer
+    from tmlibrary_tpu_torch.ops import pyramid
+    from tmlibrary_tpu_torch.workflow import get_step
+
+    step = get_step("illuminati")(store)
+    args = step.batch_args.resolve({})
+    stats = IllumstatsContainer.from_store(store.read_illumstats(0, 0))
+    out, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        out[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    mosaic = step._mosaic(store.experiment.plates[0], 0, args, stats)
+    lap("mosaic")
+    host = mosaic.cpu().numpy()
+    lap("fetch")
+    lower, upper = np.percentile(host, [0.1, args["clip_percent"]])
+    lap("percentiles")
+    levels = pyramid.pyramid_levels(mosaic)
+    lap("levels")
+    level8 = [pyramid.to_uint8(lv, float(lower), float(upper)).cpu().numpy() for lv in levels]
+    lap("uint8_fetched")
+    tiles = [t for lv in level8 for t in pyramid.cut_tiles(lv).values()]
+    lap("cut_tiles")
+    with cf.ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(png.encode, tiles))
+    lap("png_encode")
+    return {k: v * 1e3 for k, v in out.items()}
 
 
 def hold_batch(store, cpu, sites, tiers: dict, gate: bool) -> tuple[int, dict]:

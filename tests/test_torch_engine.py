@@ -8,7 +8,10 @@ over two copies of one 16-site store of 64x64: the stores are equal
 the ledgers' (event, step, batch) sequences, with the reference's
 telemetry off.  Then resume, an interrupted run resumed, quarantine,
 drift, the ledgers read across packages, descriptions, refusals and the
-CLI on the CPU.
+CLI on the CPU.  Last, the canonical workflow from a directory of TIFFs
+(metaconfig -> imextract -> corilla -> illuminati -> jterator) under both
+engines: equal manifests, mappings, OME-XML, pixels, statistics, labels,
+features (``CORRECTED_FEATURE_TIERS``), ledger sequences and tiles.
 """
 
 import json
@@ -35,11 +38,14 @@ from tmlibrary_tpu.models.store import ExperimentStore as JStore
 from tmlibrary_tpu.workflow.engine import RunLedger as JLedger
 from tmlibrary_tpu.workflow.engine import Workflow as JWorkflow
 from tmlibrary_tpu.workflow.engine import WorkflowDescription as JDescription
-from tmlibrary_tpu_torch import capacity, cli, resilience
+from tmlibrary_tpu.models.experiment import Experiment as JExperiment
+from tmlibrary_tpu_torch import benchmarks, capacity, cli, resilience
 from tmlibrary_tpu_torch.errors import DeviceError, NotSupportedError, WorkflowError
+from tmlibrary_tpu_torch.io import png
 from tmlibrary_tpu_torch.models.store import ExperimentStore
 from tmlibrary_tpu_torch.workflow.engine import RunLedger, Workflow, WorkflowDescription
 from tmlibrary_tpu_torch.workflow.steps.jterator import ImageAnalysisRunner
+from tmlibrary_tpu_torch.writers import ImageWriter
 
 torch.set_num_threads(1)
 
@@ -281,10 +287,12 @@ def test_resilience_matches_the_reference():
 
 # ------------------------------------------------------------- refusals
 def test_descriptions_and_refusals(tmp_path):
-    for step in ("metaconfig", "imextract", "illuminati"):
+    for step in ("metaconfig", "imextract", "illuminati"):  # ported: all five steps active
         desc = WorkflowDescription.canonical({**STEP_ARGS, step: {}})
-        with pytest.raises(NotSupportedError, match="ROADMAP A item"):
-            desc.validate()
+        desc.validate()
+        assert [s.name for st in desc.stages for s in st.steps if s.active] == \
+            [s.name for st in JDescription.canonical({**STEP_ARGS, step: {}}).stages
+             for s in st.steps if s.active]
     WorkflowDescription.for_type("multiplexing", STEP_ARGS).validate()  # inactive: accepted
     desc = WorkflowDescription.canonical(STEP_ARGS)
     desc.stages[0].steps.append(type(desc.stages[0].steps[0])(name="nope"))
@@ -342,10 +350,123 @@ def test_cli_step_verbs_and_refusals(runs, tmp_path, capsys):
     assert capsys.readouterr().out.startswith("corilla batch 0: {")
     assert cli.main(["corilla", "collect", "--root", root, "--device", "cpu"]) == 0
     assert json.loads(capsys.readouterr().out) == {}
-    assert cli.main(["illuminati", "init", "--root", root]) == 2
-    assert "ROADMAP A item 4" in capsys.readouterr().err
+    assert cli.main(["illuminati", "init", "--root", root]) == 1  # ported; no card here
+    assert "is_available" in capsys.readouterr().err
+    assert cli.main(["illuminati", "init", "--root", root, "--device", "cpu",
+                     "--n-devices", "2"]) == 1
+    assert "ROADMAP A item 10" in capsys.readouterr().err
     assert cli.main(["workflow", "submit", "--root", root, "--description",
                      str(runs["base"] / "wf.json")]) == 1  # no card here
     assert "is_available" in capsys.readouterr().err
     assert cli.main(["workflow", "submit", "--root", root, "--device", "cpu"]) == 1
     assert "no workflow description" in capsys.readouterr().err
+
+
+# ------------------------------------------------- the canonical workflow
+CANONICAL_PIPE = dict(benchmarks.CELL_PAINTING_PIPE, input={"channels": [
+    {"name": "DAPI", "correct": True, "align": False},
+    {"name": "Actin", "correct": True, "align": False}]})
+
+
+def canonical_args(src) -> dict:
+    """metaconfig -> imextract -> corilla -> illuminati -> jterator over a
+    directory of TIFFs; illuminati stretches the raw mosaic (its corrected
+    tiles are held in ``test_torch_illuminati_step``)."""
+    return {"metaconfig": {"source_dir": str(src), "sites_per_well_x": 2},
+            "imextract": {"batch_size": 12},
+            "corilla": {"chunk_size": 6},
+            "illuminati": {"correct": False, "batch_size": 5},
+            "jterator": {"pipe": "cp.pipe.json", "batch_size": 4, "max_objects": 64}}
+
+
+@pytest.fixture(scope="module")
+def canonical(tmp_path_factory):
+    base = tmp_path_factory.mktemp("canonical")
+    src = base / "src"
+    data = benchmarks.synthetic_cell_painting_batch(16, size=64, n_cells=10, seed=2)
+    for i in range(16):
+        well = ("A01", "A02", "B01", "B02")[i // 4]
+        for ch in ("DAPI", "Actin"):
+            with ImageWriter(src / f"{well}_s{i % 4}_{ch}.tif") as w:
+                w.write(data[ch][i].astype(np.uint16))
+    WorkflowDescription.canonical(canonical_args(src)).save(base / "wf.json")
+    assert cli.main(["create", "--root", str(base / "port"), "--name", "canon"]) == 0
+    assert cli.main(["create", "--root", str(base / "port"), "--name", "canon"]) == 1
+    JStore.create(base / "ref", JExperiment(name="canon", plates=[], channels=[],
+                                            site_height=1, site_width=1))
+    for name in ("port", "ref"):
+        (base / name / "cp.pipe.json").write_text(json.dumps(CANONICAL_PIPE))
+    ref = run_reference(base / "ref", base / "wf.json")
+    reset_routers()
+    port = Workflow(ExperimentStore.open(base / "port"),
+                    WorkflowDescription.load(base / "wf.json"), device="cpu").run()
+    reset_routers()
+    return {"base": base, "ref": ref, "port": port, "data": data}
+
+
+def test_the_canonical_workflow_gives_the_references_store(canonical):
+    base = canonical["base"]
+    steps = ["metaconfig", "imextract", "corilla", "illuminati", "jterator"]
+    assert list(canonical["port"]) == list(canonical["ref"]) == steps
+    for step in steps[:-1]:
+        assert canonical["port"][step] == canonical["ref"][step], step
+    ref, port = JStore.open(base / "ref"), ExperimentStore.open(base / "port")
+    assert (base / "port" / "manifest.json").read_text() == \
+        (base / "ref" / "manifest.json").read_text()
+    for name in ("file_mapping.json", "experiment.ome.xml"):
+        assert (base / "port" / "workflow" / "metaconfig" / name).read_text() == \
+            (base / "ref" / "workflow" / "metaconfig" / name).read_text()
+    for ch, name in enumerate(("Actin", "DAPI")):  # channels sorted by name
+        pixels = port.read_sites(None, channel=ch)
+        np.testing.assert_array_equal(pixels, ref.read_sites(None, channel=ch))
+        by_site = {(r.well_row, r.well_column, r.site_y * 2 + r.site_x): i
+                   for i, r in enumerate(port.experiment.sites())}
+        for i in range(16):
+            site = by_site[(i // 4 // 2, i // 4 % 2, i % 4)]
+            np.testing.assert_array_equal(pixels[site], canonical["data"][name][i]
+                                          .astype(np.uint16))
+        a, b = port.read_illumstats(0, ch), ref.read_illumstats(0, ch)
+        for k in ("n", "percentile_keys", "percentile_values"):
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert_same_labels(port, ref)
+    for name in ("nuclei", "cells"):
+        assert_same_features(ref.read_features(name), port.read_features(name))
+    assert sequence(base / "port") == sequence(base / "ref")
+    tiles = sorted(p.relative_to(base / "ref") for p in (base / "ref").rglob("*.png"))
+    assert len(tiles) == 2 and tiles == sorted(p.relative_to(base / "port")
+                                               for p in (base / "port").rglob("*.png"))
+    for rel in tiles:
+        np.testing.assert_array_equal(png.read(base / "port" / rel),
+                                      png.read(base / "ref" / rel), err_msg=str(rel))
+    for rel in ("pyramids/channel00/layer.json", "pyramids/channel01/layer.json",
+                "mapobject_types.json"):
+        assert json.loads((base / "port" / rel).read_text()) == \
+            json.loads((base / "ref" / rel).read_text())
+
+
+def test_the_canonical_workflow_resumes_and_runs_through_the_cli(canonical, tmp_path, capsys):
+    base = canonical["base"]
+    shutil.copytree(base / "port", tmp_path / "x")
+    before = sequence(tmp_path / "x")
+    root = str(tmp_path / "x")
+    assert cli.main(["workflow", "resume", "--root", root, "--description",
+                     str(base / "wf.json"), "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out) == {}
+    assert sequence(tmp_path / "x") == before + [("run_started", None, None)]
+    # the new steps' verbs
+    assert cli.main(["metaconfig", "args"]) == 0
+    assert [a["name"] for a in json.loads(capsys.readouterr().out)] == \
+        ["source_dir", "handler", "pattern", "sites_per_well_x", "plate_cols"]
+    assert cli.main(["illuminati", "init", "--root", root, "--device", "cpu",
+                     "--no-correct"]) == 0
+    assert "planned 2 batches" in capsys.readouterr().out
+    assert cli.main(["illuminati", "run", "--root", root, "--device", "cpu", "--job", "1"]) == 0
+    assert '"n_tiles": 1' in capsys.readouterr().out
+    assert cli.main(["illuminati", "collect", "--root", root, "--device", "cpu"]) == 0
+    assert json.loads(capsys.readouterr().out) == \
+        {"static_mapobjects": {"Plates": 1, "Wells": 4, "Sites": 16}}
+    assert cli.main(["imextract", "info", "--root", root, "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.count("batch ") == 3
+    np.testing.assert_array_equal(
+        png.read(tmp_path / "x" / "pyramids" / "channel01" / "0" / "0_0.png"),
+        png.read(base / "port" / "pyramids" / "channel01" / "0" / "0_0.png"))

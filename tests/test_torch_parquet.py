@@ -189,15 +189,91 @@ def test_what_the_port_cannot_read_raises_naming_it(tmp_path):
         df.to_parquet(path, index=False, **kw)
         with pytest.raises(parquet.ParquetError, match=name):
             parquet.read_table(path)
-    nested = tmp_path / "nested.parquet"
-    pq.write_table(pa.table({"a": [[1, 2], [3]]}), nested)
-    with pytest.raises(parquet.ParquetError, match="group|REPEATED|nested"):
-        parquet.read_table(nested)
+    # LIST columns are read (test_list_columns_*); other nested shapes raise
+    for name, table in {"struct": pa.table({"a": [{"x": 1}, {"x": 2}]}),
+                        "list of lists": pa.table({"a": [[[1, 2]], [[3]]]}),
+                        "list of strings": pa.table({"a": [["x"], ["y", "z"]]})}.items():
+        nested = tmp_path / "nested.parquet"
+        pq.write_table(table, nested)
+        with pytest.raises(parquet.ParquetError, match="nested group|LIST|BYTE_ARRAY"):
+            parquet.read_table(nested)
     (tmp_path / "junk.parquet").write_bytes(b"not parquet")
     with pytest.raises(parquet.ParquetError, match="PAR1"):
         parquet.read_table(tmp_path / "junk.parquet")
     with pytest.raises(parquet.ParquetError):
         parquet.write_table(tmp_path / "x.parquet", {"a": np.zeros(2), "b": np.zeros(3)})
+    for cells in ([[[1, 2], [3, 4]]], [["x", "y"]]):  # nested and string list cells
+        with pytest.raises(parquet.ParquetError, match="list"):
+            parquet.write_table(tmp_path / "x.parquet", {"a": parquet.list_column(cells)})
+
+
+# ------------------------------------------------------------- LIST columns
+LIST_ROWS = {
+    "ints": [[0, 5, 5, 0, 0], [], [1, 2, 3], [7], None, [-(2**40), 2**40]],
+    "floats": [[1.5, float("nan")], None, [], [0.25] * 20, [-3.0]],
+    "all empty": [[], [], []],
+    "one row": [[9, 8, 7, 6, 5, 4, 3, 2, 1]],
+}
+
+
+def assert_same_lists(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            w = np.asarray(w, dtype=np.asarray(g).dtype if len(w) == 0 else None)
+            assert np.asarray(g).dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("case", sorted(LIST_ROWS))
+def test_list_columns_written_by_the_port_read_in_pyarrow(tmp_path, case):
+    rows = LIST_ROWS[case]
+    path = tmp_path / "l.parquet"
+    parquet.write_table(path, {"name": np.asarray([f"r{i}" for i in range(len(rows))]),
+                               "v": parquet.list_column(rows),
+                               "x": np.arange(len(rows), dtype=np.float64)})
+    table = pq.read_table(path)
+    assert str(table.schema.field("v").type).startswith("list<element: ")
+    assert table.column("v").to_pylist() == [
+        None if r is None else [None if isinstance(v, float) and np.isnan(v) else v
+                                for v in r] for r in rows]
+    df = pd.read_parquet(path)
+    assert list(df.columns) == ["name", "v", "x"]
+    assert_same_lists(df["v"].tolist(), rows)
+    assert_same_lists(parquet.read_table(path)["v"], rows)
+
+
+@pytest.mark.parametrize("case", sorted(LIST_ROWS))
+@pytest.mark.parametrize("element", ["element", "item"])
+@pytest.mark.parametrize("codec", ["snappy", "none"])
+def test_list_columns_written_by_pyarrow_read_in_the_port(tmp_path, case, element, codec):
+    rows = LIST_ROWS[case]
+    kind = pa.float64() if case == "floats" or case == "all empty" else pa.int64()
+    path = tmp_path / "l.parquet"
+    pq.write_table(pa.table({"v": pa.array(rows, pa.list_(kind)),
+                             "n": pa.array(range(len(rows)), pa.int64())}), path,
+                   use_compliant_nested_type=element == "element", compression=codec)
+    assert pq.ParquetFile(path).schema.column(0).path.endswith(f"list.{element}")
+    got = parquet.read_table(path)
+    assert list(got) == ["v", "n"]
+    assert_same_lists(got["v"], [None if r is None else
+                                 np.asarray(r, np.float64 if kind == pa.float64() else np.int64)
+                                 for r in rows])
+    np.testing.assert_array_equal(got["n"], np.arange(len(rows)))
+
+
+def test_list_columns_across_pages_and_row_groups(tmp_path):
+    rng = np.random.default_rng(4)
+    rows = [rng.integers(-99, 99, rng.integers(0, 9)).tolist() for _ in range(600)]
+    rows[17] = None
+    df = pd.DataFrame({"v": rows, "s": [f"x{i % 7}" for i in range(600)]})
+    path = tmp_path / "p.parquet"
+    df.to_parquet(path, index=False, data_page_size=256, row_group_size=150)
+    got = parquet.read_table(path)
+    assert_same_lists(got["v"], [None if r is None else np.asarray(r, np.int64) for r in rows])
+    assert got["s"].tolist() == df["s"].tolist()
 
 
 # --------------------------------------------------------------- harvest

@@ -265,21 +265,25 @@ def test_utils_match_the_reference():
         utils.create_partitions([1], 0)
 
 
-@pytest.mark.parametrize("step", ["corilla", "align", "jterator"])
+@pytest.mark.parametrize("step", ["metaconfig", "imextract", "corilla", "align", "illuminati",
+                                  "jterator"])
 def test_step_schema_equals_the_reference(step):
     port = get_step(step).batch_args
     ref = j_registry.get_step(step).batch_args
     assert port.to_schema() == ref.to_schema()
-    assert port.resolve({}) == ref.resolve({})
+    given = {a["name"]: "src" for a in ref.to_schema() if a["required"]}
+    assert port.resolve(given) == ref.resolve(given)
 
 
 def test_registry_lists_the_ported_steps():
-    assert list_steps() == ["align", "corilla", "jterator"]
+    assert list_steps() == ["align", "corilla", "illuminati", "imextract", "jterator",
+                            "metaconfig"]
     with pytest.raises(errors.RegistryError):
-        get_step("illuminati")
+        get_step("nope")
 
 
-@pytest.mark.parametrize("step", ["corilla", "align", "jterator"])
+@pytest.mark.parametrize("step", ["metaconfig", "imextract", "corilla", "align", "illuminati",
+                                  "jterator"])
 def test_step_defaults_to_the_card(tmp_path, step):
     st = ExperimentStore.create(tmp_path / "exp", _grid(experiment))
     with pytest.raises(DeviceError):
@@ -585,10 +589,18 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
             "tmlibrary_tpu_torch.workflow.pipelined", "tmlibrary_tpu_torch.workflow.schedule",
             "tmlibrary_tpu_torch.workflow.steps", "tmlibrary_tpu_torch.workflow.steps.corilla",
             "tmlibrary_tpu_torch.workflow.steps.align",
-            "tmlibrary_tpu_torch.workflow.steps.jterator"]
+            "tmlibrary_tpu_torch.workflow.steps.jterator",
+            "tmlibrary_tpu_torch.workflow.steps.metaconfig",
+            "tmlibrary_tpu_torch.workflow.steps.imextract",
+            "tmlibrary_tpu_torch.workflow.steps.illuminati",
+            "tmlibrary_tpu_torch.workflow.steps.vendors",
+            "tmlibrary_tpu_torch.workflow.steps.omexml", "tmlibrary_tpu_torch.readers",
+            "tmlibrary_tpu_torch.writers", "tmlibrary_tpu_torch.io.png",
+            "tmlibrary_tpu_torch.models.metadata", "tmlibrary_tpu_torch.cli"]
     code = (
         "import importlib, sys\n"
-        "sys.modules['yaml'] = None; sys.modules['pandas'] = None\n"
+        "for banned in ('yaml', 'pandas', 'cv2', 'pyarrow', 'PIL', 'h5py'):\n"
+        "    sys.modules[banned] = None\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "from tmlibrary_tpu_torch.workflow import list_steps; print(list_steps())\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -598,7 +610,8 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "['align', 'corilla', 'jterator']" in out.stdout
+    assert "['align', 'corilla', 'illuminati', 'imextract', 'jterator', 'metaconfig']" \
+        in out.stdout
 
 
 def test_not_supported_on_corilla(tmp_path):

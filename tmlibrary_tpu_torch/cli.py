@@ -3,6 +3,7 @@
 Counterpart: ``tmlibrary_tpu/cli.py`` (``tmx``), with the verbs of the
 steps the port has, the same argument names and the same JSON output::
 
+    python -m tmlibrary_tpu_torch.cli create --root DIR --name NAME
     python -m tmlibrary_tpu_torch.cli workflow submit --root DIR [--description wf.json]
                                                       [--resume] [--device cuda]
     python -m tmlibrary_tpu_torch.cli workflow resume --root DIR ...
@@ -10,11 +11,12 @@ steps the port has, the same argument names and the same JSON output::
     python -m tmlibrary_tpu_torch.cli <step> init|run|collect|info|args --root DIR ...
     python -m tmlibrary_tpu_torch.cli log --root DIR [--tail N] [--step S [--job N]]
 
-``<step>`` is ``corilla``, ``align`` or ``jterator``; the installed
-console script is ``tmx-torch``.  Every verb takes ``--device``, ``cuda``
-unless ``cpu`` is asked for; without a card, ``cuda`` raises.  Asking for
-a step that is not ported (``metaconfig``, ``imextract``, ``illuminati``)
-says so and names its ROADMAP item.
+``<step>`` is ``metaconfig``, ``imextract``, ``corilla``, ``align``,
+``illuminati`` or ``jterator``; the installed console script is
+``tmx-torch``.  ``create`` makes the placeholder store a canonical run
+starts from (metaconfig writes its manifest).  Every other verb takes
+``--device``, ``cuda`` unless ``cpu`` is asked for; without a card,
+``cuda`` raises.
 """
 
 from __future__ import annotations
@@ -26,14 +28,10 @@ import logging
 import sys
 from pathlib import Path
 
+from tmlibrary_tpu_torch.models.experiment import Experiment
 from tmlibrary_tpu_torch.models.store import ExperimentStore
 from tmlibrary_tpu_torch.resilience import ResilienceConfig
-from tmlibrary_tpu_torch.workflow.engine import (
-    UNPORTED_STEPS,
-    RunLedger,
-    Workflow,
-    WorkflowDescription,
-)
+from tmlibrary_tpu_torch.workflow.engine import RunLedger, Workflow, WorkflowDescription
 from tmlibrary_tpu_torch.workflow.registry import get_step, list_steps
 
 
@@ -48,6 +46,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="tmx-torch", description="microscopy image analysis on the card (PyTorch port)")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p_create = sub.add_parser("create", help="create an empty experiment store")
+    p_create.add_argument("--root", required=True, help="experiment store directory")
+    p_create.add_argument("-v", "--verbosity", action="count", default=0)
+    p_create.add_argument("--name", required=True)
 
     p_log = sub.add_parser("log", help="show the run ledger or captured step logs")
     _add_common(p_log)
@@ -104,6 +107,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _open_store(args) -> ExperimentStore:
     return ExperimentStore.open(Path(args.root))
+
+
+def cmd_create(args) -> int:
+    root = Path(args.root)
+    if (root / ExperimentStore.MANIFEST).exists():
+        print(f"error: store already exists at {root}", file=sys.stderr)
+        return 1
+    placeholder = Experiment(name=args.name, plates=[], channels=[], site_height=1,
+                             site_width=1)
+    ExperimentStore.create(root, placeholder)
+    print(f"created experiment '{args.name}' at {root}")
+    return 0
 
 
 def cmd_workflow(args) -> int:
@@ -214,16 +229,13 @@ def cmd_log(args) -> int:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    command = next((a for a in argv if not a.startswith("-")), None)
-    if command in UNPORTED_STEPS:
-        print(f"error: step '{command}' is not ported to the PyTorch package yet "
-              f"({UNPORTED_STEPS[command]})", file=sys.stderr)
-        return 2
     args = build_parser().parse_args(argv)
     level = max(logging.DEBUG, logging.WARNING - 10 * getattr(args, "verbosity", 0))
     logging.basicConfig(level=level, format="%(levelname)s %(name)s: %(message)s")
     logging.getLogger("tmlibrary_tpu_torch").setLevel(level)
     try:
+        if args.command == "create":
+            return cmd_create(args)
         if args.command == "workflow":
             return cmd_workflow(args)
         if args.command == "log":

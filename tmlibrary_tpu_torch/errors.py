@@ -16,6 +16,13 @@ class MetadataError(TmError):
     """Error in experiment/image metadata handling."""
 
 
+class VendorConflictError(MetadataError):
+    """Vendor files make mutually-exclusive claims (e.g. two containers on
+    one well).  Unlike an unparseable sidecar, this is a data-integrity
+    problem: metaconfig's ``auto`` handler loop re-raises it instead of
+    falling through to the next handler."""
+
+
 class PipelineError(TmError):
     """Error in the jterator pipeline description or execution."""
 

@@ -2,16 +2,17 @@
 
 Counterpart: ``tmlibrary_tpu/jterator/description.py`` (reference
 ``tmlib/workflow/jterator/description.py``).  Same schema and validation.
-A file is read by its suffix: ``.json`` (``*.pipe.json``, handles
-``*.handles.json``) with the standard ``json`` module, anything else as
-YAML, whose module is imported only then.  The card's machine has no
-``yaml``, so a pipeline that runs there is a ``.pipe.json``; the JAX
-package reads the same file unchanged, since a JSON document is YAML.
+Pipeline and handles files are read as JSON (``*.pipe.json``,
+``*.handles.json``) with the standard ``json`` module; the port does not
+import ``yaml``, which the card's machine lacks, so a document that is
+not JSON raises.  The JAX package reads the same files unchanged, since
+a JSON document is YAML.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from pathlib import Path
 
 from tmlibrary_tpu_torch.errors import PipelineDescriptionError
@@ -41,15 +42,16 @@ class ObjectOutput:
 
 
 def _read_document(path: Path):
-    """A ``.json`` file through ``json``, any other through ``yaml``."""
+    """A pipeline or handles document as JSON (which the reference's YAML
+    loader reads too).  The target machine has no ``yaml``: a document
+    that is not JSON raises, naming the file."""
     path = Path(path)
-    if path.suffix.lower() == ".json":
-        import json
-
+    try:
         return json.loads(path.read_text())
-    import yaml
-
-    return yaml.safe_load(path.read_text())
+    except json.JSONDecodeError as e:
+        raise PipelineDescriptionError(
+            f"{path.name} is not JSON ({e.msg}); YAML documents are not read by the port "
+            "(no yaml on the target machine), save it as .json") from None
 
 
 @dataclasses.dataclass

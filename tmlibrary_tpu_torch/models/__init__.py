@@ -3,6 +3,8 @@
 Counterpart: ``tmlibrary_tpu/models/``: the manifest
 (:mod:`~tmlibrary_tpu_torch.models.experiment`), the store
 (:mod:`~tmlibrary_tpu_torch.models.store`), the illumination statistics
-container (:mod:`~tmlibrary_tpu_torch.models.image`) and the mapobject
-type registry (:mod:`~tmlibrary_tpu_torch.models.mapobject`).
+container (:mod:`~tmlibrary_tpu_torch.models.image`), the mapobject
+type registry and static outlines
+(:mod:`~tmlibrary_tpu_torch.models.mapobject`) and the metadata records
+(:mod:`~tmlibrary_tpu_torch.models.metadata`).
 """

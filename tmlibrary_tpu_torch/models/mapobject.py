@@ -3,9 +3,9 @@
 Counterpart: ``tmlibrary_tpu/models/mapobject.py`` (reference
 ``tmlib/models/mapobject.py`` ``MapobjectType``): the type registry, a
 JSON document in the store (``mapobject_types.json``, the same file in
-both packages), and the plate geometry jterator's ``collect`` needs for
-the polygon-zoom threshold.  ``static_mapobjects`` (the plate, well and
-site outlines) comes with illuminati's step.
+both packages), the plate geometry jterator's ``collect`` needs for
+the polygon-zoom threshold, and the static outlines of plates, wells and
+sites (:func:`static_mapobjects`) that illuminati's ``collect`` writes.
 """
 
 from __future__ import annotations
@@ -15,16 +15,21 @@ import json
 import math
 from pathlib import Path
 
+import numpy as np
+
 from tmlibrary_tpu_torch.errors import MetadataError
 from tmlibrary_tpu_torch.models.experiment import Experiment
+
+#: static mapobject type names the reference auto-creates per experiment
+STATIC_TYPES = ("Plates", "Wells", "Sites")
+
 
 @dataclasses.dataclass(frozen=True)
 class MapobjectType:
     """One class of map objects (reference ``MapobjectType`` row).
 
     ``ref_type`` is ``"segmented"`` for jterator outputs or one of
-    the singular forms of the static types (plate, well, site) the
-    reference derives from the experiment's geometry.
+    ``STATIC_TYPES``'s singular forms for geometry-derived types.
     ``min_poly_zoom`` is the pyramid zoom level below which the viewer
     renders centroids instead of polygons (computed from object size in
     the reference; recorded here for the serving layer).
@@ -87,6 +92,10 @@ class MapobjectTypeRegistry:
         self._write(d)
 
 
+#: plural static type name → the singular ``ref_type`` recorded on it
+STATIC_REF_TYPES = {"Plates": "plate", "Wells": "well", "Sites": "site"}
+
+
 # ------------------------------------------------------------- static geometry
 def plate_grid(exp: Experiment, plate_name: str) -> tuple[int, int, int, int]:
     """(n_well_rows, n_well_cols, sites_y, sites_x) for one plate — the
@@ -115,6 +124,52 @@ def plate_mosaic_shape(
         n_rows * wh + (n_rows - 1) * well_spacing,
         n_cols * ww + (n_cols - 1) * well_spacing,
     )
+
+
+def _rect(y0: int, x0: int, y1: int, x1: int) -> np.ndarray:
+    """Closed rectangle outline, (5, 2) [y, x] int32.  The winding is
+    counter-clockwise in y-down image coordinates (clockwise in
+    math-convention y-up axes)."""
+    return np.array(
+        [[y0, x0], [y1, x0], [y1, x1], [y0, x1], [y0, x0]], dtype=np.int32
+    )
+
+
+def static_mapobjects(
+    exp: Experiment, plate_name: str, well_spacing: int = 0
+) -> dict[str, list[tuple[str, np.ndarray]]]:
+    """Outlines of the plate, its wells, and its sites in plate-mosaic
+    pixel coordinates (reference: the static MapobjectTypes created during
+    pyramid build so the viewer can draw the grid).
+
+    ``well_spacing`` adds a pixel gutter between wells, matching
+    illuminati's mosaic layout option.  Returns
+    ``{"Plates"|"Wells"|"Sites": [(label, (5, 2) outline), ...]}``.
+    """
+    n_rows, n_cols, sy, sx = plate_grid(exp, plate_name)
+    wh = sy * exp.site_height  # well height in px
+    ww = sx * exp.site_width
+    out: dict[str, list[tuple[str, np.ndarray]]] = {
+        "Plates": [], "Wells": [], "Sites": []
+    }
+    plate_h = n_rows * wh + (n_rows - 1) * well_spacing
+    plate_w = n_cols * ww + (n_cols - 1) * well_spacing
+    out["Plates"].append((plate_name, _rect(0, 0, plate_h, plate_w)))
+    plate = next(p for p in exp.plates if p.name == plate_name)
+    for well in plate.wells:
+        oy = well.row * (wh + well_spacing)
+        ox = well.column * (ww + well_spacing)
+        out["Wells"].append((well.name, _rect(oy, ox, oy + wh, ox + ww)))
+        for site in well.sites:
+            sy0 = oy + site.y * exp.site_height
+            sx0 = ox + site.x * exp.site_width
+            out["Sites"].append(
+                (
+                    f"{well.name}_{site.y}_{site.x}",
+                    _rect(sy0, sx0, sy0 + exp.site_height, sx0 + exp.site_width),
+                )
+            )
+    return out
 
 
 def min_poly_zoom(n_levels: int, mean_object_px: float) -> int:

@@ -39,7 +39,7 @@ import numpy as np
 
 from tmlibrary_tpu_torch.errors import StoreError
 from tmlibrary_tpu_torch.io import parquet
-from tmlibrary_tpu_torch.models.experiment import Experiment
+from tmlibrary_tpu_torch.models.experiment import Experiment, SiteRef
 
 PIXEL_DTYPE = np.uint16
 LABEL_DTYPE = np.int32
@@ -88,6 +88,12 @@ class ExperimentStore:
         return cls(root, Experiment.load(manifest))
 
     # ----------------------------------------------------------- site lookup
+    def site_linear_index(self, ref: SiteRef) -> int:
+        try:
+            return self._site_index[ref.as_tuple()]
+        except KeyError:
+            raise StoreError(f"site {ref} not in experiment manifest") from None
+
     @property
     def n_sites(self) -> int:
         return len(self._site_index)

@@ -1,22 +1,28 @@
 """Host C++ of the port: the convex-hull pixel counts behind
-``Morphology_solidity``.
+``Morphology_solidity``, and the TIFF reader behind imextract.
 
 Counterpart: ``tmlibrary_tpu/native.py`` ``hull_pixel_counts_host`` and
-``solidity_host`` (``:323-392``), backed there by ``tm_hull_pixel_counts``
-in ``native/tmnative.cpp``.  Hulls are ragged per object, so, as in the
-JAX package, solidity is measured on the host from the exported label
-images and joined into the morphology features when a batch persists.
+``solidity_host`` (``:323-392``) and ``tiff_info``, ``tiff_read``,
+``tiff_read_page``, ``lzw_decode`` and ``packbits_decode``
+(``:413-590``), backed there by ``native/tmnative.cpp``.  Hulls are
+ragged per object, so, as in the JAX package, solidity is measured on
+the host from the exported label images and joined into the morphology
+features when a batch persists.
 
-The port keeps its own copy of the C++ (``csrc/host/hull.cpp``).  At
-first use it is compiled with the host compiler (``c++``/``g++`` on the
-``PATH``, else ``nvcc``) into ``build/host/`` at the root of the
-checkout, named by a digest of the source and flags, and bound with
-``ctypes``.  One call takes a batch of sites and counts each object's
-hull pixels and its pixels (:func:`hull_and_area_counts`); the step
-calls :func:`solidity_batch` once per family and batch.  A failed build
-raises :class:`BuildError`; nothing falls back to
-:func:`hull_pixel_counts_numpy`, the plain version that the tests hold
-the library against.
+The port keeps its own copy of the C++ (``csrc/host/hull.cpp`` and
+``csrc/host/tiff.cpp``).  At first use both are compiled with the host
+compiler (``c++``/``g++`` on the ``PATH``, else ``nvcc``) into one
+library in ``build/host/`` at the root of the checkout, named by a
+digest of the sources and flags, and bound with ``ctypes``.  One call
+takes a batch of sites and counts each object's hull pixels and its
+pixels (:func:`hull_and_area_counts`); the step calls
+:func:`solidity_batch` once per family and batch.  The TIFF functions
+return None for a file the C++ reader declines by its own header checks
+(BigTIFF, deflate, tiles, colour), where the JAX package goes on to its
+Python reader too.  A failed build raises :class:`BuildError`; nothing
+falls back to :func:`hull_pixel_counts_numpy`, :func:`_lzw_decode_py` or
+:func:`_packbits_decode_py`, the plain versions that the tests hold the
+library against.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import numpy as np
 from tmlibrary_tpu_torch.errors import BuildError
 
 HOST_SRC = Path(__file__).resolve().parent / "csrc" / "host" / "hull.cpp"
+TIFF_SRC = HOST_SRC.with_name("tiff.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "host"
 FLAGS = ("-O3", "-std=c++17", "-shared")
 
@@ -56,15 +63,18 @@ def _compiler() -> list[str]:
 
 
 def build() -> Path:
-    """Compile ``hull.cpp`` (if its digest-named library is missing) and
-    return the library path."""
-    digest = hashlib.sha256(" ".join(FLAGS).encode() + HOST_SRC.read_bytes()).hexdigest()[:16]
+    """Compile ``hull.cpp`` and ``tiff.cpp`` into one library (if its
+    digest-named file is missing) and return the library path."""
+    sources = (HOST_SRC, TIFF_SRC)
+    digest = hashlib.sha256(
+        " ".join(FLAGS).encode() + b"".join(src.read_bytes() for src in sources)
+    ).hexdigest()[:16]
     path = BUILD_DIR / f"libtmhost_{digest}.so"
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [*_compiler(), "-o", str(tmp), str(HOST_SRC)]
+    cmd = [*_compiler(), "-o", str(tmp), *map(str, sources)]
     done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if done.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -86,6 +96,15 @@ def lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int32
             fn.argtypes = [ctypes.c_void_p, *[ctypes.c_int32] * 4, ctypes.c_void_p,
                            ctypes.c_void_p]
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+            for fname, args in (("tm_lzw_decode", [ptr, i64, ptr, i64]),
+                                ("tm_packbits_decode", [ptr, i64, ptr, i64]),
+                                ("tm_tiff_info", [ctypes.c_char_p, ptr]),
+                                ("tm_tiff_read", [ctypes.c_char_p, i32, ptr, i32, i32]),
+                                ("tm_tiff_read2", [ctypes.c_char_p, i32, ptr, i64, ptr])):
+                fn = getattr(loaded, fname)
+                fn.restype = ctypes.c_int32
+                fn.argtypes = args
             _LIB = loaded
         return _LIB
 
@@ -207,3 +226,142 @@ def solidity_batch(stack: np.ndarray, max_label: int) -> np.ndarray:
     """:func:`solidity` of every site of a ``(B, H, W)`` stack, as
     ``(B, max_label)`` float32, in one library call."""
     return _ratio(*hull_and_area_counts(stack, max_label)[::-1])
+
+
+# -------------------------------------------------------------- tiff reader
+def tiff_info(path) -> "tuple[int, int, int, int] | None":
+    """``(n_pages, height, width, bits)`` of page 0 of a TIFF the C++
+    reader handles, else None."""
+    out = np.zeros(4, np.int32)
+    if lib().tm_tiff_info(str(path).encode(), out.ctypes.data) != 0:
+        return None
+    return tuple(int(v) for v in out)
+
+
+def tiff_read(path, page: int, height: int, width: int) -> "np.ndarray | None":
+    """Page ``page`` of a grayscale TIFF as ``(height, width)`` uint16
+    (8-bit samples widened), or None when the C++ reader declines the
+    file (not classic TIFF, not strips, not 8/16-bit grayscale, another
+    codec, another shape)."""
+    out = np.empty((height, width), np.uint16)
+    rc = lib().tm_tiff_read(str(path).encode(), int(page), out.ctypes.data,
+                            int(height), int(width))
+    return out if rc == 0 else None
+
+
+#: per-thread scratch for tiff_read_page, grown on demand
+_TIFF_SCRATCH = threading.local()
+
+
+def tiff_read_page(path, page: int) -> "np.ndarray | None":
+    """Page ``page`` of a grayscale TIFF at its own size, uint8 or uint16
+    as stored, from one load of the file (``tm_tiff_read2``); None when
+    the C++ reader declines the file."""
+    scratch = getattr(_TIFF_SCRATCH, "buf", None)
+    if scratch is None:
+        scratch = _TIFF_SCRATCH.buf = np.empty(2048 * 2048, np.uint16)
+    hwb = np.zeros(3, np.int32)
+    for _ in range(2):
+        rc = lib().tm_tiff_read2(str(path).encode(), int(page), scratch.ctypes.data,
+                                 scratch.shape[0], hwb.ctypes.data)
+        if rc == 0:
+            h, w = int(hwb[0]), int(hwb[1])
+            out = scratch[: h * w].reshape(h, w)
+            return out.astype(np.uint8) if int(hwb[2]) == 8 else out.copy()
+        if rc != -2:
+            return None
+        scratch = _TIFF_SCRATCH.buf = np.empty(int(hwb[0]) * int(hwb[1]), np.uint16)
+    return None
+
+
+def _strip_call(fn, src: bytes, expect: int) -> "bytes | None":
+    buf = np.frombuffer(src, np.uint8)
+    out = np.empty(expect, np.uint8)
+    rc = fn(buf.ctypes.data, len(src), out.ctypes.data, expect)
+    return out.tobytes() if rc == 1 else None
+
+
+def lzw_decode(src: bytes, expect: int) -> "bytes | None":
+    """A TIFF LZW strip decoded to exactly ``expect`` bytes (None on
+    corrupt input or short output)."""
+    return _strip_call(lib().tm_lzw_decode, src, expect)
+
+
+def packbits_decode(src: bytes, expect: int) -> "bytes | None":
+    """A PackBits strip decoded to exactly ``expect`` bytes (None on
+    corrupt input or short output)."""
+    return _strip_call(lib().tm_packbits_decode, src, expect)
+
+
+def _lzw_decode_py(src: bytes, expect: int) -> "bytes | None":
+    """The plain version of :func:`lzw_decode`: TIFF LZW (MSB-first codes,
+    256 Clear, 257 EOI, early code-width change) with a sliding bit
+    accumulator fed byte by byte."""
+    table: list[bytes] = []
+
+    def reset():
+        table.clear()
+        table.extend(bytes([i]) for i in range(256))
+        table.extend((b"", b""))  # 256 Clear, 257 EOI
+
+    reset()
+    out = bytearray()
+    width = 9
+    prev: "bytes | None" = None
+    acc = nbits = 0
+    pos = 0
+    n = len(src)
+    while len(out) < expect:
+        while nbits < width and pos < n:
+            acc = (acc << 8) | src[pos]
+            pos += 1
+            nbits += 8
+        if nbits < width:
+            break
+        nbits -= width
+        code = (acc >> nbits) & ((1 << width) - 1)
+        acc &= (1 << nbits) - 1
+        if code == 257:
+            break
+        if code == 256:
+            reset()
+            width = 9
+            prev = None
+            continue
+        if code < len(table):
+            entry = table[code]
+        elif code == len(table) and prev is not None:
+            entry = prev + prev[:1]
+        else:
+            return None  # corrupt stream
+        out += entry
+        if prev is not None:
+            table.append(prev + entry[:1])
+        if len(table) + 1 >= (1 << width) and width < 12:
+            width += 1
+        prev = entry
+    # the final entry can overrun expect; the library truncates too
+    return bytes(out[:expect]) if len(out) >= expect else None
+
+
+def _packbits_decode_py(src: bytes, expect: int) -> "bytes | None":
+    """The plain version of :func:`packbits_decode`."""
+    out = bytearray()
+    i = 0
+    n = len(src)
+    while i < n and len(out) < expect:
+        c = src[i]
+        i += 1
+        if c < 128:
+            cnt = c + 1
+            if i + cnt > n:
+                return None
+            out += src[i:i + cnt]
+            i += cnt
+        elif c != 128:
+            if i >= n:
+                return None
+            out += bytes([src[i]]) * (257 - c)
+            i += 1
+    # a run can cross the expect boundary; truncate like the library
+    return bytes(out[:expect]) if len(out) >= expect else None

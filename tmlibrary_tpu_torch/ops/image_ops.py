@@ -89,18 +89,24 @@ def join_grid(tiles: torch.Tensor, grid_rows: int, grid_cols: int) -> torch.Tens
             .reshape(grid_rows * h, grid_cols * w))
 
 
-def make_batch_prep(mean_log: torch.Tensor, std_log: torch.Tensor,
-                    window: tuple[int, int, int, int]):
+def make_batch_prep(mean_log: "torch.Tensor | None", std_log: "torch.Tensor | None",
+                    window: "tuple[int, int, int, int] | None", apply_shift: bool = True):
     """``prep(stack (B, H, W), shifts (B, 2)) -> (B, H', W') float32``:
     illumination correction against corilla's ``mean_log``/``std_log``
-    fields of the channel, then each site's shift, then the intersection
-    crop ``window`` (top, bottom, left, right) -- the site preparation that
-    illuminati stitches from.  The reference makes each of the three
-    optional; the port's one caller runs all three, and zero shifts with a
-    zero window leave a site as the correction made it."""
+    fields of the channel (none when they are None), then each site's
+    shift (when ``apply_shift``), then the intersection crop ``window``
+    (top, bottom, left, right; none when None) -- the site preparation
+    that illuminati stitches from, each part optional as in the
+    reference."""
 
     def prep(stack: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
-        out = correct_illumination(stack.to(torch.float32), mean_log, std_log)
-        return align(out, shifts, window)
+        out = stack.to(torch.float32)
+        if mean_log is not None:
+            out = correct_illumination(out, mean_log, std_log)
+        if apply_shift:
+            out = shift_image(out, shifts)
+        if window is not None:
+            out = crop_window(out, *window)
+        return out
 
     return prep

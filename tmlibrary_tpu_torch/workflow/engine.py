@@ -20,9 +20,6 @@ reads the other's ledger.  Where the port differs:
   :meth:`WorkflowDescription.save` writes JSON (which is YAML, so the
   reference loads it) and :meth:`~WorkflowDescription.load` of a
   ``.yaml``/``.yml`` file raises :class:`NotSupportedError`.
-- **Steps not ported.**  An active ``metaconfig``, ``imextract`` or
-  ``illuminati`` step raises :class:`NotSupportedError` in ``validate``,
-  naming its ROADMAP item; an inactive one is accepted.
 - **No CPU fallback.**  Every step runs on the engine's ``device``
   (``"cuda"`` unless the caller passes ``"cpu"``); a missing card raises
   :class:`DeviceError`.  The reference's device health guard, which pins
@@ -88,15 +85,6 @@ WORKFLOW_TYPES: dict[str, list[tuple[str, list[str]]]] = {
     ],
 }
 
-#: the reference's steps that the port has not ported yet, with the
-#: ROADMAP item that ports them
-UNPORTED_STEPS = {
-    "metaconfig": "ROADMAP A item 6",
-    "imextract": "ROADMAP A item 6",
-    "illuminati": "ROADMAP A item 4",
-}
-
-
 @dataclasses.dataclass
 class WorkflowStepDescription:
     name: str
@@ -120,12 +108,6 @@ class WorkflowDescription:
         known = set(list_steps())
         for stage in self.stages:
             for step in stage.steps:
-                if step.name in UNPORTED_STEPS:
-                    if step.active:
-                        raise NotSupportedError(
-                            f"workflow step '{step.name}' is not ported yet "
-                            f"({UNPORTED_STEPS[step.name]}); deactivate it to run the rest")
-                    continue
                 if step.name not in known:
                     raise WorkflowError(
                         f"workflow references unknown step '{step.name}' "
