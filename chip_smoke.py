@@ -64,13 +64,24 @@ Phases (any failure exits non-zero before the last line):
    the union-find's phases by prefix) and of the histogram and GLCM kernels against their window sizes,
    their first designs (taken apart: memset, counting on zero, real and
    flat inputs) and the ``bincount``/``index_add_`` yardsticks.
-3. Drive six paths through ``build_batch_fn`` on the card, each with
+3. Drive eight paths through ``build_batch_fn`` on the card, each with
    every launch counter set to 0 just before it and read just after:
    (a) the Cell Painting pipeline (BASELINE config 3), (b) the full
    feature stack (config 4), (c) config 3 with
    ``measure_intensity(quantiles=True)``, (d) config 3 with declumping,
-   (e) config 2 (smooth, adaptive threshold, label) and (f) config 5 (the
-   3-D z-stack pipeline).  Each path must launch its kernels (paths d-f
+   (e) config 2 (smooth, adaptive threshold, label), (f) config 5 (the
+   3-D z-stack pipeline), (g) the ``dl`` configuration
+   (``segment_dl_primary`` with ``seed:0`` weights, threshold 0.6,
+   ``min_area`` 4, then ``measure_intensity``; 64 DAPI sites) and (h) its
+   primary + secondary form (``segment_dl_secondary``, both measured).
+   Paths g and h launch exactly rows 2 and 4 (and 3, the one-level flood,
+   on h), hold those kernels against their plain versions at the path's
+   shapes, hold the first 8 sites to the port's CPU run by the boundary
+   rule (:func:`dl_flips`: the head within ``HEAD_TIER``, each flipped
+   sign or mask pixel within the tier of its boundary; features by
+   ``CARD_TIERS`` where labels agree), hold the heads bit-identical at
+   batch 64, 8 and 1, and print the host syncs of a batch, the stage
+   split and the U-Net's GFLOP/s beside ``unet_flops``/``unet_io_bytes``.  Each path must launch its kernels (paths d-f
    exactly as often as listed in ``main``, paths a-e the 2-D labeling and
    f the 3-D labeling once; the floods on their main routes); labels and
    counts of the
@@ -124,7 +135,16 @@ Phases (any failure exits non-zero before the last line):
    resume``; the ingested pixels exact, metaconfig's artifacts, every
    tile and ``layer.json`` against CPU runs, the static mapobject shards
    read back, jterator's batch 0 against the CPU.
-8. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+8. The QC session (``phase_qc_session``, ``workflow_engine_qc_p96x4_256``):
+   phase 5's plate, ``workflow submit --device cuda --qc`` of corilla ->
+   align -> jterator (path h, DAPI corrected and aligned), launch
+   counters as on path h per launched batch, and ``--no-qc``, in turns
+   off, on, on, off, each on a fresh root: stores bit-identical,
+   ``qc.json`` with the ``__model__`` streams
+   (64 samples a stream a site), one ``qc_batch`` a batch, batch 0's QC
+   summary and labels against the CPU, and the ``qc`` verb's exit code
+   against the CPU's profile; engine sites/s with QC on and off.
+9. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness), and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -254,6 +274,50 @@ def corrected_tiers(tiers: dict) -> dict:
 #: port corrects in float64, the same on the card and the CPU, so the card
 #: is held to the CPU by :data:`CARD_TIERS`)
 CORRECTED_FEATURE_TIERS = corrected_tiers(FEATURE_TIERS)
+
+#: the DL U-Net's head (flows and logit) of one implementation against
+#: another's on the same sites, per site: |got - want| <= HEAD_TIER *
+#: max|want|.  XLA-CPU, PyTorch's CPU and cuDNN sum each convolution in
+#: another order, and the site means of the standardization too; the port
+#: against the JAX package measured 6.6e-7 (tests/test_torch_nn.py)
+HEAD_TIER = 4e-6
+#: the cell probability beside the head tier: PyTorch's and XLA's sigmoid
+#: differ by up to 2 ulps at 0.6 on the same logit (an ulp is 6e-8 there)
+CELLPROB_ULPS = 1.2e-7
+
+
+def dl_flips(want, got, prob_threshold: float) -> dict:
+    """The boundary rule for the DL decoder's inputs.  ``want``/``got``:
+    ``{"head": (B, 3, H, W), "prob": (B, H, W)}`` numpy of the same sites
+    from two implementations.  The head must lie within
+    :data:`HEAD_TIER`; the decoder reads only the flows' signs and the
+    mask ``prob >= prob_threshold``, and each pixel where those differ
+    must lie within the tier of its boundary: a flow component with
+    ``|want| <= HEAD_TIER * max|want|`` (the site's scale), a mask pixel
+    with ``|want prob - threshold|`` within a quarter of that (sigmoid's
+    largest slope) plus :data:`CELLPROB_ULPS`.  Raises
+    :class:`SmokeFailure` otherwise; returns the largest head error
+    relative to ``max|head|`` and the flips counted."""
+    import numpy as np
+
+    wh, gh = want["head"], got["head"]
+    b = wh.shape[0]
+    scale = np.abs(wh).reshape(b, -1).max(axis=1)
+    err = np.abs(gh - wh).reshape(b, -1).max(axis=1)
+    tau = (HEAD_TIER * scale)[:, None, None]
+    if (err > tau[:, 0, 0]).any():
+        raise SmokeFailure(f"dl head beyond HEAD_TIER: relative error "
+                           f"{(err / scale).max():.3g} > {HEAD_TIER}")
+    sign_flip = np.sign(wh[:, :2]) != np.sign(gh[:, :2])
+    thr = np.float32(prob_threshold)
+    mask_flip = (want["prob"] >= thr) != (got["prob"] >= thr)
+    bad_sign = sign_flip & (np.abs(wh[:, :2]) > tau[:, None])
+    bad_mask = mask_flip & (np.abs(want["prob"] - thr) > tau / 4 + CELLPROB_ULPS)
+    if bad_sign.any() or bad_mask.any():
+        raise SmokeFailure(f"dl decisions flipped away from a boundary: {int(bad_sign.sum())} "
+                           f"flow signs, {int(bad_mask.sum())} mask pixels")
+    return {"max_rel_err": float((err / np.maximum(scale, 1e-30)).max()),
+            "sign_flips": int(sign_flip.sum()), "mask_flips": int(mask_flip.sum())}
 
 
 class SmokeFailure(Exception):
@@ -1164,13 +1228,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     try:
-        from tmlibrary_tpu_torch import benchmarks, native, shootout
-        from tmlibrary_tpu_torch.jterator import pipeline
+        from tmlibrary_tpu_torch import benchmarks, native, nn, shootout
+        from tmlibrary_tpu_torch.jterator import modules, pipeline
         from tmlibrary_tpu_torch.jterator.description import PipelineDescription
         from tmlibrary_tpu_torch.jterator.modules import get_module
         from tmlibrary_tpu_torch.ops import (
             _cuda, fused_measure, image_ops, kernels, label, measure, pyramid, qc,
-            registration, segment_primary, smooth, stats, threshold, volume,
+            registration, segment_primary, segment_secondary, smooth, stats, threshold,
+            volume,
         )
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
@@ -1325,6 +1390,20 @@ def main() -> int:
         print("  measure_volume split (ms per batch): " + ", ".join(
             f"{k} {v:.3f}" for k, v in split.items()) + f" on {card}")
 
+        # (g) the dl configuration and (h) its primary + secondary form
+        data_dl = benchmarks.synthetic_cell_painting_batch(B, size=SIZE, seed=SEED,
+                                                           dapi_only=True)
+        dl_pkg = {"pipeline": pipeline, "nn": nn, "modules": modules, "label": label,
+                  "kernels": kernels, "fused_measure": fused_measure, "measure": measure,
+                  "segment_secondary": segment_secondary}
+        drive_dl_path(torch, dl_pkg, "dl",
+                      benchmarks.dl_description(DL_WEIGHTS, DL_THRESHOLD, DL_MIN_AREA),
+                      data_dl, wrappers, {"cc_min_propagate": 1, "grouped_stats": 1}, card, bw)
+        drive_dl_path(torch, dl_pkg, "dl secondary", PipelineDescription.from_dict(
+                          benchmarks.dl_secondary_pipe(DL_WEIGHTS, DL_THRESHOLD, DL_MIN_AREA)),
+                      data_dl, wrappers, {"cc_min_propagate": 1, "watershed_flood": 1,
+                                          "grouped_stats": 2}, card, bw)
+
         # ---------------------------------------------------------- phase 4
         print(f"phase 4: corilla, align, illuminati, QC, corilla -> config 3; times on {card}")
         corilla_out = phase_corilla(torch, stats, benchmarks, bw, card)
@@ -1344,6 +1423,9 @@ def main() -> int:
 
         # ---------------------------------------------------------- phase 7
         phase_canonical(torch, wrappers, card, on_chip)
+
+        # ---------------------------------------------------------- phase 8
+        phase_qc_session(torch, wrappers, card)
 
         # each kernel's launches: the path that brought it to the port
         path_of = {"intensity_hist": run_q, "glcm_all": run4, "distance_transform": run_d,
@@ -2083,15 +2165,10 @@ def phase_steps(torch, wrappers, card, on_chip, chain_sps: float) -> None:
 def run_cli(cli, argv: list[str]) -> str:
     """``cli.main(argv)`` in this process (so the launch counters see its
     kernels), its standard output returned; a non-zero exit fails."""
-    import contextlib
-    import io
-
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(argv)
+    rc, out = run_cli_rc(cli, argv)
     if rc != 0:
-        raise SmokeFailure(f"cli {' '.join(argv[:2])} exited {rc}: {buf.getvalue()[-500:]}")
-    return buf.getvalue()
+        raise SmokeFailure(f"cli {' '.join(argv[:2])} exited {rc}: {out[-500:]}")
+    return out
 
 
 def ledger_sequence(engine, root: Path) -> list[tuple]:
@@ -2733,40 +2810,13 @@ def sum_reads(jt) -> float:
 
 def syncs_in_launch(torch, jt) -> str:
     """Where one ``launch_batch`` (inputs already read) makes the host wait
-    for the card, as PyTorch's sync debug mode reports it: for each
-    report inside the port, its innermost line on the stack, with their
-    counts."""
-    import collections
-    import traceback
-    import warnings
-
+    for the card (:func:`host_syncs`)."""
     batch = jt._effective_batch(jt.load_batch(0))
     inputs = jt._load_inputs(batch)
-    root = Path(__file__).resolve().parent
-    package = root / "tmlibrary_tpu_torch"
-    where = collections.Counter()
-
-    def record(message, category, filename, lineno, file=None, line=None):
-        if "synchroniz" not in str(message).lower():
-            return
-        port = [f for f in traceback.extract_stack()
-                if Path(f.filename).resolve().is_relative_to(package)]
-        if port:  # the innermost line of the port: the op that waited
-            where[f"{Path(port[-1].filename).resolve().relative_to(root)}:"
-                  f"{port[-1].lineno}"] += 1
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = record
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            _, ctx = jt.launch_batch(batch, inputs)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    jt.block_batch(ctx)
-    return (", ".join(f"{k} x{v}" for k, v in sorted(where.items()))
-            or "none reported") + f" ({sum(where.values())} in all)"
+    launched = []
+    report = host_syncs(torch, lambda: launched.append(jt.launch_batch(batch, inputs)))
+    jt.block_batch(launched[0][1])
+    return report
 
 
 def hold_steps_on_cpu(torch, store, base, pipe, args, card) -> None:
@@ -2867,18 +2917,485 @@ def feature_tier(name: str, tiers: dict = FEATURE_TIERS) -> tuple[float, float]:
     return hits[0]
 
 
-def compare_with_cpu(card, cpu) -> dict:
+# ------------------------------------------------------------ the DL paths
+#: the ``dl`` configuration's decoder settings (bench.py:851-860)
+DL_WEIGHTS, DL_THRESHOLD, DL_MIN_AREA = "seed:0", 0.6, 4
+
+
+def dl_labels(nn, head, prob, names) -> dict:
+    """The labels a ``(B, 3, H, W)`` head and its probabilities give
+    through the port's decoder: the primary objects under ``names[0]``,
+    the secondary ones (when two names) under ``names[1]``."""
+    primary, _ = nn.decode_flows(head[:, :2], prob, prob_threshold=DL_THRESHOLD,
+                                 min_area=DL_MIN_AREA, max_objects=MAX_OBJECTS)
+    out = {names[0]: primary}
+    if len(names) > 1:
+        out[names[1]] = nn.decode_secondary(primary, prob, DL_THRESHOLD,
+                                            max_objects=MAX_OBJECTS)[0]
+    return out
+
+
+def hold_dl(torch, nn, modules, images, card_objects, cpu_objects) -> tuple[list, dict]:
+    """The boundary rule between the card's and the CPU's DL labels of the
+    same ``(B, H, W)`` card images: both heads (the U-Net on each device)
+    within :data:`HEAD_TIER` and every flipped decision within the tier
+    of its boundary (:func:`dl_flips`); each side's head, decoded on the
+    CPU, gives that side's labels (``card_objects``, ``cpu_objects``:
+    ``{name: (B, H, W) numpy}``).  Returns the sites whose labels are
+    equal on both sides and the flips."""
+    import numpy as np
+
+    names = list(cpu_objects)
+    sides = {}
+    for side, x in (("card", images), ("cpu", images.cpu())):
+        head = modules._dl_head(x, DL_WEIGHTS).cpu()
+        sides[side] = {"head": head, "prob": torch.sigmoid(head[:, 2])}
+    flips = dl_flips({k: v.numpy() for k, v in sides["cpu"].items()},
+                     {k: v.numpy() for k, v in sides["card"].items()}, DL_THRESHOLD)
+    exact = np.ones(images.shape[0], bool)
+    for side, objects in (("card", card_objects), ("cpu", cpu_objects)):
+        decoded = dl_labels(nn, sides[side]["head"], sides[side]["prob"], names)
+        for name in names:
+            if not np.array_equal(decoded[name].numpy(), objects[name]):
+                raise SmokeFailure(f"dl: the {side}'s {name} labels are not its head's")
+    for name in names:
+        exact &= (card_objects[name] == cpu_objects[name]).reshape(len(exact), -1).all(axis=1)
+    return list(np.flatnonzero(exact)), flips
+
+
+def dl_stages(torch, nn, measure, dapi, names) -> dict:
+    """CUDA-event time of each stage of a DL batch at its shapes, run one
+    by one."""
+    net, _ = nn.unet_for(DL_WEIGHTS, dapi.device)
+    norm = nn.normalize_image(dapi)
+    head = net(norm[:, None])
+    prob = torch.sigmoid(head[:, 2])
+    mask = prob >= torch.tensor(DL_THRESHOLD, device=dapi.device)
+    yy, xx = nn.follow_flows(head[:, :2])
+    flat = nn.decode.sink_labels(mask, yy, xx)
+    labels = nn.decode.compact_labels(flat, DL_MIN_AREA, MAX_OBJECTS).reshape(dapi.shape)
+    steps = {
+        "normalize": lambda: nn.normalize_image(dapi),
+        "unet": lambda: net(norm[:, None]),
+        "sigmoid_follow": lambda: (torch.sigmoid(head[:, 2]), nn.follow_flows(head[:, :2])),
+        "hits_labeling": lambda: nn.decode.sink_labels(mask, yy, xx),
+        "compact_clip": lambda: nn.decode.compact_labels(flat, DL_MIN_AREA, MAX_OBJECTS),
+    }
+    if len(names) > 1:
+        steps["secondary"] = lambda: nn.decode_secondary(labels, prob, DL_THRESHOLD,
+                                                         max_objects=MAX_OBJECTS)
+    steps["measure"] = lambda: [measure.intensity_features(labels, dapi, MAX_OBJECTS)
+                                for _ in names]
+    return {name: cuda_ms(torch, fn, 5) for name, fn in steps.items()}
+
+
+def host_syncs(torch, call) -> str:
+    """Where ``call()`` makes the host wait for the card, as PyTorch's sync
+    debug mode reports it: for each report inside the port, its innermost
+    line on the stack, with their counts."""
+    import collections
+    import traceback
+    import warnings
+
+    root = Path(__file__).resolve().parent
+    package = root / "tmlibrary_tpu_torch"
+    where = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message).lower():
+            return
+        port = [f for f in traceback.extract_stack()
+                if Path(f.filename).resolve().is_relative_to(package)]
+        if port:  # the innermost line of the port: the op that waited
+            where[f"{Path(port[-1].filename).resolve().relative_to(root)}:"
+                  f"{port[-1].lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return (", ".join(f"{k} x{v}" for k, v in sorted(where.items()))
+            or "none reported") + f" ({sum(where.values())} in all)"
+
+
+def drive_dl_path(torch, pkg, title, desc, data, wrappers, expect, card, bw) -> dict:
+    """Phase 3's DL paths, (g) ``dl`` and (h) its primary + secondary form,
+    through ``build_batch_fn`` on the card: a warm-up call, every launch
+    counter set to 0, one call, the counters read (exactly ``expect``,
+    nothing else; the watershed, where launched, on chip for every site);
+    the kernels of the path held against their plain versions at its
+    shapes (the seed labeling, the one-level flood against
+    ``propagate_labels``, ``grouped_stats``); the first sites held to the
+    port's CPU run by the boundary rule (:func:`hold_dl`), their
+    features by ``CARD_TIERS`` where the labels agree; the heads
+    bit-identical at batch 64, 8 and 1 and the labels at batch 8; then
+    the host syncs of one batch, sites/s over 5 calls, the stage split
+    and the U-Net's rates."""
+    import numpy as np
+
+    pipeline, nn, modules, label, kernels, fused_measure, measure, segment_secondary = (
+        pkg[k] for k in ("pipeline", "nn", "modules", "label", "kernels", "fused_measure",
+                         "measure", "segment_secondary"))
+    n = next(iter(data.values())).shape[0]
+    raw, stats, shifts = pipeline.from_jax_inputs(data, {}, [[0, 0]] * n, device="cuda")
+    fn = pipeline.ImageAnalysisPipeline(desc, MAX_OBJECTS, device="cuda").build_batch_fn()
+    fn(raw, stats, shifts)  # warm-up: allocator, cuDNN handles, first launches
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "routes"):
+            w.routes = dict.fromkeys(w.routes, 0)
+    t0 = time.perf_counter()
+    result = fn(raw, stats, shifts)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"phase 3, {title}: launches {launches}")
+    want_launches = {k: 0 for k in wrappers}
+    want_launches.update(expect)
+    if launches != want_launches:
+        raise SmokeFailure(f"{title}: launches {launches}, expected {want_launches}")
+    if launches["watershed_flood"]:
+        site = wrappers["watershed_flood"].site_routes
+        if wrappers["watershed_flood"].routes != {"onchip": launches["watershed_flood"],
+                                                  "global": 0} or bool((site != 0).any()):
+            raise SmokeFailure(f"{title}: watershed_flood off chip")
+    card_res = pipeline.site_result_to_numpy(result)
+    names = list(card_res.objects)
+    dapi = raw["DAPI"].to(torch.float32)
+
+    # the path's kernels against their plain versions at its shapes (not counted)
+    net, _ = nn.unet_for(DL_WEIGHTS, dapi.device)
+    head = net(nn.normalize_image(dapi)[:, None])
+    prob = torch.sigmoid(head[:, 2])
+    mask = prob >= torch.tensor(DL_THRESHOLD, device=dapi.device)
+    seed_mask, _ = nn.decode.seed_mask(mask, *nn.follow_flows(head[:, :2]))
+    holds = {"cc_min_propagate": (kernels.cc_min_propagate(seed_mask),
+                                  kernels.cc_min_propagate_plain(seed_mask))}
+    primary = result.objects[names[0]]
+    if len(names) > 1:
+        grow = mask | (primary > 0)
+        holds["watershed_flood"] = (
+            kernels.watershed_flood(torch.zeros_like(dapi), primary, grow, n_levels=1),
+            segment_secondary.propagate_labels(primary, grow))
+    holds["grouped_stats"] = (
+        torch.stack(fused_measure.grouped_stats(primary, [dapi], MAX_OBJECTS)),
+        torch.stack(fused_measure.grouped_stats_plain(primary, [dapi], MAX_OBJECTS)))
+    for k, (got, want) in holds.items():
+        if not torch.equal(got, want):
+            raise SmokeFailure(f"{title}: {k} differs from its plain version on the path's "
+                               "inputs")
+    seeds_per_site = kernels.cc_min_propagate(seed_mask)
+    print(f"  kernels at the path's shapes equal their plain versions: "
+          + ", ".join(holds) + f" (seed pixels {int(seed_mask.sum())}, "
+          f"seed components {int(label.compact_roots(seed_mask, seeds_per_site)[1].sum())})")
+
+    # the first sites against the port's CPU run, by the boundary rule
+    sub = {k: v[:N_CPU_SITES] for k, v in data.items()}
+    craw, cstats, cshifts = pipeline.from_jax_inputs(sub, {}, [[0, 0]] * N_CPU_SITES,
+                                                     device="cpu")
+    cpu_res = pipeline.site_result_to_numpy(
+        pipeline.ImageAnalysisPipeline(desc, MAX_OBJECTS, device="cpu")
+        .build_batch_fn()(craw, cstats, cshifts))
+    exact, flips = hold_dl(torch, nn, modules, dapi[:N_CPU_SITES],
+                           {k: v[:N_CPU_SITES] for k, v in card_res.objects.items()},
+                           cpu_res.objects)
+    worst = compare_with_cpu(card_res, cpu_res, sites=exact)
+    print(f"  cpu check: {len(exact)} of {N_CPU_SITES} sites exact (labels, counts, features "
+          f"by CARD_TIERS); head {flips['max_rel_err']:.3g} of max|head| (HEAD_TIER "
+          f"{HEAD_TIER}); {flips['sign_flips']} flow signs and {flips['mask_flips']} mask "
+          "pixels flipped, each within the tier of its boundary; largest |card - cpu| "
+          + ", ".join(f"{k} {d:.3g} ({f})" for k, (d, f) in sorted(worst.items())))
+
+    # batch invariance: the same sites' heads at batch 64, 8 and 1
+    h64 = modules._dl_head(dapi, DL_WEIGHTS)
+    h8 = modules._dl_head(dapi[:8], DL_WEIGHTS)
+    h1 = modules._dl_head(dapi[5:6], DL_WEIGHTS)
+    r8 = fn({k: v[:8] for k, v in raw.items()}, stats, shifts[:8])
+    if not (torch.equal(h8, h64[:8]) and torch.equal(h1, h64[5:6])):
+        raise SmokeFailure(f"{title}: the head depends on the batch size")
+    for name in names:
+        if not torch.equal(r8.objects[name], result.objects[name][:8]):
+            raise SmokeFailure(f"{title}: {name} labels depend on the batch size")
+    print("  batch invariance: heads of sites 0-7 and 5 bit-identical at batch 64, 8 and 1; "
+          "labels at batch 8 equal batch 64's")
+
+    print(f"  host syncs of one batch: {host_syncs(torch, lambda: fn(raw, stats, shifts))}")
+    reps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(raw, stats, shifts)
+    torch.cuda.synchronize()
+    batch_s = (time.perf_counter() - t0) / reps
+    print(f"  pipeline: {n / batch_s:.1f} sites/s ({batch_s * 1e3:.2f} ms per batch of {n}; "
+          f"main-path run {main_s * 1e3:.2f} ms) on {card}")
+    print("  counts: " + " ".join(f"{obj} {c[:N_CPU_SITES].tolist()}"
+                                  for obj, c in card_res.counts.items()))
+    stages = dl_stages(torch, nn, measure, dapi, names)
+    print_stages(card, stages)
+    cfg = nn.resolve_weights(DL_WEIGHTS)[2]
+    flops = n * nn.unet_flops(cfg, SIZE, SIZE)
+    io = n * nn.unet_io_bytes(cfg, SIZE, SIZE)
+    bound_ms = max(flops / FP32_OPS_PER_S, io / bw) * 1e3
+    print(f"  unet: {flops / 1e9:.2f} GFLOP and {io / 1e6:.2f} MB (unet_flops, unet_io_bytes) "
+          f"a batch in {stages['unet']:.3f} ms = {flops / stages['unet'] / 1e6:.1f} GFLOP/s "
+          f"({flops / stages['unet'] / 1e6 / (FP32_OPS_PER_S / 1e9):.1%} of the float32 "
+          f"peak {FP32_OPS_PER_S / 1e12:.0f} TFLOP/s; bound {bound_ms:.3f} ms) on {card}")
+    return {"launches": launches, "counts": card_res.counts, "sites_per_s": n / batch_s,
+            "exact_sites": len(exact)}
+
+
+def phase_qc_session(torch, wrappers, card) -> None:
+    """Phase 8, ``workflow_engine_qc_p96x4_256``: the QC session on the card.
+    Phase 5's plate (384 sites of 256x256, DAPI and Actin, 2 cycles,
+    cycle 1 rolled within +-40) written under ``build/``; a JSON
+    description of corilla -> align (ref_cycle 0) -> jterator (path (h):
+    ``segment_dl_primary`` -> ``segment_dl_secondary`` -> ``measure_intensity``
+    on both, DAPI corrected and aligned, from a ``.pipe.json``; cycle 1,
+    batches of 64, ``max_objects=256``) by ``workflow submit --device cuda
+    --qc`` in this process, launch counters set to 0 just before and read
+    just after, and ``--no-qc``, in turns off, on, on, off, each on a
+    fresh root.  Holds: the stores
+    bit-identical with QC on and off; ``qc.json`` written (and nothing
+    with QC off) with the ``__model__`` streams at 64 samples a stream a
+    site; one ``qc_batch`` event a batch; batch 0 on the CPU over the
+    card's statistics and shifts: labels by the boundary rule, its QC
+    summary's counts exact and its floats within their tiers; the ``qc``
+    verb's exit code against the CPU's profile is ``compare_profiles``'.
+    The directory is removed at the end."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks, capacity, cli, nn, qc
+    from tmlibrary_tpu_torch.jterator import modules
+    from tmlibrary_tpu_torch.jterator.description import PipelineDescription
+    from tmlibrary_tpu_torch.jterator.pipeline import ImageAnalysisPipeline
+    from tmlibrary_tpu_torch.models.experiment import grid_experiment
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import engine, get_step
+
+    base = Path(__file__).resolve().parent / "build" / f"phase8.{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        exp = grid_experiment("phase8", well_rows=PLATE[0], well_cols=PLATE[1],
+                              sites_per_well=SITES_PER_WELL, channel_names=("DAPI", "Actin"),
+                              site_shape=(SIZE, SIZE), n_cycles=2)
+        n = exp.n_sites
+        data = benchmarks.synthetic_cell_painting_batch(n, size=SIZE, seed=SEED)
+        drift = np.random.default_rng(SEED + 8).integers(-MAX_DRIFT, MAX_DRIFT + 1, (n, 2))
+        store = ExperimentStore.create(base / "card", exp)
+        for c, ch in enumerate(("DAPI", "Actin")):
+            px = data[ch].astype(np.uint16)
+            store.write_sites(px, list(range(n)), cycle=0, channel=c)
+            store.write_sites(np.stack([np.roll(s, tuple(d), axis=(0, 1))
+                                        for s, d in zip(px, drift)]),
+                              list(range(n)), cycle=1, channel=c)
+        del data
+        pipe = benchmarks.dl_secondary_pipe(DL_WEIGHTS, DL_THRESHOLD, DL_MIN_AREA,
+                                            correct=True, align=True)
+        (store.root / "dl.pipe.json").write_text(json.dumps(pipe))
+        args = {"pipe": "dl.pipe.json", "cycle": 1, "batch_size": STEP_BATCH,
+                "max_objects": MAX_OBJECTS}
+        desc_path = base / "workflow.json"
+        engine.WorkflowDescription.canonical({
+            "corilla": {}, "align": {"ref_cycle": 0, "batch_size": STEP_BATCH},
+            "jterator": args}).save(desc_path)
+        for name in ("off1", "on1", "off"):
+            copy_part(store.root, base / name, "images")
+            shutil.copy(store.root / "dl.pipe.json", base / name / "dl.pipe.json")
+        print(f"phase 8, workflow_engine_qc_p96x4_256: corilla -> align -> jterator (path (h), "
+              f"DAPI corrected and aligned) through `workflow submit --device cuda --qc` over "
+              f"{n} sites ({PLATE[0]}x{PLATE[1]} wells at {SITES_PER_WELL[0]}x"
+              f"{SITES_PER_WELL[1]} sites of {SIZE}x{SIZE}, 2 cycles; written in "
+              f"{time.perf_counter() - t0:.2f} s), in turns with --no-qc; on {card}")
+
+        # in turns (off, on, on, off), each on a fresh root (a second submit
+        # on a root would plan its batches from the first run's counts)
+        walls = {"qc": [], "no-qc": []}
+        for mode, root in (("no-qc", base / "off1"), ("qc", base / "on1"), ("qc", store.root),
+                           ("no-qc", base / "off")):
+            capacity.reset_routing_history()
+            qc.reset_session()
+            torch.cuda.synchronize()
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.perf_counter()
+            run_cli(cli, ["workflow", "submit", "--root", str(root), "--description",
+                          str(desc_path), "--device", "cuda", f"--{mode}"])
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            launches = {k: w.launches for k, w in wrappers.items()}
+            events = engine.RunLedger(Path(root) / "workflow" / "ledger.jsonl").events()
+            results = [e["result"] for e in events
+                       if e["event"] == "batch_done" and e["step"] == "jterator"]
+            n_launched = len(results) + sum(r.get("bucket_escalations", 0) for r in results)
+            expected = {k: 0 for k in wrappers}
+            expected.update({"cc_min_propagate": n_launched, "watershed_flood": n_launched,
+                             "grouped_stats": 2 * n_launched})
+            if launches != expected:
+                raise SmokeFailure(f"qc ({mode}): launches {launches}, expected {expected}")
+            if mode == "qc":
+                on_events, on_results = events, results
+        qc_events = [e for e in on_events if e["event"] == "qc_batch"]
+        if [e["batch"] for e in qc_events] != list(range(len(on_results))):
+            raise SmokeFailure(f"qc: qc_batch events for batches "
+                               f"{[e['batch'] for e in qc_events]}")
+        on_seq = ledger_sequence(engine, store.root)
+        off_seq = ledger_sequence(engine, base / "off")
+        if off_seq != [e for e in on_seq if e[0] not in ("qc_batch", "qc_site",
+                                                          "qc_budget_exceeded")]:
+            raise SmokeFailure("qc: the --no-qc ledger is not the --qc ledger less its qc events")
+        off = ExperimentStore.open(base / "off")
+        same_store(store, off, "qc on and off")
+        same_store(ExperimentStore.open(base / "on1"), ExperimentStore.open(base / "off1"),
+                   "qc on and off")
+        if list((base / "off" / "workflow").glob("qc*.json")):
+            raise SmokeFailure("qc: --no-qc wrote a QC profile")
+        profile = qc.load_profile(store.workflow_dir / "qc.json")
+        if profile is None or profile != qc.load_profile(qc.profile_path(store.workflow_dir)):
+            raise SmokeFailure("qc: qc.json missing or unlike qc.host0.json")
+        model = {k: v for k, v in profile["features"].items() if k.startswith("__model__.")}
+        if sorted(model) != ["__model__.cell_prob", "__model__.cell_prob_secondary",
+                             "__model__.flow_mag"] or \
+                any(v["count"] != 64 * n or v["nan"] or v["inf"] for v in model.values()):
+            raise SmokeFailure(f"qc: model streams {model}")
+        if profile["steps"]["jterator"]["sites"] != n or \
+                sorted(profile["illumination"]) != ["Actin", "DAPI"]:
+            raise SmokeFailure(f"qc: profile steps {profile['steps']}, illumination "
+                               f"{sorted(profile['illumination'])}")
+        flagged = sum(1 for e in on_events if e["event"] == "qc_site")
+        on_s, off_s = (sum(walls[m]) / len(walls[m]) for m in ("qc", "no-qc"))
+        print(f"  engine, {n} sites a run in turns off, on, on, off: QC off "
+              + ", ".join(f"{t:.3f}" for t in walls["no-qc"]) + " s, QC on "
+              + ", ".join(f"{t:.3f}" for t in walls["qc"])
+              + f" s; means {n / on_s:.1f} sites/s with QC on, {n / off_s:.1f} with QC off "
+              f"({on_s / off_s - 1:+.1%}); {len(on_results)} jterator batches, "
+              f"{len(qc_events)} qc_batch events, {flagged} qc_site events; stores bit-identical "
+              f"with QC on and off; qc.json: {len(profile['features'])} feature sketches, "
+              "model streams " + ", ".join(f"{k.split('.', 1)[1]} n {v['count']} p50 "
+                                           f"{v['p50']:.4g} p95 {v['p95']:.4g}"
+                                           for k, v in sorted(model.items())) + f"; on {card}")
+
+        # batch 0 on the CPU over the card's statistics and shifts, QC on
+        for part in ("images", "illumstats", "alignment"):
+            copy_part(store.root, base / "cpu", part)
+        shutil.copy(store.root / "dl.pipe.json", base / "cpu" / "dl.pipe.json")
+        cpu = ExperimentStore.open(base / "cpu")
+        capacity.reset_routing_history()
+        qc.reset_session()
+        t0 = time.perf_counter()
+        jt = get_step("jterator")(cpu, device="cpu", qc=True)
+        jt.init(args)
+        batch = jt.load_batch(0)
+        sites = json.loads((store.workflow_dir / "jterator" / "batch_000.json").read_text())[
+            "sites"]
+        if batch["sites"] != sites:
+            raise SmokeFailure("qc: the CPU's batch 0 holds other sites than the card's")
+        cpu_summary = jt.run(0)["qc"]
+        cpu_s = time.perf_counter() - t0
+        cpu_profile = qc.get_session(True).snapshot()
+        qc.reset_session()
+
+        # labels of batch 0 by the boundary rule, on the card's corrected images
+        desc = PipelineDescription.from_dict(pipe)
+        card_jt = get_step("jterator")(store, device="cuda")
+        inputs = card_jt._load_inputs(card_jt._effective_batch(card_jt.load_batch(0)))
+        window = store.read_intersection()
+        window = (window["top"], window["bottom"], window["left"], window["right"])
+        images = ImageAnalysisPipeline(desc, MAX_OBJECTS, device="cuda").build_preprocess_fn(
+            None if window == (0, 0, 0, 0) else window)(
+            {k: torch.from_numpy(v).cuda() for k, v in inputs["raw"].items()},
+            {k: tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in pair)
+             for k, pair in inputs["stats"].items()},
+            torch.from_numpy(np.ascontiguousarray(inputs["shifts"], np.int32)).cuda())["DAPI"]
+        top, left = (window[0], window[2])
+        h, w = images.shape[-2:]
+        crop = {name: store.read_labels(sites, name)[:, top:top + h, left:left + w]
+                for name in ("nuclei", "cells")}
+        cpu_crop = {name: cpu.read_labels(sites, name)[:, top:top + h, left:left + w]
+                    for name in ("nuclei", "cells")}
+        exact, flips = hold_dl(torch, nn, modules, images, crop, cpu_crop)
+        card_summary = qc_events[0]["summary"]
+        counts_exact = len(exact) == len(sites)
+        for k in ("nan_columns", "nan_values", "inf_values", "capacity_saturated"):
+            if card_summary[k] != cpu_summary[k]:
+                raise SmokeFailure(f"qc: batch 0's {k} {card_summary[k]} on the card, "
+                                   f"{cpu_summary[k]} on the CPU")
+        if counts_exact and (card_summary["count_z_max"] != cpu_summary["count_z_max"] or
+                             card_summary["flagged_total"] != cpu_summary["flagged_total"]):
+            raise SmokeFailure("qc: batch 0's count statistics differ from the CPU's")
+        worst = 0.0
+        for ch, entry in cpu_summary["channels"].items():
+            for k, v in entry.items():
+                tier = {"focus_min": QC_TIERS["focus_tenengrad"],
+                        "saturation_max": QC_TIERS["saturation_frac"],
+                        "background_mean": QC_TIERS["background"]}[k]
+                got = card_summary["channels"][ch][k]
+                worst = max(worst, abs(got - v) / max(abs(v), 1e-30))
+                if not np.isclose(got, v, rtol=tier[0], atol=tier[1]):
+                    raise SmokeFailure(f"qc: batch 0's {ch} {k} {got} on the card, {v} on "
+                                       "the CPU")
+        cpu_path = base / "cpu_qc.json"
+        qc.write_profile(cpu_path, cpu_profile)
+        verdicts = {}
+        for kind in ("run", "model"):
+            rc, out = run_cli_rc(cli, ["qc", "--root", str(store.root), "--json", "--reference",
+                                       str(cpu_path), "--profile-kind", kind])
+            verdict = json.loads(out)["verdict"]
+            want = qc.compare_profiles(qc.filter_profile_kind(profile, kind),
+                                       qc.filter_profile_kind(cpu_profile, kind))
+            if rc != verdict["exit_code"] or rc != want["exit_code"]:
+                raise SmokeFailure(f"qc: `qc --profile-kind {kind}` exited {rc}, "
+                                   f"compare_profiles gives {want['exit_code']}")
+            verdicts[kind] = (rc, verdict["status"], verdict["checked"], len(verdict["drifted"]))
+        print(f"  CPU hold: batch 0 ({len(sites)} sites) on the CPU over the card's statistics "
+              f"and shifts in {cpu_s:.2f} s: {len(exact)} of {len(sites)} sites' labels exact, "
+              f"the rest by the boundary rule (head {flips['max_rel_err']:.3g} of max|head|, "
+              f"{flips['sign_flips']} flow signs and {flips['mask_flips']} mask pixels flipped); "
+              f"QC summary: NaN columns and saturation exact, count z max and flags "
+              f"{'exact' if counts_exact else 'not held (labels differ)'}, image statistics "
+              f"within QC_TIERS (largest relative difference {worst:.3g})")
+        print("  `tmx-torch qc --json` against the CPU's batch-0 profile: " + ", ".join(
+            f"{kind} exit {rc} ({status}, {checked} checked, {drifted} drifted)"
+            for kind, (rc, status, checked, drifted) in verdicts.items())
+              + " = compare_profiles'")
+    finally:
+        os.environ.pop("TMX_QC", None)
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def run_cli_rc(cli, argv: list[str]) -> tuple[int, str]:
+    """``cli.main(argv)`` in this process: its exit code and standard
+    output."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def compare_with_cpu(card, cpu, sites=None) -> dict:
     """Labels and counts exact; every feature within its tier of
-    :data:`CARD_TIERS` on the defined rows of the first sites.  Returns
-    the largest absolute difference of each feature family and the
-    feature where it lies."""
+    :data:`CARD_TIERS` on the defined rows of the first sites (of
+    ``sites`` among them, where given).  Returns the largest absolute
+    difference of each feature family and the feature where it lies."""
     import numpy as np
 
     n = N_CPU_SITES
+    keep = list(range(n)) if sites is None else list(sites)
     for obj in cpu.objects:
-        if not np.array_equal(card.objects[obj][:n], cpu.objects[obj]):
+        if not np.array_equal(card.objects[obj][keep], cpu.objects[obj][keep]):
             raise SmokeFailure(f"{obj}: card labels differ from the CPU run")
-        if not np.array_equal(card.counts[obj][:n], cpu.counts[obj]):
+        if not np.array_equal(card.counts[obj][keep], cpu.counts[obj][keep]):
             raise SmokeFailure(f"{obj}: card counts differ from the CPU run")
     worst: dict[str, tuple[float, str]] = {}
     for obj, feats in cpu.measurements.items():
@@ -2889,7 +3406,7 @@ def compare_with_cpu(card, cpu) -> dict:
                 raise SmokeFailure(f"{feat}: shape {got.shape} != {want.shape}")
             rtol, atol = feature_tier(feat, CARD_TIERS)
             family = feat.split("_")[0]
-            for s in range(n):
+            for s in keep:
                 g, w = got[s, : counts[s]], want[s, : counts[s]]
                 if not np.isfinite(g).all():
                     raise SmokeFailure(f"{obj}/{feat}: non-finite values")

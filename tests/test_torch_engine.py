@@ -12,6 +12,12 @@ CLI on the CPU.  Last, the canonical workflow from a directory of TIFFs
 (metaconfig -> imextract -> corilla -> illuminati -> jterator) under both
 engines: equal manifests, mappings, OME-XML, pixels, statistics, labels,
 features (``CORRECTED_FEATURE_TIERS``), ledger sequences and tiles.
+Then the DL segmenters' pipeline with QC on under both engines: equal
+ledger sequences with the ``qc_batch``/``qc_site`` events, both profiles
+written, the port's equal to the reference's (counts, flags, guards,
+illumination and the ``__model__`` streams; values within the head and QC
+tiers), the same run with QC off writing no profile and the same store,
+and the ``qc`` verb's exit code against the reference's profile.
 """
 
 import json
@@ -22,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import HEAD_TIER, QC_TIERS, feature_tier
 from test_torch_workflow_steps import (
     ALIGN,
     CORILLA,
@@ -32,6 +39,7 @@ from test_torch_workflow_steps import (
     make_store,
 )
 from tmlibrary_tpu import capacity as j_capacity
+from tmlibrary_tpu import qc as j_qc
 from tmlibrary_tpu import resilience as j_resilience
 from tmlibrary_tpu import telemetry
 from tmlibrary_tpu.models.store import ExperimentStore as JStore
@@ -39,7 +47,7 @@ from tmlibrary_tpu.workflow.engine import RunLedger as JLedger
 from tmlibrary_tpu.workflow.engine import Workflow as JWorkflow
 from tmlibrary_tpu.workflow.engine import WorkflowDescription as JDescription
 from tmlibrary_tpu.models.experiment import Experiment as JExperiment
-from tmlibrary_tpu_torch import benchmarks, capacity, cli, resilience
+from tmlibrary_tpu_torch import benchmarks, capacity, cli, qc, resilience
 from tmlibrary_tpu_torch.errors import DeviceError, NotSupportedError, WorkflowError
 from tmlibrary_tpu_torch.io import png
 from tmlibrary_tpu_torch.models.store import ExperimentStore
@@ -470,3 +478,131 @@ def test_the_canonical_workflow_resumes_and_runs_through_the_cli(canonical, tmp_
     np.testing.assert_array_equal(
         png.read(tmp_path / "x" / "pyramids" / "channel01" / "0" / "0_0.png"),
         png.read(base / "port" / "pyramids" / "channel01" / "0" / "0_0.png"))
+
+
+# ------------------------------------------------ the DL pipeline with QC
+#: the DL segmenters over cycle 1, aligned; one capacity, so the
+#: reference compiles one program
+DL_STEP_ARGS = {"corilla": CORILLA, "align": ALIGN,
+                "jterator": {**JTERATOR, "pipe": "dl.pipe.json", "object_buckets": "off"}}
+
+
+@pytest.fixture(scope="module")
+def qc_runs(tmp_path_factory):
+    base = tmp_path_factory.mktemp("qc")
+    make_store(base / "src")
+    for name in ("ref", "port", "off"):
+        copy_store(base / "src", base / name)
+    desc = WorkflowDescription.canonical(DL_STEP_ARGS)
+    desc.save(base / "wf.json")
+    for mod in (qc, j_qc):
+        mod.set_enabled(True)
+        mod.reset_session()
+    try:
+        run_reference(base / "ref", base / "wf.json")
+        run_port(base / "port", desc)
+    finally:
+        for mod in (qc, j_qc):
+            mod.set_enabled(None)
+            mod.reset_session()
+    qc.set_enabled(False)
+    try:
+        run_port(base / "off", desc)
+    finally:
+        qc.set_enabled(None)
+    reset_routers()
+    return base
+
+
+def test_the_qc_events_match_the_reference_engine(qc_runs):
+    want = sequence(qc_runs / "ref")
+    assert sequence(qc_runs / "port") == want
+    assert [e for e in want if e[0] == "qc_batch"] == \
+        [("qc_batch", "jterator", i) for i in range(4)]
+    off = sequence(qc_runs / "off")
+    assert off == [e for e in want if e[0] not in ("qc_batch", "qc_site", "qc_budget_exceeded")]
+
+
+def test_the_qc_profile_matches_the_reference(qc_runs):
+    wf, jwf = qc_runs / "port" / "workflow", qc_runs / "ref" / "workflow"
+    assert sorted(p.name for p in wf.glob("qc*.json")) == ["qc.host0.json", "qc.json"]
+    got, want = qc.load_profile(wf / "qc.json"), qc.load_profile(jwf / "qc.json")
+    assert got == qc.load_profile(wf / "qc.host0.json")
+    for k in ("schema_version", "host", "steps", "illumination", "flagged_total"):
+        assert got[k] == want[k], k
+    assert got["steps"]["jterator"] == {"batches": 4, "sites": 16, "flagged": 0}
+    assert sorted(got["illumination"]) == ["Actin", "DAPI"]
+    assert got["guards"]["nan_columns"] == want["guards"]["nan_columns"]
+    assert got["guards"]["count_z_max"] == want["guards"]["count_z_max"]
+    assert sorted(got["features"]) == sorted(want["features"])
+    model = [k for k in got["features"] if k.startswith("__model__.")]
+    assert sorted(model) == ["__model__.cell_prob", "__model__.cell_prob_secondary",
+                             "__model__.flow_mag"]
+    for key, sk in want["features"].items():
+        g = got["features"][key]
+        assert (g["count"], g["nan"], g["inf"]) == (sk["count"], sk["nan"], sk["inf"]), key
+        # each statistic moves with the values: the feature's own tier (the
+        # model streams the head's) scaled to the column's largest value
+        scale = max(abs(sk["max"]), abs(sk["min"]), 1.0)
+        rtol, atol = (HEAD_TIER * 8, 0.0) if key in model else \
+            feature_tier(key.split(".", 1)[1])
+        for stat in ("min", "max", "p50", "p95", "mean"):
+            assert abs(g[stat] - sk[stat]) <= rtol * scale + atol, (key, stat)
+    assert model and all(got["features"][k]["count"] == 16 * 64 for k in model)
+    assert sorted(got["channels"]) == sorted(want["channels"]) == ["DAPI"]
+    for metric, agg in want["channels"]["DAPI"].items():
+        rtol, atol = QC_TIERS[metric]
+        for stat in ("min", "max", "mean"):
+            np.testing.assert_allclose(got["channels"]["DAPI"][metric][stat], agg[stat],
+                                       rtol=rtol, atol=atol)
+
+
+def test_qc_off_writes_no_profile_and_the_same_store(qc_runs):
+    assert not list((qc_runs / "off" / "workflow").glob("qc*.json"))
+    on, off = ExperimentStore.open(qc_runs / "port"), ExperimentStore.open(qc_runs / "off")
+    assert_same_labels(on, off)
+    for name in ("nuclei", "cells"):
+        a, b = on.read_features(name), off.read_features(name)
+        assert list(a) == list(b)
+        for k in a:
+            assert np.array_equal(a[k], b[k], equal_nan=a[k].dtype.kind == "f"), k
+    ref = JStore.open(qc_runs / "ref")
+    assert_same_labels(on, ref)
+    for name in ("nuclei", "cells"):
+        assert_same_features(ref.read_features(name), on.read_features(name))
+
+
+def test_the_qc_verb_judges_the_run_against_the_reference(qc_runs, capsys, monkeypatch):
+    monkeypatch.delenv("TMX_QC_BASELINE", raising=False)
+    root, ref = str(qc_runs / "port"), str(qc_runs / "ref" / "workflow" / "qc.json")
+    for kind in ("run", "model"):
+        rc = cli.main(["qc", "--root", root, "--json", "--reference", ref,
+                       "--profile-kind", kind])
+        out = json.loads(capsys.readouterr().out)
+        want = qc.compare_profiles(
+            qc.filter_profile_kind(qc.load_profile(qc_runs / "port" / "workflow" / "qc.json"),
+                                   kind),
+            qc.filter_profile_kind(qc.load_profile(ref), kind))
+        assert rc == out["verdict"]["exit_code"] == want["exit_code"] == qc.EXIT_OK
+        assert out["verdict"]["checked"] == want["checked"] > 0
+    assert cli.main(["qc", "--root", str(qc_runs / "off")]) == 1
+    assert cli.main(["qc", "--root", root]) == qc.EXIT_NO_REFERENCE
+
+
+def test_cli_submit_qc_sets_the_gate(qc_runs, tmp_path, monkeypatch, capsys):
+    monkeypatch.setenv("TMX_QC", "0")
+    copy_store(qc_runs / "src", tmp_path / "x")
+    reset_routers()
+    qc.reset_session()
+    try:
+        assert cli.main(["workflow", "submit", "--root", str(tmp_path / "x"), "--description",
+                         str(qc_runs / "wf.json"), "--device", "cpu", "--qc"]) == 0
+        assert qc.enabled()
+    finally:
+        qc.reset_session()
+    capsys.readouterr()
+    assert sequence(tmp_path / "x") == sequence(qc_runs / "port")
+    assert (tmp_path / "x" / "workflow" / "qc.json").exists()
+    assert cli.main(["workflow", "submit", "--root", str(tmp_path / "x"), "--description",
+                     str(qc_runs / "wf.json"), "--device", "cpu", "--no-qc"]) == 0
+    assert not qc.enabled()

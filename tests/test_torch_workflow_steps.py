@@ -13,7 +13,11 @@ label stacks identical, feature rows in (site_index, label) order by
 ``FEATURE_TIERS``), ``collect`` and the mapobject types equal.  Then the
 port's jterator over the reference's statistics and shifts, bucket
 settings and pipeline depths, auto-resegmentation from a cap of 4, the
-window pad-back against the reference's, and the refusals.
+window pad-back against the reference's, and the refusals.  Last, the
+step with QC on (each batch's QC summary against the reference's step
+with QC on: counts, flags and guards exact, the image statistics by
+``QC_TIERS``) and the DL segmenters' pipeline through the step,
+bit-identical across bucket specs and executor depths.
 """
 
 import json
@@ -23,11 +27,18 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import CORRECTED_FEATURE_TIERS, FEATURE_TIERS, STATS_TIERS, feature_tier
+from chip_smoke import (
+    CORRECTED_FEATURE_TIERS,
+    FEATURE_TIERS,
+    QC_TIERS,
+    STATS_TIERS,
+    feature_tier,
+)
+from tmlibrary_tpu import qc as j_qc
 from tmlibrary_tpu.models.store import ExperimentStore as JStore
 from tmlibrary_tpu.workflow.registry import get_step as j_get_step
 from tmlibrary_tpu.workflow.steps.jterator import ImageAnalysisRunner as JRunner
-from tmlibrary_tpu_torch import benchmarks, capacity
+from tmlibrary_tpu_torch import benchmarks, capacity, qc
 from tmlibrary_tpu_torch.errors import NotSupportedError
 from tmlibrary_tpu_torch.jterator.description import PipelineDescription
 from tmlibrary_tpu_torch.jterator.pipeline import ImageAnalysisPipeline
@@ -82,6 +93,7 @@ def make_store(root) -> ExperimentStore:
     (st.root / "cp.pipe.json").write_text(json.dumps(corrected_aligned_pipe()))
     (st.root / "morph.pipe.json").write_text(json.dumps(corrected_aligned_pipe(True)))
     (st.root / "raw.pipe.json").write_text(json.dumps(corrected_aligned_pipe(correct=False)))
+    (st.root / "dl.pipe.json").write_text(json.dumps(benchmarks.dl_secondary_pipe(align=True)))
     return st
 
 
@@ -418,7 +430,6 @@ def test_feature_table_equals_the_reference_rows(seed):
     ({"n_devices": 2}, {}),
     ({"as_polygons": True}, {}),
     ({"figures": True}, {}),
-    ({}, {"qc": True}),
 ])
 def test_unsupported_arguments_raise(tmp_path, args, kw):
     make_store(tmp_path / "s")
@@ -537,3 +548,91 @@ def test_escalation_sees_objects_dropped_before_the_area_filter(tmp_path):
     assert stores["ref_8_results"][0]["bucket_capacity"] == 8
     assert_same_labels(stores["port_8"], stores["ref_off"], names=("nuclei",))
     assert_same_labels(stores["port_8"], stores["port_off"], names=("nuclei",))
+
+
+def _qc_jterator(get, store, kw):
+    """The config-3 jterator step, batch by batch, with a fresh session."""
+    capacity.reset_routing_history()
+    j_capacity_reset()
+    jt = get("jterator")(store, **kw)
+    jt.init(JTERATOR)
+    return [jt.run(i) for i in jt.list_batches()]
+
+
+def test_qc_true_records_each_batch_as_the_reference(runs, tmp_path):
+    """``qc=True`` runs (it raised until the session was ported): every
+    batch result carries the session's summary, equal to the reference's
+    step with QC on; the store equals the QC-off run's."""
+    for name in ("ref_qc", "port_qc"):
+        src = runs["base"] / ("ref" if name == "ref_qc" else "port")
+        copy_store(src, tmp_path / name, parts=("images", "illumstats", "alignment"))
+    j_qc.set_enabled(True)
+    j_qc.reset_session()
+    qc.reset_session()
+    try:
+        want = _qc_jterator(j_get_step, JStore.open(tmp_path / "ref_qc"), {})
+        port = ExperimentStore.open(tmp_path / "port_qc")
+        got = _qc_jterator(get_step, port, {"device": "cpu", "qc": True})
+        assert qc.enabled() is False and qc._session is not None
+    finally:
+        j_qc.set_enabled(None)
+        j_qc.reset_session()
+        qc.reset_session()
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        gq, wq = g.pop("qc"), w.pop("qc")
+        assert {k: v for k, v in g.items() if k != "bucket_escalations"} == \
+            {k: v for k, v in w.items() if k != "bucket_escalations"}
+        assert sorted(gq) == sorted(wq)
+        for k in ("nan_columns", "nan_values", "inf_values", "count_z_max", "flagged_total",
+                  "flagged_sites", "capacity_saturated"):
+            assert gq[k] == wq[k], k
+        tiers = {"focus_min": QC_TIERS["focus_tenengrad"],
+                 "saturation_max": QC_TIERS["saturation_frac"],
+                 "background_mean": QC_TIERS["background"]}
+        assert sorted(gq["channels"]) == sorted(wq["channels"]) == ["Actin", "DAPI"]
+        for ch, entry in wq["channels"].items():
+            assert sorted(gq["channels"][ch]) == sorted(entry)
+            for k, v in entry.items():
+                rtol, atol = tiers[k]
+                np.testing.assert_allclose(gq["channels"][ch][k], v, rtol=rtol, atol=atol)
+    assert_same_labels(port, runs["port_store"])
+
+
+#: the DL segmenters' pipeline over cycle 0 (nothing to correct or align)
+DL = {"pipe": "dl0.pipe.json", "cycle": 0, "batch_size": 4, "max_objects": 64,
+      "n_devices": 1}
+
+
+def test_the_dl_step_is_bit_identical_across_buckets_and_depths(tmp_path):
+    """The reference's ``test_dl_step_bit_identical_across_depths_and_buckets``
+    (``tests/test_nn.py:287``) in the port: label stacks and feature
+    shards of the sequential run at ``object_buckets="off"`` equal those
+    of the pipelined executor at depths 1 and 4 over bucket specs off, 16
+    and auto."""
+    st = make_store(tmp_path / "s")
+    (st.root / "dl0.pipe.json").write_text(json.dumps(benchmarks.dl_secondary_pipe()))
+    jt = get_step("jterator")(st, device="cpu")
+    jt.init({**DL, "object_buckets": "off"})
+    summaries = [jt.run(i) for i in jt.list_batches()]
+    assert all(s["bucket_capacity"] == 64 for s in summaries)
+    names = ("nuclei", "cells")
+    labels = {n: st.read_labels(None, n).copy() for n in names}
+    feats = {n: sorted_rows(st.read_features(n))[1] for n in names}
+    assert 0 < int(labels["nuclei"].max()) < 16
+    for spec, depth in (("off", 4), ("16", 4), ("auto", 1), ("auto", 4)):
+        capacity.reset_routing_history()
+        jt2 = get_step("jterator")(st, device="cpu")
+        jt2.delete_previous_output()
+        jt2.init({**DL, "object_buckets": spec})
+        out = list(jt2.run_batches_pipelined([jt2.load_batch(i) for i in jt2.list_batches()],
+                                             depth=depth))
+        if spec != "off":
+            assert any(r["bucket_capacity"] < 64 for _, r in out)
+        for n in names:
+            np.testing.assert_array_equal(st.read_labels(None, n), labels[n],
+                                          err_msg=f"{n}: buckets={spec} depth={depth}")
+            got = sorted_rows(st.read_features(n))[1]
+            assert list(got) == list(feats[n])
+            for k, v in feats[n].items():
+                assert np.array_equal(got[k], v, equal_nan=v.dtype.kind == "f"), k

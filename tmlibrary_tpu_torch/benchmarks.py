@@ -1,6 +1,6 @@
 """The benchmark pipelines and their synthetic data.
 
-Counterpart: ``tmlibrary_tpu/benchmarks.py:24-125,186-381,628-725,
+Counterpart: ``tmlibrary_tpu/benchmarks.py:24-184,186-381,628-725,
 759-791,795-847,861-891``.  The port's own copies of ``CELL_PAINTING_PIPE`` (BASELINE.json
 config 3: ``smooth`` → ``segment_primary`` on DAPI → ``segment_secondary``
 on Actin → ``measure_intensity`` on both; with ``declump: true`` the
@@ -12,6 +12,10 @@ smooth → adaptive threshold → label), of ``volume_description``
 draw the same random sequence as the reference's, so both packages see
 the same pixels for the same seed; corilla's (config 1) stack and
 single-thread numpy channel job, and illuminati's numpy pyramid job.
+The ``dl`` configuration (:func:`dl_description`) and its primary +
+secondary form (:func:`dl_secondary_pipe`) run the DL segmenters.  The
+reference's single-thread numpy ``dl`` site (``cpu_reference_site_dl``)
+is not ported: nothing here times the CPU against the card for it.
 """
 
 from __future__ import annotations
@@ -335,6 +339,82 @@ SMOOTH_THRESHOLD_PIPE = {
         },
     ],
 }
+
+
+def _dl_segment(weights: str, prob_threshold: float, extra: list, key: str) -> dict:
+    return {"handles": {
+        "module": "segment_dl_primary",
+        "input": [
+            {"name": "intensity_image", "type": "IntensityImage", "key": "DAPI"},
+            {"name": "weights", "type": "Character", "value": weights},
+            {"name": "prob_threshold", "type": "Numeric", "value": prob_threshold},
+        ] + extra,
+        "output": [{"name": "objects", "type": "SegmentedObjects", "key": key,
+                    "objects": key}],
+    }}
+
+
+def _measure(objects: str) -> dict:
+    return {"handles": {
+        "module": "measure_intensity",
+        "input": [
+            {"name": "objects_image", "type": "LabelImage", "key": objects},
+            {"name": "intensity_image", "type": "IntensityImage", "key": "DAPI"},
+        ],
+        "output": [{"name": "measurements", "type": "Measurement", "objects": objects,
+                    "channel": "DAPI"}],
+    }}
+
+
+def dl_description(
+    weights: str = "seed:0", prob_threshold: float = 0.6, min_area: int = 4,
+) -> PipelineDescription:
+    """BENCH_CONFIG ``dl`` (``tmlibrary_tpu/benchmarks.py:128``):
+    ``segment_dl_primary`` (the flow-field U-Net and its decoder) on DAPI,
+    then ``measure_intensity`` of the decoded objects ("cells")."""
+    return PipelineDescription.from_dict({
+        "description": "DL segmentation: U-Net nuclei, measure intensity",
+        "input": {"channels": [{"name": "DAPI", "correct": False, "align": False}]},
+        "pipeline": [
+            _dl_segment(weights, prob_threshold,
+                        [{"name": "min_area", "type": "Numeric", "value": min_area}], "cells"),
+            _measure("cells"),
+        ],
+        "output": {"objects": [{"name": "cells"}]},
+    })
+
+
+def dl_secondary_pipe(
+    weights: str = "seed:0", prob_threshold: float = 0.6, min_area: int = 4,
+    correct: bool = False, align: bool = False,
+) -> dict:
+    """The ``dl`` configuration with both DL segmenters: nuclei by
+    ``segment_dl_primary`` on DAPI, cells grown from them by
+    ``segment_dl_secondary`` over the same net's probabilities, then
+    ``measure_intensity`` of both on DAPI; ``correct``/``align`` set the
+    DAPI channel's flags for runs over a store."""
+    return {
+        "description": "DL segmentation: U-Net nuclei and cells, measure intensity",
+        "input": {"channels": [{"name": "DAPI", "correct": correct, "align": align}]},
+        "pipeline": [
+            _dl_segment(weights, prob_threshold,
+                        [{"name": "min_area", "type": "Numeric", "value": min_area}], "nuclei"),
+            {"handles": {
+                "module": "segment_dl_secondary",
+                "input": [
+                    {"name": "primary_label_image", "type": "LabelImage", "key": "nuclei"},
+                    {"name": "intensity_image", "type": "IntensityImage", "key": "DAPI"},
+                    {"name": "weights", "type": "Character", "value": weights},
+                    {"name": "prob_threshold", "type": "Numeric", "value": prob_threshold},
+                ],
+                "output": [{"name": "objects", "type": "SegmentedObjects", "key": "cells",
+                            "objects": "cells"}],
+            }},
+            _measure("nuclei"),
+            _measure("cells"),
+        ],
+        "output": {"objects": [{"name": "nuclei"}, {"name": "cells"}]},
+    }
 
 
 def smooth_threshold_description() -> PipelineDescription:

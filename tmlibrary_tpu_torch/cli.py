@@ -5,18 +5,28 @@ steps the port has, the same argument names and the same JSON output::
 
     python -m tmlibrary_tpu_torch.cli create --root DIR --name NAME
     python -m tmlibrary_tpu_torch.cli workflow submit --root DIR [--description wf.json]
-                                                      [--resume] [--device cuda]
+                                                      [--resume] [--device cuda] [--qc|--no-qc]
     python -m tmlibrary_tpu_torch.cli workflow resume --root DIR ...
     python -m tmlibrary_tpu_torch.cli workflow status --root DIR
     python -m tmlibrary_tpu_torch.cli <step> init|run|collect|info|args --root DIR ...
     python -m tmlibrary_tpu_torch.cli log --root DIR [--tail N] [--step S [--job N]]
+    python -m tmlibrary_tpu_torch.cli qc --root DIR [--json] [--reference qc.json]
+                                         [--profile-kind run|model]
+    python -m tmlibrary_tpu_torch.cli weights list [--dir DIR] | digest SPEC [--json]
 
 ``<step>`` is ``metaconfig``, ``imextract``, ``corilla``, ``align``,
 ``illuminati`` or ``jterator``; the installed console script is
 ``tmx-torch``.  ``create`` makes the placeholder store a canonical run
-starts from (metaconfig writes its manifest).  Every other verb takes
-``--device``, ``cuda`` unless ``cpu`` is asked for; without a card,
-``cuda`` raises.
+starts from (metaconfig writes its manifest).  The step verbs and
+``workflow submit``/``resume`` take ``--device``, ``cuda`` unless ``cpu``
+is asked for; without a card, ``cuda`` raises.  ``--qc``/``--no-qc`` set
+``TMX_QC`` for the run, as the reference's do.  ``qc`` reports a run's QC
+profile (``workflow/qc*.json``, else its ledger events) and exits with
+the drift verdict's code against ``--reference`` (else the
+``TMX_QC_BASELINE`` or, for ``--profile-kind model``,
+``TMX_QC_DL_BASELINE`` file): 0 ok, 1 drift, 2 stale, 3 no reference;
+unlike the reference it reads no baseline from ``tuning/``.  ``weights``
+lists the checkpoints of the weights directory or digests a spec.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import argparse
 import dataclasses
 import json
 import logging
+import os
 import sys
 from pathlib import Path
 
@@ -75,6 +86,11 @@ def build_parser() -> argparse.ArgumentParser:
                         help="total tries per batch for transient faults (1 = no retry)")
     shared.add_argument("--retry-delay", type=float, default=None, metavar="SECONDS",
                         help="first backoff delay; doubles per retry, with jitter")
+    shared.add_argument("--qc", action=argparse.BooleanOptionalAction, default=None,
+                        help="collect data-quality evidence for this run: per-site image "
+                             "statistics, NaN and outlier guards, feature sketches and the "
+                             "DL segmenters' model streams -> workflow/qc.json and qc_* "
+                             "ledger events (default: TMX_QC / TM_QC, off)")
     p_submit = wf_sub.add_parser("submit", help="run the workflow", parents=[shared])
     _add_common(p_submit)
     p_submit.add_argument("--resume", action="store_true",
@@ -85,6 +101,39 @@ def build_parser() -> argparse.ArgumentParser:
     p_resume.set_defaults(resume=True)
     p_status = wf_sub.add_parser("status", help="per-step progress")
     _add_common(p_status)
+
+    p_qc = sub.add_parser(
+        "qc", help="data-quality report of a run and its drift verdict against a reference "
+                   "profile; exit codes: 0 ok, 1 drift, 2 stale reference, 3 no reference")
+    _add_common(p_qc)
+    p_qc.add_argument("--json", action="store_true", dest="as_json",
+                      help="print the profile and the verdict as JSON")
+    p_qc.add_argument("--worst", type=int, default=5, metavar="N",
+                      help="worst-focus and flagged sites to list")
+    p_qc.add_argument("--reference", default=None, metavar="PATH",
+                      help="reference qc.json (default: TMX_QC_BASELINE, or "
+                           "TMX_QC_DL_BASELINE with --profile-kind model)")
+    p_qc.add_argument("--threshold", type=float, default=0.25,
+                      help="allowed median shift as a fraction of the reference spread")
+    p_qc.add_argument("--stale-hours", type=float, default=None, dest="stale_hours",
+                      help="reference staleness budget in hours (default TMX_QC_STALE_HOURS, "
+                           "0 = no check)")
+    p_qc.add_argument("--profile-kind", choices=("run", "model"), default="run",
+                      dest="profile_kind",
+                      help="'run': acquisition and feature drift; 'model': only the "
+                           "__model__ streams of the DL segmenters")
+
+    p_weights = sub.add_parser("weights", help="DL checkpoints: list the weights directory "
+                                               "or digest a weight spec")
+    w_sub = p_weights.add_subparsers(dest="verb", required=True)
+    p_wl = w_sub.add_parser("list", help="checkpoints of the weights directory with their "
+                                         "content digests")
+    p_wl.add_argument("--dir", default=None, help="weights directory (default TMX_WEIGHTS_DIR)")
+    p_wl.add_argument("--json", action="store_true", dest="as_json")
+    p_wd = w_sub.add_parser("digest", help="resolve a weight spec and print its content digest")
+    p_wd.add_argument("spec", help="checkpoint name, .npz path, or "
+                                   "seed:N[:base=C][:depth=D][:in=N]")
+    p_wd.add_argument("--json", action="store_true", dest="as_json")
 
     for name in list_steps():
         step_cls = get_step(name)
@@ -167,6 +216,10 @@ def cmd_workflow(args) -> int:
                   "workflow.json in the store's workflow dir)", file=sys.stderr)
             return 1
         desc = WorkflowDescription.load(default)
+    if args.qc is not None:
+        # the environment, as the reference sets it: every pipeline build
+        # and the session read the gate when they run
+        os.environ["TMX_QC"] = "1" if args.qc else "0"
     resilience = ResilienceConfig.from_library_config()
     if args.max_batch_failures is not None:
         resilience.max_batch_failures = args.max_batch_failures
@@ -227,6 +280,102 @@ def cmd_log(args) -> int:
     return 0
 
 
+def cmd_qc(args) -> int:
+    """A run's QC report and the drift verdict against a reference
+    profile (the reference's ``cmd_qc``); returns the verdict's exit code,
+    or 1 when the run has no QC evidence."""
+    from tmlibrary_tpu_torch import qc as qc_mod
+
+    wf = _open_store(args).workflow_dir
+    pairs = qc_mod.load_run_profiles(wf)
+    if pairs:
+        profile = qc_mod.merge_profiles(pairs) if len(pairs) > 1 else pairs[0][1]
+        source = f"qc.json x{len(pairs)} host(s)" if len(pairs) > 1 else "qc.json"
+    else:
+        events = RunLedger(wf / "ledger.jsonl").events()
+        profile = qc_mod.qc_from_ledger(events) if events else {}
+        source = "ledger"
+    if not (profile.get("steps") or profile.get("channels")):
+        print("no QC evidence for this run: submit with --qc (or TMX_QC=1) to collect it",
+              file=sys.stderr)
+        return 1
+    kind = args.profile_kind
+    if kind == "model":
+        ref_path = args.reference or os.environ.get("TMX_QC_DL_BASELINE")
+        if not qc_mod.filter_profile_kind(profile, "model").get("features"):
+            print("no model-output sketches in this run's profile: the pipeline has no DL "
+                  "modules or ran without --qc", file=sys.stderr)
+            return 1
+    else:
+        ref_path = args.reference or os.environ.get("TMX_QC_BASELINE")
+    profile = qc_mod.filter_profile_kind(profile, kind)
+    reference = qc_mod.load_profile(Path(ref_path)) if ref_path else None
+    reference = qc_mod.filter_profile_kind(reference, kind)
+    verdict = qc_mod.compare_profiles(profile, reference, threshold=args.threshold,
+                                      stale_hours=args.stale_hours)
+    if args.as_json:
+        print(json.dumps({"root": str(args.root), "source": source, "profile": profile,
+                          "reference": ref_path, "verdict": verdict}, indent=2, default=float))
+        return verdict["exit_code"]
+    print(f"qc: {args.root}  (source: {source})")
+    for name, e in sorted((profile.get("steps") or {}).items()):
+        print(f"  {name:<16} batches {e.get('batches', 0):>5}  sites {e.get('sites', 0):>6}  "
+              f"flagged {e.get('flagged', 0):>5}")
+    for ch, metrics in sorted((profile.get("channels") or {}).items()):
+        foc = (metrics.get("focus_tenengrad") or {}).get("min")
+        sat = (metrics.get("saturation_frac") or {}).get("max")
+        bits = [f"  {ch:<12}"]
+        if foc is not None:
+            bits.append(f"focus min {foc:.4g}")
+        if sat is not None:
+            bits.append(f"saturation max {sat:.2%}")
+        print("  ".join(bits))
+    if kind == "model":
+        for name, sk in sorted((profile.get("features") or {}).items()):
+            print(f"  {name:<28} n {int(sk.get('count') or 0):>8}  "
+                  f"p50 {float(sk.get('p50') or 0.0):.4g}  p95 {float(sk.get('p95') or 0.0):.4g}")
+    guards = profile.get("guards") or {}
+    print(f"guards: nan columns {len(guards.get('nan_columns') or [])}  count z max "
+          f"{float(guards.get('count_z_max') or 0.0):.2f}  flagged "
+          f"{int(profile.get('flagged_total') or 0)} site(s)")
+    for w in (profile.get("worst_sites") or [])[:max(args.worst, 0)]:
+        print(f"  worst focus: site {w.get('site')} {w.get('channel')} {w.get('focus', 0.0):.4g}")
+    line = f"drift verdict: {verdict['status']} (exit {verdict['exit_code']})"
+    if reference is not None:
+        line += f"  vs {ref_path}  checked {verdict.get('checked', 0)}"
+    print(line)
+    for d in verdict.get("drifted", [])[:10]:
+        print(f"  DRIFT {json.dumps(d, default=float)}")
+    return verdict["exit_code"]
+
+
+def cmd_weights(args) -> int:
+    """``weights list``: the checkpoints of the weights directory;
+    ``weights digest SPEC``: the content digest a spec resolves to."""
+    from tmlibrary_tpu_torch import nn
+
+    if args.verb == "list":
+        rows = nn.list_weights(args.dir)
+        if args.as_json:
+            print(json.dumps(rows, indent=2, default=str))
+            return 0
+        if not rows:
+            print(f"no checkpoints in {args.dir or nn.weights_dir()}")
+            return 0
+        print(f"{'name':<24} {'digest':<14} {'arrays':>7} {'params':>10}")
+        for r in rows:
+            print(f"{r['name']:<24} {r['digest']:<14} {r['n_arrays']:>7} {r['n_params']:>10}")
+        return 0
+    _params, digest, config = nn.resolve_weights(args.spec)
+    if args.as_json:
+        print(json.dumps({"spec": args.spec, "digest": digest,
+                          "config": dataclasses.asdict(config)}))
+        return 0
+    print(f"{args.spec}  digest {digest}  (in={config.in_channels}, "
+          f"base={config.base_channels}, depth={config.depth})")
+    return 0
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
@@ -240,6 +389,10 @@ def main(argv=None) -> int:
             return cmd_workflow(args)
         if args.command == "log":
             return cmd_log(args)
+        if args.command == "qc":
+            return cmd_qc(args)
+        if args.command == "weights":
+            return cmd_weights(args)
         return cmd_step(args)
     except Exception as e:
         print(f"error: {e}", file=sys.stderr)

@@ -1,7 +1,8 @@
 """Module registry and the ported module implementations.
 
-Counterpart: ``tmlibrary_tpu/jterator/modules.py:34-344`` (reference: the
-external ``jtmodules`` package).  Modules register under a name and a
+Counterpart: ``tmlibrary_tpu/jterator/modules.py:34-344`` and the DL
+segmenters at ``:727-812`` (reference: the external ``jtmodules``
+package).  Modules register under a name and a
 ``backend`` key; the descriptions written for the JAX package name
 ``backend: tpu`` (the default), so the port registers its twins under
 the same key and an unchanged ``.pipe`` description runs on either
@@ -14,7 +15,9 @@ W)`` for the volume modules; everything else is a constant from the
 handle description.  A module that drops objects beyond ``max_objects``
 before a filter may also return ``"<output name>" + FOUND``: the ``(B,)``
 number of objects it found before the clip (the workflow step's capacity
-router escalates on it).
+router escalates on it).  Outputs named ``MODULE_QC_PREFIX + <stat>`` are
+diagnostic streams, not handles: ``build_site_fn(collect_diagnostics=True)``
+gathers them for the QC session.
 """
 
 from __future__ import annotations
@@ -395,3 +398,84 @@ def measure_volume(objects_image, intensity_image, max_objects: int = 256):
     from tmlibrary_tpu_torch.ops.volume import volume_features
 
     return {"measurements": volume_features(objects_image, intensity_image, max_objects)}
+
+
+# -------------------------------------------------------- DL segmentation
+#: output-key prefix of a module's diagnostic streams: ``__qc__<stat>``
+#: outputs are not pipeline handles; ``build_site_fn`` gathers them (in
+#: QC-enabled builds only) and the QC session sketches them under the
+#: ``__model__`` pseudo-objects
+MODULE_QC_PREFIX = "__qc__"
+
+
+def _qc_sample(values: torch.Tensor, k: int = 64) -> torch.Tensor:
+    """``(B, k)``: ``k`` evenly strided pixels of each site's stat image
+    in scan order (``(i * (n // k)) % n``), as the reference samples."""
+    flat = values.reshape(values.shape[0], -1).to(torch.float32)
+    n = flat.shape[1]
+    idx = (torch.arange(k, dtype=torch.int64, device=flat.device) * (n // k)) % n
+    return flat[:, idx]
+
+
+def _dl_head(intensity_image, weights: str) -> torch.Tensor:
+    """The U-Net's ``(B, 3, H, W)`` head on the standardized sites; the
+    net is resolved once per (weights digest, device) and stays
+    resident."""
+    from tmlibrary_tpu_torch import nn
+
+    net, _digest = nn.unet_for(weights, intensity_image.device)
+    return net(nn.normalize_image(intensity_image)[:, None])
+
+
+@register_module("segment_dl_primary")
+def segment_dl_primary(
+    intensity_image,
+    weights: str = "seed:0",
+    prob_threshold: float = 0.5,
+    flow_steps: int = 24,
+    min_seed_hits: int = 2,
+    min_area: int = 0,
+    max_objects: int = 256,
+):
+    """Deep-learning primary segmentation (nuclei): the flow-field U-Net
+    and the integer decoder (:mod:`tmlibrary_tpu_torch.nn`).  ``weights``
+    is a checkpoint spec (``seed:<n>[:base=C][:depth=D]``, a name in the
+    weights directory or an ``.npz`` path).  Also returns 64 samples a
+    site of the flow magnitude and the cell probability as QC streams."""
+    from tmlibrary_tpu_torch import nn
+    from tmlibrary_tpu_torch.ops._exact import sqrt
+
+    head = _dl_head(intensity_image, weights)
+    flow = head[:, :2]
+    cellprob = torch.sigmoid(head[:, 2])
+    labels, _count = nn.decode_flows(
+        flow, cellprob, prob_threshold=prob_threshold, flow_steps=flow_steps,
+        min_seed_hits=min_seed_hits, min_area=min_area, max_objects=max_objects)
+    flow_mag = sqrt(flow[:, 0] * flow[:, 0] + flow[:, 1] * flow[:, 1])
+    return {
+        "objects": labels,
+        f"{MODULE_QC_PREFIX}flow_mag": _qc_sample(flow_mag),
+        f"{MODULE_QC_PREFIX}cell_prob": _qc_sample(cellprob),
+    }
+
+
+@register_module("segment_dl_secondary")
+def segment_dl_secondary(
+    primary_label_image,
+    intensity_image,
+    weights: str = "seed:0",
+    prob_threshold: float = 0.5,
+    max_objects: int = 256,
+):
+    """Deep-learning secondary segmentation: the primary objects grown
+    across the U-Net's cell-probability foreground, keeping their ids
+    (:func:`~tmlibrary_tpu_torch.nn.decode.decode_secondary`)."""
+    from tmlibrary_tpu_torch import nn
+
+    cellprob = torch.sigmoid(_dl_head(intensity_image, weights)[:, 2])
+    labels, _count = nn.decode_secondary(
+        primary_label_image, cellprob, prob_threshold=prob_threshold, max_objects=max_objects)
+    return {
+        "objects": labels,
+        f"{MODULE_QC_PREFIX}cell_prob_secondary": _qc_sample(cellprob),
+    }

@@ -33,6 +33,11 @@ from tmlibrary_tpu_torch.jterator.description import PipelineDescription
 from tmlibrary_tpu_torch.ops import image_ops
 from tmlibrary_tpu_torch.ops import qc as qc_ops
 
+#: QC pseudo-channel of the modules' diagnostic streams (the ``__qc__*``
+#: outputs, ``modules.MODULE_QC_PREFIX``): the jterator step routes this
+#: key into the QC session's feature sketches
+MODEL_QC_KEY = "__model__"
+
 
 @dataclasses.dataclass
 class SiteResult:
@@ -72,16 +77,26 @@ class ImageAnalysisPipeline:
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------- site fn
-    def build_site_fn(self) -> Callable[[dict[str, torch.Tensor]], SiteResult]:
-        """``fn({store key: (B, H, W) tensor}) -> SiteResult``."""
+    def build_site_fn(
+        self, collect_diagnostics: bool = False
+    ) -> Callable[[dict[str, torch.Tensor]], SiteResult]:
+        """``fn({store key: (B, H, W) tensor}) -> SiteResult``.
+
+        ``collect_diagnostics=True`` also gathers the module outputs named
+        ``modules.MODULE_QC_PREFIX + <stat>`` (the DL segmenters' sample
+        streams) and the function returns ``(SiteResult, {stat: (B, k)
+        float32})``; the default build leaves them unread.  Either way the
+        ``SiteResult`` is the same."""
         desc = self.description
         max_objects = self.max_objects
+        prefix = module_registry.MODULE_QC_PREFIX
 
         def site_fn(initial_store: dict[str, torch.Tensor]) -> SiteResult:
             store: dict[str, Any] = dict(initial_store)
             objects: dict[str, torch.Tensor] = {}
             found: dict[str, torch.Tensor] = {}
             measurements: dict[str, dict[str, torch.Tensor]] = {}
+            diagnostics: dict[str, torch.Tensor] = {}
 
             for mod in desc.modules:
                 fn = module_registry.get_module(mod.module, mod.backend)
@@ -112,6 +127,10 @@ class ImageAnalysisPipeline:
                     raise PipelineError(
                         f"module '{mod.module}' must return a dict of outputs"
                     )
+                if collect_diagnostics:
+                    for k, v in outs.items():
+                        if k.startswith(prefix):
+                            diagnostics[k[len(prefix):]] = v.to(torch.float32)
                 for h in mod.output:
                     if h.type in ("Plot", "Figure"):
                         continue
@@ -147,12 +166,15 @@ class ImageAnalysisPipeline:
                 for name, lab in objects.items()
             }
             wanted = {o.name for o in desc.objects_out} or set(objects)
-            return SiteResult(
+            result = SiteResult(
                 objects={k: v for k, v in objects.items() if k in wanted},
                 counts={k: v for k, v in counts.items() if k in wanted},
                 measurements={k: v for k, v in measurements.items() if k in wanted},
                 found={k: v for k, v in found.items() if k in wanted},
             )
+            if collect_diagnostics:
+                return result, diagnostics
+            return result
 
         return site_fn
 
@@ -207,10 +229,11 @@ class ImageAnalysisPipeline:
         channel's RAW images, before correction and alignment, and the
         function returns ``(SiteResult, {channel: {metric: (B,)}})``.  The
         statistics only read the inputs, so the ``SiteResult`` is the same
-        with QC on and off.  The reference's ``MODEL_QC_KEY`` diagnostics
-        come from the DL segmenters, which the port does not have yet, so
-        that entry is never present."""
-        site_fn = self.build_site_fn()
+        with QC on and off.  The modules' diagnostic streams (the DL
+        segmenters' ``(B, 64)`` flow-magnitude and probability samples)
+        join the statistics under the :data:`MODEL_QC_KEY` pseudo-channel,
+        ``{stat: (B, k)}``, where the description has such a module."""
+        site_fn = self.build_site_fn(collect_diagnostics=qc)
         preprocess = self.build_preprocess_fn(window)
         device = self.device
         channels = [ch.name for ch in self.description.channels]
@@ -229,12 +252,44 @@ class ImageAnalysisPipeline:
                     if window is not None and val.dim() == 3:
                         val = image_ops.crop_window(val, *window)
                     images[key] = val
-            result = site_fn(images)
             if not qc:
-                return result
-            return result, {ch: qc_ops.site_qc_stats(raw[ch]) for ch in channels}
+                return site_fn(images)
+            result, diagnostics = site_fn(images)
+            qc_stats = {ch: qc_ops.site_qc_stats(raw[ch]) for ch in channels}
+            if diagnostics:
+                qc_stats[MODEL_QC_KEY] = diagnostics
+            return result, qc_stats
 
         return batch_fn
+
+
+def weight_digests(description: PipelineDescription) -> tuple[tuple[str, str, str], ...]:
+    """``(module, weights spec, content digest)`` of every module that binds
+    a ``weights`` constant (the DL segmenters), in pipeline order; a
+    file-backed checkpoint re-digests when the file changes
+    (``tmlibrary_tpu/jterator/pipeline.py:84``)."""
+    out = []
+    for mod in description.modules:
+        spec = dict(mod.constants()).get("weights")
+        if isinstance(spec, str) and spec:
+            from tmlibrary_tpu_torch.nn import weights as nn_weights
+
+            out.append((mod.module, spec, nn_weights.weights_digest(spec)))
+    return tuple(out)
+
+
+def pipeline_identity(description: PipelineDescription, qc: bool = False) -> tuple:
+    """What besides the description and the capacity splits a built
+    pipeline (the reference's ``program_digest_extras``, ``:146-168``):
+    the QC gate, which changes what the batch function returns, and the
+    weight digests, so a checkpoint overwritten under the same name never
+    reuses a pipeline built on the old weights.  The reference's
+    trace-shaping environment knobs have no meaning in the port."""
+    extras: tuple = (("qc", bool(qc)),)
+    digests = weight_digests(description)
+    if digests:
+        extras += (("weights", digests),)
+    return extras
 
 
 def description_digest(description: PipelineDescription) -> str:

@@ -323,6 +323,25 @@ class ExperimentStore:
             raise StoreError("intersection window missing")
         return json.loads(path.read_text())
 
+    # --------------------------------------------------------------- weights
+    @property
+    def weights_dir(self) -> Path:
+        """The experiment's model checkpoints (``.npz`` parameter dicts,
+        :mod:`tmlibrary_tpu_torch.nn.weights`); a pipeline names one by
+        path in its ``weights`` constant."""
+        d = self.root / "weights"
+        d.mkdir(exist_ok=True)
+        return d
+
+    def stage_weights(self, name: str, params: Mapping[str, np.ndarray],
+                      meta: Mapping | None = None) -> Path:
+        """Save a checkpoint into the experiment and return its ``.npz``
+        path (usable as a module's ``weights`` spec)."""
+        from tmlibrary_tpu_torch.nn import weights as nn_weights
+
+        return nn_weights.save_weights(name, dict(params), meta=dict(meta) if meta else None,
+                                       directory=self.weights_dir)
+
     # --------------------------------------------------------------- ledger
     @property
     def workflow_dir(self) -> Path:

@@ -1,7 +1,7 @@
 """Secondary segmentation: grow cell objects outward from primary seeds.
 
-Counterpart: ``tmlibrary_tpu/ops/segment_secondary.py:68``
-(``watershed_from_seeds``).  Level-ordered flooding of seed labels
+Counterpart: ``tmlibrary_tpu/ops/segment_secondary.py:35,68``
+(``propagate_labels``, ``watershed_from_seeds``).  Level-ordered flooding of seed labels
 through a mask with 8-neighbour max-label adoption; the fixpoint runs in
 :func:`tmlibrary_tpu_torch.ops.kernels.watershed_flood` (CUDA kernel on
 the card, plain PyTorch on the CPU).
@@ -28,3 +28,23 @@ def watershed_from_seeds(
         intensity.to(torch.float32), seeds.to(torch.int32), mask.to(torch.bool),
         n_levels=n_levels, connectivity=connectivity,
     )
+
+
+def propagate_labels(
+    labels: torch.Tensor, allowed: torch.Tensor, connectivity: int = 8
+) -> torch.Tensor:
+    """Expand ``(B, H, W)`` labels into ``allowed`` until nothing changes:
+    each unlabeled allowed pixel adopts the largest label among its
+    neighbours, all pixels at once.  The plain fixpoint that
+    ``nn.decode_secondary`` runs as a one-level watershed flood; kept to
+    hold that route against."""
+    allowed = allowed.to(torch.bool)
+    shifts = kernels.neighbor_shifts(connectivity)
+
+    def step(lab):
+        neigh = torch.zeros_like(lab)
+        for dy, dx in shifts:
+            neigh = torch.maximum(neigh, kernels.shift_with_fill(lab, dy, dx, 0))
+        return torch.where((lab == 0) & allowed, neigh, lab)
+
+    return kernels._fixpoint(step, labels.to(torch.int32))

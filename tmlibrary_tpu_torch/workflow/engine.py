@@ -27,6 +27,11 @@ reads the other's ledger.  Where the port differs:
 - Telemetry (spans, metrics snapshots, the flight recorder), fault
   injection, the phase watchdog, preemption and fleet host attribution
   are not ported (ROADMAP A item 11).
+
+At the end of a run, finished or failed, the engine writes the QC
+session's profile (:mod:`tmlibrary_tpu_torch.qc`) to
+``workflow/qc.<host>.json`` and, on ``host0``, ``workflow/qc.json``, as
+the reference does (``:783-802``); with QC off it writes nothing.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from typing import Any
 
 import torch
 
+from tmlibrary_tpu_torch import qc as qc_mod
 from tmlibrary_tpu_torch.atomicio import atomic_write_text
 from tmlibrary_tpu_torch.config import LibraryConfig
 from tmlibrary_tpu_torch.device import resolve_device
@@ -458,15 +464,32 @@ class Workflow:
         self._first_batch_noted = False
         done_steps = self.ledger.completed_steps() if resume else set()
         summary = {}
-        for stage in self.description.stages:
-            for sd in stage.steps:
-                if not sd.active:
-                    continue
-                if sd.name in done_steps:
-                    logger.info("resume: skipping completed step %s", sd.name)
-                    continue
-                summary[sd.name] = self._run_step(sd, resume)
+        try:
+            for stage in self.description.stages:
+                for sd in stage.steps:
+                    if not sd.active:
+                        continue
+                    if sd.name in done_steps:
+                        logger.info("resume: skipping completed step %s", sd.name)
+                        continue
+                    summary[sd.name] = self._run_step(sd, resume)
+        finally:
+            self._write_qc_profile()
         return summary
+
+    def _write_qc_profile(self) -> None:
+        """The QC session's profile as ``qc.<host>.json``, and as
+        ``qc.json`` on ``host0``; nothing when QC is off."""
+        profile = qc_mod.get_session().snapshot()
+        if not profile:
+            return
+        wf = self.store.workflow_dir
+        try:
+            qc_mod.write_profile(qc_mod.profile_path(wf), profile)
+            if qc_mod.host_id() == "host0":
+                qc_mod.write_profile(wf / "qc.json", profile)
+        except OSError:
+            logger.debug("qc profile write failed", exc_info=True)
 
     def _note_qc(self, step_name: str, batch_index, result) -> int:
         """``qc_batch`` and one ``qc_site`` per flagged site when a batch

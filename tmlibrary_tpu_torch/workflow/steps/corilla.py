@@ -13,14 +13,17 @@ read of chunk N+1 runs while the device scans chunk N), scanned with
 :func:`~tmlibrary_tpu_torch.ops.stats.welford_merge` in chunk order, the
 reference's order (``:105-146``).  ``n_devices > 1`` raises
 :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`: the sharded
-Welford over several cards is not ported yet.  The QC session's
-``observe_illumination`` comes with the QC session.
+Welford over several cards is not ported yet.  Each channel's exact
+percentiles are folded into the QC session
+(:meth:`~tmlibrary_tpu_torch.qc.QCSession.observe_illumination`, one
+no-op call when QC is off), as the reference does (``:148-158``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from tmlibrary_tpu_torch import qc as qc_mod
 from tmlibrary_tpu_torch.errors import NotSupportedError
 from tmlibrary_tpu_torch.ops.smooth import gaussian_smooth
 from tmlibrary_tpu_torch.ops.stats import (
@@ -91,6 +94,9 @@ class IlluminationStatisticsCalculator(Step):
         out.pop("hist", None)
         # sorted keys: the reference's file lists its fields in that order
         host = {k: out[k].cpu().numpy() for k in sorted(out)}
+        ch_name = next((c.name for c in exp.channels if c.index == channel), str(channel))
+        qc_mod.get_session().observe_illumination(
+            ch_name, host["percentile_keys"], host["percentile_values"])
         self.store.write_illumstats(host, cycle=cycle, channel=channel)
         return {"cycle": cycle, "channel": channel, "n_sites": int(host["n"])}
 

@@ -16,9 +16,15 @@ defaults and choices, so a ``batch_*.json`` written by either package
 resolves in the other.  What the port does with them:
 
 - ``layout="spatial"`` and ``n_devices > 1`` (ROADMAP A item 10),
-  ``as_polygons`` and ``figures`` (item 11) and the QC session
-  (``qc=True``, item 5; the port's ``build_batch_fn(qc=True)`` exists)
-  raise :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.
+  ``as_polygons`` and ``figures`` (item 11) raise
+  :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.
+- With QC on (the step's ``qc`` argument, else
+  :func:`tmlibrary_tpu_torch.qc.enabled`) the batch function also returns
+  the per-site image statistics and the DL segmenters' ``__model__``
+  streams, and each persisted batch is folded into the QC session
+  (``observe_batch``, the reference's ``:1631-1662``); its summary rides
+  the batch result as ``"qc"``, from which the engine writes the
+  ``qc_batch``/``qc_site`` events.
 - A family that measures ``Morphology_area`` on 2-D labels gets
   ``Morphology_solidity`` joined on the host when the batch persists,
   from the exported, padded-back labels
@@ -37,7 +43,9 @@ resolves in the other.  What the port does with them:
 
 The pipeline cache holds one
 :class:`~tmlibrary_tpu_torch.jterator.pipeline.ImageAnalysisPipeline` per
-capacity, with the intersection window read once from the store.  In the
+(capacity, QC gate, weight digests)
+(:func:`~tmlibrary_tpu_torch.jterator.pipeline.pipeline_identity`), with
+the intersection window read once from the store.  In the
 launch/persist split (:mod:`~tmlibrary_tpu_torch.workflow.pipelined`),
 :meth:`ImageAnalysisRunner.launch_batch` moves the inputs to the device,
 calls the batch function and records a CUDA event; ``block_batch`` waits
@@ -59,6 +67,7 @@ import numpy as np
 import torch
 
 from tmlibrary_tpu_torch import capacity
+from tmlibrary_tpu_torch import qc as qc_mod
 from tmlibrary_tpu_torch.errors import (
     JobDescriptionError,
     NotSupportedError,
@@ -66,7 +75,12 @@ from tmlibrary_tpu_torch.errors import (
     StoreError,
 )
 from tmlibrary_tpu_torch.jterator.description import PipelineDescription
-from tmlibrary_tpu_torch.jterator.pipeline import ImageAnalysisPipeline, description_digest
+from tmlibrary_tpu_torch.jterator.pipeline import (
+    MODEL_QC_KEY,
+    ImageAnalysisPipeline,
+    description_digest,
+    pipeline_identity,
+)
 from tmlibrary_tpu_torch.models.image import IllumstatsContainer
 from tmlibrary_tpu_torch.models.mapobject import (
     MapobjectType,
@@ -244,16 +258,15 @@ class ImageAnalysisRunner(Step):
     )
 
 
-    def __init__(self, store, device: "str | torch.device" = "cuda", qc: bool = False):
+    def __init__(self, store, device: "str | torch.device" = "cuda",
+                 qc: "bool | None" = None):
         super().__init__(store, device)
-        if qc:
-            raise NotSupportedError(
-                "jterator: the QC session is not ported yet (ROADMAP A item 5; the "
-                "port's build_batch_fn(qc=True) exists, the session that records "
-                "its statistics does not)")
-        # capacity -> batch function; the bucket router builds one pipeline
-        # per capacity it routes to, collect's resegmentation one per raised cap
-        self._pipelines: dict[int, object] = {}
+        #: QC for this step: None follows qc.enabled() at each build
+        self._qc = qc
+        # (capacity, pipeline identity) -> batch function; the bucket router
+        # builds one pipeline per capacity it routes to, collect's
+        # resegmentation one per raised cap
+        self._pipelines: dict[tuple, object] = {}
         self._desc = None
         self._window: tuple[int, int, int, int] | None = None
         self._window_resolved = False
@@ -382,6 +395,8 @@ class ImageAnalysisRunner(Step):
         aligns and the align step stored one."""
         desc = self._description(args)
         cap = int(capacity_ if capacity_ is not None else args["max_objects"])
+        qc_on = qc_mod.enabled() if self._qc is None else self._qc
+        key = (cap, pipeline_identity(desc, qc_on))
         with self._pipeline_lock:
             if not self._window_resolved:
                 if any(ch.align for ch in desc.channels):
@@ -393,11 +408,11 @@ class ImageAnalysisRunner(Step):
                     if self._window == (0, 0, 0, 0):
                         self._window = None
                 self._window_resolved = True
-            if cap not in self._pipelines:
-                self._pipelines[cap] = ImageAnalysisPipeline(
+            if key not in self._pipelines:
+                self._pipelines[key] = ImageAnalysisPipeline(
                     desc, max_objects=cap, device=self.device
-                ).build_batch_fn(self._window)
-            return desc, self._pipelines[cap]
+                ).build_batch_fn(self._window, qc=qc_on)
+            return desc, self._pipelines[key]
 
     # ---------------------------------------------------------------- routing
     def _effective_batch(self, batch: dict) -> dict:
@@ -564,7 +579,8 @@ class ImageAnalysisRunner(Step):
                 capacity_: int | None = None):
         """Move the (possibly prefetched) inputs to the device and call the
         batch function; on the card this returns once the work is queued
-        (less any host syncs inside the pipeline)."""
+        (less any host syncs inside the pipeline).  With QC on the result
+        is ``(SiteResult, qc statistics)``."""
         _, fn = self._pipeline(batch["args"], capacity_)
         if inputs is None:
             inputs = self._load_inputs(batch)
@@ -613,6 +629,7 @@ class ImageAnalysisRunner(Step):
         ceiling = int(args["max_objects"])
         cap = int(capacity_) if capacity_ is not None else ceiling
         escalations = 0
+        result, qc_dev = result if isinstance(result, tuple) else (result, None)
         counts, objects, measurements, found = self._host(result, n_valid)
         if cap < ceiling:
             # nothing below the ceiling is persisted from a saturated run,
@@ -627,8 +644,9 @@ class ImageAnalysisRunner(Step):
                 )
                 escalations += 1
                 cap = new_cap
-                counts, objects, measurements, found = self._host(
-                    self._launch(batch, capacity_=cap), n_valid)
+                result = self._launch(batch, capacity_=cap)
+                result, qc_dev = result if isinstance(result, tuple) else (result, None)
+                counts, objects, measurements, found = self._host(result, n_valid)
 
         objects, measurements = to_site_frame(objects, measurements, self._window)
         # solidity is hull-based and ragged, so it is measured on the host
@@ -689,7 +707,31 @@ class ImageAnalysisRunner(Step):
                 max_obj,
                 ", ".join(f"{n} site(s) of '{k}'" for k, n in saturated.items()),
             )
+        if qc_dev is not None:
+            summary_qc = self._observe_qc(sites, qc_dev, counts, measurements, n_valid,
+                                          bool(saturated))
+            if summary_qc:
+                summary["qc"] = summary_qc
         return summary
+
+    def _observe_qc(self, sites, qc_dev: dict, counts: dict, measurements: dict,
+                    n_valid: int, saturated: bool) -> dict | None:
+        """Fold one persisted batch into the QC session and return its
+        summary: the per-site image statistics by channel, the object
+        counts, the feature columns (rows past a site's count masked) and
+        the modules' ``__model__`` streams, every sample of which counts.
+        Channels and statistics go in sorted order, the order in which
+        the reference's jitted result hands them over."""
+        image_stats = {
+            ch: {m: qc_dev[ch][m].detach().cpu().numpy()[:n_valid] for m in sorted(qc_dev[ch])}
+            for ch in sorted(qc_dev)
+        }
+        model_stats = image_stats.pop(MODEL_QC_KEY, None)
+        if model_stats:
+            measurements = {**measurements, qc_mod.MODEL_OBJECTS: model_stats}
+        return qc_mod.get_session(self._qc).observe_batch(
+            self.name, sites, image_stats=image_stats, counts=counts,
+            measurements=measurements, saturated=saturated)
 
     # ---------------------------------------------------------------- helpers
     def _site_metadata(self, sites: list[int]) -> list[dict]:
