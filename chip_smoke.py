@@ -64,7 +64,7 @@ Phases (any failure exits non-zero before the last line):
    the union-find's phases by prefix) and of the histogram and GLCM kernels against their window sizes,
    their first designs (taken apart: memset, counting on zero, real and
    flat inputs) and the ``bincount``/``index_add_`` yardsticks.
-3. Drive eight paths through ``build_batch_fn`` on the card, each with
+3. Drive nine paths through ``build_batch_fn`` on the card, each with
    every launch counter set to 0 just before it and read just after:
    (a) the Cell Painting pipeline (BASELINE config 3), (b) the full
    feature stack (config 4), (c) config 3 with
@@ -72,8 +72,22 @@ Phases (any failure exits non-zero before the last line):
    (e) config 2 (smooth, adaptive threshold, label), (f) config 5 (the
    3-D z-stack pipeline), (g) the ``dl`` configuration
    (``segment_dl_primary`` with ``seed:0`` weights, threshold 0.6,
-   ``min_area`` 4, then ``measure_intensity``; 64 DAPI sites) and (h) its
-   primary + secondary form (``segment_dl_secondary``, both measured).
+   ``min_area`` 4, then ``measure_intensity``; 64 DAPI sites), (h) its
+   primary + secondary form (``segment_dl_secondary``, both measured)
+   and (i) spot counting (:func:`spots_pipe`, ``spots_b64_256``: config
+   3's DAPI and Actin beside :func:`synthetic_fish_batch`'s 8-plane FISH
+   stacks; ``mip``, ``clip``, bilateral ``smooth``, ``detect_blobs``,
+   median ``smooth``, ``segment_primary``/``_secondary``, ``filter``,
+   ``expand_or_shrink``, ``register_objects``, ``measure_point_pattern``
+   and ``measure_intensity``).  Path (i) launches exactly rows 1-4 at
+   1, 2, 1, 4 (:data:`SPOTS_LAUNCHES`), holds the spot mask's labeling
+   and the point-pattern passes against their plain versions at its
+   shapes, holds 8 sites to the CPU with the spots by the boundary rule
+   (:func:`blob_flips`) and prints each module's stage time.  Then (j)
+   the module sweep: every module and method path (i) does not run,
+   alone at 64 sites of 256x256 (ms per batch), each held against the
+   CPU on 8 sites (exact; Haralick's global quantisation with its GLCM
+   counts exact and features by ``CARD_TIERS``).
    Paths g and h launch exactly rows 2 and 4 (and 3, the one-level flood,
    on h), hold those kernels against their plain versions at the path's
    shapes, hold the first 8 sites to the port's CPU run by the boundary
@@ -154,6 +168,7 @@ The script imports nothing of JAX or of ``tmlibrary_tpu``.
 from __future__ import annotations
 
 import fnmatch
+import functools
 import json
 import os
 import shutil
@@ -230,6 +245,14 @@ FEATURE_TIERS = {
     # cos/sin per pixel; the reference's CPU route is a float64 host
     # twin, held at its own tests' tier (tests/test_measure.py:346)
     "Zernike_*": (2e-3, 2e-4),
+    # point patterns: counts, and a count over an area, exact; means of
+    # distances summed over the points in another order; their std the
+    # sumsq envelope
+    "PointPattern_count": _EXACT,
+    "PointPattern_density": _EXACT,
+    "PointPattern_*_mean": _SUMS,
+    "PointPattern_clark_evans": _SUMS,
+    "PointPattern_*_std": (1e-3, 1e-4),
 }
 #: feature -> (rtol, atol) of the card's run against the port's CPU run.
 #: Both sides evaluate Zernike's float32 device formulation, so it is held
@@ -284,6 +307,20 @@ HEAD_TIER = 4e-6
 #: the cell probability beside the head tier: PyTorch's and XLA's sigmoid
 #: differ by up to 2 ulps at 0.6 on the same logit (an ulp is 6e-8 there)
 CELLPROB_ULPS = 1.2e-7
+
+#: the Laplacian of a gaussian (``ops.blobs.log_response``, ``filter_edges``
+#: ``log``) of one implementation against another's, per site: |got -
+#: want| <= LOG_TIER * sigma**2 * max|image| (sigma**2 only where the
+#: response is scale-normalised).  The port builds the gaussian's taps on
+#: the host, an ulp or two from XLA-CPU's at sigma other than 1.5
+#: (ROADMAP C); the Laplacian's cancellation amplifies that, measured up
+#: to 1.3e-6 (tests/test_torch_blobs.py)
+LOG_TIER = 4e-6
+#: the bilateral filter of the port (weights and sums in float64, one
+#: rounding) against the reference's float32, per site: |got - want| <=
+#: BILATERAL_TIER * max|image|; measured 4.4e-7 relative
+#: (tests/test_torch_smoothing.py)
+BILATERAL_TIER = 2e-6
 
 
 def dl_flips(want, got, prob_threshold: float) -> dict:
@@ -1404,6 +1441,14 @@ def main() -> int:
                       data_dl, wrappers, {"cc_min_propagate": 1, "watershed_flood": 1,
                                           "grouped_stats": 2}, card, bw)
 
+        # (i) the spot-counting path, and (j) the module sweep
+        from tmlibrary_tpu_torch.ops import blobs
+
+        drive_spots_path(torch, {
+            "pipeline": pipeline, "modules": modules, "benchmarks": benchmarks,
+            "blobs": blobs, "kernels": kernels, "fused_measure": fused_measure}, wrappers, card)
+        phase_module_sweep(torch, {"modules": modules, "measure": measure}, inputs, card)
+
         # ---------------------------------------------------------- phase 4
         print(f"phase 4: corilla, align, illuminati, QC, corilla -> config 3; times on {card}")
         corilla_out = phase_corilla(torch, stats, benchmarks, bw, card)
@@ -1481,14 +1526,15 @@ def stage_breakdown(torch, pkg_ops, dapi, actin, nuclei, actin_mask) -> dict:
 
 
 def drive_path(torch, pipeline, title, desc, data, wrappers, need, card,
-               expect=None, only=None, stats=None, cpu_result=None) -> dict:
+               expect=None, only=None, stats=None, cpu_result=None, hold=None) -> dict:
     """Drive one path through ``build_batch_fn`` on the card: a warm-up
     call, then every launch counter set to 0, one call, the counters read
     (each kernel in ``need`` must have launched, each in ``expect``
     exactly that often, each kernel in ``only`` every time on the route
     named there, the watershed with every site of its last launch on chip),
     the first sites held to the port's CPU run (``cpu_result`` where
-    given), and the batch timed over 5 calls.  ``stats`` are
+    given) by ``hold(card, cpu)`` (default :func:`compare_with_cpu`), and
+    the batch timed over 5 calls.  ``stats`` are
     corilla's ``{channel: (mean_log, std_log)}`` numpy fields."""
     n = next(iter(data.values())).shape[0]
     raw, stats, shifts = pipeline.from_jax_inputs(data, stats or {}, [[0, 0]] * n,
@@ -1532,7 +1578,7 @@ def drive_path(torch, pipeline, title, desc, data, wrappers, need, card,
         cpu_res = pipeline.site_result_to_numpy(
             pipeline.ImageAnalysisPipeline(desc, MAX_OBJECTS, device="cpu")
             .build_batch_fn()(craw, cstats, cshifts))
-    worst = compare_with_cpu(card_res, cpu_res)
+    worst = (hold or compare_with_cpu)(card_res, cpu_res)
     print(f"  cpu check: labels, counts and {sum(len(f) for f in cpu_res.measurements.values())}"
           f" features of {N_CPU_SITES} sites agree; largest |card - cpu| by family "
           + ", ".join(f"{k} {d:.3g} ({f})" for k, (d, f) in sorted(worst.items())))
@@ -1549,7 +1595,7 @@ def drive_path(torch, pipeline, title, desc, data, wrappers, need, card,
     print("  counts: " + " ".join(
         f"{obj} {c[:N_CPU_SITES].tolist()}" for obj, c in card_res.counts.items()))
     return {"launches": launches, "objects": result.objects, "counts": card_res.counts,
-            "sites_per_s": n / batch_s}
+            "sites_per_s": n / batch_s, "fn": fn, "inputs": (raw, stats, shifts)}
 
 
 def print_stages(card: str, stages: dict) -> None:
@@ -3369,6 +3415,446 @@ def phase_qc_session(torch, wrappers, card) -> None:
     finally:
         os.environ.pop("TMX_QC", None)
         shutil.rmtree(base, ignore_errors=True)
+
+
+# --------------------------------------------------- the spot-counting path
+#: path (i): smFISH z-stacks of 8 planes beside config 3's DAPI and Actin
+FISH_DEPTH = 8
+#: detect_blobs' LoG threshold on path (i), set once from the data: the
+#: largest response of a spot-free site (the noise of 8 planes, max
+#: projected and bilateral-smoothed) is 8.5, the peak of the faintest
+#: isolated spot about 260 (peak 600, sd 1.5 px, 0.5 plane off)
+SPOT_THRESHOLD = 150.0
+#: detect_blobs' scales on path (i)
+SPOT_SIGMAS = (1.5, 3.0, 3)
+#: kernel launches of one batch of path (i): the labeling in
+#: segment_primary and in detect_blobs; grouped_stats in filter's
+#: morphology, twice in measure_point_pattern, in measure_intensity
+SPOTS_LAUNCHES = {"fill_holes_flood": 1, "cc_min_propagate": 2, "watershed_flood": 1,
+                  "grouped_stats": 4}
+
+
+def spot_response_tier(sigma_max: float, images, bilateral: bool) -> "list[float]":
+    """Per site, how far two implementations' multi-scale LoG responses
+    (``ops.blobs``) may lie apart: ``LOG_TIER * sigma_max**2 * max|image|``
+    from the gaussian's taps, plus ``8 * BILATERAL_TIER`` of the same
+    where the LoG's input is a bilateral filter's output (the gaussian
+    keeps a difference's bound, the 5-point stencil's weights sum to 8 in
+    magnitude).  ``images``: ``(B, H, W)`` numpy, the bilateral's input
+    where ``bilateral``, else the LoG's."""
+    import numpy as np
+
+    scale = np.abs(np.asarray(images, np.float64)).reshape(len(images), -1).max(axis=1)
+    tier = LOG_TIER + (8 * BILATERAL_TIER if bilateral else 0.0)
+    return [float(v) for v in tier * sigma_max ** 2 * scale]
+
+
+def blob_flips(torch, want: dict, got: dict, threshold: float, tol, min_distance: int) -> dict:
+    """The boundary rule for ``detect_blobs``.  ``want``/``got``:
+    ``{"response", "blobs", "centers"}`` ``(B, H, W)`` tensors of the same
+    sites from two implementations (the multi-scale LoG response, the
+    labels, the centres); ``tol`` the ``(B,)`` response tier
+    (:func:`spot_response_tier`).  The responses must lie within it.  A
+    pixel may change sides of the threshold only where ``want``'s
+    response lies within ``tol`` of it; a pixel may change its peak
+    decision (``local_maxima``' ``>=`` test and scan-order tie-break)
+    only where a mask pixel flipped or, within its window, two pixels
+    lie within ``2 * tol`` of each other.  A site with no flipped mask
+    pixel must have equal labels, and equal centres where no peak
+    flipped.  Raises :class:`SmokeFailure` otherwise; returns the largest
+    response difference relative to its tier, the flips counted and the
+    sites whose labels are equal."""
+    F = torch.nn.functional
+    wr, gr = want["response"].double(), got["response"].double()
+    b = wr.shape[0]
+    t = torch.as_tensor(tol, dtype=torch.float64).reshape(b, 1, 1)
+    err = (gr - wr).abs().reshape(b, -1).amax(dim=1)
+    if (err > t.reshape(b)).any():
+        raise SmokeFailure(f"detect_blobs responses beyond their tier: "
+                           f"{float((err / t.reshape(b)).max()):.3g} of it")
+    mask_flip = (wr > threshold) != (gr > threshold)
+    bad_mask = mask_flip & ((wr - threshold).abs() > t)
+    d = int(min_distance)
+    ambiguous = torch.zeros_like(mask_flip)
+    h, w = wr.shape[-2:]
+    padded = F.pad(wr, (d, d, d, d), value=float("nan"))
+    for dy in range(-d, d + 1):
+        for dx in range(-d, d + 1):
+            if dy or dx:
+                other = padded[:, d + dy : d + dy + h, d + dx : d + dx + w]
+                ambiguous |= (other - wr).abs() <= 2 * t
+    window = 2 * d + 1
+    near = F.max_pool2d((ambiguous | mask_flip).double()[:, None], window, stride=1,
+                        padding=d)[:, 0] > 0
+    peak_flip = (want["centers"] > 0) != (got["centers"] > 0)
+    bad_peak = peak_flip & ~near
+    if bad_mask.any() or bad_peak.any():
+        raise SmokeFailure(f"detect_blobs decisions flipped away from a boundary: "
+                           f"{int(bad_mask.sum())} mask pixels, {int(bad_peak.sum())} peaks")
+    exact = []
+    for s in range(b):
+        if not bool(mask_flip[s].any()):
+            if not torch.equal(want["blobs"][s], got["blobs"][s]):
+                raise SmokeFailure(f"detect_blobs: site {s} labels differ on equal masks")
+            if not bool(peak_flip[s].any()) and not torch.equal(want["centers"][s],
+                                                                got["centers"][s]):
+                raise SmokeFailure(f"detect_blobs: site {s} centres differ on equal peaks")
+            exact.append(s)
+    return {"max_tier_share": float((err / t.reshape(b)).max()),
+            "mask_flips": int(mask_flip.sum()), "peak_flips": int(peak_flip.sum()),
+            "exact_sites": exact}
+
+
+def cell_centres(n_sites: int, size: int, n_cells: int = 12, seed: int = SEED) -> list:
+    """The cell centres ``(ys, xs)`` and cell radii that
+    ``benchmarks.synthetic_cell_painting_batch(n_sites, size, n_cells,
+    seed)`` draws, one triple a site: its random sequence replayed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rng.normal(300.0, 25.0, (n_sites, size, size))  # the DAPI noise
+    rng.normal(300.0, 25.0, (n_sites, size, size))  # the Actin noise
+    margin = size // 10
+    out = []
+    for _ in range(n_sites):
+        ys = rng.integers(margin, size - margin, n_cells)
+        xs = rng.integers(margin, size - margin, n_cells)
+        radii = []
+        for _ in range(n_cells):
+            r_n = rng.uniform(3.5, 5.5)
+            radii.append(r_n * rng.uniform(2.0, 3.0))
+        out.append((ys, xs, np.array(radii)))
+    return out
+
+
+def synthetic_fish_batch(n_sites: int, size: int = SIZE, depth: int = FISH_DEPTH,
+                         seed: int = SEED, n_cells: int = 12):
+    """``(B, Z, H, W)`` float32 smFISH z-stacks for the sites of
+    ``synthetic_cell_painting_batch(n_sites, size, n_cells, seed)``:
+    noise around 300 (sd 25) and 60-180 Gaussian spots a site (sd 1-1.5
+    px in y and x, 1 plane in z, peak 600-3000), each placed uniformly in
+    the disk of one of the site's cells (its centre and cell radius), so
+    most fall inside cells; clipped to the uint16 range."""
+    import numpy as np
+
+    rng = np.random.default_rng([seed, depth])
+    out = rng.normal(300.0, 25.0, (n_sites, depth, size, size)).astype(np.float32)
+    zz = np.arange(depth, dtype=np.float64)[:, None, None]
+    reach = 5
+    for s, (ys, xs, radii) in enumerate(cell_centres(n_sites, size, n_cells, seed)):
+        n = int(rng.integers(60, 181))
+        cell = rng.integers(0, n_cells, n)
+        r = radii[cell] * np.sqrt(rng.uniform(0.0, 1.0, n))
+        angle = rng.uniform(0.0, 2 * np.pi, n)
+        cy, cx = ys[cell] + r * np.sin(angle), xs[cell] + r * np.cos(angle)
+        cz = rng.uniform(1.0, depth - 2.0, n)
+        sd = rng.uniform(1.0, 1.5, n)
+        peak = rng.uniform(600.0, 3000.0, n)
+        for k in range(n):
+            y0, x0 = int(round(cy[k])), int(round(cx[k]))
+            y1, y2 = max(y0 - reach, 0), min(y0 + reach + 1, size)
+            x1, x2 = max(x0 - reach, 0), min(x0 + reach + 1, size)
+            if y1 >= y2 or x1 >= x2:
+                continue
+            yy = np.arange(y1, y2, dtype=np.float64)[None, :, None]
+            xx = np.arange(x1, x2, dtype=np.float64)[None, None, :]
+            spot = peak[k] * np.exp(-(zz - cz[k]) ** 2 / 2.0
+                                    - ((yy - cy[k]) ** 2 + (xx - cx[k]) ** 2) / (2 * sd[k] ** 2))
+            out[s, :, y1:y2, x1:x2] += spot.astype(np.float32)
+    return np.clip(out, 0, 65535)
+
+
+def spots_pipe(threshold: float = SPOT_THRESHOLD, max_points: int = MAX_OBJECTS) -> dict:
+    """Path (i), a spot-counting pipeline (smFISH in thousands of single
+    cells): DAPI, Actin and an 8-plane FISH z-stack; FISH's maximum
+    projection, clipped and bilateral-smoothed, LoG spots; nuclei from
+    median-smoothed DAPI, cells grown on Actin and kept at form factor
+    >= 0.3, nuclei expanded by 3 px; spots counted per cell
+    (``measure_point_pattern``) and measured on FISH."""
+    def h(module, inputs, outputs):
+        return {"handles": {"module": module, "input": inputs, "output": outputs}}
+
+    def img(name, key, kind="IntensityImage"):
+        return {"name": name, "type": kind, "key": key}
+
+    def const(name, value, kind="Numeric"):
+        return {"name": name, "type": kind, "value": value}
+
+    def objects(key, name="objects"):
+        return [{"name": name, "type": "SegmentedObjects", "key": key, "objects": key}]
+
+    lo, hi, n = SPOT_SIGMAS
+    return {
+        "description": "spot counting: smFISH spots per cell",
+        "input": {"channels": [{"name": "DAPI", "correct": False, "align": False},
+                               {"name": "Actin", "correct": False, "align": False},
+                               {"name": "FISH", "correct": False, "zstack": True}]},
+        "pipeline": [
+            h("mip", [img("zstack", "FISH")], [img("mip_image", "fish")]),
+            h("clip", [img("intensity_image", "fish"), const("lower", 0.0),
+                       const("upper", 20000.0)], [img("clipped_image", "fish_clip")]),
+            h("smooth", [img("intensity_image", "fish_clip"),
+                         const("method", "bilateral", "Character"), const("size", 5),
+                         const("sigma", 2.0)], [img("smoothed_image", "fish_sm")]),
+            h("detect_blobs", [img("intensity_image", "fish_sm"), const("threshold", threshold),
+                               const("min_distance", 3), const("sigma_min", lo),
+                               const("sigma_max", hi), const("n_scales", n)],
+              objects("spots") + [img("centers", "spot_centers", "LabelImage")]),
+            h("smooth", [img("intensity_image", "DAPI"), const("method", "median", "Character"),
+                         const("size", 3)], [img("smoothed_image", "dapi_sm")]),
+            h("segment_primary", [img("intensity_image", "dapi_sm"),
+                                  const("threshold_method", "otsu", "Character"),
+                                  const("smooth_sigma", 0.0), const("fill", True, "Boolean"),
+                                  const("min_area", 20)], objects("nuclei")),
+            h("segment_secondary", [img("primary_label_image", "nuclei", "LabelImage"),
+                                    img("intensity_image", "Actin"),
+                                    const("correction_factor", 0.8), const("n_levels", 16)],
+              [img("objects", "cells_all", "LabelImage")]),
+            h("filter", [img("label_image", "cells_all", "LabelImage"),
+                         const("feature", "form_factor", "Character"),
+                         const("lower_threshold", 0.3)],
+              [img("filtered_label_image", "cells_ff", "LabelImage")]),
+            h("expand_or_shrink", [img("label_image", "nuclei", "LabelImage"), const("n", 3)],
+              [img("expanded_image", "perinuclei_lab", "LabelImage")]),
+            h("register_objects", [img("label_image", "perinuclei_lab", "LabelImage")],
+              objects("perinuclei")),
+            h("register_objects", [img("label_image", "cells_ff", "LabelImage")],
+              objects("cells")),
+            h("measure_point_pattern", [img("objects_image", "cells", "LabelImage"),
+                                        img("points_image", "spots", "LabelImage"),
+                                        const("max_points", max_points)],
+              [{"name": "measurements", "type": "Measurement", "objects": "cells"}]),
+            h("measure_intensity", [img("objects_image", "spots", "LabelImage"),
+                                    img("intensity_image", "fish")],
+              [{"name": "measurements", "type": "Measurement", "objects": "spots",
+                "channel": "FISH"}]),
+        ],
+        "output": {"objects": [{"name": "nuclei"}, {"name": "cells"}, {"name": "perinuclei"},
+                               {"name": "spots"}]},
+    }
+
+
+def spot_chain(modules, fish):
+    """Path (i)'s FISH chain up to ``detect_blobs``' input, as its modules
+    compute it: ``(clipped maximum projection, bilateral output)``."""
+    g = modules.get_module
+    x = g("clip")(g("mip")(fish)["mip_image"], lower=0.0, upper=20000.0)["clipped_image"]
+    return x, g("smooth")(x, method="bilateral", size=5, sigma=2.0)["smoothed_image"]
+
+
+def spot_decisions(torch, blobs, image) -> dict:
+    """``{"response", "blobs", "centers"}`` of path (i)'s ``detect_blobs``
+    on ``image`` (its bilateral output), on the CPU."""
+    lo, hi, n = SPOT_SIGMAS
+    sigmas = tuple(lo + (hi - lo) * i / max(n - 1, 1) for i in range(n))
+    resp = blobs.log_response(image, sigmas[0])
+    for s in sigmas[1:]:
+        resp = torch.maximum(resp, blobs.log_response(image, s))
+    labels, centers, _ = blobs.detect_blobs(image, sigmas, SPOT_THRESHOLD, 3, MAX_OBJECTS)
+    return {"response": resp.cpu(), "blobs": labels.cpu(), "centers": centers.cpu()}
+
+
+def hold_spots(torch, modules, blobs, fish):
+    """``hold(card, cpu)`` for path (i): the spots by the boundary rule
+    (:func:`blob_flips`, each side's decisions recomputed from its own
+    bilateral output of the first sites' ``fish``, which must give that
+    side's spot labels), every other object exact, and the features by
+    ``CARD_TIERS`` on the sites whose spots agree."""
+
+    def hold(card, cpu):
+        sides = {}
+        for side, x in (("card", fish), ("cpu", fish.cpu())):
+            mip, sm = spot_chain(modules, x)
+            sides[side] = spot_decisions(torch, blobs, sm)
+            sides[side]["mip"] = mip.cpu()
+        for side, res in (("card", card), ("cpu", cpu)):
+            if not torch.equal(sides[side]["blobs"],
+                               torch.from_numpy(res.objects["spots"][:N_CPU_SITES])):
+                raise SmokeFailure(f"spots: the {side}'s labels are not its decisions'")
+        flips = blob_flips(torch, sides["cpu"], sides["card"], SPOT_THRESHOLD,
+                           spot_response_tier(SPOT_SIGMAS[1], sides["cpu"]["mip"].numpy(),
+                                              bilateral=True), 3)
+        print(f"  spots by the boundary rule: response {flips['max_tier_share']:.3g} of its "
+              f"tier, {flips['mask_flips']} mask pixels and {flips['peak_flips']} peaks "
+              f"flipped, {len(flips['exact_sites'])} of {N_CPU_SITES} sites exact")
+        return compare_with_cpu(card, cpu, sites=flips["exact_sites"])
+
+    return hold
+
+
+def module_stage_times(torch, modules, desc, call, reps: int = 5) -> dict:
+    """CUDA-event milliseconds per batch of each module of ``desc`` over
+    ``reps`` calls of ``call`` (a batch function of ``desc``), by module
+    and its place in the description: the registry's functions are
+    wrapped for the measurement and restored after."""
+    registry = modules._REGISTRY
+    saved = {name: dict(backends) for name, backends in registry.items()}
+    events: list = []
+    order = {}
+    for i, mod in enumerate(desc.modules):
+        order.setdefault(mod.module, []).append(f"{mod.module}#{i}")
+
+    def timed(name, fn):
+        @functools.wraps(fn)  # the pipeline reads the module's signature
+        def run(**kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(**kwargs)
+            end.record()
+            events.append((name, start, end))
+            return out
+        return run
+
+    try:
+        for name, keys in order.items():
+            fn, version = registry[name]["tpu"]
+            registry[name]["tpu"] = (timed(name, fn), version)
+        call()  # warm-up
+        torch.cuda.synchronize()
+        events.clear()
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    finally:
+        registry.clear()
+        registry.update(saved)
+    totals: dict = {}
+    seen: dict = {}
+    for name, start, end in events:
+        k = seen.get(name, 0)
+        key = order[name][k % len(order[name])]
+        seen[name] = k + 1
+        totals[key] = totals.get(key, 0.0) + start.elapsed_time(end) / reps
+    return totals
+
+
+def drive_spots_path(torch, pkg, wrappers, card) -> dict:
+    """Phase 3 path (i), ``spots_b64_256``: config 3's DAPI and Actin
+    with :func:`synthetic_fish_batch`'s z-stacks through
+    :func:`spots_pipe` (:func:`drive_path`: exactly
+    :data:`SPOTS_LAUNCHES`, nothing else, the watershed on chip for every
+    site; 8 sites against the CPU by :func:`hold_spots`); the path's
+    kernels against their plain versions at its shapes (the spot mask's
+    labeling, the point-pattern centroid passes); the stage time of each
+    module."""
+    pipeline, modules, benchmarks, blobs, kernels, fused_measure = (pkg[k] for k in (
+        "pipeline", "modules", "benchmarks", "blobs", "kernels", "fused_measure"))
+    from tmlibrary_tpu_torch.jterator.description import PipelineDescription
+
+    t0 = time.perf_counter()
+    data = benchmarks.synthetic_cell_painting_batch(B, size=SIZE, seed=SEED)
+    data["FISH"] = synthetic_fish_batch(B, SIZE)
+    print(f"phase 3, spots: {B} sites of {SIZE}x{SIZE} and {FISH_DEPTH}-plane FISH stacks "
+          f"made in {time.perf_counter() - t0:.1f} s")
+    desc = PipelineDescription.from_dict(spots_pipe())
+    fish = torch.from_numpy(data["FISH"][:N_CPU_SITES]).cuda()
+    expect = {k: 0 for k in wrappers}
+    expect.update(SPOTS_LAUNCHES)
+    run = drive_path(torch, pipeline, "spots", desc, data, wrappers,
+                     need=list(SPOTS_LAUNCHES), card=card, expect=expect,
+                     only={"fill_holes_flood": "onchip", "watershed_flood": "onchip"},
+                     hold=hold_spots(torch, modules, blobs, fish))
+
+    # the path's kernels against their plain versions at its shapes (not counted)
+    _, sm = spot_chain(modules, torch.from_numpy(data["FISH"]).cuda())
+    lo, hi, n = SPOT_SIGMAS
+    resp = blobs.log_response(sm, lo)
+    for k in range(1, n):
+        resp = torch.maximum(resp, blobs.log_response(sm, lo + (hi - lo) * k / (n - 1)))
+    spot_mask = resp > SPOT_THRESHOLD
+    spots, cells = run["objects"]["spots"], run["objects"]["cells"]
+    yy, xx = torch.meshgrid(torch.arange(SIZE, dtype=torch.float32, device="cuda"),
+                            torch.arange(SIZE, dtype=torch.float32, device="cuda"),
+                            indexing="ij")
+    chans = [torch.ones_like(sm), yy.expand_as(sm), xx.expand_as(sm)]
+    holds = {"cc_min_propagate": (kernels.cc_min_propagate(spot_mask),
+                                  kernels.cc_min_propagate_plain(spot_mask))}
+    for name, lab in (("grouped_stats (points)", spots), ("grouped_stats (cells)", cells)):
+        holds[name] = (torch.stack(fused_measure.grouped_stats(lab, chans, MAX_OBJECTS)),
+                       torch.stack(fused_measure.grouped_stats_plain(lab, chans, MAX_OBJECTS)))
+    for k, (got, want) in holds.items():
+        if not torch.equal(got, want):
+            raise SmokeFailure(f"spots: {k} differs from its plain version on the path's inputs")
+    print("  kernels at the path's shapes equal their plain versions: " + ", ".join(holds)
+          + f" (spot pixels {int(spot_mask.sum())}, spots {int(run['counts']['spots'].sum())},"
+          f" cells {int(run['counts']['cells'].sum())} in the batch)")
+    fn, (raw, stats, shifts) = run["fn"], run["inputs"]
+    print_stages(card, module_stage_times(torch, modules, desc, lambda: fn(raw, stats, shifts)))
+    return run
+
+
+def phase_module_sweep(torch, pkg, inputs, card) -> None:
+    """Phase 3 (j): each module and method that path (i) does not run,
+    alone on the card at 64 sites of 256x256 (z-stacks of 8 planes) --
+    its ms per batch (CUDA events, 5 calls after a warm-up) -- and held
+    against the port's CPU on the first sites: exact (labels, masks, and
+    float outputs, which both devices compute op by op with the same
+    rounding: true divisions, correctly rounded roots, products and sums
+    rounded one at a time, the host's gaussian taps), the Haralick
+    features by ``CARD_TIERS`` (``log``/``exp``) and their GLCM counts
+    exact."""
+    modules, measure = pkg["modules"], pkg["measure"]
+    g = modules.get_module
+    dapi, actin, nuclei = inputs["dapi"], inputs["actin"], inputs["nuclei"]
+    dapi_mask, actin_mask = inputs["dapi_mask"], inputs["actin_mask"]
+    zstack = torch.from_numpy(synthetic_fish_batch(B, SIZE, seed=SEED + 1)).cuda()
+    cases = [
+        ("invert (float)", lambda a: g("invert")(image=a[0])["inverted_image"], [dapi]),
+        ("invert (mask)", lambda a: g("invert")(image=a[0])["inverted_image"], [dapi_mask]),
+        ("rescale", lambda a: g("rescale")(a[0], lower=250.0, upper=5000.0)["rescaled_image"],
+         [dapi]),
+        ("mask", lambda a: g("mask")(a[0], a[1])["masked_image"], [actin, dapi_mask]),
+        ("combine_channels", lambda a: g("combine_channels")(
+            a[0], a[1], weight_1=0.7, weight_2=1.3)["combined_image"], [dapi, actin]),
+        ("filter_edges sobel", lambda a: g("filter_edges")(a[0], method="sobel")[
+            "filtered_image"], [dapi]),
+        ("filter_edges log", lambda a: g("filter_edges")(a[0], method="log")[
+            "filtered_image"], [dapi]),
+        ("expand 3", lambda a: g("expand")(a[0], n=3)["expanded_image"], [nuclei]),
+        ("shrink 2", lambda a: g("shrink")(a[0], n=2)["shrunken_image"], [nuclei]),
+        ("smooth median 9", lambda a: g("smooth")(a[0], method="median", size=9)[
+            "smoothed_image"], [dapi]),
+    ]
+    for op in ("AND", "OR", "XOR"):
+        cases.append((f"combine_masks {op}", lambda a, op=op: g("combine_masks")(
+            a[0], a[1], operation=op)["combined_mask"], [dapi_mask, actin_mask]))
+    for op in ("open", "close", "dilate", "erode"):
+        cases.append((f"morphology {op}", lambda a, op=op: g("morphology")(
+            a[0], operation=op, iterations=2)["output_mask"], [dapi_mask]))
+    for method in ("max", "mean", "sum"):
+        cases.append((f"project {method}", lambda a, m=method: g("project")(
+            a[0], method=m)["projected_image"], [zstack]))
+    print(f"phase 3j: the module sweep at {B} sites of {SIZE}x{SIZE} ({FISH_DEPTH}-plane "
+          f"stacks), each held against the CPU on {N_CPU_SITES} sites; times on {card}")
+    for name, fn, args in cases:
+        ms = cuda_ms(torch, lambda: fn(args), 5)
+        got = fn([a[:N_CPU_SITES] for a in args]).cpu()
+        want = fn([a[:N_CPU_SITES].cpu() for a in args])
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise SmokeFailure(f"sweep {name}: the card differs from the CPU")
+        print(f"  sweep {name}: {ms:.3f} ms per batch of {B} ({B / ms * 1e3:.1f} sites/s), "
+              f"exact against the CPU; {card}")
+    # Haralick's global quantisation: the GLCM counts exact, the features by tier
+    q = measure.quantize_global(actin, LEVELS)
+    ms = cuda_ms(torch, lambda: measure.haralick_features(
+        nuclei, actin, MAX_OBJECTS, levels=LEVELS, quantization="global"), 5)
+    card_glcm = measure.glcm_counts(nuclei[:N_CPU_SITES], q[:N_CPU_SITES], MAX_OBJECTS,
+                                    LEVELS, OFFSETS)
+    cpu_glcm = measure.glcm_counts(nuclei[:N_CPU_SITES].cpu(), q[:N_CPU_SITES].cpu(),
+                                   MAX_OBJECTS, LEVELS, OFFSETS)
+    if not torch.equal(q[:N_CPU_SITES].cpu(), measure.quantize_global(
+            actin[:N_CPU_SITES].cpu(), LEVELS)) or not all(
+            torch.equal(a.cpu(), b) for a, b in zip(card_glcm, cpu_glcm)):
+        raise SmokeFailure("sweep haralick global: quantisation or GLCM counts differ")
+    got = measure.haralick_features(nuclei[:N_CPU_SITES], actin[:N_CPU_SITES], MAX_OBJECTS,
+                                    levels=LEVELS, quantization="global")
+    want = measure.haralick_features(nuclei[:N_CPU_SITES].cpu(), actin[:N_CPU_SITES].cpu(),
+                                     MAX_OBJECTS, levels=LEVELS, quantization="global")
+    worst = max(hold_tier(f"haralick global {k}", got[k].cpu(), want[k],
+                          feature_tier(k, CARD_TIERS)) for k in want)
+    print(f"  sweep haralick_features global: {ms:.3f} ms per batch of {B} "
+          f"({B / ms * 1e3:.1f} sites/s), quantisation and GLCM counts exact, features by "
+          f"CARD_TIERS (largest |card - cpu| {worst:.3g}); {card}")
 
 
 def run_cli_rc(cli, argv: list[str]) -> tuple[int, str]:

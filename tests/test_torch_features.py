@@ -492,11 +492,17 @@ def test_families_match_golden(family):
 
 
 def test_unported_haralick_options_raise(sites):
+    """Only ``distance != 1`` is left unported (the reference's pairs
+    beyond 1 land short, ROADMAP C), under either quantisation; the
+    global quantisation is ported (tests/test_torch_texture_global.py)
+    and an unknown one raises as in the reference."""
     lab, img = (t(a) for a in sites[0])
-    with pytest.raises(NotSupportedError):
-        tm.haralick_features(lab, img, EDGE_M, quantization="global")
-    with pytest.raises(NotSupportedError):
-        tm.haralick_features(lab, img, EDGE_M, distance=2)
+    for quantization in ("object", "global"):
+        with pytest.raises(NotSupportedError):
+            tm.haralick_features(lab, img, EDGE_M, distance=2, quantization=quantization)
+    assert len(tm.haralick_features(lab, img, EDGE_M, quantization="global")) == 13
+    with pytest.raises(ValueError, match="unknown quantization"):
+        tm.haralick_features(lab, img, EDGE_M, quantization="image")
 
 
 def test_shift_with_fill_reaches_beyond_one_pixel():

@@ -153,12 +153,17 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_unported_options_raise(batch):
+    """Haralick at a distance other than 1 is the option the port still
+    refuses (the reference's pairs beyond 1 land short, ROADMAP C); an
+    unknown module raises ``RegistryError``."""
     pipe = {**benchmarks.CELL_PAINTING_PIPE}
     pipe["pipeline"] = [dict(item) for item in pipe["pipeline"]]
     smooth = dict(pipe["pipeline"][0]["handles"])
-    smooth["input"] = smooth["input"] + [
-        {"name": "method", "type": "Character", "value": "median"}]
-    pipe["pipeline"][0] = {"handles": smooth}
+    i = next(i for i, item in enumerate(pipe["pipeline"])
+             if item["handles"]["module"] == "measure_intensity")
+    texture = dict(pipe["pipeline"][i]["handles"], module="measure_texture")
+    texture["input"] = texture["input"] + [{"name": "distance", "type": "Numeric", "value": 2}]
+    pipe["pipeline"][i] = {"handles": texture}
     with pytest.raises(NotSupportedError):
         _run_port(batch, desc=PipelineDescription.from_dict(pipe))
     bad = {**benchmarks.CELL_PAINTING_PIPE,
@@ -177,6 +182,29 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
+        # the modules import their ops inside the call: run each module
+        # added with the blob path, and smooth's median and bilateral
+        "import torch\n"
+        "from tmlibrary_tpu_torch.jterator.modules import get_module as g\n"
+        "from tmlibrary_tpu_torch.ops.measure import haralick_features\n"
+        "img = torch.rand(2, 16, 16) * 1000; lab = (img > 500).to(torch.int32)\n"
+        "z = torch.rand(2, 3, 16, 16)\n"
+        "for name, kw in [('smooth', dict(intensity_image=img, method='median')),\n"
+        "    ('smooth', dict(intensity_image=img, method='bilateral')),\n"
+        "    ('filter', dict(label_image=lab, feature='form_factor', lower_threshold=0.1)),\n"
+        "    ('register_objects', dict(label_image=lab)), ('invert', dict(image=img)),\n"
+        "    ('rescale', dict(intensity_image=img)), ('mask', dict(image=img, mask=lab)),\n"
+        "    ('combine_masks', dict(mask_1=lab, mask_2=lab)),\n"
+        "    ('measure_point_pattern', dict(objects_image=lab, points_image=lab)),\n"
+        "    ('project', dict(zstack=z, method='mean')), ('morphology', dict(mask=lab)),\n"
+        "    ('filter_edges', dict(intensity_image=img, method='log')),\n"
+        "    ('expand_or_shrink', dict(label_image=lab, n=-1)),\n"
+        "    ('clip', dict(intensity_image=img)),\n"
+        "    ('combine_channels', dict(image_1=img, image_2=img)),\n"
+        "    ('expand', dict(label_image=lab)), ('shrink', dict(label_image=lab)),\n"
+        "    ('mip', dict(zstack=z)), ('detect_blobs', dict(intensity_image=img))]:\n"
+        "    g(name)(**kw)\n"
+        "haralick_features(lab, img, 4, levels=8, quantization='global')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'tmlibrary_tpu' or m.startswith('tmlibrary_tpu.'))\n"
         "print(len(sys.modules), bad)\n"
@@ -187,7 +215,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(mods) >= 20
     assert {"tmlibrary_tpu_torch.ops.fused_measure", "tmlibrary_tpu_torch.ops.measure",
-            "tmlibrary_tpu_torch.jterator.modules", "tmlibrary_tpu_torch.benchmarks"} <= set(mods)
+            "tmlibrary_tpu_torch.jterator.modules", "tmlibrary_tpu_torch.benchmarks",
+            "tmlibrary_tpu_torch.ops.blobs"} <= set(mods)
 
 
 def test_feature_tiers_cover_names_and_match_chip_smoke():

@@ -1,9 +1,9 @@
 """Module registry and the ported module implementations.
 
-Counterpart: ``tmlibrary_tpu/jterator/modules.py:34-344`` and the DL
-segmenters at ``:727-812`` (reference: the external ``jtmodules``
-package).  Modules register under a name and a
-``backend`` key; the descriptions written for the JAX package name
+Counterpart: ``tmlibrary_tpu/jterator/modules.py:34-718`` (every module
+the reference registers) and the DL segmenters at ``:727-812``
+(reference: the external ``jtmodules`` package).  Modules register
+under a name and a ``backend`` key; the descriptions written for the JAX package name
 ``backend: tpu`` (the default), so the port registers its twins under
 the same key and an unchanged ``.pipe`` description runs on either
 package.
@@ -12,7 +12,10 @@ Module contract: ``fn(**kwargs) -> dict`` mapping output-handle names to
 tensors (or, for ``Measurement`` outputs, to ``{feature: (B, max_objects)
 tensor}`` dicts).  Array kwargs are ``(B, H, W)`` batches, or ``(B, Z, H,
 W)`` for the volume modules; everything else is a constant from the
-handle description.  A module that drops objects beyond ``max_objects``
+handle description.  The reference computes one site under ``vmap``;
+here every reduction the reference takes over "the image" (``invert``'s
+maximum, ``project``'s z axis, ``detect_blobs``' count) is taken over
+each site.  A module that drops objects beyond ``max_objects``
 before a filter may also return ``"<output name>" + FOUND``: the ``(B,)``
 number of objects it found before the clip (the workflow step's capacity
 router escalates on it).  Outputs named ``MODULE_QC_PREFIX + <stat>`` are
@@ -26,9 +29,11 @@ import inspect
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
-from tmlibrary_tpu_torch.errors import NotSupportedError, RegistryError
+from tmlibrary_tpu_torch.errors import RegistryError
+from tmlibrary_tpu_torch.ops import kernels
 from tmlibrary_tpu_torch.ops import label as label_ops
 from tmlibrary_tpu_torch.ops import smooth as smooth_ops
 from tmlibrary_tpu_torch.ops import threshold as threshold_ops
@@ -59,6 +64,16 @@ def get_module(name: str, backend: str = "tpu") -> Callable:
         ) from None
 
 
+def get_module_version(name: str, backend: str = "tpu") -> str:
+    return _REGISTRY[name][backend][1]
+
+
+def list_modules(backend: str | None = None) -> list[str]:
+    if backend is None:
+        return sorted(_REGISTRY)
+    return sorted(n for n, b in _REGISTRY.items() if backend in b)
+
+
 def module_accepts(name: str, backend: str, kwarg: str) -> bool:
     fn = get_module(name, backend)
     params = inspect.signature(fn).parameters
@@ -74,14 +89,16 @@ def module_accepts(name: str, backend: str, kwarg: str) -> bool:
 
 @register_module("smooth")
 def smooth(intensity_image, method: str = "gaussian", sigma: float = 2.0, size: int = 3):
-    """Smoothing (reference ``jtmodules/smooth.py``); the gaussian and
-    average methods are ported, median and bilateral are not."""
+    """Smoothing (reference ``jtmodules/smooth.py``): gaussian | median |
+    average | bilateral."""
     if method == "gaussian":
         out = smooth_ops.gaussian_smooth(intensity_image, sigma)
+    elif method == "median":
+        out = smooth_ops.median_smooth(intensity_image, size)
     elif method == "average":
         out = smooth_ops.uniform_smooth(intensity_image, size)
-    elif method in ("median", "bilateral"):
-        raise NotSupportedError(f"smooth method '{method}' is not ported yet")
+    elif method == "bilateral":
+        out = smooth_ops.bilateral_smooth(intensity_image, size=size, sigma_space=sigma)
     else:
         raise ValueError(f"unknown smooth method '{method}'")
     return {"smoothed_image": out}
@@ -135,6 +152,82 @@ def label(mask, connectivity: int = 8):
 def fill(mask):
     """Reference ``jtmodules/fill.py`` (fill holes in binary mask)."""
     return {"filled_mask": label_ops.fill_holes(mask)}
+
+
+@register_module("filter")
+def filter_objects(
+    label_image,
+    feature: str = "area",
+    lower_threshold: float | None = None,
+    upper_threshold: float | None = None,
+    max_objects: int = 256,
+):
+    """Reference ``jtmodules/filter.py``: remove objects whose morphology
+    feature (``area``, ``form_factor``, ``eccentricity``, ...; bare or
+    ``Morphology_``-prefixed) falls outside ``[lower_threshold,
+    upper_threshold]``, renumbering the rest."""
+    if lower_threshold is None and upper_threshold is None:
+        raise ValueError("filter needs lower_threshold and/or upper_threshold")
+    if feature in ("area", "Morphology_area"):
+        # pixel counting only; float thresholds compare as in the generic path
+        out = label_ops.filter_by_area(
+            label_image, max_objects=max_objects,
+            min_area=lower_threshold if lower_threshold is not None else 0,
+            max_area=upper_threshold,
+        )
+    else:
+        out = label_ops.filter_by_feature(
+            label_image, feature, max_objects, lower=lower_threshold, upper=upper_threshold)
+    return {"filtered_label_image": out}
+
+
+@register_module("register_objects")
+def register_objects(label_image):
+    """Reference ``jtmodules/register_objects.py``: promote a label image
+    to registered objects."""
+    return {"objects": label_image.to(torch.int32)}
+
+
+@register_module("invert")
+def invert(image):
+    """Reference ``jtmodules/invert.py``: a mask's complement, or each
+    site's maximum minus its pixels."""
+    if image.dtype == torch.bool:
+        return {"inverted_image": ~image}
+    # PyTorch's unsigned types lack reductions: integers go through int64
+    # (max - v is in range, so the cast back is exact)
+    wide = image if image.dtype.is_floating_point else image.to(torch.int64)
+    top = wide.reshape(wide.shape[0], -1).amax(dim=1)
+    out = top.reshape((-1,) + (1,) * (wide.dim() - 1)) - wide
+    return {"inverted_image": out.to(image.dtype)}
+
+
+@register_module("rescale")
+def rescale(intensity_image, lower: float = 0.0, upper: float = 65535.0):
+    """Linear rescale of ``[lower, upper]`` to ``[0, 1]``, clipped."""
+    from tmlibrary_tpu_torch.ops import image_ops
+
+    return {"rescaled_image": image_ops.rescale(intensity_image, lower, upper)}
+
+
+@register_module("mask")
+def apply_mask(image, mask):
+    """Zero out pixels outside ``mask`` (reference ``jtmodules/mask.py``)."""
+    return {"masked_image": torch.where(mask.to(torch.bool), image, torch.zeros_like(image))}
+
+
+@register_module("combine_masks")
+def combine_masks(mask_1, mask_2, operation: str = "AND"):
+    """Reference ``jtmodules/combine_masks.py``: AND | OR | XOR."""
+    a = mask_1.to(torch.bool)
+    b = mask_2.to(torch.bool)
+    if operation.upper() == "AND":
+        return {"combined_mask": a & b}
+    if operation.upper() == "OR":
+        return {"combined_mask": a | b}
+    if operation.upper() == "XOR":
+        return {"combined_mask": a ^ b}
+    raise ValueError(f"unknown combine operation '{operation}'")
 
 
 @register_module("segment_primary")
@@ -247,6 +340,98 @@ def measure_zernike(objects_image, degree: int = 9, patch: int = 64, max_objects
         objects_image, max_objects, degree=degree, patch=patch)}
 
 
+@register_module("measure_point_pattern")
+def measure_point_pattern(
+    objects_image,
+    points_image,
+    max_objects: int = 256,
+    max_points: int = 256,
+):
+    """Reference ``jtlib/features/point_pattern.py``: spatial statistics
+    of child point objects (spots) within parent objects — count,
+    density, nearest-neighbour distances, the Clark–Evans index,
+    distances to the parent centroid and border."""
+    from tmlibrary_tpu_torch.ops.measure import point_pattern_features
+
+    return {"measurements": point_pattern_features(
+        objects_image, points_image, max_objects, max_points)}
+
+
+def _sum_planes(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the z axis of ``(B, Z, H, W)``, plane after plane in
+    order (the same order on either device)."""
+    out = v[:, 0]
+    for z in range(1, v.shape[1]):
+        out = out + v[:, z]
+    return out
+
+
+@register_module("project")
+def project(zstack, method: str = "max"):
+    """Z-projection of ``(B, Z, H, W)`` z-stacks (reference
+    ``jtmodules/project.py``): max | mean | sum.  The mean is the sum
+    times the float32 reciprocal of Z, as ``jnp.mean`` computes it."""
+    v = zstack.to(torch.float32)
+    if method == "max":
+        return {"projected_image": v.amax(dim=1)}
+    if method == "mean":
+        reciprocal = float(np.float32(1.0) / np.float32(v.shape[1]))
+        return {"projected_image": _sum_planes(v) * reciprocal}
+    if method == "sum":
+        return {"projected_image": _sum_planes(v)}
+    raise ValueError(f"unknown projection method '{method}'")
+
+
+@register_module("morphology")
+def morphology(mask, operation: str = "open", iterations: int = 1):
+    """Binary morphology (reference ``jtmodules/morphology.py``), 8-connected:
+    open | close | dilate | erode."""
+    m = mask.to(torch.bool)
+    if operation == "dilate":
+        out = kernels.binary_dilate(m, 8, iterations)
+    elif operation == "erode":
+        out = kernels.binary_erode(m, 8, iterations)
+    elif operation == "open":
+        out = kernels.binary_dilate(kernels.binary_erode(m, 8, iterations), 8, iterations)
+    elif operation == "close":
+        out = kernels.binary_erode(kernels.binary_dilate(m, 8, iterations), 8, iterations)
+    else:
+        raise ValueError(f"unknown morphology operation '{operation}'")
+    return {"output_mask": out}
+
+
+def _edge_shift(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """``out[..., y, x] = img[..., clamp(y + dy), clamp(x + dx)]`` (an
+    edge-replicated pad of one pixel)."""
+    h, w = img.shape[-2:]
+    rows = torch.clamp(torch.arange(h, device=img.device) + dy, 0, h - 1)
+    cols = torch.clamp(torch.arange(w, device=img.device) + dx, 0, w - 1)
+    return img.index_select(-2, rows).index_select(-1, cols)
+
+
+@register_module("filter_edges")
+def filter_edges(intensity_image, method: str = "sobel"):
+    """Edge enhancement on an edge-replicated pad (reference
+    ``jtmodules/filter.py`` edge options): the 3x3 sobel gradient
+    magnitude, or the 5-point Laplacian of the gaussian at σ 2."""
+    from tmlibrary_tpu_torch.ops._exact import sqrt
+
+    img = intensity_image.to(torch.float32)
+    if method == "sobel":
+        def s(dy, dx):
+            return _edge_shift(img, dy, dx)
+
+        gy = (s(1, -1) + 2 * s(1, 0) + s(1, 1)) - (s(-1, -1) + 2 * s(-1, 0) + s(-1, 1))
+        gx = (s(-1, 1) + 2 * s(0, 1) + s(1, 1)) - (s(-1, -1) + 2 * s(0, -1) + s(1, -1))
+        return {"filtered_image": sqrt(gy * gy + gx * gx)}
+    if method == "log":
+        sm = smooth_ops.gaussian_smooth(img, 2.0)
+        lap = (_edge_shift(sm, -1, 0) + _edge_shift(sm, 1, 0) + _edge_shift(sm, 0, -1)
+               + _edge_shift(sm, 0, 1) - 4.0 * sm)
+        return {"filtered_image": lap}
+    raise ValueError(f"unknown edge filter '{method}'")
+
+
 @register_module("separate_clumps")
 def separate_clumps(
     label_image,
@@ -308,14 +493,8 @@ def generate_volume_image(zstack, focus_window: int = 5, mode: str = "volume"):
     ``(B, H, W)`` sharpest-plane index (ties to the first plane) and the
     all-in-focus composite."""
     vol = zstack.to(torch.float32)
-    h, w = vol.shape[-2:]
-    rows = torch.arange(h, device=vol.device)
-    cols = torch.arange(w, device=vol.device)
-    up = vol.index_select(-2, torch.clamp(rows - 1, min=0))
-    down = vol.index_select(-2, torch.clamp(rows + 1, max=h - 1))
-    left = vol.index_select(-1, torch.clamp(cols - 1, min=0))
-    right = vol.index_select(-1, torch.clamp(cols + 1, max=w - 1))
-    lap = -4.0 * vol + up + down + left + right
+    lap = (-4.0 * vol + _edge_shift(vol, -1, 0) + _edge_shift(vol, 1, 0)
+           + _edge_shift(vol, 0, -1) + _edge_shift(vol, 0, 1))
     focus = smooth_ops.uniform_smooth(lap * lap, focus_window)
     depth = torch.argmax(focus, dim=1)  # the first maximum, like jnp.argmax
     best = focus.amax(dim=1)
@@ -398,6 +577,82 @@ def measure_volume(objects_image, intensity_image, max_objects: int = 256):
     from tmlibrary_tpu_torch.ops.volume import volume_features
 
     return {"measurements": volume_features(objects_image, intensity_image, max_objects)}
+
+
+@register_module("expand_or_shrink")
+def expand_or_shrink(label_image, n: int = 1, max_objects: int = 256):
+    """Reference ``jtmodules/expand_or_shrink.py``: grow objects by ``n``
+    adopt steps (``n > 0``; ties to the larger label) or keep each label
+    where its object mask survives ``-n`` 8-connected erosions (``n < 0``)."""
+    from tmlibrary_tpu_torch.ops.segment_secondary import expand_labels
+
+    lab = label_image.to(torch.int32)
+    if n == 0:
+        return {"expanded_image": lab}
+    if n > 0:
+        return {"expanded_image": expand_labels(lab, iterations=n)}
+    eroded = kernels.binary_erode(lab > 0, connectivity=8, iterations=-n)
+    return {"expanded_image": torch.where(eroded, lab, torch.zeros_like(lab))}
+
+
+@register_module("clip")
+def clip(intensity_image, lower: float = 0.0, upper: float = 65535.0):
+    """Reference ``jtmodules/clip.py``: clip intensities to [lower, upper]."""
+    from tmlibrary_tpu_torch.ops import image_ops
+
+    return {"clipped_image": image_ops.clip_values(intensity_image, lower, upper)}
+
+
+@register_module("combine_channels")
+def combine_channels(image_1, image_2, weight_1: float = 1.0, weight_2: float = 1.0):
+    """Reference ``jtmodules/combine_channels.py``: ``weight_1 * a +
+    weight_2 * b`` in float32, each product rounded."""
+    a = image_1.to(torch.float32)
+    b = image_2.to(torch.float32)
+    return {"combined_image": weight_1 * a + weight_2 * b}
+
+
+@register_module("expand")
+def expand(label_image, n: int = 1):
+    """Reference ``jtmodules/expand.py``: grow labeled objects by ``n``
+    pixels."""
+    return {"expanded_image": expand_or_shrink(label_image, n=n)["expanded_image"]}
+
+
+@register_module("shrink")
+def shrink(label_image, n: int = 1):
+    """Reference ``jtmodules/shrink.py``: erode labeled objects by ``n``
+    pixels."""
+    return {"shrunken_image": expand_or_shrink(label_image, n=-n)["expanded_image"]}
+
+
+@register_module("mip")
+def mip(zstack):
+    """Reference ``jtmodules/mip.py``: maximum-intensity projection of
+    ``(B, Z, H, W)`` z-stacks."""
+    return {"mip_image": project(zstack, method="max")["projected_image"]}
+
+
+@register_module("detect_blobs")
+def detect_blobs(
+    intensity_image,
+    threshold: float = 10.0,
+    min_distance: int = 3,
+    sigma_min: float = 1.5,
+    sigma_max: float = 4.0,
+    n_scales: int = 3,
+    max_objects: int = 256,
+):
+    """Reference ``jtmodules/detect_blobs.py``: LoG spot detection at
+    ``n_scales`` sigmas evenly from ``sigma_min`` to ``sigma_max``
+    (:func:`tmlibrary_tpu_torch.ops.blobs.detect_blobs`)."""
+    from tmlibrary_tpu_torch.ops.blobs import detect_blobs as _db
+
+    lo, hi, n = float(sigma_min), float(sigma_max), int(n_scales)
+    sigmas = tuple(lo + (hi - lo) * i / max(n - 1, 1) for i in range(n))
+    blobs, centers, _count = _db(intensity_image, sigmas=sigmas, threshold=threshold,
+                                 min_distance=min_distance, max_objects=max_objects)
+    return {"objects": blobs, "centers": centers}
 
 
 # -------------------------------------------------------- DL segmentation

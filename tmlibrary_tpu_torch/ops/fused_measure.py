@@ -406,34 +406,47 @@ def _check_offsets(offsets) -> list[tuple[int, int]]:
     return offsets
 
 
+def glcm_counts(
+    labels: torch.Tensor, quantized: torch.Tensor, max_objects: int, levels: int,
+    offsets: list[tuple[int, int]],
+) -> list[torch.Tensor]:
+    """Symmetrised per-object GLCMs of pre-quantised ``(B, H, W)`` sites,
+    one ``(B, max_objects, levels, levels)`` float32 per offset: a pixel
+    at ``(y, x)`` pairs with ``(y - dy, x - dx)`` when that pixel is in
+    the image and has the same label (ids above ``max_objects`` count
+    nowhere); one ``bincount`` over the fused ``(site, direction, label,
+    q1, q2)`` index of the valid pairs, exact in any order."""
+    b = labels.shape[0]
+    n_dir = len(offsets)
+    lab = labels.reshape(b, -1).to(torch.int64)
+    q1 = quantized.reshape(b, -1).to(torch.int64)
+    site = torch.arange(b, device=lab.device)[:, None]
+    cells = levels * levels
+    idx = []
+    for d, (dy, dx) in enumerate(offsets):
+        lab2 = shift_with_fill(labels, -dy, -dx, 0).reshape(b, -1)
+        q2 = shift_with_fill(quantized, -dy, -dx, 0).reshape(b, -1)
+        valid = (lab >= 1) & (lab <= max_objects) & (lab2 == lab)
+        row = (site * n_dir + d) * max_objects + lab - 1
+        idx.append((row * cells + q1 * levels + q2)[valid])
+    counts = torch.bincount(torch.cat(idx), minlength=b * n_dir * max_objects * cells)
+    glcm = counts.to(torch.float32).reshape(b, n_dir, max_objects, levels, levels)
+    glcm = glcm + glcm.transpose(-1, -2)
+    return [glcm[:, d] for d in range(n_dir)]
+
+
 def glcm_all_plain(
     labels: torch.Tensor, intensity: torch.Tensor, max_objects: int, levels: int,
     offsets: list[tuple[int, int]], bounds: tuple[torch.Tensor, torch.Tensor],
 ) -> list[torch.Tensor]:
-    """Quantise every pixel and its partner, then one ``scatter_add_``
-    over the fused ``(site, direction, label, q1, q2)`` index of the
-    valid pairs; symmetrised like the reference (``c + cᵀ``)."""
+    """Quantise every pixel by its object's bounds, then count the pairs
+    (:func:`glcm_counts`): a valid pair's partner has the same label, so
+    its bucket is its own pixel's."""
     offsets = _check_offsets(offsets)
     labels, img, lo_full, span_full = _bounds_inputs(
         "glcm_all", labels, intensity, max_objects, bounds)
-    b = labels.shape[0]
-    n_dir = len(offsets)
-    q1 = quantize(labels, img, lo_full, span_full, levels).reshape(b, -1)
-    lab = labels.reshape(b, -1).to(torch.int64)
-    site = torch.arange(b, device=lab.device)[:, None].expand_as(lab)
-    cells = levels * levels
-    counts = torch.zeros(b * n_dir * max_objects * cells, dtype=torch.float32,
-                         device=lab.device)
-    for d, (dy, dx) in enumerate(offsets):
-        lab2 = shift_with_fill(labels, -dy, -dx, 0)
-        q2 = quantize(lab2, shift_with_fill(img, -dy, -dx, 0.0), lo_full, span_full, levels)
-        valid = (lab >= 1) & (lab <= max_objects) & (lab2.reshape(b, -1) == lab)
-        row = (site * n_dir + d) * max_objects + lab - 1
-        idx = (row * cells + q1 * levels + q2.reshape(b, -1))[valid]
-        counts.scatter_add_(0, idx, torch.ones_like(idx, dtype=torch.float32))
-    glcm = counts.reshape(b, n_dir, max_objects, levels, levels)
-    glcm = glcm + glcm.transpose(-1, -2)
-    return [glcm[:, d] for d in range(n_dir)]
+    q = quantize(labels, img, lo_full, span_full, levels)
+    return glcm_counts(labels, q, max_objects, levels, offsets)
 
 
 def glcm_all(

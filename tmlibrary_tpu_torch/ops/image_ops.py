@@ -1,8 +1,8 @@
 """Per-site pixel preprocessing: illumination correction and alignment.
 
-Counterpart: ``tmlibrary_tpu/ops/image_ops.py:21-86,121-152``
+Counterpart: ``tmlibrary_tpu/ops/image_ops.py:21-101,121-152``
 (``correct_illumination``, ``shift_image``, ``crop_window``, ``align``,
-``join_grid``, ``make_batch_prep``), reference ``tmlib/image.py``
+``clip_values``, ``rescale``, ``join_grid``, ``make_batch_prep``), reference ``tmlib/image.py``
 ``ChannelImage.correct``/``align`` and ``Image.join``.  Images are
 batches ``(B, H, W)``; shifts are per site.
 """
@@ -10,6 +10,8 @@ batches ``(B, H, W)``; shifts are per site.
 from __future__ import annotations
 
 import torch
+
+from tmlibrary_tpu_torch.ops._exact import div
 
 UINT16_MAX = 65535.0
 
@@ -77,6 +79,19 @@ def align(
     if window is not None:
         out = crop_window(out, *window)
     return out
+
+
+def clip_values(img: torch.Tensor, lower: float, upper: float) -> torch.Tensor:
+    """Clip to ``[lower, upper]`` (reference ``ChannelImage.clip``)."""
+    return torch.clamp(img, lower, upper)
+
+
+def rescale(img: torch.Tensor, lower: float, upper: float) -> torch.Tensor:
+    """Linear stretch of ``[lower, upper]`` to ``[0, 1]`` float32, clipped:
+    a true division by ``max(upper - lower, 1e-6)``, taken in Python and
+    rounded to float32, as the reference's scalar arithmetic."""
+    span = max(float(upper) - float(lower), 1e-6)
+    return torch.clamp(div(img.to(torch.float32) - lower, span), 0.0, 1.0)
 
 
 def join_grid(tiles: torch.Tensor, grid_rows: int, grid_cols: int) -> torch.Tensor:

@@ -370,6 +370,19 @@ DT_COLUMNS, DT_ROW_PASS = 1, 2
 DT_PHASES = DT_COLUMNS | DT_ROW_PASS
 
 
+def binary_dilate(mask: torch.Tensor, connectivity: int = 8, iterations: int = 1) -> torch.Tensor:
+    """Dilation of ``(B, H, W)`` masks; out-of-image neighbours count as
+    background (reference ``label.binary_dilate``)."""
+    mask = mask.to(torch.bool)
+    shifts = neighbor_shifts(connectivity)
+    for _ in range(iterations):
+        out = mask
+        for dy, dx in shifts:
+            out = out | shift_with_fill(mask, dy, dx, False)
+        mask = out
+    return mask
+
+
 def binary_erode(mask: torch.Tensor, connectivity: int = 8, iterations: int = 1) -> torch.Tensor:
     """Erosion of ``(B, H, W)`` masks; out-of-image neighbours count as
     foreground (reference ``label.binary_erode``)."""

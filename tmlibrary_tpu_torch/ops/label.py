@@ -4,7 +4,7 @@ Counterpart: ``tmlibrary_tpu/ops/label.py`` (``connected_components``
 with the scipy-order compaction at ``:182-188``, ``fill_holes``,
 ``areas_by_label``, ``remap_labels``, ``relabel_sequential``,
 ``filter_by_area``, ``clip_label_count``, ``first_pixel_by_label``,
-``relabel_by_scan_order``).  Every function takes a batch of sites
+``relabel_by_scan_order``, ``filter_by_feature``).  Every function takes a batch of sites
 ``(B, H, W)``; the compaction and relabeling also take volumes.  The fixpoints run in
 :mod:`tmlibrary_tpu_torch.ops.kernels` (CUDA kernel on the card, plain
 PyTorch on the CPU); everything around them is plain PyTorch.
@@ -146,4 +146,41 @@ def filter_by_area(
     if max_area is not None:
         keep = keep & (areas <= max_area)
     keep = keep & (areas > 0)
+    return relabel_sequential(labels, keep)
+
+
+def filter_by_feature(
+    labels: torch.Tensor,
+    feature: str,
+    max_objects: int,
+    lower: float | None = None,
+    upper: float | None = None,
+) -> torch.Tensor:
+    """Remove objects whose morphology feature falls outside ``[lower,
+    upper]`` and renumber the rest 1..K in label order.  ``feature`` is
+    a bare name (``form_factor``) or the exported column
+    (``Morphology_form_factor``); the measure pass is
+    :func:`~tmlibrary_tpu_torch.ops.measure.morphology_features`."""
+    from tmlibrary_tpu_torch.ops.measure import morphology_features
+
+    if lower is None and upper is None:
+        raise ValueError(
+            "filter_by_feature needs at least one of lower/upper — with "
+            "neither it would be a silent no-op that still renumbers labels"
+        )
+    labels = clip_label_count(labels, max_objects)
+    name = feature if feature.startswith("Morphology_") else f"Morphology_{feature}"
+    feats = morphology_features(labels, max_objects)
+    if name not in feats:
+        raise ValueError(
+            f"filter feature '{feature}' is not an on-device morphology "
+            f"feature (available: "
+            f"{sorted(k.removeprefix('Morphology_') for k in feats)})"
+        )
+    values = feats[name]
+    keep = feats["Morphology_area"] > 0
+    if lower is not None:
+        keep = keep & (values >= lower)
+    if upper is not None:
+        keep = keep & (values <= upper)
     return relabel_sequential(labels, keep)

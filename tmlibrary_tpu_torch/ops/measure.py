@@ -1,10 +1,11 @@
 """Per-object feature measurement.
 
 Counterpart: ``tmlibrary_tpu/ops/measure.py`` on its fused strategy
-(reference: ``jtlib/features/{intensity,morphology,texture,zernike}.py``):
-every grouped reduction is one :func:`grouped_stats` pass, the quantile
-histogram is :func:`intensity_hist` and the Haralick co-occurrences are
-:func:`glcm_all`.  Every function takes a batch of sites ``(B, H, W)`` and
+(reference: ``jtlib/features/{intensity,morphology,texture,zernike,
+point_pattern}.py``): every grouped reduction is one :func:`grouped_stats`
+pass, the quantile histogram is :func:`intensity_hist` and the Haralick
+co-occurrences are :func:`glcm_all` (a ``bincount`` of the pairs under
+the global quantisation).  Every function takes a batch of sites ``(B, H, W)`` and
 returns ``(B, max_objects)`` per feature; rows past a site's object count
 are padding and must be masked by the caller using the object count.
 
@@ -29,6 +30,7 @@ from tmlibrary_tpu_torch.errors import NotSupportedError
 from tmlibrary_tpu_torch.ops._exact import div, sqrt
 from tmlibrary_tpu_torch.ops.fused_measure import (
     glcm_all,
+    glcm_counts,
     grouped_stats,
     intensity_hist,
     masked_bounds,
@@ -226,22 +228,31 @@ def haralick_features(
     levels: int = 32, distance: int = 1, quantization: str = "object",
 ) -> dict[str, torch.Tensor]:
     """The 13 Haralick features averaged over the 4 directions
-    ``(0,d), (d,0), (d,d), (d,-d)`` (reference ``measure.py:839``, fused
-    path ``:901-909``): each object's own gray range stretched into
-    ``levels`` buckets, all four GLCMs from one :func:`glcm_all` pass.
+    ``(0,d), (d,0), (d,d), (d,-d)`` (reference ``measure.py:839``).
 
-    Only ``quantization="object"`` and ``distance=1`` are ported: the
-    reference's ``shift_with_fill`` pads by one pixel, so its pairs at a
-    distance above 1 are not the pairs at that distance."""
-    if quantization != "object":
-        raise NotSupportedError(f"haralick quantization '{quantization}' is not ported")
+    ``quantization="object"`` (fused path ``:901-909``) stretches each
+    object's own gray range into ``levels`` buckets and takes all four
+    GLCMs from one :func:`glcm_all` pass.  ``"global"`` (``:917-923``)
+    quantises each site by its own range,
+    ``clip(int((v - lo) / max(hi - lo, 1e-6) * levels), 0, levels - 1)``,
+    and counts the pairs in plain PyTorch (:func:`glcm_counts`), as the
+    reference does outside its kernel.
+
+    Only ``distance=1`` is ported: the reference's ``shift_with_fill``
+    pads by one pixel, so its pairs at a distance above 1 are not the
+    pairs at that distance."""
+    if quantization not in ("object", "global"):
+        raise ValueError(f"unknown quantization '{quantization}'")
     if distance != 1:
         raise NotSupportedError("haralick distance other than 1 is not ported")
     img = intensity.to(torch.float32)
     d = distance
     offsets = [(0, d), (d, 0), (d, d), (d, -d)]
-    bounds = grouped_minmax(labels, img, max_objects)
-    glcms = glcm_all(labels, img, max_objects, levels, offsets, bounds)
+    if quantization == "object":
+        bounds = grouped_minmax(labels, img, max_objects)
+        glcms = glcm_all(labels, img, max_objects, levels, offsets, bounds)
+    else:
+        glcms = glcm_counts(labels, quantize_global(img, levels), max_objects, levels, offsets)
 
     dev = img.device
     i_vec = torch.arange(levels, dtype=torch.float32, device=dev)
@@ -320,6 +331,19 @@ def haralick_features(
         for k, v in feats.items():
             acc[k] = acc.get(k, 0.0) + v / len(offsets)
     return acc
+
+
+def quantize_global(img: torch.Tensor, levels: int) -> torch.Tensor:
+    """Each site's pixels of ``(B, H, W)`` into ``levels`` buckets of the
+    site's own range: ``clip(int((v - lo) / max(hi - lo, 1e-6) *
+    levels), 0, levels - 1)`` (a true division by a tensor, truncation
+    toward zero) → int64."""
+    b = (slice(None), None, None)
+    flat = img.reshape(img.shape[0], -1)
+    lo, hi = flat.amin(dim=1), flat.amax(dim=1)
+    span = torch.clamp(hi - lo, min=1e-6)
+    q = ((img - lo[b]) / span[b] * levels).to(torch.int32)
+    return torch.clamp(q, 0, levels - 1).to(torch.int64)
 
 
 # -------------------------------------------------------------------- zernike
@@ -401,3 +425,124 @@ def zernike_features(
         mag = div(torch.sqrt(re * re + im * im) * float(n + 1), math.pi) / safe_a
         out[f"Zernike_{n}_{m_}"] = torch.where(area > 0, mag, 0.0)
     return out
+
+
+# -------------------------------------------------------------- point pattern
+#: pixels per chunk of the border-distance min (the reference's
+#: ``_GLCM_CHUNK``): at 64 sites and 256 points a chunk's distances take
+#: 537 MB
+BORDER_CHUNK = 1 << 13
+
+
+def point_pattern_features(
+    parent_labels: torch.Tensor, point_labels: torch.Tensor, max_parents: int,
+    max_points: int,
+) -> dict[str, torch.Tensor]:
+    """Point-pattern statistics of child point objects (spots) within
+    parent objects (reference ``measure.py:1305``, ``jtlib/features/
+    point_pattern.py``), ``(B, max_parents)`` each: the points whose
+    centroid pixel (rounded half to even) lies in the parent, their
+    count and density, nearest-neighbour distances among them, the
+    Clark–Evans index, and their distances to the parent's centroid and
+    to the nearest label-boundary pixel (a pixel whose 4-neighbour, or
+    the image edge, differs).  Centroids come from two
+    :func:`grouped_sums` passes; nearest neighbours from a ``(B, P, P)``
+    distance matrix; the border distance is an exact Euclidean min over
+    the boundary pixels, in chunks of :data:`BORDER_CHUNK` pixels; each
+    parent aggregates over a ``(B, P, M)`` mask.  Rows of absent parents
+    are zero."""
+    parents = parent_labels.to(torch.int32)
+    points = point_labels.to(torch.int32)
+    b, h, w = parents.shape
+    dev = parents.device
+    yy, xx = _grid(parents)
+    ones = torch.ones_like(yy)
+
+    psums = grouped_sums(points, [ones, yy, xx], max_points)  # (B, P, 3)
+    p_present = psums[..., 0] > 0
+    safe_pn = torch.clamp(psums[..., 0], min=1.0)
+    py = psums[..., 1] / safe_pn
+    px = psums[..., 2] / safe_pn
+
+    gsums = grouped_sums(parents, [ones, yy, xx], max_parents)  # (B, M, 3)
+    area = gsums[..., 0]
+    safe_a = torch.clamp(area, min=1.0)
+    g_cy = gsums[..., 1] / safe_a
+    g_cx = gsums[..., 2] / safe_a
+
+    # each point's owner: the parent under its rounded centroid
+    iy = torch.clamp(torch.round(py).to(torch.int64), 0, h - 1)
+    ix = torch.clamp(torch.round(px).to(torch.int64), 0, w - 1)
+    owner = parents.reshape(b, -1).gather(1, iy * w + ix)
+    owner = torch.where(p_present, owner, torch.zeros_like(owner))  # (B, P)
+
+    inf = torch.tensor(float("inf"), device=dev)
+    dy = py[:, :, None] - py[:, None, :]
+    dx = px[:, :, None] - px[:, None, :]
+    eye = torch.eye(max_points, dtype=torch.bool, device=dev)
+    pair_ok = (owner[:, :, None] == owner[:, None, :]) & (owner[:, :, None] > 0) & ~eye
+    nn = sqrt(torch.where(pair_ok, dy * dy + dx * dx, inf).amin(dim=-1))
+    has_nn = torch.isfinite(nn)
+    nn = torch.where(has_nn, nn, 0.0)
+
+    oi = torch.clamp(owner - 1, 0, max_parents - 1).to(torch.int64)
+    cy = py - g_cy.gather(1, oi)
+    cx = px - g_cx.gather(1, oi)
+    cdist = sqrt(cy * cy + cx * cx)
+
+    boundary = torch.zeros(parents.shape, dtype=torch.bool, device=dev)
+    for sy, sx in ((-1, 0), (1, 0), (0, -1), (0, 1)):
+        boundary = boundary | (shift_with_fill(parents, sy, sx, -1) != parents)
+    # (py - y)² + (px - x)² of every boundary pixel, rows of pixels at a time
+    ry = py[:, :, None] - torch.arange(h, dtype=torch.float32, device=dev)
+    rx = px[:, :, None] - torch.arange(w, dtype=torch.float32, device=dev)
+    ry, rx = ry * ry, rx * rx
+    best = torch.full((b, max_points), float("inf"), device=dev)
+    rows = max(1, BORDER_CHUNK // w)
+    for r0 in range(0, h, rows):
+        d2 = ry[:, :, r0 : r0 + rows, None] + rx[:, :, None, :]
+        d2 = torch.where(boundary[:, None, r0 : r0 + rows], d2, inf)
+        best = torch.minimum(best, d2.amin(dim=(-2, -1)))
+    bdist = sqrt(best)
+
+    assign = owner[:, :, None] == torch.arange(1, max_parents + 1, device=dev)  # (B, P, M)
+
+    def _agg(vals, valid):
+        sel = assign & valid[:, :, None]
+        n = sel.sum(dim=1).to(torch.float32)
+        s = torch.where(sel, vals[:, :, None], 0.0).sum(dim=1)
+        sq = torch.where(sel, (vals * vals)[:, :, None], 0.0).sum(dim=1)
+        safe_n = torch.clamp(n, min=1.0)
+        mean = s / safe_n
+        var = torch.clamp(sq / safe_n - mean * mean, min=0.0)
+        return n, mean, sqrt(var)
+
+    n_pts = assign.sum(dim=1).to(torch.float32)
+    n_nn, nn_mean, nn_std = _agg(nn, has_nn)
+    _, cd_mean, cd_std = _agg(cdist, p_present)
+    _, bd_mean, bd_std = _agg(bdist, p_present)
+
+    density = n_pts / safe_a
+    # Clark–Evans: the observed mean NN distance over 0.5 / sqrt(density),
+    # its expectation under complete spatial randomness (a true division:
+    # PyTorch's ``0.5 / t`` multiplies by the reciprocal)
+    expected_nn = torch.full_like(density, 0.5) / sqrt(torch.clamp(density, min=1e-12))
+    clark_evans = torch.where(n_nn > 0, nn_mean / expected_nn, 0.0)
+
+    present = area > 0
+    zero = torch.zeros_like(area)
+
+    def m(v):
+        return torch.where(present, v, zero)
+
+    return {
+        "PointPattern_count": m(n_pts),
+        "PointPattern_density": m(density),
+        "PointPattern_nn_dist_mean": m(nn_mean),
+        "PointPattern_nn_dist_std": m(nn_std),
+        "PointPattern_clark_evans": m(clark_evans),
+        "PointPattern_centroid_dist_mean": m(cd_mean),
+        "PointPattern_centroid_dist_std": m(cd_std),
+        "PointPattern_border_dist_mean": m(bd_mean),
+        "PointPattern_border_dist_std": m(bd_std),
+    }

@@ -1,7 +1,8 @@
 """Secondary segmentation: grow cell objects outward from primary seeds.
 
-Counterpart: ``tmlibrary_tpu/ops/segment_secondary.py:35,68``
-(``propagate_labels``, ``watershed_from_seeds``).  Level-ordered flooding of seed labels
+Counterpart: ``tmlibrary_tpu/ops/segment_secondary.py:24-68``
+(``_adopt_step``, ``propagate_labels``, ``expand_labels``,
+``watershed_from_seeds``).  Level-ordered flooding of seed labels
 through a mask with 8-neighbour max-label adoption; the fixpoint runs in
 :func:`tmlibrary_tpu_torch.ops.kernels.watershed_flood` (CUDA kernel on
 the card, plain PyTorch on the CPU).
@@ -30,21 +31,34 @@ def watershed_from_seeds(
     )
 
 
+def _adopt_step(labels: torch.Tensor, allowed: torch.Tensor, connectivity: int) -> torch.Tensor:
+    """One step: each unlabeled allowed pixel adopts the largest label
+    among its neighbours, all pixels at once."""
+    neigh = torch.zeros_like(labels)
+    for dy, dx in kernels.neighbor_shifts(connectivity):
+        neigh = torch.maximum(neigh, kernels.shift_with_fill(labels, dy, dx, 0))
+    return torch.where((labels == 0) & allowed, neigh, labels)
+
+
 def propagate_labels(
     labels: torch.Tensor, allowed: torch.Tensor, connectivity: int = 8
 ) -> torch.Tensor:
-    """Expand ``(B, H, W)`` labels into ``allowed`` until nothing changes:
-    each unlabeled allowed pixel adopts the largest label among its
-    neighbours, all pixels at once.  The plain fixpoint that
-    ``nn.decode_secondary`` runs as a one-level watershed flood; kept to
-    hold that route against."""
+    """Expand ``(B, H, W)`` labels into ``allowed`` by adopt steps until
+    nothing changes.  The plain fixpoint that ``nn.decode_secondary``
+    runs as a one-level watershed flood; kept to hold that route
+    against."""
     allowed = allowed.to(torch.bool)
-    shifts = kernels.neighbor_shifts(connectivity)
+    return kernels._fixpoint(lambda lab: _adopt_step(lab, allowed, connectivity),
+                             labels.to(torch.int32))
 
-    def step(lab):
-        neigh = torch.zeros_like(lab)
-        for dy, dx in shifts:
-            neigh = torch.maximum(neigh, kernels.shift_with_fill(lab, dy, dx, 0))
-        return torch.where((lab == 0) & allowed, neigh, lab)
 
-    return kernels._fixpoint(step, labels.to(torch.int32))
+def expand_labels(
+    labels: torch.Tensor, iterations: int = 1, connectivity: int = 8
+) -> torch.Tensor:
+    """Grow every object of ``(B, H, W)`` labels by ``iterations`` adopt
+    steps into any pixel; ties between objects go to the larger label."""
+    lab = labels.to(torch.int32)
+    allowed = torch.ones(lab.shape, dtype=torch.bool, device=lab.device)
+    for _ in range(iterations):
+        lab = _adopt_step(lab, allowed, connectivity)
+    return lab

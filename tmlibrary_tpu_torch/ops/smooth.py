@@ -1,8 +1,9 @@
-"""Gaussian and box smoothing.
+"""Gaussian, box, median and bilateral smoothing.
 
-Counterpart: ``tmlibrary_tpu/ops/smooth.py:21-125`` (``gaussian_smooth``,
-matching ``scipy.ndimage.gaussian_filter``, and ``uniform_smooth``'s XLA
-taps, matching ``uniform_filter``).  Separable correlation with
+Counterpart: ``tmlibrary_tpu/ops/smooth.py:21-176`` (``gaussian_smooth``,
+matching ``scipy.ndimage.gaussian_filter``, ``uniform_smooth``'s XLA
+taps, matching ``uniform_filter``, ``median_smooth`` and
+``bilateral_smooth`` over a symmetric-padded window).  Separable correlation with
 symmetric padding (scipy ``mode='reflect'``), accumulated in float32 as
 ``out = out + k[i] * shifted`` tap by tap.  (On the CPU the JAX package
 sends ``uniform_smooth`` to a native box mean when its library is
@@ -18,6 +19,8 @@ its own ``exp``, so a jitted reference differs by an ulp or two.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -44,7 +47,12 @@ def _symmetric_index(n: int, offset: int, device) -> torch.Tensor:
     with the edge sample repeated (numpy ``mode='symmetric'``)."""
     if abs(offset) > n:
         raise ValueError(f"kernel radius {abs(offset)} exceeds image size {n}")
-    idx = torch.arange(n, device=device) + offset
+    return _mirror(torch.arange(n, device=device) + offset, n)
+
+
+def _mirror(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Indices beyond ``0 .. n - 1`` reflected back, the edge sample
+    repeated."""
     idx = torch.where(idx < 0, -idx - 1, idx)
     return torch.where(idx >= n, 2 * n - 1 - idx, idx)
 
@@ -82,3 +90,66 @@ def uniform_smooth(img: torch.Tensor, size: int) -> torch.Tensor:
     img = img.to(torch.float32)
     out = _correlate1d(img, taps, img.dim() - 2, left=size // 2)
     return _correlate1d(out, taps, img.dim() - 1, left=size // 2)
+
+
+def _symmetric_pad(img: torch.Tensor, r: int) -> torch.Tensor:
+    """``(..., H + 2r, W + 2r)``: the last two axes padded by ``r``,
+    mirrored with the edge sample repeated (numpy ``mode='symmetric'``)."""
+    h, w = img.shape[-2:]
+    if r > min(h, w):
+        raise ValueError(f"window radius {r} exceeds image size {min(h, w)}")
+    out = img
+    for dim, n in ((-2, h), (-1, w)):
+        out = out.index_select(dim, _mirror(torch.arange(-r, n + r, device=img.device), n))
+    return out
+
+
+def _window_stack(img: torch.Tensor, size: int) -> torch.Tensor:
+    """The ``size * size`` symmetric-padded neighbourhood of every pixel
+    of ``(..., H, W)`` as ``(..., H, W, size * size)``, row offsets
+    outer: two ``unfold`` views of the padded image, copied once."""
+    win = _symmetric_pad(img, size // 2).unfold(-2, size, 1).unfold(-2, size, 1)
+    return win.reshape(*img.shape, size * size)
+
+
+def median_smooth(img: torch.Tensor, size: int) -> torch.Tensor:
+    """Median over the odd ``size * size`` window of every pixel of
+    ``(..., H, W)``, symmetric padding (``scipy.ndimage.median_filter``).
+    A median of an odd count is one of the window's values, so it is
+    exact on either device; a window holding NaN gives NaN, as
+    ``jnp.median`` does."""
+    if size % 2 != 1:
+        raise ValueError("median filter size must be odd")
+    return torch.median(_window_stack(img.to(torch.float32), size), dim=-1).values
+
+
+def bilateral_smooth(
+    img: torch.Tensor, size: int = 5, sigma_space: float = 2.0, sigma_range: float = 50.0
+) -> torch.Tensor:
+    """Bilateral filter of ``(..., H, W)``: each pixel the mean of its
+    symmetric-padded ``size * size`` window weighted by
+    ``exp(-(dy² + dx²) / (2 σs²)) * exp(-(v - centre)² / (2 σr²))``.
+
+    The reference evaluates it in float32; the port evaluates the
+    weights and both sums in float64, window offsets row by row, and
+    rounds once, so the card and the CPU agree (their float32 ``exp``
+    differ by ulps) and the result lies within
+    ``chip_smoke.BILATERAL_TIER`` of the reference's."""
+    img = img.to(torch.float32)
+    r = size // 2
+    h, w = img.shape[-2:]
+    padded = _symmetric_pad(img, r).to(torch.float64)
+    centre = img.to(torch.float64)
+    two_var = torch.full((), 2.0 * float(sigma_range) ** 2, dtype=torch.float64,
+                         device=img.device)
+    num = torch.zeros_like(centre)
+    den = torch.zeros_like(centre)
+    for dy in range(size):
+        for dx in range(size):
+            w_space = math.exp(-((dy - r) ** 2 + (dx - r) ** 2) / (2.0 * float(sigma_space) ** 2))
+            v = padded[..., dy : dy + h, dx : dx + w]
+            d = v - centre
+            weight = torch.exp(-(d * d) / two_var) * w_space
+            num = num + weight * v
+            den = den + weight
+    return (num / torch.clamp(den, min=1e-12)).to(torch.float32)
