@@ -158,9 +158,23 @@ Phases (any failure exits non-zero before the last line):
    (64 samples a stream a site), one ``qc_batch`` a batch, batch 0's QC
    summary and labels against the CPU, and the ``qc`` verb's exit code
    against the CPU's profile; engine sites/s with QC on and off.
-9. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+9. The spatial layout (``phase_spatial``): whole wells segmented as one
+   mosaic through the jterator step's ``layout: spatial`` on the card.
+   ``spatial_8x8_256`` (the reference bench's ``BENCH_CONFIG=spatial``
+   well, a 2048x2048 mosaic) with ``spatial_zernike_degree: 0`` (row 2
+   once) and with degree 9 and a secondary family (row 2 once, row 3 once
+   on its ``global`` route), each held to the port's CPU run of the step,
+   the scipy chain's count and ``ndimage.label`` of the card's mask, rows
+   2 and 3 held to their plain versions at the mosaic's shape and timed
+   there; ``spatial_4x4_2048`` (an 8192x8192 mosaic) the primary alone,
+   held to the scipy chain and ``ndimage.label``.  Mpix/s
+   (``jterator_spatial_mosaic_megapixels_per_sec``) and the stage times
+   of the step's batch summary, and a ``spatial: {...}`` line.
+10. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
-   in the A/B harness), and as the last line ``{"ok": true, "device": {...}}``.
+   in the A/B harness; rows 2-4 add ``spatial_launches``, their launches
+   on phase 9's secondary run, and rows 2-3 ``spatial``, the kernel at
+   the mosaic's shape), and as the last line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of ``tmlibrary_tpu``.
 """
@@ -1472,12 +1486,26 @@ def main() -> int:
         # ---------------------------------------------------------- phase 8
         phase_qc_session(torch, wrappers, card)
 
+        # ---------------------------------------------------------- phase 9
+        print(f"phase 9: the spatial layout, whole wells on the card; times on {card}")
+        spatial, spatial_launches = phase_spatial(
+            torch, {"kernels": kernels, "smooth": smooth, "threshold": threshold}, wrappers,
+            card, bw)
+
         # each kernel's launches: the path that brought it to the port
         path_of = {"intensity_hist": run_q, "glcm_all": run4, "distance_transform": run_d,
                    "cc3d_min_propagate": run_v, "watershed3d_flood": run_v}
         for r in records:
             wrapper = r.pop("wrapper", r["name"])
             r["launches"] = path_of.get(wrapper, run3)["launches"][wrapper]
+            if r["name"] in SPATIAL_KERNELS:
+                # the spatial path's launches (phase 9's secondary run) and,
+                # for rows 2 and 3, the kernel at the mosaic's shape
+                r["spatial_launches"] = spatial_launches[r["name"]]
+                if r["name"] in spatial:
+                    r["spatial"] = {k: spatial[r["name"]][k] for k in (
+                        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+                    r["spatial"]["flood_route"] = spatial[r["name"]].get("flood_route")
         if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except Exception as e:  # the smoke's boundary: report and exit non-zero
@@ -1492,7 +1520,9 @@ def main() -> int:
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print("kernels: " + ", ".join(r["name"] for r in records))
     # rows 1-9 add the launch alone beside the wrapper's `ms`, row 7 its A/B
-    print(json.dumps({"kernels": [{k: r[k] for k in order + ["launch_ms", "ab_ms"] if k in r}
+    print(json.dumps({"kernels": [{k: r[k] for k in order + ["launch_ms", "ab_ms",
+                                                            "spatial_launches", "spatial"]
+                                   if k in r}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
@@ -3905,6 +3935,290 @@ def compare_with_cpu(card, cpu, sites=None) -> dict:
                     np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
                                                err_msg=f"{obj}/{feat}")
     return worst
+
+
+# ------------------------------------------------------- the spatial layout
+#: the wells of phase 9: the reference bench's ``BENCH_CONFIG=spatial``
+#: well (``bench.py:1437-1515``: 8x8 sites of 256x256, 8 blobs a site) and
+#: one at a camera's site size (4x4 sites of 2048x2048 at the same blob
+#: density); (name, grid, site size, blobs a site)
+SPATIAL_WELLS = (("spatial_8x8_256", (8, 8), 256, 8.0),
+                 ("spatial_4x4_2048", (4, 4), 2048, 512.0))
+#: the reference's metric name for the spatial layout's throughput
+SPATIAL_METRIC = "jterator_spatial_mosaic_megapixels_per_sec"
+SPATIAL_KERNELS = ("cc_min_propagate", "watershed_flood", "grouped_stats")
+
+
+def mosaic_of(stack, grid):
+    """The ``(gy*h, gx*w)`` mosaic of a row-major ``(gy*gx, h, w)`` stack."""
+    gy, gx = grid
+    _, h, w = stack.shape
+    return stack.reshape(gy, gx, h, w).transpose(0, 2, 1, 3).reshape(gy * h, gx * w)
+
+
+def spatial_run(torch, get_step, store, args, wrappers, device="cuda", reps=1) -> dict:
+    """``init`` and ``run(0)`` of the jterator step ``reps`` times (the
+    first ones warm), the launch counters set to 0 just before the last
+    run and read just after; its seconds on the host clock."""
+    jt = get_step("jterator")(store, device=device)
+    jt.init(args)
+    for i in range(reps):
+        if i == reps - 1:
+            for w in wrappers.values():
+                w.launches = 0
+                if hasattr(w, "routes"):
+                    w.routes = dict.fromkeys(w.routes, 0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = jt.run(0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    if device == "cuda" and jt.device.type != "cuda":
+        raise SmokeFailure(f"spatial: jterator runs on {jt.device}")
+    return {"result": result, "seconds": seconds,
+            "launches": {k: w.launches for k, w in wrappers.items()},
+            "routes": {k: dict(w.routes) for k, w in wrappers.items() if hasattr(w, "routes")}}
+
+
+def hold_spatial_store(card, cpu, families, title) -> dict:
+    """Labels exact and features within :data:`CARD_TIERS` of the CPU's
+    run; returns each feature's largest difference."""
+    import numpy as np
+
+    import torch
+
+    errs = {}
+    for fam in families:
+        if not np.array_equal(card.read_labels(None, fam), cpu.read_labels(None, fam)):
+            raise SmokeFailure(f"{title}: {fam} labels differ from the CPU run")
+        got, want = card.read_features(fam), cpu.read_features(fam)
+        if list(got) != list(want) or len(got["label"]) != len(want["label"]):
+            raise SmokeFailure(f"{title}: {fam} feature columns or rows differ from the CPU")
+        for k in got:
+            if k == "plate" or got[k].dtype.kind == "i":
+                if not np.array_equal(got[k], want[k]):
+                    raise SmokeFailure(f"{title}: {fam}.{k} differs from the CPU")
+                continue
+            errs[k] = max(errs.get(k, 0.0), hold_tier(
+                f"{title}: {fam}.{k}", torch.from_numpy(got[k]), torch.from_numpy(want[k]),
+                feature_tier(k, CARD_TIERS)))
+    return errs
+
+
+def spatial_kernel_holds(torch, kernels, threshold, img, mask, labels, bw) -> dict:
+    """Rows 2 and 3 against their plain versions at the mosaic's shape
+    (the secondary's inputs for row 3), each timed, with the bound of
+    :func:`finish_records`."""
+    compare = make_compare(torch)
+    m = mask[None]
+    want = kernels.cc_min_propagate_plain(m)
+    err2 = compare("cc_min_propagate[mosaic]", kernels.cc_min_propagate(m), want)
+    sec = threshold.threshold_otsu(img[None])
+    args = (img[None], labels[None], sec, 32, 8)
+    plan = kernels.watershed_plan(img[None].shape, 32)
+    want = kernels.watershed_flood_plain(*args)
+    err3 = compare("watershed_flood[mosaic]", kernels.watershed_flood(*args), want)
+    px = img.numel()
+    out = {
+        "cc_min_propagate": dict(
+            route="cuda", max_abs_err=err2, shape=list(mask.shape),
+            ms=cuda_ms(torch, lambda: kernels.cc_min_propagate(m), 5, 1),
+            plain_ms=cuda_ms(torch, lambda: kernels.cc_min_propagate_plain(m), 1, 0),
+            bytes=px * (1 + 4), ops=px * 8, library_ms=None),
+        "watershed_flood": dict(
+            route="cuda", flood_route=plan.route, max_abs_err=err3, shape=list(img.shape),
+            ms=cuda_ms(torch, lambda: kernels.watershed_flood(*args), 2, 1),
+            plain_ms=cuda_ms(torch, lambda: kernels.watershed_flood_plain(*args), 1, 0),
+            bytes=px * (4 + 4 + 1 + 4), ops=px * 8, library_ms=None),
+    }
+    for r in out.values():
+        t_bytes = r.pop("bytes") / bw * 1e3
+        t_ops = r.pop("ops") / FP32_OPS_PER_S * 1e3
+        r["bound_ms"], r["bound_by"] = (
+            (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"))
+    return out
+
+
+def spatial_cli(torch, store, run, root: Path, wrappers, card) -> dict:
+    """``workflow submit --device cuda`` of the spatial description
+    ``run`` (title, jterator arguments, expected launches) over a copy of
+    ``store``'s images, in this process with the launch counters set to 0
+    before: its launches as the step's, its labels and feature shards the
+    step's store's bit for bit."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import cli
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow.engine import WorkflowDescription
+
+    title, args, expect = run
+    copy_part(store.root, root, "images")
+    desc = WorkflowDescription.canonical({"jterator": args})
+    for stage in desc.stages:
+        for sd in stage.steps:
+            sd.active = sd.name == "jterator"
+    desc.save(root / "wf.json")
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_cli(cli, ["workflow", "submit", "--root", str(root), "--description",
+                  str(root / "wf.json"), "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    got = {k: wrappers[k].launches for k in expect}
+    if got != expect:
+        raise SmokeFailure(f"spatial cli: launches {got}, expected {expect}")
+    sub = ExperimentStore.open(root)
+    for fam in ("mosaic_cells", "mosaic_secondary"):
+        if not np.array_equal(sub.read_labels(None, fam), store.read_labels(None, fam)):
+            raise SmokeFailure(f"spatial cli: {fam} labels differ from the step's")
+        a, b = sub.read_features(fam), store.read_features(fam)
+        if list(a) != list(b) or any(not np.array_equal(a[k], b[k]) for k in a):
+            raise SmokeFailure(f"spatial cli: {fam} features differ from the step's")
+    print(f"  workflow submit --device cuda ({title}): {seconds:.3f} s with the engine and "
+          f"its ledger, launches {got}, store = the step's on {card}")
+    return {"seconds": seconds, "launches": got}
+
+
+def phase_spatial(torch, pkg, wrappers, card, bw) -> tuple[dict, dict]:
+    """Phase 9, the spatial layout on the card (``layout: spatial``): each
+    well of :data:`SPATIAL_WELLS` (``synthetic_mosaic_well``) written to a
+    store under ``build/`` as its sites, and the jterator step run on it
+    through ``init`` and ``run(0)`` with the launch counters set to 0
+    before the timed run and read after; Mpix/s of the whole step (stitch,
+    segmentation, host features, writes).
+
+    ``spatial_8x8_256`` runs twice: with ``spatial_zernike_degree: 0``
+    (the reference bench's run: row 2 once, no flood) and with the default
+    degree 9 and a secondary family on the same channel (row 2 once, row 3
+    once, on its ``global`` route: one 2048x2048 image).  Each is held to
+    the port's CPU run of the same step (labels and counts exact, features
+    by :data:`CARD_TIERS`), the count to the scipy chain
+    (``benchmarks.cpu_reference_mosaic``, whose time is the CPU
+    denominator), and the labels to ``scipy.ndimage.label`` of the card's
+    own mask; rows 2 and 3 are held to their plain versions at the
+    mosaic's shape and timed there; the stage times are the step's own
+    (its batch summary's ``stages``).
+    ``spatial_4x4_2048`` (an 8192x8192 mosaic, 67.1 Mpx) runs the primary
+    alone, held to the scipy chain's count and to ``ndimage.label`` of the
+    card's mask; the port's CPU run is skipped there.  The 2048x2048
+    well's secondary description also goes through ``workflow submit
+    --device cuda`` (:func:`spatial_cli`).  Returns rows 2 and 3 at the
+    mosaic's shape and the launches of the secondary run."""
+    import numpy as np
+    import scipy.ndimage as ndi
+
+    from tmlibrary_tpu_torch import benchmarks
+    from tmlibrary_tpu_torch.models.experiment import grid_experiment
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import get_step
+
+    kernels, smooth, threshold = pkg["kernels"], pkg["smooth"], pkg["threshold"]
+    base = Path(__file__).resolve().parent / "build" / f"spatial.{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    eight = ndi.generate_binary_structure(2, 2)
+    summary = {}
+    records, launches = {}, {}
+    try:
+        for name, grid, size, per_site in SPATIAL_WELLS:
+            t0 = time.perf_counter()
+            mosaic, tiles = benchmarks.synthetic_mosaic_well(*grid, size,
+                                                              cells_per_site=per_site)
+            stores = {}
+            for who in ("card", "cpu") if size <= 256 else ("card",):
+                exp = grid_experiment(name, well_rows=1, well_cols=1, sites_per_well=grid,
+                                      channel_names=("DAPI",), site_shape=(size, size))
+                stores[who] = ExperimentStore.create(base / name / who, exp)
+                stores[who].write_sites(tiles, list(range(len(tiles))), channel=0)
+            mpix = mosaic.size / 1e6
+            print(f"  {name}: {grid[0]}x{grid[1]} sites of {size}x{size}, a "
+                  f"{mosaic.shape[0]}x{mosaic.shape[1]} mosaic ({mpix:.1f} Mpx), made and "
+                  f"written in {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            scipy_count = benchmarks.cpu_reference_mosaic(mosaic)
+            scipy_s = time.perf_counter() - t0
+            runs = [("primary", {"layout": "spatial", "spatial_zernike_degree": 0},
+                     {"cc_min_propagate": 1, "watershed_flood": 0, "grouped_stats": 0})]
+            if size <= 256:
+                runs.append(("secondary", {"layout": "spatial",
+                                           "spatial_secondary_channel": "DAPI"},
+                             {"cc_min_propagate": 1, "watershed_flood": 1,
+                              "grouped_stats": 0}))
+            else:
+                print(f"  {name}: the port's CPU run of this well is skipped (an 8192x8192 "
+                      "mosaic through the plain fixpoints); held to the scipy chain and to "
+                      "ndimage.label of the card's mask")
+            for title, args, expect in runs:
+                run = spatial_run(torch, get_step, stores["card"], args, wrappers, reps=2)
+                got = {k: run["launches"][k] for k in expect}
+                if got != expect:
+                    raise SmokeFailure(f"{name} {title}: launches {got}, expected {expect}")
+                # one image above 65,536 pixels: the flood's global route
+                route = kernels.watershed_plan(mosaic.shape, 32).route
+                if expect["watershed_flood"] and run["routes"]["watershed_flood"] != {
+                        "onchip": 0, "global": 0, route: 1}:
+                    raise SmokeFailure(f"{name} {title}: flood routes "
+                                       f"{run['routes']['watershed_flood']}, expected {route}")
+                count = run["result"]["objects"]["mosaic_cells"]
+                if count != scipy_count:
+                    raise SmokeFailure(f"{name} {title}: {count} objects, the scipy chain "
+                                       f"finds {scipy_count}")
+                card_labels = mosaic_of(stores["card"].read_labels(None, "mosaic_cells"), grid)
+                img = torch.from_numpy(mosaic.astype(np.float32)).cuda()
+                sm = smooth.gaussian_smooth(img, 1.5)
+                mask = sm > threshold.otsu_value(sm[None])[0]
+                gold, n = ndi.label(mask.cpu().numpy(), eight)
+                if n != count or not np.array_equal(gold, card_labels):
+                    raise SmokeFailure(f"{name} {title}: labels differ from ndimage.label of "
+                                       "the card's mask")
+                line = {"metric": SPATIAL_METRIC, "well": name, "run": title,
+                        "value": round(mpix / run["seconds"], 3), "seconds": run["seconds"],
+                        "objects": count, "scipy_mpix_per_sec": round(mpix / scipy_s, 3),
+                        "launches": got, "flood_routes": run["routes"]["watershed_flood"]}
+                if "cpu" in stores:
+                    cpu = spatial_run(torch, get_step, stores["cpu"], args, {}, device="cpu")
+                    fams = ["mosaic_cells"] + (["mosaic_secondary"] if title == "secondary"
+                                               else [])
+                    errs = hold_spatial_store(stores["card"], stores["cpu"], fams,
+                                              f"{name} {title}")
+                    line["cpu_seconds"] = cpu["seconds"]
+                    line["largest_feature_diff"] = max(errs.values(), default=0.0)
+                print(f"  {name} {title}: {line['value']} Mpix/s ({run['seconds']:.3f} s for "
+                      f"{mpix:.1f} Mpx; scipy chain {line['scipy_mpix_per_sec']} Mpix/s), "
+                      f"{count} objects = the scipy chain's, launches {got}, flood routes "
+                      f"{line['flood_routes']}, labels = ndimage.label of the card's mask"
+                      + (f", CPU run held (labels exact, features by CARD_TIERS, largest "
+                         f"diff {line['largest_feature_diff']:.3g}; {line['cpu_seconds']:.2f}"
+                         " s on the CPU)" if "cpu_seconds" in line else "")
+                      + f" on {card}")
+                summary[f"{name}/{title}"] = line
+                # the step's own stage times (its batch summary)
+                stages = run["result"]["stages"]
+                print(f"    stages (s): " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+                      + f" on {card}")
+                line["stages"] = stages
+                if title == "secondary":
+                    launches = run["launches"]
+                    labels = torch.from_numpy(card_labels).cuda()
+                    records = spatial_kernel_holds(torch, kernels, threshold, img, mask,
+                                                   labels, bw)
+                    for k, r in records.items():
+                        r["launches"] = run["launches"][k]
+                        print(f"    {k} at the mosaic's shape {r['shape']}: {r['ms']:.3f} ms "
+                              f"(plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+                              f"{r['bound_by']}), exact against the plain version"
+                              + (f", route {r['flood_route']}" if "flood_route" in r else "")
+                              + f" on {card}")
+            if "cpu" in stores:
+                summary[f"{name}/cli"] = spatial_cli(torch, stores["card"], runs[-1],
+                                                     base / name / "cli", wrappers, card)
+            shutil.rmtree(base / name, ignore_errors=True)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    print("spatial: " + json.dumps(summary, default=float))
+    return records, launches
 
 
 if __name__ == "__main__":

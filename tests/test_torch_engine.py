@@ -360,9 +360,10 @@ def test_cli_step_verbs_and_refusals(runs, tmp_path, capsys):
     assert json.loads(capsys.readouterr().out) == {}
     assert cli.main(["illuminati", "init", "--root", root]) == 1  # ported; no card here
     assert "is_available" in capsys.readouterr().err
+    # n_devices > 1 used to be refused; it clamps to the process group
     assert cli.main(["illuminati", "init", "--root", root, "--device", "cpu",
-                     "--n-devices", "2"]) == 1
-    assert "ROADMAP A item 10" in capsys.readouterr().err
+                     "--n-devices", "2"]) == 0
+    assert "illuminati: planned 2 batches" in capsys.readouterr().out
     assert cli.main(["workflow", "submit", "--root", root, "--description",
                      str(runs["base"] / "wf.json")]) == 1  # no card here
     assert "is_available" in capsys.readouterr().err

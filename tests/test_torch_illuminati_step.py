@@ -37,7 +37,6 @@ from tmlibrary_tpu.ops import image_ops as j_img
 from tmlibrary_tpu.ops import pyramid as j_pyr
 from tmlibrary_tpu.workflow.registry import get_step as j_get_step
 from tmlibrary_tpu_torch import benchmarks
-from tmlibrary_tpu_torch.errors import NotSupportedError
 from tmlibrary_tpu_torch.models.experiment import grid_experiment
 from tmlibrary_tpu_torch.models.mapobject import MapobjectTypeRegistry
 from tmlibrary_tpu_torch.models.store import ExperimentStore
@@ -187,10 +186,15 @@ def port_mosaic(store, channel, stats):
 def test_refusals_and_reruns(tmp_path):
     _, port = make_stores(tmp_path, corilla=False, shifts=False)
     step = get_step("illuminati")(port, device="cpu")
-    with pytest.raises(NotSupportedError, match="ROADMAP A item 10"):
-        step.init({"n_devices": 2})
+    # n_devices > 1 used to be refused; it clamps to the process group
+    # (one rank here) and writes the tiles of n_devices=1
+    run_step(step, {"correct": False, "n_devices": 2})
+    sharded = tiles(port.root)
     run_step(step, {"correct": False})
     first = tiles(port.root)
+    assert sorted(sharded) == sorted(first)
+    for rel in first:
+        np.testing.assert_array_equal(sharded[rel], first[rel])
     (port.root / "pyramids" / "stale.png").write_bytes(b"x")
     run_step(step, {"correct": False})  # a re-run replaces the previous tiles
     again = tiles(port.root)

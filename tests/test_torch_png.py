@@ -189,8 +189,14 @@ def test_what_the_codec_does_not_take_raises_by_name(tmp_path):
     (tmp_path / "i.png").write_bytes(cases["interlaced"])
     with pytest.raises(NotSupportedError, match="Adam7"):
         png.info(tmp_path / "i.png")
+    # 8-bit BGR encodes (the figures) and decodes back to BGR; other
+    # colour layouts do not
+    bgr = np.arange(12, dtype=np.uint8).reshape(2, 2, 3)
+    np.testing.assert_array_equal(png.decode(png.encode(bgr)), bgr)
     with pytest.raises(NotSupportedError):
-        png.encode(np.zeros((2, 2, 3), np.uint8))
+        png.encode(np.zeros((2, 2, 3), np.uint16))
+    with pytest.raises(NotSupportedError):
+        png.encode(np.zeros((2, 2, 4), np.uint8))
     with pytest.raises(NotSupportedError):
         png.encode(np.zeros((2, 2), np.float32))
     assert not png.is_png(tmp_path / "missing.png")

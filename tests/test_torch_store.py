@@ -30,7 +30,7 @@ from tmlibrary_tpu.workflow import registry as j_registry
 from tmlibrary_tpu.workflow import schedule as j_schedule
 from tmlibrary_tpu_torch import capacity, errors, utils
 from tmlibrary_tpu_torch.device import resolve_device
-from tmlibrary_tpu_torch.errors import DeviceError, NotSupportedError, StoreError
+from tmlibrary_tpu_torch.errors import DeviceError, StoreError
 from tmlibrary_tpu_torch.models import experiment, image, mapobject
 from tmlibrary_tpu_torch.models.store import ExperimentStore
 from tmlibrary_tpu_torch.workflow import get_step, list_steps, schedule
@@ -615,10 +615,20 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
 
 
 def test_not_supported_on_corilla(tmp_path):
+    """``n_devices > 1`` on corilla used to be refused; it now clamps to
+    the process group, which is one rank here, and gives the statistics
+    of ``n_devices=1`` (several ranks: ``test_torch_spatial.py``)."""
     st = ExperimentStore.create(tmp_path / "exp", _grid(experiment))
     _fill(st, np.random.default_rng(1))
-    with pytest.raises(NotSupportedError):
-        get_step("corilla")(st, device="cpu").init({"n_devices": 2})
+    stats = []
+    for n in (2, 1):
+        step = get_step("corilla")(st, device="cpu")
+        assert step.init({"n_devices": n})
+        step.run(0)
+        stats.append(st.read_illumstats(0, 0))
+    assert list(stats[0]) == list(stats[1])
+    for k in stats[0]:
+        np.testing.assert_array_equal(stats[0][k], stats[1][k], err_msg=k)
 
 
 def test_shared_state_survives_many_threads():

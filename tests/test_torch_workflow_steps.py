@@ -13,7 +13,8 @@ label stacks identical, feature rows in (site_index, label) order by
 ``FEATURE_TIERS``), ``collect`` and the mapobject types equal.  Then the
 port's jterator over the reference's statistics and shifts, bucket
 settings and pipeline depths, auto-resegmentation from a cap of 4, the
-window pad-back against the reference's, and the refusals.  Last, the
+window pad-back against the reference's, the arguments that used to be
+refused (the spatial layout, ``n_devices``, polygons, figures).  Last, the
 step with QC on (each batch's QC summary against the reference's step
 with QC on: counts, flags and guards exact, the image statistics by
 ``QC_TIERS``) and the DL segmenters' pipeline through the step,
@@ -39,7 +40,6 @@ from tmlibrary_tpu.models.store import ExperimentStore as JStore
 from tmlibrary_tpu.workflow.registry import get_step as j_get_step
 from tmlibrary_tpu.workflow.steps.jterator import ImageAnalysisRunner as JRunner
 from tmlibrary_tpu_torch import benchmarks, capacity, qc
-from tmlibrary_tpu_torch.errors import NotSupportedError
 from tmlibrary_tpu_torch.jterator.description import PipelineDescription
 from tmlibrary_tpu_torch.jterator.pipeline import ImageAnalysisPipeline
 from tmlibrary_tpu_torch.models.experiment import grid_experiment
@@ -432,10 +432,55 @@ def test_feature_table_equals_the_reference_rows(seed):
     ({"figures": True}, {}),
 ])
 def test_unsupported_arguments_raise(tmp_path, args, kw):
+    """These arguments used to be refused; each now runs.  The spatial
+    layout writes every site's mosaic labels and one feature shard per
+    well; ``n_devices=2`` clamps to the process group (one rank here) and
+    writes ``n_devices=1``'s store; ``as_polygons`` writes one polygon
+    table per batch and family whose labels are the label stacks' ids;
+    ``figures`` one overlay per site and family.  (Against the
+    reference's: ``test_torch_spatial.py``.)"""
     make_store(tmp_path / "s")
     st = ExperimentStore.open(tmp_path / "s")
-    with pytest.raises(NotSupportedError):
-        get_step("jterator")(st, device="cpu", **kw).init({**JTERATOR, **args})
+    base = {**JTERATOR, "pipe": "raw.pipe.json", "cycle": 0}
+    results, _ = run_jterator(get_step, st, {**base, **args}, {"device": "cpu", **kw},
+                              sequential=True)
+    if args.get("layout") == "spatial":
+        assert [r["layout"] for r in results] == ["spatial"] * 4
+        lab = st.read_labels(None, "mosaic_cells")
+        assert lab.shape == (N_SITES, SIZE, SIZE) and lab.max() > 0
+        feats = st.read_features("mosaic_cells")
+        assert set(feats["site_index"]) == {-1} and len(feats["label"]) == sum(
+            r["objects"]["mosaic_cells"] for r in results)
+    elif "n_devices" in args:
+        copy_store(tmp_path / "s", tmp_path / "one")
+        one = ExperimentStore.open(tmp_path / "one")
+        capacity.reset_routing_history()
+        run_jterator(get_step, one, base, {"device": "cpu"}, sequential=True)
+        assert_same_labels(st, one)
+        for name in ("nuclei", "cells"):
+            a, b = st.read_features(name), one.read_features(name)
+            assert list(a) == list(b)
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    elif args.get("as_polygons"):
+        from tmlibrary_tpu_torch.io import parquet
+
+        for name in ("nuclei", "cells"):
+            lab = st.read_labels(None, name)
+            paths = sorted((st.root / "segmentations").glob(f"{name}_polygons_batch_*.parquet"))
+            assert len(paths) == N_SITES // JTERATOR["batch_size"]
+            table = {k: np.concatenate([parquet.read_table(p)[k] for p in paths])
+                     for k in ("site", "label", "n_vertices")}
+            want = sorted((s, int(v)) for s in range(N_SITES) for v in np.unique(lab[s]) if v)
+            assert sorted(zip(table["site"].tolist(), table["label"].tolist())) == want
+            assert (table["n_vertices"] > 0).all()
+    else:
+        from tmlibrary_tpu_torch.io import png
+
+        for name in ("nuclei", "cells"):
+            for s in range(N_SITES):
+                img = png.read(st.root / "figures" / f"{name}_site{s:05d}.png")
+                assert img.shape == (SIZE, SIZE, 3) and img.dtype == np.uint8
 
 
 #: the reference's jitted step and its eager pipeline differ in these by
@@ -492,12 +537,37 @@ def test_a_morphology_pipeline_raises_until_solidity_is_ported(tmp_path):
 
 
 def test_a_reference_batch_file_with_an_unported_layout_is_refused(tmp_path):
+    """The reference's spatial batch files used to be refused; the port
+    now runs them and writes the reference's spatial store (its labels
+    bit for bit, its feature shards column for column)."""
     make_store(tmp_path / "s")
-    ref = j_get_step("jterator")(JStore.open(tmp_path / "s"))
-    ref.init({"layout": "spatial", "n_devices": 1})
+    copy_store(tmp_path / "s", tmp_path / "r")
+    ref_step = j_get_step("jterator")(JStore.open(tmp_path / "r"))
+    ref_step.init({"layout": "spatial", "n_devices": 1})
+    for i in ref_step.list_batches():
+        ref_step.run(i)
+    (tmp_path / "s" / "workflow" / "jterator").mkdir(parents=True, exist_ok=True)
+    for f in (tmp_path / "r" / "workflow" / "jterator").glob("batch_*.json"):
+        shutil.copy(f, tmp_path / "s" / "workflow" / "jterator" / f.name)
     port = get_step("jterator")(ExperimentStore.open(tmp_path / "s"), device="cpu")
-    with pytest.raises(NotSupportedError, match="spatial"):
-        port.run(0)
+    assert port.list_batches() == ref_step.list_batches() == [0, 1, 2, 3]
+    for i in port.list_batches():
+        assert port.run(i)["layout"] == "spatial"
+    st, ref = ExperimentStore.open(tmp_path / "s"), JStore.open(tmp_path / "r")
+    assert_same_labels(st, ref, names=("mosaic_cells",))
+    want = ref.read_features("mosaic_cells")
+    got = st.read_features("mosaic_cells")
+    assert list(got) == list(want.columns)
+    for k in got:
+        if k == "plate":
+            assert got[k].tolist() == want[k].tolist()
+            continue
+        if got[k].dtype.kind == "i":
+            np.testing.assert_array_equal(got[k], want[k].to_numpy(), err_msg=k)
+            continue
+        rtol, atol = feature_tier(k, FEATURE_TIERS)
+        np.testing.assert_allclose(got[k], want[k].to_numpy(np.float64), rtol=rtol, atol=atol,
+                                   err_msg=k)
 
 
 def test_escalation_sees_objects_dropped_before_the_area_filter(tmp_path):

@@ -11,7 +11,9 @@ smooth → adaptive threshold → label), of ``volume_description``
 (config 5, the 3-D z-stack pipeline) and of the numpy generators, which
 draw the same random sequence as the reference's, so both packages see
 the same pixels for the same seed; corilla's (config 1) stack and
-single-thread numpy channel job, and illuminati's numpy pyramid job.
+single-thread numpy channel job, illuminati's numpy pyramid job, and
+the spatial layout's well (``synthetic_mosaic_well``, ``:893-951``) with
+its scipy chain (``cpu_reference_mosaic``).
 The ``dl`` configuration (:func:`dl_description`) and its primary +
 secondary form (:func:`dl_secondary_pipe`) run the DL segmenters.  The
 reference's single-thread numpy ``dl`` site (``cpu_reference_site_dl``)
@@ -539,3 +541,67 @@ def cpu_reference_pyramid(
         levels.append(stretch(cur))
     return levels
 
+
+
+# ------------------------------------------------------------ spatial layout
+def synthetic_mosaic_well(
+    grid_y: int, grid_x: int, size: int = 256, cells_per_site: float = 8.0, seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray]:
+    """One well's mosaic with blobs scattered across the site seams (the
+    case the spatial layout exists for), and its site tiles: ``(mosaic
+    (Hm, Wm) uint16, tiles (gy*gx, size, size) uint16)``, tiles in
+    row-major site order."""
+    rng = np.random.default_rng(seed)
+    hm, wm = grid_y * size, grid_x * size
+    mosaic = rng.normal(300.0, 25.0, (hm, wm)).astype(np.float32)
+    n_cells = int(cells_per_site * grid_y * grid_x)
+    ys = rng.uniform(4, hm - 4, n_cells)
+    xs = rng.uniform(4, wm - 4, n_cells)
+    rr = rng.uniform(3.5, 5.5, n_cells)
+    # local splats: a whole-mosaic gaussian per cell would be quadratic
+    for y, x, r in zip(ys, xs, rr):
+        rad = int(4 * r)
+        y0, y1 = max(0, int(y) - rad), min(hm, int(y) + rad + 1)
+        x0, x1 = max(0, int(x) - rad), min(wm, int(x) + rad + 1)
+        yy, xx = np.mgrid[y0:y1, x0:x1].astype(np.float32)
+        mosaic[y0:y1, x0:x1] += 4000.0 * np.exp(-((yy - y) ** 2 + (xx - x) ** 2) / (2 * r**2))
+    mosaic = np.clip(mosaic, 0, 65535).astype(np.uint16)
+    tiles = (mosaic.reshape(grid_y, size, grid_x, size).transpose(0, 2, 1, 3)
+             .reshape(grid_y * grid_x, size, size))
+    return mosaic, np.ascontiguousarray(tiles)
+
+
+def _otsu_numpy(img: np.ndarray, bins: int = 256) -> float:
+    """Numpy Otsu over the same fixed bins as ``ops.threshold.otsu_value``."""
+    lo, hi = float(img.min()), float(img.max())
+    span = max(hi - lo, 1e-6)
+    idx = np.clip(((img - lo) / span * bins).astype(np.int32), 0, bins - 1)
+    hist = np.bincount(idx.ravel(), minlength=bins).astype(np.float64)
+    centers = lo + (np.arange(bins) + 0.5) / bins * span
+    w0 = np.cumsum(hist)
+    w1 = w0[-1] - w0
+    sum0 = np.cumsum(hist * centers)
+    mu0 = sum0 / np.maximum(w0, 1e-12)
+    mu1 = (sum0[-1] - sum0) / np.maximum(w1, 1e-12)
+    between = np.where((w0 > 0) & (w1 > 0), w0 * w1 * (mu0 - mu1) ** 2, -1.0)
+    return float(centers[int(np.argmax(between))])
+
+
+def cpu_reference_mosaic(mosaic: np.ndarray) -> int:
+    """The spatial layout's chain on one stitched mosaic with scipy:
+    smooth, Otsu, 8-connected label, the per-object morphology and
+    intensity statistics; returns the object count."""
+    import scipy.ndimage as ndi
+
+    img = mosaic.astype(np.float32)
+    sm = ndi.gaussian_filter(img, 1.5, mode="reflect")
+    labels, n = ndi.label(sm > _otsu_numpy(sm), ndi.generate_binary_structure(2, 2))
+    if n:
+        ids = np.arange(1, n + 1)
+        np.bincount(labels.ravel())
+        ndi.center_of_mass(np.ones_like(labels), labels, ids)
+        ndi.find_objects(labels)
+        img64 = img.astype(np.float64)
+        for fn in (ndi.mean, ndi.standard_deviation, ndi.minimum, ndi.maximum, ndi.sum):
+            fn(img64, labels, ids)
+    return n

@@ -27,6 +27,13 @@ the drift verdict's code against ``--reference`` (else the
 ``TMX_QC_DL_BASELINE`` file): 0 ok, 1 drift, 2 stale, 3 no reference;
 unlike the reference it reads no baseline from ``tuning/``.  ``weights``
 lists the checkpoints of the weights directory or digests a spec.
+
+``workflow submit`` under ``torchrun --nproc-per-node N`` runs on N
+ranks, one card each (NCCL; gloo with ``--device cpu``): the process
+group comes from ``torchrun``'s environment
+(:func:`~tmlibrary_tpu_torch.parallel.distributed.initialize`), rank 0
+plans, writes and prints, and corilla, illuminati and jterator shard
+their work over the ranks their ``n_devices`` allows.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from pathlib import Path
 
 from tmlibrary_tpu_torch.models.experiment import Experiment
 from tmlibrary_tpu_torch.models.store import ExperimentStore
+from tmlibrary_tpu_torch.parallel import distributed
 from tmlibrary_tpu_torch.resilience import ResilienceConfig
 from tmlibrary_tpu_torch.workflow.engine import RunLedger, Workflow, WorkflowDescription
 from tmlibrary_tpu_torch.workflow.registry import get_step, list_steps
@@ -227,9 +235,13 @@ def cmd_workflow(args) -> int:
                                    ("base_delay", args.retry_delay)) if v is not None}
     if overrides:
         resilience.policy = dataclasses.replace(resilience.policy, **overrides)
+    # under torchrun each rank is one process of the group (NCCL on the
+    # card, gloo on the CPU); without its environment this is a no-op
+    distributed.initialize(device=args.device)
     summary = Workflow(store, desc, resilience=resilience, pipeline_depth=args.pipeline_depth,
                        device=args.device).run(resume=args.resume)
-    print(json.dumps(summary, default=str, indent=2))
+    if distributed.is_writer():
+        print(json.dumps(summary, default=str, indent=2))
     return 0
 
 

@@ -69,6 +69,10 @@ class PreemptedError(TmError):
         self.reason = reason
 
 
+class ShardingError(TmError):
+    """Error constructing or using a device mesh / sharding."""
+
+
 class NotSupportedError(TmError):
     """Requested feature is not supported (not ported yet)."""
 

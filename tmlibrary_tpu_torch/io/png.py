@@ -7,7 +7,8 @@ PNG planes in imextract with ``cv2.imread(..., IMREAD_UNCHANGED)`` and
 reads and writes the format itself with ``zlib``:
 
 - :func:`encode` / :func:`write` take 8- or 16-bit greyscale ``(H, W)``
-  arrays and write one ``IDAT`` of rows with filter type 0.  The bytes are
+  arrays, or 8-bit ``(H, W, 3)`` BGR ones (the figures), and write one
+  ``IDAT`` of rows with filter type 0.  The bytes are
   not cv2's; the decoded pixels are the array's.
 - :func:`decode` / :func:`read` take 8- and 16-bit greyscale, greyscale
   with alpha, RGB and RGBA, non-interlaced, any of the five filter types,
@@ -54,20 +55,25 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 # ------------------------------------------------------------------ encode
 def encode(image: np.ndarray) -> bytes:
-    """PNG bytes of an ``(H, W)`` uint8 or uint16 greyscale image
-    (``zlib`` at level 1, cv2's default)."""
+    """PNG bytes of an ``(H, W)`` uint8 or uint16 greyscale image, or of
+    an ``(H, W, 3)`` uint8 BGR image written as RGB, as ``cv2.imwrite``
+    takes it (``zlib`` at level 1, cv2's default)."""
     img = np.asarray(image)
-    if img.ndim != 2 or img.dtype not in (np.uint8, np.uint16):
+    colour = img.ndim == 3 and img.shape[-1] == 3 and img.dtype == np.uint8
+    if not colour and (img.ndim != 2 or img.dtype not in (np.uint8, np.uint16)):
         raise NotSupportedError(
-            f"PNG encode takes (H, W) uint8 or uint16 greyscale, got {img.shape} {img.dtype}")
-    h, w = img.shape
+            "PNG encode takes (H, W) uint8 or uint16 greyscale or (H, W, 3) uint8 BGR, "
+            f"got {img.shape} {img.dtype}")
+    h, w = img.shape[:2]
     if h == 0 or w == 0:
         raise NotSupportedError(f"PNG encode of an empty image {img.shape}")
     depth = 8 if img.dtype == np.uint8 else 16
+    if colour:
+        img = img[..., ::-1]  # BGR -> the file's RGB
     rows = np.ascontiguousarray(img, ">u2" if depth == 16 else "u1").view(np.uint8)
-    raw = np.zeros((h, 1 + w * depth // 8), np.uint8)  # column 0: filter type 0
+    raw = np.zeros((h, 1 + rows.reshape(h, -1).shape[1]), np.uint8)  # column 0: filter 0
     raw[:, 1:] = rows.reshape(h, -1)
-    header = struct.pack(">IIBBBBB", w, h, depth, 0, 0, 0, 0)
+    header = struct.pack(">IIBBBBB", w, h, depth, 2 if colour else 0, 0, 0, 0)
     return (SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + _chunk(b"IEND", b""))
 

@@ -262,6 +262,51 @@ class ImageAnalysisPipeline:
 
         return batch_fn
 
+    def build_sharded_batch_fn(
+        self, mesh, window: tuple[int, int, int, int] | None = None, qc: bool = False
+    ) -> Callable:
+        """:meth:`build_batch_fn` over a mesh of ranks (the reference's
+        ``build_sharded_batch_fn``, ``tmlibrary_tpu/jterator/pipeline.py:567``):
+        every member rank is called with the whole batch, pads its site
+        axis to a multiple of the mesh size with copies of site 0 (the
+        reference's padding lanes), runs its contiguous slice through the
+        batch function and gathers every rank's slice, so each member
+        returns the whole batch's result.  The pipeline runs per site, so
+        the result equals one device's.  A mesh of one rank is the batch
+        function itself."""
+        batched = self.build_batch_fn(window, qc=qc)
+        if mesh.size == 1:
+            return batched
+        from tmlibrary_tpu_torch.parallel import distributed
+        from tmlibrary_tpu_torch.parallel.mesh import shard_batch
+
+        def lanes(t):
+            t = torch.as_tensor(t)
+            pad = -t.shape[0] % mesh.size
+            if pad:
+                t = torch.cat([t, t[:1].expand((pad,) + tuple(t.shape[1:]))])
+            return shard_batch(t, mesh)
+
+        def gather(tree, n: int):
+            if isinstance(tree, SiteResult):
+                return SiteResult(*(gather(getattr(tree, f.name), n)
+                                    for f in dataclasses.fields(SiteResult)))
+            if isinstance(tree, tuple):
+                return tuple(gather(x, n) for x in tree)
+            if isinstance(tree, dict):
+                return {k: gather(tree[k], n) for k in sorted(tree)}
+            flag = tree.dtype == torch.bool
+            parts = distributed.all_gather(tree.to(torch.uint8) if flag else tree, mesh.group)
+            out = torch.cat(parts)[:n]
+            return out.to(torch.bool) if flag else out
+
+        def sharded(raw, stats, shifts):
+            n = int(torch.as_tensor(shifts).shape[0])
+            out = batched({k: lanes(v) for k, v in raw.items()}, stats, lanes(shifts))
+            return gather(out, n)
+
+        return sharded
+
 
 def weight_digests(description: PipelineDescription) -> tuple[tuple[str, str, str], ...]:
     """``(module, weights spec, content digest)`` of every module that binds

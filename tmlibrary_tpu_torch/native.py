@@ -1,16 +1,19 @@
 """Host C++ of the port: the convex-hull pixel counts behind
-``Morphology_solidity``, and the TIFF reader behind imextract.
+``Morphology_solidity``, the TIFF reader behind imextract, and the
+spatial layout's boundary trace and mosaic accumulators.
 
 Counterpart: ``tmlibrary_tpu/native.py`` ``hull_pixel_counts_host`` and
-``solidity_host`` (``:323-392``) and ``tiff_info``, ``tiff_read``,
+``solidity_host`` (``:323-392``), ``tiff_info``, ``tiff_read``,
 ``tiff_read_page``, ``lzw_decode`` and ``packbits_decode``
-(``:413-590``), backed there by ``native/tmnative.cpp``.  Hulls are
+(``:413-590``), ``trace_boundary_host`` (``:275``),
+``mosaic_intensity_host`` and ``mosaic_morph_host`` (``:1162-1260``),
+backed there by ``native/tmnative.cpp``.  Hulls are
 ragged per object, so, as in the JAX package, solidity is measured on
 the host from the exported label images and joined into the morphology
 features when a batch persists.
 
-The port keeps its own copy of the C++ (``csrc/host/hull.cpp`` and
-``csrc/host/tiff.cpp``).  At first use both are compiled with the host
+The port keeps its own copy of the C++ (``csrc/host/hull.cpp``,
+``csrc/host/tiff.cpp`` and ``csrc/host/mosaic.cpp``).  At first use they are compiled with the host
 compiler (``c++``/``g++`` on the ``PATH``, else ``nvcc``) into one
 library in ``build/host/`` at the root of the checkout, named by a
 digest of the sources and flags, and bound with ``ctypes``.  One call
@@ -41,6 +44,7 @@ from tmlibrary_tpu_torch.errors import BuildError
 
 HOST_SRC = Path(__file__).resolve().parent / "csrc" / "host" / "hull.cpp"
 TIFF_SRC = HOST_SRC.with_name("tiff.cpp")
+MOSAIC_SRC = HOST_SRC.with_name("mosaic.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "host"
 FLAGS = ("-O3", "-std=c++17", "-shared")
 
@@ -63,9 +67,10 @@ def _compiler() -> list[str]:
 
 
 def build() -> Path:
-    """Compile ``hull.cpp`` and ``tiff.cpp`` into one library (if its
-    digest-named file is missing) and return the library path."""
-    sources = (HOST_SRC, TIFF_SRC)
+    """Compile ``hull.cpp``, ``tiff.cpp`` and ``mosaic.cpp`` into one
+    library (if its digest-named file is missing) and return the library
+    path."""
+    sources = (HOST_SRC, TIFF_SRC, MOSAIC_SRC)
     digest = hashlib.sha256(
         " ".join(FLAGS).encode() + b"".join(src.read_bytes() for src in sources)
     ).hexdigest()[:16]
@@ -101,7 +106,11 @@ def lib() -> ctypes.CDLL:
                                 ("tm_packbits_decode", [ptr, i64, ptr, i64]),
                                 ("tm_tiff_info", [ctypes.c_char_p, ptr]),
                                 ("tm_tiff_read", [ctypes.c_char_p, i32, ptr, i32, i32]),
-                                ("tm_tiff_read2", [ctypes.c_char_p, i32, ptr, i64, ptr])):
+                                ("tm_tiff_read2", [ctypes.c_char_p, i32, ptr, i64, ptr]),
+                                ("tm_trace_boundary", [ptr, i32, i32, i32, ptr, i32]),
+                                ("tm_mosaic_intensity", [ptr, ptr, i64, i32, ptr, ptr, ptr,
+                                                         ptr]),
+                                ("tm_mosaic_morph", [ptr, i32, i32, i32, *[ptr] * 7])):
                 fn = getattr(loaded, fname)
                 fn.restype = ctypes.c_int32
                 fn.argtypes = args
@@ -226,6 +235,52 @@ def solidity_batch(stack: np.ndarray, max_label: int) -> np.ndarray:
     """:func:`solidity` of every site of a ``(B, H, W)`` stack, as
     ``(B, max_label)`` float32, in one library call."""
     return _ratio(*hull_and_area_counts(stack, max_label)[::-1])
+
+
+# ------------------------------------------------------- mosaic host passes
+def trace_boundary(labels: np.ndarray, label: int, max_pts: int = 1 << 16) -> np.ndarray:
+    """Moore boundary trace of object ``label`` in an ``(H, W)`` label
+    image: ``(K, 2)`` int32 ``(y, x)`` vertices, clockwise from its first
+    pixel in scan order; empty when the label is absent."""
+    labels = np.ascontiguousarray(labels, np.int32)
+    h, w = labels.shape
+    while True:
+        buf = np.empty((max_pts, 2), np.int32)
+        n = lib().tm_trace_boundary(labels.ctypes.data, h, w, int(label), buf.ctypes.data,
+                                    max_pts)
+        if n < 0:
+            raise ValueError("tm_trace_boundary: invalid arguments")
+        if n <= max_pts:
+            return buf[:n].copy()
+        max_pts = n  # truncated: again with the exact size
+
+
+def mosaic_intensity(labels: np.ndarray, vals: np.ndarray, count: int):
+    """``(sum, sum of squares, min, max)`` of ``vals`` per label of a label
+    mosaic, each ``(count + 1,)`` float64 with index 0 the background."""
+    labels = np.ascontiguousarray(labels, np.int32)
+    vals = np.ascontiguousarray(vals, np.float32)
+    out = [np.empty(count + 1) for _ in range(4)]
+    rc = lib().tm_mosaic_intensity(labels.ctypes.data, vals.ctypes.data, labels.size,
+                                   int(count), *(a.ctypes.data for a in out))
+    if rc != 0:
+        raise ValueError(f"mosaic_intensity: label outside [0, {count}]")
+    return tuple(out)
+
+
+def mosaic_morph(labels: np.ndarray, count: int):
+    """``(area, cy_sum, cx_sum, ymin, ymax, xmin, xmax)`` per label of a
+    label mosaic, each ``(count + 1,)`` (index 0 the background; absent
+    labels keep the ``h, -1, w, -1`` box sentinels)."""
+    labels = np.ascontiguousarray(labels, np.int32)
+    h, w = labels.shape
+    out = [np.empty(count + 1, dt) for dt in (np.int64, np.float64, np.float64,
+                                                np.int64, np.int64, np.int64, np.int64)]
+    rc = lib().tm_mosaic_morph(labels.ctypes.data, h, w, int(count),
+                               *(a.ctypes.data for a in out))
+    if rc != 0:
+        raise ValueError(f"mosaic_morph: label outside [0, {count}]")
+    return tuple(out)
 
 
 # -------------------------------------------------------------- tiff reader

@@ -11,10 +11,10 @@ from __future__ import annotations
 import torch
 
 
-def histogram_fixed_bins(idx: torch.Tensor, bins: int) -> torch.Tensor:
+def histogram_counts(idx: torch.Tensor, bins: int) -> torch.Tensor:
     """Per-row histogram of int bin indices in ``[0, bins)``.
 
-    ``idx`` is ``(B, ...)``; returns ``(B, bins)`` float32 counts.
+    ``idx`` is ``(B, ...)``; returns ``(B, bins)`` int32 counts.
     Out-of-range indices are dropped, like the reference's scatter."""
     flat = idx.reshape(idx.shape[0], -1).to(torch.int64)
     valid = (flat >= 0) & (flat < bins)
@@ -24,4 +24,9 @@ def histogram_fixed_bins(idx: torch.Tensor, bins: int) -> torch.Tensor:
     counts.scatter_add_(
         1, torch.where(valid, flat, bins), torch.ones_like(flat, dtype=torch.int32)
     )
-    return counts[:, :bins].to(torch.float32)
+    return counts[:, :bins]
+
+
+def histogram_fixed_bins(idx: torch.Tensor, bins: int) -> torch.Tensor:
+    """:func:`histogram_counts` as float32 (the reference's dtype)."""
+    return histogram_counts(idx, bins).to(torch.float32)

@@ -263,8 +263,14 @@ def watershed_levels(
     inf = torch.full((), float("inf"), device=intensity.device)
     lo = torch.where(mask, intensity, inf).reshape(b, -1).amin(dim=1)
     hi = torch.where(mask, intensity, -inf).reshape(b, -1).amax(dim=1)
+    return levels_from_range(lo, hi, n_levels)
+
+
+def levels_from_range(lo: torch.Tensor, hi: torch.Tensor, n_levels: int) -> torch.Tensor:
+    """:func:`watershed_levels` from the ``(B,)`` masked minima and maxima
+    (the sharded watershed reduces them over the ranks first)."""
     span = torch.clamp(hi - lo, min=1e-6)
-    steps = torch.arange(1, n_levels + 1, dtype=torch.float32, device=intensity.device)
+    steps = torch.arange(1, n_levels + 1, dtype=torch.float32, device=lo.device)
     return hi[:, None] - div(span[:, None] * steps[None, :], n_levels)
 
 

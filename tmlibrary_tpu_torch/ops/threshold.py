@@ -33,18 +33,24 @@ def _site_min_max(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return flat.amin(dim=1), flat.amax(dim=1)
 
 
-def otsu_value(img: torch.Tensor, bins: int = 256) -> torch.Tensor:
-    """Per-site Otsu threshold over a fixed-bin histogram → ``(B,)``."""
-    img_f = img.to(torch.float32)
-    lo, hi = _site_min_max(img_f)
+def otsu_bins(img_f: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+              bins: int = 256) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(idx, centers)``: each float32 value's Otsu bin over its site's
+    ``[lo, hi]`` (``(B,)`` each) and the ``(B, bins)`` bin centres."""
     span = torch.clamp(hi - lo, min=1e-6)
     b = (slice(None),) + (None,) * (img_f.dim() - 1)
     scaled = div(img_f - lo[b], span[b]) * bins
     idx = torch.clamp(scaled.to(torch.int32), 0, bins - 1)
-    hist = histogram_fixed_bins(idx, bins)
     steps = div(torch.arange(bins, dtype=torch.float32, device=img_f.device) + 0.5, bins)
-    centers = lo[:, None] + steps[None, :] * span[:, None]
-    return _otsu_argmax(hist, centers)
+    return idx, lo[:, None] + steps[None, :] * span[:, None]
+
+
+def otsu_value(img: torch.Tensor, bins: int = 256) -> torch.Tensor:
+    """Per-site Otsu threshold over a fixed-bin histogram → ``(B,)``."""
+    img_f = img.to(torch.float32)
+    lo, hi = _site_min_max(img_f)
+    idx, centers = otsu_bins(img_f, lo, hi, bins)
+    return _otsu_argmax(histogram_fixed_bins(idx, bins), centers)
 
 
 def _otsu_argmax(hist: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:

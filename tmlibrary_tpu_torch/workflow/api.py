@@ -27,6 +27,7 @@ import torch
 from tmlibrary_tpu_torch.device import resolve_device
 from tmlibrary_tpu_torch.errors import JobDescriptionError
 from tmlibrary_tpu_torch.models.store import ExperimentStore
+from tmlibrary_tpu_torch.parallel import distributed
 from tmlibrary_tpu_torch.workflow.args import ArgumentCollection
 
 logger = logging.getLogger(__name__)
@@ -39,6 +40,10 @@ class Step(abc.ABC):
     name: str = "step"
     #: override with the step's typed arguments
     batch_args: ArgumentCollection = ArgumentCollection()
+    #: whether every rank of a process group runs the step's batches
+    #: (their collectives pair up; only rank 0 writes), rather than rank 0
+    #: alone
+    collective: bool = False
 
     def __init__(self, store: ExperimentStore, device: "str | torch.device" = "cuda"):
         self.store = store
@@ -105,7 +110,10 @@ class Step(abc.ABC):
         """Capture framework logging to ``<step_dir>/logs/<name>.log`` for
         the duration (reference parity: per-job stdout/stderr files in the
         experiment workflow dir, surfaced by the ``log`` CLI verb —
-        SURVEY.md §6 observability row)."""
+        SURVEY.md §6 observability row).  Rank 0 alone writes the file."""
+        if not distributed.is_writer():
+            yield
+            return
         log_dir = self.step_dir / "logs"
         log_dir.mkdir(parents=True, exist_ok=True)
         # mode="w": each capture is one run — appending would interleave a

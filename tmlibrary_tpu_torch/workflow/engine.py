@@ -28,6 +28,17 @@ reads the other's ledger.  Where the port differs:
   injection, the phase watchdog, preemption and fleet host attribution
   are not ported (ROADMAP A item 11).
 
+**Several ranks.**  Under a process group of more than one rank
+(``torchrun``, :func:`tmlibrary_tpu_torch.parallel.distributed.initialize`)
+rank 0 runs the engine as above: it plans, appends to the ledger and
+collects.  For each step it sends the other ranks the indices of the
+batches it is about to run, in order; they run the same batches of the
+steps that shard over ranks (``collective = True``: corilla, illuminati,
+jterator), whose collectives pair with rank 0's, and skip the others.
+The ranks meet at a barrier after each step's batches.  There are no
+retries and no pipelining then (a retry on one rank alone would wait
+forever on the others), and a failed batch fails the run.
+
 At the end of a run, finished or failed, the engine writes the QC
 session's profile (:mod:`tmlibrary_tpu_torch.qc`) to
 ``workflow/qc.<host>.json`` and, on ``host0``, ``workflow/qc.json``, as
@@ -48,6 +59,7 @@ from pathlib import Path
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from tmlibrary_tpu_torch import qc as qc_mod
 from tmlibrary_tpu_torch.atomicio import atomic_write_text
@@ -55,6 +67,7 @@ from tmlibrary_tpu_torch.config import LibraryConfig
 from tmlibrary_tpu_torch.device import resolve_device
 from tmlibrary_tpu_torch.errors import NotSupportedError, WorkflowError
 from tmlibrary_tpu_torch.models.store import ExperimentStore
+from tmlibrary_tpu_torch.parallel import distributed
 from tmlibrary_tpu_torch.resilience import (
     PERMANENT,
     ResilienceConfig,
@@ -447,7 +460,10 @@ class Workflow:
     # ------------------------------------------------------------------ run
     def run(self, resume: bool = False) -> dict:
         """Run all active steps in order; with ``resume`` skip completed
-        steps and the completed batches of an interrupted one."""
+        steps and the completed batches of an interrupted one.  A rank
+        other than 0 follows rank 0's plan and returns ``{}``."""
+        if not distributed.is_writer():
+            return self._follow()
         if not resume and self.ledger.path.exists():
             self.ledger.path.unlink()
         desc_hash = self.description_hash()
@@ -471,11 +487,39 @@ class Workflow:
                         continue
                     if sd.name in done_steps:
                         logger.info("resume: skipping completed step %s", sd.name)
+                        self._announce([])
+                        distributed.sync_hosts(f"{sd.name} batches")
                         continue
                     summary[sd.name] = self._run_step(sd, resume)
         finally:
             self._write_qc_profile()
         return summary
+
+    @staticmethod
+    def _announce(pending: "list[int] | None") -> "list[int]":
+        """Rank 0 sends the batch indices it will run next (a list, in
+        order) and the other ranks receive them; one rank: the list."""
+        if distributed.world_size() == 1:
+            return pending
+        box = [pending]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def _follow(self) -> dict:
+        """A rank other than 0: for each active step, run the batches rank
+        0 announces when the step shards over ranks, then meet at the
+        step's barrier."""
+        for stage in self.description.stages:
+            for sd in stage.steps:
+                if not sd.active:
+                    continue
+                pending = self._announce(None)
+                step = get_step(sd.name)(self.store, device=self.device)
+                if getattr(step, "collective", False):
+                    for index in pending:
+                        step.run_batch(step.load_batch(index))
+                distributed.sync_hosts(f"{sd.name} batches")
+        return {}
 
     def _write_qc_profile(self) -> None:
         """The QC session's profile as ``qc.<host>.json``, and as
@@ -571,7 +615,9 @@ class Workflow:
     def _run_step(self, sd: WorkflowStepDescription, resume: bool) -> dict:
         step = get_step(sd.name)(self.store, device=self.device)
         res = self.resilience
-        policy = res.policy if res.enabled else RetryPolicy(max_attempts=1, base_delay=0.0)
+        ranks = distributed.world_size()
+        policy = res.policy if res.enabled and ranks == 1 else \
+            RetryPolicy(max_attempts=1, base_delay=0.0)
         t0 = time.time()
         current_batch: int | None = None
         try:
@@ -606,16 +652,17 @@ class Workflow:
             if quarantined:
                 logger.info("resume: re-attempting quarantined batches %s of %s first",
                             sorted(quarantined), sd.name)
+            self._announce([b["index"] for b in pending])
             results: list[dict] = []
             failed: list[dict] = []
-            budget = res.failure_budget(len(batches)) if res.enabled else 0
+            budget = res.failure_budget(len(batches)) if res.enabled and ranks == 1 else 0
             qc_flagged = 0
             qc_budget_noted = False
             qc_sites_total = sum(len(b.get("sites") or []) for b in batches)
             qc_site_budget = (int(res.qc_flag_budget * qc_sites_total)
                               if res.enabled and qc_sites_total else 0)
             pstats = None
-            if pending and supports_pipelining(step):
+            if pending and supports_pipelining(step) and ranks == 1:
                 depth, source = resolve_pipeline_depth(self.pipeline_depth, self.device)
                 pstats = PipelineStats(depth, source)
                 logger.info("%s: pipelined executor, in-flight depth %d (source: %s)",
@@ -666,6 +713,7 @@ class Workflow:
                                  "step continues (%d/%d budget used)", sd.name,
                                  batch["index"], outcome.attempts, failure["exception"],
                                  failure["error"], len(failed), budget)
+                distributed.sync_hosts(f"{sd.name} batches")
                 collected = self._call_collect(step, results)
             extra = {"pipeline_stats": pstats.summary()} if pstats is not None else {}
             if failed:

@@ -11,9 +11,13 @@ Sites are read in chunks of ``chunk_size`` through
 read of chunk N+1 runs while the device scans chunk N), scanned with
 :func:`~tmlibrary_tpu_torch.ops.stats.welford_scan` and merged with
 :func:`~tmlibrary_tpu_torch.ops.stats.welford_merge` in chunk order, the
-reference's order (``:105-146``).  ``n_devices > 1`` raises
-:class:`~tmlibrary_tpu_torch.errors.NotSupportedError`: the sharded
-Welford over several cards is not ported yet.  Each channel's exact
+reference's order (``:105-146``).  With ``n_devices > 1`` on a process
+group (clamped to it, 0: all of it), the largest prefix of sites that
+divides the mesh is scanned sharded, each rank reading only its own
+contiguous slice, and the ranks' states are merged in rank order
+(:func:`~tmlibrary_tpu_torch.parallel.stats.merge_shard_states`); the
+rest follows in chunks, merged last, the reference's order
+(``:85-100``).  Only rank 0 writes.  Each channel's exact
 percentiles are folded into the QC session
 (:meth:`~tmlibrary_tpu_torch.qc.QCSession.observe_illumination`, one
 no-op call when QC is off), as the reference does (``:148-158``).
@@ -24,7 +28,6 @@ from __future__ import annotations
 import torch
 
 from tmlibrary_tpu_torch import qc as qc_mod
-from tmlibrary_tpu_torch.errors import NotSupportedError
 from tmlibrary_tpu_torch.ops.smooth import gaussian_smooth
 from tmlibrary_tpu_torch.ops.stats import (
     welford_finalize,
@@ -32,6 +35,9 @@ from tmlibrary_tpu_torch.ops.stats import (
     welford_merge,
     welford_scan,
 )
+from tmlibrary_tpu_torch.parallel import distributed
+from tmlibrary_tpu_torch.parallel.mesh import site_mesh
+from tmlibrary_tpu_torch.parallel.stats import merge_shard_states
 from tmlibrary_tpu_torch.utils import create_partitions
 from tmlibrary_tpu_torch.workflow.api import Step
 from tmlibrary_tpu_torch.workflow.args import Argument, ArgumentCollection
@@ -41,6 +47,7 @@ from tmlibrary_tpu_torch.workflow.registry import register_step
 
 @register_step("corilla")
 class IlluminationStatisticsCalculator(Step):
+    collective = True
     batch_args = ArgumentCollection(
         Argument("chunk_size", int, default=32,
                  help="sites per device-resident chunk"),
@@ -54,10 +61,6 @@ class IlluminationStatisticsCalculator(Step):
     )
 
     def create_batches(self, args):
-        if args["n_devices"] > 1:
-            raise NotSupportedError(
-                "corilla: n_devices > 1 (the sharded Welford) is not ported "
-                "yet (ROADMAP A item 10)")
         # one batch per (cycle, channel), exactly the reference's job split
         exp = self.store.experiment
         return [
@@ -69,22 +72,36 @@ class IlluminationStatisticsCalculator(Step):
 
     def run_batch(self, batch: dict) -> dict:
         args = batch["args"]
-        if args["n_devices"] > 1:
-            raise NotSupportedError(
-                "corilla: n_devices > 1 (the sharded Welford) is not ported "
-                "yet (ROADMAP A item 10)")
         cycle, channel = batch["cycle"], batch["channel"]
         exp = self.store.experiment
-        chunks = create_partitions(range(self.store.n_sites), max(args["chunk_size"], 1))
+        n_sites = self.store.n_sites
+        site_indices = list(range(n_sites))
+        state = None
+        mesh = site_mesh(distributed.clamp_devices(args["n_devices"]))
+        if mesh.size > 1:
+            if not mesh.member:
+                return {"cycle": cycle, "channel": channel, "n_sites": n_sites}
+            even = n_sites - n_sites % mesh.size
+            if even:
+                mine = site_indices[distributed.local_site_slice(even, mesh.rank, mesh.size)]
+                local = welford_scan(torch.from_numpy(
+                    self.store.read_sites(mine, cycle=cycle, channel=channel)).to(self.device))
+                state = merge_shard_states(local, mesh)
+                site_indices = site_indices[even:]
+            if not distributed.is_writer():
+                return {"cycle": cycle, "channel": channel, "n_sites": n_sites}
+        chunks = create_partitions(site_indices, max(args["chunk_size"], 1))
         loaded = prefetch_iter(
             chunks,
             lambda part: self.store.read_sites(part, cycle=cycle, channel=channel),
             depth=max(args.get("prefetch_chunks", 2), 1),
         )
-        state = None
+        tail = None
         for stack in loaded:
             part = welford_scan(torch.from_numpy(stack).to(self.device))
-            state = part if state is None else welford_merge(state, part)
+            tail = part if tail is None else welford_merge(tail, part)
+        if tail is not None:
+            state = tail if state is None else welford_merge(state, tail)
         if state is None:
             state = welford_init((exp.site_height, exp.site_width), self.device)
         out = welford_finalize(state)

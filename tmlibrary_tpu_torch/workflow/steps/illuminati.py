@@ -19,10 +19,12 @@ The display range is corilla's 0.1 and ``clip_percent`` percentiles when
 of the mosaic on the host.  ``collect`` writes the static Plates, Wells
 and Sites outlines as Parquet shards with LIST columns
 (:func:`~tmlibrary_tpu_torch.io.parquet.write_table`) and registers their
-mapobject types.  ``n_devices > 1`` (the row-sharded pyramid) raises
-:class:`~tmlibrary_tpu_torch.errors.NotSupportedError` (ROADMAP A item
-10); the tiles/s telemetry of the JAX package is not ported (ROADMAP A
-item 11).
+mapobject types.  With ``n_devices > 1`` on a process group (clamped to
+it) the levels are computed row-sharded over that many ranks
+(:func:`~tmlibrary_tpu_torch.parallel.halo.sharded_pyramid_levels`,
+``:119-127``), bit-identical to one rank's; every member stitches the
+plate, and only rank 0 writes the tiles.  The tiles/s telemetry of the
+JAX package is not ported (ROADMAP A item 11).
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ import shutil
 import numpy as np
 import torch
 
-from tmlibrary_tpu_torch.errors import NotSupportedError
 from tmlibrary_tpu_torch.io import parquet, png
 from tmlibrary_tpu_torch.models.experiment import SiteRef
 from tmlibrary_tpu_torch.models.image import IllumstatsContainer
@@ -50,21 +51,18 @@ from tmlibrary_tpu_torch.models.mapobject import (
 from tmlibrary_tpu_torch.models.metadata import ChannelLayer
 from tmlibrary_tpu_torch.ops import image_ops
 from tmlibrary_tpu_torch.ops.pyramid import cut_tiles, pyramid_levels, to_uint8
+from tmlibrary_tpu_torch.parallel import distributed
+from tmlibrary_tpu_torch.parallel.halo import sharded_pyramid_levels
+from tmlibrary_tpu_torch.parallel.mesh import spatial_mesh
 from tmlibrary_tpu_torch.utils import create_partitions
 from tmlibrary_tpu_torch.workflow.api import Step
 from tmlibrary_tpu_torch.workflow.args import Argument, ArgumentCollection
 from tmlibrary_tpu_torch.workflow.registry import register_step
 
 
-def _refuse_sharding(args) -> None:
-    if args["n_devices"] > 1:
-        raise NotSupportedError(
-            "illuminati: n_devices > 1 (the row-sharded pyramid) is not ported yet "
-            "(ROADMAP A item 10)")
-
-
 @register_step("illuminati")
 class PyramidBuilder(Step):
+    collective = True
     batch_args = ArgumentCollection(
         Argument("correct", bool, default=True, help="apply illumination stats"),
         Argument("align", bool, default=False, help="apply cycle-0 alignment"),
@@ -78,7 +76,6 @@ class PyramidBuilder(Step):
     )
 
     def create_batches(self, args):
-        _refuse_sharding(args)
         exp = self.store.experiment
         return [
             {"plate": p.name, "channel": ch.index}
@@ -120,8 +117,10 @@ class PyramidBuilder(Step):
 
     def run_batch(self, batch: dict) -> dict:
         args = batch["args"]
-        _refuse_sharding(args)
         exp = self.store.experiment
+        mesh = spatial_mesh(max(1, min(int(args["n_devices"]), distributed.world_size())))
+        if not mesh.member:
+            return {"channel": batch["channel"]}
         channel, cycle = batch["channel"], args["cycle"]
         plate = next(p for p in exp.plates if p.name == batch["plate"])
 
@@ -137,13 +136,15 @@ class PyramidBuilder(Step):
             upper = lower = None
 
         mosaic = self._mosaic(plate, channel, args, stats)
+        levels = sharded_pyramid_levels(mosaic, mesh) if mesh.size > 1 else pyramid_levels(mosaic)
+        if not distributed.is_writer():
+            return {"channel": channel, "n_levels": len(levels)}
         if upper is None:
             # one call takes both quantiles of the host mosaic, as the
             # reference does
             lo_up = np.percentile(mosaic.cpu().numpy(), [0.1, args["clip_percent"]])
             lower, upper = float(lo_up[0]), float(lo_up[1])
 
-        levels = pyramid_levels(mosaic)
         out_dir = self.store.root / "pyramids" / f"channel{channel:02d}"
         # PNG encoding is host work and zlib releases the interpreter's
         # lock: a thread pool encodes a level's tiles concurrently, drained

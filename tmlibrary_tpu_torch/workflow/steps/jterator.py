@@ -1,23 +1,46 @@
-"""jterator: run the image-analysis pipeline over all sites (sites layout).
+"""jterator: run the image-analysis pipeline over all sites.
 
 Counterpart: ``tmlibrary_tpu/workflow/steps/jterator.py``
 (``ImageAnalysisRunner``, ``:110-1949``; reference
-``tmlib/workflow/jterator/api.py`` ``ImageAnalysisPipeline``): plan
-batches of sites (with the work-aware schedule), load each batch's
-channels from the store, correct them with corilla's statistics, align
-them with the align step's shift table and crop them to its intersection
-window, run the pipeline on ``device``, route each batch to an
-object-capacity bucket (escalating one rung up when a batch saturates
-it), write label stacks and feature shards, and register mapobject types
-in ``collect``.
+``tmlib/workflow/jterator/api.py`` ``ImageAnalysisPipeline``).
+
+The sites layout (the default): plan batches of sites (with the
+work-aware schedule), load each batch's channels from the store, correct
+them with corilla's statistics, align them with the align step's shift
+table and crop them to its intersection window, run the pipeline on
+``device``, route each batch to an object-capacity bucket (escalating one
+rung up when a batch saturates it), write label stacks and feature
+shards, and register mapobject types in ``collect``.
+
+The spatial layout (``layout="spatial"``, ``:834-1179``): one batch per
+well.  The well's sites are stitched into one mosaic (corrected and
+shift-aligned as the sites layout prepares them), smoothed, cut at
+Otsu's threshold (over the pixels that carry data when alignment
+zero-filled some) and labeled as one image, so an object that crosses a
+site seam keeps one id; ``spatial_secondary_channel`` grows secondary
+objects from those seeds by the watershed through another channel.  On
+one rank the mosaic goes through the CC and watershed kernels whole; on
+several, through the halo-exchanged blocks of :mod:`..parallel`.  The
+persist writes per-site label stacks carrying the global ids and one
+feature shard per well (``site_index`` -1), measured on the host
+(:func:`~tmlibrary_tpu_torch.ops.mosaic.mosaic_feature_table`).
 
 The batch arguments are the reference's, with the same names, types,
 defaults and choices, so a ``batch_*.json`` written by either package
 resolves in the other.  What the port does with them:
 
-- ``layout="spatial"`` and ``n_devices > 1`` (ROADMAP A item 10),
-  ``as_polygons`` and ``figures`` (item 11) raise
-  :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.
+- ``n_devices`` is clamped to the process group (0: all of it; without
+  a group, one rank).  Above one rank, the sites layout runs each
+  member's slice of the batch
+  (:meth:`~tmlibrary_tpu_torch.jterator.pipeline.ImageAnalysisPipeline.build_sharded_batch_fn`)
+  and the spatial layout each member's block of the mosaic, on the
+  largest rows or ``rows x cols`` mesh that divides it
+  (``spatial_grid``).  Every rank runs every batch; only rank 0 writes
+  to the store, and batches run one at a time, so the ranks' collectives
+  stay in one order.
+- ``as_polygons`` writes ``segmentations/<objects>_polygons_<shard>.parquet``
+  (:mod:`~tmlibrary_tpu_torch.ops.polygons`) and ``figures``
+  segmentation overlays to ``figures/`` (:mod:`~tmlibrary_tpu_torch.jterator.figures`).
 - With QC on (the step's ``qc`` argument, else
   :func:`tmlibrary_tpu_torch.qc.enabled`) the batch function also returns
   the per-site image statistics and the DL segmenters' ``__model__``
@@ -43,14 +66,15 @@ resolves in the other.  What the port does with them:
 
 The pipeline cache holds one
 :class:`~tmlibrary_tpu_torch.jterator.pipeline.ImageAnalysisPipeline` per
-(capacity, QC gate, weight digests)
+(capacity, mesh size, QC gate, weight digests)
 (:func:`~tmlibrary_tpu_torch.jterator.pipeline.pipeline_identity`), with
 the intersection window read once from the store.  In the
 launch/persist split (:mod:`~tmlibrary_tpu_torch.workflow.pipelined`),
 :meth:`ImageAnalysisRunner.launch_batch` moves the inputs to the device,
-calls the batch function and records a CUDA event; ``block_batch`` waits
-on that event alone, and ``persist_batch`` fetches the results with
-``.cpu()`` on the persist worker and writes them.
+calls the batch function (or segments the well) and records a CUDA
+event; ``block_batch`` waits on that event alone, and ``persist_batch``
+fetches the results with ``.cpu()`` on the persist worker and writes
+them.
 """
 
 from __future__ import annotations
@@ -61,6 +85,7 @@ import logging
 import os
 import shutil
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -68,12 +93,9 @@ import torch
 
 from tmlibrary_tpu_torch import capacity
 from tmlibrary_tpu_torch import qc as qc_mod
-from tmlibrary_tpu_torch.errors import (
-    JobDescriptionError,
-    NotSupportedError,
-    PipelineError,
-    StoreError,
-)
+from tmlibrary_tpu_torch.errors import JobDescriptionError, PipelineError, StoreError
+from tmlibrary_tpu_torch.io import parquet
+from tmlibrary_tpu_torch.jterator import figures
 from tmlibrary_tpu_torch.jterator.description import PipelineDescription
 from tmlibrary_tpu_torch.jterator.pipeline import (
     MODEL_QC_KEY,
@@ -89,7 +111,14 @@ from tmlibrary_tpu_torch.models.mapobject import (
     plate_mosaic_shape,
 )
 from tmlibrary_tpu_torch.native import solidity_batch
+from tmlibrary_tpu_torch.ops import polygons
+from tmlibrary_tpu_torch.ops.image_ops import correct_illumination
+from tmlibrary_tpu_torch.ops.mosaic import mosaic_feature_table
 from tmlibrary_tpu_torch.ops.pyramid import n_pyramid_levels
+from tmlibrary_tpu_torch.parallel import distributed
+from tmlibrary_tpu_torch.parallel import label as par_label
+from tmlibrary_tpu_torch.parallel.halo import gather_blocks
+from tmlibrary_tpu_torch.parallel.mesh import site_mesh, spatial_mesh
 from tmlibrary_tpu_torch.utils import create_partitions
 from tmlibrary_tpu_torch.workflow import schedule as schedule_mod
 from tmlibrary_tpu_torch.workflow.api import Step
@@ -156,8 +185,79 @@ def feature_table(counts, feats: dict, site_meta: list[dict], max_objects: int) 
     return table
 
 
+def _well_shard(batch: dict) -> str:
+    """The one home of the per-well shard token used by feature shards,
+    polygon files and figures alike (``:50-54``)."""
+    plate, well_row, well_col = batch["well"]
+    return f"well_{plate}_{well_row:02d}_{well_col:02d}"
+
+
+def _best_spatial_grid(requested: int, hm: int, wm: int) -> tuple[int, int]:
+    """Largest ``nr * nc <= requested`` with ``nr`` dividing the mosaic
+    rows and ``nc`` the columns; equal products prefer more rows
+    (``:57-69``)."""
+    best = (1, 1)
+    for nr in range(requested, 0, -1):
+        if hm % nr:
+            continue
+        cap = requested // nr
+        nc = next(k for k in range(cap, 0, -1) if wm % k == 0)
+        if nr * nc > best[0] * best[1]:
+            best = (nr, nc)
+    return best
+
+
+class _StageClock:
+    """Seconds of the device stages of one spatial batch: a CUDA event is
+    recorded when a stage's work has been queued on the card and the
+    events are read once the batch has been fetched (the host clock on
+    the CPU).  Recording an event does not wait for the card."""
+
+    def __init__(self, device: torch.device):
+        self._cuda = device.type == "cuda"
+        self._marks = [("start", self._now())]
+
+    def _now(self):
+        if not self._cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def __call__(self, stage: str) -> None:
+        self._marks.append((stage, self._now()))
+
+    def seconds(self) -> dict[str, float]:
+        out: dict[str, float] = {}
+        for (_, a), (stage, b) in zip(self._marks, self._marks[1:]):
+            if self._cuda:
+                b.synchronize()
+                dt = a.elapsed_time(b) / 1e3
+            else:
+                dt = b - a
+            out[stage] = out.get(stage, 0.0) + dt
+        return out
+
+
+def _host_shift(img: np.ndarray, dy: int, dx: int) -> np.ndarray:
+    """Integer translate with zero fill, the host twin of
+    :func:`~tmlibrary_tpu_torch.ops.image_ops.shift_image`."""
+    out = np.roll(img, (int(dy), int(dx)), axis=(0, 1))
+    h, w = out.shape
+    if dy > 0:
+        out[:dy, :] = 0
+    elif dy < 0:
+        out[h + dy:, :] = 0
+    if dx > 0:
+        out[:, :dx] = 0
+    elif dx < 0:
+        out[:, w + dx:] = 0
+    return out
+
+
 @register_step("jterator")
 class ImageAnalysisRunner(Step):
+    collective = True
     batch_args = ArgumentCollection(
         Argument("pipe", str, default="",
                  help="path to the .pipe.yaml pipeline description "
@@ -280,24 +380,14 @@ class ImageAnalysisRunner(Step):
         self.pipeline_stats: dict | None = None
         self.pipeline_batch_times: dict | None = None
 
-    # ---------------------------------------------------------------- checks
-    @staticmethod
-    def _check_supported(args) -> None:
-        """Raise for the arguments whose paths the port does not have yet."""
-        if args.get("layout", "sites") == "spatial":
-            raise NotSupportedError(
-                "jterator: layout='spatial' is not ported yet (ROADMAP A item 10)")
-        if int(args.get("n_devices") or 0) > 1:
-            raise NotSupportedError(
-                "jterator: n_devices > 1 is not ported yet (ROADMAP A item 10)")
-        for name in ("as_polygons", "figures"):
-            if args.get(name):
-                raise NotSupportedError(
-                    f"jterator: {name}=True is not ported yet (ROADMAP A item 11)")
-
     # ------------------------------------------------------------------ plan
     def create_batches(self, args):
-        self._check_supported(args)
+        if args["layout"] == "spatial":
+            # one batch per well: the well mosaic is the sharding unit
+            wells: dict[tuple, list[int]] = {}
+            for i, r in enumerate(self.store.experiment.sites()):
+                wells.setdefault((r.plate, r.well_row, r.well_column), []).append(i)
+            return [{"sites": idxs, "well": list(key)} for key, idxs in sorted(wells.items())]
         if not args["pipe"]:
             raise ValueError("--pipe is required for --layout sites")
         sites = list(range(self.store.n_sites))
@@ -371,7 +461,7 @@ class ImageAnalysisRunner(Step):
         prior = float(peak) if peak is not None else float(max(table.values()))
         predicted = schedule_mod.predict_site_counts(key, sites, prior)
         return schedule_mod.pack_plan(
-            sites, predicted, batch_size, ladder, 1,
+            sites, predicted, batch_size, ladder, distributed.clamp_devices(args["n_devices"]),
             seed=description_digest(self._description(args)),
             mode=mode, source=source,
         )
@@ -389,14 +479,16 @@ class ImageAnalysisRunner(Step):
             return self._desc
 
     def _pipeline(self, args, capacity_: int | None = None):
-        """``(description, batch function)`` for ``capacity_`` (default:
-        the ``max_objects`` ceiling): one :class:`ImageAnalysisPipeline`
-        per capacity, cropping to the intersection window when a channel
-        aligns and the align step stored one."""
+        """``(description, batch function, mesh)`` for ``capacity_``
+        (default: the ``max_objects`` ceiling): one
+        :class:`ImageAnalysisPipeline` per capacity and mesh size, cropping
+        to the intersection window when a channel aligns and the align
+        step stored one."""
         desc = self._description(args)
         cap = int(capacity_ if capacity_ is not None else args["max_objects"])
         qc_on = qc_mod.enabled() if self._qc is None else self._qc
-        key = (cap, pipeline_identity(desc, qc_on))
+        mesh = site_mesh(distributed.clamp_devices(args["n_devices"]))
+        key = (cap, mesh.size, pipeline_identity(desc, qc_on))
         with self._pipeline_lock:
             if not self._window_resolved:
                 if any(ch.align for ch in desc.channels):
@@ -411,15 +503,14 @@ class ImageAnalysisRunner(Step):
             if key not in self._pipelines:
                 self._pipelines[key] = ImageAnalysisPipeline(
                     desc, max_objects=cap, device=self.device
-                ).build_batch_fn(self._window, qc=qc_on)
-            return desc, self._pipelines[key]
+                ).build_sharded_batch_fn(mesh, self._window, qc=qc_on)
+            return desc, self._pipelines[key], mesh
 
     # ---------------------------------------------------------------- routing
     def _effective_batch(self, batch: dict) -> dict:
         """Fold in collect's auto-resegmentation cap escalation, which
         lives in a side file (``cap_overrides.json``), not in the batch
         file."""
-        self._check_supported(batch["args"])
         override = self._cap_overrides().get(str(batch["index"]))
         if override and override > batch["args"].get("max_objects", 0):
             return {**batch, "args": {**batch["args"], "max_objects": int(override)}}
@@ -434,7 +525,9 @@ class ImageAnalysisRunner(Step):
         rung when the schedule packed it, else the smallest rung that
         holds the peak count persisted so far, else (a cold router; the
         port has no tuning verdict) the ladder's smallest rung.  A
-        mis-route only costs a re-launch one rung up."""
+        mis-route only costs a re-launch one rung up.  Over several ranks
+        the rung is the largest any rank routes: they build pipelines of
+        that capacity and gather results shaped by it."""
         args = batch["args"]
         ceiling = int(args["max_objects"])
         ladder = self._ladder(args)
@@ -444,9 +537,10 @@ class ImageAnalysisRunner(Step):
         if planned and int(planned) in ladder:
             return int(planned)
         observed = capacity.observed_peak(self._routing_key(args, ceiling, ladder))
-        if observed is None:
-            return ladder[0]
-        return capacity.select_capacity(observed, ladder)
+        cap = ladder[0] if observed is None else capacity.select_capacity(observed, ladder)
+        if distributed.world_size() > 1:
+            cap = distributed.max_over_ranks(cap, self.device)
+        return cap
 
     def _routing_key(self, args, ceiling: int, ladder: tuple[int, ...]) -> str:
         """The pipeline-family key scoping this step's bucket history
@@ -482,6 +576,8 @@ class ImageAnalysisRunner(Step):
     # -------------------------------------------------------------------- run
     def run_batch(self, batch: dict) -> dict:
         batch = self._effective_batch(batch)
+        if batch["args"].get("layout", "sites") == "spatial":
+            return self._persist_spatial(batch, self._launch_spatial(batch))
         cap = self._route_capacity(batch)
         result = self._launch(batch, capacity_=cap)
         return self._persist(batch, result, capacity_=cap)
@@ -492,6 +588,11 @@ class ImageAnalysisRunner(Step):
         :class:`~tmlibrary_tpu_torch.workflow.pipelined.PipelinedExecutor`
         (``depth=None``: 8 on the card, 2 on the CPU).  The phase times
         land in :attr:`pipeline_stats` and :attr:`pipeline_batch_times`."""
+        if distributed.world_size() > 1:
+            # ranks take part in one another's collectives batch by batch
+            for batch in batches:
+                yield batch, self.run_batch(batch)
+            return
         depth, source = resolve_pipeline_depth(depth, self.device)
         stats = PipelineStats(depth, source)
         try:
@@ -502,20 +603,28 @@ class ImageAnalysisRunner(Step):
 
     # ------------------------------------------------- launch/persist split
     def prefetch_batch(self, batch: dict) -> dict:
-        """Host-side input loading only: safe on a prefetch worker."""
-        return self._load_inputs(self._effective_batch(batch))
+        """Host-side input loading only (store reads, statistics, shift
+        rows, the spatial layout's stitch): safe on a prefetch worker."""
+        batch = self._effective_batch(batch)
+        if batch["args"].get("layout", "sites") == "spatial":
+            return self._prefetch_spatial(batch)
+        return self._load_inputs(batch)
 
     def launch_batch(self, batch: dict, prefetched=None):
         """Dispatch; returns ``(effective_batch, ctx)`` with the un-fetched
         results and a CUDA event recorded after the launch in ``ctx``."""
         batch = self._effective_batch(batch)
-        cap = self._route_capacity(batch)
-        result = self._launch(batch, prefetched, capacity_=cap)
+        if batch["args"].get("layout", "sites") == "spatial":
+            payload = self._launch_spatial(batch, prefetched)
+            cap = None
+        else:
+            cap = self._route_capacity(batch)
+            payload = self._launch(batch, prefetched, capacity_=cap)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
             done.record()
-        return batch, (result, cap, done)
+        return batch, (payload, cap, done)
 
     def block_batch(self, ctx) -> None:
         """Wait for this batch's launched work alone (its event), not for
@@ -527,8 +636,10 @@ class ImageAnalysisRunner(Step):
     def persist_batch(self, batch: dict, ctx) -> dict:
         """Fetch and write one launched batch (the effective batch from
         :meth:`launch_batch`)."""
-        result, cap, _ = ctx
-        return self._persist(batch, result, capacity_=cap)
+        payload, cap, _ = ctx
+        if batch["args"].get("layout", "sites") == "spatial":
+            return self._persist_spatial(batch, payload)
+        return self._persist(batch, payload, capacity_=cap)
 
     def _load_inputs(self, batch: dict) -> dict:
         """A batch's store reads, illumination statistics and shift rows,
@@ -580,8 +691,11 @@ class ImageAnalysisRunner(Step):
         """Move the (possibly prefetched) inputs to the device and call the
         batch function; on the card this returns once the work is queued
         (less any host syncs inside the pipeline).  With QC on the result
-        is ``(SiteResult, qc statistics)``."""
-        _, fn = self._pipeline(batch["args"], capacity_)
+        is ``(SiteResult, qc statistics)``; a rank outside the mesh gets
+        None."""
+        _, fn, mesh = self._pipeline(batch["args"], capacity_)
+        if not mesh.member:
+            return None
         if inputs is None:
             inputs = self._load_inputs(batch)
         dev = self.device
@@ -629,6 +743,8 @@ class ImageAnalysisRunner(Step):
         ceiling = int(args["max_objects"])
         cap = int(capacity_) if capacity_ is not None else ceiling
         escalations = 0
+        if result is None:  # a rank outside the mesh: nothing ran here
+            return {"n_sites": n_valid, "objects": {}}
         result, qc_dev = result if isinstance(result, tuple) else (result, None)
         counts, objects, measurements, found = self._host(result, n_valid)
         if cap < ceiling:
@@ -648,6 +764,14 @@ class ImageAnalysisRunner(Step):
                 result, qc_dev = result if isinstance(result, tuple) else (result, None)
                 counts, objects, measurements, found = self._host(result, n_valid)
 
+        # every rank keeps the routing history (each holds the whole batch)
+        peak = max((int(v.max(initial=0)) for v in counts.values()), default=0)
+        self._note_peak(args, peak)
+        if counts:
+            site_counts = np.maximum.reduce([np.asarray(v) for v in counts.values()])
+            self._note_site_costs(args, sites, site_counts)
+        if not distributed.is_writer():
+            return {"n_sites": n_valid, "objects": {k: int(v.sum()) for k, v in counts.items()}}
         objects, measurements = to_site_frame(objects, measurements, self._window)
         # solidity is hull-based and ragged, so it is measured on the host
         # from the exported labels and joined into the morphology features
@@ -672,16 +796,16 @@ class ImageAnalysisRunner(Step):
                 name, feature_table(counts[name], measurements.get(name, {}), site_meta,
                                     max_obj),
                 shard=shard)
+            # polygon tracing is 2-D only; volume objects skip it
+            if args["as_polygons"] and objects[name].ndim == 3:
+                self._write_polygons(name, objects[name], sites, shard)
+        if args.get("figures"):
+            self._write_site_figures(args, sites, objects)
 
         summary = {
             "n_sites": n_valid,
             "objects": {k: int(v.sum()) for k, v in counts.items()},
         }
-        peak = max((int(v.max(initial=0)) for v in counts.values()), default=0)
-        self._note_peak(args, peak)
-        if counts:
-            site_counts = np.maximum.reduce([np.asarray(v) for v in counts.values()])
-            self._note_site_costs(args, sites, site_counts)
         plan = batch.get("schedule") or {}
         if plan.get("rung"):
             summary["schedule_rung"] = int(plan["rung"])
@@ -732,6 +856,254 @@ class ImageAnalysisRunner(Step):
         return qc_mod.get_session(self._qc).observe_batch(
             self.name, sites, image_stats=image_stats, counts=counts,
             measurements=measurements, saturated=saturated)
+
+    def _write_polygons(self, name: str, labels: np.ndarray, sites, shard: str) -> None:
+        """One polygon table of the batch's sites (``:1704-1716``)."""
+        tables = []
+        for b, site in enumerate(sites):
+            polys = polygons.labels_to_polygons(labels[b])
+            if polys:
+                tables.append(polygons.polygons_to_table(polys, site))
+        if tables:
+            parquet.write_table(
+                self.store.root / "segmentations" / f"{name}_polygons_{shard}.parquet",
+                polygons.concat_tables(tables))
+
+    def _write_site_figures(self, args, sites, objects: dict) -> None:
+        """Segmentation overlays of every 2-D family over the first
+        non-z-stack input channel, the raw pixels shifted into the frame
+        the labels live in when the channel aligns (``:1534-1561``)."""
+        desc = self._description(args)
+        first = next((c for c in desc.channels if not c.zstack), None)
+        if first is None:
+            return
+        idx = self.store.experiment.channel_index(first.name)
+        base = self.store.read_sites(sites, cycle=args["cycle"], channel=idx,
+                                     tpoint=args["tpoint"], zplane=args["zplane"])
+        if first.align and self.store.has_shifts(args["cycle"]):
+            table = self.store.read_shifts(args["cycle"])
+            base = np.stack([_host_shift(base[b], *table[s]) for b, s in enumerate(sites)])
+        for name, labels in objects.items():
+            if labels.ndim == 3:
+                figures.write_figures(self.store.root / "figures", name, base, labels, sites)
+
+    # ------------------------------------------------------------ spatial run
+    def _stitched_channel(self, sites, srefs, ch_index: int, args, n_sy: int, n_sx: int,
+                          h: int, w: int) -> np.ndarray:
+        """One channel's well mosaic (``:749-785``): corrected with
+        corilla's statistics when they exist (on ``device``, the sites
+        layout's correction), each site shifted by the align step's
+        shift when it stored one for the cycle (zero-filled, as the sites
+        layout's ``shift_image``; the intersection crop has no meaning at
+        mosaic scale)."""
+        imgs = self.store.read_sites(sites, cycle=args["cycle"], channel=ch_index,
+                                     tpoint=args["tpoint"], zplane=args["zplane"])
+        if self.store.has_illumstats(cycle=args["cycle"], channel=ch_index):
+            cont = IllumstatsContainer.from_store(
+                self.store.read_illumstats(cycle=args["cycle"], channel=ch_index))
+            dev = self.device
+            imgs = correct_illumination(
+                torch.from_numpy(imgs).to(dev),
+                torch.from_numpy(np.ascontiguousarray(cont.mean_log)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(cont.std_log)).to(dev)).cpu().numpy()
+        shifts = None
+        if args.get("spatial_align", True) and self.store.has_shifts(args["cycle"]):
+            shifts = self.store.read_shifts(args["cycle"])
+        mosaic = np.zeros((n_sy * h, n_sx * w), np.float32)
+        for img, r, site_idx in zip(imgs, srefs, sites):
+            if shifts is not None:
+                dy, dx = int(shifts[site_idx][0]), int(shifts[site_idx][1])
+                if dy or dx:
+                    img = _host_shift(img, dy, dx)
+            mosaic[r.site_y * h:(r.site_y + 1) * h, r.site_x * w:(r.site_x + 1) * w] = img
+        return mosaic
+
+    def _stitch_validity(self, sites, srefs, args, n_sy: int, n_sx: int, h: int,
+                         w: int) -> "np.ndarray | None":
+        """The mosaic's pixels that carry data after the alignment shifts
+        (``:787-811``); None when no shift moved anything."""
+        if not (args.get("spatial_align", True) and self.store.has_shifts(args["cycle"])):
+            return None
+        shifts = self.store.read_shifts(args["cycle"])
+        if not any(int(shifts[s][0]) or int(shifts[s][1]) for s in sites):
+            return None
+        valid = np.zeros((n_sy * h, n_sx * w), bool)
+        for r, site_idx in zip(srefs, sites):
+            v = _host_shift(np.ones((h, w), np.float32), int(shifts[site_idx][0]),
+                            int(shifts[site_idx][1])) > 0
+            valid[r.site_y * h:(r.site_y + 1) * h, r.site_x * w:(r.site_x + 1) * w] = v
+        return valid
+
+    def _prefetch_spatial(self, batch: dict) -> dict:
+        """The well's geometry and the segmentation channel's stitched
+        mosaic and validity (``:816-836``)."""
+        args = batch["args"]
+        sites = batch["sites"]
+        exp = self.store.experiment
+        idx = exp.channel_index(args["spatial_channel"] or exp.channels[0].name)
+        refs = list(exp.sites())
+        srefs = [refs[i] for i in sites]
+        h, w = exp.site_height, exp.site_width
+        n_sy = max(r.site_y for r in srefs) + 1
+        n_sx = max(r.site_x for r in srefs) + 1
+        t0 = time.perf_counter()
+        return {
+            "idx": idx, "srefs": srefs, "h": h, "w": w, "n_sy": n_sy, "n_sx": n_sx,
+            "mosaic": self._stitched_channel(sites, srefs, idx, args, n_sy, n_sx, h, w),
+            "valid": self._stitch_validity(sites, srefs, args, n_sy, n_sx, h, w),
+            "stitch_s": time.perf_counter() - t0,
+        }
+
+    def _spatial_mesh(self, args, hm: int, wm: int):
+        """The mesh of one well (``:895-952``): as many ranks as
+        ``n_devices`` allows that divide the mosaic exactly (padding would
+        move the Otsu cut and the border smoothing), as row bands or a
+        ``rows x cols`` grid, whichever keeps more ranks busy under
+        ``spatial_grid="auto"``; the labels are the same either way."""
+        requested = distributed.clamp_devices(args["n_devices"])
+        n_rows = next(k for k in range(requested, 0, -1) if hm % k == 0)
+        nr, nc = _best_spatial_grid(requested, hm, wm)
+        kind = args.get("spatial_grid", "auto")
+        use_grid = kind == "grid" or (kind == "auto" and nr * nc > n_rows)
+        mesh = spatial_mesh(nr, nc) if use_grid else spatial_mesh(n_rows)
+        if mesh.size < requested:
+            logger.info("spatial layout: %s mesh uses %d of %d ranks — mosaic %dx%d must "
+                        "divide it evenly", "x".join(map(str, mesh.grid)), mesh.size,
+                        requested, hm, wm)
+        return mesh
+
+    def _launch_spatial(self, batch: dict, prefetched: dict | None = None) -> dict:
+        """Segment one well's mosaic (``:838-1002``): Gaussian smoothing,
+        Otsu's cut (over the valid pixels when alignment zero-filled some),
+        the distributed CC, and with ``spatial_secondary_channel`` the
+        distributed watershed from the primary labels through that
+        channel's Otsu mask.  Each rank uploads and keeps only its block of
+        each image; the label images are gathered on rank 0 alone.  Returns
+        the un-fetched labels with what the persist needs; a rank outside
+        the mesh, and every rank but 0, gets ``labels`` None."""
+        args = batch["args"]
+        if prefetched is None:
+            prefetched = self._prefetch_spatial(batch)
+        mosaic, valid = prefetched["mosaic"], prefetched["valid"]
+        dev = self.device
+        sites, srefs = batch["sites"], prefetched["srefs"]
+        h, w, n_sy, n_sx = (prefetched[k] for k in ("h", "w", "n_sy", "n_sx"))
+        stitched = {prefetched["idx"]: mosaic}
+        sec_ch = args.get("spatial_secondary_channel", "")
+
+        def get_channel(i: int) -> np.ndarray:
+            # with a secondary every mosaic is read at least twice, so they
+            # are kept; without one each is read once and let go
+            if i in stitched:
+                return stitched[i]
+            m = self._stitched_channel(sites, srefs, i, args, n_sy, n_sx, h, w)
+            if sec_ch:
+                stitched[i] = m
+            return m
+
+        hm, wm = mosaic.shape
+        mesh = self._spatial_mesh(args, hm, wm)
+        ctx = {"labels": None, "count": None, "sec": None, "mosaic": mosaic,
+               "get_channel": get_channel, "srefs": srefs,
+               "mesh_shape": [mesh.grid[0], mesh.grid[1]], "stitch_s": prefetched["stitch_s"]}
+        if not mesh.member:
+            return ctx
+        clock = _StageClock(dev)
+
+        def upload(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(mesh.block(a))).to(dev)
+
+        img, valid_b = upload(mosaic), None if valid is None else upload(valid)
+        clock("upload")
+        labels, count = par_label.segment_mosaic_block(
+            img, mesh, hm, wm, sigma=args["spatial_sigma"], valid=valid_b, mark=clock)
+        ctx["count"] = count
+        if sec_ch:
+            sec_np = np.asarray(get_channel(self.store.experiment.channel_index(sec_ch)),
+                                np.float32)
+            sec_img = upload(sec_np)
+            clock("secondary_upload")
+            factor = args["spatial_secondary_factor"]
+            t_sec = par_label.sharded_otsu_value(sec_img, mesh, valid_b)
+            if valid_b is not None:
+                # the same zero-stripe exclusion as the primary cut
+                t_sec = torch.tensor(float(t_sec) * factor, dtype=torch.float32, device=dev)
+            else:
+                t_sec = t_sec * factor
+            clock("secondary_otsu")
+            sec = par_label.watershed_block(sec_img, labels, sec_img > t_sec, mesh,
+                                            n_levels=args["spatial_secondary_levels"])
+            clock("watershed")
+            ctx["sec"] = (args["spatial_secondary_objects"], sec_np,
+                          gather_blocks(sec, mesh, hm, wm, dst=0))
+        ctx["labels"] = gather_blocks(labels, mesh, hm, wm, dst=0)
+        clock("gather")
+        ctx["clock"] = clock
+        return ctx
+
+    def _persist_spatial(self, batch: dict, ctx: dict) -> dict:
+        """Fetch one well's labels and write them out (``:1004-1052``):
+        the primary family, then the secondary one, which keeps the
+        primary's ids and count.  The summary's ``stages`` holds the
+        seconds of each stage: the host stitch, the device stages on the
+        card's clock (:class:`_StageClock`), and the fetch, the host
+        features and the writes on the host's."""
+        args = batch["args"]
+        sites = batch["sites"]
+        summary = {"n_sites": len(sites), "layout": "spatial", "mesh_shape": ctx["mesh_shape"]}
+        if ctx["labels"] is None or not distributed.is_writer():
+            return summary
+        # waits for the device stages, so that the fetch is the copy alone
+        stages = {"stitch": ctx["stitch_s"], **ctx["clock"].seconds()}
+        t0 = time.perf_counter()
+        labels = ctx["labels"].cpu().numpy()
+        count = int(ctx["count"])
+        shard = _well_shard(batch)
+        name = args["spatial_objects"]
+        families = [(name, labels, ctx["mosaic"])]
+        if ctx["sec"] is not None:
+            sec_name, sec_np, sec_labels = ctx["sec"]
+            families.append((sec_name, sec_labels.cpu().numpy(), sec_np))
+        stages.update(fetch=time.perf_counter() - t0, features=0.0)
+        t0 = time.perf_counter()
+        for fam, fam_labels, fam_mosaic in families:
+            stages["features"] += self._persist_mosaic_objects(fam, fam_labels, count, batch,
+                                                               ctx, shard)
+            if args.get("figures"):
+                figures.write_mosaic_figure(self.store.root / "figures", fam, fam_mosaic,
+                                            fam_labels, shard)
+        stages["writes"] = time.perf_counter() - t0 - stages["features"]
+        return {"n_sites": len(sites),
+                "objects": {fam: count for fam, _, _ in families},
+                "mosaic_shape": [int(labels.shape[0]), int(labels.shape[1])],
+                "layout": "spatial", "mesh_shape": ctx["mesh_shape"], "stages": stages}
+
+    def _persist_mosaic_objects(self, name: str, labels: np.ndarray, count: int,
+                                batch: dict, ctx: dict, shard: str) -> float:
+        """One mosaic family (``:1054-1179``): per-site label stacks with
+        the global ids, the well's feature shard and, with
+        ``as_polygons``, the mosaic-frame polygons (``site`` -1).  Returns
+        the seconds the feature table took."""
+        args = batch["args"]
+        exp = self.store.experiment
+        h, w = exp.site_height, exp.site_width
+        per_site = np.stack([labels[r.site_y * h:(r.site_y + 1) * h,
+                                    r.site_x * w:(r.site_x + 1) * w] for r in ctx["srefs"]])
+        self.store.write_labels(per_site, batch["sites"], name, tpoint=args["tpoint"],
+                                zplane=args["zplane"])
+        channels = [(ch.name, lambda i=ch.index: ctx["get_channel"](i)) for ch in exp.channels]
+        t0 = time.perf_counter()
+        table = mosaic_feature_table(labels, count, tuple(batch["well"]), channels,
+                                     args["spatial_zernike_degree"])
+        seconds = time.perf_counter() - t0
+        self.store.append_features(name, table, shard=shard)
+        if args.get("as_polygons"):
+            polys = polygons.labels_to_polygons(labels)
+            if polys:
+                parquet.write_table(
+                    self.store.root / "segmentations" / f"{name}_polygons_{shard}.parquet",
+                    polygons.polygons_to_table(polys, site_index=-1))
+        return seconds
 
     # ---------------------------------------------------------------- helpers
     def _site_metadata(self, sites: list[int]) -> list[dict]:
@@ -804,6 +1176,10 @@ class ImageAnalysisRunner(Step):
         ceiling is hit.  The raised cap lives in ``cap_overrides.json``
         and is applied by :meth:`_effective_batch`."""
         done: dict[str, int] = {}
+        if distributed.world_size() > 1:
+            # collect runs on rank 0 alone: a re-run would wait on ranks
+            # that have moved on; the saturation warning stands instead
+            return done
         for _ in range(self._RESEGMENT_DOUBLINGS):
             state = self._saturation_state()
             if not state:
