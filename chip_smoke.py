@@ -170,7 +170,30 @@ Phases (any failure exits non-zero before the last line):
    held to the scipy chain and ``ndimage.label``.  Mpix/s
    (``jterator_spatial_mosaic_megapixels_per_sec``) and the stage times
    of the step's batch summary, and a ``spatial: {...}`` line.
-10. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+10. The analytics plane (``phase_analytics``; no kernel of its own: the
+   reference leaves it to XLA and the port to PyTorch on the card).  (a)
+   The reference bench's populations (``BENCH_CONFIG=analytics``,
+   ``analytics_n1e4_f32`` and ``analytics_n1e5_f32``: N x 32 normal
+   features, 64 sites, centroids on [0, 2048), seed 0): queries/s of knn
+   (k 10), pca (2), embedding (k 15), spatial density (radius 2) and
+   k-means (k 5), the mean of 3 warm calls ended by a sync, every repeat
+   bit-identical; IVF build and self sweep against brute force with
+   recall@10 on the clustered population; held to the port's CPU run:
+   knn by ``knn_hold`` (every row at 10^4, 2000 strided rows at 10^5) and
+   against a float64 brute force on 256 rows, pca by ``ANALYTICS_RTOL``,
+   the embedding by ``EMBEDDING_MIN_COS`` (at 10^5 the CPU's spectral
+   stage on the card's graph), spatial tables and density exactly,
+   k-means seeds exactly and every Lloyd step of the CPU's trajectory on
+   the card half by half (``decision_hold``, ``ANALYTICS_RTOL``), the IVF
+   search over the card's cells by ``knn_hold`` and its cells by
+   ``decision_hold``.  (b) Phase 6's plate (config 4's nuclei features):
+   ``index build``, ``index list`` and ``tmx-torch query`` of knn, pca,
+   embedding, spatial, clustering, heatmap and classification (logreg,
+   knn) on the card, each a miss, a hit equal to it and a ``--no-cache``
+   recompute bit-identical to it; then each with ``--device cpu`` over a
+   copy keeping the card's indexes, held as in (a), spatial, heatmap and
+   clustering exactly.  An ``analytics: {...}`` line carries the numbers.
+11. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness; rows 2-4 add ``spatial_launches``, their launches
    on phase 9's secondary run, and rows 2-3 ``spatial``, the kernel at
@@ -369,6 +392,93 @@ def dl_flips(want, got, prob_threshold: float) -> dict:
                            f"flow signs, {int(bad_mask.sum())} mask pixels")
     return {"max_rel_err": float((err / np.maximum(scale, 1e-30)).max()),
             "sign_flips": int(sign_flip.sum()), "mask_flips": int(mask_flip.sum())}
+
+
+#: the analytics plane (phase 10).  kNN: a squared distance of the matmul
+#: expansion ``|q|^2 - 2 q.x + |x|^2`` carries float32 rounding of order
+#: ``2^-24 * (|q|^2 + |x|^2)``; two implementations (XLA-CPU, PyTorch's CPU,
+#: cuBLAS) sum the product in other orders, so distances agree within
+#: KNN_EPS of that scale, and a neighbour slot may hold another row only
+#: where the two rows' squared distances lie within it (a near tie).
+KNN_EPS = 8 * 2.0 ** -24
+#: PCA components, scores and explained ratio, k-means centroids and the
+#: logistic regression's logits: |got - want| <= ANALYTICS_RTOL * max|want|
+#: (the components after the sign convention); a k-means assignment, IVF
+#: cell or class may differ only where the reference's two candidates lie
+#: within this tier of the row's scale (the decision inherits the
+#: centroids' and weights' tier)
+ANALYTICS_RTOL = 1e-4
+#: the embedding as a subspace: the cosines of the principal angles
+#: between the two n-column spans
+EMBEDDING_MIN_COS = 0.999
+
+
+def knn_hold(x, queries, got, want) -> dict:
+    """Hold a kNN answer ``got = (idx, dist)`` against ``want`` on the
+    store ``x`` and its query rows (``x`` itself for self-kNN): every slot
+    whose index differs must be a near tie (both rows' float64 squared
+    distances within ``KNN_EPS * (|q|^2 + |x|^2)`` of each other) and every
+    squared distance within that of the reference's.  Raises
+    :class:`SmokeFailure`; returns the slots that differ and the largest
+    error over its bound."""
+    import numpy as np
+
+    x = np.asarray(x, np.float64)
+    q = np.asarray(queries, np.float64)
+    gi, gd = (np.asarray(a) for a in got)
+    wi, wd = (np.asarray(a) for a in want)
+    if gi.shape != wi.shape:
+        raise SmokeFailure(f"knn: shapes {gi.shape} vs {wi.shape}")
+    qn = (q * q).sum(axis=1)[:, None]
+    xn = (x * x).sum(axis=1)
+    d2 = lambda idx: ((q[:, None, :] - x[idx]) ** 2).sum(axis=-1)  # noqa: E731
+    tol = KNN_EPS * (qn + np.maximum(xn[gi], xn[wi]))
+    flips = gi != wi
+    bad = flips & (np.abs(d2(gi) - d2(wi)) > tol)
+    err = np.abs(gd.astype(np.float64) ** 2 - wd.astype(np.float64) ** 2) / tol
+    if bad.any() or (err > 1).any():
+        raise SmokeFailure(f"knn: {int(bad.sum())} neighbour slots differ away from a tie, "
+                           f"largest |d2 error| / bound {err.max():.3g}")
+    return {"flips": int(flips.sum()), "max_err_over_bound": float(err.max(initial=0.0))}
+
+
+def rel_hold(name, got, want, rtol=ANALYTICS_RTOL) -> float:
+    """``|got - want| <= rtol * max|want|``; returns the relative error."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise SmokeFailure(f"{name}: shape {got.shape} vs {want.shape}")
+    err = float(np.abs(got - want).max(initial=0.0) / max(np.abs(want).max(initial=0.0),
+                                                          1e-30))
+    if err > rtol:
+        raise SmokeFailure(f"{name}: relative error {err:.3g} > {rtol}")
+    return err
+
+
+def decision_hold(name, got, want, scores, scale, rtol=ANALYTICS_RTOL) -> int:
+    """Per-row decisions (cluster, cell or class) ``got`` against ``want``:
+    a row may differ only where the reference's ``scores`` (N, C) of the
+    two choices lie within ``rtol * scale`` (N,) of each other.  Raises
+    :class:`SmokeFailure`; returns the rows that differ."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.int64), np.asarray(want, np.int64)
+    rows = np.nonzero(got != want)[0]
+    gap = np.abs(scores[rows, got[rows]] - scores[rows, want[rows]])
+    if (gap > rtol * np.asarray(scale)[rows]).any():
+        raise SmokeFailure(f"{name}: {len(rows)} rows decided otherwise, some away from a tie")
+    return int(len(rows))
+
+
+def subspace_cos(a, b) -> float:
+    """The smallest cosine of the principal angles between the column
+    spans of ``a`` and ``b``."""
+    import numpy as np
+
+    qa, _ = np.linalg.qr(np.asarray(a, np.float64))
+    qb, _ = np.linalg.qr(np.asarray(b, np.float64))
+    return float(np.linalg.svd(qa.T @ qb, compute_uv=False).min())
 
 
 class SmokeFailure(Exception):
@@ -1478,7 +1588,8 @@ def main() -> int:
         phase_steps(torch, wrappers, card, on_chip, chain_sps)
 
         # ---------------------------------------------------------- phase 6
-        phase_engine(torch, wrappers, card, on_chip)
+        analytics_root = Path(__file__).resolve().parent / "build" / f"phase10.{os.getpid()}"
+        phase_engine(torch, wrappers, card, on_chip, keep_features=analytics_root)
 
         # ---------------------------------------------------------- phase 7
         phase_canonical(torch, wrappers, card, on_chip)
@@ -1506,6 +1617,12 @@ def main() -> int:
                     r["spatial"] = {k: spatial[r["name"]][k] for k in (
                         "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
                     r["spatial"]["flood_route"] = spatial[r["name"]].get("flood_route")
+
+        # ---------------------------------------------------------- phase 10
+        try:
+            phase_analytics(torch, analytics_root, card)
+        finally:
+            shutil.rmtree(analytics_root, ignore_errors=True)
         if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except Exception as e:  # the smoke's boundary: report and exit non-zero
@@ -2252,7 +2369,7 @@ def ledger_sequence(engine, root: Path) -> list[tuple]:
             for e in engine.RunLedger(root / "workflow" / "ledger.jsonl").events()]
 
 
-def phase_engine(torch, wrappers, card, on_chip) -> None:
+def phase_engine(torch, wrappers, card, on_chip, keep_features: Path | None = None) -> None:
     """Phase 6, ``workflow_engine_p96x4_256_c4``: the ``Workflow`` engine
     through the port's CLI, as a user submits a workflow.  Phase 5's
     plate (96 wells at 2x2 sites of 256x256, 384 sites, 2 cycles, cycle 1
@@ -2269,7 +2386,9 @@ def phase_engine(torch, wrappers, card, on_chip) -> None:
     (event, step, batch) sequence, statistics by ``STATS_TIERS``, shifts
     exactly, and on jterator's batch 0 (64 sites) labels, counts and
     ``Morphology_solidity`` exactly, the other features by
-    ``corrected_tiers(CARD_TIERS)``.  The directory is removed at the end."""
+    ``corrected_tiers(CARD_TIERS)``.  The directory is removed at the end; the
+    card run's manifest and feature shards are copied to ``keep_features``
+    first, where given (phase 10 queries them)."""
     import threading
 
     import numpy as np
@@ -2499,6 +2618,9 @@ def phase_engine(torch, wrappers, card, on_chip) -> None:
               + f"; batch 0 rerun on the CPU over the card's statistics ({rerun_s:.2f} s): "
               "features within CARD_TIERS, largest |card - cpu| by family "
               + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+        if keep_features is not None:
+            shutil.rmtree(keep_features, ignore_errors=True)
+            copy_part(store.root, keep_features, "features")
     finally:
         shutil.rmtree(base, ignore_errors=True)
 
@@ -4219,6 +4341,283 @@ def phase_spatial(torch, pkg, wrappers, card, bw) -> tuple[dict, dict]:
         shutil.rmtree(base, ignore_errors=True)
     print("spatial: " + json.dumps(summary, default=float))
     return records, launches
+
+
+
+# -------------------------------------------------------- the analytics plane
+#: phase 10: warm calls timed per tool; the strided query rows the CPU
+#: holds at 10^5 objects, and the rows held against a float64 brute force
+ANALYTICS_REPS, CPU_HOLD_ROWS, F64_ROWS = 3, 2000, 256
+
+
+def _self_knn_rows(ops, x, rows, k, device):
+    """Self-kNN of ``rows`` alone (each row's own index dropped from an
+    explicit-query sweep of k + 1), for a strided CPU hold."""
+    import numpy as np
+
+    idx, dist = ops.knn(x, k + 1, queries=x[rows], device=device)
+    keep = idx != rows[:, None]
+    keep[keep.sum(axis=1) > k, -1] = False  # self not among the k + 1: drop the last
+    return (idx[keep].reshape(len(rows), k), dist[keep].reshape(len(rows), k))
+
+
+def _sq64(x, c):
+    """Squared distances in float64, (N, C)."""
+    import numpy as np
+
+    x, c = np.asarray(x, np.float64), np.asarray(c, np.float64)
+    return (x * x).sum(1)[:, None] - 2.0 * x @ c.T + (c * c).sum(1)[None]
+
+
+def _float64_knn(x, rows, k):
+    import numpy as np
+
+    x64 = x.astype(np.float64)
+    q = x64[rows]
+    d2 = (q * q).sum(1)[:, None] - 2.0 * q @ x64.T + (x64 * x64).sum(1)[None]
+    d2[np.arange(len(rows)), rows] = np.inf
+    idx = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    return idx, np.sqrt(np.maximum(np.take_along_axis(d2, idx, 1), 0.0))
+
+
+def analytics_population_phase(torch, n: int, card: str, device: str = "cuda") -> dict:
+    """Phase 10 (a) at ``n`` objects: each tool's warm time on the card,
+    its repeat bit-identical, and its output held to the port's CPU run."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks
+    from tmlibrary_tpu_torch.analytics import index as aidx
+    from tmlibrary_tpu_torch.analytics import ops
+    from tmlibrary_tpu_torch.analytics import spatial as asp
+    from tmlibrary_tpu_torch.tools import clustering
+
+    p = benchmarks.ANALYTICS_PARAMS
+    x, site_index, centroids = benchmarks.analytics_population(n)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    qps, out = {}, {}
+    for tool, fn in benchmarks.analytics_runners(x, site_index, centroids, device).items():
+        seconds, out[tool], same = benchmarks.time_warm(fn, ANALYTICS_REPS, sync)
+        if not same:
+            raise SmokeFailure(f"analytics {tool} N={n}: repeated calls on the card differ")
+        qps[tool] = 1.0 / seconds
+    print(f"  N={n} x {x.shape[1]}: queries/s " + ", ".join(f"{t} {v:.3f}" for t, v in qps.items())
+          + f" (mean of {ANALYTICS_REPS} warm calls, host clock ended by a sync; every "
+          f"repeat bit-identical); on {card}")
+    holds = {}
+    # knn: the CPU on every row at 10^4, on strided rows at 10^5; float64
+    k = p["knn_k"]
+    rows = np.arange(n) if n <= 10_000 else np.linspace(0, n - 1, CPU_HOLD_ROWS).astype(np.int64)
+    cidx, cdist = out["knn"]
+    want = ops.knn(x, k, device="cpu") if len(rows) == n else \
+        _self_knn_rows(ops, x, rows, k, "cpu")
+    holds["knn_vs_cpu"] = knn_hold(x, x[rows], (cidx[rows], cdist[rows]), want)
+    f64 = np.linspace(0, n - 1, F64_ROWS).astype(np.int64)
+    holds["knn_vs_float64"] = knn_hold(x, x[f64], (cidx[f64], cdist[f64]),
+                                       _float64_knn(x, f64, k))
+    # pca
+    cpu_pca = ops.pca(x, p["pca_components"], device="cpu")
+    holds["pca_rel_err"] = max(rel_hold(f"pca {name} N={n}", g, w) for name, g, w in
+                               zip(("scores", "components", "ratio"), out["pca"], cpu_pca))
+    # embedding: the whole CPU run at 10^4; at 10^5 the CPU's spectral
+    # stage on the card's graph (the graph is the knn hold above)
+    if n <= 10_000:
+        cpu_emb = ops.spectral_embedding(x, 2, k=p["embedding_k"], device="cpu")
+    else:
+        graph = ops.knn(x, p["embedding_k"], device=device)
+        cpu_emb = ops.spectral_embedding(x, 2, k=p["embedding_k"], graph=graph, device="cpu")
+    holds["embedding_cos"] = subspace_cos(out["embedding"], cpu_emb)
+    if holds["embedding_cos"] < EMBEDDING_MIN_COS:
+        raise SmokeFailure(f"embedding N={n}: principal cosine {holds['embedding_cos']}")
+    # spatial: exact
+    cpu_index = asp.build_index(site_index, centroids, device="cpu")
+    card_index = asp.build_index(site_index, centroids, device=device)
+    if not (np.array_equal(card_index.tables.cpu().numpy(), cpu_index.tables.numpy())
+            and np.array_equal(out["spatial"], asp.density(cpu_index, p["spatial_radius"]))):
+        raise SmokeFailure(f"spatial N={n}: tables or density differ from the CPU (exact)")
+    # k-means: seeds exact, then every Lloyd step of the CPU's trajectory
+    # half by half on the card
+    kk = p["kmeans_k"]
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).to(device)
+    cent = clustering._greedy_seeds(xc, kk, 0)
+    if not torch.equal(clustering._greedy_seeds(xg, kk, 0).cpu(), cent):
+        raise SmokeFailure(f"kmeans N={n}: the card's seeds differ from the CPU's")
+    flips, worst = 0, 0.0
+    for _ in range(50):
+        assign, dmin = clustering.lloyd_assign(xc, cent)
+        g_assign, _ = clustering.lloyd_assign(xg, cent.to(device))
+        d2 = _sq64(x, cent.numpy())
+        scale = (x.astype(np.float64) ** 2).sum(1) + float((cent.double() ** 2).sum(1).max())
+        flips += decision_hold(f"kmeans N={n} assignments", g_assign.cpu().numpy(),
+                               assign.numpy(), d2, scale)
+        new = clustering.lloyd_update(xc, cent, assign, dmin)
+        worst = max(worst, rel_hold(f"kmeans N={n} update", clustering.lloyd_update(
+            xg, cent.to(device), assign.to(device), dmin.to(device)).cpu().numpy(), new.numpy()))
+        cent = new
+    final = float((out["clustering"][0] == clustering.lloyd_assign(xc, cent)[0].numpy()).mean())
+    holds["kmeans"] = {"step_flips": flips, "update_rel_err": worst,
+                       "final_assignments_equal": final}
+    # IVF on the clustered population: build, self sweep against brute
+    # force, recall@k; the CPU searches the card's cells
+    xb = benchmarks.clustered_population(n)
+    t0 = time.perf_counter()
+    cent_b, mem, assign_b = aidx.ivf_build_arrays(xb, device=device)
+    sync()
+    build_s = time.perf_counter() - t0
+    brute_s, _, _ = benchmarks.time_warm(lambda: ops.knn(xb, k, device=device), ANALYTICS_REPS,
+                                         sync)
+    ivf_s, ivf_out, same = benchmarks.time_warm(
+        lambda: aidx.ivf_search_arrays(xb, cent_b, mem, k, device=device), ANALYTICS_REPS, sync)
+    if not same:
+        raise SmokeFailure(f"ivf N={n}: repeated sweeps on the card differ")
+    recall = aidx.measure_recall(xb, cent_b, mem, k=k, device=device)
+    qrows = np.linspace(0, n - 1, min(n, CPU_HOLD_ROWS)).astype(np.int64)
+    holds["ivf_vs_cpu"] = knn_hold(
+        xb, xb[qrows], aidx.ivf_search_arrays(xb, cent_b, mem, k, queries=xb[qrows],
+                                              device=device),
+        aidx.ivf_search_arrays(xb, cent_b, mem, k, queries=xb[qrows], device="cpu"))
+    with torch.no_grad():
+        cpu_cells = aidx.assign_cells(torch.from_numpy(xb), torch.from_numpy(cent_b)).numpy()
+    diff = np.nonzero(assign_b != cpu_cells)[0]
+    holds["ivf_cell_flips"] = decision_hold(
+        f"ivf N={n} cells", assign_b[diff], cpu_cells[diff], _sq64(xb[diff], cent_b),
+        (xb[diff].astype(np.float64) ** 2).sum(1) + (cent_b.astype(np.float64) ** 2).sum(1).max())
+    index_row = {"n": n, "brute_qps": 1.0 / brute_s, "ivf_qps": 1.0 / ivf_s,
+                 "speedup": brute_s / ivf_s, "recall_at_k": recall, "build_s": build_s,
+                 "n_cells": int(cent_b.shape[0]), "top_p": aidx.DEFAULT_TOP_P, "k": k}
+    print(f"  N={n} index_vs_brute (clustered): brute {index_row['brute_qps']:.3f} q/s, ivf "
+          f"{index_row['ivf_qps']:.3f} q/s ({index_row['speedup']:.2f}x), recall@{k} {recall}, "
+          f"build {build_s:.3f} s, {index_row['n_cells']} cells; on {card}")
+    print(f"  N={n} holds against the port's CPU run ({'all' if len(rows) == n else len(rows)} "
+          f"query rows for knn, {F64_ROWS} rows against float64): {json.dumps(holds)}")
+    return {"per_tool": qps, "index_vs_brute": index_row, "holds": holds}
+
+
+def _query(cli, root, tool, payload, device, *extra) -> dict:
+    return json.loads(run_cli(cli, ["query", "--root", root, "--tool", tool, "--objects",
+                                    "nuclei", "--payload", json.dumps(payload), "--device",
+                                    device, *extra]))
+
+
+def analytics_query_phase(torch, features_root: Path, card: str, device: str = "cuda") -> dict:
+    """Phase 10 (b): ``tmx-torch query`` of every tool over the feature
+    store of phase 6's plate, on the card: a miss, a hit equal to it,
+    a recompute bit-identical to it; ``index build`` and ``index list``;
+    then each query with ``--device cpu`` over a copy of the store that
+    keeps the card's indexes (the same store digest), held to the card."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import cli
+    from tmlibrary_tpu_torch.analytics.index import knn_search
+    from tmlibrary_tpu_torch.analytics.store import FeatureStore
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.tools.base import ToolResult
+    from tmlibrary_tpu_torch.tools.classification import softmax_train
+
+    root = str(features_root)
+    fs = FeatureStore.ensure(ExperimentStore.open(features_root), "nuclei")
+    ids, x, feats = fs.standardized()
+    area = fs.column("Morphology_area")
+    order = np.argsort(area, kind="stable")
+    pick = np.concatenate([order[:10], order[-10:]])
+    examples = [{"site_index": int(ids["site_index"][i]), "label": int(ids["label"][i]),
+                 "class": "small" if j < 10 else "large"} for j, i in enumerate(pick)]
+    heat = next(f for f in feats if f.startswith("Intensity_mean"))
+    queries = {
+        "knn": ("knn", {"k": 10}),
+        "pca": ("pca", {"n_components": 2}),
+        "embedding": ("embedding", {"k": 15}),
+        "spatial": ("spatial", {"statistic": "density", "radius": 2}),
+        "clustering": ("clustering", {"k": 5}),
+        "heatmap": ("heatmap", {"feature": heat}),
+        "logreg": ("classification", {"training_examples": examples}),
+        "knn_vote": ("classification", {"training_examples": examples, "method": "knn"}),
+    }
+    t0 = time.perf_counter()
+    built = json.loads(run_cli(cli, ["index", "build", "--root", root, "--objects", "nuclei",
+                                     "--device", device]))
+    index_s = time.perf_counter() - t0
+    card_res, times = {}, {}
+    for name, (tool, payload) in queries.items():
+        t0 = time.perf_counter()
+        miss = _query(cli, root, tool, payload, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        hit = _query(cli, root, tool, payload, device)
+        values = Path(miss["result_dir"]) / "values.parquet"
+        first = values.read_bytes()
+        redo = _query(cli, root, tool, payload, device, "--no-cache")
+        if (miss["cache"], hit["cache"], redo["cache"]) != ("miss", "hit", "miss") or \
+                hit["key"] != miss["key"] or hit["attributes"] != miss["attributes"]:
+            raise SmokeFailure(f"query {name}: miss/hit/recompute {miss['cache']}, "
+                               f"{hit['cache']}, {redo['cache']} or the hit differs")
+        if values.read_bytes() != first:
+            raise SmokeFailure(f"query {name}: the recompute on the card is not bit-identical")
+        card_res[name] = ToolResult.load(miss["result_dir"])
+    listed = json.loads(run_cli(cli, ["index", "list", "--root", root, "--objects", "nuclei",
+                                      "--device", device]))
+    if not listed["indexes"] or {i["state"] for i in listed["indexes"]} != {"fresh"}:
+        raise SmokeFailure(f"index list: {listed}")
+    # the CPU over a copy holding the shards and the card's indexes
+    cpu_root = features_root.parent / (features_root.name + ".cpu")
+    shutil.rmtree(cpu_root, ignore_errors=True)
+    copy_part(features_root, cpu_root, "features")
+    shutil.copytree(features_root / "analytics", cpu_root / "analytics")
+    cpu_res = {name: ToolResult.load(_query(cli, str(cpu_root), tool, payload, "cpu")
+                                     ["result_dir"]) for name, (tool, payload) in queries.items()}
+    col = lambda res, pre, n: np.stack([np.asarray(res.values[f"{pre}{j}"])  # noqa: E731
+                                        for j in range(n)], 1)
+    holds = {"knn": knn_hold(x, x, (col(card_res["knn"], "nn", 10),
+                                    col(card_res["knn"], "nnd", 10)),
+                             (col(cpu_res["knn"], "nn", 10), col(cpu_res["knn"], "nnd", 10)))}
+    holds["pca_rel_err"] = max(
+        rel_hold("query pca scores", col(card_res["pca"], "pc", 2), col(cpu_res["pca"], "pc", 2)),
+        rel_hold("query pca components", card_res["pca"].attributes["components"],
+                 cpu_res["pca"].attributes["components"]))
+    holds["embedding_cos"] = subspace_cos(col(card_res["embedding"], "emb", 2),
+                                          col(cpu_res["embedding"], "emb", 2))
+    if holds["embedding_cos"] < EMBEDDING_MIN_COS:
+        raise SmokeFailure(f"query embedding: principal cosine {holds['embedding_cos']}")
+    for name in ("spatial", "heatmap", "clustering"):
+        if not np.array_equal(card_res[name].values["value"], cpu_res[name].values["value"]):
+            raise SmokeFailure(f"query {name}: values differ from the CPU's (exact)")
+    # logistic regression: a class may differ only at a near tie of the CPU's logits
+    lookup = {t: i for i, t in enumerate(zip(ids["site_index"].tolist(), ids["label"].tolist()))}
+    rows = np.array([lookup[(e["site_index"], e["label"])] for e in examples])
+    y = np.array([0 if e["class"] == "large" else 1 for e in examples])
+    w, b = softmax_train(x[rows], y, 2, device="cpu")
+    z = x.astype(np.float64) @ w.double().numpy() + b.double().numpy()
+    holds["logreg_flips"] = decision_hold(
+        "query logreg", card_res["logreg"].values["value"], cpu_res["logreg"].values["value"],
+        z, np.abs(z).max(axis=1))
+    # kNN votes: a class may differ only where the two neighbour lists do
+    nb = {d: knn_search(fs, x, 10, features=feats, device=d)[0] for d in (device, "cpu")}
+    differ = card_res["knn_vote"].values["value"] != cpu_res["knn_vote"].values["value"]
+    if (differ & (nb[device] == nb["cpu"]).all(axis=1)).any():
+        raise SmokeFailure("query classification knn: a vote differs on equal neighbours")
+    holds["knn_vote_flips"] = int(differ.sum())
+    shutil.rmtree(cpu_root, ignore_errors=True)
+    print(f"  query over phase 6's plate ({fs.n_objects} nuclei x {len(feats)} features): "
+          f"index build {index_s:.3f} s ({built['n_cells']} cells, recall@10 "
+          f"{built['recall_at_k']}), miss seconds " + ", ".join(
+              f"{k} {v:.3f}" for k, v in times.items())
+          + f"; every hit equal to its miss and every recompute bit-identical; on {card}")
+    print(f"  query holds against --device cpu (the card's indexes): {json.dumps(holds)}")
+    return {"n_objects": fs.n_objects, "n_features": len(feats), "miss_s": times,
+            "index_build_s": index_s, "holds": holds}
+
+
+def phase_analytics(torch, features_root: Path, card: str) -> dict:
+    """Phase 10: the analytics plane on the card (see the module doc)."""
+    t0 = time.perf_counter()
+    print(f"phase 10: the analytics plane, the reference bench's populations and "
+          f"`tmx-torch query` on the card; times on {card}")
+    out = {"populations": {str(n): analytics_population_phase(torch, n, card)
+                           for n in (10_000, 100_000)},
+           "query": analytics_query_phase(torch, features_root, card)}
+    print(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
+    print("analytics: " + json.dumps(out))
+    return out
 
 
 if __name__ == "__main__":

@@ -384,3 +384,99 @@ def test_sites_corilla_illuminati_on_two_ranks_write_the_one_rank_store(ranks):
         assert list(x) == list(y) and len(x["label"]) > 0
         for k in x:
             np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+
+
+# ------------------------------------------------- re-segmentation on ranks
+#: jterator alone at a cap of 2 objects a site, the buckets' one rung,
+#: where sites hold up to 4: collect re-segments the saturated batches at
+#: doubled caps (4, then 8 for the site that fills 4)
+RESEG = {"pipe": "cp.pipe.json", "n_devices": 2, "batch_size": 3, "max_objects": 2,
+         "object_buckets": "2", "auto_resegment": True}
+
+
+def _reseg_worker(rank: int, world: int, init: str, root: str) -> None:
+    torch.set_num_threads(1)
+    from tmlibrary_tpu_torch import capacity
+    from tmlibrary_tpu_torch.parallel import distributed
+    from tmlibrary_tpu_torch.workflow.engine import Workflow
+
+    distributed.initialize(f"file://{init}", world, rank, device="cpu")
+    try:
+        capacity.reset_routing_history()
+        out = Workflow(ExperimentStore.open(root), WorkflowDescription.load(
+            str(ExperimentStore.open(root).root / "wf.json")), device="cpu").run()
+        with open(os.path.join(os.path.dirname(init), f"reseg{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        distributed.shutdown()
+
+
+@pytest.fixture(scope="module")
+def resegmented(tmp_path_factory):
+    """The jterator step at a saturating cap on two ranks, on one rank
+    and in the reference, over copies of one store."""
+    from tmlibrary_tpu import capacity as j_capacity
+    from tmlibrary_tpu.models.experiment import grid_experiment as j_grid
+    from tmlibrary_tpu.models.store import ExperimentStore as JStore
+    from tmlibrary_tpu.workflow.registry import get_step as j_get_step
+    from tmlibrary_tpu_torch import capacity
+    from tmlibrary_tpu_torch.workflow.engine import Workflow
+
+    base = tmp_path_factory.mktemp("reseg")
+    many = sites_store(base / "many")
+    workflow_file(many.root, {"jterator": RESEG})
+    mp.spawn(_reseg_worker, args=(2, str(base / "init"), str(many.root)), nprocs=2)
+    with open(base / "reseg0.pkl", "rb") as f:
+        summary = pickle.load(f)
+    one = sites_store(base / "one")
+    capacity.reset_routing_history()
+    Workflow(one, WorkflowDescription.load(workflow_file(one.root, {"jterator": RESEG})),
+             device="cpu").run()
+    capacity.reset_routing_history()
+    ref = JStore.create(base / "ref", j_grid(
+        "wf", well_rows=1, well_cols=2, sites_per_well=(2, 2), channel_names=("DAPI", "Actin"),
+        site_shape=(48, 48)))
+    for c in range(2):
+        ref.write_sites(one.read_sites(None, channel=c), list(range(8)), channel=c)
+    (ref.root / "cp.pipe.json").write_text(json.dumps(PIPE))
+    j_capacity.reset_routing_history()
+    jt = j_get_step("jterator")(ref)
+    jt.init({**RESEG, "n_devices": 1})
+    for i in jt.list_batches():
+        jt.run(i)
+    ref_collect = jt.collect()
+    j_capacity.reset_routing_history()
+    return summary, many, one, ref, ref_collect
+
+
+def test_resegmentation_on_two_ranks_writes_the_one_rank_store(resegmented):
+    summary, many, one, ref, ref_collect = resegmented
+    collected = summary["jterator"]["collected"]
+    # every saturated batch re-ran on both ranks and now holds its objects
+    assert collected["resegmented"] and "saturated_sites" not in collected
+    assert collected["resegmented"] == ref_collect["resegmented"]
+    step = "workflow/jterator"
+    for f in ("cap_overrides.json", "saturation.json"):
+        assert json.loads((many.root / step / f).read_text()) == \
+            json.loads((one.root / step / f).read_text()) == \
+            json.loads((ref.root / step / f).read_text())
+    for name in ("nuclei", "cells"):
+        labels = many.read_labels(None, name)
+        np.testing.assert_array_equal(labels, one.read_labels(None, name))
+        np.testing.assert_array_equal(labels, ref.read_labels(None, name))
+        x, y = many.read_features(name), one.read_features(name)
+        assert list(x) == list(y)
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k], err_msg=k)
+        want = ref.read_features(name)
+        assert list(x) == list(want.columns)
+        assert len(x["label"]) == len(want)
+        # a site holds more objects than the cap the step was planned with
+        assert np.bincount(x["site_index"]).max() > RESEG["max_objects"]
+        for k in x:
+            if x[k].dtype.kind in "OU" or not k[0].isupper():  # identity columns
+                assert x[k].tolist() == want[k].tolist(), k
+                continue
+            rtol, atol = feature_tier(k)
+            np.testing.assert_allclose(x[k], want[k].to_numpy(), rtol=rtol, atol=atol,
+                                       err_msg=k)

@@ -596,10 +596,17 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
             "tmlibrary_tpu_torch.workflow.steps.vendors",
             "tmlibrary_tpu_torch.workflow.steps.omexml", "tmlibrary_tpu_torch.readers",
             "tmlibrary_tpu_torch.writers", "tmlibrary_tpu_torch.io.png",
-            "tmlibrary_tpu_torch.models.metadata", "tmlibrary_tpu_torch.cli"]
+            "tmlibrary_tpu_torch.models.metadata", "tmlibrary_tpu_torch.cli",
+            "tmlibrary_tpu_torch.analytics", "tmlibrary_tpu_torch.analytics.rng",
+            "tmlibrary_tpu_torch.analytics.store", "tmlibrary_tpu_torch.analytics.ops",
+            "tmlibrary_tpu_torch.analytics.index", "tmlibrary_tpu_torch.analytics.spatial",
+            "tmlibrary_tpu_torch.analytics.tools", "tmlibrary_tpu_torch.analytics.query",
+            "tmlibrary_tpu_torch.tools", "tmlibrary_tpu_torch.tools.base",
+            "tmlibrary_tpu_torch.tools.clustering", "tmlibrary_tpu_torch.tools.classification",
+            "tmlibrary_tpu_torch.tools.heatmap", "tmlibrary_tpu_torch.benchmarks"]
     code = (
         "import importlib, sys\n"
-        "for banned in ('yaml', 'pandas', 'cv2', 'pyarrow', 'PIL', 'h5py'):\n"
+        "for banned in ('yaml', 'pandas', 'cv2', 'pyarrow', 'PIL', 'h5py', 'sklearn'):\n"
         "    sys.modules[banned] = None\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "from tmlibrary_tpu_torch.workflow import list_steps; print(list_steps())\n"

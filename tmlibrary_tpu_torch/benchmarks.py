@@ -22,6 +22,8 @@ is not ported: nothing here times the CPU against the card for it.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from tmlibrary_tpu_torch.jterator.description import PipelineDescription
@@ -605,3 +607,142 @@ def cpu_reference_mosaic(mosaic: np.ndarray) -> int:
         for fn in (ndi.mean, ndi.standard_deviation, ndi.minimum, ndi.maximum, ndi.sum):
             fn(img64, labels, ids)
     return n
+
+
+# ------------------------------------------------------------ analytics
+#: the reference bench's analytics knobs (bench.py:1521-1700): default
+#: populations, feature width and each tool's k
+ANALYTICS_SIZES = (10_000, 100_000)
+ANALYTICS_FEATURES = 32
+ANALYTICS_PARAMS = {"knn_k": 10, "embedding_k": 15, "kmeans_k": 5, "pca_components": 2,
+                    "spatial_radius": 2}
+
+
+def analytics_population(n: int, n_features: int = ANALYTICS_FEATURES, seed: int = 0
+                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The bench's iid population: ``(x (n, F) float32, site_index (n,)
+    over 64 sites, centroids (n, 2) uniform on [0, 2048))``, drawn in
+    the reference's order from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, n_features)).astype(np.float32)
+    site_index = rng.integers(0, 64, size=n).astype(np.int64)
+    centroids = rng.uniform(0.0, 2048.0, size=(n, 2)).astype(np.float64)
+    return x, site_index, centroids
+
+
+def clustered_population(n: int, n_features: int = ANALYTICS_FEATURES, seed: int = 7
+                         ) -> np.ndarray:
+    """The bench's index-vs-brute population: round(sqrt(n)) (at least
+    8) Gaussian blobs of spread 0.15."""
+    rng = np.random.default_rng(seed)
+    n_blobs = max(8, int(round(np.sqrt(n))))
+    centers = rng.normal(size=(n_blobs, n_features))
+    labels = rng.integers(0, n_blobs, size=n)
+    return (centers[labels] + 0.15 * rng.normal(size=(n, n_features))).astype(np.float32)
+
+
+def analytics_runners(x, site_index, centroids, device) -> dict:
+    """Each tool's device op on a built matrix, as a cache miss of
+    ``tmx-torch query`` runs it (store reads and Parquet writes
+    excluded): name -> zero-argument callable returning the output."""
+    from tmlibrary_tpu_torch.analytics import ops
+    from tmlibrary_tpu_torch.analytics import spatial as asp
+    from tmlibrary_tpu_torch.tools.clustering import kmeans
+
+    p = ANALYTICS_PARAMS
+
+    def run_spatial():
+        return asp.density(asp.build_index(site_index, centroids, device=device),
+                           radius_bins=p["spatial_radius"])
+
+    def run_clustering():
+        assign, cent = kmeans(x, p["kmeans_k"], device=device)
+        return assign.cpu().numpy(), cent.cpu().numpy()
+
+    return {
+        "knn": lambda: ops.knn(x, p["knn_k"], device=device),
+        "pca": lambda: ops.pca(x, p["pca_components"], device=device),
+        "embedding": lambda: ops.spectral_embedding(x, 2, k=p["embedding_k"], device=device),
+        "spatial": run_spatial,
+        "clustering": run_clustering,
+    }
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(_same(u, v) for u, v in zip(a, b))
+    return np.array_equal(a, b)
+
+
+def time_warm(fn, reps: int, sync=lambda: None) -> tuple[float, object, bool]:
+    """(mean seconds of ``reps`` warm calls on the host clock, ended by
+    ``sync``; the first warm call's output; whether every warm call's
+    output equals it)."""
+    first = fn()  # warm-up
+    sync()
+    same = True
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+        same = same and _same(out, first)
+    sync()
+    return (time.perf_counter() - t0) / reps, first, same
+
+
+def measure_analytics(sizes=ANALYTICS_SIZES, n_features: int = ANALYTICS_FEATURES,
+                      reps: int = 3, device: str = "cuda") -> dict:
+    """``analytics_queries_per_sec``: queries/s of each tool's device op
+    (knn k 10, pca 2 components, embedding k 15, spatial density radius
+    2, k-means k 5) on the bench's iid populations at each ``sizes``,
+    and ``index_vs_brute`` rows (brute and IVF self-sweep queries/s, the
+    speedup, the build seconds, recall@10) on the clustered ones.  A
+    time is the mean of ``reps`` warm calls; ``repeat_identical`` says
+    whether the warm calls' outputs were bit-identical."""
+    import torch
+
+    from tmlibrary_tpu_torch.analytics import index as aidx
+    from tmlibrary_tpu_torch.analytics import ops
+
+    sync = torch.cuda.synchronize if str(device).startswith("cuda") else (lambda: None)
+    per_tool: dict = {}
+    identical: dict = {}
+    for n in sizes:
+        x, site_index, centroids = analytics_population(n, n_features)
+        for tool, fn in analytics_runners(x, site_index, centroids, device).items():
+            seconds, _, same = time_warm(fn, reps, sync)
+            per_tool.setdefault(tool, {})[str(n)] = 1.0 / seconds
+            identical.setdefault(tool, {})[str(n)] = same
+    k = ANALYTICS_PARAMS["knn_k"]
+    index_rows = []
+    for n in sizes:
+        xb = clustered_population(n, n_features)
+        t0 = time.perf_counter()
+        cent, mem, _ = aidx.ivf_build_arrays(xb, device=device)
+        sync()
+        build_s = time.perf_counter() - t0
+        brute_s, _, _ = time_warm(lambda: ops.knn(xb, k, device=device)[0], reps, sync)
+        ivf_s, _, _ = time_warm(
+            lambda: aidx.ivf_search_arrays(xb, cent, mem, k, device=device)[0], reps, sync)
+        index_rows.append({
+            "n": n, "brute_qps": 1.0 / brute_s, "ivf_qps": 1.0 / ivf_s,
+            "speedup": brute_s / ivf_s,
+            "recall_at_k": aidx.measure_recall(xb, cent, mem, k=k, device=device),
+            "build_s": build_s, "n_cells": int(cent.shape[0]), "top_p": aidx.DEFAULT_TOP_P,
+            "k": k,
+        })
+    largest = str(max(sizes))
+    return {
+        "metric": "analytics_queries_per_sec",
+        "value": per_tool["knn"][largest],
+        "unit": f"queries/sec (knn k={k}, N={largest} x {n_features} features; "
+                "per-tool breakdown in per_tool)",
+        "config": "analytics",
+        "device": str(device),
+        "n_objects": list(sizes),
+        "n_features": n_features,
+        "per_tool": per_tool,
+        "repeat_identical": identical,
+        "index_vs_brute": index_rows,
+        "timing_methodology": f"analytics-tools-v1: mean of {reps} warm calls, host clock "
+                              "ended by a device sync",
+    }

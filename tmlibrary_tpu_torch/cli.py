@@ -13,6 +13,11 @@ steps the port has, the same argument names and the same JSON output::
     python -m tmlibrary_tpu_torch.cli qc --root DIR [--json] [--reference qc.json]
                                          [--profile-kind run|model]
     python -m tmlibrary_tpu_torch.cli weights list [--dir DIR] | digest SPEC [--json]
+    python -m tmlibrary_tpu_torch.cli query --root DIR --tool T --objects NAME
+                                            [--payload JSON | --payload-file F]
+                                            [--index auto|ivf|brute] [--no-cache] [--device cuda]
+    python -m tmlibrary_tpu_torch.cli index build|list --root DIR --objects NAME ...
+    python -m tmlibrary_tpu_torch.cli tool submit|list|status|run-request|available ...
 
 ``<step>`` is ``metaconfig``, ``imextract``, ``corilla``, ``align``,
 ``illuminati`` or ``jterator``; the installed console script is
@@ -27,6 +32,11 @@ the drift verdict's code against ``--reference`` (else the
 ``TMX_QC_DL_BASELINE`` file): 0 ok, 1 drift, 2 stale, 3 no reference;
 unlike the reference it reads no baseline from ``tuning/``.  ``weights``
 lists the checkpoints of the weights directory or digests a spec.
+``query`` answers one analytics query over the feature store (cached by
+the store's content digest), ``index`` builds or lists the IVF kNN
+indexes, ``tool`` submits and inspects tool requests (``--background``
+runs one as a detached process that keeps the request's device); all
+three take ``--device``, ``cuda`` by default.
 
 ``workflow submit`` under ``torchrun --nproc-per-node N`` runs on N
 ranks, one card each (NCCL; gloo with ``--device cpu``): the process
@@ -142,6 +152,62 @@ def build_parser() -> argparse.ArgumentParser:
     p_wd.add_argument("spec", help="checkpoint name, .npz path, or "
                                    "seed:N[:base=C][:depth=D][:in=N]")
     p_wd.add_argument("--json", action="store_true", dest="as_json")
+
+    p_query = sub.add_parser(
+        "query", help="one-shot analytics query over an experiment's feature store "
+                      "(knn/pca/embedding/spatial/clustering/heatmap/classification; results "
+                      "are cached by feature-store digest)")
+    _add_common(p_query)
+    p_query.add_argument("--tool", required=True, help="tool name (see 'tool available')")
+    p_query.add_argument("--objects", default=None, metavar="NAME",
+                         help="objects_name shorthand (else put objects_name in the payload)")
+    p_query.add_argument("--payload", default=None, help="tool payload as inline JSON")
+    p_query.add_argument("--payload-file", default=None, help="tool payload from a JSON file")
+    p_query.add_argument("--index", default=None, choices=["auto", "ivf", "brute"],
+                         help="kNN index routing (knn/embedding/clustering/classification), "
+                              "merged into the payload")
+    p_query.add_argument("--no-cache", action="store_true",
+                         help="recompute even when a digest-keyed cached result exists")
+
+    p_index = sub.add_parser("index", help="IVF kNN index over an experiment's feature store: "
+                                           "build or list the persisted indexes")
+    index_sub = p_index.add_subparsers(dest="verb", required=True)
+    p_ibuild = index_sub.add_parser("build", help="build (or reuse) the index for one "
+                                                  "objects_name; prints its manifest as JSON")
+    _add_common(p_ibuild)
+    p_ibuild.add_argument("--objects", required=True, metavar="NAME")
+    p_ibuild.add_argument("--features", default=None,
+                          help="comma list of feature columns (default: all)")
+    p_ibuild.add_argument("--cells", type=int, default=None,
+                          help="cell count (default: 4*sqrt(N))")
+    p_ibuild.add_argument("--rebuild", action="store_true",
+                          help="rebuild even when the persisted index matches the store digest")
+    p_ilist = index_sub.add_parser("list", help="persisted indexes of one objects_name with "
+                                                "their staleness against the store digest")
+    _add_common(p_ilist)
+    p_ilist.add_argument("--objects", required=True, metavar="NAME")
+
+    p_tool = sub.add_parser("tool", help="analysis tools over the feature store")
+    tool_sub = p_tool.add_subparsers(dest="verb", required=True)
+    p_tsubmit = tool_sub.add_parser("submit", help="run one tool request")
+    _add_common(p_tsubmit)
+    p_tsubmit.add_argument("--name", required=True, help="tool name (see 'tool available')")
+    p_tsubmit.add_argument("--payload", default="{}", help="request payload as inline JSON")
+    p_tsubmit.add_argument("--payload-file", default=None,
+                           help="request payload from a JSON file")
+    p_tsubmit.add_argument("--background", action="store_true",
+                           help="run the request as a detached process and print its id; "
+                                "poll with 'tool status'")
+    p_tlist = tool_sub.add_parser("list", help="tool requests with their lifecycle state")
+    _add_common(p_tlist)
+    p_tstatus = tool_sub.add_parser("status", help="one request's state")
+    _add_common(p_tstatus)
+    p_tstatus.add_argument("--request", required=True)
+    p_trun = tool_sub.add_parser("run-request", help="run a submitted request (the body of "
+                                                     "--background)")
+    _add_common(p_trun)
+    p_trun.add_argument("--request", required=True)
+    tool_sub.add_parser("available", help="registered tool names")
 
     for name in list_steps():
         step_cls = get_step(name)
@@ -388,6 +454,110 @@ def cmd_weights(args) -> int:
     return 0
 
 
+def _query_payload(args) -> dict:
+    """One query payload from --tool/--objects/--index and inline or file
+    JSON; keys of the payload win over the shorthands."""
+    if args.payload_file and args.payload:
+        raise SystemExit("--payload and --payload-file are mutually exclusive")
+    if args.payload_file:
+        payload = json.loads(Path(args.payload_file).read_text())
+    elif args.payload:
+        payload = json.loads(args.payload)
+    else:
+        payload = {}
+    if not isinstance(payload, dict):
+        raise SystemExit("query payload must be a JSON object")
+    if args.tool:
+        payload.setdefault("tool", args.tool)
+    if args.objects:
+        payload.setdefault("objects_name", args.objects)
+    if args.index:
+        payload.setdefault("index", args.index)
+    if not payload.get("objects_name"):
+        raise SystemExit("query needs an objects_name (--objects or payload 'objects_name')")
+    return payload
+
+
+def cmd_query(args) -> int:
+    from tmlibrary_tpu_torch.analytics import query as analytics_query
+
+    store = _open_store(args)
+    payload = _query_payload(args)
+    summary = analytics_query.run_query(store, payload, use_cache=not args.no_cache,
+                                        device=args.device)
+    print(json.dumps(summary, default=str))
+    return 0
+
+
+def cmd_index(args) -> int:
+    from tmlibrary_tpu_torch.analytics.index import IvfIndex
+    from tmlibrary_tpu_torch.analytics.store import FeatureStore
+
+    store = _open_store(args)
+    fs = FeatureStore.ensure(store, args.objects)
+    if args.verb == "build":
+        features = ([f.strip() for f in args.features.split(",") if f.strip()]
+                    if args.features else None)
+        idx = IvfIndex.ensure(fs, features, n_cells=args.cells, rebuild=args.rebuild,
+                              device=args.device)
+        print(json.dumps({**idx.meta, "cache": idx.cache_state, "root": str(idx.root)},
+                         default=str))
+        return 0
+    rows = []
+    for meta_path in sorted((fs.root / "index").glob("*/index_meta.json")):
+        try:
+            meta = json.loads(meta_path.read_text())
+        except ValueError:
+            continue
+        rows.append({
+            "selection": meta.get("selection"),
+            "n_cells": meta.get("n_cells"),
+            "n_objects": meta.get("n_objects"),
+            "recall_at_k": meta.get("recall_at_k"),
+            "digest": meta.get("digest"),
+            "state": "fresh" if meta.get("store_digest") == fs.digest else "stale",
+            "root": str(meta_path.parent),
+        })
+    print(json.dumps({"objects_name": args.objects, "store_digest": fs.digest,
+                      "indexes": rows}, default=str))
+    return 0
+
+
+def cmd_tool(args) -> int:
+    from tmlibrary_tpu_torch.tools import base as tools_base
+
+    if args.verb == "available":
+        for name in tools_base.list_tools():
+            print(name)
+        return 0
+    manager = tools_base.ToolRequestManager(_open_store(args), device=args.device)
+    if args.verb == "submit":
+        if args.payload_file and args.payload != "{}":
+            raise SystemExit("--payload and --payload-file are mutually exclusive")
+        payload = json.loads(Path(args.payload_file).read_text() if args.payload_file
+                             else args.payload)
+        if args.background:
+            print(json.dumps(manager.status(manager.submit_async(args.name, payload)),
+                             default=str))
+            return 0
+        result = manager.submit(args.name, payload)
+        print(json.dumps({"tool": result.tool, "objects_name": result.objects_name,
+                          "layer_type": result.layer_type,
+                          "n_objects": tools_base.n_rows(result.values),
+                          "attributes": result.attributes}, default=str))
+        return 0
+    if args.verb == "status":
+        print(json.dumps(manager.status(args.request), default=str))
+        return 0
+    if args.verb == "run-request":
+        manager.run_request(args.request)
+        print(json.dumps(manager.status(args.request), default=str))
+        return 0
+    for entry in manager.list_requests():
+        print(json.dumps(entry, default=str))
+    return 0
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
@@ -405,6 +575,12 @@ def main(argv=None) -> int:
             return cmd_qc(args)
         if args.command == "weights":
             return cmd_weights(args)
+        if args.command == "query":
+            return cmd_query(args)
+        if args.command == "index":
+            return cmd_index(args)
+        if args.command == "tool":
+            return cmd_tool(args)
         return cmd_step(args)
     except Exception as e:
         print(f"error: {e}", file=sys.stderr)

@@ -23,10 +23,12 @@ and with small page limits: ``SNAPPY`` or uncompressed pages, a
 dictionary page with ``RLE_DICTIONARY`` data pages, the ``PLAIN`` pages
 that follow it in the same chunk once the dictionary passes its page
 limit, several data pages a chunk, several row groups, and definition
-levels in the RLE/bit-packed hybrid, and three-level LIST columns of
-``INT64`` or ``DOUBLE`` with either element name pyarrow has used
-(``element``, ``item``).  Nulls come back as NaN (an integer column with
-nulls becomes float64, as in pandas); a LIST column comes back as an
+levels in the RLE/bit-packed hybrid, flat ``INT32``, ``INT64``,
+``FLOAT``, ``DOUBLE`` and ``BYTE_ARRAY`` columns (the 32-bit ones as
+pyarrow writes a DataFrame's int32 and float32 columns), and three-level
+LIST columns of ``INT64`` or ``DOUBLE`` with either element name pyarrow
+has used (``element``, ``item``).  Nulls come back as NaN (an integer
+column with nulls becomes float64, as in pandas); a LIST column comes back as an
 object array of 1-D arrays (None for a null row).  Statistics and other
 optional metadata are skipped; anything else (another nested or repeated
 shape, another physical type, codec or page kind) raises
@@ -49,7 +51,7 @@ MAGIC = b"PAR1"
 
 # ------------------------------------------------------------ enumerations
 #: physical types (``Type``)
-INT64, DOUBLE, BYTE_ARRAY = 2, 5, 6
+INT32, INT64, FLOAT, DOUBLE, BYTE_ARRAY = 1, 2, 4, 5, 6
 TYPE_NAMES = {0: "BOOLEAN", 1: "INT32", 2: "INT64", 3: "INT96", 4: "FLOAT", 5: "DOUBLE",
               6: "BYTE_ARRAY", 7: "FIXED_LEN_BYTE_ARRAY"}
 #: ``FieldRepetitionType``
@@ -282,12 +284,18 @@ def _rle_decode(buf, pos: int, end: int, bit_width: int, count: int) -> np.ndarr
 
 
 # ------------------------------------------------------------------ PLAIN
+#: the flat numeric physical types and their little-endian numpy dtypes
+_NUMERIC = {INT32: np.dtype("<i4"), INT64: np.dtype("<i8"), FLOAT: np.dtype("<f4"),
+            DOUBLE: np.dtype("<f8")}
+
+
 def _plain_decode(physical: int, buf, pos: int, end: int, count: int) -> np.ndarray:
     """``count`` PLAIN values of ``buf[pos:end]``."""
-    if physical in (INT64, DOUBLE):
-        if pos + count * 8 > end:
+    if physical in _NUMERIC:
+        dtype = _NUMERIC[physical]
+        if pos + count * dtype.itemsize > end:
             raise ParquetError("PLAIN values run past their page")
-        return np.frombuffer(buf, "<i8" if physical == INT64 else "<f8", count, pos)
+        return np.frombuffer(buf, dtype, count, pos)
     values = []
     for _ in range(count):
         (n,) = struct.unpack_from("<I", buf, pos)
@@ -579,7 +587,7 @@ def _leaves(meta: dict) -> list[_Leaf]:
         rep = el.get(3, REQUIRED)
         if rep == REPEATED:
             raise ParquetError(f"column '{name}' is REPEATED; not supported")
-        _check_physical(name, el.get(1), (INT64, DOUBLE, BYTE_ARRAY))
+        _check_physical(name, el.get(1), (INT32, INT64, FLOAT, DOUBLE, BYTE_ARRAY))
         out.append(_Leaf(name, el[1], 0, 1 if rep == OPTIONAL else 0))
         at += 1
     if root.get(5, 0) != len(out):
@@ -708,18 +716,18 @@ def _read_chunk(data: bytes, leaf: _Leaf, chunk: dict) -> np.ndarray:
             full[levels] = values
             return full
         return values
-    dtype = np.float64 if ptype == DOUBLE else np.int64
+    dtype = _NUMERIC[ptype].newbyteorder("=")
     values = np.concatenate(values_parts).astype(dtype) if values_parts else np.zeros(0, dtype)
     if levels.all():
         return values
-    full = np.full(len(levels), np.nan)
+    full = np.full(len(levels), np.nan, np.float32 if ptype == FLOAT else np.float64)
     full[levels] = values
     return full
 
 
 def read_table(path, columns: Sequence[str] | None = None) -> dict[str, np.ndarray]:
     """The file's columns (``columns``: a subset, in file order) as 1-D
-    numpy arrays: int64, float64, str, or (LIST columns) object arrays of
+    numpy arrays: int32, int64, float32, float64, str, or (LIST columns) object arrays of
     arrays; every row group concatenated."""
     path = Path(path)
     data = path.read_bytes()
@@ -746,7 +754,8 @@ def read_table(path, columns: Sequence[str] | None = None) -> dict[str, np.ndarr
                     parts[leaf.name].append(_read_chunk(data, leaf, chunk))
                 except ParquetError as e:
                     raise ParquetError(f"{path.name}: {e}") from None
-    empty = {INT64: np.int64, DOUBLE: np.float64, BYTE_ARRAY: "<U1"}
+    empty = {INT32: np.int32, INT64: np.int64, FLOAT: np.float32, DOUBLE: np.float64,
+             BYTE_ARRAY: "<U1"}
     # chunks with nulls come back float64 (integers) or object (strings)
     return {leaf.name: np.concatenate(parts[leaf.name]) if parts[leaf.name]
             else np.zeros(0, object if leaf.max_rep else empty[leaf.ptype])

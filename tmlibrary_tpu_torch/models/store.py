@@ -348,3 +348,10 @@ class ExperimentStore:
         d = self.root / "workflow"
         d.mkdir(exist_ok=True)
         return d
+
+    @property
+    def tools_dir(self) -> Path:
+        """Tool requests, their results and the query cache (``queries/``)."""
+        d = self.root / "tools"
+        d.mkdir(exist_ok=True)
+        return d

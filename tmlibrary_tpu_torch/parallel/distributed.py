@@ -14,7 +14,8 @@ on the card, gloo on the CPU.
 - :func:`host_local_to_global` concatenates every rank's local batch in
   rank order (on every rank); :func:`global_to_host_local` is the
   inverse, this rank's rows.
-- :func:`sync_hosts` is a barrier.
+- :func:`sync_hosts` is a barrier; :func:`broadcast_object` sends rank
+  0's plan (a picklable object) to every rank.
 
 The collective helpers below move a tensor to the CPU for a gloo group
 and back, so callers hand them tensors on their own device.  The
@@ -182,6 +183,16 @@ def max_over_ranks(value: int, device: "torch.device | str" = "cpu", group=None)
 def any_rank(flag: bool, device: "torch.device | str" = "cpu", group=None) -> bool:
     """Whether ``flag`` holds on any rank of the group."""
     return bool(max_over_ranks(1 if flag else 0, device, group))
+
+
+def broadcast_object(obj, src: int = 0):
+    """Rank ``src``'s picklable ``obj`` on every rank; ``obj`` itself
+    without a group."""
+    if world_size() == 1:
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src)
+    return box[0]
 
 
 def host_local_to_global(local_batch: torch.Tensor, group=None) -> torch.Tensor:

@@ -35,7 +35,9 @@ collects.  For each step it sends the other ranks the indices of the
 batches it is about to run, in order; they run the same batches of the
 steps that shard over ranks (``collective = True``: corilla, illuminati,
 jterator), whose collectives pair with rank 0's, and skip the others.
-The ranks meet at a barrier after each step's batches.  There are no
+The ranks meet at a barrier after each step's batches; a step with a
+``collective_collect`` (jterator's re-segmentation of saturated batches)
+then runs it on every rank while rank 0 collects.  There are no
 retries and no pipelining then (a retry on one rank alone would wait
 forever on the others), and a failed batch fails the run.
 
@@ -59,7 +61,6 @@ from pathlib import Path
 from typing import Any
 
 import torch
-import torch.distributed as dist
 
 from tmlibrary_tpu_torch import qc as qc_mod
 from tmlibrary_tpu_torch.atomicio import atomic_write_text
@@ -487,7 +488,7 @@ class Workflow:
                         continue
                     if sd.name in done_steps:
                         logger.info("resume: skipping completed step %s", sd.name)
-                        self._announce([])
+                        self._announce(None)
                         distributed.sync_hosts(f"{sd.name} batches")
                         continue
                     summary[sd.name] = self._run_step(sd, resume)
@@ -498,12 +499,9 @@ class Workflow:
     @staticmethod
     def _announce(pending: "list[int] | None") -> "list[int]":
         """Rank 0 sends the batch indices it will run next (a list, in
-        order) and the other ranks receive them; one rank: the list."""
-        if distributed.world_size() == 1:
-            return pending
-        box = [pending]
-        dist.broadcast_object_list(box, src=0)
-        return box[0]
+        order; None for a completed step it skips) and the other ranks
+        receive them; one rank: the list."""
+        return distributed.broadcast_object(pending)
 
     def _follow(self) -> dict:
         """A rank other than 0: for each active step, run the batches rank
@@ -515,10 +513,14 @@ class Workflow:
                     continue
                 pending = self._announce(None)
                 step = get_step(sd.name)(self.store, device=self.device)
-                if getattr(step, "collective", False):
-                    for index in pending:
+                collective = getattr(step, "collective", False)
+                if collective:
+                    for index in pending or []:
                         step.run_batch(step.load_batch(index))
                 distributed.sync_hosts(f"{sd.name} batches")
+                # rank 0 collects now (a skipped step announced None)
+                if collective and pending is not None and hasattr(step, "collective_collect"):
+                    step.collective_collect()
         return {}
 
     def _write_qc_profile(self) -> None:

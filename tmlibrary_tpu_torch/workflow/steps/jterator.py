@@ -1170,45 +1170,59 @@ class ImageAnalysisRunner(Step):
     _RESEGMENT_DOUBLINGS = 4
     _RESEGMENT_CEILING = 4096
 
+    def _resegment_plan(self) -> tuple[list[tuple[str, int]], bool]:
+        """Rank 0's next round of re-segmentation: the saturated batches
+        to re-run with their doubled caps (written to
+        ``cap_overrides.json``), in batch order, and whether to stop after
+        them -- a batch in manual mode (``auto_resegment: false``) ends the
+        escalation and leaves the saturation warning standing."""
+        state = self._saturation_state()
+        plan: list[tuple[str, int]] = []
+        for bidx_str in sorted(state):
+            try:
+                batch = self.load_batch(int(bidx_str))
+            except JobDescriptionError:
+                continue  # batches re-planned since; stale entry
+            args = batch.get("args", {})
+            if not args.get("auto_resegment", True):
+                return plan, True
+            cap = max(int(args.get("max_objects", 256)),
+                      self._cap_overrides().get(bidx_str, 0))
+            new_cap = min(cap * 2, self._RESEGMENT_CEILING)
+            if new_cap <= cap:
+                continue  # ceiling reached; the collect warning fires
+            self._write_cap_override(bidx_str, new_cap)
+            logger.warning("auto-resegmenting batch %s at max_objects=%d (saturated: %s)",
+                           bidx_str, new_cap, state[bidx_str])
+            plan.append((bidx_str, new_cap))
+        return plan, False
+
     def _resegment_saturated(self) -> dict:
         """Re-run just the saturated batches at a doubled ``max_objects``
         until their counts fit, the doubling budget runs out or the
         ceiling is hit.  The raised cap lives in ``cap_overrides.json``
-        and is applied by :meth:`_effective_batch`."""
+        and is applied by :meth:`_effective_batch`.  Over several ranks
+        rank 0 reads the saturation state and sends each round's plan to
+        every rank; all ranks re-run those batches together (the routed
+        capacity agreed by :meth:`_route_capacity`) and rank 0 alone
+        persists them.  Every rank calls this: rank 0 from
+        :meth:`collect`, the others from :meth:`collective_collect`."""
         done: dict[str, int] = {}
-        if distributed.world_size() > 1:
-            # collect runs on rank 0 alone: a re-run would wait on ranks
-            # that have moved on; the saturation warning stands instead
-            return done
         for _ in range(self._RESEGMENT_DOUBLINGS):
-            state = self._saturation_state()
-            if not state:
-                break
-            progressed = False
-            for bidx_str in sorted(state):
-                try:
-                    batch = self.load_batch(int(bidx_str))
-                except JobDescriptionError:
-                    continue  # batches re-planned since; stale entry
-                args = batch.get("args", {})
-                if not args.get("auto_resegment", True):
-                    return done  # manual mode: leave the warning flow
-                cap = max(int(args.get("max_objects", 256)),
-                          self._cap_overrides().get(bidx_str, 0))
-                new_cap = min(cap * 2, self._RESEGMENT_CEILING)
-                if new_cap <= cap:
-                    continue  # ceiling reached; the collect warning fires
-                self._write_cap_override(bidx_str, new_cap)
-                logger.warning(
-                    "auto-resegmenting batch %d at max_objects=%d (saturated: %s)",
-                    batch["index"], new_cap, state[bidx_str],
-                )
-                self.run(batch["index"])  # re-records/clears saturation
+            plan, stop = (self._resegment_plan() if distributed.is_writer()
+                          else (None, None))
+            plan, stop = distributed.broadcast_object((plan, stop))
+            for bidx_str, new_cap in plan:
+                self.run(int(bidx_str))  # re-records/clears saturation
                 done[bidx_str] = new_cap
-                progressed = True
-            if not progressed:
+            if stop or not plan:
                 break
         return done
+
+    def collective_collect(self) -> dict:
+        """The part of :meth:`collect` every rank runs together: the
+        engine calls it on the ranks other than 0 while rank 0 collects."""
+        return self._resegment_saturated()
 
     @property
     def _schedule_plan_path(self) -> Path:
