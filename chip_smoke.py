@@ -193,7 +193,17 @@ Phases (any failure exits non-zero before the last line):
    recompute bit-identical to it; then each with ``--device cpu`` over a
    copy keeping the card's indexes, held as in (a), spatial, heatmap and
    clustering exactly.  An ``analytics: {...}`` line carries the numbers.
-11. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+11. A reference user's YAML project (``phase_project``,
+   ``project_yaml_p96x4_256``; no kernel of its own): config 3 built
+   through the ``project`` verbs, ``workflow template`` filled in as the
+   store's ``workflow.yaml``, ``workflow submit --device cuda`` over phase
+   5's plate with rows 1-4 launched, the store bit-identical to the JSON
+   pipe's run, CPU batches held, every ``export``, the OME-NGFF plate
+   re-ingested pixel-equal, ``workflow cleanup``; a ``project: {...}``
+   line carries the submit's sites/s and step walls, each export's
+   seconds and MiB/s, the NGFF write's MiB/s, the re-ingest's files/s and
+   the card's name and power limit.
+12. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness; rows 2-4 add ``spatial_launches``, their launches
    on phase 9's secondary run, and rows 2-3 ``spatial``, the kernel at
@@ -1623,6 +1633,9 @@ def main() -> int:
             phase_analytics(torch, analytics_root, card)
         finally:
             shutil.rmtree(analytics_root, ignore_errors=True)
+
+        # ---------------------------------------------------------- phase 11
+        phase_project(torch, wrappers, card)
         if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except Exception as e:  # the smoke's boundary: report and exit non-zero
@@ -4618,6 +4631,275 @@ def phase_analytics(torch, features_root: Path, card: str) -> dict:
     print(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
     print("analytics: " + json.dumps(out))
     return out
+
+
+#: config 3 as a project: (module, instance) in pipeline order
+PROJECT_MODULES = (("smooth", "smooth"), ("segment_primary", "segment_primary"),
+                   ("segment_secondary", "segment_secondary"),
+                   ("measure_intensity", "measure_nuclei"),
+                   ("measure_intensity", "measure_cells"))
+
+
+#: the CPU hold's batch size in phase 11 (its first and last batches run)
+PROJECT_CPU_BATCH = 16
+
+
+def _mib_per_s(nbytes: int, seconds: float) -> float:
+    return nbytes / 2**20 / max(seconds, 1e-9)
+
+
+def _tree_bytes(path: Path) -> int:
+    path = Path(path)
+    if path.is_file():
+        return path.stat().st_size
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def build_project(cli, proj: Path) -> Path:
+    """Config 3 (``CELL_PAINTING_PIPE``) as a jterator project, built as a
+    user builds one: ``project create``, ``add-channel``, ``add-module``,
+    then each instance's handles set to config 3's values with
+    ``Project.update_handles``; ``project check`` must print OK.  Returns
+    the ``.pipe.yaml`` path."""
+    from tmlibrary_tpu_torch import benchmarks
+    from tmlibrary_tpu_torch.jterator.handles import HandleCollection
+    from tmlibrary_tpu_torch.jterator.project import Project
+
+    pipe = benchmarks.CELL_PAINTING_PIPE
+    run_cli(cli, ["project", "create", "--dir", str(proj), "--description",
+                  pipe["description"]])
+    for ch in pipe["input"]["channels"]:
+        run_cli(cli, ["project", "add-channel", "--dir", str(proj), "--name", ch["name"],
+                      "--no-correct"])
+    for module, instance in PROJECT_MODULES:
+        run_cli(cli, ["project", "add-module", "--dir", str(proj), "--module", module,
+                      "--instance", instance])
+    project = Project(proj)
+    for (_, instance), item in zip(PROJECT_MODULES, pipe["pipeline"]):
+        version = project.get_handles(instance).version
+        project.update_handles(instance, HandleCollection.from_dict(
+            {**item["handles"], "version": version}))
+    for obj in pipe["output"]["objects"]:
+        project.add_output_objects(obj["name"])
+    checked = run_cli(cli, ["project", "check", "--pipe", str(project.pipe_path)])
+    if not checked.startswith("OK:"):
+        raise SmokeFailure(f"project: check says {checked.strip()}")
+    return project.pipe_path
+
+
+def phase_project(torch, wrappers, card, device: str = "cuda") -> dict:
+    """Phase 11, ``project_yaml_p96x4_256``: a reference user's YAML
+    project on the card, from the project to the exports and back in.
+    Config 3 built through the ``project`` verbs (:func:`build_project`),
+    ``workflow template`` filled in and saved as ``workflow.yaml``, and
+    ``workflow submit --device cuda`` over phase 5's plate (96 wells at
+    2x2 sites of 256x256, DAPI and Actin, one cycle) with the launch
+    counters set to 0 just before and read just after (rows 1-4 must
+    launch).  Holds: the store's labels and feature shards bit-identical
+    to the same plate run from the JSON forms of the pipeline and the
+    workflow description; the sites of the first and last of the CPU's
+    batches of :data:`PROJECT_CPU_BATCH` equal to the port's CPU run
+    (labels, counts and metadata exact, features by ``CARD_TIERS``); the exports (Parquet, CSV, GeoJSON ``--simplify
+    1.0``, the DAPI images, the plate as OME-NGFF with both label
+    stacks) read back; the NGFF plate re-ingested by ``metaconfig
+    --handler ngff`` and ``imextract`` into a fresh store on the card
+    with every pixel equal; ``workflow cleanup`` leaving no step output,
+    batch plan, registration or ledger.  Prints the ``project:`` line.
+    The directory is removed at the end."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks, capacity, cli, yamlio
+    from tmlibrary_tpu_torch.io import parquet
+    from tmlibrary_tpu_torch.models.experiment import grid_experiment
+    from tmlibrary_tpu_torch.models.mapobject import MapobjectTypeRegistry
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.readers import read_tiff_page_py
+    from tmlibrary_tpu_torch.workflow import engine, get_step
+
+    started = time.perf_counter()
+    base = Path(__file__).resolve().parent / "build" / f"phase11.{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    try:
+        exp = grid_experiment("phase11", well_rows=PLATE[0], well_cols=PLATE[1],
+                              sites_per_well=SITES_PER_WELL, channel_names=("DAPI", "Actin"),
+                              site_shape=(SIZE, SIZE))
+        n = exp.n_sites
+        data = benchmarks.synthetic_cell_painting_batch(n, size=SIZE, seed=SEED)
+        stores = {}
+        for name in ("yaml", "json"):
+            stores[name] = ExperimentStore.create(base / name, exp)
+            for c, ch in enumerate(("DAPI", "Actin")):
+                stores[name].write_sites(data[ch].astype(np.uint16), list(range(n)), channel=c)
+        del data
+        store = stores["yaml"]
+        root = str(store.root)
+
+        # 1-2. the project, the template filled in and saved as workflow.yaml
+        pipe_path = build_project(cli, store.root / "project")
+        run_cli(cli, ["workflow", "template", "--root", root, "--device", device])
+        wf_path = store.workflow_dir / "workflow.yaml"
+        desc = engine.WorkflowDescription.load(wf_path)
+        args = {"pipe": str(pipe_path.relative_to(store.root)), "batch_size": STEP_BATCH,
+                "max_objects": MAX_OBJECTS, "as_polygons": True}
+        for step in (s for st in desc.stages for s in st.steps):
+            if step.name == "jterator":
+                step.args, step.active = dict(args), True
+        desc.save(wf_path)
+        if engine.WorkflowDescription.load(wf_path).to_dict() != desc.to_dict():
+            raise SmokeFailure("project: workflow.yaml does not read back as written")
+        print(f"phase 11, project_yaml_p96x4_256: config 3 as a YAML project "
+              f"({len(PROJECT_MODULES)} modules, `project check` OK) through `workflow "
+              f"submit --device {device}` of the store's workflow.yaml over {n} sites "
+              f"({PLATE[0]}x{PLATE[1]} wells at {SITES_PER_WELL[0]}x{SITES_PER_WELL[1]} sites of "
+              f"{SIZE}x{SIZE}, DAPI and Actin) on {card}")
+
+        # 3-4. submit from the YAML project, launches read around it
+        capacity.reset_routing_history()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+            if hasattr(w, "routes"):
+                w.routes = dict.fromkeys(w.routes, 0)
+        t0 = time.perf_counter()
+        summary = json.loads(run_cli(cli, ["workflow", "submit", "--root", root,
+                                           "--device", device]))
+        submit_s = time.perf_counter() - t0
+        launches = {k: wrappers[k].launches for k in
+                    ("fill_holes_flood", "cc_min_propagate", "watershed_flood", "grouped_stats")}
+        if not all(launches.values()):
+            raise SmokeFailure(f"project: a kernel of rows 1-4 did not launch: {launches}")
+        walls = {step: round(float(e["elapsed"]), 3) for step, e in engine.RunLedger(
+            store.workflow_dir / "ledger.jsonl").status().items()}
+        print(f"  submit: {n / submit_s:.1f} sites/s ({submit_s:.3f} s of command), step walls "
+              f"{walls}, launches {launches}; summary {json.dumps(summary)[:160]}")
+
+        # 5. the same plate from the JSON forms of the pipeline and description
+        other = stores["json"]
+        pipe = dict(benchmarks.CELL_PAINTING_PIPE)
+        (other.root / "cp.pipe.json").write_text(json.dumps(pipe))
+        wf_json = json.loads(json.dumps(desc.to_dict()))
+        for st in wf_json["stages"]:
+            for step in st["steps"]:
+                if step["name"] == "jterator":
+                    step["args"]["pipe"] = "cp.pipe.json"
+        (base / "workflow.json").write_text(json.dumps(wf_json, indent=2))
+        capacity.reset_routing_history()
+        run_cli(cli, ["workflow", "submit", "--root", str(other.root), "--description",
+                      str(base / "workflow.json"), "--device", device])
+        same_store(store, other, "YAML project vs JSON pipe")
+        print("  the YAML project's store equals the JSON pipe's: labels and feature shards "
+              "bit for bit")
+
+        # 6. a few batches against the port's CPU run over a copy of the images
+        cpu = base / "cpu"
+        copy_part(store.root, cpu, "images")
+        shutil.copytree(store.root / "project", cpu / "project")
+        cpu_store = ExperimentStore.open(cpu)
+        jt = get_step("jterator")(cpu_store, device="cpu")
+        jt.init({**args, "batch_size": PROJECT_CPU_BATCH})
+        batches = [0, len(jt.list_batches()) - 1]
+        capacity.reset_routing_history()
+        t0 = time.perf_counter()
+        sites: list[int] = []
+        for i in batches:
+            jt.run(i)
+            sites += list(jt.load_batch(i)["sites"])
+        cpu_s = time.perf_counter() - t0
+        outside, worst = hold_batch(store, cpu_store, sites, CARD_TIERS, gate=True)
+        print(f"  CPU hold: the first and last of {len(jt.list_batches())} batches of "
+              f"{PROJECT_CPU_BATCH} ({len(sites)} sites, {cpu_s:.2f} s on the CPU): labels, "
+              "counts and metadata exact, features by CARD_TIERS (largest |card - cpu| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + ")")
+
+        # 7. the exports
+        out = base / "export"
+        exports = {}
+
+        def export(title, argv, path):
+            t = time.perf_counter()
+            run_cli(cli, ["export", "--root", root, "--device", device, *argv, "--out",
+                          str(path)])
+            seconds = time.perf_counter() - t
+            exports[title] = {"s": round(seconds, 4),
+                              "MiB_per_s": round(_mib_per_s(_tree_bytes(path), seconds), 2)}
+
+        feats = store.read_features("nuclei")
+        export("parquet", ["--objects", "nuclei"], out / "nuclei.parquet")
+        back = parquet.read_table(out / "nuclei.parquet")
+        if list(back) != list(feats) or any(not np.array_equal(back[k], feats[k])
+                                            for k in feats):
+            raise SmokeFailure("export: the Parquet table differs from the feature store")
+        export("csv", ["--objects", "nuclei"], out / "nuclei.csv")
+        lines = (out / "nuclei.csv").read_text().splitlines()
+        if lines[0] != ",".join(feats) or len(lines) != len(feats["label"]) + 1:
+            raise SmokeFailure("export: the CSV table has the wrong header or row count")
+        export("geojson", ["--objects", "nuclei", "--simplify", "1.0"], out / "nuclei.geojson")
+        polys = [parquet.read_table(p) for p in sorted(
+            (store.root / "segmentations").glob("nuclei_polygons_*.parquet"))]
+        n_polys = sum(len(t["label"]) for t in polys)
+        fc = json.loads((out / "nuclei.geojson").read_text())
+        if len(fc["features"]) != n_polys or n_polys != len(feats["label"]):
+            raise SmokeFailure(f"export: {len(fc['features'])} GeoJSON features for {n_polys} "
+                               f"polygons and {len(feats['label'])} nuclei")
+        export("images", ["--images", "0"], out / "dapi")
+        tifs = sorted((out / "dapi").glob("*.tif"))
+        dapi = store.read_sites(None, channel=0)
+        first = read_tiff_page_py(tifs[0], 0)
+        if len(tifs) != n or not np.array_equal(first, dapi[0]):
+            raise SmokeFailure("export: the DAPI images differ from the store")
+        zarr = out / "ngff" / "phase11.zarr"
+        export("ngff", ["--ngff", "--ngff-labels", "nuclei,cells"], zarr)
+        exports["ngff"]["files"] = sum(1 for p in zarr.rglob("*") if p.is_file())
+        print("  exports (s, MiB/s of output): " + json.dumps(exports))
+
+        # 8. the NGFF plate back in, into a fresh store on the card
+        fresh = base / "reingest"
+        run_cli(cli, ["create", "--root", str(fresh), "--name", "reingest"])
+        engine.WorkflowDescription.canonical({
+            "metaconfig": {"source_dir": str(zarr.parent), "handler": "ngff",
+                           "sites_per_well_x": SITES_PER_WELL[1]},
+            "imextract": {}}).save(fresh / "workflow" / "workflow.yaml")
+        t0 = time.perf_counter()
+        run_cli(cli, ["workflow", "submit", "--root", str(fresh), "--device", device])
+        ingest_s = time.perf_counter() - t0
+        again = ExperimentStore.open(fresh)
+        n_files = 2 * n  # one level-0 chunk file a plane
+        if again.n_sites != n:
+            raise SmokeFailure(f"reingest: {again.n_sites} sites, expected {n}")
+        for c, ch in enumerate(store.experiment.channels):
+            c2 = [x.name for x in again.experiment.channels].index(ch.name)
+            if not np.array_equal(again.read_sites(None, channel=c2),
+                                  store.read_sites(None, channel=c)):
+                raise SmokeFailure(f"reingest: {ch.name} pixels differ from the original")
+        print(f"  NGFF re-ingest: metaconfig --handler ngff -> imextract on {device}: {n} sites "
+              f"x 2 channels pixel-equal, {n_files / ingest_s:.1f} files/s "
+              f"({ingest_s:.3f} s)")
+
+        # 9. cleanup
+        run_cli(cli, ["workflow", "cleanup", "--root", root, "--device", device])
+        left = [str(p.relative_to(store.root)) for sub in ("segmentations", "features")
+                for p in (store.root / sub).rglob("*") if p.is_file()]
+        left += [str(p.relative_to(store.root)) for p in store.workflow_dir.rglob("batch_*.json")]
+        if (store.workflow_dir / "ledger.jsonl").exists():
+            left.append("workflow/ledger.jsonl")
+        left += [f"registration {r}" for r in MapobjectTypeRegistry(store.root).names()]
+        if left:
+            raise SmokeFailure(f"cleanup left {left[:5]}")
+        if not yamlio.load(wf_path):
+            raise SmokeFailure("cleanup removed workflow.yaml")
+        phase_s = time.perf_counter() - started
+        print("  cleanup: no step output, batch plan, registration or ledger left")
+        line = {"cell": "project_yaml_p96x4_256", "sites": n,
+                "submit_sites_per_s": round(n / submit_s, 1), "submit_s": round(submit_s, 3),
+                "step_walls_s": walls, "launches": launches, "exports": exports,
+                "ngff_write_MiB_per_s": exports["ngff"]["MiB_per_s"],
+                "reingest_files_per_s": round(n_files / ingest_s, 1),
+                "cpu_hold_sites": len(sites), "phase_s": round(phase_s, 1), "card": card}
+        print("project: " + json.dumps(line))
+        return line
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -308,9 +308,12 @@ def test_descriptions_and_refusals(tmp_path):
         desc.validate()
     with pytest.raises(WorkflowError):
         WorkflowDescription.for_type("nope")
+    # YAML both ways: the reference's file loads, and the port writes its bytes
     JDescription.canonical(STEP_ARGS).save(tmp_path / "wf.yaml")
-    with pytest.raises(NotSupportedError, match="YAML"):
-        WorkflowDescription.load(tmp_path / "wf.yaml")
+    assert WorkflowDescription.load(tmp_path / "wf.yaml").to_dict() == \
+        JDescription.load(tmp_path / "wf.yaml").to_dict()
+    WorkflowDescription.canonical(STEP_ARGS).save(tmp_path / "port.yaml")
+    assert (tmp_path / "port.yaml").read_bytes() == (tmp_path / "wf.yaml").read_bytes()
     make_store(tmp_path / "s")
     with pytest.raises(DeviceError):  # the default device is the card
         Workflow(ExperimentStore.open(tmp_path / "s"), WorkflowDescription.canonical(STEP_ARGS))

@@ -222,8 +222,11 @@ def test_a_container_in_the_source_directory_raises(tmp_path):
     zarr.mkdir(parents=True)
     assert vendors.SIDECAR_HANDLERS["ngff"](zarr.parent) is None  # no .zattrs: not a plate
     (zarr / ".zattrs").write_text("{}")
-    with pytest.raises(NotSupportedError, match="OME-NGFF"):
-        vendors.SIDECAR_HANDLERS["ngff"](zarr.parent)
+    # OME-NGFF is read (tmlibrary_tpu_torch/ngff.py): a .zattrs with no plate
+    # or multiscales metadata is an unreadable plate, skipped as the
+    # reference skips it (test_torch_export.py holds real plates)
+    assert vendors.SIDECAR_HANDLERS["ngff"](zarr.parent) == \
+        j_vendors.SIDECAR_HANDLERS["ngff"](zarr.parent) == ([], 1)
 
 
 def test_the_sidecar_registry_and_policy_equal_the_reference(tmp_path):

@@ -19,6 +19,7 @@ import cv2
 from test_bigtiff import write_tiff
 from test_native import _tiff_lzw_encode
 from tmlibrary_tpu import native as j_native
+from tmlibrary_tpu import errors as j_errors
 from tmlibrary_tpu import readers as j_readers
 from tmlibrary_tpu.workflow.steps.imextract import ImageExtractor as JExtractor
 from tmlibrary_tpu_torch import native, readers
@@ -158,11 +159,18 @@ def test_lzw_and_packbits_equal_their_python_versions():
 def test_container_suffixes_raise(tmp_path, suffix):
     path = tmp_path / f"plate{suffix}"
     path.write_bytes(b"II*\0" + bytes(64))
+    # OME-NGFF is read (tmlibrary_tpu_torch/ngff.py): a file that is no NGFF
+    # directory raises MetadataError there, as the reference's reader does
+    want = ((MetadataError, "not an NGFF plate") if suffix == ".zarr"
+            else (NotSupportedError, "ROADMAP A item 12"))
     for call in (lambda: readers.read_container_plane(path, 0),
                  lambda: readers.container_dimensions(path),
                  lambda: ImageExtractor._read_plane(str(path), None, 8, 8)):
-        with pytest.raises(NotSupportedError, match="ROADMAP A item 12"):
+        with pytest.raises(want[0], match=want[1]):
             call()
+    if suffix == ".zarr":
+        with pytest.raises(j_errors.MetadataError, match="not an NGFF plate"):
+            j_readers.read_container_plane(path, 0)
     for plain in ("x.tif", "x.TIFF", "x.png"):
         assert readers.read_container_plane(tmp_path / plain, 0) is None
         assert readers.container_dimensions(tmp_path / plain) is None

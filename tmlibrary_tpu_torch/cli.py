@@ -4,11 +4,20 @@ Counterpart: ``tmlibrary_tpu/cli.py`` (``tmx``), with the verbs of the
 steps the port has, the same argument names and the same JSON output::
 
     python -m tmlibrary_tpu_torch.cli create --root DIR --name NAME
-    python -m tmlibrary_tpu_torch.cli workflow submit --root DIR [--description wf.json]
+    python -m tmlibrary_tpu_torch.cli workflow submit --root DIR [--description wf.yaml]
                                                       [--resume] [--device cuda] [--qc|--no-qc]
     python -m tmlibrary_tpu_torch.cli workflow resume --root DIR ...
-    python -m tmlibrary_tpu_torch.cli workflow status --root DIR
-    python -m tmlibrary_tpu_torch.cli <step> init|run|collect|info|args --root DIR ...
+    python -m tmlibrary_tpu_torch.cli workflow status|cleanup --root DIR
+    python -m tmlibrary_tpu_torch.cli workflow template --root DIR [--type canonical|multiplexing]
+    python -m tmlibrary_tpu_torch.cli <step> init|run|collect|info|cleanup|args --root DIR ...
+    python -m tmlibrary_tpu_torch.cli project create|add-module|remove-module|add-channel|show
+                                              --dir DIR ... | modules | check --pipe P
+    python -m tmlibrary_tpu_torch.cli export --root DIR --out PATH
+                                             (--objects NAME [--format csv|parquet|geojson]
+                                              [--join-features COLS] [--simplify TOL]
+                                             | --images CHANNEL [--cycle C] [--correct]
+                                               [--align] [--ome]
+                                             | --ngff [--ngff-levels N] [--ngff-labels NAMES])
     python -m tmlibrary_tpu_torch.cli log --root DIR [--tail N] [--step S [--job N]]
     python -m tmlibrary_tpu_torch.cli qc --root DIR [--json] [--reference qc.json]
                                          [--profile-kind run|model]
@@ -21,7 +30,18 @@ steps the port has, the same argument names and the same JSON output::
 
 ``<step>`` is ``metaconfig``, ``imextract``, ``corilla``, ``align``,
 ``illuminati`` or ``jterator``; the installed console script is
-``tmx-torch``.  ``create`` makes the placeholder store a canonical run
+``tmx-torch``.  ``workflow submit`` reads ``--description`` or the
+store's ``workflow/workflow.yaml`` (YAML through
+:mod:`tmlibrary_tpu_torch.yamlio`), which ``workflow template`` writes;
+``workflow cleanup`` removes every step's outputs and batch plans, the
+mapobject registrations and the run ledger, ``<step> cleanup`` one
+step's.  ``project`` manages a jterator project
+(:mod:`tmlibrary_tpu_torch.jterator.project`); ``export`` writes the
+feature table (Parquet through the port's codec, or CSV), the polygons
+as GeoJSON, one channel's site images as uint16 TIFFs or OME-TIFFs, or
+the whole plate as OME-NGFF (:mod:`tmlibrary_tpu_torch.ngff`), as the
+reference's verbs do; ``--illumstats`` (HDF5) raises
+:class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.  ``create`` makes the placeholder store a canonical run
 starts from (metaconfig writes its manifest).  The step verbs and
 ``workflow submit``/``resume`` take ``--device``, ``cuda`` unless ``cpu``
 is asked for; without a card, ``cuda`` raises.  ``--qc``/``--no-qc`` set
@@ -57,6 +77,7 @@ import sys
 from pathlib import Path
 
 from tmlibrary_tpu_torch.models.experiment import Experiment
+from tmlibrary_tpu_torch.models.mapobject import MapobjectTypeRegistry
 from tmlibrary_tpu_torch.models.store import ExperimentStore
 from tmlibrary_tpu_torch.parallel import distributed
 from tmlibrary_tpu_torch.resilience import ResilienceConfig
@@ -88,12 +109,56 @@ def build_parser() -> argparse.ArgumentParser:
     p_log.add_argument("--job", type=int, default=None,
                        help="batch index (with --step); omit for the whole-step run log")
 
+    p_export = sub.add_parser(
+        "export", help="export feature tables, polygons, site images or the whole plate")
+    _add_common(p_export)
+    p_export.add_argument("--objects", default=None, help="object type name")
+    p_export.add_argument(
+        "--illumstats", type=int, default=None, metavar="CHANNEL",
+        help="illumination statistics as HDF5: not ported (no h5py on the target machine)")
+    p_export.add_argument("--cycle", type=int, default=0,
+                          help="acquisition cycle for --illumstats/--images (default 0)")
+    p_export.add_argument(
+        "--images", type=int, default=None, metavar="CHANNEL",
+        help="instead of a feature table, write this channel's site images as uint16 TIFFs "
+             "into --out (a directory), named with the canonical <well>_s<site>_... pattern")
+    p_export.add_argument("--correct", action="store_true",
+                          help="--images only: apply illumination correction (corilla stats)")
+    p_export.add_argument("--align", action="store_true",
+                          help="--images only: apply cycle alignment shifts + intersection crop")
+    p_export.add_argument("--ome", action="store_true",
+                          help="--images only: write OME-TIFFs (OME-XML in ImageDescription) "
+                               "instead of bare TIFFs")
+    p_export.add_argument(
+        "--ngff", action="store_true",
+        help="write the whole experiment as an OME-NGFF (OME-Zarr v0.4) HCS plate into --out "
+             "(a directory, conventionally *.zarr); it re-ingests through the ngff "
+             "metaconfig handler")
+    p_export.add_argument("--ngff-levels", type=int, default=3, metavar="N",
+                          help="--ngff only: number of 2x multiscale levels (default 3)")
+    p_export.add_argument("--ngff-labels", default=None, metavar="NAME[,NAME...]",
+                          help="--ngff only: also export these segmentation stacks as NGFF "
+                               "image-label multiscales under each field's labels/ group")
+    p_export.add_argument("--out", required=True, help="output file path")
+    p_export.add_argument(
+        "--format", choices=("csv", "parquet", "geojson"), default=None,
+        help="inferred from --out suffix when omitted; geojson exports the traced object "
+             "polygons (run jterator with --as-polygons)")
+    p_export.add_argument(
+        "--join-features", default=None, metavar="COL[,COL...]",
+        help="geojson only: join these measurement columns onto each polygon's properties "
+             "by (site, label)")
+    p_export.add_argument(
+        "--simplify", type=float, default=0.0, metavar="TOL",
+        help="geojson only: Douglas-Peucker-simplify polygon rings to this "
+             "perpendicular-distance tolerance in pixels")
+
     p_wf = sub.add_parser("workflow", help="full workflow orchestration")
     wf_sub = p_wf.add_subparsers(dest="verb", required=True)
     shared = argparse.ArgumentParser(add_help=False)
     shared.add_argument("--description",
-                        help="workflow description, JSON (default: the store's "
-                             "workflow/workflow.json)")
+                        help="workflow description, YAML (default: the store's "
+                             "workflow/workflow.yaml)")
     shared.add_argument("--pipeline-depth", type=int, default=None, metavar="N",
                         help="in-flight device batches for the pipelined executor "
                              "(default: 8 on the card, 2 on the CPU)")
@@ -119,6 +184,14 @@ def build_parser() -> argparse.ArgumentParser:
     p_resume.set_defaults(resume=True)
     p_status = wf_sub.add_parser("status", help="per-step progress")
     _add_common(p_status)
+    p_clean = wf_sub.add_parser(
+        "cleanup", help="remove every step's outputs, batch plans, the mapobject "
+                        "registrations and the run ledger")
+    _add_common(p_clean)
+    p_tmpl = wf_sub.add_parser("template", help="write a typed skeleton workflow.yaml")
+    _add_common(p_tmpl)
+    p_tmpl.add_argument("--type", dest="wf_type", choices=("canonical", "multiplexing"),
+                        default="canonical", help="workflow type (multiplexing adds align)")
 
     p_qc = sub.add_parser(
         "qc", help="data-quality report of a run and its drift verdict against a reference "
@@ -209,6 +282,31 @@ def build_parser() -> argparse.ArgumentParser:
     p_trun.add_argument("--request", required=True)
     tool_sub.add_parser("available", help="registered tool names")
 
+    p_proj = sub.add_parser("project", help="manage a jterator pipeline project")
+    proj_sub = p_proj.add_subparsers(dest="verb", required=True)
+    p_pcreate = proj_sub.add_parser("create", help="create a skeleton project")
+    p_pcreate.add_argument("--dir", required=True, help="project directory")
+    p_pcreate.add_argument("--description", default="")
+    p_padd = proj_sub.add_parser("add-module", help="append a module instance")
+    p_padd.add_argument("--dir", required=True)
+    p_padd.add_argument("--module", required=True)
+    p_padd.add_argument("--instance", default=None)
+    p_premove = proj_sub.add_parser("remove-module", help="remove a module instance")
+    p_premove.add_argument("--dir", required=True)
+    p_premove.add_argument("--instance", required=True)
+    p_pchan = proj_sub.add_parser("add-channel", help="declare an input channel")
+    p_pchan.add_argument("--dir", required=True)
+    p_pchan.add_argument("--name", required=True)
+    p_pchan.add_argument("--no-correct", action="store_true")
+    p_pchan.add_argument("--align", action="store_true")
+    p_pshow = proj_sub.add_parser("show", help="modules in pipeline order")
+    p_pshow.add_argument("--dir", required=True)
+    proj_sub.add_parser("modules", help="registered module names")
+    p_pcheck = proj_sub.add_parser(
+        "check", help="validate a pipeline without running it: dataflow, module names, "
+                      "parameter names")
+    p_pcheck.add_argument("--pipe", required=True, help="path to .pipe.yaml")
+
     for name in list_steps():
         step_cls = get_step(name)
         p_step = sub.add_parser(name, help=f"{name} step")
@@ -223,6 +321,8 @@ def build_parser() -> argparse.ArgumentParser:
         _add_common(p_collect)
         p_info = verb_sub.add_parser("info", help="planned batches")
         _add_common(p_info)
+        p_clean = verb_sub.add_parser("cleanup", help="delete this step's previous outputs")
+        _add_common(p_clean)
         p_args = verb_sub.add_parser("args", help="argument schema as JSON")
         p_args.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     return parser
@@ -281,13 +381,34 @@ def cmd_workflow(args) -> int:
                     line += f" escalations {buckets['escalations']}"
                 print(line)
         return 0
+    if args.verb == "cleanup":
+        for name in list_steps():
+            _cleanup_step(get_step(name)(store, device=args.device))
+        # the registry would otherwise advertise object types whose
+        # label and feature files were just removed
+        registry = MapobjectTypeRegistry(store.root)
+        for name in registry.names():
+            registry.delete(name)
+        (store.workflow_dir / "ledger.jsonl").unlink(missing_ok=True)
+        print("removed all step outputs, batch plans, mapobject registrations and the run "
+              "ledger")
+        return 0
+    if args.verb == "template":
+        out = store.workflow_dir / "workflow.yaml"
+        if out.exists():
+            print(f"error: {out} already exists", file=sys.stderr)
+            return 1
+        WorkflowDescription.for_type(args.wf_type).save(out)
+        print(f"wrote {args.wf_type} workflow template to {out} — fill in step args and set "
+              "active: true on the steps to run")
+        return 0
     if args.description:
         desc = WorkflowDescription.load(Path(args.description))
     else:
-        default = store.workflow_dir / "workflow.json"
+        default = store.workflow_dir / "workflow.yaml"
         if not default.exists():
             print("error: no workflow description (pass --description or put "
-                  "workflow.json in the store's workflow dir)", file=sys.stderr)
+                  "workflow.yaml in the store's workflow dir)", file=sys.stderr)
             return 1
         desc = WorkflowDescription.load(default)
     if args.qc is not None:
@@ -338,7 +459,19 @@ def cmd_step(args) -> int:
             keys = {k: v for k, v in batch.items() if k != "args"}
             print(f"batch {i}: {json.dumps(keys, default=str)[:200]}")
         return 0
+    if args.verb == "cleanup":
+        _cleanup_step(step)
+        print(f"{args.command}: outputs removed")
+        return 0
     return 1
+
+
+def _cleanup_step(step) -> None:
+    """One step's cleanup (the per-step verb and the workflow-wide one):
+    its outputs and its batch plans."""
+    step.delete_previous_output()
+    for p in step.step_dir.glob("batch_*.json"):
+        p.unlink()
 
 
 def cmd_log(args) -> int:
@@ -558,6 +691,311 @@ def cmd_tool(args) -> int:
     return 0
 
 
+def cmd_project(args) -> int:
+    from tmlibrary_tpu_torch.jterator.project import Project
+
+    if args.verb == "modules":
+        from tmlibrary_tpu_torch.jterator.modules import list_modules
+
+        for name in list_modules():
+            print(name)
+        return 0
+    if args.verb == "create":
+        Project.create(Path(args.dir), description=args.description)
+        print(f"created project at {args.dir}")
+        return 0
+    if args.verb == "check":
+        from tmlibrary_tpu_torch.errors import (
+            PipelineDescriptionError,
+            PipelineError,
+            RegistryError,
+        )
+        from tmlibrary_tpu_torch.jterator.description import PipelineDescription
+        from tmlibrary_tpu_torch.jterator.modules import get_module, module_accepts
+
+        try:
+            desc = PipelineDescription.load(Path(args.pipe))
+        except (PipelineError, OSError, ValueError, KeyError) as e:
+            # PipelineError covers the description and handle errors and
+            # YAMLSubsetError; KeyError is a handle missing a field
+            print(f"FAIL: cannot load pipeline: {e}")
+            return 1
+        problems: list[str] = []
+        try:
+            desc.validate()
+        except PipelineDescriptionError as e:
+            problems.append(str(e))
+        for mod in desc.modules:
+            try:
+                get_module(mod.module, mod.backend)
+            except RegistryError as e:
+                problems.append(str(e))
+                continue
+            for name in list(mod.constants()) + list(mod.array_inputs()):
+                if not module_accepts(mod.module, mod.backend, name):
+                    problems.append(f"module '{mod.module}' has no parameter '{name}'")
+        if problems:
+            for problem in problems:
+                print(f"FAIL: {problem}")
+            return 1
+        print(f"OK: {len(desc.modules)} modules, dataflow valid, every module and parameter "
+              "resolves")
+        return 0
+    proj = Project(Path(args.dir))
+    if args.verb == "add-module":
+        hc = proj.add_module(args.module, instance=args.instance)
+        print(f"added '{args.module}' as '{args.instance or args.module}' "
+              f"({len(hc.input)} inputs, {len(hc.output)} outputs)")
+        return 0
+    if args.verb == "remove-module":
+        proj.remove_module(args.instance)
+        print(f"removed '{args.instance}'")
+        return 0
+    if args.verb == "add-channel":
+        proj.add_channel(args.name, correct=not args.no_correct, align=args.align)
+        print(f"added channel '{args.name}'")
+        return 0
+    if args.verb == "show":
+        for name in proj.module_names():
+            hc = proj.get_handles(name)
+            print(f"{name}: module={hc.module} backend={hc.backend}")
+        return 0
+    return 1
+
+
+def _export_images(store: ExperimentStore, args, out: Path) -> int:
+    """One channel's site planes (optionally corrected and aligned) as
+    uint16 TIFFs, every tpoint and zplane, named with the default
+    filename handler's grammar
+    (``[<plate>_]<well>_s<site>[_t<t>][_z<z>]_<channel>.tif``) so the tree
+    re-ingests; ``--align`` crops to the stored intersection window.  The
+    reference's ``_export_images`` (``tmlibrary_tpu/cli.py:1545``), which
+    writes with ``cv2``; the port writes through
+    :func:`~tmlibrary_tpu_torch.writers.encode_tiff` or, with ``--ome``,
+    :class:`~tmlibrary_tpu_torch.writers.OMETiffWriter`."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from tmlibrary_tpu_torch.device import resolve_device
+    from tmlibrary_tpu_torch.errors import StoreError
+    from tmlibrary_tpu_torch.models.experiment import Well
+    from tmlibrary_tpu_torch.ops import image_ops
+    from tmlibrary_tpu_torch.utils import create_partitions
+    from tmlibrary_tpu_torch.writers import OMETiffWriter, encode_tiff, minimal_ome_xml
+
+    device = resolve_device(args.device)
+    channel, cycle = args.images, args.cycle
+    exp = store.experiment
+    # the default ingest pattern takes [A-Za-z0-9-] channel tokens and
+    # [A-Za-z0-9] plate tokens only
+    ch_name = re.sub(r"[^A-Za-z0-9\-]", "-", exp.channels[channel].name)
+    plate_token = {p.name: re.sub(r"[^A-Za-z0-9]", "", p.name) or "plate" for p in exp.plates}
+    out.mkdir(parents=True, exist_ok=True)
+
+    mean_log = std_log = None
+    if args.correct:
+        if not store.has_illumstats(cycle=cycle, channel=channel):
+            print("error: --correct requested but corilla stats are missing "
+                  f"for cycle {cycle} channel {channel}", file=sys.stderr)
+            return 1
+        stats = store.read_illumstats(cycle=cycle, channel=channel)
+        mean_log = torch.as_tensor(np.asarray(stats["mean_log"]), device=device)
+        std_log = torch.as_tensor(np.asarray(stats["std_log"]), device=device)
+    shifts = None
+    window = None
+    if args.align:
+        if not store.has_shifts(cycle):
+            print(f"error: --align requested but no shifts stored for cycle {cycle} (run "
+                  "the align step)", file=sys.stderr)
+            return 1
+        shifts = store.read_shifts(cycle)
+        try:
+            w = store.read_intersection()
+            window = (w["top"], w["bottom"], w["left"], w["right"])
+        except StoreError:
+            pass  # align ran but no intersection stored: shift only
+        if window is not None and not any(window):
+            window = None
+    prep = image_ops.make_batch_prep(mean_log, std_log, window,
+                                     apply_shift=shifts is not None)
+
+    # site index within the well (row-major over the well grid)
+    refs = list(exp.sites())
+    spw_x = max((r.site_x for r in refs), default=0) + 1
+    multi_plate = len(exp.plates) > 1
+    shift_table = shifts if shifts is not None else np.zeros((len(refs), 2), np.int32)
+    n = 0
+    for tpoint in range(exp.n_tpoints):
+        for zplane in range(exp.n_zplanes):
+            for part in create_partitions(list(range(len(refs))), 32):
+                stack = store.read_sites(part, cycle=cycle, channel=channel, tpoint=tpoint,
+                                         zplane=zplane)
+                prepped = prep(torch.as_tensor(stack.astype(np.int32), device=device),
+                               torch.as_tensor(np.asarray(shift_table)[part], device=device))
+                prepped = prepped.cpu().numpy()
+                for b, idx in enumerate(part):
+                    ref = refs[idx]
+                    arr = np.clip(prepped[b], 0, 65535).astype(np.uint16)
+                    well = Well(row=ref.well_row, column=ref.well_column, sites=())
+                    name = f"{well.name}_s{ref.site_y * spw_x + ref.site_x:d}"
+                    if multi_plate:
+                        name = f"{plate_token[ref.plate]}_{name}"
+                    if exp.n_tpoints > 1:
+                        name += f"_t{tpoint:d}"
+                    if exp.n_zplanes > 1:
+                        name += f"_z{zplane:d}"
+                    name += f"_{ch_name}.tif"
+                    if args.ome:
+                        OMETiffWriter(out / name).write(arr, minimal_ome_xml(name, *arr.shape))
+                    else:
+                        (out / name).write_bytes(encode_tiff(arr))
+                    n += 1
+    print(f"wrote {n} {ch_name} site images to {out}")
+    return 0
+
+
+def _csv_cell(value) -> str:
+    """A cell as ``DataFrame.to_csv`` writes it: NaN as empty, floats by
+    their shortest repr, the rest by ``str``."""
+    if isinstance(value, float) and value != value:
+        return ""
+    return str(value)
+
+
+def _write_csv(path: Path, table: dict) -> None:
+    """The columns of ``table`` as ``DataFrame.to_csv(index=False)``
+    writes them (``csv.QUOTE_MINIMAL``, ``\\n`` line ends)."""
+    import csv
+
+    names = list(table)
+    columns = [table[k].tolist() for k in names]
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(names)
+        for row in zip(*columns):
+            writer.writerow([_csv_cell(v) for v in row])
+
+
+def _geojson_features(store: ExperimentStore, args) -> "list[dict] | int":
+    """The GeoJSON features of the polygon shards, with ``--join-features``
+    columns joined by (site, label) as the reference's left merge joins
+    them, and rings simplified by ``--simplify``; an int exit code on a
+    user error."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import native
+    from tmlibrary_tpu_torch.io import parquet
+
+    shards = sorted((store.root / "segmentations").glob(f"{args.objects}_polygons_*.parquet"))
+    if not shards:
+        print(f"error: no polygon shards for '{args.objects}' — run jterator with "
+              "--as-polygons", file=sys.stderr)
+        return 1
+    parts = [parquet.read_table(p) for p in shards]
+    names = list(parts[0])
+    rows = [{k: part[k][i] for k in names} for part in parts
+            for i in range(len(part[names[0]]))]
+    wanted: list[str] = []
+    if args.join_features:
+        wanted = [c.strip() for c in args.join_features.split(",") if c.strip()]
+        keys = {"label", "site_index", "site"}
+        if keys & set(wanted):
+            print(f"error: --join-features cannot include the join keys "
+                  f"{sorted(keys & set(wanted))}", file=sys.stderr)
+            return 1
+        feats = store.read_features(args.objects)
+        missing = [c for c in wanted if c not in feats]
+        if missing:
+            print(f"error: --join-features columns not in the feature table: {missing} "
+                  f"(available: {sorted(set(feats) - {'label'})[:20]}...)", file=sys.stderr)
+            return 1
+        matches: dict[tuple, list[int]] = {}
+        for i, key in enumerate(zip(feats["site_index"].tolist(), feats["label"].tolist())):
+            matches.setdefault(key, []).append(i)
+        joined = []
+        for row in rows:
+            hits = matches.get((int(row["site"]), int(row["label"])), [None])
+            for i in hits:
+                extra = {c: (None if i is None or feats[c][i] != feats[c][i]
+                             else feats[c][i]) for c in wanted}
+                joined.append({**row, **extra})
+        rows = joined
+    features = []
+    for row in rows:
+        contour = np.stack([np.asarray(row["contour_y"]), np.asarray(row["contour_x"])], axis=1)
+        if args.simplify > 0:
+            contour = native.simplify_polygon_host(contour, args.simplify)
+        ring = [[float(x), float(y)] for y, x in contour]
+        if ring and ring[0] != ring[-1]:
+            ring.append(ring[0])  # GeoJSON rings are closed
+        props = {k: (v.item() if hasattr(v, "item") else v) for k, v in row.items()
+                 if k not in ("contour_y", "contour_x")}
+        features.append({"type": "Feature",
+                         "geometry": {"type": "Polygon", "coordinates": [ring]},
+                         "properties": props})
+    return features
+
+
+def cmd_export(args) -> int:
+    """A combined per-object feature table (Parquet or CSV), the polygons
+    as GeoJSON, one channel's site images, or the whole plate as
+    OME-NGFF -- the reference's ``cmd_export``
+    (``tmlibrary_tpu/cli.py:1656``).  ``--illumstats`` writes HDF5 there
+    (h5py), which the target machine lacks: it raises
+    :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`."""
+    store = _open_store(args)
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    modes = [m for m, v in (("--objects", args.objects), ("--illumstats", args.illumstats),
+                            ("--images", args.images), ("--ngff", args.ngff or None))
+             if v is not None]
+    if len(modes) > 1:
+        print(f"error: {' and '.join(modes)} are mutually exclusive", file=sys.stderr)
+        return 1
+    if args.ngff:
+        from tmlibrary_tpu_torch.ngff import write_ngff_plate
+
+        label_names = ([n.strip() for n in args.ngff_labels.split(",") if n.strip()]
+                       if args.ngff_labels else None)
+        write_ngff_plate(store, out, n_levels=args.ngff_levels, label_names=label_names)
+        extra = f" + labels {','.join(label_names)}" if label_names else ""
+        print(f"wrote OME-NGFF 0.4 HCS plate ({len(store.experiment.channels)} channels"
+              f"{extra}) to {out}")
+        return 0
+    if args.images is not None:
+        return _export_images(store, args, out)
+    if args.illumstats is not None:
+        from tmlibrary_tpu_torch.errors import NotSupportedError
+
+        raise NotSupportedError("--illumstats writes HDF5 (h5py), which the target machine "
+                                "lacks (ROADMAP A item 12)")
+    if args.objects is None:
+        print("error: pass --objects NAME (feature/polygon export) or --illumstats CHANNEL",
+              file=sys.stderr)
+        return 1
+    suffix_fmt = {".csv": "csv", ".geojson": "geojson", ".json": "geojson"}
+    fmt = args.format or suffix_fmt.get(out.suffix.lower(), "parquet")
+    if fmt == "geojson":
+        features = _geojson_features(store, args)
+        if isinstance(features, int):
+            return features
+        out.write_text(json.dumps({"type": "FeatureCollection", "features": features}))
+        print(f"wrote {len(features)} polygon features to {out}")
+        return 0
+    from tmlibrary_tpu_torch.io import parquet
+
+    table = store.read_features(args.objects)
+    if fmt == "csv":
+        _write_csv(out, table)
+    else:
+        parquet.write_table(out, table)
+    n_rows = len(next(iter(table.values()))) if table else 0
+    print(f"wrote {n_rows} rows x {len(table)} cols to {out}")
+    return 0
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
@@ -581,6 +1019,10 @@ def main(argv=None) -> int:
             return cmd_index(args)
         if args.command == "tool":
             return cmd_tool(args)
+        if args.command == "project":
+            return cmd_project(args)
+        if args.command == "export":
+            return cmd_export(args)
         return cmd_step(args)
     except Exception as e:
         print(f"error: {e}", file=sys.stderr)

@@ -4,24 +4,59 @@ Counterpart: ``tmlibrary_tpu/config.py`` ``LibraryConfig``, of which the
 port keeps only the fields its engine uses, under the same names and
 defaults: ``ledger_fsync`` and the fault-tolerance knobs
 (``retry_attempts``, ``retry_base_delay``, ``max_batch_failures``,
-``qc_flag_budget``).  Each comes from the ``TM_<NAME>`` environment
-variable, else its default; the port reads no INI file.
+``qc_flag_budget``).  Each comes, as in the reference (``:21-60``), from
+the ``TM_<NAME>`` environment variable, else the ``[tmlibrary]`` section
+of the INI file ``$TM_CONFIG_FILE`` (default ``~/.tmlibrary.cfg``, read
+by :mod:`configparser` without interpolation), else its default.  A
+malformed file warns and reads as empty.
 """
 
 from __future__ import annotations
 
+import configparser
 import dataclasses
+import functools
 import os
+import warnings
+
+
+def _ini_values() -> dict:
+    """The ``[tmlibrary]`` section of the INI file, if there is one;
+    parsed once per (path, modification time)."""
+    path = os.environ.get("TM_CONFIG_FILE", os.path.expanduser("~/.tmlibrary.cfg"))
+    try:
+        mtime = os.stat(path).st_mtime_ns
+    except OSError:
+        return {}
+    return _parse_ini(path, mtime)
+
+
+@functools.lru_cache(maxsize=8)
+def _parse_ini(path: str, _mtime_ns: int) -> dict:
+    # no interpolation: '%' is common in paths and date patterns
+    parser = configparser.ConfigParser(interpolation=None)
+    try:
+        parser.read(path)
+        if not parser.has_section("tmlibrary"):
+            return {}
+        return dict(parser.items("tmlibrary"))
+    except configparser.Error as exc:
+        warnings.warn(f"ignoring malformed config file {path}: {exc}")
+        return {}
 
 
 def setting(name: str, default: str) -> str:
-    """One install-level setting: ``TM_<NAME>``, else ``default``."""
-    return os.environ.get(f"TM_{name.upper()}", default)
+    """One install-level setting: ``TM_<NAME>`` beats the INI file beats
+    ``default``."""
+    env = os.environ.get(f"TM_{name.upper()}")
+    if env is not None:
+        return env
+    return _ini_values().get(name, default)
 
 
 @dataclasses.dataclass
 class LibraryConfig:
-    """The engine's settings, read from the environment when built."""
+    """The engine's settings, read when built."""
 
     #: total tries per batch (1 = no retry) for transient faults
     retry_attempts: int = dataclasses.field(

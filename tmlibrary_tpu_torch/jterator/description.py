@@ -2,19 +2,17 @@
 
 Counterpart: ``tmlibrary_tpu/jterator/description.py`` (reference
 ``tmlib/workflow/jterator/description.py``).  Same schema and validation.
-Pipeline and handles files are read as JSON (``*.pipe.json``,
-``*.handles.json``) with the standard ``json`` module; the port does not
-import ``yaml``, which the card's machine lacks, so a document that is
-not JSON raises.  The JAX package reads the same files unchanged, since
-a JSON document is YAML.
+Pipeline and handles files (``*.pipe.yaml``, ``*.handles.yaml``, or
+their JSON forms) are read by the port's own YAML reader
+(:mod:`tmlibrary_tpu_torch.yamlio`): the card's machine has no ``yaml``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 from pathlib import Path
 
+from tmlibrary_tpu_torch import yamlio
 from tmlibrary_tpu_torch.errors import PipelineDescriptionError
 from tmlibrary_tpu_torch.jterator.handles import HandleCollection
 
@@ -42,16 +40,12 @@ class ObjectOutput:
 
 
 def _read_document(path: Path):
-    """A pipeline or handles document as JSON (which the reference's YAML
-    loader reads too).  The target machine has no ``yaml``: a document
-    that is not JSON raises, naming the file."""
-    path = Path(path)
-    try:
-        return json.loads(path.read_text())
-    except json.JSONDecodeError as e:
-        raise PipelineDescriptionError(
-            f"{path.name} is not JSON ({e.msg}); YAML documents are not read by the port "
-            "(no yaml on the target machine), save it as .json") from None
+    """A pipeline or handles document, read as YAML by
+    :mod:`tmlibrary_tpu_torch.yamlio` (a JSON document is YAML too); a
+    document outside the subset raises
+    :class:`~tmlibrary_tpu_torch.yamlio.YAMLSubsetError` naming the file
+    and the line."""
+    return yamlio.load(path)
 
 
 @dataclasses.dataclass

@@ -13,6 +13,7 @@ from typing import Any
 
 import torch
 
+from tmlibrary_tpu_torch import yamlio
 from tmlibrary_tpu_torch.errors import HandleError
 
 #: handle type names that bind pipeline-store arrays
@@ -93,6 +94,14 @@ class InputHandle:
     def is_array(self) -> bool:
         return self.type in IMAGE_TYPES | OBJECT_TYPES
 
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {"name": self.name, "type": self.type}
+        if self.key is not None:
+            d["key"] = self.key
+        if self.value is not None:
+            d["value"] = self.value
+        return d
+
     def validate_array(self, arr: torch.Tensor) -> None:
         """dtype check at bind time: a wrong-kind pixel array is refused
         here instead of failing deep inside a module."""
@@ -129,6 +138,14 @@ class OutputHandle:
             )
         if self.type in MEASUREMENT_TYPES and not self.objects:
             raise HandleError(f"measurement output '{self.name}' needs objects")
+
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {"name": self.name, "type": self.type}
+        for field in ("key", "objects", "channel"):
+            v = getattr(self, field)
+            if v is not None:
+                d[field] = v
+        return d
 
 
 @dataclasses.dataclass
@@ -171,6 +188,28 @@ class HandleCollection:
             input=inputs,
             output=outputs,
         )
+
+    def to_dict(self) -> dict:
+        """The document form, the inverse of :meth:`from_dict` (the
+        reference's ``handles/*.handles.yaml`` layout)."""
+        d: dict[str, Any] = {"module": self.module}
+        if self.version is not None:
+            d["version"] = self.version
+        if self.backend != "tpu":
+            d["backend"] = self.backend
+        d["input"] = [h.to_dict() for h in self.input]
+        d["output"] = [h.to_dict() for h in self.output]
+        return d
+
+    @classmethod
+    def load(cls, path) -> "HandleCollection":
+        """Read a ``.handles.yaml`` (or JSON) file."""
+        return cls.from_dict(yamlio.load(path))
+
+    def save(self, path) -> None:
+        """Write the handles as YAML, byte for byte as the reference's
+        ``yaml.safe_dump(..., sort_keys=False)`` writes them."""
+        yamlio.dump(self.to_dict(), path)
 
     def constants(self) -> dict[str, Any]:
         return {h.name: h.value for h in self.input if h.is_constant}

@@ -260,6 +260,9 @@ class ExperimentStore:
             return np.asarray(mm)
         return np.asarray(mm[np.asarray(site_indices)])
 
+    def has_labels(self, objects_name: str, tpoint: int = 0, zplane: int = 0) -> bool:
+        return self._labels_path(objects_name, tpoint, zplane).exists()
+
     def list_objects(self) -> list[str]:
         names = set()
         for p in (self.root / "segmentations").glob("*_t*_z*.npy"):

@@ -1,19 +1,22 @@
 """Host C++ of the port: the convex-hull pixel counts behind
-``Morphology_solidity``, the TIFF reader behind imextract, and the
-spatial layout's boundary trace and mosaic accumulators.
+``Morphology_solidity``, the TIFF reader behind imextract, the spatial
+layout's boundary trace and mosaic accumulators, and the Douglas-Peucker
+simplification behind ``export --simplify``.
 
 Counterpart: ``tmlibrary_tpu/native.py`` ``hull_pixel_counts_host`` and
 ``solidity_host`` (``:323-392``), ``tiff_info``, ``tiff_read``,
 ``tiff_read_page``, ``lzw_decode`` and ``packbits_decode``
 (``:413-590``), ``trace_boundary_host`` (``:275``),
 ``mosaic_intensity_host`` and ``mosaic_morph_host`` (``:1162-1260``),
+``simplify_polygon_host`` (``:627``),
 backed there by ``native/tmnative.cpp``.  Hulls are
 ragged per object, so, as in the JAX package, solidity is measured on
 the host from the exported label images and joined into the morphology
 features when a batch persists.
 
 The port keeps its own copy of the C++ (``csrc/host/hull.cpp``,
-``csrc/host/tiff.cpp`` and ``csrc/host/mosaic.cpp``).  At first use they are compiled with the host
+``csrc/host/tiff.cpp``, ``csrc/host/mosaic.cpp`` and
+``csrc/host/simplify.cpp``).  At first use they are compiled with the host
 compiler (``c++``/``g++`` on the ``PATH``, else ``nvcc``) into one
 library in ``build/host/`` at the root of the checkout, named by a
 digest of the sources and flags, and bound with ``ctypes``.  One call
@@ -23,8 +26,8 @@ pixels (:func:`hull_and_area_counts`); the step calls
 return None for a file the C++ reader declines by its own header checks
 (BigTIFF, deflate, tiles, colour), where the JAX package goes on to its
 Python reader too.  A failed build raises :class:`BuildError`; nothing
-falls back to :func:`hull_pixel_counts_numpy`, :func:`_lzw_decode_py` or
-:func:`_packbits_decode_py`, the plain versions that the tests hold the
+falls back to :func:`hull_pixel_counts_numpy`, :func:`_lzw_decode_py`,
+:func:`_packbits_decode_py` or :func:`simplify_keep_numpy`, the plain versions that the tests hold the
 library against.
 """
 
@@ -45,6 +48,7 @@ from tmlibrary_tpu_torch.errors import BuildError
 HOST_SRC = Path(__file__).resolve().parent / "csrc" / "host" / "hull.cpp"
 TIFF_SRC = HOST_SRC.with_name("tiff.cpp")
 MOSAIC_SRC = HOST_SRC.with_name("mosaic.cpp")
+SIMPLIFY_SRC = HOST_SRC.with_name("simplify.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "host"
 FLAGS = ("-O3", "-std=c++17", "-shared")
 
@@ -67,10 +71,11 @@ def _compiler() -> list[str]:
 
 
 def build() -> Path:
-    """Compile ``hull.cpp``, ``tiff.cpp`` and ``mosaic.cpp`` into one
+    """Compile ``hull.cpp``, ``tiff.cpp``, ``mosaic.cpp`` and
+    ``simplify.cpp`` into one
     library (if its digest-named file is missing) and return the library
     path."""
-    sources = (HOST_SRC, TIFF_SRC, MOSAIC_SRC)
+    sources = (HOST_SRC, TIFF_SRC, MOSAIC_SRC, SIMPLIFY_SRC)
     digest = hashlib.sha256(
         " ".join(FLAGS).encode() + b"".join(src.read_bytes() for src in sources)
     ).hexdigest()[:16]
@@ -110,7 +115,8 @@ def lib() -> ctypes.CDLL:
                                 ("tm_trace_boundary", [ptr, i32, i32, i32, ptr, i32]),
                                 ("tm_mosaic_intensity", [ptr, ptr, i64, i32, ptr, ptr, ptr,
                                                          ptr]),
-                                ("tm_mosaic_morph", [ptr, i32, i32, i32, *[ptr] * 7])):
+                                ("tm_mosaic_morph", [ptr, i32, i32, i32, *[ptr] * 7]),
+                                ("tm_simplify_polygon", [ptr, i32, ctypes.c_double, ptr])):
                 fn = getattr(loaded, fname)
                 fn.restype = ctypes.c_int32
                 fn.argtypes = args
@@ -253,6 +259,88 @@ def trace_boundary(labels: np.ndarray, label: int, max_pts: int = 1 << 16) -> np
         if n <= max_pts:
             return buf[:n].copy()
         max_pts = n  # truncated: again with the exact size
+
+
+# ---------------------------------------------------- polygon simplification
+def simplify_keep_numpy(contour: np.ndarray, tolerance: float) -> np.ndarray:
+    """The plain version of ``tm_simplify_polygon``: the (K,) bool mask of
+    the vertices Douglas-Peucker keeps, with the same split of the ring
+    at vertex 0 and its farthest vertex and the same order of ranges."""
+    n = len(contour)
+    keep = np.zeros(n, bool)
+    if n <= 2:
+        keep[:] = True
+        return keep
+    pts = np.asarray(contour, np.float64)
+    tol2 = tolerance * tolerance
+
+    def dist2(i, a, b_pt):
+        ay, ax = pts[a]
+        dy, dx = b_pt[0] - ay, b_pt[1] - ax
+        len2 = dy * dy + dx * dx
+        ey, ex = pts[i, 0] - ay, pts[i, 1] - ax
+        if len2 == 0.0:
+            return ey * ey + ex * ex
+        cross = dx * ey - dy * ex
+        return cross * cross / len2
+
+    far_i = int(((pts - pts[0]) ** 2).sum(axis=1)[1:].argmax()) + 1
+    keep[0] = keep[far_i] = True
+    stack = [(0, far_i), (far_i, n)]  # b == n: the chord ends at vertex 0
+    while stack:
+        a, b = stack.pop()
+        b_pt = pts[0] if b == n else pts[b]
+        worst, worst_d = -1, tol2
+        for i in range(a + 1, b):
+            d = dist2(i, a, b_pt)
+            if d > worst_d:
+                worst_d, worst = d, i
+        if worst >= 0:
+            keep[worst] = True
+            stack.append((a, worst))
+            stack.append((worst, b))
+    return keep
+
+
+def simplify_keep(contour: np.ndarray, tolerance: float) -> np.ndarray:
+    """The (K,) bool mask of the vertices ``tm_simplify_polygon`` keeps."""
+    contour = np.ascontiguousarray(contour, np.int32)
+    if contour.ndim != 2 or contour.shape[1] != 2:
+        raise ValueError(f"simplify_keep: expected (K, 2) vertices, got {contour.shape}")
+    keep = np.zeros(len(contour), np.uint8)
+    if lib().tm_simplify_polygon(contour.ctypes.data, len(contour), float(tolerance),
+                                 keep.ctypes.data) < 0:
+        raise ValueError("tm_simplify_polygon: invalid arguments")
+    return keep.astype(bool)
+
+
+def simplify_polygon_host(contour: np.ndarray, tolerance: float) -> np.ndarray:
+    """Douglas-Peucker simplification of a closed ``(K, 2)`` ``(y, x)``
+    contour ring to a perpendicular-distance tolerance in pixels, as the
+    JAX package's ``simplify_polygon_host`` (``native.py:627-682``): a
+    tolerance of 0 or a ring of 3 vertices or fewer is returned as it
+    is; a ring that collapses to its two split vertices gets back the
+    vertex farthest from their chord, and one left without area is
+    returned unsimplified."""
+    contour = np.ascontiguousarray(contour, np.int32)
+    if tolerance <= 0 or len(contour) <= 3:
+        return contour
+    out = contour[simplify_keep(contour, tolerance)]
+    if len(out) >= 3:
+        return out
+    pts = contour.astype(np.float64)
+    far = int(((pts - pts[0]) ** 2).sum(axis=1).argmax())
+    d = pts[far] - pts[0]
+    len2 = max(float(d @ d), 1e-9)
+    cross = np.abs(d[1] * (pts[:, 0] - pts[0, 0]) - d[0] * (pts[:, 1] - pts[0, 1])) / np.sqrt(len2)
+    cross[0] = cross[far] = -1.0
+    picked = contour[sorted({0, far, int(cross.argmax())})]
+    if len(picked) < 3:
+        return contour
+    a, b, c = picked[:3].astype(np.float64)
+    if abs((b[0] - a[0]) * (c[1] - a[1]) - (b[1] - a[1]) * (c[0] - a[0])) < 1e-12:
+        return contour
+    return picked
 
 
 def mosaic_intensity(labels: np.ndarray, vals: np.ndarray, count: int):

@@ -8,9 +8,10 @@ strip decode shared with it (``:1936-2113``, ``:2480-2525``), and the
 container entry points imextract and metaconfig call first
 (``read_container_plane``, ``container_dimensions``, ``:157-190``).
 
-The port reads no container format yet: every suffix the JAX package
-maps to a container reader (``.nd2 .czi .lif .dv .r3d .ims .stk .lsm
-.oib .oif .flex``, and OME-NGFF ``.zarr``) raises
+Of the containers the port reads OME-NGFF (``.zarr`` directories,
+through :class:`tmlibrary_tpu_torch.ngff.NGFFReader`); every other
+suffix the JAX package maps to a container reader (``.nd2 .czi .lif .dv
+.r3d .ims .stk .lsm .oib .oif .flex``) raises
 :class:`~tmlibrary_tpu_torch.errors.NotSupportedError` naming the
 ROADMAP item that ports them (:data:`CONTAINER_ITEM`).  The JAX package
 decodes a TIFF-flavoured container (``.stk .lsm .flex``) that its reader
@@ -33,7 +34,7 @@ import numpy as np
 from tmlibrary_tpu_torch import native
 from tmlibrary_tpu_torch.errors import MetadataError, NotSupportedError
 
-#: the ROADMAP item that ports the container readers
+#: the ROADMAP item that ports the container readers other than OME-NGFF
 CONTAINER_ITEM = "ROADMAP A item 12"
 
 #: container suffix -> the format the JAX package reads it as
@@ -54,23 +55,56 @@ def container_format(path) -> "str | None":
 
 def _refuse_container(path) -> None:
     fmt = container_format(path)
-    if fmt is not None:
+    if fmt is not None and fmt != "OME-NGFF":
         raise NotSupportedError(
             f"{path}: {fmt} containers are not read by the port yet ({CONTAINER_ITEM})")
 
 
+#: (path, mtime_ns, size) -> open NGFF reader: imextract reads a plate
+#: plane by plane, and each open parses every well's and field's metadata
+_OPEN_NGFF: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
+_OPEN_NGFF_CAP = 64
+_OPEN_NGFF_LOCK = threading.Lock()
+
+
+def _ngff_reader(path):
+    """The open :class:`~tmlibrary_tpu_torch.ngff.NGFFReader` of an
+    OME-NGFF directory, cached on its path and modification time."""
+    from tmlibrary_tpu_torch.ngff import NGFFReader
+
+    st = os.stat(path)
+    key = (str(path), st.st_mtime_ns, st.st_size)
+    with _OPEN_NGFF_LOCK:
+        reader = _OPEN_NGFF.get(key)
+    if reader is None:
+        reader = NGFFReader(path).__enter__()
+        with _OPEN_NGFF_LOCK:
+            while len(_OPEN_NGFF) >= _OPEN_NGFF_CAP:
+                _OPEN_NGFF.popitem(last=False)
+            reader = _OPEN_NGFF.setdefault(key, reader)
+    return reader
+
+
 def read_container_plane(path, page: int) -> "np.ndarray | None":
     """One container plane by linear page index; None for a plain image.
-    Every container raises :class:`NotSupportedError` (module docstring)."""
+    OME-NGFF directories are read (``NGFFReader.read_plane_linear``);
+    every other container raises :class:`NotSupportedError`."""
     _refuse_container(path)
-    return None
+    if container_format(path) is None:
+        return None
+    return _ngff_reader(path).read_plane_linear(page)
 
 
 def container_dimensions(path) -> "tuple[int, int] | None":
     """(height, width) of a container's planes, or None for a plain image
-    (metaconfig's site-shape probe).  Every container raises."""
+    (metaconfig's site-shape probe); containers other than OME-NGFF raise."""
     _refuse_container(path)
-    return None
+    if container_format(path) is None:
+        return None
+    from tmlibrary_tpu_torch.ngff import NGFFReader
+
+    with NGFFReader(path) as r:
+        return r.height, r.width
 
 
 # ---------------------------------------------------------------- TIFF walk

@@ -16,10 +16,10 @@ the reference's does with telemetry off (``run_started``, ``init_done``,
 ``description_drift``, the QC events), so either package's ``status``
 reads the other's ledger.  Where the port differs:
 
-- **Descriptions are JSON.**  The card's machine has no ``yaml``;
-  :meth:`WorkflowDescription.save` writes JSON (which is YAML, so the
-  reference loads it) and :meth:`~WorkflowDescription.load` of a
-  ``.yaml``/``.yml`` file raises :class:`NotSupportedError`.
+- **YAML without PyYAML.**  The card's machine has no ``yaml``;
+  :meth:`WorkflowDescription.load` and :meth:`~WorkflowDescription.save`
+  go through :mod:`tmlibrary_tpu_torch.yamlio`, whose writer gives the
+  reference's bytes.
 - **No CPU fallback.**  Every step runs on the engine's ``device``
   (``"cuda"`` unless the caller passes ``"cpu"``); a missing card raises
   :class:`DeviceError`.  The reference's device health guard, which pins
@@ -63,10 +63,11 @@ from typing import Any
 import torch
 
 from tmlibrary_tpu_torch import qc as qc_mod
+from tmlibrary_tpu_torch import yamlio
 from tmlibrary_tpu_torch.atomicio import atomic_write_text
 from tmlibrary_tpu_torch.config import LibraryConfig
 from tmlibrary_tpu_torch.device import resolve_device
-from tmlibrary_tpu_torch.errors import NotSupportedError, WorkflowError
+from tmlibrary_tpu_torch.errors import WorkflowError
 from tmlibrary_tpu_torch.models.store import ExperimentStore
 from tmlibrary_tpu_torch.parallel import distributed
 from tmlibrary_tpu_torch.resilience import (
@@ -158,19 +159,13 @@ class WorkflowDescription:
 
     @classmethod
     def load(cls, path: Path) -> "WorkflowDescription":
-        """Read a JSON description (the reference's YAML files are read
-        only where they are JSON; a ``.yaml``/``.yml`` suffix raises)."""
-        path = Path(path)
-        if path.suffix in (".yaml", ".yml"):
-            raise NotSupportedError(
-                f"{path.name}: YAML descriptions are not supported (no yaml on the "
-                "target machine); save the description as .json")
-        return cls.from_dict(json.loads(path.read_text()))
+        """Read a description written as YAML (or JSON, which is YAML)."""
+        return cls.from_dict(yamlio.load(path))
 
     def save(self, path: Path) -> None:
-        """Write the description as JSON (which the reference's YAML
-        loader reads as well)."""
-        atomic_write_text(path, json.dumps(self.to_dict(), indent=2) + "\n")
+        """Write the description as YAML, with the bytes of the
+        reference's ``yaml.safe_dump(..., sort_keys=False)``."""
+        atomic_write_text(path, yamlio.safe_dump(self.to_dict()))
 
     @classmethod
     def for_type(cls, workflow_type: str,

@@ -6,7 +6,8 @@ metaconfig's file mapping, read on the host and written as contiguous
 site stacks in batches of ``batch_size`` files.
 
 A plane is read in the JAX package's order (:meth:`ImageExtractor._read_plane`):
-a container (every container format raises here, ROADMAP A item 12),
+a container (an OME-NGFF plane through :mod:`~tmlibrary_tpu_torch.ngff`;
+every other container format raises here, ROADMAP A item 12),
 then the C++ TIFF reader (:func:`~tmlibrary_tpu_torch.native.tiff_read`),
 then the Python TIFF reader for what it declines (BigTIFF, deflate
 strips), then the PNG codec (:mod:`~tmlibrary_tpu_torch.io.png`, colour

@@ -468,8 +468,8 @@ class ImageAnalysisRunner(Step):
 
     # -------------------------------------------------------------- pipeline
     def _description(self, args) -> PipelineDescription:
-        """The parsed pipeline description (a ``.pipe.json`` is read with
-        ``json``; a path relative to the store root resolves there)."""
+        """The parsed pipeline description (a ``.pipe.yaml``, or its JSON
+        form; a path relative to the store root resolves there)."""
         with self._pipeline_lock:
             if self._desc is None:
                 pipe_path = Path(args["pipe"])

@@ -12,8 +12,9 @@ same text as the JAX package's for the same directory.
 
 Host work, one batch.  The site-shape probe reads the first file's
 header through the port's TIFF reader or PNG codec where the JAX package
-decodes it with ``cv2.imread``; a container file raises (its handler
-refuses it first, ROADMAP A item 12).
+decodes it with ``cv2.imread``; an OME-NGFF container gives its planes'
+shape, any other container raises (its handler refuses it first,
+ROADMAP A item 12).
 """
 
 from __future__ import annotations

@@ -12,9 +12,10 @@ The handlers whose planes are plain TIFF/PNG files are ported whole:
 ``cellvoyager`` (``MeasurementData.mlf`` + ``.mes``), ``omexml``
 (companion ``*.ome.xml``), ``harmony`` (``Index.idx.xml``),
 ``imagexpress`` (``.HTD``), ``metamorph`` (``.nd``), ``scanr`` and
-``leica`` (token filenames).  The ten container handlers (``nd2``,
-``czi``, ``lif``, ``ngff``, ``dv``, ``ims``, ``stk``, ``lsm``,
-``olympus``, ``flex``) stay registered: with none of their files under
+``leica`` (token filenames), and ``ngff`` (OME-NGFF plates and bare
+multiscale images, read by :mod:`tmlibrary_tpu_torch.ngff`).  The nine
+other container handlers (``nd2``, ``czi``, ``lif``, ``dv``, ``ims``,
+``stk``, ``lsm``, ``olympus``, ``flex``) stay registered: with none of their files under
 the source directory they return None, so ``--handler auto`` goes on;
 with one present they raise
 :class:`~tmlibrary_tpu_torch.errors.NotSupportedError` naming the
@@ -1159,11 +1160,86 @@ for _name, _kind, _suffixes in (
 
 
 @register_sidecar_handler("ngff")
-def ngff_sidecar(source_dir: Path) -> None:
-    """OME-NGFF plates (``*.zarr`` directories with ``.zattrs``): None
-    when the tree holds none, else NotSupportedError (CONTAINER_ITEM)."""
-    _refuse_containers("OME-NGFF", sorted(
-        p for p in source_dir.rglob("*.zarr") if p.is_dir() and (p / ".zattrs").exists()))
+def ngff_sidecar(source_dir: Path) -> "tuple[list[dict], int] | None":
+    """OME-NGFF (OME-Zarr v0.4) HCS plates, read by the first-party Zarr
+    v2 parser (:class:`tmlibrary_tpu_torch.ngff.NGFFReader`).
+
+    HCS plates take their wells from the plate's own metadata
+    (``rowIndex``/``columnIndex``) and their plate name from the
+    ``*.zarr`` directory's stem; BARE multiscale images (no ``plate``
+    key — the most common OME-Zarr form) are assigned wells like the
+    nd2/czi/lif containers: filename token (``A01``), else the next
+    free column on row A.  Fields map to sites, omero channel labels
+    (sanitized) name the channels.  ``page`` encodes
+    ``(((well * F + field) * T + t) * C + c) * Z + z`` — the convention
+    :meth:`~tmlibrary_tpu_torch.ngff.NGFFReader.read_plane_linear` decodes
+    for imextract.  Counterpart: ``tmlibrary_tpu/workflow/steps/vendors.py``
+    ``ngff_sidecar`` (``:1284-1369``)."""
+    from tmlibrary_tpu_torch.ngff import NGFFReader
+
+    plates = sorted(
+        p for p in source_dir.rglob("*.zarr")
+        if p.is_dir() and (p / ".zattrs").exists()
+    )
+    if not plates:
+        return None
+    entries: list[dict] = []
+    skipped = 0
+    bare: list[tuple] = []
+
+    def channel_names(nc, labels):
+        return channel_labels(labels, nc)
+
+    def emit(path, info, wells, plate_name):
+        nf, nt, nc, nz, labels = info
+        names = channel_names(nc, labels)
+        for wi, well in enumerate(wells):
+            for f in range(nf):
+                for t in range(nt):
+                    for c in range(nc):
+                        for z in range(nz):
+                            e = _container_entry(
+                                path, well, site=f, channel=c,
+                                zplane=z, tpoint=t,
+                                page=(((wi * nf + f) * nt + t) * nc + c)
+                                * nz + z,
+                            )
+                            e["plate"] = plate_name
+                            e["channel"] = names[c]
+                            entries.append(e)
+
+    for path in plates:
+        try:
+            with NGFFReader(path) as r:
+                info = (r.n_fields, r.n_tpoints, r.n_channels,
+                        r.n_zplanes, r.channel_names)
+                if r.is_plate:
+                    plate_name = (
+                        re.sub(r"[^A-Za-z0-9]", "", path.stem) or "plate00"
+                    )
+                    emit(path, info, list(r.well_indices), plate_name)
+                else:
+                    bare.append((path, info, parse_well_token(path.stem)))
+        except MetadataError as exc:
+            logger.warning("skipping unreadable NGFF plate %s: %s",
+                           path, exc)
+            skipped += 1
+    # bare images land on "plate00" (the shared container convention);
+    # assign_container_wells only deduplicates AMONG the bare files, so
+    # an HCS plate whose sanitized stem is also "plate00" must not have
+    # its wells silently overwritten by a bare image's pixels
+    claimed = {
+        (e["plate"], e["well_row"], e["well_col"]) for e in entries
+    }
+    for path, info, well in assign_container_wells(bare, "NGFF"):
+        if ("plate00", well[0], well[1]) in claimed:
+            raise VendorConflictError(
+                f"bare NGFF image {path} would land on plate00 well "
+                f"{well}, already claimed by an HCS plate in the same "
+                f"source dir — rename one of them"
+            )
+        emit(path, info, [well], "plate00")
+    return entries, skipped
 
 
 for _name, _kind, _suffixes in (
