@@ -203,7 +203,20 @@ Phases (any failure exits non-zero before the last line):
    line carries the submit's sites/s and step walls, each export's
    seconds and MiB/s, the NGFF write's MiB/s, the re-ingest's files/s and
    the card's name and power limit.
-12. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+12. Microscope containers (``phase_containers``, ``containers_p96x4_256``;
+   no kernel of its own): phase 5's plate as one ND2 a well (an XY loop
+   over a 2x2 stage grid) through ``workflow submit --device cuda`` of
+   metaconfig (``handler: auto`` must resolve ``nd2``), imextract and
+   config 3 with rows 1-4 launched (1, 1, 1, 2 a launched batch); the
+   store equal to the generator's pixels, ``file_mapping.json`` and
+   ``experiment.ome.xml`` equal to a CPU metaconfig's, the first CPU
+   batch of 16 held by ``CARD_TIERS``; one well of CZI (also a 2x2 mosaic
+   scene), LIF, DV, STK, LSM, OIB, OIF and FLEX through metaconfig and
+   imextract, every plane equal; ``inspect --json`` over each file and
+   directory; an STK its reader declines read through the TIFF path; the
+   ingest bench (``benchmarks.measure_ingest``); a ``containers: {...}``
+   line.
+13. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness; rows 2-4 add ``spatial_launches``, their launches
    on phase 9's secondary run, and rows 2-3 ``spatial``, the kernel at
@@ -1636,6 +1649,9 @@ def main() -> int:
 
         # ---------------------------------------------------------- phase 11
         phase_project(torch, wrappers, card)
+
+        # ---------------------------------------------------------- phase 12
+        phase_containers(torch, wrappers, card)
         if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except Exception as e:  # the smoke's boundary: report and exit non-zero
@@ -4897,6 +4913,346 @@ def phase_project(torch, wrappers, card, device: str = "cuda") -> dict:
                 "reingest_files_per_s": round(n_files / ingest_s, 1),
                 "cpu_hold_sites": len(sites), "phase_s": round(phase_s, 1), "card": card}
         print("project: " + json.dumps(line))
+        return line
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ phase 12
+#: phase 12's jterator batches on the CPU (the first of them held)
+CONTAINER_CPU_BATCH = 16
+
+
+def container_wells(cw, px: dict, src: Path) -> dict:
+    """One well of every container format but ND2, from the plate's first
+    well (4 sites x DAPI and Actin), each written by the port's writer
+    into its own directory under ``src``: name -> (directory, the
+    handler ``auto`` must resolve, the written planes as
+    ``{(channel, zplane): [planes]}``, sites, ``{file: inspect keys}``)."""
+    import numpy as np
+
+    d, a = px["DAPI"][:4], px["Actin"][:4]
+    h, w = d.shape[1:]
+    named = {("DAPI", 0): list(d), ("Actin", 0): list(a)}
+    one = {("C00", 0): [d[0]], ("C01", 0): [a[0]]}
+    dims = {"height": h, "width": w}
+    out = {}
+
+    def well(name, handler, planes, n_sites, files):
+        out[name] = (src / name, handler, planes, n_sites, files)
+        (src / name).mkdir(parents=True)
+        return src / name
+
+    p = well("czi", "czi", named, 4, {"scan_A01.czi": {
+        **dims, "format": "CZI", "n_scenes": 4, "n_tiles": 1, "n_channels": 2,
+        "channel_names": ["DAPI", "Actin"]}})
+    cw.write_czi(p / "scan_A01.czi", np.stack([d, a], 1), channel_names=["DAPI", "Actin"])
+    p = well("czi_mosaic", "czi", named, 4, {"mosaic_A01.czi": {
+        **dims, "format": "CZI", "n_scenes": 1, "n_tiles": 4, "n_channels": 2}})
+    cw.write_czi(p / "mosaic_A01.czi", np.stack([d, a], 1), n_tiles=4,
+                 tile_origins=[(0, 0), (0, w), (h, 0), (h, w)], channel_names=["DAPI", "Actin"])
+    p = well("lif", "lif", named, 4, {"A01.lif": {
+        **dims, "format": "LIF", "n_series": 4, "channel_names": ["DAPI", "Actin"]}})
+    cw.write_lif(p / "A01.lif", [np.stack([d[s], a[s]])[:, None, None] for s in range(4)],
+                 lut_names=["DAPI", "Actin"])
+    p = well("dv", "dv", one, 1, {"A01.dv": {
+        **dims, "format": "DV", "n_channels": 2, "n_zplanes": 1, "n_tpoints": 1}})
+    cw.write_dv(p / "A01.dv", np.stack([d[0], a[0]])[:, None, None])
+    p = well("stk", "stk", {("C00", 0): [d[0]], ("C00", 1): [a[0]]}, 1, {"A01.stk": {
+        **dims, "format": "STK", "n_zplanes": 2, "n_channels": 1}})
+    cw.write_stk(p / "A01.stk", np.stack([d[0], a[0]]))
+    p = well("lsm", "lsm", one, 1, {"A01.lsm": {
+        **dims, "format": "LSM", "n_channels": 2, "n_zplanes": 1, "n_tpoints": 1}})
+    cw.write_lsm(p / "A01.lsm", np.stack([d[0], a[0]])[None, None], compression=5, predictor=2)
+    p = well("oib", "olympus", one, 1, {"A01.oib": {
+        **dims, "format": "OIB", "n_channels": 2, "n_zplanes": 1, "n_tpoints": 1}})
+    cw.write_oib(p / "A01.oib", np.stack([d[0], a[0]])[:, None, None])
+    p = well("oif", "olympus", one, 1, {"A01.oif": {
+        **dims, "format": "OIF", "n_channels": 2, "n_zplanes": 1, "n_tpoints": 1}})
+    cw.write_oif(p, "A01", np.stack([d[0], a[0]])[:, None, None])
+    p = well("flex", "flex", named, 4, {"001001000.flex": {
+        **dims, "format": "Flex", "n_fields": 4, "n_channels": 2,
+        "channel_names": ["DAPI", "Actin"]}})
+    cw.write_flex(p / "001001000.flex", np.stack([d, a], 1).reshape(8, h, w),
+                  channel_names=("DAPI", "Actin"))
+    return out
+
+
+def store_planes(store) -> dict:
+    """``{(channel, zplane): sorted plane digests}`` of every stored site."""
+    import hashlib
+
+    import numpy as np
+
+    out = {}
+    exp = store.experiment
+    for ch in exp.channels:
+        for z in range(exp.n_zplanes):
+            stack = store.read_sites(None, channel=ch.index, zplane=z)
+            out[(ch.name, z)] = sorted(hashlib.sha1(np.ascontiguousarray(p).tobytes())
+                                       .hexdigest() for p in stack)
+    return out
+
+
+def digests(planes: dict) -> dict:
+    """:func:`store_planes` of written ``{(channel, zplane): [planes]}``."""
+    import hashlib
+
+    import numpy as np
+
+    return {k: sorted(hashlib.sha1(np.ascontiguousarray(p, np.uint16).tobytes()).hexdigest()
+                      for p in v) for k, v in planes.items()}
+
+
+def submit_seconds(engine, store) -> dict:
+    """Each step's wall from the run ledger."""
+    return {step: float(e["elapsed"]) for step, e in engine.RunLedger(
+        store.workflow_dir / "ledger.jsonl").status().items()}
+
+
+def phase_containers(torch, wrappers, card, device: str = "cuda") -> dict:
+    """Phase 12, ``containers_p96x4_256``: microscope container files on
+    the card.  Phase 5's plate (96 wells at 2x2 sites of 256x256, DAPI and
+    Actin, seed 0) written as one ND2 a well by the port's ``write_nd2``
+    (an XY loop over a 2x2 stage grid, the channel names in the picture
+    metadata); ``create``, then ``workflow submit --device cuda`` of
+    metaconfig (``handler: auto``, which must resolve ``nd2``) ->
+    imextract -> jterator (config 3, batches of 64, ``max_objects=256``)
+    with the launch counters set to 0 just before and read just after (1,
+    1, 1, 2 per launched batch).  Holds: the ingested store equals the
+    generator's pixels site by site on the stage grid; ``file_mapping.json``
+    and ``experiment.ome.xml`` equal a CPU metaconfig's over the same
+    directory; the sites of jterator's first CPU batch of
+    :data:`CONTAINER_CPU_BATCH` have the card's labels exactly and its
+    features within ``CARD_TIERS``.  Then one well of each other format
+    (:func:`container_wells`: CZI, a CZI 2x2 mosaic scene, LIF, DV, STK,
+    LSM with LZW strips and predictor 2, OIB, OIF, Opera FLEX) through
+    ``metaconfig --handler auto`` and imextract on the card: the handler
+    resolved, the store's planes equal the written ones, the mosaic's
+    tiles on their grid; ``inspect --json`` over every file and directory
+    with the written keys; an STK its reader declines read through the
+    TIFF path.  Last the ingest bench (:func:`benchmarks.measure_ingest`:
+    raw TIFF, ND2, CZI at 96 sites of 256x256, pooled, one worker, cold).
+    Prints the ``containers:`` line.  The directory is removed at the end."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks, capacity, cli, container_writers, readers
+    from tmlibrary_tpu_torch.models.experiment import Experiment
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import engine, get_step
+    from tmlibrary_tpu_torch.workflow.steps.imextract import ImageExtractor
+
+    started = time.perf_counter()
+    base = Path(__file__).resolve().parent / "build" / f"phase12.{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    try:
+        # 1. the plate as one ND2 a well
+        t0 = time.perf_counter()
+        wells = [(r, c) for r in range(PLATE[0]) for c in range(PLATE[1])]
+        per_well = SITES_PER_WELL[0] * SITES_PER_WELL[1]
+        n = len(wells) * per_well
+        data = benchmarks.synthetic_cell_painting_batch(n, size=SIZE, seed=SEED)
+        px = {ch: data[ch].astype(np.uint16) for ch in ("DAPI", "Actin")}
+        del data
+        src = base / "nd2"
+        src.mkdir(parents=True)
+        points = [(float(y * SIZE), float(x * SIZE)) for y in range(SITES_PER_WELL[0])
+                  for x in range(SITES_PER_WELL[1])]
+        for i, (r, c) in enumerate(wells):
+            sl = slice(i * per_well, (i + 1) * per_well)
+            container_writers.write_nd2(
+                src / f"plate_{chr(65 + r)}{c + 1:02d}.nd2",
+                np.stack([px["DAPI"][sl], px["Actin"][sl]], -1),
+                loops=[(2, per_well, points)], channel_names=["DAPI", "Actin"])
+        files = sorted(src.iterdir())
+        mbytes = sum(f.stat().st_size for f in files) / 2**20
+        write_s = time.perf_counter() - t0
+        args = {"pipe": "cp.pipe.json", "batch_size": STEP_BATCH, "max_objects": MAX_OBJECTS}
+        desc_path = base / "workflow.json"
+        engine.WorkflowDescription.canonical({
+            "metaconfig": {"source_dir": str(src), "handler": "auto"},
+            "imextract": {}, "jterator": args}).save(desc_path)
+        root = base / "card"
+        run_cli(cli, ["create", "--root", str(root), "--name", "containers"])
+        (root / "cp.pipe.json").write_text(json.dumps(benchmarks.CELL_PAINTING_PIPE))
+        print(f"phase 12, containers_p96x4_256: metaconfig (handler auto) -> imextract -> "
+              f"jterator (config 3) through `workflow submit --device {device}` from "
+              f"{len(files)} ND2 files, one a well ({mbytes:.1f} MiB, {PLATE[0]}x{PLATE[1]} "
+              f"wells at {SITES_PER_WELL[0]}x{SITES_PER_WELL[1]} sites of {SIZE}x{SIZE}, DAPI "
+              f"and Actin; written by the port's write_nd2 in {write_s:.2f} s) on {card}")
+
+        # 2. the submit, launches read around it
+        capacity.reset_routing_history()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+            if hasattr(w, "routes"):
+                w.routes = dict.fromkeys(w.routes, 0)
+        t0 = time.perf_counter()
+        summary = json.loads(run_cli(cli, ["workflow", "submit", "--root", str(root),
+                                           "--description", str(desc_path),
+                                           "--device", device]))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        submit_s = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        store = ExperimentStore.open(root)
+        events = engine.RunLedger(store.workflow_dir / "ledger.jsonl").events()
+        steps = ["metaconfig", "imextract", "jterator"]
+        if list(summary) != steps:
+            raise SmokeFailure(f"containers: summary {list(summary)}")
+        jt = [e["result"] for e in events
+              if e["event"] == "batch_done" and e["step"] == "jterator"]
+        n_launched = len(jt) + sum(r.get("bucket_escalations", 0) for r in jt)
+        expected = {k: 0 for k in wrappers}
+        expected.update({"fill_holes_flood": n_launched, "cc_min_propagate": n_launched,
+                         "watershed_flood": n_launched, "grouped_stats": 2 * n_launched})
+        if launches != expected:
+            raise SmokeFailure(f"containers: launches {launches}, expected {expected}")
+        mapping = json.loads((store.workflow_dir / "metaconfig" / "file_mapping.json")
+                             .read_text())
+        if not mapping or any(not e["path"].endswith(".nd2") for e in mapping):
+            raise SmokeFailure("containers: the file mapping holds other files than the ND2s")
+        walls = submit_seconds(engine, store)
+        print(f"  submit: {n / submit_s:.1f} sites/s ({submit_s:.3f} s of command), step walls "
+              "(s) " + ", ".join(f"{s} {walls[s]:.3f}" for s in steps) + f"; launches "
+              f"{launches} over {len(jt)} batches and {n_launched - len(jt)} escalation "
+              f"re-launches; on {card}")
+        rates = {"nd2": {"files_per_s": len(files) / walls["imextract"],
+                         "MiB_per_s": mbytes / walls["imextract"]}}
+        print(f"    imextract nd2: {len(files)} files in {walls['imextract']:.3f} s = "
+              f"{rates['nd2']['files_per_s']:.1f} files/s ({rates['nd2']['MiB_per_s']:.1f} "
+              f"MiB/s); on {card}")
+
+        # 3. holds: the pixels on the stage grid, metaconfig against the CPU's,
+        # jterator's first CPU batch
+        order = [((ref.well_row * PLATE[1] + ref.well_column) * per_well
+                  + ref.site_y * SITES_PER_WELL[1] + ref.site_x)
+                 for ref in store.experiment.sites()]
+        if sorted(order) != list(range(n)):
+            raise SmokeFailure("containers: the stage grid does not cover every site once")
+        for ch, values in px.items():
+            got = store.read_sites(None, channel=store.experiment.channel_index(ch))
+            if not np.array_equal(got, values[order]):
+                raise SmokeFailure(f"containers: the ingested {ch} pixels differ from the ND2s'")
+        meta = ExperimentStore.create(base / "meta", Experiment(
+            name="containers", plates=[], channels=[], site_height=1, site_width=1))
+        step = get_step("metaconfig")(meta, device="cpu")
+        step.init({"source_dir": str(src), "handler": "auto"})
+        step.run(0)
+        for name in ("file_mapping.json", "experiment.ome.xml"):
+            if (store.workflow_dir / "metaconfig" / name).read_text() != \
+                    (meta.workflow_dir / "metaconfig" / name).read_text():
+                raise SmokeFailure(f"containers: {name} differs from the CPU metaconfig's")
+        copy_part(store.root, base / "cpu", "images")
+        cpu = ExperimentStore.open(base / "cpu")
+        (cpu.root / "cp.pipe.json").write_text(json.dumps(benchmarks.CELL_PAINTING_PIPE))
+        capacity.reset_routing_history()
+        t0 = time.perf_counter()
+        jt_cpu = get_step("jterator")(cpu, device="cpu")
+        jt_cpu.init({**args, "batch_size": CONTAINER_CPU_BATCH})
+        jt_cpu.run(0)
+        cpu_s = time.perf_counter() - t0
+        sites = list(jt_cpu.load_batch(0)["sites"])
+        _, worst = hold_batch(store, cpu, sites, CARD_TIERS, gate=True)
+        print(f"  holds: the {n} sites x 2 channels ingested equal the ND2s' pixels on the "
+              "stage grid; file_mapping.json and experiment.ome.xml equal a CPU metaconfig's; "
+              f"jterator's first CPU batch ({len(sites)} sites, {cpu_s:.2f} s): labels exact, "
+              "features within CARD_TIERS, largest |card - cpu| by family "
+              + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+        shutil.rmtree(base / "cpu")
+        shutil.rmtree(base / "meta")
+
+        # 4. one well of every other format
+        held = ["nd2"]
+        others = container_wells(container_writers, px, base / "wells")
+        inspect_args = []
+        for name, (wsrc, want_handler, planes, n_sites, wfiles) in others.items():
+            wroot = base / f"store_{name}"
+            run_cli(cli, ["create", "--root", str(wroot), "--name", name])
+            wdesc = base / f"{name}.json"
+            engine.WorkflowDescription.canonical({
+                "metaconfig": {"source_dir": str(wsrc), "handler": "auto"},
+                "imextract": {}}).save(wdesc)
+            run_cli(cli, ["workflow", "submit", "--root", str(wroot), "--description",
+                          str(wdesc), "--device", device])
+            wstore = ExperimentStore.open(wroot)
+            wwalls = submit_seconds(engine, wstore)
+            mapping = json.loads((wstore.workflow_dir / "metaconfig" / "file_mapping.json")
+                                 .read_text())
+            n_files = len({e["path"] for e in mapping})
+            nbytes = sum(p.stat().st_size for p in wsrc.rglob("*") if p.is_file())
+            if wstore.n_sites != n_sites or store_planes(wstore) != digests(planes):
+                raise SmokeFailure(f"containers: the {name} store ({wstore.n_sites} sites) "
+                                   "differs from the written planes")
+            if name == "czi_mosaic":
+                grid = {(r.site_y, r.site_x) for r in wstore.experiment.sites()}
+                dapi = wstore.read_sites(None, channel=wstore.experiment.channel_index("DAPI"))
+                tiles = [px["DAPI"][(r.site_y * 2 + r.site_x)] for r in wstore.experiment.sites()]
+                if grid != {(0, 0), (0, 1), (1, 0), (1, 1)} or \
+                        not np.array_equal(dapi, np.stack(tiles)):
+                    raise SmokeFailure(f"containers: mosaic tiles off their grid {sorted(grid)}")
+            rates[name] = {"files_per_s": n_files / wwalls["imextract"],
+                           "MiB_per_s": nbytes / 2**20 / wwalls["imextract"],
+                           "planes": sum(len(v) for v in planes.values())}
+            inspect_args += [str(wsrc / f) for f in wfiles] + [str(wsrc)]
+            held.append(name)
+
+        # 5. inspect over every file and directory
+        lines = [json.loads(x) for x in run_cli(
+            cli, ["inspect", "--json", *inspect_args, str(src / "plate_A01.nd2"),
+                  str(src)]).splitlines()]
+        by_file = {x["file"]: x for x in lines}
+        for name, (wsrc, want_handler, planes, n_sites, wfiles) in others.items():
+            for f, keys in wfiles.items():
+                got = by_file[str(wsrc / f)]
+                if {k: got.get(k) for k in keys} != keys:
+                    raise SmokeFailure(f"inspect {name}/{f}: {got}, expected {keys}")
+            got = by_file[str(wsrc)]
+            if (got.get("handler"), got.get("n_sites"), got.get("n_skipped_files")) != \
+                    (want_handler, n_sites, 0):
+                raise SmokeFailure(f"inspect {name}: {got}")
+        nd2 = by_file[str(src / "plate_A01.nd2")]
+        want = {"format": "ND2", "n_sequences": per_well, "n_components": 2,
+                "loops": [["XY", per_well]], "channel_names": ["DAPI", "Actin"],
+                "height": SIZE, "width": SIZE}
+        if {k: nd2.get(k) for k in want} != want or by_file[str(src)].get("handler") != "nd2" \
+                or by_file[str(src)].get("n_sites") != n:
+            raise SmokeFailure(f"inspect nd2: {nd2} / {by_file[str(src)]}")
+
+        # 6. an STK its reader declines, through the TIFF path
+        declined = base / "declined.stk"
+        container_writers.write_packbits_stk(declined, px["DAPI"][0])
+        if readers.read_container_plane(declined, 0) is not None or not np.array_equal(
+                ImageExtractor._read_plane(str(declined), 0, SIZE, SIZE), px["DAPI"][0]) or \
+                not np.array_equal(readers.ImageReader(declined).read(0), px["DAPI"][0]):
+            raise SmokeFailure("containers: the declined STK did not read through the TIFF path")
+        held.append("stk_declined")
+        print(f"  {len(others)} other wells through metaconfig --handler auto -> imextract on "
+              f"{device}: stores equal the written planes, inspect --json keys equal what was "
+              "written, the declined STK read through the TIFF path; imextract files/s, MiB/s: "
+              + ", ".join(f"{k} {v['files_per_s']:.1f}, {v['MiB_per_s']:.1f}"
+                          for k, v in rates.items()) + f"; on {card}")
+
+        # 7. the ingest bench
+        t0 = time.perf_counter()
+        bench = benchmarks.measure_ingest(base / "bench", size=SIZE, device=device)
+        bench_s = time.perf_counter() - t0
+        print(f"  ingest bench ({bench['sites']} sites of {SIZE}x{SIZE}, "
+              f"{bench['timing_methodology']}, {bench_s:.1f} s): Mpix/s pooled / one worker / cold "
+              f"({benchmarks.INGEST_COLD_MS} ms a plane) pooled / cold one worker: "
+              + "; ".join(f"{fmt} {r['mpix_per_sec']:.1f} / {r['single_thread_mpix_per_sec']:.1f}"
+                          f" / {r['cold_mpix_per_sec']:.1f} / "
+                          f"{r['cold_single_thread_mpix_per_sec']:.1f}"
+                          for fmt, r in bench["per_format"].items()) + f"; on {card}")
+        phase_s = time.perf_counter() - started
+        line = {"cell": "containers_p96x4_256", "formats": held, "sites": n,
+                "submit_sites_per_s": n / submit_s, "submit_s": submit_s,
+                "step_walls_s": walls, "launches": launches,
+                "imextract": rates, "ingest_bench": bench["per_format"],
+                "cpu_hold_sites": len(sites), "phase_s": phase_s, "card": card}
+        print("containers: " + json.dumps(line))
         return line
     finally:
         shutil.rmtree(base, ignore_errors=True)

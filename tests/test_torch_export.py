@@ -119,7 +119,7 @@ def test_illumstats_export_is_refused_by_name(store, tmp_path, capsys):
     assert cli.main(["export", "--root", str(store.root), "--illumstats", "0", "--out",
                      str(tmp_path / "s.h5"), "--device", "cpu"]) == 1
     assert "h5py" in capsys.readouterr().err
-    with pytest.raises(NotSupportedError, match="ROADMAP A item 12"):
+    with pytest.raises(NotSupportedError, match="ROADMAP A item 12b"):
         cli.cmd_export(cli.build_parser().parse_args(
             ["export", "--root", str(store.root), "--illumstats", "0", "--out",
              str(tmp_path / "s.h5")]))
@@ -252,11 +252,23 @@ def test_ngff_plate_reingests_pixel_equal(plates, store, tmp_path):
 
 
 def test_other_containers_stay_refused(tmp_path):
-    (tmp_path / "a.nd2").write_bytes(b"\0" * 16)
-    with pytest.raises(NotSupportedError, match="ROADMAP A item 12"):
-        read_container_plane(tmp_path / "a.nd2", 0)
-    with pytest.raises(NotSupportedError, match="ROADMAP A item 12"):
-        vendors.SIDECAR_HANDLERS["nd2"](tmp_path)
+    # Imaris .ims (HDF5) stays refused by name; an ND2 reads as in the reference
+    (tmp_path / "a.ims").write_bytes(b"\0" * 16)
+    with pytest.raises(NotSupportedError, match="ROADMAP A item 12b"):
+        read_container_plane(tmp_path / "a.ims", 0)
+    with pytest.raises(NotSupportedError, match="ROADMAP A item 12b"):
+        vendors.SIDECAR_HANDLERS["ims"](tmp_path)
+    from tmlibrary_tpu.readers import read_container_plane as j_read_container_plane
+    from tmlibrary_tpu_torch.container_writers import write_nd2
+
+    planes = np.random.default_rng(3).integers(0, 60000, (2, 8, 6, 2), dtype=np.uint16)
+    write_nd2(tmp_path / "A01.nd2", planes)
+    for page in range(4):
+        got = read_container_plane(tmp_path / "A01.nd2", page)
+        np.testing.assert_array_equal(got, planes[page // 2, :, :, page % 2])
+        np.testing.assert_array_equal(got, j_read_container_plane(tmp_path / "A01.nd2", page))
+    assert vendors.SIDECAR_HANDLERS["nd2"](tmp_path) == \
+        j_vendors.SIDECAR_HANDLERS["nd2"](tmp_path)
 
 
 def test_ngff_export_refuses_missing_labels(store, tmp_path):

@@ -6,10 +6,12 @@ OME companion (multi-page), Harmony, ImageXpress, MetaMorph, ScanR and
 Leica sidecars (the fixtures ``tests/test_vendors.py`` writes), the
 ``auto`` handler, an explicit ``pattern`` and the InCell filename style.
 The manifests, ``file_mapping.json`` and ``experiment.ome.xml`` texts,
-step results and every stored plane are equal.  A directory holding an
-``.nd2`` raises :class:`NotSupportedError` in the port, also under
+step results and every stored plane are equal.  An unreadable ``.nd2``
+is skipped as in the reference; a directory holding an ``.ims`` raises
+:class:`NotSupportedError` in the port (ROADMAP A item 12b), also under
 ``auto``; the sidecar registry, its policy and the container helpers
-equal the reference's.
+equal the reference's.  The container formats themselves are held in
+``test_torch_container_ingest.py``.
 """
 
 import json
@@ -205,10 +207,16 @@ def test_a_container_in_the_source_directory_raises(tmp_path):
     src.mkdir()
     default_dir(src, ".tif")
     (src / "B03_plate.nd2").write_bytes(b"\xda\xce\xbe\x0a" + bytes(60))
-    for handler in ("nd2", "auto"):
-        with pytest.raises(NotSupportedError, match="ND2.*ROADMAP A item 12"):
-            ingest(tmp_path / f"p_{handler}", {"source_dir": str(src), "handler": handler},
-                   port=True)
+    # an unreadable .nd2 is skipped and counted: the nd2 handler named
+    # alone then raises, auto falls back to the filenames, as in the reference
+    with pytest.raises(MetadataError, match="'nd2' sidecar files exist"):
+        ingest(tmp_path / "p_nd2", {"source_dir": str(src), "handler": "nd2"}, port=True)
+    with pytest.raises(Exception, match="'nd2' sidecar files exist"):
+        ingest(tmp_path / "r_nd2", {"source_dir": str(src), "handler": "nd2"}, port=False)
+    assert ingest(tmp_path / "p_auto", {"source_dir": str(src), "handler": "auto"},
+                  port=True) == \
+        ingest(tmp_path / "r_auto", {"source_dir": str(src), "handler": "auto"}, port=False)
+    assert_same_ingest(tmp_path / "r_auto", tmp_path / "p_auto")
     # the default filename handler does not look at containers
     ingest(tmp_path / "p_default", {"source_dir": str(src)}, port=True)
     for suffix, name in ((".czi", "czi"), (".r3d", "dv"), (".oib", "olympus"),
@@ -216,8 +224,14 @@ def test_a_container_in_the_source_directory_raises(tmp_path):
         other = tmp_path / f"src{suffix}"
         other.mkdir()
         (other / f"A01{suffix}").write_bytes(bytes(16))
-        with pytest.raises(NotSupportedError, match="ROADMAP A item 12"):
-            vendors.SIDECAR_HANDLERS[name](other)
+        assert vendors.SIDECAR_HANDLERS[name](other) == \
+            j_vendors.SIDECAR_HANDLERS[name](other) == ([], 1)
+    # Imaris .ims is HDF5: refused by name (ROADMAP A item 12b), also under auto
+    ims = tmp_path / "src_ims"
+    ims.mkdir()
+    (ims / "A01.ims").write_bytes(bytes(16))
+    with pytest.raises(NotSupportedError, match="ROADMAP A item 12b"):
+        ingest(tmp_path / "p_ims", {"source_dir": str(ims), "handler": "auto"}, port=True)
     zarr = tmp_path / "ngff" / "plate.zarr"
     zarr.mkdir(parents=True)
     assert vendors.SIDECAR_HANDLERS["ngff"](zarr.parent) is None  # no .zattrs: not a plate

@@ -607,10 +607,12 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
             "tmlibrary_tpu_torch.yamlio", "tmlibrary_tpu_torch.jterator.project",
             "tmlibrary_tpu_torch.jterator.handles", "tmlibrary_tpu_torch.jterator.description",
             "tmlibrary_tpu_torch.ngff", "tmlibrary_tpu_torch.config",
-            "tmlibrary_tpu_torch.native", "chip_smoke"]
+            "tmlibrary_tpu_torch.native", "tmlibrary_tpu_torch.cfb",
+            "tmlibrary_tpu_torch.container_writers", "chip_smoke"]
     code = (
         "import importlib, sys\n"
-        "for banned in ('yaml', 'pandas', 'cv2', 'pyarrow', 'PIL', 'h5py', 'sklearn'):\n"
+        "for banned in ('yaml', 'pandas', 'cv2', 'pyarrow', 'PIL', 'h5py', 'sklearn',\n"
+        "               'zstandard'):\n"
         "    sys.modules[banned] = None\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "from tmlibrary_tpu_torch.workflow import list_steps; print(list_steps())\n"

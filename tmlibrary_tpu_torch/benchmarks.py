@@ -746,3 +746,129 @@ def measure_analytics(sizes=ANALYTICS_SIZES, n_features: int = ANALYTICS_FEATURE
         "timing_methodology": f"analytics-tools-v1: mean of {reps} warm calls, host clock "
                               "ended by a device sync",
     }
+
+
+# --------------------------------------------------------------- ingest
+#: the reference bench's ingest knobs (bench.py:1164-1310): 96 blob sites,
+#: best of 3 runs, a cold source's 2 ms a plane
+INGEST_SITES, INGEST_REPS, INGEST_COLD_MS = 96, 3, 2.0
+
+
+def ingest_source(fmt: str, planes: np.ndarray, src) -> None:
+    """The bench's source directory for one format from ``(n, H, W)``
+    uint16 planes: ``tiff_raw`` one uncompressed TIFF a site (the port's
+    ``ImageWriter``), ``nd2`` one container of ``n`` sequences, ``czi``
+    one of ``n`` scenes (uncompressed), as the reference bench writes them."""
+    from pathlib import Path
+
+    from tmlibrary_tpu_torch import container_writers
+    from tmlibrary_tpu_torch.writers import ImageWriter
+
+    src = Path(src)
+    src.mkdir(parents=True)
+    if fmt == "tiff_raw":
+        for i, plane in enumerate(planes):
+            with ImageWriter(src / f"img_A01_s{i}_C00.tif") as w:
+                w.write(plane)
+    elif fmt == "nd2":
+        container_writers.write_nd2(src / "plate_A01.nd2", planes[:, :, :, None])
+    elif fmt == "czi":
+        container_writers.write_czi(src / "scan_A01.czi", planes[:, None, :, :])
+    else:
+        raise ValueError(f"unknown ingest format {fmt!r}")
+
+
+def time_ingest(src, root, workers: "int | None", throttle_ms: "float | None",
+                reps: int = INGEST_REPS, device: str = "cuda") -> float:
+    """Best of ``reps`` wall seconds of the whole imextract phase over
+    ``src`` (metaconfig ``handler: auto`` first, untimed), with
+    ``TMX_INGEST_WORKERS`` and ``TMX_INGEST_THROTTLE_MS`` set for the
+    run (None: unset) and restored after."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    from tmlibrary_tpu_torch.models.experiment import Experiment
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import get_step
+
+    saved = {k: os.environ.get(k) for k in ("TMX_INGEST_WORKERS", "TMX_INGEST_THROTTLE_MS")}
+    for key, value in (("TMX_INGEST_WORKERS", workers), ("TMX_INGEST_THROTTLE_MS", throttle_ms)):
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = str(value)
+    best = float("inf")
+    try:
+        for rep in range(reps):
+            path = Path(root) / f"exp_{rep}"
+            store = ExperimentStore.create(path, Experiment(
+                name="b", plates=[], channels=[], site_height=1, site_width=1))
+            meta = get_step("metaconfig")(store, device=device)
+            meta.init({"source_dir": str(src), "handler": "auto"})
+            meta.run(0)
+            ime = get_step("imextract")(store, device=device)
+            ime.init({})
+            batches = ime.list_batches()
+            t0 = time.perf_counter()
+            for j in batches:
+                ime.run(j)
+            best = min(best, time.perf_counter() - t0)
+            shutil.rmtree(path, ignore_errors=True)
+    finally:
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    return best
+
+
+def measure_ingest(workdir, size: int = 256, n_sites: int = INGEST_SITES,
+                   reps: int = INGEST_REPS, cold_ms: float = INGEST_COLD_MS,
+                   formats=("tiff_raw", "nd2", "czi"), device: str = "cuda") -> dict:
+    """``imextract_ingest_mpix_per_sec``, the counterpart of the reference
+    bench's ``measure_ingest``: Mpix/s of imextract's decode -> store
+    path per format over ``n_sites`` config-3 DAPI sites of ``size``²
+    (seed 0) with the default pool, with one worker, and from a cold
+    source (``cold_ms`` a plane in the worker) pooled and with one
+    worker.  The reference's LZW TIFF row is left out: the port's
+    ``ImageWriter`` writes uncompressed TIFFs only."""
+    import shutil
+    from pathlib import Path
+
+    workdir = Path(workdir)
+    planes = np.asarray(synthetic_cell_painting_batch(n_sites, size=size, dapi_only=True)
+                        ["DAPI"], np.uint16)
+    mpix = n_sites * size * size / 1e6
+    per_format: dict = {}
+    try:
+        for fmt in formats:
+            src = workdir / f"src_{fmt}"
+            ingest_source(fmt, planes, src)
+            runs = {name: time_ingest(src, workdir / f"{fmt}_{name}", workers, throttle,
+                                      reps, device)
+                    for name, workers, throttle in (("pooled", None, None), ("single", 1, None),
+                                                    ("cold", None, cold_ms),
+                                                    ("cold_single", 1, cold_ms))}
+            per_format[fmt] = {
+                "mpix_per_sec": mpix / runs["pooled"],
+                "single_thread_mpix_per_sec": mpix / runs["single"],
+                "pool_speedup": runs["single"] / runs["pooled"],
+                "cold_source_ms_per_plane": cold_ms,
+                "cold_mpix_per_sec": mpix / runs["cold"],
+                "cold_single_thread_mpix_per_sec": mpix / runs["cold_single"],
+                "cold_pool_speedup": runs["cold_single"] / runs["cold"],
+            }
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {
+        "metric": "imextract_ingest_mpix_per_sec",
+        "value": sum(f["mpix_per_sec"] for f in per_format.values()),
+        "unit": f"Mpix/sec summed over {' + '.join(formats)} ({n_sites} blob sites of "
+                f"{size}x{size} each, decode -> store)",
+        "sites": n_sites,
+        "site_size": size,
+        "per_format": per_format,
+        "timing_methodology": f"best of {reps} runs of imextract's batches, host clock",
+    }

@@ -18,6 +18,7 @@ steps the port has, the same argument names and the same JSON output::
                                              | --images CHANNEL [--cycle C] [--correct]
                                                [--align] [--ome]
                                              | --ngff [--ngff-levels N] [--ngff-labels NAMES])
+    python -m tmlibrary_tpu_torch.cli inspect [--json] FILE_OR_DIR ...
     python -m tmlibrary_tpu_torch.cli log --root DIR [--tail N] [--step S [--job N]]
     python -m tmlibrary_tpu_torch.cli qc --root DIR [--json] [--reference qc.json]
                                          [--profile-kind run|model]
@@ -41,8 +42,14 @@ feature table (Parquet through the port's codec, or CSV), the polygons
 as GeoJSON, one channel's site images as uint16 TIFFs or OME-TIFFs, or
 the whole plate as OME-NGFF (:mod:`tmlibrary_tpu_torch.ngff`), as the
 reference's verbs do; ``--illumstats`` (HDF5) raises
-:class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.  ``create`` makes the placeholder store a canonical run
-starts from (metaconfig writes its manifest).  The step verbs and
+:class:`~tmlibrary_tpu_torch.errors.NotSupportedError` naming ROADMAP
+item 12b.  ``create`` makes the placeholder store a canonical run starts
+from (metaconfig writes its manifest).  ``inspect`` prints a microscope
+file's dimensions and channel names from the port's readers (the
+Bio-Formats ``showinf`` role), or for a source directory the ingest
+metaconfig would make of it (its handler through
+:func:`~tmlibrary_tpu_torch.workflow.steps.vendors.resolve_sidecars`),
+with the JAX package's keys and exit codes.  The step verbs and
 ``workflow submit``/``resume`` take ``--device``, ``cuda`` unless ``cpu``
 is asked for; without a card, ``cuda`` raises.  ``--qc``/``--no-qc`` set
 ``TMX_QC`` for the run, as the reference's do.  ``qc`` reports a run's QC
@@ -101,6 +108,14 @@ def build_parser() -> argparse.ArgumentParser:
     p_create.add_argument("--root", required=True, help="experiment store directory")
     p_create.add_argument("-v", "--verbosity", action="count", default=0)
     p_create.add_argument("--name", required=True)
+
+    p_inspect = sub.add_parser(
+        "inspect",
+        help="print a microscope file's dimensions/channels (the Bio-Formats 'showinf' "
+             "role, on the port's readers)")
+    p_inspect.add_argument("files", nargs="+")
+    p_inspect.add_argument("--json", action="store_true", dest="as_json",
+                           help="one JSON object per file")
 
     p_log = sub.add_parser("log", help="show the run ledger or captured step logs")
     _add_common(p_log)
@@ -472,6 +487,119 @@ def _cleanup_step(step) -> None:
     step.delete_previous_output()
     for p in step.step_dir.glob("batch_*.json"):
         p.unlink()
+
+
+#: reader attributes ``inspect`` prints (whichever the reader has)
+_INSPECT_ATTRS = (
+    "height", "width", "n_channels", "n_zplanes", "n_tpoints",
+    "n_series", "n_scenes", "n_tiles", "n_sequences", "n_components",
+    "n_fields",
+)
+
+
+def _inspect_source_dir(src: Path) -> dict:
+    """What ingest would make of a source directory, with no store: the
+    sidecar handler that resolves it (metaconfig's ``auto`` order, the
+    same :func:`resolve_sidecars` loop) and the layout it gives."""
+    from tmlibrary_tpu_torch.errors import VendorConflictError
+    from tmlibrary_tpu_torch.workflow.steps.vendors import SIDECAR_HANDLERS, resolve_sidecars
+
+    try:
+        resolved = resolve_sidecars(src, list(SIDECAR_HANDLERS), True)
+    except VendorConflictError as exc:
+        return {"format": "source-dir", "error": str(exc)}
+    if resolved is None:
+        return {
+            "format": "source-dir",
+            "handler": None,
+            "note": "no sidecar handler resolved this directory; "
+                    "metaconfig would fall back to filename patterns",
+        }
+    handler, entries, skipped = resolved
+    wells = {(e["plate"], e["well_row"], e["well_col"]) for e in entries}
+    return {
+        "format": "source-dir",
+        "handler": handler,
+        "n_planes": len(entries),
+        "n_skipped_files": skipped,
+        "n_wells": len(wells),
+        "n_sites": len({(e["plate"], e["well_row"], e["well_col"], e["site"])
+                        for e in entries}),
+        "channels": sorted({e["channel"] for e in entries}),
+        "n_zplanes": max(e["zplane"] for e in entries) + 1,
+        "n_tpoints": max(e["tpoint"] for e in entries) + 1,
+        "n_cycles": max(e["cycle"] for e in entries) + 1,
+    }
+
+
+def _inspect_file(path: Path) -> dict:
+    """Dimensions, channel names and ND2 loops of one file; a container
+    that its TIFF-flavoured reader declines is inspected as a plain
+    image, as ingest reads it."""
+    from tmlibrary_tpu_torch import readers
+
+    info: dict = {}
+    r = readers._open_container(path)
+    if r is None:
+        plane = readers.ImageReader(path).read(0)
+        info["format"] = "image"
+        info["height"], info["width"] = map(int, plane.shape[:2])
+        info["dtype"] = str(plane.dtype)
+        return info
+    try:
+        info["format"] = type(r).__name__.replace("Reader", "")
+        for attr in _INSPECT_ATTRS:
+            val = getattr(r, attr, None)
+            if val is not None:
+                info[attr] = int(val)
+        names = getattr(r, "channel_names", None)
+        if callable(names):
+            names = names()
+        if names:
+            info["channel_names"] = list(names)
+        loops = getattr(r, "loop_shape", None)
+        if callable(loops):
+            loops = loops()
+        if loops:  # ND2 acquisition nesting, outermost first
+            info["loops"] = [[kind, size] for kind, size in loops]
+    finally:
+        r.__exit__()
+    return info
+
+
+def cmd_inspect(args) -> int:
+    """``inspect``: a file's dimensions and channels, or a source
+    directory's ingest preview; exits 1 when a file could not be read or
+    a directory's wells conflict (an unresolved directory is an answer)."""
+    failed = 0
+    for name in args.files:
+        path = Path(name)
+        info: dict = {"file": str(path)}
+        if path.is_dir() and not str(path).lower().endswith(".zarr"):
+            info.update(_inspect_source_dir(path))
+            failed += "error" in info
+            if args.as_json:
+                print(json.dumps(info))
+            else:
+                print(f"{info['file']}: source dir (handler={info.get('handler')})")
+                for key, val in info.items():
+                    if key not in ("file", "format", "handler"):
+                        print(f"  {key:16s} {val}")
+            continue
+        try:
+            info.update(_inspect_file(path))
+        except Exception as exc:  # every failure is reported per file, as in the JAX package
+            info["error"] = str(exc)
+            failed += 1
+        if args.as_json:
+            print(json.dumps(info))
+        else:
+            print(f"{info['file']}: "
+                  + (f"ERROR {info['error']}" if "error" in info else info.get("format", "?")))
+            for key, val in info.items():
+                if key not in ("file", "format", "error"):
+                    print(f"  {key:14s} {val}")
+    return 1 if failed else 0
 
 
 def cmd_log(args) -> int:
@@ -970,7 +1098,7 @@ def cmd_export(args) -> int:
         from tmlibrary_tpu_torch.errors import NotSupportedError
 
         raise NotSupportedError("--illumstats writes HDF5 (h5py), which the target machine "
-                                "lacks (ROADMAP A item 12)")
+                                "lacks (ROADMAP A item 12b)")
     if args.objects is None:
         print("error: pass --objects NAME (feature/polygon export) or --illumstats CHANNEL",
               file=sys.stderr)
@@ -1007,6 +1135,8 @@ def main(argv=None) -> int:
             return cmd_create(args)
         if args.command == "workflow":
             return cmd_workflow(args)
+        if args.command == "inspect":
+            return cmd_inspect(args)
         if args.command == "log":
             return cmd_log(args)
         if args.command == "qc":

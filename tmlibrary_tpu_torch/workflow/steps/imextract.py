@@ -6,23 +6,26 @@ metaconfig's file mapping, read on the host and written as contiguous
 site stacks in batches of ``batch_size`` files.
 
 A plane is read in the JAX package's order (:meth:`ImageExtractor._read_plane`):
-a container (an OME-NGFF plane through :mod:`~tmlibrary_tpu_torch.ngff`;
-every other container format raises here, ROADMAP A item 12),
-then the C++ TIFF reader (:func:`~tmlibrary_tpu_torch.native.tiff_read`),
+a microscope container by the page its metaconfig handler wrote
+(:func:`~tmlibrary_tpu_torch.readers.read_container_plane`: ND2, CZI,
+LIF, DV, STK, LSM, OIF/OIB, FLEX, OME-NGFF), then the C++ TIFF reader (:func:`~tmlibrary_tpu_torch.native.tiff_read`),
 then the Python TIFF reader for what it declines (BigTIFF, deflate
 strips), then the PNG codec (:mod:`~tmlibrary_tpu_torch.io.png`, colour
 converted to grey as cv2 converts it).  Where the JAX package hands any
 other file to ``cv2``, the port raises
 :class:`~tmlibrary_tpu_torch.errors.MetadataError` naming the file and
 its format.  The decode thread pool is sized by the JAX package's default
-rule; its ``TMX_INGEST_WORKERS`` and ``TMX_INGEST_THROTTLE_MS``
-variables are not ported (ROADMAP A item 12).
+rule unless ``TMX_INGEST_WORKERS`` pins it (anything unparseable or
+below 1 gives the default); ``TMX_INGEST_THROTTLE_MS`` sleeps that long
+in the worker before each plane read, a cold source's latency that the
+pool overlaps (the ingest bench's cold rows).
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import os
+import time
 
 import numpy as np
 
@@ -80,9 +83,13 @@ class ImageExtractor(Step):
 
     @staticmethod
     def _read_plane(path: str, page: "int | None", height: int, width: int) -> np.ndarray:
-        """One grayscale plane: a container (raises), the C++ TIFF reader,
-        the Python TIFF reader (``.tif``/``.tiff``), the PNG codec, in that
-        order; anything else raises :class:`MetadataError`."""
+        """One grayscale plane: a container, the C++ TIFF reader, the
+        Python TIFF reader (``.tif``/``.tiff``), the PNG codec, in that
+        order; anything else raises :class:`MetadataError`.  Sleeps
+        ``TMX_INGEST_THROTTLE_MS`` first where it is set."""
+        throttle = os.environ.get("TMX_INGEST_THROTTLE_MS")
+        if throttle:
+            time.sleep(float(throttle) / 1e3)
         container = read_container_plane(path, page or 0)
         if container is not None:
             return container
@@ -114,8 +121,14 @@ class ImageExtractor(Step):
         # plane decode is IO and decompression bound, and the TIFF library
         # and zlib release the interpreter's lock: a thread pool reads a
         # batch's files concurrently, sized for overlapping storage stalls
-        # (a floor of 4 even on one core), as in the JAX package
-        workers = max(4, min(8, os.cpu_count() or 1))
+        # (a floor of 4 even on one core), as in the JAX package, unless
+        # TMX_INGEST_WORKERS pins it (the bench's one-worker denominator)
+        try:
+            workers = int(os.environ.get("TMX_INGEST_WORKERS", ""))
+        except ValueError:
+            workers = 0
+        if workers < 1:
+            workers = max(4, min(8, os.cpu_count() or 1))
         n_written = 0
         with cf.ThreadPoolExecutor(max_workers=workers) as pool:
             # every decode submitted up front, then drained and written

@@ -12,9 +12,8 @@ same text as the JAX package's for the same directory.
 
 Host work, one batch.  The site-shape probe reads the first file's
 header through the port's TIFF reader or PNG codec where the JAX package
-decodes it with ``cv2.imread``; an OME-NGFF container gives its planes'
-shape, any other container raises (its handler refuses it first,
-ROADMAP A item 12).
+decodes it with ``cv2.imread``; a microscope container gives its planes'
+shape (:func:`~tmlibrary_tpu_torch.readers.container_dimensions`).
 """
 
 from __future__ import annotations
@@ -109,7 +108,7 @@ def well_num_to_rowcol(num: int, plate_cols: int = 24) -> tuple[int, int]:
 
 def probe_shape(path: str) -> tuple[int, int]:
     """(height, width) of a site from its file's header: a container
-    raises (:func:`~tmlibrary_tpu_torch.readers.container_dimensions`),
+    gives its planes' (:func:`~tmlibrary_tpu_torch.readers.container_dimensions`),
     a TIFF gives its first page's, a PNG its image's; anything else
     raises :class:`MetadataError`."""
     from tmlibrary_tpu_torch.io import png

@@ -8,18 +8,19 @@ coordinates), registered by name in :data:`SIDECAR_HANDLERS` in the
 JAX package's order, and :func:`resolve_sidecars`, metaconfig's policy
 over them.
 
-The handlers whose planes are plain TIFF/PNG files are ported whole:
-``cellvoyager`` (``MeasurementData.mlf`` + ``.mes``), ``omexml``
-(companion ``*.ome.xml``), ``harmony`` (``Index.idx.xml``),
-``imagexpress`` (``.HTD``), ``metamorph`` (``.nd``), ``scanr`` and
-``leica`` (token filenames), and ``ngff`` (OME-NGFF plates and bare
-multiscale images, read by :mod:`tmlibrary_tpu_torch.ngff`).  The nine
-other container handlers (``nd2``, ``czi``, ``lif``, ``dv``, ``ims``,
-``stk``, ``lsm``, ``olympus``, ``flex``) stay registered: with none of their files under
-the source directory they return None, so ``--handler auto`` goes on;
-with one present they raise
-:class:`~tmlibrary_tpu_torch.errors.NotSupportedError` naming the
-ROADMAP item that ports the container readers.  That error is not a
+Every handler of the JAX package is ported, in its order: those whose
+planes are plain TIFF/PNG files -- ``cellvoyager`` (``MeasurementData.mlf``
++ ``.mes``), ``omexml`` (companion ``*.ome.xml``), ``harmony``
+(``Index.idx.xml``), ``imagexpress`` (``.HTD``), ``metamorph`` (``.nd``),
+``scanr`` and ``leica`` (token filenames) -- and the container handlers,
+which read their files through :mod:`tmlibrary_tpu_torch.readers`:
+``nd2``, ``czi`` (with the mosaic tile grid), ``lif``, ``ngff`` (through
+:mod:`tmlibrary_tpu_torch.ngff`), ``dv``, ``stk``, ``lsm``, ``olympus``
+(OIF and OIB) and ``flex`` (Opera's numeric well names).  They skip and
+count the files their reader cannot read.  ``ims`` returns None when
+the tree holds no ``.ims`` file and otherwise raises
+:class:`~tmlibrary_tpu_torch.errors.NotSupportedError` naming ROADMAP
+item 12b: the port has no HDF5 reader yet.  That error is not a
 :class:`~tmlibrary_tpu_torch.errors.MetadataError`, so ``auto`` cannot
 skip it silently.
 
@@ -41,7 +42,18 @@ from tmlibrary_tpu_torch.errors import (
     NotSupportedError,
     VendorConflictError,
 )
-from tmlibrary_tpu_torch.readers import CONTAINER_ITEM
+from tmlibrary_tpu_torch.readers import (
+    CODEC_ITEM,
+    CZIReader,
+    DVReader,
+    FlexReader,
+    LIFReader,
+    LSMReader,
+    ND2Reader,
+    OIBReader,
+    OIFReader,
+    STKReader,
+)
 from tmlibrary_tpu_torch.workflow.steps.omexml import _strip_ns
 
 logger = logging.getLogger(__name__)
@@ -1131,34 +1143,157 @@ def _container_sidecar(
     return entries, skipped
 
 
-# ------------------------------------------------------ container handlers
-def _refuse_containers(kind: str, files: list) -> None:
-    """None when ``files`` is empty, else the refusal of the port's
-    container handlers."""
-    if files:
-        raise NotSupportedError(
-            f"{kind} files are not read by the port yet ({CONTAINER_ITEM}): "
-            f"{', '.join(str(p) for p in files[:3])}"
-            + (f" and {len(files) - 3} more" if len(files) > 3 else ""))
+# ----------------------------------------------------------------------- nd2
+@register_sidecar_handler("nd2")
+def nd2_sidecar(source_dir: Path) -> tuple[list[dict], int] | None:
+    """Nikon NIS-Elements ``.nd2`` containers, read by the first-party
+    chunk-map parser (:class:`tmlibrary_tpu_torch.readers.ND2Reader`).
+
+    One file per well when a well-name token (``A01``) appears in the
+    filename; otherwise each file becomes its own well on row A.  The
+    SLxExperiment loop structure assigns each sequence its
+    (XY-position, Z, T) coordinate — XY positions map to sites with
+    time/Z preserved; files without a modeled loop structure keep the
+    flat sequences-as-sites mapping.  When the XYPosLoop's stage
+    coordinates form a dense rectangle, each site also carries its
+    within-well grid coordinate (``site_y``/``site_x``) so multi-point
+    wells linearize in acquisition geometry (same dense-grid
+    cross-check as CZI mosaic origins).  Interleaved components map to
+    channels (``C00``/``C01``/…); ``page`` encodes
+    ``seq * n_components + comp`` for imextract's plane decode."""
+    def entries_of(path, dims, well):
+        n_seq, n_comp, coords, positions, names = dims
+        if not coords:
+            # zero-sequence file (aborted acquisition): no entries, and
+            # max() below must not crash the whole ingest
+            return []
+        n_xy = max(xy for xy, _, _ in coords) + 1
+        grid = None
+        if positions is not None and len(positions) == n_xy and n_xy > 1:
+            res = dense_grid(
+                [p[0] for p in positions], [p[1] for p in positions], n_xy
+            )
+            grid = None if res is None else res[0]
+        labels = channel_labels(names, n_comp)
+        out = []
+        for seq in range(n_seq):
+            xy, z, t = coords[seq]
+            for comp in range(n_comp):
+                e = _container_entry(path, well, site=xy, channel=comp,
+                                     zplane=z, tpoint=t,
+                                     page=seq * n_comp + comp)
+                e["channel"] = labels[comp]
+                if grid is not None:
+                    e["site_y"], e["site_x"] = grid[xy]
+                out.append(e)
+        return out
+
+    return _container_sidecar(
+        source_dir, ".nd2", ND2Reader, "ND2",
+        lambda r: (r.n_sequences, r.n_components,
+                   [r.seq_coords(s) for s in range(r.n_sequences)],
+                   r.xy_positions(), r.channel_names()),
+        entries_of,
+    )
 
 
-def _register_container_refusal(name: str, kind: str, suffixes: tuple) -> None:
-    def handler(source_dir: Path) -> None:
-        _refuse_containers(kind, sorted(p for suf in suffixes
-                                        for p in source_dir.rglob(f"*{suf}")))
+# ----------------------------------------------------------------------- czi
+@register_sidecar_handler("czi")
+def czi_sidecar(source_dir: Path) -> tuple[list[dict], int] | None:
+    """Zeiss ``.czi`` containers, read by the first-party ZISRAW parser
+    (:class:`tmlibrary_tpu_torch.readers.CZIReader`).
 
-    handler.__name__ = f"{name}_sidecar"
-    handler.__doc__ = (f"{kind} containers ({', '.join(suffixes)}): None when the tree "
-                       f"holds none, else NotSupportedError ({CONTAINER_ITEM}).")
-    register_sidecar_handler(name)(handler)
+    Same conventions as the nd2 handler: one file per well (well-name
+    token in the filename, else the next free column on row A), scenes
+    (S) × mosaic tiles (M, slide scans) map to sites, channels to
+    ``C00``/…, with Z/T preserved; ``page`` encodes
+    ``(((s * M + m) * C + c) * Z + z) * T + t`` for imextract.
+
+    Single-scene mosaics additionally carry each tile's within-well
+    grid coordinate (``site_y``/``site_x`` from the subblock directory's
+    mosaic pixel origins) whenever the origins form a dense rectangle —
+    the adjacency ``--layout spatial`` needs to stitch a slide scan in
+    acquisition geometry rather than a square-ish default grid."""
+    def tile_grid(n_m, origins) -> "list[tuple[int, int]] | None":
+        """(y, x) grid index per tile rank, or None when origins are
+        absent or not a dense rectangle (shared cross-check)."""
+        if origins is None:
+            return None
+        res = dense_grid(
+            [float(y) for y, _ in origins],
+            [float(x) for _, x in origins], n_m,
+        )
+        return None if res is None else res[0]
+
+    def entries_of(path, dims, well):
+        n_s, n_m, n_c, n_z, n_t, origins, names = dims
+        grid = tile_grid(n_m, origins) if n_s == 1 and n_m > 1 else None
+        labels = channel_labels(names, n_c)
+        out = []
+        for s in range(n_s):
+            for m in range(n_m):
+                for c in range(n_c):
+                    label = labels[c]
+                    for z in range(n_z):
+                        for t in range(n_t):
+                            e = _container_entry(
+                                path, well, site=s * n_m + m, channel=c,
+                                zplane=z, tpoint=t,
+                                page=(((s * n_m + m) * n_c + c) * n_z + z)
+                                * n_t + t)
+                            e["channel"] = label
+                            if grid is not None:
+                                e["site_y"], e["site_x"] = grid[m]
+                            out.append(e)
+        return out
+
+    return _container_sidecar(
+        source_dir, ".czi", CZIReader, "CZI",
+        lambda r: (r.n_scenes, r.n_tiles, r.n_channels, r.n_zplanes,
+                   r.n_tpoints,
+                   [r.tile_origin(0, m) for m in range(r.n_tiles)]
+                   if r.n_scenes == 1 else None,
+                   r.channel_names),
+        entries_of,
+    )
 
 
-for _name, _kind, _suffixes in (
-    ("nd2", "ND2", (".nd2",)), ("czi", "CZI", (".czi",)), ("lif", "LIF", (".lif",)),
-):
-    _register_container_refusal(_name, _kind, _suffixes)
+# ----------------------------------------------------------------------- lif
+@register_sidecar_handler("lif")
+def lif_sidecar(source_dir: Path) -> tuple[list[dict], int] | None:
+    """Leica Image Files, read by the first-party block parser
+    (:class:`tmlibrary_tpu_torch.readers.LIFReader`).
+
+    Same conventions as the nd2/czi handlers: one file per well (token or
+    next free column on row A), image series map to sites, channel labels
+    from the LUTName attributes (``C00``/… fallback), Z/T preserved;
+    ``page`` encodes the whole-file linear index
+    ``series * C*Z*T + (c*Z + z)*T + t`` for imextract.  Files whose
+    series disagree on (C, Z, T) are skipped with a logged reason."""
+    def entries_of(path, dims, well):
+        n_series, n_c, n_z, n_t, names = dims
+        labels = channel_labels(names, n_c)
+        out = []
+        for s in range(n_series):
+            for c in range(n_c):
+                for z in range(n_z):
+                    for t in range(n_t):
+                        e = _container_entry(
+                            path, well, site=s, channel=c, zplane=z,
+                            tpoint=t,
+                            page=(s * n_c + c) * n_z * n_t + z * n_t + t)
+                        e["channel"] = labels[c]
+                        out.append(e)
+        return out
+
+    return _container_sidecar(
+        source_dir, ".lif", LIFReader, "LIF",
+        lambda r: (r.n_series, *r.uniform_dims(), r.channel_names()),
+        entries_of,
+    )
 
 
+# ---------------------------------------------------------------------- ngff
 @register_sidecar_handler("ngff")
 def ngff_sidecar(source_dir: Path) -> "tuple[list[dict], int] | None":
     """OME-NGFF (OME-Zarr v0.4) HCS plates, read by the first-party Zarr
@@ -1242,12 +1377,195 @@ def ngff_sidecar(source_dir: Path) -> "tuple[list[dict], int] | None":
     return entries, skipped
 
 
-for _name, _kind, _suffixes in (
-    ("dv", "DV", (".dv", ".r3d")), ("ims", "IMS", (".ims",)), ("stk", "STK", (".stk",)),
-    ("lsm", "LSM", (".lsm",)), ("olympus", "Olympus", (".oif", ".oib")),
-    ("flex", "FLEX", (".flex",)),
-):
-    _register_container_refusal(_name, _kind, _suffixes)
+# ------------------------------------------------------------------------ dv
+@register_sidecar_handler("dv")
+def dv_sidecar(source_dir: Path) -> "tuple[list[dict], int] | None":
+    """DeltaVision ``.dv`` / ``.r3d`` stacks, read by the first-party
+    MRC-variant parser (:class:`tmlibrary_tpu_torch.readers.DVReader`).
+
+    Same conventions as the nd2/czi/lif handlers: one file per well
+    (well-name token in the filename, else the next free column on row
+    A); each stack is a single site with its wavelengths as channels and
+    Z/T preserved; ``page`` encodes ``(c * Z + z) * T + t`` for
+    imextract's plane decode."""
+    def entries_of(path, dims, well):
+        n_c, n_z, n_t = dims
+        return [
+            _container_entry(path, well, site=0, channel=c, zplane=z,
+                             tpoint=t, page=(c * n_z + z) * n_t + t)
+            for c in range(n_c)
+            for z in range(n_z)
+            for t in range(n_t)
+        ]
+
+    return _container_sidecar(
+        source_dir, (".dv", ".r3d"), DVReader, "DV",
+        lambda r: (r.n_channels, r.n_zplanes, r.n_tpoints), entries_of,
+    )
+
+
+# ----------------------------------------------------------------------- ims
+@register_sidecar_handler("ims")
+def ims_sidecar(source_dir: Path) -> None:
+    """Bitplane Imaris ``.ims`` files (HDF5): None when the tree holds
+    none; with one present, :class:`NotSupportedError` naming ROADMAP
+    item 12b, as the port has no HDF5 reader yet (the JAX package reads
+    them through ``h5py``).  Not a
+    :class:`~tmlibrary_tpu_torch.errors.MetadataError`, so ``--handler
+    auto`` cannot skip the files silently."""
+    files = sorted(source_dir.rglob("*.ims"))
+    if files:
+        raise NotSupportedError(
+            f"Imaris .ims files are HDF5, which the port does not read without h5py yet "
+            f"({CODEC_ITEM}): {', '.join(str(p) for p in files[:3])}"
+            + (f" and {len(files) - 3} more" if len(files) > 3 else ""))
+    return None
+
+
+# ----------------------------------------------------------------------- stk
+@register_sidecar_handler("stk")
+def stk_sidecar(source_dir: Path) -> "tuple[list[dict], int] | None":
+    """Standalone MetaMorph ``.stk`` stacks, read by
+    :class:`tmlibrary_tpu_torch.readers.STKReader` (the UIC2-tag plane count a
+    paged TIFF reader cannot see).
+
+    MetaMorph acquisitions WITH a parseable ``.nd`` go through the richer
+    ``metamorph`` handler (wavelengths, stage labels): it is registered
+    first, so in auto mode it wins whenever its sidecar resolves images
+    and this handler only sees trees whose ``.nd`` is absent or
+    unusable.  No ``.nd`` veto here — an explicit ``handler='stk'`` (or
+    a stray/corrupt ``.nd`` in auto mode) must still ingest the stacks.
+    Conventions: one file per well (token or next free column on row A),
+    one site per file, single channel, planes map to Z; ``page = z``."""
+    def entries_of(path, dims, well):
+        (n_z,) = dims
+        return [
+            _container_entry(path, well, site=0, channel=0, zplane=z,
+                             tpoint=0, page=z)
+            for z in range(n_z)
+        ]
+
+    return _container_sidecar(
+        source_dir, ".stk", STKReader, "STK",
+        lambda r: (r.n_zplanes,), entries_of,
+    )
+
+
+# ----------------------------------------------------------------------- lsm
+@register_sidecar_handler("lsm")
+def lsm_sidecar(source_dir: Path) -> "tuple[list[dict], int] | None":
+    """Zeiss LSM confocal stacks, read by
+    :class:`tmlibrary_tpu_torch.readers.LSMReader` (planar per-channel strips,
+    thumbnail IFDs skipped, dims from CZ_LSMINFO).
+
+    Same conventions as the other container handlers: one file per well
+    (token or next free column on row A), one site per file, C/Z/T
+    preserved; ``page`` encodes ``(c * Z + z) * T + t``."""
+    def entries_of(path, dims, well):
+        n_c, n_z, n_t = dims
+        return [
+            _container_entry(path, well, site=0, channel=c, zplane=z,
+                             tpoint=t, page=(c * n_z + z) * n_t + t)
+            for c in range(n_c)
+            for z in range(n_z)
+            for t in range(n_t)
+        ]
+
+    return _container_sidecar(
+        source_dir, ".lsm", LSMReader, "LSM",
+        lambda r: (r.n_channels, r.n_zplanes, r.n_tpoints), entries_of,
+    )
+
+
+# ------------------------------------------------------------------- olympus
+@register_sidecar_handler("olympus")
+def olympus_sidecar(source_dir: Path) -> "tuple[list[dict], int] | None":
+    """Olympus FluoView ``.oif`` acquisitions and their single-file
+    ``.oib`` (OLE2 compound document) form, read by
+    :class:`tmlibrary_tpu_torch.readers.OIFReader` /
+    :class:`~tmlibrary_tpu_torch.readers.OIBReader` — the compound container
+    parsed by the first-party :mod:`tmlibrary_tpu_torch.cfb` walker, no JVM.
+
+    Same conventions as the other container handlers: one file per well
+    (token or next free column on row A), one site per file, C/Z/T
+    preserved; ``page`` encodes ``(c * Z + z) * T + t``.  The companion
+    ``.oif.files`` TIFF directories are consumed through their main file
+    only — in auto mode this handler resolves them before the filename
+    fallback could ingest the raw plane TIFFs as separate channels."""
+    def entries_of(path, dims, well):
+        n_c, n_z, n_t, names = dims
+        labels = channel_labels(names, n_c)
+        out = []
+        for c in range(n_c):
+            for z in range(n_z):
+                for t in range(n_t):
+                    e = _container_entry(
+                        path, well, site=0, channel=c, zplane=z,
+                        tpoint=t, page=(c * n_z + z) * n_t + t)
+                    e["channel"] = labels[c]
+                    out.append(e)
+        return out
+
+    def open_either(path):
+        # ONE shared scan for both suffixes: two token-less files must
+        # take two different free wells, which per-suffix passes (each
+        # with its own assign_container_wells) would not guarantee
+        cls = OIBReader if str(path).lower().endswith(".oib") else OIFReader
+        return cls(path)
+
+    return _container_sidecar(
+        source_dir, (".oif", ".oib"), open_either, "Olympus",
+        lambda r: (r.n_channels, r.n_zplanes, r.n_tpoints,
+                   r.channel_names),
+        entries_of,
+    )
+
+
+# ---------------------------------------------------------------------- flex
+@register_sidecar_handler("flex")
+def flex_sidecar(source_dir: Path) -> "tuple[list[dict], int] | None":
+    """PerkinElmer Opera/Operetta ``.flex`` containers, read by
+    :class:`tmlibrary_tpu_torch.readers.FlexReader` (paged TIFF + FLEX XML in
+    tag 65200) — the reference's own instrument class (high-content
+    screening; upstream reads these through Bio-Formats' FlexReader).
+
+    One file per well; unlike the other containers a flex file carries
+    SEVERAL fields (sites) whose pages cycle channel-fastest, so
+    ``site = page // C`` and ``page = field * C + c``.  Wells come from
+    a filename token (``A01``) or the Opera numeric convention
+    (``rrrcccfff…`` digit stems: first three digits = 1-based row, next
+    three = column); token-less files take the next free column on row
+    A.  Channel labels come from the FLEX Array names when present."""
+    def opera_well(stem: str) -> "tuple[int, int] | None":
+        token = parse_well_token(stem)
+        if token is not None:
+            return token
+        digits = re.match(r"(\d{3})(\d{3})\d*$", stem)
+        if digits:
+            row, col = int(digits.group(1)), int(digits.group(2))
+            if row >= 1 and col >= 1:
+                return row - 1, col - 1
+        return None
+
+    def entries_of(path, dims, well):
+        n_fields, n_c, names = dims
+        labels = channel_labels(names, n_c)
+        out = []
+        for c in range(n_c):
+            label = labels[c]
+            for f in range(n_fields):
+                e = _container_entry(path, well, site=f, channel=c,
+                                     zplane=0, tpoint=0,
+                                     page=f * n_c + c)
+                e["channel"] = label
+                out.append(e)
+        return out
+
+    return _container_sidecar(
+        source_dir, ".flex", FlexReader, "FLEX",
+        lambda r: (r.n_fields, r.n_channels, r.channel_names),
+        entries_of, well_of=opera_well,
+    )
 
 
 def resolve_sidecars(

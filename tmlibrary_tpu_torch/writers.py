@@ -9,7 +9,7 @@ port's target machine has no ``cv2``: :class:`ImageWriter` writes a
 suffix or image raises :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.
 :class:`OMETiffWriter` and :func:`minimal_ome_xml` (``:95-197``) write
 multi-page OME-TIFFs byte for byte as the JAX package's do.
-``DatasetWriter`` (HDF5) is not ported (ROADMAP A item 12).
+``DatasetWriter`` (HDF5) is not ported (ROADMAP A item 12b).
 """
 
 from __future__ import annotations
