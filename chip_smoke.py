@@ -216,7 +216,20 @@ Phases (any failure exits non-zero before the last line):
    directory; an STK its reader declines read through the TIFF path; the
    ingest bench (``benchmarks.measure_ingest``); a ``containers: {...}``
    line.
-13. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+13. The codecs the containers need (``phase_codecs``,
+   ``czi_zstd_p96x4_256``; no kernel of its own): phase 5's plate as one
+   CZI a well with zstd1 hi-lo subblocks (the port's Zstandard encoder)
+   through ``workflow submit --device cuda`` of metaconfig (``handler:
+   auto`` must resolve ``czi``), imextract and config 3 with rows 1-4
+   launched; the store equal to the generator's pixels site by site, the
+   first CPU batch of 16 held by ``CARD_TIERS``; one well each of a zstd0
+   CZI, a Gray8 zstd0 CZI, a Gray8 JPEG CZI (its pixels hash to
+   :data:`JPEG_DIGEST`), grey ``.jpg`` sites and Imaris files (contiguous;
+   chunked and deflated) through metaconfig and imextract; corilla and
+   ``export --illumstats 0`` read back equal to ``read_illumstats``; zstd
+   decode MiB/s, JPEG decode Mpix/s and HDF5 chunked-gzip read MiB/s on
+   one host thread; a ``codecs: {...}`` line.
+14. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness; rows 2-4 add ``spatial_launches``, their launches
    on phase 9's secondary run, and rows 2-3 ``spatial``, the kernel at
@@ -1652,6 +1665,9 @@ def main() -> int:
 
         # ---------------------------------------------------------- phase 12
         phase_containers(torch, wrappers, card)
+
+        # ---------------------------------------------------------- phase 13
+        phase_codecs(torch, wrappers, card)
         if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except Exception as e:  # the smoke's boundary: report and exit non-zero
@@ -4918,6 +4934,45 @@ def phase_project(torch, wrappers, card, device: str = "cuda") -> dict:
         shutil.rmtree(base, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ phase 13
+#: sha256 of :func:`jpeg_sites` encoded by the port's JPEG encoder
+#: (quality 95) and decoded by ``cv2.imdecode`` (pinned by
+#: ``tests/test_torch_jpeg.py``): phase 13's JPEG CZI well must decode to it
+JPEG_DIGEST = "263e1ad0c50d96f347c8d5c8a4879c4479c50ad9223cab090a8d414a41c3793b"
+
+
+def jpeg_sites(n: int = 4, size: int = SIZE, seed: int = SEED):
+    """``(n, size, size)`` uint8 grey sites for phase 13's JPEG files:
+    noise around 40 and 12 discs a site, brightest at their centres,
+    made with integer arithmetic only, so the pinned digest holds on any
+    machine."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = rng.integers(30, 50, (n, size, size)).astype(np.int64)
+    yy, xx = np.mgrid[0:size, 0:size]
+    margin = size // 10
+    for s in range(n):
+        for _ in range(12):
+            y, x = rng.integers(margin, size - margin, 2)
+            r2 = int(rng.integers(5, 12)) ** 2
+            d2 = (yy - y) ** 2 + (xx - x) ** 2
+            out[s] += np.where(d2 < r2, 180 - (d2 * 100) // r2, 0)
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def jpeg_digest(planes) -> str:
+    """sha256 of decoded JPEG planes, concatenated in order."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for p in planes:
+        h.update(np.ascontiguousarray(p, np.uint8).tobytes())
+    return h.hexdigest()
+
+
 # ------------------------------------------------------------------ phase 12
 #: phase 12's jterator batches on the CPU (the first of them held)
 CONTAINER_CPU_BATCH = 16
@@ -5257,6 +5312,277 @@ def phase_containers(torch, wrappers, card, device: str = "cuda") -> dict:
     finally:
         shutil.rmtree(base, ignore_errors=True)
 
+
+#: phase 13's jterator batch on the CPU (the first of the batches held)
+CODEC_CPU_BATCH = 16
+
+
+def codec_wells(cw, px: dict, src: Path, native) -> dict:
+    """One well of each other codec input for phase 13, from the plate's
+    first well (4 sites x DAPI and Actin) or :func:`jpeg_sites`, each
+    written by the port's writers into its own directory under ``src``:
+    name -> (directory, metaconfig arguments, the planes the store must
+    hold as ``{(channel, zplane): [planes]}``, sites)."""
+    import numpy as np
+
+    d, a = px["DAPI"][:4], px["Actin"][:4]
+    g8 = np.minimum(d >> 4, 255).astype(np.uint8)
+    jsites = jpeg_sites()
+    decoded = [native.jpeg_decode_array(native.jpeg_encode(p, quality=95)) for p in jsites]
+    named = {("DAPI", 0): list(d), ("Actin", 0): list(a)}
+    one = {("DAPI", 0): [d[0]], ("Actin", 0): [a[0]]}
+    out = {}
+
+    def well(name, args, planes, n_sites):
+        (src / name).mkdir(parents=True)
+        out[name] = (src / name, {"source_dir": str(src / name), **args}, planes, n_sites)
+        return src / name
+
+    auto = {"handler": "auto"}
+    cw.write_czi(well("czi_zstd0", auto, named, 4) / "scan_A01.czi", np.stack([d, a], 1),
+                 compression=5, channel_names=["DAPI", "Actin"])
+    cw.write_czi(well("czi_gray8_zstd0", auto, {("DAPI", 0): list(g8)}, 4) / "scan_A01.czi",
+                 g8[:, None], pixel_type=0, compression=5, channel_names=["DAPI"])
+    cw.write_czi(well("czi_gray8_jpeg", auto, {("DAPI", 0): decoded}, 4) / "scan_A01.czi",
+                 jsites[:, None], pixel_type=0, compression=1, channel_names=["DAPI"])
+    jpg = {"pattern": r"(?P<well>[A-Z]{1,2}\d{2})_s(?P<site>\d+)_(?P<channel>[A-Za-z0-9\-]+)"
+                      r"\.jpg$"}
+    cw.write_jpeg_sites(well("jpg_sites", jpg, {("DAPI", 0): decoded}, 4),
+                        {("A01", s, "DAPI"): jsites[s] for s in range(4)})
+    cw.write_ims(well("ims", auto, one, 1) / "A01.ims", np.stack([d[0], a[0]])[:, None, None],
+                 ["DAPI", "Actin"])
+    cw.write_ims(well("ims_chunked_gzip", auto, one, 1) / "A01.ims",
+                 np.stack([d[0], a[0]])[:, None, None], ["DAPI", "Actin"],
+                 chunks=(1, 96, 96), compression="gzip")
+    return out
+
+
+def phase_codecs(torch, wrappers, card, device: str = "cuda") -> dict:
+    """Phase 13, ``czi_zstd_p96x4_256``: the codecs the containers need,
+    on the card.  Phase 5's plate (96 wells at 2x2 sites of 256x256, DAPI
+    and Actin, seed 0) written as one CZI a well with zstd1 hi-lo
+    subblocks (ZEN's default) by the port's writer and Zstandard encoder;
+    ``workflow submit --device cuda`` of metaconfig (``handler: auto``,
+    which must resolve ``czi``) -> imextract -> jterator (config 3,
+    batches of 64, ``max_objects=256``) with the launch counters set to 0
+    just before and read just after (1, 1, 1, 2 a launched batch).
+    Holds: the store equals the generator's pixels site by site; the
+    sites of jterator's first CPU batch of :data:`CODEC_CPU_BATCH` have
+    the card's labels exactly and its features within ``CARD_TIERS``.
+    Then one well each (:func:`codec_wells`: a zstd0 CZI, a Gray8 zstd0
+    CZI, a Gray8 JPEG CZI, a directory of grey ``.jpg`` sites, an
+    ``.ims`` with contiguous data and one chunked and deflated with chunk
+    padding) through metaconfig (``auto``; the JPEG sites by ``pattern``)
+    and imextract on the card: the store's planes equal the written ones,
+    the JPEG CZI's decode to :data:`JPEG_DIGEST`.  Last corilla over the
+    plate, ``export --illumstats 0`` read back with ``DatasetReader``,
+    equal to ``read_illumstats``.  Prints the phase's seconds, submit
+    sites/s, zstd decode MiB/s, JPEG decode Mpix/s and HDF5 chunked-gzip
+    read MiB/s, and the ``codecs:`` line.  The directory is removed at
+    the end."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks, capacity, cli, container_writers, native, readers
+    from tmlibrary_tpu_torch.models.experiment import Experiment
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import engine, get_step
+
+    started = time.perf_counter()
+    base = Path(__file__).resolve().parent / "build" / f"phase13.{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    try:
+        # 1. the plate as one zstd1 hi-lo CZI a well
+        t0 = time.perf_counter()
+        wells = [(r, c) for r in range(PLATE[0]) for c in range(PLATE[1])]
+        per_well = SITES_PER_WELL[0] * SITES_PER_WELL[1]
+        n = len(wells) * per_well
+        data = benchmarks.synthetic_cell_painting_batch(n, size=SIZE, seed=SEED)
+        px = {ch: data[ch].astype(np.uint16) for ch in ("DAPI", "Actin")}
+        del data
+        src = base / "czi"
+        src.mkdir(parents=True)
+        for i, (r, c) in enumerate(wells):
+            sl = slice(i * per_well, (i + 1) * per_well)
+            container_writers.write_czi(
+                src / f"plate_{chr(65 + r)}{c + 1:02d}.czi",
+                np.stack([px["DAPI"][sl], px["Actin"][sl]], 1), compression=6, hilo=True,
+                channel_names=["DAPI", "Actin"])
+        files = sorted(src.iterdir())
+        mbytes = sum(f.stat().st_size for f in files) / 2**20
+        raw_mib = 2 * n * SIZE * SIZE * 2 / 2**20
+        write_s = time.perf_counter() - t0
+        args = {"pipe": "cp.pipe.json", "batch_size": STEP_BATCH, "max_objects": MAX_OBJECTS}
+        desc_path = base / "workflow.json"
+        engine.WorkflowDescription.canonical({
+            "metaconfig": {"source_dir": str(src), "handler": "auto"},
+            "imextract": {}, "jterator": args}).save(desc_path)
+        root = base / "card"
+        run_cli(cli, ["create", "--root", str(root), "--name", "codecs"])
+        (root / "cp.pipe.json").write_text(json.dumps(benchmarks.CELL_PAINTING_PIPE))
+        print(f"phase 13, czi_zstd_p96x4_256: metaconfig (handler auto) -> imextract -> "
+              f"jterator (config 3) through `workflow submit --device {device}` from "
+              f"{len(files)} CZI files with zstd1 hi-lo subblocks, one a well ({mbytes:.1f} MiB "
+              f"for {raw_mib:.1f} MiB of planes, {PLATE[0]}x{PLATE[1]} wells at "
+              f"{SITES_PER_WELL[0]}x{SITES_PER_WELL[1]} sites of {SIZE}x{SIZE}, DAPI and "
+              f"Actin; written by the port's write_czi in {write_s:.2f} s) on {card}")
+
+        # 2. the submit, launches read around it
+        capacity.reset_routing_history()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+            if hasattr(w, "routes"):
+                w.routes = dict.fromkeys(w.routes, 0)
+        t0 = time.perf_counter()
+        summary = json.loads(run_cli(cli, ["workflow", "submit", "--root", str(root),
+                                           "--description", str(desc_path),
+                                           "--device", device]))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        submit_s = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        store = ExperimentStore.open(root)
+        events = engine.RunLedger(store.workflow_dir / "ledger.jsonl").events()
+        steps = ["metaconfig", "imextract", "jterator"]
+        if list(summary) != steps:
+            raise SmokeFailure(f"codecs: summary {list(summary)}")
+        jt = [e["result"] for e in events
+              if e["event"] == "batch_done" and e["step"] == "jterator"]
+        n_launched = len(jt) + sum(r.get("bucket_escalations", 0) for r in jt)
+        expected = {k: 0 for k in wrappers}
+        expected.update({"fill_holes_flood": n_launched, "cc_min_propagate": n_launched,
+                         "watershed_flood": n_launched, "grouped_stats": 2 * n_launched})
+        if launches != expected:
+            raise SmokeFailure(f"codecs: launches {launches}, expected {expected}")
+        mapping = json.loads((store.workflow_dir / "metaconfig" / "file_mapping.json")
+                             .read_text())
+        if not mapping or any(not e["path"].endswith(".czi") for e in mapping):
+            raise SmokeFailure("codecs: the file mapping holds other files than the CZIs")
+        walls = submit_seconds(engine, store)
+        print(f"  submit: {n / submit_s:.1f} sites/s ({submit_s:.3f} s of command), step walls "
+              "(s) " + ", ".join(f"{s} {walls[s]:.3f}" for s in steps) + f"; imextract "
+              f"{len(files) / walls['imextract']:.1f} files/s ({raw_mib / walls['imextract']:.1f}"
+              f" MiB/s of planes); launches {launches} over {len(jt)} batches and "
+              f"{n_launched - len(jt)} escalation re-launches; on {card}")
+
+        # 3. holds: the pixels site by site, jterator's first CPU batch
+        order = [((ref.well_row * PLATE[1] + ref.well_column) * per_well
+                  + ref.site_y * SITES_PER_WELL[1] + ref.site_x)
+                 for ref in store.experiment.sites()]
+        if sorted(order) != list(range(n)):
+            raise SmokeFailure("codecs: the scenes do not cover every site once")
+        for ch, values in px.items():
+            got = store.read_sites(None, channel=store.experiment.channel_index(ch))
+            if not np.array_equal(got, values[order]):
+                raise SmokeFailure(f"codecs: the ingested {ch} pixels differ from the CZIs'")
+        copy_part(store.root, base / "cpu", "images")
+        cpu = ExperimentStore.open(base / "cpu")
+        (cpu.root / "cp.pipe.json").write_text(json.dumps(benchmarks.CELL_PAINTING_PIPE))
+        capacity.reset_routing_history()
+        t0 = time.perf_counter()
+        jt_cpu = get_step("jterator")(cpu, device="cpu")
+        jt_cpu.init({**args, "batch_size": CODEC_CPU_BATCH})
+        jt_cpu.run(0)
+        cpu_s = time.perf_counter() - t0
+        sites = list(jt_cpu.load_batch(0)["sites"])
+        _, worst = hold_batch(store, cpu, sites, CARD_TIERS, gate=True)
+        print(f"  holds: the {n} sites x 2 channels ingested equal the generator's pixels site "
+              f"by site; jterator's first CPU batch ({len(sites)} sites, {cpu_s:.2f} s): labels "
+              "exact, features within CARD_TIERS, largest |card - cpu| by family "
+              + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
+        shutil.rmtree(base / "cpu")
+
+        # 4. one well of each other codec input
+        others = codec_wells(container_writers, px, base / "wells", native)
+        rates = {}
+        for name, (wsrc, margs, planes, n_sites) in others.items():
+            wroot = base / f"store_{name}"
+            run_cli(cli, ["create", "--root", str(wroot), "--name", name])
+            wdesc = base / f"{name}.json"
+            engine.WorkflowDescription.canonical({"metaconfig": margs, "imextract": {}}) \
+                .save(wdesc)
+            run_cli(cli, ["workflow", "submit", "--root", str(wroot), "--description",
+                          str(wdesc), "--device", device])
+            wstore = ExperimentStore.open(wroot)
+            if wstore.n_sites != n_sites or store_planes(wstore) != digests(planes):
+                raise SmokeFailure(f"codecs: the {name} store ({wstore.n_sites} sites) "
+                                   "differs from the written planes")
+            if name == "czi_gray8_jpeg":
+                got = wstore.read_sites(None, channel=0).astype(np.uint8)
+                if jpeg_digest(got) != JPEG_DIGEST:
+                    raise SmokeFailure(f"codecs: the JPEG CZI decodes to {jpeg_digest(got)}, "
+                                       f"not the pinned {JPEG_DIGEST}")
+            rates[name] = submit_seconds(engine, wstore)["imextract"]
+        print(f"  {len(others)} wells through metaconfig and imextract on {device}: stores "
+              "equal the written planes, the JPEG CZI's pixels hash to the pinned digest; "
+              "imextract s: " + ", ".join(f"{k} {v:.3f}" for k, v in rates.items())
+              + f"; on {card}")
+
+        # 5. codec rates on the host: every subblock of the plate, the JPEG
+        # sites, the chunked Imaris file
+        t0 = time.perf_counter()
+        for f in files:
+            with readers.CZIReader(f) as r:
+                for s in range(r.n_scenes):
+                    for c in range(r.n_channels):
+                        r.read_plane(s, c)
+        zstd_mib_s = raw_mib / (time.perf_counter() - t0)
+        streams = [native.jpeg_encode(p, quality=95) for p in jpeg_sites()]
+        reps = 10
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for st in streams:
+                native.jpeg_decode_array(st)
+        jpeg_mpix_s = reps * len(streams) * SIZE * SIZE / 1e6 / (time.perf_counter() - t0)
+        ims = others["ims_chunked_gzip"][0] / "A01.ims"
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            with readers.IMSReader(ims) as r:
+                for page in range(r.n_channels):
+                    r.read_plane_linear(page)
+        hdf5_mib_s = reps * 2 * SIZE * SIZE * 2 / 2**20 / (time.perf_counter() - t0)
+        print(f"  codecs on the host, one thread: zstd decode {zstd_mib_s:.1f} MiB/s (every "
+              f"subblock of the plate through CZIReader), JPEG decode {jpeg_mpix_s:.1f} Mpix/s "
+              f"({len(streams)} sites of {SIZE}x{SIZE}), HDF5 chunked-gzip read "
+              f"{hdf5_mib_s:.1f} MiB/s (IMSReader, 96x96 chunks); on {card}")
+
+        # 6. corilla over the plate, its statistics out as HDF5 and back
+        t0 = time.perf_counter()
+        corilla = get_step("corilla")(store, device=device)
+        corilla.init({})
+        for i in corilla.list_batches():
+            corilla.run(i)
+        corilla.collect()
+        out = base / "illumstats_c0.h5"
+        run_cli(cli, ["export", "--root", str(root), "--illumstats", "0", "--out", str(out)])
+        want = store.read_illumstats(channel=0)
+        with readers.DatasetReader(out) as r:
+            pairs = [("stats/mean", "mean_log"), ("stats/std", "std_log"), ("stats/n", "n")]
+            if "percentile_keys" in want:
+                pairs += [("stats/percentiles/keys", "percentile_keys"),
+                          ("stats/percentiles/values", "percentile_values")]
+            for path, key in pairs:
+                got = r.read(path)
+                if got.dtype != want[key].dtype or not np.array_equal(got, want[key]):
+                    raise SmokeFailure(f"codecs: exported {path} differs from read_illumstats")
+        export_s = time.perf_counter() - t0
+        print(f"  corilla over the plate and export --illumstats 0 ({out.stat().st_size} bytes, "
+              f"{export_s:.2f} s with corilla): read back by DatasetReader equal to "
+              f"read_illumstats ({', '.join(p for p, _ in pairs)}); on {card}")
+
+        phase_s = time.perf_counter() - started
+        line = {"cell": "czi_zstd_p96x4_256", "sites": n, "phase_s": phase_s,
+                "submit_sites_per_s": n / submit_s, "submit_s": submit_s,
+                "step_walls_s": walls, "launches": launches, "plate_mib": mbytes,
+                "zstd_decode_mib_per_s": zstd_mib_s, "jpeg_decode_mpix_per_s": jpeg_mpix_s,
+                "hdf5_chunked_gzip_read_mib_per_s": hdf5_mib_s, "wells": sorted(others),
+                "cpu_hold_sites": len(sites), "card": card}
+        print(f"  phase 13: {phase_s:.1f} s on {card}")
+        print("codecs: " + json.dumps(line))
+        return line
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
 
 if __name__ == "__main__":
     sys.exit(main())

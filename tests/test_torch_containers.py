@@ -9,10 +9,12 @@ dtype.  The page formulas are held against the written arrays, the
 port's writer copies (:mod:`tmlibrary_tpu_torch.container_writers`)
 write the same bytes as the writers they copy, and the mutated inputs
 of ``tests/test_reader_fuzz.py`` give the same outcome (the planes, or
-the error class) in both packages.  What needs a codec or HDF5 -- CZI
-JPEG and zstd subblocks, Imaris ``.ims`` -- raises naming ROADMAP item
-12b; a TIFF-flavoured container that its reader declines goes to the
-TIFF path in both.  Tolerance: exact everywhere.
+the error class) in both packages.  CZI JPEG and zstd subblocks and
+Imaris ``.ims`` read as in the JAX package through the port's own
+codecs and HDF5 subset (their deeper tests: ``test_torch_zstd.py``,
+``test_torch_jpeg.py``, ``test_torch_hdf5.py``); a TIFF-flavoured
+container that its reader declines goes to the TIFF path in both.
+Tolerance: exact everywhere.
 """
 
 import numpy as np
@@ -230,17 +232,22 @@ def test_the_page_formulas(tmp_path):
 # ---------------------------------------------------------------- refusals
 @pytest.mark.parametrize("compression, codec", [(1, "JPEG"), (5, "zstd0"), (6, "zstd1")])
 def test_codec_compressed_czi_is_refused_naming_item_12b(tmp_path, compression, codec):
+    # once refused (ROADMAP A item 12b), now decoded by the port's own codecs:
+    # the subblocks the reference's test writer encodes with cv2 and
+    # zstandard read as the reference reads them
     planes = rand((1, 1, 16, 16), 27, 255, np.uint8)
     path = tmp_path / "a.czi"
     test_czi.write_czi(path, planes, pixel_type=0, compression=compression)
-    with j_readers.CZIReader(path) as r:  # the reference decodes it here
-        assert r.read_plane(0, 0).shape == (16, 16)
+    with j_readers.CZIReader(path) as r:
+        want = r.read_plane(0, 0)
     with readers.CZIReader(path) as r:
         assert (r.n_channels, r.height, r.width) == (1, 16, 16)
-        with pytest.raises(MetadataError, match=f"{codec}.*ROADMAP A item 12b"):
-            r.read_plane(0, 0)
-    with pytest.raises(MetadataError, match="ROADMAP A item 12b"):
-        readers.read_container_plane(path, 0)
+        got = r.read_plane(0, 0)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    if compression != 1:  # JPEG is lossy
+        np.testing.assert_array_equal(got, planes[0, 0])
+    np.testing.assert_array_equal(readers.read_container_plane(path, 0), want)
 
 
 def test_jpeg_xr_czi_raises_as_the_reference(tmp_path):
@@ -257,18 +264,23 @@ def test_jpeg_xr_czi_raises_as_the_reference(tmp_path):
 
 
 def test_imaris_and_hdf5_readers_are_refused_naming_item_12b(tmp_path):
+    # once refused (ROADMAP A item 12b), now read through the port's HDF5
+    # subset: every page, the dimensions and the datasets as the reference
     path = tmp_path / "a.ims"
-    test_ims.write_ims(path, rand((1, 2, 1, 8, 9), 29))
-    with j_readers.IMSReader(path) as r:
-        assert r.n_zplanes == 2
-    for call in (lambda: readers.IMSReader(path).__enter__(),
-                 lambda: readers.read_container_plane(path, 0),
-                 lambda: readers.container_dimensions(path),
-                 lambda: readers.BFImageReader(path).read(0),
-                 lambda: readers.DatasetReader(path).__enter__(),
-                 lambda: readers.TablesReader(tmp_path / "t.parquet").read()):
-        with pytest.raises(NotSupportedError, match="ROADMAP A item 12b"):
-            call()
+    stack = rand((1, 2, 1, 8, 9), 29)
+    test_ims.write_ims(path, stack)
+    with j_readers.IMSReader(path) as want, readers.IMSReader(path) as got:
+        assert {a: getattr(got, a) for a in ATTRS if hasattr(want, a)} == \
+            {a: getattr(want, a) for a in ATTRS if hasattr(want, a)}
+        for page in range(2):
+            np.testing.assert_array_equal(got.read_plane_linear(page),
+                                          want.read_plane_linear(page))
+    assert readers.container_dimensions(path) == j_readers.container_dimensions(path) == (8, 9)
+    np.testing.assert_array_equal(readers.BFImageReader(path).read(1), stack[0, 1, 0])
+    data = "DataSet/ResolutionLevel 0/TimePoint 0/Channel 0/Data"
+    with readers.DatasetReader(path) as got, j_readers.DatasetReader(path) as want:
+        np.testing.assert_array_equal(got.read(data), want.read(data))
+        assert got.list_datasets() == want.list_datasets()
 
 
 def test_a_declined_tiff_flavoured_container_takes_the_tiff_path(tmp_path):
@@ -409,14 +421,6 @@ def test_mutated_containers_give_the_reference_outcome(tmp_path, case):
     valid = tmp_path / f"valid{suffix}"
     make(valid, rng)
     target = tmp_path / f"mut{suffix}"
-    codec = case in ("czi_zstd1_hilo", "czi_gray8_jpeg")
     for i, mutated in enumerate([valid.read_bytes(), *mutations(valid.read_bytes(), rng)]):
         target.write_bytes(mutated)
-        got = outcome(readers, cls_name, target)
-        want = outcome(j_readers, cls_name, target)
-        if codec and isinstance(want, list):
-            # the reference decodes the codec; the port opens the file and
-            # refuses its planes (ROADMAP A item 12b)
-            assert got == "MetadataError", i
-        else:
-            assert got == want, i
+        assert outcome(readers, cls_name, target) == outcome(j_readers, cls_name, target), i

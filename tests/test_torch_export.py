@@ -3,7 +3,7 @@
 ``--join-features``, site images as TIFF and OME-TIFF, the plate as
 OME-NGFF), the NGFF reader and ``ngff`` metaconfig handler, the
 ``workflow template``/``cleanup`` verbs, Douglas-Peucker
-simplification and the INI settings.
+simplification, the INI settings and ``export --illumstats`` (HDF5).
 
 One store is written by the port's corilla -> align -> jterator on the
 CPU (``as_polygons``); both packages' ``export`` verbs read that same
@@ -116,13 +116,21 @@ def test_geojson_errors_match_the_reference(store, tmp_path):
 
 
 def test_illumstats_export_is_refused_by_name(store, tmp_path, capsys):
-    assert cli.main(["export", "--root", str(store.root), "--illumstats", "0", "--out",
-                     str(tmp_path / "s.h5"), "--device", "cpu"]) == 1
-    assert "h5py" in capsys.readouterr().err
-    with pytest.raises(NotSupportedError, match="ROADMAP A item 12b"):
-        cli.cmd_export(cli.build_parser().parse_args(
-            ["export", "--root", str(store.root), "--illumstats", "0", "--out",
-             str(tmp_path / "s.h5")]))
+    # once refused (no h5py on the target machine), now written by the
+    # port's HDF5 writer: the same datasets as the reference's export
+    import h5py
+
+    port, ref = both(store, tmp_path, ["--illumstats", "0"], "stats.h5")
+    with h5py.File(port, "r") as got, h5py.File(ref, "r") as want:
+        names = []
+        want.visititems(lambda n, o: names.append(n) if isinstance(o, h5py.Dataset) else None)
+        got_names = []
+        got.visititems(lambda n, o: got_names.append(n) if isinstance(o, h5py.Dataset) else None)
+        assert got_names == names and "stats/mean" in names
+        for n in names:
+            assert got[n].dtype == want[n].dtype and got[n].shape == want[n].shape
+            assert got[n].compression == want[n].compression
+            np.testing.assert_array_equal(got[n][()], want[n][()])
 
 
 # ------------------------------------------------------------------ images
@@ -252,13 +260,19 @@ def test_ngff_plate_reingests_pixel_equal(plates, store, tmp_path):
 
 
 def test_other_containers_stay_refused(tmp_path):
-    # Imaris .ims (HDF5) stays refused by name; an ND2 reads as in the reference
-    (tmp_path / "a.ims").write_bytes(b"\0" * 16)
-    with pytest.raises(NotSupportedError, match="ROADMAP A item 12b"):
-        read_container_plane(tmp_path / "a.ims", 0)
-    with pytest.raises(NotSupportedError, match="ROADMAP A item 12b"):
-        vendors.SIDECAR_HANDLERS["ims"](tmp_path)
+    # a file that is no HDF5 named .ims is refused as the reference refuses
+    # it (the port reads Imaris files now); an ND2 reads as in the reference
+    from tmlibrary_tpu import errors as j_errors
     from tmlibrary_tpu.readers import read_container_plane as j_read_container_plane
+
+    (tmp_path / "a.ims").write_bytes(b"\0" * 16)
+    with pytest.raises(MetadataError, match="not an HDF5"):
+        read_container_plane(tmp_path / "a.ims", 0)
+    with pytest.raises(j_errors.MetadataError):
+        j_read_container_plane(tmp_path / "a.ims", 0)
+    assert vendors.SIDECAR_HANDLERS["ims"](tmp_path) == \
+        j_vendors.SIDECAR_HANDLERS["ims"](tmp_path) == ([], 1)
+    (tmp_path / "a.ims").unlink()
     from tmlibrary_tpu_torch.container_writers import write_nd2
 
     planes = np.random.default_rng(3).integers(0, 60000, (2, 8, 6, 2), dtype=np.uint16)

@@ -7,9 +7,8 @@ Leica sidecars (the fixtures ``tests/test_vendors.py`` writes), the
 ``auto`` handler, an explicit ``pattern`` and the InCell filename style.
 The manifests, ``file_mapping.json`` and ``experiment.ome.xml`` texts,
 step results and every stored plane are equal.  An unreadable ``.nd2``
-is skipped as in the reference; a directory holding an ``.ims`` raises
-:class:`NotSupportedError` in the port (ROADMAP A item 12b), also under
-``auto``; the sidecar registry, its policy and the container helpers
+is skipped as in the reference, and so is an unreadable ``.ims``; the
+sidecar registry, its policy and the container helpers
 equal the reference's.  The container formats themselves are held in
 ``test_torch_container_ingest.py``.
 """
@@ -220,18 +219,22 @@ def test_a_container_in_the_source_directory_raises(tmp_path):
     # the default filename handler does not look at containers
     ingest(tmp_path / "p_default", {"source_dir": str(src)}, port=True)
     for suffix, name in ((".czi", "czi"), (".r3d", "dv"), (".oib", "olympus"),
-                         (".flex", "flex"), (".lsm", "lsm")):
+                         (".flex", "flex"), (".lsm", "lsm"), (".ims", "ims")):
         other = tmp_path / f"src{suffix}"
         other.mkdir()
         (other / f"A01{suffix}").write_bytes(bytes(16))
         assert vendors.SIDECAR_HANDLERS[name](other) == \
             j_vendors.SIDECAR_HANDLERS[name](other) == ([], 1)
-    # Imaris .ims is HDF5: refused by name (ROADMAP A item 12b), also under auto
+    # an unreadable Imaris .ims (the port reads HDF5 now) fails auto as in the reference
     ims = tmp_path / "src_ims"
     ims.mkdir()
     (ims / "A01.ims").write_bytes(bytes(16))
-    with pytest.raises(NotSupportedError, match="ROADMAP A item 12b"):
+    with pytest.raises(MetadataError) as got:
         ingest(tmp_path / "p_ims", {"source_dir": str(ims), "handler": "auto"}, port=True)
+    with pytest.raises(Exception) as want:
+        ingest(tmp_path / "r_ims", {"source_dir": str(ims), "handler": "auto"}, port=False)
+    assert str(got.value) == str(want.value).replace(str(tmp_path / "r_ims"),
+                                                     str(tmp_path / "p_ims"))
     zarr = tmp_path / "ngff" / "plate.zarr"
     zarr.mkdir(parents=True)
     assert vendors.SIDECAR_HANDLERS["ngff"](zarr.parent) is None  # no .zattrs: not a plate

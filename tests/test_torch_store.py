@@ -608,7 +608,8 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
             "tmlibrary_tpu_torch.jterator.handles", "tmlibrary_tpu_torch.jterator.description",
             "tmlibrary_tpu_torch.ngff", "tmlibrary_tpu_torch.config",
             "tmlibrary_tpu_torch.native", "tmlibrary_tpu_torch.cfb",
-            "tmlibrary_tpu_torch.container_writers", "chip_smoke"]
+            "tmlibrary_tpu_torch.container_writers", "tmlibrary_tpu_torch.io.hdf5",
+            "tmlibrary_tpu_torch.io.parquet", "chip_smoke"]
     code = (
         "import importlib, sys\n"
         "for banned in ('yaml', 'pandas', 'cv2', 'pyarrow', 'PIL', 'h5py', 'sklearn',\n"

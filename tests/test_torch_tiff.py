@@ -164,20 +164,20 @@ def test_container_suffixes_raise(tmp_path, suffix):
     path = tmp_path / f"plate{suffix}"
     path.write_bytes(b"II*\0" + bytes(64))
     # every container reader raises what the reference's raises on a file
-    # that is none of its format (MetadataError); Imaris .ims is HDF5,
-    # which the port refuses by name (ROADMAP A item 12b)
-    if suffix == ".ims":
-        want = (NotSupportedError, "ROADMAP A item 12b")
-    else:
-        with pytest.raises(j_errors.MetadataError) as ref:
-            j_readers.read_container_plane(path, 0)
-        want = (MetadataError, None)
+    # that is none of its format (MetadataError); for Imaris .ims (HDF5,
+    # read through the port's own subset) the reason after the
+    # file name is h5py's in the reference and the port's own here
+    with pytest.raises(j_errors.MetadataError) as ref:
+        j_readers.read_container_plane(path, 0)
     for call in (lambda: readers.read_container_plane(path, 0),
                  lambda: readers.container_dimensions(path),
                  lambda: ImageExtractor._read_plane(str(path), None, 8, 8)):
-        with pytest.raises(want[0], match=want[1]) as got:
+        with pytest.raises(MetadataError) as got:
             call()
-        if suffix != ".ims":
+        if suffix == ".ims":
+            prefix = f"not an HDF5/Imaris file: {path}:"
+            assert str(got.value).startswith(prefix) and str(ref.value).startswith(prefix)
+        else:
             assert str(got.value) == str(ref.value)
     for plain in ("x.tif", "x.TIFF", "x.png"):
         assert readers.read_container_plane(tmp_path / plain, 0) is None

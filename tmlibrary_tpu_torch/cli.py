@@ -40,10 +40,9 @@ step's.  ``project`` manages a jterator project
 (:mod:`tmlibrary_tpu_torch.jterator.project`); ``export`` writes the
 feature table (Parquet through the port's codec, or CSV), the polygons
 as GeoJSON, one channel's site images as uint16 TIFFs or OME-TIFFs, or
-the whole plate as OME-NGFF (:mod:`tmlibrary_tpu_torch.ngff`), as the
-reference's verbs do; ``--illumstats`` (HDF5) raises
-:class:`~tmlibrary_tpu_torch.errors.NotSupportedError` naming ROADMAP
-item 12b.  ``create`` makes the placeholder store a canonical run starts
+the whole plate as OME-NGFF (:mod:`tmlibrary_tpu_torch.ngff`), or one
+channel's illumination statistics as HDF5 (``--illumstats``, the port's
+HDF5 writer), as the reference's verbs do.  ``create`` makes the placeholder store a canonical run starts
 from (metaconfig writes its manifest).  ``inspect`` prints a microscope
 file's dimensions and channel names from the port's readers (the
 Bio-Formats ``showinf`` role), or for a source directory the ingest
@@ -130,7 +129,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_export.add_argument("--objects", default=None, help="object type name")
     p_export.add_argument(
         "--illumstats", type=int, default=None, metavar="CHANNEL",
-        help="illumination statistics as HDF5: not ported (no h5py on the target machine)")
+        help="export illumination statistics (HDF5, reference IllumstatsFile layout)")
     p_export.add_argument("--cycle", type=int, default=0,
                           help="acquisition cycle for --illumstats/--images (default 0)")
     p_export.add_argument(
@@ -1069,10 +1068,9 @@ def _geojson_features(store: ExperimentStore, args) -> "list[dict] | int":
 def cmd_export(args) -> int:
     """A combined per-object feature table (Parquet or CSV), the polygons
     as GeoJSON, one channel's site images, or the whole plate as
-    OME-NGFF -- the reference's ``cmd_export``
-    (``tmlibrary_tpu/cli.py:1656``).  ``--illumstats`` writes HDF5 there
-    (h5py), which the target machine lacks: it raises
-    :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`."""
+    OME-NGFF, or one channel's illumination statistics as HDF5
+    (``--illumstats CHANNEL [--cycle N]``, the port's HDF5 writer) -- the
+    reference's ``cmd_export`` (``tmlibrary_tpu/cli.py:1656``)."""
     store = _open_store(args)
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -1095,10 +1093,10 @@ def cmd_export(args) -> int:
     if args.images is not None:
         return _export_images(store, args, out)
     if args.illumstats is not None:
-        from tmlibrary_tpu_torch.errors import NotSupportedError
-
-        raise NotSupportedError("--illumstats writes HDF5 (h5py), which the target machine "
-                                "lacks (ROADMAP A item 12b)")
+        store.export_illumstats_hdf5(out, cycle=args.cycle, channel=args.illumstats)
+        print(f"wrote cycle {args.cycle} channel {args.illumstats} illumination statistics "
+              f"(reference IllumstatsFile layout) to {out}")
+        return 0
     if args.objects is None:
         print("error: pass --objects NAME (feature/polygon export) or --illumstats CHANNEL",
               file=sys.stderr)

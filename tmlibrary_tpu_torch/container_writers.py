@@ -5,12 +5,18 @@ Counterparts: the writers of the JAX package's reader tests
 ``tests/test_lif.py``, ``test_dv.py``, ``test_stk.py``, ``test_lsm.py``,
 ``test_oib.py`` and ``test_flex.py``), copied so that the card's machine,
 which cannot import those tests, writes the same bytes: ND2 (v3 chunk
-map), CZI (uncompressed ZISRAW), LIF, DeltaVision, MetaMorph STK, Zeiss
+map), CZI (ZISRAW; its JPEG and zstd subblocks through the port's own
+codecs, so those bytes differ from the tests' ``cv2``/``zstandard``
+ones), LIF, DeltaVision, MetaMorph STK, Zeiss
 LSM (with the LZW encoder its compressed strips use), OLE2 compound
 files, Olympus OIB/OIF and Opera FLEX.  Each writes exactly what
 :mod:`tmlibrary_tpu_torch.readers` documents for its format.
 :func:`write_packbits_stk` adds a single-IFD STK with a PackBits strip,
 which the STK reader declines and the plain TIFF path reads.
+:func:`write_ims` writes Bitplane Imaris files through the port's HDF5
+writer (:mod:`tmlibrary_tpu_torch.io.hdf5`), as ``tests/test_ims.py``
+does through ``h5py``, and :func:`write_jpeg_sites` a directory of grey
+``.jpg`` site files.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import zlib
 
 import numpy as np
 
+from tmlibrary_tpu_torch import native
 from tmlibrary_tpu_torch.readers import ND2Reader
 
 
@@ -187,16 +194,37 @@ def metadata_xml(channel_names) -> bytes:
     return doc.encode()
 
 
-def write_czi(path, planes: np.ndarray, pixel_type=1, n_tiles=1, with_pyramid=False,
-              global_m=False, tile_origins=None,
+def czi_payload(plane: np.ndarray, compression: int, hilo: bool = False) -> bytes:
+    """One CZI subblock's data: the plane's bytes (0), a grey baseline
+    JPEG at quality 95 (1), a Zstandard frame (5, zstd0), or the zstd1
+    header ``[3, 1, hilo]`` and a frame of the plane -- with ``hilo`` its
+    low bytes, then its high bytes (6).  The codecs are the port's own
+    (:func:`tmlibrary_tpu_torch.native.jpeg_encode`,
+    :func:`~tmlibrary_tpu_torch.native.zstd_compress`), where the JAX
+    package's tests call ``cv2.imencode`` and ``zstandard``
+    (``tests/test_czi.py:35-60``)."""
+    data = np.ascontiguousarray(plane).tobytes()
+    if compression == 0:
+        return data
+    if compression == 1:
+        return native.jpeg_encode(plane, quality=95)
+    if hilo:
+        a = np.frombuffer(data, "<u2")
+        data = (a & 0xFF).astype(np.uint8).tobytes() + (a >> 8).astype(np.uint8).tobytes()
+    frame = native.zstd_compress(data)
+    return bytes([3, 1, int(hilo)]) + frame if compression == 6 else frame
+
+
+def write_czi(path, planes: np.ndarray, pixel_type=1, compression=0, hilo=False, n_tiles=1,
+              with_pyramid=False, global_m=False, tile_origins=None,
               channel_names=None) -> None:
     """``planes``: (S, C, H, W) uint16 — one z-plane, one tpoint.  With
     ``n_tiles`` > 1 the S axis is reinterpreted as S*M (mosaic tiles,
     S fastest-outer): planes[s*M+m] carries dims S=s, M=m.  With
     ``with_pyramid`` a half-size pyramid copy of each subblock is
-    interleaved (must be skipped by the reader).  Subblocks are
-    uncompressed (compression 0)."""
-    compression = 0
+    interleaved (must be skipped by the reader).  Subblocks are coded by
+    :func:`czi_payload` with ``compression`` 0, 1, 5 or 6 (and ``hilo``
+    for zstd1)."""
     n_sm, n_c, h, w = planes.shape
     assert n_sm % n_tiles == 0
     blob = bytearray()
@@ -224,12 +252,12 @@ def write_czi(path, planes: np.ndarray, pixel_type=1, n_tiles=1, with_pyramid=Fa
                     ("T", 0, 1), ("S", s, 1)]
             if n_tiles > 1:
                 dims.append(("M", sm if global_m else m, 1))
-            add_subblock(planes[sm, c].tobytes(), dims)
+            add_subblock(czi_payload(planes[sm, c], compression, hilo), dims)
             if with_pyramid:
                 half = planes[sm, c][::2, ::2]
                 pdims = [("X", 0, half.shape[1]), ("Y", 0, half.shape[0]),
                          ("C", c, 1), ("Z", 0, 1), ("T", 0, 1), ("S", s, 1)]
-                add_subblock(half.tobytes(), pdims, pyramid=1)
+                add_subblock(czi_payload(half, compression, hilo), pdims, pyramid=1)
 
     meta_pos = 0
     if channel_names is not None:
@@ -869,3 +897,48 @@ def write_packbits_stk(path, plane: np.ndarray) -> None:
     buf += b"\x00\x00\x00\x00"
     struct.pack_into("<I", buf, 4, ifd_off)
     path.write_bytes(bytes(buf))
+
+
+def write_ims(path, planes: np.ndarray, channel_names=None, pad: int = 7, chunks=None,
+              compression: "str | None" = None) -> None:
+    """A Bitplane Imaris ``.ims`` file through the port's HDF5 writer, as
+    ``tests/test_ims.py:15-40`` writes one through ``h5py``.  ``planes``:
+    (C, Z, T, H, W); each ``DataSet/ResolutionLevel 0/TimePoint t/Channel
+    c/Data`` is (Z, H + pad, W + pad) with the true size in the
+    byte-character attributes ``X``/``Y``/``Z`` of ``DataSetInfo/Image``
+    and names in ``DataSetInfo/Channel c``.  ``chunks`` (and
+    ``compression='gzip'``) store the data chunked and deflated, as
+    Imaris itself writes it; otherwise it is contiguous."""
+    from tmlibrary_tpu_torch.io import hdf5
+
+    n_c, n_z, n_t, h, w = planes.shape
+    root = hdf5.Group()
+    info = root.require_group("DataSetInfo/Image")
+    for name, val in (("X", w), ("Y", h), ("Z", n_z)):
+        info.attrs[name] = np.frombuffer(str(val).encode(), dtype="S1")
+    for c in range(n_c):
+        g = root.require_group(f"DataSetInfo/Channel {c}")
+        if channel_names:
+            g.attrs["Name"] = np.frombuffer(channel_names[c].encode(), dtype="S1")
+    filters = [(1, (4,))] if compression == "gzip" else []
+    for t in range(n_t):
+        for c in range(n_c):
+            padded = np.zeros((n_z, h + pad, w + pad), planes.dtype)
+            padded[:, :h, :w] = planes[c, :, t]
+            root.put(f"DataSet/ResolutionLevel 0/TimePoint {t}/Channel {c}/Data",
+                     hdf5.Dataset(padded, chunks=chunks, filters=filters if chunks else ()))
+    hdf5.write(path, root)
+
+
+def write_jpeg_sites(directory, planes: "dict[tuple[str, int, str], np.ndarray]") -> None:
+    """Grey ``.jpg`` site files, ``<well>_s<site>_<channel>.jpg`` (the
+    default filename style with the JPEG suffix), each a baseline JPEG of
+    its uint8 plane by the port's encoder at quality 95; ``planes`` maps ``(well, site,
+    channel)`` to the plane."""
+    from pathlib import Path
+
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    for (well, site, channel), plane in planes.items():
+        (directory / f"{well}_s{site}_{channel}.jpg").write_bytes(
+            native.jpeg_encode(plane))

@@ -1,5 +1,6 @@
 """File formats the port reads and writes without third-party packages:
 Parquet feature shards and static mapobject shards
 (:mod:`~tmlibrary_tpu_torch.io.parquet`), the raw snappy codec their
-pages use (:mod:`~tmlibrary_tpu_torch.io.snappy`) and PNG tiles and
-planes (:mod:`~tmlibrary_tpu_torch.io.png`)."""
+pages use (:mod:`~tmlibrary_tpu_torch.io.snappy`), PNG tiles and
+planes (:mod:`~tmlibrary_tpu_torch.io.png`) and the subset of HDF5 that
+h5py writes by default (:mod:`~tmlibrary_tpu_torch.io.hdf5`)."""

@@ -223,6 +223,35 @@ class ExperimentStore:
     def has_illumstats(self, cycle: int = 0, channel: int = 0) -> bool:
         return self._illumstats_path(cycle, channel).exists()
 
+    def export_illumstats_hdf5(self, path, cycle: int = 0, channel: int = 0) -> None:
+        """A channel's illumination statistics as an HDF5 file in the
+        reference's ``IllumstatsFile`` layout (``stats/mean``, ``stats/std``
+        in the log10 correction domain, ``stats/n``, and
+        ``stats/percentiles/{keys,values}`` when present), written by
+        the port's HDF5 writer.  The fields are checked first; the file
+        is written whole to a temporary name and renamed over ``path``, so
+        an earlier export is replaced, never merged, and survives a
+        failure.  Counterpart: ``tmlibrary_tpu/models/store.py:224-255``."""
+        from tmlibrary_tpu_torch.writers import DatasetWriter
+
+        stats = self.read_illumstats(cycle=cycle, channel=channel)
+        missing = {"mean_log", "std_log", "n"} - set(stats)
+        if missing:
+            raise StoreError(
+                f"illumination statistics for cycle {cycle} channel {channel} lack required "
+                f"fields {sorted(missing)}")
+        path = Path(path)
+        tmp = path.with_name(path.name + ".tmp")
+        tmp.unlink(missing_ok=True)
+        with DatasetWriter(tmp) as w:
+            w.write("stats/mean", stats["mean_log"])
+            w.write("stats/std", stats["std_log"])
+            w.write("stats/n", stats["n"], compression=None)
+            if "percentile_keys" in stats and "percentile_values" in stats:
+                w.write("stats/percentiles/keys", stats["percentile_keys"])
+                w.write("stats/percentiles/values", stats["percentile_values"])
+        tmp.replace(path)
+
     # --------------------------------------------------------- segmentations
     def _labels_path(self, objects_name: str, tpoint: int, zplane: int) -> Path:
         return (

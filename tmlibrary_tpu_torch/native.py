@@ -1,7 +1,9 @@
 """Host C++ of the port: the convex-hull pixel counts behind
 ``Morphology_solidity``, the TIFF reader behind imextract, the spatial
-layout's boundary trace and mosaic accumulators, and the Douglas-Peucker
-simplification behind ``export --simplify``.
+layout's boundary trace and mosaic accumulators, the Douglas-Peucker
+simplification behind ``export --simplify``, and the codecs of the
+microscope containers: Zstandard (CZI zstd0/zstd1 subblocks) and grey
+baseline JPEG (CZI JPEG subblocks and ``.jpg`` site files).
 
 Counterpart: ``tmlibrary_tpu/native.py`` ``hull_pixel_counts_host`` and
 ``solidity_host`` (``:323-392``), ``tiff_info``, ``tiff_read``,
@@ -9,14 +11,18 @@ Counterpart: ``tmlibrary_tpu/native.py`` ``hull_pixel_counts_host`` and
 (``:413-590``), ``trace_boundary_host`` (``:275``),
 ``mosaic_intensity_host`` and ``mosaic_morph_host`` (``:1162-1260``),
 ``simplify_polygon_host`` (``:627``),
-backed there by ``native/tmnative.cpp``.  Hulls are
+backed there by ``native/tmnative.cpp``; the codecs stand in for the
+``zstandard`` and ``cv2`` calls of ``tmlibrary_tpu/readers.py``
+(``_czi_zstd_plane``, ``CZIReader._jpeg_plane``) and
+``workflow/steps/imextract.py``, which the card's machine does not have.  Hulls are
 ragged per object, so, as in the JAX package, solidity is measured on
 the host from the exported label images and joined into the morphology
 features when a batch persists.
 
 The port keeps its own copy of the C++ (``csrc/host/hull.cpp``,
-``csrc/host/tiff.cpp``, ``csrc/host/mosaic.cpp`` and
-``csrc/host/simplify.cpp``).  At first use they are compiled with the host
+``csrc/host/tiff.cpp``, ``csrc/host/mosaic.cpp``,
+``csrc/host/simplify.cpp``, ``csrc/host/zstd.cpp`` and
+``csrc/host/jpeg.cpp``).  At first use they are compiled with the host
 compiler (``c++``/``g++`` on the ``PATH``, else ``nvcc``) into one
 library in ``build/host/`` at the root of the checkout, named by a
 digest of the sources and flags, and bound with ``ctypes``.  One call
@@ -25,7 +31,9 @@ pixels (:func:`hull_and_area_counts`); the step calls
 :func:`solidity_batch` once per family and batch.  The TIFF functions
 return None for a file the C++ reader declines by its own header checks
 (BigTIFF, deflate, tiles, colour), where the JAX package goes on to its
-Python reader too.  A failed build raises :class:`BuildError`; nothing
+Python reader too.  The codec functions raise
+:class:`~tmlibrary_tpu_torch.errors.MetadataError` on a stream they
+cannot decode, with the reason.  A failed build raises :class:`BuildError`; nothing
 falls back to :func:`hull_pixel_counts_numpy`, :func:`_lzw_decode_py`,
 :func:`_packbits_decode_py` or :func:`simplify_keep_numpy`, the plain versions that the tests hold the
 library against.
@@ -49,6 +57,8 @@ HOST_SRC = Path(__file__).resolve().parent / "csrc" / "host" / "hull.cpp"
 TIFF_SRC = HOST_SRC.with_name("tiff.cpp")
 MOSAIC_SRC = HOST_SRC.with_name("mosaic.cpp")
 SIMPLIFY_SRC = HOST_SRC.with_name("simplify.cpp")
+ZSTD_SRC = HOST_SRC.with_name("zstd.cpp")
+JPEG_SRC = HOST_SRC.with_name("jpeg.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "host"
 FLAGS = ("-O3", "-std=c++17", "-shared")
 
@@ -71,11 +81,10 @@ def _compiler() -> list[str]:
 
 
 def build() -> Path:
-    """Compile ``hull.cpp``, ``tiff.cpp``, ``mosaic.cpp`` and
-    ``simplify.cpp`` into one
-    library (if its digest-named file is missing) and return the library
-    path."""
-    sources = (HOST_SRC, TIFF_SRC, MOSAIC_SRC, SIMPLIFY_SRC)
+    """Compile ``hull.cpp``, ``tiff.cpp``, ``mosaic.cpp``, ``simplify.cpp``,
+    ``zstd.cpp`` and ``jpeg.cpp`` into one library (if its digest-named
+    file is missing) and return the library path."""
+    sources = (HOST_SRC, TIFF_SRC, MOSAIC_SRC, SIMPLIFY_SRC, ZSTD_SRC, JPEG_SRC)
     digest = hashlib.sha256(
         " ".join(FLAGS).encode() + b"".join(src.read_bytes() for src in sources)
     ).hexdigest()[:16]
@@ -116,10 +125,20 @@ def lib() -> ctypes.CDLL:
                                 ("tm_mosaic_intensity", [ptr, ptr, i64, i32, ptr, ptr, ptr,
                                                          ptr]),
                                 ("tm_mosaic_morph", [ptr, i32, i32, i32, *[ptr] * 7]),
-                                ("tm_simplify_polygon", [ptr, i32, ctypes.c_double, ptr])):
+                                ("tm_simplify_polygon", [ptr, i32, ctypes.c_double, ptr]),
+                                ("tm_jpeg_decode", [ptr, i64, ptr, ptr])):
                 fn = getattr(loaded, fname)
                 fn.restype = ctypes.c_int32
                 fn.argtypes = args
+            for fname, args in (("tm_zstd_frame_content_size", [ptr, i64]),
+                                ("tm_zstd_decompress", [ptr, i64, ptr, i64, i32]),
+                                ("tm_zstd_compress", [ptr, i64, ptr, i64]),
+                                ("tm_jpeg_encode", [ptr, i32, i32, i32, ptr, i64])):
+                fn = getattr(loaded, fname)
+                fn.restype = i64
+                fn.argtypes = args
+            for fname in ("tm_zstd_error", "tm_jpeg_error"):
+                getattr(loaded, fname).restype = ctypes.c_char_p
             _LIB = loaded
         return _LIB
 
@@ -508,3 +527,98 @@ def _packbits_decode_py(src: bytes, expect: int) -> "bytes | None":
             i += 1
     # a run can cross the expect boundary; truncate like the library
     return bytes(out[:expect]) if len(out) >= expect else None
+
+
+# ------------------------------------------------------------------ codecs
+def _buffer(src) -> np.ndarray:
+    return np.frombuffer(src, np.uint8) if len(src) else np.zeros(1, np.uint8)
+
+
+def zstd_frame_content_size(src: bytes) -> int:
+    """The content size the first Zstandard frame of ``src`` declares: -1
+    when it declares none, 0 for a skippable frame (``zstandard.
+    frame_content_size``); :class:`MetadataError` when the header is
+    malformed."""
+    from tmlibrary_tpu_torch.errors import MetadataError
+
+    size = lib().tm_zstd_frame_content_size(_buffer(src).ctypes.data, len(src))
+    if size == -2:
+        raise MetadataError("error when determining content size")
+    return int(size)
+
+
+def zstd_decompress(src: bytes, expect: int, all_frames: bool = True) -> bytes:
+    """Decode Zstandard ``src`` into at most ``expect`` bytes: every frame
+    back to back (skippable frames skipped), or with ``all_frames=False``
+    the first frame only and what follows ignored, as ``zstandard.
+    ZstdDecompressor().decompress`` does.  A frame declaring more than
+    ``expect`` bytes is refused before it is decoded; one declaring none
+    is capped at ``expect``.  A malformed stream raises
+    :class:`MetadataError` with the decoder's reason."""
+    from tmlibrary_tpu_torch.errors import MetadataError
+
+    out = np.empty(max(int(expect), 1), np.uint8)
+    n = lib().tm_zstd_decompress(_buffer(src).ctypes.data, len(src), out.ctypes.data,
+                                 int(expect), int(bool(all_frames)))
+    if n < 0:
+        raise MetadataError(f"decompression error: {lib().tm_zstd_error().decode()}")
+    return out[:n].tobytes()
+
+
+def zstd_compress(data: bytes) -> bytes:
+    """One Zstandard frame of ``data`` with its content size."""
+    src = _buffer(data)
+    cap = len(data) + len(data) // 8 + 1024
+    out = np.empty(cap, np.uint8)
+    n = lib().tm_zstd_compress(src.ctypes.data, len(data), out.ctypes.data, cap)
+    if n < 0 or n > cap:
+        raise ValueError(f"zstd_compress failed: {lib().tm_zstd_error().decode()}")
+    return out[:n].tobytes()
+
+
+def jpeg_dimensions(src: bytes) -> "tuple[int, int]":
+    """``(height, width)`` from a grey baseline JPEG's SOF (the stream is
+    read up to it); :class:`MetadataError` for anything else."""
+    from tmlibrary_tpu_torch.errors import MetadataError
+
+    hw = np.zeros(2, np.int32)
+    if lib().tm_jpeg_decode(_buffer(src).ctypes.data, len(src), None, hw.ctypes.data) != 0:
+        raise MetadataError(lib().tm_jpeg_error().decode())
+    return int(hw[0]), int(hw[1])
+
+
+def jpeg_decode(src: bytes) -> "tuple[int, int, bytes]":
+    """``(height, width, pixels)`` of a grey baseline JPEG, the pixels
+    row-major uint8 as libjpeg decodes them; progressive, arithmetic,
+    lossless, hierarchical, 12-bit and multi-component streams and
+    damaged headers raise :class:`MetadataError` naming the reason."""
+    return (*(img := jpeg_decode_array(src)).shape, img.tobytes())
+
+
+def jpeg_decode_array(src: bytes) -> np.ndarray:
+    """:func:`jpeg_decode` as an ``(H, W)`` uint8 array."""
+    from tmlibrary_tpu_torch.errors import MetadataError
+
+    h, w = jpeg_dimensions(src)
+    out = np.empty((h, w), np.uint8)
+    hw = np.zeros(2, np.int32)
+    if lib().tm_jpeg_decode(_buffer(src).ctypes.data, len(src), out.ctypes.data,
+                            hw.ctypes.data) != 0:
+        raise MetadataError(lib().tm_jpeg_error().decode())
+    return out
+
+
+def jpeg_encode(image: np.ndarray, quality: int = 95) -> bytes:
+    """A grey ``(H, W)`` uint8 image as a baseline JPEG (integer forward
+    DCT, the Annex K luminance tables at libjpeg's ``quality`` scaling;
+    95 is ``cv2.imencode``'s default)."""
+    img = np.ascontiguousarray(image, np.uint8)
+    if img.ndim != 2:
+        raise ValueError(f"jpeg_encode: expected an (H, W) image, got {img.shape}")
+    h, w = img.shape
+    n = lib().tm_jpeg_encode(img.ctypes.data, h, w, int(quality), None, 0)
+    if n < 0:
+        raise ValueError(f"jpeg_encode failed: {lib().tm_jpeg_error().decode()}")
+    out = np.empty(n, np.uint8)
+    lib().tm_jpeg_encode(img.ctypes.data, h, w, int(quality), out.ctypes.data, n)
+    return out.tobytes()

@@ -18,17 +18,17 @@ read with no JVM and no codec library:
   DeltaVision DV/R3D, MetaMorph STK, Olympus OIF/OIB (the OLE2 file
   through :mod:`tmlibrary_tpu_torch.cfb`), PerkinElmer Opera FLEX, and
   OME-NGFF through :mod:`tmlibrary_tpu_torch.ngff`;
-- ``ImageReader`` and ``BFImageReader``.
+- ``ImageReader`` and ``BFImageReader``; ``IMSReader``,
+  ``DatasetReader`` and ``TablesReader``.
 
 A TIFF-flavoured container (``.stk .lsm .flex``) that its reader
 declines with :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`
-goes to the plain TIFF path, as in the JAX package.  What needs a
-library the port does without raises naming ROADMAP item 12b
-(:data:`CODEC_ITEM`): CZI subblocks compressed as JPEG (compression 1)
-or zstd (5 and 6) raise :class:`~tmlibrary_tpu_torch.errors.MetadataError`
-as the JAX package does where its codec is missing, so ingest skips the
-file; Imaris ``.ims``, ``DatasetReader`` and ``TablesReader`` raise
-:class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.
+goes to the plain TIFF path, as in the JAX package.  CZI subblocks
+compressed as JPEG (compression 1) or zstd (5 and 6) are decoded by the
+port's own codecs (:mod:`tmlibrary_tpu_torch.native`); Imaris ``.ims``
+and ``DatasetReader`` read through the port's HDF5 subset
+(:mod:`tmlibrary_tpu_torch.io.hdf5`); ``TablesReader`` returns columns
+as a dict of arrays where the JAX package returns a DataFrame.
 """
 
 from __future__ import annotations
@@ -48,10 +48,7 @@ import numpy as np
 from tmlibrary_tpu_torch import native
 from tmlibrary_tpu_torch.cfb import CompoundFile
 from tmlibrary_tpu_torch.errors import MetadataError, NotSupportedError
-from tmlibrary_tpu_torch.io import png
-
-#: the ROADMAP item that ports what needs a codec or HDF5
-CODEC_ITEM = "ROADMAP A item 12b"
+from tmlibrary_tpu_torch.io import hdf5, png
 
 
 class Reader:
@@ -456,7 +453,8 @@ class ImageReader(Reader):
     """Read one 2-D plane of an image file, as imextract does: a
     container by its linear page index, then the C++ TIFF reader, the
     Python TIFF reader (``.tif``/``.tiff``), the PNG codec (colour
-    converted to grey).  uint8/uint16 as stored.  Where the JAX package
+    converted to grey), the grey baseline-JPEG decoder.  uint8/uint16 as
+    stored.  Where the JAX package
     hands any other file to ``cv2``, this raises
     :class:`~tmlibrary_tpu_torch.errors.MetadataError`."""
 
@@ -489,6 +487,13 @@ class ImageReader(Reader):
                 raise MetadataError(f"cannot read page {page} of {self.filename}: a PNG has one")
             img = png.read(self.filename)
             return png.to_gray(img) if img.ndim == 3 else img
+        if self.filename.is_file():
+            raw = self.filename.read_bytes()
+            if raw.startswith(b"\xff\xd8\xff"):  # a grey baseline JPEG
+                if page:
+                    raise MetadataError(f"cannot read page {page} of {self.filename}: a JPEG "
+                                        "has one")
+                return native.jpeg_decode_array(raw)
         if not self.filename.exists():
             raise FileNotFoundError(f"cannot read image: {self.filename}")
         raise MetadataError(f"cannot read image {self.filename}: no reader of the port "
@@ -504,11 +509,10 @@ class BFImageReader(Reader):
     ``tmlib/readers.py`` ``BFImageReader.read(filename)``).  This image
     has no JVM; instead the call delegates to the native parsers —
     Nikon ND2, Zeiss CZI/LSM, Leica LIF, DeltaVision DV/R3D,
-    MetaMorph STK, Olympus OIF/OIB, Opera FLEX, OME-NGFF — and to the plain
-    TIFF/PNG path for everything else, so reference analysis scripts
-    using this class keep working for every format the port reads.
-    An unsupported file (Imaris ``.ims`` among them, ROADMAP item 12b)
-    still raises a clear
+    MetaMorph STK, Olympus OIF/OIB, Opera FLEX, Imaris IMS, OME-NGFF — and
+    to the plain TIFF/PNG path for everything else, so reference analysis
+    scripts using this class keep working for every format the port reads.
+    An unsupported file still raises a clear
     :class:`~tmlibrary_tpu_torch.errors.NotSupportedError` up front instead of
     failing deep inside a job.
     """
@@ -530,7 +534,7 @@ class BFImageReader(Reader):
             raise NotSupportedError(
                 f"no native reader for {self.filename} (Bio-Formats/JVM "
                 "is not available; supported containers: nd2, czi, lif, "
-                "dv/r3d, stk, lsm, oif/oib, flex, zarr, plus "
+                "dv/r3d, ims, stk, lsm, oif/oib, flex, zarr, plus "
                 "TIFF/PNG) — convert other vendor containers to one of "
                 f"these: {exc}"
             ) from exc
@@ -1001,6 +1005,74 @@ class ND2Reader(Reader):
             ) from exc
 
 
+def _czi_zstd_plane(raw: bytes, h: int, w: int, zstd1: bool, filename,
+                    itemsize: int = 2) -> np.ndarray:
+    """A zstd-compressed Gray8/Gray16 CZI subblock payload as an ``(h, w)``
+    plane, decoded by the port's Zstandard decoder
+    (:func:`tmlibrary_tpu_torch.native.zstd_decompress`).
+
+    ``zstd0`` (compression 5) is a bare frame.  ``zstd1`` (6, ZEN's
+    default) prefixes a header -- byte 0 its size including itself, then
+    (field id, value) byte pairs -- whose field 1 set means the
+    uncompressed stream holds all low bytes, then all high bytes (libCZI's
+    hi-lo packing), re-interleaved here; on an 8-bit subblock that flag is
+    an error.  A frame declaring another size than the plane's is refused
+    before it is decoded; the first frame is decoded and what follows it
+    ignored.  Counterpart: ``tmlibrary_tpu/readers.py:860-929``, with its
+    messages."""
+    expect = itemsize * h * w
+    hilo = False
+    if zstd1:
+        if not raw or raw[0] < 1 or raw[0] > len(raw):
+            raise MetadataError(f"corrupt zstd1 subblock header in {filename}")
+        fields = raw[1:raw[0]]
+        for i in range(0, len(fields) - 1, 2):
+            if fields[i] == 1:
+                hilo = bool(fields[i + 1])
+        raw = raw[raw[0]:]
+    try:
+        declared = native.zstd_frame_content_size(raw)
+        if declared not in (-1, expect):
+            raise MetadataError(
+                f"zstd subblock in {filename} declares {declared} bytes, expected {expect}")
+        out = native.zstd_decompress(raw, expect, all_frames=False)
+    except MetadataError as exc:
+        if "declares" in str(exc):
+            raise
+        raise MetadataError(f"corrupt zstd subblock in {filename}: {exc}") from exc
+    if len(out) != expect:
+        raise MetadataError(
+            f"zstd subblock in {filename} decodes to {len(out)} bytes, expected {expect}")
+    if hilo:
+        if itemsize != 2:
+            raise MetadataError(
+                f"zstd1 hi-lo packing on a non-16-bit subblock in {filename}")
+        half = expect // 2
+        lo = np.frombuffer(out, np.uint8, count=half)
+        hi = np.frombuffer(out, np.uint8, count=half, offset=half)
+        return (lo.astype(np.uint16) | (hi.astype(np.uint16) << 8)).reshape(h, w)
+    dtype = np.uint8 if itemsize == 1 else np.dtype("<u2")
+    return np.frombuffer(out, dtype).reshape(h, w).copy()
+
+
+def _jpeg_plane(raw: bytes, h: int, w: int, dtype, filename) -> np.ndarray:
+    """A JPEG (compression 1, ZEN's legacy lossy option) CZI subblock as an
+    ``(h, w)`` plane of ``dtype``, decoded by the port's baseline-JPEG
+    decoder (:func:`tmlibrary_tpu_torch.native.jpeg_decode_array`); a
+    stream it cannot decode or another geometry than the directory's
+    raises :class:`MetadataError`.  Counterpart:
+    ``tmlibrary_tpu/readers.py:1324-1354`` (``cv2.imdecode``, which also
+    reads colour, progressive and arithmetic streams)."""
+    try:
+        img = native.jpeg_decode_array(raw)
+    except MetadataError as exc:
+        raise MetadataError(f"{filename}: corrupt JPEG subblock: {exc}") from exc
+    if img.shape != (h, w):
+        raise MetadataError(
+            f"{filename}: JPEG subblock decodes to {img.shape}, directory says {(h, w)}")
+    return np.asarray(img, dtype)
+
+
 class CZIReader(Reader):
     """First-party reader for Zeiss ``.czi`` containers (ZISRAW layout).
 
@@ -1021,18 +1093,17 @@ class CZIReader(Reader):
       data_size`` + its own directory entry; pixel data starts at payload
       offset ``max(256, 16 + entry_size) + metadata_size``.
 
-    Gray8/Gray16 planes decode uncompressed; mosaic tiles (M dimension,
-    slide scans) read per tile with pyramid copies skipped.  JPEG (1) and
-    zstd (5, 6) subblocks raise
-    :class:`~tmlibrary_tpu_torch.errors.MetadataError` naming ROADMAP item
-    12b, JPEG-XR (4) and float files raise it as the JAX package does.
+    Gray8/Gray16 planes decode uncompressed, JPEG (1) through
+    :func:`_jpeg_plane` and zstd0/zstd1 (5, 6) through
+    :func:`_czi_zstd_plane`; mosaic tiles (M dimension, slide scans) read
+    per tile with pyramid copies skipped.  JPEG-XR (4) and float files
+    raise :class:`~tmlibrary_tpu_torch.errors.MetadataError` as the JAX
+    package does.
     """
 
     #: DirectoryEntryDV pixel types handled -> numpy dtype
     #: (0 = Gray8, 1 = Gray16 per the public ZISRAW enum)
     _PIXEL_DTYPES = {0: np.dtype(np.uint8), 1: np.dtype("<u2")}
-    #: compression ids the JAX package decodes with a codec library
-    _CODECS = {1: "JPEG", 5: "zstd0", 6: "zstd1"}
 
     def __enter__(self):
         self._file = open(self.filename, "rb")
@@ -1303,10 +1374,8 @@ class CZIReader(Reader):
                 f"z={zplane} t={tpoint}"
             )
         compression = plane["compression"]
-        if compression not in (0, *self._CODECS):
-            # 4 = JPEG-XR: no conformant decoder in either package;
-            # 1 = JPEG, 5/6 = zstd0/zstd1 (the modern ZEN default): ROADMAP
-            # item 12b
+        if compression not in (0, 1, 5, 6):
+            # 4 = JPEG-XR: no conformant decoder in either package
             raise MetadataError(
                 f"{self.filename}: compressed CZI subblocks "
                 f"(compression={compression}) are not supported "
@@ -1350,14 +1419,11 @@ class CZIReader(Reader):
                     f"{self.filename}: compressed subblock claims "
                     f"{data_size} bytes, {len(self._data) - data_off} in file"
                 )
-            # the JAX package decodes these through cv2 (JPEG) and
-            # zstandard (zstd0/zstd1), and raises this same error class
-            # where the codec is missing, so ingest skips the file
-            raise MetadataError(
-                f"{self.filename}: {self._CODECS[compression]}-compressed CZI "
-                f"subblocks (compression={compression}) are not decoded by "
-                f"the port yet ({CODEC_ITEM})"
-            )
+            raw = bytes(self._data[data_off:data_off + data_size])
+            if compression == 1:
+                return _jpeg_plane(raw, h, w, dtype, self.filename)
+            return _czi_zstd_plane(raw, h, w, compression == 6, self.filename,
+                                   itemsize=dtype.itemsize)
         if data_size < expect or data_off + expect > len(self._data):
             # data_size is the writer's CLAIM; a truncated file can keep an
             # intact directory while the pixels run past EOF
@@ -2511,36 +2577,183 @@ class FlexReader(Reader):
 
 
 class IMSReader(Reader):
-    """Bitplane Imaris ``.ims`` files are HDF5; the port has no HDF5
-    reader yet, so opening one raises :class:`NotSupportedError`
-    (the JAX package reads them through ``h5py``)."""
+    """Bitplane Imaris ``.ims`` files (HDF5), read through the port's HDF5
+    subset (:mod:`tmlibrary_tpu_torch.io.hdf5`).
+
+    Resolution level 0 lives at ``/DataSet/ResolutionLevel 0/TimePoint
+    <t>/Channel <c>/Data`` as a (Z, Y, X) dataset padded up to chunk
+    multiples; the true size comes from ``/DataSetInfo/Image`` attributes
+    ``X``/``Y``/``Z``, which Imaris stores as byte-character arrays
+    (``[b'5', b'1', b'2']``).  Linear page convention (shared with the
+    ``ims`` metaconfig handler): ``page = (c * Z + z) * T + t``.  Integer
+    data is clipped to the store's uint16 range, anything else becomes
+    float32.  A damaged file raises :class:`MetadataError`; one outside
+    the HDF5 subset raises :class:`NotSupportedError` naming the
+    structure.  Counterpart: ``tmlibrary_tpu/readers.py:1793-1938``."""
 
     def __enter__(self):
-        raise NotSupportedError(
-            f"{self.filename}: Imaris .ims files are HDF5, which the port does not read "
-            f"without h5py yet ({CODEC_ITEM})")
+        try:
+            self._f = hdf5.File(self.filename)
+        except MetadataError as exc:
+            raise MetadataError(f"not an HDF5/Imaris file: {self.filename}: {exc}") from exc
+        try:
+            info = self._f.node("DataSetInfo/Image")
+            self._f.node("DataSet/ResolutionLevel 0")
+        except KeyError as exc:
+            raise MetadataError(f"no Imaris DataSet layout in {self.filename}: {exc}") from exc
+        try:
+            self.width = int(self._decode_attr(info.attrs["X"]))
+            self.height = int(self._decode_attr(info.attrs["Y"]))
+            self.n_zplanes = int(self._decode_attr(info.attrs["Z"]))
+        except (KeyError, ValueError, UnicodeDecodeError) as exc:
+            raise MetadataError(
+                f"bad Imaris image-size attributes in {self.filename}: {exc}") from exc
+        if self.width < 1 or self.height < 1 or self.n_zplanes < 1:
+            raise MetadataError(
+                f"nonsensical Imaris image size in {self.filename}: "
+                f"X={self.width} Y={self.height} Z={self.n_zplanes}")
+        tps = sorted(k for k in self._f.members("DataSet/ResolutionLevel 0")
+                     if k.startswith("TimePoint "))
+        if not tps:
+            raise MetadataError(f"no TimePoints in {self.filename}")
+        chans = sorted(k for k in self._f.members(f"DataSet/ResolutionLevel 0/{tps[0]}")
+                       if k.startswith("Channel "))
+        if not chans:
+            raise MetadataError(f"no Channels in {self.filename}")
+        self.n_tpoints = len(tps)
+        self.n_channels = len(chans)
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    @staticmethod
+    def _decode_attr(val) -> str:
+        """The one decoder for Imaris attribute values: byte-character
+        arrays (``[b'5', b'1', b'2']``), bytes, or plain scalars."""
+        if isinstance(val, np.ndarray):
+            return b"".join(val.astype("S1")).decode()
+        if isinstance(val, bytes):
+            return val.decode()
+        return str(val)
+
+    def channel_names(self) -> "list[str] | None":
+        """Names from ``/DataSetInfo/Channel <c>`` ``Name`` attributes, or
+        None when absent."""
+        names = []
+        for c in range(self.n_channels):
+            try:
+                names.append(self._decode_attr(
+                    self._f.node(f"DataSetInfo/Channel {c}").attrs["Name"]))
+            except KeyError:
+                return None
+        return names
+
+    def read_plane(self, z: int, c: int, t: int) -> np.ndarray:
+        path = f"DataSet/ResolutionLevel 0/TimePoint {t}/Channel {c}/Data"
+        try:
+            data = self._f.node(path)
+            if not isinstance(data, hdf5.Dataset):
+                raise KeyError(path)
+            if len(data.shape) != 3:
+                raise MetadataError(
+                    f"corrupt Imaris data in {self.filename}: {path} has shape {data.shape}")
+            plane = data[z, : self.height, : self.width]
+        except KeyError as exc:
+            raise MetadataError(f"missing {path} in {self.filename}") from exc
+        except IndexError as exc:
+            raise MetadataError(
+                f"corrupt Imaris data in {self.filename}: IndexError: {exc}") from exc
+        if plane.dtype.kind in "iu":
+            return np.clip(plane, 0, 65535).astype(np.uint16)
+        return plane.astype(np.float32)
+
+    def read_plane_linear(self, page: int) -> np.ndarray:
+        ct, t = divmod(page, self.n_tpoints)
+        c, z = divmod(ct, self.n_zplanes)
+        return self.read_plane(z, c, t)
 
 
 class DatasetReader(Reader):
-    """HDF5 dataset reader (reference ``DatasetReader``): the port has no
-    HDF5 reader yet, so opening one raises :class:`NotSupportedError`."""
+    """HDF5 dataset reader (reference ``DatasetReader``,
+    ``tmlibrary_tpu/readers.py:2945-2974``) on the port's HDF5 subset:
+    ``read`` (KeyError for a missing path), ``list_datasets`` and
+    ``exists``."""
 
     def __enter__(self):
-        raise NotSupportedError(
-            f"{self.filename}: HDF5 datasets are not read by the port without h5py yet "
-            f"({CODEC_ITEM})")
+        self._f = hdf5.File(self.filename)
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def read(self, path: str) -> np.ndarray:
+        node = self._f.resolve(path)
+        if node is None:
+            raise KeyError(f"no dataset '{path}' in {self.filename}")
+        return np.asarray(self._f.node(path).read())
+
+    def list_datasets(self, group: str = "/") -> "list[str]":
+        """Every dataset below ``group``, relative to it, in h5py's
+        ``visititems`` order."""
+        return [p for p, _ in self._f.load(group).visit_datasets()]
+
+    def exists(self, path: str) -> bool:
+        return self._f.resolve(path) is not None
 
 
 class TablesReader(Reader):
-    """Tabular reader (reference pandas/HDF): not ported, as it needs
-    pandas; opening or reading one raises :class:`NotSupportedError`
-    (the port reads its feature shards through
-    :mod:`tmlibrary_tpu_torch.io.parquet`)."""
+    """Tabular reader (reference ``TablesReader``,
+    ``tmlibrary_tpu/readers.py:2986-2997``, which returns a pandas
+    DataFrame): ``.parquet`` through :mod:`tmlibrary_tpu_torch.io.parquet`
+    and ``.csv`` through :mod:`csv`, read into an ordered ``{column:
+    np.ndarray}`` whose names, order, dtypes and values are the
+    DataFrame's ``df[c].to_numpy()``.  CSV columns take pandas' inference:
+    int64 when every field is an integer, float64 when every field is a
+    number or empty (empty as NaN), bool for ``True``/``False``, else
+    object strings (empty as NaN)."""
 
-    def __enter__(self):
-        raise NotSupportedError(
-            f"{self.filename}: TablesReader needs pandas, which the port does without "
-            f"({CODEC_ITEM})")
+    def read(self) -> "dict[str, np.ndarray]":
+        suffix = self.filename.suffix.lower()
+        if suffix == ".parquet":
+            from tmlibrary_tpu_torch.io import parquet
 
-    def read(self):
-        return self.__enter__()
+            return {k: v.astype(object) if v.dtype.kind == "U" else v
+                    for k, v in parquet.read_table(self.filename).items()}
+        if suffix == ".csv":
+            return _read_csv(self.filename)
+        raise NotSupportedError(f"unsupported table format '{suffix}'")
+
+
+def _csv_column(values: "list[str]") -> np.ndarray:
+    """One CSV column with pandas' ``read_csv`` type inference."""
+    present = [v for v in values if v != ""]
+    if present:
+        try:
+            ints = [int(v) for v in present]
+            if len(present) == len(values) and all(-2**63 <= i < 2**63 for i in ints):
+                return np.array(ints, np.int64)
+        except ValueError:
+            pass
+        try:
+            return np.array([float(v) if v != "" else np.nan for v in values], np.float64)
+        except ValueError:
+            pass
+        if len(present) == len(values) and set(present) <= {"True", "False", "true", "false",
+                                                           "TRUE", "FALSE"}:
+            return np.array([v.lower() == "true" for v in values])
+    else:
+        return np.full(len(values), np.nan)
+    return np.array([v if v != "" else np.nan for v in values], dtype=object)
+
+
+def _read_csv(path) -> "dict[str, np.ndarray]":
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    if not rows:
+        raise MetadataError(f"{path}: no columns to parse from file")
+    header, body = rows[0], rows[1:]
+    return {name: _csv_column([r[i] if i < len(r) else "" for r in body])
+            for i, name in enumerate(header)}

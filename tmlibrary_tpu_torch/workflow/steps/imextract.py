@@ -11,8 +11,11 @@ a microscope container by the page its metaconfig handler wrote
 LIF, DV, STK, LSM, OIF/OIB, FLEX, OME-NGFF), then the C++ TIFF reader (:func:`~tmlibrary_tpu_torch.native.tiff_read`),
 then the Python TIFF reader for what it declines (BigTIFF, deflate
 strips), then the PNG codec (:mod:`~tmlibrary_tpu_torch.io.png`, colour
-converted to grey as cv2 converts it).  Where the JAX package hands any
-other file to ``cv2``, the port raises
+converted to grey as cv2 converts it), then the baseline-JPEG decoder
+for a grey JPEG (:func:`~tmlibrary_tpu_torch.native.jpeg_decode_array`,
+the pixels ``cv2.imread(..., IMREAD_UNCHANGED)`` gives).  Where the JAX
+package hands any other file to ``cv2`` (a colour, progressive or
+arithmetic JPEG among them), the port raises
 :class:`~tmlibrary_tpu_torch.errors.MetadataError` naming the file and
 its format.  The decode thread pool is sized by the JAX package's default
 rule unless ``TMX_INGEST_WORKERS`` pins it (anything unparseable or
@@ -84,8 +87,9 @@ class ImageExtractor(Step):
     @staticmethod
     def _read_plane(path: str, page: "int | None", height: int, width: int) -> np.ndarray:
         """One grayscale plane: a container, the C++ TIFF reader, the
-        Python TIFF reader (``.tif``/``.tiff``), the PNG codec, in that
-        order; anything else raises :class:`MetadataError`.  Sleeps
+        Python TIFF reader (``.tif``/``.tiff``), the PNG codec, the grey
+        baseline-JPEG decoder, in that order; anything else raises
+        :class:`MetadataError`.  Sleeps
         ``TMX_INGEST_THROTTLE_MS`` first where it is set."""
         throttle = os.environ.get("TMX_INGEST_THROTTLE_MS")
         if throttle:
@@ -108,6 +112,16 @@ class ImageExtractor(Step):
                 raise MetadataError(f"cannot read page {page} of {path}: a PNG has one")
             img = png.read(path)
             return png.to_gray(img) if img.ndim == 3 else img
+        with open(path, "rb") as f:
+            raw = f.read()
+        if raw.startswith(b"\xff\xd8\xff"):
+            if page:
+                raise MetadataError(f"cannot read page {page} of {path}: a JPEG has one")
+            try:
+                return native.jpeg_decode_array(raw)
+            except MetadataError as e:  # the feature or damage the decoder refused
+                raise MetadataError(f"cannot read image {path}: a JPEG file the port's "
+                                    f"readers do not decode: {e}") from e
         raise _unreadable(path, page)
 
     def run_batch(self, batch: dict) -> dict:

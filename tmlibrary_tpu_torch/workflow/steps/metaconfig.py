@@ -11,9 +11,9 @@ the ``file_mapping.json`` that imextract consumes (reference
 same text as the JAX package's for the same directory.
 
 Host work, one batch.  The site-shape probe reads the first file's
-header through the port's TIFF reader or PNG codec where the JAX package
-decodes it with ``cv2.imread``; a microscope container gives its planes'
-shape (:func:`~tmlibrary_tpu_torch.readers.container_dimensions`).
+header through the port's TIFF reader, PNG codec or JPEG decoder (its
+SOF) where the JAX package decodes it with ``cv2.imread``; a microscope
+container gives its planes' shape (:func:`~tmlibrary_tpu_torch.readers.container_dimensions`).
 """
 
 from __future__ import annotations
@@ -109,14 +109,23 @@ def well_num_to_rowcol(num: int, plate_cols: int = 24) -> tuple[int, int]:
 def probe_shape(path: str) -> tuple[int, int]:
     """(height, width) of a site from its file's header: a container
     gives its planes' (:func:`~tmlibrary_tpu_torch.readers.container_dimensions`),
-    a TIFF gives its first page's, a PNG its image's; anything else
-    raises :class:`MetadataError`."""
+    a TIFF gives its first page's, a PNG its image's, a grey baseline
+    JPEG its SOF's; anything else raises :class:`MetadataError`."""
+    from tmlibrary_tpu_torch import native
     from tmlibrary_tpu_torch.io import png
     from tmlibrary_tpu_torch.readers import container_dimensions, tiff_dimensions
 
     dims = container_dimensions(path) or tiff_dimensions(path)
     if dims is None and png.is_png(path):
         dims = png.info(path)[:2]
+    if dims is None:
+        with open(path, "rb") as f:
+            raw = f.read()
+        if raw.startswith(b"\xff\xd8\xff"):
+            try:
+                dims = native.jpeg_dimensions(raw)
+            except MetadataError:
+                dims = None
     if dims is None:
         raise MetadataError(f"cannot read probe image {path}")
     return dims

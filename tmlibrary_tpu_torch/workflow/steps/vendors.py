@@ -16,13 +16,9 @@ planes are plain TIFF/PNG files -- ``cellvoyager`` (``MeasurementData.mlf``
 which read their files through :mod:`tmlibrary_tpu_torch.readers`:
 ``nd2``, ``czi`` (with the mosaic tile grid), ``lif``, ``ngff`` (through
 :mod:`tmlibrary_tpu_torch.ngff`), ``dv``, ``stk``, ``lsm``, ``olympus``
-(OIF and OIB) and ``flex`` (Opera's numeric well names).  They skip and
-count the files their reader cannot read.  ``ims`` returns None when
-the tree holds no ``.ims`` file and otherwise raises
-:class:`~tmlibrary_tpu_torch.errors.NotSupportedError` naming ROADMAP
-item 12b: the port has no HDF5 reader yet.  That error is not a
-:class:`~tmlibrary_tpu_torch.errors.MetadataError`, so ``auto`` cannot
-skip it silently.
+(OIF and OIB), ``flex`` (Opera's numeric well names) and ``ims`` (Imaris,
+through the port's HDF5 subset).  They skip and count the files their
+reader cannot read.
 
 Stage positions, when present, become within-well site grid coordinates
 through :func:`positions_to_grid`, as the reference derives them.
@@ -43,10 +39,10 @@ from tmlibrary_tpu_torch.errors import (
     VendorConflictError,
 )
 from tmlibrary_tpu_torch.readers import (
-    CODEC_ITEM,
     CZIReader,
     DVReader,
     FlexReader,
+    IMSReader,
     LIFReader,
     LSMReader,
     ND2Reader,
@@ -1406,20 +1402,32 @@ def dv_sidecar(source_dir: Path) -> "tuple[list[dict], int] | None":
 
 # ----------------------------------------------------------------------- ims
 @register_sidecar_handler("ims")
-def ims_sidecar(source_dir: Path) -> None:
-    """Bitplane Imaris ``.ims`` files (HDF5): None when the tree holds
-    none; with one present, :class:`NotSupportedError` naming ROADMAP
-    item 12b, as the port has no HDF5 reader yet (the JAX package reads
-    them through ``h5py``).  Not a
-    :class:`~tmlibrary_tpu_torch.errors.MetadataError`, so ``--handler
-    auto`` cannot skip the files silently."""
-    files = sorted(source_dir.rglob("*.ims"))
-    if files:
-        raise NotSupportedError(
-            f"Imaris .ims files are HDF5, which the port does not read without h5py yet "
-            f"({CODEC_ITEM}): {', '.join(str(p) for p in files[:3])}"
-            + (f" and {len(files) - 3} more" if len(files) > 3 else ""))
-    return None
+def ims_sidecar(source_dir: Path) -> "tuple[list[dict], int] | None":
+    """Bitplane Imaris ``.ims`` files, read by
+    :class:`tmlibrary_tpu_torch.readers.IMSReader` (HDF5 through the port's
+    subset; channel names from ``DataSetInfo/Channel <c>`` when present).
+
+    Same conventions as the other container handlers: one file per well
+    (token or next free column on row A), one site per file, Z/T
+    preserved; ``page`` encodes ``(c * Z + z) * T + t``."""
+    def entries_of(path, dims, well):
+        n_c, n_z, n_t, names = dims
+        labels = channel_labels(names, n_c)
+        out = []
+        for c in range(n_c):
+            for z in range(n_z):
+                for t in range(n_t):
+                    e = _container_entry(path, well, site=0, channel=c, zplane=z,
+                                         tpoint=t, page=(c * n_z + z) * n_t + t)
+                    e["channel"] = labels[c]
+                    out.append(e)
+        return out
+
+    return _container_sidecar(
+        source_dir, ".ims", IMSReader, "IMS",
+        lambda r: (r.n_channels, r.n_zplanes, r.n_tpoints, r.channel_names()),
+        entries_of,
+    )
 
 
 # ----------------------------------------------------------------------- stk

@@ -9,11 +9,15 @@ port's target machine has no ``cv2``: :class:`ImageWriter` writes a
 suffix or image raises :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.
 :class:`OMETiffWriter` and :func:`minimal_ome_xml` (``:95-197``) write
 multi-page OME-TIFFs byte for byte as the JAX package's do.
-``DatasetWriter`` (HDF5) is not ported (ROADMAP A item 12b).
+:class:`DatasetWriter` (``:41-71``, ``h5py`` there) writes HDF5 through
+the port's HDF5 subset (:mod:`tmlibrary_tpu_torch.io.hdf5`), and
+:class:`TablesWriter` (``:84-92``, pandas there) writes a ``{column:
+array}`` table as Parquet or CSV.
 """
 
 from __future__ import annotations
 
+import csv
 import struct
 from pathlib import Path
 from xml.etree import ElementTree
@@ -21,7 +25,7 @@ from xml.etree import ElementTree
 import numpy as np
 
 from tmlibrary_tpu_torch.errors import NotSupportedError
-from tmlibrary_tpu_torch.io import png
+from tmlibrary_tpu_torch.io import hdf5, png
 
 
 def encode_tiff(image: np.ndarray) -> bytes:
@@ -158,3 +162,111 @@ class OMETiffWriter(ImageWriter):
         for p in range(n_pages - 1):
             struct.pack_into("<I", buf, next_ptr_pos[p], ifd_off[p + 1])
         self.filename.write_bytes(bytes(buf))
+
+
+class DatasetWriter:
+    """HDF5 dataset writer with the reference's ``write``/``append``
+    surface, the semantics of ``h5py.File(path, "a")``: an existing file
+    is read whole on entry (:func:`~tmlibrary_tpu_torch.io.hdf5.load`; a
+    file outside the port's HDF5 subset raises
+    :class:`~tmlibrary_tpu_torch.errors.NotSupportedError` and is left
+    untouched), changed in memory, and written again on exit to a
+    temporary name and moved over it with ``os.replace``; a missing file
+    is created."""
+
+    def __init__(self, filename):
+        self.filename = Path(filename)
+        self.filename.parent.mkdir(parents=True, exist_ok=True)
+        self._root = None
+        self._changed = False
+
+    def __enter__(self):
+        self._root = hdf5.load(self.filename) if self.filename.exists() else hdf5.Group()
+        self._changed = not self.filename.exists()
+        return self
+
+    def __exit__(self, *exc):
+        if self._changed:
+            hdf5.write(self.filename, self._root)
+        return False
+
+    def write(self, path: str, data, compression: "str | None" = "gzip") -> None:
+        """Create (or replace) ``path`` with ``data``: deflated in h5py's
+        chunk shape (``guess_chunk``) when ``compression='gzip'``,
+        contiguous otherwise; scalars always contiguous."""
+        arr = np.asarray(data)
+        if compression not in (None, "gzip"):
+            raise NotSupportedError(f"the port's HDF5 writer compresses with gzip only, "
+                                    f"not {compression!r}")
+        if compression == "gzip" and arr.ndim > 0:
+            ds = hdf5.Dataset(arr, chunks=hdf5.guess_chunk(arr.shape, arr.shape,
+                                                           arr.dtype.itemsize),
+                              filters=[(1, (4,))])
+        else:
+            ds = hdf5.Dataset(arr)
+        self._root.delete(path)
+        self._root.put(path, ds)
+        self._changed = True
+
+    def append(self, path: str, data) -> None:
+        """Append rows along axis 0, creating a dataset resizable along
+        it (``maxshape=(None, ...)``, chunked as h5py chunks it)."""
+        arr = np.atleast_1d(np.asarray(data))
+        ds = self._root.get(path)
+        if ds is None:
+            maxshape = (None,) + arr.shape[1:]
+            self._root.put(path, hdf5.Dataset(
+                arr, chunks=hdf5.guess_chunk(arr.shape, maxshape, arr.dtype.itemsize),
+                maxshape=maxshape))
+        else:
+            if not isinstance(ds, hdf5.Dataset) or ds.chunks is None:
+                raise TypeError("Only chunked datasets can be resized")
+            if ds.maxshape[0] is not None and ds.shape[0] + arr.shape[0] > ds.maxshape[0]:
+                raise ValueError("Unable to extend dataset (dimension cannot exceed the "
+                                 "existing maximal size)")
+            old = ds.read()
+            new = np.concatenate([old, arr.astype(old.dtype, copy=False).reshape(
+                (arr.shape[0],) + old.shape[1:])])
+            ds._data, ds._reader, ds.shape = new, None, new.shape
+        self._changed = True
+
+
+class TablesWriter:
+    """Write a table, ``{column: array}`` (or any mapping of column names
+    to arrays in order), as ``.parquet`` (:mod:`tmlibrary_tpu_torch.io.parquet`)
+    or ``.csv`` (pandas' ``to_csv(index=False)`` layout: a header row,
+    NaN and None as empty fields, floats by ``repr``); the reference
+    writes a DataFrame with pandas."""
+
+    def __init__(self, filename):
+        self.filename = Path(filename)
+        self.filename.parent.mkdir(parents=True, exist_ok=True)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def write(self, table) -> None:
+        suffix = self.filename.suffix.lower()
+        columns = {str(k): np.asarray(table[k]) for k in table}
+        if suffix == ".parquet":
+            from tmlibrary_tpu_torch.io import parquet
+
+            parquet.write_table(self.filename, columns)
+        elif suffix == ".csv":
+            n = len(next(iter(columns.values()))) if columns else 0
+
+            def field(v):
+                if v is None or (isinstance(v, (float, np.floating)) and np.isnan(v)):
+                    return ""
+                return str(v)  # a numpy float prints as pandas writes it
+
+            with open(self.filename, "w", newline="") as f:
+                w = csv.writer(f, lineterminator="\n")
+                w.writerow(list(columns))
+                for i in range(n):
+                    w.writerow([field(c[i]) for c in columns.values()])
+        else:
+            raise NotSupportedError(f"unsupported table format '{suffix}'")
