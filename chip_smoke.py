@@ -148,7 +148,7 @@ Phases (any failure exits non-zero before the last line):
    channels corrected), launch counters as in phase 5, ``workflow
    resume``; the ingested pixels exact, metaconfig's artifacts, every
    tile and ``layer.json`` against CPU runs, the static mapobject shards
-   read back, jterator's batch 0 against the CPU.
+   read back, the CPU's first jterator batch of 16 sites against the card.
 8. The QC session (``phase_qc_session``, ``workflow_engine_qc_p96x4_256``):
    phase 5's plate, ``workflow submit --device cuda --qc`` of corilla ->
    align -> jterator (path h, DAPI corrected and aligned), launch
@@ -229,11 +229,37 @@ Phases (any failure exits non-zero before the last line):
    ``export --illumstats 0`` read back equal to ``read_illumstats``; zstd
    decode MiB/s, JPEG decode Mpix/s and HDF5 chunked-gzip read MiB/s on
    one host thread; a ``codecs: {...}`` line.
-14. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+14. The serving plane (``phase_serve``, ``serve_p24x4_256``): four
+   experiments of 24 wells at 2x2 sites of 256x256 (96 sites, DAPI and
+   Actin, one cycle) as YAML projects running config 3 in batches of
+   :data:`SERVE_BATCH`, ``max_objects=256``; ``workflow submit --device
+   cuda`` of each (rows 1-4 launched), telemetry on and off in 10 pairs
+   of turns, the order alternating (stores equal bit for bit), the CPU's first batch of 8 held by
+   ``CARD_TIERS``; then ``enqueue`` of the four jobs for tenants ``prod``
+   (weight 3) and ``dev`` (weight 1) and ``serve run --device cuda`` in a
+   subprocess, sent SIGTERM once a job has persisted a batch (exit 75,
+   every job re-spooled), restarted with a burst of 40 jobs at
+   ``--max-queue 16`` (28 shed) and 8 more once the queue drained (the
+   hysteresis re-admits them), each burst job a fresh experiment of one
+   well of 2x2 sites; every served store equal to the direct submit's
+   (the burst's to one direct submit of the same well), rows 1-4 counted in the daemon's ``metrics.json``, its
+   ``tmx_serve_*``/``tmx_slo_*`` counters equal to the serve ledger's
+   replay, ``trace --export chrome`` with one flow a trace id; a job
+   whose deadline expires mid-run; eight query jobs, two groups of which
+   fuse, in turns with the same jobs unfused; two daemons ``h0``/``h1`` on the
+   card, ``h0`` SIGKILLed mid-job (held there by an injected persist
+   stall) with ``--lease 2`` and ``h1`` reaping and finishing the job.
+   Prints jobs/s, served against direct sites/s, job latency, queue
+   wait and scheduling delay p50/p95, admission us a decision, query
+   p50/p95 fused and unfused, the telemetry overhead and the reclaim
+   seconds beside the card, and a ``serve: {...}`` line.
+15. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness; rows 2-4 add ``spatial_launches``, their launches
    on phase 9's secondary run, and rows 2-3 ``spatial``, the kernel at
-   the mosaic's shape), and as the last line ``{"ok": true, "device": {...}}``.
+   the mosaic's shape; rows 1-4 add ``serve_launches``, their launches in
+   phase 14's restarted daemon), and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of ``tmlibrary_tpu``.
 """
@@ -1668,6 +1694,12 @@ def main() -> int:
 
         # ---------------------------------------------------------- phase 13
         phase_codecs(torch, wrappers, card)
+
+        # ---------------------------------------------------------- phase 14
+        served = phase_serve(torch, wrappers, card)
+        for r in records:
+            if r["name"] in served["launches"]:
+                r["serve_launches"] = served["launches"][r["name"]]
         if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except Exception as e:  # the smoke's boundary: report and exit non-zero
@@ -1683,7 +1715,8 @@ def main() -> int:
     print("kernels: " + ", ".join(r["name"] for r in records))
     # rows 1-9 add the launch alone beside the wrapper's `ms`, row 7 its A/B
     print(json.dumps({"kernels": [{k: r[k] for k in order + ["launch_ms", "ab_ms",
-                                                            "spatial_launches", "spatial"]
+                                                            "spatial_launches", "spatial",
+                                                            "serve_launches"]
                                    if k in r}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {
@@ -2410,8 +2443,12 @@ def run_cli(cli, argv: list[str]) -> str:
 
 
 def ledger_sequence(engine, root: Path) -> list[tuple]:
+    """A run ledger's (event, step, batch) sequence without its ``span``
+    events, which time the run (telemetry on) and differ with the
+    executor's depth."""
     return [(e.get("event"), e.get("step"), e.get("batch"))
-            for e in engine.RunLedger(root / "workflow" / "ledger.jsonl").events()]
+            for e in engine.RunLedger(root / "workflow" / "ledger.jsonl").events()
+            if e.get("event") != "span"]
 
 
 def phase_engine(torch, wrappers, card, on_chip, keep_features: Path | None = None) -> None:
@@ -2605,7 +2642,8 @@ def phase_engine(torch, wrappers, card, on_chip, keep_features: Path | None = No
                 ledger_sequence(engine, store.root) != before + [("run_started", None, None)]:
             raise SmokeFailure(f"engine: resume re-ran {resumed} / launched {relaunched}")
         status = run_cli(cli, ["workflow", "status", "--root", root])
-        states = [line.split()[:2] for line in status.splitlines() if not line.startswith(" ")]
+        states = [line.split()[:2] for line in status.splitlines()
+                  if not line.startswith((" ", "heartbeat"))]
         if states != [[s, "done"] for s in steps]:
             raise SmokeFailure(f"engine: status {states}")
         print(f"  resume on the finished ledger: nothing re-ran or launched ({resume_s:.3f} s); "
@@ -2670,6 +2708,11 @@ def phase_engine(torch, wrappers, card, on_chip, keep_features: Path | None = No
         shutil.rmtree(base, ignore_errors=True)
 
 
+#: phase 7's CPU hold: the sites of the CPU's first jterator batch (16, as
+#: phases 11-13 hold; a card batch of 64 takes ~40 s of the CPU)
+CANONICAL_CPU_BATCH = 16
+
+
 def phase_canonical(torch, wrappers, card, on_chip) -> None:
     """Phase 7, ``workflow_canonical_p96x4_256``: the canonical workflow
     from a directory of microscope files, as a user runs it.  Phase 5's
@@ -2688,9 +2731,10 @@ def phase_canonical(torch, wrappers, card, on_chip) -> None:
     port's codec, and ``layer.json`` equal a CPU illuminati's over the
     card's statistics; the static mapobject shards read back equal to the
     rows written (right after they are written: jterator's ``init``
-    clears ``segmentations/``, as in the reference); jterator's batch 0
-    on the CPU over the card's statistics: labels exact, features by
-    ``CARD_TIERS``.  The directory is removed at the end."""
+    clears ``segmentations/``, as in the reference); jterator's first
+    batch of :data:`CANONICAL_CPU_BATCH` sites on the CPU over the card's
+    statistics: labels exact, features by ``CARD_TIERS``.  The directory
+    is removed at the end."""
     import numpy as np
 
     from tmlibrary_tpu_torch import benchmarks, capacity, cli
@@ -2875,7 +2919,7 @@ def phase_canonical(torch, wrappers, card, on_chip) -> None:
         capacity.reset_routing_history()
         t0 = time.perf_counter()
         step = get_step("jterator")(cpu, device="cpu")
-        step.init(args)
+        step.init({**args, "batch_size": CANONICAL_CPU_BATCH})
         step.run(0)
         cpu_jt_s = time.perf_counter() - t0
         sites = list(step.load_batch(0)["sites"])
@@ -5582,6 +5626,468 @@ def phase_codecs(torch, wrappers, card, device: str = "cuda") -> dict:
         print("codecs: " + json.dumps(line))
         return line
     finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ phase 14
+#: phase 14's experiments: 24 wells of 2x2 sites (96 sites of 256x256)
+SERVE_WELLS = (4, 6)
+#: jterator batch of the served jobs: 12 batches a job, more than the
+#: pipelined window of 8, so a stop lands between batches of a job
+SERVE_BATCH = 8
+#: the burst's admission high watermark and its size
+SERVE_MAX_QUEUE, SERVE_BURST, SERVE_LATE_BURST = 16, 40, 8
+#: a burst job's experiment: one well of 2x2 sites, one batch
+SERVE_BURST_WELLS = (1, 1)
+#: pairs of telemetry on/off turns
+SERVE_TELEMETRY_PAIRS = 10
+#: the CPU hold's batch in phase 14
+SERVE_CPU_BATCH = 8
+ROWS_1_4 = ("fill_holes_flood", "cc_min_propagate", "watershed_flood", "grouped_stats")
+
+
+def _pcts(values) -> dict:
+    """p50/p95 of ``values`` as the SLO report takes them."""
+    from tmlibrary_tpu_torch import slo
+
+    vals = [float(v) for v in values]
+    return {"p50": slo.quantile(vals, 0.5), "p95": slo.quantile(vals, 0.95), "n": len(vals)}
+
+
+def _wait(cond, what: str, timeout: float, procs=(), every: float = 0.02) -> None:
+    """Poll ``cond()`` every ``every`` seconds; fail after ``timeout``
+    seconds or when one of ``procs`` has exited."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        for proc in procs:
+            if proc.poll() is not None:
+                raise SmokeFailure(f"serve: {what}: a daemon exited {proc.returncode} first")
+        if time.monotonic() > deadline:
+            raise SmokeFailure(f"serve: {what}: not within {timeout:.0f} s")
+        time.sleep(every)
+
+
+def _run_span_s(engine, root: Path) -> float:
+    """The engine's last ``run`` span in a store's workflow ledger: the
+    same span whether the run was a direct submit or a served job."""
+    spans = [e["elapsed"] for e in engine.RunLedger(root / "workflow" / "ledger.jsonl").events()
+             if e.get("event") == "span" and e.get("span") == "run"]
+    if not spans:
+        raise SmokeFailure(f"serve: no run span in {root}")
+    return float(spans[-1])
+
+
+def _phase_s(engine, telemetry, roots) -> dict:
+    """The executor's phase spans (load, launch, persist, ...) summed over
+    the workflow ledgers of ``roots``, a job's mean, in seconds."""
+    totals: dict = {}
+    for root in roots:
+        events = engine.RunLedger(root / "workflow" / "ledger.jsonl").events()
+        for k, v in telemetry.phase_totals(events).items():
+            totals[k] = totals.get(k, 0.0) + v / len(roots)
+    return {k: round(v, 4) for k, v in sorted(totals.items())}
+
+
+def _kernel_launches(path: Path) -> dict:
+    """``tmx_kernel_launches_total`` by kernel from a registry snapshot."""
+    snap = json.loads(Path(path).read_text())
+    out: dict = {}
+    for c in snap.get("counters", []):
+        if c["name"] == "tmx_kernel_launches_total":
+            k = c["labels"]["kernel"]
+            out[k] = out.get(k, 0) + int(c["value"])
+    return out
+
+
+def phase_serve(torch, wrappers, card, device: str = "cuda") -> dict:
+    """Phase 14, ``serve_p24x4_256``: the serving plane on the card (see the
+    module notes, item 14).  Returns the ``serve:`` line, whose
+    ``launches`` are rows 1-4's counts in the restarted daemon."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks, capacity, cli, serve, telemetry, traceexport
+    from tmlibrary_tpu_torch.models.experiment import grid_experiment
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import engine, get_step
+    from tmlibrary_tpu_torch.workflow.admission import JobSpec
+
+    started = time.perf_counter()
+    repo = Path(__file__).resolve().parent
+    base = repo / "build" / f"phase14.{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    procs: list = []
+
+    def daemon(sroot: Path, tag: str, *args, env=None) -> subprocess.Popen:
+        log = open(base / f"{tag}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tmlibrary_tpu_torch.cli", "serve", "run", "--root",
+             str(sroot), "--device", device, "--poll", "0.02", *args],
+            cwd=repo, stdout=log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(repo), **(env or {})})
+        log.close()
+        procs.append(proc)
+        return proc
+
+    def finish(proc, tag: str, want: int, timeout: float) -> None:
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"serve: {tag} did not exit within {timeout:.0f} s") from None
+        if rc != want:
+            tail = (base / f"{tag}.log").read_text()[-1500:]
+            raise SmokeFailure(f"serve: {tag} exited {rc}, expected {want}:\n{tail}")
+
+    def events(sroot: Path, kind: str) -> list:
+        return [e for e in serve.serve_ledger_events(sroot) if e.get("event") == kind]
+
+    def batches_done(root: Path) -> list:
+        return sorted(e["batch"] for e in engine.RunLedger(
+            root / "workflow" / "ledger.jsonl").events()
+            if e.get("event") == "batch_done" and e.get("step") == "jterator")
+
+    def zero():
+        if device == "cuda":
+            torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+            if hasattr(w, "routes"):
+                w.routes = dict.fromkeys(w.routes, 0)
+
+    def read(title: str) -> dict:
+        launches = {k: wrappers[k].launches for k in ROWS_1_4}
+        if not all(launches.values()):
+            raise SmokeFailure(f"serve: {title}: a kernel of rows 1-4 did not launch: "
+                               f"{launches}")
+        return launches
+
+    try:
+        base.mkdir(parents=True)
+        exps = {wells: grid_experiment("phase14", well_rows=wells[0], well_cols=wells[1],
+                                       sites_per_well=SITES_PER_WELL,
+                                       channel_names=("DAPI", "Actin"), site_shape=(SIZE, SIZE))
+                for wells in (SERVE_WELLS, SERVE_BURST_WELLS)}
+        n = exps[SERVE_WELLS].n_sites
+        pipe_path = build_project(cli, base / "project")
+        args = {"pipe": f"project/{pipe_path.name}", "batch_size": SERVE_BATCH,
+                "max_objects": MAX_OBJECTS}
+
+        def make(path: Path, data: dict, batch: int = SERVE_BATCH,
+                 wells: tuple = SERVE_WELLS) -> Path:
+            exp = exps[wells]
+            store = ExperimentStore.create(path, exp)
+            for c, ch in enumerate(("DAPI", "Actin")):
+                store.write_sites(data[ch][:exp.n_sites].astype(np.uint16),
+                                  list(range(exp.n_sites)), channel=c)
+            shutil.copytree(base / "project", path / "project")
+            engine.WorkflowDescription.for_type(
+                "canonical", {"jterator": {**args, "batch_size": batch}}).save(
+                store.workflow_dir / "workflow.yaml")
+            return path
+
+        datas = [benchmarks.synthetic_cell_painting_batch(n, size=SIZE, seed=SEED + 14 + k)
+                 for k in range(4)]
+        served = [make(base / f"e{k}", datas[k]) for k in range(4)]
+        direct = [make(base / f"d{k}", datas[k]) for k in range(4)]
+        quiet = make(base / "t0", datas[0])
+        late = make(base / "late", datas[1], batch=1)
+        fleet = make(base / "fleet", datas[0])
+        # the burst: a fresh experiment a job, each one well of datas[1]
+        # in one batch, and one direct submit of the same well to hold them by
+        small = exps[SERVE_BURST_WELLS].n_sites
+        bursts = [make(base / f"b{i:03d}", datas[1], batch=small, wells=SERVE_BURST_WELLS)
+                  for i in range(SERVE_BURST + SERVE_LATE_BURST)]
+        dsmall = make(base / "dsmall", datas[1], batch=small, wells=SERVE_BURST_WELLS)
+        print(f"phase 14, serve_p24x4_256: 4 experiments of {n} sites ({SERVE_WELLS[0]}x"
+              f"{SERVE_WELLS[1]} wells at {SITES_PER_WELL[0]}x{SITES_PER_WELL[1]} sites of "
+              f"{SIZE}x{SIZE}, DAPI and Actin) as YAML projects running config 3 in batches "
+              f"of {SERVE_BATCH}, max_objects={MAX_OBJECTS}, served on {device}; {card}")
+
+        # 1. direct submits in one process whose router starts cold, as a
+        # daemon's does; then telemetry on against off in pairs of turns
+        walls = []
+        zero()
+        capacity.reset_routing_history()
+        for root in direct:
+            t0 = time.perf_counter()
+            run_cli(cli, ["workflow", "submit", "--root", str(root), "--device", device])
+            walls.append(time.perf_counter() - t0)
+        direct_launches = read("direct submit")
+        # sites/s over the engine's run span of the jobs after the first
+        # (a warm router), the span and state the served figure reads
+        direct_runs = [_run_span_s(engine, root) for root in direct]
+        direct_sps = 3 * n / sum(direct_runs[1:])
+        direct_phases = _phase_s(engine, telemetry, direct[1:])
+        run_cli(cli, ["workflow", "submit", "--root", str(dsmall), "--device", device])
+        turns = {True: [], False: []}
+        for pair in range(SERVE_TELEMETRY_PAIRS):
+            for on in ((True, False) if pair % 2 == 0 else (False, True)):
+                capacity.reset_routing_history()
+                telemetry.set_enabled(on)
+                t0 = time.perf_counter()
+                run_cli(cli, ["workflow", "submit", "--root", str(direct[0] if on else quiet),
+                              "--device", device])
+                turns[on].append(time.perf_counter() - t0)
+        telemetry.set_enabled(True)
+        same_store(ExperimentStore.open(direct[0]), ExperimentStore.open(quiet),
+                   "telemetry on vs off")
+        ratios = sorted((a - b) / b for a, b in zip(turns[True], turns[False]))
+        overhead = {"median": float(np.median(ratios)),
+                    "p25": float(np.percentile(ratios, 25)),
+                    "p75": float(np.percentile(ratios, 75)),
+                    "pairs": len(ratios)}
+        overhead["resolved"] = not overhead["p25"] <= 0.0 <= overhead["p75"]
+        print(f"  direct submit: {direct_sps:.1f} sites/s over the run spans of jobs 2-4 "
+              f"({[round(w, 3) for w in direct_runs]} s; walls "
+              f"{[round(w, 3) for w in walls]} s), launches {direct_launches}; telemetry on "
+              f"{[round(w, 3) for w in turns[True]]} s vs off "
+              f"{[round(w, 3) for w in turns[False]]} s in {len(ratios)} pairs: median "
+              f"{100 * overhead['median']:+.2f}%, quartiles {100 * overhead['p25']:+.2f}% "
+              f"to {100 * overhead['p75']:+.2f}% (resolved: {overhead['resolved']}), "
+              f"stores equal bit for bit; {card}")
+
+        # 2. the CPU's first batch of 8
+        cpu = base / "cpu"
+        copy_part(direct[0], cpu, "images")
+        shutil.copytree(base / "project", cpu / "project")
+        cpu_store = ExperimentStore.open(cpu)
+        jt = get_step("jterator")(cpu_store, device="cpu")
+        jt.init({**args, "batch_size": SERVE_CPU_BATCH})
+        capacity.reset_routing_history()
+        jt.run(0)
+        cpu_sites = list(jt.load_batch(0)["sites"])
+
+        # 3. serve run A, SIGTERMed once a job persisted a batch
+        sroot = base / "serve_root"
+        for k, root in enumerate(served):
+            run_cli(cli, ["enqueue", "--root", str(sroot), "--experiment", str(root),
+                          "--tenant", "prod" if k < 2 else "dev", "--job-id", f"a-e{k}",
+                          "--trace-id", f"trace-e{k}"])
+        weights = ["--tenant-weights", "prod=3,dev=1", "--max-queue", str(SERVE_MAX_QUEUE)]
+        run_a = daemon(sroot, "run_a", *weights)
+        _wait(lambda: any(batches_done(r) for r in served), "a served batch", 120, [run_a])
+        run_a.terminate()  # SIGTERM
+        finish(run_a, "run_a", 75, 120)
+        if sorted(p.stem for p in serve.spool_dir(sroot, "incoming").glob("*.json")) != \
+                [f"a-e{k}" for k in range(4)]:
+            raise SmokeFailure("serve: the SIGTERM drain did not re-spool every job")
+        cut = [len(batches_done(r)) for r in served]
+        if not any(0 < c < n // SERVE_BATCH for c in cut):
+            raise SmokeFailure(f"serve: no job was stopped mid-run by the drain: {cut}")
+        launches_a = _kernel_launches(serve.serve_dir(sroot) / "metrics.json")
+
+        # 4. run B: the restart with a burst, then a late tranche
+        for i in range(SERVE_BURST):
+            serve.enqueue_job(sroot, JobSpec(job_id=f"b-{i:03d}", tenant="burst",
+                                             root=str(bursts[i]), trace_id=f"trace-b{i}"))
+        max_jobs = 4 + (SERVE_MAX_QUEUE - 4) + SERVE_LATE_BURST
+        run_b = daemon(sroot, "run_b", *weights, "--max-jobs", str(max_jobs))
+        _wait(lambda: len(events(sroot, "job_done")) >= 4 + SERVE_MAX_QUEUE // 2,
+              "the queue draining to its low watermark", 240, [run_b],
+              every=0.5)  # rarely: each look parses the whole serve ledger beside the timed jobs
+        for i in range(SERVE_LATE_BURST):
+            serve.enqueue_job(sroot, JobSpec(job_id=f"c-{i:03d}", tenant="burst",
+                                             root=str(bursts[SERVE_BURST + i]),
+                                             trace_id=f"trace-c{i}"))
+        finish(run_b, "run_b", 0, 240)
+        for k in range(4):
+            same_store(ExperimentStore.open(served[k]), ExperimentStore.open(direct[k]),
+                       f"served e{k} vs direct submit")
+        burst_done = {e["job"] for e in events(sroot, "job_done") if e["job"][0] in "bc"}
+        if len(burst_done) != SERVE_MAX_QUEUE - 4 + SERVE_LATE_BURST:
+            raise SmokeFailure(f"serve: {len(burst_done)} burst jobs done")
+        for job in sorted(burst_done):
+            i = int(job[2:]) + (SERVE_BURST if job[0] == "c" else 0)
+            same_store(ExperimentStore.open(bursts[i]), ExperimentStore.open(dsmall),
+                       f"burst job {job} vs direct submit")
+        outside, worst = hold_batch(ExperimentStore.open(served[0]), cpu_store, cpu_sites,
+                                    CARD_TIERS, gate=True)
+        launches_b = _kernel_launches(serve.serve_dir(sroot) / "metrics.json")
+        if not all(launches_b.get(k) for k in ROWS_1_4):
+            raise SmokeFailure(f"serve: rows 1-4 not all launched by the served jobs: "
+                               f"{launches_b}")
+        ledger = serve.serve_ledger_events(sroot)
+        b0 = max(e["ts"] for e in ledger if e.get("event") == "serve_started")
+        replay = telemetry.registry_from_ledger([e for e in ledger if e["ts"] >= b0])
+        live = json.loads((serve.serve_dir(sroot) / "metrics.json").read_text())
+        pick = lambda snap: {(c["name"], tuple(sorted(c["labels"].items()))): c["value"]
+                             for c in snap["counters"]
+                             if c["name"].startswith(("tmx_serve_", "tmx_slo_"))}
+        if pick(replay.snapshot()) != pick(live):
+            raise SmokeFailure("serve: the ledger replay's counters differ from the live "
+                               "snapshot's")
+        rejected = [e.get("reason") for e in events(sroot, "job_rejected")]
+        readmitted = [e["job"] for e in events(sroot, "job_admitted")
+                      if e["job"].startswith("c-")]
+        if rejected.count("queue_full") != 4 + SERVE_BURST - SERVE_MAX_QUEUE or \
+                len(readmitted) != SERVE_LATE_BURST:
+            raise SmokeFailure(f"serve: shedding {rejected} / re-admitted {readmitted}")
+        trace_out = base / "trace.json"
+        run_cli(cli, ["trace", "--root", str(sroot), "--export", "chrome", str(trace_out)])
+        doc = json.loads(trace_out.read_text())
+        if traceexport.validate_chrome_trace(doc):
+            raise SmokeFailure("serve: the Chrome trace does not validate")
+        flows = [e["id"] for e in doc["traceEvents"] if e.get("ph") == "s"]
+        if len(flows) != len(set(flows)) or not flows:
+            raise SmokeFailure("serve: the Chrome trace needs one flow a trace id")
+
+        # the cell's numbers from run B's part of the serve ledger
+        in_b = [e for e in ledger if e["ts"] >= b0]
+        done_b = [e for e in in_b if e.get("event") == "job_done"]
+        wf_done = [e for e in done_b if e["job"].startswith("a-")]
+        burst_b = [e for e in done_b if not e["job"].startswith("a-")]
+        # served sites/s: the engine's run span of the workflow jobs that
+        # ran whole and not first in run B's process (a warm router), as
+        # the direct figure
+        first = next(e["job"] for e in in_b if e.get("event") == "job_started")
+        full = [int(e["job"][3:]) for e in wf_done
+                if not e.get("resumed") and e["job"] != first]
+        if not full:
+            raise SmokeFailure("serve: no workflow job ran whole on a warm router")
+        served_sps = len(full) * n / sum(_run_span_s(engine, served[k]) for k in full)
+        served_phases = _phase_s(engine, telemetry, [served[k] for k in full])
+        jobs_per_s = len(done_b) / (max(e["ts"] for e in done_b) - b0)
+        admission_us = [1e6 * e["elapsed"] for e in in_b
+                        if e.get("event") == "span" and e.get("span") == "admission"]
+        numbers = {
+            "jobs_per_s": jobs_per_s, "served_sites_per_s": served_sps,
+            "direct_sites_per_s": direct_sps,
+            "workflow_job_s": _pcts(e["elapsed_s"] for e in wf_done),
+            "job_s": _pcts(e["elapsed_s"] for e in done_b),
+            "burst_job_s": _pcts(e["elapsed_s"] for e in burst_b),
+            "served_sps_jobs": len(full),
+            "phase_s_per_job": {"direct": direct_phases, "served": served_phases},
+            "queue_wait_s": _pcts(e["queue_wait_s"] for e in in_b
+                                  if e.get("event") == "job_admitted" and "queue_wait_s" in e),
+            "sched_delay_s": _pcts(e["sched_delay_s"] for e in in_b
+                                   if e.get("event") == "job_started"
+                                   and "sched_delay_s" in e),
+            "admission_us_per_decision": sum(admission_us) / len(admission_us),
+            "shed": rejected.count("queue_full"), "readmitted": len(readmitted),
+            "telemetry_overhead": overhead}
+        print(f"  serve run A: SIGTERM after a persisted batch -> exit 75, 4 jobs re-spooled "
+              f"(jterator batches done {cut}), rows 1-4 {launches_a}; run B: "
+              f"{len(done_b)} jobs done, {numbers['shed']} shed at max-queue "
+              f"{SERVE_MAX_QUEUE}, {len(readmitted)} re-admitted below the low watermark, "
+              f"rows 1-4 {launches_b}; served stores equal the direct submits' (rows by site), "
+              f"the {len(burst_done)} burst stores the direct submit of their well, "
+              f"e0's first {SERVE_CPU_BATCH} sites equal the CPU's by CARD_TIERS (largest "
+              + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()) + "); replay == live "
+              f"counters; trace: {len(flows)} flows; {card}")
+        print(f"  serve numbers: {jobs_per_s:.2f} jobs/s ({len(wf_done)} workflow jobs of "
+              f"{n} sites, {len(burst_b)} burst jobs of {small}), served "
+              f"{served_sps:.1f} sites/s ({len(full)} jobs) vs direct {direct_sps:.1f} (3 jobs), "
+              f"both the run span on a warm router (phase s a job: served {served_phases} vs "
+              f"direct {direct_phases}); workflow job s "
+              f"{numbers['workflow_job_s']}, burst job s {numbers['burst_job_s']}, "
+              f"queue wait s {numbers['queue_wait_s']}, "
+              f"scheduling delay s {numbers['sched_delay_s']}, admission "
+              f"{numbers['admission_us_per_decision']:.1f} us a decision; {card}")
+
+        # 5. a deadline that expires mid-run (in this process)
+        lroot = base / "late_root"
+        budget = max(0.6, 0.5 * n / direct_sps)
+        serve.enqueue_job(lroot, JobSpec(job_id="late", tenant="dev", root=str(late),
+                                         deadline=time.time() + budget, trace_id="trace-late"))
+        zero()
+        capacity.reset_routing_history()
+        if serve.run_serve(lroot, poll_s=0.02, max_jobs=1, install_handlers=False,
+                           device=device) != 0:
+            raise SmokeFailure("serve: the deadline daemon failed")
+        late_launches = read("deadline job")
+        done_late = batches_done(late)
+        if not events(lroot, "job_expired") or not 0 < len(done_late) < n:
+            raise SmokeFailure(f"serve: the deadline job did not expire mid-run "
+                               f"({len(done_late)} of {n} batches)")
+        print(f"  deadline: expired after {budget:.3f} s at {len(done_late)} of {n} batches "
+              f"of 1 site, launches {late_launches}; {card}")
+
+        # 6. eight query jobs, fused and unfused
+        payloads = [(0, {"tool": "knn", "objects_name": "nuclei", "k": k, "index": "brute"})
+                    for k in (3, 5, 7)]
+        payloads += [(1, {"tool": "knn", "objects_name": "cells", "k": k, "index": "brute"})
+                     for k in (4, 6)]
+        payloads += [(k, {"tool": "knn", "objects_name": o, "k": 3, "index": "brute"})
+                     for k, o in ((2, "nuclei"), (3, "cells"), (2, "cells"))]
+        # the feature stores first, so neither wave pays for building them
+        from tmlibrary_tpu_torch.analytics.store import FeatureStore
+
+        for k, payload in payloads:
+            FeatureStore.ensure(ExperimentStore.open(served[k]), payload["objects_name"])
+        query_s, pooled = {}, {True: [], False: []}
+        for turn, fused in enumerate((True, False, True, False)):
+            qroot = base / f"query_{turn}"
+            for root in served:
+                shutil.rmtree(root / "tools" / "queries", ignore_errors=True)
+            for i, (k, payload) in enumerate(payloads):
+                serve.enqueue_job(qroot, JobSpec(job_id=f"q-{i}", tenant="dev",
+                                                 root=str(served[k]), kind="query",
+                                                 payload=payload, trace_id=f"trace-q{i}"))
+            os.environ["TM_SERVE_QUERY_FUSION"] = "1" if fused else "0"
+            try:
+                if serve.run_serve(qroot, poll_s=0.02, max_jobs=len(payloads),
+                                   install_handlers=False, device=device) != 0:
+                    raise SmokeFailure("serve: a query daemon failed")
+            finally:
+                os.environ.pop("TM_SERVE_QUERY_FUSION")
+            qdone = events(qroot, "job_done")
+            if len(qdone) != len(payloads):
+                raise SmokeFailure(f"serve: {len(qdone)} of {len(payloads)} query jobs done")
+            windows = sorted(e["window"] for e in events(qroot, "query_fused"))
+            if windows != ([2, 3] if fused else []):
+                raise SmokeFailure(f"serve: fusion windows {windows}")
+            pooled[fused] += [e["elapsed_s"] for e in qdone]
+        query_s = {"fused": _pcts(pooled[True]), "unfused": _pcts(pooled[False])}
+        print(f"  queries: 8 jobs a wave, fused and unfused in turns (two waves each), job s "
+              f"fused {query_s['fused']} (windows 3 and 2) vs unfused {query_s['unfused']}; "
+              f"{card}")
+
+        # 7. two hosts: h0 held mid-job and SIGKILLed, h1 reaps its job
+        froot = base / "fleet_root"
+        serve.enqueue_job(froot, JobSpec(job_id="f-0", tenant="prod", root=str(fleet),
+                                         trace_id="trace-f0"))
+        stall = json.dumps({"faults": [{"site": "persist", "kind": "hang", "step": "jterator",
+                                        "batch": 1, "seconds": 600}]})
+        h0 = daemon(froot, "h0", "--host", "h0", "--lease", "2",
+                    env={"TMX_FAULT_PLAN": stall})
+        _wait(lambda: batches_done(fleet), "h0 persisting a batch", 120, [h0])
+        h1 = daemon(froot, "h1", "--host", "h1", "--lease", "2", "--max-jobs", "1",
+                    "--idle-exit", "120")
+        _wait(lambda: serve.heartbeat_file(froot, "h1").exists(), "h1 coming up", 120,
+              [h0, h1])
+        h0.kill()
+        killed = time.time()
+        h0.wait(timeout=60)
+        finish(h1, "h1", 0, 240)
+        reclaimed = events(froot, "job_reclaimed")
+        if [(e["job"], e.get("from_host"), e.get("host")) for e in reclaimed] != \
+                [("f-0", "h0", "h1")] or \
+                [e.get("host") for e in events(froot, "job_done")] != ["h1"]:
+            raise SmokeFailure(f"serve: h1 did not reap h0's job: {reclaimed}")
+        same_store(ExperimentStore.open(fleet), ExperimentStore.open(direct[0]),
+                   "reclaimed job vs direct submit")
+        launches_h1 = _kernel_launches(serve.serve_dir(froot) / "metrics.h1.json")
+        if not all(launches_h1.get(k) for k in ROWS_1_4):
+            raise SmokeFailure(f"serve: rows 1-4 not launched by h1: {launches_h1}")
+        reclaim_s = reclaimed[0]["ts"] - killed
+        print(f"  fleet: h0 SIGKILLed mid-job (lease 2 s), h1 reclaimed it after "
+              f"{reclaim_s:.3f} s and finished it equal to the direct submit, rows 1-4 "
+              f"{launches_h1}; {card}")
+        phase_s = time.perf_counter() - started
+        line = {"cell": "serve_p24x4_256", "sites_per_job": n, **numbers,
+                "query_job_s": query_s, "reclaim_s": reclaim_s,
+                "deadline_batches_done": len(done_late),
+                "launches": {k: launches_b[k] for k in ROWS_1_4},
+                "launches_run_a": {k: launches_a.get(k, 0) for k in ROWS_1_4},
+                "launches_h1": {k: launches_h1[k] for k in ROWS_1_4},
+                "cpu_hold_sites": len(cpu_sites), "phase_s": phase_s, "card": card}
+        print(f"  phase 14: {phase_s:.1f} s on {card}")
+        print("serve: " + json.dumps(line))
+        return line
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
         shutil.rmtree(base, ignore_errors=True)
 
 if __name__ == "__main__":

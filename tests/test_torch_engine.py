@@ -5,8 +5,8 @@ One description (corilla -> align -> jterator with config 3 corrected
 and aligned, from ``test_torch_workflow_steps``) runs under both engines
 over two copies of one 16-site store of 64x64: the stores are equal
 (labels exact, features within ``CORRECTED_FEATURE_TIERS``) and so are
-the ledgers' (event, step, batch) sequences, with the reference's
-telemetry off.  Then resume, an interrupted run resumed, quarantine,
+the ledgers' (event, step, batch) sequences, with both packages'
+telemetry off (their span events are held in ``test_torch_telemetry``).  Then resume, an interrupted run resumed, quarantine,
 drift, the ledgers read across packages, descriptions, refusals and the
 CLI on the CPU.  Last, the canonical workflow from a directory of TIFFs
 (metaconfig -> imextract -> corilla -> illuminati -> jterator) under both
@@ -48,6 +48,7 @@ from tmlibrary_tpu.workflow.engine import Workflow as JWorkflow
 from tmlibrary_tpu.workflow.engine import WorkflowDescription as JDescription
 from tmlibrary_tpu.models.experiment import Experiment as JExperiment
 from tmlibrary_tpu_torch import benchmarks, capacity, cli, qc, resilience
+from tmlibrary_tpu_torch import telemetry as port_telemetry
 from tmlibrary_tpu_torch.errors import DeviceError, NotSupportedError, WorkflowError
 from tmlibrary_tpu_torch.io import png
 from tmlibrary_tpu_torch.models.store import ExperimentStore
@@ -58,6 +59,15 @@ from tmlibrary_tpu_torch.writers import ImageWriter
 torch.set_num_threads(1)
 
 STEP_ARGS = {"corilla": CORILLA, "align": ALIGN, "jterator": JTERATOR}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _port_telemetry_off():
+    """The reference runs here with its telemetry off, so the port does
+    too: the span events of both are compared in test_torch_telemetry."""
+    port_telemetry.reset_registry(enabled=False)
+    yield
+    port_telemetry.reset_registry()
 
 
 def sequence(root) -> list[tuple]:

@@ -609,7 +609,15 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
             "tmlibrary_tpu_torch.ngff", "tmlibrary_tpu_torch.config",
             "tmlibrary_tpu_torch.native", "tmlibrary_tpu_torch.cfb",
             "tmlibrary_tpu_torch.container_writers", "tmlibrary_tpu_torch.io.hdf5",
-            "tmlibrary_tpu_torch.io.parquet", "chip_smoke"]
+            "tmlibrary_tpu_torch.io.parquet", "tmlibrary_tpu_torch.log",
+            "tmlibrary_tpu_torch.telemetry", "tmlibrary_tpu_torch.faults",
+            "tmlibrary_tpu_torch.resilience", "tmlibrary_tpu_torch.atomicio",
+            "tmlibrary_tpu_torch.slo", "tmlibrary_tpu_torch.timeseries",
+            "tmlibrary_tpu_torch.canary", "tmlibrary_tpu_torch.aotstore",
+            "tmlibrary_tpu_torch.serve", "tmlibrary_tpu_torch.traceexport",
+            "tmlibrary_tpu_torch.top", "tmlibrary_tpu_torch.workflow.admission",
+            "tmlibrary_tpu_torch.workflow.engine", "tmlibrary_tpu_torch.qc",
+            "tmlibrary_tpu_torch.parallel.distributed", "chip_smoke"]
     code = (
         "import importlib, sys\n"
         "for banned in ('yaml', 'pandas', 'cv2', 'pyarrow', 'PIL', 'h5py', 'sklearn',\n"

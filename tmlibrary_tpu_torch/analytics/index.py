@@ -23,10 +23,11 @@ Mode resolution (:func:`resolve_index_mode`): an explicit request beats
 (``TM_ANALYTICS_INDEX``), which beats auto (ivf from
 ``TMX_ANALYTICS_INDEX_MIN`` objects, 4096 by default).  The reference's
 link between config and auto, the machine-written tuning verdict, is not
-ported: the port has no tuning file.  The reference also counts index
-builds, hits and fallbacks in its telemetry registry, which the port
-does not have; ``IvfIndex.cache_state`` and :func:`knn_search`'s
-``info`` carry the same facts.
+ported: the port has no tuning file.  Index builds, hits and
+fallbacks count ``tmx_analytics_index_{builds,hits,fallbacks}_total`` in
+the telemetry registry, as the reference's do; ``IvfIndex.cache_state``
+and :func:`knn_search`'s ``info`` carry the same facts into the result,
+so a ledger replay reconstructs the counters.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from tmlibrary_tpu_torch import config
+from tmlibrary_tpu_torch import config, telemetry
 from tmlibrary_tpu_torch.analytics import ops
 from tmlibrary_tpu_torch.analytics.store import FeatureStore
 from tmlibrary_tpu_torch.atomicio import atomic_write_text
@@ -341,6 +342,7 @@ class IvfIndex:
             "built_at": time.time(),
         }
         atomic_write_text(root / "index_meta.json", json.dumps(meta, indent=2, sort_keys=True))
+        telemetry.get_registry().counter("tmx_analytics_index_builds_total").inc()
         return cls(root, meta, centroids, members, device=device)
 
     @classmethod
@@ -361,6 +363,7 @@ class IvfIndex:
                         and (root / "members.npy").exists()):
                     out = cls(root, meta, np.load(root / "centroids.npy"),
                               np.load(root / "members.npy"), device=device)
+                    telemetry.get_registry().counter("tmx_analytics_index_hits_total").inc()
                     out.cache_state = "hit"
                     return out
             except (OSError, ValueError, KeyError, TypeError):
@@ -398,6 +401,7 @@ def knn_search(fs: FeatureStore, x, k: int, queries=None, mode: str | None = Non
             })
             return out_idx, out_dist, info
         except Exception as exc:  # degrade, never fail the query
+            telemetry.get_registry().counter("tmx_analytics_index_fallbacks_total").inc()
             info.update({"index": "brute", "index_fallback": str(exc)})
     out_idx, out_dist = ops.knn(x, k, queries=queries, tile=tile, device=device)
     return out_idx, out_dist, info

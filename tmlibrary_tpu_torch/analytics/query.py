@@ -9,10 +9,13 @@ payload -- and a result persists as an ordinary ``ToolResult`` under
 sidecar, so a repeated query on unchanged features loads the saved
 result, and a changed store (new digest) never serves a stale one.
 
-The reference also emits trace spans (``emit``) and counts
-``tmx_analytics_*`` series in its telemetry registry; the port has no
-such registry.  ``emit`` is accepted and unused, and the summary's
-``cache`` field says whether a query hit, missed or rode a fused sweep.
+Telemetry as the reference's: ``emit`` (the serve ledger's ``append``)
+turns the ``feature_store`` and ``query_tool`` phases into spans nested
+under the caller's job span, and each answer counts
+``tmx_analytics_queries_total{tool,cache}``,
+``tmx_analytics_cache_hits_total{tool}`` on a hit and observes
+``tmx_analytics_query_seconds{tool}``; the summary's ``cache`` field
+says whether a query hit, missed or rode a fused sweep.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import TYPE_CHECKING, Any, Callable
 
 import numpy as np
 
+from tmlibrary_tpu_torch import telemetry
 from tmlibrary_tpu_torch.analytics.store import FeatureStore
 from tmlibrary_tpu_torch.atomicio import atomic_write_text
 from tmlibrary_tpu_torch.errors import NotSupportedError
@@ -65,6 +69,21 @@ def _provenance(cache_dir: Path, key: str, tool: str, payload: dict, digest: str
         "elapsed_s": elapsed, "cached_at": time.time(), **extra}))
 
 
+def _metric(kind: str, name: str, value: float = 1.0, **labels):
+    reg = telemetry.get_registry()
+    if kind == "counter":
+        reg.counter(name, **labels).inc(value)
+    else:
+        reg.histogram(name, **labels).observe(value)
+
+
+def _count_answer(tool: str, cache: str, elapsed: float) -> None:
+    _metric("counter", "tmx_analytics_queries_total", tool=tool, cache=cache)
+    if cache == "hit":
+        _metric("counter", "tmx_analytics_cache_hits_total", tool=tool)
+    _metric("histogram", "tmx_analytics_query_seconds", elapsed, tool=tool)
+
+
 def run_query(store: "ExperimentStore", payload: dict[str, Any], use_cache: bool = True,
               emit: Callable[..., Any] | None = None,
               device: str = "cuda") -> dict[str, Any]:
@@ -79,18 +98,24 @@ def run_query(store: "ExperimentStore", payload: dict[str, Any], use_cache: bool
         raise NotSupportedError("query payload needs an 'objects_name'")
     tool_cls = get_tool(tool_name)  # unknown tool: fail before any work
     t0 = time.monotonic()
-    fs = FeatureStore.ensure(store, payload["objects_name"])
+    with telemetry.span("feature_store", emit=emit):
+        fs = FeatureStore.ensure(store, payload["objects_name"])
     key = query_key(fs.digest, payload)
     cache_dir = queries_dir(store) / key
     if use_cache and (cache_dir / "result.json").exists():
         result = ToolResult.load(cache_dir)
-        return _summary(result, key, fs.digest, "hit", round(time.monotonic() - t0, 4),
-                        cache_dir)
+        # rounded once: the ledger carries this value and the replay
+        # observes it, so live and replayed histograms agree
+        elapsed = round(time.monotonic() - t0, 4)
+        _count_answer(tool_name, "hit", elapsed)
+        return _summary(result, key, fs.digest, "hit", elapsed, cache_dir)
     tool_payload = {k: v for k, v in payload.items() if k != "tool"}
-    result = tool_cls(store, device=device).process(tool_payload)
+    with telemetry.span("query_tool", emit=emit):
+        result = tool_cls(store, device=device).process(tool_payload)
     result.save(cache_dir)
     elapsed = round(time.monotonic() - t0, 4)
     _provenance(cache_dir, key, tool_name, payload, fs.digest, elapsed)
+    _count_answer(tool_name, "miss", elapsed)
     return _summary(result, key, fs.digest, "miss", elapsed, cache_dir)
 
 
@@ -116,7 +141,7 @@ def run_query_batch(store: "ExperimentStore", payloads: list[dict[str, Any]],
     if not payloads:
         return []
     if len(payloads) == 1:
-        return [run_query(store, payloads[0], use_cache=use_cache, device=device)]
+        return [run_query(store, payloads[0], use_cache=use_cache, emit=emit, device=device)]
     sig = fusion_signature(payloads[0])
     if sig is None or any(fusion_signature(p) != sig for p in payloads[1:]):
         raise NotSupportedError("run_query_batch needs payloads sharing one fusion signature")
@@ -125,15 +150,18 @@ def run_query_batch(store: "ExperimentStore", payloads: list[dict[str, Any]],
     from tmlibrary_tpu_torch.analytics.tools import assemble_knn_result
 
     t0 = time.monotonic()
-    fs = FeatureStore.ensure(store, payloads[0]["objects_name"])
+    with telemetry.span("feature_store", emit=emit):
+        fs = FeatureStore.ensure(store, payloads[0]["objects_name"])
     keys = [query_key(fs.digest, p) for p in payloads]
     out: list[dict[str, Any] | None] = [None] * len(payloads)
     pending: list[int] = []
     for i, key in enumerate(keys):
         cache_dir = queries_dir(store) / key
         if use_cache and (cache_dir / "result.json").exists():
-            out[i] = _summary(ToolResult.load(cache_dir), key, fs.digest, "hit",
-                              round(time.monotonic() - t0, 4), cache_dir)
+            result = ToolResult.load(cache_dir)
+            elapsed = round(time.monotonic() - t0, 4)
+            _count_answer("knn", "hit", elapsed)
+            out[i] = _summary(result, key, fs.digest, "hit", elapsed, cache_dir)
         else:
             pending.append(i)
     if not pending:
@@ -141,9 +169,11 @@ def run_query_batch(store: "ExperimentStore", payloads: list[dict[str, Any]],
     ref = payloads[pending[0]]
     features = ref.get("features")
     k_max = max(int(payloads[i].get("k", 10)) for i in pending)
-    ids, x, feat_cols = fs.standardized(features)
-    idx, dist, info = knn_search(fs, x, k_max, mode=ref.get("index"), features=features,
-                                 top_p=ref.get("top_p"), tile=ref.get("tile"), device=device)
+    with telemetry.span("query_tool", emit=emit):
+        ids, x, feat_cols = fs.standardized(features)
+        idx, dist, info = knn_search(fs, x, k_max, mode=ref.get("index"), features=features,
+                                     top_p=ref.get("top_p"), tile=ref.get("tile"),
+                                     device=device)
     window = len(pending)
     tile_rows = int(ref.get("tile") or ops.knn_tile_rows(len(x)))
     leader_key = keys[pending[0]]
@@ -159,8 +189,9 @@ def run_query_batch(store: "ExperimentStore", payloads: list[dict[str, Any]],
         elapsed = round(time.monotonic() - t0, 4)
         _provenance(cache_dir, key, "knn", p, fs.digest, elapsed, fusion_window=window,
                     fused_with=leader_key)
-        summary = _summary(result, key, fs.digest, "miss" if rank == 0 else "fused",
-                           elapsed, cache_dir)
+        cache = "miss" if rank == 0 else "fused"
+        _count_answer("knn", cache, elapsed)
+        summary = _summary(result, key, fs.digest, cache, elapsed, cache_dir)
         summary["fusion_window"] = window
         if rank:
             summary["fused_with"] = leader_key

@@ -4,13 +4,16 @@ Counterpart: ``tmlibrary_tpu/atomicio.py``.  POSIX ``rename(2)`` within
 a directory is atomic, so a reader sees the old complete file or the new
 one, and a kill mid-write leaves the old one intact.  The temp name
 holds the writer's PID, so two processes writing one path never share a
-temp file.
+temp file.  :func:`claim_rename` is the fleet spool's claim arbiter: a
+same-filesystem rename that only one host can win.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from pathlib import Path
+from typing import Any
 
 
 def atomic_write_text(path: Path | str, text: str, fsync: bool = False) -> None:
@@ -30,3 +33,27 @@ def atomic_write_text(path: Path | str, text: str, fsync: bool = False) -> None:
         if tmp.exists():
             tmp.unlink(missing_ok=True)
 
+
+
+def atomic_write_json(path: Path | str, obj: Any,
+                      fsync: bool = False, **dumps_kwargs: Any) -> None:
+    """:func:`atomic_write_text` for a JSON payload, serialized first so
+    a serialization error never leaves a partial file either."""
+    atomic_write_text(path, json.dumps(obj, **dumps_kwargs), fsync=fsync)
+
+
+def claim_rename(src: Path | str, dst: Path | str) -> bool:
+    """Atomically move ``src`` to ``dst``; returns whether this caller
+    won the move.
+
+    Several hosts polling one spool race to ``rename(2)`` the same file:
+    exactly one rename finds the source, every loser gets ``ENOENT``,
+    returned here as ``False`` so "someone else claimed it" is a
+    decision, not an error.  An existing ``dst`` (a stale copy a crashed
+    reaper left) is replaced atomically.
+    """
+    try:
+        os.replace(src, dst)
+        return True
+    except FileNotFoundError:
+        return False

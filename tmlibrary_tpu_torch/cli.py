@@ -28,6 +28,18 @@ steps the port has, the same argument names and the same JSON output::
                                             [--index auto|ivf|brute] [--no-cache] [--device cuda]
     python -m tmlibrary_tpu_torch.cli index build|list --root DIR --objects NAME ...
     python -m tmlibrary_tpu_torch.cli tool submit|list|status|run-request|available ...
+    python -m tmlibrary_tpu_torch.cli enqueue --root SERVE_ROOT --experiment DIR [--tenant T]
+                                              [--kind workflow|query] [--deadline S] ...
+    python -m tmlibrary_tpu_torch.cli serve run --root SERVE_ROOT [--device cuda]
+                                                [--max-queue N] [--tenant-weights T=W,...]
+                                                [--max-jobs N] [--host ID] [--lease S] ...
+    python -m tmlibrary_tpu_torch.cli serve status --root SERVE_ROOT [--json]
+    python -m tmlibrary_tpu_torch.cli metrics --root DIR [--source auto|snapshot|live|ledger]
+                                              [--format prom|json] | --merge RUN_ROOT
+    python -m tmlibrary_tpu_torch.cli top --root DIR [--once] [--json]
+    python -m tmlibrary_tpu_torch.cli timeline --root DIR [--metric NAME] [--json]
+    python -m tmlibrary_tpu_torch.cli trace --root DIR [--json] [--export chrome [OUT]]
+    python -m tmlibrary_tpu_torch.cli slo --root SERVE_ROOT [--json]
 
 ``<step>`` is ``metaconfig``, ``imextract``, ``corilla``, ``align``,
 ``illuminati`` or ``jterator``; the installed console script is
@@ -70,6 +82,20 @@ group comes from ``torchrun``'s environment
 (:func:`~tmlibrary_tpu_torch.parallel.distributed.initialize`), rank 0
 plans, writes and prints, and corilla, illuminati and jterator shard
 their work over the ranks their ``n_devices`` allows.
+
+The serving plane (:mod:`tmlibrary_tpu_torch.serve`) has the reference's
+verbs and flags: ``enqueue`` drops a job spec into a serve root's spool,
+``serve run`` admits and runs the jobs on ``--device`` (``cuda`` unless
+``cpu`` is asked for) until ``--max-jobs``/``--idle-exit`` or a SIGTERM
+(exit 75 after re-spooling), ``serve status`` reads the root.
+``metrics`` exports the registry snapshot (``--source snapshot``, or
+``live``, its name here for the same file) or the one derived from the
+run or serve ledger (``ledger``), ``top`` draws the dashboard,
+``timeline`` the time series, ``trace`` the span tree or a Chrome trace,
+``slo`` the per-tenant objectives (exit 0 ok, 1 burn, 3 no data).
+``workflow submit`` drains on SIGTERM/SIGINT and exits 75 with
+``run_preempted`` in the ledger; ``--no-telemetry`` turns the registry,
+spans and sampler off for the run.
 """
 
 from __future__ import annotations
@@ -80,13 +106,20 @@ import json
 import logging
 import os
 import sys
+import time
 from pathlib import Path
 
 from tmlibrary_tpu_torch.models.experiment import Experiment
 from tmlibrary_tpu_torch.models.mapobject import MapobjectTypeRegistry
 from tmlibrary_tpu_torch.models.store import ExperimentStore
 from tmlibrary_tpu_torch.parallel import distributed
-from tmlibrary_tpu_torch.resilience import ResilienceConfig
+from tmlibrary_tpu_torch import telemetry
+from tmlibrary_tpu_torch.errors import PreemptedError
+from tmlibrary_tpu_torch.resilience import (
+    EXIT_PREEMPTED,
+    ResilienceConfig,
+    install_preemption_handlers,
+)
 from tmlibrary_tpu_torch.workflow.engine import RunLedger, Workflow, WorkflowDescription
 from tmlibrary_tpu_torch.workflow.registry import get_step, list_steps
 
@@ -183,6 +216,13 @@ def build_parser() -> argparse.ArgumentParser:
                         help="total tries per batch for transient faults (1 = no retry)")
     shared.add_argument("--retry-delay", type=float, default=None, metavar="SECONDS",
                         help="first backoff delay; doubles per retry, with jitter")
+    shared.add_argument("--no-telemetry", action="store_true",
+                        help="disable the metrics registry, span events and resource "
+                             "sampler for this run (also: TM_TELEMETRY=0)")
+    shared.add_argument("--sample-resources", type=float, default=None, metavar="SECONDS",
+                        help="resource sampler period (RSS/fds/device-memory gauges + "
+                             "heartbeat file; default TM_RESOURCE_SAMPLE_PERIOD, 0 "
+                             "disables)")
     shared.add_argument("--qc", action=argparse.BooleanOptionalAction, default=None,
                         help="collect data-quality evidence for this run: per-site image "
                              "statistics, NaN and outlier guards, feature sketches and the "
@@ -239,6 +279,141 @@ def build_parser() -> argparse.ArgumentParser:
     p_wd.add_argument("spec", help="checkpoint name, .npz path, or "
                                    "seed:N[:base=C][:depth=D][:in=N]")
     p_wd.add_argument("--json", action="store_true", dest="as_json")
+
+    p_serve = sub.add_parser("serve", help="always-on analysis service (spool-fed job "
+                                           "stream with admission control)")
+    serve_sub = p_serve.add_subparsers(dest="verb", required=True)
+    p_srun = serve_sub.add_parser("run", help="run the serve daemon over a spool root")
+    _add_common(p_srun)
+    p_srun.add_argument("--max-queue", type=int, default=None, metavar="N",
+                        help="admission-queue high watermark: at this depth new jobs are "
+                             "shed with the pinned queue_full retry-after (default "
+                             "TM_SERVE_MAX_QUEUE, 64)")
+    p_srun.add_argument("--low-watermark", type=int, default=None, metavar="N",
+                        help="shedding stops once the queue drains to this depth "
+                             "(hysteresis; default max-queue/2)")
+    p_srun.add_argument("--tenant-quota", type=int, default=None, metavar="N",
+                        help="max queued jobs per tenant (default TM_SERVE_TENANT_QUOTA, 16)")
+    p_srun.add_argument("--retry-budget", type=int, default=None, metavar="N",
+                        help="per-tenant retry budget: resubmissions spend one token, "
+                             "successes refund one (default TM_SERVE_RETRY_BUDGET, 8)")
+    p_srun.add_argument("--tenant-weights", default=None, metavar="T=W,...",
+                        help="weighted deficit-round-robin weights, e.g. 'prod=3,dev=1' "
+                             "(default: 1 each)")
+    p_srun.add_argument("--poll", type=float, default=None, metavar="SECONDS",
+                        help="spool poll period (default TM_SERVE_POLL_S, 0.5)")
+    p_srun.add_argument("--max-jobs", type=int, default=0, metavar="N",
+                        help="exit 0 after N completed jobs (0 = serve forever)")
+    p_srun.add_argument("--idle-exit", type=float, default=0.0, metavar="SECONDS",
+                        help="exit 0 after this long with an empty queue (0 = never)")
+    p_srun.add_argument("--no-telemetry", action="store_true",
+                        help="disable the metrics registry for the daemon")
+    p_srun.add_argument("--host", default=None, metavar="ID",
+                        help="fleet host identity: claims are leased as this id and "
+                             "events/heartbeats land in per-host files (default "
+                             "TMX_HOST_ID when a fleet is active, else single-host mode)")
+    p_srun.add_argument("--lease", type=float, default=None, metavar="SECONDS",
+                        help="claim lease duration; an expired lease whose owner's "
+                             "heartbeat is stale is reclaimed by a peer (default "
+                             "TM_SERVE_LEASE_S, 15)")
+    p_srun.add_argument("--canary", type=float, default=None, metavar="SECONDS",
+                        help="canary probe period (default TM_SERVE_CANARY_PERIOD_S, "
+                             "0 = off)")
+    p_sstatus = serve_sub.add_parser("status", help="queue depth, per-tenant admitted/"
+                                                    "rejected/budget-remaining, oldest-job age")
+    _add_common(p_sstatus)
+    p_sstatus.add_argument("--json", action="store_true", dest="as_json",
+                           help="emit the full status view as JSON")
+
+    p_enq = sub.add_parser("enqueue", help="submit one job spec to a serve spool")
+    _add_common(p_enq)
+    p_enq.add_argument("--experiment", required=True, metavar="DIR",
+                       help="experiment store root the job runs against")
+    p_enq.add_argument("--tenant", default="default", help="tenant the job is accounted to")
+    p_enq.add_argument("--job-id", default=None, help="unique job id (default: generated)")
+    p_enq.add_argument("--description", default=None,
+                       help="workflow YAML (default: the experiment's workflow/workflow.yaml)")
+    p_enq.add_argument("--priority", type=int, default=0,
+                       help="within-tenant priority (higher first)")
+    p_enq.add_argument("--deadline", type=float, default=None, metavar="SECONDS",
+                       help="relative deadline; an expired job is cancelled at the next "
+                            "batch boundary")
+    p_enq.add_argument("--pipeline-depth", type=int, default=None, metavar="N",
+                       help="per-job pipelined-executor depth")
+    p_enq.add_argument("--attempt", type=int, default=0, metavar="N",
+                       help="resubmission count (attempt > 0 spends one retry-budget token)")
+    p_enq.add_argument("--trace-id", default=None,
+                       help="end-to-end trace correlation id (default: generated)")
+    p_enq.add_argument("--kind", choices=("workflow", "query"), default="workflow",
+                       help="'workflow' runs the experiment's workflow; 'query' answers "
+                            "one analytics query (digest-cached; see `query`)")
+    p_enq.add_argument("--tool", default=None, help="query jobs: tool name")
+    p_enq.add_argument("--objects", default=None, metavar="NAME",
+                       help="query jobs: objects_name shorthand")
+    p_enq.add_argument("--payload", default=None, help="query jobs: payload as inline JSON")
+    p_enq.add_argument("--payload-file", default=None,
+                       help="query jobs: payload from a JSON file")
+    p_enq.add_argument("--index", default=None, choices=["auto", "ivf", "brute"],
+                       help="query jobs: kNN index routing, merged into the payload")
+    p_enq.add_argument("--affinity-key", default=None, metavar="KEY",
+                       help="program affinity key for fleet routing (default: the "
+                            "content digest of the workflow description + pipelines)")
+
+    p_metrics = sub.add_parser("metrics", help="export run metrics (Prometheus textfile or "
+                                               "JSON) from the live registry snapshot or "
+                                               "derived from any run or serve ledger")
+    p_metrics.add_argument("--root", default=None, help="experiment store or serve root")
+    p_metrics.add_argument("-v", "--verbosity", action="count", default=0)
+    p_metrics.add_argument("--merge", default=None, metavar="RUN_ROOT",
+                           help="merge every per-host workflow/metrics.<host>.json under "
+                                "this run root into one fleet view")
+    p_metrics.add_argument("--format", choices=("prom", "json"), default="prom")
+    p_metrics.add_argument("--source", choices=("auto", "snapshot", "live", "ledger"),
+                           default="auto",
+                           help="'snapshot' (or 'live') reads the registry snapshot the "
+                                "last run or daemon wrote; 'ledger' derives the metrics "
+                                "from the ledger; 'auto' prefers the snapshot")
+    p_metrics.add_argument("--out", default=None, help="write to this file, not stdout")
+
+    p_top = sub.add_parser("top", help="fleet dashboard over a run's heartbeat and "
+                                       "metrics snapshot files (--once for CI)")
+    _add_common(p_top)
+    p_top.add_argument("--interval", type=float, default=2.0,
+                       help="repaint period in seconds (default 2.0)")
+    p_top.add_argument("--once", action="store_true", help="render a single frame and exit")
+    p_top.add_argument("--json", action="store_true", dest="as_json",
+                       help="emit the fleet view as JSON (implies --once)")
+
+    p_timeline = sub.add_parser("timeline", help="metric history from the time series "
+                                                 "(tsdb.<host>.jsonl segments), with a "
+                                                 "ledger-replay fallback")
+    _add_common(p_timeline)
+    p_timeline.add_argument("--metric", default=None, metavar="NAME",
+                            help="restrict to series whose name contains this substring")
+    p_timeline.add_argument("--window", type=float, default=None, metavar="SECONDS",
+                            help="rate window for counter series (default: full history)")
+    p_timeline.add_argument("--width", type=int, default=48,
+                            help="sparkline width in columns (default 48)")
+    p_timeline.add_argument("--json", action="store_true", dest="as_json",
+                            help="emit the merged series as JSON")
+
+    p_trace = sub.add_parser("trace", help="the run's span tree with its critical path, or "
+                                           "a Chrome trace; experiment and serve roots")
+    _add_common(p_trace)
+    p_trace.add_argument("--json", action="store_true", dest="as_json",
+                         help="emit the annotated tree as JSON")
+    p_trace.add_argument("--export", choices=("chrome",), default=None,
+                         help="'chrome' writes Trace Event Format JSON (Perfetto)")
+    p_trace.add_argument("out", nargs="?", default=None,
+                         help="output path for --export (default trace.json)")
+    p_trace.add_argument("--trace-id", default=None,
+                         help="restrict to one job's trace id")
+
+    p_slo = sub.add_parser("slo", help="per-tenant SLO report over a serve root (exit 0 ok / "
+                                       "1 burn / 3 no data)")
+    _add_common(p_slo)
+    p_slo.add_argument("--json", action="store_true", dest="as_json",
+                       help="emit the report as JSON")
 
     p_query = sub.add_parser(
         "query", help="one-shot analytics query over an experiment's feature store "
@@ -374,6 +549,8 @@ def cmd_workflow(args) -> int:
             if entry.get("error"):
                 line += f" error: {entry['error']}"
             print(line)
+            if entry.get("watchdog_fires"):
+                print(f"{'':12s} watchdog fired {entry['watchdog_fires']}x")
             ps = entry.get("pipeline_stats")
             if ps:
                 phases = " ".join(f"{ph}={v['total_s']:.2f}s"
@@ -394,6 +571,11 @@ def cmd_workflow(args) -> int:
                 if buckets.get("escalations"):
                     line += f" escalations {buckets['escalations']}"
                 print(line)
+        pre = RunLedger(store.workflow_dir / "ledger.jsonl").preempted()
+        if pre:
+            print(f"PREEMPTED ({pre.get('reason')}) at step '{pre.get('step')}' — resume "
+                  "with `workflow resume`")
+        _render_heartbeats(store.workflow_dir, running=pre is None)
         return 0
     if args.verb == "cleanup":
         for name in list_steps():
@@ -429,6 +611,10 @@ def cmd_workflow(args) -> int:
         # the environment, as the reference sets it: every pipeline build
         # and the session read the gate when they run
         os.environ["TMX_QC"] = "1" if args.qc else "0"
+    if args.no_telemetry:
+        telemetry.set_enabled(False)
+    if args.sample_resources is not None:
+        os.environ["TM_RESOURCE_SAMPLE_PERIOD"] = str(args.sample_resources)
     resilience = ResilienceConfig.from_library_config()
     if args.max_batch_failures is not None:
         resilience.max_batch_failures = args.max_batch_failures
@@ -439,11 +625,294 @@ def cmd_workflow(args) -> int:
     # under torchrun each rank is one process of the group (NCCL on the
     # card, gloo on the CPU); without its environment this is a no-op
     distributed.initialize(device=args.device)
-    summary = Workflow(store, desc, resilience=resilience, pipeline_depth=args.pipeline_depth,
-                       device=args.device).run(resume=args.resume)
+    # SIGTERM/SIGINT drain instead of killing the process mid-batch; the
+    # pinned code tells a wrapper to re-launch with resume
+    restore = install_preemption_handlers()
+    try:
+        summary = Workflow(store, desc, resilience=resilience,
+                           pipeline_depth=args.pipeline_depth,
+                           device=args.device).run(resume=args.resume)
+    except PreemptedError as exc:
+        print(f"preempted ({exc.reason}): drained {exc.drained}/{exc.in_flight} in-flight "
+              f"batches at step '{exc.step}', abandoned {exc.abandoned} — resume with "
+              "`workflow resume`", file=sys.stderr)
+        return EXIT_PREEMPTED
+    finally:
+        restore()
     if distributed.is_writer():
         print(json.dumps(summary, default=str, indent=2))
     return 0
+
+
+def _render_heartbeats(hb_dir: Path, running: bool) -> None:
+    """Heartbeat liveness lines of ``workflow status`` and ``serve
+    status``: a running process with a stale heartbeat is a hung one."""
+    for hb_path in sorted(Path(hb_dir).glob("heartbeat*.json")):
+        hb = telemetry.read_heartbeat(hb_path)
+        if not hb or "ts" not in hb:
+            continue
+        age = telemetry.heartbeat_age(hb_path)
+        period = float(hb.get("period", 0) or 0)
+        host = str(hb.get("host") or "host0")
+        tag = "" if host == "host0" else f"[{host}]"
+        line = f"heartbeat{tag}: {age:.1f}s ago (sampler period {period:g}s)"
+        if running and period > 0 and age > 2 * period:
+            line += " — STALE: run appears hung"
+        print(line)
+
+
+def cmd_serve(args) -> int:
+    from tmlibrary_tpu_torch import serve as serve_mod
+    from tmlibrary_tpu_torch.workflow.admission import AdmissionConfig
+
+    root = Path(args.root)
+    if args.verb == "status":
+        view = serve_mod.serve_status_view(root)
+        if args.as_json:
+            print(json.dumps(view, indent=2, sort_keys=True))
+            return 0
+        print(f"serve root: {view['root']}  [{'LIVE' if view.get('live') else 'not running'}]")
+        status = view.get("status") or {}
+        if status:
+            line = (f"queue depth {status.get('depth', 0)}/"
+                    f"{status.get('high_watermark', '?')} (low watermark "
+                    f"{status.get('low_watermark', '?')})")
+            if status.get("shedding"):
+                line += " — SHEDDING"
+            print(line)
+            age = status.get("oldest_job_age_s")
+            if age is not None:
+                print(f"oldest queued job: {age:.1f}s ago")
+        spool = view.get("spool") or {}
+        if spool:
+            print("spool: " + "  ".join(f"{state} {n}" for state, n in spool.items()))
+        # live queue/budget/breaker state from the daemon's snapshot,
+        # lifetime outcomes from the serve ledger
+        live_tenants = status.get("tenants") or {}
+        ledger_tenants = view.get("tenants") or {}
+        names = sorted(set(live_tenants) | set(ledger_tenants))
+        if names:
+            print(f"{'tenant':16s} {'queued':>6s} {'admitted':>8s} {'rejected':>8s} "
+                  f"{'done':>5s} {'failed':>6s} {'budget':>6s} breaker")
+            for name in names:
+                lt, gt = live_tenants.get(name, {}), ledger_tenants.get(name, {})
+                print(f"{name:16s} {lt.get('queued', 0):>6d} "
+                      f"{gt.get('admitted', lt.get('admitted', 0)):>8d} "
+                      f"{gt.get('rejected', lt.get('rejected', 0)):>8d} "
+                      f"{gt.get('done', 0):>5d} {gt.get('failed', 0):>6d} "
+                      f"{str(lt.get('retry_budget_remaining', '-')):>6s} "
+                      f"{lt.get('breaker', '-')}")
+        if view.get("preemptions"):
+            print(f"preemptions: {view['preemptions']} (drained + re-spooled; jobs converge "
+                  "on restart)")
+        hosts = (view.get("fleet") or {}).get("hosts") or {}
+        if hosts:
+            fleet = view["fleet"]
+            aff = fleet.get("affinity") or {}
+            rate = aff.get("hit_rate")
+            print(f"fleet: {len(hosts)} host(s)  reclaims {fleet.get('reclaims_total', 0)}  "
+                  f"stale claims {fleet.get('stale_claims_total', 0)}  affinity "
+                  + (f"{rate:.0%}" if rate is not None else "-")
+                  + f" ({aff.get('hits', 0)}/{aff.get('known', 0)})")
+            for name in sorted(hosts):
+                h = hosts[name]
+                age = h.get("heartbeat_age_s")
+                print(f"  {name:14s} {'LIVE' if h.get('live') else 'dead':4s}  hb "
+                      + (f"{age:.1f}s" if age is not None else "-")
+                      + f"  leases {h.get('leases', 0)}")
+        _render_heartbeats(serve_mod.serve_dir(root), running=bool(view.get("live")))
+        return 0
+    if args.no_telemetry:
+        telemetry.set_enabled(False)
+    admission = AdmissionConfig.from_library_config()
+    for field, value in (("max_queue", args.max_queue), ("low_watermark", args.low_watermark),
+                         ("tenant_quota", args.tenant_quota),
+                         ("retry_budget", args.retry_budget)):
+        if value is not None:
+            setattr(admission, field, value)
+    if args.tenant_weights:
+        weights = {}
+        for part in args.tenant_weights.split(","):
+            name, _, w = part.partition("=")
+            if not name or not w:
+                print(f"error: bad --tenant-weights entry '{part}' (expected TENANT=WEIGHT)",
+                      file=sys.stderr)
+                return 1
+            weights[name.strip()] = float(w)
+        admission.tenant_weights = weights
+    rc = serve_mod.run_serve(root, admission=admission, poll_s=args.poll,
+                             max_jobs=args.max_jobs, idle_exit_s=args.idle_exit,
+                             host=args.host, lease_s=args.lease,
+                             canary_period_s=args.canary, device=args.device)
+    if rc == EXIT_PREEMPTED:
+        print("serve preempted: queued jobs re-spooled — restart `serve run` to resume",
+              file=sys.stderr)
+    return rc
+
+
+def cmd_enqueue(args) -> int:
+    import uuid
+
+    from tmlibrary_tpu_torch import serve as serve_mod
+    from tmlibrary_tpu_torch.workflow.admission import JobSpec
+
+    now = time.time()
+    job_id = args.job_id or f"{args.tenant}-{uuid.uuid4().hex[:10]}"
+    trace_id = args.trace_id or uuid.uuid4().hex
+    spec = JobSpec(
+        job_id=job_id, tenant=args.tenant, root=str(Path(args.experiment).resolve()),
+        description=args.description, priority=args.priority,
+        deadline=(now + args.deadline) if args.deadline else None,
+        pipeline_depth=args.pipeline_depth, attempt=args.attempt, submitted_at=now,
+        trace_id=trace_id, kind=args.kind,
+        payload=_query_payload(args) if args.kind == "query" else None,
+        affinity_key=args.affinity_key)
+    path = serve_mod.enqueue_job(Path(args.root), spec)
+    print(f"enqueued {job_id} (tenant {spec.tenant}, trace {trace_id}) -> {path}")
+    return 0
+
+
+def cmd_metrics(args) -> int:
+    """The registry snapshot a run or daemon wrote, or the registry
+    derived from its ledger, as Prometheus text or JSON."""
+    from tmlibrary_tpu_torch import serve as serve_mod
+
+    if args.merge:
+        pairs = telemetry.load_fleet_snapshots(Path(args.merge))
+        if not pairs:
+            print(f"error: no workflow/metrics*.json snapshots under {args.merge}",
+                  file=sys.stderr)
+            return 1
+        snapshot = telemetry.merge_snapshots(pairs)
+    else:
+        if not args.root:
+            print("error: --root is required (or use --merge RUN_ROOT)", file=sys.stderr)
+            return 1
+        root = Path(args.root)
+        served = serve_mod.is_serve_root(root)
+        wf = serve_mod.serve_dir(root) if served else ExperimentStore.open(root).workflow_dir
+        snapshot = None
+        snap_path = wf / "metrics.json"
+        if args.source in ("auto", "snapshot", "live") and snap_path.exists():
+            snapshot = json.loads(snap_path.read_text())
+        if snapshot is None:
+            if args.source in ("snapshot", "live"):
+                print(f"error: no metrics snapshot at {snap_path} (use --source ledger)",
+                      file=sys.stderr)
+                return 1
+            events = (serve_mod.serve_ledger_events(root) if served
+                      else RunLedger(wf / "ledger.jsonl").events())
+            if not events:
+                print("no metrics snapshot and no ledger — nothing to export",
+                      file=sys.stderr)
+                return 1
+            snapshot = telemetry.registry_from_ledger(events).snapshot()
+    text = (telemetry.render_json(snapshot) + "\n" if args.format == "json"
+            else telemetry.render_prometheus(snapshot))
+    if args.out:
+        Path(args.out).write_text(text)
+        print(f"wrote {args.format} metrics to {args.out}")
+    else:
+        sys.stdout.write(text)
+    return 0
+
+
+def cmd_top(args) -> int:
+    from tmlibrary_tpu_torch import top
+
+    return top.run_top(Path(args.root), interval=args.interval, once=args.once,
+                       as_json=args.as_json)
+
+
+def cmd_timeline(args) -> int:
+    """One sparkline per series of the merged ``tsdb.<host>.jsonl``
+    segments under the root; a root without them replays its ledgers."""
+    from tmlibrary_tpu_torch import timeseries, traceexport
+
+    root = Path(args.root)
+    records = timeseries.merge_tsdb(timeseries.load_tsdb(root))
+    source = "tsdb"
+    if not records:
+        source = "ledger"
+        records = timeseries.synthesize_from_ledger(traceexport.collect_events(root))
+    series = timeseries.series_index(records)
+    if args.metric:
+        series = {k: v for k, v in series.items() if args.metric in k[0]}
+    if args.as_json:
+        print(json.dumps({
+            "root": str(root), "source": source,
+            "series": [{"name": name, "labels": dict(labels),
+                        "points": [[ts, v] for ts, v in points],
+                        "last": points[-1][1] if points else None,
+                        "rate_per_s": timeseries.rate(points, args.window),
+                        "p95": timeseries.quantile_over_time(points, 0.95)}
+                       for (name, labels), points in sorted(series.items())],
+        }, indent=2, sort_keys=True))
+        return 0
+    if not series:
+        print(f"no time-series data under {root}")
+        return 1
+    print(f"timeline {root} [{source}] — {len(series)} series")
+    for (name, labels), points in sorted(series.items()):
+        label_txt = "{" + ",".join(f"{k}={v}" for k, v in labels) + "}" if labels else ""
+        spark = timeseries.sparkline([v for _, v in points], width=args.width)
+        r = timeseries.rate(points, args.window)
+        rate_txt = "" if r is None else f"  rate {r:.3g}/s"
+        print(f"  {name}{label_txt}")
+        print(f"    {spark}  last {points[-1][1]:g}{rate_txt}  n={len(points)}")
+    return 0
+
+
+def cmd_trace(args) -> int:
+    """The span tree with the critical path marked, or ``--export
+    chrome``: Trace Event Format JSON with one flow per trace id."""
+    from tmlibrary_tpu_torch import serve as serve_mod
+    from tmlibrary_tpu_torch import traceexport
+
+    root = Path(args.root)
+    if args.export == "chrome":
+        out = Path(args.out or "trace.json")
+        doc = traceexport.export_chrome_trace(root, out, trace_id=args.trace_id)
+        n = len(doc.get("traceEvents", []))
+        print(f"wrote {n} trace events -> {out}")
+        return 0 if n else 1
+    if serve_mod.is_serve_root(root):
+        events = traceexport.collect_events(root)
+    else:
+        events = RunLedger(_open_store(args).workflow_dir / "ledger.jsonl").events()
+    if not events:
+        print("no run ledger — nothing to trace", file=sys.stderr)
+        return 1
+    if args.trace_id:
+        events = [ev for ev in events if ev.get("trace_id") == args.trace_id]
+    tree = telemetry.annotate_critical_path(telemetry.build_span_tree(events))
+    if args.as_json:
+        print(json.dumps(tree, indent=2))
+        return 0
+    print(telemetry.render_span_tree(tree))
+    totals = telemetry.phase_totals(events)
+    if totals:
+        print("\nphase totals (critical resource): " + "  ".join(
+            f"{k}={v:.3f}s" for k, v in sorted(totals.items(), key=lambda kv: -kv[1])))
+    return 0
+
+
+def cmd_slo(args) -> int:
+    """Per-tenant SLO report over a serve root's merged ledgers; exit 0
+    ok, 1 some tenant burns, 3 no job completions."""
+    from tmlibrary_tpu_torch import serve as serve_mod
+    from tmlibrary_tpu_torch import slo as slo_mod
+
+    root = Path(args.root)
+    if not serve_mod.serve_ledger_paths(root):
+        print(f"no serve ledger under {root} — `slo` reads a serve root", file=sys.stderr)
+        return slo_mod.EXIT_NO_DATA
+    view = slo_mod.report(serve_mod.serve_ledger_events(root))
+    if args.as_json:
+        print(json.dumps(view, indent=2))
+    else:
+        print(slo_mod.render(view), end="")
+    return slo_mod.exit_code(view)
 
 
 def cmd_step(args) -> int:
@@ -1151,6 +1620,20 @@ def main(argv=None) -> int:
             return cmd_project(args)
         if args.command == "export":
             return cmd_export(args)
+        if args.command == "serve":
+            return cmd_serve(args)
+        if args.command == "enqueue":
+            return cmd_enqueue(args)
+        if args.command == "metrics":
+            return cmd_metrics(args)
+        if args.command == "top":
+            return cmd_top(args)
+        if args.command == "timeline":
+            return cmd_timeline(args)
+        if args.command == "trace":
+            return cmd_trace(args)
+        if args.command == "slo":
+            return cmd_slo(args)
         return cmd_step(args)
     except Exception as e:
         print(f"error: {e}", file=sys.stderr)

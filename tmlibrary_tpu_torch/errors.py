@@ -51,6 +51,39 @@ class WorkflowError(TmError):
     """Error in workflow orchestration (stage/step DAG, ledger, resume)."""
 
 
+class TransientDeviceError(TmError):
+    """A device-side fault expected to clear on its own: a probe timed
+    out, a collective was preempted, the runtime reported an unavailable
+    or exhausted resource.  The retry policy treats it as retryable."""
+
+
+class ProbeTimeoutError(TransientDeviceError):
+    """A call did not answer within its deadline
+    (``resilience.call_with_timeout``): a hang turned into an error the
+    classifier and the circuit breaker can act on."""
+
+
+class WatchdogTimeout(TransientDeviceError):
+    """A pipeline phase (launch, device block, persist) overran its
+    watchdog deadline (``resilience.PhaseWatchdog``); transient, so the
+    batch retries or is quarantined like any other device flake."""
+
+
+class FaultInjected(TmError):
+    """An artificial fault raised by the fault-injection harness
+    (``tmlibrary_tpu_torch.faults``); only when a fault plan is
+    installed.  ``transient`` says how the classifier treats it;
+    ``fatal=True`` simulates a hard process crash that nothing may absorb
+    into batch quarantine."""
+
+    def __init__(self, message: str, kind: str = "injected",
+                 transient: bool = True, fatal: bool = False):
+        super().__init__(message)
+        self.kind = kind
+        self.transient = transient
+        self.fatal = fatal
+
+
 class PreemptedError(TmError):
     """The run was asked to stop and has finished draining: every
     in-flight batch persisted, the rest were never launched.

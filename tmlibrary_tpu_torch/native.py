@@ -140,6 +140,9 @@ def lib() -> ctypes.CDLL:
             for fname in ("tm_zstd_error", "tm_jpeg_error"):
                 getattr(loaded, fname).restype = ctypes.c_char_p
             _LIB = loaded
+            from tmlibrary_tpu_torch import aotstore
+
+            aotstore.note_cold("host_library")  # the first build or load in this process
         return _LIB
 
 

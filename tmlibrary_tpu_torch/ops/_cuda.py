@@ -11,7 +11,10 @@ loaded with ``ctypes``.  Nothing here runs at import time.
 
 Every C entry point takes raw device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launches;
-:func:`check` raises :class:`DeviceError` on a non-zero code.
+:func:`check` raises :class:`DeviceError` on a non-zero code.  A bound
+launch adds one to its wrapper's ``.launches`` and to the telemetry
+registry's ``tmx_kernel_launches_total{kernel}``, so the snapshot a
+process writes (a serve daemon's ``metrics.json``) carries its counts.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from pathlib import Path
 
 import torch
 
+from tmlibrary_tpu_torch import telemetry
 from tmlibrary_tpu_torch.errors import DeviceError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -159,6 +163,9 @@ def lib() -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _LIB = loaded
+        from tmlibrary_tpu_torch import aotstore
+
+        aotstore.note_cold("cuda_kernels")  # the first build or load in this process
     return _LIB
 
 
@@ -199,13 +206,16 @@ def bind_launch(name: str, counter, tensors: tuple, *scalars, route: "str | None
     require_cuda(name, *tensors)
     fn = getattr(lib(), f"tm_{name}")
     args = (*(t.data_ptr() for t in tensors), *scalars, stream())
-
     def launch() -> torch.Tensor:
         if counter is not None:
             with _COUNT_LOCK:
                 counter.launches += 1
                 if route is not None:
                     counter.routes[route] += 1
+            # the same count in the telemetry registry, so a process's
+            # snapshot (a serve daemon's metrics.json) reports it
+            telemetry.get_registry().counter("tmx_kernel_launches_total",
+                                             kernel=counter.__name__).inc()
         check(f"tm_{name}", fn(*args))
         return tensors[-1]
 

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import logging
 import os
+import time
 
 import torch
 import torch.distributed as dist
@@ -193,6 +194,27 @@ def broadcast_object(obj, src: int = 0):
     box = [obj]
     dist.broadcast_object_list(box, src=src)
     return box[0]
+
+
+def rank_wall_times(t0: float, device: "torch.device | str | None" = None,
+                    group=None) -> list[tuple[str, float]]:
+    """Each rank's wall time (seconds since its own ``t0``, a
+    ``perf_counter`` reading taken at launch) until its launched work is
+    done, as ``[(rank, seconds), ...]`` in rank order on rank 0 and
+    ``[]`` on the others.  On the card a rank records a CUDA event after
+    its launches and waits on it; on the CPU its work is done when the
+    launch returns.  A collective: every rank of the group calls it."""
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    if dev.type == "cuda":
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+    elapsed = torch.tensor([time.perf_counter() - t0], dtype=torch.float64)
+    parts = gather_to(elapsed.to(dev) if dev.type == "cuda" and not _gloo(group)
+                      else elapsed, 0, group)
+    if parts is None:
+        return []
+    return [(str(r), float(p[0])) for r, p in enumerate(parts)]
 
 
 def host_local_to_global(local_batch: torch.Tensor, group=None) -> torch.Tensor:

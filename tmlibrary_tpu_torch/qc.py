@@ -15,11 +15,12 @@ the engine), and the engine writes the session's profile to
 exit codes (0 ok, 1 drift, 2 stale, 3 no reference).
 
 The summaries, snapshots, profiles and verdicts equal the reference's
-on the same inputs (``tests/test_torch_qc_session.py``).  Left out: the
-reference mirrors each summary into its telemetry registry
-(``_mirror_registry``, the ``tmx_qc_*`` gauges and counters, and the
-illumination gauge); the port has no telemetry registry yet (ROADMAP A
-item 11).  The host is ``TMX_HOST_ID``, else ``host0``.
+on the same inputs (``tests/test_torch_qc_session.py``).  Each batch
+summary is mirrored into the telemetry registry as the reference's is
+(``_mirror_registry``: the ``tmx_qc_*`` gauges and counters, and the
+``tmx_qc_illum_p_top`` illumination gauge).  The host is
+:func:`tmlibrary_tpu_torch.telemetry.host_id` (``TMX_HOST_ID``, else
+``host0``).
 
 Invariants (the reference's): pipeline outputs are bit-identical with QC
 on and off, since QC only reads what the persist path already fetched;
@@ -38,6 +39,8 @@ from pathlib import Path
 from typing import Any
 
 import numpy as np
+
+from tmlibrary_tpu_torch import telemetry
 
 from tmlibrary_tpu_torch.atomicio import atomic_write_text
 from tmlibrary_tpu_torch.config import setting
@@ -72,12 +75,6 @@ FLAGGED_KEPT = 512
 _FALSY = ("", "0", "false", "no", "off")
 
 _OVERRIDE: bool | None = None
-
-
-def host_id() -> str:
-    """This process's host name in profile file names: ``TMX_HOST_ID``,
-    else ``host0``."""
-    return os.environ.get("TMX_HOST_ID") or "host0"
 
 
 def enabled() -> bool:
@@ -496,6 +493,7 @@ class QCSession:
             st["flagged"] += len(batch_flags)
             summary = self._summary_locked(batch_flags, batch_nan,
                                            batch_inf, saturated)
+        self._mirror_registry(step, summary, batch_flags)
         return summary
 
     def _summary_locked(self, batch_flags, batch_nan, batch_inf,
@@ -528,6 +526,28 @@ class QCSession:
             "capacity_saturated": bool(saturated),
         }
 
+    def _mirror_registry(self, step: str, summary: dict,
+                         batch_flags: list[dict]) -> None:
+        reg = telemetry.get_registry()
+        for ch, entry in summary["channels"].items():
+            if "focus_min" in entry:
+                reg.gauge("tmx_qc_worst_focus",
+                          channel=ch).set(entry["focus_min"])
+            if "saturation_max" in entry:
+                reg.gauge("tmx_qc_max_saturation_frac",
+                          channel=ch).set(entry["saturation_max"])
+            if "background_mean" in entry:
+                reg.gauge("tmx_qc_background_mean",
+                          channel=ch).set(entry["background_mean"])
+        reg.gauge("tmx_qc_nan_columns").set(summary["nan_columns"])
+        if summary["nan_values"] or summary["inf_values"]:
+            reg.counter("tmx_qc_nan_values_total").inc(
+                summary["nan_values"] + summary["inf_values"])
+        reg.gauge("tmx_qc_count_z_max").set(summary["count_z_max"])
+        if batch_flags:
+            reg.counter("tmx_qc_sites_flagged_total",
+                        step=step).inc(len(batch_flags))
+
     def observe_illumination(self, channel: str, percentile_keys,
                              percentile_values) -> None:
         """Fold corilla's exact raw-intensity percentiles (from the
@@ -538,6 +558,8 @@ class QCSession:
         entry = {f"p{k:g}": float(v) for k, v in zip(keys, values)}
         with self._lock:
             self.illumination[channel] = entry
+        top = float(values.max()) if values.size else 0.0
+        telemetry.get_registry().gauge("tmx_qc_illum_p_top", channel=channel).set(top)
 
     # -- profile assembly -----------------------------------------------
 
@@ -555,7 +577,7 @@ class QCSession:
             return {
                 "schema_version": QC_SCHEMA_VERSION,
                 "written_at_unix": time.time(),
-                "host": host_id(),
+                "host": telemetry.host_id(),
                 "steps": {k: dict(v) for k, v in self.steps.items()},
                 "channels": channels,
                 "illumination": dict(self.illumination),
@@ -582,7 +604,7 @@ class QCSession:
 
 def profile_path(workflow_dir: Path, host: str | None = None) -> Path:
     """Per-host profile path (``qc.<host>.json``)."""
-    host = host or host_id()
+    host = host or telemetry.host_id()
     return Path(workflow_dir) / f"qc.{host}.json"
 
 

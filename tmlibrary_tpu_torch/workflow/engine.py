@@ -24,9 +24,23 @@ reads the other's ledger.  Where the port differs:
   (``"cuda"`` unless the caller passes ``"cpu"``); a missing card raises
   :class:`DeviceError`.  The reference's device health guard, which pins
   the backend to the CPU when probes fail, is not ported.
-- Telemetry (spans, metrics snapshots, the flight recorder), fault
-  injection, the phase watchdog, preemption and fleet host attribution
-  are not ported (ROADMAP A item 11).
+- **Telemetry, faults, preemption** as the reference's: every ledger
+  event carries the ambient trace context (``trace_id``/``job``/
+  ``tenant`` of a served job) and lands in the flight recorder; the
+  ``ledger_append``, ``batch_run`` and ``persist`` fault sites fire as
+  the reference's; with telemetry on, ``run``/``step``/``batch`` spans
+  and the executor's phase spans are ledgered, ``tmx_*`` series counted
+  and ``metrics.<host>.json``, the heartbeat and the tsdb segment
+  written.  ``should_stop``/``stop_reason`` (default: the process's
+  preemption flag) are polled before each step and batch; a stop drains
+  the pipelined window and records ``run_preempted``
+  (:class:`PreemptedError`, exit 75 from the CLI); at several ranks
+  the stop is not polled, since one rank stopping alone would leave the
+  others waiting in a collective.  The phase watchdog
+  arms per phase when on.  A fleet host (``TMX_HOST_ID``) stamps
+  ``host`` on each event.  Compile spans are not recorded: the port
+  compiles nothing per program (ROADMAP A item 11, the compile and
+  profile plumbing).
 
 **Several ranks.**  Under a process group of more than one rank
 (``torchrun``, :func:`tmlibrary_tpu_torch.parallel.distributed.initialize`)
@@ -50,11 +64,13 @@ the reference does (``:783-802``); with QC off it writes nothing.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import inspect
 import json
 import logging
 import os
+import sys
 import time
 import zlib
 from pathlib import Path
@@ -62,12 +78,12 @@ from typing import Any
 
 import torch
 
+from tmlibrary_tpu_torch import faults, telemetry, timeseries, yamlio
 from tmlibrary_tpu_torch import qc as qc_mod
-from tmlibrary_tpu_torch import yamlio
 from tmlibrary_tpu_torch.atomicio import atomic_write_text
 from tmlibrary_tpu_torch.config import LibraryConfig
 from tmlibrary_tpu_torch.device import resolve_device
-from tmlibrary_tpu_torch.errors import WorkflowError
+from tmlibrary_tpu_torch.errors import FaultInjected, PreemptedError, WorkflowError
 from tmlibrary_tpu_torch.models.store import ExperimentStore
 from tmlibrary_tpu_torch.parallel import distributed
 from tmlibrary_tpu_torch.resilience import (
@@ -76,7 +92,10 @@ from tmlibrary_tpu_torch.resilience import (
     RetryOutcome,
     RetryPolicy,
     classify,
+    preemption_reason,
+    preemption_requested,
     retry_call,
+    watchdog_from_config,
 )
 from tmlibrary_tpu_torch.workflow.pipelined import (
     PipelinedExecutor,
@@ -208,9 +227,11 @@ class RunLedger:
     last intact line before its first append (:meth:`recover`).  Lines
     without a CRC read as they are."""
 
-    def __init__(self, path: Path, fsync: bool = False):
+    def __init__(self, path: Path, fsync: bool = False, host: str | None = None):
         self.path = Path(path)
         self.fsync = fsync
+        #: a fleet host's name, stamped on each event (None: host-free)
+        self.host = host
         #: (mtime_ns, size) -> parsed events
         self._cache: tuple[tuple[int, int], list[dict]] | None = None
         self._recovered = False
@@ -273,11 +294,23 @@ class RunLedger:
         if not self._recovered:
             self.recover()
         event["ts"] = time.time()
+        if self.host is not None:
+            event.setdefault("host", self.host)
+        # the ambient trace labels of a served job; explicit labels win
+        for k, v in telemetry.trace_context().items():
+            event.setdefault(k, v)
+        telemetry.flight_record(event)
         line = self._seal(json.dumps(event))
+        spec = faults.match("ledger_append", step=event.get("step"), event=event.get("event"))
         self._cache = None
         if event.get("event") == "init_done":
             self._done_cache.clear()  # a re-init invalidates earlier completions
         with open(self.path, "a") as f:
+            if spec is not None:
+                # a process dying mid-write: half a line, no newline
+                f.write(line[: max(1, len(line) // 2)])
+                f.flush()
+                faults.raise_for(spec, "ledger_append", event)
             f.write(line + "\n")
             if self.fsync:
                 f.flush()
@@ -361,6 +394,26 @@ class RunLedger:
                 h = e.get("description_hash", h)
         return h
 
+    def degraded_backend(self) -> dict | None:
+        """The most recent ``backend_degraded`` event (the reference's
+        device guard writes it; the port's engine never does)."""
+        last = None
+        for e in self.events():
+            if e.get("event") == "backend_degraded":
+                last = e
+        return last
+
+    def preempted(self) -> dict | None:
+        """The trailing ``run_preempted`` event while the most recent run
+        ended in a drain; a later ``run_started`` clears it."""
+        last = None
+        for e in self.events():
+            if e.get("event") == "run_preempted":
+                last = e
+            elif e.get("event") == "run_started":
+                last = None
+        return last
+
     def status(self) -> dict[str, Any]:
         """Per-step state, batch progress, elapsed time, quarantine,
         pipeline stats, bucket routing and QC, folded from the events
@@ -434,18 +487,29 @@ class Workflow:
     def __init__(self, store: ExperimentStore, description: WorkflowDescription,
                  resilience: ResilienceConfig | None = None,
                  pipeline_depth: int | None = None,
-                 device: "str | torch.device" = "cuda"):
+                 device: "str | torch.device" = "cuda",
+                 should_stop=None, stop_reason=None):
         description.validate()
         self.device = resolve_device(device)
         self.store = store
         self.description = description
+        #: cooperative stop, polled at every step and batch boundary and
+        #: in the executor's launch loop; default the preemption flag
+        #: (the serve daemon adds the job's deadline)
+        self._should_stop = should_stop if should_stop is not None else preemption_requested
+        self._stop_reason = stop_reason if stop_reason is not None else preemption_reason
         cfg = LibraryConfig()
-        self.ledger = RunLedger(store.workflow_dir / "ledger.jsonl", fsync=cfg.ledger_fsync)
+        self.ledger = RunLedger(
+            store.workflow_dir / "ledger.jsonl", fsync=cfg.ledger_fsync,
+            # single-host ledgers stay host-free; a fleet host stamps itself
+            host=telemetry.host_id() if telemetry.fleet_active() else None)
         self.resilience = (resilience if resilience is not None
                            else ResilienceConfig.from_library_config(cfg))
         #: explicit in-flight depth for the pipelined executor; None: the
         #: per-device default
         self.pipeline_depth = pipeline_depth
+        #: the run's PhaseWatchdog (None when off, the default)
+        self._watchdog = None
 
     def description_hash(self) -> str:
         """Digest of the whole description, recorded in ``run_started`` so
@@ -474,22 +538,119 @@ class Workflow:
         self.ledger.append(event="run_started", description_hash=desc_hash, resume=resume)
         self._run_wall_t0 = time.time()
         self._first_batch_noted = False
+        telemetry.get_registry().counter("tmx_runs_total").inc()
+        sampler = self._start_sampler()
+        self._watchdog = watchdog_from_config()
         done_steps = self.ledger.completed_steps() if resume else set()
         summary = {}
         try:
-            for stage in self.description.stages:
-                for sd in stage.steps:
-                    if not sd.active:
-                        continue
-                    if sd.name in done_steps:
-                        logger.info("resume: skipping completed step %s", sd.name)
-                        self._announce(None)
-                        distributed.sync_hosts(f"{sd.name} batches")
-                        continue
-                    summary[sd.name] = self._run_step(sd, resume)
+            with telemetry.span("run", emit=self.ledger.append):
+                for stage in self.description.stages:
+                    for sd in stage.steps:
+                        if not sd.active:
+                            continue
+                        if sd.name in done_steps:
+                            logger.info("resume: skipping completed step %s", sd.name)
+                            self._announce(None)
+                            distributed.sync_hosts(f"{sd.name} batches")
+                            continue
+                        if distributed.world_size() == 1 and self._should_stop():
+                            # the boundary between steps is already clean
+                            self._note_preempted(PreemptedError(
+                                f"preempted before step '{sd.name}'", step=sd.name,
+                                reason=self._stop_reason()))
+                        with telemetry.span("step", emit=functools.partial(
+                                self.ledger.append, step=sd.name)):
+                            summary[sd.name] = self._run_step(sd, resume)
         finally:
-            self._write_qc_profile()
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._drain_watchdog()
+                self._watchdog = None
+            if sampler is not None:
+                sampler.stop()
+            exc = sys.exc_info()[1]
+            if exc is not None and not isinstance(exc, PreemptedError) \
+                    and not (isinstance(exc, FaultInjected) and exc.fatal):
+                # a crash keeps the event ring for the post-mortem (a
+                # fatal injected fault is a dead process: it writes nothing)
+                telemetry.flight_dump(telemetry.flightrec_path(self.store.workflow_dir),
+                                      reason=f"crash:{type(exc).__name__}")
+            self._write_metrics_snapshot()
         return summary
+
+    def _drain_watchdog(self, step_name: str | None = None) -> None:
+        """Append the watchdog's queued events on the engine thread (the
+        only thread that touches the ledger) and dump the flight ring."""
+        wd = self._watchdog
+        if wd is None:
+            return
+        fired = False
+        for ev in wd.drain_events():
+            if step_name is not None:
+                ev.setdefault("step", step_name)
+            self.ledger.append(**ev)
+            fired = True
+        if fired:
+            telemetry.flight_dump(telemetry.flightrec_path(self.store.workflow_dir),
+                                  reason="watchdog", extra={"step": step_name})
+
+    def _note_preempted(self, exc: PreemptedError) -> None:
+        """Record the drain boundary (``run_preempted``, the counter, a
+        flight dump) and re-raise; the CLI exits ``EXIT_PREEMPTED``."""
+        self._drain_watchdog(exc.step)
+        self.ledger.append(event="run_preempted", step=exc.step, reason=exc.reason,
+                           in_flight=exc.in_flight, drained=exc.drained,
+                           abandoned=exc.abandoned)
+        telemetry.flight_dump(telemetry.flightrec_path(self.store.workflow_dir),
+                              reason=f"preempted:{exc.reason}", extra={"step": exc.step})
+        telemetry.get_registry().counter("tmx_preemptions_total").inc()
+        logger.warning("run preempted (%s) at step '%s': drained %d/%d in-flight batches, "
+                       "abandoned %d un-launched — resume with `workflow resume`",
+                       exc.reason, exc.step, exc.drained, exc.in_flight, exc.abandoned)
+        raise exc
+
+    def _write_metrics_snapshot(self) -> None:
+        """The QC profile, then with telemetry on the live registry as
+        ``metrics.<host>.json`` (and ``metrics.json`` on host0) next to
+        the ledger and one sample per series into the tsdb segment;
+        written on failure too."""
+        self._write_qc_profile()
+        if not telemetry.enabled():
+            return
+        rendered = telemetry.render_json(telemetry.get_registry().snapshot())
+        atomic_write_text(telemetry.snapshot_path(self.store.workflow_dir), rendered)
+        if telemetry.host_id() == "host0":
+            atomic_write_text(self.store.workflow_dir / "metrics.json", rendered)
+        timeseries.flush_registry(self.store.workflow_dir)
+
+    def _start_sampler(self):
+        """The resource sampler and heartbeat of this run, when telemetry
+        is on and a sample period is set."""
+        period = float(LibraryConfig().resource_sample_period or 0)
+        if not telemetry.enabled() or period <= 0:
+            return None
+        return telemetry.ResourceSampler(
+            period, heartbeat_path=telemetry.heartbeat_path(self.store.workflow_dir)).start()
+
+    def _note_straggler(self, step_name: str, batch_index, result) -> None:
+        """A ``straggler`` event when a batch's per-rank wall times skew
+        past the threshold (the times ride the batch result)."""
+        if not telemetry.enabled() or not isinstance(result, dict):
+            return
+        times = result.get("device_wall_times")
+        skew = result.get("straggler_skew_s")
+        if not times or skew is None:
+            return
+        slowest = max(float(t) for t in times.values())
+        if float(skew) <= telemetry.straggler_threshold(slowest):
+            return
+        extra = {}
+        if result.get("predicted_shard_work"):
+            extra["predicted_shard_work"] = [float(w) for w in result["predicted_shard_work"]]
+            extra["predicted_skew"] = float(result.get("predicted_skew", 0.0))
+        self.ledger.append(step=step_name, event="straggler", batch=batch_index,
+                           skew_s=float(skew), device_wall_times=times, **extra)
 
     @staticmethod
     def _announce(pending: "list[int] | None") -> "list[int]":
@@ -520,17 +681,15 @@ class Workflow:
 
     def _write_qc_profile(self) -> None:
         """The QC session's profile as ``qc.<host>.json``, and as
-        ``qc.json`` on ``host0``; nothing when QC is off."""
+        ``qc.json`` on ``host0``; nothing when QC is off.  A failed write
+        raises (the reference logs it at debug level)."""
         profile = qc_mod.get_session().snapshot()
         if not profile:
             return
         wf = self.store.workflow_dir
-        try:
-            qc_mod.write_profile(qc_mod.profile_path(wf), profile)
-            if qc_mod.host_id() == "host0":
-                qc_mod.write_profile(wf / "qc.json", profile)
-        except OSError:
-            logger.debug("qc profile write failed", exc_info=True)
+        qc_mod.write_profile(qc_mod.profile_path(wf), profile)
+        if telemetry.host_id() == "host0":
+            qc_mod.write_profile(wf / "qc.json", profile)
 
     def _note_qc(self, step_name: str, batch_index, result) -> int:
         """``qc_batch`` and one ``qc_site`` per flagged site when a batch
@@ -547,6 +706,10 @@ class Workflow:
         return len(flagged)
 
     # ---------------------------------------------------------- batch level
+    def _exec_batch(self, step, batch: dict) -> dict:
+        faults.maybe_fire("batch_run", step=step.name, batch=batch["index"])
+        return step.run_batch(batch)
+
     def _retry_after(self, step, batch: dict, first_exc: Exception,
                      policy: RetryPolicy) -> RetryOutcome:
         """Fold an already-observed failure into the retry budget and run
@@ -555,7 +718,7 @@ class Workflow:
         if cls is PERMANENT or policy.max_attempts <= 1:
             return RetryOutcome(error=first_exc, attempts=1, classification=cls)
         remaining = dataclasses.replace(policy, max_attempts=policy.max_attempts - 1)
-        out = retry_call(lambda: step.run_batch(batch), remaining,
+        out = retry_call(lambda: self._exec_batch(step, batch), remaining,
                          describe=f"{step.name} batch {batch['index']}")
         out.attempts += 1
         return out
@@ -565,12 +728,15 @@ class Workflow:
         """``(batch, RetryOutcome)`` for every pending batch: through the
         pipelined executor for steps with the launch/persist split, else
         one by one.  After a failure in the pipeline the failing batch
-        is retried and the rest run one by one."""
+        is retried and the rest run one by one.  Both poll ``should_stop``
+        at batch boundaries and surface a stop as
+        :class:`PreemptedError`, never as a batch failure."""
         gen = None
         if pstats is not None and pending:
             gen = PipelinedExecutor(
                 step, depth=pstats.depth, stats=pstats,
                 on_event=lambda **ev: self.ledger.append(step=step.name, **ev),
+                should_stop=self._should_stop, watchdog=self._watchdog,
             ).run(pending)
         pos = 0
         while pos < len(pending):
@@ -580,6 +746,10 @@ class Workflow:
                 except StopIteration:
                     break
                 except Exception as e:
+                    if isinstance(e, FaultInjected) and e.fatal:
+                        raise
+                    if isinstance(e, PreemptedError):
+                        raise  # drained cleanly: not a batch failure
                     logger.warning("%s: pipelined runner failed at batch %d — running the "
                                    "rest one by one", step.name, pending[pos]["index"])
                     gen = None
@@ -590,9 +760,17 @@ class Workflow:
                 pos += 1
             else:
                 batch = pending[pos]
+                if distributed.world_size() == 1 and self._should_stop():
+                    raise PreemptedError(
+                        f"preempted before batch {batch['index']} of '{step.name}': "
+                        f"abandoned {len(pending) - pos} pending batches",
+                        step=step.name, abandoned=len(pending) - pos,
+                        reason=self._stop_reason())
                 try:
-                    yield batch, RetryOutcome(value=step.run_batch(batch), attempts=1)
+                    yield batch, RetryOutcome(value=self._exec_batch(step, batch), attempts=1)
                 except Exception as e:
+                    if isinstance(e, FaultInjected) and e.fatal:
+                        raise
                     yield batch, self._retry_after(step, batch, e, policy)
                 pos += 1
 
@@ -659,35 +837,51 @@ class Workflow:
             qc_site_budget = (int(res.qc_flag_budget * qc_sites_total)
                               if res.enabled and qc_sites_total else 0)
             pstats = None
-            if pending and supports_pipelining(step) and ranks == 1:
+            if pending and supports_pipelining(step) and ranks == 1 \
+                    and not faults.sequential_forced():
                 depth, source = resolve_pipeline_depth(self.pipeline_depth, self.device)
-                pstats = PipelineStats(depth, source)
+                pstats = PipelineStats(depth, source, step=sd.name)
                 logger.info("%s: pipelined executor, in-flight depth %d (source: %s)",
                             sd.name, depth, source)
+            metrics = telemetry.get_registry()
             bt0 = time.time()
             with step.capture_logs("run"):
                 for batch, outcome in self._iter_outcomes(step, pending, policy, pstats):
                     current_batch = batch["index"]
+                    self._drain_watchdog(sd.name)
                     if outcome.ok:
+                        b_elapsed = time.time() - bt0
+                        if telemetry.enabled():
+                            self.ledger.append(step=sd.name, event="span", span="batch",
+                                               batch=batch["index"], t0=round(bt0, 6),
+                                               elapsed=round(b_elapsed, 6))
                         self.ledger.append_batch_done(
-                            sd.name, batch["index"], elapsed=time.time() - bt0,
+                            sd.name, batch["index"], elapsed=b_elapsed,
                             attempts=outcome.attempts, result=outcome.value)
                         if not self._first_batch_noted and hasattr(step, "launch_batch"):
                             # time to the first persisted batch of a device step
                             self._first_batch_noted = True
+                            ttfb = time.time() - self._run_wall_t0
                             self.ledger.append(
                                 step=sd.name, event="first_batch",
                                 first_batch_index=batch["index"],
-                                time_to_first_batch_s=round(time.time() - self._run_wall_t0,
-                                                            6))
+                                time_to_first_batch_s=round(ttfb, 6))
+                            metrics.gauge("tmx_time_to_first_batch_seconds").set(round(ttfb, 6))
+                        self._note_straggler(sd.name, batch["index"], outcome.value)
                         qc_flagged += self._note_qc(sd.name, batch["index"], outcome.value)
                         if qc_site_budget and not qc_budget_noted \
                                 and qc_flagged > qc_site_budget:
                             qc_budget_noted = True  # a warning, never a failure
                             self.ledger.append(step=sd.name, event="qc_budget_exceeded",
                                                flagged=qc_flagged, budget=qc_site_budget)
+                            metrics.counter("tmx_qc_budget_exceeded_total", step=sd.name).inc()
                             logger.warning("%s: QC flagged %d sites, more than the budget "
                                            "(%d)", sd.name, qc_flagged, qc_site_budget)
+                        metrics.counter("tmx_batches_done_total", step=sd.name).inc()
+                        metrics.histogram("tmx_batch_seconds", step=sd.name).observe(b_elapsed)
+                        if outcome.attempts > 1:
+                            metrics.counter("tmx_batch_retries_total", step=sd.name).inc(
+                                outcome.attempts - 1)
                         results.append(outcome.value)
                         bt0 = time.time()
                         continue
@@ -699,6 +893,8 @@ class Workflow:
                         "classification": outcome.classification,
                     }
                     self.ledger.append(step=sd.name, event="batch_failed", **failure)
+                    metrics.counter("tmx_batches_failed_total", step=sd.name).inc()
+                    metrics.counter("tmx_batches_quarantined_total", step=sd.name).inc()
                     failed.append(failure)
                     bt0 = time.time()
                     if len(failed) > budget:
@@ -712,6 +908,7 @@ class Workflow:
                                  failure["error"], len(failed), budget)
                 distributed.sync_hosts(f"{sd.name} batches")
                 collected = self._call_collect(step, results)
+            metrics.histogram("tmx_step_seconds", step=sd.name).observe(time.time() - t0)
             extra = {"pipeline_stats": pstats.summary()} if pstats is not None else {}
             if failed:
                 # no step_done: resume re-attempts the quarantined batches
@@ -719,19 +916,37 @@ class Workflow:
                 self.ledger.append(step=sd.name, event="step_partial",
                                    elapsed=time.time() - t0, collected=collected,
                                    quarantined=quarantine, **extra)
+                metrics.counter("tmx_steps_partial_total", step=sd.name).inc()
                 return {"n_batches": len(batches), "collected": collected,
                         "quarantined": quarantine}
             self.ledger.append(step=sd.name, event="step_done", elapsed=time.time() - t0,
                                collected=collected, **extra)
+            metrics.counter("tmx_steps_done_total", step=sd.name).inc()
             return {"n_batches": len(batches), "collected": collected}
+        except PreemptedError as e:
+            # a drain, not a failure: the ledger boundary is clean
+            if e.step is None:
+                e.step = sd.name
+            if e.reason == "signal":
+                e.reason = self._stop_reason()
+            self._note_preempted(e)
+        except FaultInjected as e:
+            if e.fatal:
+                raise  # a simulated hard crash: no further ledger writes
+            self.ledger.append(step=sd.name, event="step_failed", error=str(e),
+                               exception=type(e).__name__, batch=current_batch)
+            telemetry.get_registry().counter("tmx_steps_failed_total", step=sd.name).inc()
+            raise WorkflowError(f"step '{sd.name}' failed: {e}") from e
         except WorkflowError as e:
             # the quarantine budget overflow: the original class stays
             # visible through __cause__
             self.ledger.append(step=sd.name, event="step_failed", error=str(e),
                                exception=type(e.__cause__ or e).__name__,
                                batch=current_batch)
+            telemetry.get_registry().counter("tmx_steps_failed_total", step=sd.name).inc()
             raise
         except Exception as e:
             self.ledger.append(step=sd.name, event="step_failed", error=str(e),
                                exception=type(e).__name__, batch=current_batch)
+            telemetry.get_registry().counter("tmx_steps_failed_total", step=sd.name).inc()
             raise WorkflowError(f"step '{sd.name}' failed: {e}") from e

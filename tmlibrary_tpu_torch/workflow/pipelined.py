@@ -28,16 +28,27 @@ Semantics (the same as the reference's):
 - **Bit-identity**: dispatch happens on the calling thread in batch
   order and one persist worker drains in submission order.
 
-The reference also emits spans, telemetry gauges, fault-injection
-hooks, a phase watchdog, a graceful drain on preemption and
-compile-ahead warming; the port keeps plain per-phase wall times
-(:class:`PipelineStats`) and none of the rest yet (ROADMAP A item 11).
+- **Graceful drain**: ``should_stop`` is polled before each launch;
+  when it trips, every launched batch persists and yields, then
+  :class:`PreemptedError` carries the drain summary out.
+- **Telemetry and faults**: with telemetry on, each batch's phases are
+  ``span`` events (emitted through ``on_event`` on the calling thread,
+  just before the batch is yielded), ``tmx_pipeline_phase_seconds``
+  histograms and the ``tmx_pipeline_inflight`` gauge; the ``persist``
+  fault site fires inside the persist phase; a ``watchdog``
+  (:class:`~tmlibrary_tpu_torch.resilience.PhaseWatchdog`) arms the
+  launch, block and persist phases.
+
+Not ported: the reference's compile-ahead warming (the port compiles
+nothing per capacity rung) and its p50/p95 and device/host split in
+``summary()``, which belong to the profiling plumbing (ROADMAP A item 11).
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import logging
 import threading
 import time
@@ -45,10 +56,19 @@ from typing import Any, Callable, Iterable, Iterator
 
 import torch
 
+from tmlibrary_tpu_torch import faults, telemetry
+from tmlibrary_tpu_torch.errors import PreemptedError
+
 logger = logging.getLogger(__name__)
 
 #: the executor's phases, in the order a batch passes them
 PIPELINE_PHASES = ("prefetch_wait", "dispatch", "device_block", "persist")
+
+#: the resource each phase spends (the ``resource`` of its span)
+PHASE_RESOURCE = {"prefetch_wait": "host", "dispatch": "device",
+                  "device_block": "device", "persist": "host"}
+
+_NULL_CM = contextlib.nullcontext()
 
 #: messages that signal memory pressure from too-deep pipelining
 _RESOURCE_PATTERNS = (
@@ -125,16 +145,25 @@ class PipelineStats:
     Thread-safe: dispatch is timed on the calling thread, device block
     and persist on the persist worker."""
 
-    def __init__(self, depth: int, source: str = "explicit"):
+    def __init__(self, depth: int, source: str = "explicit", step: str = ""):
         self.depth = int(depth)
         self.source = source
+        self.step = step
         self._lock = threading.Lock()
         self._phases = {p: [0.0, 0.0, 0] for p in PIPELINE_PHASES}
         self._batches = 0
         self._clamps: list[dict] = []
         self._per_batch: dict = {}
+        reg = telemetry.get_registry()
+        self._reg_hist = {p: reg.histogram("tmx_pipeline_phase_seconds",
+                                           step=step or "unknown", phase=p)
+                          for p in PIPELINE_PHASES}
+        #: batch index -> [(phase, seconds, wall t0)], drained by the
+        #: executor on the calling thread as ``span`` events
+        self._batch_spans: dict = {}
 
-    def record(self, phase: str, seconds: float, batch=None) -> None:
+    def record(self, phase: str, seconds: float, batch=None, t0: float | None = None) -> None:
+        self._reg_hist[phase].observe(seconds)
         with self._lock:
             acc = self._phases[phase]
             acc[0] += seconds
@@ -143,6 +172,14 @@ class PipelineStats:
             if batch is not None:
                 times = self._per_batch.setdefault(batch, {})
                 times[phase] = times.get(phase, 0.0) + seconds
+                if telemetry.enabled():
+                    self._batch_spans.setdefault(batch, []).append(
+                        (phase, seconds, t0 if t0 is not None else 0.0))
+
+    def pop_batch_spans(self, batch) -> list[tuple[str, float, float]]:
+        """Drain the buffered phase records of ``batch``."""
+        with self._lock:
+            return self._batch_spans.pop(batch, [])
 
     def per_batch(self) -> dict:
         """``{batch index: {phase: seconds}}`` in the order batches began."""
@@ -177,8 +214,10 @@ class PipelinedExecutor:
 
     ``run(batches)`` is a generator of ``(batch, result)`` in submission
     order; ``stats`` is an optional :class:`PipelineStats`;
-    ``on_event(**event)`` receives ``depth_clamped`` events.  One persist
-    worker drains the window in submission order."""
+    ``on_event(**event)`` receives ``depth_clamped`` and ``span`` events.
+    ``should_stop`` is polled before each launch; ``watchdog`` arms the
+    launch/block/persist phases.  One persist worker drains the window
+    in submission order."""
 
     def __init__(
         self,
@@ -186,6 +225,8 @@ class PipelinedExecutor:
         depth: int | None = None,
         stats: PipelineStats | None = None,
         on_event: Callable[..., None] | None = None,
+        should_stop: Callable[[], bool] | None = None,
+        watchdog=None,
     ):
         if depth is None:
             depth, _ = resolve_pipeline_depth(None, getattr(step, "device", None))
@@ -193,6 +234,8 @@ class PipelinedExecutor:
         self.depth = max(1, int(depth))
         self.stats = stats
         self.on_event = on_event
+        self.should_stop = should_stop
+        self.watchdog = watchdog
 
     # ------------------------------------------------------------------ run
     def run(self, batches: Iterable[dict]) -> Iterator[tuple[dict, dict]]:
@@ -222,16 +265,38 @@ class PipelinedExecutor:
                     continue  # _run_window drained: pos is the failed batch
                 raise
 
+    # ---------------------------------------------------------------- spans
+    def _flush_spans(self, batch: dict) -> None:
+        """The buffered phase times of a finished batch as ``span``
+        events, on the calling thread, before the batch is yielded."""
+        if self.stats is None or self.on_event is None:
+            return
+        idx = batch.get("index")
+        if idx is None:
+            return
+        for phase, seconds, t0 in self.stats.pop_batch_spans(idx):
+            self.on_event(event="span", span=phase, batch=idx, t0=round(t0, 6),
+                          elapsed=round(seconds, 6),
+                          resource=PHASE_RESOURCE.get(phase, "host"))
+
     # --------------------------------------------------------------- window
     def _run_window(self, batches: list[dict]) -> Iterator[tuple[dict, dict]]:
         step = self.step
         stats = self.stats
+        step_name = getattr(step, "name", "") or "unknown"
+        watchdog = self.watchdog
 
-        def timed(phase: str, idx, fn, *args):
+        def armed(phase: str, idx):
+            return _NULL_CM if watchdog is None else watchdog.arm(phase, step=step_name,
+                                                                   batch=idx)
+
+        def timed(phase: str, idx, fn, *args, arm: str | None = None):
+            w0 = time.time()
             t0 = time.perf_counter()
-            out = fn(*args)
+            with armed(arm, idx) if arm else _NULL_CM:
+                out = fn(*args)
             if stats is not None:
-                stats.record(phase, time.perf_counter() - t0, idx)
+                stats.record(phase, time.perf_counter() - t0, idx, t0=w0)
             return out
 
         prefetcher = None
@@ -247,20 +312,46 @@ class PipelinedExecutor:
         window: collections.deque = collections.deque()
         prefetched: dict[int, concurrent.futures.Future] = {}
 
+        def persist(eff: dict, ctx, idx) -> dict:
+            # a fault after the device work, before the outputs are durable
+            faults.maybe_fire("persist", step=step_name, batch=idx)
+            return step.persist_batch(eff, ctx)
+
         def persist_task(eff: dict, ctx, idx) -> dict:
             if hasattr(step, "block_batch"):
-                timed("device_block", idx, step.block_batch, ctx)
-            result = timed("persist", idx, step.persist_batch, eff, ctx)
+                timed("device_block", idx, step.block_batch, ctx, arm="block")
+            result = timed("persist", idx, persist, eff, ctx, idx, arm="persist")
             if stats is not None:
                 stats.batch_done()
             return result
 
+        def note_inflight() -> None:
+            if telemetry.enabled():
+                telemetry.get_registry().gauge("tmx_pipeline_inflight",
+                                               step=step_name).set(len(window))
+
         def pop_one() -> tuple[dict, dict]:
             batch, fut = window.popleft()
-            return batch, fut.result()
+            note_inflight()
+            result = fut.result()
+            self._flush_spans(batch)
+            return batch, result
 
         try:
             for i, batch in enumerate(batches):
+                if self.should_stop is not None and self.should_stop():
+                    # drain: every launched batch persists and yields
+                    # (the caller ledgers each), then the summary
+                    n0 = len(window)
+                    drained = 0
+                    while window:
+                        yield pop_one()
+                        drained += 1
+                    raise PreemptedError(
+                        f"preempted before batch {batch.get('index', i)}: drained "
+                        f"{drained}/{n0} in-flight, abandoned {len(batches) - i} un-launched",
+                        step=step_name, in_flight=n0, drained=drained,
+                        abandoned=len(batches) - i)
                 if prefetcher is not None:
                     # keep up to `depth` loads ahead of the dispatch point
                     for j in range(i, min(i + self.depth, len(batches))):
@@ -273,7 +364,8 @@ class PipelinedExecutor:
                     pre = None
                     if i in prefetched:
                         pre = timed("prefetch_wait", idx, prefetched.pop(i).result)
-                    eff, ctx = timed("dispatch", idx, step.launch_batch, batch, pre)
+                    eff, ctx = timed("dispatch", idx, step.launch_batch, batch, pre,
+                                     arm="launch")
                 except Exception:
                     # drain the WHOLE window before the failure propagates
                     while window:
@@ -282,6 +374,7 @@ class PipelinedExecutor:
                 window.append((batch, persister.submit(
                     persist_task, batch if eff is None else eff, ctx, idx
                 )))
+                note_inflight()
                 while len(window) > self.depth:
                     yield pop_one()
             while window:

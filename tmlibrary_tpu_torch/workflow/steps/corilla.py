@@ -25,9 +25,12 @@ no-op call when QC is off), as the reference does (``:148-158``).
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from tmlibrary_tpu_torch import qc as qc_mod
+from tmlibrary_tpu_torch import telemetry
 from tmlibrary_tpu_torch.ops.smooth import gaussian_smooth
 from tmlibrary_tpu_torch.ops.stats import (
     welford_finalize,
@@ -71,6 +74,7 @@ class IlluminationStatisticsCalculator(Step):
         ]
 
     def run_batch(self, batch: dict) -> dict:
+        bt0 = time.perf_counter()
         args = batch["args"]
         cycle, channel = batch["cycle"], batch["channel"]
         exp = self.store.experiment
@@ -115,6 +119,9 @@ class IlluminationStatisticsCalculator(Step):
         qc_mod.get_session().observe_illumination(
             ch_name, host["percentile_keys"], host["percentile_values"])
         self.store.write_illumstats(host, cycle=cycle, channel=channel)
+        # one batch is one channel
+        telemetry.get_registry().throughput("tmx_corilla_channels_per_sec").add(
+            1, time.perf_counter() - bt0)
         return {"cycle": cycle, "channel": channel, "n_sites": int(host["n"])}
 
     def delete_previous_output(self) -> None:

@@ -23,8 +23,8 @@ mapobject types.  With ``n_devices > 1`` on a process group (clamped to
 it) the levels are computed row-sharded over that many ranks
 (:func:`~tmlibrary_tpu_torch.parallel.halo.sharded_pyramid_levels`,
 ``:119-127``), bit-identical to one rank's; every member stitches the
-plate, and only rank 0 writes the tiles.  The tiles/s telemetry of the
-JAX package is not ported (ROADMAP A item 11).
+plate, and only rank 0 writes the tiles.  Each channel's tiles count into the
+``tmx_illuminati_tiles_per_sec`` throughput gauge, as the reference's do.
 """
 
 from __future__ import annotations
@@ -33,10 +33,12 @@ import concurrent.futures as cf
 import json
 import os
 import shutil
+import time
 
 import numpy as np
 import torch
 
+from tmlibrary_tpu_torch import telemetry
 from tmlibrary_tpu_torch.io import parquet, png
 from tmlibrary_tpu_torch.models.experiment import SiteRef
 from tmlibrary_tpu_torch.models.image import IllumstatsContainer
@@ -116,6 +118,7 @@ class PyramidBuilder(Step):
         return mosaic
 
     def run_batch(self, batch: dict) -> dict:
+        bt0 = time.perf_counter()
         args = batch["args"]
         exp = self.store.experiment
         mesh = spatial_mesh(max(1, min(int(args["n_devices"]), distributed.world_size())))
@@ -167,6 +170,8 @@ class PyramidBuilder(Step):
             max_zoom=len(levels) - 1,
         )
         (out_dir / "layer.json").write_text(json.dumps(layer.to_dict()))
+        telemetry.get_registry().throughput("tmx_illuminati_tiles_per_sec").add(
+            n_tiles, time.perf_counter() - bt0)
         return {
             "channel": channel,
             "mosaic_shape": list(mosaic.shape),

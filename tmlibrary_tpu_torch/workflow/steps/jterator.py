@@ -58,8 +58,16 @@ resolves in the other.  What the port does with them:
   measure that the reference's ``"fused"`` strategy runs.
 - ``batch_size=0`` is 32 (the port has no tuning sweep of the card).
 - The reference's compile-ahead speculation (``:1303-1423``) has no
-  meaning without a compile step and is left out, as are its telemetry
-  gauges.
+  meaning without a compile step and is left out, as are its bucket
+  and schedule gauges.  The step counts ``tmx_jterator_sites_total`` and
+  keeps ``tmx_jterator_sites_per_sec`` over the wall time since its
+  first batch, as the reference's does; at several ranks
+  :meth:`ImageAnalysisRunner.run_batch` gathers each rank's completion
+  time on rank 0 (:func:`~tmlibrary_tpu_torch.telemetry.device_wall_times`)
+  into ``tmx_device_batch_seconds`` and the straggler skew, and the batch
+  summary carries ``device_wall_times``/``straggler_skew_s``.  The first
+  batch of each program (description digest and capacity) in a process
+  counts cold (:func:`~tmlibrary_tpu_torch.aotstore.note_program`).
 - Feature shards are Parquet
   (:meth:`~tmlibrary_tpu_torch.models.store.ExperimentStore.append_features`),
   built column-wise with the reference's rows, order and values.
@@ -91,7 +99,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tmlibrary_tpu_torch import capacity
+from tmlibrary_tpu_torch import aotstore, capacity, telemetry
 from tmlibrary_tpu_torch import qc as qc_mod
 from tmlibrary_tpu_torch.errors import JobDescriptionError, PipelineError, StoreError
 from tmlibrary_tpu_torch.io import parquet
@@ -575,12 +583,50 @@ class ImageAnalysisRunner(Step):
 
     # -------------------------------------------------------------------- run
     def run_batch(self, batch: dict) -> dict:
+        self._mark_work_start()
         batch = self._effective_batch(batch)
         if batch["args"].get("layout", "sites") == "spatial":
             return self._persist_spatial(batch, self._launch_spatial(batch))
         cap = self._route_capacity(batch)
+        self._note_program(batch, cap)
+        t0 = time.perf_counter()
         result = self._launch(batch, capacity_=cap)
-        return self._persist(batch, result, capacity_=cap)
+        times = telemetry.device_wall_times(t0, self.device) if telemetry.enabled() else []
+        out = self._persist(batch, result, capacity_=cap)
+        if len(times) > 1:
+            skew = telemetry.record_device_times(times, step=self.name,
+                                                 batch=batch.get("index"))
+            # rides the summary into batch_done; the engine thread
+            # appends the straggler event
+            out["device_wall_times"] = {d: round(float(t), 6) for d, t in times}
+            out["straggler_skew_s"] = round(float(skew), 6)
+        return out
+
+    # -------------------------------------------------- throughput gauge
+    # sites/s over the wall time since the first batch, pipelined
+    # overlap included
+    def _mark_work_start(self) -> None:
+        if telemetry.enabled() and getattr(self, "_sites_t0", None) is None:
+            self._sites_lock = threading.Lock()
+            self._sites_t0 = time.perf_counter()
+            self._sites_done = 0
+
+    def _note_sites(self, n: int) -> None:
+        if not telemetry.enabled() or getattr(self, "_sites_t0", None) is None:
+            return
+        with self._sites_lock:
+            self._sites_done += int(n)
+            elapsed = time.perf_counter() - self._sites_t0
+            done = self._sites_done
+        reg = telemetry.get_registry()
+        reg.counter("tmx_jterator_sites_total").inc(n)
+        if elapsed > 0:
+            reg.gauge("tmx_jterator_sites_per_sec").set(done / elapsed)
+
+    def _note_program(self, batch: dict, cap: int) -> None:
+        """Count the first batch of this program in the process cold."""
+        aotstore.note_program(
+            f"jterator:{description_digest(self._description(batch['args']))}:{cap}")
 
     def run_batches_pipelined(self, batches, depth: int | None = None):
         """Generator over ``(batch, result_summary)`` in batch order, with
@@ -594,7 +640,7 @@ class ImageAnalysisRunner(Step):
                 yield batch, self.run_batch(batch)
             return
         depth, source = resolve_pipeline_depth(depth, self.device)
-        stats = PipelineStats(depth, source)
+        stats = PipelineStats(depth, source, step=self.name)
         try:
             yield from PipelinedExecutor(self, depth=depth, stats=stats).run(batches)
         finally:
@@ -613,12 +659,14 @@ class ImageAnalysisRunner(Step):
     def launch_batch(self, batch: dict, prefetched=None):
         """Dispatch; returns ``(effective_batch, ctx)`` with the un-fetched
         results and a CUDA event recorded after the launch in ``ctx``."""
+        self._mark_work_start()
         batch = self._effective_batch(batch)
         if batch["args"].get("layout", "sites") == "spatial":
             payload = self._launch_spatial(batch, prefetched)
             cap = None
         else:
             cap = self._route_capacity(batch)
+            self._note_program(batch, cap)
             payload = self._launch(batch, prefetched, capacity_=cap)
         done = None
         if self.device.type == "cuda":
@@ -836,6 +884,7 @@ class ImageAnalysisRunner(Step):
                                           bool(saturated))
             if summary_qc:
                 summary["qc"] = summary_qc
+        self._note_sites(n_valid)
         return summary
 
     def _observe_qc(self, sites, qc_dev: dict, counts: dict, measurements: dict,
@@ -1073,6 +1122,7 @@ class ImageAnalysisRunner(Step):
                 figures.write_mosaic_figure(self.store.root / "figures", fam, fam_mosaic,
                                             fam_labels, shard)
         stages["writes"] = time.perf_counter() - t0 - stages["features"]
+        self._note_sites(len(sites))
         return {"n_sites": len(sites),
                 "objects": {fam: count for fam, _, _ in families},
                 "mosaic_shape": [int(labels.shape[0]), int(labels.shape[1])],
