@@ -253,12 +253,27 @@ Phases (any failure exits non-zero before the last line):
    wait and scheduling delay p50/p95, admission us a decision, query
    p50/p95 fused and unfused, the telemetry overhead and the reclaim
    seconds beside the card, and a ``serve: {...}`` line.
-15. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+15. The compile and profile plumbing (``phase_profile``,
+   ``profile_p96x4_256``; phases 1-14 run with the kernel-library store
+   off): phase 5's plate (one cycle) through ``workflow submit --device
+   cuda``, once with ``--profile`` to count each program's first call,
+   then plain and with ``--profile`` in turns (stores equal; the trace's
+   kernel events of rows 1-4 equal to their launch counters; the step and
+   batch ranges; the wall ratio), ``workflow/perf.json`` and ``perf
+   --root --json``, ``perf history`` on a regressed record (exit 1), the
+   cuda-scoped tuned batch and depth, the three submit options (the
+   defaults' store), and the store on in a fresh directory: an ``nvcc``
+   build exported, ``cache list``, a subprocess importing it with an
+   empty build directory and ``nvcc`` off its PATH (its config 3 batch of 8 sites
+   equal to this process's), ``cache gc`` dropping a planted stale
+   entry; a ``profile: {...}`` line with the card.
+16. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness; rows 2-4 add ``spatial_launches``, their launches
    on phase 9's secondary run, and rows 2-3 ``spatial``, the kernel at
    the mosaic's shape; rows 1-4 add ``serve_launches``, their launches in
-   phase 14's restarted daemon), and as the last line
+   phase 14's restarted daemon, and ``profile_launches``, phase 15's
+   traced submit's), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of ``tmlibrary_tpu``.
@@ -1440,6 +1455,9 @@ def grouped_stats_on_feature_paths(torch, fm, measure, label_sets, compare) -> f
 
 def main() -> int:
     started = time.perf_counter()
+    # phases 1-14 build the kernels from the sources, not from the
+    # kernel-library store (phase 15 turns it on in a fresh directory)
+    os.environ["TMX_AOT_STORE"] = "0"
     try:
         import torch
     except ImportError:
@@ -1700,6 +1718,12 @@ def main() -> int:
         for r in records:
             if r["name"] in served["launches"]:
                 r["serve_launches"] = served["launches"][r["name"]]
+
+        # ---------------------------------------------------------- phase 15
+        profiled = phase_profile(torch, wrappers, card)
+        for r in records:
+            if r["name"] in profiled["launches"]:
+                r["profile_launches"] = profiled["launches"][r["name"]]
         if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except Exception as e:  # the smoke's boundary: report and exit non-zero
@@ -1716,7 +1740,8 @@ def main() -> int:
     # rows 1-9 add the launch alone beside the wrapper's `ms`, row 7 its A/B
     print(json.dumps({"kernels": [{k: r[k] for k in order + ["launch_ms", "ab_ms",
                                                             "spatial_launches", "spatial",
-                                                            "serve_launches"]
+                                                            "serve_launches",
+                                                            "profile_launches"]
                                    if k in r}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {
@@ -6088,6 +6113,315 @@ def phase_serve(torch, wrappers, card, device: str = "cuda") -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=60)
+        shutil.rmtree(base, ignore_errors=True)
+
+
+# ------------------------------------------------------------------ phase 15
+#: the trace's kernel events of rows 1-4, by the names of their __global__
+#: functions (one event a launch of the wrapper: row 2's last phase, row
+#: 4's walk)
+TRACE_KERNELS = {"fill_holes_flood": r"fill_(onchip|global)_kernel",
+                 "cc_min_propagate": r"uf_flatten",
+                 "watershed_flood": r"ws_(onchip|global)_kernel",
+                 "grouped_stats": r"gs_walk"}
+#: profiled and plain submits, in turns, for the profiler's overhead
+PROFILE_PAIRS = 3
+
+IMPORT_CHECK = r"""
+import json, sys, time
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from tmlibrary_tpu_torch import aotstore, benchmarks, telemetry
+from tmlibrary_tpu_torch.jterator import pipeline
+from tmlibrary_tpu_torch.ops import _cuda
+_cuda.BUILD_DIR = Path(sys.argv[7])
+
+
+def no_nvcc():
+    raise RuntimeError("this process has no nvcc")
+
+
+_cuda._nvcc = no_nvcc
+t0 = time.perf_counter()
+_cuda.lib()
+load_s = time.perf_counter() - t0
+n, size = int(sys.argv[3]), int(sys.argv[4])
+data = benchmarks.synthetic_cell_painting_batch(n, size=size, seed=int(sys.argv[6]))
+raw, stats, shifts = pipeline.from_jax_inputs(data, {}, [[0, 0]] * n, device="cuda")
+fn = pipeline.ImageAnalysisPipeline(benchmarks.cell_painting_description(), int(sys.argv[5]),
+                                    device="cuda").build_batch_fn()
+res = pipeline.site_result_to_numpy(fn(raw, stats, shifts))
+np.savez(sys.argv[2], **{f"labels_{k}": v for k, v in res.objects.items()},
+         **{f"counts_{k}": v for k, v in res.counts.items()})
+snap = telemetry.get_registry().snapshot()
+print(json.dumps({
+    "nvcc_builds": _cuda.nvcc_builds, "build_s": _cuda.last_build_seconds, "load_s": load_s,
+    "import_hits": sum(c["value"] for c in snap["counters"]
+                       if c["name"] == "tmx_compile_import_hit_total"),
+    "saved_s": aotstore.seconds_saved(), "library": str(_cuda.build())}))
+"""
+
+
+def trace_counts(path: Path) -> tuple[dict, set]:
+    """Rows 1-4's kernel events and the ``record_function`` range names of
+    a Chrome trace."""
+    import re
+
+    doc = json.loads(Path(path).read_text())
+    kernels = [e["name"] for e in doc["traceEvents"] if e.get("cat") == "kernel"]
+    if not kernels:
+        raise SmokeFailure(f"profile: no CUDA kernel in the trace {path} (CUPTI missing?)")
+    counts = {k: sum(1 for n in kernels if re.search(p, n)) for k, p in TRACE_KERNELS.items()}
+    ranges = {e["name"] for e in doc["traceEvents"] if e.get("cat") == "user_annotation"}
+    return counts, ranges
+
+
+def phase_profile(torch, wrappers, card) -> dict:
+    """Phase 15, ``profile_p96x4_256``: the compile and profile plumbing on
+    phase 5's plate (96 wells at 2x2 sites of 256x256, 384 sites, one
+    cycle of DAPI and Actin), config 3 at ``max_objects=256`` in batches
+    of 64 through ``workflow submit --device cuda``.  In order: one
+    ``--profile`` submit that takes each program's first call and counts
+    its FLOPs and bytes, then plain and
+    ``--profile`` submits in turns (:data:`PROFILE_PAIRS` pairs; the
+    stores equal bit for bit, the first timed traced run's kernel events of
+    rows 1-4 equal to their launch counters over the run, the step and
+    batch ranges in the trace, the wall ratio); ``workflow/perf.json``
+    and ``perf --root --json``; ``perf history`` on a regressed ``cuda``
+    record (exit 1); the tuned link with the repo's ``tuning/TUNING.json``
+    (batch 32, depth 8) and with a ``cuda`` verdict; the three submit
+    options in one submit (the defaults' store); the kernel-library
+    store on in a fresh directory: a build into an empty directory
+    exports the library, ``cache list`` shows it, a subprocess with an
+    empty build directory and ``nvcc`` off its PATH (and any call of it
+    failing) imports it and its config 3
+    batch of 8 sites equals this process's, ``cache gc`` drops a planted
+    stale entry.  Prints the ``profile:`` line and returns it."""
+    import statistics
+
+    import numpy as np
+
+    from tmlibrary_tpu_torch import aotstore, benchmarks, capacity, cli, perf, tuning
+    from tmlibrary_tpu_torch.jterator import pipeline
+    from tmlibrary_tpu_torch.models.experiment import grid_experiment
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.ops import _cuda
+    from tmlibrary_tpu_torch.workflow import engine, get_step
+    from tmlibrary_tpu_torch.workflow.pipelined import resolve_pipeline_depth
+
+    started = time.perf_counter()
+    base = Path(__file__).resolve().parent / "build" / f"phase15.{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    saved_env = {k: os.environ.get(k) for k in ("TMX_AOT_STORE", "TMX_AOT_STORE_DIR",
+                                                 "TMX_TUNING_JSON")}
+    try:
+        exp = grid_experiment("phase15", well_rows=PLATE[0], well_cols=PLATE[1],
+                              sites_per_well=SITES_PER_WELL, channel_names=("DAPI", "Actin"),
+                              site_shape=(SIZE, SIZE))
+        n = exp.n_sites
+        data = benchmarks.synthetic_cell_painting_batch(n, size=SIZE, seed=SEED)
+        roots = {name: base / name for name in ("plain", "traced", "options")}
+        store = ExperimentStore.create(roots["plain"], exp)
+        for c, ch in enumerate(("DAPI", "Actin")):
+            store.write_sites(data[ch].astype(np.uint16), list(range(n)), channel=c)
+        for name in ("traced", "options"):
+            copy_part(roots["plain"], roots[name], "images")
+        desc_path = base / "workflow.json"
+        engine.WorkflowDescription.canonical({"jterator": {
+            "pipe": str(base / "cp.pipe.json"), "batch_size": STEP_BATCH,
+            "max_objects": MAX_OBJECTS}}).save(desc_path)
+        (base / "cp.pipe.json").write_text(json.dumps(benchmarks.CELL_PAINTING_PIPE))
+        print(f"phase 15, profile_p96x4_256: config 3 through `workflow submit --device cuda` "
+              f"over {n} sites ({PLATE[0]}x{PLATE[1]} wells at {SITES_PER_WELL[0]}x"
+              f"{SITES_PER_WELL[1]} sites of {SIZE}x{SIZE}, one cycle), plain and "
+              f"--profile in turns; {card}")
+        library_build = next((p for p in perf.perf_profiles()
+                              if p["program"] == "cuda_kernels"), None)
+        perf.reset_profiles()
+
+        def submit(root: Path, *extra) -> float:
+            capacity.reset_routing_history()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_cli(cli, ["workflow", "submit", "--root", str(root), "--description",
+                          str(desc_path), "--device", "cuda", *extra])
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        # 1. plain and traced submits in turns, after one untimed traced
+        # submit that takes each program's first call and counts its cost
+        submit(roots["traced"], "--profile", str(base / "trace_first"))
+        walls = {"plain": [], "traced": []}
+        launches = counts = ranges = None
+        for turn in range(PROFILE_PAIRS):
+            walls["plain"].append(submit(roots["plain"]))
+            for w in wrappers.values():
+                w.launches = 0
+            trace_dir = base / f"trace{turn}"
+            walls["traced"].append(submit(roots["traced"], "--profile", str(trace_dir)))
+            if turn == 0:
+                launches = {k: wrappers[k].launches for k in ROWS_1_4}
+                (trace,) = trace_dir.glob("*.pt.trace.json")
+                counts, ranges = trace_counts(trace)
+            same_store(ExperimentStore.open(roots["traced"]),
+                       ExperimentStore.open(roots["plain"]), "profiled vs plain submit")
+        if counts != launches or not all(launches.values()):
+            raise SmokeFailure(f"profile: trace kernels {counts} vs launch counters {launches}")
+        if "run/step:jterator" not in ranges or not any(r.startswith("batch:") for r in ranges):
+            raise SmokeFailure(f"profile: step and batch ranges missing: {sorted(ranges)[:20]}")
+        ratios = [t / p for t, p in zip(walls["traced"], walls["plain"])]
+        overhead = {"ratios": ratios, "median": statistics.median(ratios),
+                    "min": min(ratios), "max": max(ratios), "plain_s": walls["plain"],
+                    "traced_s": walls["traced"]}
+        print(f"  traced run: rows 1-4 kernel events {counts} == launch counters; ranges "
+              f"run/step:jterator and {sum(r.startswith('batch:') for r in ranges)} batch "
+              f"ranges; wall traced/plain over {PROFILE_PAIRS} pairs in turns: median "
+              f"{overhead['median']:.4f} (min {overhead['min']:.4f}, max "
+              f"{overhead['max']:.4f}); {card}")
+
+        # 2. the perf store and its verbs
+        wf = roots["plain"] / "workflow"
+        snap = json.loads((wf / "perf.json").read_text())
+        jt = [p for p in snap["programs"] if p["program"].startswith("jterator:")]
+        if not jt or not all(p["compiles"] >= 1 and p["compile_seconds_total"] > 0
+                             and p["flops"] is not None and p["bytes"]
+                             and p["bound_by"] in ("memory", "compute")
+                             and p["backend"] == "cuda" for p in jt):
+            raise SmokeFailure(f"profile: perf.json programs {snap['programs']}")
+        if snap["card"]["ridge_flops_per_byte"] <= 0 or not snap["card"]["power_limit"]:
+            raise SmokeFailure(f"profile: perf.json card {snap['card']}")
+        doc = json.loads(run_cli(cli, ["perf", "--root", str(roots["plain"]), "--json",
+                                       "--top", "0"]))
+        stats = next(e["pipeline_stats"] for e in engine.RunLedger(wf / "ledger.jsonl").events()
+                     if e.get("event") == "step_done")
+        if doc["programs"] != snap["programs"] or [(r["device_s"], r["host_s"])
+                                                  for r in doc["phases"]] != \
+                [(stats["device_s"], stats["host_s"])]:
+            raise SmokeFailure("profile: `perf --json` does not reproduce perf.json and the "
+                               "ledger's phase split")
+        batch_s = [e["elapsed"] for e in engine.RunLedger(wf / "ledger.jsonl").events()
+                   if e.get("span") == "batch"]
+        first = max(jt, key=lambda p: p["compile_seconds_total"])
+        hist = base / "history.jsonl"
+        for value in (1000.0, 800.0):
+            tuning.append_bench_history({"metric": "jterator_sites_per_sec", "config": "3",
+                                         "backend": "cuda", "value": value}, str(hist))
+        rc, _ = run_cli_rc(cli, ["perf", "history", "--history", str(hist)])
+        if rc != 1:
+            raise SmokeFailure(f"profile: `perf history` on a regressed record exited {rc}")
+        print(f"  perf.json: {len(jt)} jterator programs, first call (counted) by capacity "
+              f"{ {p['capacity']: p['last_compile_s'] for p in jt} } s against a warm batch of "
+              f"{statistics.median(batch_s):.4f} s (median of {len(batch_s)}), "
+              f"{first['bytes'] / 1e6:.1f} MB, {first['flops']:.4g} FLOPs, "
+              f"{first['bound_by']}-bound against the ridge "
+              f"{snap['card']['ridge_flops_per_byte']:.1f}; `perf --json` reproduces it; "
+              f"`perf history` exits 1 on a 20% regression; {card}")
+
+        # 3. the tuned link on the card
+        os.environ["TMX_TUNING_JSON"] = str(Path(__file__).resolve().parent / "tuning" /
+                                            "TUNING.json")
+        step = get_step("jterator")(store, device="cuda")
+        repo = (step._auto_batch_size(), resolve_pipeline_depth(None, "cuda"))
+        cuda_file = base / "TUNING.cuda.json"
+        cuda_file.write_text(json.dumps({"written_by": "phase 15", "backend": "cuda",
+                                         "best_batch": 48, "best_pipeline": 6}))
+        os.environ["TMX_TUNING_JSON"] = str(cuda_file)
+        tuned = (step._auto_batch_size(), resolve_pipeline_depth(None, "cuda"))
+        if repo != (32, (8, "default")) or tuned != (48, (6, "tuning")):
+            raise SmokeFailure(f"profile: tuned link {repo} with the repo's file, {tuned} "
+                               "with a cuda verdict")
+        os.environ.pop("TMX_TUNING_JSON")
+        print(f"  tuning: the repo's tuning/TUNING.json (a TPU's) leaves batch {repo[0]} and "
+              f"depth {repo[1][0]}; a cuda verdict sets batch {tuned[0]} and depth "
+              f"{tuned[1][0]}")
+
+        # 4. the three submit options in one submit
+        submit(roots["options"], "--reduction-strategy", "fused", "--object-buckets", "off",
+               "--schedule", "off")
+        same_store(ExperimentStore.open(roots["options"]), ExperimentStore.open(roots["plain"]),
+                   "submit options vs defaults")
+        print("  --reduction-strategy fused --object-buckets off --schedule off: the "
+              "defaults' store bit for bit")
+
+        # 5. the kernel-library store, on in a fresh directory
+        os.environ["TMX_AOT_STORE"] = "1"
+        os.environ["TMX_AOT_STORE_DIR"] = str(base / "aot")
+        builds, build_dir = _cuda.nvcc_builds, _cuda.BUILD_DIR
+        _cuda.BUILD_DIR = base / "kernels_built"
+        try:
+            _cuda.build()
+        finally:
+            _cuda.BUILD_DIR = build_dir
+        build_s = _cuda.last_build_seconds
+        if _cuda.nvcc_builds != builds + 1:
+            raise SmokeFailure("profile: the build into an empty directory ran no nvcc")
+        listed = json.loads(run_cli(cli, ["cache", "list", "--json"]))
+        live = [e for e in listed["entries"] if e["program"] == "cuda_kernels"]
+        if len(live) != 1 or live[0]["stale"] or listed["stats"]["dir"] != str(base / "aot"):
+            raise SmokeFailure(f"profile: cache list {listed}")
+        # nvcc off the PATH and out of reach: the import needs no compiler
+        path = [d for d in os.environ.get("PATH", "").split(os.pathsep)
+                if d and not (Path(d) / "nvcc").exists()]
+        env = {**os.environ, "PATH": os.pathsep.join(path),
+               "CUDA_HOME": str(base / "no_cuda_home")}
+        proc = subprocess.run(
+            [sys.executable, "-c", IMPORT_CHECK, str(Path(__file__).resolve().parent),
+             str(base / "imported.npz"), "8", str(SIZE), str(MAX_OBJECTS), str(SEED),
+             str(base / "kernels_imported")],
+            env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise SmokeFailure(f"profile: the importing process failed:\n{proc.stderr[-2000:]}")
+        imported = json.loads(proc.stdout.strip().splitlines()[-1])
+        if imported["nvcc_builds"] != 0 or imported["build_s"] != 0.0 or \
+                imported["import_hits"] != 1 or not imported["saved_s"] > 0:
+            raise SmokeFailure(f"profile: the import {imported}")
+        raw, st8, shifts = pipeline.from_jax_inputs(
+            benchmarks.synthetic_cell_painting_batch(8, size=SIZE, seed=SEED), {},
+            [[0, 0]] * 8, device="cuda")
+        mine = pipeline.site_result_to_numpy(pipeline.ImageAnalysisPipeline(
+            benchmarks.cell_painting_description(), MAX_OBJECTS,
+            device="cuda").build_batch_fn()(raw, st8, shifts))
+        with np.load(base / "imported.npz") as got:
+            for k in mine.objects:
+                if not (np.array_equal(got[f"labels_{k}"], mine.objects[k])
+                        and np.array_equal(got[f"counts_{k}"], mine.counts[k])):
+                    raise SmokeFailure(f"profile: the importing process's {k} differ")
+        meta_path = base / "aot" / f"{live[0]['digest']}.json"
+        planted = "0" * 40
+        shutil.copy(meta_path.with_suffix(".bin"), base / "aot" / f"{planted}.bin")
+        (base / "aot" / f"{planted}.json").write_text(json.dumps(
+            {**json.loads(meta_path.read_text()), "digest": planted,
+             "fingerprint": "stale00000000000"}))
+        gc = json.loads(run_cli(cli, ["cache", "gc", "--json"]))
+        if gc["removed"] != [planted] or gc["kept"] != 1:
+            raise SmokeFailure(f"profile: cache gc {gc}")
+        print(f"  kernel-library store: nvcc build {build_s:.2f} s exported "
+              f"({live[0]['size_bytes']} bytes); an empty build directory imported it in "
+              f"{imported['load_s']:.3f} s with nvcc off its PATH (import hits 1, "
+              f"{imported['saved_s']:.2f} "
+              f"build s saved), its config 3 batch of 8 sites equal to this process's; cache "
+              f"gc dropped the planted stale entry; {card}")
+        phase_s = time.perf_counter() - started
+        line = {"cell": "profile_p96x4_256", "sites": n, "trace_kernels": counts,
+                "launches": launches, "overhead": overhead,
+                "first_call_s": {p["capacity"]: p["last_compile_s"] for p in jt},
+                "warm_batch_s": statistics.median(batch_s),
+                "program_bytes": first["bytes"], "program_flops": first["flops"],
+                "bound_by": first["bound_by"],
+                "library_load_s": library_build and library_build["last_compile_s"],
+                "nvcc_build_s": build_s, "import_load_s": imported["load_s"],
+                "build_s_saved": imported["saved_s"], "tuned": {"repo": repo, "cuda": tuned},
+                "phase_s": phase_s, "card": card}
+        print(f"  phase 15: {phase_s:.1f} s on {card}")
+        print("profile: " + json.dumps(line))
+        return line
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
         shutil.rmtree(base, ignore_errors=True)
 
 if __name__ == "__main__":

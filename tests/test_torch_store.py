@@ -265,12 +265,31 @@ def test_utils_match_the_reference():
         utils.create_partitions([1], 0)
 
 
+#: arguments whose help describes the port's routes and resolution chain
+PORT_HELP = {"jterator": {
+    "batch_size": ("cuda",),
+    "object_buckets": ("cuda-scoped",),
+    "schedule": ("TM_SCHEDULE", "same backend"),
+    "reduction_strategy": ("grouped_stats", "scatter", "setting", "same backend"),
+}}
+
+
 @pytest.mark.parametrize("step", ["metaconfig", "imextract", "corilla", "align", "illuminati",
                                   "jterator"])
 def test_step_schema_equals_the_reference(step):
     port = get_step(step).batch_args
     ref = j_registry.get_step(step).batch_args
-    assert port.to_schema() == ref.to_schema()
+    # the port's own help where it resolves an argument its own way
+    own_help = PORT_HELP.get(step, {})
+
+    def strip(schema):
+        return [{k: v for k, v in a.items() if not (k == "help" and a["name"] in own_help)}
+                for a in schema]
+
+    assert strip(port.to_schema()) == strip(ref.to_schema())
+    helps = {a["name"]: a["help"] for a in port.to_schema()}
+    for name, words in own_help.items():
+        assert all(w in helps[name] for w in words), name
     given = {a["name"]: "src" for a in ref.to_schema() if a["required"]}
     assert port.resolve(given) == ref.resolve(given)
 

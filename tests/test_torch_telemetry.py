@@ -316,17 +316,22 @@ def test_a_failed_telemetry_write_raises(tmp_path):
         telemetry.reset_registry()
 
 
-def test_aotstore_reports_the_directory_it_is_given(tmp_path):
+def test_aotstore_reports_the_directory_it_is_given(tmp_path, monkeypatch):
+    monkeypatch.delenv("TMX_AOT_STORE_DIR", raising=False)
+    monkeypatch.delenv("TM_AOT_STORE_DIR", raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
     aotstore.reset_counts()
     try:
         aotstore.set_process_default_dir(None)
-        assert aotstore.store_stats()["dir"] is None
+        assert aotstore.store_stats()["dir"] == str(
+            tmp_path / "home" / ".cache" / "tmlibrary_tpu_torch" / "aot")
         aotstore.set_process_default_dir(tmp_path / "serve")
         assert aotstore.store_stats()["dir"] == str(tmp_path / "serve")
         assert aotstore.store_stats(tmp_path / "other")["dir"] == str(tmp_path / "other")
         assert aotstore.note_program("p1") and not aotstore.note_program("p1")
         aotstore.note_program("p2")
-        assert aotstore.warm_digests() == ["p2", "p1"]
+        # warm digests are the store's entries, most recently used first
+        assert aotstore.warm_digests() == []
         assert aotstore.counts_snapshot() == {"cold": 2.0}
         assert aotstore.seconds_saved() == 0.0
     finally:

@@ -20,10 +20,10 @@ digest, and :meth:`IvfIndex.ensure` rebuilds it when the digest moved.
 
 Mode resolution (:func:`resolve_index_mode`): an explicit request beats
 ``TMX_ANALYTICS_INDEX``, which beats the ``analytics_index`` setting
-(``TM_ANALYTICS_INDEX``), which beats auto (ivf from
-``TMX_ANALYTICS_INDEX_MIN`` objects, 4096 by default).  The reference's
-link between config and auto, the machine-written tuning verdict, is not
-ported: the port has no tuning file.  Index builds, hits and
+(``TM_ANALYTICS_INDEX``), which beats the tuning verdict measured on the
+asking backend (:func:`tmlibrary_tpu_torch.tuning.tuned_analytics_index`:
+a verdict of another backend sets nothing), which beats auto (ivf from
+``TMX_ANALYTICS_INDEX_MIN`` objects, 4096 by default).  Index builds, hits and
 fallbacks count ``tmx_analytics_index_{builds,hits,fallbacks}_total`` in
 the telemetry registry, as the reference's do; ``IvfIndex.cache_state``
 and :func:`knn_search`'s ``info`` carry the same facts into the result,
@@ -43,7 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from tmlibrary_tpu_torch import config, telemetry
+from tmlibrary_tpu_torch import config, telemetry, tuning
 from tmlibrary_tpu_torch.analytics import ops
 from tmlibrary_tpu_torch.analytics.store import FeatureStore
 from tmlibrary_tpu_torch.atomicio import atomic_write_text
@@ -88,12 +88,14 @@ def _validate(mode: str) -> str:
     return mode
 
 
-def resolve_index_mode(explicit: str | None = None, n_objects: int | None = None
-                       ) -> tuple[str, str]:
+def resolve_index_mode(explicit: str | None = None, n_objects: int | None = None,
+                       device: "str | torch.device | None" = None) -> tuple[str, str]:
     """``("ivf" or "brute", source)``: the explicit request, else
     ``TMX_ANALYTICS_INDEX``, else the ``analytics_index`` setting, else
-    auto by store size; a bad name at any of the first three raises.
-    ``source`` names the link that decided."""
+    the tuning verdict of ``device``'s backend (``cuda`` by default),
+    else auto by store size; a bad name at any of the first three raises
+    (a malformed verdict is ignored).  ``source`` names the link that
+    decided."""
     if explicit and explicit != "auto":
         return _validate(str(explicit)), "payload"
     env = os.environ.get("TMX_ANALYTICS_INDEX")
@@ -102,6 +104,9 @@ def resolve_index_mode(explicit: str | None = None, n_objects: int | None = None
     configured = config.setting("analytics_index", "auto")
     if configured and configured != "auto":
         return _validate(configured), "config"
+    tuned = tuning.tuned_analytics_index(tuning.backend_of(device))
+    if tuned is not None:
+        return tuned, "tuned"
     if n_objects is not None and int(n_objects) >= auto_min_objects():
         return "ivf", "auto"
     return "brute", "auto"
@@ -386,7 +391,8 @@ def knn_search(fs: FeatureStore, x, k: int, queries=None, mode: str | None = Non
     info)``, ``info`` naming the resolved mode and why, and on the ivf
     path the index digest, cache state and recall@k.  An index failure
     falls back to brute force (``info["index_fallback"]``)."""
-    requested, source = resolve_index_mode(mode, n_objects=int(np.asarray(x).shape[0]))
+    requested, source = resolve_index_mode(mode, n_objects=int(np.asarray(x).shape[0]),
+                                           device=device)
     info: dict[str, Any] = {"index": requested, "index_source": source}
     if requested == "ivf":
         try:

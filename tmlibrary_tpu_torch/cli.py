@@ -6,6 +6,10 @@ steps the port has, the same argument names and the same JSON output::
     python -m tmlibrary_tpu_torch.cli create --root DIR --name NAME
     python -m tmlibrary_tpu_torch.cli workflow submit --root DIR [--description wf.yaml]
                                                       [--resume] [--device cuda] [--qc|--no-qc]
+                                                      [--profile DIR]
+                                                      [--reduction-strategy S]
+                                                      [--object-buckets SPEC]
+                                                      [--schedule auto|pack|off]
     python -m tmlibrary_tpu_torch.cli workflow resume --root DIR ...
     python -m tmlibrary_tpu_torch.cli workflow status|cleanup --root DIR
     python -m tmlibrary_tpu_torch.cli workflow template --root DIR [--type canonical|multiplexing]
@@ -40,6 +44,11 @@ steps the port has, the same argument names and the same JSON output::
     python -m tmlibrary_tpu_torch.cli timeline --root DIR [--metric NAME] [--json]
     python -m tmlibrary_tpu_torch.cli trace --root DIR [--json] [--export chrome [OUT]]
     python -m tmlibrary_tpu_torch.cli slo --root SERVE_ROOT [--json]
+    python -m tmlibrary_tpu_torch.cli perf --root DIR [--top N] [--json]
+    python -m tmlibrary_tpu_torch.cli perf history [--history F] [--config C] [--metric M]
+                                                   [--threshold X] [--stale-hours H]
+    python -m tmlibrary_tpu_torch.cli cache list|gc [--dir DIR] [--json] [--max-bytes N]
+                                                    [--max-age-days D] [--keep-stale]
 
 ``<step>`` is ``metaconfig``, ``imextract``, ``corilla``, ``align``,
 ``illuminati`` or ``jterator``; the installed console script is
@@ -96,6 +105,23 @@ run or serve ledger (``ledger``), ``top`` draws the dashboard,
 ``workflow submit`` drains on SIGTERM/SIGINT and exits 75 with
 ``run_preempted`` in the ledger; ``--no-telemetry`` turns the registry,
 spans and sampler off for the run.
+
+The compile and profile plumbing: ``workflow submit --profile DIR``
+traces the run with ``torch.profiler``
+(:func:`~tmlibrary_tpu_torch.profiling.device_trace`: a Chrome trace in
+DIR with the card's kernels and each span as a range) and counts each
+program's first call in it for ``perf``'s FLOPs and bytes;
+``--reduction-strategy``, ``--object-buckets`` and ``--schedule`` set the
+jterator step's arguments of those names for the run (the reference sets
+environment variables the port does not read), which leave the store as
+it is.  ``perf`` reads the run's ``workflow/perf.json`` (each program's
+first call as its compile, FLOPs, bytes and roofline verdict against the
+card's ridge, :mod:`tmlibrary_tpu_torch.perf`) with the ledger's phase
+split; ``perf history`` judges the bench history and exits with the
+verdict's code, 0 ok, 1 regression, 2 stale, 3 no baseline (the
+reference's exits 0 after printing it).  ``cache list|gc`` shows and
+prunes the kernel-library store (:mod:`tmlibrary_tpu_torch.aotstore`).
+``workflow status`` warns when the cached bench records are stale.
 """
 
 from __future__ import annotations
@@ -113,8 +139,9 @@ from tmlibrary_tpu_torch.models.experiment import Experiment
 from tmlibrary_tpu_torch.models.mapobject import MapobjectTypeRegistry
 from tmlibrary_tpu_torch.models.store import ExperimentStore
 from tmlibrary_tpu_torch.parallel import distributed
-from tmlibrary_tpu_torch import telemetry
+from tmlibrary_tpu_torch import aotstore, perf, telemetry, tuning
 from tmlibrary_tpu_torch.errors import PreemptedError
+from tmlibrary_tpu_torch.profiling import PHASE_RESOURCE, device_trace
 from tmlibrary_tpu_torch.resilience import (
     EXIT_PREEMPTED,
     ResilienceConfig,
@@ -223,6 +250,28 @@ def build_parser() -> argparse.ArgumentParser:
                         help="resource sampler period (RSS/fds/device-memory gauges + "
                              "heartbeat file; default TM_RESOURCE_SAMPLE_PERIOD, 0 "
                              "disables)")
+    shared.add_argument("--profile", metavar="DIR", default=None,
+                        help="write a torch.profiler device trace of the run (CPU and, "
+                             "on the card, CUDA activities; a *.pt.trace.json Chrome "
+                             "trace) to DIR, with each span a record_function range, and "
+                             "count each program's FLOPs and bytes for `perf`")
+    shared.add_argument("--reduction-strategy", default=None,
+                        choices=("auto", "onehot", "sort", "scatter", "fused"),
+                        help="the jterator step's reduction_strategy for this run "
+                             "(overrides the description; every name runs the fused "
+                             "grouped_stats route, and 'auto' resolves the setting, "
+                             "the cuda-scoped tuning verdict, then fused)")
+    shared.add_argument("--object-buckets", default=None, metavar="SPEC",
+                        help="the jterator step's object_buckets for this run: 'auto' "
+                             "(power-of-two buckets up to max_objects), 'off' (every "
+                             "batch at max_objects) or a comma list like '8,32'; the "
+                             "store is the same either way")
+    shared.add_argument("--schedule", default=None, choices=("auto", "pack", "off"),
+                        help="the jterator step's schedule for this run: 'pack' plans "
+                             "cost-model batches from the per-site count history, 'off' "
+                             "keeps directory order, 'auto' resolves the setting, the "
+                             "cuda-scoped tuning verdict, then pack; the store is the "
+                             "same either way")
     shared.add_argument("--qc", action=argparse.BooleanOptionalAction, default=None,
                         help="collect data-quality evidence for this run: per-site image "
                              "statistics, NaN and outlier guards, feature sketches and the "
@@ -246,6 +295,60 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common(p_tmpl)
     p_tmpl.add_argument("--type", dest="wf_type", choices=("canonical", "multiplexing"),
                         default="canonical", help="workflow type (multiplexing adds align)")
+
+    p_perf = sub.add_parser(
+        "perf", help="per-program compile and roofline attribution of the last run "
+                     "(`perf --root DIR`), or the bench history and its regression "
+                     "verdict (`perf history`)")
+    p_perf.add_argument("--root", default=None,
+                        help="experiment store directory (program table and phase "
+                             "breakdown of its last run)")
+    p_perf.add_argument("-v", "--verbosity", action="count", default=0)
+    p_perf.add_argument("--top", type=int, default=10,
+                        help="show the N costliest programs (default 10)")
+    p_perf.add_argument("--json", action="store_true", dest="as_json",
+                        help="emit the attribution as JSON")
+    perf_sub = p_perf.add_subparsers(dest="verb")
+    p_phist = perf_sub.add_parser(
+        "history", help="bench history tail and the sentinel's verdict (latest against "
+                        "the best comparable record); exits with the verdict's code")
+    p_phist.add_argument("--history", default=None,
+                         help="history file (default tuning/BENCH_HISTORY.jsonl, "
+                              "BENCH_HISTORY env)")
+    p_phist.add_argument("--config", default=None, help="judge this bench config only")
+    p_phist.add_argument("--metric", default=None, help="judge this metric only")
+    p_phist.add_argument("--threshold", type=float, default=0.05,
+                         help="regression/improvement fraction (default 0.05)")
+    p_phist.add_argument("--stale-hours", type=float, default=None, dest="stale_hours",
+                         help="staleness budget (default BENCH_STALE_HOURS or 72)")
+    p_phist.add_argument("--tail", type=int, default=10,
+                         help="history lines to print (default 10)")
+
+    p_cache = sub.add_parser(
+        "cache", help="the kernel-library store (aotstore): list entries or "
+                      "garbage-collect stale and oversize ones")
+    p_cache.add_argument("-v", "--verbosity", action="count", default=0)
+    cache_sub = p_cache.add_subparsers(dest="verb", required=True)
+    p_clist = cache_sub.add_parser("list", help="store entries, most recently used first")
+    p_clist.add_argument("--dir", default=None, dest="store_dir",
+                         help="store directory (default TMX_AOT_STORE_DIR, the "
+                              "aot_store_dir setting, or ~/.cache)")
+    p_clist.add_argument("--json", action="store_true", dest="as_json",
+                         help="emit entries and stats as JSON")
+    p_cgc = cache_sub.add_parser(
+        "gc", help="evict stale-fingerprint, over-age and over-cap entries")
+    p_cgc.add_argument("--dir", default=None, dest="store_dir",
+                       help="store directory (default TMX_AOT_STORE_DIR, the "
+                            "aot_store_dir setting, or ~/.cache)")
+    p_cgc.add_argument("--max-bytes", type=int, default=None, dest="max_bytes",
+                       help="LRU size cap to enforce (default the configured cap)")
+    p_cgc.add_argument("--max-age-days", type=float, default=None, dest="max_age_days",
+                       help="drop entries older than this many days")
+    p_cgc.add_argument("--keep-stale", action="store_true", dest="keep_stale",
+                       help="keep entries of other toolchain fingerprints (default: "
+                            "drop them)")
+    p_cgc.add_argument("--json", action="store_true", dest="as_json",
+                       help="emit the gc summary as JSON")
 
     p_qc = sub.add_parser(
         "qc", help="data-quality report of a run and its drift verdict against a reference "
@@ -576,6 +679,16 @@ def cmd_workflow(args) -> int:
             print(f"PREEMPTED ({pre.get('reason')}) at step '{pre.get('step')}' — resume "
                   "with `workflow resume`")
         _render_heartbeats(store.workflow_dir, running=pre is None)
+        # the certified throughput evidence of this device's backend ages
+        # even while runs look healthy (another backend's records say
+        # nothing of it)
+        stale_rows = [r for r in perf.bench_record_staleness(
+            backend=tuning.backend_of(args.device)) if r["stale"]]
+        if stale_rows:
+            worst = max(r["age_hours"] for r in stale_rows)
+            configs = ", ".join(r["config"] for r in stale_rows)
+            print(f"bench records stale (> {perf.stale_hours():g}h, oldest {worst:g}h): "
+                  f"config {configs} — re-capture them")
         return 0
     if args.verb == "cleanup":
         for name in list_steps():
@@ -607,6 +720,15 @@ def cmd_workflow(args) -> int:
                   "workflow.yaml in the store's workflow dir)", file=sys.stderr)
             return 1
         desc = WorkflowDescription.load(default)
+    # the jterator step's routing and scheduling knobs for this run, as its
+    # arguments (the port has no environment switch for them)
+    overrides = {k: v for k, v in (("reduction_strategy", args.reduction_strategy),
+                                   ("object_buckets", args.object_buckets),
+                                   ("schedule", args.schedule)) if v is not None}
+    for stage in desc.stages:
+        for sd in stage.steps:
+            if sd.name == "jterator":
+                sd.args = {**sd.args, **overrides}
     if args.qc is not None:
         # the environment, as the reference sets it: every pipeline build
         # and the session read the gate when they run
@@ -618,10 +740,10 @@ def cmd_workflow(args) -> int:
     resilience = ResilienceConfig.from_library_config()
     if args.max_batch_failures is not None:
         resilience.max_batch_failures = args.max_batch_failures
-    overrides = {k: v for k, v in (("max_attempts", args.retry_attempts),
-                                   ("base_delay", args.retry_delay)) if v is not None}
-    if overrides:
-        resilience.policy = dataclasses.replace(resilience.policy, **overrides)
+    retry = {k: v for k, v in (("max_attempts", args.retry_attempts),
+                               ("base_delay", args.retry_delay)) if v is not None}
+    if retry:
+        resilience.policy = dataclasses.replace(resilience.policy, **retry)
     # under torchrun each rank is one process of the group (NCCL on the
     # card, gloo on the CPU); without its environment this is a no-op
     distributed.initialize(device=args.device)
@@ -629,9 +751,10 @@ def cmd_workflow(args) -> int:
     # pinned code tells a wrapper to re-launch with resume
     restore = install_preemption_handlers()
     try:
-        summary = Workflow(store, desc, resilience=resilience,
-                           pipeline_depth=args.pipeline_depth,
-                           device=args.device).run(resume=args.resume)
+        with device_trace(args.profile, device=args.device):
+            summary = Workflow(store, desc, resilience=resilience,
+                               pipeline_depth=args.pipeline_depth,
+                               device=args.device).run(resume=args.resume)
     except PreemptedError as exc:
         print(f"preempted ({exc.reason}): drained {exc.drained}/{exc.in_flight} in-flight "
               f"batches at step '{exc.step}', abandoned {exc.abandoned} — resume with "
@@ -659,6 +782,267 @@ def _render_heartbeats(hb_dir: Path, running: bool) -> None:
         if running and period > 0 and age > 2 * period:
             line += " — STALE: run appears hung"
         print(line)
+
+
+def _snapshot_gauge(snapshot: dict, name: str) -> "float | None":
+    for entry in snapshot.get("gauges", []):
+        if entry.get("name") == name:
+            return entry.get("value")
+    return None
+
+
+def _perf_schedule_summary(events: list) -> list:
+    """Each step's packing from the ledger alone: the recorded
+    ``schedule_plan`` (digest, predicted occupancy and skew packed and in
+    directory order) beside what the run delivered (mean slot occupancy,
+    mean shard spread, the plan's hit rate), as the reference's."""
+    plans: dict[str, dict] = {}
+    actual: dict[str, dict] = {}
+    for ev in events:
+        step = str(ev.get("step", "")) or "unknown"
+        if ev.get("event") == "schedule_plan":
+            plans[step] = ev
+        if ev.get("event") != "batch_done" or not isinstance(ev.get("result"), dict):
+            continue
+        res = ev["result"]
+        agg = actual.setdefault(step, {"occ": [], "spread": [], "pred_skew": [],
+                                       "planned": 0, "hits": 0})
+        if isinstance(res.get("slot_occupancy"), (int, float)):
+            agg["occ"].append(float(res["slot_occupancy"]))
+        shard = res.get("shard_objects")
+        if isinstance(shard, list) and len(shard) > 1:
+            vals = [float(v) for v in shard]
+            agg["spread"].append(max(vals) - min(vals))
+        if isinstance(res.get("predicted_skew"), (int, float)):
+            agg["pred_skew"].append(float(res["predicted_skew"]))
+        if res.get("schedule_rung"):
+            agg["planned"] += 1
+            agg["hits"] += not res.get("bucket_escalations")
+    mean = lambda xs: round(sum(xs) / len(xs), 4) if xs else None  # noqa: E731
+    out = []
+    for step in sorted(set(plans) | set(actual)):
+        plan, agg = plans.get(step, {}), actual.get(step, {})
+        if not plan and not agg.get("planned"):
+            continue
+        out.append({
+            "step": step,
+            **{k: plan.get(k) for k in ("mode", "source", "plan_digest", "n_batches",
+                                        "pred_occupancy_packed", "pred_occupancy_unpacked",
+                                        "pred_skew_packed", "pred_skew_unpacked")},
+            "mean_slot_occupancy": mean(agg.get("occ", [])),
+            "mean_shard_object_spread": mean(agg.get("spread", [])),
+            "mean_predicted_skew": mean(agg.get("pred_skew", [])),
+            "planned_batches": agg.get("planned", 0),
+            "plan_hit_rate": (round(agg["hits"] / agg["planned"], 4)
+                              if agg.get("planned") else None),
+        })
+    return out
+
+
+def _perf_strategy_comparison(programs: list) -> list:
+    """Profiles grouped by (program, step, capacity), kept where two or
+    more reduction strategies were recorded, strategies side by side."""
+    groups: dict = {}
+    for e in programs:
+        if isinstance(e, dict):
+            key = (str(e.get("program") or "?"), str(e.get("step") or "?"), e.get("capacity"))
+            groups.setdefault(key, []).append(e)
+    out = []
+    for (program, step, capacity), entries in groups.items():
+        if len({e.get("strategy") for e in entries}) < 2:
+            continue
+        out.append({"program": program, "step": step, "capacity": capacity, "variants": [
+            {k: v.get(k) for k in ("strategy", "flops", "bytes", "arithmetic_intensity",
+                                   "bound_by", "compiles")}
+            for v in sorted(entries, key=lambda e: str(e.get("strategy") or ""))]})
+    out.sort(key=lambda g: (g["program"], g["step"], g["capacity"] or 0))
+    return out
+
+
+def _perf_phases(events: list) -> list:
+    """The pipelined phase breakdown with its device/host split from the
+    ledger's ``step_done``/``step_partial`` events (re-derived from the
+    phase resource map where a ledger lacks ``device_s``/``host_s``)."""
+    out = []
+    for ev in events:
+        ps = ev.get("pipeline_stats") if ev.get("event") in ("step_done",
+                                                             "step_partial") else None
+        if not isinstance(ps, dict):
+            continue
+        phases = ps.get("phases") or {}
+        split = {kind: ps.get(f"{kind}_s") for kind in ("device", "host")}
+        for kind in split:
+            if split[kind] is None:
+                split[kind] = sum(v.get("total_s", 0.0) for p, v in phases.items()
+                                  if PHASE_RESOURCE.get(p) == kind)
+        out.append({"step": str(ev.get("step", "")) or "unknown", "depth": ps.get("depth"),
+                    "phases": {p: v.get("total_s", 0.0) for p, v in phases.items()},
+                    "device_s": round(split["device"], 4), "host_s": round(split["host"], 4)})
+    return out
+
+
+def cmd_perf(args) -> int:
+    """``perf``: the per-program compile and roofline table the last run
+    recorded (``workflow/perf.json``, else this process's store), the
+    strategy comparison, the phase device/host split from the ledger,
+    the padding gauges, the schedule rows and the latest bench record;
+    ``perf history``: the bench history and the sentinel's verdict,
+    exiting with its code (0 ok, 1 regression, 2 stale, 3 no baseline;
+    the reference's verb prints the verdict and exits 0)."""
+    if getattr(args, "verb", None) == "history":
+        return _perf_history(args)
+    if not args.root:
+        print("error: --root is required (or use `perf history`)", file=sys.stderr)
+        return 2
+    store = _open_store(args)
+    programs: list = []
+    perf_path = store.workflow_dir / "perf.json"
+    card = None
+    if perf_path.exists():
+        snap = json.loads(perf_path.read_text())
+        programs, card = snap.get("programs") or [], snap.get("card")
+    if not programs:
+        programs = perf.perf_profiles()
+    programs = programs[: max(int(args.top), 0) or len(programs)]
+    events = RunLedger(store.workflow_dir / "ledger.jsonl").events()
+    phases_out = _perf_phases(events)
+    snapshot = {}
+    snap_path = store.workflow_dir / "metrics.json"
+    if snap_path.exists():
+        snapshot = json.loads(snap_path.read_text())
+    if not snapshot and events:
+        snapshot = telemetry.registry_from_ledger(events).snapshot()
+    avoided = _snapshot_gauge(snapshot, "tmx_jterator_padded_flops_avoided_frac")
+    occupancy = _snapshot_gauge(snapshot, "tmx_jterator_slot_occupancy")
+    schedule_rows = _perf_schedule_summary(events)
+    measured = [r for r in tuning.load_bench_history()
+                if isinstance(r.get("value"), (int, float)) and r.get("value")
+                and not r.get("error")]
+    latest = measured[-1] if measured else None
+    strategy_cmp = _perf_strategy_comparison(programs)
+    if args.as_json:
+        print(json.dumps({"programs": programs, "card": card,
+                          "strategy_comparison": strategy_cmp, "phases": phases_out,
+                          "padded_flops_avoided_frac": avoided,
+                          "slot_occupancy": occupancy, "schedule": schedule_rows,
+                          "latest_bench": latest}, indent=2))
+        return 0
+    dash = lambda v, f: f(v) if v else "-"  # noqa: E731
+    if programs:
+        print(f"{'program':<28} {'cap':>5} {'strategy':<8} {'backend':<8} {'compiles':>8} "
+              f"{'recomp':>6} {'compile_s':>9} {'gflops':>9} {'mbytes':>9} {'flops/B':>8} "
+              "bound-by")
+        for e in programs:
+            print(f"{str(e.get('program', '?'))[:28]:<28} {str(e.get('capacity') or '-'):>5} "
+                  f"{str(e.get('strategy') or '-'):<8} {str(e.get('backend') or '?'):<8} "
+                  f"{e.get('compiles', 0):>8} {e.get('recompiles', 0):>6} "
+                  f"{round(e.get('compile_seconds_total', 0.0), 2):>9} "
+                  f"{dash(e.get('flops'), lambda v: round(v / 1e9, 3)):>9} "
+                  f"{dash(e.get('bytes'), lambda v: round(v / 1e6, 2)):>9} "
+                  f"{e.get('arithmetic_intensity') if e.get('arithmetic_intensity') is not None else '-':>8} "
+                  f"{e.get('bound_by') or '-'}")
+        peaks = card or perf.card_peaks("H100")
+        print(f"(roofline verdict against {peaks['name']}'s float32 ridge "
+              f"{peaks['ridge_flops_per_byte']:.0f} FLOPs/byte"
+              + (f", power limit {peaks['power_limit']}" if peaks.get("power_limit") else "")
+              + "; a compile is a program's first call in the process; FLOPs and bytes "
+              "are counted under `workflow submit --profile`)")
+        if strategy_cmp:
+            print("\nstrategy comparison (same program/step/capacity):")
+            for grp in strategy_cmp:
+                for v in grp["variants"]:
+                    print(f"{grp['program'][:28]:<28} {grp['step']:<10} "
+                          f"{str(grp['capacity'] or '-'):>5} {str(v.get('strategy')):<8} "
+                          f"{dash(v.get('flops'), lambda x: round(x / 1e9, 3)):>9} "
+                          f"{dash(v.get('bytes'), lambda x: round(x / 1e6, 2)):>9} "
+                          f"{v.get('bound_by') or '-'}")
+    else:
+        print("no perf attribution recorded — run `workflow submit` with telemetry on "
+              "(workflow/perf.json)")
+    for row in phases_out:
+        parts = "  ".join(f"{p}={sec}s" for p, sec in row["phases"].items())
+        total = row["device_s"] + row["host_s"]
+        frac = row["device_s"] / total if total else 0.0
+        print(f"phases: {row['step']} depth {row['depth']}: {parts}  "
+              f"device={row['device_s']}s host={row['host_s']}s ({frac:.0%} device)")
+    if avoided is not None:
+        occ = f" (slot occupancy {occupancy:.2f})" if occupancy else ""
+        print(f"padded-FLOPs-avoided: {avoided:.1%}{occ}")
+    for row in schedule_rows:
+        print(f"schedule: {row['step']} mode {row['mode'] or '-'} plan "
+              f"{row['plan_digest'] or '-'} batches {row['n_batches'] or row['planned_batches']}"
+              f" occupancy {row['mean_slot_occupancy']} (unpacked "
+              f"{row['pred_occupancy_unpacked']}) hit-rate {row['plan_hit_rate']}")
+    if latest:
+        print(f"latest bench: {latest.get('metric')} = {latest.get('value')} "
+              f"({latest.get('backend')})")
+    return 0
+
+
+def _perf_history(args) -> int:
+    path = args.history or tuning.bench_history_path()
+    history = tuning.load_bench_history(path)
+    if not history:
+        print(f"no bench history at {path}", file=sys.stderr)
+        return 1
+    print(f"bench history: {len(history)} records at {path}")
+    for rec in history[-max(int(args.tail), 0):]:
+        bits = [str(rec.get("recorded_at", "?")), f"config={rec.get('config')}",
+                f"backend={rec.get('backend')}", f"value={rec.get('value')}"]
+        if rec.get("sweep"):
+            bits.append("sweep")
+        if rec.get("error"):
+            bits.append("ERROR")
+        print("  " + "  ".join(bits) + f"  {rec.get('metric')}")
+    verdict = perf.compare_history(
+        history, config=args.config, metric=args.metric, threshold=args.threshold,
+        stale_hours=args.stale_hours if args.stale_hours is not None else perf.stale_hours())
+    line = f"verdict: {verdict['status']}"
+    if verdict.get("delta_frac") is not None:
+        line += (f"  delta {verdict['delta_frac']:+.1%} vs best baseline "
+                 f"{verdict['baseline'].get('value')}")
+    if verdict.get("age_hours") is not None:
+        line += f"  age {verdict['age_hours']}h"
+    if verdict.get("recapture"):
+        line += f"  recapture -> {', '.join(verdict['recapture'])}"
+    print(line)
+    return verdict["exit_code"]
+
+
+def cmd_cache(args) -> int:
+    """``cache list|gc``: the kernel-library store's entries, or its
+    garbage collection (stale fingerprints unless ``--keep-stale``, over
+    ``--max-age-days``, past the ``--max-bytes`` LRU cap)."""
+    directory = args.store_dir
+    if args.verb == "list":
+        rows = aotstore.list_entries(directory)
+        stats = aotstore.store_stats(directory)
+        if args.as_json:
+            print(json.dumps({"stats": stats, "entries": rows}, indent=2, sort_keys=True))
+            return 0
+        print(f"store: {stats['dir']}  ({'enabled' if stats['enabled'] else 'DISABLED'})")
+        print(f"fingerprint: {stats['fingerprint']}  entries: {stats['entries']}  bytes: "
+              f"{stats['total_bytes']}  stale: {stats['stale_entries']}")
+        for m in rows:
+            age = m.get("age_s")
+            age_txt = "-" if age is None else (f"{age / 3600:.1f}h" if age >= 3600
+                                               else f"{age:.0f}s")
+            fp = str(m.get("fingerprint") or "?")[:8] + (" STALE" if m.get("stale") else "")
+            print(f"{str(m.get('digest'))[:16]:<18} {str(m.get('program'))[:24]:<24} "
+                  f"{int(m.get('size_bytes') or 0):>9} {age_txt:>8} {fp}")
+        return 0
+    max_age_s = None if args.max_age_days is None else float(args.max_age_days) * 86400.0
+    result = aotstore.prune(directory, max_bytes=args.max_bytes, max_age_s=max_age_s,
+                            drop_stale_fingerprint=not args.keep_stale)
+    if args.as_json:
+        print(json.dumps(result, indent=2, sort_keys=True))
+        return 0
+    n = len(result["removed"])
+    print(f"removed {n} entr{'y' if n == 1 else 'ies'}, kept {result['kept']} "
+          f"({result['total_bytes']} bytes)")
+    for digest in result["removed"]:
+        print(f"  - {digest}")
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -1634,6 +2018,10 @@ def main(argv=None) -> int:
             return cmd_trace(args)
         if args.command == "slo":
             return cmd_slo(args)
+        if args.command == "perf":
+            return cmd_perf(args)
+        if args.command == "cache":
+            return cmd_cache(args)
         return cmd_step(args)
     except Exception as e:
         print(f"error: {e}", file=sys.stderr)

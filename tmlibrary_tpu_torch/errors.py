@@ -102,6 +102,12 @@ class PreemptedError(TmError):
         self.reason = reason
 
 
+class PeerFailed(TmError):
+    """Another rank failed at a point the ranks agree on before a
+    collective: this rank gives up the batch with it, and the failing
+    rank's own error is the one judged."""
+
+
 class ShardingError(TmError):
     """Error constructing or using a device mesh / sharding."""
 

@@ -25,7 +25,9 @@ The port keeps its own copy of the C++ (``csrc/host/hull.cpp``,
 ``csrc/host/jpeg.cpp``).  At first use they are compiled with the host
 compiler (``c++``/``g++`` on the ``PATH``, else ``nvcc``) into one
 library in ``build/host/`` at the root of the checkout, named by a
-digest of the sources and flags, and bound with ``ctypes``.  One call
+digest of the sources and flags (imported from the kernel-library
+store, :mod:`tmlibrary_tpu_torch.aotstore`, when it holds that digest,
+and exported there after a build), and bound with ``ctypes``.  One call
 takes a batch of sites and counts each object's hull pixels and its
 pixels (:func:`hull_and_area_counts`); the step calls
 :func:`solidity_batch` once per family and batch.  The TIFF functions
@@ -47,6 +49,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -80,25 +83,39 @@ def _compiler() -> list[str]:
         raise BuildError(f"no host compiler for {HOST_SRC.name}: {e}") from None
 
 
+def _sources() -> tuple[Path, ...]:
+    return (HOST_SRC, TIFF_SRC, MOSAIC_SRC, SIMPLIFY_SRC, ZSTD_SRC, JPEG_SRC)
+
+
+def source_digest() -> str:
+    """The digest that names the library: its flags and sources."""
+    return hashlib.sha256(
+        " ".join(FLAGS).encode() + b"".join(src.read_bytes() for src in _sources())
+    ).hexdigest()[:16]
+
+
 def build() -> Path:
     """Compile ``hull.cpp``, ``tiff.cpp``, ``mosaic.cpp``, ``simplify.cpp``,
     ``zstd.cpp`` and ``jpeg.cpp`` into one library (if its digest-named
     file is missing) and return the library path."""
-    sources = (HOST_SRC, TIFF_SRC, MOSAIC_SRC, SIMPLIFY_SRC, ZSTD_SRC, JPEG_SRC)
-    digest = hashlib.sha256(
-        " ".join(FLAGS).encode() + b"".join(src.read_bytes() for src in sources)
-    ).hexdigest()[:16]
+    digest = source_digest()
     path = BUILD_DIR / f"libtmhost_{digest}.so"
-    if path.exists():
+    from tmlibrary_tpu_torch import aotstore
+
+    if path.exists() or aotstore.import_entry(
+            path, program="host_library", signature=digest) is not None:
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [*_compiler(), "-o", str(tmp), *map(str, sources)]
+    cmd = [*_compiler(), "-o", str(tmp), *map(str, _sources())]
+    t0 = time.perf_counter()
     done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if done.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise BuildError(f"{' '.join(cmd)} failed:\n{done.stdout}")
     os.replace(tmp, path)
+    aotstore.export_entry(path, program="host_library", signature=digest,
+                            compile_s=time.perf_counter() - t0)
     return path
 
 

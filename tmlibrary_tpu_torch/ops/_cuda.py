@@ -7,7 +7,13 @@ for ``sm_90a`` with ``-O3`` and without ``--use_fast_math`` (fast math
 would let divisions and FMA contraction move a watershed band edge).
 The objects are linked into one shared library under ``build/kernels/``
 at the root of the checkout, named by a digest of the sources, and
-loaded with ``ctypes``.  Nothing here runs at import time.
+loaded with ``ctypes``.  Before ``nvcc`` runs, the kernel-library store
+(:mod:`tmlibrary_tpu_torch.aotstore`) is asked for a library of the
+same digest for the same torch, CUDA runtime and arch; a
+library ``nvcc`` built is exported there.  The first load in a process
+is recorded as the program ``cuda_kernels`` in the perf store
+(:func:`tmlibrary_tpu_torch.perf.record_compile`).  Nothing here runs at
+import time.
 
 Every C entry point takes raw device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launches;
@@ -30,7 +36,7 @@ from pathlib import Path
 
 import torch
 
-from tmlibrary_tpu_torch import telemetry
+from tmlibrary_tpu_torch import aotstore, perf, telemetry
 from tmlibrary_tpu_torch.errors import DeviceError
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -85,8 +91,11 @@ SIGNATURES = {
 }
 
 _LIB: "ctypes.CDLL | None" = None
-#: seconds the last build took (0.0 when the library was already built)
+#: seconds the last build took (0.0 when the library was already built or
+#: was imported from the store)
 last_build_seconds = 0.0
+#: builds that ran ``nvcc`` in this process
+nvcc_builds = 0
 
 
 def _sources() -> list[Path]:
@@ -113,13 +122,17 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the kernels (if the digest-named library is missing) and
-    return the library path."""
-    global last_build_seconds
+    """The library path: the digest-named library in :data:`BUILD_DIR`,
+    else the one the kernel-library store holds for these sources
+    (:func:`aotstore.import_entry`), else compiled with ``nvcc`` and
+    exported to the store."""
+    global last_build_seconds, nvcc_builds
     sources = _sources()
-    lib_path = BUILD_DIR / f"libtmtorch_{_digest(sources)}.so"
-    if lib_path.exists():
-        last_build_seconds = 0.0
+    digest = _digest(sources)
+    lib_path = BUILD_DIR / f"libtmtorch_{digest}.so"
+    last_build_seconds = 0.0
+    if lib_path.exists() or aotstore.import_entry(
+            lib_path, program="cuda_kernels", signature=digest) is not None:
         return lib_path
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -150,6 +163,9 @@ def build() -> Path:
         raise DeviceError(f"nvcc link failed:\n{link.stdout}")
     os.replace(tmp, lib_path)
     last_build_seconds = time.perf_counter() - t0
+    nvcc_builds += 1
+    aotstore.export_entry(lib_path, program="cuda_kernels", signature=digest,
+                            compile_s=last_build_seconds)
     return lib_path
 
 
@@ -157,15 +173,16 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library, built at first use."""
     global _LIB
     if _LIB is None:
+        t0 = time.perf_counter()
         loaded = ctypes.CDLL(str(build()))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(loaded, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _LIB = loaded
-        from tmlibrary_tpu_torch import aotstore
-
         aotstore.note_cold("cuda_kernels")  # the first build or load in this process
+        perf.record_compile(program="cuda_kernels", step=None, backend="cuda",
+                            compile_s=time.perf_counter() - t0)
     return _LIB
 
 
@@ -216,6 +233,7 @@ def bind_launch(name: str, counter, tensors: tuple, *scalars, route: "str | None
             # snapshot (a serve daemon's metrics.json) reports it
             telemetry.get_registry().counter("tmx_kernel_launches_total",
                                              kernel=counter.__name__).inc()
+            perf.note_kernel_launch(counter.__name__, tensors)  # a counted call's bytes
         check(f"tm_{name}", fn(*args))
         return tensors[-1]
 

@@ -15,7 +15,9 @@ on the card, gloo on the CPU.
   rank order (on every rank); :func:`global_to_host_local` is the
   inverse, this rank's rows.
 - :func:`sync_hosts` is a barrier; :func:`broadcast_object` sends rank
-  0's plan (a picklable object) to every rank.
+  0's plan (a picklable object) to every rank, and :func:`gather_object`
+  brings every rank's report to rank 0 (the engine's retry and stop
+  decisions).
 
 The collective helpers below move a tensor to the CPU for a gloo group
 and back, so callers hand them tensors on their own device.  The
@@ -194,6 +196,16 @@ def broadcast_object(obj, src: int = 0):
     box = [obj]
     dist.broadcast_object_list(box, src=src)
     return box[0]
+
+
+def gather_object(obj, dst: int = 0) -> "list | None":
+    """Every rank's picklable ``obj`` in rank order on rank ``dst``, None
+    on the others; ``[obj]`` without a group."""
+    if world_size() == 1:
+        return [obj]
+    out = [None] * world_size() if rank() == dst else None
+    dist.gather_object(obj, out, dst=dst)
+    return out
 
 
 def rank_wall_times(t0: float, device: "torch.device | str | None" = None,

@@ -12,10 +12,10 @@ ledger`` read the other's serve root.  Where the port differs:
   runs on the CPU instead.
 - **Warm programs.**  The port compiles nothing per program: "warm"
   means a program already ran in this process
-  (:mod:`~tmlibrary_tpu_torch.aotstore`), and the shared executable
-  store the reference's fleet imports from is always empty, so affinity
-  deferral never turns into a warm-start claim.  JAX's persistent
-  compilation cache has no counterpart.
+  (:mod:`~tmlibrary_tpu_torch.aotstore`), and the shared store the
+  fleet imports from holds the built kernel libraries, so a host that
+  can import one claims a cold-key job (a warm-start claim) instead of
+  deferring it.  JAX's persistent compilation cache has no counterpart.
 - **No swallowed telemetry.**  The SLO check, the anomaly check, the
   time series flush and the metrics snapshot raise on failure instead
   of logging at debug level.
@@ -207,9 +207,10 @@ def status_file(serve_root: Path) -> Path:
 
 
 def aot_store_path(serve_root: Path) -> Path:
-    """Where the reference's fleet-shared serialized-executable store sits
-    in this spool; the port stores nothing there and only reports the
-    path (:func:`aotstore.store_stats`)."""
+    """The fleet-shared store of this spool: the daemon points the
+    kernel-library store (:mod:`aotstore`) here, so a host that joins the
+    fleet imports the libraries a peer built (the reference stores its
+    serialized executables here)."""
     return Path(serve_root) / "aotstore"
 
 
@@ -829,9 +830,9 @@ class ServeDaemon:
         A host with nothing warm yet has no basis for preference and
         claims everything.
 
-        The reference's fleet warm-start retires most deferrals when the
-        shared executable store has entries; the port's store is always
-        empty, so that branch never claims here."""
+        As in the reference, a live entry in the shared store (here a
+        built kernel library the host can import) retires the deferral:
+        the host becomes warm rather than waiting for one."""
         key = spec.affinity_key
         if key is None or not self._warm_keys or key in self._warm_keys:
             self._deferred_seen.pop(spec.job_id, None)

@@ -9,9 +9,10 @@ the reference's module imports JAX in three places, translated here):
   the throughput-critical steps (corilla/illuminati/jterator);
 * nested **spans** (run -> step -> batch -> phase) recorded as ``span``
   events in the run ledger; while :func:`set_trace_bridge` is on, each
-  span is also an NVTX range (``torch.cuda.nvtx.range_push``/
-  ``range_pop``), so host spans line up with an Nsight Systems trace of
-  the card (the reference's ``jax.profiler.TraceAnnotation``);
+  span is also a ``torch.profiler.record_function`` range, which a
+  ``torch.profiler`` trace shows beside the card's kernels, and an NVTX
+  range (``torch.cuda.nvtx.range_push``/``range_pop``) for Nsight
+  Systems (the reference's ``jax.profiler.TraceAnnotation``);
 * a :class:`ResourceSampler` daemon thread (RSS, open file handles and
   ``torch.cuda.memory_allocated`` summed over the visible cards, read
   only once CUDA is initialised: the sampler never initialises the card;
@@ -527,14 +528,36 @@ _trace_bridge = threading.Event()
 
 
 def set_trace_bridge(active: bool) -> None:
-    """While on, every span is also an NVTX range
-    (``torch.cuda.nvtx.range_push``/``range_pop``), so host spans line up
-    with an Nsight Systems trace of the card; off (the default), a span
-    touches no NVTX call."""
+    """While on (:func:`tmlibrary_tpu_torch.profiling.device_trace` turns
+    it on for its block), every span and :func:`trace_range` is also a
+    ``torch.profiler.record_function`` range, which a ``torch.profiler``
+    trace records, and on a machine with a card an NVTX range
+    (``torch.cuda.nvtx.range_push``/``range_pop``), which an Nsight
+    Systems trace records; off (the default), neither is touched."""
     if active:
         _trace_bridge.set()
     else:
         _trace_bridge.clear()
+
+
+@contextlib.contextmanager
+def trace_range(name: str) -> Iterator[None]:
+    """A ``record_function`` (and NVTX) range named ``name`` while the
+    trace bridge is on; nothing otherwise."""
+    if not _trace_bridge.is_set():
+        yield
+        return
+    import torch
+
+    nvtx = torch.cuda.nvtx if torch.cuda.is_available() else None
+    if nvtx is not None:
+        nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx is not None:
+            nvtx.range_pop()
 
 
 _span_local = threading.local()
@@ -549,33 +572,31 @@ def _span_stack() -> list[str]:
 
 @contextlib.contextmanager
 def span(name: str, emit: Callable[..., Any] | None = None,
-         **attrs: Any) -> Iterator[None]:
+         trace_label: str | None = None, **attrs: Any) -> Iterator[None]:
     """Nested host span; records a ``span`` ledger event via ``emit``.
 
     ``emit`` is typically ``RunLedger.append`` partial-applied with the
-    step/batch context.  Zero-cost when telemetry is disabled.
+    step/batch context.  Zero-cost when telemetry is disabled and the
+    trace bridge is off.  While the bridge is on the span is a
+    :func:`trace_range` named by its path (``run/step``), with
+    ``:<trace_label>`` appended when given (the engine labels a step span
+    with the step's name), also with telemetry off; only an enabled
+    registry emits the ledger event.
     """
-    if not enabled():
+    on = enabled()
+    if not on and not _trace_bridge.is_set():
         yield
         return
     stack = _span_stack()
     stack.append(name)
     path = "/".join(stack)
-    nvtx = None
-    if _trace_bridge.is_set():
-        import torch
-
-        if torch.cuda.is_available():
-            nvtx = torch.cuda.nvtx
-            nvtx.range_push(path)
     t0 = time.time()
     p0 = time.perf_counter()
     try:
-        yield
+        with trace_range(path if trace_label is None else f"{path}:{trace_label}"):
+            yield
     finally:
         elapsed = time.perf_counter() - p0
-        if nvtx is not None:
-            nvtx.range_pop()
         stack.pop()
         # a fatal injected fault simulates hard process death — a dead
         # process writes nothing, so the span must not land either (the
@@ -583,7 +604,7 @@ def span(name: str, emit: Callable[..., Any] | None = None,
         exc = sys.exc_info()[1]
         if isinstance(exc, FaultInjected) and exc.fatal:
             emit = None
-        if emit is not None:
+        if emit is not None and on:
             # a failed emit raises, as the ledger append it is (the
             # reference logs it at debug level and goes on)
             emit(event="span", span=name, path=path, t0=round(t0, 6),

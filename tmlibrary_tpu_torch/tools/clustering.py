@@ -118,7 +118,8 @@ class Clustering(Tool):
         k = int(payload.get("k", 3))
         features = payload.get("features")
         ids, x, feat_cols = self.load_feature_matrix(objects_name, features)
-        resolved, source = resolve_index_mode(payload.get("index"), n_objects=len(x))
+        resolved, source = resolve_index_mode(payload.get("index"), n_objects=len(x),
+                                              device=self.device)
         index_info: dict = {"index": resolved, "index_source": source}
         if resolved == "ivf":
             fs = self.feature_store(objects_name)

@@ -34,13 +34,21 @@ reads the other's ledger.  Where the port differs:
   written.  ``should_stop``/``stop_reason`` (default: the process's
   preemption flag) are polled before each step and batch; a stop drains
   the pipelined window and records ``run_preempted``
-  (:class:`PreemptedError`, exit 75 from the CLI); at several ranks
-  the stop is not polled, since one rank stopping alone would leave the
-  others waiting in a collective.  The phase watchdog
+  (:class:`PreemptedError`, exit 75 from the CLI).  The phase watchdog
   arms per phase when on.  A fleet host (``TMX_HOST_ID``) stamps
-  ``host`` on each event.  Compile spans are not recorded: the port
-  compiles nothing per program (ROADMAP A item 11, the compile and
-  profile plumbing).
+  ``host`` on each event.
+- **Compile spans and ``perf.json``.**  The port compiles nothing per
+  program; :mod:`tmlibrary_tpu_torch.perf` records the first call of
+  each program (and the kernel library's build or load) as its compile,
+  and the engine drains those records as ``span`` events with
+  ``span="compile"`` after each batch and step and at the end of the run
+  (:meth:`Workflow._drain_compile_spans`, the reference's ``:700-710``),
+  dropping at its start those recorded before it;
+  with telemetry on it writes :func:`~tmlibrary_tpu_torch.perf.perf_snapshot`
+  to ``workflow/perf.json`` at the end of the run (``:772-781``), and a
+  failed write raises.  The step span is named ``step:<name>`` and each
+  batch ``batch:<index>`` in a device trace
+  (:func:`~tmlibrary_tpu_torch.profiling.device_trace`).
 
 **Several ranks.**  Under a process group of more than one rank
 (``torchrun``, :func:`tmlibrary_tpu_torch.parallel.distributed.initialize`)
@@ -51,9 +59,34 @@ steps that shard over ranks (``collective = True``: corilla, illuminati,
 jterator), whose collectives pair with rank 0's, and skip the others.
 The ranks meet at a barrier after each step's batches; a step with a
 ``collective_collect`` (jterator's re-segmentation of saturated batches)
-then runs it on every rank while rank 0 collects.  There are no
-retries and no pipelining then (a retry on one rank alone would wait
-forever on the others), and a failed batch fails the run.
+then runs it on every rank while rank 0 collects.
+
+Rank 0 decides every retry, quarantine and stop of a sharding step and
+broadcasts the decision, so every rank retries the same batch, or
+raises the same :class:`PreemptedError`, at the same boundary and none
+waits alone in a collective.  Before each attempt of a batch every rank
+sends rank 0 its stop flag and whether the ``batch_run`` fault site
+fired on it; after the attempt, whether it raised.  Rank 0 judges the
+reports under its retry policy (``_verdict``: retry after the policy's
+delay, quarantine, fail the step past the quarantine budget, or stop)
+and every rank follows.  One rank runs the same attempts and verdicts
+with itself as rank 0 (``_agreed_attempts``), so there is one retry
+path.  The pipelined executor runs at several ranks too: its persists,
+whose escalation re-launches are collectives, run on the calling thread
+in submission order on every rank.  The ``persist`` fault site's
+outcome is agreed before a persist begins (``_agree_persist``), and the
+mesh's members agree on each escalation (one saturated member re-runs
+them all; a fetch that raised on one fails the batch on all), so a
+failure there fails the batch on every rank with the failing rank's
+error judged.  A failed batch is yielded in its turn and its outcome
+agreed the same way, and the executor's ``should_stop`` is the same
+collective poll, before each launch.  The depth is rank 0's, sent with
+the batch order and the quarantine budget.  A batch that raises on one
+rank inside a collective's span (a launch) cannot be agreed: the other
+ranks wait in the collective until NCCL's or gloo's timeout ends the
+run.  A step that does not shard runs on rank 0 alone, with its own
+retries and no stop poll inside it; the ranks then agree on a stop at
+the next step boundary.
 
 At the end of a run, finished or failed, the engine writes the QC
 session's profile (:mod:`tmlibrary_tpu_torch.qc`) to
@@ -78,26 +111,32 @@ from typing import Any
 
 import torch
 
-from tmlibrary_tpu_torch import faults, telemetry, timeseries, yamlio
+from tmlibrary_tpu_torch import faults, perf, telemetry, timeseries, yamlio
 from tmlibrary_tpu_torch import qc as qc_mod
 from tmlibrary_tpu_torch.atomicio import atomic_write_text
 from tmlibrary_tpu_torch.config import LibraryConfig
 from tmlibrary_tpu_torch.device import resolve_device
-from tmlibrary_tpu_torch.errors import FaultInjected, PreemptedError, WorkflowError
+from tmlibrary_tpu_torch.errors import (
+    FaultInjected,
+    PeerFailed,
+    PreemptedError,
+    WorkflowError,
+)
 from tmlibrary_tpu_torch.models.store import ExperimentStore
 from tmlibrary_tpu_torch.parallel import distributed
 from tmlibrary_tpu_torch.resilience import (
     PERMANENT,
+    TRANSIENT,
     ResilienceConfig,
     RetryOutcome,
     RetryPolicy,
     classify,
     preemption_reason,
     preemption_requested,
-    retry_call,
     watchdog_from_config,
 )
 from tmlibrary_tpu_torch.workflow.pipelined import (
+    BatchFailure,
     PipelinedExecutor,
     PipelineStats,
     resolve_pipeline_depth,
@@ -536,6 +575,9 @@ class Workflow:
                 self.ledger.append(event="description_drift", previous=prev,
                                    current=desc_hash)
         self.ledger.append(event="run_started", description_hash=desc_hash, resume=resume)
+        # compile spans recorded before this run (a step driven outside the
+        # engine) belong to no run's ledger
+        perf.pop_compile_spans()
         self._run_wall_t0 = time.time()
         self._first_batch_noted = False
         telemetry.get_registry().counter("tmx_runs_total").inc()
@@ -549,18 +591,20 @@ class Workflow:
                     for sd in stage.steps:
                         if not sd.active:
                             continue
-                        if sd.name in done_steps:
+                        done = sd.name in done_steps
+                        # the boundary between steps is already clean
+                        stop, reason = self._poll_stop(applies=not done)
+                        if done:
                             logger.info("resume: skipping completed step %s", sd.name)
                             self._announce(None)
                             distributed.sync_hosts(f"{sd.name} batches")
                             continue
-                        if distributed.world_size() == 1 and self._should_stop():
-                            # the boundary between steps is already clean
+                        if stop:
                             self._note_preempted(PreemptedError(
                                 f"preempted before step '{sd.name}'", step=sd.name,
-                                reason=self._stop_reason()))
+                                reason=reason))
                         with telemetry.span("step", emit=functools.partial(
-                                self.ledger.append, step=sd.name)):
+                                self.ledger.append, step=sd.name), trace_label=sd.name):
                             summary[sd.name] = self._run_step(sd, resume)
         finally:
             if self._watchdog is not None:
@@ -569,6 +613,7 @@ class Workflow:
                 self._watchdog = None
             if sampler is not None:
                 sampler.stop()
+            self._drain_compile_spans()
             exc = sys.exc_info()[1]
             if exc is not None and not isinstance(exc, PreemptedError) \
                     and not (isinstance(exc, FaultInjected) and exc.fatal):
@@ -595,6 +640,18 @@ class Workflow:
             telemetry.flight_dump(telemetry.flightrec_path(self.store.workflow_dir),
                                   reason="watchdog", extra={"step": step_name})
 
+    def _drain_compile_spans(self, step_name: str | None = None) -> None:
+        """Append the compile spans :mod:`~tmlibrary_tpu_torch.perf`
+        buffered (its records can come from persist workers; only the
+        engine thread appends to the ledger); nothing with telemetry
+        off."""
+        if not telemetry.enabled():
+            return
+        for sp in perf.pop_compile_spans():
+            if step_name is not None:
+                sp.setdefault("step", step_name)
+            self.ledger.append(event="span", span="compile", **sp)
+
     def _note_preempted(self, exc: PreemptedError) -> None:
         """Record the drain boundary (``run_preempted``, the counter, a
         flight dump) and re-raise; the CLI exits ``EXIT_PREEMPTED``."""
@@ -613,8 +670,8 @@ class Workflow:
     def _write_metrics_snapshot(self) -> None:
         """The QC profile, then with telemetry on the live registry as
         ``metrics.<host>.json`` (and ``metrics.json`` on host0) next to
-        the ledger and one sample per series into the tsdb segment;
-        written on failure too."""
+        the ledger, one sample per series into the tsdb segment and the
+        perf store as ``perf.json``; written on failure too."""
         self._write_qc_profile()
         if not telemetry.enabled():
             return
@@ -623,6 +680,11 @@ class Workflow:
         if telemetry.host_id() == "host0":
             atomic_write_text(self.store.workflow_dir / "metrics.json", rendered)
         timeseries.flush_registry(self.store.workflow_dir)
+        # the per-program attribution `perf` reads
+        snap = perf.perf_snapshot()
+        if snap["programs"]:
+            atomic_write_text(self.store.workflow_dir / "perf.json",
+                              json.dumps(snap, indent=2) + "\n")
 
     def _start_sampler(self):
         """The resource sampler and heartbeat of this run, when telemetry
@@ -653,29 +715,207 @@ class Workflow:
                            skew_s=float(skew), device_wall_times=times, **extra)
 
     @staticmethod
-    def _announce(pending: "list[int] | None") -> "list[int]":
-        """Rank 0 sends the batch indices it will run next (a list, in
-        order; None for a completed step it skips) and the other ranks
-        receive them; one rank: the list."""
-        return distributed.broadcast_object(pending)
+    def _announce(plan: "dict | None") -> "dict | None":
+        """Rank 0 sends its plan of the step it runs next (``pending``: the
+        batch indices in order, ``depth``: the pipelined executor's depth
+        or None, ``budget``: the quarantine budget; None for a completed
+        step it skips) and the other ranks receive it; one rank: the
+        plan."""
+        return distributed.broadcast_object(plan)
+
+    # ------------------------------------------------------ rank agreement
+    @staticmethod
+    def _agree(report: dict, decide, peers: bool = True) -> dict:
+        """Rank 0's decision on every rank's ``report``: the reports are
+        gathered on rank 0, ``decide(reports)`` runs there and its result
+        reaches every rank; one rank, or a step rank 0 runs without its
+        peers (``peers`` False): ``decide([report])``."""
+        if not peers or distributed.world_size() == 1:
+            return decide([report])
+        reports = distributed.gather_object(report)
+        return distributed.broadcast_object(None if reports is None else decide(reports))
+
+    def _stop_report(self, applies: bool = True) -> dict:
+        stop = applies and bool(self._should_stop())
+        return {"stop": stop, "reason": self._stop_reason() if stop else None}
+
+    @staticmethod
+    def _stops(reports: list[dict], applies: bool = True) -> "dict | None":
+        """The stop decision when a rank asks for one (and it applies)."""
+        asked = [r for r in reports if r.get("stop")]
+        if applies and asked:
+            return {"do": "stop", "reason": asked[0]["reason"]}
+        return None
+
+    def _poll_stop(self, applies: bool = True) -> tuple[bool, "str | None"]:
+        """Whether the run stops here, and why: at one rank the stop hook
+        (not polled where ``applies`` is False), at several the ranks'
+        hooks judged by rank 0 (every rank polls, so the collective
+        pairs)."""
+        if distributed.world_size() == 1:
+            if applies and self._should_stop():
+                return True, self._stop_reason()
+            return False, None
+        d = self._agree(self._stop_report(),
+                        lambda rs: self._stops(rs, applies) or {"do": "go"})
+        return d["do"] == "stop", d.get("reason")
+
+    @staticmethod
+    def _error_report(err: "BaseException | None") -> dict:
+        """A rank's outcome; a :class:`PeerFailed` is another rank's
+        failure, which that rank reports."""
+        if err is None or isinstance(err, PeerFailed):
+            return {"error": None}
+        return {"error": str(err), "exception": type(err).__name__,
+                "classification": classify(err)}
+
+    def _agree_persist(self, err: "BaseException | None") -> None:
+        """The pipelined window's agreement before a persist's collectives
+        (several ranks): when the ``persist`` fault site fired on any
+        rank, ``err`` is raised where it fired and :class:`PeerFailed`
+        on every other rank, so every rank yields the batch as failed
+        and rank 0 decides its retry."""
+        d = self._agree(self._error_report(err), lambda rs: next(
+            ({"do": "fail", "rank": i, **r} for i, r in enumerate(rs) if r["error"]),
+            {"do": "go"}))
+        if err is not None:
+            raise err
+        if d["do"] == "fail":
+            raise PeerFailed(f"rank {d['rank']}: {d['exception']}: {d['error']}")
+
+    @staticmethod
+    def _verdict(reports: list[dict], attempt: int, policy: RetryPolicy, t0: float,
+                 describe: str, after_run: bool) -> dict:
+        """Rank 0's judgement of one attempt of a batch: a stop first,
+        then ``run``/``ok`` when no rank failed, else a retry after the
+        policy's delay while the failures are transient and attempts and
+        deadline remain, else ``fail`` (quarantine)."""
+        stop = None if after_run else Workflow._stops(reports)
+        if stop is not None:
+            return stop
+        failed = [(rank, r) for rank, r in enumerate(reports) if r.get("error")]
+        if not failed:
+            return {"do": "ok" if after_run else "run"}
+        rank, first = failed[0]
+        cls = PERMANENT if any(r["classification"] == PERMANENT for _, r in failed) \
+            else TRANSIENT
+        if cls == PERMANENT:
+            logger.warning("%s failed permanently on rank %d (%s: %s) — not retrying",
+                           describe, rank, first["exception"], first["error"])
+        elif attempt < policy.max_attempts:
+            pause = policy.delay(attempt)
+            if policy.deadline is None or time.monotonic() - t0 + pause <= policy.deadline:
+                logger.warning("%s failed on rank %d (%s: %s) — retry %d/%d on every rank "
+                               "in %.2fs", describe, rank, first["exception"], first["error"],
+                               attempt, policy.max_attempts - 1, pause)
+                telemetry.get_registry().counter("tmx_retry_attempts_total").inc()
+                return {"do": "retry", "delay": pause}
+            logger.warning("%s: retry deadline (%.1fs) exhausted", describe, policy.deadline)
+        return {"do": "fail", "rank": rank, "error": first["error"],
+                "exception": first["exception"], "classification": cls}
+
+    def _agreed_attempts(self, step, batch: dict, policy: RetryPolicy, abandoned: int,
+                         peers: bool, attempt: int = 1,
+                         t0: "float | None" = None) -> RetryOutcome:
+        """Attempts of one batch, each decided by rank 0 on every rank of a
+        sharding step (``peers``), else by this rank alone (before it: the
+        stop hooks and the ``batch_run`` fault site, which fire before any
+        collective of the batch; after it: whether it raised anywhere).
+        Raises :class:`PreemptedError` on every rank for a stop; a step
+        rank 0 runs without its peers polls no stop."""
+        t0 = time.monotonic() if t0 is None else t0
+        describe = f"{step.name} batch {batch['index']}"
+        stops = peers or distributed.world_size() == 1
+        while True:
+            err = None
+            try:
+                faults.maybe_fire("batch_run", step=step.name, batch=batch["index"])
+            except Exception as e:
+                if isinstance(e, FaultInjected) and e.fatal:
+                    raise
+                err = e
+            d = self._agree({**self._stop_report(stops), **self._error_report(err)},
+                            lambda rs: self._verdict(rs, attempt, policy, t0, describe, False),
+                            peers)
+            if d["do"] == "stop":
+                raise PreemptedError(
+                    f"preempted before batch {batch['index']} of '{step.name}': abandoned "
+                    f"{abandoned} pending batches", step=step.name, abandoned=abandoned,
+                    reason=d["reason"])
+            value = None
+            if d["do"] == "run":
+                try:
+                    with telemetry.trace_range(f"batch:{batch['index']}"):
+                        value = step.run_batch(batch)
+                except Exception as e:
+                    if isinstance(e, FaultInjected) and e.fatal:
+                        raise
+                    err = e
+                d = self._agree(self._error_report(err), lambda rs: self._verdict(
+                    rs, attempt, policy, t0, describe, True), peers)
+                if d["do"] == "ok":
+                    return RetryOutcome(value=value, attempts=attempt)
+            if d["do"] == "retry":
+                time.sleep(d["delay"])
+                attempt += 1
+                continue
+            if err is None:
+                err = WorkflowError(f"rank {d['rank']}: {d['exception']}: {d['error']}")
+            return RetryOutcome(error=err, attempts=attempt, classification=d["classification"])
+
+    def _judged(self, step, batch: dict, result, policy: RetryPolicy, abandoned: int,
+                peers: bool) -> RetryOutcome:
+        """The outcome of a batch whose first attempt ran in the pipelined
+        window (``result``: its summary, a :class:`BatchFailure` or the
+        exception the window raised), judged as an attempt of
+        :meth:`_agreed_attempts`, which runs its retries one by one."""
+        err = result.error if isinstance(result, BatchFailure) else \
+            result if isinstance(result, BaseException) else None
+        t0 = time.monotonic()
+        describe = f"{step.name} batch {batch['index']}"
+        d = self._agree(self._error_report(err), lambda rs: self._verdict(
+            rs, 1, policy, t0, describe, True), peers)
+        if d["do"] == "retry":
+            time.sleep(d["delay"])
+            return self._agreed_attempts(step, batch, policy, abandoned, peers, 2, t0)
+        if d["do"] == "fail":
+            return RetryOutcome(
+                error=err or WorkflowError(f"rank {d['rank']}: {d['exception']}: {d['error']}"),
+                attempts=1, classification=d["classification"])
+        return RetryOutcome(value=result, attempts=1)
 
     def _follow(self) -> dict:
-        """A rank other than 0: for each active step, run the batches rank
-        0 announces when the step shards over ranks, then meet at the
-        step's barrier."""
+        """A rank other than 0: for each active step, the step-boundary
+        stop poll, then rank 0's plan; a step that shards over ranks runs
+        the planned batches with every outcome agreed, raising as rank 0
+        does for a stop or past the quarantine budget; then the step's
+        barrier."""
         for stage in self.description.stages:
             for sd in stage.steps:
                 if not sd.active:
                     continue
-                pending = self._announce(None)
+                stop, reason = self._poll_stop()
+                if stop:
+                    raise PreemptedError(f"preempted before step '{sd.name}'", step=sd.name,
+                                         reason=reason)
+                plan = self._announce(None)
                 step = get_step(sd.name)(self.store, device=self.device)
                 collective = getattr(step, "collective", False)
-                if collective:
-                    for index in pending or []:
-                        step.run_batch(step.load_batch(index))
+                if collective and plan is not None:
+                    pending = [step.load_batch(i) for i in plan["pending"]]
+                    pstats = (None if plan["depth"] is None
+                              else PipelineStats(plan["depth"], "rank 0", step=sd.name))
+                    failed = 0
+                    for _, outcome in self._iter_outcomes(step, pending, RetryPolicy(),
+                                                          pstats):
+                        failed += not outcome.ok
+                        if failed > plan["budget"]:
+                            raise WorkflowError(
+                                f"step '{sd.name}': {failed} failed batches exceeds the "
+                                f"quarantine budget ({plan['budget']})") from outcome.error
                 distributed.sync_hosts(f"{sd.name} batches")
                 # rank 0 collects now (a skipped step announced None)
-                if collective and pending is not None and hasattr(step, "collective_collect"):
+                if collective and plan is not None and hasattr(step, "collective_collect"):
                     step.collective_collect()
         return {}
 
@@ -706,73 +946,54 @@ class Workflow:
         return len(flagged)
 
     # ---------------------------------------------------------- batch level
-    def _exec_batch(self, step, batch: dict) -> dict:
-        faults.maybe_fire("batch_run", step=step.name, batch=batch["index"])
-        return step.run_batch(batch)
-
-    def _retry_after(self, step, batch: dict, first_exc: Exception,
-                     policy: RetryPolicy) -> RetryOutcome:
-        """Fold an already-observed failure into the retry budget and run
-        the remaining attempts one by one."""
-        cls = classify(first_exc)
-        if cls is PERMANENT or policy.max_attempts <= 1:
-            return RetryOutcome(error=first_exc, attempts=1, classification=cls)
-        remaining = dataclasses.replace(policy, max_attempts=policy.max_attempts - 1)
-        out = retry_call(lambda: self._exec_batch(step, batch), remaining,
-                         describe=f"{step.name} batch {batch['index']}")
-        out.attempts += 1
-        return out
-
     def _iter_outcomes(self, step, pending: list[dict], policy: RetryPolicy,
                        pstats: PipelineStats | None = None):
         """``(batch, RetryOutcome)`` for every pending batch: through the
         pipelined executor for steps with the launch/persist split, else
-        one by one.  After a failure in the pipeline the failing batch
-        is retried and the rest run one by one.  Both poll ``should_stop``
-        at batch boundaries and surface a stop as
-        :class:`PreemptedError`, never as a batch failure."""
+        one by one, every attempt judged by :meth:`_verdict`.  A step that
+        shards over several ranks agrees on every outcome (the module
+        docstring); a step that does not runs on rank 0 alone without
+        stop polls.  After a failure in the pipeline at one rank the
+        failing batch is retried and the rest run one by one.  A stop
+        surfaces as :class:`PreemptedError`, never as a batch failure."""
+        ranks = distributed.world_size()
+        peers = ranks > 1 and getattr(step, "collective", False)
+        if peers:
+            should_stop = lambda: self._poll_stop()[0]  # noqa: E731
+        elif ranks > 1:
+            should_stop = lambda: False  # noqa: E731
+        else:
+            should_stop = self._should_stop
         gen = None
         if pstats is not None and pending:
+            on_event = (lambda **ev: self.ledger.append(step=step.name, **ev)) \
+                if distributed.is_writer() else None
             gen = PipelinedExecutor(
-                step, depth=pstats.depth, stats=pstats,
-                on_event=lambda **ev: self.ledger.append(step=step.name, **ev),
-                should_stop=self._should_stop, watchdog=self._watchdog,
+                step, depth=pstats.depth, stats=pstats, on_event=on_event,
+                should_stop=should_stop, watchdog=self._watchdog,
+                agree=self._agree_persist if peers else None,
             ).run(pending)
         pos = 0
         while pos < len(pending):
-            if gen is not None:
-                try:
-                    batch, result = next(gen)
-                except StopIteration:
-                    break
-                except Exception as e:
-                    if isinstance(e, FaultInjected) and e.fatal:
-                        raise
-                    if isinstance(e, PreemptedError):
-                        raise  # drained cleanly: not a batch failure
-                    logger.warning("%s: pipelined runner failed at batch %d — running the "
-                                   "rest one by one", step.name, pending[pos]["index"])
-                    gen = None
-                    yield pending[pos], self._retry_after(step, pending[pos], e, policy)
-                    pos += 1
-                    continue
-                yield batch, RetryOutcome(value=result, attempts=1)
+            batch, abandoned = pending[pos], len(pending) - pos
+            if gen is None:
+                yield batch, self._agreed_attempts(step, batch, policy, abandoned, peers)
                 pos += 1
-            else:
-                batch = pending[pos]
-                if distributed.world_size() == 1 and self._should_stop():
-                    raise PreemptedError(
-                        f"preempted before batch {batch['index']} of '{step.name}': "
-                        f"abandoned {len(pending) - pos} pending batches",
-                        step=step.name, abandoned=len(pending) - pos,
-                        reason=self._stop_reason())
-                try:
-                    yield batch, RetryOutcome(value=self._exec_batch(step, batch), attempts=1)
-                except Exception as e:
-                    if isinstance(e, FaultInjected) and e.fatal:
-                        raise
-                    yield batch, self._retry_after(step, batch, e, policy)
-                pos += 1
+                continue
+            try:
+                batch, result = next(gen)
+            except StopIteration:
+                break
+            except Exception as e:
+                if isinstance(e, FaultInjected) and e.fatal:
+                    raise
+                if isinstance(e, PreemptedError):
+                    raise  # drained cleanly: not a batch failure
+                logger.warning("%s: pipelined runner failed at batch %d — running the "
+                               "rest one by one", step.name, batch["index"])
+                gen, result = None, e
+            yield batch, self._judged(step, batch, result, policy, abandoned, peers)
+            pos += 1
 
     @staticmethod
     def _call_collect(step, results: list[dict]):
@@ -790,9 +1011,7 @@ class Workflow:
     def _run_step(self, sd: WorkflowStepDescription, resume: bool) -> dict:
         step = get_step(sd.name)(self.store, device=self.device)
         res = self.resilience
-        ranks = distributed.world_size()
-        policy = res.policy if res.enabled and ranks == 1 else \
-            RetryPolicy(max_attempts=1, base_delay=0.0)
+        policy = res.policy if res.enabled else RetryPolicy(max_attempts=1, base_delay=0.0)
         t0 = time.time()
         current_batch: int | None = None
         try:
@@ -827,28 +1046,30 @@ class Workflow:
             if quarantined:
                 logger.info("resume: re-attempting quarantined batches %s of %s first",
                             sorted(quarantined), sd.name)
-            self._announce([b["index"] for b in pending])
             results: list[dict] = []
             failed: list[dict] = []
-            budget = res.failure_budget(len(batches)) if res.enabled and ranks == 1 else 0
+            budget = res.failure_budget(len(batches)) if res.enabled else 0
             qc_flagged = 0
             qc_budget_noted = False
             qc_sites_total = sum(len(b.get("sites") or []) for b in batches)
             qc_site_budget = (int(res.qc_flag_budget * qc_sites_total)
                               if res.enabled and qc_sites_total else 0)
             pstats = None
-            if pending and supports_pipelining(step) and ranks == 1 \
-                    and not faults.sequential_forced():
+            if pending and supports_pipelining(step) and not faults.sequential_forced():
                 depth, source = resolve_pipeline_depth(self.pipeline_depth, self.device)
                 pstats = PipelineStats(depth, source, step=sd.name)
                 logger.info("%s: pipelined executor, in-flight depth %d (source: %s)",
                             sd.name, depth, source)
+            self._announce({"pending": [b["index"] for b in pending],
+                            "depth": None if pstats is None else pstats.depth,
+                            "budget": budget})
             metrics = telemetry.get_registry()
             bt0 = time.time()
             with step.capture_logs("run"):
                 for batch, outcome in self._iter_outcomes(step, pending, policy, pstats):
                     current_batch = batch["index"]
                     self._drain_watchdog(sd.name)
+                    self._drain_compile_spans(sd.name)
                     if outcome.ok:
                         b_elapsed = time.time() - bt0
                         if telemetry.enabled():
@@ -908,6 +1129,7 @@ class Workflow:
                                  failure["error"], len(failed), budget)
                 distributed.sync_hosts(f"{sd.name} batches")
                 collected = self._call_collect(step, results)
+            self._drain_compile_spans(sd.name)
             metrics.histogram("tmx_step_seconds", step=sd.name).observe(time.time() - t0)
             extra = {"pipeline_stats": pstats.summary()} if pstats is not None else {}
             if failed:

@@ -34,14 +34,28 @@ Semantics (the same as the reference's):
 - **Telemetry and faults**: with telemetry on, each batch's phases are
   ``span`` events (emitted through ``on_event`` on the calling thread,
   just before the batch is yielded), ``tmx_pipeline_phase_seconds``
-  histograms and the ``tmx_pipeline_inflight`` gauge; the ``persist``
-  fault site fires inside the persist phase; a ``watchdog``
-  (:class:`~tmlibrary_tpu_torch.resilience.PhaseWatchdog`) arms the
-  launch, block and persist phases.
+  histograms and the ``tmx_pipeline_inflight`` gauge; the phase
+  statistics are :class:`~tmlibrary_tpu_torch.profiling.PipelineStats`;
+  the ``persist`` fault site fires inside the persist phase; a
+  ``watchdog`` (:class:`~tmlibrary_tpu_torch.resilience.PhaseWatchdog`)
+  arms the launch, block and persist phases.  While a device trace runs,
+  each dispatch is a ``batch:<index>`` range
+  (:func:`~tmlibrary_tpu_torch.telemetry.trace_range`).
+- **Several ranks** (``agree``, the engine's rank agreement): the
+  window persists on the calling thread, so every collective of a
+  launch and of a persist (the escalation's re-launch) is issued from
+  one thread in submission order on every rank.  The ``persist`` fault
+  site's outcome goes through ``agree`` before the persist's first
+  collective, so every rank persists the batch or none does; and a
+  batch whose launch or persist raises is yielded as
+  ``(batch, BatchFailure)`` in its turn instead of ending the window, so
+  rank 0 can decide its retry for every rank.  There is no depth clamp
+  then: an out-of-memory batch is a failure like any other.
 
-Not ported: the reference's compile-ahead warming (the port compiles
-nothing per capacity rung) and its p50/p95 and device/host split in
-``summary()``, which belong to the profiling plumbing (ROADMAP A item 11).
+The depth is an explicit request, else the cuda-scoped tuning verdict
+(:func:`tmlibrary_tpu_torch.tuning.tuned_pipeline_depth`), else the
+per-device default.  Not ported: the reference's compile-ahead warming
+(the port compiles nothing per capacity rung).
 """
 
 from __future__ import annotations
@@ -50,23 +64,21 @@ import collections
 import concurrent.futures
 import contextlib
 import logging
-import threading
 import time
 from typing import Any, Callable, Iterable, Iterator
 
 import torch
 
-from tmlibrary_tpu_torch import faults, telemetry
-from tmlibrary_tpu_torch.errors import PreemptedError
+from tmlibrary_tpu_torch import faults, telemetry, tuning
+from tmlibrary_tpu_torch.errors import FaultInjected, PreemptedError
+from tmlibrary_tpu_torch.profiling import (  # noqa: F401 — the executor's stats, here too
+    PHASE_RESOURCE,
+    PIPELINE_PHASES,
+    PipelineStats,
+)
 
 logger = logging.getLogger(__name__)
 
-#: the executor's phases, in the order a batch passes them
-PIPELINE_PHASES = ("prefetch_wait", "dispatch", "device_block", "persist")
-
-#: the resource each phase spends (the ``resource`` of its span)
-PHASE_RESOURCE = {"prefetch_wait": "host", "dispatch": "device",
-                  "device_block": "device", "persist": "host"}
 
 _NULL_CM = contextlib.nullcontext()
 
@@ -97,12 +109,17 @@ def resolve_pipeline_depth(
     explicit: int | None = None, device: "str | torch.device | None" = None
 ) -> tuple[int, str]:
     """The in-flight depth and where it came from: an explicit request
-    (``"cli"``), else the per-device default (``"default"``): 8 on the
-    card, 2 on the CPU, the reference's two defaults.  The port has no
-    install setting and no tuning sweep of the card yet."""
+    (``"cli"``), else on the card the tuning verdict measured on the card
+    (``"tuning"``; a verdict of another backend sets nothing), else the
+    per-device default (``"default"``): 8 on the card, 2 on the CPU, the
+    reference's two defaults.  The port has no install setting for it."""
     if explicit is not None and int(explicit) > 0:
         return max(1, int(explicit)), "cli"
     kind = torch.device(device).type if device is not None else "cuda"
+    if kind != "cpu":
+        tuned = tuning.tuned_pipeline_depth(kind)
+        if tuned:
+            return tuned, "tuning"
     return (8 if kind == "cuda" else 2), "default"
 
 
@@ -137,76 +154,25 @@ def prefetch_iter(
         pool.shutdown(wait=True)
 
 
-class PipelineStats:
-    """Wall times of the executor's phases, summed over batches
-    (``summary()`` has the reference's ``pipeline_stats`` keys: ``depth``,
-    ``source``, ``n_batches``, ``phases`` with ``total_s``/``max_s``/
-    ``count``, ``depth_clamps``) and per batch (``per_batch()``).
-    Thread-safe: dispatch is timed on the calling thread, device block
-    and persist on the persist worker."""
+class BatchFailure:
+    """A launch or persist that raised, yielded in the batch's turn when
+    the executor captures errors (several ranks)."""
 
-    def __init__(self, depth: int, source: str = "explicit", step: str = ""):
-        self.depth = int(depth)
-        self.source = source
-        self.step = step
-        self._lock = threading.Lock()
-        self._phases = {p: [0.0, 0.0, 0] for p in PIPELINE_PHASES}
-        self._batches = 0
-        self._clamps: list[dict] = []
-        self._per_batch: dict = {}
-        reg = telemetry.get_registry()
-        self._reg_hist = {p: reg.histogram("tmx_pipeline_phase_seconds",
-                                           step=step or "unknown", phase=p)
-                          for p in PIPELINE_PHASES}
-        #: batch index -> [(phase, seconds, wall t0)], drained by the
-        #: executor on the calling thread as ``span`` events
-        self._batch_spans: dict = {}
+    __slots__ = ("error",)
 
-    def record(self, phase: str, seconds: float, batch=None, t0: float | None = None) -> None:
-        self._reg_hist[phase].observe(seconds)
-        with self._lock:
-            acc = self._phases[phase]
-            acc[0] += seconds
-            acc[1] = max(acc[1], seconds)
-            acc[2] += 1
-            if batch is not None:
-                times = self._per_batch.setdefault(batch, {})
-                times[phase] = times.get(phase, 0.0) + seconds
-                if telemetry.enabled():
-                    self._batch_spans.setdefault(batch, []).append(
-                        (phase, seconds, t0 if t0 is not None else 0.0))
+    def __init__(self, error: BaseException):
+        self.error = error
 
-    def pop_batch_spans(self, batch) -> list[tuple[str, float, float]]:
-        """Drain the buffered phase records of ``batch``."""
-        with self._lock:
-            return self._batch_spans.pop(batch, [])
 
-    def per_batch(self) -> dict:
-        """``{batch index: {phase: seconds}}`` in the order batches began."""
-        with self._lock:
-            return {b: dict(t) for b, t in self._per_batch.items()}
+class _Deferred:
+    """A persist run on the calling thread when its batch is popped (the
+    inline window of several ranks), with a future's ``result()``."""
 
-    def batch_done(self) -> None:
-        with self._lock:
-            self._batches += 1
+    def __init__(self, fn, *args):
+        self._fn, self._args = fn, args
 
-    def record_clamp(self, from_depth: int, to_depth: int) -> None:
-        with self._lock:
-            self._clamps.append({"from": int(from_depth), "to": int(to_depth)})
-            self.depth = int(to_depth)
-
-    def summary(self) -> dict:
-        with self._lock:
-            return {
-                "depth": self.depth,
-                "source": self.source,
-                "n_batches": self._batches,
-                "phases": {
-                    p: {"total_s": total, "max_s": peak, "count": n}
-                    for p, (total, peak, n) in self._phases.items() if n
-                },
-                "depth_clamps": list(self._clamps),
-            }
+    def result(self):
+        return self._fn(*self._args)
 
 
 class PipelinedExecutor:
@@ -217,7 +183,11 @@ class PipelinedExecutor:
     ``on_event(**event)`` receives ``depth_clamped`` and ``span`` events.
     ``should_stop`` is polled before each launch; ``watchdog`` arms the
     launch/block/persist phases.  One persist worker drains the window
-    in submission order."""
+    in submission order.  With ``agree`` (several ranks: ``agree(err)``
+    raises on every rank when the ``persist`` fault site fired on any)
+    the calling thread persists each batch as it pops it, and a batch
+    whose launch or persist raises is yielded with a
+    :class:`BatchFailure`."""
 
     def __init__(
         self,
@@ -227,6 +197,7 @@ class PipelinedExecutor:
         on_event: Callable[..., None] | None = None,
         should_stop: Callable[[], bool] | None = None,
         watchdog=None,
+        agree: Callable[[BaseException | None], None] | None = None,
     ):
         if depth is None:
             depth, _ = resolve_pipeline_depth(None, getattr(step, "device", None))
@@ -236,6 +207,7 @@ class PipelinedExecutor:
         self.on_event = on_event
         self.should_stop = should_stop
         self.watchdog = watchdog
+        self.agree = agree
 
     # ------------------------------------------------------------------ run
     def run(self, batches: Iterable[dict]) -> Iterator[tuple[dict, dict]]:
@@ -305,22 +277,43 @@ class PipelinedExecutor:
                 max_workers=min(self.depth, 4, len(batches)),
                 thread_name_prefix="tmx-prefetch",
             )
-        persister = concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="tmx-persist"
-        )
+        capture = self.agree is not None
+        persister = None if capture else concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="tmx-persist")
+        submit = _Deferred if persister is None else persister.submit
+
+        def captured(exc: Exception):
+            if not capture or (isinstance(exc, FaultInjected) and exc.fatal):
+                raise exc
+            return BatchFailure(exc)
         # launched-but-not-yet-yielded batches, in submission order
         window: collections.deque = collections.deque()
         prefetched: dict[int, concurrent.futures.Future] = {}
 
         def persist(eff: dict, ctx, idx) -> dict:
             # a fault after the device work, before the outputs are durable
-            faults.maybe_fire("persist", step=step_name, batch=idx)
+            if not capture:
+                faults.maybe_fire("persist", step=step_name, batch=idx)
+                return step.persist_batch(eff, ctx)
+            # agreed before the persist's collectives, which a rank that
+            # failed here would leave the others waiting in
+            err = None
+            try:
+                faults.maybe_fire("persist", step=step_name, batch=idx)
+            except Exception as exc:
+                if isinstance(exc, FaultInjected) and exc.fatal:
+                    raise
+                err = exc
+            self.agree(err)
             return step.persist_batch(eff, ctx)
 
         def persist_task(eff: dict, ctx, idx) -> dict:
-            if hasattr(step, "block_batch"):
-                timed("device_block", idx, step.block_batch, ctx, arm="block")
-            result = timed("persist", idx, persist, eff, ctx, idx, arm="persist")
+            try:
+                if hasattr(step, "block_batch"):
+                    timed("device_block", idx, step.block_batch, ctx, arm="block")
+                result = timed("persist", idx, persist, eff, ctx, idx, arm="persist")
+            except Exception as exc:
+                return captured(exc)
             if stats is not None:
                 stats.batch_done()
             return result
@@ -364,14 +357,22 @@ class PipelinedExecutor:
                     pre = None
                     if i in prefetched:
                         pre = timed("prefetch_wait", idx, prefetched.pop(i).result)
-                    eff, ctx = timed("dispatch", idx, step.launch_batch, batch, pre,
-                                     arm="launch")
-                except Exception:
+                    with telemetry.trace_range(f"batch:{idx}"):
+                        eff, ctx = timed("dispatch", idx, step.launch_batch, batch, pre,
+                                         arm="launch")
+                except Exception as exc:
+                    if capture and not (isinstance(exc, FaultInjected) and exc.fatal):
+                        # yielded in its turn: the caller decides its retry
+                        window.append((batch, _Deferred(BatchFailure, exc)))
+                        note_inflight()
+                        while len(window) > self.depth:
+                            yield pop_one()
+                        continue
                     # drain the WHOLE window before the failure propagates
                     while window:
                         yield pop_one()
                     raise
-                window.append((batch, persister.submit(
+                window.append((batch, submit(
                     persist_task, batch if eff is None else eff, ctx, idx
                 )))
                 note_inflight()
@@ -386,4 +387,5 @@ class PipelinedExecutor:
                 prefetcher.shutdown(wait=False)
             # no persist worker may still be writing when the caller
             # re-runs the failed batch
-            persister.shutdown(wait=True)
+            if persister is not None:
+                persister.shutdown(wait=True)

@@ -23,10 +23,13 @@ batch size, device count, description digest), written to a
 ``schedule_plan.json`` side file.  Per-site results persist by site
 index, so packing on or off gives the same store.
 
-The mode is the step's explicit ``schedule`` argument, else ``pack``.
-The JAX package lets a ``TMX_SCHEDULE`` env, an install setting or a
-tuning verdict stand in for ``"auto"``; with none of them present it
-packs, which is what the port does.  The harvest reads the
+The mode (:func:`resolve_schedule`) is the step's explicit ``schedule``
+argument, else the ``schedule`` setting (``TM_SCHEDULE`` or the INI
+file), else the tuning verdict measured on the asking backend
+(:func:`tmlibrary_tpu_torch.tuning.tuned_schedule`), else ``pack``.  The
+JAX package also reads a ``TMX_SCHEDULE`` env, which its CLI sets; the
+port's ``workflow submit --schedule`` passes the step argument instead.
+The harvest reads the
 ``site_index`` column of the Parquet feature shards either package
 writes.
 """
@@ -69,14 +72,21 @@ def _normalize(value) -> str | None:
     )
 
 
-def resolve_schedule(explicit: str | None = None) -> tuple[str, str]:
+def resolve_schedule(explicit: str | None = None,
+                     backend: str | None = None) -> tuple[str, str]:
     """The effective schedule mode and where it came from: an explicit
-    ``pack``/``off`` request (``"cli"``), else ``pack`` (``"default"``):
-    the plan degenerates to directory order with no history, so packing
-    costs nothing on a cold start.  Returns ``(mode, source)``."""
-    mode = _normalize(explicit)
-    if mode is not None:
-        return mode, "cli"
+    ``pack``/``off`` request (``"cli"``), else the ``schedule`` setting
+    (``"config"``), else the tuning verdict of ``backend`` (``cuda`` by
+    default; ``"tuning"``), else ``pack`` (``"default"``): the plan
+    degenerates to directory order with no history, so packing costs
+    nothing on a cold start.  Returns ``(mode, source)``."""
+    from tmlibrary_tpu_torch import config, tuning
+
+    for value, source in ((explicit, "cli"), (config.setting("schedule", "auto"), "config"),
+                          (tuning.tuned_schedule(backend), "tuning")):
+        mode = _normalize(value)
+        if mode is not None:
+            return mode, source
     return "pack", "default"
 
 

@@ -36,8 +36,9 @@ resolves in the other.  What the port does with them:
   and the spatial layout each member's block of the mosaic, on the
   largest rows or ``rows x cols`` mesh that divides it
   (``spatial_grid``).  Every rank runs every batch; only rank 0 writes
-  to the store, and batches run one at a time, so the ranks' collectives
-  stay in one order.
+  to the store.  The engine's window persists on the calling thread at
+  several ranks, so the ranks' collectives (the launch's, and an
+  escalation's re-launch in the persist) stay in one order.
 - ``as_polygons`` writes ``segmentations/<objects>_polygons_<shard>.parquet``
   (:mod:`~tmlibrary_tpu_torch.ops.polygons`) and ``figures``
   segmentation overlays to ``figures/`` (:mod:`~tmlibrary_tpu_torch.jterator.figures`).
@@ -53,10 +54,18 @@ resolves in the other.  What the port does with them:
   from the exported, padded-back labels
   (:func:`~tmlibrary_tpu_torch.native.solidity_batch`), as the reference does
   (``:1499-1511``).
-- ``donate_buffers`` and ``reduction_strategy`` are accepted and have no
-  effect: the port has no buffer donation, and it has only the fused
-  measure that the reference's ``"fused"`` strategy runs.
-- ``batch_size=0`` is 32 (the port has no tuning sweep of the card).
+- ``donate_buffers`` is accepted and has no effect: the port has no
+  buffer donation.  ``reduction_strategy`` resolves to a name
+  (:func:`~tmlibrary_tpu_torch.ops.reduction.resolve_reduction_strategy`)
+  that keys the perf store, but every name runs the port's one measure
+  route, the fused ``grouped_stats`` the reference's ``"fused"``
+  strategy runs.
+- ``batch_size=0`` is, on the card, the ``best_batch`` of a tuning file
+  measured on ``cuda``, else 32; a verdict of another backend (the
+  repo's ``tuning/TUNING.json`` is a TPU's) sets nothing
+  (:mod:`tmlibrary_tpu_torch.tuning`).  The bucket router's first batch
+  takes the cuda-scoped ``object_capacity`` verdict as its hint, and the
+  schedule's ``auto`` the cuda-scoped ``schedule`` verdict.
 - The reference's compile-ahead speculation (``:1303-1423``) has no
   meaning without a compile step and is left out, as are its bucket
   and schedule gauges.  The step counts ``tmx_jterator_sites_total`` and
@@ -67,7 +76,10 @@ resolves in the other.  What the port does with them:
   into ``tmx_device_batch_seconds`` and the straggler skew, and the batch
   summary carries ``device_wall_times``/``straggler_skew_s``.  The first
   batch of each program (description digest and capacity) in a process
-  counts cold (:func:`~tmlibrary_tpu_torch.aotstore.note_program`).
+  counts cold (:func:`~tmlibrary_tpu_torch.aotstore.note_program`), and
+  its first call of each capacity lands in the perf store as the
+  program's compile (:func:`~tmlibrary_tpu_torch.perf.instrument_call`:
+  that call's wall; its FLOPs and bytes under ``--profile``).
 - Feature shards are Parquet
   (:meth:`~tmlibrary_tpu_torch.models.store.ExperimentStore.append_features`),
   built column-wise with the reference's rows, order and values.
@@ -99,9 +111,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from tmlibrary_tpu_torch import aotstore, capacity, telemetry
+from tmlibrary_tpu_torch import aotstore, capacity, perf, telemetry, tuning
 from tmlibrary_tpu_torch import qc as qc_mod
-from tmlibrary_tpu_torch.errors import JobDescriptionError, PipelineError, StoreError
+from tmlibrary_tpu_torch.errors import (
+    JobDescriptionError,
+    PeerFailed,
+    PipelineError,
+    StoreError,
+)
 from tmlibrary_tpu_torch.io import parquet
 from tmlibrary_tpu_torch.jterator import figures
 from tmlibrary_tpu_torch.jterator.description import PipelineDescription
@@ -123,6 +140,7 @@ from tmlibrary_tpu_torch.ops import polygons
 from tmlibrary_tpu_torch.ops.image_ops import correct_illumination
 from tmlibrary_tpu_torch.ops.mosaic import mosaic_feature_table
 from tmlibrary_tpu_torch.ops.pyramid import n_pyramid_levels
+from tmlibrary_tpu_torch.ops.reduction import resolve_reduction_strategy
 from tmlibrary_tpu_torch.parallel import distributed
 from tmlibrary_tpu_torch.parallel import label as par_label
 from tmlibrary_tpu_torch.parallel.halo import gather_blocks
@@ -311,38 +329,43 @@ class ImageAnalysisRunner(Step):
                       "layout gates this per pipe channel; disable if the "
                       "stored registration is untrusted)"),
         Argument("batch_size", int, default=0,
-                 help="sites per device batch (0 = auto: the tuning "
-                      "sweep's best_batch on device backends, else 32)"),
+                 help="sites per device batch (0 = auto: on the card the "
+                      "best_batch of a tuning/TUNING.json measured on "
+                      "cuda, else 32)"),
         Argument("max_objects", int, default=256,
                  help="static per-site object capacity"),
         Argument("object_buckets", str, default="auto",
                  help="object-capacity bucket ladder (capacity.py): "
-                      "'auto' compiles power-of-two buckets up to "
-                      "max_objects and routes each batch by observed "
-                      "object counts; 'off' pins every batch at "
-                      "max_objects; or an explicit comma list of "
-                      "capacities, e.g. '8,32'. Results are bit-identical "
-                      "across bucket choices — routing is purely a "
-                      "performance decision"),
+                      "'auto' builds a pipeline per power-of-two bucket "
+                      "up to max_objects and routes each batch by observed "
+                      "object counts (the first batch by the cuda-scoped "
+                      "tuned object_capacity, else the smallest bucket); "
+                      "'off' pins every batch at max_objects; or an "
+                      "explicit comma list of capacities, e.g. '8,32'. "
+                      "Results are bit-identical across bucket choices — "
+                      "routing is purely a performance decision"),
         Argument("schedule", str, default="auto",
                  choices=("auto", "pack", "off"),
                  help="work-aware site scheduling (workflow/schedule.py): "
                       "'pack' plans cost-model batches (rung-homogeneous "
                       "packing + straggler-balanced shard order) from the "
                       "per-site count history; 'off' keeps directory-order "
-                      "batching; 'auto' follows TMX_SCHEDULE / config / "
-                      "the tuned verdict, then packs. Results are "
+                      "batching; 'auto' follows the schedule setting "
+                      "(TM_SCHEDULE), then the verdict of a "
+                      "tuning/TUNING.json measured on the same backend, "
+                      "then packs. Results are "
                       "bit-identical per site either way — scheduling is "
                       "purely a performance decision"),
         Argument("reduction_strategy", str, default="auto",
                  choices=("auto", "onehot", "sort", "scatter", "fused"),
-                 help="grouped-reduction strategy for the measurement "
-                      "stack (ops/reduction.py): one-hot MXU matmuls, "
-                      "deterministic sort+segment reductions, direct "
-                      "scatters, or the single-pass Pallas measure "
-                      "megakernels (ops/fused_measure.py); 'auto' "
-                      "follows TMX_REDUCTION_STRATEGY / config / the "
-                      "tuned verdict, then a backend-safe default"),
+                 help="grouped-reduction strategy name (ops/reduction.py), "
+                      "resolved as the argument, then the "
+                      "reduction_strategy setting (TM_REDUCTION_STRATEGY), "
+                      "then the verdict of a tuning/TUNING.json measured "
+                      "on the same backend, then 'fused'; every name runs "
+                      "the port's one measure route, the CUDA grouped_stats "
+                      "kernel on the card (its plain scatter twin on the "
+                      "CPU), and keys the perf store's programs"),
         Argument("donate_buffers", bool, default=True,
                  help="donate each batch's raw-image/stats/shift device "
                       "buffers to the compiled program so XLA reuses "
@@ -376,6 +399,7 @@ class ImageAnalysisRunner(Step):
         # resegmentation one per raised cap
         self._pipelines: dict[tuple, object] = {}
         self._desc = None
+        self._program_name: str | None = None
         self._window: tuple[int, int, int, int] | None = None
         self._window_resolved = False
         # prefetch workers read the description while the engine thread
@@ -383,6 +407,7 @@ class ImageAnalysisRunner(Step):
         self._pipeline_lock = threading.Lock()
         self._bucket_lock = threading.Lock()
         self._routing_keys: dict[tuple, str] = {}
+        self._strategies: dict[str, str] = {}
         #: the last pipelined run's phase times (``PipelineStats.summary``)
         #: and each batch's (``PipelineStats.per_batch``)
         self.pipeline_stats: dict | None = None
@@ -399,7 +424,7 @@ class ImageAnalysisRunner(Step):
         if not args["pipe"]:
             raise ValueError("--pipe is required for --layout sites")
         sites = list(range(self.store.n_sites))
-        batch_size = args["batch_size"] or 32
+        batch_size = args["batch_size"] or self._auto_batch_size()
         plan = self._schedule_plan(args, sites, batch_size)
         if plan is not None:
             schedule_mod.write_plan(self._schedule_plan_path, plan)
@@ -431,7 +456,7 @@ class ImageAnalysisRunner(Step):
 
     def _seed_schedule_history(self, args) -> None:
         try:
-            mode, _ = schedule_mod.resolve_schedule(args.get("schedule"))
+            mode, _ = schedule_mod.resolve_schedule(args.get("schedule"), self.device.type)
             if not schedule_mod.schedule_enabled(mode):
                 return
             counts = schedule_mod.harvest_store_counts(self.store)
@@ -453,7 +478,7 @@ class ImageAnalysisRunner(Step):
     def _schedule_plan(self, args, sites: list, batch_size: int):
         """The packing plan for the run, or None when scheduling is off,
         the run is too small to pack, or nothing is known of any site."""
-        mode, source = schedule_mod.resolve_schedule(args.get("schedule"))
+        mode, source = schedule_mod.resolve_schedule(args.get("schedule"), self.device.type)
         if not schedule_mod.schedule_enabled(mode) or len(sites) <= 1:
             schedule_mod.write_plan(self._schedule_plan_path, None)
             return None
@@ -474,6 +499,18 @@ class ImageAnalysisRunner(Step):
             mode=mode, source=source,
         )
 
+    def _auto_batch_size(self) -> int:
+        """``batch_size=0``: on the card the tuning file's ``best_batch``
+        when it was measured on ``cuda``, else 32 (a CPU run keeps 32, as
+        the reference's does)."""
+        if self.device.type != "cpu":
+            tuned = tuning.tuned_batch_size(self.device.type)
+            if tuned:
+                logger.info("batch_size auto: %d sites/batch (source: tuning best_batch)",
+                            tuned)
+                return tuned
+        return 32
+
     # -------------------------------------------------------------- pipeline
     def _description(self, args) -> PipelineDescription:
         """The parsed pipeline description (a ``.pipe.yaml``, or its JSON
@@ -485,6 +522,15 @@ class ImageAnalysisRunner(Step):
                     pipe_path = self.store.root / pipe_path
                 self._desc = PipelineDescription.load(pipe_path)
             return self._desc
+
+    def _program(self, args) -> str:
+        """The perf store's and the cold tally's name of this step's
+        program (its description's digest, taken once a step)."""
+        desc = self._description(args)
+        with self._pipeline_lock:
+            if self._program_name is None:
+                self._program_name = f"jterator:{description_digest(desc)}"
+            return self._program_name
 
     def _pipeline(self, args, capacity_: int | None = None):
         """``(description, batch function, mesh)`` for ``capacity_``
@@ -531,8 +577,9 @@ class ImageAnalysisRunner(Step):
     def _route_capacity(self, batch: dict) -> int:
         """The object-capacity bucket of a batch at launch: its planned
         rung when the schedule packed it, else the smallest rung that
-        holds the peak count persisted so far, else (a cold router; the
-        port has no tuning verdict) the ladder's smallest rung.  A
+        holds the peak count persisted so far, else (a cold router) the
+        cuda-scoped tuned ``object_capacity`` when it is a rung, else the
+        ladder's smallest rung.  A
         mis-route only costs a re-launch one rung up.  Over several ranks
         the rung is the largest any rank routes: they build pipelines of
         that capacity and gather results shaped by it."""
@@ -545,7 +592,11 @@ class ImageAnalysisRunner(Step):
         if planned and int(planned) in ladder:
             return int(planned)
         observed = capacity.observed_peak(self._routing_key(args, ceiling, ladder))
-        cap = ladder[0] if observed is None else capacity.select_capacity(observed, ladder)
+        if observed is None:
+            hint = tuning.tuned_object_capacity(self.device.type)
+            cap = int(hint) if hint and hint in ladder else ladder[0]
+        else:
+            cap = capacity.select_capacity(observed, ladder)
         if distributed.world_size() > 1:
             cap = distributed.max_over_ranks(cap, self.device)
         return cap
@@ -625,8 +676,7 @@ class ImageAnalysisRunner(Step):
 
     def _note_program(self, batch: dict, cap: int) -> None:
         """Count the first batch of this program in the process cold."""
-        aotstore.note_program(
-            f"jterator:{description_digest(self._description(batch['args']))}:{cap}")
+        aotstore.note_program(f"{self._program(batch['args'])}:{cap}")
 
     def run_batches_pipelined(self, batches, depth: int | None = None):
         """Generator over ``(batch, result_summary)`` in batch order, with
@@ -751,7 +801,21 @@ class ImageAnalysisRunner(Step):
         stats = {k: tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in pair)
                  for k, pair in inputs["stats"].items()}
         shifts = torch.from_numpy(np.ascontiguousarray(inputs["shifts"], np.int32)).to(dev)
-        return fn(raw, stats, shifts)
+        args = batch["args"]
+        return perf.instrument_call(
+            fn, raw, stats, shifts,
+            program=self._program(args),
+            capacity=int(capacity_ if capacity_ is not None else args["max_objects"]),
+            strategy=self._strategy(args.get("reduction_strategy", "auto")), device=dev)
+
+    def _strategy(self, method: str) -> str:
+        """The resolved strategy name of ``method``, once a step (the
+        chain reads the settings and the tuning file)."""
+        with self._pipeline_lock:
+            if method not in self._strategies:
+                self._strategies[method] = resolve_reduction_strategy(method,
+                                                                      self.device.type)
+            return self._strategies[method]
 
     @staticmethod
     def _host(result, n_valid: int) -> tuple[dict, dict, dict, dict]:
@@ -780,6 +844,31 @@ class ImageAnalysisRunner(Step):
         return any(int(v.max(initial=0)) >= cap for v in counts.values()) or \
             any(int(v.max(initial=0)) > cap for v in found.values())
 
+    def _fetch(self, args: dict, result, n_valid: int, cap: int) -> tuple[tuple, bool]:
+        """The batch's results on the host (:meth:`_host`) and whether it
+        re-runs at the next rung: saturated below the ceiling.  At several
+        ranks the re-run is a collective of the mesh, so below the ceiling
+        its members agree first: every member re-runs when any saturated,
+        and a fetch that raised on a member raises there and
+        :class:`PeerFailed` on the others, so none waits alone."""
+        below = cap < int(args["max_objects"])
+        if not below or distributed.world_size() == 1:
+            host = self._host(result, n_valid)
+            return host, below and self._saturates(cap, host[0], host[3])
+        err, host, again = None, None, False
+        try:
+            host = self._host(result, n_valid)
+            again = self._saturates(cap, host[0], host[3])
+        except Exception as exc:
+            err = exc
+        code = distributed.max_over_ranks(2 if err is not None else int(again), self.device,
+                                          self._pipeline(args, cap)[2].group)
+        if err is not None:
+            raise err
+        if code == 2:
+            raise PeerFailed(f"the fetch of a batch at capacity {cap} failed on another rank")
+        return host, code == 1
+
     def _persist(self, batch: dict, result, capacity_: int | None = None) -> dict:
         """Fetch one launched batch's results, escalate its capacity until
         the counts fit, and write labels, feature shards and the
@@ -794,23 +883,22 @@ class ImageAnalysisRunner(Step):
         if result is None:  # a rank outside the mesh: nothing ran here
             return {"n_sites": n_valid, "objects": {}}
         result, qc_dev = result if isinstance(result, tuple) else (result, None)
-        counts, objects, measurements, found = self._host(result, n_valid)
-        if cap < ceiling:
-            # nothing below the ceiling is persisted from a saturated run,
-            # so every rung gives the ceiling's store
-            ladder = self._ladder(args)
-            while cap < ceiling and self._saturates(cap, counts, found):
-                new_cap = capacity.select_capacity(cap, ladder)
-                logger.info(
-                    "batch %s saturated its routed object-capacity bucket "
-                    "(capacity %d) — re-running at capacity %d",
-                    batch.get("index"), cap, new_cap,
-                )
-                escalations += 1
-                cap = new_cap
-                result = self._launch(batch, capacity_=cap)
-                result, qc_dev = result if isinstance(result, tuple) else (result, None)
-                counts, objects, measurements, found = self._host(result, n_valid)
+        (counts, objects, measurements, found), again = self._fetch(args, result, n_valid, cap)
+        # nothing below the ceiling is persisted from a saturated run, so
+        # every rung gives the ceiling's store
+        while again:
+            new_cap = capacity.select_capacity(cap, self._ladder(args))
+            logger.info(
+                "batch %s saturated its routed object-capacity bucket "
+                "(capacity %d) — re-running at capacity %d",
+                batch.get("index"), cap, new_cap,
+            )
+            escalations += 1
+            cap = new_cap
+            result = self._launch(batch, capacity_=cap)
+            result, qc_dev = result if isinstance(result, tuple) else (result, None)
+            (counts, objects, measurements, found), again = self._fetch(args, result,
+                                                                        n_valid, cap)
 
         # every rank keeps the routing history (each holds the whole batch)
         peak = max((int(v.max(initial=0)) for v in counts.values()), default=0)
