@@ -267,7 +267,28 @@ Phases (any failure exits non-zero before the last line):
    empty build directory and ``nvcc`` off its PATH (its config 3 batch of 8 sites
    equal to this process's), ``cache gc`` dropping a planted stale
    entry; a ``profile: {...}`` line with the card.
-16. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+16. The reduction strategies and the image model (``phase_strategies``):
+   config 3 (64 sites of 256x256 on uint16-valued pixels,
+   ``max_objects=256``) built with ``build_batch_fn(reduction_strategy=s)``
+   for ``fused`` and for each of onehot, sort and scatter, and config 4
+   with the quantiles for fused, onehot and scatter; each held against
+   the fused build (``hold_strategy``: labels and counts exact, an
+   integer image's ``Intensity_sum`` exact, the features whose value
+   moves with the summation order (``ORDER_FEATURES``) object by object
+   within what their sums' hold allows of their float64 value, the
+   ellipse's angle and eccentricity on well-conditioned cells only, the
+   rest by ``CARD_TIERS``), the raw sums of every strategy but fused
+   object by object within 1e-6 of float64 (``hold_sums``), rows 1-3
+   launched on every strategy and rows 4-6 on fused only, sort run twice
+   bit for bit; each build's ms a batch, the median of 5 rounds in
+   alternating order; one well through ``workflow submit --device cuda
+   --reduction-strategy scatter`` (perf store keyed ``scatter``, row 4 at
+   0 launches, the default run's labels exactly and features by
+   ``CARD_TIERS``); the image model on the card (``ChannelImage``'s
+   correct, align and smooth against the ops, ``SegmentationImage``'s
+   ``n_objects`` and polygons, ``Image.join``, ``PyramidTile.encode_png``);
+   a ``strategies: {...}`` line with the card.
+17. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness; rows 2-4 add ``spatial_launches``, their launches
    on phase 9's secondary run, and rows 2-3 ``spatial``, the kernel at
@@ -1724,6 +1745,9 @@ def main() -> int:
         for r in records:
             if r["name"] in profiled["launches"]:
                 r["profile_launches"] = profiled["launches"][r["name"]]
+
+        # ---------------------------------------------------------- phase 16
+        phase_strategies(torch, {"pipeline": pipeline, "desc3": desc3}, wrappers, card)
         if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except Exception as e:  # the smoke's boundary: report and exit non-zero
@@ -6423,6 +6447,521 @@ def phase_profile(torch, wrappers, card) -> dict:
             else:
                 os.environ[k] = v
         shutil.rmtree(base, ignore_errors=True)
+
+# ------------------------------------------------------------------ phase 16
+#: the strategies phase 16 holds against ``"fused"``: every one on config
+#: 3, those the reference's own suite sweeps (onehot, scatter) on config 4
+STRATEGIES_C3, STRATEGIES_C4 = ("onehot", "sort", "scatter"), ("onehot", "scatter")
+#: rounds of one timed call of each build, the order reversed every
+#: other round (CUDA events); a build's ms a batch is their median
+STRATEGY_ROUNDS = 5
+SEGMENT_KERNELS = ("fill_holes_flood", "cc_min_propagate", "watershed_flood")
+MEASURE_KERNELS = ("grouped_stats", "intensity_hist", "glcm_all")
+
+
+def strategy_batch(torch, pipeline, desc, inputs, wrappers, strategy: str) -> dict:
+    """Build ``desc`` with ``reduction_strategy=strategy``, call it once,
+    set every launch counter to 0, call it once more and read the
+    counters."""
+    fn = pipeline.ImageAnalysisPipeline(desc, MAX_OBJECTS, device="cuda").build_batch_fn(
+        reduction_strategy=strategy)
+    if fn.reduction_strategy != strategy:
+        raise SmokeFailure(f"build_batch_fn pinned {fn.reduction_strategy}, not {strategy}")
+    fn(*inputs)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    result = fn(*inputs)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    return {"fn": fn, "result": result, "host": pipeline.site_result_to_numpy(result),
+            "launches": launches}
+
+
+def time_strategies(torch, runs: dict, inputs) -> None:
+    """:data:`STRATEGY_ROUNDS` rounds of one call of each build, in
+    alternating order; sets each run's ``ms`` (the median) and
+    ``ms_range`` (the least and the most)."""
+    import statistics
+
+    order = list(runs)
+    times: dict[str, list] = {s: [] for s in order}
+    for r in range(STRATEGY_ROUNDS):
+        for s in (order if r % 2 == 0 else order[::-1]):
+            times[s].append(cuda_ms(torch, lambda: runs[s]["fn"](*inputs), 1, warmup=0))
+    for s, t in times.items():
+        runs[s]["ms"], runs[s]["ms_range"] = statistics.median(t), (min(t), max(t))
+
+
+def check_strategy_launches(title: str, strategy: str, launches: dict) -> None:
+    """Rows 1-3 launched on every strategy; rows 4-6 only on ``fused``."""
+    for k in SEGMENT_KERNELS:
+        if launches[k] < 1:
+            raise SmokeFailure(f"{title} {strategy}: {k} was not launched")
+    measured = {k: launches[k] for k in MEASURE_KERNELS}
+    if strategy == "fused":
+        if launches["grouped_stats"] < 1:
+            raise SmokeFailure(f"{title} fused: grouped_stats was not launched")
+    elif any(measured.values()):
+        raise SmokeFailure(f"{title} {strategy}: the measure kernels launched {measured}")
+
+
+#: the raw sums' hold: each strategy's per-object sum within this
+#: relative distance of the float64 sum of the same float32 values
+SUM_RTOL = 1e-6
+#: features computed in float32 from sums that a change of summation
+#: order moves (fractional values, or integers past 2^24) and whose
+#: formula then loses digits to cancellation (the second moments, the
+#: variance): held object by object against their float64 value from the
+#: exact sums, within what the sums' own hold allows (:func:`order_truth`)
+ORDER_FEATURES = ("Intensity_sum", "Intensity_mean", "Intensity_std",
+                  "Morphology_major_axis_length", "Morphology_minor_axis_length",
+                  "Morphology_eccentricity", "Morphology_orientation")
+#: the ellipse's angle and eccentricity are held only on cells whose
+#: second moments' eigenvalues differ by this ratio (l1 / l2): where they
+#: nearly agree the axis is undefined and any order moves it freely
+WELL_CONDITIONED = 1.1
+
+
+def _order_kind(feat: str) -> "str | None":
+    return next((k for k in ORDER_FEATURES if feat == k or feat.startswith(k + "_")), None)
+
+
+def _order_value(kind: str, sums):
+    """An :data:`ORDER_FEATURES` feature from its sums (``(K, ...)``
+    float64: count, then value and squared value, or y, x, yy, xx, yx),
+    by the reference's formulas; also returns ``l1 / l2`` of the second
+    moments (None for the intensity features)."""
+    import numpy as np
+
+    n = np.maximum(sums[0], 1.0)
+    if kind.startswith("Intensity"):
+        mean = sums[1] / n
+        return {"Intensity_sum": sums[1], "Intensity_mean": mean,
+                "Intensity_std": np.sqrt(np.maximum(sums[2] / n - mean * mean, 0.0))}[kind], None
+    cy, cx = sums[1] / n, sums[2] / n
+    myy = sums[3] / n - cy * cy + 1.0 / 12.0
+    mxx = sums[4] / n - cx * cx + 1.0 / 12.0
+    myx = sums[5] / n - cy * cx
+    common = np.sqrt(np.maximum((myy - mxx) ** 2 + 4.0 * myx * myx, 0.0))
+    l1 = (myy + mxx + common) / 2.0
+    l2 = np.maximum((myy + mxx - common) / 2.0, 1e-12)
+    return {
+        "Morphology_major_axis_length": 4.0 * np.sqrt(np.maximum(l1, 0.0)),
+        "Morphology_minor_axis_length": 4.0 * np.sqrt(l2),
+        "Morphology_eccentricity": np.sqrt(np.clip(1.0 - l2 / np.maximum(l1, 1e-12),
+                                                   0.0, 1.0)),
+        "Morphology_orientation": 0.5 * np.arctan2(2.0 * myx, mxx - myy)}[kind], l1 / l2
+
+
+def order_truth(feat: str, labels, images: dict, m: int):
+    """``(truth, slack, held)``, each ``(B, m)``, of an
+    :data:`ORDER_FEATURES` feature: its float64 value from the exact
+    per-object sums (``bincount`` in float64 over the labels and the
+    measured image); ``slack``, the most it moves when each sum but the
+    count moves by :data:`SUM_RTOL` plus 8 float32 roundings (the sums'
+    hold and the float32 formula's own roundings, each sum on its own,
+    both signs, the moves added); and ``held``, False for the angle and
+    the eccentricity of a cell below :data:`WELL_CONDITIONED`."""
+    import numpy as np
+
+    kind = _order_kind(feat)
+    b, h, w = labels.shape
+    yy, xx = (g.ravel().astype(np.float64) for g in np.mgrid[0:h, 0:w])
+    sums = []
+    for site in range(b):
+        lab = labels[site].ravel()
+
+        def total(weights=None):
+            return np.bincount(lab, weights=weights, minlength=m + 1)[1 : m + 1]
+
+        if kind.startswith("Intensity"):
+            v = images[feat[len(kind) + 1:]][site].astype(np.float64).ravel()
+            sums.append([total(), total(v), total(v * v)])
+        else:
+            sums.append([total(), total(yy), total(xx), total(yy * yy), total(xx * xx),
+                         total(yy * xx)])
+    sums = np.moveaxis(np.asarray(sums), 1, 0)  # (K, B, m)
+    truth, ratio = _order_value(kind, sums)
+    eps = SUM_RTOL + 8 * 2.0 ** -24
+    slack = np.zeros_like(truth)
+    for k in range(1, sums.shape[0]):
+        moved = np.zeros_like(truth)
+        for sign in (1.0, -1.0):
+            bent = sums.copy()
+            bent[k] = sums[k] + sign * eps * np.abs(sums[k])
+            moved = np.maximum(moved, _distance(kind, _order_value(kind, bent)[0], truth))
+        slack += moved
+    held = np.ones(truth.shape, bool)
+    if kind in ("Morphology_orientation", "Morphology_eccentricity"):
+        held = ratio >= WELL_CONDITIONED
+    return truth, slack, held
+
+
+def _distance(kind: str, a, b):
+    import numpy as np
+
+    d = np.abs(a.astype(np.float64) - b)
+    if kind == "Morphology_orientation":  # an axis: angles pi apart are one
+        d = np.minimum(d, np.pi - d)
+    return d
+
+
+def hold_strategy(title: str, got, want, images: dict,
+                  truths: "dict | None" = None) -> tuple[dict, int, dict]:
+    """A strategy's batch (``got``, numpy) against the ``fused`` build's
+    (``want``) on the same ``images``: labels and counts bit for bit; an
+    ``Intensity_sum`` of an integer-valued image below 2^24 bit for bit
+    (its partial sums are exact in float32 in any order); each
+    :data:`ORDER_FEATURES` feature object by object within ``slack +
+    rtol * |truth| + atol`` of its float64 value (:func:`order_truth`;
+    the tier from :data:`CARD_TIERS`); every other feature on every
+    site's defined rows within its :data:`CARD_TIERS` tier of fused,
+    which is exact for min/max, counts, areas and quantiles.  Returns the
+    largest |got - want| of each feature family, the number of integral
+    sums held exactly, and for each order feature kind the largest
+    distance of the strategy and of fused from the float64 value, the
+    largest share of its allowance the strategy used, and the cells held
+    and left out.  ``truths`` caches the float64 values between calls on
+    the same fused build."""
+    import numpy as np
+
+    truths = {} if truths is None else truths
+    for obj in want.objects:
+        if not np.array_equal(got.objects[obj], want.objects[obj]):
+            raise SmokeFailure(f"{title}: {obj} labels differ from fused")
+        if not np.array_equal(got.counts[obj], want.counts[obj]):
+            raise SmokeFailure(f"{title}: {obj} counts differ from fused")
+    worst: dict[str, tuple[float, str]] = {}
+    order: dict[str, dict] = {}
+    exact_sums = 0
+    for obj, feats in want.measurements.items():
+        if sorted(got.measurements[obj]) != sorted(feats):
+            raise SmokeFailure(f"{title}: {obj} features differ from fused")
+        rows = np.arange(MAX_OBJECTS)[None, :] < want.counts[obj][:, None]
+        for feat, w_all in feats.items():
+            g, w = got.measurements[obj][feat][rows], w_all[rows]
+            if not np.isfinite(g).all():
+                raise SmokeFailure(f"{title}: {obj}/{feat} non-finite values")
+            rtol, atol = feature_tier(feat, CARD_TIERS)
+            kind = _order_kind(feat)
+            image = images.get(feat[len("Intensity_sum_"):]) if kind == "Intensity_sum" \
+                else None
+            if image is not None and bool((image == np.round(image)).all()):
+                integral = np.abs(w) < 2.0 ** 24
+                np.testing.assert_array_equal(g[integral], w[integral],
+                                              err_msg=f"{title} {obj}/{feat} integral")
+                exact_sums += int(integral.sum())
+            if kind is not None:
+                if (obj, feat) not in truths:
+                    truths[obj, feat] = tuple(a[rows] for a in order_truth(
+                        feat, want.objects[obj], images, MAX_OBJECTS))
+                truth, slack, held = truths[obj, feat]
+                d_got, d_fused = _distance(kind, g, truth), _distance(kind, w, truth)
+                allow = slack + rtol * np.abs(truth) + atol
+                bad = held & (d_got > allow)
+                if bad.any():
+                    i = int(np.argmax(np.where(bad, d_got / allow, 0.0)))
+                    raise SmokeFailure(
+                        f"{title} {obj}/{feat}: {int(bad.sum())} cells outside their "
+                        f"allowance, e.g. {g[i]!r} against the float64 value {truth[i]!r} "
+                        f"(fused {w[i]!r}, allowed {allow[i]:.4g})")
+                acc = order.setdefault(kind, {"got": 0.0, "fused": 0.0, "share": 0.0,
+                                              "allow": 0.0, "held": 0, "left_out": 0})
+                acc["got"] = max(acc["got"], float(d_got[held].max(initial=0.0)))
+                acc["fused"] = max(acc["fused"], float(d_fused[held].max(initial=0.0)))
+                acc["share"] = max(acc["share"], float((d_got / allow)[held].max(initial=0.0)))
+                acc["allow"] = max(acc["allow"], float(allow[held].max(initial=0.0)))
+                acc["held"] += int(held.sum())
+                acc["left_out"] += int((~held).sum())
+            elif rtol == atol == 0.0:
+                np.testing.assert_array_equal(g, w, err_msg=f"{title} {obj}/{feat}")
+            else:
+                np.testing.assert_allclose(g, w, rtol=rtol, atol=atol,
+                                           err_msg=f"{title} {obj}/{feat}")
+            if g.size:
+                family = feat.split("_")[0]
+                diff = float(_distance(kind or "", g, w).max())
+                worst[family] = max(worst.get(family, (0.0, "")), (diff, feat))
+    return worst, exact_sums, order
+
+
+def hold_sums(torch, title: str, labels: dict, data: dict, strategies) -> dict:
+    """The reduction layer on its own: ``grouped_sums`` of each image v
+    and v*v and of the pixel grid's y, x, y*y, x*x and y*x over each
+    object kind's ``labels`` (on the card), on ``fused`` and on each of
+    ``strategies``, against the float64 sums of the same float32 values
+    (``bincount``): every strategy but fused within :data:`SUM_RTOL` of
+    them, object by object (fused's kernel is held against its plain
+    version in phase 2; its distance is printed beside).  Returns the
+    largest relative distance of each strategy."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch.ops import measure
+
+    imgs = [torch.from_numpy(v).to("cuda") for v in data.values()]
+    b, h, w = imgs[0].shape
+    yy, xx = (g.expand(b, h, w) for g in torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device="cuda"),
+        torch.arange(w, dtype=torch.float32, device="cuda"), indexing="ij"))
+    chans = [c for v in imgs for c in (v, v * v)] + [yy, xx, yy * yy, xx * xx, yy * xx]
+    worst: dict[str, float] = {}
+    for obj, lab in labels.items():
+        lab_host = lab.cpu().numpy()
+        truth = np.zeros((b, MAX_OBJECTS, len(chans)))
+        for c, chan in enumerate(chans):
+            host = chan.cpu().numpy()
+            for site in range(b):
+                truth[site, :, c] = np.bincount(
+                    lab_host[site].ravel(), weights=host[site].ravel().astype(np.float64),
+                    minlength=MAX_OBJECTS + 1)[1 : MAX_OBJECTS + 1]
+        scale = np.abs(truth)
+        for strategy in ("fused",) + tuple(strategies):
+            got = measure.grouped_sums(lab, chans, MAX_OBJECTS, strategy).cpu().numpy()
+            d = np.abs(got.astype(np.float64) - truth)
+            rel = np.where(scale > 0, d / np.where(scale > 0, scale, 1.0), np.where(d > 0,
+                                                                                   np.inf, 0.0))
+            worst[strategy] = max(worst.get(strategy, 0.0), float(rel.max()))
+            if strategy != "fused" and bool((rel > SUM_RTOL).any()):
+                site, label, c = np.unravel_index(int(np.argmax(rel)), rel.shape)
+                raise SmokeFailure(
+                    f"{title} {strategy}: {obj} sum {c} of object {label + 1} on site {site} "
+                    f"is {got[site, label, c]!r} against the float64 "
+                    f"{truth[site, label, c]!r} (relative {rel.max():.3g} > {SUM_RTOL})")
+    return worst
+
+
+def same_result(title: str, a, b) -> None:
+    """Two numpy ``SiteResult``s bit for bit."""
+    import numpy as np
+
+    for field in ("objects", "counts", "found"):
+        x, y = getattr(a, field), getattr(b, field)
+        if sorted(x) != sorted(y) or any(not np.array_equal(x[k], y[k]) for k in x):
+            raise SmokeFailure(f"{title}: {field} differ between the runs")
+    for obj, feats in b.measurements.items():
+        for feat, v in feats.items():
+            if not np.array_equal(a.measurements[obj][feat], v):
+                raise SmokeFailure(f"{title}: {obj}/{feat} differs between the runs")
+
+
+def strategy_config(torch, pkg, title, desc, data, wrappers, strategies, card) -> dict:
+    """One config built on ``fused`` and on each of ``strategies``, each
+    held against the fused build (:func:`hold_strategy`) with its launch
+    counters (:func:`check_strategy_launches`); ``sort``, where listed,
+    run twice and held bit for bit against itself; the raw sums of each
+    strategy over the fused build's objects (:func:`hold_sums`).  Prints
+    each build's ms a batch (:func:`time_strategies`); returns the runs."""
+    pipeline = pkg["pipeline"]
+    n = next(iter(data.values())).shape[0]
+    inputs = pipeline.from_jax_inputs(data, {}, [[0, 0]] * n, device="cuda")
+    runs = {"fused": strategy_batch(torch, pipeline, desc, inputs, wrappers, "fused")}
+    truths: dict = {}
+    check_strategy_launches(title, "fused", runs["fused"]["launches"])
+    for strategy in strategies:
+        run = strategy_batch(torch, pipeline, desc, inputs, wrappers, strategy)
+        check_strategy_launches(title, strategy, run["launches"])
+        worst, exact, order = hold_strategy(f"{title} {strategy}", run["host"],
+                                            runs["fused"]["host"], data, truths)
+        if strategy == "sort":
+            same_result(f"{title} sort", pipeline.site_result_to_numpy(run["fn"](*inputs)),
+                        run["host"])
+        print(f"  {title} {strategy}: labels and counts exact against fused, {exact} "
+              f"integral Intensity_sum rows exact, features by CARD_TIERS (largest "
+              f"|{strategy} - fused| by family "
+              + ", ".join(f"{k} {d:.3g} ({f})" for k, (d, f) in sorted(worst.items()))
+              + (")" if strategy != "sort" else "); sort bit-equal run to run"))
+        print(f"  {title} {strategy}: order features object by object against float64 "
+              f"(largest distance {strategy} / fused, largest share of the allowance, largest "
+              f"allowance, cells held / left out as ill-conditioned) -- " + "; ".join(
+                  f"{k} {v['got']:.3g} / {v['fused']:.3g}, {v['share']:.3g}, "
+                  f"{v['allow']:.3g}, {v['held']} / {v['left_out']}"
+                  for k, v in sorted(order.items())))
+        runs[strategy] = run
+    sums = hold_sums(torch, title, runs["fused"]["result"].objects, data, strategies)
+    print(f"  {title}: raw sums (v, v*v, y, x, yy, xx, yx) object by object within "
+          f"{SUM_RTOL} of float64 on " + ", ".join(strategies) + " (largest relative distance "
+          + ", ".join(f"{s} {d:.3g}" for s, d in sums.items()) + "; fused not held)")
+    time_strategies(torch, runs, inputs)
+    print(f"  {title}: ms per batch of {n}, median [least, most] of {STRATEGY_ROUNDS} "
+          f"alternating rounds -- " + ", ".join(
+              f"{s} {r['ms']:.3f} [{r['ms_range'][0]:.3f}, {r['ms_range'][1]:.3f}]"
+              for s, r in runs.items()) + " (launches of rows 1-6: " + "; ".join(
+        f"{s} " + " ".join(str(r["launches"][k]) for k in SEGMENT_KERNELS + MEASURE_KERNELS)
+        for s, r in runs.items()) + f") on {card}")
+    return runs
+
+
+def strategy_submit(torch, wrappers, card) -> dict:
+    """One well of phase 5's plate (2x2 sites) through ``workflow submit
+    --device cuda --reduction-strategy scatter`` and through the default
+    (fused): the scatter run launches rows 1-3 and not row 4, its perf
+    store's jterator program is keyed ``scatter`` (the fused run's
+    ``fused``), and its store holds the fused store's labels exactly and
+    its features by :data:`CARD_TIERS`."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks, capacity, cli, perf, telemetry
+    from tmlibrary_tpu_torch.models.experiment import grid_experiment
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import engine
+
+    base = Path(__file__).resolve().parent / "build" / f"phase16.{os.getpid()}"
+    shutil.rmtree(base, ignore_errors=True)
+    was_on = telemetry.enabled()
+    try:
+        telemetry.set_enabled(True)
+        exp = grid_experiment("phase16", well_rows=1, well_cols=1,
+                              sites_per_well=SITES_PER_WELL, channel_names=("DAPI", "Actin"),
+                              site_shape=(SIZE, SIZE))
+        n = exp.n_sites
+        data = benchmarks.synthetic_cell_painting_batch(n, size=SIZE, seed=SEED)
+        roots = {name: base / name for name in ("fused", "scatter")}
+        store = ExperimentStore.create(roots["fused"], exp)
+        for c, ch in enumerate(("DAPI", "Actin")):
+            store.write_sites(data[ch].astype(np.uint16), list(range(n)), channel=c)
+        copy_part(roots["fused"], roots["scatter"], "images")
+        (base / "cp.pipe.json").write_text(json.dumps(benchmarks.CELL_PAINTING_PIPE))
+        desc_path = base / "workflow.json"
+        engine.WorkflowDescription.canonical({"jterator": {
+            "pipe": str(base / "cp.pipe.json"), "batch_size": STEP_BATCH,
+            "max_objects": MAX_OBJECTS}}).save(desc_path)
+        out = {}
+        for name, extra in (("scatter", ["--reduction-strategy", "scatter"]), ("fused", [])):
+            capacity.reset_routing_history()
+            perf.reset_profiles()
+            for w in wrappers.values():
+                w.launches = 0
+            run_cli(cli, ["workflow", "submit", "--root", str(roots[name]), "--description",
+                          str(desc_path), "--device", "cuda", *extra])
+            torch.cuda.synchronize()
+            keys = sorted({str(p["strategy"]) for p in perf.perf_profiles()
+                           if p["step"] == "jterator"})
+            out[name] = {"keys": keys, "launches": {k: wrappers[k].launches
+                                                    for k in SEGMENT_KERNELS + MEASURE_KERNELS}}
+            if keys != [name]:
+                raise SmokeFailure(f"submit --reduction-strategy {name}: perf store keys {keys}")
+        check_strategy_launches("submit", "scatter", out["scatter"]["launches"])
+        check_strategy_launches("submit", "fused", out["fused"]["launches"])
+        _, worst = hold_batch(ExperimentStore.open(roots["scatter"]),
+                              ExperimentStore.open(roots["fused"]), list(range(n)), CARD_TIERS,
+                              gate=True)
+        print(f"  workflow submit --device cuda --reduction-strategy scatter over one well "
+              f"({n} sites of {SIZE}x{SIZE}): perf store program keyed {out['scatter']['keys']}"
+              f" (default: {out['fused']['keys']}); launches of rows 1-6 "
+              f"{out['scatter']['launches']} (default {out['fused']['launches']}); labels "
+              f"exact against the default run, features by CARD_TIERS (largest |scatter - "
+              f"fused| by family " + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items()))
+              + f"); {card}")
+        return out
+    finally:
+        capacity.reset_routing_history()
+        perf.reset_profiles()
+        telemetry.set_enabled(was_on)
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def image_model_on_card(torch, pkg, run3, data, card) -> None:
+    """The image model on the card: a DAPI site through
+    ``ChannelImage.correct(stats).align(dy, dx).smooth(1.5)`` equals the
+    ops called in turn; ``SegmentationImage(nuclei).n_objects`` equals the
+    counts; ``extract_polygons`` of the card's labels equals the CPU
+    run's; ``Image.join`` of 4 sites equals ``join_grid``; a tile's PNG
+    decodes to the tile."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch.io import png
+    from tmlibrary_tpu_torch.models.image import (
+        ChannelImage, IllumstatsContainer, Image, PyramidTile, SegmentationImage,
+    )
+    from tmlibrary_tpu_torch.ops import image_ops
+    from tmlibrary_tpu_torch.ops.smooth import gaussian_smooth
+
+    pipeline, desc = pkg["pipeline"], pkg["desc3"]
+    sites = torch.from_numpy(data["DAPI"][:4]).to("cuda")
+    rng = np.random.default_rng(SEED)
+    mean_log = (2.5 + 0.3 * rng.random((SIZE, SIZE))).astype(np.float32)
+    std_log = (0.1 + 0.2 * rng.random((SIZE, SIZE))).astype(np.float32)
+    got = ChannelImage(sites[0], {"site": 0}).correct(
+        IllumstatsContainer(mean_log, std_log, {}, 1)).align(3, -5).smooth(1.5)
+    m, s = (torch.from_numpy(a).to("cuda") for a in (mean_log, std_log))
+    step = image_ops.correct_illumination(sites[0], m, s)
+    step = image_ops.align(step[None], torch.tensor([[3, -5]], device="cuda"))[0]
+    want = gaussian_smooth(step, 1.5)
+    if got.array.device.type != "cuda" or not torch.equal(got.array, want):
+        raise SmokeFailure("ChannelImage.correct.align.smooth differs from the ops")
+    nuclei = run3["result"].objects["nuclei"]
+    n_obj = SegmentationImage(nuclei).n_objects
+    if n_obj.device.type != "cuda" or not np.array_equal(n_obj.cpu().numpy(),
+                                                         run3["host"].counts["nuclei"]):
+        raise SmokeFailure("SegmentationImage.n_objects differs from the counts")
+    sub = {k: v[:2] for k, v in data.items()}
+    craw, cstats, cshifts = pipeline.from_jax_inputs(sub, {}, [[0, 0]] * 2, device="cpu")
+    cpu = pipeline.ImageAnalysisPipeline(desc, MAX_OBJECTS, device="cpu").build_batch_fn()(
+        craw, cstats, cshifts)
+    n_poly = 0
+    for k in range(2):
+        a = SegmentationImage(nuclei[k]).extract_polygons()
+        b = SegmentationImage(cpu.objects["nuclei"][k]).extract_polygons()
+        if [lab for lab, _ in a] != [lab for lab, _ in b] or any(
+                not np.array_equal(x, y) for (_, x), (_, y) in zip(a, b)):
+            raise SmokeFailure(f"extract_polygons of site {k} differs from the CPU run's")
+        n_poly += len(a)
+    joined = Image.join([Image(sites[k]) for k in range(4)], 2, 2).array
+    if not torch.equal(joined, image_ops.join_grid(sites, 2, 2)):
+        raise SmokeFailure("Image.join differs from join_grid")
+    tile = torch.clamp(sites[1] / 16.0, 0, 255).to(torch.uint8)
+    if not np.array_equal(png.decode(PyramidTile(tile).encode_png()), tile.cpu().numpy()):
+        raise SmokeFailure("PyramidTile.encode_png does not decode to the tile")
+    print(f"  image model on the card: ChannelImage.correct.align.smooth equals the ops, "
+          f"n_objects equals the counts, {n_poly} polygons of 2 sites equal the CPU run's, "
+          f"Image.join of 4 sites equals join_grid, a tile's PNG decodes to it; {card}")
+
+
+def phase_strategies(torch, pkg, wrappers, card) -> dict:
+    """Phase 16: the reduction strategies and the image model.  Config 3
+    (64 sites of 256x256, ``max_objects=256``) built on ``fused`` and on
+    each of onehot, sort and scatter, and config 4 with the quantiles on
+    fused, onehot and scatter (:func:`strategy_config`); one well through
+    ``workflow submit --reduction-strategy scatter``
+    (:func:`strategy_submit`); the image model (:func:`image_model_on_card`).
+    Returns each config's ms a batch by strategy."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks
+    from tmlibrary_tpu_torch.jterator.description import PipelineDescription
+
+    started = time.perf_counter()
+    print(f"phase 16: the reduction strategies against fused, and the image model; "
+          f"times on {card}")
+    # the pixels a store holds: uint16 values (phase 5 writes these sites)
+    data3 = {k: np.round(v).clip(0, 65535).astype(np.float32) for k, v in
+             benchmarks.synthetic_cell_painting_batch(B, size=SIZE, seed=SEED).items()}
+    run3 = strategy_config(torch, pkg, "config 3", pkg["desc3"], data3, wrappers,
+                           STRATEGIES_C3, card)
+    pipe = benchmarks.full_feature_pipe()
+    pipe["pipeline"] = [
+        {"handles": {**item["handles"], "input": item["handles"]["input"] + [
+            {"name": "quantiles", "type": "Boolean", "value": True}]}}
+        if item["handles"]["module"] == "measure_intensity" else item
+        for item in pipe["pipeline"]]
+    data4 = benchmarks.synthetic_full_stack_batch(B, size=SIZE, seed=SEED)
+    run4 = strategy_config(torch, pkg, "config 4 with quantiles",
+                           PipelineDescription.from_dict(pipe), data4, wrappers,
+                           STRATEGIES_C4, card)
+    if not (run4["fused"]["launches"]["intensity_hist"] and run4["fused"]["launches"]["glcm_all"]):
+        raise SmokeFailure("config 4 fused: rows 5 and 6 were not launched")
+    strategy_submit(torch, wrappers, card)
+    image_model_on_card(torch, pkg, run3["fused"], data3, card)
+    ms = {"config3": {s: r["ms"] for s, r in run3.items()},
+          "config4_quantiles": {s: r["ms"] for s, r in run4.items()}}
+    spread = {"config3": {s: r["ms_range"] for s, r in run3.items()},
+              "config4_quantiles": {s: r["ms_range"] for s, r in run4.items()}}
+    print(f"  phase 16: {time.perf_counter() - started:.1f} s on {card}")
+    print("strategies: " + json.dumps({"ms_per_batch": ms, "ms_range": spread,
+                                       "rounds": STRATEGY_ROUNDS, "batch": B, "card": card}))
+    return ms
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -334,3 +334,31 @@ def test_a_missing_card_fails_the_job_not_the_daemon(tmp_path):
     assert not (tmp_path / "e" / "workflow" / "ledger.jsonl").exists()
     resilience.clear_preemption()
     j_resilience.clear_preemption()
+
+
+def test_atomic_writes_from_threads_of_one_process(tmp_path):
+    """Threads of one process writing one path (the daemon's lease
+    renewer and main loop on its heartbeat) never take each other's temp
+    file: every write lands whole and none is left behind."""
+    import threading
+
+    from tmlibrary_tpu_torch.atomicio import atomic_write_json
+
+    path = tmp_path / "heartbeat.h1.json"
+    errors = []
+
+    def writer(k):
+        try:
+            for i in range(300):
+                atomic_write_json(path, {"writer": k, "i": i})
+        except OSError as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=writer, args=(k,)) for k in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+    assert json.loads(path.read_text())["i"] == 299
+    assert sorted(p.name for p in tmp_path.iterdir()) == [path.name]

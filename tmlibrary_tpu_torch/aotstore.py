@@ -350,6 +350,10 @@ def import_entry(dest: "str | Path", *, program: str, signature: Any,
     saved = meta.get("compile_s")
     if isinstance(saved, (int, float)) and saved > 0:
         _note_saved(float(saved))
+    from tmlibrary_tpu_torch import perf
+
+    perf.record_import(program=program, capacity=capacity, strategy=strategy,
+                       saved_s=saved)
     return meta
 
 

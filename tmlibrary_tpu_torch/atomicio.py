@@ -3,8 +3,10 @@
 Counterpart: ``tmlibrary_tpu/atomicio.py``.  POSIX ``rename(2)`` within
 a directory is atomic, so a reader sees the old complete file or the new
 one, and a kill mid-write leaves the old one intact.  The temp name
-holds the writer's PID, so two processes writing one path never share a
-temp file.  :func:`claim_rename` is the fleet spool's claim arbiter: a
+holds the writer's PID and thread, so two processes, or two threads of
+one (the serve daemon's lease renewer and its main loop both write the
+heartbeat), never share a temp file; the reference's holds the PID only,
+and there one thread's rename can take the other's temp file away.  :func:`claim_rename` is the fleet spool's claim arbiter: a
 same-filesystem rename that only one host can win.
 """
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 from pathlib import Path
 from typing import Any
 
@@ -20,7 +23,7 @@ def atomic_write_text(path: Path | str, text: str, fsync: bool = False) -> None:
     """Write ``text`` to ``path`` atomically (temp file + rename); with
     ``fsync`` the payload reaches stable storage before the rename."""
     path = Path(path)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     try:
         with open(tmp, "w") as f:
             f.write(text)

@@ -236,6 +236,12 @@ def site_count_snapshot(key: str) -> "dict[int, float]":
         return dict(_SITE_HISTORY.get(key, {}))
 
 
+def routing_history_snapshot() -> dict[str, int]:
+    """A copy of the per-program peak table (status and debug surfaces)."""
+    with _ROUTING_LOCK:
+        return dict(_ROUTING_HISTORY)
+
+
 def reset_routing_history() -> None:
     """Drop all routing history (tests, fresh benchmarking runs)."""
     with _ROUTING_LOCK:

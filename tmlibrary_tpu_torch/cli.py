@@ -258,9 +258,10 @@ def build_parser() -> argparse.ArgumentParser:
     shared.add_argument("--reduction-strategy", default=None,
                         choices=("auto", "onehot", "sort", "scatter", "fused"),
                         help="the jterator step's reduction_strategy for this run "
-                             "(overrides the description; every name runs the fused "
-                             "grouped_stats route, and 'auto' resolves the setting, "
-                             "the cuda-scoped tuning verdict, then fused)")
+                             "(overrides the description): 'fused' the measure kernels, "
+                             "'onehot', 'sort' or 'scatter' the PyTorch routes of those "
+                             "names; 'auto' resolves the setting, the cuda-scoped tuning "
+                             "verdict, then fused. The resolved name keys the perf store")
     shared.add_argument("--object-buckets", default=None, metavar="SPEC",
                         help="the jterator step's object_buckets for this run: 'auto' "
                              "(power-of-two buckets up to max_objects), 'off' (every "

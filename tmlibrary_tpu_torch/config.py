@@ -2,7 +2,8 @@
 
 Counterpart: ``tmlibrary_tpu/config.py`` ``LibraryConfig``, of which the
 port keeps the fields its engine and its serving plane read, under the
-same names and defaults: ``ledger_fsync``, the fault-tolerance knobs
+same names and defaults: ``storage_home`` (with
+:meth:`LibraryConfig.experiment_location`), ``ledger_fsync``, the fault-tolerance knobs
 (``retry_attempts``, ``retry_base_delay``, ``max_batch_failures``,
 ``qc_flag_budget``), the phase watchdog (``watchdog``,
 ``watchdog_{launch,block,persist}_s``), telemetry (``telemetry``,
@@ -29,6 +30,7 @@ import dataclasses
 import functools
 import os
 import warnings
+from pathlib import Path
 
 
 def _ini_values() -> dict:
@@ -73,6 +75,11 @@ def _flag(name: str, default: str) -> bool:
 class LibraryConfig:
     """The engine's settings, read when built."""
 
+    #: root directory under which experiment stores live (reference
+    #: analogue: ``tmaps.cfg`` ``storage_home``)
+    storage_home: Path = dataclasses.field(
+        default_factory=lambda: Path(setting("storage_home",
+                                             os.path.expanduser("~/tm_storage"))))
     #: total tries per batch (1 = no retry) for transient faults
     retry_attempts: int = dataclasses.field(
         default_factory=lambda: int(setting("retry_attempts", "3")))
@@ -163,6 +170,10 @@ class LibraryConfig:
     #: comma-separated burn-rate windows, seconds
     slo_windows: str = dataclasses.field(
         default_factory=lambda: setting("slo_windows", "3600,21600"))
+
+    def experiment_location(self, experiment_name: str) -> Path:
+        """The store directory of ``experiment_name`` under ``storage_home``."""
+        return Path(self.storage_home) / "experiments" / experiment_name
 
 
 class _LiveConfig:

@@ -447,8 +447,8 @@ def separate_clumps(
     ``min_area_to_cut``; ``max_form_factor >= 1`` cuts every object.  The
     kept and the split objects are renumbered together by first pixel
     (scipy order)."""
-    from tmlibrary_tpu_torch.ops.fused_measure import grouped_stats
     from tmlibrary_tpu_torch.ops.kernels import shift_with_fill
+    from tmlibrary_tpu_torch.ops.measure import grouped_sums
     from tmlibrary_tpu_torch.ops.segment_primary import (
         distance_transform_approx,
         local_maxima_seeds,
@@ -461,7 +461,7 @@ def separate_clumps(
     for dy, dx in ((-1, 0), (1, 0), (0, -1), (0, 1)):
         edge_count = edge_count + (shift_with_fill(labels, dy, dx, 0) != labels).to(torch.float32)
     edge_count = torch.where(mask, edge_count, 0.0)
-    sums = grouped_stats(labels, [torch.ones_like(edge_count), edge_count], max_objects)[0]
+    sums = grouped_sums(labels, [torch.ones_like(edge_count), edge_count], max_objects)
     area, perim = sums[..., 0], sums[..., 1]
     ff = div(4.0 * math.pi * area, torch.clamp(perim * perim, min=1.0))
     eligible = (ff < max_form_factor) & (area >= min_area_to_cut) & (area > 0)

@@ -32,6 +32,7 @@ from tmlibrary_tpu_torch.jterator import modules as module_registry
 from tmlibrary_tpu_torch.jterator.description import PipelineDescription
 from tmlibrary_tpu_torch.ops import image_ops
 from tmlibrary_tpu_torch.ops import qc as qc_ops
+from tmlibrary_tpu_torch.ops import reduction
 
 #: QC pseudo-channel of the modules' diagnostic streams (the ``__qc__*``
 #: outputs, ``modules.MODULE_QC_PREFIX``): the jterator step routes this
@@ -216,7 +217,8 @@ class ImageAnalysisPipeline:
 
     # ------------------------------------------------------------ batch fn
     def build_batch_fn(
-        self, window: tuple[int, int, int, int] | None = None, qc: bool = False
+        self, window: tuple[int, int, int, int] | None = None, qc: bool = False,
+        reduction_strategy: "str | None" = None,
     ) -> Callable:
         """preprocess ∘ site_fn over a batch of sites.
 
@@ -232,13 +234,29 @@ class ImageAnalysisPipeline:
         with QC on and off.  The modules' diagnostic streams (the DL
         segmenters' ``(B, 64)`` flow-magnitude and probability samples)
         join the statistics under the :data:`MODEL_QC_KEY` pseudo-channel,
-        ``{stat: (B, k)}``, where the description has such a module."""
+        ``{stat: (B, k)}``, where the description has such a module.
+
+        ``reduction_strategy`` (``None`` is ``"auto"``) is resolved once,
+        here (:func:`~tmlibrary_tpu_torch.ops.reduction.resolve_reduction_strategy`
+        on the pipeline's backend), and every call runs in a
+        :func:`~tmlibrary_tpu_torch.ops.reduction.strategy_scope` of the
+        resolved name, so the function runs the strategy it was built
+        with whatever the settings say later; the name is the function's
+        ``reduction_strategy`` attribute.  The reference pins the request
+        (None when nothing asks), the port the resolved name: its
+        ``auto`` is ``"fused"``, and GLCM follows the pin."""
+        strategy = reduction.resolve_reduction_strategy(reduction_strategy or "auto",
+                                                        self.device.type)
         site_fn = self.build_site_fn(collect_diagnostics=qc)
         preprocess = self.build_preprocess_fn(window)
         device = self.device
         channels = [ch.name for ch in self.description.channels]
 
         def batch_fn(raw, stats, shifts) -> SiteResult:
+            with reduction.strategy_scope(strategy):
+                return run(raw, stats, shifts)
+
+        def run(raw, stats, shifts):
             raw = {k: torch.as_tensor(v, device=device) for k, v in raw.items()}
             stats = {
                 k: tuple(torch.as_tensor(a, device=device) for a in pair)
@@ -260,10 +278,12 @@ class ImageAnalysisPipeline:
                 qc_stats[MODEL_QC_KEY] = diagnostics
             return result, qc_stats
 
+        batch_fn.reduction_strategy = strategy
         return batch_fn
 
     def build_sharded_batch_fn(
-        self, mesh, window: tuple[int, int, int, int] | None = None, qc: bool = False
+        self, mesh, window: tuple[int, int, int, int] | None = None, qc: bool = False,
+        reduction_strategy: "str | None" = None,
     ) -> Callable:
         """:meth:`build_batch_fn` over a mesh of ranks (the reference's
         ``build_sharded_batch_fn``, ``tmlibrary_tpu/jterator/pipeline.py:567``):
@@ -274,7 +294,7 @@ class ImageAnalysisPipeline:
         returns the whole batch's result.  The pipeline runs per site, so
         the result equals one device's.  A mesh of one rank is the batch
         function itself."""
-        batched = self.build_batch_fn(window, qc=qc)
+        batched = self.build_batch_fn(window, qc=qc, reduction_strategy=reduction_strategy)
         if mesh.size == 1:
             return batched
         from tmlibrary_tpu_torch.parallel import distributed
@@ -305,6 +325,7 @@ class ImageAnalysisPipeline:
             out = batched({k: lanes(v) for k, v in raw.items()}, stats, lanes(shifts))
             return gather(out, n)
 
+        sharded.reduction_strategy = batched.reduction_strategy
         return sharded
 
 

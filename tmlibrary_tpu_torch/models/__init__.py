@@ -2,8 +2,8 @@
 
 Counterpart: ``tmlibrary_tpu/models/``: the manifest
 (:mod:`~tmlibrary_tpu_torch.models.experiment`), the store
-(:mod:`~tmlibrary_tpu_torch.models.store`), the illumination statistics
-container (:mod:`~tmlibrary_tpu_torch.models.image`), the mapobject
+(:mod:`~tmlibrary_tpu_torch.models.store`), the image classes and the
+illumination statistics container (:mod:`~tmlibrary_tpu_torch.models.image`), the mapobject
 type registry and static outlines
 (:mod:`~tmlibrary_tpu_torch.models.mapobject`), the metadata records
 (:mod:`~tmlibrary_tpu_torch.models.metadata`) and the users and

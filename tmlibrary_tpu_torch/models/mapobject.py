@@ -80,6 +80,9 @@ class MapobjectTypeRegistry:
             raise MetadataError(f"no mapobject type '{name}'")
         return MapobjectType.from_dict(d[name])
 
+    def list(self) -> list[MapobjectType]:
+        return [MapobjectType.from_dict(v) for v in self._read().values()]
+
     def names(self) -> list[str]:
         return sorted(self._read())
 

@@ -1,10 +1,13 @@
 """Per-site pixel preprocessing: illumination correction and alignment.
 
-Counterpart: ``tmlibrary_tpu/ops/image_ops.py:21-101,121-152``
+Counterpart: ``tmlibrary_tpu/ops/image_ops.py:21-152``
 (``correct_illumination``, ``shift_image``, ``crop_window``, ``align``,
-``clip_values``, ``rescale``, ``join_grid``, ``make_batch_prep``), reference ``tmlib/image.py``
-``ChannelImage.correct``/``align`` and ``Image.join``.  Images are
-batches ``(B, H, W)``; shifts are per site.
+``clip_values``, ``rescale``, ``extract``, ``insert``, ``pad``,
+``join_grid``, ``make_batch_prep``), reference ``tmlib/image.py``
+``ChannelImage.correct``/``align``, ``Image.extract``/``insert``/
+``pad_with_background`` and ``Image.join``.  Images are batches
+``(B, H, W)``; shifts are per site.  ``extract``, ``insert`` and ``pad``
+take any ``(..., H, W)``.
 """
 
 from __future__ import annotations
@@ -92,6 +95,52 @@ def rescale(img: torch.Tensor, lower: float, upper: float) -> torch.Tensor:
     rounded to float32, as the reference's scalar arithmetic."""
     span = max(float(upper) - float(lower), 1e-6)
     return torch.clamp(div(img.to(torch.float32) - lower, span), 0.0, 1.0)
+
+
+def extract(img: torch.Tensor, y: int, x: int, height: int, width: int) -> torch.Tensor:
+    """The ``height x width`` window at ``(y, x)`` of the last two axes
+    (reference ``Image.extract``, ``jax.lax.dynamic_slice``): a negative
+    start counts from the far edge, as a Python index does, and a start
+    that would run the window past the edge moves back until it fits."""
+    h, w = img.shape[-2:]
+    if not (0 <= height <= h and 0 <= width <= w):
+        raise ValueError(f"window {height}x{width} does not fit in {h}x{w}")
+    y, x = _start(y, h, height), _start(x, w, width)
+    return img[..., y : y + height, x : x + width]
+
+
+def _start(start: int, size: int, extent: int) -> int:
+    """``dynamic_slice``'s start: a negative one plus ``size``, then
+    clamped so that ``extent`` fits."""
+    start = int(start)
+    if start < 0:
+        start += size
+    return min(max(start, 0), size - extent)
+
+
+def insert(img: torch.Tensor, patch: torch.Tensor, y: int, x: int) -> torch.Tensor:
+    """A copy of ``img`` with ``patch`` (cast to its dtype) written at
+    ``(y, x)`` of the last two axes (reference ``Image.insert``,
+    ``jax.lax.dynamic_update_slice``: the start clamps as in
+    :func:`extract`)."""
+    ph, pw = patch.shape[-2:]
+    h, w = img.shape[-2:]
+    if ph > h or pw > w:
+        raise ValueError(f"patch {ph}x{pw} does not fit in {h}x{w}")
+    y, x = _start(y, h, ph), _start(x, w, pw)
+    out = img.clone()
+    out[..., y : y + ph, x : x + pw] = patch.to(img.dtype)
+    return out
+
+
+def pad(img: torch.Tensor, top: int, bottom: int, left: int, right: int,
+        value=0) -> torch.Tensor:
+    """Constant-pad the last two axes (reference ``Image.pad_with_background``,
+    ``jnp.pad``); a negative width raises."""
+    widths = (int(left), int(right), int(top), int(bottom))
+    if min(widths) < 0:
+        raise ValueError(f"negative pad widths {widths}")
+    return torch.nn.functional.pad(img, widths, mode="constant", value=value)
 
 
 def join_grid(tiles: torch.Tensor, grid_rows: int, grid_cols: int) -> torch.Tensor:

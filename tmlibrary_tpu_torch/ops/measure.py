@@ -1,13 +1,24 @@
 """Per-object feature measurement.
 
-Counterpart: ``tmlibrary_tpu/ops/measure.py`` on its fused strategy
-(reference: ``jtlib/features/{intensity,morphology,texture,zernike,
-point_pattern}.py``): every grouped reduction is one :func:`grouped_stats`
-pass, the quantile histogram is :func:`intensity_hist` and the Haralick
-co-occurrences are :func:`glcm_all` (a ``bincount`` of the pairs under
-the global quantisation).  Every function takes a batch of sites ``(B, H, W)`` and
-returns ``(B, max_objects)`` per feature; rows past a site's object count
-are padding and must be masked by the caller using the object count.
+Counterpart: ``tmlibrary_tpu/ops/measure.py`` (reference:
+``jtlib/features/{intensity,morphology,texture,zernike,
+point_pattern}.py``).  Every grouped reduction runs on the reduction
+strategy in effect (:mod:`tmlibrary_tpu_torch.ops.reduction`; an
+explicit ``method`` argument wins):
+
+- ``"fused"`` (the port's main path): one :func:`grouped_stats` pass for
+  a family's sums, minima and maxima, the quantile histogram from
+  :func:`intensity_hist` and the Haralick co-occurrences from
+  :func:`glcm_all` (a ``bincount`` of the pairs, :func:`glcm_counts`,
+  under the global quantisation);
+- ``"onehot"``: chunked one-hot products (``torch.bmm``) over blocks of
+  sites and pixels, the masked broadcast reduce for min/max;
+- ``"sort"`` and ``"scatter"``: the segmented primitives of
+  ``ops/reduction.py`` over the fused ``(site, label[, bucket])`` ids.
+
+Every function takes a batch of sites ``(B, H, W)`` and returns
+``(B, max_objects)`` per feature; rows past a site's object count are
+padding and must be masked by the caller using the object count.
 
 Expression trees follow the reference operation by operation, so the
 features built from exact sums, counts and IEEE ``+ - * / sqrt`` equal
@@ -37,26 +48,131 @@ from tmlibrary_tpu_torch.ops.fused_measure import (
     quantize,
 )
 from tmlibrary_tpu_torch.ops.kernels import shift_with_fill
+from tmlibrary_tpu_torch.ops.reduction import (
+    capacity_segments,
+    resolve_reduction_strategy,
+    segmented_max,
+    segmented_min,
+    segmented_sum,
+)
+
+#: site pixels one one-hot block of the sums and min/max spans (the
+#: reference's ``_SUM_CHUNK``): at ``max_objects=256`` a float64 sum
+#: block is 135 MB, where a batch of 64 sites of 256² at once would be
+#: 8.6 GB
+SUM_CHUNK = 1 << 16
+#: site pixels of a histogram or GLCM one-hot block (the reference's
+#: ``_GLCM_CHUNK``): the GLCM row operand is ``(chunk, (M + 1) * levels)``
+GLCM_CHUNK = 1 << 13
 
 
 # ----------------------------------------------------------- grouped helpers
-def grouped_sums(labels, channels, max_objects: int) -> torch.Tensor:
-    """Per-object sums of several pixel channels → ``(B, M, C)``
-    (reference ``grouped_sums``, ``measure.py:50``, fused path)."""
-    return grouped_stats(labels, channels, max_objects)[0]
+def _blocks(b: int, p: int, chunk: int):
+    """``(site slice, pixel slice)`` blocks of at most ``chunk`` site
+    pixels: whole sites together when a site is smaller than ``chunk``,
+    else one site at a time in runs of ``chunk`` pixels."""
+    if p >= chunk:
+        for s in range(b):
+            for p0 in range(0, p, chunk):
+                yield slice(s, s + 1), slice(p0, min(p, p0 + chunk))
+    else:
+        per = chunk // p
+        for s in range(0, b, per):
+            yield slice(s, min(b, s + per)), slice(0, p)
 
 
-def grouped_minmax(labels, values, max_objects: int):
+def _one_hot(ids: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """``(..., n)`` one-hot of ``ids``; an id outside ``[0, n)`` is a row of
+    zeros (``jax.nn.one_hot``'s rule, where ``F.one_hot`` raises)."""
+    return (ids[..., None] == torch.arange(n, device=ids.device, dtype=ids.dtype)).to(dtype)
+
+
+def _site_ids(flat: torch.Tensor, rows: int) -> torch.Tensor:
+    """``(B, P)`` ids in ``[0, rows)`` → flat ``site * rows + id``; an id
+    outside the range → -1, which the segmented primitives drop."""
+    site = torch.arange(flat.shape[0], device=flat.device)[:, None] * rows
+    return torch.where((flat >= 0) & (flat < rows), site + flat, -1).reshape(-1)
+
+
+def _stack(labels: torch.Tensor, channels) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-site int64 labels ``(B, P)`` and float32 values ``(B, P, C)``."""
+    b = labels.shape[0]
+    flat = labels.reshape(b, -1).to(torch.int64)
+    values = torch.stack([c.to(torch.float32).reshape(b, -1) for c in channels], dim=-1)
+    return flat, values
+
+
+def _sums_onehot(flat: torch.Tensor, values: torch.Tensor, segs: int) -> torch.Tensor:
+    """``(B, segs, C)`` sums as one-hot products over :func:`_blocks`.
+    They run in float64, rounded once to float32: the TF32 and reduced-
+    precision float32 matmul settings, which a caller may set for the
+    whole process, never apply to them, and every product of a one-hot
+    entry is exact."""
+    b, p, c = values.shape
+    acc = torch.zeros((b, c, segs), dtype=torch.float64, device=values.device)
+    for sites, px in _blocks(b, p, SUM_CHUNK):
+        oh = _one_hot(flat[sites, px], segs, torch.float64)  # (g, chunk, segs)
+        acc[sites] += torch.bmm(values[sites, px].transpose(1, 2).to(torch.float64), oh)
+    return acc.to(torch.float32).transpose(1, 2)
+
+
+def grouped_sums(labels, channels, max_objects: int, method: str = "auto") -> torch.Tensor:
+    """Per-object sums of several pixel channels → ``(B, M, C)`` float32,
+    label ids 1..max_objects (reference ``grouped_sums``,
+    ``measure.py:50``).  ``method`` is a strategy name (``"matmul"``
+    aliases ``"onehot"``); ``"auto"`` resolves through the strategy
+    layer."""
+    if method == "auto":
+        method = resolve_reduction_strategy()
+    if method == "fused":
+        return grouped_stats(labels, channels, max_objects)[0]
+    segs = capacity_segments(max_objects)
+    flat, values = _stack(labels, channels)
+    b, _, c = values.shape
+    if method in ("scatter", "sort"):
+        out = segmented_sum(values.reshape(-1, c), _site_ids(flat, segs), b * segs, method)
+        return out.reshape(b, segs, c)[:, 1:]
+    if method not in ("onehot", "matmul"):
+        raise ValueError(f"unknown grouped_sums method '{method}'")
+    return _sums_onehot(flat, values, segs)[:, 1:]
+
+
+def grouped_minmax(labels, values, max_objects: int, method: str = "auto"):
     """Per-object ``(min, max)`` of one channel, each ``(B, M)``; absent
-    objects ``(+inf, -inf)`` (reference ``measure.py:208``)."""
-    _, mn, mx = grouped_stats(labels, [values], max_objects)
+    objects ``(+inf, -inf)`` (reference ``measure.py:208``).  ``"onehot"``
+    aliases ``"reduce"``, the masked broadcast reduce."""
+    mn, mx = grouped_minmax_multi(labels, [values], max_objects, method)
     return mn[..., 0], mx[..., 0]
 
 
-def grouped_minmax_multi(labels, values: list, max_objects: int):
-    """Per-object ``(min, max)`` of several channels, each ``(B, M, C)``
-    (reference ``measure.py:270``)."""
-    _, mn, mx = grouped_stats(labels, values, max_objects)
+def grouped_minmax_multi(labels, values: list, max_objects: int, method: str = "auto"):
+    """Per-object ``(min, max)`` of several channels, each ``(B, M, C)``,
+    in one pass over the pixels (reference ``measure.py:270``); min and
+    max are exact in any order, so every strategy agrees bit for bit."""
+    if method == "auto":
+        method = resolve_reduction_strategy()
+    if method == "fused":
+        _, mn, mx = grouped_stats(labels, values, max_objects)
+        return mn, mx
+    segs = capacity_segments(max_objects)
+    flat, vals = _stack(labels, values)
+    b, p, c = vals.shape
+    if method in ("scatter", "sort"):
+        ids = _site_ids(flat, segs)
+        mn = segmented_min(vals.reshape(-1, c), ids, b * segs, method)
+        mx = segmented_max(vals.reshape(-1, c), ids, b * segs, method)
+        return mn.reshape(b, segs, c)[:, 1:], mx.reshape(b, segs, c)[:, 1:]
+    if method not in ("onehot", "reduce"):
+        raise ValueError(f"unknown grouped_minmax method '{method}'")
+    ids = torch.arange(1, max_objects + 1, device=flat.device)
+    inf = torch.tensor(float("inf"), device=vals.device)
+    mn = torch.full((b, max_objects, c), float("inf"), device=vals.device)
+    mx = torch.full((b, max_objects, c), float("-inf"), device=vals.device)
+    for sites, px in _blocks(b, p, SUM_CHUNK):
+        sel = (flat[sites, px, None] == ids)[..., None]  # (g, chunk, M, 1)
+        v = vals[sites, px][:, :, None, :]  # (g, chunk, 1, C)
+        mn[sites] = torch.minimum(mn[sites], torch.where(sel, v, inf).amin(dim=1))
+        mx[sites] = torch.maximum(mx[sites], torch.where(sel, v, -inf).amax(dim=1))
     return mn, mx
 
 
@@ -85,14 +201,21 @@ def intensity_features(
     labels: torch.Tensor, intensity: torch.Tensor, max_objects: int
 ) -> dict[str, torch.Tensor]:
     """max, mean, min, sum, std per object (reference ``measure.py:397``):
-    count, sum, sum of squares, min and max from ONE :func:`grouped_stats`
-    pass over channels ``[1, v, v²]``."""
+    count, sum, sum of squares, min and max.  On the ``"fused"`` strategy
+    they come from ONE :func:`grouped_stats` pass over channels
+    ``[1, v, v²]``; on another from :func:`grouped_sums` and
+    :func:`grouped_minmax`."""
     img = intensity.to(torch.float32)
-    sums, mns, mxs = grouped_stats(
-        labels.to(torch.int32), [torch.ones_like(img), img, img * img], max_objects
-    )
+    labels = labels.to(torch.int32)
+    chans = [torch.ones_like(img), img, img * img]
+    strategy = resolve_reduction_strategy()
+    if strategy == "fused":
+        sums, mns, mxs = grouped_stats(labels, chans, max_objects)
+        mn, mx = mns[..., 1], mxs[..., 1]
+    else:
+        sums = grouped_sums(labels, chans, max_objects, strategy)
+        mn, mx = grouped_minmax(labels, img, max_objects, strategy)
     count, total, sq = sums[..., 0], sums[..., 1], sums[..., 2]
-    mn, mx = mns[..., 1], mxs[..., 1]
     safe_n = torch.clamp(count, min=1.0)
     mean = total / safe_n
     var = torch.clamp(sq / safe_n - mean * mean, min=0.0)
@@ -122,18 +245,49 @@ def quantize_per_object(
     return quantize(labels, img, lo_full, span_full, levels).to(torch.int32)
 
 
+def _hist_counts(labels, q, max_objects: int, bins: int, strategy: str) -> torch.Tensor:
+    """``(B, M, bins)`` per-(object, bucket) pixel counts of the bucket
+    image ``q``: one segmented count over ``label * bins + bucket``
+    (scatter, sort), or the label × bucket one-hot product over
+    :func:`_blocks` (onehot; integer counts below 2^24, exact in float32
+    whatever the matmul precision)."""
+    b = labels.shape[0]
+    segs = capacity_segments(max_objects)
+    lab = labels.reshape(b, -1).to(torch.int64)
+    qf = q.reshape(b, -1).to(torch.int64)
+    if strategy in ("scatter", "sort"):
+        idx = torch.where((lab >= 0) & (lab < segs), lab * bins + qf, -1)
+        ones = torch.ones(idx.numel(), dtype=torch.float32, device=idx.device)
+        counts = segmented_sum(ones, _site_ids(idx, segs * bins), b * segs * bins, strategy)
+        return counts.reshape(b, segs, bins)[:, 1:]
+    acc = torch.zeros((b, segs, bins), dtype=torch.float32, device=lab.device)
+    for sites, px in _blocks(b, lab.shape[1], GLCM_CHUNK):
+        oh_l = _one_hot(lab[sites, px], segs, torch.float32)
+        oh_q = _one_hot(qf[sites, px], bins, torch.float32)
+        acc[sites] += torch.bmm(oh_l.transpose(1, 2), oh_q)
+    return acc[:, 1:]
+
+
 def intensity_quantiles(
     labels: torch.Tensor, intensity: torch.Tensor, max_objects: int,
-    qs: tuple[float, ...] = (0.25, 0.5, 0.75), bins: int = 256,
+    qs: tuple[float, ...] = (0.25, 0.5, 0.75), bins: int = 256, method: str = "auto",
 ) -> dict[str, torch.Tensor]:
     """Per-object nearest-rank quantiles read off a ``bins``-bucket
     histogram of each object's own gray range (reference
-    ``measure.py:460``, fused path ``:496-505``): ``Intensity_p25``,
-    ``Intensity_median``, ``Intensity_p75`` by default."""
+    ``measure.py:460``): ``Intensity_p25``, ``Intensity_median``,
+    ``Intensity_p75`` by default.  The counts are integers, so every
+    strategy gives the same quantiles: ``"fused"`` quantises and counts
+    in :func:`intensity_hist`, the others count :func:`quantize_per_object`'s
+    buckets (:func:`_hist_counts`)."""
     img = intensity.to(torch.float32)
-    raw_lo, raw_hi = grouped_minmax(labels, img, max_objects)
+    strategy = resolve_reduction_strategy(method)
+    raw_lo, raw_hi = grouped_minmax(labels, img, max_objects, strategy)
     lo_full, span_full = masked_bounds(raw_lo, raw_hi)
-    counts = intensity_hist(labels, img, max_objects, bins, (raw_lo, raw_hi))
+    if strategy == "fused":
+        counts = intensity_hist(labels, img, max_objects, bins, (raw_lo, raw_hi))
+    else:
+        q = quantize_per_object(labels, img, max_objects, bins, bounds=(raw_lo, raw_hi))
+        counts = _hist_counts(labels, q, max_objects, bins, strategy)
     return _quantiles_from_counts(
         counts, lo_full[:, 1:], span_full[:, 1:], raw_hi >= raw_lo, qs, bins)
 
@@ -161,8 +315,11 @@ def _quantiles_from_counts(counts, lo, span, present, qs, bins):
 def morphology_features(labels: torch.Tensor, max_objects: int) -> dict[str, torch.Tensor]:
     """Area, centroid, bounding box and extent, 4-neighbour boundary
     perimeter, equivalent diameter, form factor and the second-moment
-    ellipse (reference ``measure.py:569``): all seven per-object sums
-    and the bounding box from ONE 7-channel :func:`grouped_stats` pass."""
+    ellipse (reference ``measure.py:569``).  On ``"fused"`` all seven
+    per-object sums and the bounding box come from ONE 7-channel
+    :func:`grouped_stats` pass; on another strategy from
+    :func:`grouped_sums` and one :func:`grouped_minmax_multi` pass, as
+    the reference's unfused route (``:601-605``)."""
     labels = labels.to(torch.int32)
     yy, xx = _grid(labels)
     boundary = torch.zeros(labels.shape, dtype=torch.bool, device=labels.device)
@@ -171,8 +328,13 @@ def morphology_features(labels: torch.Tensor, max_objects: int) -> dict[str, tor
     boundary = boundary & (labels > 0)
     chans = [torch.ones_like(yy), yy, xx, yy * yy, xx * xx, yy * xx,
              boundary.to(torch.float32)]
-    sums, mins_all, maxs_all = grouped_stats(labels, chans, max_objects)
-    mins, maxs = mins_all[..., 1:3], maxs_all[..., 1:3]
+    strategy = resolve_reduction_strategy()
+    if strategy == "fused":
+        sums, mins_all, maxs_all = grouped_stats(labels, chans, max_objects)
+        mins, maxs = mins_all[..., 1:3], maxs_all[..., 1:3]
+    else:
+        sums = grouped_sums(labels, chans, max_objects, strategy)
+        mins, maxs = grouped_minmax_multi(labels, [yy, xx], max_objects, strategy)
     area = sums[..., 0]
     safe_a = torch.clamp(area, min=1.0)
     cy = sums[..., 1] / safe_a
@@ -223,20 +385,91 @@ def morphology_features(labels: torch.Tensor, max_objects: int) -> dict[str, tor
 
 
 # -------------------------------------------------------------------- texture
+def _glcm_matmul_all(labels: torch.Tensor, quantized: torch.Tensor, max_objects: int,
+                     levels: int, offsets: list[tuple[int, int]]) -> list[torch.Tensor]:
+    """All directions' symmetrised GLCMs ``(B, M, L, L)`` in ONE chunked
+    contraction (reference ``measure.py:665``): the direction-independent
+    ``(label, q1)`` row one-hot against the directions' ``q2`` one-hots
+    side by side, an invalid pair a zero column.  Both operands are 0 or
+    1 and the counts integers below 2^24, so the float32 product is exact
+    whatever the matmul precision."""
+    b = labels.shape[0]
+    segs = capacity_segments(max_objects)
+    n_rows = segs * levels
+    row = torch.where(labels > 0, labels.to(torch.int64) * levels + quantized, 0).reshape(b, -1)
+    cols = []
+    for dy, dx in offsets:
+        lab2 = shift_with_fill(labels, -dy, -dx, 0)
+        q2 = shift_with_fill(quantized, -dy, -dx, 0)
+        valid = (labels > 0) & (lab2 == labels)
+        cols.append((torch.where(valid, q2, 0).reshape(b, -1).to(torch.int64),
+                     valid.reshape(b, -1)))
+    k = len(offsets)
+    acc = torch.zeros((b, n_rows, k * levels), dtype=torch.float32, device=labels.device)
+    for sites, px in _blocks(b, row.shape[1], GLCM_CHUNK):
+        oh_rows = _one_hot(row[sites, px], n_rows, torch.float32)
+        oh_cols = torch.cat([_one_hot(c[sites, px], levels, torch.float32)
+                             * v[sites, px, None] for c, v in cols], dim=-1)
+        acc[sites] += torch.bmm(oh_rows.transpose(1, 2), oh_cols)
+    out = []
+    for d in range(k):
+        glcm = acc[:, :, d * levels:(d + 1) * levels].reshape(b, segs, levels, levels)[:, 1:]
+        out.append(glcm + glcm.transpose(-1, -2))
+    return out
+
+
+def _glcm_scatter(labels: torch.Tensor, quantized: torch.Tensor, max_objects: int,
+                  levels: int, offset: tuple[int, int], strategy: str = "scatter") -> torch.Tensor:
+    """One direction's symmetrised GLCM ``(B, M, L, L)`` as one segmented
+    count over the fused ``(label, q1, q2)`` cell ids of the valid pairs
+    (reference ``measure.py:740``); counts are integers, so ``scatter``
+    and ``sort`` agree bit for bit."""
+    b = labels.shape[0]
+    dy, dx = offset
+    lab2 = shift_with_fill(labels, -dy, -dx, 0)
+    q2 = shift_with_fill(quantized, -dy, -dx, 0)
+    valid = (labels > 0) & (lab2 == labels)
+    cells = capacity_segments(max_objects) * levels * levels
+    idx = (labels.to(torch.int64) * (levels * levels) + quantized.to(torch.int64) * levels
+           + q2.to(torch.int64))
+    idx = torch.where(valid, idx, 0).reshape(b, -1)
+    counts = segmented_sum(valid.reshape(-1).to(torch.float32), _site_ids(idx, cells),
+                           b * cells, strategy)
+    glcm = counts.reshape(b, -1, levels, levels)[:, 1:]
+    return glcm + glcm.transpose(-1, -2)
+
+
+def _resolve_glcm_method(method: str) -> str:
+    """The GLCM route of ``method`` (reference ``measure.py:774``):
+    ``"onehot"`` is ``"matmul"``; ``"auto"`` resolves as every other
+    measure does (:func:`resolve_reduction_strategy`, ``"fused"`` unless
+    a request says otherwise).  The reference's ``auto`` takes
+    ``"scatter"`` on the CPU and ``"matmul"`` on an accelerator; the
+    port keeps its kernel (ROADMAP C)."""
+    if method == "auto":
+        method = resolve_reduction_strategy()
+    return "matmul" if method == "onehot" else method
+
+
 def haralick_features(
     labels: torch.Tensor, intensity: torch.Tensor, max_objects: int,
     levels: int = 32, distance: int = 1, quantization: str = "object",
+    glcm_method: str = "auto",
 ) -> dict[str, torch.Tensor]:
     """The 13 Haralick features averaged over the 4 directions
     ``(0,d), (d,0), (d,d), (d,-d)`` (reference ``measure.py:839``).
 
-    ``quantization="object"`` (fused path ``:901-909``) stretches each
-    object's own gray range into ``levels`` buckets and takes all four
-    GLCMs from one :func:`glcm_all` pass.  ``"global"`` (``:917-923``)
-    quantises each site by its own range,
-    ``clip(int((v - lo) / max(hi - lo, 1e-6) * levels), 0, levels - 1)``,
-    and counts the pairs in plain PyTorch (:func:`glcm_counts`), as the
-    reference does outside its kernel.
+    ``quantization="object"`` stretches each object's own gray range into
+    ``levels`` buckets; ``"global"`` (``:917-923``) quantises each site
+    by its own range,
+    ``clip(int((v - lo) / max(hi - lo, 1e-6) * levels), 0, levels - 1)``.
+    ``glcm_method`` (:func:`_resolve_glcm_method`) picks how the pairs
+    are counted: ``"fused"`` takes all four GLCMs of the object
+    quantisation from one :func:`glcm_all` pass (under the global one
+    the pairs are counted by :func:`glcm_counts`), ``"matmul"`` by
+    :func:`_glcm_matmul_all`, ``"scatter"``/``"sort"`` by
+    :func:`_glcm_scatter`.  The counts are integers, so every route gives
+    the same features.
 
     Only ``distance=1`` is ported: the reference's ``shift_with_fill``
     pads by one pixel, so its pairs at a distance above 1 are not the
@@ -246,13 +479,28 @@ def haralick_features(
     if distance != 1:
         raise NotSupportedError("haralick distance other than 1 is not ported")
     img = intensity.to(torch.float32)
+    labels = labels.to(torch.int32)
     d = distance
     offsets = [(0, d), (d, 0), (d, d), (d, -d)]
+    method = _resolve_glcm_method(glcm_method)
+    if method not in ("fused", "matmul", "scatter", "sort"):
+        raise ValueError(f"unknown glcm method '{method}'")
     if quantization == "object":
-        bounds = grouped_minmax(labels, img, max_objects)
-        glcms = glcm_all(labels, img, max_objects, levels, offsets, bounds)
+        # the bounds' pass runs on the same strategy as the counts
+        bounds = grouped_minmax(labels, img, max_objects,
+                                "onehot" if method == "matmul" else method)
+        if method == "fused":
+            glcms = glcm_all(labels, img, max_objects, levels, offsets, bounds)
+        else:
+            q = quantize_per_object(labels, img, max_objects, levels, bounds=bounds)
     else:
-        glcms = glcm_counts(labels, quantize_global(img, levels), max_objects, levels, offsets)
+        q = quantize_global(img, levels)
+        if method == "fused":
+            glcms = glcm_counts(labels, q, max_objects, levels, offsets)
+    if method == "matmul":
+        glcms = _glcm_matmul_all(labels, q.to(torch.int64), max_objects, levels, offsets)
+    elif method in ("scatter", "sort"):
+        glcms = [_glcm_scatter(labels, q, max_objects, levels, off, method) for off in offsets]
 
     dev = img.device
     i_vec = torch.arange(levels, dtype=torch.float32, device=dev)

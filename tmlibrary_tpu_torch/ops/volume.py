@@ -3,7 +3,7 @@ ops around them.
 
 Counterpart: ``tmlibrary_tpu/ops/volume.py`` (``shift3d``,
 ``connected_components_3d`` with its scipy-order compaction,
-``watershed_from_seeds_3d``, ``volume_features``) and the TPU kernels
+``propagate_labels_3d``, ``watershed_from_seeds_3d``, ``volume_features``) and the TPU kernels
 ``cc3d_min_propagate`` (``_cc3d_kernel``) and ``watershed3d_flood``
 (``_watershed3d_kernel``) of ``tmlibrary_tpu/ops/pallas_kernels.py``.
 The Hopper kernels are ``tmlibrary_tpu_torch/csrc/{cc3d_min_propagate,
@@ -26,11 +26,11 @@ import torch.nn.functional as F
 
 from tmlibrary_tpu_torch.ops._cuda import bind_launch
 from tmlibrary_tpu_torch.ops._exact import div, sqrt
-from tmlibrary_tpu_torch.ops.fused_measure import grouped_stats
 from tmlibrary_tpu_torch.ops.kernels import (
     BIG, CC_PHASES, FloodPlan, _fixpoint, watershed_levels,
 )
 from tmlibrary_tpu_torch.ops.label import compact_roots
+from tmlibrary_tpu_torch.ops.measure import grouped_sums
 
 
 def neighbor_shifts_3d(connectivity: int) -> list[tuple[int, int, int]]:
@@ -129,6 +129,16 @@ def _cube_max(lab: torch.Tensor) -> torch.Tensor:
         lab = torch.maximum(lab, torch.maximum(
             shift3d(lab, *dims, 0), shift3d(lab, *(-d for d in dims), 0)))
     return lab
+
+
+def propagate_labels_3d(labels: torch.Tensor, allowed: torch.Tensor) -> torch.Tensor:
+    """Grow labels through ``allowed`` voxels of ``(..., Z, H, W)``
+    volumes until nothing changes (reference ``volume.py:171``): each
+    step, every unlabelled allowed voxel adopts the largest label of its
+    26 neighbours (0 beyond the volume), all voxels at once."""
+    labels = labels.to(torch.int32)
+    grow = allowed.to(torch.bool)
+    return _fixpoint(lambda lab: torch.where((lab == 0) & grow, _cube_max(lab), lab), labels)
 
 
 def watershed3d_flood_plain(
@@ -255,9 +265,11 @@ def volume_features(
 ) -> dict[str, torch.Tensor]:
     """Per-object voxel count, centroid and intensity statistics of
     ``(B, Z, H, W)`` label volumes, each ``(B, max_objects)``.  The six
-    channels go to ONE :func:`grouped_stats` pass over the volumes, in
-    row-major voxel order (the reference's scatter order)."""
-    sums = grouped_stats(*volume_stat_channels(labels, intensity), max_objects)[0]
+    channels go to ONE :func:`~tmlibrary_tpu_torch.ops.measure.grouped_sums`
+    pass over the volumes on the reduction strategy in effect (on
+    ``"fused"`` one ``grouped_stats`` launch, in row-major voxel
+    order, the reference's scatter order)."""
+    sums = grouped_sums(*volume_stat_channels(labels, intensity), max_objects)
     vol = sums[..., 0]
     safe = torch.clamp(vol, min=1.0)
     total = sums[..., 4]

@@ -52,6 +52,13 @@ the port's cost model is read and judged.
   as the reference's; ``<backend>_cached`` records class with their
   backend (the reference knows only ``tpu_cached``).
 
+- **Costs outside the store** (:func:`program_cost`, :func:`cost_flops`,
+  :func:`flops_fields`): one call's count by :func:`measure_call`, and
+  the roofline fields of a benchmark record, the peak shares against
+  the card's peaks (:func:`backend_peaks`) where the reference's are
+  v5e's; :func:`record_import` counts a kernel-library store import
+  (``aotstore.import_entry``) in the store without a compile.
+
 Not ported, by decision: ``instrument_batch_fn``'s AOT
 ``lower().compile()``, ``cost_from_compiled``, ``speculate_compile``,
 ``adopt_executable`` and ``abstract_args``.  They read XLA's compiled
@@ -258,6 +265,46 @@ def measure_call(fn: Callable, *args, device="cuda", **kwargs) -> tuple[Any, Pro
     return out, ProgramCost(float(counts["flops"]), float(total) or None), seconds
 
 
+def program_cost(fn: Callable, *args, device="cuda", **kwargs) -> ProgramCost:
+    """The :class:`ProgramCost` of one call of ``fn`` (:func:`measure_call`);
+    a call that fails raises (the reference returns an empty cost for a
+    program XLA cannot compile, which the port does not have)."""
+    return measure_call(fn, *args, device=device, **kwargs)[1]
+
+
+def cost_flops(fn: Callable, *args, device="cuda") -> tuple[float | None, float | None]:
+    """``(FLOPs, bytes)`` of one call of ``fn``, ``(None, None)`` where
+    nothing was counted (the reference's tuple form for bench records)."""
+    cost = program_cost(fn, *args, device=device)
+    return cost.flops or None, cost.bytes
+
+
+def flops_fields(flops, n_items, best_s, backend, item_key="flops_per_site",
+                 nbytes=None) -> dict:
+    """Roofline fields of a benchmark record from a measured best wall
+    time: FLOPs and bytes an item, the achieved rates, the arithmetic
+    intensity and ``bound_by`` against the card's ridge, and the shares
+    of the backend's peaks (``fp32_peak_frac``, ``hbm_peak_frac``; None
+    on a backend without a modelled roofline, as on the CPU).  The
+    reference names its shares after v5e's peaks."""
+    out = {}
+    peak_flops, peak_bps = backend_peaks(backend)
+    if flops:
+        achieved = flops / best_s
+        out[item_key] = round(flops / n_items)
+        out["achieved_tflops_per_sec"] = round(achieved / 1e12, 4)
+        out["fp32_peak_frac"] = round(achieved / peak_flops, 6) if peak_flops else None
+    if nbytes:
+        bps = nbytes / best_s
+        out["bytes_per_" + item_key.split("_per_")[-1]] = round(nbytes / n_items)
+        out["achieved_gbytes_per_sec"] = round(bps / 1e9, 3)
+        out["hbm_peak_frac"] = round(bps / peak_bps, 6) if peak_bps else None
+    if flops and nbytes:
+        out["arithmetic_intensity"] = round(flops / nbytes, 3)
+        out["bound_by"] = ProgramCost(flops, nbytes).bound_by()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Per-program attribution store + compile telemetry
 
@@ -393,6 +440,22 @@ def record_compile(*, program: str, step: str | None = "jterator",
                                        "recompile": bool(recompile)})
         _cost_gauges(labels, cost)
     return result
+
+
+def record_import(*, program: str, step: str | None = None, capacity: int | None = None,
+                  strategy: str | None = None, saved_s: float | None = None) -> dict:
+    """Record one kernel-library store import in the store: ``imports``
+    and the build seconds it saved.  It counts no compile: an import is
+    the absence of one."""
+    key = (program, step, capacity, strategy)
+    with _LOCK:
+        entry = _PROFILES.setdefault(key, _new_entry(program, step, capacity, strategy,
+                                                     "unknown"))
+        entry["imports"] = int(entry.get("imports") or 0) + 1
+        if isinstance(saved_s, (int, float)) and saved_s > 0:
+            entry["compile_seconds_saved"] = round(
+                float(entry.get("compile_seconds_saved") or 0.0) + float(saved_s), 4)
+        return dict(entry)
 
 
 @contextlib.contextmanager

@@ -34,6 +34,7 @@ as a dict of arrays where the JAX package returns a DataFrame.
 from __future__ import annotations
 
 import collections
+import json
 import mmap
 import os
 import re
@@ -2700,6 +2701,16 @@ class DatasetReader(Reader):
 
     def exists(self, path: str) -> bool:
         return self._f.resolve(path) is not None
+
+
+class JsonReader(Reader):
+    def read(self):
+        return json.loads(self.filename.read_text())
+
+
+class XmlReader(Reader):
+    def read(self) -> ElementTree.Element:
+        return ElementTree.fromstring(self.filename.read_text())
 
 
 class TablesReader(Reader):

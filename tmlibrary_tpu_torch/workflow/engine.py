@@ -192,6 +192,9 @@ class WorkflowDescription:
                         f"workflow references unknown step '{step.name}' "
                         f"(registered: {sorted(known)})")
 
+    def active_steps(self) -> list[WorkflowStepDescription]:
+        return [s for st in self.stages for s in st.steps if s.active]
+
     # ------------------------------------------------------------- serialize
     def to_dict(self) -> dict:
         return {

@@ -55,11 +55,14 @@ resolves in the other.  What the port does with them:
   (:func:`~tmlibrary_tpu_torch.native.solidity_batch`), as the reference does
   (``:1499-1511``).
 - ``donate_buffers`` is accepted and has no effect: the port has no
-  buffer donation.  ``reduction_strategy`` resolves to a name
-  (:func:`~tmlibrary_tpu_torch.ops.reduction.resolve_reduction_strategy`)
-  that keys the perf store, but every name runs the port's one measure
-  route, the fused ``grouped_stats`` the reference's ``"fused"``
-  strategy runs.
+  buffer donation.  ``reduction_strategy`` resolves once a step to a
+  name (:func:`~tmlibrary_tpu_torch.ops.reduction.resolve_reduction_strategy`;
+  ``auto`` is the setting, then the cuda-scoped tuning verdict, then
+  ``fused``) that every batch function of the step is built with
+  (``build_batch_fn(reduction_strategy=...)``) and that keys the perf
+  store's programs: ``fused`` runs the measure kernels (rows 4-6),
+  ``onehot``, ``sort`` and ``scatter`` the reference's PyTorch routes of
+  those names (:mod:`tmlibrary_tpu_torch.ops.measure`).
 - ``batch_size=0`` is, on the card, the ``best_batch`` of a tuning file
   measured on ``cuda``, else 32; a verdict of another backend (the
   repo's ``tuning/TUNING.json`` is a TPU's) sets nothing
@@ -362,10 +365,13 @@ class ImageAnalysisRunner(Step):
                       "resolved as the argument, then the "
                       "reduction_strategy setting (TM_REDUCTION_STRATEGY), "
                       "then the verdict of a tuning/TUNING.json measured "
-                      "on the same backend, then 'fused'; every name runs "
-                      "the port's one measure route, the CUDA grouped_stats "
-                      "kernel on the card (its plain scatter twin on the "
-                      "CPU), and keys the perf store's programs"),
+                      "on the same backend, then 'fused'. 'fused' runs the "
+                      "measure kernels (grouped_stats, intensity_hist, "
+                      "glcm_all; their plain versions on the CPU), 'onehot' "
+                      "chunked one-hot products, 'sort' a stable sort and "
+                      "sorted-run reductions (bit-identical run to run), "
+                      "'scatter' index_add/scatter_reduce; the resolved "
+                      "name keys the perf store's programs"),
         Argument("donate_buffers", bool, default=True,
                  help="donate each batch's raw-image/stats/shift device "
                       "buffers to the compiled program so XLA reuses "
@@ -542,7 +548,8 @@ class ImageAnalysisRunner(Step):
         cap = int(capacity_ if capacity_ is not None else args["max_objects"])
         qc_on = qc_mod.enabled() if self._qc is None else self._qc
         mesh = site_mesh(distributed.clamp_devices(args["n_devices"]))
-        key = (cap, mesh.size, pipeline_identity(desc, qc_on))
+        strategy = self._strategy(args.get("reduction_strategy", "auto"))
+        key = (cap, mesh.size, pipeline_identity(desc, qc_on), strategy)
         with self._pipeline_lock:
             if not self._window_resolved:
                 if any(ch.align for ch in desc.channels):
@@ -557,7 +564,8 @@ class ImageAnalysisRunner(Step):
             if key not in self._pipelines:
                 self._pipelines[key] = ImageAnalysisPipeline(
                     desc, max_objects=cap, device=self.device
-                ).build_sharded_batch_fn(mesh, self._window, qc=qc_on)
+                ).build_sharded_batch_fn(mesh, self._window, qc=qc_on,
+                                         reduction_strategy=strategy)
             return desc, self._pipelines[key], mesh
 
     # ---------------------------------------------------------------- routing

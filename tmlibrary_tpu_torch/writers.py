@@ -12,12 +12,15 @@ multi-page OME-TIFFs byte for byte as the JAX package's do.
 :class:`DatasetWriter` (``:41-71``, ``h5py`` there) writes HDF5 through
 the port's HDF5 subset (:mod:`tmlibrary_tpu_torch.io.hdf5`), and
 :class:`TablesWriter` (``:84-92``, pandas there) writes a ``{column:
-array}`` table as Parquet or CSV.
+array}`` table as Parquet or CSV.  :class:`JsonWriter` and
+:class:`XmlWriter` (``:74-81``) are the reference's; every writer derives
+from :class:`Writer` (``:21-30``).
 """
 
 from __future__ import annotations
 
 import csv
+import json
 import struct
 from pathlib import Path
 from xml.etree import ElementTree
@@ -52,10 +55,9 @@ def encode_tiff(image: np.ndarray) -> bytes:
             + ifd)
 
 
-class ImageWriter:
-    """Write one greyscale image, the format chosen by the suffix (a
-    context manager, as the reference's writers are); the file's
-    directory is made on construction."""
+class Writer:
+    """Base context-manager writer (reference ``tmlib.writers.Writer``):
+    the file's directory is made on construction."""
 
     def __init__(self, filename):
         self.filename = Path(filename)
@@ -66,6 +68,10 @@ class ImageWriter:
 
     def __exit__(self, *exc):
         return False
+
+
+class ImageWriter(Writer):
+    """Write one greyscale image, the format chosen by the suffix."""
 
     def write(self, image: np.ndarray) -> None:
         suffix = self.filename.suffix.lower()
@@ -164,7 +170,17 @@ class OMETiffWriter(ImageWriter):
         self.filename.write_bytes(bytes(buf))
 
 
-class DatasetWriter:
+class JsonWriter(Writer):
+    def write(self, data) -> None:
+        self.filename.write_text(json.dumps(data, indent=2, default=str))
+
+
+class XmlWriter(Writer):
+    def write(self, element: ElementTree.Element) -> None:
+        self.filename.write_bytes(ElementTree.tostring(element))
+
+
+class DatasetWriter(Writer):
     """HDF5 dataset writer with the reference's ``write``/``append``
     surface, the semantics of ``h5py.File(path, "a")``: an existing file
     is read whole on entry (:func:`~tmlibrary_tpu_torch.io.hdf5.load`; a
@@ -175,8 +191,7 @@ class DatasetWriter:
     is created."""
 
     def __init__(self, filename):
-        self.filename = Path(filename)
-        self.filename.parent.mkdir(parents=True, exist_ok=True)
+        super().__init__(filename)
         self._root = None
         self._changed = False
 
@@ -231,22 +246,12 @@ class DatasetWriter:
         self._changed = True
 
 
-class TablesWriter:
+class TablesWriter(Writer):
     """Write a table, ``{column: array}`` (or any mapping of column names
     to arrays in order), as ``.parquet`` (:mod:`tmlibrary_tpu_torch.io.parquet`)
     or ``.csv`` (pandas' ``to_csv(index=False)`` layout: a header row,
     NaN and None as empty fields, floats by ``repr``); the reference
     writes a DataFrame with pandas."""
-
-    def __init__(self, filename):
-        self.filename = Path(filename)
-        self.filename.parent.mkdir(parents=True, exist_ok=True)
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return False
 
     def write(self, table) -> None:
         suffix = self.filename.suffix.lower()
