@@ -288,13 +288,29 @@ Phases (any failure exits non-zero before the last line):
    correct, align and smooth against the ops, ``SegmentationImage``'s
    ``n_objects`` and polygons, ``Image.join``, ``PyramidTile.encode_png``);
    a ``strategies: {...}`` line with the card.
-17. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+17. The sweep workloads (``phase_sweep``): ``benchmarks.sweep_workload``
+   for each of configs 2, 3, 4, ``dl``, ``volume``, ``corilla``,
+   ``pyramid`` and ``spatial`` at the reference bench's knobs (64 sites of
+   256x256, ``max_objects=64``; 16 z-stacks of 16x128x128; 8 channels of
+   96 sites; an 8x8 well).  Each: the workload at batch 4 on the card and
+   on the CPU, the fetched values equal (counts, corilla's ``n``, the
+   pyramid's last uint8 level, the spatial step's counts); for 2, 3, 4,
+   ``dl`` and ``volume`` the single-CPU scipy twin timed on 8 sites of the
+   full-width data (best of 3), config 2's counts and the nuclei of 3 and
+   4 equal to the twin's on the card; one launch with the counters at 0
+   (the kernels of :data:`SWEEP_NEED` launched, the host syncs PyTorch's
+   sync debug mode reports, no ``torch.cuda.synchronize()`` but on the
+   host-synchronous spatial step), and items/s of 8 launches through the
+   ``PipelinedExecutor`` at depths 1 and 8 (spatial at 1), best of 3; one
+   ``sweep: {...}`` line a config with x a single CPU.
+18. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness; rows 2-4 add ``spatial_launches``, their launches
    on phase 9's secondary run, and rows 2-3 ``spatial``, the kernel at
    the mosaic's shape; rows 1-4 add ``serve_launches``, their launches in
    phase 14's restarted daemon, and ``profile_launches``, phase 15's
-   traced submit's), and as the last line
+   traced submit's; rows 1-9 add ``sweep_launches``, each config's
+   launches in one ``launch()`` of phase 17), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of ``tmlibrary_tpu``.
@@ -1503,6 +1519,14 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable here ({e})", file=sys.stderr)
         return 2
 
+    # seconds of each phase, printed before the total
+    laps, last = {}, [time.perf_counter()]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = round(now - last[0], 1)
+        last[0] = now
+
     try:
         # ---------------------------------------------------------- phase 1
         card = card_line()
@@ -1518,6 +1542,7 @@ def main() -> int:
         t0 = time.perf_counter()
         native.lib()
         print(f"build: host library {time.perf_counter() - t0:.2f} s -> {native.build().name}")
+        lap("phase 1")
 
         # ---------------------------------------------------------- phase 2
         dev = torch.device("cuda")
@@ -1540,6 +1565,7 @@ def main() -> int:
         gs = next(r for r in records if r["name"] == "grouped_stats")
         gs["max_abs_err"] = max(gs["max_abs_err"], gs_err)
         finish_records(records, bw)
+        lap("phase 2")
 
         # ---------------------------------------------------------- shootout
         print(f"shootout: interleaved best-of-7 A/B on the main path's inputs; times on {card}")
@@ -1560,6 +1586,7 @@ def main() -> int:
         # design on path D's masks
         row7 = next(r for r in records if r["name"] == "distance_transform")
         row7["ab_ms"] = {k: ab["distance"]["ms"][k] for k in ("kernel", "original")}
+        lap("shootout")
 
         # ---------------------------------------------------------- phase 3
         wrappers = {
@@ -1673,6 +1700,7 @@ def main() -> int:
             "pipeline": pipeline, "modules": modules, "benchmarks": benchmarks,
             "blobs": blobs, "kernels": kernels, "fused_measure": fused_measure}, wrappers, card)
         phase_module_sweep(torch, {"modules": modules, "measure": measure}, inputs, card)
+        lap("phase 3")
 
         # ---------------------------------------------------------- phase 4
         print(f"phase 4: corilla, align, illuminati, QC, corilla -> config 3; times on {card}")
@@ -1684,19 +1712,24 @@ def main() -> int:
         phase_qc(torch, pipeline, desc3, data, qc, card)
         chain_sps = phase_chain(torch, {"stats": stats, "image_ops": image_ops}, pipeline,
                                 benchmarks, PipelineDescription, data, wrappers, card, on_chip)
+        lap("phase 4")
 
         # ---------------------------------------------------------- phase 5
         phase_steps(torch, wrappers, card, on_chip, chain_sps)
+        lap("phase 5")
 
         # ---------------------------------------------------------- phase 6
         analytics_root = Path(__file__).resolve().parent / "build" / f"phase10.{os.getpid()}"
         phase_engine(torch, wrappers, card, on_chip, keep_features=analytics_root)
+        lap("phase 6")
 
         # ---------------------------------------------------------- phase 7
         phase_canonical(torch, wrappers, card, on_chip)
+        lap("phase 7")
 
         # ---------------------------------------------------------- phase 8
         phase_qc_session(torch, wrappers, card)
+        lap("phase 8")
 
         # ---------------------------------------------------------- phase 9
         print(f"phase 9: the spatial layout, whole wells on the card; times on {card}")
@@ -1718,36 +1751,51 @@ def main() -> int:
                     r["spatial"] = {k: spatial[r["name"]][k] for k in (
                         "shape", "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
                     r["spatial"]["flood_route"] = spatial[r["name"]].get("flood_route")
+        lap("phase 9")
 
         # ---------------------------------------------------------- phase 10
         try:
             phase_analytics(torch, analytics_root, card)
         finally:
             shutil.rmtree(analytics_root, ignore_errors=True)
+        lap("phase 10")
 
         # ---------------------------------------------------------- phase 11
         phase_project(torch, wrappers, card)
+        lap("phase 11")
 
         # ---------------------------------------------------------- phase 12
         phase_containers(torch, wrappers, card)
+        lap("phase 12")
 
         # ---------------------------------------------------------- phase 13
         phase_codecs(torch, wrappers, card)
+        lap("phase 13")
 
         # ---------------------------------------------------------- phase 14
         served = phase_serve(torch, wrappers, card)
         for r in records:
             if r["name"] in served["launches"]:
                 r["serve_launches"] = served["launches"][r["name"]]
+        lap("phase 14")
 
         # ---------------------------------------------------------- phase 15
         profiled = phase_profile(torch, wrappers, card)
         for r in records:
             if r["name"] in profiled["launches"]:
                 r["profile_launches"] = profiled["launches"][r["name"]]
+        lap("phase 15")
 
         # ---------------------------------------------------------- phase 16
         phase_strategies(torch, {"pipeline": pipeline, "desc3": desc3}, wrappers, card)
+        lap("phase 16")
+
+        # ---------------------------------------------------------- phase 17
+        swept = phase_sweep(torch, wrappers, card)
+        for r in records:
+            if r["name"] in wrappers:
+                r["sweep_launches"] = {c: n.get(r["name"], 0) for c, n in swept.items()}
+        lap("phase 17")
         if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules:
             raise SmokeFailure("JAX or the JAX package was imported")
     except Exception as e:  # the smoke's boundary: report and exit non-zero
@@ -1757,6 +1805,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    print("phase seconds: " + json.dumps(laps))
     print(f"total: {time.perf_counter() - started:.1f} s of command")
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
@@ -1765,7 +1814,8 @@ def main() -> int:
     print(json.dumps({"kernels": [{k: r[k] for k in order + ["launch_ms", "ab_ms",
                                                             "spatial_launches", "spatial",
                                                             "serve_launches",
-                                                            "profile_launches"]
+                                                            "profile_launches",
+                                                            "sweep_launches"]
                                    if k in r}
                                   for r in records]}))
     print(json.dumps({"ok": True, "device": {
@@ -3329,6 +3379,13 @@ def host_syncs(torch, call) -> str:
     """Where ``call()`` makes the host wait for the card, as PyTorch's sync
     debug mode reports it: for each report inside the port, its innermost
     line on the stack, with their counts."""
+    where = sync_sites(torch, call)
+    return (", ".join(f"{k} x{v}" for k, v in sorted(where.items()))
+            or "none reported") + f" ({sum(where.values())} in all)"
+
+
+def sync_sites(torch, call) -> "collections.Counter":
+    """:func:`host_syncs`' count: ``{"file:line" of the port: reports}``."""
     import collections
     import traceback
     import warnings
@@ -3356,8 +3413,7 @@ def host_syncs(torch, call) -> str:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return (", ".join(f"{k} x{v}" for k, v in sorted(where.items()))
-            or "none reported") + f" ({sum(where.values())} in all)"
+    return where
 
 
 def drive_dl_path(torch, pkg, title, desc, data, wrappers, expect, card, bw) -> dict:
@@ -6961,6 +7017,252 @@ def phase_strategies(torch, pkg, wrappers, card) -> dict:
     print("strategies: " + json.dumps({"ms_per_batch": ms, "ms_range": spread,
                                        "rounds": STRATEGY_ROUNDS, "batch": B, "card": card}))
     return ms
+
+
+
+# ------------------------------------------------------------------ phase 17
+#: the sweep workloads (``benchmarks.sweep_workload``, the reference's
+#: ``bench.py --sweep``) at the reference bench's knobs: sites of 256x256 in
+#: batches of 64, ``max_objects=64``, corilla's 8 channels of 96 sites, an
+#: 8x8 well; the volume path at bench.py's 16 z-stacks of 16x128x128
+#: (``_default_batch``, ``measure_sweep``'s size)
+SWEEP_CONFIGS = ("2", "3", "4", "dl", "volume", "corilla", "pyramid", "spatial")
+SWEEP_KNOBS = {"size": 256, "batch": 64, "max_objects": 64, "sites": 96, "channels": 8,
+               "zdepth": 16, "grid_y": 8, "grid_x": 8}
+SWEEP_CONFIG_KNOBS = {"volume": {"size": 128, "batch": 16}}
+#: launches through the executor (bench.py's n_exec), its depths, best of
+#: how many runs; the card-vs-CPU hold's batch
+SWEEP_EXEC, SWEEP_DEPTHS, SWEEP_REPS, SWEEP_HOLD_BATCH = 8, (1, 8), 3, 4
+#: rows 1-9 that one launch() of each config must launch
+SWEEP_NEED = {
+    "2": ("cc_min_propagate",),
+    "3": ("fill_holes_flood", "cc_min_propagate", "watershed_flood", "grouped_stats"),
+    "4": ("fill_holes_flood", "cc_min_propagate", "watershed_flood", "grouped_stats",
+          "glcm_all"),
+    "dl": ("cc_min_propagate", "grouped_stats"),
+    "volume": ("cc3d_min_propagate", "watershed3d_flood", "grouped_stats"),
+    "spatial": ("cc_min_propagate",),
+}
+#: the counts held equal to the single-CPU twin's on its sites (the
+#: reference's tests gate configs 2 and 4; config 3's nuclei agree with
+#: the twin in both packages); the twin's other counts are printed
+SWEEP_TWIN_HELD = {"2": ("fg",), "3": ("nuclei",), "4": ("nuclei",)}
+
+
+class SweepStep:
+    """``bench.py:463-477`` ``_SweepStep``: one workload's ``launch`` and
+    ``fetch`` as the launch/persist split the port's
+    :class:`PipelinedExecutor` drives, so a depth's number is the overlap
+    the engine gets at that depth."""
+
+    def __init__(self, workload):
+        self._wl = workload
+
+    def launch_batch(self, batch, prefetched=None):
+        return batch, self._wl.launch()
+
+    def persist_batch(self, batch, ctx):
+        self._wl.fetch(ctx)
+        return {}
+
+
+def sweep_twin(benchmarks, config: str, knobs: dict, cache: dict):
+    """The single-CPU twin of ``config`` on the workload's data:
+    ``(description, data, twin)`` where ``twin(s)`` returns the twin's
+    counts of site ``s`` by object type.  Configs 2, 3 and ``dl`` share
+    config 3's sites (2 and ``dl`` read its DAPI, which the DAPI-only
+    generator draws the same)."""
+    size, batch = knobs["size"], knobs["batch"]
+    if config == "volume":
+        data = benchmarks.synthetic_volume_batch(batch, size=size, depth=knobs["zdepth"])
+        return benchmarks.volume_description(), data, lambda s: dict(zip(
+            ("nuclei3d", "cells3d"), benchmarks.cpu_reference_site_volume(data["DAPI"][s])))
+    if config == "4":
+        data = benchmarks.synthetic_full_stack_batch(batch, size=size)
+        return benchmarks.full_feature_description(), data, lambda s: dict(zip(
+            ("nuclei", "cells"),
+            benchmarks.cpu_reference_site_full({ch: v[s] for ch, v in data.items()})))
+    key = ("cell_painting", batch, size)
+    if key not in cache:
+        cache[key] = benchmarks.synthetic_cell_painting_batch(batch, size=size)
+    data = cache[key]
+    if config == "3":
+        return benchmarks.cell_painting_description(), data, lambda s: dict(zip(
+            ("nuclei", "cells"), benchmarks.cpu_reference_site(data["DAPI"][s],
+                                                               data["Actin"][s])))
+    dapi = {"DAPI": data["DAPI"]}
+    if config == "2":
+        return benchmarks.smooth_threshold_description(), dapi, lambda s: {
+            "fg": benchmarks.cpu_reference_site_smooth_threshold(data["DAPI"][s])}
+    return benchmarks.dl_description(DL_WEIGHTS), dapi, lambda s: {
+        "cells": benchmarks.cpu_reference_site_dl(data["DAPI"][s], DL_WEIGHTS)}
+
+
+def sweep_single_cpu(torch, pipeline, benchmarks, config, knobs, cache) -> dict:
+    """``bench.py:930-975``: the twin on ``min(8, batch)`` sites of the
+    workload's data, best of 3 on one host thread, and the card's counts
+    of those sites (the port's pipeline on the card) beside the twin's;
+    :data:`SWEEP_TWIN_HELD` must be equal."""
+    import numpy as np
+
+    desc, data, twin = sweep_twin(benchmarks, config, knobs, cache)
+    n = min(N_CPU_SITES, knobs["batch"])
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        want = [twin(s) for s in range(n)]
+        best = min(best, time.perf_counter() - t0)
+    raw, stats, shifts = pipeline.from_jax_inputs({k: v[:n] for k, v in data.items()}, {},
+                                                  np.zeros((n, 2)), device="cuda")
+    fn = pipeline.ImageAnalysisPipeline(desc, knobs["max_objects"], device="cuda").build_batch_fn()
+    counts = pipeline.site_result_to_numpy(fn(raw, stats, shifts)).counts
+    agree = {}
+    for key in want[0]:
+        got, twin_counts = counts[key].tolist(), [w[key] for w in want]
+        agree[key] = got == twin_counts
+        if key in SWEEP_TWIN_HELD.get(config, ()) and not agree[key]:
+            raise SmokeFailure(f"sweep {config}: {key} counts on the card {got} differ from "
+                               f"the single-CPU twin's {twin_counts}")
+        if not agree[key]:
+            agree[key] = {"card": got, "twin": twin_counts}
+    return {"cpu_sites": n, "cpu_seconds": best, "cpu_sites_per_sec": n / best,
+            "twin_agrees": agree}
+
+
+def sweep_hold(torch, benchmarks, config, knobs) -> str:
+    """The workload at batch 4 on the card and on the CPU: the fetched
+    values equal (counts, corilla's ``n``, the pyramid's last uint8 level,
+    the spatial step's counts)."""
+    import numpy as np
+
+    small = {**knobs, "batch": SWEEP_HOLD_BATCH}
+    got, want = ({}, {})
+    for device, out in (("cuda", got), ("cpu", want)):
+        wl = benchmarks.sweep_workload(config, device=device, **small)
+        try:
+            out["value"] = wl.fetch(wl.launch())
+        finally:
+            wl.close()
+    a, b = got["value"], want["value"]
+    if isinstance(a, dict):
+        same = a == b
+    else:
+        same = a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+    if not same:
+        raise SmokeFailure(f"sweep {config}: the card's fetched value {a!r} differs from "
+                           f"the CPU's {b!r}")
+    if isinstance(a, dict):
+        return f"exact ({a})"
+    return f"exact ({a.dtype} {list(a.shape)}, sum {a.astype(np.float64).sum():.0f})"
+
+
+def sweep_rates(torch, pipelined, wl, depths) -> dict:
+    """Items/s at each depth: best of :data:`SWEEP_REPS` runs of
+    :data:`SWEEP_EXEC` launches through the executor (bench.py's row)."""
+    rates = {}
+    for depth in depths:
+        best = float("inf")
+        for _ in range(SWEEP_REPS):
+            ex = pipelined.PipelinedExecutor(SweepStep(wl), depth=depth)
+            t0 = time.perf_counter()
+            for _ in ex.run([{"index": i} for i in range(SWEEP_EXEC)]):
+                pass
+            best = min(best, time.perf_counter() - t0)
+        rates[str(depth)] = SWEEP_EXEC * wl.n_items / best
+    return rates
+
+
+def one_launch(torch, wl, wrappers) -> dict:
+    """One ``launch()`` with the launch counters set to 0 just before and
+    read just after its fetch: the host syncs PyTorch's sync debug mode
+    reports inside it, its explicit ``torch.cuda.synchronize()`` calls
+    and the kernels it launched."""
+    for w in wrappers.values():
+        w.launches = 0
+    out, explicit = [], [0]
+    synchronize = torch.cuda.synchronize
+
+    def counted(*args, **kwargs):
+        explicit[0] += 1
+        return synchronize(*args, **kwargs)
+
+    def call():
+        torch.cuda.synchronize = counted
+        try:
+            out.append(wl.launch())
+        finally:
+            torch.cuda.synchronize = synchronize
+
+    where = sync_sites(torch, call)
+    wl.fetch(out[0])
+    torch.cuda.synchronize()
+    return {"host_syncs": sum(where.values()), "sync_sites": dict(sorted(where.items())),
+            "synchronize_calls": explicit[0],
+            "launches": {k: w.launches for k, w in wrappers.items() if w.launches}}
+
+
+def phase_sweep(torch, wrappers, card) -> dict:
+    """Phase 17: the eight sweep workloads (``benchmarks.sweep_workload``)
+    on the card.  For each config (a) the workload at batch 4 on the card
+    and on the CPU, the fetched values equal (:func:`sweep_hold`); (b) for
+    2, 3, 4, ``dl`` and ``volume`` the single-CPU twin timed on
+    ``min(8, batch)`` sites of the full-width data and its counts beside
+    the card's (:func:`sweep_single_cpu`); (c) the full-width workload
+    warmed once, one launch with the counters at 0 (host syncs, explicit
+    synchronizes, rows 1-9 launched; :data:`SWEEP_NEED` must launch), then
+    items/s through the executor at depths 1 and 8 (``spatial`` at 1),
+    and ``close()``.  Prints one ``sweep:`` line a config; returns each
+    config's launches of one launch()."""
+    import tempfile
+
+    from tmlibrary_tpu_torch import benchmarks
+    from tmlibrary_tpu_torch.jterator import pipeline
+    from tmlibrary_tpu_torch.workflow import pipelined
+
+    started = time.perf_counter()
+    print(f"phase 17: the sweep workloads; times on {card}")
+    # the spatial workload's store goes under build/, not the host's temp
+    work = Path(__file__).resolve().parent / "build" / f"phase17.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    saved_tempdir, tempfile.tempdir = tempfile.tempdir, str(work)
+    launched, cache = {}, {}
+    try:
+        for config in SWEEP_CONFIGS:
+            t0 = time.perf_counter()
+            knobs = {**SWEEP_KNOBS, **SWEEP_CONFIG_KNOBS.get(config, {})}
+            line = {"config": config, "hold": sweep_hold(torch, benchmarks, config, knobs)}
+            if config not in ("corilla", "pyramid", "spatial"):
+                line.update(sweep_single_cpu(torch, pipeline, benchmarks, config, knobs, cache))
+            wl = benchmarks.sweep_workload(config, device="cuda", **knobs)
+            try:
+                wl.fetch(wl.launch())  # warm: allocator and first launches
+                once = one_launch(torch, wl, wrappers)
+                for k in SWEEP_NEED.get(config, ()):
+                    if not once["launches"].get(k):
+                        raise SmokeFailure(f"sweep {config}: {k} was not launched by one "
+                                           f"launch(): {once['launches']}")
+                if once["synchronize_calls"] and not wl.host_synchronous:
+                    raise SmokeFailure(f"sweep {config}: launch() called "
+                                       f"torch.cuda.synchronize() {once['synchronize_calls']}"
+                                       " times")
+                depths = (1,) if config in benchmarks.SWEEP_HOST_SYNC_CONFIGS else SWEEP_DEPTHS
+                rates = sweep_rates(torch, pipelined, wl, depths)
+                line.update(n_items=wl.n_items, item_unit=wl.item_unit,
+                            host_synchronous=wl.host_synchronous, items_per_sec=rates, **once)
+            finally:
+                wl.close()
+            if "cpu_sites_per_sec" in line:
+                line["x_vs_single_cpu"] = {d: r / line["cpu_sites_per_sec"]
+                                           for d, r in rates.items()}
+            line.update(knobs={k: knobs[k] for k in ("size", "batch", "max_objects")},
+                        seconds=time.perf_counter() - t0, card=card)
+            launched[config] = once["launches"]
+            print("sweep: " + json.dumps(line))
+    finally:
+        tempfile.tempdir = saved_tempdir
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"  phase 17: {time.perf_counter() - started:.1f} s on {card}")
+    return launched
 
 
 if __name__ == "__main__":

@@ -68,8 +68,6 @@ EXCLUDED = {
     "resilience.py:DeviceHealthGuard.ensure_backend": "DeviceHealthGuard's",
     "resilience.py:DeviceHealthGuard.healthy": "DeviceHealthGuard's",
     "resilience.py:DeviceHealthGuard.note_watchdog_fire": "DeviceHealthGuard's",
-    "benchmarks.py:cpu_reference_site_dl": "the DL path is held by the boundary rule "
-                                           "(chip_smoke.dl_flips), not a CPU reference",
     "utils/__init__.py:enable_compilation_cache": "JAX's persistent compilation cache",
     "capacity.py:requested_object_buckets": ("an ambient bucket spec; the port's is the "
                                              "jterator step's argument (--object-buckets)"),
@@ -103,11 +101,10 @@ EXCLUDED = {
         "trace_boundary_host", "watershed_levels3d_host", "watershed_levels_host")},
 }
 
-#: reference ``module:name`` -> the kind of pull request it waits for
-DEFERRED = {f"benchmarks.py:{name}": "benchmark" for name in (
-    "BenchWorkload", "BenchWorkload.close", "sweep_workload", "cpu_reference_site",
-    "cpu_reference_site_full", "cpu_reference_site_smooth_threshold",
-    "cpu_reference_site_volume")}
+#: reference ``module:name`` -> the kind of pull request it waits for (none
+#: waits: every public name of the JAX package has a counterpart, a rename
+#: or a decided exclusion)
+DEFERRED: dict[str, str] = {}
 
 #: the kinds of pull request a deferred name may wait for
 PR_KINDS = ("benchmark", "bring_up")
@@ -198,7 +195,6 @@ def test_the_decided_exclusions_are_listed():
     for key in ("parallel/compat.py", "parallel/distributed.py:pod_mesh",
                 "parallel/distributed.py:batch_spec", "parallel/mesh.py:batch_sharding",
                 "parallel/mesh.py:replicated_sharding", "resilience.py:DeviceHealthGuard",
-                "benchmarks.py:cpu_reference_site_dl",
                 "utils/__init__.py:enable_compilation_cache",
                 "ops/pallas_kernels.py:pallas_enabled", "ops/fused_measure.py:fused_chunk",
                 "ops/fused_measure.py:vmem_bytes_estimate", "perf.py:cost_from_compiled",

@@ -1,23 +1,32 @@
-"""The benchmark pipelines and their synthetic data.
+"""The benchmark pipelines, their synthetic data, the single-CPU twins
+and the sweep workloads.
 
-Counterpart: ``tmlibrary_tpu/benchmarks.py:24-184,186-381,628-725,
-759-791,795-847,861-891``.  The port's own copies of ``CELL_PAINTING_PIPE`` (BASELINE.json
-config 3: ``smooth`` → ``segment_primary`` on DAPI → ``segment_secondary``
-on Actin → ``measure_intensity`` on both; with ``declump: true`` the
-declumping path), of ``full_feature_description`` (config 4: the same
-segmentation, then intensity on five channels, morphology, Haralick
-texture and Zernike moments), of ``SMOOTH_THRESHOLD_PIPE`` (config 2:
-smooth → adaptive threshold → label), of ``volume_description``
-(config 5, the 3-D z-stack pipeline) and of the numpy generators, which
-draw the same random sequence as the reference's, so both packages see
-the same pixels for the same seed; corilla's (config 1) stack and
-single-thread numpy channel job, illuminati's numpy pyramid job, and
-the spatial layout's well (``synthetic_mosaic_well``, ``:893-951``) with
-its scipy chain (``cpu_reference_mosaic``).
-The ``dl`` configuration (:func:`dl_description`) and its primary +
-secondary form (:func:`dl_secondary_pipe`) run the DL segmenters.  The
-reference's single-thread numpy ``dl`` site (``cpu_reference_site_dl``)
-is not ported: nothing here times the CPU against the card for it.
+Counterpart: ``tmlibrary_tpu/benchmarks.py``, every name (``:24-1151``).
+The port's own copies of ``CELL_PAINTING_PIPE`` (BASELINE.json config 3:
+``smooth`` → ``segment_primary`` on DAPI → ``segment_secondary`` on Actin
+→ ``measure_intensity`` on both; with ``declump: true`` the declumping
+path), of ``full_feature_description`` (config 4: the same segmentation,
+then intensity on five channels, morphology, Haralick texture and Zernike
+moments), of ``SMOOTH_THRESHOLD_PIPE`` (config 2: smooth → adaptive
+threshold → label), of ``volume_description`` (config 5, the 3-D z-stack
+pipeline) and of the numpy generators, which draw the same random
+sequence as the reference's, so both packages see the same pixels for
+the same seed; corilla's (config 1) stack and single-thread numpy channel
+job, illuminati's numpy pyramid job, and the spatial layout's well
+(``synthetic_mosaic_well``) with its scipy chain
+(``cpu_reference_mosaic``).  The ``dl`` configuration
+(:func:`dl_description`) and its primary + secondary form
+(:func:`dl_secondary_pipe`) run the DL segmenters.
+
+The single-threaded scipy/numpy twins of configs 3, 4, 2, 5 and ``dl``
+(``cpu_reference_site``, ``cpu_reference_site_full``,
+``cpu_reference_site_smooth_threshold``, ``cpu_reference_site_volume``,
+``cpu_reference_site_dl``, ``:401-624,728-755,850-858``) are the
+denominator of "x a single CPU" and an independent count gate.
+:func:`sweep_workload` (``:954-1151``) builds one :class:`BenchWorkload`
+per config for a pipelined sweep, on the card unless the caller asks for
+the CPU.  The analytics and ingest measurements are the reference
+bench's (``bench.py``).
 """
 
 from __future__ import annotations
@@ -589,6 +598,234 @@ def _otsu_numpy(img: np.ndarray, bins: int = 256) -> float:
     return float(centers[int(np.argmax(between))])
 
 
+# ---------------------------------------------------------- single-CPU twins
+# The single-threaded scipy/numpy chains of configs 2, 3, 4, dl and V: the
+# denominator of "x a single CPU" and an independent count gate.  They are
+# approximate goldens of the pipelines (a nearest-seed growth stands in for
+# the flooded secondary), not their twins pixel for pixel.
+def _zernike_numpy(mask: np.ndarray, degree: int = 6, patch: int = 64) -> np.ndarray:
+    """Numpy Zernike magnitudes of one object mask (reference: mahotas
+    ``zernike_moments``); config 4's denominator only."""
+    from math import factorial
+
+    ys, xs = np.nonzero(mask)
+    if len(ys) == 0:
+        return np.zeros(1)
+    cy, cx = ys.mean(), xs.mean()
+    r = max(np.sqrt(((ys - cy) ** 2 + (xs - cx) ** 2)).max(), 1.0)
+    rho = np.sqrt((ys - cy) ** 2 + (xs - cx) ** 2) / r
+    theta = np.arctan2(ys - cy, xs - cx)
+    vals = []
+    for n in range(degree + 1):
+        for m in range(0, n + 1):
+            if (n - m) % 2:
+                continue
+            rad = np.zeros_like(rho)
+            for k in range((n - m) // 2 + 1):
+                c = ((-1) ** k * factorial(n - k)) / (
+                    factorial(k) * factorial((n + m) // 2 - k) * factorial((n - m) // 2 - k))
+                rad += c * rho ** (n - 2 * k)
+            z = (rad * np.exp(-1j * m * theta)).sum() * (n + 1) / np.pi
+            vals.append(np.abs(z))
+    return np.asarray(vals)
+
+
+def _haralick_numpy(img: np.ndarray, mask: np.ndarray, levels: int = 16) -> np.ndarray:
+    """Numpy GLCM Haralick summary of one object, four directions
+    (reference: mahotas ``haralick``); config 4's denominator only."""
+    lo, hi = img.min(), img.max()
+    q = np.clip(((img - lo) / max(hi - lo, 1e-6) * levels).astype(np.int32), 0, levels - 1)
+    feats = []
+    for dy, dx in ((0, 1), (1, 0), (1, 1), (1, -1)):
+        h, w = q.shape
+        y0, x0 = max(0, -dy), max(0, -dx)
+        y1, x1 = min(h, h - dy), min(w, w - dx)
+        src = q[y0:y1, x0:x1]
+        dst = q[y0 + dy:y1 + dy, x0 + dx:x1 + dx]
+        m = mask[y0:y1, x0:x1] & mask[y0 + dy:y1 + dy, x0 + dx:x1 + dx]
+        pairs = src[m] * levels + dst[m]
+        glcm = np.bincount(pairs, minlength=levels * levels).astype(np.float64)
+        glcm = glcm.reshape(levels, levels)
+        glcm = glcm + glcm.T
+        p = glcm / max(glcm.sum(), 1.0)
+        i_idx, j_idx = np.mgrid[0:levels, 0:levels]
+        contrast = (p * (i_idx - j_idx) ** 2).sum()
+        energy = (p ** 2).sum()
+        homogeneity = (p / (1.0 + np.abs(i_idx - j_idx))).sum()
+        entropy = -(p[p > 0] * np.log(p[p > 0])).sum()
+        feats.extend([contrast, energy, homogeneity, entropy])
+    return np.asarray(feats)
+
+
+def _object_intensity_stats(img: np.ndarray, labels: np.ndarray) -> None:
+    """Mean, std, max, min and sum of ``img`` per object of ``labels``."""
+    import scipy.ndimage as ndi
+
+    ids = np.unique(labels)[1:]
+    if len(ids):
+        for fn in (ndi.mean, ndi.standard_deviation, ndi.maximum, ndi.minimum, ndi.sum):
+            fn(img, labels, ids)
+
+
+def cpu_reference_site(dapi: np.ndarray, actin: np.ndarray) -> tuple[int, int]:
+    """Config 3 on one site with scipy: smooth, Otsu, fill holes,
+    8-connected label, objects of at least 20 px counted; cells by
+    nearest-seed growth through Actin above 0.8 of its Otsu cut; the
+    intensity statistics of both.  Returns ``(n_nuclei, n_cells)``."""
+    import scipy.ndimage as ndi
+
+    sm = ndi.gaussian_filter(dapi, 1.5, mode="reflect")
+    mask = ndi.binary_fill_holes(sm > _otsu_numpy(sm))
+    labels, _ = ndi.label(mask, ndi.generate_binary_structure(2, 2))
+    # the first id of at least 20 px is the background's
+    n_nuclei = len(np.flatnonzero(np.bincount(labels.ravel()) >= 20)[1:])
+    cell_mask = actin > _otsu_numpy(actin) * 0.8
+    _, (iy, ix) = ndi.distance_transform_edt(labels == 0, return_indices=True)
+    cells = np.where(cell_mask, labels[iy, ix], 0)
+    n_cells = len(np.unique(cells)) - 1
+    _object_intensity_stats(dapi, labels)
+    _object_intensity_stats(actin, cells)
+    return n_nuclei, n_cells
+
+
+def cpu_reference_site_full(
+    channels: dict[str, np.ndarray], texture_levels: int = 16, zernike_degree: int = 6,
+) -> tuple[int, int]:
+    """Config 4 on one site with scipy and numpy: config 3's segmentation
+    once (its 20 px filter counted), the intensity statistics of every
+    channel, morphology, Haralick texture of the cells on the second
+    channel and Zernike moments of the nuclei, object by object.
+    Returns ``(n_nuclei, n_cells)``."""
+    import scipy.ndimage as ndi
+
+    names = list(channels)
+    dapi, cell_ch = channels[names[0]], channels[names[1]]
+    sm = ndi.gaussian_filter(dapi.astype(np.float32), 1.5, mode="reflect")
+    mask = ndi.binary_fill_holes(sm > _otsu_numpy(sm))
+    labels, _ = ndi.label(mask, ndi.generate_binary_structure(2, 2))
+    n_nuclei = int((np.bincount(labels.ravel())[1:] >= 20).sum())
+    t2 = _otsu_numpy(cell_ch) * 0.8
+    _, (iy, ix) = ndi.distance_transform_edt(labels == 0, return_indices=True)
+    cells = np.where(cell_ch > t2, labels[iy, ix], 0)
+
+    for lab_img in (labels, cells):
+        ids = np.unique(lab_img)[1:]
+        if not len(ids):
+            continue
+        for img in channels.values():
+            _object_intensity_stats(img, lab_img)
+        ndi.center_of_mass(lab_img > 0, lab_img, ids)
+        slices = ndi.find_objects(lab_img)
+        np.bincount(lab_img.ravel())
+        ((lab_img > 0) & ~ndi.binary_erosion(lab_img > 0)).sum()
+        for lab in ids:
+            sl = slices[lab - 1]
+            if sl is None:
+                continue
+            obj_mask = lab_img[sl] == lab
+            if lab_img is cells:
+                _haralick_numpy(cell_ch[sl], obj_mask, texture_levels)
+            else:
+                _zernike_numpy(obj_mask, zernike_degree)
+    return n_nuclei, len(np.unique(cells)) - 1
+
+
+def cpu_reference_site_smooth_threshold(dapi: np.ndarray) -> int:
+    """Config 2 on one site with scipy: smooth, a 31 px mean plus 2 as
+    the cut, 8-connected label.  Returns the object count."""
+    import scipy.ndimage as ndi
+
+    sm = ndi.gaussian_filter(dapi, 1.5, mode="reflect")
+    mask = sm > ndi.uniform_filter(sm, 31, mode="reflect") + 2
+    _, n = ndi.label(mask, ndi.generate_binary_structure(2, 2))
+    return n
+
+
+def cpu_reference_site_volume(zstack: np.ndarray) -> tuple[int, int]:
+    """Config 5 on one z-stack with scipy: focus weighting by the
+    box-filtered squared Laplacian of each plane, Otsu, 26-connected
+    label, seeded 3-D watershed growth through 0.8 of the cut, the
+    per-object statistics.  Returns ``(n_nuclei, n_cells)``."""
+    import scipy.ndimage as ndi
+
+    lap = np.stack([ndi.laplace(p) for p in zstack])
+    focus = np.stack([ndi.uniform_filter(p * p, 5) for p in lap])
+    vol = zstack * (focus / np.maximum(focus.max(axis=0, keepdims=True), 1e-6))
+    t = _otsu_numpy(vol)
+    labels, n = ndi.label(vol > t, structure=np.ones((3, 3, 3)))
+    inv = (vol.max() - vol).astype(np.uint16)
+    cells = ndi.watershed_ift(inv, markers=labels.astype(np.int32),
+                              structure=np.ones((3, 3, 3), int))
+    cells = np.where(vol > t * 0.8, cells, 0)
+    for lab in range(1, n + 1):
+        sel = vol[labels == lab]
+        if sel.size:
+            sel.mean(), sel.std(), sel.max(), sel.min(), sel.sum()
+    return n, len(np.unique(cells)) - 1
+
+
+def _conv2d_numpy(x: np.ndarray, w: np.ndarray, b: np.ndarray, stride: int = 1) -> np.ndarray:
+    """SAME-padded ``(H, W, Cin)`` convolution as im2col and one matmul
+    (numpy's BLAS may use several threads: library code as it comes)."""
+    kh, kw, cin, cout = w.shape
+    h, wd = x.shape[:2]
+    xp = np.pad(x, ((kh // 2, kh // 2), (kw // 2, kw // 2), (0, 0)))
+    oh, ow = -(-h // stride), -(-wd // stride)
+    cols = np.empty((oh, ow, kh * kw * cin), np.float32)
+    i = 0
+    for dy in range(kh):
+        for dx in range(kw):
+            cols[..., i:i + cin] = xp[dy:dy + h:stride, dx:dx + wd:stride]
+            i += cin
+    y = cols.reshape(oh * ow, -1) @ w.reshape(-1, cout) + b
+    return y.reshape(oh, ow, cout).astype(np.float32)
+
+
+def cpu_reference_site_dl(dapi: np.ndarray, weights: str = "seed:0") -> int:
+    """The ``dl`` configuration on one site with numpy and scipy: the
+    U-Net's forward pass as im2col matmuls, the sigmoid mask at 0.6, 24
+    steps of flow following, seeds where two or more pixels land, scipy's
+    8-connected label, the per-object statistics.  Returns the object
+    count."""
+    import scipy.ndimage as ndi
+
+    from tmlibrary_tpu_torch.nn.weights import resolve_weights
+
+    params, _digest, cfg = resolve_weights(weights)
+    img = np.asarray(dapi, np.float32)
+    x = (img - img.mean()) / (img.std() + 1e-6)
+    h, w = x.shape
+    mult = 1 << cfg.depth
+    a = np.pad(x[..., None], ((0, (-h) % mult), (0, (-w) % mult), (0, 0)), mode="edge")
+
+    def conv(t, name, stride=1):
+        return np.maximum(_conv2d_numpy(t, params[f"{name}/w"], params[f"{name}/b"], stride),
+                          0.0)
+
+    a = conv(conv(a, "enc0/conv1"), "enc0/conv2")
+    skips = []
+    for i in range(1, cfg.depth + 1):
+        skips.append(a)
+        a = conv(conv(conv(a, f"down{i}", stride=2), f"enc{i}/conv1"), f"enc{i}/conv2")
+    for i in range(cfg.depth, 0, -1):
+        a = conv(a.repeat(2, axis=0).repeat(2, axis=1), f"up{i}")
+        a = conv(np.concatenate([a, skips[i - 1]], axis=-1), f"dec{i}")
+    y = _conv2d_numpy(a, params["head/w"], params["head/b"])[:h, :w]
+
+    flow, prob = y[..., :2], 1.0 / (1.0 + np.exp(-y[..., 2]))
+    mask = prob > 0.6
+    py, px = np.mgrid[0:h, 0:w]
+    for _ in range(24):
+        py = np.clip(py + np.sign(flow[py, px, 0]).astype(np.int64), 0, h - 1)
+        px = np.clip(px + np.sign(flow[py, px, 1]).astype(np.int64), 0, w - 1)
+    hits = np.zeros((h, w), np.int64)
+    np.add.at(hits, (py[mask], px[mask]), 1)
+    seeds, _n = ndi.label(hits >= 2, ndi.generate_binary_structure(2, 2))
+    labels = np.where(mask, seeds[py, px], 0)
+    _object_intensity_stats(img, labels)
+    return len(np.unique(labels)) - 1
+
+
 def cpu_reference_mosaic(mosaic: np.ndarray) -> int:
     """The spatial layout's chain on one stitched mosaic with scipy:
     smooth, Otsu, 8-connected label, the per-object morphology and
@@ -607,6 +844,171 @@ def cpu_reference_mosaic(mosaic: np.ndarray) -> int:
         for fn in (ndi.mean, ndi.standard_deviation, ndi.minimum, ndi.maximum, ndi.sum):
             fn(img64, labels, ids)
     return n
+
+
+# ------------------------------------------------------ bench sweep workloads
+#: configs whose chain holds grouped (per-object) reductions, the only ones
+#: where the reduction strategy changes what runs: config 2 stops at label,
+#: corilla is a Welford scan, the pyramid a chain of 2x2 means, and the
+#: spatial layout's step takes no strategy
+SWEEP_REDUCTION_CONFIGS = ("3", "4", "dl", "volume")
+
+#: configs that are host-synchronous end to end (the spatial step stitches
+#: on the host at both ends): a deeper window has nothing to overlap, so a
+#: sweep holds them at depth 1
+SWEEP_HOST_SYNC_CONFIGS = ("spatial",)
+
+
+class BenchWorkload:
+    """One device workload of a pipelined sweep: ``launch()`` starts one
+    batch and returns its result un-fetched (a CUDA tensor on the card);
+    ``fetch(ctx)`` makes the one host copy that waits for it and returns
+    it.  The split is :class:`~tmlibrary_tpu_torch.workflow.pipelined.PipelinedExecutor`'s
+    launch/persist, so a sweep through the executor times the overlap
+    the engine gets."""
+
+    def __init__(self, launch, fetch, n_items, item_unit, host_synchronous=False, close=None):
+        self.launch = launch
+        self.fetch = fetch
+        #: items (sites, channels, Mpix) one launch completes
+        self.n_items = n_items
+        self.item_unit = item_unit
+        self.host_synchronous = host_synchronous
+        self._close = close
+
+    def close(self):
+        if self._close is not None:
+            self._close()
+
+
+def _host(ctx) -> np.ndarray:
+    return ctx.cpu().numpy()
+
+
+def _jterator_sweep_workload(desc, data, batch, max_objects, count_key, reduction_strategy,
+                             device):
+    import torch
+
+    from tmlibrary_tpu_torch.jterator.pipeline import ImageAnalysisPipeline
+
+    pipe = ImageAnalysisPipeline(desc, max_objects=max_objects, device=device)
+    fn = pipe.build_batch_fn(reduction_strategy=reduction_strategy)
+    # uploaded once: every launch re-runs on the same device tensors
+    raw = {k: torch.from_numpy(np.ascontiguousarray(v)).to(pipe.device) for k, v in data.items()}
+    shifts = torch.zeros((batch, 2), dtype=torch.int32, device=pipe.device)
+
+    def launch():
+        return fn(raw, {}, shifts).counts[count_key]
+
+    return BenchWorkload(launch, _host, batch, "sites")
+
+
+def sweep_workload(config, *, reduction_strategy=None, size=256, batch=64, max_objects=64,
+                   sites=96, channels=8, zdepth=16, grid_y=8, grid_x=8, dl_weights="seed:0",
+                   device="cuda"):
+    """The workload of one sweep cell of ``config`` (``2``, ``3``, ``4``,
+    ``dl``, ``volume``, ``corilla``, ``pyramid`` or ``spatial``) on
+    ``device``; the card unless the caller asks for the CPU, and a
+    request for the card on a host without one raises ``DeviceError``.
+
+    The jterator configs build their batch function with
+    ``reduction_strategy`` (``None`` is ``auto``, which resolves to
+    ``fused``); the others ignore it (:data:`SWEEP_REDUCTION_CONFIGS`).
+    ``dl_weights`` is the ``dl`` configuration's weight spec (a keyword
+    where the reference reads ``BENCH_DL_WEIGHTS``).  There is no buffer
+    donation: every launch reads the inputs uploaded here."""
+    import torch
+
+    from tmlibrary_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if config == "3":
+        return _jterator_sweep_workload(
+            cell_painting_description(), synthetic_cell_painting_batch(batch, size=size),
+            batch, max_objects, "cells", reduction_strategy, dev)
+    if config == "2":
+        return _jterator_sweep_workload(
+            smooth_threshold_description(),
+            synthetic_cell_painting_batch(batch, size=size, dapi_only=True),
+            batch, max_objects, "fg", reduction_strategy, dev)
+    if config == "dl":
+        return _jterator_sweep_workload(
+            dl_description(weights=dl_weights),
+            synthetic_cell_painting_batch(batch, size=size, dapi_only=True),
+            batch, max_objects, "cells", reduction_strategy, dev)
+    if config == "4":
+        return _jterator_sweep_workload(
+            full_feature_description(), synthetic_full_stack_batch(batch, size=size),
+            batch, max_objects, "cells", reduction_strategy, dev)
+    if config == "volume":
+        return _jterator_sweep_workload(
+            volume_description(), synthetic_volume_batch(batch, size=size, depth=zdepth),
+            batch, max_objects, "cells3d", reduction_strategy, dev)
+    if config == "corilla":
+        from tmlibrary_tpu_torch.ops.stats import welford_finalize, welford_scan
+
+        # (C, S, H, W): the channel axis is the scan's leading axis
+        stack = torch.from_numpy(synthetic_channel_stack(channels, sites, size)).to(dev)
+
+        def launch():
+            return welford_finalize(welford_scan(stack))["n"]
+
+        return BenchWorkload(launch, _host, channels, "channels")
+    if config == "pyramid":
+        from tmlibrary_tpu_torch.ops.pyramid import downsample_2x, n_pyramid_levels, to_uint8
+
+        tiles = np.asarray(synthetic_cell_painting_batch(
+            grid_y * grid_x, size=size, dapi_only=True)["DAPI"], np.float32)
+        n_levels = n_pyramid_levels(grid_y * size, grid_x * size)
+        lower = float(np.percentile(tiles, 0.1))
+        upper = float(np.percentile(tiles, 99.9))
+        sites_dev = torch.from_numpy(tiles).to(dev)
+
+        def launch():
+            mosaic = (sites_dev.reshape(grid_y, grid_x, size, size).permute(0, 2, 1, 3)
+                      .reshape(grid_y * size, grid_x * size))
+            level = to_uint8(mosaic, lower, upper)
+            cur = mosaic
+            for _ in range(n_levels - 1):
+                cur = downsample_2x(cur)
+                level = to_uint8(cur, lower, upper)
+            return level
+
+        return BenchWorkload(launch, _host, grid_y * grid_x * size * size / 1e6, "Mpix")
+    if config == "spatial":
+        import os
+        import shutil
+        import tempfile
+
+        from tmlibrary_tpu_torch.models.experiment import grid_experiment
+        from tmlibrary_tpu_torch.models.store import ExperimentStore
+        from tmlibrary_tpu_torch.workflow.registry import get_step
+
+        _, tiles = synthetic_mosaic_well(grid_y, grid_x, size=size)
+        tmpdir = tempfile.mkdtemp(prefix="bench_sweep_spatial_")
+        try:
+            exp = grid_experiment(
+                "bench_sweep_spatial", well_rows=1, well_cols=1, sites_per_well=(grid_y, grid_x),
+                channel_names=("DAPI",), site_shape=(size, size))
+            store = ExperimentStore.create(os.path.join(tmpdir, "exp"), exp)
+            store.write_sites(tiles, list(range(grid_y * grid_x)), channel=0)
+            jt = get_step("jterator")(store, device=dev)
+            jt.init({"layout": "spatial", "spatial_zernike_degree": 0})
+        except BaseException:
+            shutil.rmtree(tmpdir, ignore_errors=True)
+            raise
+
+        def launch():
+            return jt.run(0)
+
+        def fetch(ctx):
+            # the step's run is host-synchronous: the launch already waited
+            return ctx["objects"]
+
+        return BenchWorkload(launch, fetch, grid_y * grid_x * size * size / 1e6, "Mpix",
+                             host_synchronous=True,
+                             close=lambda: shutil.rmtree(tmpdir, ignore_errors=True))
+    raise ValueError(f"no sweep workload for BENCH_CONFIG={config!r}")
 
 
 # ------------------------------------------------------------ analytics
