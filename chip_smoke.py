@@ -139,7 +139,9 @@ Phases (any failure exits non-zero before the last line):
    ``CARD_TIERS``).  The store is removed at the end.
 6. The ``Workflow`` engine through the CLI (``phase_engine``): config 4
    corrected and aligned over phase 5's plate, ``workflow submit
-   --device cuda``, resume, status, and the same description on the CPU.
+   --device cuda``, resume, status; on the CPU corilla and align through
+   ``workflow submit --device cpu`` and jterator's first and last batches
+   of :data:`PROJECT_CPU_BATCH` sites.
 7. The canonical workflow from the microscope's files
    (``phase_canonical``, ``workflow_canonical_p96x4_256``): phase 5's
    plate as 768 TIFF files written by the port's ``ImageWriter``,
@@ -303,17 +305,34 @@ Phases (any failure exits non-zero before the last line):
    host-synchronous spatial step), and items/s of 8 launches through the
    ``PipelinedExecutor`` at depths 1 and 8 (spatial at 1), best of 3; one
    ``sweep: {...}`` line a config with x a single CPU.
-18. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
+18. Classification on the card (``phase_classify``): the random forest
+   and the SVM of the classification tool over
+   ``benchmarks.clustered_population_with_blobs`` at 10^5 and 10^6
+   objects x 32 features (3 classes from the blob ids, 200 seeded
+   examples a class): training seconds (the forest's host induction; the
+   SVM's Gram matrix and SMO launch), objects/s predicted on the card,
+   one launch each of ``forest_predict`` and ``svm_smo``; at 10^6 the
+   forest kernel held bit for bit (classes and probabilities) against
+   ``forest_predict_plain`` on the card and the SMO kernel (alpha, rho,
+   steps) against ``svm_smo_plain``, each timed beside its bound; then
+   ``ToolRequestManager(store, device="cuda")`` of each method over phase
+   10's store with the launch counters at 0 just before, held against
+   ``device="cpu"`` (the forest exactly, the SVM by ``ovo_hold``); one
+   ``classify: {...}`` line a population.
+19. Print ``kernels: ...``, the per-kernel JSON record (the nine kernels
    and row 10, ``scripts/cc_kernel_shootout.py``, row 2's function timed
    in the A/B harness; rows 2-4 add ``spatial_launches``, their launches
    on phase 9's secondary run, and rows 2-3 ``spatial``, the kernel at
    the mosaic's shape; rows 1-4 add ``serve_launches``, their launches in
    phase 14's restarted daemon, and ``profile_launches``, phase 15's
    traced submit's; rows 1-9 add ``sweep_launches``, each config's
-   launches in one ``launch()`` of phase 17), and as the last line
-   ``{"ok": true, "device": {...}}``.
+   launches in one ``launch()`` of phase 17; then ``forest_predict`` and
+   ``svm_smo``, phase 18's kernels, their launches those of the tool's
+   run on the card), and as the last line ``{"ok": true, "device":
+   {...}}``.
 
-The script imports nothing of JAX or of ``tmlibrary_tpu``.
+The script imports nothing of JAX, of ``tmlibrary_tpu`` or of
+scikit-learn.
 """
 
 from __future__ import annotations
@@ -583,6 +602,35 @@ def decision_hold(name, got, want, scores, scale, rtol=ANALYTICS_RTOL) -> int:
     if (gap > rtol * np.asarray(scale)[rows]).any():
         raise SmokeFailure(f"{name}: {len(rows)} rows decided otherwise, some away from a tie")
     return int(len(rows))
+
+
+#: one-vs-one decision values of the port's SVM against the reference's
+#: (libsvm, and the card against the CPU) at the default ``tol``: libsvm
+#: stops at a KKT gap of 1e-3 and keeps its kernel cache in float32, so a
+#: pairwise decision value may move by up to about ``tol``
+SVM_TIER = 1e-3
+
+
+def ovo_hold(name, got, want, got_dec, want_dec, rtol=SVM_TIER) -> int:
+    """One-vs-one votes (a class per row) ``got`` against ``want`` by
+    :func:`decision_hold`: a row may differ only where every pair whose
+    sign differs between the two sides' decision values ``got_dec`` and
+    ``want_dec`` (N, pairs; positive votes for the pair's first class)
+    has its reference value within ``rtol`` of zero (the two choices then
+    score that margin apart); a row that differs with no such pair
+    fails."""
+    import numpy as np
+
+    got, want = np.asarray(got, np.int64), np.asarray(want, np.int64)
+    got_dec = np.asarray(got_dec, np.float64).reshape(len(got), -1)
+    want_dec = np.asarray(want_dec, np.float64).reshape(len(got), -1)
+    flipped = (got_dec > 0) != (want_dec > 0)
+    margin = np.where(flipped, np.abs(want_dec), -np.inf).max(axis=1, initial=-np.inf)
+    margin[~flipped.any(axis=1)] = np.inf
+    scores = np.zeros((len(got), int(max(got.max(initial=0), want.max(initial=0))) + 1))
+    scores[np.arange(len(got)), got] = margin
+    scores[np.arange(len(got)), want] = 0.0
+    return decision_hold(name, got, want, scores, np.ones(len(got)), rtol)
 
 
 def subspace_cos(a, b) -> float:
@@ -1521,6 +1569,8 @@ def main() -> int:
 
     # seconds of each phase, printed before the total
     laps, last = {}, [time.perf_counter()]
+    # phase 6's feature shards, which phases 10 and 18 query
+    analytics_root = Path(__file__).resolve().parent / "build" / f"phase10.{os.getpid()}"
 
     def lap(name: str) -> None:
         now = time.perf_counter()
@@ -1719,7 +1769,6 @@ def main() -> int:
         lap("phase 5")
 
         # ---------------------------------------------------------- phase 6
-        analytics_root = Path(__file__).resolve().parent / "build" / f"phase10.{os.getpid()}"
         phase_engine(torch, wrappers, card, on_chip, keep_features=analytics_root)
         lap("phase 6")
 
@@ -1754,10 +1803,7 @@ def main() -> int:
         lap("phase 9")
 
         # ---------------------------------------------------------- phase 10
-        try:
-            phase_analytics(torch, analytics_root, card)
-        finally:
-            shutil.rmtree(analytics_root, ignore_errors=True)
+        phase_analytics(torch, analytics_root, card)
         lap("phase 10")
 
         # ---------------------------------------------------------- phase 11
@@ -1796,14 +1842,21 @@ def main() -> int:
             if r["name"] in wrappers:
                 r["sweep_launches"] = {c: n.get(r["name"], 0) for c, n in swept.items()}
         lap("phase 17")
-        if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules:
-            raise SmokeFailure("JAX or the JAX package was imported")
+
+        # ---------------------------------------------------------- phase 18
+        records += phase_classify(torch, analytics_root, card, bw)
+        lap("phase 18")
+        if "jax" in sys.modules or "tmlibrary_tpu" in sys.modules \
+                or "sklearn" in sys.modules:
+            raise SmokeFailure("JAX, the JAX package or scikit-learn was imported")
     except Exception as e:  # the smoke's boundary: report and exit non-zero
         import traceback
 
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(analytics_root, ignore_errors=True)
 
     print("phase seconds: " + json.dumps(laps))
     print(f"total: {time.perf_counter() - started:.1f} s of command")
@@ -2562,12 +2615,14 @@ def phase_engine(torch, wrappers, card, on_chip, keep_features: Path | None = No
     process with the launch counters set to 0 just before and read just
     after, then ``workflow resume`` on the finished ledger (nothing may
     re-run or launch) and ``workflow status``.  Holds: the shards read
-    back equal the rows persisted; the same description through ``workflow
-    submit --device cpu`` over a copy of the images gives the ledger's
-    (event, step, batch) sequence, statistics by ``STATS_TIERS``, shifts
-    exactly, and on jterator's batch 0 (64 sites) labels, counts and
-    ``Morphology_solidity`` exactly, the other features by
-    ``corrected_tiers(CARD_TIERS)``.  The directory is removed at the end; the
+    back equal the rows persisted; corilla and align through ``workflow
+    submit --device cpu`` over a copy of the images give those steps'
+    (event, step, batch) sequence of the ledger, statistics by
+    ``STATS_TIERS`` and shifts exactly; jterator's first and last batches
+    of :data:`PROJECT_CPU_BATCH` sites on the CPU give labels, counts and
+    ``Morphology_solidity`` exactly, the other features counted against
+    ``corrected_tiers(CARD_TIERS)``, and over the card's statistics within
+    ``CARD_TIERS``.  The directory is removed at the end; the
     card run's manifest and feature shards are copied to ``keep_features``
     first, where given (phase 10 queries them)."""
     import threading
@@ -2578,7 +2633,7 @@ def phase_engine(torch, wrappers, card, on_chip, keep_features: Path | None = No
     from tmlibrary_tpu_torch.io import parquet
     from tmlibrary_tpu_torch.models.experiment import grid_experiment
     from tmlibrary_tpu_torch.models.store import ExperimentStore
-    from tmlibrary_tpu_torch.workflow import engine
+    from tmlibrary_tpu_torch.workflow import engine, get_step
     from tmlibrary_tpu_torch.workflow.steps import jterator as jterator_step
 
     base = Path(__file__).resolve().parent / "build" / f"phase6.{os.getpid()}"
@@ -2748,17 +2803,27 @@ def phase_engine(torch, wrappers, card, on_chip, keep_features: Path | None = No
         print(f"  resume on the finished ledger: nothing re-ran or launched ({resume_s:.3f} s); "
               "status:\n" + "\n".join("    " + line for line in status.splitlines()))
 
-        # the same description on the CPU
+        # the same description on the CPU, cut as phase 11 cuts its hold:
+        # corilla and align through `workflow submit --device cpu`, then
+        # jterator's first and last batches of PROJECT_CPU_BATCH sites
         copy_part(store.root, base / "cpu", "images")
         cpu = ExperimentStore.open(base / "cpu")
         (cpu.root / "c4.pipe.json").write_text(json.dumps(pipe))
+        cpu_desc = base / "workflow_cpu.json"
+        engine.WorkflowDescription.canonical({
+            "corilla": {},
+            "align": {"ref_cycle": 0, "batch_size": STEP_BATCH},
+        }).save(cpu_desc)
         capacity.reset_routing_history()
         t0 = time.perf_counter()
         run_cli(cli, ["workflow", "submit", "--root", str(cpu.root), "--description",
-                      str(desc_path), "--device", "cpu"])
+                      str(cpu_desc), "--device", "cpu"])
         cpu_s = time.perf_counter() - t0
-        if ledger_sequence(engine, cpu.root) != before:
-            raise SmokeFailure("engine: the CPU run's ledger events differ from the card's")
+        held_steps = [e for e in before if e[1] in ("corilla", "align")]
+        if [e for e in ledger_sequence(engine, cpu.root)
+                if e[1] in ("corilla", "align")] != held_steps:
+            raise SmokeFailure("engine: the CPU run's corilla/align ledger events differ from "
+                               "the card's")
         errs = {}
         for cycle in range(2):
             for ch in range(len(channels)):
@@ -2772,33 +2837,42 @@ def phase_engine(torch, wrappers, card, on_chip, keep_features: Path | None = No
                         torch.from_numpy(want[k]), tier))
         if not np.array_equal(store.read_shifts(1), cpu.read_shifts(1)):
             raise SmokeFailure("engine: the CPU's shifts differ from the card's")
-        sites = json.loads((store.workflow_dir / "jterator" / "batch_000.json").read_text())[
-            "sites"]
-        # batch 0 as the CPU run wrote it, each side corrected with its own
-        # statistics: labels, counts and solidity exact; the features it
-        # puts outside the corrected tiers are counted (an intensity
-        # standard deviation's cancellation magnifies the statistics'
-        # ulps by (mean / std)^2)
+        # each side corrected with its own statistics: labels, counts and
+        # solidity exact; the features it puts outside the corrected tiers
+        # are counted (an intensity standard deviation's cancellation
+        # magnifies the statistics' ulps by (mean / std)^2)
+        capacity.reset_routing_history()
+        t0 = time.perf_counter()
+        jt = get_step("jterator")(cpu, device="cpu")
+        jt.init({"pipe": "c4.pipe.json", "cycle": 1, "batch_size": PROJECT_CPU_BATCH,
+                 "max_objects": MAX_OBJECTS})
+        held = [0, len(jt.list_batches()) - 1]
+        sites: list[int] = []
+        for i in held:
+            jt.run(i)
+            sites += list(jt.load_batch(i)["sites"])
+        jt_s = time.perf_counter() - t0
         outside, worst_own = hold_batch(store, cpu, sites, corrected_tiers(CARD_TIERS),
                                         gate=False)
-        # batch 0 again on the CPU over the card's statistics (the CPU
-        # engine's batch file, `jterator run --job 0`): every feature by
-        # CARD_TIERS
+        # the same batches again over the card's statistics, as planned (a
+        # second init would plan them anew): every feature by CARD_TIERS
         copy_part(store.root, cpu.root, "illumstats")
         t0 = time.perf_counter()
-        run_cli(cli, ["jterator", "run", "--root", str(cpu.root), "--device", "cpu",
-                      "--job", "0"])
+        jt = get_step("jterator")(cpu, device="cpu")
+        for i in held:
+            jt.run(i)
         rerun_s = time.perf_counter() - t0
         _, worst = hold_batch(store, cpu, sites, CARD_TIERS, gate=True)
-        print(f"  CPU hold: the same description on the CPU in {cpu_s:.2f} s: ledger events "
-              f"equal ({len(before)}), corilla n/percentiles exact, largest |card - cpu| "
+        print(f"  CPU hold: corilla and align on the CPU in {cpu_s:.2f} s: ledger events "
+              f"equal ({len(held_steps)}), corilla n/percentiles exact, largest |card - cpu| "
               + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-              + f"; shifts exact; batch 0 ({len(sites)} sites): labels, counts and "
-              "Morphology_solidity exact; features with each side's own statistics: "
-              f"{outside} values outside corrected CARD_TIERS, largest |card - cpu| by family "
+              + f"; shifts exact; jterator's first and last batches of {PROJECT_CPU_BATCH} "
+              f"({len(sites)} sites, {jt_s:.2f} s): labels, counts and Morphology_solidity "
+              f"exact; features with each side's own statistics: {outside} values outside "
+              "corrected CARD_TIERS, largest |card - cpu| by family "
               + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst_own.items()))
-              + f"; batch 0 rerun on the CPU over the card's statistics ({rerun_s:.2f} s): "
-              "features within CARD_TIERS, largest |card - cpu| by family "
+              + f"; rerun over the card's statistics ({rerun_s:.2f} s): features within "
+              "CARD_TIERS, largest |card - cpu| by family "
               + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())))
         if keep_features is not None:
             shutil.rmtree(keep_features, ignore_errors=True)
@@ -7263,6 +7337,258 @@ def phase_sweep(torch, wrappers, card) -> dict:
         shutil.rmtree(work, ignore_errors=True)
     print(f"  phase 17: {time.perf_counter() - started:.1f} s on {card}")
     return launched
+
+
+#: phase 18: the populations a user's classification runs over
+#: (``benchmarks.clustered_population``, 32 features, the class of an
+#: object its blob id mod 3) and the clicked set (200 seeded examples a
+#: class, 600 in all)
+CLASSIFY_SIZES, CLASSIFY_CLASSES, CLASSIFY_PER_CLASS = (100_000, 1_000_000), 3, 200
+#: phase 18's end-to-end run over phase 10's store: seeded examples a class
+#: of the nuclei's area tertiles
+CLASSIFY_STORE_PER_CLASS = 100
+#: float64 outside the tensor cores, H100 SXM (NVIDIA data sheet): the
+#: forest's comparisons and sums and the SMO steps are float64
+FP64_OPS_PER_S = 34e12
+
+
+def node_depths(flat) -> "np.ndarray":
+    """Depth of every node of a flattened forest (roots at 0)."""
+    import numpy as np
+
+    depth = np.zeros(len(flat.left), np.int64)
+    frontier = flat.roots.astype(np.int64)
+    while frontier.size:
+        inner = frontier[flat.left[frontier] != -1]
+        for side in (flat.left, flat.right):
+            depth[side[inner]] = depth[inner] + 1
+        frontier = np.concatenate([flat.left[inner], flat.right[inner]]).astype(np.int64)
+    return depth
+
+
+def forest_record(torch, forest, xg, flat, card, bw) -> dict:
+    """The forest kernel on the card at ``xg``'s shape: classes and
+    probabilities bit for bit against ``forest_predict_plain`` on the
+    card, the launch's ms (classes only, as the tool calls it), the plain
+    version's ms, and the bound: the bytes (x, the nodes, the classes)
+    over the HBM rate against the float64 work this data needs (one
+    comparison an inner node visited, the leaves' sums and the division)
+    over the float64 rate."""
+    import numpy as np
+
+    tensors = flat.tensors(xg.device)
+    held = forest.forest_predict_launcher(xg, flat, True, tensors=tensors)
+    got = held()
+    t0 = time.perf_counter()
+    want, want_p = forest.forest_predict_plain(xg, flat)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(got, want) and torch.equal(held.proba, want_p)):
+        raise SmokeFailure("forest_predict: the kernel differs from forest_predict_plain on "
+                           "the card (classes and probabilities must be bit-equal)")
+    depth = torch.from_numpy(node_depths(flat)).to(xg.device)
+    visits = sum(int(depth.index_select(0, leaf).sum())
+                 for leaf in forest.forest_leaves_plain(xg, flat))
+    launch = forest.forest_predict_launcher(xg, flat, False, tensors=tensors)
+    ms = cuda_ms(torch, launch, 5)
+    n, c = xg.shape[0], flat.n_classes
+    nbytes = xg.numel() * 4 + flat.nbytes() + n * 8
+    ops = visits + n * flat.n_trees * c + n * c
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / FP64_OPS_PER_S * 1e3
+    return dict(name="forest_predict", route="cuda",
+                source="tmlibrary_tpu_torch/csrc/forest_predict.cu",
+                replaces="none (tmlibrary_tpu/tools/classification.py:188-191 predicts "
+                         "with scikit-learn on the host)",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops
+                else "operations", library_ms=None,
+                shape=[int(n), int(xg.shape[1])], trees=flat.n_trees, nodes=len(flat.left),
+                visits=visits, card=card)
+
+
+def smo_record(torch, svm, x_train, y_train, card, bw) -> dict:
+    """The SMO kernel on the card on the training set's Gram matrix:
+    alpha and rho bit for bit against ``svm_smo_plain`` (on the CPU, the
+    same Gram matrix), the launch's ms, the plain version's ms, and the
+    bound: the Gram matrix, index tables and outputs over the HBM rate
+    against the float64 work of the steps taken (about 12 operations an
+    entry a step) over the float64 rate."""
+    import numpy as np
+
+    classes, y_enc = np.unique(y_train, return_inverse=True)
+    xt = torch.from_numpy(np.asarray(x_train, np.float64)).cuda()
+    gram = svm.rbf_kernel(xt, xt, svm.svc_gamma(x_train), same=True)
+    problems = svm.ovo_problems(y_enc, len(classes))
+    launch = svm.svm_smo_launcher(gram, problems)
+    alpha = launch()
+    t0 = time.perf_counter()
+    p_alpha, p_rho, p_steps = svm.svm_smo_plain(gram, problems)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (torch.equal(alpha.cpu(), p_alpha) and torch.equal(launch.rho.cpu(), p_rho)
+            and torch.equal(launch.steps.cpu(), p_steps)):
+        raise SmokeFailure("svm_smo: alpha, rho or the steps differ from svm_smo_plain "
+                           "(must be bit-equal)")
+    ms = cuda_ms(torch, launch, 3, warmup=1)
+    lens = np.diff(problems.offsets)
+    nbytes = gram.numel() * 8 + problems.rows.nbytes * 2 + problems.offsets.nbytes \
+        + len(problems.rows) * 8 + len(lens) * 16
+    ops = 12 * int((p_steps.numpy() * lens).sum())
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / FP64_OPS_PER_S * 1e3
+    return dict(name="svm_smo", route="cuda", source="tmlibrary_tpu_torch/csrc/svm_smo.cu",
+                replaces="none (tmlibrary_tpu/tools/classification.py:178-184 trains "
+                         "scikit-learn's SVC on the host)",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops
+                else "operations", library_ms=None,
+                pairs=len(lens), rows=int(lens.sum()), steps=p_steps.tolist(), card=card)
+
+
+def store_examples(features_root: Path) -> list[dict]:
+    """Seeded training examples over phase 10's nuclei: the area's
+    tertiles as three classes, :data:`CLASSIFY_STORE_PER_CLASS` each."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch.analytics.store import FeatureStore
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+
+    fs = FeatureStore.ensure(ExperimentStore.open(features_root), "nuclei")
+    ids, area = fs.identity(), fs.column("Morphology_area")
+    cuts = np.quantile(area, [1 / 3, 2 / 3])
+    tertile = np.digitize(area, cuts)
+    rng = np.random.default_rng(SEED)
+    examples = []
+    for c, name in enumerate(("small", "medium", "large")):
+        members = np.flatnonzero(tertile == c)
+        for i in rng.choice(members, min(CLASSIFY_STORE_PER_CLASS, len(members)),
+                            replace=False):
+            examples.append({"site_index": int(ids["site_index"][i]),
+                             "label": int(ids["label"][i]), "class": name})
+    return examples
+
+
+def phase_classify(torch, features_root: Path, card: str, bw: float) -> list[dict]:
+    """Phase 18: classification on the card.  For each population of
+    :data:`CLASSIFY_SIZES` objects (``clustered_population_with_blobs``,
+    32 features, 3 classes from the blob ids, 600 seeded examples) and
+    each method: the training seconds (the forest's host induction; the
+    SVM's Gram matrix and SMO launch), the objects/s of predicting every
+    object on the card, and the kernel's launches.  Holds at the largest
+    population: ``forest_predict`` against its plain version on the card
+    (bit for bit) and ``svm_smo`` against its plain version (alpha, rho
+    and steps bit for bit).  End to end: ``ToolRequestManager(store,
+    device="cuda")`` over phase 10's store for each method, with the
+    launch counters at 0 just before and read just after (each kernel
+    launched), held against the same request with ``device="cpu"``: the
+    forest exactly, the SVM by ``ovo_hold`` on both sides' decision values.
+    Returns the two kernels' records."""
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks
+    from tmlibrary_tpu_torch.analytics.store import FeatureStore
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.tools import ToolRequestManager, forest, svm
+
+    started = time.perf_counter()
+    print(f"phase 18: classification on the card (randomforest, svm); times on {card}")
+    records = {}
+    for n in CLASSIFY_SIZES:
+        x, blob = benchmarks.clustered_population_with_blobs(n)
+        y = blob % CLASSIFY_CLASSES
+        rng = np.random.default_rng(SEED)
+        rows = np.concatenate([rng.choice(np.flatnonzero(y == c), CLASSIFY_PER_CLASS,
+                                          replace=False) for c in range(CLASSIFY_CLASSES)])
+        x_train, y_train = x[rows], y[rows]
+        xg = torch.from_numpy(x).cuda()
+        line = {"n": n, "features": int(x.shape[1]), "examples": len(rows)}
+        # the forest: host induction, the kernel over every object
+        t0 = time.perf_counter()
+        fitted = forest.fit_forest(x_train, y_train)
+        flat = fitted.flat()
+        train_s = time.perf_counter() - t0
+        forest.forest_predict.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx, _ = forest.forest_predict(xg, flat)
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+        line["randomforest"] = {
+            "train_s": train_s, "objects_per_s": n / pred_s,
+            "launches": forest.forest_predict.launches, "nodes": len(flat.left),
+            "accuracy_vs_blob_class": float((idx.cpu().numpy() == y).mean())}
+        # the SVM: Gram matrix and SMO on the card, the decision over every object
+        svm.svm_smo.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = svm.fit_svc(x_train, y_train, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cls = svm.svc_predict(model, xg)
+        torch.cuda.synchronize()
+        pred_s = time.perf_counter() - t0
+        line["svm"] = {"train_s": train_s, "objects_per_s": n / pred_s,
+                       "launches": svm.svm_smo.launches, "support_vectors": len(model.support),
+                       "smo_steps": model.steps.tolist(),
+                       "accuracy_vs_blob_class": float((cls.cpu().numpy() == y).mean())}
+        for method in ("randomforest", "svm"):
+            if line[method]["launches"] != 1:
+                raise SmokeFailure(f"classify N={n} {method}: {line[method]['launches']} "
+                                   "kernel launches, expected 1")
+        if n == CLASSIFY_SIZES[-1]:
+            records["forest_predict"] = forest_record(torch, forest, xg, flat, card, bw)
+            records["svm_smo"] = smo_record(torch, svm, x_train, y_train, card, bw)
+        print("classify: " + json.dumps({**line, "card": card}))
+        del xg
+    for r in records.values():
+        print(f"  {r['name']}: {r['ms']:.4f} ms a launch (plain {r['plain_ms']:.1f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}, library none), bit-equal to its "
+              f"plain version; on {card}")
+
+    # end to end over phase 10's store, on the card and on the CPU
+    examples = store_examples(features_root)
+    store = ExperimentStore.open(features_root)
+    n_objects = FeatureStore.ensure(store, "nuclei").n_objects
+    for method, wrapper in (("randomforest", forest.forest_predict), ("svm", svm.svm_smo)):
+        payload = {"objects_name": "nuclei", "method": method, "training_examples": examples}
+        wrapper.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_res = ToolRequestManager(store, device="cuda").submit("classification", payload)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = wrapper.launches
+        if launches < 1:
+            raise SmokeFailure(f"classification {method}: the tool on the card launched "
+                               f"{wrapper.__name__} {launches} times")
+        records["forest_predict" if method == "randomforest" else "svm_smo"]["launches"] = \
+            launches
+        t0 = time.perf_counter()
+        cpu_res = ToolRequestManager(store, device="cpu").submit("classification", payload)
+        cpu_s = time.perf_counter() - t0
+        got, want = card_res.values["value"], cpu_res.values["value"]
+        if method == "randomforest":
+            if not np.array_equal(got, want) or card_res.attributes != cpu_res.attributes:
+                raise SmokeFailure("classification randomforest: the card's classes or "
+                                   "attributes differ from the CPU's (exact)")
+            flips = 0
+        else:
+            _, x, _ = FeatureStore.ensure(store, "nuclei").standardized()
+            lookup = {t: i for i, t in enumerate(zip(card_res.values["site_index"].tolist(),
+                                                     card_res.values["label"].tolist()))}
+            rows = [lookup[(e["site_index"], e["label"])] for e in examples]
+            classes = card_res.attributes["classes"]
+            y_rows = [classes.index(e["class"]) for e in examples]
+            card_dec, cpu_dec = (
+                svm.svc_decision(svm.fit_svc(x[rows], y_rows, device=d), x).cpu().numpy()
+                for d in ("cuda", "cpu"))
+            flips = ovo_hold("classification svm card vs cpu", got, want, card_dec, cpu_dec)
+        print(f"  tool over phase 10's store ({n_objects} nuclei, {len(examples)} examples): "
+              f"{method} on the card {card_s:.3f} s ({launches} launch of "
+              f"{wrapper.__name__}), on the CPU {cpu_s:.3f} s; classes "
+              + ("exact" if method == "randomforest" else f"by ovo_hold, {flips} rows differ")
+              + f"; predicted {card_res.attributes['class_counts']['predicted']}; on {card}")
+    print(f"  phase 18: {time.perf_counter() - started:.1f} s on {card}")
+    return [records["forest_predict"], records["svm_smo"]]
 
 
 if __name__ == "__main__":

@@ -1036,11 +1036,20 @@ def clustered_population(n: int, n_features: int = ANALYTICS_FEATURES, seed: int
                          ) -> np.ndarray:
     """The bench's index-vs-brute population: round(sqrt(n)) (at least
     8) Gaussian blobs of spread 0.15."""
+    return clustered_population_with_blobs(n, n_features, seed)[0]
+
+
+def clustered_population_with_blobs(n: int, n_features: int = ANALYTICS_FEATURES,
+                                    seed: int = 7) -> tuple[np.ndarray, np.ndarray]:
+    """:func:`clustered_population` (N, F) float32 and the blob each
+    object was drawn from (N,) int64; the classification phase of the
+    chip smoke takes its classes from the blob ids."""
     rng = np.random.default_rng(seed)
     n_blobs = max(8, int(round(np.sqrt(n))))
     centers = rng.normal(size=(n_blobs, n_features))
     labels = rng.integers(0, n_blobs, size=n)
-    return (centers[labels] + 0.15 * rng.normal(size=(n, n_features))).astype(np.float32)
+    x = (centers[labels] + 0.15 * rng.normal(size=(n, n_features))).astype(np.float32)
+    return x, labels.astype(np.int64)
 
 
 def analytics_runners(x, site_index, centroids, device) -> dict:

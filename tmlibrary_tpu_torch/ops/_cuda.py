@@ -48,6 +48,8 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
+_L = ctypes.c_longlong
 #: C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES = {
     # mask, out, B, H, W, connectivity, stream
@@ -88,6 +90,12 @@ SIGNATURES = {
     "tm_watershed3d_flood": [*[_P] * 7, *[_I] * 5, _P],
     # intensity, seeds, mask, scratch, out, B, Z, H, W, n_levels, stream
     "tm_watershed3d_flood_global": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, feature, threshold, left, right, missing_left, value, roots, proba,
+    # pred, N, F, C, T, write_proba, stream
+    "tm_forest_predict": [*[_P] * 10, *[_I] * 5, _P],
+    # K, rows, y, offsets, grad, rho, steps, alpha, n, pairs, C, eps,
+    # max_iter, stream
+    "tm_svm_smo": [*[_P] * 8, _I, _I, _D, _D, _L, _P],
 }
 
 _LIB: "ctypes.CDLL | None" = None

@@ -14,7 +14,10 @@ Tools run on a device (``Tool(store, device="cuda")``, the card unless
 lifecycle in ``<store>/tools/<request>/request.json`` (``submitted`` ->
 ``running`` -> ``done`` | ``failed``) with the device it runs on;
 :meth:`ToolRequestManager.submit_async` runs it as a detached
-``tmx-torch tool run-request`` process.
+``tmx-torch tool run-request`` process.  ``request.json`` and
+``result.json`` are replaced by rename (:mod:`~tmlibrary_tpu_torch.atomicio`),
+so a reader polling a request that another process runs sees the old
+state or the new one, never a half-written file.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Any, Type
 
 import numpy as np
 
+from tmlibrary_tpu_torch.atomicio import atomic_write_text
 from tmlibrary_tpu_torch.errors import RegistryError
 from tmlibrary_tpu_torch.io import parquet
 from tmlibrary_tpu_torch.models.store import ExperimentStore
@@ -87,7 +91,7 @@ class ToolResult:
         d = Path(directory)
         d.mkdir(parents=True, exist_ok=True)
         parquet.write_table(d / "values.parquet", self.values)
-        (d / "result.json").write_text(json.dumps({
+        atomic_write_text(d / "result.json", json.dumps({
             "tool": self.tool,
             "objects_name": self.objects_name,
             "layer_type": self.layer_type,
@@ -235,7 +239,7 @@ class ToolRequestManager:
         path = self._request_dir(request_id) / "request.json"
         state = json.loads(path.read_text()) if path.exists() else {}
         state.update(updates)
-        path.write_text(json.dumps(state, default=str, sort_keys=True))
+        atomic_write_text(path, json.dumps(state, default=str, sort_keys=True))
         return state
 
     def create_request(self, tool_name: str, payload: dict[str, Any]) -> str:

@@ -8,13 +8,18 @@ Counterpart: ``tmlibrary_tpu/tools/classification.py``.  Methods:
 - ``knn``: each object takes the majority class among the labelled
   objects of its k-neighbourhood over the store graph (through the
   analytics index dispatcher); objects with no labelled neighbour take
-  the nearest training example's class.
+  the nearest training example's class;
+- ``randomforest``: the reference's ``RandomForestClassifier(
+  n_estimators=100, random_state=0)`` reproduced tree for tree on the
+  host (:mod:`.forest`), every object predicted by the forest kernel on
+  ``device``;
+- ``svm``: the reference's ``SVC(kernel="rbf", gamma="scale")``, its
+  one-vs-one duals solved by the SMO kernel on ``device`` and every
+  object decided there by one-vs-one votes (:mod:`.svm`).
 
-``svm`` and ``randomforest`` train scikit-learn models in the reference;
-the port's target machine has no scikit-learn and the port does not
-depend on it, so those two methods raise :class:`NotSupportedError`.
-``select_k_best`` keeps the training classes' top ANOVA F-score features
-first.
+The reference trains the last two with scikit-learn; the port runs
+without it.  ``select_k_best`` keeps the training classes' top ANOVA
+F-score features first.
 """
 
 from __future__ import annotations
@@ -25,10 +30,10 @@ import torch
 from tmlibrary_tpu_torch.analytics import ops
 from tmlibrary_tpu_torch.device import resolve_device
 from tmlibrary_tpu_torch.errors import NotSupportedError
+from tmlibrary_tpu_torch.tools import forest, svm
 from tmlibrary_tpu_torch.tools.base import Tool, ToolResult, register_tool
 
-#: methods the reference runs through scikit-learn
-SKLEARN_METHODS = ("svm", "randomforest")
+METHODS = ("logreg", "knn", "randomforest", "svm")
 
 
 def softmax_train(x, y, n_classes: int, n_iter: int = 300, lr: float = 0.1,
@@ -84,18 +89,15 @@ def _kbest_anova(x_train: np.ndarray, y_train: np.ndarray, n_classes: int, k: in
 class Classification(Tool):
     """Supervised per-object classification.  Payload: ``objects_name``,
     ``training_examples`` ([{site_index, label, class}, ...]), optional
-    ``method`` (``logreg`` or ``knn``), ``features``, ``select_k_best``,
-    and for ``knn`` the neighbourhood ``k`` (10) and ``index``/``top_p``.
-    Reports the training accuracy and per-class counts."""
+    ``method`` (``logreg``, ``knn``, ``randomforest`` or ``svm``),
+    ``features``, ``select_k_best``, and for ``knn`` the neighbourhood
+    ``k`` (10) and ``index``/``top_p``.  Reports the training accuracy and
+    per-class counts."""
 
     def process(self, payload: dict) -> ToolResult:
         objects_name = payload["objects_name"]
         method = payload.get("method", "logreg")
-        if method in SKLEARN_METHODS:
-            raise NotSupportedError(
-                f"classification method '{method}' trains a scikit-learn model in the JAX "
-                "package; the port runs without scikit-learn (use logreg or knn)")
-        if method not in ("logreg", "knn"):
+        if method not in METHODS:
             raise NotSupportedError(f"unknown classification method '{method}'")
         features = payload.get("features")
         examples = payload.get("training_examples") or []
@@ -147,6 +149,16 @@ class Classification(Tool):
                       + np.sum(x_train * x_train, axis=1)[None])
                 pred[bare] = y_train[np.argmin(d2, axis=1)]
             pred = pred.astype(np.int64)
+            pred_train = pred[rows]
+        elif method == "randomforest":
+            fitted = forest.fit_forest(x_train, y_train)
+            dev = resolve_device(self.device)
+            idx, _ = forest.forest_predict(ops.as_tensor(x, dev), fitted.flat())
+            pred = fitted.classes[idx.cpu().numpy()]
+            pred_train = pred[rows]
+        elif method == "svm":
+            model = svm.fit_svc(x_train, y_train, device=resolve_device(self.device))
+            pred = model.classes[svm.svc_predict(model, x).cpu().numpy()]
             pred_train = pred[rows]
         else:
             dev = resolve_device(self.device)
