@@ -5536,6 +5536,120 @@ def phase_containers(torch, wrappers, card, device: str = "cuda") -> dict:
         shutil.rmtree(base, ignore_errors=True)
 
 
+# ------------------------------------------- phase 13's decode well
+#: the committed JPEG-family files of phase 13's decode well and their
+#: manifest (the reference's decode of each), written by
+#: tests/make_decode_well.py with cv2's encoder, which the card's
+#: machine does not have
+DECODE_WELL_DIR = Path(__file__).resolve().parent / "tests" / "data" / "decode_well"
+#: the decode well's files: (site, channel) -> (file, variant); one well
+#: of 2x2 sites, DAPI and Actin, each file another variant of what the
+#: port decodes where the reference calls cv2
+DECODE_WELL = {
+    (0, "DAPI"): ("A01_s0_DAPI.tif", "tiled 16-bit grey, deflate, predictor 2, BigTIFF"),
+    (0, "Actin"): ("A01_s0_Actin.tif", "planar 16-bit RGB, strips of 40 rows"),
+    (1, "DAPI"): ("A01_s1_DAPI.tif", "tiled 8-bit chunky RGBA, unassociated alpha, LZW"),
+    (1, "Actin"): ("A01_s1_Actin.tif", "float32 grey, deflate, predictor 3"),
+    (2, "DAPI"): ("A01_s2_DAPI.jpg", "4:2:0 colour baseline JPEG"),
+    (2, "Actin"): ("A01_s2_Actin.jpg", "progressive grey JPEG"),
+    (3, "DAPI"): ("A01_s3_DAPI.jpg", "progressive 4:2:2 colour JPEG, restart interval 4"),
+    (3, "Actin"): ("A01_s3_Actin.tif", "tiled YCbCr 2x2 JPEG-in-TIFF with JPEGTables"),
+}
+#: metaconfig's ``pattern`` for the decode well (the default filename
+#: style with the ``.jpg`` suffix beside ``.tif``)
+DECODE_WELL_PATTERN = (r"(?P<well>[A-Z]{1,2}\d{2})_s(?P<site>\d+)_(?P<channel>[A-Za-z0-9\-]+)"
+                       r"\.(?:tif|jpg)$")
+
+
+def decode_well_colour(v):
+    """The colour the decode well gives a grey plane ``v`` (uint8 or
+    uint16): R = v, G = 3v/4, B = v/2, integer division."""
+    import numpy as np
+
+    x = np.asarray(v).astype(np.int64)
+    return [(c).astype(np.asarray(v).dtype) for c in (x, x * 3 // 4, x // 2)]
+
+
+def gray15(b, g, r):
+    """``cv2.cvtColor(BGR2GRAY)`` of 8- or 16-bit samples: 15-bit weights,
+    rounded (integers throughout)."""
+    import numpy as np
+
+    b, g, r = (np.asarray(c).astype(np.int64) for c in (b, g, r))
+    return (b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15
+
+
+def decode_well_tiffs(cw, src: Path, px: dict) -> dict:
+    """Write the decode well's four TIFF variants from sites 0 and 1 of
+    ``px`` into ``src`` with ``cw.write_tiff``; ``(site, channel) -> the
+    plane imextract must store`` (uint16), colour through :func:`gray15`."""
+    import numpy as np
+
+    size = px["DAPI"].shape[-1]
+    out = {}
+    p = px["DAPI"][0]
+    cw.write_tiff(src / DECODE_WELL[0, "DAPI"][0], [p], tile=(64, 64), compression=8,
+               predictor=2, bigtiff=True)
+    out[0, "DAPI"] = p
+    r, g, b = decode_well_colour(px["Actin"][0])
+    cw.write_tiff(src / DECODE_WELL[0, "Actin"][0], [np.stack([r, g, b], -1)], planar=2,
+               rows_per_strip=40, byteorder=">")
+    out[0, "Actin"] = gray15(b, g, r).astype(np.uint16)
+    v8 = np.minimum(px["DAPI"][1] >> 4, 255).astype(np.uint8)
+    r, g, b = decode_well_colour(v8)
+    yy, xx = np.mgrid[0:size, 0:size]
+    a = (255 - (yy + xx) % 5).astype(np.uint8)
+    cw.write_tiff(src / DECODE_WELL[1, "DAPI"][0], [np.stack([r, g, b, a], -1)], tile=(48, 80),
+               compression=5, extra_samples=[2])
+    pre = [(c.astype(np.int64) * a + 127) // 255 for c in (r, g, b)]  # libtiff premultiplies
+    out[1, "DAPI"] = gray15(pre[2], pre[1], pre[0]).astype(np.uint16)
+    q = px["Actin"][1]
+    cw.write_tiff(src / DECODE_WELL[1, "Actin"][0], [q.astype(np.float32)], rows_per_strip=32,
+               compression=8, predictor=3)
+    out[1, "Actin"] = q
+    return out
+
+
+#: the side of the large pages whose host decode phase 13 times
+LARGE_PAGE = 2048
+
+
+def decode_large_pages(cw, src: Path, px: dict, extractor) -> dict:
+    """Host decode rates (Mpix/s, imextract's ``_read_plane``, one thread,
+    best of 3, files warm) of one :data:`LARGE_PAGE`-square page in three
+    layouts: 8-bit RGB in 64x64 tiles, uncompressed and deflate with
+    predictor 2 (``readers.decode_tiff_page``), and 16-bit grey in strips
+    of 64 rows (the C++ grey reader), each held to its written pixels."""
+    import numpy as np
+
+    reps = LARGE_PAGE // px["DAPI"].shape[-1]
+    grey = np.tile(px["DAPI"][0], (reps, reps))
+    r, g, b = decode_well_colour(np.minimum(grey >> 4, 255).astype(np.uint8))
+    rgb = np.stack([r, g, b], -1)
+    pages = {
+        "RGB 64x64 tiles, none": (rgb, dict(tile=(64, 64)), gray15(b, g, r)),
+        "RGB 64x64 tiles, deflate, predictor 2": (rgb, dict(tile=(64, 64), compression=8,
+                                                           predictor=2), gray15(b, g, r)),
+        "16-bit grey strips of 64 rows, none (C++ grey reader)": (grey,
+                                                                 dict(rows_per_strip=64), grey),
+    }
+    rates = {}
+    for i, (what, (img, kw, want)) in enumerate(pages.items()):
+        path = str(src.parent / f"large_{i}.tif")
+        cw.write_tiff(path, [img], **kw)
+        got = extractor._read_plane(path, None, LARGE_PAGE, LARGE_PAGE)
+        if not np.array_equal(got, want):
+            raise SmokeFailure(f"decode: the {LARGE_PAGE}^2 page ({what}) differs from its "
+                               f"written pixels in {int((got != want).sum())} pixels")
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            extractor._read_plane(path, None, LARGE_PAGE, LARGE_PAGE)
+            best = min(best, time.perf_counter() - t0)
+        rates[f"{LARGE_PAGE}^2 {what}"] = LARGE_PAGE * LARGE_PAGE / 1e6 / best
+    return rates
+
+
 #: phase 13's jterator batch on the CPU (the first of the batches held)
 CODEC_CPU_BATCH = 16
 
@@ -5580,6 +5694,128 @@ def codec_wells(cw, px: dict, src: Path, native) -> dict:
     return out
 
 
+def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict:
+    """Phase 13's decode well: one well of 2x2 sites (sites 0-3 of
+    ``px``), DAPI and Actin, each of its 8 files another variant the
+    reference hands to cv2 (:data:`DECODE_WELL`: the TIFFs written here by
+    :func:`decode_well_tiffs`, the JPEG family from
+    :data:`DECODE_WELL_DIR`).  ``workflow submit --device`` runs
+    metaconfig (``pattern``), imextract and jterator (config 3,
+    ``max_objects=256``) with the launch counters set to 0 just before and
+    read just after (1, 1, 1, 2: one batch at ``max_objects``,
+    ``object_buckets`` off).  Holds every stored plane against the
+    written pixels (colour through :func:`gray15`) or the manifest's
+    sha256 of the reference's decode, the card's labels exactly and its
+    features within ``CARD_TIERS`` against the port's CPU run of the same
+    well.  Then times each file's host decode (imextract's
+    ``_read_plane``, one thread) and prints the ``decode:`` line."""
+    import hashlib
+
+    import numpy as np
+
+    from tmlibrary_tpu_torch import benchmarks, capacity, cli, container_writers
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import engine, get_step
+    from tmlibrary_tpu_torch.workflow.steps.imextract import ImageExtractor
+
+    started = time.perf_counter()
+    size = px["DAPI"].shape[-1]
+    src = base / "decode_well"
+    src.mkdir(parents=True)
+    expected = decode_well_tiffs(container_writers, src, {ch: px[ch][:4] for ch in ("DAPI", "Actin")})
+    manifest = json.loads((DECODE_WELL_DIR / "manifest.json").read_text())
+    digests_by_file = {e["file"]: e for e in manifest["files"]}
+    for name in digests_by_file:
+        shutil.copy(DECODE_WELL_DIR / name, src / name)
+    # one batch at max_objects (buckets off: the plate above routes its
+    # batches; a cold well's first batch would route to the smallest bucket
+    # and re-launch), so rows 1-4 launch exactly 1, 1, 1, 2
+    args = {"pipe": "cp.pipe.json", "batch_size": STEP_BATCH, "max_objects": MAX_OBJECTS,
+            "object_buckets": "off"}
+    desc = base / "decode_well.json"
+    engine.WorkflowDescription.canonical({
+        "metaconfig": {"source_dir": str(src), "pattern": DECODE_WELL_PATTERN},
+        "imextract": {}, "jterator": args}).save(desc)
+    root = base / "decode_store"
+    run_cli(cli, ["create", "--root", str(root), "--name", "decode_well"])
+    (root / "cp.pipe.json").write_text(json.dumps(benchmarks.CELL_PAINTING_PIPE))
+    capacity.reset_routing_history()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "routes"):
+            w.routes = dict.fromkeys(w.routes, 0)
+    t0 = time.perf_counter()
+    run_cli(cli, ["workflow", "submit", "--root", str(root), "--description", str(desc),
+                  "--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    submit_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    store = ExperimentStore.open(root)
+    jt = [e["result"] for e in engine.RunLedger(store.workflow_dir / "ledger.jsonl").events()
+          if e["event"] == "batch_done" and e["step"] == "jterator"]
+    expected_launches = {k: 0 for k in wrappers}
+    expected_launches.update({"fill_holes_flood": 1, "cc_min_propagate": 1,
+                              "watershed_flood": 1, "grouped_stats": 2})
+    if len(jt) != 1 or any(r.get("bucket_escalations", 0) for r in jt) or \
+            (device == "cuda" and launches != expected_launches):
+        raise SmokeFailure(f"decode well: {len(jt)} jterator batches ({jt}), launches "
+                           f"{launches}, expected {expected_launches}")
+    mapping = json.loads((store.workflow_dir / "metaconfig" / "file_mapping.json").read_text())
+    by_name = {v[0]: k for k, v in DECODE_WELL.items()}
+    if sorted(Path(e["path"]).name for e in mapping) != sorted(by_name):
+        raise SmokeFailure(f"decode well: the mapping holds {[e['path'] for e in mapping]}")
+    for e in mapping:
+        name = Path(e["path"]).name
+        plane = store.read_sites([e["site_index"]],
+                                 channel=store.experiment.channel_index(by_name[name][1]))[0]
+        if name in digests_by_file:
+            want = digests_by_file[name]
+            got = hashlib.sha256(np.ascontiguousarray(plane, np.uint8).tobytes()).hexdigest()
+            if plane.max() > 255 or got != want["sha256"] or list(plane.shape) != want["shape"]:
+                raise SmokeFailure(f"decode well: {name} ({want['variant']}) decodes to {got}, "
+                                   f"not the reference's {want['sha256']}")
+        elif not np.array_equal(plane, expected[by_name[name]]):
+            raise SmokeFailure(f"decode well: {name} ({DECODE_WELL[by_name[name]][1]}) differs "
+                               "from the written pixels in "
+                               f"{int((plane != expected[by_name[name]]).sum())} pixels")
+    copy_part(store.root, base / "decode_cpu", "images")
+    cpu = ExperimentStore.open(base / "decode_cpu")
+    (cpu.root / "cp.pipe.json").write_text(json.dumps(benchmarks.CELL_PAINTING_PIPE))
+    capacity.reset_routing_history()
+    jt_cpu = get_step("jterator")(cpu, device="cpu")
+    jt_cpu.init({**args, "object_buckets": "auto"})  # bit-identical, and fast on the CPU
+    for i in jt_cpu.list_batches():
+        jt_cpu.run(i)
+    _, worst = hold_batch(store, cpu, list(range(store.n_sites)), CARD_TIERS, gate=True)
+    # each variant's host decode, one thread, files warm in the page cache
+    rates = {}
+    reps = 5
+    for (site, ch), (name, variant) in sorted(DECODE_WELL.items()):
+        path = str(src / name)
+        ImageExtractor._read_plane(path, None, size, size)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ImageExtractor._read_plane(path, None, size, size)
+        rates[variant] = reps * size * size / 1e6 / (time.perf_counter() - t0)
+    large = decode_large_pages(container_writers, src, px, ImageExtractor)
+    well_s = time.perf_counter() - started
+    print(f"  decode well ({len(DECODE_WELL)} files, 2x2 sites of {size}x{size}, DAPI and "
+          f"Actin, {well_s:.1f} s): metaconfig (pattern) -> imextract -> jterator (config 3) "
+          f"through `workflow submit --device {device}` in {submit_s:.2f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} } over 1 batch; every plane equals the written pixels or the reference's decode "
+          "(manifest sha256); labels exact against the port's CPU run, features within "
+          "CARD_TIERS, largest |card - cpu| by family "
+          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())) + f"; on {card}")
+    line = {"files": len(DECODE_WELL), "size": size, "well_s": well_s, "submit_s": submit_s,
+            "launches": {k: v for k, v in launches.items() if v},
+            "host_decode_mpix_per_s": rates, "large_page_mpix_per_s": large, "card": card}
+    print("decode: " + json.dumps(line))
+    return line
+
+
 def phase_codecs(torch, wrappers, card, device: str = "cuda") -> dict:
     """Phase 13, ``czi_zstd_p96x4_256``: the codecs the containers need,
     on the card.  Phase 5's plate (96 wells at 2x2 sites of 256x256, DAPI
@@ -5597,11 +5833,13 @@ def phase_codecs(torch, wrappers, card, device: str = "cuda") -> dict:
     ``.ims`` with contiguous data and one chunked and deflated with chunk
     padding) through metaconfig (``auto``; the JPEG sites by ``pattern``)
     and imextract on the card: the store's planes equal the written ones,
-    the JPEG CZI's decode to :data:`JPEG_DIGEST`.  Last corilla over the
+    the JPEG CZI's decode to :data:`JPEG_DIGEST`.  Then the decode well
+    (:func:`decode_well_run`: 8 variants of what the reference hands to
+    cv2 through metaconfig, imextract and config 3).  Last corilla over the
     plate, ``export --illumstats 0`` read back with ``DatasetReader``,
     equal to ``read_illumstats``.  Prints the phase's seconds, submit
     sites/s, zstd decode MiB/s, JPEG decode Mpix/s and HDF5 chunked-gzip
-    read MiB/s, and the ``codecs:`` line.  The directory is removed at
+    read MiB/s, the ``decode:`` line, and the ``codecs:`` line.  The directory is removed at
     the end."""
     import numpy as np
 
@@ -5741,6 +5979,7 @@ def phase_codecs(torch, wrappers, card, device: str = "cuda") -> dict:
               "equal the written planes, the JPEG CZI's pixels hash to the pinned digest; "
               "imextract s: " + ", ".join(f"{k} {v:.3f}" for k, v in rates.items())
               + f"; on {card}")
+        decode = decode_well_run(torch, wrappers, card, device, px, base)
 
         # 5. codec rates on the host: every subblock of the plate, the JPEG
         # sites, the chunked Imaris file
@@ -5800,6 +6039,7 @@ def phase_codecs(torch, wrappers, card, device: str = "cuda") -> dict:
                 "step_walls_s": walls, "launches": launches, "plate_mib": mbytes,
                 "zstd_decode_mib_per_s": zstd_mib_s, "jpeg_decode_mpix_per_s": jpeg_mpix_s,
                 "hdf5_chunked_gzip_read_mib_per_s": hdf5_mib_s, "wells": sorted(others),
+                "decode_well": decode,
                 "cpu_hold_sites": len(sites), "card": card}
         print(f"  phase 13: {phase_s:.1f} s on {card}")
         print("codecs: " + json.dumps(line))

@@ -310,15 +310,16 @@ def test_a_declined_tiff_flavoured_container_takes_the_tiff_path(tmp_path):
         assert mod.read_container_plane(flex, 0) is None
     np.testing.assert_array_equal(readers.ImageReader(flex).read(0),
                                   j_readers.ImageReader(flex).read(0))
-    # an RGB STK and a chunky-RGB LSM are declined in both; the port's TIFF
-    # path reads greyscale only, where the reference's cv2 converts colour
+    # an RGB STK is declined in both and falls to the TIFF path, where the
+    # port now decodes the colour page as the reference's cv2 does (it
+    # raised "no reader of the port" until it read what cv2 reads)
     rgb = tmp_path / "rgb.stk"
     test_stk._write_rgb_stk(rgb)
     assert readers.read_container_plane(rgb, 0) is None is j_readers.read_container_plane(rgb, 0)
-    with pytest.raises(MetadataError, match="no reader of the port"):
-        readers.ImageReader(rgb).read(0)
-    with pytest.raises(MetadataError, match="no reader of the port"):
-        readers.BFImageReader(rgb).read(0)
+    want = j_readers.ImageReader(rgb).read(0)
+    for got in (readers.ImageReader(rgb).read(0), readers.BFImageReader(rgb).read(0)):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
 
 
 def test_the_reader_cache_and_its_declined_sentinel(tmp_path):

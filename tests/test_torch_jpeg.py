@@ -1,4 +1,4 @@
-"""The port's baseline-JPEG codec (``csrc/host/jpeg.cpp`` through
+"""The port's JPEG codec (``csrc/host/jpeg.cpp`` through
 :mod:`tmlibrary_tpu_torch.native`) against ``cv2`` (libjpeg-turbo), and
 its CZI JPEG subblocks against the JAX package's ``CZIReader``.
 
@@ -8,10 +8,11 @@ IMREAD_UNCHANGED)`` decodes them; so do byte flips and truncations of
 them (the same pixels, or an error in both).  The port's encoder
 (integer forward DCT) writes streams that cv2 and the port decode alike,
 and phase 13's JPEG sites hash to ``chip_smoke.JPEG_DIGEST``.
-Progressive, colour, arithmetic-coded, lossless, hierarchical and 12-bit
-streams are refused naming the feature (cv2 decodes some of them:
-ROADMAP C).  ``tests/test_czi.py:522-570`` is mirrored for the port.
-Tolerance: exact.
+Progressive and colour streams decode as cv2 decodes them (their full
+coverage is ``tests/test_torch_decode.py``); arithmetic-coded, lossless,
+hierarchical and 12-bit streams are refused naming the feature (cv2
+decodes some of them: ROADMAP C).  ``tests/test_czi.py:522-570`` is
+mirrored for the port.  Tolerance: exact.
 """
 
 import cv2
@@ -114,13 +115,21 @@ def refused_streams() -> dict:
     }
 
 
+#: cases the decoder refused until it read progressive and colour streams:
+#: they now decode as cv2 decodes them
+DECODED = ("progressive", "colour")
+
+
 @pytest.mark.parametrize("case", sorted(refused_streams()))
 def test_refusals_name_the_feature(case):
     stream, what = refused_streams()[case]
+    if case in DECODED:
+        want = cv2_decode(stream)
+        assert want is not None
+        np.testing.assert_array_equal(native.jpeg_decode_array(stream), want)
+        return
     with pytest.raises(MetadataError, match=what):
         native.jpeg_decode(stream)
-    if case in ("progressive", "colour"):
-        assert cv2_decode(stream) is not None  # the reference decodes these (ROADMAP C)
 
 
 def jpeg_mutations(blob: bytes, rng, flips: int, cuts: int):
@@ -199,10 +208,14 @@ def test_czi_jpeg_geometry_and_damage_are_refused_as_the_reference(tmp_path):
     with pytest.raises(j_errors.MetadataError, match="directory says"):
         with j_readers.CZIReader(path) as r:
             r.read_plane(0, 0)
-    blob[sof:sof + 2] = b"\xff\xc2"  # now progressive: cv2 reads it, the port refuses
+    blob[sof:sof + 2] = b"\xff\xc2"  # progressive, with a baseline scan's Ss/Se: both refuse
     path.write_bytes(bytes(blob))
-    with pytest.raises(MetadataError, match="corrupt JPEG subblock: progressive"):
+    with pytest.raises(MetadataError,
+                       match="corrupt JPEG subblock: corrupt JPEG: invalid progressive"):
         with readers.CZIReader(path) as r:
+            r.read_plane(0, 0)
+    with pytest.raises(j_errors.MetadataError, match="corrupt JPEG subblock"):
+        with j_readers.CZIReader(path) as r:
             r.read_plane(0, 0)
 
 

@@ -186,20 +186,35 @@ def test_container_suffixes_raise(tmp_path, suffix):
 
 
 def test_files_no_reader_takes_raise_naming_their_format(tmp_path):
+    """A colour JPEG, an RGB TIFF and a float TIFF were refused here until
+    the port read what cv2 reads: they now equal the JAX package's
+    ``_read_plane``.  An arithmetic-coded JPEG (which cv2 reads: ROADMAP
+    C) and a file of no known format raise naming their format (the TIFF
+    pages both refuse: ``tests/test_torch_decode.py``)."""
     rng = np.random.default_rng(2)
     rgb = rng.integers(0, 255, (16, 16, 3)).astype(np.uint8)
-    cases = {"x.jpg": "JPEG", "rgb.tif": "TIFF", "f.tif": "TIFF"}
     cv2.imwrite(str(tmp_path / "x.jpg"), rgb)
     cv2.imwrite(str(tmp_path / "rgb.tif"), rgb)
     cv2.imwrite(str(tmp_path / "f.tif"), rgb[..., 0].astype(np.float32))
+    for name in ("x.jpg", "rgb.tif", "f.tif"):
+        want = JExtractor._read_plane(str(tmp_path / name), None, 16, 16)
+        got = ImageExtractor._read_plane(str(tmp_path / name), None, 16, 16)
+        assert got.dtype == want.dtype, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    base = cv2.imencode(".jpg", rgb)[1].tobytes()
+    sof = base.index(b"\xff\xc0")
+    (tmp_path / "a.jpg").write_bytes(base[:sof] + b"\xff\xc9" + base[sof + 2:])
     (tmp_path / "x.bin").write_bytes(b"\x00\x01junk")
-    cases["x.bin"] = "unknown format"
+    cases = {"a.jpg": "JPEG", "x.bin": "unknown format"}
     for name, fmt in cases.items():
         with pytest.raises(MetadataError, match=fmt) as err:
             ImageExtractor._read_plane(str(tmp_path / name), None, 16, 16)
         assert name in str(err.value)
-    with pytest.raises(MetadataError, match="8/16-bit grayscale"):
-        ImageExtractor._read_plane(str(tmp_path / "rgb.tif"), None, 16, 16)
+    with pytest.raises(Exception):
+        JExtractor._read_plane(str(tmp_path / "x.bin"), None, 16, 16)
+    with pytest.raises(MetadataError, match="arithmetic-coded"):  # cv2 reads it: ROADMAP C
+        ImageExtractor._read_plane(str(tmp_path / "a.jpg"), None, 16, 16)
+    assert JExtractor._read_plane(str(tmp_path / "a.jpg"), None, 16, 16).shape == (16, 16)
 
 
 @pytest.mark.parametrize("suffix", [".tif", ".png"])

@@ -16,7 +16,10 @@ which the STK reader declines and the plain TIFF path reads.
 :func:`write_ims` writes Bitplane Imaris files through the port's HDF5
 writer (:mod:`tmlibrary_tpu_torch.io.hdf5`), as ``tests/test_ims.py``
 does through ``h5py``, and :func:`write_jpeg_sites` a directory of grey
-``.jpg`` site files.
+``.jpg`` site files.  :func:`write_tiff` writes the TIFF layouts beyond
+the grey strips (tiles, colour, planar, float, JPEG chunks given whole)
+with struct and zlib, for the decode of what the JAX package hands to
+``cv2``.
 """
 
 from __future__ import annotations
@@ -862,13 +865,22 @@ def write_flex(path, planes: np.ndarray, channel_names=("Exp1Cam1",),
 
 
 def packbits_encode(data: bytes) -> bytes:
-    """PackBits as literal runs of up to 128 bytes (valid, just not
-    compressed)."""
+    """PackBits: runs of 2-128 equal bytes as one, the rest as literals."""
     out = bytearray()
-    for i in range(0, len(data), 128):
-        chunk = data[i:i + 128]
-        out.append(len(chunk) - 1)
-        out += chunk
+    i, n = 0, len(data)
+    while i < n:
+        j = i
+        while j + 1 < n and data[j + 1] == data[i] and j - i < 127:
+            j += 1
+        if j > i:
+            out += bytes([257 - (j - i + 1), data[i]])
+            i = j + 1
+            continue
+        j = i
+        while j + 1 < n and data[j + 1] != data[j] and j - i < 127:
+            j += 1
+        out += bytes([j - i]) + data[i:j + 1]
+        i = j + 1
     return bytes(out)
 
 
@@ -942,3 +954,154 @@ def write_jpeg_sites(directory, planes: "dict[tuple[str, int, str], np.ndarray]"
     for (well, site, channel), plane in planes.items():
         (directory / f"{well}_s{site}_{channel}.jpg").write_bytes(
             native.jpeg_encode(plane))
+
+
+def _tiff_predict(block, predictor: int, spp: int, bo: str):
+    """Horizontal (2) or floating-point (3) differencing of a chunk's rows:
+    ``block`` is ``(rows, cols, spp)``; returns the chunk's bytes."""
+    rows, cols, _ = block.shape
+    if predictor == 2:
+        u = block.view(np.dtype(f"u{block.dtype.itemsize}"))
+        d = u.copy()
+        d[:, 1:] = u[:, 1:] - u[:, :-1]
+        return d.astype(d.dtype.newbyteorder(bo)).tobytes()
+    if predictor == 3:
+        bps = block.dtype.itemsize
+        le = block.astype(block.dtype.newbyteorder("<")).reshape(rows, cols * spp)
+        planes = le.view(np.uint8).reshape(rows, cols * spp, bps)[:, :, ::-1]
+        x = np.ascontiguousarray(planes.transpose(0, 2, 1)).reshape(rows, -1)
+        d = x.copy()
+        d[:, spp:] = x[:, spp:] - x[:, :-spp]
+        return d.tobytes()
+    return block.astype(block.dtype.newbyteorder(bo)).tobytes()
+
+
+def write_tiff(path, pages, *, photometric=None, planar=1, tile=None, rows_per_strip=None,
+               compression=1, predictor=1, byteorder="<", bigtiff=False, extra_samples=None,
+               colormap=None, orientation=None, ycbcr_subsampling=None, jpeg_tables=None,
+               chunks=None, extra_tags=None) -> None:
+    """Write ``pages`` (arrays ``(H, W)`` or ``(H, W, S)``; the dtype gives
+    BitsPerSample and SampleFormat) as a TIFF with struct and zlib alone:
+    classic or BigTIFF, either byte order, strips or tiles (``tile`` =
+    ``(height, width)``), PlanarConfiguration 1 or 2, compression none (1),
+    LZW (5), deflate (8) or PackBits (32773) with predictor 1, 2 or 3.
+    ``chunks`` (one list of encoded strips or tiles a page) replaces the
+    encoder, as for JPEG (7) with ``jpeg_tables``; ``extra_tags`` adds
+    ``{tag: (type, values)}`` to every IFD."""
+    bo = byteorder
+    pages = [np.asarray(p) for p in pages]
+    body = bytearray()
+    ifd_specs = []
+    head = 16 if bigtiff else 8
+    for pi, img in enumerate(pages):
+        if img.ndim == 2:
+            img = img[:, :, None]
+        h, w, spp = img.shape
+        kind = {"u": 1, "i": 2, "f": 3}[img.dtype.kind]
+        if photometric is None:
+            phot = 1 if spp in (1, 2) else 2
+        else:
+            phot = photometric
+        if tile:
+            th, tw = tile
+            grid = [(y, x) for y in range(0, h, th) for x in range(0, w, tw)]
+        else:
+            th, tw = (rows_per_strip or h), w
+            grid = [(y, 0) for y in range(0, h, th)]
+        planes = [img] if planar == 1 else [img[:, :, s:s + 1] for s in range(spp)]
+        datas = []
+        if chunks is not None:
+            datas = list(chunks[pi])
+        else:
+            for pl in planes:
+                for y, x in grid:
+                    blk = pl[y:y + th, x:x + tw]
+                    if tile:  # tiles are whole: pad with zeros
+                        pad = np.zeros((th, tw, pl.shape[2]), pl.dtype)
+                        pad[:blk.shape[0], :blk.shape[1]] = blk
+                        blk = pad
+                    raw = _tiff_predict(np.ascontiguousarray(blk), predictor, blk.shape[2], bo)
+                    if compression == 5:
+                        raw = lzw_encode(raw)
+                    elif compression in (8, 32946):
+                        raw = zlib.compress(raw)
+                    elif compression == 32773:
+                        row = blk.shape[1] * blk.shape[2] * blk.dtype.itemsize
+                        raw = b"".join(packbits_encode(raw[i:i + row])
+                                       for i in range(0, len(raw), row))
+                    datas.append(raw)
+        offs = []
+        for d in datas:
+            offs.append(head + len(body))
+            body += d
+            if len(body) % 2:
+                body += b"\0"
+        bits = img.dtype.itemsize * 8
+        tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+                262: (3, [phot]), 277: (3, [spp]), 284: (3, [planar]),
+                339: (3, [kind] * spp)}
+        if predictor != 1:
+            tags[317] = (3, [predictor])
+        if tile:
+            tags[322] = (4, [tw])
+            tags[323] = (4, [th])
+            tags[324] = (16 if bigtiff else 4, offs)
+            tags[325] = (16 if bigtiff else 4, [len(d) for d in datas])
+        else:
+            tags[273] = (16 if bigtiff else 4, offs)
+            tags[278] = (4, [th])
+            tags[279] = (16 if bigtiff else 4, [len(d) for d in datas])
+        if extra_samples is not None:
+            tags[338] = (3, list(extra_samples))
+        if colormap is not None:
+            tags[320] = (3, list(np.asarray(colormap, np.uint16).ravel()))
+        if orientation is not None:
+            tags[274] = (3, [orientation])
+        if ycbcr_subsampling is not None:
+            tags[530] = (3, list(ycbcr_subsampling))
+        if jpeg_tables is not None:
+            tags[347] = (7, list(jpeg_tables))
+        tags.update(extra_tags or {})
+        ifd_specs.append(tags)
+    # the IFDs after the image data
+    fmt = {1: "B", 3: "H", 4: "I", 7: "B", 16: "Q"}
+    inline = 8 if bigtiff else 4
+    out = bytearray()
+    ifd_offsets = []
+    pos = head + len(body)
+    for tags in ifd_specs:
+        n = len(tags)
+        ifd_len = (8 + n * 20 + 8) if bigtiff else (2 + n * 12 + 4)
+        ifd_offsets.append(pos)
+        extra = bytearray()
+        entries = bytearray()
+        for tag in sorted(tags):
+            typ, vals = tags[tag]
+            data = struct.pack(f"{bo}{len(vals)}{fmt[typ]}", *vals)
+            if len(data) <= inline:
+                field = data.ljust(inline, b"\0")
+            else:
+                field = struct.pack(bo + ("Q" if bigtiff else "I"), pos + ifd_len + len(extra))
+                extra += data
+                if len(extra) % 2:
+                    extra += b"\0"
+            entries += struct.pack(bo + ("HHQ" if bigtiff else "HHI"), tag, typ, len(vals)) + field
+        ifd = struct.pack(bo + ("Q" if bigtiff else "H"), n) + entries
+        out += ifd
+        out += b"\0" * (8 if bigtiff else 4)  # next-IFD offset, patched below
+        out += extra
+        pos += ifd_len + len(extra)
+    # patch the next-IFD offsets
+    for i, off in enumerate(ifd_offsets[:-1]):
+        at = off - head - len(body)
+        n = len(ifd_specs[i])
+        at += (8 + n * 20) if bigtiff else (2 + n * 12)
+        out[at:at + (8 if bigtiff else 4)] = struct.pack(bo + ("Q" if bigtiff else "I"),
+                                                          ifd_offsets[i + 1])
+    if bigtiff:
+        header = (b"II" if bo == "<" else b"MM") + struct.pack(bo + "HHHQ", 43, 8, 0,
+                                                               ifd_offsets[0])
+    else:
+        header = (b"II" if bo == "<" else b"MM") + struct.pack(bo + "HI", 42, ifd_offsets[0])
+    with open(path, "wb") as f:
+        f.write(header + bytes(body) + bytes(out))

@@ -1,20 +1,36 @@
-// jpeg.cpp: the port's baseline-JPEG codec for grey images (CZI
-// compression 1 subblocks and grey .jpg site files).
+// jpeg.cpp: the port's JPEG codec (CZI compression 1 subblocks, .jpg
+// site files, the JPEG strips and tiles of TIFF pages).
 //
-// Decoder: 8-bit, one component, SOF0/SOF1, Huffman tables (the Annex K
-// tables where a stream defines none, as libjpeg does), 8- and 16-bit
-// quantisation tables, DRI with restart markers, and any APPn/COM/fill
-// bytes.  It reproduces libjpeg's integer inverse DCT (jidctint.c:
-// CONST_BITS 13, PASS1_BITS 2) as libjpeg-turbo's x86-64 SIMD runs it
-// (16-bit lanes, saturating), which is jidctint.c's arithmetic on every
-// block whose values stay in range, and
-// libjpeg's handling of damaged entropy data -- zero bits past a marker
-// that ends a segment, a code of 17 bits or more read as symbol 0, the
-// rest of a segment left grey once data ran out, restart-marker resync --
-// so a stream decodes to the pixels libjpeg gives.  Progressive,
-// arithmetic-coded, lossless, hierarchical, 12-bit and multi-component
-// streams are refused naming the feature; a stream that ends before its
-// entropy data does fails, as it does through an in-memory libjpeg source.
+// Decoder: 8-bit Huffman JPEG of 1 or 3 components, baseline/extended
+// sequential (SOF0/SOF1) and progressive (SOF2), as libjpeg-turbo 3.1
+// decodes it for cv2.imdecode(..., IMREAD_UNCHANGED):
+// - markers: Huffman tables (the Annex K tables in empty slots 0 and 1
+//   of a sequential stream, as jdhuff.c fills them), 8- and 16-bit
+//   quantisation tables latched at each component's first scan, DRI,
+//   JFIF and Adobe segments (which decide a 3-component stream's colour
+//   space with the component ids, default_decompress_parms), APPn/COM/
+//   fill bytes;
+// - scans: interleaved and non-interleaved; progressive DC first and
+//   refinement, AC first (EOB runs) and refinement (correction bits);
+//   restart markers with libjpeg's resync;
+// - libjpeg's integer inverse DCT (jidctint.c: CONST_BITS 13,
+//   PASS1_BITS 2) as libjpeg-turbo's x86-64 SIMD runs it (16-bit lanes,
+//   saturating), which is jidctint.c's arithmetic on every block whose
+//   values stay in range;
+// - colour as jdsample.c and jdcolor.c make it: fancy h2v1, h2v2 and h1v2
+//   upsampling (rows past the last repeating it), replication for 4:1:1
+//   and other integral factors, the YCbCr -> RGB tables, BGR out;
+// - damaged entropy data as libjpeg handles it: zero bits past a marker
+//   that ends a segment, a code of 17 bits or more read as symbol 0, the
+//   rest of a segment left as it was once data ran out, restart-marker
+//   resync -- so a stream decodes to the pixels libjpeg gives.
+// Arithmetic-coded, lossless, hierarchical and 12-bit streams, 2- and
+// 4-component (CMYK/YCCK) streams, fractional sampling, and a
+// progressive stream whose scans stop before its first AC coefficients
+// are refined (libjpeg would smooth its blocks, jdcoefct.c) are refused
+// naming the feature; a stream that ends before its data does fails, as
+// it does through an in-memory libjpeg source.  All state is per call:
+// imextract's decode threads call it at once.
 //
 // Encoder: grey baseline JPEG with the integer forward DCT (jfdctint.c)
 // and the Annex K luminance tables scaled by libjpeg's quality formula;
@@ -22,7 +38,7 @@
 //
 // Built into the port's host library (tmlibrary_tpu_torch/native.py),
 // bound with ctypes.  C ABI only; errors come back as a negative return
-// and a message (tm_jpeg_error).
+// and a message (tm_jpeg_error, thread-local).
 
 #include <algorithm>
 #include <cstdint>
@@ -168,11 +184,47 @@ struct Source {
   }
 };
 
+// Annex K.3 chrominance tables, libjpeg's defaults for Huffman slot 1
+static const uint8_t STD_DC_C[16 + 12] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0,
+                                          0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+static const uint8_t STD_AC_C[16 + 162] = {
+    0,    2,    1,    2,    4,    4,    3,    4,    7,    5,    4,    4,    0,    1,    2,    0x77,
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71,
+    0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0,
+    0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48,
+    0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68,
+    0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
+    0xf9, 0xfa};
+
+// how the three components of a colour stream become BGR
+enum ColorMode { GUESS = 0, FORCE_YCC = 1, RAW = 2 };
+
+struct Comp {
+  int id = 0, h = 1, v = 1, tq = 0;
+  int bw = 0, bh = 0;    // width_in_blocks, height_in_blocks
+  int dw = 0, dh = 0;    // downsampled_width, downsampled_height
+  int bwp = 0, bhp = 0;  // the coefficient grid, padded to whole MCUs
+  int dc_tbl = 0, ac_tbl = 0;
+  bool latched = false;  // its quantisation table, copied at its first scan
+  uint16_t q[64] = {0};
+  int coef_bits[64];     // progressive: the Al each coefficient reached, -1 none
+  std::vector<int16_t> coef;
+  int16_t* block(int bx, int by) { return coef.data() + ((size_t)by * bwp + bx) * 64; }
+};
+
 struct Image {
   int precision = 0, height = 0, width = 0, ncomp = 0;
-  int comp_id = 0, hs = 1, vs = 1, tq = 0;
-  bool saw_sof = false;
+  Comp comp[4];
+  bool saw_sof = false, progressive = false, started = false, multi_scan = false;
+  bool jfif = false, adobe = false;
+  int adobe_transform = 0;
   int restart = 0;
+  int max_h = 1, max_v = 1;
   bool qdef[4] = {false, false, false, false};
   uint16_t q[4][64];
   HTable dc[4], ac[4];
@@ -180,7 +232,6 @@ struct Image {
 
 static const char* sof_feature(int m) {
   switch (m) {
-    case 0xC2: return "progressive JPEG (SOF2)";
     case 0xC3: return "lossless JPEG (SOF3)";
     case 0xC5: return "hierarchical JPEG (SOF5)";
     case 0xC6: return "hierarchical progressive JPEG (SOF6)";
@@ -256,21 +307,25 @@ static void get_sof(Source& s, Image& im, int marker) {
   if (length != im.ncomp * 3) fail("corrupt JPEG: bogus marker length");
   for (int c = 0; c < im.ncomp; ++c) {
     int id = s.byte(), hv = s.byte(), tq = s.byte();
-    if (c == 0) {
-      im.comp_id = id;
-      im.hs = (hv >> 4) & 15;
-      im.vs = hv & 15;
-      im.tq = tq;
+    if (c < 4) {
+      im.comp[c].id = id;
+      im.comp[c].h = (hv >> 4) & 15;
+      im.comp[c].v = hv & 15;
+      im.comp[c].tq = tq;
     }
   }
   im.saw_sof = true;
+  im.progressive = marker == 0xC2;
   if (const char* f = sof_feature(marker)) fail(std::string(f) + " is not supported");
   if (im.precision != 8) fail(std::to_string(im.precision) + "-bit JPEG is not supported");
-  if (im.ncomp != 1)
-    fail("multi-component JPEG (" + std::to_string(im.ncomp) + " components) is not supported");
+  if (im.ncomp == 4) fail("4-component (CMYK/YCCK) JPEG is not supported");
+  if (im.ncomp != 1 && im.ncomp != 3)
+    fail(std::to_string(im.ncomp) + "-component JPEG is not supported");
   if (im.height > 65500 || im.width > 65500) fail("corrupt JPEG: image too big");
   if ((int64_t)im.height * im.width > ((int64_t)1 << 30)) fail("corrupt JPEG: image too big");
-  if (im.hs <= 0 || im.hs > 4 || im.vs <= 0 || im.vs > 4) fail("corrupt JPEG: bogus sampling factors");
+  for (int c = 0; c < im.ncomp; ++c)
+    if (im.comp[c].h <= 0 || im.comp[c].h > 4 || im.comp[c].v <= 0 || im.comp[c].v > 4)
+      fail("corrupt JPEG: bogus sampling factors");
 }
 
 static void get_dac(Source& s) {
@@ -286,6 +341,22 @@ static void get_dac(Source& s) {
     }
   }
   if (length != 0) fail("corrupt JPEG: bogus marker length");
+}
+
+// APP0 and APP14 as libjpeg's get_interesting_appn reads them: the
+// first 14 bytes name a JFIF or an Adobe segment (which decide the
+// colour space of a 3-component stream), the rest is skipped
+static void get_appn(Source& s, Image& im, int m) {
+  long length = s.u16() - 2;
+  long numtoread = length >= 14 ? 14 : length > 0 ? length : 0;
+  uint8_t b[14];
+  for (long i = 0; i < numtoread; ++i) b[i] = (uint8_t)s.byte();
+  if (m == 0xE0 && numtoread >= 14 && std::memcmp(b, "JFIF\0", 5) == 0) im.jfif = true;
+  if (m == 0xEE && numtoread >= 12 && std::memcmp(b, "Adobe", 5) == 0) {
+    im.adobe = true;
+    im.adobe_transform = b[11];
+  }
+  s.skip(length - numtoread);
 }
 
 // ------------------------------------------------------ inverse DCT
@@ -362,7 +433,8 @@ struct Entropy {
   int left = 0;
   int unread_marker = 0;
   bool insufficient = false;
-  int last_dc = 0;
+  int last_dc[4] = {0, 0, 0, 0};
+  unsigned eobrun = 0;
   explicit Entropy(Source& src) : s(src) {}
 
   void fill(int nbits) {
@@ -425,14 +497,15 @@ struct Entropy {
   }
   static int extend(int r, int s) { return r < (1 << (s - 1)) ? r + (int)((~0u << s) + 1) : r; }
 
-  void block(const DTable& dct, const DTable& act, int16_t* blk) {
+  // decode_mcu_slow, one block
+  void block(const DTable& dct, const DTable& act, int16_t* blk, int& dc) {
     int s = decode(dct);
     if (s) {
       int r = get(s);
       s = extend(r, s);
     }
-    last_dc = (int)((uint32_t)last_dc + (uint32_t)s);
-    blk[0] = (int16_t)last_dc;
+    dc = (int)((uint32_t)dc + (uint32_t)s);
+    blk[0] = (int16_t)dc;
     for (int k = 1; k < 64; ++k) {
       s = decode(act);
       int r = s >> 4;
@@ -449,8 +522,11 @@ struct Entropy {
   }
 
   // libjpeg-turbo's decode_mcu_fast: reads six bytes at a time and gives
-  // up (the state untouched) at a marker, for the slow path to redo
-  bool block_fast(const DTable& dct, const DTable& act, int16_t* blk) {
+  // up at a marker (the bit state and DC predictions untouched, what it
+  // wrote into the blocks left there, as turbo leaves it) for the slow
+  // path to redo the MCU
+  bool mcu_fast(int nblk, const DTable* const* dct, const DTable* const* act, const int* ci,
+                int16_t* const* blks) {
     uint64_t b = buf;
     int l = left;
     size_t pos = s.pos;
@@ -496,62 +572,447 @@ struct Entropy {
       if (nb > 16) return 0;
       return (int)t.vals[(code + t.valoffset[nb]) & 0xFF];
     };
-    int16_t tmp[64] = {0};
-    int dc = last_dc;
-    int sym = dec(dct);
-    if (sym) {
-      fill6();
-      int r = getb(sym);
-      sym = extend(r, sym);
-    }
-    dc = (int)((uint32_t)dc + (uint32_t)sym);
-    tmp[0] = (int16_t)dc;
-    for (int k = 1; k < 64; ++k) {
-      sym = dec(act);
-      int r = sym >> 4;
-      sym &= 15;
+    int dc[4];
+    std::memcpy(dc, last_dc, sizeof(dc));
+    for (int bi = 0; bi < nblk; ++bi) {
+      int16_t* blk = blks[bi];
+      int sym = dec(*dct[bi]);
       if (sym) {
-        k += r;
         fill6();
-        int v = getb(sym);
-        tmp[NATURAL[k]] = (int16_t)extend(v, sym);
-      } else {
-        if (r != 15) break;
-        k += 15;
+        int r = getb(sym);
+        sym = extend(r, sym);
+      }
+      dc[ci[bi]] = (int)((uint32_t)dc[ci[bi]] + (uint32_t)sym);
+      blk[0] = (int16_t)dc[ci[bi]];
+      for (int k = 1; k < 64; ++k) {
+        sym = dec(*act[bi]);
+        int r = sym >> 4;
+        sym &= 15;
+        if (sym) {
+          k += r;
+          fill6();
+          int v = getb(sym);
+          blk[NATURAL[k]] = (int16_t)extend(v, sym);
+        } else {
+          if (r != 15) break;
+          k += 15;
+        }
       }
     }
     if (marker) return false;
-    std::memcpy(blk, tmp, sizeof(tmp));
     buf = b;
     left = l;
     s.pos = pos;
-    last_dc = dc;
+    std::memcpy(last_dc, dc, sizeof(dc));
     return true;
+  }
+
+  // jdphuff.c: the four kinds of progressive scan
+  void dc_first(int nblk, const DTable* const* dct, const int* ci, int16_t* const* blks, int al) {
+    for (int bi = 0; bi < nblk; ++bi) {
+      int s = decode(*dct[bi]);
+      if (s) {
+        int r = get(s);
+        s = extend(r, s);
+      }
+      int& dc = last_dc[ci[bi]];
+      if ((dc >= 0 && s > INT32_MAX - dc) || (dc < 0 && s < INT32_MIN - dc))
+        fail("corrupt JPEG: DCT coefficient out of range");
+      dc += s;
+      blks[bi][0] = (int16_t)(uint16_t)((uint32_t)dc << al);
+    }
+  }
+  void dc_refine(int nblk, int16_t* const* blks, int al) {
+    for (int bi = 0; bi < nblk; ++bi)
+      if (get(1)) blks[bi][0] = (int16_t)(blks[bi][0] | (1 << al));
+  }
+  void ac_first(const DTable& t, int16_t* blk, int ss, int se, int al) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int s = decode(t);
+      int r = s >> 4;
+      s &= 15;
+      if (s) {
+        k += r;
+        r = get(s);
+        s = extend(r, s);
+        blk[NATURAL[k]] = (int16_t)(uint16_t)((unsigned)s << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1u << r;
+        if (r) eobrun += (unsigned)get(r);
+        eobrun--;
+        break;
+      }
+    }
+  }
+  void ac_refine(const DTable& t, int16_t* blk, int ss, int se, int al) {
+    int p1 = 1 << al, m1 = -1 * (1 << al);
+    int k = ss;
+    auto correct = [&](int16_t& c) {
+      if (get(1) && (c & p1) == 0) c = (int16_t)(c >= 0 ? c + p1 : c + m1);
+    };
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int s = decode(t);
+        int r = s >> 4;
+        s &= 15;
+        if (s) {
+          s = get(1) ? p1 : m1;  // a size other than 1 only warns
+        } else if (r != 15) {
+          eobrun = 1u << r;
+          if (r) eobrun += (unsigned)get(r);
+          break;
+        }
+        do {
+          int16_t& c = blk[NATURAL[k]];
+          if (c != 0) {
+            correct(c);
+          } else if (--r < 0) {
+            break;
+          }
+          k++;
+        } while (k <= se);
+        if (s) blk[NATURAL[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t& c = blk[NATURAL[k]];
+        if (c != 0) correct(c);
+      }
+      eobrun--;
+    }
   }
 };
 
-static void decode(const uint8_t* src, size_t n, uint8_t* dst, int32_t* hw, bool header_only) {
+// ------------------------------------------------------ the scans
+static void load_table(const HTable& h, bool dc, DTable& d, int index) {
+  if (index >= 4) fail("corrupt JPEG: Huffman table index out of range");
+  if (!h.defined) fail("corrupt JPEG: Huffman table 0x" + std::to_string(index) + " was not defined");
+  derive(h, dc, d);
+}
+
+// jpeg_resync_to_restart after process_restart dropped the buffered bits
+static void process_restart(Source& s, Entropy& e, int& next_restart, int ncomp) {
+  e.left = 0;
+  if (e.unread_marker == 0) e.unread_marker = s.next_marker();
+  int desired = next_restart;
+  if (e.unread_marker == 0xD0 + desired) {
+    e.unread_marker = 0;
+  } else {
+    for (;;) {
+      int mk = e.unread_marker, action;
+      if (mk < 0xC0) action = 2;
+      else if (mk < 0xD0 || mk > 0xD7) action = 3;
+      else if (mk == 0xD0 + ((desired + 1) & 7) || mk == 0xD0 + ((desired + 2) & 7)) action = 3;
+      else if (mk == 0xD0 + ((desired - 1) & 7) || mk == 0xD0 + ((desired - 2) & 7)) action = 2;
+      else action = 1;
+      if (action == 1) {
+        e.unread_marker = 0;
+        break;
+      }
+      if (action == 3) break;
+      e.unread_marker = s.next_marker();
+    }
+  }
+  next_restart = (next_restart + 1) & 7;
+  for (int c = 0; c < ncomp; ++c) e.last_dc[c] = 0;
+  e.eobrun = 0;
+  if (e.unread_marker == 0) e.insufficient = false;
+}
+
+// jdinput.c initial_setup and what jpeg_start_decompress checks: the
+// component geometry, libjpeg's default Huffman tables in empty slots 0
+// and 1 (the sequential decoder's, jdhuff.c; the progressive one has
+// none), upsampling that libjpeg does not refuse
+static void start(Image& im) {
+  im.started = true;
+  for (int c = 0; c < im.ncomp; ++c) {
+    im.max_h = std::max(im.max_h, im.comp[c].h);
+    im.max_v = std::max(im.max_v, im.comp[c].v);
+  }
+  int mcux = (im.width + im.max_h * 8 - 1) / (im.max_h * 8);
+  int mcuy = (im.height + im.max_v * 8 - 1) / (im.max_v * 8);
+  for (int c = 0; c < im.ncomp; ++c) {
+    Comp& k = im.comp[c];
+    k.bw = (int)(((int64_t)im.width * k.h + im.max_h * 8 - 1) / (im.max_h * 8));
+    k.bh = (int)(((int64_t)im.height * k.v + im.max_v * 8 - 1) / (im.max_v * 8));
+    k.dw = (int)(((int64_t)im.width * k.h + im.max_h - 1) / im.max_h);
+    k.dh = (int)(((int64_t)im.height * k.v + im.max_v - 1) / im.max_v);
+    k.bwp = std::max(k.bw, mcux * k.h);
+    k.bhp = std::max(k.bh, mcuy * k.v);
+    k.coef.assign((size_t)k.bwp * k.bhp * 64, 0);
+    for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
+    if (im.ncomp > 1 && (im.max_h % k.h || im.max_v % k.v))
+      fail("fractional JPEG sampling (" + std::to_string(k.h) + "x" + std::to_string(k.v) +
+           " in " + std::to_string(im.max_h) + "x" + std::to_string(im.max_v) +
+           ") is not supported");
+  }
+  const uint8_t* std_tables[2][2] = {{STD_DC, STD_AC}, {STD_DC_C, STD_AC_C}};
+  for (int t = 0; t < 2 && !im.progressive; ++t) {
+    if (!im.dc[t].defined) {
+      std::memcpy(im.dc[t].bits + 1, std_tables[t][0], 16);
+      std::memcpy(im.dc[t].vals, std_tables[t][0] + 16, 12);
+      im.dc[t].defined = true;
+    }
+    if (!im.ac[t].defined) {
+      std::memcpy(im.ac[t].bits + 1, std_tables[t][1], 16);
+      std::memcpy(im.ac[t].vals, std_tables[t][1] + 16, 162);
+      im.ac[t].defined = true;
+    }
+  }
+}
+
+// SOS and the entropy-coded segment after it (the source is just past
+// the marker); returns the marker that ended the data, if one did
+static int scan(Source& s, Image& im) {
+  long length = s.u16();
+  int ns = s.byte();
+  if (length != ns * 2 + 6 || ns < 1 || ns > 4) fail("corrupt JPEG: bogus marker length");
+  Comp* sc[4];
+  for (int i = 0; i < ns; ++i) {
+    int cc = s.byte(), c = s.byte();
+    int found = -1;
+    for (int k = 0; k < im.ncomp && found < 0; ++k)
+      if (im.comp[k].id == cc) found = k;
+    if (found < 0) fail("corrupt JPEG: invalid component ID " + std::to_string(cc) + " in SOS");
+    sc[i] = &im.comp[found];
+    sc[i]->dc_tbl = (c >> 4) & 15;
+    sc[i]->ac_tbl = c & 15;
+    for (int j = 0; j < i; ++j)
+      if (sc[j] == sc[i]) fail("corrupt JPEG: invalid component ID " + std::to_string(cc) + " in SOS");
+  }
+  int ss = s.byte(), se = s.byte(), a = s.byte();
+  int ah = (a >> 4) & 15, al = a & 15;
+  if (!im.started) {
+    start(im);
+    im.multi_scan = im.progressive || ns < im.ncomp;
+  }
+  if (im.progressive) {  // start_pass_phuff_decoder
+    bool bad = ss == 0 ? se != 0 : (ss > se || se >= 64 || ns != 1);
+    if ((ah != 0 && al != ah - 1) || al > 13) bad = true;
+    if (bad)
+      fail("corrupt JPEG: invalid progressive parameters Ss=" + std::to_string(ss) + " Se=" +
+           std::to_string(se) + " Ah=" + std::to_string(ah) + " Al=" + std::to_string(al));
+    for (int i = 0; i < ns; ++i)
+      for (int k = ss; k <= se; ++k) sc[i]->coef_bits[k] = al;
+  }
+  // per_scan_setup: the MCU's blocks
+  int nblk = 0, ci[10];
+  Comp* bc[10];
+  int bdx[10], bdy[10];
+  for (int i = 0; i < ns; ++i) {
+    int bx = ns == 1 ? 1 : sc[i]->h, by = ns == 1 ? 1 : sc[i]->v;
+    if (nblk + bx * by > 10) fail("corrupt JPEG: sampling factors too large for an interleaved scan");
+    for (int y = 0; y < by; ++y)
+      for (int x = 0; x < bx; ++x) {
+        ci[nblk] = i;
+        bc[nblk] = sc[i];
+        bdx[nblk] = x;
+        bdy[nblk] = y;
+        nblk++;
+      }
+  }
+  for (int i = 0; i < ns; ++i) {  // latch_quant_tables
+    Comp& k = *sc[i];
+    if (k.latched) continue;
+    if (k.tq >= 4 || !im.qdef[k.tq])
+      fail("corrupt JPEG: quantization table 0x" + std::to_string(k.tq) + " was not defined");
+    std::memcpy(k.q, im.q[k.tq], sizeof(k.q));
+    k.latched = true;
+  }
+  DTable dtab[10], atab[10];
+  const DTable* dct[10];
+  const DTable* act[10];
+  for (int i = 0; i < ns; ++i) {
+    if (!im.progressive || (ss == 0 && ah == 0)) {
+      load_table(sc[i]->dc_tbl < 4 ? im.dc[sc[i]->dc_tbl] : HTable(), true, dtab[i], sc[i]->dc_tbl);
+    }
+    if (!im.progressive || ss != 0) {
+      load_table(sc[i]->ac_tbl < 4 ? im.ac[sc[i]->ac_tbl] : HTable(), false, atab[i], sc[i]->ac_tbl);
+    }
+  }
+  for (int b = 0; b < nblk; ++b) {
+    dct[b] = &dtab[ci[b]];
+    act[b] = &atab[ci[b]];
+  }
+  int mcux, mcuy;
+  if (ns == 1) {
+    mcux = sc[0]->bw;
+    mcuy = sc[0]->bh;
+  } else {
+    mcux = (im.width + im.max_h * 8 - 1) / (im.max_h * 8);
+    mcuy = (im.height + im.max_v * 8 - 1) / (im.max_v * 8);
+  }
+
+  Entropy e(s);
+  int restarts_to_go = im.restart, next_restart = 0;
+  int16_t* blks[10];
+  for (int my = 0; my < mcuy; ++my) {
+    for (int mx = 0; mx < mcux; ++mx) {
+      if (im.restart && restarts_to_go == 0) {
+        process_restart(s, e, next_restart, ns);
+        restarts_to_go = im.restart;
+      }
+      for (int b = 0; b < nblk; ++b) {
+        int w = ns == 1 ? 1 : bc[b]->h, h = ns == 1 ? 1 : bc[b]->v;
+        blks[b] = bc[b]->block(mx * w + bdx[b], my * h + bdy[b]);
+      }
+      if (!e.insufficient) {
+        if (!im.progressive) {
+          bool fast = e.unread_marker == 0 && s.n - s.pos >= (size_t)512 * nblk;
+          if (!fast || !e.mcu_fast(nblk, dct, act, ci, blks))
+            for (int b = 0; b < nblk; ++b) e.block(*dct[b], *act[b], blks[b], e.last_dc[ci[b]]);
+        } else if (ss == 0) {
+          if (ah == 0) e.dc_first(nblk, dct, ci, blks, al);
+          else e.dc_refine(nblk, blks, al);
+        } else if (ah == 0) {
+          e.ac_first(*act[0], blks[0], ss, se, al);
+        } else {
+          e.ac_refine(*act[0], blks[0], ss, se, al);
+        }
+      }
+      if (im.restart) restarts_to_go--;
+    }
+  }
+  return e.unread_marker;
+}
+
+// jdcoefct.c smoothing_ok: whether libjpeg would run block smoothing
+// over the coefficients of a progressive stream whose scans stopped
+// before refining the first AC coefficients
+static bool smoothing_ok(const Image& im) {
+  static const int POS[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+  bool useful = false;
+  for (int c = 0; c < im.ncomp; ++c) {
+    const Comp& k = im.comp[c];
+    if (!k.latched) return false;
+    for (int i = 0; i < 10; ++i)
+      if (k.q[POS[i]] == 0) return false;
+    if (k.coef_bits[0] < 0) return false;
+    for (int i = 1; i < 10; ++i)
+      if (k.coef_bits[i] != 0) useful = true;
+  }
+  return useful;
+}
+
+// ------------------------------------------------ upsampling, colour
+// One component at full size as libjpeg-turbo's jdsample.c makes it:
+// fancy h2v1, h2v2 (triangle filters; plain replication where the
+// component is at most 2 samples wide) and h1v2, replication for every
+// other integral factor.  Rows past the component's last row repeat it
+// (jdmainct.c's context rows), the row above the first is the first.
+static void upsample(const Image& im, const Comp& k, const uint8_t* plane, int stride,
+                     uint8_t* out) {
+  const int H = im.height, W = im.width;
+  const int fx = im.max_h / k.h, fy = im.max_v / k.v;
+  auto row = [&](int y) { return plane + (size_t)std::min(std::max(y, 0), k.dh - 1) * stride; };
+  std::vector<uint8_t> line((size_t)k.dw * 2 + 2);
+  for (int y = 0; y < H; ++y) {
+    uint8_t* o = out + (size_t)y * W;
+    if (fx == 1 && fy == 1) {
+      std::memcpy(o, row(y), W);
+    } else if (fx == 2 && fy == 1 && k.dw > 2) {
+      const uint8_t* in = row(y);
+      uint8_t* l = line.data();
+      l[0] = in[0];
+      l[1] = (uint8_t)((in[0] * 3 + in[1] + 2) >> 2);
+      for (int c = 1; c < k.dw - 1; ++c) {
+        int v = in[c] * 3;
+        l[2 * c] = (uint8_t)((v + in[c - 1] + 1) >> 2);
+        l[2 * c + 1] = (uint8_t)((v + in[c + 1] + 2) >> 2);
+      }
+      int last = k.dw - 1;
+      l[2 * last] = (uint8_t)((in[last] * 3 + in[last - 1] + 1) >> 2);
+      l[2 * last + 1] = in[last];
+      std::memcpy(o, l, W);
+    } else if (fx == 1 && fy == 2) {
+      int iy = y >> 1;
+      const uint8_t* in0 = row(iy);
+      const uint8_t* in1 = row(y & 1 ? iy + 1 : iy - 1);
+      int bias = y & 1 ? 2 : 1;
+      for (int x = 0; x < W; ++x) o[x] = (uint8_t)((in0[x] * 3 + in1[x] + bias) >> 2);
+    } else if (fx == 2 && fy == 2 && k.dw > 2) {
+      int iy = y >> 1;
+      const uint8_t* in0 = row(iy);
+      const uint8_t* in1 = row(y & 1 ? iy + 1 : iy - 1);
+      uint8_t* l = line.data();
+      int thiscol = in0[0] * 3 + in1[0], nextcol = in0[1] * 3 + in1[1], lastcol;
+      l[0] = (uint8_t)((thiscol * 4 + 8) >> 4);
+      l[1] = (uint8_t)((thiscol * 3 + nextcol + 7) >> 4);
+      lastcol = thiscol;
+      thiscol = nextcol;
+      for (int c = 2; c < k.dw; ++c) {
+        nextcol = in0[c] * 3 + in1[c];
+        l[2 * c - 2] = (uint8_t)((thiscol * 3 + lastcol + 8) >> 4);
+        l[2 * c - 1] = (uint8_t)((thiscol * 3 + nextcol + 7) >> 4);
+        lastcol = thiscol;
+        thiscol = nextcol;
+      }
+      l[2 * k.dw - 2] = (uint8_t)((thiscol * 3 + lastcol + 8) >> 4);
+      l[2 * k.dw - 1] = (uint8_t)((thiscol * 4 + 7) >> 4);
+      std::memcpy(o, l, W);
+    } else {
+      const uint8_t* in = row(y / fy);
+      for (int x = 0; x < W; ++x) o[x] = in[x / fx];
+    }
+  }
+}
+
+// jdcolor.c's YCbCr -> RGB tables (SCALEBITS 16)
+struct YccTables {
+  int cr_r[256], cb_b[256];
+  int32_t cr_g[256], cb_g[256];
+  YccTables() {
+    const int64_t half = 1 << 15;
+    for (int i = 0; i < 256; ++i) {
+      int64_t x = i - 128;
+      cr_r[i] = (int)((91881 * x + half) >> 16);   // FIX(1.40200)
+      cb_b[i] = (int)((116130 * x + half) >> 16);  // FIX(1.77200)
+      cr_g[i] = (int32_t)(-46802 * x);             // -FIX(0.71414)
+      cb_g[i] = (int32_t)(-22554 * x + half);      // -FIX(0.34414), + ONE_HALF
+    }
+  }
+};
+
+static inline uint8_t clamp8(int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+static void decode(const uint8_t* src, size_t n, uint8_t* dst, int32_t* hwc, bool header_only,
+                   int mode, Image* header = nullptr) {
   Source s{src, n};
   // the signature readers check before they hand a file to libjpeg
   if (n < 3 || src[0] != 0xFF || src[1] != 0xD8 || src[2] != 0xFF)
     fail("not a JPEG file: no FF D8 FF signature");
   s.pos = 2;
   Image im;
-  bool saw_soi = true;
+  int pending = 0;  // a marker that ended a scan's data
   for (;;) {
-    int m = s.next_marker();
+    int m = pending ? pending : s.next_marker();
+    pending = 0;
     if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xCC) {
       get_sof(s, im, m);
-      hw[0] = im.height;
-      hw[1] = im.width;
-      if (header_only) return;
+      hwc[0] = im.height;
+      hwc[1] = im.width;
+      hwc[2] = im.ncomp == 1 ? 1 : 3;
+      if (header_only) {
+        if (header) *header = im;
+        return;
+      }
       continue;
     }
-    if (m == 0xDA) break;
+    if (m == 0xDA) {
+      if (!im.saw_sof) fail("corrupt JPEG: SOS before SOF");
+      pending = scan(s, im);
+      if (!im.multi_scan) break;  // one scan holds the image: libjpeg reads no further
+      continue;
+    }
     switch (m) {
-      case 0xD8:
-        if (saw_soi) fail("corrupt JPEG: duplicate SOI marker");
-        break;
+      case 0xD8: fail("corrupt JPEG: duplicate SOI marker");
       case 0xC4: get_dht(s, im); break;
       case 0xCC: get_dac(s); break;
       case 0xDB: get_dqt(s, im); break;
@@ -561,10 +1022,13 @@ static void decode(const uint8_t* src, size_t n, uint8_t* dst, int32_t* hw, bool
         im.restart = s.u16();
         break;
       }
-      case 0xD9: fail("corrupt JPEG: no image before EOI");
+      case 0xD9:
+        if (!im.started) fail("corrupt JPEG: no image before EOI");
+        break;
       case 0x01:
       case 0xD0: case 0xD1: case 0xD2: case 0xD3: case 0xD4: case 0xD5: case 0xD6: case 0xD7:
         break;
+      case 0xE0: case 0xEE: get_appn(s, im, m); break;
       default:
         if ((m >= 0xE0 && m <= 0xEF) || m == 0xFE || m == 0xDC) {
           s.skip(s.u16() - 2);
@@ -572,89 +1036,57 @@ static void decode(const uint8_t* src, size_t n, uint8_t* dst, int32_t* hw, bool
         }
         fail("corrupt JPEG: unsupported marker 0x" + std::to_string(m));
     }
+    if (m == 0xD9) break;
   }
-  // SOS
-  if (!im.saw_sof) fail("corrupt JPEG: SOS before SOF");
-  long length = s.u16();
-  int ns = s.byte();
-  if (length != ns * 2 + 6 || ns < 1 || ns > 4) fail("corrupt JPEG: bogus marker length");
-  int td = 0, ta = 0;
-  for (int i = 0; i < ns; ++i) {
-    int cc = s.byte(), c = s.byte();
-    if (i > 0 || cc != im.comp_id) fail("corrupt JPEG: invalid component ID in SOS");
-    td = (c >> 4) & 15;
-    ta = c & 15;
-  }
-  s.byte();  // Ss, Se, Ah/Al: libjpeg only warns when they are not 0, 63, 0
-  s.byte();
-  s.byte();
-  if (im.tq >= 4 || !im.qdef[im.tq]) fail("corrupt JPEG: quantization table 0x" + std::to_string(im.tq) + " was not defined");
-  if (td >= 4 || ta >= 4) fail("corrupt JPEG: Huffman table index out of range");
-  HTable dct = im.dc[td], act = im.ac[ta];
-  if (!dct.defined) {
-    if (td != 0) fail("corrupt JPEG: Huffman table 0x" + std::to_string(td) + " was not defined");
-    std::memcpy(dct.bits + 1, STD_DC, 16);
-    std::memcpy(dct.vals, STD_DC + 16, 12);
-  }
-  if (!act.defined) {
-    if (ta != 0) fail("corrupt JPEG: Huffman table 0x" + std::to_string(ta) + " was not defined");
-    std::memcpy(act.bits + 1, STD_AC, 16);
-    std::memcpy(act.vals, STD_AC + 16, 162);
-  }
-  DTable d_dc, d_ac;
-  derive(dct, true, d_dc);
-  derive(act, false, d_ac);
-  const uint16_t* q = im.q[im.tq];
+  if (im.progressive && smoothing_ok(im))
+    fail("progressive JPEG whose scans stop before the first AC coefficients are refined "
+         "(libjpeg's block smoothing) is not supported");
 
-  int bw = (im.width + 7) / 8, bh = (im.height + 7) / 8;
-  Entropy e(s);
-  int restarts_to_go = im.restart, next_restart = 0;
-  uint8_t tile[64];
-  for (int by = 0; by < bh; ++by) {
-    for (int bx = 0; bx < bw; ++bx) {
-      if (im.restart) {
-        if (restarts_to_go == 0) {
-          // process_restart: drop the buffered bits, find the marker
-          e.left = 0;
-          if (e.unread_marker == 0) e.unread_marker = s.next_marker();
-          int desired = next_restart;
-          if (e.unread_marker == 0xD0 + desired) {
-            e.unread_marker = 0;
-          } else {
-            for (;;) {  // jpeg_resync_to_restart
-              int mk = e.unread_marker, action;
-              if (mk < 0xC0) action = 2;
-              else if (mk < 0xD0 || mk > 0xD7) action = 3;
-              else if (mk == 0xD0 + ((desired + 1) & 7) || mk == 0xD0 + ((desired + 2) & 7)) action = 3;
-              else if (mk == 0xD0 + ((desired - 1) & 7) || mk == 0xD0 + ((desired - 2) & 7)) action = 2;
-              else action = 1;
-              if (action == 1) {
-                e.unread_marker = 0;
-                break;
-              }
-              if (action == 3) break;
-              e.unread_marker = s.next_marker();
-            }
-          }
-          next_restart = (next_restart + 1) & 7;
-          e.last_dc = 0;
-          restarts_to_go = im.restart;
-          if (e.unread_marker == 0) e.insufficient = false;
-        }
-      }
-      int16_t blk[64] = {0};
-      if (!e.insufficient) {
-        bool fast = e.unread_marker == 0 && n - s.pos >= 512;
-        if (!fast || !e.block_fast(d_dc, d_ac, blk)) {
-          std::memset(blk, 0, sizeof(blk));
-          e.block(d_dc, d_ac, blk);
-        }
-      }
-      if (im.restart) restarts_to_go--;
-      idct_islow(blk, q, tile, 8);
-      int y0 = by * 8, x0 = bx * 8;
-      int hh = std::min(8, im.height - y0), ww = std::min(8, im.width - x0);
-      for (int r = 0; r < hh; ++r) std::memcpy(dst + (size_t)(y0 + r) * im.width + x0, tile + 8 * r, ww);
+  // the inverse DCT of every block that holds image samples
+  const int H = im.height, W = im.width;
+  std::vector<uint8_t> planes[4];
+  for (int c = 0; c < im.ncomp; ++c) {
+    Comp& k = im.comp[c];
+    int stride = k.bw * 8;
+    planes[c].resize((size_t)stride * k.bh * 8);
+    for (int by = 0; by < k.bh; ++by)
+      for (int bx = 0; bx < k.bw; ++bx)
+        idct_islow(k.block(bx, by), k.q, planes[c].data() + (size_t)by * 8 * stride + bx * 8,
+                   stride);
+  }
+  if (im.ncomp == 1) {
+    int stride = im.comp[0].bw * 8;
+    for (int y = 0; y < H; ++y) std::memcpy(dst + (size_t)y * W, planes[0].data() + (size_t)y * stride, W);
+    return;
+  }
+  std::vector<uint8_t> full((size_t)3 * H * W);
+  for (int c = 0; c < 3; ++c)
+    upsample(im, im.comp[c], planes[c].data(), im.comp[c].bw * 8, full.data() + (size_t)c * H * W);
+  // default_decompress_parms: the colour space of three components
+  bool ycc;
+  if (mode == FORCE_YCC) ycc = true;
+  else if (mode == RAW) ycc = false;
+  else if (im.jfif) ycc = true;
+  else if (im.adobe) ycc = im.adobe_transform != 0;
+  else ycc = !(im.comp[0].id == 82 && im.comp[1].id == 71 && im.comp[2].id == 66);
+  static const YccTables T;
+  const uint8_t *p0 = full.data(), *p1 = p0 + (size_t)H * W, *p2 = p1 + (size_t)H * W;
+  const size_t np = (size_t)H * W;
+  for (size_t i = 0; i < np; ++i) {
+    uint8_t* o = dst + 3 * i;
+    if (mode == RAW) {  // the components as stored
+      o[0] = p0[i];
+      o[1] = p1[i];
+      o[2] = p2[i];
+    } else if (ycc) {
+      int y = p0[i], cb = p1[i], cr = p2[i];
+      o[0] = clamp8(y + T.cb_b[cb]);
+      o[1] = clamp8(y + (int)((T.cb_g[cb] + T.cr_g[cr]) >> 16));
+      o[2] = clamp8(y + T.cr_r[cr]);
+    } else {  // RGB: BGR order out
+      o[0] = p2[i];
+      o[1] = p1[i];
+      o[2] = p0[i];
     }
   }
 }
@@ -842,15 +1274,42 @@ extern "C" {
 
 const char* tm_jpeg_error() { return tmjpeg::g_error.c_str(); }
 
-// decode a grey JPEG into dst (h*w bytes, row-major); hw gets (h, w).
-// With dst null only the header is read.  0 on success, -1 on error
-// (message in tm_jpeg_error).
-int32_t tm_jpeg_decode(const uint8_t* src, int64_t n, uint8_t* dst, int32_t* hw) {
+// decode a JPEG into dst (h*w*c bytes, row-major, c = 1 for grey, 3 for
+// colour as BGR); hwc gets (h, w, c).  mode: 0 the colour space as
+// libjpeg guesses it, 1 YCbCr whatever the markers say, 2 the three
+// components as stored (TIFF's JPEGCOLORMODE_RGB and raw RGB).  With
+// dst null only the header is read.  0 on success, -1 on error (message
+// in tm_jpeg_error).
+int32_t tm_jpeg_decode(const uint8_t* src, int64_t n, uint8_t* dst, int32_t* hwc, int32_t mode) {
   using namespace tmjpeg;
   try {
-    hw[0] = hw[1] = 0;
-    decode(src, (size_t)n, dst, hw, dst == nullptr);
-    if (dst == nullptr && hw[0] == 0) fail("corrupt JPEG: no SOF marker");
+    hwc[0] = hwc[1] = hwc[2] = 0;
+    decode(src, (size_t)n, dst, hwc, dst == nullptr, mode);
+    if (dst == nullptr && hwc[0] == 0) fail("corrupt JPEG: no SOF marker");
+    return 0;
+  } catch (const std::exception& e) {
+    g_error = e.what();
+    return -1;
+  }
+}
+
+// the SOF of a stream: info gets (h, w, components, progressive, then
+// each component's horizontal and vertical sampling factors); 0 or -1
+int32_t tm_jpeg_header(const uint8_t* src, int64_t n, int32_t* info) {
+  using namespace tmjpeg;
+  try {
+    int32_t hwc[3] = {0, 0, 0};
+    Image im;
+    decode(src, (size_t)n, nullptr, hwc, true, GUESS, &im);
+    if (hwc[0] == 0) fail("corrupt JPEG: no SOF marker");
+    info[0] = im.height;
+    info[1] = im.width;
+    info[2] = im.ncomp;
+    info[3] = im.progressive;
+    for (int c = 0; c < im.ncomp && c < 4; ++c) {
+      info[4 + 2 * c] = im.comp[c].h;
+      info[5 + 2 * c] = im.comp[c].v;
+    }
     return 0;
   } catch (const std::exception& e) {
     g_error = e.what();

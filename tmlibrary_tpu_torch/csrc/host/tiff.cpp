@@ -6,9 +6,13 @@
 // uncompressed / LZW (with the horizontal predictor) / PackBits,
 // multi-page.  Anything else returns an error code, and the Python
 // caller (tmlibrary_tpu_torch/readers.py) goes on to the Python reader
-// for BigTIFF and deflate strips.  Built with the host compiler at first
-// use, bound with ctypes (tmlibrary_tpu_torch/native.py).  C ABI only.
+// for BigTIFF and deflate strips, then to the decode of every page cv2
+// reads (readers.decode_tiff_page), whose colour pages end in
+// tm_bgr2gray_int or tm_bgr2gray_f32 here.  Built with the
+// host compiler at first use, bound with ctypes
+// (tmlibrary_tpu_torch/native.py).  C ABI only.
 
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
@@ -254,6 +258,15 @@ static int walk(const Buf& b, int32_t page, IFD& ifd) {
 
 }  // namespace tifflite
 
+// cv2's BGR2GRAY of 8- or 16-bit samples: its 15-bit fixed-point weights
+// (B 3735, G 19235, R 9798, summing to 1 << 15), rounded half up; the sum
+// fits 32 bits.
+template <typename T>
+static void bgr2gray_int(const T* s, int64_t n, int32_t scn, T* o) {
+  for (int64_t i = 0; i < n; ++i, s += scn)
+    o[i] = (T)((s[0] * 3735u + s[1] * 19235u + s[2] * 9798u + (1u << 14)) >> 15);
+}
+
 extern "C" {
 
 // Raw TIFF-variant LZW strip decode (MSB-first codes, early width change)
@@ -403,6 +416,37 @@ int32_t tm_tiff_read2(const char* path, int32_t page, uint16_t* out,
   if ((int64_t)ifd.height * (int64_t)ifd.width > capacity) return -2;
   return tiff_decode_gray(b, ifd, out, (int32_t)ifd.height,
                           (int32_t)ifd.width);
+}
+
+// cv2.cvtColor(COLOR_BGR2GRAY) of an 8- or 16-bit (`bytes` 1 or 2)
+// BGR(A) image (bgr2gray_int above).
+void tm_bgr2gray_int(const void* src, int64_t rows, int64_t cols, int32_t scn, int32_t bytes,
+                     void* dst) {
+  if (bytes == 1)
+    bgr2gray_int((const uint8_t*)src, rows * cols, scn, (uint8_t*)dst);
+  else
+    bgr2gray_int((const uint16_t*)src, rows * cols, scn, (uint16_t*)dst);
+}
+
+// cv2.cvtColor(COLOR_BGR2GRAY) of a float32 BGR(A) image as this
+// OpenCV build computes it (its IPP kernel): every pixel as fma(R, 0.299f,
+// fma(B, 0.114f, G * 0.587f)), except that from 3-channel rows, in the
+// block of 4 pixels that follows a row's blocks of 16 and 8, the even
+// pixels take fma(R, 0.299f, fma(G, 0.587f, B * 0.114f)).  Explicit
+// fmaf: no compiler contraction decides the roundings.
+void tm_bgr2gray_f32(const float* src, int64_t rows, int64_t cols, int32_t scn, float* dst) {
+  const float cb = 0.114f, cg = 0.587f, cr = 0.299f;
+  for (int64_t y = 0; y < rows; ++y) {
+    const float* s = src + (size_t)y * cols * scn;
+    float* o = dst + (size_t)y * cols;
+    int64_t four = scn == 3 && (cols % 16) % 8 >= 4 ? cols - cols % 16 % 8 : -1;
+    for (int64_t x = 0; x < cols; ++x) {
+      const float b = s[x * scn], g = s[x * scn + 1], r = s[x * scn + 2];
+      bool even_of_four = four >= 0 && x >= four && x < four + 4 && ((x - four) & 1) == 0;
+      o[x] = even_of_four ? std::fmaf(r, cr, std::fmaf(g, cg, b * cb))
+                          : std::fmaf(r, cr, std::fmaf(b, cb, g * cg));
+    }
+  }
 }
 
 }  // extern "C"

@@ -43,9 +43,6 @@ SIGNATURE = b"\x89PNG\r\n\x1a\n"
 #: colour type -> (samples per pixel, name)
 COLOR_TYPES = {0: (1, "greyscale"), 2: (3, "RGB"), 3: (1, "palette"),
                4: (2, "greyscale with alpha"), 6: (4, "RGBA")}
-#: cv2's BGR2GRAY weights (15-bit fixed point) for B, G, R
-GRAY_WEIGHTS = (3735, 19235, 9798)
-GRAY_SHIFT = 15
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -261,14 +258,17 @@ def is_png(path) -> bool:
 
 
 def to_gray(image: np.ndarray) -> np.ndarray:
-    """``cv2.cvtColor(image, COLOR_BGR2GRAY)`` of an ``(H, W, 3|4)`` uint8
-    or uint16 BGR(A) image: cv2's 15-bit fixed-point weights, rounded."""
+    """``cv2.cvtColor(image, COLOR_BGR2GRAY)`` of an ``(H, W, 3|4)`` BGR(A)
+    image, the alpha channel dropped: uint8 and uint16 with cv2's 15-bit
+    fixed-point weights, rounded; float32 with its float weights, bit for
+    bit as cv2 rounds them (:func:`tmlibrary_tpu_torch.native.bgr2gray_int`,
+    :func:`~tmlibrary_tpu_torch.native.bgr2gray_f32`).
+    Other dtypes raise, as ``cvtColor`` does."""
     img = np.asarray(image)
-    if img.ndim != 3 or img.shape[2] not in (3, 4) or img.dtype not in (np.uint8, np.uint16):
-        raise NotSupportedError(f"to_gray takes (H, W, 3|4) uint8/uint16, got "
+    if img.ndim != 3 or img.shape[2] not in (3, 4) or \
+            img.dtype not in (np.uint8, np.uint16, np.float32):
+        raise NotSupportedError(f"to_gray takes (H, W, 3|4) uint8/uint16/float32, got "
                                 f"{img.shape} {img.dtype}")
-    x = img.astype(np.int64)
-    b, g, r = GRAY_WEIGHTS
-    out = (x[..., 0] * b + x[..., 1] * g + x[..., 2] * r + (1 << (GRAY_SHIFT - 1))) >> GRAY_SHIFT
-    return out.astype(img.dtype)
+    from tmlibrary_tpu_torch import native
 
+    return native.bgr2gray_f32(img) if img.dtype == np.float32 else native.bgr2gray_int(img)

@@ -143,7 +143,8 @@ def lib() -> ctypes.CDLL:
                                                          ptr]),
                                 ("tm_mosaic_morph", [ptr, i32, i32, i32, *[ptr] * 7]),
                                 ("tm_simplify_polygon", [ptr, i32, ctypes.c_double, ptr]),
-                                ("tm_jpeg_decode", [ptr, i64, ptr, ptr])):
+                                ("tm_jpeg_decode", [ptr, i64, ptr, ptr, i32]),
+                                ("tm_jpeg_header", [ptr, i64, ptr])):
                 fn = getattr(loaded, fname)
                 fn.restype = ctypes.c_int32
                 fn.argtypes = args
@@ -154,6 +155,12 @@ def lib() -> ctypes.CDLL:
                 fn = getattr(loaded, fname)
                 fn.restype = i64
                 fn.argtypes = args
+            fn = loaded.tm_bgr2gray_f32
+            fn.restype = None
+            fn.argtypes = [ptr, i64, i64, i32, ptr]
+            fn = loaded.tm_bgr2gray_int
+            fn.restype = None
+            fn.argtypes = [ptr, i64, i64, i32, i32, ptr]
             for fname in ("tm_zstd_error", "tm_jpeg_error"):
                 getattr(loaded, fname).restype = ctypes.c_char_p
             _LIB = loaded
@@ -431,6 +438,28 @@ def tiff_read(path, page: int, height: int, width: int) -> "np.ndarray | None":
     return out if rc == 0 else None
 
 
+def bgr2gray_int(image: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(image, COLOR_BGR2GRAY)`` of an ``(H, W, 3|4)``
+    uint8 or uint16 image, cv2's 15-bit weights rounded
+    (``tm_bgr2gray_int``)."""
+    img = np.ascontiguousarray(image)
+    h, w, scn = img.shape
+    out = np.empty((h, w), img.dtype)
+    lib().tm_bgr2gray_int(img.ctypes.data, h, w, scn, img.dtype.itemsize, out.ctypes.data)
+    return out
+
+
+def bgr2gray_f32(image: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(image, COLOR_BGR2GRAY)`` of an ``(H, W, 3|4)``
+    float32 image, bit for bit as this repo's OpenCV build rounds it
+    (``tm_bgr2gray_f32``)."""
+    img = np.ascontiguousarray(image, np.float32)
+    h, w, scn = img.shape
+    out = np.empty((h, w), np.float32)
+    lib().tm_bgr2gray_f32(img.ctypes.data, h, w, scn, out.ctypes.data)
+    return out
+
+
 #: per-thread scratch for tiff_read_page, grown on demand
 _TIFF_SCRATCH = threading.local()
 
@@ -596,34 +625,70 @@ def zstd_compress(data: bytes) -> bytes:
     return out[:n].tobytes()
 
 
-def jpeg_dimensions(src: bytes) -> "tuple[int, int]":
-    """``(height, width)`` from a grey baseline JPEG's SOF (the stream is
-    read up to it); :class:`MetadataError` for anything else."""
+#: how :func:`jpeg_decode_array` turns three components into colour: as
+#: libjpeg guesses the colour space from the JFIF and Adobe markers and
+#: the component ids, YCbCr whatever they say (TIFF's JPEG tiles under
+#: ``JPEGCOLORMODE_RGB``), or the components as stored (a TIFF's RGB JPEG)
+JPEG_GUESS, JPEG_YCC, JPEG_RAW = 0, 1, 2
+
+
+def jpeg_info(src: bytes) -> "tuple[int, int, int]":
+    """``(height, width, channels)`` from a JPEG's SOF (the stream is read
+    up to it): 1 channel for one component, 3 for three;
+    :class:`MetadataError` for a stream the decoder refuses there."""
     from tmlibrary_tpu_torch.errors import MetadataError
 
-    hw = np.zeros(2, np.int32)
-    if lib().tm_jpeg_decode(_buffer(src).ctypes.data, len(src), None, hw.ctypes.data) != 0:
+    hwc = np.zeros(3, np.int32)
+    if lib().tm_jpeg_decode(_buffer(src).ctypes.data, len(src), None, hwc.ctypes.data, 0) != 0:
         raise MetadataError(lib().tm_jpeg_error().decode())
-    return int(hw[0]), int(hw[1])
+    return int(hwc[0]), int(hwc[1]), int(hwc[2])
+
+
+def jpeg_sampling(src: bytes) -> "list[tuple[int, int]]":
+    """Each component's ``(horizontal, vertical)`` sampling factors from
+    a JPEG's SOF; :class:`MetadataError` for a stream the decoder refuses
+    there."""
+    from tmlibrary_tpu_torch.errors import MetadataError
+
+    info = np.zeros(12, np.int32)
+    if lib().tm_jpeg_header(_buffer(src).ctypes.data, len(src), info.ctypes.data) != 0:
+        raise MetadataError(lib().tm_jpeg_error().decode())
+    return [(int(info[4 + 2 * c]), int(info[5 + 2 * c])) for c in range(int(info[2]))]
+
+
+def jpeg_dimensions(src: bytes) -> "tuple[int, int]":
+    """``(height, width)`` from a JPEG's SOF (:func:`jpeg_info`)."""
+    return jpeg_info(src)[:2]
 
 
 def jpeg_decode(src: bytes) -> "tuple[int, int, bytes]":
-    """``(height, width, pixels)`` of a grey baseline JPEG, the pixels
-    row-major uint8 as libjpeg decodes them; progressive, arithmetic,
-    lossless, hierarchical, 12-bit and multi-component streams and
-    damaged headers raise :class:`MetadataError` naming the reason."""
-    return (*(img := jpeg_decode_array(src)).shape, img.tobytes())
+    """``(height, width, pixels)`` of a grey JPEG, the pixels row-major
+    uint8 as libjpeg decodes them; colour streams raise here (use
+    :func:`jpeg_decode_array`)."""
+    img = jpeg_decode_array(src)
+    if img.ndim != 2:
+        from tmlibrary_tpu_torch.errors import MetadataError
+
+        raise MetadataError("jpeg_decode: a colour stream (use jpeg_decode_array)")
+    return (*img.shape, img.tobytes())
 
 
-def jpeg_decode_array(src: bytes) -> np.ndarray:
-    """:func:`jpeg_decode` as an ``(H, W)`` uint8 array."""
+def jpeg_decode_array(src: bytes, mode: int = JPEG_GUESS) -> np.ndarray:
+    """A baseline, extended or progressive Huffman JPEG of 1 or 3
+    components as libjpeg-turbo decodes it for ``cv2.imdecode(...,
+    IMREAD_UNCHANGED)``: ``(H, W)`` uint8 for grey, ``(H, W, 3)`` BGR for
+    colour (fancy upsampling, ``jdcolor.c``'s YCbCr tables; ``mode`` as
+    :data:`JPEG_GUESS`).  Arithmetic-coded, lossless, hierarchical,
+    12-bit, 2- and 4-component streams, a progressive stream whose scans
+    stop before libjpeg's block smoothing is off, and damaged headers
+    raise :class:`MetadataError` naming the reason."""
     from tmlibrary_tpu_torch.errors import MetadataError
 
-    h, w = jpeg_dimensions(src)
-    out = np.empty((h, w), np.uint8)
-    hw = np.zeros(2, np.int32)
+    h, w, c = jpeg_info(src)
+    out = np.empty((h, w, c) if c > 1 else (h, w), np.uint8)
+    hwc = np.zeros(3, np.int32)
     if lib().tm_jpeg_decode(_buffer(src).ctypes.data, len(src), out.ctypes.data,
-                            hw.ctypes.data) != 0:
+                            hwc.ctypes.data, int(mode)) != 0:
         raise MetadataError(lib().tm_jpeg_error().decode())
     return out
 

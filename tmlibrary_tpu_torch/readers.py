@@ -14,6 +14,10 @@ read with no JVM and no codec library:
   strips -- with its bounded parse cache, and the IFD walk and strip
   decode the TIFF-flavoured containers share (``:1936-2113``,
   ``:2480-2525``);
+- the decode of every TIFF page the JAX package hands to ``cv2``
+  (:func:`decode_tiff_page`: tiles, colour, planes, float, JPEG-in-TIFF)
+  and the order of the decoders after the grey TIFF readers
+  (:func:`decode_image_file`);
 - the container parsers: Nikon ND2, Zeiss CZI and LSM, Leica LIF,
   DeltaVision DV/R3D, MetaMorph STK, Olympus OIF/OIB (the OLE2 file
   through :mod:`tmlibrary_tpu_torch.cfb`), PerkinElmer Opera FLEX, and
@@ -293,14 +297,7 @@ def _tiff_int(bo: str, buf, ifd: dict, tag: int, default: int) -> int:
 def _tiff_strips(bo: str, buf, ifd: dict, filename) -> tuple[list, list]:
     """StripOffsets/StripByteCounts of an IFD; a tiled or corrupt IFD
     raises :class:`MetadataError`."""
-    try:
-        offs = _tiff_ints(bo, buf, ifd[273])
-        counts = _tiff_ints(bo, buf, ifd[279])
-    except KeyError as exc:
-        raise MetadataError(f"TIFF IFD without strip tags (tiled or corrupt): {filename}") \
-            from exc
-    except struct.error as exc:
-        raise MetadataError(f"corrupt TIFF tag data in {filename}") from exc
+    offs, counts = _tiff_chunk_table(bo, buf, ifd, False, filename)
     if not offs or len(offs) != len(counts):
         raise MetadataError(f"corrupt TIFF strip layout in {filename}")
     return offs, counts
@@ -332,12 +329,13 @@ def _decode_strip(chunk: bytes, compression: int, expect: int, filename) -> byte
     return out
 
 
-def _apply_predictor(plane: np.ndarray, predictor: int) -> np.ndarray:
-    """TIFF predictor 2 (horizontal differencing): cumulative sum along
-    rows with the sample width's wraparound."""
-    if predictor == 2:
-        return np.cumsum(plane.astype(np.uint32), axis=1).astype(plane.dtype)
-    return plane
+def _grey_plane(raw: bytes, predictor: int, height: int, width: int,
+                dtype: np.dtype) -> np.ndarray:
+    """A grey reader's decoded plane after its predictor: 2 as
+    :func:`_unpredict` applies it, any other value ignored; in ``dtype``,
+    the file's byte order, as the JAX package's grey readers return it."""
+    plane = _unpredict(raw, 2 if predictor == 2 else 1, (height, width, 1), dtype)
+    return plane[:, :, 0].astype(dtype, copy=False)
 
 
 def _decode_ifd_plane(bo, buf, ifd, width, height, dtype, filename) -> np.ndarray:
@@ -356,8 +354,7 @@ def _decode_ifd_plane(bo, buf, ifd, width, height, dtype, filename) -> np.ndarra
         rows_left -= rows
     if len(raw) < height * row_bytes:
         raise MetadataError(f"truncated TIFF plane in {filename}")
-    plane = np.frombuffer(bytes(raw[:height * row_bytes]), dtype).reshape(height, width)
-    return _apply_predictor(plane, predictor)
+    return _grey_plane(bytes(raw[:height * row_bytes]), predictor, height, width, dtype)
 
 
 def _gray_ifd_plane(bo, buf, ifd, filename, what) -> np.ndarray:
@@ -393,35 +390,41 @@ def _tiff_parse_spans_key(m, spans) -> tuple:
     return tuple((s, e, zlib.crc32(m[s:e])) for s, e in [(0, min(len(m), 16))] + spans)
 
 
+def _cached_tiff_parse(f, m, path) -> tuple[str, list[dict]]:
+    """``(byteorder, ifds)`` of the open TIFF ``f`` mapped as ``m``, from
+    the parse cache while the file's stat key and the crc of every IFD
+    table the cached parse read still match (a tag's value outside its
+    IFD is read from ``m`` at decode time, so no tag goes stale)."""
+    st = os.fstat(f.fileno())
+    stat_key = (st.st_mtime_ns, st.st_size, st.st_ino)
+    spath = str(path)
+    with _TIFF_PY_PARSE_LOCK:
+        entry = _TIFF_PY_PARSE_CACHE.get(spath)
+    if entry is not None and entry[0] == stat_key:
+        # re-crc the ranges the cached parse read (outside the lock)
+        if all(e <= len(m) and zlib.crc32(m[s:e]) == c for s, e, c in entry[1]):
+            with _TIFF_PY_PARSE_LOCK:
+                if spath in _TIFF_PY_PARSE_CACHE:
+                    _TIFF_PY_PARSE_CACHE.move_to_end(spath)
+            return entry[2]
+    spans: list = []
+    hit = _tiff_parse(m, spans)
+    key = _tiff_parse_spans_key(m, spans)
+    with _TIFF_PY_PARSE_LOCK:
+        _TIFF_PY_PARSE_CACHE[spath] = (stat_key, key, hit)
+        _TIFF_PY_PARSE_CACHE.move_to_end(spath)
+        while len(_TIFF_PY_PARSE_CACHE) > _TIFF_PY_PARSE_CACHE_MAX:
+            _TIFF_PY_PARSE_CACHE.popitem(last=False)
+    return hit
+
+
 def read_tiff_page(path, page: int) -> np.ndarray:
     """Page ``page`` of an 8/16-bit grayscale strip TIFF (classic or
     BigTIFF; none, LZW, deflate or PackBits strips; predictor 2) as
     stored; raises :class:`MetadataError` or :class:`NotSupportedError`
     naming what it cannot read."""
     with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
-        st = os.fstat(f.fileno())
-        stat_key = (st.st_mtime_ns, st.st_size, st.st_ino)
-        spath = str(path)
-        with _TIFF_PY_PARSE_LOCK:
-            entry = _TIFF_PY_PARSE_CACHE.get(spath)
-        hit = None
-        if entry is not None and entry[0] == stat_key:
-            # re-crc the ranges the cached parse read (outside the lock)
-            if all(e <= len(m) and zlib.crc32(m[s:e]) == c for s, e, c in entry[1]):
-                hit = entry[2]
-                with _TIFF_PY_PARSE_LOCK:
-                    if spath in _TIFF_PY_PARSE_CACHE:
-                        _TIFF_PY_PARSE_CACHE.move_to_end(spath)
-        if hit is None:
-            spans: list = []
-            hit = _tiff_parse(m, spans)
-            key = _tiff_parse_spans_key(m, spans)
-            with _TIFF_PY_PARSE_LOCK:
-                _TIFF_PY_PARSE_CACHE[spath] = (stat_key, key, hit)
-                _TIFF_PY_PARSE_CACHE.move_to_end(spath)
-                while len(_TIFF_PY_PARSE_CACHE) > _TIFF_PY_PARSE_CACHE_MAX:
-                    _TIFF_PY_PARSE_CACHE.popitem(last=False)
-        bo, ifds = hit
+        bo, ifds = _cached_tiff_parse(f, m, path)
         if not 0 <= page < len(ifds):
             raise MetadataError(f"{path}: no page {page} (the file has {len(ifds)})")
         return _gray_ifd_plane(bo, m, ifds[page], path, "plain TIFF pages")
@@ -449,15 +452,372 @@ def tiff_dimensions(path) -> "tuple[int, int] | None":
     return (height, width) if height > 0 and width > 0 else None
 
 
+# ------------------------------------------------ the TIFF pages cv2 reads
+#: what the grey readers above decline and ``cv2.imread(...,
+#: IMREAD_UNCHANGED)`` reads: tiles, 1-4 samples, chunky or planar,
+#: 8/16/32/64-bit samples, JPEG (7) chunks; TIFF's name for each refusal
+_TIFF_PHOTOMETRIC = {0: "MinIsWhite", 1: "MinIsBlack", 2: "RGB", 3: "palette", 4: "mask",
+                     5: "separated (CMYK)", 6: "YCbCr", 8: "CIELab", 9: "ICCLab",
+                     10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
+
+
+def _tiff_refuse(filename, what: str) -> NotSupportedError:
+    return NotSupportedError(f"{filename}: {what} is not supported")
+
+
+def _tiff_chunk_table(bo, buf, ifd, tiled: bool, filename) -> tuple[list, list]:
+    """The offsets and byte counts of an IFD's strips or tiles."""
+    off_tag, cnt_tag = (324, 325) if tiled else (273, 279)
+    try:
+        offs = _tiff_ints(bo, buf, ifd[off_tag])
+        counts = _tiff_ints(bo, buf, ifd[cnt_tag])
+    except KeyError as exc:
+        raise MetadataError(f"TIFF IFD without {'tile' if tiled else 'strip'} offsets or "
+                            f"byte counts: {filename}") from exc
+    except struct.error as exc:
+        raise MetadataError(f"corrupt TIFF tag data in {filename}") from exc
+    return offs, counts
+
+
+def _unpredict(raw, predictor: int, shape: tuple, dtype: np.dtype) -> np.ndarray:
+    """One decoded chunk as ``shape = (rows, cols, samples)`` of ``dtype``
+    (the file's byte order) after libtiff's predictor: 2 adds each sample
+    to the one ``samples`` before it in its row, modulo its width; 3
+    (floating point) adds bytes so, then gathers each value's bytes from
+    the row's byte planes, most significant first."""
+    rows, cols, spp = shape
+    if predictor == 1:
+        return np.frombuffer(raw, dtype).reshape(shape)
+    if predictor == 2:  # the sum wraps at the sample's width, as libtiff's
+        unsigned = np.dtype(f"u{dtype.itemsize}")
+        u = np.frombuffer(raw, unsigned.newbyteorder(dtype.byteorder)).reshape(shape)
+        return np.cumsum(u, axis=1, dtype=unsigned).view(dtype.newbyteorder("="))
+    bps = dtype.itemsize
+    x = np.frombuffer(raw, np.uint8).reshape(rows, cols * bps, spp)
+    x = np.cumsum(x, axis=1, dtype=np.uint8).reshape(rows, bps, cols * spp)
+    le = np.ascontiguousarray(x[:, ::-1, :].transpose(0, 2, 1))
+    return le.view(dtype.newbyteorder("<")).reshape(shape)
+
+
+def _tiff_jpeg_chunk(chunk: bytes, tables: "bytes | None", ycc: bool, want: tuple,
+                     last_strip: bool, sampling: tuple, filename) -> np.ndarray:
+    """One JPEG (compression 7) strip or tile as libtiff's JPEG codec
+    gives it to ``TIFFReadRGBA*``: the ``JPEGTables`` stream read first,
+    YCbCr converted by libjpeg (``JPEGCOLORMODE_RGB``) or the components
+    as stored, the stream's size, component count and sampling checked
+    against the segment as ``JPEGPreDecode`` checks them.  ``(rows, cols,
+    components)`` uint8, colour in R, G, B order."""
+    rows, cols, ncomp = want
+    stream = chunk
+    if tables:
+        head = bytes(tables[:-2]) if bytes(tables[-2:]) == b"\xff\xd9" else bytes(tables)
+        stream = head + bytes(chunk[2:]) if bytes(chunk[:2]) == b"\xff\xd8" else head + bytes(chunk)
+    try:
+        img = native.jpeg_decode_array(stream, native.JPEG_YCC if ycc else native.JPEG_RAW)
+    except MetadataError as e:
+        raise MetadataError(f"corrupt JPEG strip or tile in {filename}: {e}") from e
+    img = img.reshape(img.shape[0], img.shape[1], -1)
+    if img.shape[2] != ncomp:
+        raise MetadataError(f"{filename}: improper JPEG component count {img.shape[2]}")
+    h, w = img.shape[:2]
+    if not (w == cols and h > rows and last_strip) and (w > cols or h > rows):
+        raise MetadataError(f"{filename}: JPEG strip/tile size exceeds expected dimensions, "
+                            f"expected {cols}x{rows}, got {w}x{h}")
+    if w < cols or h < rows:
+        raise _tiff_refuse(filename, f"a JPEG strip or tile smaller than its segment "
+                                     f"({w}x{h} for {cols}x{rows})")
+    hv = native.jpeg_sampling(stream)
+    if hv[0] != sampling or any(f != (1, 1) for f in hv[1:]):
+        raise MetadataError(f"{filename}: improper JPEG sampling factors {hv}, apparently "
+                            f"should be {sampling}")
+    img = img[:rows, :cols]
+    return img[:, :, ::-1] if ycc else img  # the decoder's BGR back to R, G, B
+
+
+def _skewed_grey_rows(block: np.ndarray, h: int, w: int, tw: int) -> np.ndarray:
+    """The grey samples libtiff's ``putagreytile`` reads from an edge
+    tile of grey-with-alpha pixels (``w`` of the tile's ``tw`` columns in
+    the image): it steps from one row to the next by ``tw - w`` bytes
+    past the row's ``w`` pixels, not by the tile's row, so row ``r``
+    starts ``r * (w * pixel_bytes + tw - w)`` bytes into the tile."""
+    native_order = np.ascontiguousarray(block, block.dtype.newbyteorder("="))
+    raw = native_order.view(np.uint8).reshape(-1)
+    isz = block.dtype.itemsize
+    at = (np.arange(h)[:, None] * (w * 2 * isz + tw - w)
+          + np.arange(w)[None, :] * 2 * isz)
+    vals = raw[at].astype(np.uint16)
+    if isz == 2:  # a little-endian host's sample bytes, wherever they start
+        vals |= raw[at + 1].astype(np.uint16) << 8
+    return vals.astype(block.dtype.newbyteorder("=")) if isz == 2 else \
+        vals.astype(np.uint8).view(block.dtype.newbyteorder("="))
+
+
+def _channels(x: np.ndarray, order: list) -> np.ndarray:
+    """``x[:, :, order]``, C-contiguous, one strided copy a channel
+    (numpy's fancy index or a reversed stride copies several times
+    slower)."""
+    out = np.empty(x.shape[:2] + (len(order),), x.dtype)
+    for i, c in enumerate(order):
+        out[:, :, i] = x[:, :, c]
+    return out
+
+
+def decode_tiff_page(bo: str, buf, ifd: dict, filename) -> np.ndarray:
+    """One IFD as ``cv2.imread(path, IMREAD_UNCHANGED)`` returns it with
+    this repo's OpenCV (libtiff 4.7): ``(H, W)`` or ``(H, W, 3|4)`` in
+    B, G, R(, A) order.
+
+    - 8-bit samples (and 16-bit grey with alpha) go through libtiff's
+      RGBA interface as cv2 sends them: MinIsWhite inverted, palette
+      through its colour map (a map with no entry above 255 taken as
+      8-bit), unassociated alpha premultiplied (``(v * a + 127) // 255``),
+      16-bit grey cut to its high byte, grey returned as one channel
+      (edge tiles of grey with alpha as libtiff misreads them,
+      :func:`_skewed_grey_rows`);
+      JPEG chunks through the port's decoder, YCbCr as libjpeg converts
+      it.
+    - 16-, 32- and 64-bit samples are returned as stored (uint16/int16,
+      uint32/int32/float32, float64) with R and B swapped.
+
+    Strips or tiles (BigTIFF too), chunky or planar (cv2 reads a planar
+    16-, 32- or 64-bit page from memory it never wrote; this returns the
+    stored samples), none/LZW/deflate/PackBits with predictors 2 and 3,
+    JPEG with ``JPEGTables``.  What cv2 does not read, and what the port
+    leaves out (orientations other than 1, 1/2/4/10/12/14-bit samples,
+    YCbCr other than JPEG's, CMYK, Lab, old-style JPEG), raises
+    :class:`NotSupportedError` or :class:`MetadataError` naming it."""
+    tag = lambda t, d: _tiff_int(bo, buf, ifd, t, d)  # noqa: E731
+    width, height = tag(256, 0), tag(257, 0)
+    if width <= 0 or height <= 0:
+        raise MetadataError(f"corrupt TIFF dimensions in {filename}")
+    bits_all = _tiff_ints(bo, buf, ifd[258]) if 258 in ifd else [1]
+    bits = bits_all[0] if bits_all else 1
+    if any(b != bits for b in bits_all):
+        raise MetadataError(f"{filename}: different BitsPerSample per sample {bits_all}")
+    spp = tag(277, 1)
+    fmt = tag(339, 1)
+    if 262 not in ifd:
+        raise _tiff_refuse(filename, "a TIFF page without PhotometricInterpretation")
+    phot = tag(262, 1)
+    planar = tag(284, 1) if spp > 1 else 1
+    compression = tag(259, 1)
+    predictor = tag(317, 1)
+    if tag(274, 1) != 1:
+        raise _tiff_refuse(filename, f"TIFF Orientation {tag(274, 1)}")
+    if compression == 6:
+        raise _tiff_refuse(filename, "old-style JPEG TIFF (compression 6)")
+    if compression not in (1, 5, 7, 8, 32946, 32773):
+        raise _tiff_refuse(filename, f"TIFF compression {compression}")
+    if spp > 4:
+        raise MetadataError(f"{filename}: {spp} samples a pixel (cv2 reads 1 to 4)")
+    if planar not in (1, 2):
+        raise MetadataError(f"{filename}: PlanarConfiguration {planar}")
+    rgba8 = bits == 8 or (bits == 16 and spp == 2)
+    if bits not in (8, 16, 32, 64):
+        raise _tiff_refuse(filename, f"{bits}-bit TIFF samples")
+    if rgba8 or bits == 16:
+        if fmt not in (1, 2):
+            raise MetadataError(f"{filename}: SampleFormat {fmt} at {bits} bits")
+    elif (bits, fmt) not in ((32, 1), (32, 2), (32, 3), (64, 3)):
+        raise MetadataError(f"{filename}: SampleFormat {fmt} at {bits} bits")
+    if spp == 2 and not rgba8:
+        raise MetadataError(f"{filename}: grey with alpha at {bits} bits")
+    name = _TIFF_PHOTOMETRIC.get(phot, f"photometric {phot}")
+    if phot in (0, 1):
+        ok = spp in ((1, 2) if rgba8 else (1,)) and not (phot == 0 and planar == 2)
+    elif phot == 2:
+        ok = spp in (3, 4)
+    elif phot == 3:
+        ok = spp == 1 and bits == 8
+    elif phot == 6:
+        ok = compression == 7 and spp == 3 and planar == 1
+    else:
+        ok = False
+    if not ok:
+        raise _tiff_refuse(filename, f"a {name} TIFF page of {spp} {bits}-bit samples"
+                           + (" in planes" if planar == 2 else "")
+                           + (f" with compression {compression}" if phot == 6 else ""))
+    if compression == 7 and bits != 8:
+        raise _tiff_refuse(filename, f"{bits}-bit JPEG TIFF")
+    if compression != 7:
+        if predictor == 2 and bits not in (8, 16, 32, 64):
+            raise MetadataError(f"{filename}: horizontal predictor at {bits} bits")
+        if predictor == 3 and fmt != 3:
+            raise MetadataError(f"{filename}: floating-point predictor on SampleFormat {fmt}")
+        if predictor not in (1, 2, 3):
+            raise MetadataError(f"{filename}: Predictor {predictor}")
+    else:
+        predictor = 1
+
+    tiled = 322 in ifd or 323 in ifd
+    if tiled:
+        th, tw = tag(323, 0), tag(322, 0)
+        if th <= 0 or tw <= 0:
+            raise MetadataError(f"corrupt TIFF tile size in {filename}")
+    else:
+        th, tw = min(tag(278, 0xFFFFFFFF) or 0xFFFFFFFF, height), width
+    planes = spp if planar == 2 else 1
+    cspp = 1 if planar == 2 else spp
+    kind = {1: "u", 2: "i", 3: "f"}[fmt]
+    fdtype = np.dtype(f"{bo}{kind}{bits // 8}")
+    # cv2's limits (its validateInputImageSize, its TIFF decoder's tile
+    # checks), held before the file's sizes size anything
+    if width > 1 << 20 or height > 1 << 20 or width * height > 1 << 30:
+        raise MetadataError(f"{filename}: a {width}x{height} TIFF page (cv2 reads at most "
+                            f"2^20 pixels a side and 2^30 in all)")
+    if th > 1 << 24 or tw > 1 << 24 or th * tw * spp * fdtype.itemsize >= 1 << 30:
+        raise MetadataError(f"{filename}: a {tw}x{th} TIFF tile of {spp} samples "
+                            f"(cv2 reads tiles under 1 GiB)")
+    what = "tile" if tiled else "strip"
+    ny, nx = -(-height // th), -(-width // tw)
+    n = planes * ny * nx
+    offs, counts = _tiff_chunk_table(bo, buf, ifd, tiled, filename)
+    if len(offs) < n or len(counts) < n:
+        raise MetadataError(f"corrupt TIFF {what} layout in {filename}: {len(offs)} offsets "
+                            f"for {n} {what}s")
+    if compression == 7:
+        tables = None
+        if 347 in ifd:
+            typ, cnt, voff = ifd[347]
+            tables = bytes(buf[voff:voff + cnt])
+        ycc = phot == 6
+        if ycc:
+            sub = _tiff_ints(bo, buf, ifd[530]) if 530 in ifd else []
+            sampling = tuple(sub[:2]) if len(sub) >= 2 else \
+                native.jpeg_sampling(buf[offs[0]:offs[0] + counts[0]])[0]
+        else:
+            sampling = (1, 1)
+    # every chunk decoded into one (n * th, tw, cspp) array, the short last
+    # strip padded; the predictor, the tile layout and the crop then act
+    # on the whole page at once
+    chunk_bytes = th * tw * cspp * fdtype.itemsize
+    flat = np.empty(n * chunk_bytes, np.uint8)
+    for k in range(n):
+        rows = th if tiled else min(th, height - (k % ny) * th)
+        off, cnt = offs[k], counts[k]
+        if off + cnt > len(buf) or cnt <= 0:
+            raise MetadataError(f"truncated TIFF {what} {k} in {filename}")
+        at = k * chunk_bytes
+        if compression == 7:
+            block = _tiff_jpeg_chunk(buf[off:off + cnt], tables, ycc, (rows, tw, cspp),
+                                     not tiled and k % ny == ny - 1, sampling, filename)
+            flat[at:at + block.size] = block.reshape(-1)
+        else:
+            expect = rows * tw * cspp * fdtype.itemsize
+            raw = _decode_strip(buf[off:off + cnt], compression, expect, filename)
+            flat[at:at + expect] = np.frombuffer(raw, np.uint8)
+    blocks = _unpredict(flat, predictor, (n * th, tw, cspp), fdtype).reshape(
+        planes, ny, nx, th, tw, cspp)
+    if rgba8 and spp == 2 and tiled and planar == 1 and width % tw:
+        w = width - (nx - 1) * tw
+        for iy in range(ny):
+            h = min(th, height - iy * th)
+            blocks[0, iy, nx - 1, :h, :w, 0] = _skewed_grey_rows(blocks[0, iy, nx - 1], h, w, tw)
+    samples = blocks.transpose(1, 3, 2, 4, 0, 5).reshape(ny * th, nx * tw, spp)[
+        :height, :width].astype(fdtype.newbyteorder("="))
+    if not rgba8:
+        if spp == 1:
+            return samples[:, :, 0]
+        return _channels(samples, [2, 1, 0, 3] if spp == 4 else [2, 1, 0])
+    u8 = np.dtype(np.int8 if fmt == 2 else np.uint8)
+    if phot in (0, 1):
+        unsigned = samples.view(samples.dtype.str.replace("i", "u")).astype(np.int64)
+        g = unsigned[:, :, 0]
+        if planar == 2:  # libtiff's separate-plane RGB routines: 16 bits rounded to 8
+            a = unsigned[:, :, 1]
+            if bits == 16:
+                g, a = (g * 255 + 32767) // 65535, (a * 255 + 32767) // 65535
+            extra = _tiff_ints(bo, buf, ifd[338]) if 338 in ifd else []
+            if extra and extra[0] == 2:  # unassociated alpha: premultiplied
+                g = (g * a + 127) // 255
+        elif bits == 16:
+            g = g >> 8
+        if phot == 0:
+            g = 255 - g
+        return g.astype(np.uint8).view(u8)
+    if phot == 3:
+        cmap = np.asarray(_tiff_ints(bo, buf, ifd[320]) if 320 in ifd else [], np.int64)
+        if cmap.size != 3 * 256:
+            raise MetadataError(f"{filename}: a palette page without a 256-entry ColorMap")
+        cmap = cmap.reshape(3, 256)
+        if cmap.max() > 255:
+            cmap = cmap >> 8
+        idx = samples[:, :, 0].view(np.uint8)
+        return np.ascontiguousarray(np.stack([cmap[2][idx], cmap[1][idx], cmap[0][idx]], -1)
+                                    .astype(np.uint8)).view(u8)
+    rgb = samples.view(np.uint8)
+    if spp == 4:
+        extra = _tiff_ints(bo, buf, ifd[338]) if 338 in ifd else []
+        if extra and extra[0] == 2:  # unassociated alpha: libtiff premultiplies
+            a = rgb[:, :, 3:4].astype(np.int32)
+            rgb = np.concatenate([((rgb[:, :, :3] * a + 127) // 255).astype(np.uint8),
+                                  rgb[:, :, 3:4]], axis=2)
+        return _channels(rgb, [2, 1, 0, 3]).view(u8)
+    return _channels(rgb, [2, 1, 0]).view(u8)
+
+
+def read_tiff_page_cv2(path, page: int) -> np.ndarray:
+    """Page ``page`` of a TIFF as :func:`decode_tiff_page` gives it, the
+    IFDs from the parse cache."""
+    with open(path, "rb") as f, mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as m:
+        bo, ifds = _cached_tiff_parse(f, m, path)
+        if not 0 <= page < len(ifds):
+            raise MetadataError(f"{path}: no page {page} (the file has {len(ifds)})")
+        return decode_tiff_page(bo, m, ifds[page], path)
+
+
 # ------------------------------------------------------- image readers
+def decode_image_file(path, page: int) -> "np.ndarray | None":
+    """The decoders the port puts after the grey TIFF readers, in the
+    reference's order (the PNG codec, the JPEG decoder, then the TIFF
+    pages cv2 reads: :func:`decode_tiff_page`), each plane as ``cv2``
+    hands it to ``cvtColor``: grey as stored, colour converted by
+    :func:`~tmlibrary_tpu_torch.io.png.to_gray`.  ``page`` is read where
+    the format has pages (the reference's ``ImageReader`` returns page 0
+    of a file that reaches cv2, whatever ``page`` says).  None when no
+    such decoder takes the file; a file one takes and cannot decode
+    raises :class:`MetadataError` naming the file and the feature."""
+    path = Path(path)
+    if png.is_png(path):
+        if page:
+            raise MetadataError(f"cannot read page {page} of {path}: a PNG has one")
+        img = png.read(path)
+        return png.to_gray(img) if img.ndim == 3 else img
+    try:
+        with open(path, "rb") as f:
+            magic = f.read(4)
+    except OSError:
+        return None
+    if magic.startswith(b"\xff\xd8\xff"):
+        if page:
+            raise MetadataError(f"cannot read page {page} of {path}: a JPEG has one")
+        try:
+            img = native.jpeg_decode_array(path.read_bytes())
+        except MetadataError as e:  # the feature or damage the decoder refused
+            raise MetadataError(f"cannot read image {path}: a JPEG file the port's readers "
+                                f"do not decode: {e}") from e
+        return png.to_gray(img) if img.ndim == 3 else img
+    if magic in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
+        try:
+            img = read_tiff_page_cv2(path, page)
+            return png.to_gray(img) if img.ndim == 3 else img
+        except (NotSupportedError, struct.error, ValueError, MemoryError) as e:
+            raise MetadataError(f"cannot read image {path}: a TIFF page the port's readers "
+                                f"do not decode: {e}") from e
+        except MetadataError as e:
+            raise MetadataError(f"cannot read image {path}: {e}") from e
+    return None
+
+
 class ImageReader(Reader):
-    """Read one 2-D plane of an image file, as imextract does: a
+    """Read one 2-D plane of an image file, in the JAX package's order: a
     container by its linear page index, then the C++ TIFF reader, the
-    Python TIFF reader (``.tif``/``.tiff``), the PNG codec (colour
-    converted to grey), the grey baseline-JPEG decoder.  uint8/uint16 as
-    stored.  Where the JAX package
-    hands any other file to ``cv2``, this raises
-    :class:`~tmlibrary_tpu_torch.errors.MetadataError`."""
+    Python TIFF reader (``.tif``/``.tiff``), then what the JAX package
+    hands to ``cv2`` (:func:`decode_image_file`: PNG, JPEG of 1 or 3
+    components, baseline or progressive, and the TIFF pages cv2 reads),
+    colour converted to grey as cv2 converts it.  Pages are read as asked
+    where the reference's cv2 path reads page 0 (ROADMAP C).  A file no
+    reader takes raises :class:`~tmlibrary_tpu_torch.errors.MetadataError`."""
 
     def __enter__(self):
         self._container = _open_container(self.filename)
@@ -483,20 +843,11 @@ class ImageReader(Reader):
             img = read_tiff_page_py(self.filename, page)
             if img is not None:
                 return img
-        if png.is_png(self.filename):
-            if page:
-                raise MetadataError(f"cannot read page {page} of {self.filename}: a PNG has one")
-            img = png.read(self.filename)
-            return png.to_gray(img) if img.ndim == 3 else img
-        if self.filename.is_file():
-            raw = self.filename.read_bytes()
-            if raw.startswith(b"\xff\xd8\xff"):  # a grey baseline JPEG
-                if page:
-                    raise MetadataError(f"cannot read page {page} of {self.filename}: a JPEG "
-                                        "has one")
-                return native.jpeg_decode_array(raw)
         if not self.filename.exists():
             raise FileNotFoundError(f"cannot read image: {self.filename}")
+        img = decode_image_file(self.filename, page)
+        if img is not None:
+            return img
         raise MetadataError(f"cannot read image {self.filename}: no reader of the port "
                             "decodes it")
 
@@ -1058,16 +1409,19 @@ def _czi_zstd_plane(raw: bytes, h: int, w: int, zstd1: bool, filename,
 
 def _jpeg_plane(raw: bytes, h: int, w: int, dtype, filename) -> np.ndarray:
     """A JPEG (compression 1, ZEN's legacy lossy option) CZI subblock as an
-    ``(h, w)`` plane of ``dtype``, decoded by the port's baseline-JPEG
-    decoder (:func:`tmlibrary_tpu_torch.native.jpeg_decode_array`); a
-    stream it cannot decode or another geometry than the directory's
-    raises :class:`MetadataError`.  Counterpart:
-    ``tmlibrary_tpu/readers.py:1324-1354`` (``cv2.imdecode``, which also
-    reads colour, progressive and arithmetic streams)."""
+    ``(h, w)`` plane of ``dtype``, decoded by the port's JPEG decoder
+    (:func:`tmlibrary_tpu_torch.native.jpeg_decode_array`: grey or
+    colour, baseline or progressive), colour converted to grey as cv2
+    converts it; a stream it cannot decode or another geometry than the
+    directory's raises :class:`MetadataError`.  Counterpart:
+    ``tmlibrary_tpu/readers.py:1324-1354`` (``cv2.imdecode`` and
+    ``cvtColor``)."""
     try:
         img = native.jpeg_decode_array(raw)
     except MetadataError as exc:
         raise MetadataError(f"{filename}: corrupt JPEG subblock: {exc}") from exc
+    if img.ndim == 3:
+        img = png.to_gray(img)
     if img.shape != (h, w):
         raise MetadataError(
             f"{filename}: JPEG subblock decodes to {img.shape}, directory says {(h, w)}")
@@ -1968,10 +2322,8 @@ class STKReader(Reader):
             raw += self._data[base:base + take]
             if len(raw) >= need:
                 break
-        plane = np.frombuffer(bytes(raw), self._dtype).reshape(
-            self.height, self.width
-        )
-        return _apply_predictor(plane, self._predictor)
+        return _grey_plane(bytes(raw), self._predictor, self.height, self.width,
+                           self._dtype)
 
     def read_plane_linear(self, page: int) -> np.ndarray:
         return self.read_plane(page)
@@ -2108,10 +2460,7 @@ class LSMReader(Reader):
         expect = self.width * self.height * self._dtype.itemsize
         raw = _decode_strip(bytes(buf[offs[c]:offs[c] + counts[c]]),
                             compression, expect, self.filename)
-        plane = np.frombuffer(raw, self._dtype).reshape(
-            self.height, self.width
-        )
-        return _apply_predictor(plane, predictor)
+        return _grey_plane(raw, predictor, self.height, self.width, self._dtype)
 
     def read_plane_linear(self, page: int) -> np.ndarray:
         ct, t = divmod(page, self.n_tpoints)

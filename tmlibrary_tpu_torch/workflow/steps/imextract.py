@@ -8,20 +8,21 @@ site stacks in batches of ``batch_size`` files.
 A plane is read in the JAX package's order (:meth:`ImageExtractor._read_plane`):
 a microscope container by the page its metaconfig handler wrote
 (:func:`~tmlibrary_tpu_torch.readers.read_container_plane`: ND2, CZI,
-LIF, DV, STK, LSM, OIF/OIB, FLEX, OME-NGFF), then the C++ TIFF reader (:func:`~tmlibrary_tpu_torch.native.tiff_read`),
-then the Python TIFF reader for what it declines (BigTIFF, deflate
-strips), then the PNG codec (:mod:`~tmlibrary_tpu_torch.io.png`, colour
-converted to grey as cv2 converts it), then the baseline-JPEG decoder
-for a grey JPEG (:func:`~tmlibrary_tpu_torch.native.jpeg_decode_array`,
-the pixels ``cv2.imread(..., IMREAD_UNCHANGED)`` gives).  Where the JAX
-package hands any other file to ``cv2`` (a colour, progressive or
-arithmetic JPEG among them), the port raises
-:class:`~tmlibrary_tpu_torch.errors.MetadataError` naming the file and
-its format.  The decode thread pool is sized by the JAX package's default
-rule unless ``TMX_INGEST_WORKERS`` pins it (anything unparseable or
-below 1 gives the default); ``TMX_INGEST_THROTTLE_MS`` sleeps that long
-in the worker before each plane read, a cold source's latency that the
-pool overlaps (the ingest bench's cold rows).
+LIF, DV, STK, LSM, OIF/OIB, FLEX, OME-NGFF), then the C++ TIFF reader
+(:func:`~tmlibrary_tpu_torch.native.tiff_read`), then the Python TIFF
+reader for what it declines (BigTIFF, deflate strips), then the
+decoders of what the JAX package hands to ``cv2``
+(:func:`~tmlibrary_tpu_torch.readers.decode_image_file`: the PNG codec,
+the JPEG decoder for 1- and 3-component baseline and progressive
+streams, the TIFF pages cv2 reads -- tiled, colour, float, JPEG-in-TIFF),
+colour converted to grey as cv2 converts it.  A file none of them
+decodes raises :class:`~tmlibrary_tpu_torch.errors.MetadataError` naming
+the file and its format or feature.  The decode thread pool is sized by
+the JAX package's default rule unless ``TMX_INGEST_WORKERS`` pins it
+(anything unparseable or below 1 gives the default);
+``TMX_INGEST_THROTTLE_MS`` sleeps that long in the worker before each
+plane read, a cold source's latency that the pool overlaps (the ingest
+bench's cold rows).
 """
 
 from __future__ import annotations
@@ -34,22 +35,21 @@ import numpy as np
 
 from tmlibrary_tpu_torch import native
 from tmlibrary_tpu_torch.errors import MetadataError
-from tmlibrary_tpu_torch.io import png
-from tmlibrary_tpu_torch.readers import read_container_plane, read_tiff_page, read_tiff_page_py
+from tmlibrary_tpu_torch.readers import (decode_image_file, read_container_plane,
+                                         read_tiff_page_py)
 from tmlibrary_tpu_torch.utils import create_partitions
 from tmlibrary_tpu_torch.workflow.api import Step
 from tmlibrary_tpu_torch.workflow.args import Argument, ArgumentCollection
 from tmlibrary_tpu_torch.workflow.registry import register_step
 
-#: leading bytes -> the format named when the port cannot read a file
-_MAGIC = ((b"II*\0", "TIFF"), (b"MM\0*", "TIFF"), (b"II+\0", "BigTIFF"),
-          (b"MM\0+", "BigTIFF"), (png.SIGNATURE, "PNG"), (b"\xff\xd8\xff", "JPEG"),
-          (b"BM", "BMP"), (b"GIF8", "GIF"))
+#: leading bytes -> the format named when no reader of the port takes a
+#: file (PNG, JPEG and TIFF files reach a decoder, which names its refusal)
+_MAGIC = ((b"BM", "BMP"), (b"GIF8", "GIF"))
 
 
 def _unreadable(path: str, page: "int | None") -> MetadataError:
     """The error for a file no reader of the port takes: its format by
-    its leading bytes, and for a TIFF the Python reader's reason."""
+    its leading bytes."""
     try:
         with open(path, "rb") as f:
             head = f.read(8)
@@ -59,14 +59,8 @@ def _unreadable(path: str, page: "int | None") -> MetadataError:
     if fmt is None:
         return MetadataError(f"cannot read image {path}: unknown format "
                              f"(leading bytes {head.hex()})")
-    why = ""
-    if fmt in ("TIFF", "BigTIFF"):
-        try:
-            read_tiff_page(path, page or 0)
-        except Exception as e:  # the reason the reader declined it
-            why = f": {e}"
     return MetadataError(f"cannot read image {path}: a {fmt} file the port's readers do not "
-                         f"decode{why}")
+                         "decode")
 
 
 @register_step("imextract")
@@ -87,9 +81,16 @@ class ImageExtractor(Step):
     @staticmethod
     def _read_plane(path: str, page: "int | None", height: int, width: int) -> np.ndarray:
         """One grayscale plane: a container, the C++ TIFF reader, the
-        Python TIFF reader (``.tif``/``.tiff``), the PNG codec, the grey
-        baseline-JPEG decoder, in that order; anything else raises
-        :class:`MetadataError`.  Sleeps
+        Python TIFF reader (``.tif``/``.tiff``), then
+        :func:`~tmlibrary_tpu_torch.readers.decode_image_file` (PNG,
+        JPEG, the TIFF pages cv2 reads; page ``page``, as the reference's
+        ``cv2.imreadmulti``), in that order; anything else raises
+        :class:`MetadataError`.  The plane keeps the dtype it was decoded
+        in (uint8, uint16, int16, uint32, int32, float32, float64);
+        :meth:`run_batch` then casts it with the reference's
+        ``np.asarray(img, np.uint16)``, which truncates a float toward
+        zero and wraps any value modulo 2**16 (-1.5 -> 65535, 70000.7 ->
+        4464 with numpy on x86-64; NaN and infinities -> 0).  Sleeps
         ``TMX_INGEST_THROTTLE_MS`` first where it is set."""
         throttle = os.environ.get("TMX_INGEST_THROTTLE_MS")
         if throttle:
@@ -107,21 +108,9 @@ class ImageExtractor(Step):
             if img is not None:
                 return img
 
-        if png.is_png(path):
-            if page:
-                raise MetadataError(f"cannot read page {page} of {path}: a PNG has one")
-            img = png.read(path)
-            return png.to_gray(img) if img.ndim == 3 else img
-        with open(path, "rb") as f:
-            raw = f.read()
-        if raw.startswith(b"\xff\xd8\xff"):
-            if page:
-                raise MetadataError(f"cannot read page {page} of {path}: a JPEG has one")
-            try:
-                return native.jpeg_decode_array(raw)
-            except MetadataError as e:  # the feature or damage the decoder refused
-                raise MetadataError(f"cannot read image {path}: a JPEG file the port's "
-                                    f"readers do not decode: {e}") from e
+        img = decode_image_file(path, page or 0)
+        if img is not None:
+            return img
         raise _unreadable(path, page)
 
     def run_batch(self, batch: dict) -> dict:
