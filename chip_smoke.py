@@ -5,6 +5,9 @@ Run from the root of a checkout on a machine with one CUDA card:
 
     python3 chip_smoke.py
 
+Every line it prints goes to ``build/chip_smoke.log``; stdout gets a
+digest of them (:func:`digest_line`) that stays under 24 KB.
+
 Phases (any failure exits non-zero before the last line):
 
 1. Print the card's name and power limit (``nvidia-smi``); build the
@@ -227,10 +230,17 @@ Phases (any failure exits non-zero before the last line):
    first CPU batch of 16 held by ``CARD_TIERS``; one well each of a zstd0
    CZI, a Gray8 zstd0 CZI, a Gray8 JPEG CZI (its pixels hash to
    :data:`JPEG_DIGEST`), grey ``.jpg`` sites and Imaris files (contiguous;
-   chunked and deflated) through metaconfig and imextract; corilla and
-   ``export --illumstats 0`` read back equal to ``read_illumstats``; zstd
-   decode MiB/s, JPEG decode Mpix/s and HDF5 chunked-gzip read MiB/s on
-   one host thread; a ``codecs: {...}`` line.
+   chunked and deflated) through metaconfig and imextract; the decode
+   well (``decode_well_run``) and the HDF5 well (``hdf5_well_run``: the
+   four committed ``.ims`` files of ``tests/data/hdf5_well/``, each
+   another structure h5py writes, through metaconfig ``auto``, imextract
+   and config 3 with rows 1-4 at 1, 1, 1, 2, planes to the manifest's
+   digests, labels exact and features by ``CARD_TIERS`` against the
+   CPU, every dataset of ``datasetwriter.h5`` to its digest; an
+   ``hdf5: {...}`` line); corilla and ``export --illumstats 0`` read
+   back equal to ``read_illumstats``; zstd decode MiB/s, JPEG decode
+   Mpix/s and HDF5 chunked-gzip read MiB/s on one host thread; a
+   ``codecs: {...}`` line.
 14. The serving plane (``phase_serve``, ``serve_p24x4_256``): four
    experiments of 24 wells at 2x2 sites of 256x256 (96 sites, DAPI and
    Actin, one cycle) as YAML projects running config 3 in batches of
@@ -341,6 +351,7 @@ import fnmatch
 import functools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -645,6 +656,114 @@ def subspace_cos(a, b) -> float:
 
 class SmokeFailure(Exception):
     pass
+
+
+# -------------------------------------------------------------- the digest
+#: the whole output of a run, line for line; stdout gets its digest
+#: (:func:`digest_line`), which keeps a passing run's stdout under 24 KB
+LOG = Path(__file__).resolve().parent / "build" / "chip_smoke.log"
+#: indented lines the digest keeps (the figures PERF.md cites): each
+#: path's sites/s, phase 4's rates, the steps' and the engine's sites/s,
+#: the A/B harness's designs
+DIGEST_LINES = re.compile(
+    r"  (pipeline:|corilla: \d|align: \d|illuminati: \d|corilla step:|jterator step \(|"
+    r"engine[:,]|  imextract:|  illuminati:|  jterator: \d|shootout \w+ \(bound)")
+#: ``name: {...}`` records: keys the digest leaves to the log
+DIGEST_DROP = frozenset({
+    "stages", "flood_routes", "holds", "knobs", "trace_kernels", "tuned", "ratios",
+    "plain_s", "traced_s", "ms_range", "phase_s_per_job", "sync_sites", "twin_agrees",
+    "metric", "well", "run", "formats", "wells", "launches_run_a", "launches_h1",
+    "ingest_bench", "index_vs_brute"})
+DIGEST_WIDTH = 120
+_RECORD = re.compile(r"([a-z][\w ]*): (\{.*\})$")
+_ON_CARD = re.compile(r";? on NVIDIA[^;)]*$")
+
+
+def _round(obj, sig: int):
+    """``obj`` with every float to ``sig`` significant digits."""
+    if isinstance(obj, float):
+        return float(f"{obj:.{sig}g}")
+    if isinstance(obj, dict):
+        return {k: _round(v, sig) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_round(v, sig) for v in obj]
+    return obj
+
+
+def _brief(obj, sig: int):
+    """``obj`` with floats to ``sig`` significant digits, and the
+    :data:`DIGEST_DROP` keys and zero counts left out."""
+    if isinstance(obj, dict):
+        return {k: _brief(v, sig) for k, v in obj.items() if k not in DIGEST_DROP and v != 0}
+    if isinstance(obj, list):
+        return [_brief(v, sig) for v in obj]
+    return _round(obj, sig)
+
+
+def digest_line(line: str) -> "str | None":
+    """What stdout shows of an output line, or None: the card, build,
+    total, kernel and result lines as they are; each ``name: {...}``
+    record compacted (:func:`_brief`, 5 digits); a phase's headline up to
+    its first colon; an indented line only where :data:`DIGEST_LINES`
+    takes it, cut at :data:`DIGEST_WIDTH` without the card's name."""
+    if line.startswith(("{", "kernels:", "card:", "build:", "total:")):
+        return line
+    m = _RECORD.match(line)
+    if m:
+        try:
+            return f"{m.group(1)}: " + json.dumps(_brief(json.loads(m.group(2)), 5),
+                                                  separators=(",", ":"))
+        except ValueError:
+            pass
+    if not line.startswith(" "):
+        return line.split(":")[0]
+    if DIGEST_LINES.match(line):
+        return _ON_CARD.sub("", line)[:DIGEST_WIDTH]
+    return None
+
+
+class Digest:
+    """A stdout that writes every line to the file ``log`` (opened at the
+    first write, so a run that prints nothing leaves no file) and the
+    digest of each line to ``out``."""
+
+    def __init__(self, out, log: Path):
+        self.out, self.path, self.log, self.pending = out, log, None, ""
+
+    def write(self, text: str) -> int:
+        if self.log is None:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
+            self.log = open(self.path, "w")
+        self.log.write(text)
+        *lines, self.pending = (self.pending + text).split("\n")
+        for line in lines:
+            shown = digest_line(line)
+            if shown is not None:
+                self.out.write(shown + "\n")
+        return len(text)
+
+    def flush(self) -> None:
+        if self.log is not None:
+            self.log.flush()
+        self.out.flush()
+
+    def close(self) -> None:
+        if self.pending:
+            self.write("\n")
+        self.flush()
+        if self.log is not None:
+            self.log.close()
+
+
+def run_digested(fn) -> int:
+    """``fn()`` with its stdout split by :class:`Digest` into
+    :data:`LOG` and the digest."""
+    real, sys.stdout = sys.stdout, Digest(sys.stdout, LOG)
+    try:
+        return fn()
+    finally:
+        sys.stdout.close()
+        sys.stdout = real
 
 
 def card_line() -> str:
@@ -1864,13 +1983,10 @@ def main() -> int:
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print("kernels: " + ", ".join(r["name"] for r in records))
     # rows 1-9 add the launch alone beside the wrapper's `ms`, row 7 its A/B
-    print(json.dumps({"kernels": [{k: r[k] for k in order + ["launch_ms", "ab_ms",
-                                                            "spatial_launches", "spatial",
-                                                            "serve_launches",
-                                                            "profile_launches",
-                                                            "sweep_launches"]
-                                   if k in r}
-                                  for r in records]}))
+    print(json.dumps({"kernels": [{k: _round(r[k], 6) for k in order + [
+        "launch_ms", "ab_ms", "spatial_launches", "spatial", "serve_launches",
+        "profile_launches", "sweep_launches"] if k in r} for r in records]},
+        separators=(",", ":")))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0
@@ -5561,6 +5677,46 @@ DECODE_WELL_PATTERN = (r"(?P<well>[A-Z]{1,2}\d{2})_s(?P<site>\d+)_(?P<channel>[A
                        r"\.(?:tif|jpg)$")
 
 
+#: the committed HDF5 files of phase 13's HDF5 well and their manifest
+#: (the reference's read of each plane and dataset), written by
+#: tests/make_hdf5_well.py with h5py, which the card's machine does not
+#: have
+HDF5_WELL_DIR = Path(__file__).resolve().parent / "tests" / "data" / "hdf5_well"
+#: the HDF5 well: well -> (file, structure); one site a well, DAPI and
+#: Actin, each file another structure h5py writes
+HDF5_WELL = {
+    "A01": ("plate_A01.ims", "libver latest, contiguous, dense attributes"),
+    "A02": ("plate_A02.ims", "fixed-array index, shuffle and gzip"),
+    "A03": ("plate_A03.ims", "extensible-array index, unlimited Z, lzf"),
+    "A04": ("plate_A04.ims", "v2 B-tree index, unlimited Z and Y, gzip, track_order"),
+}
+#: the DatasetWriter-style file of the HDF5 well
+HDF5_DATASET_FILE = "datasetwriter.h5"
+
+
+def hdf5_digest(arr) -> str:
+    """The sha256 of an array as the HDF5 well's manifest keeps it: its
+    dtype and shape, then its bytes (an object array of ``bytes``: each
+    element's length and bytes)."""
+    import hashlib
+
+    import numpy as np
+
+    arr = np.asarray(arr)
+    kind = arr.dtype.str
+    if arr.dtype.names:  # fields by name, type, shape and offset (h5py's metadata left out)
+        kind = str([(n, f.base.str, f.shape, off) for n, (f, off, *_) in
+                    arr.dtype.fields.items()]) + f"{arr.dtype.itemsize}"
+    h = hashlib.sha256(f"{kind}|{arr.shape}|".encode())
+    if arr.dtype == object:
+        for x in arr.ravel():
+            x = bytes(x)
+            h.update(len(x).to_bytes(8, "little") + x)
+    else:
+        h.update(np.ascontiguousarray(arr).tobytes())
+    return h.hexdigest()
+
+
 def decode_well_colour(v):
     """The colour the decode well gives a grey plane ``v`` (uint8 or
     uint16): R = v, G = 3v/4, B = v/2, integer division."""
@@ -5694,6 +5850,78 @@ def codec_wells(cw, px: dict, src: Path, native) -> dict:
     return out
 
 
+#: jterator's arguments for a phase-13 well: one batch at max_objects
+#: (buckets off: the plate before it routes its batches; a cold well's
+#: first batch would route to the smallest bucket and re-launch), so rows
+#: 1-4 launch exactly 1, 1, 1, 2
+WELL_ARGS = {"pipe": "cp.pipe.json", "batch_size": STEP_BATCH, "max_objects": MAX_OBJECTS,
+             "object_buckets": "off"}
+
+
+def config3_well(torch, wrappers, device, base: Path, name: str, metaconfig: dict):
+    """``workflow submit --device`` of metaconfig (``metaconfig``'s
+    arguments) -> imextract -> jterator (config 3, :data:`WELL_ARGS`) into
+    a new store ``base/<name>_store``, the launch counters set to 0 just
+    before and read just after; fails unless jterator ran one batch and,
+    on the card, rows 1-4 launched 1, 1, 1, 2 times.  Returns the store,
+    the submit's seconds and the launches."""
+    from tmlibrary_tpu_torch import benchmarks, capacity, cli
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import engine
+
+    desc = base / f"{name}.json"
+    engine.WorkflowDescription.canonical({
+        "metaconfig": metaconfig, "imextract": {}, "jterator": WELL_ARGS}).save(desc)
+    root = base / f"{name}_store"
+    run_cli(cli, ["create", "--root", str(root), "--name", name])
+    (root / "cp.pipe.json").write_text(json.dumps(benchmarks.CELL_PAINTING_PIPE))
+    capacity.reset_routing_history()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "routes"):
+            w.routes = dict.fromkeys(w.routes, 0)
+    t0 = time.perf_counter()
+    run_cli(cli, ["workflow", "submit", "--root", str(root), "--description", str(desc),
+                  "--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    submit_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    store = ExperimentStore.open(root)
+    jt = [e["result"] for e in engine.RunLedger(store.workflow_dir / "ledger.jsonl").events()
+          if e["event"] == "batch_done" and e["step"] == "jterator"]
+    expected = {k: 0 for k in wrappers}
+    expected.update({"fill_holes_flood": 1, "cc_min_propagate": 1, "watershed_flood": 1,
+                     "grouped_stats": 2})
+    if len(jt) != 1 or any(r.get("bucket_escalations", 0) for r in jt) or \
+            (device == "cuda" and launches != expected):
+        raise SmokeFailure(f"{name}: {len(jt)} jterator batches ({jt}), launches {launches}, "
+                           f"expected {expected}")
+    return store, submit_s, launches
+
+
+def config3_cpu_hold(store, cpu_root: Path) -> dict:
+    """The port's CPU run of jterator (config 3) over ``store``'s images in
+    ``cpu_root``; the card's labels exact against it and its features
+    within ``CARD_TIERS``.  Returns the largest |card - cpu| by family."""
+    from tmlibrary_tpu_torch import benchmarks, capacity
+    from tmlibrary_tpu_torch.models.store import ExperimentStore
+    from tmlibrary_tpu_torch.workflow import get_step
+
+    copy_part(store.root, cpu_root, "images")
+    cpu = ExperimentStore.open(cpu_root)
+    (cpu.root / "cp.pipe.json").write_text(json.dumps(benchmarks.CELL_PAINTING_PIPE))
+    capacity.reset_routing_history()
+    jt_cpu = get_step("jterator")(cpu, device="cpu")
+    jt_cpu.init({**WELL_ARGS, "object_buckets": "auto"})  # bit-identical, and fast on the CPU
+    for i in jt_cpu.list_batches():
+        jt_cpu.run(i)
+    _, worst = hold_batch(store, cpu, list(range(store.n_sites)), CARD_TIERS, gate=True)
+    return worst
+
+
 def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict:
     """Phase 13's decode well: one well of 2x2 sites (sites 0-3 of
     ``px``), DAPI and Actin, each of its 8 files another variant the
@@ -5713,9 +5941,7 @@ def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict
 
     import numpy as np
 
-    from tmlibrary_tpu_torch import benchmarks, capacity, cli, container_writers
-    from tmlibrary_tpu_torch.models.store import ExperimentStore
-    from tmlibrary_tpu_torch.workflow import engine, get_step
+    from tmlibrary_tpu_torch import container_writers
     from tmlibrary_tpu_torch.workflow.steps.imextract import ImageExtractor
 
     started = time.perf_counter()
@@ -5727,42 +5953,9 @@ def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict
     digests_by_file = {e["file"]: e for e in manifest["files"]}
     for name in digests_by_file:
         shutil.copy(DECODE_WELL_DIR / name, src / name)
-    # one batch at max_objects (buckets off: the plate above routes its
-    # batches; a cold well's first batch would route to the smallest bucket
-    # and re-launch), so rows 1-4 launch exactly 1, 1, 1, 2
-    args = {"pipe": "cp.pipe.json", "batch_size": STEP_BATCH, "max_objects": MAX_OBJECTS,
-            "object_buckets": "off"}
-    desc = base / "decode_well.json"
-    engine.WorkflowDescription.canonical({
-        "metaconfig": {"source_dir": str(src), "pattern": DECODE_WELL_PATTERN},
-        "imextract": {}, "jterator": args}).save(desc)
-    root = base / "decode_store"
-    run_cli(cli, ["create", "--root", str(root), "--name", "decode_well"])
-    (root / "cp.pipe.json").write_text(json.dumps(benchmarks.CELL_PAINTING_PIPE))
-    capacity.reset_routing_history()
-    if device == "cuda":
-        torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
-        if hasattr(w, "routes"):
-            w.routes = dict.fromkeys(w.routes, 0)
-    t0 = time.perf_counter()
-    run_cli(cli, ["workflow", "submit", "--root", str(root), "--description", str(desc),
-                  "--device", device])
-    if device == "cuda":
-        torch.cuda.synchronize()
-    submit_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
-    store = ExperimentStore.open(root)
-    jt = [e["result"] for e in engine.RunLedger(store.workflow_dir / "ledger.jsonl").events()
-          if e["event"] == "batch_done" and e["step"] == "jterator"]
-    expected_launches = {k: 0 for k in wrappers}
-    expected_launches.update({"fill_holes_flood": 1, "cc_min_propagate": 1,
-                              "watershed_flood": 1, "grouped_stats": 2})
-    if len(jt) != 1 or any(r.get("bucket_escalations", 0) for r in jt) or \
-            (device == "cuda" and launches != expected_launches):
-        raise SmokeFailure(f"decode well: {len(jt)} jterator batches ({jt}), launches "
-                           f"{launches}, expected {expected_launches}")
+    store, submit_s, launches = config3_well(
+        torch, wrappers, device, base, "decode_well",
+        {"source_dir": str(src), "pattern": DECODE_WELL_PATTERN})
     mapping = json.loads((store.workflow_dir / "metaconfig" / "file_mapping.json").read_text())
     by_name = {v[0]: k for k, v in DECODE_WELL.items()}
     if sorted(Path(e["path"]).name for e in mapping) != sorted(by_name):
@@ -5781,15 +5974,7 @@ def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict
             raise SmokeFailure(f"decode well: {name} ({DECODE_WELL[by_name[name]][1]}) differs "
                                "from the written pixels in "
                                f"{int((plane != expected[by_name[name]]).sum())} pixels")
-    copy_part(store.root, base / "decode_cpu", "images")
-    cpu = ExperimentStore.open(base / "decode_cpu")
-    (cpu.root / "cp.pipe.json").write_text(json.dumps(benchmarks.CELL_PAINTING_PIPE))
-    capacity.reset_routing_history()
-    jt_cpu = get_step("jterator")(cpu, device="cpu")
-    jt_cpu.init({**args, "object_buckets": "auto"})  # bit-identical, and fast on the CPU
-    for i in jt_cpu.list_batches():
-        jt_cpu.run(i)
-    _, worst = hold_batch(store, cpu, list(range(store.n_sites)), CARD_TIERS, gate=True)
+    worst = config3_cpu_hold(store, base / "decode_cpu")
     # each variant's host decode, one thread, files warm in the page cache
     rates = {}
     reps = 5
@@ -5816,6 +6001,78 @@ def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict
     return line
 
 
+def hdf5_well_run(torch, wrappers, card, device, base: Path) -> dict:
+    """Phase 13's HDF5 well: the four committed ``.ims`` files of
+    :data:`HDF5_WELL_DIR` (sites 0-3 of phase 13's plate, DAPI and Actin,
+    one site a well, each file another structure h5py writes:
+    :data:`HDF5_WELL`) through ``workflow submit --device`` of metaconfig
+    (``handler: auto``, which must resolve ``ims``), imextract and
+    jterator (config 3, :func:`config3_well`: rows 1-4 launched 1, 1, 1,
+    2).  Holds every stored plane to the manifest's sha256 of the
+    reference's ``IMSReader`` read, the card's labels exactly and its
+    features within ``CARD_TIERS`` against the port's CPU run, and every
+    dataset of the ``DatasetWriter``-style file (:data:`HDF5_DATASET_FILE`:
+    bool, complex, structured, variable-length strings, gzip levels,
+    LZF, single-chunk and implicit indexes, a soft link, virtual datasets
+    over the ``.ims`` files) read by ``DatasetReader`` to its digest.
+    Then times ``IMSReader`` on fixtures 2-4 (both planes, file open
+    included, files warm) and prints the ``hdf5:`` line."""
+    from tmlibrary_tpu_torch import readers
+
+    started = time.perf_counter()
+    manifest = json.loads((HDF5_WELL_DIR / "manifest.json").read_text())
+    src = base / "hdf5_well"
+    shutil.copytree(HDF5_WELL_DIR, src)
+    (src / "manifest.json").unlink()
+    store, submit_s, launches = config3_well(torch, wrappers, device, base, "hdf5_well",
+                                             {"source_dir": str(src), "handler": "auto"})
+    mapping = json.loads((store.workflow_dir / "metaconfig" / "file_mapping.json").read_text())
+    want = {(e["file"], e["channel"]): e for e in manifest["ims"]}
+    seen = set()
+    for e in mapping:
+        name = Path(e["path"]).name
+        channel = {c.index: c.name for c in store.experiment.channels}[e["channel"]]
+        key = (name, channel)
+        if key not in want:
+            raise SmokeFailure(f"hdf5 well: the mapping holds {name} {channel}")
+        plane = store.read_sites([e["site_index"]], channel=e["channel"])[0]
+        if hdf5_digest(plane) != want[key]["sha256"]:
+            raise SmokeFailure(f"hdf5 well: {name} {channel} ({want[key]['structure']}) reads "
+                               f"to {hdf5_digest(plane)}, not the reference's "
+                               f"{want[key]['sha256']}")
+        seen.add(key)
+    if seen != set(want) or store.n_sites != len(HDF5_WELL):
+        raise SmokeFailure(f"hdf5 well: {store.n_sites} sites, planes {sorted(seen)}")
+    worst = config3_cpu_hold(store, base / "hdf5_cpu")
+    with readers.DatasetReader(src / HDF5_DATASET_FILE) as r:
+        for e in manifest["datasets"]:
+            got = hdf5_digest(r.read(e["path"]))
+            if got != e["sha256"]:
+                raise SmokeFailure(f"hdf5 well: {HDF5_DATASET_FILE}:{e['path']} reads to {got}, "
+                                   f"not the reference's {e['sha256']}")
+    rates = {}
+    reps = 10
+    for well, (name, structure) in sorted(HDF5_WELL.items())[1:]:
+        path = src / name
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                with readers.IMSReader(path) as r:
+                    for page in range(r.n_channels):
+                        plane = r.read_plane_linear(page)
+            best = min(best, time.perf_counter() - t0)
+        rates[structure] = reps * 2 * plane.nbytes / 2**20 / best
+    well_s = time.perf_counter() - started
+    line = {"files": len(HDF5_WELL), "sites": store.n_sites, "well_s": well_s,
+            "submit_s": submit_s, "submit_sites_per_s": store.n_sites / submit_s,
+            "launches": {k: v for k, v in launches.items() if v},
+            "ims_read_mib_per_s": rates, "datasets_held": len(manifest["datasets"]),
+            "worst": worst, "card": card}
+    print("hdf5: " + json.dumps(line))
+    return line
+
+
 def phase_codecs(torch, wrappers, card, device: str = "cuda") -> dict:
     """Phase 13, ``czi_zstd_p96x4_256``: the codecs the containers need,
     on the card.  Phase 5's plate (96 wells at 2x2 sites of 256x256, DAPI
@@ -5835,12 +6092,16 @@ def phase_codecs(torch, wrappers, card, device: str = "cuda") -> dict:
     and imextract on the card: the store's planes equal the written ones,
     the JPEG CZI's decode to :data:`JPEG_DIGEST`.  Then the decode well
     (:func:`decode_well_run`: 8 variants of what the reference hands to
-    cv2 through metaconfig, imextract and config 3).  Last corilla over the
-    plate, ``export --illumstats 0`` read back with ``DatasetReader``,
-    equal to ``read_illumstats``.  Prints the phase's seconds, submit
-    sites/s, zstd decode MiB/s, JPEG decode Mpix/s and HDF5 chunked-gzip
-    read MiB/s, the ``decode:`` line, and the ``codecs:`` line.  The directory is removed at
-    the end."""
+    cv2 through metaconfig, imextract and config 3) and the HDF5 well
+    (:func:`hdf5_well_run`: four ``.ims`` files in the structures of
+    ``libver='latest'`` and the fixed-array, extensible-array and v2
+    B-tree chunk indexes through metaconfig, imextract and config 3, and
+    the ``DatasetWriter``-style file read to the manifest's digests).  Last
+    corilla over the plate, ``export --illumstats 0`` read back with
+    ``DatasetReader``, equal to ``read_illumstats``.  Prints the phase's
+    seconds, submit sites/s, zstd decode MiB/s, JPEG decode Mpix/s and
+    HDF5 chunked-gzip read MiB/s, the ``decode:`` and ``hdf5:`` lines, and
+    the ``codecs:`` line.  The directory is removed at the end."""
     import numpy as np
 
     from tmlibrary_tpu_torch import benchmarks, capacity, cli, container_writers, native, readers
@@ -5980,6 +6241,7 @@ def phase_codecs(torch, wrappers, card, device: str = "cuda") -> dict:
               "imextract s: " + ", ".join(f"{k} {v:.3f}" for k, v in rates.items())
               + f"; on {card}")
         decode = decode_well_run(torch, wrappers, card, device, px, base)
+        hdf5_well = hdf5_well_run(torch, wrappers, card, device, base)
 
         # 5. codec rates on the host: every subblock of the plate, the JPEG
         # sites, the chunked Imaris file
@@ -6039,7 +6301,7 @@ def phase_codecs(torch, wrappers, card, device: str = "cuda") -> dict:
                 "step_walls_s": walls, "launches": launches, "plate_mib": mbytes,
                 "zstd_decode_mib_per_s": zstd_mib_s, "jpeg_decode_mpix_per_s": jpeg_mpix_s,
                 "hdf5_chunked_gzip_read_mib_per_s": hdf5_mib_s, "wells": sorted(others),
-                "decode_well": decode,
+                "decode_well_s": decode["well_s"], "hdf5_well_s": hdf5_well["well_s"],
                 "cpu_hold_sites": len(sites), "card": card}
         print(f"  phase 13: {phase_s:.1f} s on {card}")
         print("codecs: " + json.dumps(line))
@@ -7832,4 +8094,4 @@ def phase_classify(torch, features_root: Path, card: str, bw: float) -> list[dic
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run_digested(main))

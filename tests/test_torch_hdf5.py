@@ -10,8 +10,8 @@ attributes: files h5py writes read in the port with equal values, and
 files the port writes read in h5py with equal shape, dtype, values,
 attributes, compression and ``maxshape``, and in the JAX package's
 ``DatasetReader``.  Groups of more than 16 children (split B-trees),
-``S1`` and variable-length string attributes, ``libver='latest'``
-refusals, ``tests/test_readers_writers.py:60-88``, ``tests/test_ims.py``,
+``S1`` and variable-length string attributes, the formats the port
+still refuses by name, ``tests/test_readers_writers.py:60-88``, ``tests/test_ims.py``,
 ``tests/test_experiment_store.py:112-220`` and the IMS fuzz mutations of
 ``tests/test_reader_fuzz.py:218-227`` are mirrored.  Tolerance: exact.
 """
@@ -193,22 +193,51 @@ def test_a_chunk_index_deeper_than_one_node(tmp_path):
 
 
 def test_newer_formats_are_refused_by_name(tmp_path):
+    """What this test once saw refused now reads as the reference reads
+    it (``libver='latest'``, compound and enum datasets, ``DatasetWriter``
+    on a new-style file); what the port still refuses is refused by
+    name: external links, the szip, scale-offset and nbit filters."""
     path = tmp_path / "latest.h5"
     with h5py.File(path, "w", libver="latest") as f:
         f.create_dataset("x", data=np.arange(4))
-    before = path.read_bytes()
-    for call in (lambda: hdf5.File(path), lambda: DatasetReader(path).__enter__(),
-                 lambda: DatasetWriter(path).__enter__()):
-        with pytest.raises(NotSupportedError, match="superblock version"):
-            call()
-    assert path.read_bytes() == before  # not rewritten
+    for reader in (DatasetReader, JDatasetReader):
+        with reader(path) as r:
+            np.testing.assert_array_equal(r.read("x"), np.arange(4))
+            assert r.list_datasets() == ["x"]
+    with DatasetWriter(path) as w:
+        w.append("x2", np.arange(2))
+    with JDatasetReader(path) as j:
+        assert j.list_datasets() == ["x", "x2"]
+        np.testing.assert_array_equal(j.read("x"), np.arange(4))
     with h5py.File(tmp_path / "big.h5", "w") as f:
         f.create_dataset("c", data=np.zeros(3, [("a", "i4"), ("b", "f8")]))
         f.create_dataset("e", data=np.zeros(3, bool))
-    node = hdf5.File(tmp_path / "big.h5")
-    for name, what in (("c", "compound"), ("e", "enum")):
+    with DatasetReader(tmp_path / "big.h5") as r, JDatasetReader(tmp_path / "big.h5") as j:
+        for name in ("c", "e"):
+            got, want = r.read(name), j.read(name)
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+    from h5py import h5d, h5p, h5s, h5t, h5z
+
+    refused = tmp_path / "refused.h5"
+    with h5py.File(refused, "w") as f:
+        f["ext"] = h5py.ExternalLink("other.h5", "/x")
+        f.create_dataset("scaleoffset", data=np.arange(40).reshape(4, 10), scaleoffset=0)
+        f.create_dataset("szip", data=np.arange(40, dtype="i4").reshape(4, 10),
+                         chunks=(4, 10), compression="szip")
+        dcpl = h5p.create(h5p.DATASET_CREATE)
+        dcpl.set_chunk((4,))
+        dcpl.set_filter(h5z.FILTER_NBIT, 0, ())
+        h5py.Dataset(h5d.create(f.id, b"nbit", h5t.NATIVE_INT32, h5s.create_simple((8,)),
+                                dcpl=dcpl))[...] = np.arange(8)
+    before = refused.read_bytes()
+    port = hdf5.File(refused)
+    for name, what in (("ext", "external links"), ("scaleoffset", "scale-offset"),
+                       ("szip", "szip"), ("nbit", "nbit")):
         with pytest.raises(NotSupportedError, match=what):
-            node.node(name)
+            port.node(name)
+    with pytest.raises(NotSupportedError, match="external links"):
+        DatasetWriter(refused).__enter__()
+    assert refused.read_bytes() == before  # not rewritten
     (tmp_path / "zeros.h5").write_bytes(bytes(64))
     with pytest.raises(MetadataError, match="not an HDF5"):
         hdf5.File(tmp_path / "zeros.h5")

@@ -1,40 +1,69 @@
-"""A subset of HDF5 without ``h5py``: the files h5py writes with its
-default ``libver`` (``'earliest'``), read and written with numpy and
-``zlib``.
+"""HDF5 without ``h5py``: the files h5py writes, read with numpy,
+``zlib`` and the port's host library, and a subset of them written.
 
 The JAX package reads Imaris ``.ims`` files and writes and reads
 ``DatasetWriter``/``DatasetReader`` files and ``export --illumstats``
 through ``h5py``, which the port's target machine does not have.  This
-module reads what such files hold:
+module reads what such files hold, with every ``libver`` h5py takes
+(``earliest``, ``v108``, ``v110``, ``latest``) and ``track_order``:
 
-- superblock version 0 or 1 (after a user block of 0, 512, 1024, ...
-  bytes);
-- version-1 object headers with their continuation blocks;
-- groups as symbol tables: version-1 B-trees of type 0 of any depth,
-  symbol-table nodes (SNOD) and local heaps;
+- superblock versions 0 and 1 (after a user block of 0, 512, 1024, ...
+  bytes), and 2 and 3 with their lookup3 checksums verified and their
+  superblock extension (B-tree ranks; file-space messages ignored);
+- object headers of version 1 (with continuation blocks) and version 2
+  (``OHDR``/``OCHK``, times, attribute phase changes, creation order);
+- groups as symbol tables (version-1 B-trees of type 0, ``SNOD``, local
+  heaps) and as links: link info, group info and link messages,
+  compact or dense (fractal heaps of managed, tiny and huge objects,
+  version-2 B-trees of types 5 and 6); hard links, soft links resolved
+  as HDF5 resolves them (absolute, or from the link's group; 16 at
+  most), in name order, or creation order where it is indexed;
+- attribute messages 1-3, compact or dense (attribute info, v2 B-trees
+  of types 8 and 9), with committed (shared) datatypes;
 - scalar and simple dataspaces, with unlimited maximum dimensions;
 - fixed-point and floating-point types of either byte order,
-  fixed-length strings, and variable-length strings through the global
-  heap (h5py writes ``str`` attributes so);
-- layout version 3: compact, contiguous, and chunked with the type-1
-  B-tree chunk index, partial edge chunks and unallocated chunks read as
-  the fill value;
-- the deflate (1), shuffle (2) and fletcher32 (3, verified) filters;
-- the fill-value messages (old and new) and attribute messages 1-3.
+  fixed-length strings, enums (h5py's ``FALSE``/``TRUE`` enum as
+  ``bool``, any other as its base integer), compounds (numpy structured
+  arrays with h5py's names and offsets; h5py's ``r``/``i`` pair as
+  ``complex64``/``complex128``), arrays inside compounds, and
+  variable-length strings through the global heap (attributes as
+  ``str``, datasets as object arrays of ``bytes``, as h5py returns them);
+- layout version 3 (compact, contiguous, chunked with the type-1 B-tree
+  index) and version 4 with all five chunk indexes of HDF5 1.10+: single
+  chunk (filtered or not), implicit, fixed array (paged or not),
+  extensible array and v2 B-tree (types 10 and 11), and the "don't
+  filter partial edge chunks" flag; partial edge chunks and unallocated
+  chunks read as the fill value;
+- virtual datasets whose sources are in the same file (``.``) or in
+  files beside it (a relative name is taken from the virtual dataset's
+  directory), mapped by ``all`` and hyperslab selections (regular or
+  block lists); a missing source file or dataset reads as the fill value;
+- the deflate (1), shuffle (2), fletcher32 (3, verified) and LZF (32000,
+  h5py's; a chunk h5py stored unfiltered by its filter mask) filters.
 
 Anything else raises :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`
-naming the structure (superblock 2/3, object header 2, link messages,
-dense attributes, layout 4, szip, scale-offset, compound, enum,
-reference and array types, ...); a damaged file raises
+naming the structure: external links and user-defined links, the szip,
+nbit and scale-offset filters, reference, opaque, bitfield and time
+types, variable-length sequences, variable-length strings inside
+compounds, shared object header messages (a superblock extension's
+message table), filtered fractal heaps, point selections and unlimited
+or printf-named mappings of virtual datasets, offsets or lengths of other
+than 8 bytes.  A damaged file raises
 :class:`~tmlibrary_tpu_torch.errors.MetadataError`.  Every read is bounded
 by the file and by its stored end-of-file address.
 
-:func:`write` writes a tree of :class:`Group` and :class:`Dataset` in the
-same subset -- superblock 0, contiguous datasets, chunked ones (B-trees
-split at the default rank of 32) with the filters above, fixed-length
-and variable-length string and numeric attributes -- which h5py reads
-back.  :func:`load` reads a whole file into such a tree, so a file can be
-changed and written again (:class:`tmlibrary_tpu_torch.writers.DatasetWriter`).
+:func:`write` writes a tree of :class:`Group`, :class:`Dataset` and
+:class:`SoftLink` in the old format -- superblock 0, symbol-table groups,
+contiguous datasets, chunked ones (B-trees split at the default rank of
+32) with the deflate, shuffle, fletcher32 and LZF filters, the types above
+(bool, complex, structured and variable-length string datasets as h5py
+writes them), virtual datasets with their mappings, and fixed-length and
+variable-length string and numeric attributes -- which h5py reads back.
+:func:`load` reads a whole file into such a tree, so a file can be
+changed and written again (:class:`tmlibrary_tpu_torch.writers.DatasetWriter`);
+what the writer cannot keep is refused by name (external links and
+committed datatypes by :func:`load`, attributes past 64 KiB by
+:func:`write`).
 """
 
 from __future__ import annotations
@@ -49,6 +78,7 @@ from pathlib import Path
 import numpy as np
 
 from tmlibrary_tpu_torch.errors import MetadataError, NotSupportedError
+from tmlibrary_tpu_torch.io import hdf5_v2
 
 SIGNATURE = b"\x89HDF\r\n\x1a\n"
 UNDEF = 0xFFFFFFFFFFFFFFFF
@@ -56,6 +86,12 @@ UNDEF = 0xFFFFFFFFFFFFFFFF
 MAX_BYTES = 1 << 36
 #: rank of the chunk B-tree of a version-0 superblock (HDF5's default)
 CHUNK_K = 32
+#: h5py's LZF filter id and its ``cd_values`` head (filter version 4,
+#: liblzf 1.5)
+LZF = 32000
+_LZF_CD = (4, 0x0105)
+#: soft links followed in one lookup (HDF5's ``H5L_NUM_LINKS``)
+MAX_SOFT = 16
 _CORRUPT = (struct.error, IndexError, ValueError, OverflowError, zlib.error, UnicodeDecodeError,
             KeyError, TypeError, RecursionError)
 
@@ -69,10 +105,14 @@ class Dataset:
     """A dataset: its array (read lazily from a file, or given), its
     chunk shape (None when contiguous), ``maxshape`` (None entries
     unlimited), filters as ``[(id, client_data)]``, fill value bytes
-    (None when not defined) and attributes."""
+    (None when not defined) and attributes.  ``h5type`` keeps the
+    datatype message of a dataset read from a file (so an enum or a
+    variable-length string type is written back as it was) and
+    ``virtual`` the mappings of a virtual dataset."""
 
     def __init__(self, data=None, *, shape=None, dtype=None, chunks=None, maxshape=None,
-                 filters=(), fillvalue=None, attrs=None, _reader=None):
+                 filters=(), fillvalue=None, attrs=None, _reader=None, h5type=None,
+                 virtual=None):
         self._data = None if data is None else np.asarray(data)
         self._reader = _reader
         self.shape = tuple(self._data.shape) if shape is None else tuple(shape)
@@ -82,11 +122,19 @@ class Dataset:
         self.filters = [(int(f), tuple(int(v) for v in cd)) for f, cd in filters]
         self.fillvalue = fillvalue
         self.attrs = dict(attrs or {})
+        self.h5type = h5type
+        self.virtual = virtual
+        #: how a dataset read from a file is stored: 'compact',
+        #: 'contiguous', 'virtual', or its chunk index ('btree1', 'single',
+        #: 'implicit', 'fixed_array', 'extensible_array', 'btree2')
+        self.storage: "str | None" = None
 
     @property
     def compression(self) -> "str | None":
-        """``'gzip'`` when deflate is in the pipeline (h5py's name)."""
-        return "gzip" if any(f == 1 for f, _ in self.filters) else None
+        """h5py's name of the compression filter: ``'gzip'`` (deflate)
+        or ``'lzf'``."""
+        ids = {f for f, _ in self.filters}
+        return "gzip" if 1 in ids else "lzf" if LZF in ids else None
 
     def read(self, box=None) -> np.ndarray:
         """The array, or the ``[(start, stop), ...]`` box of it."""
@@ -124,22 +172,45 @@ class Dataset:
         return self.read(box)[tuple(post)]
 
 
+class SoftLink:
+    """A soft link: the path it names (absolute, or from its group)."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+
 class Group:
-    """A group: named children (groups and datasets) and attributes."""
+    """A group: named children (groups, datasets, soft links) and
+    attributes."""
 
     def __init__(self, attrs=None):
-        self.children: "dict[str, Group | Dataset]" = {}
+        self.children: "dict[str, Group | Dataset | SoftLink]" = {}
         self.attrs = dict(attrs or {})
 
-    def get(self, path: str):
-        """The node at a ``/``-separated path, or None."""
-        node = self
-        for part in [p for p in path.split("/") if p]:
+    def get(self, path: str, follow: bool = False):
+        """The node at a ``/``-separated path, or None; with ``follow``
+        soft links are followed as HDF5 follows them (from this group
+        as the root)."""
+        parts = [p for p in path.split("/") if p]
+        node, trail, hops = self, [], 0
+        while parts:
+            part = parts.pop(0)
             if not isinstance(node, Group):
                 return None
+            trail.append(node)
             node = node.children.get(part)
             if node is None:
                 return None
+            if isinstance(node, SoftLink) and (follow or parts):
+                hops += 1
+                if hops > MAX_SOFT:
+                    return None
+                target = [p for p in node.path.split("/") if p]
+                if node.path.startswith("/"):
+                    node, trail = self, []
+                else:
+                    node = trail.pop()
+                parts = target + parts
         return node
 
     def __getitem__(self, path: str):
@@ -149,12 +220,17 @@ class Group:
         return node
 
     def __contains__(self, path: str) -> bool:
-        return self.get(path) is not None
+        return self.get(path, follow=True) is not None
 
     def require_group(self, path: str) -> "Group":
+        """The group at ``path`` (soft links followed), made where
+        missing."""
         node = self
-        for part in [p for p in path.split("/") if p]:
+        parts = [p for p in path.split("/") if p]
+        for i, part in enumerate(parts):
             child = node.children.get(part)
+            if isinstance(child, SoftLink):
+                child = self.get("/".join(parts[:i + 1]), follow=True)
             if child is None:
                 child = node.children[part] = Group()
             elif not isinstance(child, Group):
@@ -170,42 +246,41 @@ class Group:
 
     def delete(self, path: str) -> None:
         parts = [p for p in path.split("/") if p]
-        parent = self.get("/".join(parts[:-1]))
+        parent = self.get("/".join(parts[:-1]), follow=True)
         if isinstance(parent, Group):
             parent.children.pop(parts[-1], None)
-
-    def visit_datasets(self, prefix: str = ""):
-        """``(path, dataset)`` of every dataset below, depth first in name
-        order (h5py's ``visititems`` order)."""
-        for name in sorted(self.children, key=lambda s: s.encode()):
-            node = self.children[name]
-            path = f"{prefix}{name}"
-            if isinstance(node, Dataset):
-                yield path, node
-            else:
-                yield from node.visit_datasets(path + "/")
 
 
 # ---------------------------------------------------------------- reading
 class _Datatype:
-    """A parsed datatype message: numpy dtype, or ``vlen`` for a
-    variable-length string (``dtype`` then the element's heap id)."""
+    """A parsed datatype message: numpy dtype, ``vlen`` for a
+    variable-length string (``dtype`` then the element's heap id),
+    ``post`` a conversion of the stored array (h5py's bool of a wider
+    enum), ``raw`` the message's bytes."""
 
-    def __init__(self, dtype, vlen=False, encoding="ascii"):
+    def __init__(self, dtype, vlen=False, encoding="ascii", raw=b"", post=None):
         self.dtype = np.dtype(dtype)
         self.vlen = vlen
         self.encoding = encoding
+        self.raw = raw
+        self.post = post
 
 
-_CLASS_NAMES = {2: "time", 4: "bitfield", 5: "opaque", 6: "compound", 7: "reference",
-                8: "enum", 10: "array"}
+_CLASS_NAMES = {2: "time", 4: "bitfield", 5: "opaque", 7: "reference"}
+
+
+def _group_kinds(kinds: set) -> bool:
+    """Whether an object header's message types make it a group: a
+    symbol table, link info, link or group info message."""
+    return bool(kinds & {0x11, 0x02, 0x06, 0x0A})
 
 
 class File:
-    """An HDF5 file of the subset, mapped and parsed lazily."""
+    """An HDF5 file, mapped and parsed lazily."""
 
     def __init__(self, path):
         self.name = str(path)
+        self.path = Path(path)
         try:
             with open(path, "rb") as f:  # mapped: a reader holds no copy of the file
                 size = os.fstat(f.fileno()).st_size
@@ -213,7 +288,8 @@ class File:
         except OSError as exc:
             raise MetadataError(f"cannot read {path}: {exc}") from exc
         self._heaps: dict = {}
-        self._groups: dict = {}
+        self._links_cache: dict = {}
+        self._sources: dict = {}
         try:
             self._superblock()
         except _CORRUPT as exc:
@@ -231,6 +307,27 @@ class File:
     def _u(self, addr: int, n: int) -> int:
         return int.from_bytes(self._bytes(addr, n), "little")
 
+    @staticmethod
+    def _lookup3(data: bytes) -> int:
+        from tmlibrary_tpu_torch import native
+
+        return native.lookup3(data)
+
+    def _checked(self, addr: int, n: int, what: str, sig: "bytes | None" = None,
+                 byte5: "int | None" = None) -> bytes:
+        """``n`` bytes at ``addr`` whose last 4 are the lookup3 checksum of
+        the rest, with their signature, version 0 and (``byte5``) their
+        client or type byte checked."""
+        block = self._bytes(addr, n)
+        if sig is not None and (block[:4] != sig or block[4] != 0):
+            raise MetadataError(f"{self.name}: bad HDF5 {what} at {addr}")
+        if byte5 is not None and block[5] != byte5:
+            raise MetadataError(f"{self.name}: HDF5 {what} at {addr} of type {block[5]} where "
+                                f"{byte5} belongs")
+        if self._lookup3(block[:n - 4]) != struct.unpack_from("<I", block, n - 4)[0]:
+            raise MetadataError(f"{self.name}: bad checksum of the HDF5 {what} at {addr}")
+        return block
+
     def _superblock(self) -> None:
         at = 0
         while at + 8 <= len(self.data):
@@ -241,12 +338,12 @@ class File:
             raise MetadataError(f"not an HDF5 file: {self.name}")
         d = self.data
         version = d[at + 8]
-        if version in (2, 3):
-            raise NotSupportedError(
-                f"{self.name}: HDF5 superblock version {version} (libver 'latest' or 'v108' "
-                "and later) is not read by the port")
+        self.version = version
         if version > 3:
             raise MetadataError(f"{self.name}: bad HDF5 superblock version {version}")
+        if version in (2, 3):
+            self._superblock_v2(at)
+            return
         if d[at + 13] != 8 or d[at + 14] != 8:
             raise NotSupportedError(f"{self.name}: HDF5 offsets/lengths of {d[at + 13]}/"
                                     f"{d[at + 14]} bytes (the port reads 8/8)")
@@ -285,11 +382,45 @@ class File:
             raise MetadataError(f"{self.name}: unknown HDF5 symbol table entry cache type "
                                 f"{cache}")
 
+    def _superblock_v2(self, at: int) -> None:
+        """Superblock version 2 or 3 (``libver`` 'v108' and later): sizes,
+        base, extension, end of file and root, under a lookup3 checksum."""
+        d = self.data
+        if at + 48 > len(d):
+            raise MetadataError(f"truncated HDF5 file {self.name}: no whole superblock")
+        if self._lookup3(d[at:at + 44]) != struct.unpack_from("<I", d, at + 44)[0]:
+            raise MetadataError(f"{self.name}: bad checksum of the HDF5 superblock")
+        if d[at + 9] != 8 or d[at + 10] != 8:
+            raise NotSupportedError(f"{self.name}: HDF5 offsets/lengths of {d[at + 9]}/"
+                                    f"{d[at + 10]} bytes (the port reads 8/8)")
+        base, ext, eof, self.root_addr = struct.unpack_from("<QQQQ", d, at + 12)
+        if base != at and base != 0:
+            raise MetadataError(f"{self.name}: bad HDF5 base address {base}")
+        self.base = base
+        if len(d) - base < eof:
+            raise MetadataError(f"truncated HDF5 file {self.name}: {len(d) - base} bytes, "
+                                f"stored end of file {eof}")
+        self.eoa = eof
+        self.leaf_k, self.node_k, self.chunk_k = 4, 16, CHUNK_K  # HDF5's defaults
+        if ext == UNDEF:
+            return
+        for mtype, _flags, body in self._messages(ext):
+            if mtype == 0x0F:
+                raise NotSupportedError(f"{self.name}: HDF5 shared object header messages "
+                                        "are not read by the port")
+            if mtype == 0x14:
+                raise MetadataError(f"{self.name}: an HDF5 driver information message")
+            if mtype == 0x13:  # B-tree 'K' values
+                if body[0] != 0:
+                    raise MetadataError(f"{self.name}: bad HDF5 B-tree 'K' message")
+                self.chunk_k, self.node_k, self.leaf_k = struct.unpack_from("<HHH", body, 1)
+                if 0 in (self.chunk_k, self.node_k, self.leaf_k):
+                    raise MetadataError(f"{self.name}: bad HDF5 B-tree ranks")
+
     # -- object headers
     def _messages(self, addr: int) -> list:
         if self._bytes(addr, 4) == b"OHDR":
-            raise NotSupportedError(f"{self.name}: HDF5 object header version 2 is not read "
-                                    "by the port")
+            return self._messages_v2(addr)
         version = self._u(addr, 1)
         if version != 1:
             raise MetadataError(f"{self.name}: bad HDF5 object header version {version}")
@@ -317,14 +448,55 @@ class File:
                 p += 8 + msize
         return out
 
+    def _messages_v2(self, addr: int) -> list:
+        """The messages of a version-2 object header (``OHDR``) and its
+        continuation blocks (``OCHK``), each checksummed."""
+        head = self._bytes(addr, 6)
+        if head[4] != 2:
+            raise MetadataError(f"{self.name}: bad HDF5 object header version {head[4]}")
+        flags = head[5]
+        if flags & 0xC0:
+            raise MetadataError(f"{self.name}: bad HDF5 object header flags {flags:#x}")
+        p = 6 + (16 if flags & 0x20 else 0) + (4 if flags & 0x10 else 0)
+        width = 1 << (flags & 3)
+        size = self._u(addr + p, width)
+        p += width
+        corder = 2 if flags & 0x04 else 0
+        blocks = [(addr, p, p + size + 4)]  # (address, first message, length with checksum)
+        seen, out = set(), []
+        while blocks:
+            start, first, length = blocks.pop(0)
+            if start in seen or len(seen) > 4096:
+                raise MetadataError(f"{self.name}: cyclic HDF5 object header continuation")
+            seen.add(start)
+            block = self._checked(start, length, "object header")
+            if first == 4 and block[:4] != b"OCHK":
+                raise MetadataError(f"{self.name}: bad HDF5 object header continuation at "
+                                    f"{start}")
+            q, end = first, length - 4
+            while q + 4 + corder <= end:
+                mtype, msize, mflags = struct.unpack_from("<BHB", block, q)
+                q += 4 + corder
+                if q + msize > end:
+                    raise MetadataError(f"{self.name}: corrupt HDF5 object header")
+                body = block[q:q + msize]
+                q += msize
+                self._check_flags(mtype, mflags)
+                if mtype == 0x10:
+                    caddr, clen = struct.unpack_from("<QQ", body, 0)
+                    blocks.append((caddr, 4, clen))
+                elif mtype:
+                    out.append((mtype, mflags, body))
+        return out
+
     #: message types HDF5 can share (dataspace, datatype, fill value,
     #: filter pipeline, attribute)
     _SHAREABLE = {0x01, 0x03, 0x05, 0x0B, 0x0C}
 
     def _check_flags(self, mtype: int, flags: int) -> None:
         """The flag checks HDF5 makes on every message of a header; a
-        shared message is outside the subset (h5py's default never
-        writes one)."""
+        shared message other than a committed datatype is outside what
+        the port reads (h5py writes none without a message table)."""
         was_unknown, fail_write, fail_always, shareable = 0x20, 0x08, 0x80, 0x40
         if flags & was_unknown and flags & (fail_write | fail_always):
             raise MetadataError(f"{self.name}: bad HDF5 message flag combination {flags:#x}")
@@ -333,24 +505,48 @@ class File:
         if mtype > 0x18 and flags & fail_always:
             raise MetadataError(f"{self.name}: unknown HDF5 message {mtype:#x} that must be "
                                 "understood")
-        if flags & 0x02 and mtype in self._SHAREABLE:
+        if flags & 0x02 and mtype in self._SHAREABLE and mtype != 0x03:
             raise MetadataError(f"{self.name}: shared HDF5 message {mtype:#x}")
+
+    def _shared_type(self, b: bytes) -> bytes:
+        """The datatype message a shared-message record points to (a
+        committed datatype's object header)."""
+        version, kind = b[0], b[1]
+        if version == 1:
+            addr = struct.unpack_from("<Q", b, 8)[0]
+        elif version == 2 or (version == 3 and kind == 2):
+            addr = struct.unpack_from("<Q", b, 2)[0]
+        elif version == 3 and kind == 1:
+            raise NotSupportedError(f"{self.name}: HDF5 shared object header messages are "
+                                    "not read by the port")
+        else:
+            raise MetadataError(f"{self.name}: bad HDF5 shared message version {version}")
+        types = [body for t, _, body in self._messages(addr) if t == 0x03]
+        if not types:
+            raise MetadataError(f"{self.name}: HDF5 committed datatype at {addr} without a "
+                                "datatype")
+        return types[0]
 
     # -- datatypes and dataspaces
     def _datatype(self, b: bytes, off: int = 0) -> "tuple[_Datatype, int]":
+        """The datatype message at ``b[off:]`` and its length."""
         cv = b[off]
         cls, version = cv & 0x0F, cv >> 4
-        if version not in (1, 2, 3):
+        if version not in (1, 2, 3, 4):  # 4: 3's layout, written under libver 'v112'+
             raise MetadataError(f"{self.name}: bad HDF5 datatype version {version}")
         f0, f1 = b[off + 1], b[off + 2]
         size = struct.unpack_from("<I", b, off + 4)[0]
         order = ">" if f0 & 1 else "<"
+
+        def done(dt, used, **kw):
+            return _Datatype(dt, raw=bytes(b[off:off + used]), **kw), used
+
         if cls == 0:
             bit_off, prec = struct.unpack_from("<HH", b, off + 8)
             if size not in (1, 2, 4, 8) or bit_off != 0 or prec != 8 * size:
                 raise MetadataError(f"{self.name}: HDF5 integer of {size} bytes, precision "
                                     f"{prec} at bit {bit_off}")
-            return _Datatype(f"{order}{'i' if f0 & 8 else 'u'}{size}"), 12
+            return done(f"{order}{'i' if f0 & 8 else 'u'}{size}", 12)
         if cls == 1:
             if f0 & 0x40:
                 raise NotSupportedError(f"{self.name}: VAX-order HDF5 floats")
@@ -360,21 +556,105 @@ class File:
             if want is None or layout != want or f1 != 8 * size - 1:
                 raise MetadataError(f"{self.name}: HDF5 float of {size} bytes with layout "
                                     f"{layout}")
-            return _Datatype(f"{order}f{size}"), 20
+            return done(f"{order}f{size}", 20)
         if cls == 3:
             if size == 0:
                 raise MetadataError(f"{self.name}: HDF5 string of 0 bytes")
-            return _Datatype(f"S{size}"), 8
+            return done(f"S{size}", 8)
         if cls == 9:
             if f0 & 0x0F != 1:
                 raise NotSupportedError(f"{self.name}: HDF5 variable-length sequences")
-            base, used = self._datatype(b, off + 8)
-            return _Datatype("V16", vlen=True,
-                             encoding="utf-8" if f1 & 0x0F == 1 else "ascii"), 8 + used
+            _base, used = self._datatype(b, off + 8)
+            return done("V16", 8 + used, vlen=True,
+                        encoding="utf-8" if f1 & 0x0F == 1 else "ascii")
+        if cls == 8:
+            return self._enum(b, off, version, f0 | (f1 << 8), size)
+        if cls == 6:
+            return self._compound(b, off, version, f0 | (f1 << 8), size)
+        if cls == 10:
+            if version == 1:
+                raise MetadataError(f"{self.name}: bad HDF5 array datatype version 1")
+            ndims = b[off + 8]
+            p = off + 9 + (3 if version == 2 else 0)
+            dims = struct.unpack_from(f"<{ndims}I", b, p)
+            p += 4 * ndims * (2 if version == 2 else 1)
+            base, used = self._datatype(b, p)
+            if base.vlen or base.post is not None:
+                raise NotSupportedError(f"{self.name}: HDF5 arrays of variable-length or "
+                                        "wide boolean types")
+            if base.dtype.itemsize * math.prod(dims) != size:
+                raise MetadataError(f"{self.name}: HDF5 array of {size} bytes")
+            return done(np.dtype((base.dtype, tuple(int(x) for x in dims))), p - off + used)
         if cls in _CLASS_NAMES:
             raise NotSupportedError(f"{self.name}: HDF5 {_CLASS_NAMES[cls]} datatypes are not "
                                     "read by the port")
         raise MetadataError(f"{self.name}: bad HDF5 datatype class {cls}")
+
+    def _names(self, b: bytes, p: int, version: int) -> "tuple[str, int]":
+        end = b.index(b"\0", p)
+        name = bytes(b[p:end]).decode("utf-8")
+        return name, (p + _pad8(end + 1 - p) if version < 3 else end + 1)
+
+    def _enum(self, b, off, version, n, size):
+        """h5py's reading of an enum: ``bool`` for the FALSE/TRUE pair,
+        else the base integer."""
+        base, used = self._datatype(b, off + 8)
+        if base.dtype.kind not in "iu" or base.dtype.itemsize != size:
+            raise MetadataError(f"{self.name}: HDF5 enum over {base.dtype}")
+        p = off + 8 + used
+        names = []
+        for _ in range(n):
+            name, p = self._names(b, p, version)
+            names.append(name)
+        values = np.frombuffer(bytes(b[p:p + n * size]), base.dtype, count=n)
+        p += n * size
+        raw = bytes(b[off:p])
+        if dict(zip(names, values.tolist())) == {"FALSE": 0, "TRUE": 1}:
+            if size == 1:
+                return _Datatype(np.bool_, raw=raw), p - off
+            return _Datatype(base.dtype, raw=raw, post=lambda a: a != 0), p - off
+        return _Datatype(base.dtype, raw=raw), p - off
+
+    def _compound(self, b, off, version, n, size):
+        """A compound as h5py reads it: a structured dtype with the
+        members' names and offsets, or complex for the ``r``/``i`` pair."""
+        p = off + 8
+        names, formats, offsets = [], [], []
+        for _ in range(n):
+            name, p = self._names(b, p, version)
+            if version >= 3:
+                width = hdf5_v2.limit_enc_size(size)
+                moff = int.from_bytes(b[p:p + width], "little")
+                p += width
+                dims = ()
+            else:
+                moff = struct.unpack_from("<I", b, p)[0]
+                p += 4
+                dims = ()
+                if version == 1:
+                    ndims = b[p]
+                    dims = struct.unpack_from(f"<{ndims}I", b, p + 12) if ndims else ()
+                    p += 28
+            mtype, used = self._datatype(b, p)
+            p += used
+            if mtype.vlen or mtype.post is not None:
+                raise NotSupportedError(f"{self.name}: HDF5 compounds holding variable-length "
+                                        "strings or wide boolean enums are not read by the "
+                                        "port")
+            names.append(name)
+            formats.append(np.dtype((mtype.dtype, tuple(dims))) if dims else mtype.dtype)
+            offsets.append(moff)
+        raw = bytes(b[off:p])
+        if (names == ["r", "i"] and formats[0] == formats[1] and formats[0].kind == "f"
+                and formats[0].itemsize in (4, 8) and offsets == [0, formats[0].itemsize]
+                and size == 2 * formats[0].itemsize):
+            bo = formats[0].byteorder if formats[0].byteorder in "<>" else "="
+            return _Datatype(np.dtype(f"{bo}c{size}"), raw=raw), p - off
+        if any(o + f.itemsize > size for o, f in zip(offsets, formats)):
+            raise MetadataError(f"{self.name}: HDF5 compound member past its {size} bytes")
+        dt = np.dtype({"names": names, "formats": formats, "offsets": offsets,
+                       "itemsize": size})
+        return _Datatype(dt, raw=raw), p - off
 
     def _dataspace(self, b: bytes) -> "tuple[tuple, tuple]":
         version, ndims, flags = b[0], b[1], b[2]
@@ -451,6 +731,12 @@ class File:
             raise MetadataError(f"{self.name}: HDF5 global heap object {index} missing")
         return objs[index]
 
+    def _fractal_heap(self, addr: int) -> hdf5_v2.FractalHeap:
+        heap = self._heaps.get(("fractal", addr))
+        if heap is None:
+            heap = self._heaps[("fractal", addr)] = hdf5_v2.FractalHeap(self, addr)
+        return heap
+
     # -- groups
     def _node(self, addr: int, kind: int, rank: int = 0):
         """A version-1 B-tree node: (level, keys, children)."""
@@ -482,21 +768,21 @@ class File:
             else:
                 yield keys[i], child, keys[i + 1]
 
-    def _stab(self, addr: int) -> "tuple[int, tuple[int, int]]":
-        """(B-tree address, local heap) of the group at ``addr``."""
+    def _stab(self, addr: int) -> "tuple[int, tuple[int, int]] | None":
+        """(B-tree address, local heap) of the symbol-table group at
+        ``addr``; None for a group of links."""
         msgs = self._messages(addr)
         stab = [b for t, _, b in msgs if t == 0x11]
         if not stab:
-            if {t for t, _, _ in msgs} & {0x02, 0x06, 0x0A}:
-                raise NotSupportedError(f"{self.name}: HDF5 link messages (new-style groups) "
-                                        "are not read by the port")
+            if _group_kinds({t for t, _, _ in msgs}):
+                return None
             raise MetadataError(f"{self.name}: HDF5 object at {addr} is not a group")
         btree, heap = struct.unpack_from("<QQ", stab[0], 0)
         return btree, self._local_heap(heap)
 
-    def _snod(self, addr: int) -> "list[tuple[int, int]]":
-        """(name offset, object address) of a symbol-table node's entries,
-        each entry checked as HDF5 decodes it."""
+    def _snod(self, addr: int) -> "list[tuple[int, int, int, int]]":
+        """(name offset, object address, cache type, scratch word) of a
+        symbol-table node's entries, each checked as HDF5 decodes it."""
         head = self._bytes(addr, 8 + 2 * self.leaf_k * 40)  # HDF5 loads the whole node
         if head[:4] != b"SNOD" or head[4] != 1:
             raise MetadataError(f"{self.name}: bad HDF5 symbol table node at {addr}")
@@ -506,30 +792,109 @@ class File:
         entries = self._bytes(addr + 8, 40 * n)
         out = []
         for i in range(n):
-            name_off, obj, cache = struct.unpack_from("<QQI", entries, 40 * i)
+            name_off, obj, cache, scratch = struct.unpack_from("<QQI4xI", entries, 40 * i)
             if cache > 2:
                 raise MetadataError(f"{self.name}: unknown HDF5 symbol table entry cache "
                                     f"type {cache}")
-            out.append((name_off, obj))
+            out.append((name_off, obj, cache, scratch))
         return out
 
-    def _members(self, addr: int) -> "dict[str, int]":
-        """Every member of a group, in B-tree order (HDF5's iteration:
-        the B-tree's keys are not read)."""
-        if addr in self._groups:
-            return self._groups[addr]
-        btree, heap = self._stab(addr)
-        members: dict = {}
-        for _key, snod, _next in self._btree(btree, 0):
-            for name_off, obj in self._snod(snod):
-                members[self._heap_bytes(heap, name_off).decode("utf-8")] = obj
-        self._groups[addr] = members
-        return members
+    def _entry_link(self, heap, entry) -> tuple:
+        """A symbol-table entry as a link: hard, or soft (cache type 2,
+        the value in the group's local heap)."""
+        _name, obj, cache, scratch = entry
+        if cache == 2:
+            return ("soft", self._heap_bytes(heap, scratch).decode("utf-8"))
+        return ("hard", obj)
 
-    def _lookup(self, addr: int, name: str) -> "int | None":
-        """One member by name as HDF5 finds it: a binary search down the
-        B-tree by its keys' names, then through the symbol-table node."""
-        btree, heap = self._stab(addr)
+    def _links(self, addr: int) -> "dict[str, tuple]":
+        """Every link of the group at ``addr`` in h5py's iteration order
+        (name order; creation order where the group indexes it):
+        name -> ``("hard", address)``, ``("soft", path)`` or
+        ``("external", (file, path))``."""
+        cached = self._links_cache.get(addr)
+        if cached is not None:
+            return cached
+        stab = self._stab(addr)
+        links: dict = {}
+        if stab is not None:
+            btree, heap = stab
+            for _key, snod, _next in self._btree(btree, 0):
+                for entry in self._snod(snod):
+                    links[self._heap_bytes(heap, entry[0]).decode("utf-8")] = \
+                        self._entry_link(heap, entry)
+        else:
+            found, by_order = [], False
+            for t, _, b in self._messages(addr):
+                if t == 0x06:
+                    found.append(self._link(b))
+                elif t == 0x02:
+                    by_order, heap, names = self._link_info(b)
+                    if heap != UNDEF and names != UNDEF:
+                        fh = self._fractal_heap(heap)
+                        for rec in hdf5_v2.BTree2(self, names, 5).records():
+                            found.append(self._link(fh.get(rec[4:4 + fh.id_len])))
+            found.sort(key=(lambda x: x[1]) if by_order else (lambda x: x[0].encode("utf-8")))
+            for name, _corder, link in found:
+                if name in links:
+                    raise MetadataError(f"{self.name}: two HDF5 links named {name!r}")
+                links[name] = link
+        self._links_cache[addr] = links
+        return links
+
+    def _link_info(self, b: bytes) -> "tuple[bool, int, int]":
+        """(creation order indexed, fractal heap, name B-tree) of a link
+        info message."""
+        if b[0] != 0:
+            raise MetadataError(f"{self.name}: bad HDF5 link info version {b[0]}")
+        flags = b[1]
+        p = 2 + (8 if flags & 1 else 0)
+        heap, names = struct.unpack_from("<QQ", b, p)
+        return bool(flags & 2), heap, names
+
+    def _link(self, b: bytes) -> "tuple[str, int, tuple]":
+        """(name, creation order, link) of an encoded link message."""
+        if b[0] != 1:
+            raise MetadataError(f"{self.name}: bad HDF5 link message version {b[0]}")
+        flags, p = b[1], 2
+        kind = 0
+        if flags & 0x08:
+            kind = b[p]
+            p += 1
+        corder = 0
+        if flags & 0x04:
+            corder = struct.unpack_from("<q", b, p)[0]
+            p += 8
+        if flags & 0x10:
+            p += 1
+        width = 1 << (flags & 3)
+        n = int.from_bytes(b[p:p + width], "little")
+        p += width
+        if n == 0 or p + n > len(b):
+            raise MetadataError(f"{self.name}: bad HDF5 link name")
+        name = bytes(b[p:p + n]).decode("utf-8")
+        p += n
+        if kind == 0:
+            return name, corder, ("hard", struct.unpack_from("<Q", b, p)[0])
+        if kind in (1, 64):
+            (length,) = struct.unpack_from("<H", b, p)
+            value = bytes(b[p + 2:p + 2 + length])
+            if kind == 1:
+                return name, corder, ("soft", value.decode("utf-8"))
+            parts = value[1:].split(b"\0")
+            return name, corder, ("external", (parts[0].decode("utf-8", "replace"),
+                                               parts[1].decode("utf-8", "replace")))
+        raise NotSupportedError(f"{self.name}: HDF5 user-defined links (type {kind}) are not "
+                                "read by the port")
+
+    def _lookup(self, addr: int, name: str) -> "tuple | None":
+        """One link by name as HDF5 finds it: in a symbol-table group a
+        binary search down the B-tree by its keys' names, then through
+        the symbol-table node; else among the group's links."""
+        stab = self._stab(addr)
+        if stab is None:
+            return self._links(addr).get(name)
+        btree, heap = stab
         want = name.encode("utf-8")
         node, depth = btree, 0
         while True:
@@ -564,31 +929,90 @@ class File:
                 rt = idx
             else:
                 lt = idx + 1
-        return None if cmp else entries[idx][1]
+        return None if cmp else self._entry_link(heap, entries[idx])
+
+    def _resolve(self, start: int, path: str, hops: int = 0) -> "int | None":
+        addr = self.root_addr if path.startswith("/") else start
+        for part in [p for p in path.split("/") if p and p != "."]:
+            link = self._lookup(addr, part)
+            if link is None:
+                return None
+            if link[0] == "soft":
+                if hops >= MAX_SOFT:
+                    return None
+                link = ("hard", self._resolve(addr, link[1], hops + 1))
+                if link[1] is None:
+                    return None
+            elif link[0] == "external":
+                raise NotSupportedError(f"{self.name}: HDF5 external links ({part!r} to "
+                                        f"{link[1][0]}:{link[1][1]}) are not read by the port")
+            addr = link[1]
+        return addr
 
     def resolve(self, path: str) -> "int | None":
-        """The object header address at ``path``, or None."""
-        addr = self.root_addr
+        """The object header address at ``path`` (soft links followed),
+        or None."""
         try:
-            for part in [p for p in path.split("/") if p]:
-                addr = self._lookup(addr, part)
-                if addr is None:
-                    return None
+            return self._resolve(self.root_addr, "/" + path)
         except _CORRUPT as exc:
             raise MetadataError(f"corrupt HDF5 file {self.name}: {type(exc).__name__}: {exc}") \
                 from exc
-        return addr
+
+    def exists(self, path: str) -> bool:
+        """Whether a link names ``path`` (h5py's ``path in file``: the
+        groups on the way must exist, the last link may dangle)."""
+        parts = [p for p in path.split("/") if p and p != "."]
+        if not parts:
+            return True
+        try:
+            parent = self._resolve(self.root_addr, "/" + "/".join(parts[:-1]))
+            return parent is not None and \
+                _group_kinds({t for t, _, _ in self._messages(parent)}) and \
+                self._lookup(parent, parts[-1]) is not None
+        except _CORRUPT as exc:
+            raise MetadataError(f"corrupt HDF5 file {self.name}: {type(exc).__name__}: {exc}") \
+                from exc
 
     def members(self, path: str) -> "list[str]":
-        """The names in the group at ``path`` (KeyError when absent)."""
+        """The names in the group at ``path`` (KeyError when absent), in
+        h5py's iteration order."""
         addr = self.resolve(path)
         if addr is None:
             raise KeyError(path)
         try:
-            return list(self._members(addr))
+            return list(self._links(addr))
         except _CORRUPT as exc:
             raise MetadataError(f"corrupt HDF5 file {self.name}: {type(exc).__name__}: {exc}") \
                 from exc
+
+    def datasets(self, path: str = "/") -> "list[str]":
+        """The dataset paths below the group at ``path``, relative to it,
+        in h5py's ``visititems`` order: depth first, names in byte order,
+        hard links only, each object once; no data is read."""
+        addr = self.resolve(path)
+        if addr is None:
+            raise KeyError(path)
+        out: list = []
+        seen = {addr}
+        try:
+            self._visit(addr, "", seen, out)
+        except _CORRUPT as exc:
+            raise MetadataError(f"corrupt HDF5 file {self.name}: {type(exc).__name__}: {exc}") \
+                from exc
+        return out
+
+    def _visit(self, addr: int, prefix: str, seen: set, out: list) -> None:
+        links = self._links(addr)
+        for name in sorted(links, key=lambda s: s.encode("utf-8")):
+            kind, child = links[name]
+            if kind != "hard" or child in seen:
+                continue
+            seen.add(child)
+            kinds = {t for t, _, _ in self._messages(child)}
+            if _group_kinds(kinds):
+                self._visit(child, f"{prefix}{name}/", seen, out)
+            elif 0x08 in kinds:
+                out.append(f"{prefix}{name}")
 
     # -- objects
     def node(self, path: str = "/"):
@@ -605,73 +1029,103 @@ class File:
             msgs = self._messages(addr)
             attrs = self._attributes(msgs)
             kinds = {t for t, _, _ in msgs}
-            if kinds & {0x02, 0x06, 0x0A}:
-                raise NotSupportedError(f"{self.name}: HDF5 link messages (new-style groups) "
-                                        "are not read by the port")
-            if 0x11 in kinds:
+            if _group_kinds(kinds):
                 return Group(attrs)
+            if 0x03 in kinds and not kinds & {0x01, 0x08}:
+                raise NotSupportedError(f"{self.name}: committed HDF5 datatypes are not kept "
+                                        "by the port")
             return self._dataset(msgs, attrs)
         except _CORRUPT as exc:
             raise MetadataError(f"corrupt HDF5 file {self.name}: {type(exc).__name__}: {exc}") \
                 from exc
 
     def _attributes(self, msgs) -> dict:
-        out = {}
+        found = []
         for t, _flags, b in msgs:
             if t == 0x15:
-                raise NotSupportedError(f"{self.name}: HDF5 dense attribute storage is not read "
-                                        "by the port")
-            if t != 0x0C:
-                continue
-            version = b[0]
-            if version == 1:
-                nsize, tsize, ssize = struct.unpack_from("<HHH", b, 2)
-                p, pad = 8, _pad8
-            elif version in (2, 3):
-                if b[1] & 3:
-                    raise NotSupportedError(f"{self.name}: shared HDF5 attribute types")
-                nsize, tsize, ssize = struct.unpack_from("<HHH", b, 2)
-                p, pad = (8 if version == 2 else 9), (lambda n: n)
-            else:
-                raise MetadataError(f"{self.name}: bad HDF5 attribute version {version}")
-            name = b[p:p + nsize].split(b"\0")[0].decode("utf-8")
-            p += pad(nsize)
-            dtype, _ = self._datatype(b[p:p + tsize])
-            p += pad(tsize)
-            shape, _ = self._dataspace(b[p:p + ssize])
-            p += pad(ssize)
-            out[name] = self._values(b[p:], dtype, shape)
-        return out
+                found.extend(self._dense_attributes(b))
+            elif t == 0x0C:
+                found.append(self._attribute(b))
+        return dict(found)
+
+    def _dense_attributes(self, b: bytes) -> list:
+        """The attributes of an attribute info message's dense storage."""
+        if b[0] != 0:
+            raise MetadataError(f"{self.name}: bad HDF5 attribute info version {b[0]}")
+        flags = b[1]
+        p = 2 + (2 if flags & 1 else 0)
+        heap, names = struct.unpack_from("<QQ", b, p)
+        if heap == UNDEF or names == UNDEF:
+            return []
+        fh = self._fractal_heap(heap)
+        out = []
+        for rec in hdf5_v2.BTree2(self, names, 8).records():
+            if rec[8] & 0x02:
+                raise NotSupportedError(f"{self.name}: HDF5 shared object header messages are "
+                                        "not read by the port")
+            out.append(self._attribute(fh.get(rec[:8])))
+        return sorted(out, key=lambda kv: kv[0].encode("utf-8"))
+
+    def _attribute(self, b: bytes) -> tuple:
+        version = b[0]
+        if version == 1:
+            nsize, tsize, ssize = struct.unpack_from("<HHH", b, 2)
+            p, pad = 8, _pad8
+        elif version in (2, 3):
+            if b[1] & 2:
+                raise NotSupportedError(f"{self.name}: shared HDF5 attribute dataspaces")
+            nsize, tsize, ssize = struct.unpack_from("<HHH", b, 2)
+            p, pad = (8 if version == 2 else 9), (lambda n: n)
+        else:
+            raise MetadataError(f"{self.name}: bad HDF5 attribute version {version}")
+        name = bytes(b[p:p + nsize]).split(b"\0")[0].decode("utf-8")
+        p += pad(nsize)
+        traw = b[p:p + tsize]
+        if version > 1 and b[1] & 1:
+            traw = self._shared_type(traw)
+        dtype, _ = self._datatype(traw)
+        p += pad(tsize)
+        shape, _ = self._dataspace(b[p:p + ssize])
+        p += pad(ssize)
+        return name, self._values(b[p:], dtype, shape)
 
     def _values(self, raw: bytes, dtype: _Datatype, shape: tuple):
         n = math.prod(shape)
         if n * dtype.dtype.itemsize > len(raw):
             raise MetadataError(f"{self.name}: HDF5 attribute data shorter than its shape")
         if dtype.vlen:
-            vals = []
-            for i in range(n):
-                length, heap, index = struct.unpack_from("<IQI", raw, 16 * i)
-                obj = self._global_object(heap, index) if length else b""
-                if len(obj) < length:
-                    raise MetadataError(f"{self.name}: short HDF5 variable-length string")
-                vals.append(obj[:length].decode(dtype.encoding))
+            vals = [s.decode(dtype.encoding) for s in self._vlen_items(raw, n)]
             if not shape:
                 return vals[0]
             return np.array(vals, dtype=object).reshape(shape)
         arr = np.frombuffer(raw, dtype.dtype, count=n).reshape(shape).copy()
+        if dtype.post is not None:
+            arr = dtype.post(arr)
         return arr[()] if not shape else arr
+
+    def _vlen_items(self, raw: bytes, n: int) -> list:
+        """The ``bytes`` of ``n`` variable-length string elements (length,
+        global heap collection, object index)."""
+        vals = []
+        for i in range(n):
+            length, heap, index = struct.unpack_from("<IQI", raw, 16 * i)
+            obj = self._global_object(heap, index) if length else b""
+            if len(obj) < length:
+                raise MetadataError(f"{self.name}: short HDF5 variable-length string")
+            vals.append(bytes(obj[:length]))
+        return vals
 
     def _dataset(self, msgs, attrs) -> Dataset:
         by = {}
-        for t, _, b in msgs:
+        for t, flags, b in msgs:
+            if t == 0x03 and flags & 0x02 and t not in by:
+                b = self._shared_type(b)
             by.setdefault(t, b)
         if 0x01 not in by or 0x03 not in by or 0x08 not in by:
             raise MetadataError(f"{self.name}: HDF5 object without a dataspace, datatype or "
                                 "layout")
         shape, maxshape = self._dataspace(by[0x01])
         dtype, _ = self._datatype(by[0x03])
-        if dtype.vlen:
-            raise NotSupportedError(f"{self.name}: HDF5 datasets of variable-length strings")
         itemsize = dtype.dtype.itemsize
         nbytes = math.prod(shape) * itemsize
         if nbytes > MAX_BYTES:
@@ -679,45 +1133,67 @@ class File:
         filters = self._filters(by[0x0B]) if 0x0B in by else []
         fill = self._fill(by, itemsize)
         lay = by[0x08]
-        if lay[0] != 3:
-            if lay[0] == 4:
-                raise NotSupportedError(f"{self.name}: HDF5 data layout version 4 (fixed and "
-                                        "extensible array chunk indexes) is not read by the port")
+        if lay[0] not in (3, 4):
             raise NotSupportedError(f"{self.name}: HDF5 data layout version {lay[0]}")
         cls = lay[1]
-        ds = Dataset(shape=shape, dtype=dtype.dtype, maxshape=maxshape, filters=filters,
-                     fillvalue=fill, attrs=attrs)
+        out_dtype = np.dtype(object) if dtype.vlen else \
+            np.dtype(bool) if dtype.post is not None else dtype.dtype
+        ds = Dataset(shape=shape, dtype=out_dtype, maxshape=maxshape, filters=filters,
+                     fillvalue=fill, attrs=attrs, h5type=dtype.raw)
         if cls == 0:
             size = struct.unpack_from("<H", lay, 2)[0]
             raw = lay[4:4 + size]
             if size < nbytes or len(raw) < size:
                 raise MetadataError(f"{self.name}: HDF5 compact data shorter than its dataset")
-            ds._reader = self._flat_reader(lambda: raw[:nbytes], shape, dtype.dtype)
+            reader = self._flat_reader(lambda: raw[:nbytes], shape, dtype.dtype)
+            ds.storage = "compact"
         elif cls == 1:
+            ds.storage = "contiguous"
             addr, _size = struct.unpack_from("<QQ", lay, 2)
             if addr == UNDEF:
-                ds._reader = self._flat_reader(
+                reader = self._flat_reader(
                     lambda: self._filled(fill, itemsize, nbytes), shape, dtype.dtype)
             else:
                 if addr + nbytes > self.eoa:
                     raise MetadataError(f"{self.name}: HDF5 dataset storage past the end of "
                                         "the file")
-                ds._reader = self._flat_reader(lambda: self._bytes(addr, nbytes), shape,
-                                               dtype.dtype)
+                reader = self._flat_reader(lambda: self._bytes(addr, nbytes), shape,
+                                           dtype.dtype)
         elif cls == 2:
-            nd = lay[2]
-            addr = struct.unpack_from("<Q", lay, 3)[0]
-            dims = struct.unpack_from(f"<{nd}I", lay, 11)
-            if nd != len(shape) + 1 or dims[-1] != itemsize or 0 in dims:
-                raise MetadataError(f"{self.name}: HDF5 chunk dimensions {dims} for shape "
-                                    f"{shape}")
-            ds.chunks = tuple(int(c) for c in dims[:-1])
-            ds._reader = self._chunk_reader(addr, ds, fill)
+            reader = self._chunked(lay, ds, dtype.dtype, fill, maxshape)
         elif cls == 3:
-            raise NotSupportedError(f"{self.name}: HDF5 virtual datasets")
+            if lay[0] != 4:
+                raise MetadataError(f"{self.name}: an HDF5 virtual layout of version {lay[0]}")
+            ds.virtual = self._virtual_mappings(*struct.unpack_from("<QI", lay, 2))
+            ds.storage = "virtual"
+            ds._reader = self._virtual_reader(ds, dtype, fill)
+            return ds
         else:
             raise MetadataError(f"{self.name}: bad HDF5 layout class {cls}")
+        ds._reader = self._converter(reader, dtype)
         return ds
+
+    def _converter(self, reader, dtype: _Datatype):
+        """``reader`` with the stored elements turned into what h5py
+        returns (variable-length strings as ``bytes``, a wide boolean
+        enum as ``bool``)."""
+        if not dtype.vlen and dtype.post is None:
+            return reader
+
+        def read(box):
+            arr = reader(box)
+            if dtype.post is not None:
+                return dtype.post(arr)
+            try:
+                items = self._vlen_items(arr.tobytes(), arr.size)
+            except _CORRUPT as exc:
+                raise MetadataError(f"corrupt HDF5 file {self.name}: {type(exc).__name__}: "
+                                    f"{exc}") from exc
+            out = np.empty(arr.size, object)
+            out[:] = items
+            return out.reshape(arr.shape)
+
+        return read
 
     def _filters(self, b: bytes) -> list:
         version, n = b[0], b[1]
@@ -737,7 +1213,7 @@ class File:
             p += _pad8(namelen) if version == 1 else namelen
             vals = struct.unpack_from(f"<{nvals}I", b, p)
             p += 4 * nvals + (4 if version == 1 and nvals % 2 else 0)
-            if fid not in (1, 2, 3):
+            if fid not in (1, 2, 3, LZF):
                 name = {4: "szip", 5: "nbit", 6: "scale-offset"}.get(fid, f"filter {fid}")
                 raise NotSupportedError(f"{self.name}: the HDF5 {name} filter is not read by "
                                         "the port")
@@ -782,8 +1258,142 @@ class File:
 
         return read
 
-    def _chunk_reader(self, btree: int, ds: Dataset, fill):
-        shape, chunks, dtype = ds.shape, ds.chunks, ds.dtype
+    # -- chunked layouts
+    def _chunked(self, lay: bytes, ds: Dataset, dtype, fill, maxshape):
+        """The reader of a chunked layout: version 3 (type-1 B-tree) or
+        version 4 (single chunk, implicit, fixed array, extensible array
+        or v2 B-tree index)."""
+        shape, itemsize = ds.shape, dtype.itemsize
+        rank = len(shape)
+        edge_raw = False
+        if lay[0] == 3:
+            nd = lay[2]
+            addr = struct.unpack_from("<Q", lay, 3)[0]
+            dims = struct.unpack_from(f"<{nd}I", lay, 11)
+        else:
+            flags, nd, width = lay[2], lay[3], lay[4]
+            if flags & ~3 or width not in range(1, 9):
+                raise MetadataError(f"{self.name}: bad HDF5 layout-4 flags {flags:#x} or "
+                                    f"width {width}")
+            dims = tuple(int.from_bytes(lay[5 + width * i:5 + width * (i + 1)], "little")
+                         for i in range(nd))
+            p = 5 + width * nd
+            index = lay[p]
+            edge_raw = bool(flags & 1)
+        if nd != rank + 1 or dims[-1] != itemsize or 0 in dims:
+            raise MetadataError(f"{self.name}: HDF5 chunk dimensions {dims} for shape "
+                                f"{shape}")
+        chunks = tuple(int(c) for c in dims[:-1])
+        ds.chunks = chunks
+        chunk_bytes = math.prod(chunks) * itemsize
+        ds.storage = "btree1" if lay[0] == 3 else \
+            {1: "single", 2: "implicit", 3: "fixed_array", 4: "extensible_array",
+             5: "btree2"}.get(index)
+        if lay[0] == 3:
+            def build():
+                out = []
+                if addr == UNDEF:
+                    return out
+                for key, caddr, _next in self._btree(addr, 1, rank):
+                    size, mask = struct.unpack_from("<II", key, 0)
+                    offs = struct.unpack_from(f"<{rank}Q", key, 8)
+                    if any(o % c for o, c in zip(offs, chunks)):
+                        raise MetadataError(f"{self.name}: HDF5 chunk offset {offs} off its "
+                                            "grid")
+                    out.append((offs, caddr, size, mask))
+                return out
+        else:
+            build = self._chunk_index(lay, p, index, chunks, shape, maxshape, ds.filters,
+                                      chunk_bytes)
+        return self._chunk_reader(build, ds, dtype, fill, edge_raw)
+
+    def _chunk_index(self, lay, p, index, chunks, shape, maxshape, filters, chunk_bytes):
+        """A function building ``[(offsets, address, size, mask)]`` from a
+        layout-4 chunk index."""
+        rank = len(chunks)
+        filtered = bool(filters)
+        size_len = min(1 + (hdf5_v2.log2_gen(chunk_bytes) + 8) // 8, 8)
+        grid = [-(-(m if m is not None else n) // c) for m, n, c in zip(maxshape, shape, chunks)]
+
+        def offsets(scaled):
+            return tuple(s * c for s, c in zip(scaled, chunks))
+
+        def by_index(elements, order):
+            """Elements by linear chunk index, row-major over the chunk
+            grid with the axes in ``order`` (slowest first)."""
+            out = []
+            for idx, (caddr, size, mask) in elements.items():
+                scaled = [0] * rank
+                for a in reversed(order[1:]):
+                    idx, scaled[a] = divmod(idx, grid[a])
+                scaled[order[0]] = idx
+                out.append((offsets(scaled), caddr, chunk_bytes if size is None else size,
+                            mask))
+            return out
+
+        if index == 1:  # single chunk
+            single_size, mask = chunk_bytes, 0
+            if lay[2] & 2:
+                single_size, mask = struct.unpack_from("<QI", lay, p + 1)
+                p += 12
+            caddr = struct.unpack_from("<Q", lay, p + 1)[0]
+            if tuple(chunks) != tuple(shape if None in maxshape else maxshape) and \
+                    tuple(chunks) != tuple(shape):
+                raise MetadataError(f"{self.name}: HDF5 single chunk {chunks} for {shape}")
+            return lambda: [] if caddr == UNDEF else [((0,) * rank, caddr, single_size, mask)]
+        if index == 2:  # implicit: every chunk in place, in order
+            caddr = struct.unpack_from("<Q", lay, p + 1)[0]
+            if filtered or None in maxshape:
+                raise MetadataError(f"{self.name}: an HDF5 implicit chunk index with filters "
+                                    "or unlimited axes")
+
+            def implicit():
+                if caddr == UNDEF:
+                    return []
+                n = math.prod(grid)
+                self._bytes(caddr, n * chunk_bytes)
+                return by_index({i: (caddr + i * chunk_bytes, None, 0) for i in range(n)},
+                                list(range(rank)))
+            return implicit
+        if index == 3:  # fixed array
+            caddr = struct.unpack_from("<Q", lay, p + 2)[0]
+            if None in maxshape:
+                raise MetadataError(f"{self.name}: an HDF5 fixed-array index with unlimited "
+                                    "axes")
+            return lambda: [] if caddr == UNDEF else by_index(
+                hdf5_v2.fixed_array(self, caddr, filtered, size_len), list(range(rank)))
+        if index == 4:  # extensible array: the unlimited axis is the slowest
+            caddr = struct.unpack_from("<Q", lay, p + 6)[0]
+            unlim = [a for a, m in enumerate(maxshape) if m is None]
+            if len(unlim) != 1:
+                raise MetadataError(f"{self.name}: an HDF5 extensible-array index over "
+                                    f"{len(unlim)} unlimited axes")
+            order = unlim + [a for a in range(rank) if a != unlim[0]]
+            return lambda: [] if caddr == UNDEF else by_index(
+                hdf5_v2.extensible_array(self, caddr, filtered, size_len), order)
+        if index == 5:  # v2 B-tree of chunk records
+            caddr = struct.unpack_from("<Q", lay, p + 7)[0]
+
+            def btree():
+                if caddr == UNDEF:
+                    return []
+                out = []
+                for rec in hdf5_v2.BTree2(self, caddr, 11 if filtered else 10).records():
+                    a = struct.unpack_from("<Q", rec, 0)[0]
+                    if filtered:
+                        size = int.from_bytes(rec[8:8 + size_len], "little")
+                        mask = struct.unpack_from("<I", rec, 8 + size_len)[0]
+                        q = 12 + size_len
+                    else:
+                        size, mask, q = chunk_bytes, 0, 8
+                    scaled = struct.unpack_from(f"<{rank}Q", rec, q)
+                    out.append((offsets(scaled), a, size, mask))
+                return out
+            return btree
+        raise MetadataError(f"{self.name}: bad HDF5 chunk index type {index}")
+
+    def _chunk_reader(self, build, ds: Dataset, dtype, fill, edge_raw: bool = False):
+        shape, chunks = ds.shape, ds.chunks
         itemsize = dtype.itemsize
         filters = ds.filters
 
@@ -794,27 +1404,24 @@ class File:
             out_shape = tuple(b - a for a, b in box)
             out = np.frombuffer(self._filled(fill, itemsize, math.prod(out_shape) * itemsize),
                                 dtype).reshape(out_shape).copy()
-            if btree == UNDEF or 0 in out_shape:
+            if 0 in out_shape:
                 return out
             try:
                 if not index:
-                    built = []
-                    for key, addr, _next in self._btree(btree, 1, len(shape)):
-                        size, mask = struct.unpack_from("<II", key, 0)
-                        offs = struct.unpack_from(f"<{len(shape)}Q", key, 8)
-                        if any(o % c for o, c in zip(offs, chunks)):
-                            raise MetadataError(f"{self.name}: HDF5 chunk offset {offs} off "
-                                                "its grid")
-                        built.append((offs, addr, size, mask))
-                    index[:] = built
-                for offs, addr, size, mask in index:
+                    index[:] = build() or [None]
+                for entry in index:
+                    if entry is None:
+                        continue
+                    offs, addr, size, mask = entry
                     if any(o >= n for o, n in zip(offs, shape)):
                         continue
                     lo = [max(a, o) for (a, _), o in zip(box, offs)]
                     hi = [min(b, o + c) for (_, b), o, c in zip(box, offs, chunks)]
                     if any(l >= h for l, h in zip(lo, hi)):
                         continue
-                    chunk = self._chunk(addr, size, mask, filters, math.prod(chunks) * itemsize)
+                    edge = edge_raw and any(o + c > n for o, c, n in zip(offs, chunks, shape))
+                    chunk = self._chunk(addr, size, mask, [] if edge else filters,
+                                        math.prod(chunks) * itemsize)
                     arr = np.frombuffer(chunk, dtype).reshape(chunks)
                     src = tuple(slice(l - o, h - o) for l, h, o in zip(lo, hi, offs))
                     dst = tuple(slice(l - a, h - a) for l, h, (a, _) in zip(lo, hi, box))
@@ -853,34 +1460,154 @@ class File:
                     raise MetadataError(f"{self.name}: HDF5 data error detected by the "
                                         "fletcher32 checksum")
                 data = body
+            elif fid == LZF:
+                from tmlibrary_tpu_torch import native
+
+                try:
+                    data = native.lzf_decompress(data, expect)
+                except MetadataError as exc:
+                    raise MetadataError(f"{self.name}: HDF5 chunk at {addr}: {exc}") from exc
         if len(data) != expect:
             raise MetadataError(f"{self.name}: HDF5 chunk of {len(data)} bytes, expected "
                                 f"{expect}")
         return data
 
+    # -- virtual datasets
+    def _virtual_mappings(self, heap: int, index: int) -> list:
+        """``[(source file, source dataset, source selection bytes,
+        virtual selection bytes)]`` of a virtual layout's global heap
+        object, its checksum verified."""
+        blob = bytes(self._global_object(heap, index))
+        if len(blob) < 13 or blob[0] != 0:
+            raise NotSupportedError(f"{self.name}: HDF5 virtual-dataset mappings of version "
+                                    f"{blob[0] if blob else None}")
+        if self._lookup3(blob[:-4]) != struct.unpack_from("<I", blob, len(blob) - 4)[0]:
+            raise MetadataError(f"{self.name}: bad checksum of the HDF5 virtual-dataset "
+                                "mappings")
+        n = struct.unpack_from("<Q", blob, 1)[0]
+        p, out = 9, []
+        for _ in range(n):
+            end = blob.index(b"\0", p)
+            src_file = blob[p:end].decode("utf-8")
+            p = end + 1
+            end = blob.index(b"\0", p)
+            src_dset = blob[p:end].decode("utf-8")
+            p = end + 1
+            sels = []
+            for _ in range(2):
+                start = p
+                _kind, _blocks, p = hdf5_v2.selection(self, blob, p)
+                sels.append(blob[start:p])
+            if "%" in src_file or "%" in src_dset:
+                raise NotSupportedError(f"{self.name}: printf-named HDF5 virtual-dataset "
+                                        "sources are not read by the port")
+            out.append((src_file, src_dset, sels[0], sels[1]))
+        if p != len(blob) - 4:
+            raise MetadataError(f"{self.name}: bad HDF5 virtual-dataset mappings")
+        return out
+
+    def _source(self, src_file: str, src_dset: str):
+        """The source dataset of a mapping, or None when its file or
+        dataset is missing (HDF5 then reads the fill value)."""
+        key = (src_file, src_dset)
+        if key not in self._sources:
+            node = None
+            if src_file == ".":
+                f = self
+            else:
+                path = Path(src_file)
+                path = path if path.is_absolute() else self.path.parent / path
+                try:
+                    f = File(path) if path.is_file() else None
+                except MetadataError:
+                    f = None
+            if f is not None:
+                try:
+                    node = f.node(src_dset)
+                except KeyError:
+                    node = None
+                if not isinstance(node, Dataset):
+                    node = None
+            self._sources[key] = node
+        return self._sources[key]
+
+    def _virtual_reader(self, ds: Dataset, dtype: _Datatype, fill):
+        """The reader of a virtual dataset: the fill value, then each
+        mapping's source selection into its virtual selection, element
+        for element in row-major order (what it reads is already as h5py
+        returns it)."""
+        def read(box):
+            try:
+                n = math.prod(ds.shape)
+                if dtype.vlen:
+                    out = np.empty(n, object)
+                    out[:] = [b""] * n
+                    out = out.reshape(ds.shape)
+                else:
+                    out = np.frombuffer(self._filled(fill, dtype.dtype.itemsize,
+                                                     n * dtype.dtype.itemsize),
+                                        dtype.dtype).reshape(ds.shape).copy()
+                    if dtype.post is not None:
+                        out = dtype.post(out)
+                for src_file, src_dset, ssel, vsel in ds.virtual:
+                    src = self._source(src_file, src_dset)
+                    if src is None:
+                        continue
+                    if src.dtype != ds.dtype:
+                        raise NotSupportedError(f"{self.name}: an HDF5 virtual-dataset source "
+                                                f"of {src.dtype} for {ds.dtype} is not read by "
+                                                "the port")
+                    vmask = hdf5_v2.selection_mask(
+                        self, *hdf5_v2.selection(self, vsel, 0)[:2], ds.shape)
+                    smask = hdf5_v2.selection_mask(
+                        self, *hdf5_v2.selection(self, ssel, 0)[:2], src.shape)
+                    if int(smask.sum()) != int(vmask.sum()):
+                        raise MetadataError(f"{self.name}: HDF5 virtual mapping of "
+                                            f"{int(vmask.sum())} elements from "
+                                            f"{int(smask.sum())}")
+                    out[vmask] = np.asarray(src.read())[smask]
+            except _CORRUPT as exc:
+                raise MetadataError(f"corrupt HDF5 file {self.name}: {type(exc).__name__}: "
+                                    f"{exc}") from exc
+            if box is not None:
+                out = out[tuple(slice(a, b) for a, b in box)]
+            return out
+
+        return read
+
     # -- whole-file load
     def load(self, path: str = "/") -> Group:
         """The group at ``path`` with everything below it read into
-        memory (datasets as arrays)."""
+        memory (datasets as arrays, soft links as :class:`SoftLink`)."""
         addr = self.resolve(path)
         if addr is None:
             raise KeyError(path)
         try:
-            return self._load(addr, set())
+            return self._load(addr, set(), {})
         except _CORRUPT as exc:
             raise MetadataError(f"corrupt HDF5 file {self.name}: {type(exc).__name__}: {exc}") \
                 from exc
 
-    def _load(self, addr: int, seen: set):
+    def _load(self, addr: int, seen: set, memo: dict):
+        """The object at ``addr``; an object under several hard links is
+        loaded once (``memo``), so it is written once."""
         if addr in seen:
             raise MetadataError(f"{self.name}: HDF5 group cycle at {addr}")
-        node = self._object(addr)
+        if addr in memo:
+            return memo[addr]
+        node = memo[addr] = self._object(addr)
         if isinstance(node, Dataset):
             node._data = node.read()
             node._reader = None
             return node
-        for name, child in self._members(addr).items():
-            node.children[name] = self._load(child, seen | {addr})
+        for name, (kind, value) in self._links(addr).items():
+            if kind == "hard":
+                node.children[name] = self._load(value, seen | {addr}, memo)
+            elif kind == "soft":
+                node.children[name] = SoftLink(value)
+            else:
+                raise NotSupportedError(f"{self.name}: HDF5 external links ({name!r} to "
+                                        f"{value[0]}:{value[1]}) are not kept by the port")
         return node
 
 
@@ -937,9 +1664,24 @@ def guess_chunk(shape, maxshape, typesize: int) -> tuple:
     return tuple(int(x) for x in chunks)
 
 
+_LITTLE = np.little_endian
+
+
+def _order(dt: np.dtype) -> int:
+    return 1 if dt.byteorder == ">" or (dt.byteorder == "=" and not _LITTLE) else 0
+
+
 def _dtype_message(dt: np.dtype) -> bytes:
+    """The datatype message h5py writes for ``dt``: integers, floats,
+    fixed-length byte strings, ``bool`` (an int8 enum of FALSE and TRUE),
+    complex (a compound of ``r`` and ``i``), structured dtypes (compounds
+    with their names and offsets; subarray fields as arrays)."""
     dt = np.dtype(dt)
-    order = 1 if dt.byteorder == ">" or (dt.byteorder == "=" and not _LITTLE) else 0
+    order = _order(dt)
+    if dt.kind == "b":
+        base = _dtype_message(np.dtype("i1"))
+        names = b"".join(n + b"\0" * (_pad8(len(n) + 1) - len(n)) for n in (b"FALSE", b"TRUE"))
+        return struct.pack("<BBBBI", 0x18, 2, 0, 0, 1) + base + names + b"\x00\x01"
     if dt.kind in "iu" and dt.itemsize in (1, 2, 4, 8):
         return struct.pack("<BBBBIHH", 0x10, order | (8 if dt.kind == "i" else 0), 0, 0,
                            dt.itemsize, 0, 8 * dt.itemsize)
@@ -948,15 +1690,38 @@ def _dtype_message(dt: np.dtype) -> bytes:
                   8: (64, 52, 11, 0, 52, 1023)}[dt.itemsize]
         return struct.pack("<BBBBIHHBBBBI", 0x11, order | 0x20, 8 * dt.itemsize - 1, 0,
                            dt.itemsize, 0, *layout)
+    if dt.kind == "c" and dt.itemsize in (8, 16):
+        half = np.dtype(f"{'>' if order else '<'}f{dt.itemsize // 2}")
+        return _compound([("r", half, 0), ("i", half, dt.itemsize // 2)], dt.itemsize)
     if dt.kind == "S" and dt.itemsize > 0:
         return struct.pack("<BBBBI", 0x13, 1, 0, 0, dt.itemsize)  # null-padded ASCII
-    raise NotSupportedError(f"the port's HDF5 writer takes integers, floats and fixed-length "
-                            f"byte strings, not {dt}")
+    if dt.kind == "V" and dt.names:
+        return _compound([(n, dt.fields[n][0], dt.fields[n][1]) for n in dt.names], dt.itemsize)
+    if dt.subdtype is not None:
+        base, dims = dt.subdtype
+        body = struct.pack("<B3x", len(dims)) + struct.pack(f"<{len(dims)}I", *dims)
+        body += struct.pack(f"<{len(dims)}I", *range(len(dims)))
+        return struct.pack("<BBBBI", 0x2A, 0, 0, 0, dt.itemsize) + body + _dtype_message(base)
+    raise NotSupportedError(f"the port's HDF5 writer takes integers, floats, bool, complex, "
+                            f"fixed-length byte strings and structured types, not {dt}")
+
+
+def _compound(members, size: int) -> bytes:
+    """A compound datatype message (version 1, or 2 with array members)."""
+    version = 2 if any(np.dtype(t).subdtype is not None for _, t, _ in members) else 1
+    body = b""
+    for name, mdt, off in members:
+        raw = name.encode("utf-8") + b"\0"
+        body += raw + b"\0" * (_pad8(len(raw)) - len(raw)) + struct.pack("<I", off)
+        if version == 1:
+            body += bytes(28)  # dimensionality, permutation and sizes of no array
+        body += _dtype_message(mdt)
+    n = len(members)
+    return struct.pack("<BBBBI", 0x06 | (version << 4), n & 0xFF, n >> 8, 0, size) + body
 
 
 #: a variable-length UTF-8 string type (h5py's ``str`` attributes)
 _VLEN_STR = struct.pack("<BBBBI", 0x19, 0x01, 0x01, 0, 16) + struct.pack("<BBBBI", 0x13, 0, 1, 0, 1)
-_LITTLE = np.little_endian
 
 
 def _space_message(shape, maxshape=None) -> bytes:
@@ -972,16 +1737,36 @@ def _message(mtype: int, body: bytes, flags: int = 0) -> bytes:
     return struct.pack("<HHB3x", mtype, len(body), flags) + body
 
 
+def _filter_message(filters, chunk_bytes: int) -> bytes:
+    """A version-1 filter pipeline: deflate, shuffle and LZF optional,
+    fletcher32 mandatory, LZF named with h5py's client data."""
+    body = struct.pack("<BB6x", 1, len(filters))
+    for fid, cd in filters:
+        if fid == LZF:
+            cd = (*_LZF_CD, chunk_bytes)
+            name = b"lzf\0\0\0\0\0"
+        else:
+            name = b""
+        body += struct.pack("<HHHH", fid, len(name), 0 if fid == 3 else 1, len(cd)) + name
+        body += struct.pack(f"<{len(cd)}I", *cd) + (b"\0" * 4 if len(cd) % 2 else b"")
+    return body
+
+
 class _Writer:
     def __init__(self, root: Group):
         self.buf = bytearray(96)  # the superblock, filled in last
         self.leaf_k = 4
+        self._written: dict = {}  # id(node) -> its addresses, one object under many links
+        self._refs: dict = {}  # id(node) -> its hard links (the header's reference count)
         self._max_members(root)
 
     def _max_members(self, g: Group) -> None:
         self.leaf_k = max(self.leaf_k, (len(g.children) + 1) // 2)
         for child in g.children.values():
-            if isinstance(child, Group):
+            if isinstance(child, SoftLink):
+                continue
+            self._refs[id(child)] = self._refs.get(id(child), 0) + 1
+            if isinstance(child, Group) and self._refs[id(child)] == 1:
                 self._max_members(child)
 
     def alloc(self, data: bytes) -> int:
@@ -997,7 +1782,7 @@ class _Writer:
             if isinstance(value, str) or (isinstance(value, np.ndarray) and value.dtype == object):
                 strs = [value] if isinstance(value, str) else [str(v) for v in value.ravel()]
                 shape = () if isinstance(value, str) else value.shape
-                dtm, raw = _VLEN_STR, self.vlen_strings(strs)
+                dtm, raw = _VLEN_STR, self.vlen_strings([s.encode("utf-8") for s in strs])
             else:
                 arr = np.asarray(value)
                 if arr.dtype.kind == "U":
@@ -1007,39 +1792,58 @@ class _Writer:
             body = struct.pack("<BBHHH", 1, 0, len(nm), len(dtm), len(space))
             for part in (nm, dtm, space):
                 body += part + b"\0" * (_pad8(len(part)) - len(part))
+            if len(body + raw) > 0xFFF0:
+                raise NotSupportedError(f"attribute {name!r} of {len(raw)} bytes: the port's "
+                                        "HDF5 writer keeps attributes in the object header "
+                                        "(64 KiB), not in dense storage")
             out += _message(0x0C, body + raw)
         return out
 
-    def vlen_strings(self, strs) -> bytes:
-        objs = [s.encode("utf-8") for s in strs]
-        body = b""
-        for i, o in enumerate(objs, 1):
-            body += struct.pack("<HH4xQ", i, 1, len(o)) + o + b"\0" * (_pad8(len(o)) - len(o))
-        size = max(4096, 16 + len(body) + 16)
-        free = size - 16 - len(body)
-        block = b"GCOL\x01\0\0\0" + struct.pack("<Q", size) + body + \
-            struct.pack("<HH4xQ", 0, 0, free) + b"\0" * (free - 16)
-        addr = self.alloc(block)
-        return b"".join(struct.pack("<IQI", len(o), addr, i) for i, o in enumerate(objs, 1))
+    def vlen_strings(self, objs) -> bytes:
+        """The 16-byte elements (length, collection, index) of ``objs``
+        stored in global heap collections of at most 65,535 objects."""
+        out = b""
+        for first in range(0, len(objs), 0xFFFF):
+            part = objs[first:first + 0xFFFF]
+            body = b""
+            for i, o in enumerate(part, 1):
+                body += struct.pack("<HH4xQ", i, 1, len(o)) + o + b"\0" * (_pad8(len(o)) - len(o))
+            size = max(4096, 16 + len(body) + 16)
+            free = size - 16 - len(body)
+            block = b"GCOL\x01\0\0\0" + struct.pack("<Q", size) + body + \
+                struct.pack("<HH4xQ", 0, 0, free) + b"\0" * (free - 16)
+            addr = self.alloc(block)
+            out += b"".join(struct.pack("<IQI", len(o), addr, i) for i, o in enumerate(part, 1))
+        return out
 
-    def header(self, messages: bytes, count: int) -> int:
+    def header(self, messages: bytes, count: int, node=None) -> int:
         if not messages:
             messages, count = _message(0, b""), 1
-        return self.alloc(struct.pack("<BBHII4x", 1, 0, count, 1, len(messages)) + messages)
+        refs = self._refs.get(id(node), 1)
+        return self.alloc(struct.pack("<BBHII4x", 1, 0, count, refs, len(messages)) + messages)
 
     def group(self, g: Group) -> "tuple[int, int, int]":
         names = sorted(g.children, key=lambda s: s.encode("utf-8"))
-        addrs = {n: self.node(g.children[n]) for n in names}
+        addrs = {n: self.node(g.children[n]) for n in names
+                 if not isinstance(g.children[n], SoftLink)}
         heap = bytearray(8)  # offset 0: the empty name
-        offsets = {}
+        offsets, values = {}, {}
         for n in names:
             offsets[n] = len(heap)
             raw = n.encode("utf-8") + b"\0"
             heap += raw + b"\0" * (_pad8(len(raw)) - len(raw))
+        for n in names:
+            if isinstance(g.children[n], SoftLink):
+                values[n] = len(heap)
+                raw = g.children[n].path.encode("utf-8") + b"\0"
+                heap += raw + b"\0" * (_pad8(len(raw)) - len(raw))
         heap_data = self.alloc(bytes(heap))
         heap_addr = self.alloc(b"HEAP\0\0\0\0" + struct.pack("<QQQ", len(heap), 1, heap_data))
         snod = b"SNOD\x01\0" + struct.pack("<H", len(names))
         for n in names:
+            if n in values:  # a soft link: cache type 2, its value's heap offset
+                snod += struct.pack("<QQI4xI12x", offsets[n], UNDEF, 2, values[n])
+                continue
             child = addrs[n]
             snod += struct.pack("<QQI4x", offsets[n], child[0], 1 if child[1] else 0)
             snod += struct.pack("<QQ", child[1], child[2]) if child[1] else bytes(16)
@@ -1051,32 +1855,44 @@ class _Writer:
         node += bytes(24 + 2 * 16 * 8 + (2 * 16 + 1) * 8 - len(node))
         tree = self.alloc(node)
         msgs = _message(0x11, struct.pack("<QQ", tree, heap_addr)) + self.attributes(g.attrs)
-        return self.header(msgs, 1 + len(g.attrs)), tree, heap_addr
+        return self.header(msgs, 1 + len(g.attrs), g), tree, heap_addr
 
     def node(self, n) -> "tuple[int, int, int]":
         """(object header, B-tree, heap) -- the last two 0 for a dataset."""
-        if isinstance(n, Group):
-            return self.group(n)
-        return self.dataset(n), 0, 0
+        if id(n) not in self._written:
+            self._written[id(n)] = (n, self.group(n) if isinstance(n, Group)
+                                    else (self.dataset(n), 0, 0))
+        return self._written[id(n)][1]
 
     def dataset(self, ds: Dataset) -> int:
         arr = np.asarray(ds.read(), order="C")  # keeps a scalar's shape ()
-        dtm = _dtype_message(arr.dtype)
         shape = tuple(arr.shape)
+        if arr.dtype == object:
+            if ds.h5type is None or ds.h5type[0] & 0x0F != 9:
+                raise NotSupportedError("the port's HDF5 writer takes object arrays only as "
+                                        "the variable-length strings of a dataset it read")
+            dtm = ds.h5type
+            raw = self.vlen_strings([v.encode("utf-8") if isinstance(v, str) else bytes(v)
+                                     for v in arr.ravel()])
+            arr = np.frombuffer(raw, "V16").reshape(shape)
+        elif ds.h5type is not None and ds.h5type[0] & 0x0F == 8 and arr.dtype != bool:
+            dtm = ds.h5type  # an enum read as its base integer: written back as the enum
+        else:
+            dtm = _dtype_message(arr.dtype)
         itemsize = arr.dtype.itemsize
-        msgs = _message(0x01, _space_message(shape, ds.maxshape if ds.chunks else None))
+        msgs = _message(0x01, _space_message(shape, ds.maxshape if ds.chunks or ds.virtual
+                                             else None))
         msgs += _message(0x03, dtm, flags=1)
         fill = ds.fillvalue if ds.fillvalue is not None else bytes(itemsize)
         alloc_time = 3 if ds.chunks else 2
         msgs += _message(0x05, struct.pack("<BBBBI", 2, alloc_time, 2, 1, itemsize) + fill)
         count = 3
-        if ds.chunks:
+        if ds.virtual is not None:
+            lay = struct.pack("<BBQI", 4, 3, *self.virtual_mappings(ds.virtual))
+        elif ds.chunks:
             if ds.filters:
-                body = struct.pack("<BB6x", 1, len(ds.filters))
-                for fid, cd in ds.filters:
-                    body += struct.pack("<HHHH", fid, 0, 1 if fid == 1 else 0, len(cd))
-                    body += struct.pack(f"<{len(cd)}I", *cd) + (b"\0" * 4 if len(cd) % 2 else b"")
-                msgs += _message(0x0B, body)
+                msgs += _message(0x0B, _filter_message(ds.filters,
+                                                       math.prod(ds.chunks) * itemsize))
                 count += 1
             tree = self.chunk_tree(arr, ds)
             lay = struct.pack("<BBBQ", 3, 2, len(shape) + 1, tree)
@@ -1087,7 +1903,21 @@ class _Writer:
             lay = struct.pack("<BBQQ", 3, 1, addr, len(raw))
         msgs += _message(0x08, lay)
         msgs += self.attributes(ds.attrs)
-        return self.header(msgs, count + 1 + len(ds.attrs))
+        return self.header(msgs, count + 1 + len(ds.attrs), ds)
+
+    def virtual_mappings(self, mappings) -> "tuple[int, int]":
+        """(global heap collection, index) of a virtual layout's mappings,
+        encoded as HDF5 1.10+ encodes them, with their checksum."""
+        blob = struct.pack("<BQ", 0, len(mappings))
+        for src_file, src_dset, ssel, vsel in mappings:
+            blob += src_file.encode("utf-8") + b"\0" + src_dset.encode("utf-8") + b"\0"
+            blob += bytes(ssel) + bytes(vsel)
+        from tmlibrary_tpu_torch import native
+
+        blob += struct.pack("<I", native.lookup3(blob))
+        elem = self.vlen_strings([blob])
+        _length, heap, index = struct.unpack("<IQI", elem)
+        return heap, index
 
     def chunk_tree(self, arr: np.ndarray, ds: Dataset) -> int:
         chunks, rank = ds.chunks, arr.ndim
@@ -1098,24 +1928,32 @@ class _Writer:
             block = np.zeros(chunks, arr.dtype)
             sel = tuple(slice(a, min(a + c, n)) for a, c, n in zip(o, chunks, arr.shape))
             block[tuple(slice(0, s.stop - s.start) for s in sel)] = arr[sel]
-            data = block.tobytes()
-            for fid, cd in ds.filters:
+            data, mask = block.tobytes(), 0
+            for i, (fid, cd) in enumerate(ds.filters):
                 if fid == 2 and arr.dtype.itemsize > 1:
                     data = np.frombuffer(data, np.uint8).reshape(-1, arr.dtype.itemsize).T.tobytes()
                 elif fid == 1:
                     data = zlib.compress(data, cd[0] if cd else 4)
                 elif fid == 3:
                     data = data + struct.pack("<I", fletcher32(data))
-            entries.append((o, self.alloc(data), len(data)))
+                elif fid == LZF:
+                    from tmlibrary_tpu_torch import native
+
+                    packed = native.lzf_compress(data)
+                    if packed is None:  # not shorter: stored as it is, as h5py's filter does
+                        mask |= 1 << i
+                    else:
+                        data = packed
+            entries.append((o, self.alloc(data), len(data), mask))
         if not entries:
             return UNDEF
 
-        def key(size, offs):
-            return struct.pack("<II", size, 0) + struct.pack(f"<{rank + 1}Q", *offs, 0)
+        def key(size, mask, offs):
+            return struct.pack("<II", size, mask) + struct.pack(f"<{rank + 1}Q", *offs, 0)
 
         last = entries[-1][0]
-        end_key = key(0, tuple(a + c for a, c in zip(last, chunks)))
-        level = [(e[0], e[1], e[2]) for e in entries]  # (first offset, address, size)
+        end_key = key(0, 0, tuple(a + c for a, c in zip(last, chunks)))
+        level = entries  # (first offset, address, size, mask)
         depth = 0
         while True:
             groups = [level[i:i + 2 * CHUNK_K] for i in range(0, len(level), 2 * CHUNK_K)]
@@ -1127,12 +1965,13 @@ class _Writer:
                 left = addrs[gi - 1] if gi else UNDEF
                 right = addrs[gi + 1] if gi + 1 < len(groups) else UNDEF
                 body = b"TREE\x01" + struct.pack("<BHQQ", depth, len(grp), left, right)
-                for off, child, size in grp:
-                    body += key(size if depth == 0 else 0, off) + struct.pack("<Q", child)
+                for off, child, size, mask in grp:
+                    body += key(size if depth == 0 else 0, mask if depth == 0 else 0, off)
+                    body += struct.pack("<Q", child)
                 nxt = groups[gi + 1][0][0] if gi + 1 < len(groups) else None
-                body += key(0, nxt) if nxt is not None else end_key
+                body += key(0, 0, nxt) if nxt is not None else end_key
                 self.buf[addrs[gi]:addrs[gi] + len(body)] = body
-                upper.append((grp[0][0], addrs[gi], 0))
+                upper.append((grp[0][0], addrs[gi], 0, 0))
             if len(upper) == 1:
                 return upper[0][1]
             level, depth = upper, depth + 1

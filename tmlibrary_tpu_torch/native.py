@@ -2,8 +2,9 @@
 ``Morphology_solidity``, the TIFF reader behind imextract, the spatial
 layout's boundary trace and mosaic accumulators, the Douglas-Peucker
 simplification behind ``export --simplify``, and the codecs of the
-microscope containers: Zstandard (CZI zstd0/zstd1 subblocks) and grey
-baseline JPEG (CZI JPEG subblocks and ``.jpg`` site files).
+microscope containers: Zstandard (CZI zstd0/zstd1 subblocks), grey
+baseline JPEG (CZI JPEG subblocks and ``.jpg`` site files), and HDF5's
+lookup3 checksum and h5py's LZF filter (:mod:`tmlibrary_tpu_torch.io.hdf5`).
 
 Counterpart: ``tmlibrary_tpu/native.py`` ``hull_pixel_counts_host`` and
 ``solidity_host`` (``:323-392``), ``tiff_info``, ``tiff_read``,
@@ -21,8 +22,8 @@ features when a batch persists.
 
 The port keeps its own copy of the C++ (``csrc/host/hull.cpp``,
 ``csrc/host/tiff.cpp``, ``csrc/host/mosaic.cpp``,
-``csrc/host/simplify.cpp``, ``csrc/host/zstd.cpp`` and
-``csrc/host/jpeg.cpp``).  At first use they are compiled with the host
+``csrc/host/simplify.cpp``, ``csrc/host/zstd.cpp``,
+``csrc/host/jpeg.cpp`` and ``csrc/host/hdf5.cpp``).  At first use they are compiled with the host
 compiler (``c++``/``g++`` on the ``PATH``, else ``nvcc``) into one
 library in ``build/host/`` at the root of the checkout, named by a
 digest of the sources and flags (imported from the kernel-library
@@ -62,6 +63,7 @@ MOSAIC_SRC = HOST_SRC.with_name("mosaic.cpp")
 SIMPLIFY_SRC = HOST_SRC.with_name("simplify.cpp")
 ZSTD_SRC = HOST_SRC.with_name("zstd.cpp")
 JPEG_SRC = HOST_SRC.with_name("jpeg.cpp")
+HDF5_SRC = HOST_SRC.with_name("hdf5.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "host"
 FLAGS = ("-O3", "-std=c++17", "-shared")
 
@@ -84,7 +86,7 @@ def _compiler() -> list[str]:
 
 
 def _sources() -> tuple[Path, ...]:
-    return (HOST_SRC, TIFF_SRC, MOSAIC_SRC, SIMPLIFY_SRC, ZSTD_SRC, JPEG_SRC)
+    return (HOST_SRC, TIFF_SRC, MOSAIC_SRC, SIMPLIFY_SRC, ZSTD_SRC, JPEG_SRC, HDF5_SRC)
 
 
 def source_digest() -> str:
@@ -96,7 +98,7 @@ def source_digest() -> str:
 
 def build() -> Path:
     """Compile ``hull.cpp``, ``tiff.cpp``, ``mosaic.cpp``, ``simplify.cpp``,
-    ``zstd.cpp`` and ``jpeg.cpp`` into one library (if its digest-named
+    ``zstd.cpp``, ``jpeg.cpp`` and ``hdf5.cpp`` into one library (if its digest-named
     file is missing) and return the library path."""
     digest = source_digest()
     path = BUILD_DIR / f"libtmhost_{digest}.so"
@@ -151,10 +153,15 @@ def lib() -> ctypes.CDLL:
             for fname, args in (("tm_zstd_frame_content_size", [ptr, i64]),
                                 ("tm_zstd_decompress", [ptr, i64, ptr, i64, i32]),
                                 ("tm_zstd_compress", [ptr, i64, ptr, i64]),
+                                ("tm_lzf_decompress", [ptr, i64, ptr, i64]),
+                                ("tm_lzf_compress", [ptr, i64, ptr, i64]),
                                 ("tm_jpeg_encode", [ptr, i32, i32, i32, ptr, i64])):
                 fn = getattr(loaded, fname)
                 fn.restype = i64
                 fn.argtypes = args
+            fn = loaded.tm_lookup3
+            fn.restype = ctypes.c_uint32
+            fn.argtypes = [ptr, i64, ctypes.c_uint32]
             fn = loaded.tm_bgr2gray_f32
             fn.restype = None
             fn.argtypes = [ptr, i64, i64, i32, ptr]
@@ -623,6 +630,39 @@ def zstd_compress(data: bytes) -> bytes:
     if n < 0 or n > cap:
         raise ValueError(f"zstd_compress failed: {lib().tm_zstd_error().decode()}")
     return out[:n].tobytes()
+
+
+def lookup3(data, initval: int = 0) -> int:
+    """Jenkins' lookup3 ``hashlittle`` of ``data``, HDF5's metadata
+    checksum (``H5_checksum_lookup3``) and name hash."""
+    return int(lib().tm_lookup3(_buffer(data).ctypes.data, len(data), initval))
+
+
+def lzf_decompress(src: bytes, expect: int) -> bytes:
+    """Decode an LZF stream (h5py's ``lzf`` filter) into at most
+    ``expect`` bytes; :class:`MetadataError` for a damaged stream or one
+    that decodes past ``expect``."""
+    from tmlibrary_tpu_torch.errors import MetadataError
+
+    out = np.empty(max(int(expect), 1), np.uint8)
+    n = lib().tm_lzf_decompress(_buffer(src).ctypes.data, len(src), out.ctypes.data,
+                                int(expect))
+    if n == -2:
+        raise MetadataError(f"LZF stream decodes past its {expect} bytes")
+    if n < 0:
+        raise MetadataError("damaged LZF stream")
+    return out[:n].tobytes()
+
+
+def lzf_compress(data: bytes) -> "bytes | None":
+    """``data`` as an LZF stream, or None when the stream would not be
+    shorter (h5py's filter then stores the chunk as it is)."""
+    if not data:
+        return None
+    out = np.empty(len(data), np.uint8)
+    n = lib().tm_lzf_compress(_buffer(data).ctypes.data, len(data), out.ctypes.data,
+                              len(data) - 1)
+    return out[:n].tobytes() if n > 0 else None
 
 
 #: how :func:`jpeg_decode_array` turns three components into colour: as

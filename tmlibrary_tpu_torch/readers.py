@@ -30,7 +30,7 @@ declines with :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`
 goes to the plain TIFF path, as in the JAX package.  CZI subblocks
 compressed as JPEG (compression 1) or zstd (5 and 6) are decoded by the
 port's own codecs (:mod:`tmlibrary_tpu_torch.native`); Imaris ``.ims``
-and ``DatasetReader`` read through the port's HDF5 subset
+and ``DatasetReader`` read through the port's HDF5 code
 (:mod:`tmlibrary_tpu_torch.io.hdf5`); ``TablesReader`` returns columns
 as a dict of arrays where the JAX package returns a DataFrame.
 """
@@ -781,7 +781,11 @@ def decode_image_file(path, page: int) -> "np.ndarray | None":
     if png.is_png(path):
         if page:
             raise MetadataError(f"cannot read page {page} of {path}: a PNG has one")
-        img = png.read(path)
+        try:
+            img = png.read(path)
+        except NotSupportedError as e:  # the feature the codec refused
+            raise MetadataError(f"cannot read image {path}: a PNG file the port's readers "
+                                f"do not decode: {e}") from e
         return png.to_gray(img) if img.ndim == 3 else img
     try:
         with open(path, "rb") as f:
@@ -2928,7 +2932,7 @@ class FlexReader(Reader):
 
 class IMSReader(Reader):
     """Bitplane Imaris ``.ims`` files (HDF5), read through the port's HDF5
-    subset (:mod:`tmlibrary_tpu_torch.io.hdf5`).
+    code (:mod:`tmlibrary_tpu_torch.io.hdf5`).
 
     Resolution level 0 lives at ``/DataSet/ResolutionLevel 0/TimePoint
     <t>/Channel <c>/Data`` as a (Z, Y, X) dataset padded up to chunk
@@ -2937,9 +2941,10 @@ class IMSReader(Reader):
     (``[b'5', b'1', b'2']``).  Linear page convention (shared with the
     ``ims`` metaconfig handler): ``page = (c * Z + z) * T + t``.  Integer
     data is clipped to the store's uint16 range, anything else becomes
-    float32.  A damaged file raises :class:`MetadataError`; one outside
-    the HDF5 subset raises :class:`NotSupportedError` naming the
-    structure.  Counterpart: ``tmlibrary_tpu/readers.py:1793-1938``."""
+    float32.  Every ``libver`` and chunk index h5py writes is read.  A
+    damaged file raises :class:`MetadataError`; one holding a structure
+    the port's HDF5 code refuses raises :class:`NotSupportedError` naming
+    it.  Counterpart: ``tmlibrary_tpu/readers.py:1793-1938``."""
 
     def __enter__(self):
         try:
@@ -3026,9 +3031,10 @@ class IMSReader(Reader):
 
 class DatasetReader(Reader):
     """HDF5 dataset reader (reference ``DatasetReader``,
-    ``tmlibrary_tpu/readers.py:2945-2974``) on the port's HDF5 subset:
-    ``read`` (KeyError for a missing path), ``list_datasets`` and
-    ``exists``."""
+    ``tmlibrary_tpu/readers.py:2945-2974``) on the port's HDF5 code:
+    ``read`` (KeyError for a missing path or a dangling soft link; the
+    array as h5py returns it), ``list_datasets`` and ``exists`` (h5py's
+    ``in``: a dangling soft link exists)."""
 
     def __enter__(self):
         self._f = hdf5.File(self.filename)
@@ -3045,11 +3051,11 @@ class DatasetReader(Reader):
 
     def list_datasets(self, group: str = "/") -> "list[str]":
         """Every dataset below ``group``, relative to it, in h5py's
-        ``visititems`` order."""
-        return [p for p, _ in self._f.load(group).visit_datasets()]
+        ``visititems`` order (no data is read)."""
+        return self._f.datasets(group)
 
     def exists(self, path: str) -> bool:
-        return self._f.resolve(path) is not None
+        return self._f.exists(path)
 
 
 class JsonReader(Reader):

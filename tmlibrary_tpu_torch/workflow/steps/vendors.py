@@ -17,7 +17,7 @@ which read their files through :mod:`tmlibrary_tpu_torch.readers`:
 ``nd2``, ``czi`` (with the mosaic tile grid), ``lif``, ``ngff`` (through
 :mod:`tmlibrary_tpu_torch.ngff`), ``dv``, ``stk``, ``lsm``, ``olympus``
 (OIF and OIB), ``flex`` (Opera's numeric well names) and ``ims`` (Imaris,
-through the port's HDF5 subset).  They skip and count the files their
+through the port's HDF5 code).  They skip and count the files their
 reader cannot read.
 
 Stage positions, when present, become within-well site grid coordinates
@@ -1405,7 +1405,7 @@ def dv_sidecar(source_dir: Path) -> "tuple[list[dict], int] | None":
 def ims_sidecar(source_dir: Path) -> "tuple[list[dict], int] | None":
     """Bitplane Imaris ``.ims`` files, read by
     :class:`tmlibrary_tpu_torch.readers.IMSReader` (HDF5 through the port's
-    subset; channel names from ``DataSetInfo/Channel <c>`` when present).
+    own code; channel names from ``DataSetInfo/Channel <c>`` when present).
 
     Same conventions as the other container handlers: one file per well
     (token or next free column on row A), one site per file, Z/T

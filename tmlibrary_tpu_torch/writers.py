@@ -10,7 +10,8 @@ suffix or image raises :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.
 :class:`OMETiffWriter` and :func:`minimal_ome_xml` (``:95-197``) write
 multi-page OME-TIFFs byte for byte as the JAX package's do.
 :class:`DatasetWriter` (``:41-71``, ``h5py`` there) writes HDF5 through
-the port's HDF5 subset (:mod:`tmlibrary_tpu_torch.io.hdf5`), and
+the port's HDF5 code (:mod:`tmlibrary_tpu_torch.io.hdf5`: every type and
+compression the reference's takes), and
 :class:`TablesWriter` (``:84-92``, pandas there) writes a ``{column:
 array}`` table as Parquet or CSV.  :class:`JsonWriter` and
 :class:`XmlWriter` (``:74-81``) are the reference's; every writer derives
@@ -183,12 +184,14 @@ class XmlWriter(Writer):
 class DatasetWriter(Writer):
     """HDF5 dataset writer with the reference's ``write``/``append``
     surface, the semantics of ``h5py.File(path, "a")``: an existing file
-    is read whole on entry (:func:`~tmlibrary_tpu_torch.io.hdf5.load`; a
-    file outside the port's HDF5 subset raises
-    :class:`~tmlibrary_tpu_torch.errors.NotSupportedError` and is left
-    untouched), changed in memory, and written again on exit to a
-    temporary name and moved over it with ``os.replace``; a missing file
-    is created."""
+    (any ``libver`` h5py writes) is read whole on entry
+    (:func:`~tmlibrary_tpu_torch.io.hdf5.load`; what the port's writer
+    cannot keep -- external links, committed datatypes, a structure the
+    reader refuses -- raises
+    :class:`~tmlibrary_tpu_torch.errors.NotSupportedError` and the file is
+    left untouched), changed in memory, and written again on exit in the
+    old format (superblock 0) to a temporary name and moved over it with
+    ``os.replace``; a missing file is created."""
 
     def __init__(self, filename):
         super().__init__(filename)
@@ -205,18 +208,31 @@ class DatasetWriter(Writer):
             hdf5.write(self.filename, self._root)
         return False
 
-    def write(self, path: str, data, compression: "str | None" = "gzip") -> None:
-        """Create (or replace) ``path`` with ``data``: deflated in h5py's
-        chunk shape (``guess_chunk``) when ``compression='gzip'``,
-        contiguous otherwise; scalars always contiguous."""
+    @staticmethod
+    def _filters(compression) -> list:
+        """h5py's filter for ``create_dataset(compression=...)``: ``'gzip'``
+        (level 4), a gzip level 0-9, or ``'lzf'``."""
+        if compression == "gzip":
+            return [(1, (4,))]
+        if compression == "lzf":
+            return [(hdf5.LZF, ())]
+        if isinstance(compression, (int, np.integer)) and int(compression) in range(10):
+            return [(1, (int(compression),))]
+        if compression == "szip":
+            raise NotSupportedError("the port's HDF5 writer does not write szip")
+        raise ValueError(f'Compression filter "{compression}" is unavailable')
+
+    def write(self, path: str, data, compression: "str | int | None" = "gzip") -> None:
+        """Create (or replace) ``path`` with ``data``: compressed in h5py's
+        chunk shape (``guess_chunk``) with ``compression`` ('gzip', a gzip
+        level 0-9 or 'lzf'), contiguous when it is None; scalars always
+        contiguous."""
         arr = np.asarray(data)
-        if compression not in (None, "gzip"):
-            raise NotSupportedError(f"the port's HDF5 writer compresses with gzip only, "
-                                    f"not {compression!r}")
-        if compression == "gzip" and arr.ndim > 0:
+        hdf5._dtype_message(arr.dtype)  # a type the writer cannot take fails here, as in h5py
+        if compression is not None and arr.ndim > 0:
             ds = hdf5.Dataset(arr, chunks=hdf5.guess_chunk(arr.shape, arr.shape,
                                                            arr.dtype.itemsize),
-                              filters=[(1, (4,))])
+                              filters=self._filters(compression))
         else:
             ds = hdf5.Dataset(arr)
         self._root.delete(path)
@@ -227,8 +243,9 @@ class DatasetWriter(Writer):
         """Append rows along axis 0, creating a dataset resizable along
         it (``maxshape=(None, ...)``, chunked as h5py chunks it)."""
         arr = np.atleast_1d(np.asarray(data))
-        ds = self._root.get(path)
+        ds = self._root.get(path, follow=True)
         if ds is None:
+            hdf5._dtype_message(arr.dtype)
             maxshape = (None,) + arr.shape[1:]
             self._root.put(path, hdf5.Dataset(
                 arr, chunks=hdf5.guess_chunk(arr.shape, maxshape, arr.dtype.itemsize),
@@ -240,8 +257,10 @@ class DatasetWriter(Writer):
                 raise ValueError("Unable to extend dataset (dimension cannot exceed the "
                                  "existing maximal size)")
             old = ds.read()
-            new = np.concatenate([old, arr.astype(old.dtype, copy=False).reshape(
-                (arr.shape[0],) + old.shape[1:])])
+            new = np.empty((old.shape[0] + arr.shape[0],) + old.shape[1:], old.dtype)
+            new[:old.shape[0]] = old  # not np.concatenate: it makes a field's byte order native
+            new[old.shape[0]:] = arr.astype(old.dtype, copy=False).reshape(
+                (arr.shape[0],) + old.shape[1:])
             ds._data, ds._reader, ds.shape = new, None, new.shape
         self._changed = True
 
