@@ -5058,12 +5058,201 @@ def build_project(cli, proj: Path) -> Path:
     return project.pipe_path
 
 
+_HAND_PLAIN = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_./-]*$")
+
+
+def _hand_scalar(value) -> str:
+    """A scalar as a user types it: numbers tagged ``!!int``/``!!float``,
+    plain words, anything else double-quoted."""
+    from tmlibrary_tpu_torch import yamlio
+
+    if value is None:
+        return "~"
+    if value is True or value is False:
+        return "true" if value else "false"
+    if type(value) is int:
+        return f"!!int {value}"
+    if type(value) is float:
+        return f"!!float {yamlio.safe_dump(value).splitlines()[0]}"
+    if type(value) is str:
+        if _HAND_PLAIN.match(value) and yamlio.resolve(value) == "str":
+            return value
+        if all(ord(c) <= 0xFFFF for c in value):
+            return json.dumps(value)  # a JSON string is a YAML double-quoted scalar
+    raise SmokeFailure(f"hand YAML: no hand form for {value!r}")
+
+
+def _hand_words(text: str) -> "list[str] | None":
+    """``text`` folded into lines of about 32 characters for a ``>-``
+    scalar, or None when folding would change it."""
+    if not text or text != text.strip() or "  " in text or any(c in text for c in "\t\r\n"):
+        return None
+    lines, line = [], ""
+    for word in text.split(" "):
+        if line and len(line) + 1 + len(word) > 32:
+            lines.append(line)
+            line = word
+        else:
+            line = f"{line} {word}" if line else word
+    return lines + [line]
+
+
+def hand_yaml(doc: dict, name: str) -> str:
+    """``doc`` (a handles, pipeline or workflow document) written as a
+    user writes YAML by hand: a ``%YAML 1.1`` directive and ``---``, the
+    first key after an explicit ``? ``, a description folded as a ``>-``
+    block scalar, string constants (``value`` of a Character handle) as
+    ``|-`` literal scalars, ``!!int``/``!!float`` on numbers, mappings of
+    a list that share their keys factored into the first one (``&defaults``)
+    and merged into the rest with ``<<`` (only the keys that differ
+    written), every empty step ``args`` after the first as an alias of it
+    (``&no_args {}``), and a step's non-empty ``args`` anchored in a merge
+    of the step (``<<:`` its name and ``&args`` with the last key null)
+    and written again as ``<<: *args`` with that key over it."""
+    lines = ["%YAML 1.1", "---", f"# {name}: written by hand"]
+    anchors = {"n": 0, "no_args": False, "args": 0}
+
+    def value(v, ind: int, key) -> "tuple[str, list[str]]":
+        pad = " " * (ind + 2)
+        if isinstance(v, dict):
+            if not v and key == "args":
+                if anchors["no_args"]:
+                    return " *no_args", []
+                anchors["no_args"] = True
+                return " &no_args {}", []
+            return (" {}", []) if not v else ("", mapping(v, ind + 2))
+        if isinstance(v, list):
+            if v and all(isinstance(x, dict) and x for x in v):
+                return "", sequence(v, ind)
+            return " [" + ", ".join(_hand_scalar(x) for x in v) + "]", []
+        if key == "description" and isinstance(v, str) and _hand_words(v):
+            return " >-", [pad + w for w in _hand_words(v)]
+        if (key == "value" and isinstance(v, str) and v and v == v.strip()
+                and all(" " <= c <= "~" for c in v)):
+            return " |-", [pad + v]
+        return " " + _hand_scalar(v), []
+
+    def merged_args(d: dict, ind: int) -> list:
+        pad, args = " " * ind, d["args"]
+        last = list(args)[-1]
+        anchors["args"] += 1
+        label = "args" if anchors["args"] == 1 else f"args{anchors['args']}"
+        out = [pad + "<<:", pad + f"  name: {_hand_scalar(d['name'])}", pad + f"  args: &{label}"]
+        out += mapping({**args, last: None}, ind + 4)
+        head, body = value(args[last], ind + 2, last)
+        out += [pad + "args:", pad + f"  <<: *{label}",
+                pad + f"  {_hand_scalar(last)}:" + head] + body
+        return out + mapping(d, ind, skip={"name", "args"})
+
+    def mapping(d: dict, ind: int, explicit: bool = False, skip=()) -> list:
+        if (not skip and not explicit and list(d)[:2] == ["name", "args"]
+                and isinstance(d["args"], dict) and d["args"]):
+            return merged_args(d, ind)
+        out = []
+        for i, (k, v) in enumerate(d.items()):
+            if k in skip:
+                continue
+            head, body = value(v, ind, k)
+            if explicit and i == 0:
+                out += [" " * ind + f"? {_hand_scalar(k)}", " " * ind + ":" + head] + body
+            else:
+                out += [" " * ind + f"{_hand_scalar(k)}:" + head] + body
+        return out
+
+    def sequence(items: list, ind: int) -> list:
+        out, holders = [], {}
+        for item in items:
+            shape = tuple(item)
+            holder = holders.get(shape)
+            if holder is not None:
+                label, first = holder
+                body = mapping(item, ind + 2,
+                               skip={k for k in item if _same_doc(item[k], first[k])})
+                out.append(" " * ind + f"- <<: *{label}")
+                out += body
+                continue
+            if sum(tuple(x) == shape for x in items) > 1:
+                anchors["n"] += 1
+                label = "defaults" if anchors["n"] == 1 else f"defaults{anchors['n']}"
+                holders[shape] = (label, item)
+                out.append(" " * ind + f"- &{label}")
+                out += mapping(item, ind + 2)
+                continue
+            body = mapping(item, ind + 2)
+            out.append(" " * ind + "- " + body[0].lstrip())
+            out += body[1:]
+        return out
+
+    lines += mapping(doc, 0, explicit=True)
+    return "\n".join(lines) + "\n"
+
+
+def _same_doc(a, b) -> bool:
+    """Equal YAML documents: values, types and key order."""
+    if type(a) is not type(b):
+        return False
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(_same_doc(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same_doc(x, y) for x, y in zip(a, b))
+    return a == b or (a != a and b != b)
+
+
+def rewrite_full_yaml(paths) -> dict:
+    """Rewrite each YAML file in ``paths`` as :func:`hand_yaml` writes it;
+    each must load (``yamlio.load``) to the same document as the file it
+    replaces.  Returns ``{path: new text}``."""
+    from tmlibrary_tpu_torch import yamlio
+
+    out = {}
+    for path in map(Path, paths):
+        doc = yamlio.load(path)
+        text = hand_yaml(doc, path.name)
+        if not _same_doc(yamlio.safe_load(text, name=str(path)), doc):
+            raise SmokeFailure(f"hand YAML: {path.name} does not load to the document it "
+                               "replaces")
+        path.write_text(text)
+        out[path] = text
+    return out
+
+
+def yaml_rates(texts, reps: int = 5) -> dict:
+    """``yamlio.safe_load`` of ``texts`` and ``yamlio.safe_dump`` of what
+    they load to, on this thread: bytes and KiB/s, best of ``reps``."""
+    from tmlibrary_tpu_torch import yamlio
+
+    texts = list(texts)
+    docs = [yamlio.safe_load(t) for t in texts]
+    dumped = sum(len(yamlio.safe_dump(d).encode()) for d in docs)
+    nbytes = sum(len(t.encode()) for t in texts)
+    load_s = dump_s = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for t in texts:
+            yamlio.safe_load(t)
+        t1 = time.perf_counter()
+        for d in docs:
+            yamlio.safe_dump(d)
+        t2 = time.perf_counter()
+        load_s, dump_s = min(load_s, t1 - t0), min(dump_s, t2 - t1)
+    return {"files": len(texts), "bytes": nbytes, "dump_bytes": dumped,
+            "load_KiB_per_s": round(nbytes / 1024 / load_s, 1),
+            "dump_KiB_per_s": round(dumped / 1024 / dump_s, 1), "best_of": reps}
+
+
 def phase_project(torch, wrappers, card, device: str = "cuda") -> dict:
     """Phase 11, ``project_yaml_p96x4_256``: a reference user's YAML
     project on the card, from the project to the exports and back in.
     Config 3 built through the ``project`` verbs (:func:`build_project`),
-    ``workflow template`` filled in and saved as ``workflow.yaml``, and
-    ``workflow submit --device cuda`` over phase 5's plate (96 wells at
+    ``workflow template`` filled in and saved as ``workflow.yaml``, every
+    one of those files rewritten in full YAML (:func:`rewrite_full_yaml`:
+    ``%YAML 1.1``, ``&defaults`` merged with ``<<``, ``>-`` and ``|-``
+    scalars, ``!!int``/``!!float``, an explicit ``? `` key, aliased empty
+    step ``args`` and the jterator step's ``args`` as ``<<: *args`` of an
+    anchored mapping with one key over it; each must load to the document
+    it replaces, ``project check``
+    OK, load and dump rates on the ``yaml:`` line), and
+    ``workflow submit --device cuda`` of those files over phase 5's plate (96 wells at
     2x2 sites of 256x256, DAPI and Actin, one cycle) with the launch
     counters set to 0 just before and read just after (rows 1-4 must
     launch).  Holds: the store's labels and feature shards bit-identical
@@ -5118,6 +5307,16 @@ def phase_project(torch, wrappers, card, device: str = "cuda") -> dict:
         desc.save(wf_path)
         if engine.WorkflowDescription.load(wf_path).to_dict() != desc.to_dict():
             raise SmokeFailure("project: workflow.yaml does not read back as written")
+        # 2b. every file rewritten as a user writes YAML by hand (directives,
+        # merges, block scalars, tags, an explicit key, aliases), each held
+        # to load to the document it replaces; the submit reads these
+        files = [pipe_path, *sorted((pipe_path.parent / "handles").glob("*.yaml")), wf_path]
+        hand = rewrite_full_yaml(files)
+        checked = run_cli(cli, ["project", "check", "--pipe", str(pipe_path)])
+        if not checked.startswith("OK:"):
+            raise SmokeFailure(f"project: check of the full-YAML project says {checked.strip()}")
+        rates = yaml_rates(hand.values())
+        print("yaml: " + json.dumps({**rates, "card": card}))
         print(f"phase 11, project_yaml_p96x4_256: config 3 as a YAML project "
               f"({len(PROJECT_MODULES)} modules, `project check` OK) through `workflow "
               f"submit --device {device}` of the store's workflow.yaml over {n} sites "
@@ -5692,6 +5891,82 @@ HDF5_WELL = {
 }
 #: the DatasetWriter-style file of the HDF5 well
 HDF5_DATASET_FILE = "datasetwriter.h5"
+#: the HDF5 well's file of what a rewrite must keep: committed datatypes,
+#: a 160 KB attribute, a group with ``track_order``
+HDF5_KEEP_FILE = "committed_dense.h5"
+#: the compound committed in :data:`HDF5_KEEP_FILE`
+HDF5_OBJECT_T = [("label", "<i4"), ("area", "<f4")]
+
+
+def hdf5_keep_appends(writer) -> None:
+    """What phase 13 appends to a copy of :data:`HDF5_KEEP_FILE` through
+    either package's ``DatasetWriter``: three rows to the dataset of the
+    committed compound, and a new dataset."""
+    import numpy as np
+
+    rows = np.zeros(3, HDF5_OBJECT_T)
+    rows["label"], rows["area"] = [6, 7, 8], [1.25, 2.5, 3.75]
+    writer.append("objects", rows)
+    writer.append("appended", np.arange(12, dtype=np.int32).reshape(4, 3))
+
+
+def hdf5_attr_digest(value) -> str:
+    """The sha256 of an attribute's value as the manifest keeps it (a
+    ``str`` by its UTF-8 bytes, anything else as :func:`hdf5_digest`)."""
+    import hashlib
+
+    if isinstance(value, str):
+        return hashlib.sha256(b"str\0" + value.encode("utf-8")).hexdigest()
+    return hdf5_digest(value)
+
+
+def hdf5_keep_hold(path: Path, entry: dict) -> dict:
+    """:func:`hdf5_keep_appends` through the port's ``DatasetWriter`` on
+    ``path`` (a copy of :data:`HDF5_KEEP_FILE`), then the rewritten file
+    held to the manifest's ``keep`` entry (the JAX package's writer and
+    h5py on the same copy): every dataset ``DatasetReader`` reads, every
+    attribute (the 160 KB one in dense storage among them), the ordered
+    group's links and attributes in creation order, and each dataset's
+    committed type kept as that named type."""
+    from tmlibrary_tpu_torch import readers, writers
+    from tmlibrary_tpu_torch.io import hdf5
+
+    t0 = time.perf_counter()
+    with writers.DatasetWriter(path) as w:
+        hdf5_keep_appends(w)
+    rewrite_s = time.perf_counter() - t0
+    with readers.DatasetReader(path) as r:
+        names = r.list_datasets()
+        if names != [e["path"] for e in entry["datasets"]]:
+            raise SmokeFailure(f"hdf5 keep: datasets {names}")
+        for e in entry["datasets"]:
+            if hdf5_digest(r.read(e["path"])) != e["sha256"]:
+                raise SmokeFailure(f"hdf5 keep: {e['path']} differs from the reference's")
+    tree = hdf5.load(path)
+    attrs, seen = [], set()
+
+    def walk(name: str, node) -> None:
+        if id(node) in seen:
+            return
+        seen.add(id(node))
+        attrs.extend((name, k, hdf5_attr_digest(v)) for k, v in node.attrs.items())
+        for child, sub in getattr(node, "children", {}).items():
+            if not isinstance(sub, hdf5.SoftLink):
+                walk(child if name == "/" else f"{name}/{child}", sub)
+
+    walk("/", tree)
+    want = sorted((e["object"], e["name"], e["sha256"]) for e in entry["attrs"])
+    if sorted(attrs) != want:
+        raise SmokeFailure(f"hdf5 keep: attributes {sorted(attrs)} differ from {want}")
+    ordered = tree["ordered"]
+    got = {"links": list(ordered.children), "attrs": list(ordered.attrs)}
+    if got != entry["ordered"] or not ordered.track_order:
+        raise SmokeFailure(f"hdf5 keep: the ordered group reads {got}")
+    for ds, name in entry["committed"].items():
+        if not (isinstance(tree[name], hdf5.Datatype) and tree[ds].committed is tree[name]):
+            raise SmokeFailure(f"hdf5 keep: {ds} lost its committed type {name}")
+    return {"datasets": len(names), "attrs": len(attrs), "committed": len(entry["committed"]),
+            "bytes": path.stat().st_size, "rewrite_s": round(rewrite_s, 4)}
 
 
 def hdf5_digest(arr) -> str:
@@ -6014,7 +6289,10 @@ def hdf5_well_run(torch, wrappers, card, device, base: Path) -> dict:
     dataset of the ``DatasetWriter``-style file (:data:`HDF5_DATASET_FILE`:
     bool, complex, structured, variable-length strings, gzip levels,
     LZF, single-chunk and implicit indexes, a soft link, virtual datasets
-    over the ``.ims`` files) read by ``DatasetReader`` to its digest.
+    over the ``.ims`` files) read by ``DatasetReader`` to its digest, and
+    the port's ``DatasetWriter`` rewrite of :data:`HDF5_KEEP_FILE`
+    (:func:`hdf5_keep_hold`: committed datatypes, a 160 KB attribute,
+    creation order) equal to the reference's.
     Then times ``IMSReader`` on fixtures 2-4 (both planes, file open
     included, files warm) and prints the ``hdf5:`` line."""
     from tmlibrary_tpu_torch import readers
@@ -6050,6 +6328,9 @@ def hdf5_well_run(torch, wrappers, card, device, base: Path) -> dict:
             if got != e["sha256"]:
                 raise SmokeFailure(f"hdf5 well: {HDF5_DATASET_FILE}:{e['path']} reads to {got}, "
                                    f"not the reference's {e['sha256']}")
+    keep = base / HDF5_KEEP_FILE
+    shutil.copy(HDF5_WELL_DIR / HDF5_KEEP_FILE, keep)
+    kept = hdf5_keep_hold(keep, manifest["keep"])
     rates = {}
     reps = 10
     for well, (name, structure) in sorted(HDF5_WELL.items())[1:]:
@@ -6068,7 +6349,7 @@ def hdf5_well_run(torch, wrappers, card, device, base: Path) -> dict:
             "submit_s": submit_s, "submit_sites_per_s": store.n_sites / submit_s,
             "launches": {k: v for k, v in launches.items() if v},
             "ims_read_mib_per_s": rates, "datasets_held": len(manifest["datasets"]),
-            "worst": worst, "card": card}
+            "keep": kept, "worst": worst, "card": card}
     print("hdf5: " + json.dumps(line))
     return line
 

@@ -26,11 +26,27 @@ link, and two virtual datasets: the four DAPI planes mapped from the
 ``.ims`` files beside it (plus a fifth slot from a missing file, which
 reads as the fill value) and a row of its own complex dataset.
 
+``committed_dense.h5`` (:data:`chip_smoke.HDF5_KEEP_FILE`) holds what
+the port's ``DatasetWriter`` must keep when it rewrites a file: two
+committed datatypes (a ``uint16`` and a compound, each with an
+attribute), a dataset using each (the compound one growable), a
+160 KB attribute (``np.arange(20000)``, dense storage) on the root and
+a group with ``track_order=True`` whose links and attributes were made
+out of name order.
+
 Every object is written with ``track_times=False`` (groups through
-``h5p``), so the script writes the same bytes on every run.  The
+``h5p``, committed datatypes through ``H5Tcommit2`` of h5py's own
+libhdf5), so the script writes the same bytes on every run.  The
 manifest holds, for each plane and dataset, the sha256
 (``chip_smoke.hdf5_digest``: dtype, shape and values) of the JAX
 package's read of it (``IMSReader.read_plane``, ``DatasetReader.read``).
+
+The manifest's ``keep`` entry holds what the JAX package's
+``DatasetWriter`` makes of a copy of ``committed_dense.h5`` after
+:func:`chip_smoke.hdf5_keep_appends`: the digests of every dataset its
+``DatasetReader`` reads and of every attribute, the order of the ordered
+group's links and attributes, and which dataset uses which committed
+type.
 
 Run from the repository root, on a machine with h5py and the JAX
 package::
@@ -218,6 +234,91 @@ def write_dataset_file(path: Path, px: dict) -> None:
         virtual(f, "virtual/complex_row", row)
 
 
+def commit(f, name: str, dtype) -> None:
+    """``f[name] = dtype`` (a committed datatype) with no times recorded:
+    ``H5Tcommit2`` of h5py's libhdf5 with a datatype creation property
+    list that tracks none (h5py passes no such list)."""
+    import ctypes
+    import glob
+    import os
+
+    import h5py
+    from h5py import h5t
+
+    lib = ctypes.CDLL(glob.glob(os.path.join(os.path.dirname(h5py.__file__) + ".libs",
+                                             "libhdf5-*"))[0])
+    lib.H5open()
+    lib.H5Pcreate.argtypes = [ctypes.c_int64]
+    lib.H5Pcreate.restype = ctypes.c_int64
+    lib.H5Pset_obj_track_times.argtypes = [ctypes.c_int64, ctypes.c_uint]
+    lib.H5Tcommit2.argtypes = [ctypes.c_int64, ctypes.c_char_p] + [ctypes.c_int64] * 4
+    lib.H5Pclose.argtypes = [ctypes.c_int64]
+    tcpl = lib.H5Pcreate(ctypes.c_int64.in_dll(lib, "H5P_CLS_DATATYPE_CREATE_ID_g").value)
+    assert tcpl >= 0 and lib.H5Pset_obj_track_times(tcpl, 0) >= 0
+    tid = h5t.py_create(np.dtype(dtype))
+    assert lib.H5Tcommit2(f.id.id, name.encode(), tid.id, 0, tcpl, 0) >= 0
+    lib.H5Pclose(tcpl)
+
+
+def write_keep_file(path: Path, px: dict) -> None:
+    """``committed_dense.h5`` (see the module docstring)."""
+    with new_file(path) as f:
+        commit(f, "pixel_t", "<u2")
+        commit(f, "object_t", chip_smoke.HDF5_OBJECT_T)
+        f["pixel_t"].attrs["unit"] = "counts"
+        f["object_t"].attrs["fields"] = 2
+        f.create_dataset("sites", data=px["DAPI"][3, :48, :48], dtype=f["pixel_t"],
+                         track_times=False)
+        rows = np.zeros(5, chip_smoke.HDF5_OBJECT_T)
+        rows["label"], rows["area"] = np.arange(1, 6), np.arange(5) * 10.5
+        f.create_dataset("objects", data=rows, dtype=f["object_t"], maxshape=(None,),
+                         chunks=(4,), track_times=False)
+        f.attrs["big"] = np.arange(20000)  # 160 KB: only dense storage holds it
+        ordered = group(f, "ordered", track_order=True)
+        for name, value in (("z_last", 1), ("a_first", 2), ("m_mid", 3)):
+            ordered.create_dataset(name, data=np.full(3, value), track_times=False)
+        ordered.attrs["zeta"] = 1.5
+        ordered.attrs["alpha"] = "first made second"
+
+
+def keep_entry(out_dir: Path) -> dict:
+    """The JAX package's ``DatasetWriter`` and ``DatasetReader`` (h5py)
+    on a copy of ``committed_dense.h5``: the manifest's ``keep`` entry."""
+    import shutil
+    import tempfile
+
+    import h5py
+
+    from tmlibrary_tpu.readers import DatasetReader
+    from tmlibrary_tpu.writers import DatasetWriter
+
+    with tempfile.TemporaryDirectory() as tmp:
+        copy = Path(tmp) / chip_smoke.HDF5_KEEP_FILE
+        shutil.copy(out_dir / chip_smoke.HDF5_KEEP_FILE, copy)
+        with DatasetWriter(copy) as w:
+            chip_smoke.hdf5_keep_appends(w)
+        datasets = []
+        with DatasetReader(copy) as r:
+            for name in r.list_datasets():
+                arr = r.read(name)
+                datasets.append({"path": name, "shape": list(arr.shape), "dtype": str(arr.dtype),
+                                 "sha256": chip_smoke.hdf5_digest(arr)})
+        attrs, committed = [], {}
+        with h5py.File(copy, "r") as f:
+            def visit(name, obj):
+                for key, value in obj.attrs.items():
+                    attrs.append({"object": name, "name": key,
+                                  "sha256": chip_smoke.hdf5_attr_digest(value)})
+                if isinstance(obj, h5py.Dataset) and obj.id.get_type().committed():
+                    committed[name] = next(n for n in ("pixel_t", "object_t")
+                                           if f[n].id == obj.id.get_type())
+            visit("/", f)
+            f.visititems(visit)
+            order = {"links": list(f["ordered"]), "attrs": list(f["ordered"].attrs)}
+    return {"file": chip_smoke.HDF5_KEEP_FILE, "datasets": datasets, "attrs": attrs,
+            "ordered": order, "committed": committed}
+
+
 def reference_entries(out_dir: Path) -> dict:
     """The JAX package's reads of every file, as manifest entries."""
     from tmlibrary_tpu.readers import DatasetReader, IMSReader
@@ -236,7 +337,7 @@ def reference_entries(out_dir: Path) -> dict:
             arr = r.read(path)
             datasets.append({"path": path, "shape": list(arr.shape), "dtype": str(arr.dtype),
                              "sha256": chip_smoke.hdf5_digest(arr)})
-    return {"ims": ims, "datasets": datasets}
+    return {"ims": ims, "datasets": datasets, "keep": keep_entry(out_dir)}
 
 
 def main() -> int:
@@ -246,6 +347,7 @@ def main() -> int:
     for s, (_well, (name, _)) in enumerate(sorted(chip_smoke.HDF5_WELL.items())):
         write_ims(out_dir / name, np.stack([px["DAPI"][s], px["Actin"][s]]), s + 1)
     write_dataset_file(out_dir / chip_smoke.HDF5_DATASET_FILE, px)
+    write_keep_file(out_dir / chip_smoke.HDF5_KEEP_FILE, px)
     manifest = {"source": "DAPI and Actin of the first 4 sites of benchmarks."
                           "synthetic_cell_painting_batch(384, size=256, seed=0), uint16",
                 **reference_entries(out_dir)}

@@ -16,7 +16,10 @@ edge chunks" flag), soft, external and hard links, virtual datasets,
 the LZF host codec against h5py's filter, lookup3 checksums, the
 committed fixtures of ``chip_smoke.py``'s HDF5 well
 (``tests/make_hdf5_well.py``) against their manifest, ``DatasetWriter``
-parity on every fixture, new-style ``.ims`` files through both
+parity on every fixture, rewrites that h5py reads with the same
+committed datatypes, attributes (hypothesis around the 64 KiB edge of a
+version-1 header message x ``libver`` x ``track_order``), links and
+creation order, new-style ``.ims`` files through both
 packages' ingest and config 3, and the PNG refusals that must surface
 as ``MetadataError`` are held.  Sites are 64x64 to 96x96 except the
 committed fixtures (256x256).  Tolerance: exact.
@@ -146,6 +149,61 @@ def write_drawn(path, drawn) -> "tuple[np.ndarray, dict]":
     return data, opts
 
 
+def assert_h5py_keeps(before, after, added=()) -> None:
+    """h5py reads ``after`` (a rewrite of ``before``) to the same objects:
+    every attribute (values exact, in h5py's order: creation order where
+    tracked), every group's links in order (``added`` names aside), the
+    creation-order flags, dataset values, and each committed datatype
+    kept, with the datasets that use it still naming it."""
+    with h5py.File(before, "r") as a, h5py.File(after, "r") as b:
+        def check(name, obj):
+            other = b[name]
+            assert type(other) is type(obj), name
+            assert list(other.attrs) == list(obj.attrs), (name, list(other.attrs))
+            for k, v in obj.attrs.items():
+                got = other.attrs[k]
+                assert got == v if isinstance(v, str) else same(got, v), (name, k)
+            plist, want = other.id.get_create_plist(), obj.id.get_create_plist()
+            assert plist.get_attr_creation_order() == want.get_attr_creation_order(), name
+            if isinstance(obj, h5py.Group):
+                assert plist.get_link_creation_order() == want.get_link_creation_order(), name
+                assert [k for k in other if k not in added] == list(obj), name
+            elif isinstance(obj, h5py.Datatype):
+                assert other.dtype == obj.dtype, name
+            else:
+                assert same(other[()], obj[()]), name
+                theirs, ours = obj.id.get_type(), other.id.get_type()
+                assert ours.committed() == theirs.committed(), name
+                if theirs.committed():
+                    assert h5py.h5i.get_name(ours) == h5py.h5i.get_name(theirs), name
+
+        a.visititems(check)
+        check("/", a["/"])
+
+
+def h5py_goes_on_writing(*paths, group: str = "g") -> None:
+    """What a caller does next with a file through h5py's "a" mode (the
+    reference's ``DatasetWriter`` opens it so), alike in each of
+    ``paths``, on ``group``: a small attribute, one of 160 KB where the
+    object has a version-2 header in every path (h5py takes it into no
+    other), 12 more links, and one attribute and one link deleted."""
+    big = all(_header_version(p, group) == 2 for p in paths)
+    for p in paths:
+        with h5py.File(p, "a") as f:
+            g = f[group]
+            g.attrs["late"] = np.arange(3)
+            if big:
+                g.attrs["late_big"] = np.arange(20000)
+            for i in range(12):
+                g.create_dataset(f"late{i:02d}", data=np.full(2, i))
+            del g.attrs["late"], g["late03"]
+
+
+def _header_version(path, name: str) -> int:
+    port = hdf5.File(path)
+    return 2 if port._bytes(port.resolve(name), 4) == b"OHDR" else 1
+
+
 def same(a, b) -> bool:
     a, b = np.asarray(a), np.asarray(b)
     if a.dtype != b.dtype or a.shape != b.shape:
@@ -165,14 +223,18 @@ def assert_same_attrs(got: dict, want: dict) -> None:
 
 
 def assert_port_reads_as_h5py(path) -> None:
-    """Every group's members and attributes and every dataset's values,
-    dtype, shape, chunks, maxshape, compression and attributes equal
-    h5py's; ``list_datasets`` and ``read`` equal the JAX package's."""
+    """Every group's members and attributes, every committed datatype and
+    every dataset's values, dtype, shape, chunks, maxshape, compression
+    and attributes equal h5py's; ``list_datasets`` and ``read`` equal the
+    JAX package's."""
     port = hdf5.File(path)
     with h5py.File(path, "r") as f:
         def check(name, obj):
             node = port.node(name)
             assert_same_attrs(node.attrs, dict(obj.attrs))
+            if isinstance(obj, h5py.Datatype):
+                assert isinstance(node, hdf5.Datatype), name
+                return
             if isinstance(obj, h5py.Group):
                 assert port.members(name) == list(obj.keys()), name
                 return
@@ -344,8 +406,10 @@ def test_dense_links_attributes_and_huge_objects(tmp_path):
     port = hdf5.File(path)
     assert port.members("g1")[:3] == ["d000", "d007", "d014"]  # creation order
     assert port.members("g0")[:3] == ["d000", "d001", "d002"]  # name order
-    with pytest.raises(NotSupportedError, match="attribute 'big'"):
-        hdf5.encode(hdf5.load(path))  # the writer keeps attributes in the header
+    # 'big' is past 64 KiB: the writer keeps it in dense storage
+    (tmp_path / "again.h5").write_bytes(hdf5.encode(hdf5.load(path)))
+    assert_h5py_keeps(path, tmp_path / "again.h5")
+    assert_port_reads_as_h5py(tmp_path / "again.h5")
 
 
 @pytest.mark.parametrize("libver", LIBVERS)
@@ -498,7 +562,7 @@ def test_lookup3_and_damaged_checksums(tmp_path):
 
 # ------------------------------------------- the HDF5 well's fixtures
 FIXTURES = sorted([name for name, _ in chip_smoke.HDF5_WELL.values()]
-                  + [chip_smoke.HDF5_DATASET_FILE])
+                  + [chip_smoke.HDF5_DATASET_FILE, chip_smoke.HDF5_KEEP_FILE])
 
 
 def test_fixtures_read_to_their_manifest_without_h5py():
@@ -619,20 +683,136 @@ def test_dataset_writer_types_and_compressions(tmp_path, dtype, compression):
 
 
 def test_dataset_writer_refusals_leave_the_file_untouched(tmp_path):
+    """A committed datatype is kept (h5py reads a ``Datatype`` and the
+    dataset's type ``committed()``); a refused write leaves the file as
+    it was; blosc and ``<U`` are refused, as h5py refuses them."""
     path = tmp_path / "t.h5"
     with h5py.File(path, "w", libver="latest") as f:
         f["t"] = np.dtype("<i4")  # a committed datatype
         f.create_dataset("x", data=np.arange(3), dtype=f["t"])
-    before = path.read_bytes()
     assert same(DatasetReader(path).__enter__().read("x"), np.arange(3, dtype="<i4"))
-    with pytest.raises(NotSupportedError, match="committed"):
-        DatasetWriter(path).__enter__()
+    shutil.copy(path, tmp_path / "before.h5")
+    with DatasetWriter(path) as w:
+        w.append("rows", np.arange(4))
+    assert_h5py_keeps(tmp_path / "before.h5", path, added=("rows",))
+    with h5py.File(path, "r") as f:
+        assert isinstance(f["t"], h5py.Datatype) and f["x"].id.get_type().committed()
+    before = path.read_bytes()
+    with DatasetWriter(path) as w:
+        with pytest.raises(ValueError, match="unavailable"):
+            w.write("y", np.arange(3), compression="blosc")
     assert path.read_bytes() == before
     with DatasetWriter(tmp_path / "n.h5") as w:
         with pytest.raises(ValueError, match="unavailable"):
             w.write("x", np.arange(3), compression="blosc")
         with pytest.raises(NotSupportedError):
             w.write("u", np.array(["a", "b"]))
+
+
+@settings(max_examples=24, deadline=None, derandomize=True,
+          suppress_health_check=[HealthCheck.function_scoped_fixture, HealthCheck.too_slow])
+@given(st.integers(65536 - 160, 65536 + 160), st.sampled_from(["earliest"] + LIBVERS[1:]),
+       st.booleans(), st.integers(0, 10))
+def test_attributes_around_the_64_kib_edge(tmp_path_factory, nbytes, libver, track, others):
+    """An attribute of about 64 KiB (h5py keeps it in the object header
+    below the edge, in dense storage above it, and under ``earliest``
+    refuses it), beside ``others`` small ones, on a group with or without
+    ``track_order``: the port's ``DatasetWriter`` rewrite reads in h5py
+    with the same attributes, links and creation order."""
+    tmp = tmp_path_factory.mktemp("edge")
+    path = tmp / "e.h5"
+    try:
+        with h5py.File(path, "w", libver=libver) as f:
+            g = f.create_group("g", track_order=track)
+            for i in range(others):
+                g.attrs[f"s{(7 * i) % 11}"] = np.arange(i + 1)
+            g.attrs["edge"] = np.arange(nbytes, dtype=np.uint8)
+            g["b"], g["a"] = np.arange(2), np.arange(3)
+            f.attrs["edge"] = np.arange(nbytes - 8, dtype=np.uint8)
+    except (ValueError, RuntimeError, OSError) as exc:  # h5py refuses it under 'earliest'
+        assert libver == "earliest" and "too large" in str(exc), exc
+        return
+    shutil.copy(path, tmp / "p.h5")
+    with DatasetWriter(tmp / "p.h5") as w:
+        w.write("new", np.arange(5))
+    assert_h5py_keeps(path, tmp / "p.h5", added=("new",))
+    assert_port_reads_as_h5py(tmp / "p.h5")
+    with JDatasetWriter(path) as w:
+        w.write("new", np.arange(5))
+    h5py_goes_on_writing(path, tmp / "p.h5")
+    assert_h5py_keeps(path, tmp / "p.h5")
+    assert_port_reads_as_h5py(tmp / "p.h5")
+
+
+def test_the_keep_fixture_rewrites_as_the_reference(tmp_path):
+    """Phase 13's hold of ``committed_dense.h5`` on the CPU: the port's
+    ``DatasetWriter`` appends to a copy, which reads back to the manifest
+    (the reference's writer and reader on the same copy), and h5py reads
+    both packages' rewrites alike."""
+    manifest = json.loads((chip_smoke.HDF5_WELL_DIR / "manifest.json").read_text())
+    src = chip_smoke.HDF5_WELL_DIR / chip_smoke.HDF5_KEEP_FILE
+    for d in ("p", "j"):
+        (tmp_path / d).mkdir()
+        shutil.copy(src, tmp_path / d / "k.h5")
+    held = chip_smoke.hdf5_keep_hold(tmp_path / "p" / "k.h5", manifest["keep"])
+    assert held["committed"] == 2 and held["datasets"] == 6
+    with JDatasetWriter(tmp_path / "j" / "k.h5") as w:
+        chip_smoke.hdf5_keep_appends(w)
+    assert_h5py_keeps(tmp_path / "j" / "k.h5", tmp_path / "p" / "k.h5")
+    for group in ("ordered", "/"):
+        h5py_goes_on_writing(tmp_path / "j" / "k.h5", tmp_path / "p" / "k.h5", group=group)
+    assert_h5py_keeps(tmp_path / "j" / "k.h5", tmp_path / "p" / "k.h5")
+    assert_port_reads_as_h5py(tmp_path / "p" / "k.h5")
+
+
+def _many_links(f, n: int, name_len: int) -> None:
+    f["t"] = np.dtype("<i4")
+    g = f.create_group("g", track_order=True)
+    for i in range(n):
+        name = f"{(7 * i) % n:05d}".ljust(name_len, "n")
+        if i % 500:
+            g.create_group(name)
+        else:  # a few of the committed type (h5py names it by searching the file)
+            g.create_dataset(name, data=np.full(1, i), dtype=f["t"])
+
+
+def _many_attrs(f, n: int, name_len: int) -> None:
+    g = f.create_group("g", track_order=True)
+    g["x"] = np.arange(2)
+    for i in range(n):
+        g.attrs[f"{(7 * i) % n:05d}".ljust(name_len, "a")] = np.arange(i % 40)
+
+
+DENSE_CASES = {
+    # a huge heap object past the direct blocks' 64 KiB, and past 16 MiB
+    "attribute_20_mb": lambda f: f.attrs.__setitem__("big", np.arange(2_500_000)),
+    # link messages past one block: a root indirect block of direct blocks
+    "links_3000_committed": lambda f: _many_links(f, 3000, 5),
+    "links_200_of_300_chars": lambda f: _many_links(f, 200, 300),
+    # attributes past the 64 KiB rows: indirect blocks under the root one
+    "attributes_3000_of_300_chars": lambda f: _many_attrs(f, 3000, 300),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_CASES))
+def test_dense_storage_past_one_heap_block(tmp_path, case):
+    """Attributes and links that fill more than one fractal heap block,
+    or an attribute far past 64 KiB, under ``track_order``: the port's
+    ``DatasetWriter`` rewrite reads in h5py as the reference's does, and
+    h5py goes on writing it in "a" mode as it goes on writing the
+    reference's."""
+    path = tmp_path / "j.h5"
+    with h5py.File(path, "w", libver="latest") as f:
+        DENSE_CASES[case](f)
+    shutil.copy(path, tmp_path / "p.h5")
+    for writer, p in ((DatasetWriter, tmp_path / "p.h5"), (JDatasetWriter, path)):
+        with writer(p) as w:
+            w.append("rows", np.arange(4))
+    assert_h5py_keeps(path, tmp_path / "p.h5")
+    group = "g" if "g" in h5py.File(path, "r") else "/"
+    h5py_goes_on_writing(path, tmp_path / "p.h5", group=group)
+    assert_h5py_keeps(path, tmp_path / "p.h5")
+    assert_port_reads_as_h5py(tmp_path / "p.h5")
 
 
 # --------------------------------------- new-style .ims through the ingest

@@ -193,10 +193,21 @@ def test_check_fails_as_the_reference_fails(case, tmp_path):
                            else "module: smooth\ninput: &a []\noutput: *a\n")
     outs = [run(main, ["project", "check", "--pipe", str(tmp_path / n / PIPE_FILENAME)])
             for main, n in ((cli.main, "port"), (jcli.main, "ref"))]
-    if case == "yaml":  # the port refuses the anchor by name; PyYAML reads it
-        assert outs[0][0] == 1 and outs[1][0] == 0
-        assert outs[0][1].startswith("FAIL: cannot load pipeline: ")
-        assert "anchors ('&') are outside the subset" in outs[0][1]
+    if case == "yaml":  # an anchor and its alias: both packages read them as PyYAML does
+        assert outs[0][0] == outs[1][0] == 0
+        assert outs[0][1].replace(str(tmp_path / "port"), "<dir>") == \
+            outs[1][1].replace(str(tmp_path / "ref"), "<dir>")
+        # an undefined alias fails in both, with PyYAML's message (the port
+        # names the file and line where PyYAML prints its mark)
+        for n in ("port", "ref"):
+            (tmp_path / n / "handles" / "smooth.handles.yaml").write_text(
+                "module: smooth\ninput: &a []\noutput: *b\n")
+        outs = [run(main, ["project", "check", "--pipe", str(tmp_path / n / PIPE_FILENAME)])
+                for main, n in ((cli.main, "port"), (jcli.main, "ref"))]
+        assert outs[0][0] == outs[1][0] == 1
+        for _, out in outs:
+            assert out.startswith("FAIL: cannot load pipeline: ") and "line 3" in out
+            assert "found undefined alias 'b'" in out
         return
     assert outs[0][0] == outs[1][0] == 1
     assert outs[0][1].startswith("FAIL: ")

@@ -5,9 +5,14 @@ sort_keys=False)``), which only this test process imports.
 The documents: every literal YAML document the JAX package's tests and
 scripts write or read (harvested from their source), the JSON documents
 the port writes (pipelines and workflow descriptions), the handles templates of all 36
-modules, the workflow templates, hypothesis documents of the subset, the
-YAML 1.1 resolver's traps, and input outside the subset, which raises
-:class:`YAMLSubsetError` by name.
+modules, the workflow templates, hypothesis documents of plain block
+YAML, the YAML 1.1 resolver's traps, constructs outside plain block
+YAML (anchors, aliases, tags, block scalars, merges, explicit keys,
+flow pairs, directives; shared containers, tuples, long, empty and
+multi-line keys on the writer side), which read and write as PyYAML
+does, and malformed input, which raises :class:`YAMLSubsetError` where
+PyYAML raises.  ``tests/test_torch_yaml_full.py`` draws documents of the
+whole language.
 """
 
 from __future__ import annotations
@@ -35,16 +40,32 @@ from tmlibrary_tpu_torch.workflow.engine import WorkflowDescription
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def same(a, b) -> bool:
-    """Equal documents, NaN equal to NaN and types compared too."""
-    if isinstance(a, float) and isinstance(b, float) and math.isnan(a) and math.isnan(b):
-        return True
+#: objects whose identity the alias graph compares (immutable scalars may
+#: be shared by the interpreter alone)
+_GRAPH_TYPES = (list, dict, set, datetime.date)
+
+
+def same(a, b, memo: "dict | None" = None) -> bool:
+    """Equal documents: values and types (NaN equal to NaN), and the same
+    alias graph -- a list, dict, set, date or datetime met again in one
+    is met again at the same places in the other, so cycles end."""
+    memo = {} if memo is None else memo
     if type(a) is not type(b):
         return False
+    if isinstance(a, float) and math.isnan(a):
+        return math.isnan(b)
+    if isinstance(a, _GRAPH_TYPES):
+        ka, kb = ("a", id(a)), ("b", id(b))
+        if ka in memo or kb in memo:
+            return memo.get(ka) == id(b) and memo.get(kb) == id(a)
+        memo[ka], memo[kb] = id(b), id(a)
     if isinstance(a, dict):
-        return list(a) == list(b) and all(same(a[k], b[k]) for k in a)
-    if isinstance(a, list):
-        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return len(a) == len(b) and all(same(ka, kb, memo) and same(a[ka], b[kb], memo)
+                                        for ka, kb in zip(a, b))
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same(x, y, memo) for x, y in zip(a, b))
+    if isinstance(a, set):
+        return a == b and sorted(map(repr, a)) == sorted(map(repr, b))
     return a == b
 
 
@@ -246,7 +267,10 @@ def test_resolver_traps(text, want):
         assert yamlio.safe_dump({"k": text}) == yaml.safe_dump({"k": text}, sort_keys=False)
 
 
-# ------------------------------------------------------------ out of subset
+# ------------------------------------------------- what was outside the subset
+#: constructs outside plain block YAML: each reads as PyYAML reads it, or
+#: raises where PyYAML raises (an undefined alias, a second document, the
+#: ``=`` value)
 OUTSIDE = [
     ("a: &x 1\nb: *x\n", "anchors"), ("a: 1\nb: *x\n", "aliases"), ("a: !!str 1\n", "tags"),
     ("a: |\n  text\n", "block scalars"), ("a: >\n  text\n", "block scalars"),
@@ -256,33 +280,100 @@ OUTSIDE = [
 ]
 
 
+def pyyaml_outcome(text: str):
+    """``(True, document)`` of ``yaml.safe_load``, or ``(False, error)``."""
+    try:
+        return True, yaml.safe_load(text)
+    except Exception as exc:  # PyYAML lets ValueError, KeyError, ... through
+        return False, exc
+
+
+def assert_reads_as_pyyaml(text: str) -> None:
+    """``yamlio.safe_load(text)`` is ``yaml.safe_load(text)``, or both
+    raise."""
+    ok, want = pyyaml_outcome(text)
+    if ok:
+        assert same(yamlio.safe_load(text), want), (text, want)
+    else:
+        with pytest.raises(yamlio.YAMLSubsetError):
+            yamlio.safe_load(text)
+
+
 @pytest.mark.parametrize("text,what", OUTSIDE, ids=[w for _, w in OUTSIDE])
 def test_outside_the_subset_raises_by_name(text, what, tmp_path):
+    """As ``yaml.safe_load``: the same document, or
+    :class:`YAMLSubsetError` naming the file and the line where PyYAML
+    raises.  (The name is the one the test had when the port read a
+    subset of YAML and refused these; it holds parity now.)"""
     path = tmp_path / "p.pipe.yaml"
     path.write_text(text)
-    with pytest.raises(yamlio.YAMLSubsetError, match=what) as info:
+    ok, want = pyyaml_outcome(text)
+    if ok:
+        assert same(yamlio.load(path), want), (what, want)
+        return
+    with pytest.raises(yamlio.YAMLSubsetError) as info:
         yamlio.load(path)
     assert isinstance(info.value, PipelineDescriptionError)
     assert str(path) in str(info.value) and "line " in str(info.value)
 
 
-@pytest.mark.parametrize("text", ["a: b: c\n", "a:\n\t- b\n", "[1, 2\n", "a: 'open\n",
-                                  "- a\nb: 1\n", "{a: 1\n"])
-def test_malformed_yaml_raises_where_pyyaml_raises(text):
-    with pytest.raises(yaml.YAMLError):
+def test_the_constructs_outside_plain_yaml_read_to_these_documents():
+    shared = yamlio.safe_load(OUTSIDE[0][0])
+    assert shared == {"a": 1, "b": 1}
+    assert [pyyaml_outcome(t)[0] for t, _ in OUTSIDE] == [
+        True, False, True, True, True, False, True, True, True, True, False]
+    assert yamlio.safe_load("[a: b]\n") == [{"a": "b"}]
+    assert yamlio.safe_load("<<: {a: 1}\nb: 2\n") == {"a": 1, "b": 2}
+
+
+#: malformed YAML, and what PyYAML raises on it: YAMLError, or the plain
+#: ValueError of ``int('abc')`` that ``construct_yaml_int`` lets through
+MALFORMED = [
+    ("a: b: c\n", yaml.YAMLError), ("a:\n\t- b\n", yaml.YAMLError),
+    ("[1, 2\n", yaml.YAMLError), ("a: 'open\n", yaml.YAMLError),
+    ("- a\nb: 1\n", yaml.YAMLError), ("{a: 1\n", yaml.YAMLError),
+    ("a: |0\n  x\n", yaml.YAMLError), ("a: |\n\tx\n", yaml.YAMLError),
+    ("a: |\n  x\n\ty\n", yaml.YAMLError), ("<<: 1\n", yaml.YAMLError),
+    ("!!int abc\n", ValueError), ("!foo x\n", yaml.YAMLError),
+    ("? [a]\n: 1\n", yaml.YAMLError),
+]
+
+
+@pytest.mark.parametrize("text,raises", MALFORMED, ids=[repr(t) for t, _ in MALFORMED])
+def test_malformed_yaml_raises_where_pyyaml_raises(text, raises):
+    with pytest.raises(raises):
         yaml.safe_load(text)
-    with pytest.raises(yamlio.YAMLSubsetError):
+    with pytest.raises(yamlio.YAMLSubsetError, match="line "):
         yamlio.safe_load(text)
 
 
 @pytest.mark.parametrize("doc", [{"a": (1, 2)}, {"a": 1j}, {"k" * 128: 1}, {"": 1},
                                  {"a\nb": 1}, {(1, 2): 3}])
 def test_the_writer_refuses_what_it_cannot_write_as_pyyaml(doc):
-    with pytest.raises(yamlio.YAMLSubsetError):
-        yamlio.safe_dump(doc)
+    """The text of ``yaml.safe_dump(doc, sort_keys=False)`` -- a tuple
+    as a sequence, ``? `` before a long, empty, multi-line or tuple key --
+    and a refusal only where PyYAML's representer refuses (a complex
+    number).  (The name is kept from the subset writer, which refused
+    all of these.)"""
+    try:
+        want = yaml.safe_dump(doc, sort_keys=False)
+    except yaml.representer.RepresenterError:
+        with pytest.raises(yamlio.YAMLSubsetError, match="cannot represent"):
+            yamlio.safe_dump(doc)
+        return
+    text = yamlio.safe_dump(doc)
+    assert text == want
+    assert_reads_as_pyyaml(text)  # a tuple key reads back as a list: unhashable in both
 
 
 def test_a_container_twice_in_one_document_raises():
+    """A container met twice is written once with an anchor and then as
+    its alias, as PyYAML writes it, and reads back as one object.  (The
+    name is kept from the subset writer, which raised here.)"""
     shared = [1, 2]
-    with pytest.raises(yamlio.YAMLSubsetError, match="anchor"):
-        yamlio.safe_dump({"a": shared, "b": shared})
+    doc = {"a": shared, "b": shared, "c": {"d": shared}}
+    text = yamlio.safe_dump(doc)
+    assert text == yaml.safe_dump(doc, sort_keys=False)
+    assert "&id001" in text and text.count("*id001") == 2
+    back = yamlio.safe_load(text)
+    assert back["a"] is back["b"] is back["c"]["d"] and same(back, doc)

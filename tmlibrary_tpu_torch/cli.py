@@ -1698,7 +1698,8 @@ def cmd_project(args) -> int:
             desc = PipelineDescription.load(Path(args.pipe))
         except (PipelineError, OSError, ValueError, KeyError) as e:
             # PipelineError covers the description and handle errors and
-            # YAMLSubsetError; KeyError is a handle missing a field
+            # YAMLSubsetError (where yaml.safe_load raises); KeyError is a
+            # handle missing a field
             print(f"FAIL: cannot load pipeline: {e}")
             return 1
         problems: list[str] = []

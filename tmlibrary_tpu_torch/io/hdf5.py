@@ -52,22 +52,33 @@ than 8 bytes.  A damaged file raises
 :class:`~tmlibrary_tpu_torch.errors.MetadataError`.  Every read is bounded
 by the file and by its stored end-of-file address.
 
-:func:`write` writes a tree of :class:`Group`, :class:`Dataset` and
-:class:`SoftLink` in the old format -- superblock 0, symbol-table groups,
-contiguous datasets, chunked ones (B-trees split at the default rank of
-32) with the deflate, shuffle, fletcher32 and LZF filters, the types above
-(bool, complex, structured and variable-length string datasets as h5py
-writes them), virtual datasets with their mappings, and fixed-length and
-variable-length string and numeric attributes -- which h5py reads back.
-:func:`load` reads a whole file into such a tree, so a file can be
-changed and written again (:class:`tmlibrary_tpu_torch.writers.DatasetWriter`);
-what the writer cannot keep is refused by name (external links and
-committed datatypes by :func:`load`, attributes past 64 KiB by
-:func:`write`).
+:func:`write` writes a tree of :class:`Group`, :class:`Dataset`,
+:class:`Datatype` and :class:`SoftLink` in the old format wherever the
+old format holds it -- superblock 0, symbol-table groups, contiguous
+datasets, chunked ones (B-trees split at the default rank of 32) with the
+deflate, shuffle, fletcher32 and LZF filters, the types above (bool,
+complex, structured and variable-length string datasets as h5py writes
+them), virtual datasets with their mappings, committed datatypes (an
+object header of their own, datasets pointing at it through a shared
+datatype message), and fixed-length and variable-length string and
+numeric attributes.  An object that keeps its creation order (h5py's
+``track_order``) or holds an attribute no version-1 header message can
+hold (over 65,528 bytes) gets a version-2 object header instead, as HDF5
+gives it one: a group's links as link messages, and past 8 attributes or
+links, or with such an attribute, dense storage -- a fractal heap laid
+out with HDF5's parameters (checksummed direct blocks in the doubling
+table's order under indirect blocks, an object over 4 KiB as a huge
+object) and version-2 B-trees of the names and creation orders in
+512-byte nodes, of any size.  h5py reads every such file back, and goes
+on writing it in "a" mode.  :func:`load` reads a
+whole file into such a tree, so a file can be changed and written again
+(:class:`tmlibrary_tpu_torch.writers.DatasetWriter`); external links are
+refused by name.
 """
 
 from __future__ import annotations
 
+import bisect
 import math
 import mmap
 import os
@@ -108,11 +119,13 @@ class Dataset:
     (None when not defined) and attributes.  ``h5type`` keeps the
     datatype message of a dataset read from a file (so an enum or a
     variable-length string type is written back as it was) and
-    ``virtual`` the mappings of a virtual dataset."""
+    ``virtual`` the mappings of a virtual dataset, ``committed`` the
+    :class:`Datatype` it uses (h5py's ``dtype=f["t"]``), ``track_order``
+    whether its attributes keep their creation order."""
 
     def __init__(self, data=None, *, shape=None, dtype=None, chunks=None, maxshape=None,
                  filters=(), fillvalue=None, attrs=None, _reader=None, h5type=None,
-                 virtual=None):
+                 virtual=None, committed=None, track_order=False):
         self._data = None if data is None else np.asarray(data)
         self._reader = _reader
         self.shape = tuple(self._data.shape) if shape is None else tuple(shape)
@@ -124,6 +137,11 @@ class Dataset:
         self.attrs = dict(attrs or {})
         self.h5type = h5type
         self.virtual = virtual
+        #: the :class:`Datatype` whose committed type the dataset uses
+        self.committed = committed
+        #: attributes kept in creation order (h5py's ``track_order``)
+        self.track_order = track_order
+        self._type_addr: "int | None" = None
         #: how a dataset read from a file is stored: 'compact',
         #: 'contiguous', 'virtual', or its chunk index ('btree1', 'single',
         #: 'implicit', 'fixed_array', 'extensible_array', 'btree2')
@@ -179,13 +197,25 @@ class SoftLink:
         self.path = path
 
 
-class Group:
-    """A group: named children (groups, datasets, soft links) and
-    attributes."""
+class Datatype:
+    """A committed (named) datatype: its datatype message and attributes;
+    datasets that use it name it in their ``committed``."""
 
-    def __init__(self, attrs=None):
-        self.children: "dict[str, Group | Dataset | SoftLink]" = {}
+    def __init__(self, raw: bytes, attrs=None, track_order: bool = False):
+        self.raw = bytes(raw)
         self.attrs = dict(attrs or {})
+        self.track_order = track_order
+
+
+class Group:
+    """A group: named children (groups, datasets, committed datatypes,
+    soft links) and attributes; with ``track_order`` (h5py's) children
+    and attributes keep their creation order, the order of the dicts."""
+
+    def __init__(self, attrs=None, track_order: bool = False):
+        self.children: "dict[str, Group | Dataset | Datatype | SoftLink]" = {}
+        self.attrs = dict(attrs or {})
+        self.track_order = track_order
 
     def get(self, path: str, follow: bool = False):
         """The node at a ``/``-separated path, or None; with ``follow``
@@ -418,9 +448,12 @@ class File:
                     raise MetadataError(f"{self.name}: bad HDF5 B-tree ranks")
 
     # -- object headers
-    def _messages(self, addr: int) -> list:
+    def _messages(self, addr: int, corders: "list | None" = None) -> list:
+        """The messages ``(type, flags, body)`` of the object header at
+        ``addr``; ``corders`` gets each one's creation order (0 where the
+        header keeps none)."""
         if self._bytes(addr, 4) == b"OHDR":
-            return self._messages_v2(addr)
+            return self._messages_v2(addr, corders)
         version = self._u(addr, 1)
         if version != 1:
             raise MetadataError(f"{self.name}: bad HDF5 object header version {version}")
@@ -446,9 +479,11 @@ class File:
                 else:
                     out.append((mtype, flags, body))
                 p += 8 + msize
+        if corders is not None:
+            corders.extend([0] * len(out))
         return out
 
-    def _messages_v2(self, addr: int) -> list:
+    def _messages_v2(self, addr: int, corders: "list | None" = None) -> list:
         """The messages of a version-2 object header (``OHDR``) and its
         continuation blocks (``OCHK``), each checksummed."""
         head = self._bytes(addr, 6)
@@ -476,6 +511,7 @@ class File:
             q, end = first, length - 4
             while q + 4 + corder <= end:
                 mtype, msize, mflags = struct.unpack_from("<BHB", block, q)
+                order = struct.unpack_from("<H", block, q + 4)[0] if corder else 0
                 q += 4 + corder
                 if q + msize > end:
                     raise MetadataError(f"{self.name}: corrupt HDF5 object header")
@@ -487,6 +523,8 @@ class File:
                     blocks.append((caddr, 4, clen))
                 elif mtype:
                     out.append((mtype, mflags, body))
+                    if corders is not None:
+                        corders.append(order)
         return out
 
     #: message types HDF5 can share (dataspace, datatype, fill value,
@@ -511,6 +549,15 @@ class File:
     def _shared_type(self, b: bytes) -> bytes:
         """The datatype message a shared-message record points to (a
         committed datatype's object header)."""
+        addr = self._shared_addr(b)
+        types = [body for t, _, body in self._messages(addr) if t == 0x03]
+        if not types:
+            raise MetadataError(f"{self.name}: HDF5 committed datatype at {addr} without a "
+                                "datatype")
+        return types[0]
+
+    def _shared_addr(self, b: bytes) -> int:
+        """The object header a shared-message record points to."""
         version, kind = b[0], b[1]
         if version == 1:
             addr = struct.unpack_from("<Q", b, 8)[0]
@@ -521,11 +568,7 @@ class File:
                                     "not read by the port")
         else:
             raise MetadataError(f"{self.name}: bad HDF5 shared message version {version}")
-        types = [body for t, _, body in self._messages(addr) if t == 0x03]
-        if not types:
-            raise MetadataError(f"{self.name}: HDF5 committed datatype at {addr} without a "
-                                "datatype")
-        return types[0]
+        return addr
 
     # -- datatypes and dataspaces
     def _datatype(self, b: bytes, off: int = 0) -> "tuple[_Datatype, int]":
@@ -1026,30 +1069,41 @@ class File:
 
     def _object(self, addr: int):
         try:
-            msgs = self._messages(addr)
-            attrs = self._attributes(msgs)
+            corders: list = []
+            msgs = self._messages(addr, corders)
+            # creation order kept: a version-2 header's attribute flag, or
+            # a link info message's
+            track = self._bytes(addr, 4) == b"OHDR" and bool(self._u(addr + 5, 1) & 0x04)
+            track = track or any(t == 0x02 and b[1] & 1 for t, _, b in msgs)
+            attrs = self._attributes(msgs, corders, track)
             kinds = {t for t, _, _ in msgs}
             if _group_kinds(kinds):
-                return Group(attrs)
+                return Group(attrs, track_order=track)
             if 0x03 in kinds and not kinds & {0x01, 0x08}:
-                raise NotSupportedError(f"{self.name}: committed HDF5 datatypes are not kept "
-                                        "by the port")
-            return self._dataset(msgs, attrs)
+                return Datatype(next(b for t, _, b in msgs if t == 0x03), attrs, track)
+            ds = self._dataset(msgs, attrs)
+            ds.track_order = track
+            return ds
         except _CORRUPT as exc:
             raise MetadataError(f"corrupt HDF5 file {self.name}: {type(exc).__name__}: {exc}") \
                 from exc
 
-    def _attributes(self, msgs) -> dict:
+    def _attributes(self, msgs, corders=(), by_order: bool = False) -> dict:
+        """The attributes of an object's messages: in creation order where
+        the object keeps it, else as stored (dense ones in name order)."""
         found = []
-        for t, _flags, b in msgs:
+        for i, (t, _flags, b) in enumerate(msgs):
             if t == 0x15:
                 found.extend(self._dense_attributes(b))
             elif t == 0x0C:
-                found.append(self._attribute(b))
-        return dict(found)
+                found.append((corders[i] if i < len(corders) else 0, *self._attribute(b)))
+        if by_order:
+            found.sort(key=lambda x: x[0])
+        return {name: value for _, name, value in found}
 
     def _dense_attributes(self, b: bytes) -> list:
-        """The attributes of an attribute info message's dense storage."""
+        """``(creation order, name, value)`` of the attributes of an
+        attribute info message's dense storage, in name order."""
         if b[0] != 0:
             raise MetadataError(f"{self.name}: bad HDF5 attribute info version {b[0]}")
         flags = b[1]
@@ -1063,8 +1117,8 @@ class File:
             if rec[8] & 0x02:
                 raise NotSupportedError(f"{self.name}: HDF5 shared object header messages are "
                                         "not read by the port")
-            out.append(self._attribute(fh.get(rec[:8])))
-        return sorted(out, key=lambda kv: kv[0].encode("utf-8"))
+            out.append((struct.unpack_from("<I", rec, 9)[0], *self._attribute(fh.get(rec[:8]))))
+        return sorted(out, key=lambda kv: kv[1].encode("utf-8"))
 
     def _attribute(self, b: bytes) -> tuple:
         version = b[0]
@@ -1117,8 +1171,10 @@ class File:
 
     def _dataset(self, msgs, attrs) -> Dataset:
         by = {}
+        type_addr = None
         for t, flags, b in msgs:
             if t == 0x03 and flags & 0x02 and t not in by:
+                type_addr = self._shared_addr(b)
                 b = self._shared_type(b)
             by.setdefault(t, b)
         if 0x01 not in by or 0x03 not in by or 0x08 not in by:
@@ -1140,6 +1196,7 @@ class File:
             np.dtype(bool) if dtype.post is not None else dtype.dtype
         ds = Dataset(shape=shape, dtype=out_dtype, maxshape=maxshape, filters=filters,
                      fillvalue=fill, attrs=attrs, h5type=dtype.raw)
+        ds._type_addr = type_addr
         if cls == 0:
             size = struct.unpack_from("<H", lay, 2)[0]
             raw = lay[4:4 + size]
@@ -1596,9 +1653,13 @@ class File:
         if addr in memo:
             return memo[addr]
         node = memo[addr] = self._object(addr)
+        if isinstance(node, Datatype):
+            return node
         if isinstance(node, Dataset):
             node._data = node.read()
             node._reader = None
+            if node._type_addr is not None:
+                node.committed = self._load(node._type_addr, seen, memo)
             return node
         for name, (kind, value) in self._links(addr).items():
             if kind == "hard":
@@ -1752,12 +1813,60 @@ def _filter_message(filters, chunk_bytes: int) -> bytes:
     return body
 
 
+#: the largest body a version-1 object header message holds (a 16-bit
+#: size, 8-byte aligned)
+_V1_MESSAGE_MAX = 0xFFF8
+#: attributes and links kept in a version-2 header before HDF5 moves them
+#: to dense storage (``H5O_CRT_ATTR_MAX_COMPACT_DEF``, ``H5G_CRT_GINFO_MAX_COMPACT``)
+_MAX_COMPACT = 8
+#: fractal heaps the writer makes, with HDF5's parameters for dense
+#: attributes (``H5O_FHEAP_*``) and dense links (``H5G_FHEAP_*``): (heap id
+#: length, heap address bits, first direct block size)
+_ATTR_HEAP = (8, 40, 1024)
+_LINK_HEAP = (7, 32, 512)
+#: the same in both: the doubling table's width, its largest direct
+#: block, and the largest object kept in a block (a larger one is a
+#: huge object); every version-2 B-tree has nodes of 512 bytes
+_HEAP_WIDTH = 4
+_HEAP_MAX_DIRECT = 1 << 16
+_HEAP_MAX_MANAGED = 4096
+_BTREE2_NODE = 512
+
+
+def _link_message(name: str, target, corder: "int | None") -> bytes:
+    """A link message (version 1): to an object header address, or a
+    :class:`SoftLink`; ``corder`` its creation order where kept."""
+    raw = name.encode("utf-8")
+    width = 0 if len(raw) < 1 << 8 else 1 if len(raw) < 1 << 16 else 2
+    soft = isinstance(target, SoftLink)
+    utf8 = not raw.isascii()
+    flags = width | (0x04 if corder is not None else 0) | (0x08 if soft else 0) \
+        | (0x10 if utf8 else 0)
+    body = bytes([1, flags]) + (b"\x01" if soft else b"")
+    body += struct.pack("<q", corder) if corder is not None else b""
+    body += (b"\x01" if utf8 else b"") + len(raw).to_bytes(1 << width, "little") + raw
+    if soft:
+        path = target.path.encode("utf-8")
+        return body + struct.pack("<H", len(path)) + path
+    return body + struct.pack("<Q", target)
+
+
 class _Writer:
+    """The file in memory: objects appended as they are written, the
+    superblock filled in last.  Every object is written with a version-1
+    header, except one that keeps its creation order (``track_order``) or
+    holds an attribute no version-1 message can hold: that one gets a
+    version-2 header (``OHDR``), a group then its links as link messages,
+    and past 8 attributes or links, or with such an attribute, dense
+    storage -- a fractal heap (:meth:`fractal_heap`) and version-2
+    B-trees of the names (and of the creation orders)."""
+
     def __init__(self, root: Group):
         self.buf = bytearray(96)  # the superblock, filled in last
         self.leaf_k = 4
         self._written: dict = {}  # id(node) -> its addresses, one object under many links
-        self._refs: dict = {}  # id(node) -> its hard links (the header's reference count)
+        self._refs: dict = {}  # id(node) -> its hard links and users (the reference count)
+        self._attrs: dict = {}  # id(node) -> its attribute message bodies
         self._max_members(root)
 
     def _max_members(self, g: Group) -> None:
@@ -1765,9 +1874,14 @@ class _Writer:
         for child in g.children.values():
             if isinstance(child, SoftLink):
                 continue
+            first = id(child) not in self._refs
             self._refs[id(child)] = self._refs.get(id(child), 0) + 1
-            if isinstance(child, Group) and self._refs[id(child)] == 1:
+            if isinstance(child, Group) and first:
                 self._max_members(child)
+            if isinstance(child, Dataset) and first and child.committed is not None:
+                # a dataset of a committed type counts in the type's references
+                key = id(child.committed)
+                self._refs[key] = self._refs.get(key, 0) + 1
 
     def alloc(self, data: bytes) -> int:
         at = len(self.buf)
@@ -1775,29 +1889,26 @@ class _Writer:
         self.buf += b"\0" * (_pad8(len(self.buf)) - len(self.buf))
         return at
 
-    def attributes(self, attrs: dict) -> bytes:
-        out = b""
-        for name, value in attrs.items():
-            nm = name.encode("utf-8") + b"\0"
-            if isinstance(value, str) or (isinstance(value, np.ndarray) and value.dtype == object):
-                strs = [value] if isinstance(value, str) else [str(v) for v in value.ravel()]
-                shape = () if isinstance(value, str) else value.shape
-                dtm, raw = _VLEN_STR, self.vlen_strings([s.encode("utf-8") for s in strs])
-            else:
-                arr = np.asarray(value)
-                if arr.dtype.kind == "U":
-                    arr = np.char.encode(arr, "utf-8")
-                dtm, shape, raw = _dtype_message(arr.dtype), arr.shape, arr.tobytes()
-            space = _space_message(shape)
-            body = struct.pack("<BBHHH", 1, 0, len(nm), len(dtm), len(space))
-            for part in (nm, dtm, space):
-                body += part + b"\0" * (_pad8(len(part)) - len(part))
-            if len(body + raw) > 0xFFF0:
-                raise NotSupportedError(f"attribute {name!r} of {len(raw)} bytes: the port's "
-                                        "HDF5 writer keeps attributes in the object header "
-                                        "(64 KiB), not in dense storage")
-            out += _message(0x0C, body + raw)
-        return out
+    _lookup3 = staticmethod(File._lookup3)
+
+    # -- attributes
+    def attribute(self, name: str, value) -> bytes:
+        """The body of an attribute message (version 1) for ``value``."""
+        nm = name.encode("utf-8") + b"\0"
+        if isinstance(value, str) or (isinstance(value, np.ndarray) and value.dtype == object):
+            strs = [value] if isinstance(value, str) else [str(v) for v in value.ravel()]
+            shape = () if isinstance(value, str) else value.shape
+            dtm, raw = _VLEN_STR, self.vlen_strings([s.encode("utf-8") for s in strs])
+        else:
+            arr = np.asarray(value)
+            if arr.dtype.kind == "U":
+                arr = np.char.encode(arr, "utf-8")
+            dtm, shape, raw = _dtype_message(arr.dtype), arr.shape, arr.tobytes()
+        space = _space_message(shape)
+        body = struct.pack("<BBHHH", 1, 0, len(nm), len(dtm), len(space))
+        for part in (nm, dtm, space):
+            body += part + b"\0" * (_pad8(len(part)) - len(part))
+        return body + raw
 
     def vlen_strings(self, objs) -> bytes:
         """The 16-byte elements (length, collection, index) of ``objs``
@@ -1816,13 +1927,239 @@ class _Writer:
             out += b"".join(struct.pack("<IQI", len(o), addr, i) for i, o in enumerate(part, 1))
         return out
 
-    def header(self, messages: bytes, count: int, node=None) -> int:
-        if not messages:
-            messages, count = _message(0, b""), 1
+    # -- object headers
+    def header(self, node, msgs: list, links: "list | None" = None) -> int:
+        """Write ``node``'s object header from its messages ``[(type, flags,
+        body)]``, its attributes and, for a group in a version-2 header,
+        its ``links`` ``[(name, address or SoftLink)]``."""
+        attrs = self.attributes(node)
         refs = self._refs.get(id(node), 1)
-        return self.alloc(struct.pack("<BBHII4x", 1, 0, count, refs, len(messages)) + messages)
+        if links is None and not self._v2(node, attrs):
+            body = b"".join(_message(t, b, f) for t, f, b in msgs)
+            body += b"".join(_message(0x0C, a) for a in attrs)
+            count = len(msgs) + len(attrs)
+            if not body:
+                body, count = _message(0, b""), 1
+            return self.alloc(struct.pack("<BBHII4x", 1, 0, count, refs, len(body)) + body)
+        track = bool(getattr(node, "track_order", False))
+        out = [(t, f, b, 0) for t, f, b in msgs]
+        if links is not None:
+            out += self.links(links, track)
+        if len(attrs) > _MAX_COMPACT or any(len(a) > _V1_MESSAGE_MAX for a in attrs):
+            out.append((0x15, 0x04, self.dense_attributes(node.attrs, attrs, track), 0))
+        else:
+            if track:  # h5py writes the attribute info of a tracked header
+                out.append((0x15, 0x04, struct.pack("<BBH", 0, 3, len(attrs))
+                            + struct.pack("<QQQ", UNDEF, UNDEF, UNDEF), 0))
+            out += [(0x0C, 0, a, i) for i, a in enumerate(attrs)]
+        if refs > 1:
+            out.append((0x16, 0, struct.pack("<BI", 0, refs), 0))
+        chunk = b"".join(struct.pack("<BHB", t, len(b), f)
+                         + (struct.pack("<H", c) if track else b"") + b for t, f, b, c in out)
+        block = b"OHDR" + bytes([2, 0x02 | (0x0C if track else 0)]) \
+            + struct.pack("<I", len(chunk)) + chunk
+        return self.alloc(block + struct.pack("<I", self._lookup3(block)))
 
+    def attributes(self, node) -> list:
+        """The attribute message bodies of ``node``, made once."""
+        if id(node) not in self._attrs:
+            self._attrs[id(node)] = [self.attribute(n, v) for n, v in node.attrs.items()]
+        return self._attrs[id(node)]
+
+    @staticmethod
+    def _v2(node, attrs: list) -> bool:
+        return bool(getattr(node, "track_order", False)) or \
+            any(len(a) > _V1_MESSAGE_MAX for a in attrs)
+
+    def links(self, links: list, track: bool) -> list:
+        """A version-2 group's link info and group info messages, and its
+        links: as link messages, or past 8 in dense storage."""
+        ginfo = (0x0A, 0x01, b"\0\0", 0)
+        bodies = [_link_message(n, t, i if track else None) for i, (n, t) in enumerate(links)]
+        head = struct.pack("<BB", 0, 3 if track else 0)
+        head += struct.pack("<Q", len(links)) if track else b""
+        if len(links) <= _MAX_COMPACT:
+            linfo = head + struct.pack("<QQ", UNDEF, UNDEF) + (struct.pack("<Q", UNDEF)
+                                                               if track else b"")
+            return [(0x02, 0, linfo, 0), ginfo] + [(0x06, 0, b, 0) for b in bodies]
+        heap, ids = self.fractal_heap(bodies, *_LINK_HEAP)
+        names = sorted(((self._lookup3(n.encode("utf-8")), n.encode("utf-8"), hid)
+                        for (n, _), hid in zip(links, ids)))
+        linfo = head + struct.pack("<QQ", heap, self.btree2(
+            5, [struct.pack("<I", h) + hid for h, _, hid in names], 11))
+        if track:
+            linfo += struct.pack("<Q", self.btree2(
+                6, [struct.pack("<q", i) + hid for i, hid in enumerate(ids)], 15))
+        return [(0x02, 0, linfo, 0), ginfo]
+
+    def dense_attributes(self, values: dict, bodies: list, track: bool) -> bytes:
+        """An attribute info message over dense storage of ``bodies``."""
+        heap, ids = self.fractal_heap(bodies, *_ATTR_HEAP)
+        recs = sorted((self._lookup3(n.encode("utf-8")), n.encode("utf-8"), i, hid)
+                      for i, (n, hid) in enumerate(zip(values, ids)))
+        by_name = self.btree2(8, [hid + struct.pack("<BII", 0, i, h) for h, _, i, hid in recs],
+                              17)
+        body = struct.pack("<BB", 0, 3 if track else 0)
+        body += struct.pack("<H", len(bodies)) if track else b""
+        body += struct.pack("<QQ", heap, by_name)
+        if track:
+            body += struct.pack("<Q", self.btree2(
+                9, [hid + struct.pack("<BI", 0, i) for i, hid in enumerate(ids)], 13))
+        return body
+
+    def fractal_heap(self, objects: list, id_len: int, bits: int, start: int):
+        """(header address, heap ids) of a fractal heap holding
+        ``objects`` as HDF5 lays one out: an object over 4 KiB as a huge
+        object (its bytes on their own, found through a version-2 B-tree
+        of type 1), the others in checksummed direct blocks filled in the
+        doubling table's order -- the first block as the root while it
+        holds them all, else a root indirect block of a power of two rows,
+        with indirect blocks below it past the 64 KiB rows.  No
+        free-space manager: HDF5 adds blocks after the last one (the
+        iterator offset) and leaves the blocks' unused tails alone."""
+        width, off_size = _HEAP_WIDTH, (bits + 7) // 8
+        len_size = min((hdf5_v2.log2_gen(_HEAP_MAX_DIRECT) + 7) // 8,
+                       hdf5_v2.limit_enc_size(_HEAP_MAX_MANAGED))
+        direct_rows = hdf5_v2.log2_gen(_HEAP_MAX_DIRECT) - hdf5_v2.log2_gen(start) + 2
+        max_rows = bits - hdf5_v2.log2_gen(start * width) + 1
+
+        def row_size(r: int) -> int:
+            return start if r == 0 else start << (r - 1)
+
+        def row_start(r: int) -> int:
+            return 0 if r == 0 else width * start << (r - 1)
+
+        def sub_rows(r: int) -> int:  # rows of an indirect block in row r
+            return hdf5_v2.log2_gen(row_size(r)) - hdf5_v2.log2_gen(start * width) + 1
+
+        def direct_blocks(base: int, nrows: int):  # (offset, size) in heap order
+            for r in range(nrows):
+                for c in range(width):
+                    off = base + row_start(r) + c * row_size(r)
+                    if r < direct_rows:
+                        yield off, row_size(r)
+                    else:
+                        yield from direct_blocks(off, sub_rows(r))
+
+        head = 5 + 8 + off_size + 4
+        at = self.alloc(bytes(146))
+        ids: list = [b""] * len(objects)
+        blocks: dict = {}  # heap offset -> the block's bytes
+        order = direct_blocks(0, max_rows)
+        cur, fill, huge = None, 0, []
+        for i, o in enumerate(objects):
+            if len(o) > _HEAP_MAX_MANAGED:
+                huge.append(i)
+                continue
+            if cur is None or fill + len(o) > len(blocks[cur]):
+                cur, size = next(order)
+                while size < head + len(o):  # a block too small for it stays unallocated
+                    cur, size = next(order)
+                blocks[cur], fill = bytearray(size), head
+            blocks[cur][fill:fill + len(o)] = o
+            hid = b"\0" + (cur + fill).to_bytes(off_size, "little") \
+                + len(o).to_bytes(len_size, "little")
+            ids[i] = hid + bytes(id_len - len(hid))
+            fill += len(o)
+        addrs = {}
+        for off, block in blocks.items():
+            block[:head] = b"FHDB\0" + struct.pack("<Q", at) + off.to_bytes(off_size, "little") \
+                + bytes(4)
+            block[head - 4:head] = struct.pack("<I", self._lookup3(bytes(block)))
+            addrs[off] = self.alloc(bytes(block))
+        offs = sorted(addrs)
+
+        def indirect(base: int, nrows: int) -> int:
+            ents = []
+            for r in range(nrows):
+                for c in range(width):
+                    off = base + row_start(r) + c * row_size(r)
+                    if r < direct_rows:
+                        ents.append(addrs.get(off, UNDEF))
+                        continue
+                    i = bisect.bisect_left(offs, off)
+                    used = i < len(offs) and offs[i] < off + row_size(r)
+                    ents.append(indirect(off, sub_rows(r)) if used else UNDEF)
+            body = b"FHIB\0" + struct.pack("<Q", at) + base.to_bytes(off_size, "little") \
+                + struct.pack(f"<{len(ents)}Q", *ents)
+            return self.alloc(body + struct.pack("<I", self._lookup3(body)))
+
+        man_alloc = sum(len(b) for b in blocks.values())
+        row_free: list = []  # free bytes of a row's blocks, allocated or not (HDF5's count)
+        for r in range(max_rows):
+            row_free.append(width * (row_size(r) - head) if r < direct_rows
+                            else width * sum(row_free[:sub_rows(r)]))
+        if not blocks:
+            root, rows, man_size, iter_off = UNDEF, 0, 0, 0
+        elif offs == [0]:  # the first block alone: the root
+            root, rows, man_size, iter_off = addrs[0], 0, start, 0
+        else:
+            last = offs[-1]
+            need = next(r for r in range(max_rows) if last < row_start(r + 1))
+            rows = min(1 << need.bit_length(), max_rows)  # HDF5 doubles the root's rows
+            root, man_size, iter_off = indirect(0, rows), row_start(rows), last + len(blocks[last])
+        recs = []
+        for key, i in enumerate(huge, 1):
+            recs.append(struct.pack("<QQQ", self.alloc(objects[i]), len(objects[i]), key))
+            ids[i] = b"\x10" + key.to_bytes(id_len - 1, "little")
+        huge_tree = self.btree2(1, recs, 24) if recs else UNDEF
+        free = (start - head if rows == 0 and blocks else sum(row_free[:rows])) \
+            - sum(len(o) for o in objects if len(o) <= _HEAP_MAX_MANAGED)
+        hdr = b"FRHP\0" + struct.pack("<HHBI", id_len, 0, 2, _HEAP_MAX_MANAGED)
+        hdr += struct.pack("<12Q", len(huge), huge_tree, free, UNDEF, man_size, man_alloc, iter_off,
+                           len(objects) - len(huge), sum(len(objects[i]) for i in huge),
+                           len(huge), 0, 0)
+        hdr += struct.pack("<HQQHHQH", width, start, _HEAP_MAX_DIRECT, bits, 1, root, rows)
+        self.buf[at:at + 146] = hdr + struct.pack("<I", self._lookup3(hdr))
+        return at, ids
+
+    def btree2(self, kind: int, records: list, rsize: int) -> int:
+        """A version-2 B-tree of ``records`` (in key order) in HDF5's
+        512-byte nodes, built from the leaves up: every leaf at one depth,
+        each node's records split evenly among its children."""
+        size, n = _BTREE2_NODE, len(records)
+        max_nrec = [(size - 10) // rsize]
+        cum_max, cum_size = [max_nrec[0]], [0]
+        nrec_size = hdf5_v2.limit_enc_size(max_nrec[0])
+        while cum_max[-1] < n:  # H5B2__hdr_init's sizes, a depth at a time
+            d = len(max_nrec)
+            ptr = 8 + nrec_size + (cum_size[d - 1] if d > 1 else 0)
+            max_nrec.append((size - 10 - ptr) // (rsize + ptr))
+            cum_max.append((max_nrec[d] + 1) * cum_max[d - 1] + max_nrec[d])
+            cum_size.append(hdf5_v2.limit_enc_size(cum_max[d]))
+        depth = len(max_nrec) - 1
+
+        def node(recs: list, d: int) -> "tuple[int, int]":  # (address, its own records)
+            if d == 0:
+                body = b"BTLF\0" + bytes([kind]) + b"".join(recs)
+                body += struct.pack("<I", self._lookup3(body))
+                return self.alloc(body + bytes(size - len(body))), len(recs)
+            parts = -(-(len(recs) + 1) // (cum_max[d - 1] + 1))
+            share, at, seps, ptrs = len(recs) - parts + 1, 0, [], b""
+            for i in range(parts):
+                k = share // parts + (i < share % parts)
+                child, own = node(recs[at:at + k], d - 1)
+                ptrs += struct.pack("<Q", child) + own.to_bytes(nrec_size, "little")
+                ptrs += k.to_bytes(cum_size[d - 1], "little") if d > 1 else b""
+                at += k
+                if i < parts - 1:
+                    seps.append(recs[at])
+                    at += 1
+            body = b"BTIN\0" + bytes([kind]) + b"".join(seps) + ptrs
+            body += struct.pack("<I", self._lookup3(body))
+            return self.alloc(body + bytes(size - len(body))), len(seps)
+
+        root, own = node(records, depth) if records else (UNDEF, 0)
+        head = b"BTHD\0" + bytes([kind]) + struct.pack("<IHHBBQHQ", size, rsize, depth, 100, 40,
+                                                       root, own, n)
+        return self.alloc(head + struct.pack("<I", self._lookup3(head)))
+
+    # -- objects
     def group(self, g: Group) -> "tuple[int, int, int]":
+        if self._v2(g, self.attributes(g)):
+            links = [(n, c if isinstance(c, SoftLink) else self.node(c)[0])
+                     for n, c in g.children.items()]
+            return self.header(g, [], links), 0, 0
         names = sorted(g.children, key=lambda s: s.encode("utf-8"))
         addrs = {n: self.node(g.children[n]) for n in names
                  if not isinstance(g.children[n], SoftLink)}
@@ -1854,14 +2191,19 @@ class _Writer:
             node += struct.pack("<QQQ", 0, snod_addr, offsets[names[-1]])
         node += bytes(24 + 2 * 16 * 8 + (2 * 16 + 1) * 8 - len(node))
         tree = self.alloc(node)
-        msgs = _message(0x11, struct.pack("<QQ", tree, heap_addr)) + self.attributes(g.attrs)
-        return self.header(msgs, 1 + len(g.attrs), g), tree, heap_addr
+        return self.header(g, [(0x11, 0, struct.pack("<QQ", tree, heap_addr))]), tree, heap_addr
 
     def node(self, n) -> "tuple[int, int, int]":
-        """(object header, B-tree, heap) -- the last two 0 for a dataset."""
+        """(object header, B-tree, heap) -- the last two 0 unless a
+        symbol-table group."""
         if id(n) not in self._written:
-            self._written[id(n)] = (n, self.group(n) if isinstance(n, Group)
-                                    else (self.dataset(n), 0, 0))
+            if isinstance(n, Group):
+                addrs = self.group(n)
+            elif isinstance(n, Datatype):
+                addrs = (self.header(n, [(0x03, 0x05, n.raw)]), 0, 0)
+            else:
+                addrs = (self.dataset(n), 0, 0)
+            self._written[id(n)] = (n, addrs)
         return self._written[id(n)][1]
 
     def dataset(self, ds: Dataset) -> int:
@@ -1880,20 +2222,21 @@ class _Writer:
         else:
             dtm = _dtype_message(arr.dtype)
         itemsize = arr.dtype.itemsize
-        msgs = _message(0x01, _space_message(shape, ds.maxshape if ds.chunks or ds.virtual
-                                             else None))
-        msgs += _message(0x03, dtm, flags=1)
+        msgs = [(0x01, 0, _space_message(shape, ds.maxshape if ds.chunks or ds.virtual
+                                         else None))]
+        if ds.committed is not None:  # a shared message naming the committed type
+            msgs.append((0x03, 0x03, struct.pack("<BBQ", 2, 2, self.node(ds.committed)[0])))
+        else:
+            msgs.append((0x03, 0x01, dtm))
         fill = ds.fillvalue if ds.fillvalue is not None else bytes(itemsize)
         alloc_time = 3 if ds.chunks else 2
-        msgs += _message(0x05, struct.pack("<BBBBI", 2, alloc_time, 2, 1, itemsize) + fill)
-        count = 3
+        msgs.append((0x05, 0, struct.pack("<BBBBI", 2, alloc_time, 2, 1, itemsize) + fill))
         if ds.virtual is not None:
             lay = struct.pack("<BBQI", 4, 3, *self.virtual_mappings(ds.virtual))
         elif ds.chunks:
             if ds.filters:
-                msgs += _message(0x0B, _filter_message(ds.filters,
-                                                       math.prod(ds.chunks) * itemsize))
-                count += 1
+                msgs.append((0x0B, 0, _filter_message(ds.filters,
+                                                      math.prod(ds.chunks) * itemsize)))
             tree = self.chunk_tree(arr, ds)
             lay = struct.pack("<BBBQ", 3, 2, len(shape) + 1, tree)
             lay += struct.pack(f"<{len(shape) + 1}I", *ds.chunks, itemsize)
@@ -1901,9 +2244,8 @@ class _Writer:
             raw = arr.tobytes()
             addr = self.alloc(raw) if raw else UNDEF
             lay = struct.pack("<BBQQ", 3, 1, addr, len(raw))
-        msgs += _message(0x08, lay)
-        msgs += self.attributes(ds.attrs)
-        return self.header(msgs, count + 1 + len(ds.attrs), ds)
+        msgs.append((0x08, 0, lay))
+        return self.header(ds, msgs)
 
     def virtual_mappings(self, mappings) -> "tuple[int, int]":
         """(global heap collection, index) of a virtual layout's mappings,
@@ -1981,7 +2323,7 @@ class _Writer:
         sb = SIGNATURE + bytes([0, 0, 0, 0, 0, 8, 8, 0])
         sb += struct.pack("<HHI", self.leaf_k, 16, 0)
         sb += struct.pack("<QQQQ", 0, UNDEF, len(self.buf), UNDEF)
-        sb += struct.pack("<QQI4xQQ", 0, header, 1, tree, heap)
+        sb += struct.pack("<QQI4xQQ", 0, header, 1 if tree else 0, tree, heap)
         self.buf[:96] = sb
         return bytes(self.buf)
 

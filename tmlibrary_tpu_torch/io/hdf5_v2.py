@@ -90,7 +90,11 @@ class BTree2:
         for i in range(nrec + 1):
             child = _le(body, at, 8)
             n = _le(body, at + 8, self.nrec_size)
+            first = len(out)
             self._node(child, n, depth - 1, out)
+            if csize and len(out) - first != _le(body, at + 8 + self.nrec_size, csize):
+                raise MetadataError(f"{self.f.name}: v2 B-tree node at {child} holds "
+                                    f"{len(out) - first} records, its parent counts another number")
             if i < nrec:
                 out.append(body[6 + i * self.rsize:6 + (i + 1) * self.rsize])
             at += ptr

@@ -40,9 +40,9 @@ class ObjectOutput:
 
 
 def _read_document(path: Path):
-    """A pipeline or handles document, read as YAML by
-    :mod:`tmlibrary_tpu_torch.yamlio` (a JSON document is YAML too); a
-    document outside the subset raises
+    """A pipeline or handles document, read as ``yaml.safe_load`` reads
+    it by :mod:`tmlibrary_tpu_torch.yamlio` (a JSON document is YAML
+    too); YAML that PyYAML refuses raises
     :class:`~tmlibrary_tpu_torch.yamlio.YAMLSubsetError` naming the file
     and the line."""
     return yamlio.load(path)

@@ -186,12 +186,14 @@ class DatasetWriter(Writer):
     surface, the semantics of ``h5py.File(path, "a")``: an existing file
     (any ``libver`` h5py writes) is read whole on entry
     (:func:`~tmlibrary_tpu_torch.io.hdf5.load`; what the port's writer
-    cannot keep -- external links, committed datatypes, a structure the
-    reader refuses -- raises
-    :class:`~tmlibrary_tpu_torch.errors.NotSupportedError` and the file is
-    left untouched), changed in memory, and written again on exit in the
-    old format (superblock 0) to a temporary name and moved over it with
-    ``os.replace``; a missing file is created."""
+    cannot keep -- external links, a structure the reader refuses --
+    raises :class:`~tmlibrary_tpu_torch.errors.NotSupportedError` and the
+    file is left untouched), changed in memory, and written again on exit
+    to a temporary name and moved over it with ``os.replace``: in the old
+    format (superblock 0), with version-2 object headers and dense storage
+    for the objects that keep their creation order or hold an attribute
+    past 64 KiB; committed datatypes stay committed.  A missing file is
+    created."""
 
     def __init__(self, filename):
         super().__init__(filename)
