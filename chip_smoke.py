@@ -231,7 +231,13 @@ Phases (any failure exits non-zero before the last line):
    CZI, a Gray8 zstd0 CZI, a Gray8 JPEG CZI (its pixels hash to
    :data:`JPEG_DIGEST`), grey ``.jpg`` sites and Imaris files (contiguous;
    chunked and deflated) through metaconfig and imextract; the decode
-   well (``decode_well_run``) and the HDF5 well (``hdf5_well_run``: the
+   well (``decode_well_run``: 3x3 sites in 18 files of what the
+   reference hands to cv2 -- TIFF, JPEG, PNG, BMP, PGM, PPM, two JPEGs
+   by the port's ``ImageWriter`` held byte for byte to cv2's streams --
+   through metaconfig ``pattern``, imextract and config 3 with rows 1-4
+   at 1, 1, 1, 2, planes to the manifest's digests; a ``decode:`` line
+   with each variant's host Mpix/s and the JPEG encode rates) and the
+   HDF5 well (``hdf5_well_run``: the
    four committed ``.ims`` files of ``tests/data/hdf5_well/``, each
    another structure h5py writes, through metaconfig ``auto``, imextract
    and config 3 with rows 1-4 at 1, 1, 1, 2, planes to the manifest's
@@ -5852,14 +5858,17 @@ def phase_containers(torch, wrappers, card, device: str = "cuda") -> dict:
 
 
 # ------------------------------------------- phase 13's decode well
-#: the committed JPEG-family files of phase 13's decode well and their
-#: manifest (the reference's decode of each), written by
-#: tests/make_decode_well.py with cv2's encoder, which the card's
-#: machine does not have
+#: the committed files of phase 13's decode well and the manifest of every
+#: file's reference decode (and of each port-written JPEG's cv2 stream),
+#: written by tests/make_decode_well.py with cv2 and the JAX package,
+#: which the card's machine does not have
 DECODE_WELL_DIR = Path(__file__).resolve().parent / "tests" / "data" / "decode_well"
 #: the decode well's files: (site, channel) -> (file, variant); one well
-#: of 2x2 sites, DAPI and Actin, each file another variant of what the
-#: port decodes where the reference calls cv2
+#: of 3x3 sites, DAPI and Actin, each file another variant of what the
+#: port decodes where the reference calls cv2 (sites 0-1: TIFFs the smoke
+#: writes and holds to their pixels; 2-3: the JPEG family, committed;
+#: 4-8: the PNG, TIFF, BMP and Netpbm decoders and the port's ImageWriter,
+#: committed or written by :func:`decode_well_port_files`)
 DECODE_WELL = {
     (0, "DAPI"): ("A01_s0_DAPI.tif", "tiled 16-bit grey, deflate, predictor 2, BigTIFF"),
     (0, "Actin"): ("A01_s0_Actin.tif", "planar 16-bit RGB, strips of 40 rows"),
@@ -5869,11 +5878,21 @@ DECODE_WELL = {
     (2, "Actin"): ("A01_s2_Actin.jpg", "progressive grey JPEG"),
     (3, "DAPI"): ("A01_s3_DAPI.jpg", "progressive 4:2:2 colour JPEG, restart interval 4"),
     (3, "Actin"): ("A01_s3_Actin.tif", "tiled YCbCr 2x2 JPEG-in-TIFF with JPEGTables"),
+    (4, "DAPI"): ("A01_s4_DAPI.png", "8-bit palette PNG of greys"),
+    (4, "Actin"): ("A01_s4_Actin.png", "16-bit grey Adam7 PNG, every filter type"),
+    (5, "DAPI"): ("A01_s5_DAPI.tif", "12-bit grey TIFF, deflate strips of 32 rows"),
+    (5, "Actin"): ("A01_s5_Actin.tif", "tiled 16-bit grey TIFF, Orientation 4"),
+    (6, "DAPI"): ("A01_s6_DAPI.tif", "YCbCr 2x2 TIFF without JPEG, LZW strips"),
+    (6, "Actin"): ("A01_s6_Actin.bmp", "4-bit grey-palette RLE4 BMP"),
+    (7, "DAPI"): ("A01_s7_DAPI.pgm", "16-bit binary PGM by the port's ImageWriter"),
+    (7, "Actin"): ("A01_s7_Actin.jpg", "grey JPEG by the port's ImageWriter"),
+    (8, "DAPI"): ("A01_s8_DAPI.jpg", "4:2:0 colour JPEG by the port's ImageWriter"),
+    (8, "Actin"): ("A01_s8_Actin.ppm", "8-bit binary PPM by the port's ImageWriter"),
 }
 #: metaconfig's ``pattern`` for the decode well (the default filename
-#: style with the ``.jpg`` suffix beside ``.tif``)
+#: style with the suffixes of its files)
 DECODE_WELL_PATTERN = (r"(?P<well>[A-Z]{1,2}\d{2})_s(?P<site>\d+)_(?P<channel>[A-Za-z0-9\-]+)"
-                       r"\.(?:tif|jpg)$")
+                       r"\.(?:tif|jpg|png|bmp|pgm|ppm)$")
 
 
 #: the committed HDF5 files of phase 13's HDF5 well and their manifest
@@ -6026,7 +6045,7 @@ def decode_well_tiffs(cw, src: Path, px: dict) -> dict:
     cw.write_tiff(src / DECODE_WELL[0, "Actin"][0], [np.stack([r, g, b], -1)], planar=2,
                rows_per_strip=40, byteorder=">")
     out[0, "Actin"] = gray15(b, g, r).astype(np.uint16)
-    v8 = np.minimum(px["DAPI"][1] >> 4, 255).astype(np.uint8)
+    v8 = decode_well_v8(px["DAPI"][1])
     r, g, b = decode_well_colour(v8)
     yy, xx = np.mgrid[0:size, 0:size]
     a = (255 - (yy + xx) % 5).astype(np.uint8)
@@ -6039,6 +6058,50 @@ def decode_well_tiffs(cw, src: Path, px: dict) -> dict:
                compression=8, predictor=3)
     out[1, "Actin"] = q
     return out
+
+
+def decode_well_v8(v):
+    """A decode-well plane cut to 8 bits: ``min(v >> 4, 255)``."""
+    import numpy as np
+
+    return np.minimum(np.asarray(v) >> 4, 255).astype(np.uint8)
+
+
+def decode_well_bgr(v8):
+    """The BGR image of an 8-bit plane in :func:`decode_well_colour`."""
+    import numpy as np
+
+    r, g, b = decode_well_colour(v8)
+    return np.stack([b, g, r], -1)
+
+
+def decode_well_port_files(cw, writers, src: Path, px: dict) -> dict:
+    """Write the decode well's files that the port writes itself (sites
+    5-8 of ``px`` but the committed PNGs and BMP) into ``src``: the 12-bit,
+    Orientation 4 and YCbCr TIFFs with ``cw.write_tiff``, the PGM, PPM and
+    both JPEGs with ``writers.ImageWriter``.  Returns ``{file: the array
+    handed to ImageWriter}`` of the two JPEGs (the manifest holds
+    ``cv2.imencode``'s stream of each)."""
+    import numpy as np
+
+    name = {k: v[0] for k, v in DECODE_WELL.items()}
+    cw.write_tiff(src / name[5, "DAPI"], [np.minimum(px["DAPI"][5] >> 1, 4095)], bits=12,
+                  rows_per_strip=32, compression=8)
+    cw.write_tiff(src / name[5, "Actin"], [px["Actin"][5]], orientation=4, tile=(64, 96))
+    r, g, b = (c.astype(np.int64) for c in decode_well_colour(decode_well_v8(px["DAPI"][6])))
+    ycc = np.stack([(19595 * r + 38470 * g + 7471 * b + 32768) >> 16,
+                    ((-11059 * r - 21709 * g + 32768 * b + 32767) >> 16) + 128,
+                    ((32768 * r - 27439 * g - 5329 * b + 32767) >> 16) + 128], -1)
+    cw.write_tiff(src / name[6, "DAPI"], [np.clip(ycc, 0, 255).astype(np.uint8)], photometric=6,
+                  ycbcr_subsampling=(2, 2), rows_per_strip=32, compression=5)
+    writers.ImageWriter(src / name[7, "DAPI"]).write(px["DAPI"][7])
+    writers.ImageWriter(src / name[8, "Actin"]).write(decode_well_bgr(
+        decode_well_v8(px["Actin"][8])))
+    jpegs = {name[7, "Actin"]: decode_well_v8(px["Actin"][7]),
+             name[8, "DAPI"]: decode_well_bgr(decode_well_v8(px["DAPI"][8]))}
+    for file, img in jpegs.items():
+        writers.ImageWriter(src / file).write(img)
+    return jpegs
 
 
 #: the side of the large pages whose host decode phase 13 times
@@ -6055,7 +6118,7 @@ def decode_large_pages(cw, src: Path, px: dict, extractor) -> dict:
 
     reps = LARGE_PAGE // px["DAPI"].shape[-1]
     grey = np.tile(px["DAPI"][0], (reps, reps))
-    r, g, b = decode_well_colour(np.minimum(grey >> 4, 255).astype(np.uint8))
+    r, g, b = decode_well_colour(decode_well_v8(grey))
     rgb = np.stack([r, g, b], -1)
     pages = {
         "RGB 64x64 tiles, none": (rgb, dict(tile=(64, 64)), gray15(b, g, r)),
@@ -6198,25 +6261,29 @@ def config3_cpu_hold(store, cpu_root: Path) -> dict:
 
 
 def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict:
-    """Phase 13's decode well: one well of 2x2 sites (sites 0-3 of
-    ``px``), DAPI and Actin, each of its 8 files another variant the
+    """Phase 13's decode well: one well of 3x3 sites (sites 0-8 of
+    ``px``), DAPI and Actin, each of its 18 files another variant the
     reference hands to cv2 (:data:`DECODE_WELL`: the TIFFs written here by
-    :func:`decode_well_tiffs`, the JPEG family from
-    :data:`DECODE_WELL_DIR`).  ``workflow submit --device`` runs
+    :func:`decode_well_tiffs` and :func:`decode_well_port_files` with the
+    PGM, the PPM and two JPEGs by the port's ``ImageWriter``, the rest
+    from :data:`DECODE_WELL_DIR`).  ``workflow submit --device`` runs
     metaconfig (``pattern``), imextract and jterator (config 3,
     ``max_objects=256``) with the launch counters set to 0 just before and
     read just after (1, 1, 1, 2: one batch at ``max_objects``,
-    ``object_buckets`` off).  Holds every stored plane against the
-    written pixels (colour through :func:`gray15`) or the manifest's
-    sha256 of the reference's decode, the card's labels exactly and its
-    features within ``CARD_TIERS`` against the port's CPU run of the same
-    well.  Then times each file's host decode (imextract's
-    ``_read_plane``, one thread) and prints the ``decode:`` line."""
+    ``object_buckets`` off).  Holds every stored plane of sites 0-1 against
+    the written pixels (colour through :func:`gray15`) and of sites 2-8
+    against the manifest's sha256 of the reference's decode, each
+    port-written JPEG's bytes against the manifest's sha256 of
+    ``cv2.imencode``'s stream, the card's labels exactly and its features
+    within ``CARD_TIERS`` against the port's CPU run of the same well.
+    Then times each file's host decode (imextract's ``_read_plane``, one
+    thread), the large pages' and the colour and grey JPEG encode of an
+    :data:`ENCODE_PAGE`-square image, and prints the ``decode:`` line."""
     import hashlib
 
     import numpy as np
 
-    from tmlibrary_tpu_torch import container_writers
+    from tmlibrary_tpu_torch import container_writers, native, writers
     from tmlibrary_tpu_torch.workflow.steps.imextract import ImageExtractor
 
     started = time.perf_counter()
@@ -6224,10 +6291,22 @@ def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict
     src = base / "decode_well"
     src.mkdir(parents=True)
     expected = decode_well_tiffs(container_writers, src, {ch: px[ch][:4] for ch in ("DAPI", "Actin")})
+    t0 = time.perf_counter()
+    jpegs = decode_well_port_files(container_writers, writers, src,
+                                   {ch: px[ch][:9] for ch in ("DAPI", "Actin")})
+    write_s = time.perf_counter() - t0
     manifest = json.loads((DECODE_WELL_DIR / "manifest.json").read_text())
     digests_by_file = {e["file"]: e for e in manifest["files"]}
-    for name in digests_by_file:
-        shutil.copy(DECODE_WELL_DIR / name, src / name)
+    for name, e in digests_by_file.items():
+        if e["committed"]:
+            shutil.copy(DECODE_WELL_DIR / name, src / name)
+        elif not (src / name).exists():
+            raise SmokeFailure(f"decode well: {name} was not written")
+    for name in jpegs:
+        got = hashlib.sha256((src / name).read_bytes()).hexdigest()
+        if got != digests_by_file[name]["stream_sha256"]:
+            raise SmokeFailure(f"decode well: the port's {name} stream hashes to {got}, not "
+                               f"cv2.imencode's {digests_by_file[name]['stream_sha256']}")
     store, submit_s, launches = config3_well(
         torch, wrappers, device, base, "decode_well",
         {"source_dir": str(src), "pattern": DECODE_WELL_PATTERN})
@@ -6241,8 +6320,10 @@ def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict
                                  channel=store.experiment.channel_index(by_name[name][1]))[0]
         if name in digests_by_file:
             want = digests_by_file[name]
-            got = hashlib.sha256(np.ascontiguousarray(plane, np.uint8).tobytes()).hexdigest()
-            if plane.max() > 255 or got != want["sha256"] or list(plane.shape) != want["shape"]:
+            top = np.iinfo(want["dtype"]).max
+            got = hashlib.sha256(np.ascontiguousarray(plane.astype(want["dtype"])).tobytes()
+                                 ).hexdigest()
+            if plane.max() > top or got != want["sha256"] or list(plane.shape) != want["shape"]:
                 raise SmokeFailure(f"decode well: {name} ({want['variant']}) decodes to {got}, "
                                    f"not the reference's {want['sha256']}")
         elif not np.array_equal(plane, expected[by_name[name]]):
@@ -6252,7 +6333,7 @@ def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict
     worst = config3_cpu_hold(store, base / "decode_cpu")
     # each variant's host decode, one thread, files warm in the page cache
     rates = {}
-    reps = 5
+    reps = 3
     for (site, ch), (name, variant) in sorted(DECODE_WELL.items()):
         path = str(src / name)
         ImageExtractor._read_plane(path, None, size, size)
@@ -6261,19 +6342,47 @@ def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict
             ImageExtractor._read_plane(path, None, size, size)
         rates[variant] = reps * size * size / 1e6 / (time.perf_counter() - t0)
     large = decode_large_pages(container_writers, src, px, ImageExtractor)
+    encode = jpeg_encode_rates(native, px)
     well_s = time.perf_counter() - started
-    print(f"  decode well ({len(DECODE_WELL)} files, 2x2 sites of {size}x{size}, DAPI and "
-          f"Actin, {well_s:.1f} s): metaconfig (pattern) -> imextract -> jterator (config 3) "
-          f"through `workflow submit --device {device}` in {submit_s:.2f} s; launches "
-          f"{ {k: v for k, v in launches.items() if v} } over 1 batch; every plane equals the written pixels or the reference's decode "
-          "(manifest sha256); labels exact against the port's CPU run, features within "
-          "CARD_TIERS, largest |card - cpu| by family "
-          + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items())) + f"; on {card}")
+    print(f"  decode well ({len(DECODE_WELL)} files, 3x3 sites of {size}x{size}, DAPI and "
+          f"Actin, {well_s:.1f} s; the port wrote 7 of them in {write_s:.2f} s, its JPEGs "
+          "byte-identical to cv2.imencode's): metaconfig (pattern) -> imextract -> jterator "
+          f"(config 3) through `workflow submit --device {device}` in {submit_s:.2f} s; "
+          f"launches { {k: v for k, v in launches.items() if v} } over 1 batch; every plane "
+          "equals the written pixels or the reference's decode (manifest sha256); labels exact "
+          "against the port's CPU run, features within CARD_TIERS, largest |card - cpu| by "
+          "family " + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items()))
+          + f"; on {card}")
     line = {"files": len(DECODE_WELL), "size": size, "well_s": well_s, "submit_s": submit_s,
-            "launches": {k: v for k, v in launches.items() if v},
-            "host_decode_mpix_per_s": rates, "large_page_mpix_per_s": large, "card": card}
+            "port_write_s": write_s, "launches": {k: v for k, v in launches.items() if v},
+            "host_decode_mpix_per_s": rates, "large_page_mpix_per_s": large,
+            "jpeg_encode_mpix_per_s": encode, "card": card}
     print("decode: " + json.dumps(line))
     return line
+
+
+#: the side of the images whose host JPEG encode phase 13 times
+ENCODE_PAGE = 1024
+
+
+def jpeg_encode_rates(native, px: dict) -> dict:
+    """Host JPEG encode rates (Mpix/s, ``native.jpeg_encode`` at quality
+    95, one thread, best of 3) of an :data:`ENCODE_PAGE`-square grey image
+    and its :func:`decode_well_colour` BGR image, made from site 0 of
+    ``px`` tiled."""
+    import numpy as np
+
+    reps = ENCODE_PAGE // px["DAPI"].shape[-1]
+    grey = decode_well_v8(np.tile(px["DAPI"][0], (reps, reps)))
+    out = {}
+    for what, img in (("grey", grey), ("colour 4:2:0", decode_well_bgr(grey))):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            native.jpeg_encode(img, quality=95)
+            best = min(best, time.perf_counter() - t0)
+        out[f"{ENCODE_PAGE}^2 {what}"] = ENCODE_PAGE * ENCODE_PAGE / 1e6 / best
+    return out
 
 
 def hdf5_well_run(torch, wrappers, card, device, base: Path) -> dict:
@@ -6372,8 +6481,9 @@ def phase_codecs(torch, wrappers, card, device: str = "cuda") -> dict:
     padding) through metaconfig (``auto``; the JPEG sites by ``pattern``)
     and imextract on the card: the store's planes equal the written ones,
     the JPEG CZI's decode to :data:`JPEG_DIGEST`.  Then the decode well
-    (:func:`decode_well_run`: 8 variants of what the reference hands to
-    cv2 through metaconfig, imextract and config 3) and the HDF5 well
+    (:func:`decode_well_run`: 18 variants of what the reference hands to
+    cv2 -- TIFF, JPEG, PNG, BMP, PGM, PPM, the port's ImageWriter JPEGs --
+    through metaconfig, imextract and config 3) and the HDF5 well
     (:func:`hdf5_well_run`: four ``.ims`` files in the structures of
     ``libver='latest'`` and the fixed-array, extensible-array and v2
     B-tree chunk indexes through metaconfig, imextract and config 3, and

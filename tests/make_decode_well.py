@@ -1,17 +1,24 @@
-"""Write the JPEG-family files of ``chip_smoke.py`` phase 13's decode well
+"""Write the committed files of ``chip_smoke.py`` phase 13's decode well
 into ``tests/data/decode_well/``, with ``manifest.json``.
 
-The card's machine has no JPEG encoder, so these four files are
-committed; the four TIFF variants of the well are written by the smoke
-itself (``chip_smoke.decode_well_tiffs``).  The sites are the first four
-of ``benchmarks.synthetic_cell_painting_batch(384, size=256, seed=0)``,
-phase 13's plate; each plane is cut to 8 bits as ``min(v >> 4, 255)``
-and, for the colour variants, given R = v, G = 3v/4, B = v/2
-(``chip_smoke.decode_well_colour``).  cv2 encodes every stream; the
-manifest holds each file's variant, shape and dtype and the sha256 of
-the reference's decode of it (``tmlibrary_tpu``'s
-``ImageExtractor._read_plane``), which the smoke holds the card
-machine's decode against.
+The card's machine has no cv2 and no JAX package, so what only cv2 (or a
+writer here) can make is committed, and every digest is: the JPEG family
+of sites 2-3 (encoded by cv2), the 8-bit palette PNG and the 16-bit Adam7
+PNG of site 4 and the RLE4 BMP of site 6 (written here).  The smoke
+writes the rest itself: the four TIFFs of sites 0-1
+(``chip_smoke.decode_well_tiffs``, held to their pixels) and the TIFFs,
+PGM, PPM and JPEGs of sites 5-8 (``chip_smoke.decode_well_port_files``,
+with the port's ``ImageWriter``), which this script writes the same way
+to take their digests.  The sites are the first 9 of
+``benchmarks.synthetic_cell_painting_batch(384, size=256, seed=0)``,
+phase 13's plate; 8-bit variants cut each plane as ``min(v >> 4, 255)``
+and colour ones give it R = v, G = 3v/4, B = v/2
+(``chip_smoke.decode_well_colour``).  The manifest holds each file of
+sites 2-8 with its variant, whether it is committed, the shape, dtype and
+sha256 of the reference's decode of it (``tmlibrary_tpu``'s
+``ImageExtractor._read_plane``), and for the port's JPEGs the sha256 of
+``cv2.imencode``'s stream of the same array, which the smoke holds the
+card machine's files against.
 
 Run from the repository root, on a machine with cv2 and the JAX
 package::
@@ -20,7 +27,7 @@ package::
 
 It writes the same bytes on every run (cv2's encoder is deterministic,
 the sites are seeded); ``tests/test_torch_decode.py`` checks that the
-committed files decode to the manifest's digests.
+committed files and the smoke's decode to the manifest.
 """
 
 from __future__ import annotations
@@ -39,21 +46,21 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from tmlibrary_tpu_torch import container_writers  # noqa: E402
+from tmlibrary_tpu_torch import container_writers, writers  # noqa: E402
 
-#: phase 13's plate: its first 4 sites are the decode well's
-PLATE_SITES, SIZE = 384, 256
+#: phase 13's plate: its first 9 sites are the decode well's
+PLATE_SITES, SIZE, WELL_SITES = 384, 256, 9
 #: the JPEG-in-TIFF's tiles, multiples of 16 that leave edge tiles at 256
 JPEG_TIFF_TILE = (112, 96)
 QUALITY = 90
 
 
 def well_sites(n: int = PLATE_SITES, size: int = SIZE) -> dict:
-    """The first 4 sites of the seeded plate, uint16 as phase 13 casts them."""
+    """The first 9 sites of the seeded plate, uint16 as phase 13 casts them."""
     from tmlibrary_tpu_torch import benchmarks
 
     data = benchmarks.synthetic_cell_painting_batch(n, size=size, seed=0)
-    return {ch: data[ch][:4].astype(np.uint16) for ch in ("DAPI", "Actin")}
+    return {ch: data[ch][:WELL_SITES].astype(np.uint16) for ch in ("DAPI", "Actin")}
 
 
 def split_tables(stream: bytes) -> tuple[bytes, bytes]:
@@ -74,12 +81,7 @@ def jpeg_family(px: dict) -> dict:
     3 of ``px``), encoded by cv2."""
     import cv2
 
-    def v8(p):
-        return np.minimum(p >> 4, 255).astype(np.uint8)
-
-    def bgr(v):
-        r, g, b = chip_smoke.decode_well_colour(v)
-        return np.stack([b, g, r], -1)
+    v8, bgr = chip_smoke.decode_well_v8, chip_smoke.decode_well_bgr
 
     def enc(img, *params):
         ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, QUALITY, *params])
@@ -118,6 +120,59 @@ def jpeg_family(px: dict) -> dict:
     return out
 
 
+def rle4_stream(idx: np.ndarray) -> bytes:
+    """An RLE4 stream of 4-bit palette indices ``(h, w)`` (rows bottom-up
+    as a BMP stores them): a run of two or more equal pixels as one
+    encoded run, three or more unequal ones as an absolute run, the rest
+    as runs of one or two, an end of line after every row and an end of
+    bitmap."""
+    out = bytearray()
+    for row in idx[::-1].tolist():
+        x, w = 0, len(row)
+        while x < w:
+            run = 1
+            while x + run < w and run < 255 and row[x + run] == row[x]:
+                run += 1
+            if run >= 2:
+                out += bytes([run, row[x] << 4 | row[x]])
+                x += run
+                continue
+            end = x + 1  # unequal pixels up to the next run of two
+            while end < w and end - x < 255 and not (end + 1 < w and row[end] == row[end + 1]):
+                end += 1
+            seg = row[x:end]
+            if len(seg) >= 3:
+                padded = seg + [0] * (len(seg) % 2)
+                data = bytes(a << 4 | b for a, b in zip(padded[0::2], padded[1::2]))
+                out += bytes([0, len(seg)]) + data + bytes(len(data) % 2)
+            else:
+                for i in range(0, len(seg), 2):
+                    pair = seg[i:i + 2]
+                    out += bytes([len(pair), pair[0] << 4 | (pair[1] if len(pair) > 1 else 0)])
+            x = end
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
+def committed_family(px: dict) -> dict:
+    """File name -> bytes of the well's committed PNGs (site 4) and RLE4
+    BMP (site 6), written by the seeded writers of
+    ``tests/test_torch_cv2_images.py``."""
+    from test_torch_cv2_images import _chunk, write_bmp, write_png
+
+    names = {k: v[0] for k, v in chip_smoke.DECODE_WELL.items()}
+    grey = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+    v8 = chip_smoke.decode_well_v8(px["DAPI"][4])
+    idx = (chip_smoke.decode_well_v8(px["Actin"][6]) >> 4).astype(np.int64)
+    size = idx.shape
+    return {
+        names[4, "DAPI"]: write_png(v8, 3, 8, extra=_chunk(b"PLTE", grey.tobytes())),
+        names[4, "Actin"]: write_png(px["Actin"][4], 0, 16, interlace=1),
+        names[6, "Actin"]: write_bmp(rle4_stream(idx), size[1], size[0], 4, comp=2,
+                                     palette=grey[::17][:16]),
+    }
+
+
 def reference_decode(path: Path, size: int) -> np.ndarray:
     """The JAX package's plane of ``path``, as its imextract reads it."""
     from tmlibrary_tpu.workflow.steps.imextract import ImageExtractor
@@ -125,29 +180,52 @@ def reference_decode(path: Path, size: int) -> np.ndarray:
     return ImageExtractor._read_plane(str(path), None, size, size)
 
 
-def manifest_entry(path: Path, site: int, channel: str, variant: str, size: int) -> dict:
+def manifest_entry(path: Path, site: int, channel: str, variant: str, size: int,
+                   committed: bool) -> dict:
     plane = reference_decode(path, size)
     return {"file": path.name, "site": site, "channel": channel, "variant": variant,
-            "shape": list(plane.shape), "dtype": str(plane.dtype),
+            "committed": committed, "shape": list(plane.shape), "dtype": str(plane.dtype),
             "sha256": hashlib.sha256(np.ascontiguousarray(plane).tobytes()).hexdigest()}
+
+
+def manifest_entries(px: dict, out_dir: Path, written: Path, size: int = SIZE) -> list:
+    """The manifest's entries for sites 2-8 (committed files in
+    ``out_dir``, the smoke's in ``written``): the reference's decode of
+    each, ``cv2.imencode``'s stream of each port-written JPEG."""
+    import cv2
+
+    jpegs = chip_smoke.decode_well_port_files(container_writers, writers, written, px)
+    committed = set(jpeg_family(px)) | set(committed_family(px))
+    entries = []
+    for (site, channel), (name, variant) in sorted(chip_smoke.DECODE_WELL.items()):
+        if site < 2:
+            continue
+        path = (out_dir if name in committed else written) / name
+        entry = manifest_entry(path, site, channel, variant, size, name in committed)
+        if name in jpegs:
+            ok, buf = cv2.imencode(".jpg", jpegs[name])
+            assert ok
+            entry["stream_sha256"] = hashlib.sha256(buf.tobytes()).hexdigest()
+        entries.append(entry)
+    return entries
 
 
 def main() -> int:
     out_dir = chip_smoke.DECODE_WELL_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
-    files = jpeg_family(well_sites())
-    entries = []
-    for (site, channel), (name, variant) in sorted(chip_smoke.DECODE_WELL.items()):
-        if name not in files:
-            continue
-        (out_dir / name).write_bytes(files[name])
-        entries.append(manifest_entry(out_dir / name, site, channel, variant, SIZE))
+    px = well_sites()
+    files = {**jpeg_family(px), **committed_family(px)}
+    for name, blob in files.items():
+        (out_dir / name).write_bytes(blob)
+    with tempfile.TemporaryDirectory() as tmp:
+        entries = manifest_entries(px, out_dir, Path(tmp))
     (out_dir / "manifest.json").write_text(json.dumps(
-        {"source": "the first 4 sites of benchmarks.synthetic_cell_painting_batch(384, "
-                   "size=256, seed=0), cut to 8 bits as min(v >> 4, 255)",
+        {"source": "the first 9 sites of benchmarks.synthetic_cell_painting_batch(384, "
+                   "size=256, seed=0), 8-bit variants cut as min(v >> 4, 255)",
          "files": entries}, indent=1) + "\n")
-    total = sum((out_dir / e["file"]).stat().st_size for e in entries)
-    print(f"wrote {len(entries)} files ({total} bytes) and manifest.json to {out_dir}")
+    total = sum((out_dir / name).stat().st_size for name in files)
+    print(f"wrote {len(files)} files ({total} bytes) and manifest.json ({len(entries)} "
+          f"entries) to {out_dir}")
     return 0
 
 

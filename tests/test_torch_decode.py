@@ -13,8 +13,8 @@ each recorded in ROADMAP C: a planar 16/32/64-bit TIFF (cv2 reads it from
 memory it never wrote; the port returns the stored samples), page k > 0
 through ``ImageReader.read`` (the reference returns page 0; the port is
 held to ``cv2.imreadmulti``), and what the port refuses where cv2 reads
-(arithmetic-coded JPEG, TIFF orientations other than 1, 1/4-bit
-samples, CMYK, a progressive stream whose scans stop early).  Sizes are
+(arithmetic-coded JPEG, old-style JPEG TIFF, a progressive stream whose
+scans stop early).  Sizes are
 small (at most 96x96, odd shapes such as 37x53).  Tolerance: exact
 (features of the slice test: ``FEATURE_TIERS``).
 """
@@ -33,8 +33,8 @@ import make_decode_well
 import test_czi
 import test_stk
 from chip_smoke import (
-    DECODE_WELL, DECODE_WELL_DIR, DECODE_WELL_PATTERN, decode_well_colour, decode_well_tiffs,
-    gray15,
+    DECODE_WELL, DECODE_WELL_DIR, DECODE_WELL_PATTERN, decode_well_colour,
+    decode_well_port_files, decode_well_tiffs, gray15,
 )
 from test_torch_ingest import ingest
 from test_torch_workflow_steps import (
@@ -44,7 +44,8 @@ from tmlibrary_tpu import readers as j_readers
 from tmlibrary_tpu.models.store import ExperimentStore as JStore
 from tmlibrary_tpu.workflow.registry import get_step as j_get_step
 from tmlibrary_tpu.workflow.steps.imextract import ImageExtractor as JExtractor
-from tmlibrary_tpu_torch import benchmarks, capacity, container_writers, native, readers
+from tmlibrary_tpu_torch import (benchmarks, capacity, container_writers, native, readers,
+                                 writers)
 from tmlibrary_tpu_torch.container_writers import write_tiff
 from tmlibrary_tpu_torch.errors import MetadataError, NotSupportedError
 from tmlibrary_tpu_torch.io import png
@@ -427,33 +428,41 @@ def test_palette_miniswhite_and_extra_samples(tmp_path):
 
 
 def test_what_the_port_refuses_is_named(tmp_path):
-    """Refusals, each named in the message and listed in ROADMAP C: TIFF
-    orientations other than 1, 1- and 4-bit samples, CMYK, YCbCr that is
-    not JPEG, old-style JPEG, grey with alpha at 32 bits (which cv2
-    refuses too)."""
+    """Orientation 3, CMYK and YCbCr that is not JPEG, refused here until
+    the port read what cv2 reads, now decode as cv2 decodes them (every
+    variant: ``tests/test_torch_cv2_images.py``); still refused, each
+    named in the message: old-style JPEG (ROADMAP A), grey with alpha at
+    32 bits and 4-bit grey samples (which cv2 refuses too)."""
     rng = np.random.default_rng(11)
     img = rng.integers(0, 256, (37, 53, 3)).astype(np.uint8)
-    cases = {
+    read = {
         "Orientation 3": dict(pages=[img], orientation=3),
         "separated": dict(pages=[np.dstack([img, img[:, :, :1]])], photometric=5),
         "YCbCr": dict(pages=[img], photometric=6),
+    }
+    refused = {
         "old-style JPEG": dict(pages=[img], compression=6, chunks=[[b"\0" * 8]]),
         "grey with alpha at 32 bits": dict(pages=[rng.random((37, 53, 2)).astype(np.float32)]),
     }
-    for what, kw in cases.items():
-        path = tmp_path / f"{len(list(tmp_path.iterdir()))}.tif"
-        pages = kw.pop("pages")
-        write_tiff(path, pages, tile=(16, 16), **kw)
-        with pytest.raises(MetadataError, match=what):
-            readers.ImageReader(path).read(0)
-    # 4-bit samples: the struct writer writes whole bytes, so patch the tag
+    for cases, held in ((read, "equal"), (refused, None)):
+        for what, kw in cases.items():
+            path = tmp_path / f"{len(list(tmp_path.iterdir()))}.tif"
+            pages = kw.pop("pages")
+            write_tiff(path, pages, tile=(16, 16), **kw)
+            if held:
+                assert hold_file(path) == held, what
+            else:
+                with pytest.raises(MetadataError, match=what):
+                    readers.ImageReader(path).read(0)
+    # 4-bit grey samples: the struct writer writes whole bytes, so patch the tag
     path = tmp_path / "four.tif"
     write_tiff(path, [img[:, :, 0]], tile=(16, 16))
     blob = bytearray(path.read_bytes())
     at = blob.index(struct.pack("<HHI", 258, 3, 1))
     blob[at + 8:at + 10] = struct.pack("<H", 4)
     path.write_bytes(bytes(blob))
-    with pytest.raises(MetadataError, match="4-bit TIFF samples"):
+    assert cv2_read(path) is None
+    with pytest.raises(MetadataError, match="4-bit samples"):
         readers.ImageReader(path).read(0)
 
 
@@ -760,25 +769,29 @@ def run_jterator(store, port: bool, max_objects: int):
 
 def test_the_decode_well_through_ingest_and_config_3(tmp_path):
     """``chip_smoke.py`` phase 13's decode well at 96x96 on the CPU: the
-    8 variants through both packages' metaconfig (``pattern``), imextract
-    and jterator config 3.  The stores are equal plane for plane, save
-    the planar 16-bit RGB file (the reference's cv2 reads it from
+    18 variants (TIFF, JPEG, PNG, BMP, PGM, PPM, the port's ImageWriter
+    JPEGs) through both packages' metaconfig (``pattern``), imextract and
+    jterator config 3.  The stores are equal plane for plane, save the
+    planar 16-bit RGB file (the reference's cv2 reads it from
     uninitialised memory), which equals its written pixels through the
     integer colour formula; with that plane set in the reference's store
     as well, the labels are equal bit for bit and the features within
     ``FEATURE_TIERS``."""
-    data = benchmarks.synthetic_cell_painting_batch(4, size=96, seed=0)
+    data = benchmarks.synthetic_cell_painting_batch(9, size=96, seed=0)
     px = {ch: data[ch].astype(np.uint16) for ch in ("DAPI", "Actin")}
     src = tmp_path / "src"
     src.mkdir()
     expected = decode_well_tiffs(container_writers, src, px)
-    for name, blob in make_decode_well.jpeg_family(px).items():
+    decode_well_port_files(container_writers, writers, src, px)
+    for name, blob in {**make_decode_well.jpeg_family(px),
+                       **make_decode_well.committed_family(px)}.items():
         (src / name).write_bytes(blob)
     assert sorted(p.name for p in src.iterdir()) == sorted(v[0] for v in DECODE_WELL.values())
     args = {"source_dir": str(src), "pattern": DECODE_WELL_PATTERN}
     assert ingest(tmp_path / "port", args, port=True) == ingest(tmp_path / "ref", args,
                                                                 port=False)
     port, ref = ExperimentStore.open(tmp_path / "port"), JStore.open(tmp_path / "ref")
+    assert port.n_sites == 9
     mapping = json.loads((tmp_path / "port" / "workflow" / "metaconfig" /
                           "file_mapping.json").read_text())
     by_name = {v[0]: k for k, v in DECODE_WELL.items()}
@@ -802,23 +815,35 @@ def test_the_decode_well_through_ingest_and_config_3(tmp_path):
 
 
 def test_the_committed_fixtures_decode_to_the_manifest(tmp_path):
-    """``tests/data/decode_well/``: each file decodes, in the reference and
-    in the port, to the manifest's dtype, shape and sha256; the set stays
-    under 256 KiB; the JPEG-in-TIFF's tables and tiles are as
-    ``make_decode_well.py`` writes them."""
+    """``tests/data/decode_well/``: the manifest lists every file of sites
+    2-8; each committed one and each the smoke writes
+    (``chip_smoke.decode_well_port_files``, written here the same way)
+    decodes, in the reference and in the port, to the manifest's dtype,
+    shape and sha256; the port's JPEGs hash to ``cv2.imencode``'s stream
+    of the same array; the committed set stays under 256 KiB; the
+    JPEG-in-TIFF's tables and tiles are as ``make_decode_well.py`` writes
+    them."""
     manifest = json.loads((DECODE_WELL_DIR / "manifest.json").read_text())
     files = {e["file"]: e for e in manifest["files"]}
     assert sorted(files) == sorted(v[0] for k, v in DECODE_WELL.items() if k[0] >= 2)
+    px = make_decode_well.well_sites()
+    jpegs = decode_well_port_files(container_writers, writers, tmp_path, px)
     total = 0
     for name, e in files.items():
-        path = DECODE_WELL_DIR / name
-        total += path.stat().st_size
+        path = (DECODE_WELL_DIR if e["committed"] else tmp_path) / name
+        if e["committed"]:
+            total += path.stat().st_size
         for plane in (JExtractor._read_plane(str(path), None, *e["shape"]),
                       ImageExtractor._read_plane(str(path), None, *e["shape"])):
             assert str(plane.dtype) == e["dtype"] and list(plane.shape) == e["shape"]
             assert hashlib.sha256(np.ascontiguousarray(plane).tobytes()).hexdigest() == \
                 e["sha256"], name
         assert DECODE_WELL[e["site"], e["channel"]] == (name, e["variant"])
+        if name in jpegs:
+            stream = cv2.imencode(".jpg", jpegs[name])[1].tobytes()
+            assert path.read_bytes() == stream
+            assert hashlib.sha256(stream).hexdigest() == e["stream_sha256"]
+    assert set(jpegs) == {n for n, e in files.items() if "stream_sha256" in e}
     assert total < 256 * 1024
     tiff = readers.read_tiff_page_cv2(DECODE_WELL_DIR / DECODE_WELL[3, "Actin"][0], 0)
     assert tiff.shape == (256, 256, 3)

@@ -20,8 +20,9 @@ parity on every fixture, rewrites that h5py reads with the same
 committed datatypes, attributes (hypothesis around the 64 KiB edge of a
 version-1 header message x ``libver`` x ``track_order``), links and
 creation order, new-style ``.ims`` files through both
-packages' ingest and config 3, and the PNG refusals that must surface
-as ``MetadataError`` are held.  Sites are 64x64 to 96x96 except the
+packages' ingest and config 3, and the palette and 1-bit PNGs once
+refused (now read as cv2 reads them; a truncated one raises
+``MetadataError``) are held.  Sites are 64x64 to 96x96 except the
 committed fixtures (256x256).  Tolerance: exact.
 """
 
@@ -863,16 +864,26 @@ def png_variants(tmp_path) -> dict:
 
 @pytest.mark.parametrize("variant", ["palette", "1-bit"])
 def test_refused_pngs_raise_metadata_error(tmp_path, variant):
+    """A Pillow palette PNG and a 1-bit PNG, which the port refused with a
+    ``MetadataError`` naming the file until it read what libpng reads,
+    now decode as the reference's ``ImageReader`` and imextract read them;
+    a truncated one still raises naming the file."""
     from tmlibrary_tpu.readers import ImageReader as JImageReader
+    from tmlibrary_tpu.workflow.steps.imextract import ImageExtractor as JImageExtractor
     from tmlibrary_tpu_torch.readers import ImageReader
     from tmlibrary_tpu_torch.workflow.steps.imextract import ImageExtractor
 
     path = png_variants(tmp_path)[variant]
-    assert JImageReader(path).read().shape == (20, 30)  # cv2 reads it
-    feature = {"palette": "palette", "1-bit": "1-bit"}[variant]
-    with pytest.raises(MetadataError, match=feature) as err:
-        ImageReader(path).read()
-    assert str(path) in str(err.value)
-    with pytest.raises(MetadataError, match=feature) as err:
-        ImageExtractor._read_plane(str(path), None, 20, 30)
-    assert str(path) in str(err.value)
+    want = JImageReader(path).read()
+    assert want.shape == (20, 30)  # cv2 reads it
+    np.testing.assert_array_equal(ImageReader(path).read(), want)
+    np.testing.assert_array_equal(ImageExtractor._read_plane(str(path), None, 20, 30),
+                                  JImageExtractor._read_plane(str(path), None, 20, 30))
+    cut = tmp_path / f"cut_{path.name}"
+    cut.write_bytes(path.read_bytes()[:-30])
+    with pytest.raises(MetadataError) as err:
+        ImageReader(cut).read()
+    assert str(cut) in str(err.value)
+    with pytest.raises(MetadataError) as err:
+        ImageExtractor._read_plane(str(cut), None, 20, 30)
+    assert str(cut) in str(err.value)

@@ -5,8 +5,8 @@ here (grey with alpha, which cv2 cannot write, and each of the five
 filter types on every row, several ``IDAT`` chunks) decode equal to
 ``cv2.imread(..., IMREAD_UNCHANGED)``; colour converts to grey equal to
 ``cv2.cvtColor(..., COLOR_BGR2GRAY)`` bit for bit; the port's encodes
-decode equal under cv2; interlaced, palette, low-bit-depth, ``tRNS`` and
-corrupt files raise by name.
+decode equal under cv2; interlaced, palette, low-bit-depth and ``tRNS``
+files decode as cv2 reads them, corrupt ones raise by name.
 """
 
 import struct
@@ -169,16 +169,31 @@ def test_bgr2gray_matches_cv2_on_every_extreme(dtype):
 
 
 def test_what_the_codec_does_not_take_raises_by_name(tmp_path):
+    """Adam7, palette, 4-bit grey and ``tRNS``, refused here until the
+    port read what libpng reads, now decode as cv2 reads them (every
+    variant: ``tests/test_torch_cv2_images.py``); what libpng refuses --
+    an unknown critical chunk, a bit depth the colour type does not take,
+    a palette image without ``PLTE``, a bad CRC or signature, a truncated
+    file -- still raises by name."""
+    from test_torch_cv2_images import write_png
+
     px = np.arange(16, dtype=np.uint8).reshape(4, 4)
     cases = {
-        "interlaced": make_png(px, 0, interlace=1),
-        "palette": make_png(px, 3, extra=_chunk(b"PLTE", bytes(range(48)))),
-        "4-bit": make_png(px, 0, depth=4),
-        "tRNS": make_png(px, 0, extra=_chunk(b"tRNS", b"\0\x07")),
+        "interlaced": write_png(px, 0, 8, interlace=1),
+        "palette": write_png(px, 3, 8, extra=_chunk(b"PLTE", bytes(range(48)))),
+        "4-bit": write_png(px % 16, 0, 4),
+        "tRNS": write_png(px, 0, 8, extra=_chunk(b"tRNS", b"\0\x07")),
     }
     for name, data in cases.items():
-        with pytest.raises(NotSupportedError, match=name if name != "interlaced" else "Adam7"):
-            png.decode(data, name)
+        np.testing.assert_array_equal(png.decode(data, name), cv2_decode(data, tmp_path),
+                                      err_msg=name)
+    with pytest.raises(NotSupportedError, match="'XyZw'"):  # an unknown critical chunk
+        png.decode(make_png(px, 0, extra=_chunk(b"XyZw", b"x")))
+    for bad, what in ((make_png(px, 2, depth=4), "4-bit RGB"),
+                      (make_png(px, 3), "without PLTE")):
+        assert cv2_decode(bad, tmp_path) is None
+        with pytest.raises(MetadataError, match=what):
+            png.decode(bad)
     good = make_png(px, 0)
     broken = bytearray(good)
     broken[-20] ^= 0xFF  # inside the IDAT payload: its CRC fails
@@ -187,16 +202,13 @@ def test_what_the_codec_does_not_take_raises_by_name(tmp_path):
         with pytest.raises(MetadataError, match=what):
             png.decode(bad)
     (tmp_path / "i.png").write_bytes(cases["interlaced"])
-    with pytest.raises(NotSupportedError, match="Adam7"):
-        png.info(tmp_path / "i.png")
-    # 8-bit BGR encodes (the figures) and decodes back to BGR; other
-    # colour layouts do not
-    bgr = np.arange(12, dtype=np.uint8).reshape(2, 2, 3)
-    np.testing.assert_array_equal(png.decode(png.encode(bgr)), bgr)
+    assert png.info(tmp_path / "i.png") == (4, 4, 8, 0)
+    # the encoder takes grey, BGR and BGRA at 8 and 16 bits, nothing else
+    for img in (np.arange(12, dtype=np.uint8).reshape(2, 2, 3),
+                np.arange(16, dtype=np.uint16).reshape(2, 2, 4) * 4000):
+        np.testing.assert_array_equal(png.decode(png.encode(img)), img)
     with pytest.raises(NotSupportedError):
-        png.encode(np.zeros((2, 2, 3), np.uint16))
-    with pytest.raises(NotSupportedError):
-        png.encode(np.zeros((2, 2, 4), np.uint8))
+        png.encode(np.zeros((2, 2, 2), np.uint8))
     with pytest.raises(NotSupportedError):
         png.encode(np.zeros((2, 2), np.float32))
     assert not png.is_png(tmp_path / "missing.png")

@@ -956,6 +956,29 @@ def write_jpeg_sites(directory, planes: "dict[tuple[str, int, str], np.ndarray]"
             native.jpeg_encode(plane))
 
 
+def _pack_bits(block, bits: int) -> bytes:
+    """A ``(rows, cols, samples)`` chunk of integers packed at ``bits``
+    a sample, most significant bit first, each row from a byte."""
+    rows = block.shape[0]
+    v = np.asarray(block, np.uint64).reshape(rows, -1)
+    shifts = np.arange(bits - 1, -1, -1, dtype=np.uint64)
+    bitplane = ((v[:, :, None] >> shifts) & np.uint64(1)).astype(np.uint8).reshape(rows, -1)
+    return np.packbits(bitplane, axis=1).tobytes()
+
+
+def _ycbcr_units(block, hs: int, vs: int) -> bytes:
+    """A ``(rows, cols, 3)`` chunk of Y, Cb, Cr as TIFF's data units:
+    ``hs * vs`` luma samples, then the Cb and Cr of the unit's top-left
+    pixel, units in raster order (edge units padded by repetition)."""
+    rows, cols = block.shape[:2]
+    uy, ux = -(-rows // vs), -(-cols // hs)
+    pad = np.pad(np.asarray(block, np.uint8), ((0, uy * vs - rows), (0, ux * hs - cols), (0, 0)),
+                 mode="edge")
+    y = pad[:, :, 0].reshape(uy, vs, ux, hs).transpose(0, 2, 1, 3).reshape(uy, ux, vs * hs)
+    chroma = pad[::vs, ::hs, 1:]
+    return np.concatenate([y, chroma], axis=2).tobytes()
+
+
 def _tiff_predict(block, predictor: int, spp: int, bo: str):
     """Horizontal (2) or floating-point (3) differencing of a chunk's rows:
     ``block`` is ``(rows, cols, spp)``; returns the chunk's bytes."""
@@ -979,7 +1002,7 @@ def _tiff_predict(block, predictor: int, spp: int, bo: str):
 def write_tiff(path, pages, *, photometric=None, planar=1, tile=None, rows_per_strip=None,
                compression=1, predictor=1, byteorder="<", bigtiff=False, extra_samples=None,
                colormap=None, orientation=None, ycbcr_subsampling=None, jpeg_tables=None,
-               chunks=None, extra_tags=None) -> None:
+               chunks=None, extra_tags=None, bits=None) -> None:
     """Write ``pages`` (arrays ``(H, W)`` or ``(H, W, S)``; the dtype gives
     BitsPerSample and SampleFormat) as a TIFF with struct and zlib alone:
     classic or BigTIFF, either byte order, strips or tiles (``tile`` =
@@ -987,7 +1010,13 @@ def write_tiff(path, pages, *, photometric=None, planar=1, tile=None, rows_per_s
     LZW (5), deflate (8) or PackBits (32773) with predictor 1, 2 or 3.
     ``chunks`` (one list of encoded strips or tiles a page) replaces the
     encoder, as for JPEG (7) with ``jpeg_tables``; ``extra_tags`` adds
-    ``{tag: (type, values)}`` to every IFD."""
+    ``{tag: (type, values)}`` to every IFD (RATIONAL, type 5, as a flat
+    list of numerators and denominators).  ``bits`` (1-16, or 24) packs
+    the integer samples at that width, most significant bit first, each
+    chunk row from a byte.  A YCbCr (6) page that is not JPEG takes
+    ``(H, W, 3)`` uint8 Y, Cb, Cr and is written chunky as data units of
+    ``ycbcr_subsampling`` (default 2x2; each unit's chroma that of its
+    top-left pixel)."""
     bo = byteorder
     pages = [np.asarray(p) for p in pages]
     body = bytearray()
@@ -1013,6 +1042,8 @@ def write_tiff(path, pages, *, photometric=None, planar=1, tile=None, rows_per_s
         if chunks is not None:
             datas = list(chunks[pi])
         else:
+            units = phot == 6 and compression != 7 and planar == 1
+            hs, vs = ycbcr_subsampling or (2, 2)
             for pl in planes:
                 for y, x in grid:
                     blk = pl[y:y + th, x:x + tw]
@@ -1020,7 +1051,13 @@ def write_tiff(path, pages, *, photometric=None, planar=1, tile=None, rows_per_s
                         pad = np.zeros((th, tw, pl.shape[2]), pl.dtype)
                         pad[:blk.shape[0], :blk.shape[1]] = blk
                         blk = pad
-                    raw = _tiff_predict(np.ascontiguousarray(blk), predictor, blk.shape[2], bo)
+                    if units:
+                        raw = _ycbcr_units(blk, hs, vs)
+                    elif bits:
+                        raw = _pack_bits(blk, bits)
+                    else:
+                        raw = _tiff_predict(np.ascontiguousarray(blk), predictor, blk.shape[2],
+                                            bo)
                     if compression == 5:
                         raw = lzw_encode(raw)
                     elif compression in (8, 32946):
@@ -1036,8 +1073,8 @@ def write_tiff(path, pages, *, photometric=None, planar=1, tile=None, rows_per_s
             body += d
             if len(body) % 2:
                 body += b"\0"
-        bits = img.dtype.itemsize * 8
-        tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+        nbits = bits or img.dtype.itemsize * 8
+        tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [nbits] * spp), 259: (3, [compression]),
                 262: (3, [phot]), 277: (3, [spp]), 284: (3, [planar]),
                 339: (3, [kind] * spp)}
         if predictor != 1:
@@ -1059,12 +1096,14 @@ def write_tiff(path, pages, *, photometric=None, planar=1, tile=None, rows_per_s
             tags[274] = (3, [orientation])
         if ycbcr_subsampling is not None:
             tags[530] = (3, list(ycbcr_subsampling))
+        elif phot == 6 and compression != 7 and planar == 1:
+            tags[530] = (3, [2, 2])
         if jpeg_tables is not None:
             tags[347] = (7, list(jpeg_tables))
         tags.update(extra_tags or {})
         ifd_specs.append(tags)
     # the IFDs after the image data
-    fmt = {1: "B", 3: "H", 4: "I", 7: "B", 16: "Q"}
+    fmt = {1: "B", 3: "H", 4: "I", 5: "I", 7: "B", 16: "Q"}
     inline = 8 if bigtiff else 4
     out = bytearray()
     ifd_offsets = []
@@ -1085,7 +1124,8 @@ def write_tiff(path, pages, *, photometric=None, planar=1, tile=None, rows_per_s
                 extra += data
                 if len(extra) % 2:
                     extra += b"\0"
-            entries += struct.pack(bo + ("HHQ" if bigtiff else "HHI"), tag, typ, len(vals)) + field
+            count = len(vals) // 2 if typ == 5 else len(vals)
+            entries += struct.pack(bo + ("HHQ" if bigtiff else "HHI"), tag, typ, count) + field
         ifd = struct.pack(bo + ("Q" if bigtiff else "H"), n) + entries
         out += ifd
         out += b"\0" * (8 if bigtiff else 4)  # next-IFD offset, patched below

@@ -32,9 +32,13 @@
 // it does through an in-memory libjpeg source.  All state is per call:
 // imextract's decode threads call it at once.
 //
-// Encoder: grey baseline JPEG with the integer forward DCT (jfdctint.c)
-// and the Annex K luminance tables scaled by libjpeg's quality formula;
-// integer arithmetic only, so its bytes are the same on every machine.
+// Encoder: baseline JPEG of a grey or BGR image byte for byte as
+// libjpeg-turbo 3.1 writes it for cv2.imencode(".jpg") at its defaults:
+// the integer forward DCT (jfdctint.c), the Annex K tables scaled by
+// libjpeg's quality formula, colour as YCbCr 4:2:0 (jccolor.c's tables,
+// jcsample.c's h2v2 downsampling, jcprepct.c's edge padding, jccoefct.c's
+// dummy blocks); integer arithmetic only, so its bytes are the same on
+// every machine.
 //
 // Built into the port's host library (tmlibrary_tpu_torch/native.py),
 // bound with ctypes.  C ABI only; errors come back as a negative return
@@ -1199,68 +1203,193 @@ static int nbits(int v) {
   return n;
 }
 
-static std::vector<uint8_t> encode(const uint8_t* img, int h, int w, int quality) {
-  if (h <= 0 || w <= 0 || h > 65500 || w > 65500) fail("JPEG encode: bad image size");
+// Annex K.2 chrominance quantisation table, natural order
+static const int STD_QC[64] = {17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+                               24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+                               99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+                               99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+// libjpeg's jpeg_quality_scaling and jpeg_add_quant_table (baseline)
+static void scale_table(const int* base, int quality, uint16_t* q) {
   quality = std::max(1, std::min(100, quality));
   int scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
-  uint16_t q[64];
   for (int i = 0; i < 64; ++i) {
-    long v = ((long)STD_Q[i] * scale + 50) / 100;
+    long v = ((long)base[i] * scale + 50) / 100;
     q[i] = (uint16_t)std::max(1L, std::min(255L, v));
   }
-  std::vector<uint8_t> o = {0xFF, 0xD8, 0xFF, 0xE0, 0, 16, 'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0};
-  o.insert(o.end(), {0xFF, 0xDB, 0, 67, 0});
-  for (int k = 0; k < 64; ++k) o.push_back((uint8_t)q[NATURAL[k]]);
-  o.insert(o.end(), {0xFF, 0xC0, 0, 11, 8, (uint8_t)(h >> 8), (uint8_t)h, (uint8_t)(w >> 8), (uint8_t)w, 1,
-                     1, 0x11, 0});
-  o.insert(o.end(), {0xFF, 0xC4, 0, 31, 0x00});
-  o.insert(o.end(), STD_DC, STD_DC + 28);
-  o.insert(o.end(), {0xFF, 0xC4, 0, 181, 0x10});
-  o.insert(o.end(), STD_AC, STD_AC + 178);
-  o.insert(o.end(), {0xFF, 0xDA, 0, 8, 1, 1, 0x00, 0, 63, 0});
-  ETable dc, ac;
-  build_etable(STD_DC, STD_DC + 16, dc);
-  build_etable(STD_AC, STD_AC + 16, ac);
-  BitOut bo(o);
-  int bw = (w + 7) / 8, bh = (h + 7) / 8, last = 0;
-  for (int by = 0; by < bh; ++by) {
-    for (int bx = 0; bx < bw; ++bx) {
-      int32_t d[64];
-      for (int r = 0; r < 8; ++r)
-        for (int c = 0; c < 8; ++c) {
-          int y = std::min(by * 8 + r, h - 1), x = std::min(bx * 8 + c, w - 1);  // edge replicate
-          d[8 * r + c] = (int32_t)img[(size_t)y * w + x] - 128;
-        }
-      fdct_islow(d);
-      int zz[64];
-      for (int k = 0; k < 64; ++k) {
-        int i = NATURAL[k];
-        int64_t qv = (int64_t)q[i] * 8, t = d[i];
-        zz[k] = (int)(t < 0 ? -((-t + qv / 2) / qv) : (t + qv / 2) / qv);
-      }
-      int diff = zz[0] - last;
-      last = zz[0];
-      int s = nbits(diff);
-      bo.put(dc.code[s], dc.size[s]);
-      if (s) bo.put((uint32_t)(diff < 0 ? diff - 1 : diff), s);
-      int run = 0;
-      for (int k = 1; k < 64; ++k) {
-        if (zz[k] == 0) {
-          run++;
-          continue;
-        }
-        while (run > 15) {
-          bo.put(ac.code[0xF0], ac.size[0xF0]);
-          run -= 16;
-        }
-        int v = zz[k], sz = nbits(v);
-        int sym = (run << 4) | sz;
-        bo.put(ac.code[sym], ac.size[sym]);
-        bo.put((uint32_t)(v < 0 ? v - 1 : v), sz);
-        run = 0;
-      }
-      if (run) bo.put(ac.code[0], ac.size[0]);
+}
+
+// the forward DCT of one 8x8 block of level-shifted samples, quantised
+// (libjpeg's rounding division by 8q), in zigzag order
+static void quantize_block(int32_t* d, const uint16_t* q, int* zz) {
+  fdct_islow(d);
+  for (int k = 0; k < 64; ++k) {
+    int i = NATURAL[k];
+    int64_t qv = (int64_t)q[i] * 8, t = d[i];
+    zz[k] = (int)(t < 0 ? -((-t + qv / 2) / qv) : (t + qv / 2) / qv);
+  }
+}
+
+// one block's Huffman codes: the DC difference, then the AC run lengths
+static void emit_block(const int* zz, int& last, const ETable& dc, const ETable& ac, BitOut& bo) {
+  int diff = zz[0] - last;
+  last = zz[0];
+  int s = nbits(diff);
+  bo.put(dc.code[s], dc.size[s]);
+  if (s) bo.put((uint32_t)(diff < 0 ? diff - 1 : diff), s);
+  int run = 0;
+  for (int k = 1; k < 64; ++k) {
+    if (zz[k] == 0) {
+      run++;
+      continue;
     }
+    while (run > 15) {
+      bo.put(ac.code[0xF0], ac.size[0xF0]);
+      run -= 16;
+    }
+    int v = zz[k], sz = nbits(v);
+    int sym = (run << 4) | sz;
+    bo.put(ac.code[sym], ac.size[sym]);
+    bo.put((uint32_t)(v < 0 ? v - 1 : v), sz);
+    run = 0;
+  }
+  if (run) bo.put(ac.code[0], ac.size[0]);
+}
+
+static void put_dqt(std::vector<uint8_t>& o, int index, const uint16_t* q) {
+  o.insert(o.end(), {0xFF, 0xDB, 0, 67, (uint8_t)index});
+  for (int k = 0; k < 64; ++k) o.push_back((uint8_t)q[NATURAL[k]]);
+}
+
+static void put_dht(std::vector<uint8_t>& o, int klass_index, const uint8_t* table) {
+  int count = 0;
+  for (int i = 0; i < 16; ++i) count += table[i];
+  o.insert(o.end(), {0xFF, 0xC4, (uint8_t)((19 + count) >> 8), (uint8_t)(19 + count),
+                     (uint8_t)klass_index});
+  o.insert(o.end(), table, table + 16 + count);
+}
+
+// A baseline JPEG of an (h, w) grey or (h, w, 3) BGR image as
+// libjpeg-turbo 3.1 writes it at cv2.imencode's defaults: JFIF 1.01, the
+// Annex K tables scaled by quality, the integer forward DCT; colour as
+// YCbCr 4:2:0 (jccolor.c's integer tables, jcsample.c's h2v2 averaging
+// with its alternating 1, 2 bias, edges replicated to whole blocks and
+// iMCU rows as jcprepct.c does, dummy blocks past the image as jccoefct.c
+// makes them: the DC of the block before, no AC).
+static std::vector<uint8_t> encode(const uint8_t* img, int h, int w, int nc, int quality) {
+  if (h <= 0 || w <= 0 || h > 65500 || w > 65500) fail("JPEG encode: bad image size");
+  if (nc != 1 && nc != 3) fail("JPEG encode: 1 or 3 channels");
+  uint16_t q[2][64];
+  scale_table(STD_Q, quality, q[0]);
+  scale_table(STD_QC, quality, q[1]);
+  std::vector<uint8_t> o = {0xFF, 0xD8, 0xFF, 0xE0, 0, 16, 'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0};
+  put_dqt(o, 0, q[0]);
+  if (nc == 3) put_dqt(o, 1, q[1]);
+  if (nc == 1) {
+    o.insert(o.end(), {0xFF, 0xC0, 0, 11, 8, (uint8_t)(h >> 8), (uint8_t)h, (uint8_t)(w >> 8), (uint8_t)w,
+                       1, 1, 0x11, 0});
+  } else {
+    o.insert(o.end(), {0xFF, 0xC0, 0, 17, 8, (uint8_t)(h >> 8), (uint8_t)h, (uint8_t)(w >> 8), (uint8_t)w,
+                       3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1});
+  }
+  put_dht(o, 0x00, STD_DC);
+  put_dht(o, 0x10, STD_AC);
+  if (nc == 3) {
+    put_dht(o, 0x01, STD_DC_C);
+    put_dht(o, 0x11, STD_AC_C);
+    o.insert(o.end(), {0xFF, 0xDA, 0, 12, 3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0});
+  } else {
+    o.insert(o.end(), {0xFF, 0xDA, 0, 8, 1, 1, 0x00, 0, 63, 0});
+  }
+  ETable dc[2], ac[2];
+  build_etable(STD_DC, STD_DC + 16, dc[0]);
+  build_etable(STD_AC, STD_AC + 16, ac[0]);
+  build_etable(STD_DC_C, STD_DC_C + 16, dc[1]);
+  build_etable(STD_AC_C, STD_AC_C + 16, ac[1]);
+  BitOut bo(o);
+  int zz[64];
+  int32_t d[64];
+  if (nc == 1) {  // one component: blocks in raster order, edges replicated
+    int bw = (w + 7) / 8, bh = (h + 7) / 8, last = 0;
+    for (int by = 0; by < bh; ++by)
+      for (int bx = 0; bx < bw; ++bx) {
+        for (int r = 0; r < 8; ++r)
+          for (int c = 0; c < 8; ++c) {
+            int y = std::min(by * 8 + r, h - 1), x = std::min(bx * 8 + c, w - 1);
+            d[8 * r + c] = (int32_t)img[(size_t)y * w + x] - 128;
+          }
+        quantize_block(d, q[0], zz);
+        emit_block(zz, last, dc[0], ac[0], bo);
+      }
+  } else {
+    // colour conversion (jccolor.c rgb_ycc_convert, BGR in)
+    const int32_t FY_R = 19595, FY_G = 38470, FY_B = 7471, FCB_R = 11059, FCB_G = 21709,
+                  FHALF = 32768, FCR_G = 27439, FCR_B = 5329;
+    const int32_t ONE_HALF = 1 << 15, CBCR = 128 << 16;
+    // Y: width_in_blocks * 8 columns, whole iMCU rows; chroma: input
+    // padded to an even row count and 16-column groups, then h2v2
+    int mcux = (w + 15) / 16, mcuy = (h + 15) / 16;
+    int yw = ((w + 7) / 8) * 8, yh = mcuy * 16, cw = mcux * 8, ch = mcuy * 8;
+    int hw = mcux * 16, hh = (h + 1) / 2 * 2;  // the downsampler's input extent
+    std::vector<uint8_t> Y((size_t)yw * yh), Cb((size_t)cw * ch), Cr((size_t)cw * ch);
+    std::vector<uint8_t> cbf((size_t)hw * hh), crf((size_t)hw * hh);
+    for (int y = 0; y < hh; ++y) {
+      const uint8_t* row = img + (size_t)std::min(y, h - 1) * w * 3;
+      for (int x = 0; x < hw; ++x) {
+        const uint8_t* p = row + (size_t)std::min(x, w - 1) * 3;
+        int32_t b = p[0], g = p[1], r = p[2];
+        uint8_t yy = (uint8_t)((FY_R * r + FY_G * g + FY_B * b + ONE_HALF) >> 16);
+        uint8_t cb = (uint8_t)((-FCB_R * r - FCB_G * g + FHALF * b + CBCR + ONE_HALF - 1) >> 16);
+        uint8_t cr = (uint8_t)((FHALF * r - FCR_G * g - FCR_B * b + CBCR + ONE_HALF - 1) >> 16);
+        if (x < yw) Y[(size_t)y * yw + x] = yy;
+        cbf[(size_t)y * hw + x] = cb;
+        crf[(size_t)y * hw + x] = cr;
+      }
+    }
+    for (int y = hh; y < yh; ++y)  // iMCU padding: the last row again
+      std::memcpy(&Y[(size_t)y * yw], &Y[(size_t)(hh - 1) * yw], (size_t)yw);
+    for (int y = 0; y < ch; ++y) {
+      int sy = std::min(y, hh / 2 - 1);
+      const uint8_t* b0 = &cbf[(size_t)(2 * sy) * hw];
+      const uint8_t* b1 = b0 + hw;
+      const uint8_t* r0 = &crf[(size_t)(2 * sy) * hw];
+      const uint8_t* r1 = r0 + hw;
+      int bias = 1;
+      for (int x = 0; x < cw; ++x, bias ^= 3) {
+        Cb[(size_t)y * cw + x] = (uint8_t)((b0[2 * x] + b0[2 * x + 1] + b1[2 * x] + b1[2 * x + 1] + bias) >> 2);
+        Cr[(size_t)y * cw + x] = (uint8_t)((r0[2 * x] + r0[2 * x + 1] + r1[2 * x] + r1[2 * x + 1] + bias) >> 2);
+      }
+    }
+    auto load = [&](const std::vector<uint8_t>& plane, int stride, int by, int bx) {
+      for (int r = 0; r < 8; ++r)
+        for (int c = 0; c < 8; ++c) d[8 * r + c] = (int32_t)plane[(size_t)(by * 8 + r) * stride + bx * 8 + c] - 128;
+    };
+    int ybw = (w + 7) / 8, ybh = (h + 7) / 8, last[3] = {0, 0, 0};
+    int yzz[4][64];
+    for (int my = 0; my < mcuy; ++my)
+      for (int mx = 0; mx < mcux; ++mx) {
+        for (int yi = 0; yi < 2; ++yi)
+          for (int xi = 0; xi < 2; ++xi) {
+            int k = 2 * yi + xi, by = 2 * my + yi, bx = 2 * mx + xi;
+            if (by >= ybh) {  // a dummy row: the DC of the row above's last block
+              std::memset(yzz[k], 0, sizeof yzz[k]);
+              yzz[k][0] = yzz[1][0];
+            } else if (bx >= ybw) {  // a dummy column: the DC of the block before
+              std::memset(yzz[k], 0, sizeof yzz[k]);
+              yzz[k][0] = yzz[k - 1][0];
+            } else {
+              load(Y, yw, by, bx);
+              quantize_block(d, q[0], yzz[k]);
+            }
+          }
+        for (int k = 0; k < 4; ++k) emit_block(yzz[k], last[0], dc[0], ac[0], bo);
+        load(Cb, cw, my, mx);
+        quantize_block(d, q[1], zz);
+        emit_block(zz, last[1], dc[1], ac[1], bo);
+        load(Cr, cw, my, mx);
+        quantize_block(d, q[1], zz);
+        emit_block(zz, last[2], dc[1], ac[1], bo);
+      }
   }
   bo.flush();
   o.push_back(0xFF);
@@ -1317,13 +1446,13 @@ int32_t tm_jpeg_header(const uint8_t* src, int64_t n, int32_t* info) {
   }
 }
 
-// encode an (h, w) grey image; returns the stream's length (written when
-// it fits in cap), -1 on error
-int64_t tm_jpeg_encode(const uint8_t* img, int32_t h, int32_t w, int32_t quality, uint8_t* dst,
-                       int64_t cap) {
+// encode an (h, w, nc) image, nc 1 (grey) or 3 (BGR); returns the
+// stream's length (written when it fits in cap), -1 on error
+int64_t tm_jpeg_encode(const uint8_t* img, int32_t h, int32_t w, int32_t nc, int32_t quality,
+                       uint8_t* dst, int64_t cap) {
   using namespace tmjpeg;
   try {
-    std::vector<uint8_t> o = encode(img, h, w, quality);
+    std::vector<uint8_t> o = encode(img, h, w, nc, quality);
     if ((int64_t)o.size() <= cap) std::memcpy(dst, o.data(), o.size());
     return (int64_t)o.size();
   } catch (const std::exception& e) {

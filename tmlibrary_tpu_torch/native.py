@@ -23,7 +23,8 @@ features when a batch persists.
 The port keeps its own copy of the C++ (``csrc/host/hull.cpp``,
 ``csrc/host/tiff.cpp``, ``csrc/host/mosaic.cpp``,
 ``csrc/host/simplify.cpp``, ``csrc/host/zstd.cpp``,
-``csrc/host/jpeg.cpp`` and ``csrc/host/hdf5.cpp``).  At first use they are compiled with the host
+``csrc/host/jpeg.cpp``, ``csrc/host/hdf5.cpp`` and
+``csrc/host/raster.cpp``).  At first use they are compiled with the host
 compiler (``c++``/``g++`` on the ``PATH``, else ``nvcc``) into one
 library in ``build/host/`` at the root of the checkout, named by a
 digest of the sources and flags (imported from the kernel-library
@@ -64,6 +65,7 @@ SIMPLIFY_SRC = HOST_SRC.with_name("simplify.cpp")
 ZSTD_SRC = HOST_SRC.with_name("zstd.cpp")
 JPEG_SRC = HOST_SRC.with_name("jpeg.cpp")
 HDF5_SRC = HOST_SRC.with_name("hdf5.cpp")
+RASTER_SRC = HOST_SRC.with_name("raster.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "host"
 FLAGS = ("-O3", "-std=c++17", "-shared")
 
@@ -86,7 +88,8 @@ def _compiler() -> list[str]:
 
 
 def _sources() -> tuple[Path, ...]:
-    return (HOST_SRC, TIFF_SRC, MOSAIC_SRC, SIMPLIFY_SRC, ZSTD_SRC, JPEG_SRC, HDF5_SRC)
+    return (HOST_SRC, TIFF_SRC, MOSAIC_SRC, SIMPLIFY_SRC, ZSTD_SRC, JPEG_SRC, HDF5_SRC,
+            RASTER_SRC)
 
 
 def source_digest() -> str:
@@ -98,8 +101,9 @@ def source_digest() -> str:
 
 def build() -> Path:
     """Compile ``hull.cpp``, ``tiff.cpp``, ``mosaic.cpp``, ``simplify.cpp``,
-    ``zstd.cpp``, ``jpeg.cpp`` and ``hdf5.cpp`` into one library (if its digest-named
-    file is missing) and return the library path."""
+    ``zstd.cpp``, ``jpeg.cpp``, ``hdf5.cpp`` and ``raster.cpp`` into one
+    library (if its digest-named file is missing) and return the library
+    path."""
     digest = source_digest()
     path = BUILD_DIR / f"libtmhost_{digest}.so"
     from tmlibrary_tpu_torch import aotstore
@@ -146,7 +150,9 @@ def lib() -> ctypes.CDLL:
                                 ("tm_mosaic_morph", [ptr, i32, i32, i32, *[ptr] * 7]),
                                 ("tm_simplify_polygon", [ptr, i32, ctypes.c_double, ptr]),
                                 ("tm_jpeg_decode", [ptr, i64, ptr, ptr, i32]),
-                                ("tm_jpeg_header", [ptr, i64, ptr])):
+                                ("tm_jpeg_header", [ptr, i64, ptr]),
+                                ("tm_png_unfilter", [ptr, i64, i64, i32, ptr]),
+                                ("tm_bmp_rle", [ptr, i64, i32, i32, i32, ptr])):
                 fn = getattr(loaded, fname)
                 fn.restype = ctypes.c_int32
                 fn.argtypes = args
@@ -155,7 +161,7 @@ def lib() -> ctypes.CDLL:
                                 ("tm_zstd_compress", [ptr, i64, ptr, i64]),
                                 ("tm_lzf_decompress", [ptr, i64, ptr, i64]),
                                 ("tm_lzf_compress", [ptr, i64, ptr, i64]),
-                                ("tm_jpeg_encode", [ptr, i32, i32, i32, ptr, i64])):
+                                ("tm_jpeg_encode", [ptr, i32, i32, i32, i32, ptr, i64])):
                 fn = getattr(loaded, fname)
                 fn.restype = i64
                 fn.argtypes = args
@@ -165,6 +171,12 @@ def lib() -> ctypes.CDLL:
             fn = loaded.tm_bgr2gray_f32
             fn.restype = None
             fn.argtypes = [ptr, i64, i64, i32, ptr]
+            for fname, args in (("tm_unpack_bits", [ptr, i64, i64, i64, i32, ptr]),
+                                ("tm_tiff_ycbcr", [ptr, ptr, ptr, i64, ptr, ptr, ptr]),
+                                ("tm_tiff_cielab", [ptr, i64, i32, ptr, ptr])):
+                fn = getattr(loaded, fname)
+                fn.restype = None
+                fn.argtypes = args
             fn = loaded.tm_bgr2gray_int
             fn.restype = None
             fn.argtypes = [ptr, i64, i64, i32, i32, ptr]
@@ -734,16 +746,90 @@ def jpeg_decode_array(src: bytes, mode: int = JPEG_GUESS) -> np.ndarray:
 
 
 def jpeg_encode(image: np.ndarray, quality: int = 95) -> bytes:
-    """A grey ``(H, W)`` uint8 image as a baseline JPEG (integer forward
-    DCT, the Annex K luminance tables at libjpeg's ``quality`` scaling;
-    95 is ``cv2.imencode``'s default)."""
+    """A grey ``(H, W)`` or BGR ``(H, W, 3)`` uint8 image as a baseline
+    JPEG, byte for byte as ``cv2.imencode(".jpg", image,
+    [IMWRITE_JPEG_QUALITY, quality])`` writes it (libjpeg-turbo's integer
+    forward DCT, the Annex K tables at libjpeg's ``quality`` scaling,
+    colour as YCbCr 4:2:0; 95 is cv2's default)."""
     img = np.ascontiguousarray(image, np.uint8)
-    if img.ndim != 2:
-        raise ValueError(f"jpeg_encode: expected an (H, W) image, got {img.shape}")
-    h, w = img.shape
-    n = lib().tm_jpeg_encode(img.ctypes.data, h, w, int(quality), None, 0)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    if not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"jpeg_encode: expected an (H, W) or (H, W, 3) image, got {img.shape}")
+    h, w = img.shape[:2]
+    nc = 1 if img.ndim == 2 else 3
+    n = lib().tm_jpeg_encode(img.ctypes.data, h, w, nc, int(quality), None, 0)
     if n < 0:
         raise ValueError(f"jpeg_encode failed: {lib().tm_jpeg_error().decode()}")
     out = np.empty(n, np.uint8)
-    lib().tm_jpeg_encode(img.ctypes.data, h, w, int(quality), out.ctypes.data, n)
+    lib().tm_jpeg_encode(img.ctypes.data, h, w, nc, int(quality), out.ctypes.data, n)
     return out.tobytes()
+
+
+# ------------------------------------------------------------ raster loops
+def png_unfilter(raw, h: int, stride: int, bpp: int) -> np.ndarray:
+    """``(h, stride)`` bytes of ``h`` PNG rows of ``1 + stride`` bytes
+    (the filter type first) with their filters undone; ``bpp`` is the
+    filter's byte distance.  Raises ``ValueError`` naming the first row
+    of an unknown filter type."""
+    src = np.frombuffer(raw, np.uint8, h * (stride + 1))
+    out = np.empty((h, stride), np.uint8)
+    rc = lib().tm_png_unfilter(src.ctypes.data, h, stride, max(1, int(bpp)), out.ctypes.data)
+    if rc < 0:
+        y = -rc - 1
+        raise ValueError(f"row {y} has unknown filter type {src[y * (stride + 1)]}")
+    return out
+
+
+def unpack_bits(packed: np.ndarray, rows: int, row_bytes: int, n: int, bits: int) -> np.ndarray:
+    """``(rows, n)`` uint16 samples of ``bits`` bits (1-16), packed most
+    significant bit first in rows of ``row_bytes`` bytes."""
+    src = np.ascontiguousarray(packed, np.uint8).reshape(-1)
+    if src.size < rows * row_bytes:
+        raise ValueError(f"unpack_bits: {src.size} bytes for {rows} rows of {row_bytes}")
+    out = np.empty((rows, n), np.uint16)
+    lib().tm_unpack_bits(src.ctypes.data, rows, row_bytes, n, int(bits), out.ctypes.data)
+    return out
+
+
+def bmp_rle(src: bytes, width: int, height: int, bits: int) -> np.ndarray:
+    """The ``(height, width)`` palette indices of a BMP RLE4 (``bits`` 4)
+    or RLE8 stream, rows in the file's order, as OpenCV walks the stream
+    (``csrc/host/raster.cpp``).  Raises ``ValueError`` when the stream
+    ends early or a run leaves its row."""
+    data = np.frombuffer(src, np.uint8)
+    out = np.empty((height, width), np.uint8)
+    if lib().tm_bmp_rle(data.ctypes.data, data.size, width, height, bits, out.ctypes.data) < 0:
+        raise ValueError("a run past its row or an RLE stream that ends early")
+    return out
+
+
+def tiff_ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, luma, refbw) -> np.ndarray:
+    """8-bit YCbCr samples (equal shapes) to ``shape + (3,)`` RGB bytes as
+    libtiff's ``TIFFYCbCrtoRGB`` converts them for ``TIFFReadRGBA*``, its
+    tables from ``luma`` (YCbCrCoefficients) and ``refbw``
+    (ReferenceBlackWhite)."""
+    planes = [np.ascontiguousarray(p, np.uint8) for p in (y, cb, cr)]
+    lu = np.asarray(luma, np.float32)
+    rb = np.asarray(refbw, np.float32)
+    out = np.empty(planes[0].shape + (3,), np.uint8)
+    lib().tm_tiff_ycbcr(*(p.ctypes.data for p in planes), planes[0].size, lu.ctypes.data,
+                        rb.ctypes.data, out.ctypes.data)
+    return out
+
+
+def tiff_cielab_to_rgb(lab: np.ndarray, white=None) -> np.ndarray:
+    """``(..., 3)`` CIELab samples (uint8 L with int8 a, b as stored, or
+    16-bit) to RGB bytes as libtiff's ``TIFFReadRGBA*`` converts them (sRGB
+    display, the white point ``white`` = (x, y), D50 by default)."""
+    lab = np.ascontiguousarray(lab)
+    bits = 8 if lab.dtype.itemsize == 1 else 16
+    lab = lab.view(np.uint8 if bits == 8 else np.uint16)
+    if white is None:  # libtiff's default: D50
+        d50 = np.float32([96.4250, 100.0, 82.4680])
+        total = d50[0] + d50[1] + d50[2]
+        white = np.float32([d50[0] / total, d50[1] / total])
+    wp = np.asarray(white, np.float32)
+    out = np.empty(lab.shape[:-1] + (3,), np.uint8)
+    lib().tm_tiff_cielab(lab.ctypes.data, lab.size // 3, bits, wp.ctypes.data, out.ctypes.data)
+    return out

@@ -15,9 +15,11 @@ read with no JVM and no codec library:
   decode the TIFF-flavoured containers share (``:1936-2113``,
   ``:2480-2525``);
 - the decode of every TIFF page the JAX package hands to ``cv2``
-  (:func:`decode_tiff_page`: tiles, colour, planes, float, JPEG-in-TIFF)
-  and the order of the decoders after the grey TIFF readers
-  (:func:`decode_image_file`);
+  (:func:`tiff_page_plan` and :func:`decode_tiff_page`: tiles, colour,
+  planes, float, 1- to 64-bit samples, orientations, YCbCr, CMYK,
+  CIELab, JPEG-in-TIFF) and the order of the decoders after the grey
+  TIFF readers (:func:`decode_image_file`: BMP, JPEG, PNG, Netpbm, TIFF,
+  as cv2 sniffs them; :func:`image_dimensions` for the probe);
 - the container parsers: Nikon ND2, Zeiss CZI and LSM, Leica LIF,
   DeltaVision DV/R3D, MetaMorph STK, Olympus OIF/OIB (the OLE2 file
   through :mod:`tmlibrary_tpu_torch.cfb`), PerkinElmer Opera FLEX, and
@@ -53,7 +55,7 @@ import numpy as np
 from tmlibrary_tpu_torch import native
 from tmlibrary_tpu_torch.cfb import CompoundFile
 from tmlibrary_tpu_torch.errors import MetadataError, NotSupportedError
-from tmlibrary_tpu_torch.io import hdf5, png
+from tmlibrary_tpu_torch.io import bmp, hdf5, png, pnm
 
 
 class Reader:
@@ -505,8 +507,10 @@ def _tiff_jpeg_chunk(chunk: bytes, tables: "bytes | None", ycc: bool, want: tupl
     gives it to ``TIFFReadRGBA*``: the ``JPEGTables`` stream read first,
     YCbCr converted by libjpeg (``JPEGCOLORMODE_RGB``) or the components
     as stored, the stream's size, component count and sampling checked
-    against the segment as ``JPEGPreDecode`` checks them.  ``(rows, cols,
-    components)`` uint8, colour in R, G, B order."""
+    against the segment as ``JPEGPreDecode`` checks them; a stream smaller
+    than its segment fills its corner, the rest zero (libtiff decodes the
+    stream's lines and no more).  ``(rows, cols, components)`` uint8,
+    colour in R, G, B order."""
     rows, cols, ncomp = want
     stream = chunk
     if tables:
@@ -523,28 +527,66 @@ def _tiff_jpeg_chunk(chunk: bytes, tables: "bytes | None", ycc: bool, want: tupl
     if not (w == cols and h > rows and last_strip) and (w > cols or h > rows):
         raise MetadataError(f"{filename}: JPEG strip/tile size exceeds expected dimensions, "
                             f"expected {cols}x{rows}, got {w}x{h}")
-    if w < cols or h < rows:
-        raise _tiff_refuse(filename, f"a JPEG strip or tile smaller than its segment "
-                                     f"({w}x{h} for {cols}x{rows})")
     hv = native.jpeg_sampling(stream)
     if hv[0] != sampling or any(f != (1, 1) for f in hv[1:]):
         raise MetadataError(f"{filename}: improper JPEG sampling factors {hv}, apparently "
                             f"should be {sampling}")
     img = img[:rows, :cols]
-    return img[:, :, ::-1] if ycc else img  # the decoder's BGR back to R, G, B
+    if ycc:
+        img = img[:, :, ::-1]  # the decoder's BGR back to R, G, B
+    if w < cols or h < rows:
+        out = np.zeros((rows, cols, ncomp), np.uint8)
+        out[:img.shape[0], :img.shape[1]] = img
+        return out
+    return img
+
+
+def _ycbcr_units(raw, rows: int, cols: int, hs: int, vs: int) -> np.ndarray:
+    """A chunk of 8-bit YCbCr data units (``hs * vs`` luma samples, then
+    Cb and Cr, units in raster order) as ``(rows, cols, 3)`` Y, Cb, Cr,
+    each pixel given its unit's chroma (libtiff's putcontig8bitYCbCr*
+    routines)."""
+    uy, ux = -(-rows // vs), -(-cols // hs)
+    units = np.frombuffer(raw, np.uint8, uy * ux * (hs * vs + 2)).reshape(uy, ux, hs * vs + 2)
+    y = units[:, :, :hs * vs].reshape(uy, ux, vs, hs).transpose(0, 2, 1, 3).reshape(uy * vs,
+                                                                                  ux * hs)
+    out = np.empty((rows, cols, 3), np.uint8)
+    out[:, :, 0] = y[:rows, :cols]
+    for c in (1, 2):
+        out[:, :, c] = np.repeat(np.repeat(units[:, :, hs * vs + c - 1], vs, 0), hs, 1)[:rows,
+                                                                                       :cols]
+    return out
+
+
+def _tiff_floats(bo: str, buf, ifd: dict, tag: int, default: list) -> list:
+    """A RATIONAL or FLOAT tag's values as libtiff reads them into floats
+    (``float(num) / float(den)``, 0 for a zero denominator)."""
+    entry = ifd.get(tag)
+    if entry is None:
+        return list(np.float32(default))
+    typ, cnt, voff = entry
+    if typ == 5:
+        pairs = np.frombuffer(bytes(buf[voff:voff + 8 * cnt]), np.dtype(bo + "u4")).reshape(-1, 2)
+        num, den = pairs[:, 0].astype(np.float32), pairs[:, 1].astype(np.float32)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            return list(np.where(den == 0, np.float32(0), num / np.where(den == 0, 1, den)))
+    if typ == 11:
+        return list(np.frombuffer(bytes(buf[voff:voff + 4 * cnt]), np.dtype(bo + "f4")))
+    return list(np.float32(default))
 
 
 def _skewed_grey_rows(block: np.ndarray, h: int, w: int, tw: int) -> np.ndarray:
-    """The grey samples libtiff's ``putagreytile`` reads from an edge
-    tile of grey-with-alpha pixels (``w`` of the tile's ``tw`` columns in
-    the image): it steps from one row to the next by ``tw - w`` bytes
-    past the row's ``w`` pixels, not by the tile's row, so row ``r``
-    starts ``r * (w * pixel_bytes + tw - w)`` bytes into the tile."""
+    """The grey samples libtiff's ``putgreytile``/``putagreytile`` read
+    from an edge tile of grey pixels of several samples (``w`` of the
+    tile's ``tw`` columns in the image): they step from one row to the
+    next by ``tw - w`` bytes past the row's ``w`` pixels, not by the
+    tile's row, so row ``r`` starts ``r * (w * pixel_bytes + tw - w)``
+    bytes into the tile."""
     native_order = np.ascontiguousarray(block, block.dtype.newbyteorder("="))
     raw = native_order.view(np.uint8).reshape(-1)
     isz = block.dtype.itemsize
-    at = (np.arange(h)[:, None] * (w * 2 * isz + tw - w)
-          + np.arange(w)[None, :] * 2 * isz)
+    pixel = block.shape[-1] * isz
+    at = (np.arange(h)[:, None] * (w * pixel + tw - w) + np.arange(w)[None, :] * pixel)
     vals = raw[at].astype(np.uint16)
     if isz == 2:  # a little-endian host's sample bytes, wherever they start
         vals |= raw[at + 1].astype(np.uint16) << 8
@@ -562,30 +604,21 @@ def _channels(x: np.ndarray, order: list) -> np.ndarray:
     return out
 
 
-def decode_tiff_page(bo: str, buf, ifd: dict, filename) -> np.ndarray:
-    """One IFD as ``cv2.imread(path, IMREAD_UNCHANGED)`` returns it with
-    this repo's OpenCV (libtiff 4.7): ``(H, W)`` or ``(H, W, 3|4)`` in
-    B, G, R(, A) order.
+#: libtiff's YCbCr put routines, by (horizontal, vertical) subsampling
+_YCBCR_SAMPLINGS = {(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)}
 
-    - 8-bit samples (and 16-bit grey with alpha) go through libtiff's
-      RGBA interface as cv2 sends them: MinIsWhite inverted, palette
-      through its colour map (a map with no entry above 255 taken as
-      8-bit), unassociated alpha premultiplied (``(v * a + 127) // 255``),
-      16-bit grey cut to its high byte, grey returned as one channel
-      (edge tiles of grey with alpha as libtiff misreads them,
-      :func:`_skewed_grey_rows`);
-      JPEG chunks through the port's decoder, YCbCr as libjpeg converts
-      it.
-    - 16-, 32- and 64-bit samples are returned as stored (uint16/int16,
-      uint32/int32/float32, float64) with R and B swapped.
 
-    Strips or tiles (BigTIFF too), chunky or planar (cv2 reads a planar
-    16-, 32- or 64-bit page from memory it never wrote; this returns the
-    stored samples), none/LZW/deflate/PackBits with predictors 2 and 3,
-    JPEG with ``JPEGTables``.  What cv2 does not read, and what the port
-    leaves out (orientations other than 1, 1/2/4/10/12/14-bit samples,
-    YCbCr other than JPEG's, CMYK, Lab, old-style JPEG), raises
-    :class:`NotSupportedError` or :class:`MetadataError` naming it."""
+def _none(filename, what: str) -> MetadataError:
+    """A page cv2 5.0 returns None for (the reference then raises)."""
+    return MetadataError(f"{filename}: {what} (cv2 reads no such TIFF page)")
+
+
+def tiff_page_plan(bo: str, buf, ifd: dict, filename) -> dict:
+    """The layout of one IFD and the route its pixels take to ``cv2``'s
+    result, every check ``decode_tiff_page`` makes before it reads a
+    chunk: raises :class:`MetadataError` where cv2 5.0 returns None (or
+    the page is corrupt) and :class:`NotSupportedError` for what the
+    port leaves out; the site-shape probe calls it alone."""
     tag = lambda t, d: _tiff_int(bo, buf, ifd, t, d)  # noqa: E731
     width, height = tag(256, 0), tag(257, 0)
     if width <= 0 or height <= 0:
@@ -602,8 +635,13 @@ def decode_tiff_page(bo: str, buf, ifd: dict, filename) -> np.ndarray:
     planar = tag(284, 1) if spp > 1 else 1
     compression = tag(259, 1)
     predictor = tag(317, 1)
-    if tag(274, 1) != 1:
-        raise _tiff_refuse(filename, f"TIFF Orientation {tag(274, 1)}")
+    orientation = tag(274, 1)
+    extra = _tiff_ints(bo, buf, ifd[338]) if 338 in ifd else []
+    if not 1 <= orientation <= 8:
+        raise MetadataError(f"{filename}: Orientation {orientation}")
+    if orientation > 4 and width != height:
+        raise _none(filename, f"Orientation {orientation} on a {width}x{height} page "
+                              "(cv2 5.0 transposes only square pages)")
     if compression == 6:
         raise _tiff_refuse(filename, "old-style JPEG TIFF (compression 6)")
     if compression not in (1, 5, 7, 8, 32946, 32773):
@@ -612,36 +650,62 @@ def decode_tiff_page(bo: str, buf, ifd: dict, filename) -> np.ndarray:
         raise MetadataError(f"{filename}: {spp} samples a pixel (cv2 reads 1 to 4)")
     if planar not in (1, 2):
         raise MetadataError(f"{filename}: PlanarConfiguration {planar}")
-    rgba8 = bits == 8 or (bits == 16 and spp == 2)
-    if bits not in (8, 16, 32, 64):
-        raise _tiff_refuse(filename, f"{bits}-bit TIFF samples")
-    if rgba8 or bits == 16:
+    name = _TIFF_PHOTOMETRIC.get(phot, f"photometric {phot}")
+    what = f"a {name} TIFF page of {spp} {bits}-bit samples" + (" in planes" if planar == 2
+                                                               else "")
+    grey = phot in (0, 1)
+    # cv2's readHeader: above 8 bits, a photometric past RGB or 2 samples
+    # go through libtiff's RGBA interface as 8 bits do
+    rgba8 = bits in (1, 4, 8) or (bits in (10, 12, 14, 16) and (phot > 2 or spp == 2))
+    if bits in (2, 24) or bits not in (1, 4, 8, 10, 12, 14, 16, 32, 64):
+        raise _none(filename, f"{bits}-bit TIFF samples")
+    if bits == 1 and not (phot in (0, 1, 3) and spp == 1):
+        raise _none(filename, what)
+    if bits == 4 and phot != 3:
+        raise _none(filename, f"{what} (4 bits only for a palette)")
+    if bits in (10, 12, 14) and (rgba8 or phot == 3):
+        raise _none(filename, what)
+    if rgba8 or bits in (10, 12, 14, 16):
         if fmt not in (1, 2):
             raise MetadataError(f"{filename}: SampleFormat {fmt} at {bits} bits")
     elif (bits, fmt) not in ((32, 1), (32, 2), (32, 3), (64, 3)):
         raise MetadataError(f"{filename}: SampleFormat {fmt} at {bits} bits")
     if spp == 2 and not rgba8:
         raise MetadataError(f"{filename}: grey with alpha at {bits} bits")
-    name = _TIFF_PHOTOMETRIC.get(phot, f"photometric {phot}")
-    if phot in (0, 1):
-        ok = spp in ((1, 2) if rgba8 else (1,)) and not (phot == 0 and planar == 2)
-    elif phot == 2:
-        ok = spp in (3, 4)
-    elif phot == 3:
-        ok = spp == 1 and bits == 8
-    elif phot == 6:
-        ok = compression == 7 and spp == 3 and planar == 1
+    sampling = (1, 1)
+    if rgba8:  # what libtiff's TIFFRGBAImageOK and put routines take
+        if grey:
+            ok = spp == 1 or bits in (8, 16)
+        elif phot == 2:
+            ok = spp in (3, 4) and bits == 8
+        elif phot == 3:
+            ok = spp == 1 and bits in (1, 4, 8)
+        elif phot == 5:  # CMYK, InkSet 1
+            ok = spp == 4 and bits == 8 and tag(332, 1) == 1
+        elif phot == 6:
+            ok = spp == 3 and bits == 8
+            if ok and compression != 7:
+                sub = _tiff_ints(bo, buf, ifd[530]) if 530 in ifd else [2, 2]
+                sampling = tuple(sub[:2]) if len(sub) >= 2 else (2, 2)
+                ok = sampling in _YCBCR_SAMPLINGS and (planar == 1 or sampling == (1, 1))
+            elif ok:
+                ok = planar == 1
+        elif phot == 8:
+            ok = spp == 3 and bits in (8, 16) and planar == 1
+        else:
+            ok = False
     else:
-        ok = False
+        ok = grey or (phot == 2 and spp in (3, 4))
     if not ok:
-        raise _tiff_refuse(filename, f"a {name} TIFF page of {spp} {bits}-bit samples"
-                           + (" in planes" if planar == 2 else "")
-                           + (f" with compression {compression}" if phot == 6 else ""))
+        raise _none(filename, what + (f" with compression {compression}" if phot == 6 else ""))
     if compression == 7 and bits != 8:
         raise _tiff_refuse(filename, f"{bits}-bit JPEG TIFF")
+    packed = bits not in (8, 16, 32, 64)
     if compression != 7:
-        if predictor == 2 and bits not in (8, 16, 32, 64):
+        if predictor == 2 and packed:
             raise MetadataError(f"{filename}: horizontal predictor at {bits} bits")
+        if predictor == 2 and phot == 6 and sampling != (1, 1):
+            raise _tiff_refuse(filename, f"the horizontal predictor on YCbCr {sampling}")
         if predictor == 3 and fmt != 3:
             raise MetadataError(f"{filename}: floating-point predictor on SampleFormat {fmt}")
         if predictor not in (1, 2, 3):
@@ -656,10 +720,16 @@ def decode_tiff_page(bo: str, buf, ifd: dict, filename) -> np.ndarray:
             raise MetadataError(f"corrupt TIFF tile size in {filename}")
     else:
         th, tw = min(tag(278, 0xFFFFFFFF) or 0xFFFFFFFF, height), width
-    planes = spp if planar == 2 else 1
-    cspp = 1 if planar == 2 else spp
+    if phot == 6 and compression != 7 and sampling == (4, 4):
+        # libtiff reads a 4x4 strip a whole number of scanlines short when
+        # a row of units is not a multiple of 4 bytes, and skips the wrong
+        # number of units past a clipped tile (putcontig8bitYCbCr44tile)
+        quirk = (width % tw) if tiled else (-(-width // 4) % 2)
+        if quirk:
+            raise _tiff_refuse(filename, "a 4x4-subsampled YCbCr page whose units libtiff "
+                                         "misreads at its right edge")
     kind = {1: "u", 2: "i", 3: "f"}[fmt]
-    fdtype = np.dtype(f"{bo}{kind}{bits // 8}")
+    fdtype = np.dtype(f"{bo}{kind}{bits // 8}") if not packed else np.dtype("=u2")
     # cv2's limits (its validateInputImageSize, its TIFF decoder's tile
     # checks), held before the file's sizes size anything
     if width > 1 << 20 or height > 1 << 20 or width * height > 1 << 30:
@@ -668,6 +738,82 @@ def decode_tiff_page(bo: str, buf, ifd: dict, filename) -> np.ndarray:
     if th > 1 << 24 or tw > 1 << 24 or th * tw * spp * fdtype.itemsize >= 1 << 30:
         raise MetadataError(f"{filename}: a {tw}x{th} TIFF tile of {spp} samples "
                             f"(cv2 reads tiles under 1 GiB)")
+    return {"width": width, "height": height, "bits": bits, "spp": spp, "fmt": fmt,
+            "phot": phot, "planar": planar, "compression": compression,
+            "predictor": predictor, "orientation": orientation, "extra": extra,
+            "rgba8": rgba8, "packed": packed, "sampling": sampling, "tiled": tiled,
+            "th": th, "tw": tw, "fdtype": fdtype}
+
+
+def _orient(img: np.ndarray, orientation: int, tile_width: int, rgba8: bool) -> np.ndarray:
+    """The page ``img`` (stored order) as cv2 5.0 orients it.  Through
+    libtiff's RGBA interface (``rgba8``) a horizontal flip acts within
+    each tile's columns (``TIFFReadRGBATile`` flips the tile it reads)
+    and Orientation 5-8 read as 1-4, then transposed (6 and 8 turned
+    half round first); other pages take the EXIF transform whole."""
+    if orientation == 1:
+        return img
+    if not rgba8:
+        out = {2: img[:, ::-1], 3: img[::-1, ::-1], 4: img[::-1], 5: img.swapaxes(0, 1),
+               6: img[::-1].swapaxes(0, 1), 7: img[::-1, ::-1].swapaxes(0, 1),
+               8: img[:, ::-1].swapaxes(0, 1)}[orientation]
+        return np.ascontiguousarray(out)
+    base = (orientation - 1) % 4 + 1
+    out = img
+    if base in (2, 3):
+        out = out.copy()
+        for x in range(0, img.shape[1], tile_width):
+            out[:, x:x + tile_width] = img[:, x:x + tile_width][:, ::-1]
+    if base in (3, 4):
+        out = out[::-1]
+    if orientation > 4:
+        if orientation in (6, 8):
+            out = out[::-1, ::-1]
+        out = out.swapaxes(0, 1)
+    return np.ascontiguousarray(out)
+
+
+def decode_tiff_page(bo: str, buf, ifd: dict, filename) -> np.ndarray:
+    """One IFD as ``cv2.imread(path, IMREAD_UNCHANGED)`` returns it with
+    this repo's OpenCV (5.0, libtiff 4.7): ``(H, W)`` or ``(H, W, 3|4)`` in
+    B, G, R(, A) order.
+
+    - 1-, 4- and 8-bit samples (and 16-bit grey with alpha, 16-bit CIELab)
+      go through libtiff's RGBA interface as cv2 sends them: 1-bit grey
+      as 0/255, MinIsWhite inverted (chunky pages), palette through its
+      colour map (a map with no entry above 255 taken as 8-bit; a 1-bit
+      palette page comes back grey, cv2's ``BGRA2Gray`` of its colours),
+      unassociated alpha premultiplied (``(v * a + 127) // 255``), 16-bit
+      grey cut to its high byte, grey of 2-4 samples returned as its first
+      sample, CMYK as libtiff's ``(255 - k) * (255 - c) / 255`` with alpha
+      255, CIELab and YCbCr (any libtiff put routine's subsampling) as
+      libtiff's ``tif_color.c`` converts them (``native``); edge tiles of
+      grey with alpha as libtiff misreads them (:func:`_skewed_grey_rows`);
+      JPEG chunks through the port's decoder, YCbCr as libjpeg converts
+      it, a stream smaller than its chunk zero past its corner.
+    - 10- to 64-bit samples are returned as stored (uint16/int16,
+      uint32/int32/float32, float64) with R and B swapped; grey of 3 or 4
+      samples at 10-16 bits as cv2's ``BGRA2Gray`` of the first three; 10,
+      12 and 14 bits shifted to the top of 16.
+    - Orientation 2-8 as :func:`_orient` (5-8 on square pages; cv2 5.0
+      returns None for others).
+
+    Strips or tiles (BigTIFF too), chunky or planar (cv2 reads a planar
+    16-, 32- or 64-bit page from memory it never wrote; this returns the
+    stored samples), none/LZW/deflate/PackBits with predictors 2 and 3,
+    JPEG with ``JPEGTables``.  What cv2 does not read raises
+    :class:`MetadataError`, what the port leaves out (old-style JPEG,
+    LogLuv, a 4x4 YCbCr page libtiff misreads) :class:`NotSupportedError`,
+    each naming it (:func:`tiff_page_plan`)."""
+    plan = tiff_page_plan(bo, buf, ifd, filename)
+    width, height, bits, spp = plan["width"], plan["height"], plan["bits"], plan["spp"]
+    fmt, phot, planar, compression = plan["fmt"], plan["phot"], plan["planar"], \
+        plan["compression"]
+    tiled, th, tw, fdtype = plan["tiled"], plan["th"], plan["tw"], plan["fdtype"]
+    rgba8, packed, extra = plan["rgba8"], plan["packed"], plan["extra"]
+    ycc_units = phot == 6 and compression != 7 and planar == 1
+    planes = spp if planar == 2 else 1
+    cspp = 1 if planar == 2 else spp
     what = "tile" if tiled else "strip"
     ny, nx = -(-height // th), -(-width // tw)
     n = planes * ny * nx
@@ -687,6 +833,7 @@ def decode_tiff_page(bo: str, buf, ifd: dict, filename) -> np.ndarray:
                 native.jpeg_sampling(buf[offs[0]:offs[0] + counts[0]])[0]
         else:
             sampling = (1, 1)
+    hs, vs = plan["sampling"]
     # every chunk decoded into one (n * th, tw, cspp) array, the short last
     # strip padded; the predictor, the tile layout and the crop then act
     # on the whole page at once
@@ -702,52 +849,110 @@ def decode_tiff_page(bo: str, buf, ifd: dict, filename) -> np.ndarray:
             block = _tiff_jpeg_chunk(buf[off:off + cnt], tables, ycc, (rows, tw, cspp),
                                      not tiled and k % ny == ny - 1, sampling, filename)
             flat[at:at + block.size] = block.reshape(-1)
+        elif ycc_units:
+            expect = -(-rows // vs) * -(-tw // hs) * (hs * vs + 2)
+            raw = _decode_strip(buf[off:off + cnt], compression, expect, filename)
+            block = _ycbcr_units(raw, rows, tw, hs, vs)
+            flat[at:at + block.size] = block.reshape(-1)
+        elif packed:
+            row_bytes = -(-tw * cspp * bits // 8)
+            raw = _decode_strip(buf[off:off + cnt], compression, rows * row_bytes, filename)
+            block = native.unpack_bits(np.frombuffer(raw, np.uint8), rows, row_bytes,
+                                       tw * cspp, bits)
+            flat[at:at + block.nbytes] = block.view(np.uint8).reshape(-1)
         else:
             expect = rows * tw * cspp * fdtype.itemsize
             raw = _decode_strip(buf[off:off + cnt], compression, expect, filename)
             flat[at:at + expect] = np.frombuffer(raw, np.uint8)
-    blocks = _unpredict(flat, predictor, (n * th, tw, cspp), fdtype).reshape(
+    blocks = _unpredict(flat, plan["predictor"], (n * th, tw, cspp), fdtype).reshape(
         planes, ny, nx, th, tw, cspp)
-    if rgba8 and spp == 2 and tiled and planar == 1 and width % tw:
+    if rgba8 and phot in (0, 1) and spp > 1 and tiled and planar == 1 and width % tw:
         w = width - (nx - 1) * tw
         for iy in range(ny):
             h = min(th, height - iy * th)
             blocks[0, iy, nx - 1, :h, :w, 0] = _skewed_grey_rows(blocks[0, iy, nx - 1], h, w, tw)
     samples = blocks.transpose(1, 3, 2, 4, 0, 5).reshape(ny * th, nx * tw, spp)[
         :height, :width].astype(fdtype.newbyteorder("="))
-    if not rgba8:
-        if spp == 1:
-            return samples[:, :, 0]
-        return _channels(samples, [2, 1, 0, 3] if spp == 4 else [2, 1, 0])
+    out = _tiff_rgba8(samples, plan, bo, buf, ifd, filename) if rgba8 else \
+        _tiff_stored(samples, plan)
+    return _orient(out, plan["orientation"], tw, rgba8)
+
+
+def _tiff_stored(samples: np.ndarray, plan: dict) -> np.ndarray:
+    """A page of 10- to 64-bit samples as cv2 returns it (see
+    :func:`decode_tiff_page`)."""
+    spp, bits = plan["spp"], plan["bits"]
+    if spp == 1:
+        out = samples[:, :, 0]
+    elif plan["phot"] in (0, 1) and bits <= 16:  # icvCvt_BGRA2Gray_16u_CnC1R
+        u = samples.view(np.uint16)
+        out = png.gray14(u[:, :, 2], u[:, :, 1], u[:, :, 0]).astype(np.uint16).view(samples.dtype)
+    else:
+        out = _channels(samples, [2, 1, 0, 3] if spp == 4 else [2, 1, 0])
+    if plan["packed"]:
+        out = (out.view(np.uint16) << np.uint16(16 - bits)).view(
+            np.int16 if plan["fmt"] == 2 else np.uint16)
+    return out
+
+
+def _tiff_rgba8(samples: np.ndarray, plan: dict, bo: str, buf, ifd: dict,
+                filename) -> np.ndarray:
+    """A page through libtiff's RGBA interface as cv2 copies it out (see
+    :func:`decode_tiff_page`)."""
+    spp, bits, phot, planar, fmt = plan["spp"], plan["bits"], plan["phot"], plan["planar"], \
+        plan["fmt"]
+    extra = plan["extra"]
     u8 = np.dtype(np.int8 if fmt == 2 else np.uint8)
     if phot in (0, 1):
         unsigned = samples.view(samples.dtype.str.replace("i", "u")).astype(np.int64)
         g = unsigned[:, :, 0]
-        if planar == 2:  # libtiff's separate-plane RGB routines: 16 bits rounded to 8
+        if bits == 1:
+            g = g * 255
+        elif planar == 2:  # libtiff's separate-plane RGB routines: 16 bits rounded to 8
             a = unsigned[:, :, 1]
             if bits == 16:
                 g, a = (g * 255 + 32767) // 65535, (a * 255 + 32767) // 65535
-            extra = _tiff_ints(bo, buf, ifd[338]) if 338 in ifd else []
             if extra and extra[0] == 2:  # unassociated alpha: premultiplied
                 g = (g * a + 127) // 255
         elif bits == 16:
             g = g >> 8
-        if phot == 0:
+        if phot == 0 and planar == 1:
             g = 255 - g
         return g.astype(np.uint8).view(u8)
     if phot == 3:
         cmap = np.asarray(_tiff_ints(bo, buf, ifd[320]) if 320 in ifd else [], np.int64)
-        if cmap.size != 3 * 256:
-            raise MetadataError(f"{filename}: a palette page without a 256-entry ColorMap")
-        cmap = cmap.reshape(3, 256)
+        if cmap.size != 3 << bits:
+            raise MetadataError(f"{filename}: a {bits}-bit palette page without a "
+                                f"{1 << bits}-entry ColorMap")
+        cmap = cmap.reshape(3, 1 << bits)
         if cmap.max() > 255:
             cmap = cmap >> 8
-        idx = samples[:, :, 0].view(np.uint8)
+        idx = samples[:, :, 0].view(samples.dtype.str.replace("i", "u")).astype(np.intp)
+        if bits == 1:  # cv2 asks for one channel: BGRA2Gray of the colours
+            return png.gray14(cmap[2][idx], cmap[1][idx], cmap[0][idx]).astype(np.uint8).view(u8)
         return np.ascontiguousarray(np.stack([cmap[2][idx], cmap[1][idx], cmap[0][idx]], -1)
                                     .astype(np.uint8)).view(u8)
+    if phot == 5:  # CMYK: putRGBcontig8bitCMYKtile / putCMYKseparate8bittile
+        x = samples.view(np.uint8).astype(np.int32)
+        k = 255 - x[:, :, 3]
+        out = np.empty(x.shape[:2] + (4,), np.uint8)
+        for i, c in enumerate((2, 1, 0)):
+            out[:, :, i] = k * (255 - x[:, :, c]) // 255
+        out[:, :, 3] = 255
+        return out.view(u8)
+    if phot == 8:
+        return np.ascontiguousarray(native.tiff_cielab_to_rgb(samples)[:, :, ::-1]).view(u8)
+    if phot == 6 and plan["compression"] != 7:
+        x = samples.view(np.uint8)
+        luma = _tiff_floats(bo, buf, ifd, 529, [0.299, 0.587, 0.114])
+        refbw = _tiff_floats(bo, buf, ifd, 532, [0, 255, 128, 255, 128, 255])
+        if len(luma) < 3 or len(refbw) < 6 or np.isnan(luma[:3]).any() or luma[1] == 0:
+            raise _none(filename, "YCbCr with invalid YCbCrCoefficients or "
+                                  "ReferenceBlackWhite")
+        rgb = native.tiff_ycbcr_to_rgb(x[:, :, 0], x[:, :, 1], x[:, :, 2], luma[:3], refbw[:6])
+        return _channels(rgb, [2, 1, 0]).view(u8)
     rgb = samples.view(np.uint8)
     if spp == 4:
-        extra = _tiff_ints(bo, buf, ifd[338]) if 338 in ifd else []
         if extra and extra[0] == 2:  # unassociated alpha: libtiff premultiplies
             a = rgb[:, :, 3:4].astype(np.int32)
             rgb = np.concatenate([((rgb[:, :, :3] * a + 127) // 255).astype(np.uint8),
@@ -767,58 +972,104 @@ def read_tiff_page_cv2(path, page: int) -> np.ndarray:
 
 
 # ------------------------------------------------------- image readers
-def decode_image_file(path, page: int) -> "np.ndarray | None":
-    """The decoders the port puts after the grey TIFF readers, in the
-    reference's order (the PNG codec, the JPEG decoder, then the TIFF
-    pages cv2 reads: :func:`decode_tiff_page`), each plane as ``cv2``
-    hands it to ``cvtColor``: grey as stored, colour converted by
-    :func:`~tmlibrary_tpu_torch.io.png.to_gray`.  ``page`` is read where
-    the format has pages (the reference's ``ImageReader`` returns page 0
-    of a file that reaches cv2, whatever ``page`` says).  None when no
-    such decoder takes the file; a file one takes and cannot decode
-    raises :class:`MetadataError` naming the file and the feature."""
-    path = Path(path)
-    if png.is_png(path):
-        if page:
-            raise MetadataError(f"cannot read page {page} of {path}: a PNG has one")
-        try:
-            img = png.read(path)
-        except NotSupportedError as e:  # the feature the codec refused
-            raise MetadataError(f"cannot read image {path}: a PNG file the port's readers "
-                                f"do not decode: {e}") from e
-        return png.to_gray(img) if img.ndim == 3 else img
+_TIFF_MAGICS = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
+
+
+def _sniff(path) -> "str | None":
+    """The format cv2 would pick for the file by its leading bytes, in
+    cv2's order of decoders (BMP, JPEG, PNG, Netpbm, TIFF, PAM), or None."""
     try:
         with open(path, "rb") as f:
-            magic = f.read(4)
+            head = f.read(8)
     except OSError:
         return None
-    if magic.startswith(b"\xff\xd8\xff"):
-        if page:
-            raise MetadataError(f"cannot read page {page} of {path}: a JPEG has one")
-        try:
-            img = native.jpeg_decode_array(path.read_bytes())
-        except MetadataError as e:  # the feature or damage the decoder refused
-            raise MetadataError(f"cannot read image {path}: a JPEG file the port's readers "
-                                f"do not decode: {e}") from e
-        return png.to_gray(img) if img.ndim == 3 else img
-    if magic in (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+"):
-        try:
-            img = read_tiff_page_cv2(path, page)
-            return png.to_gray(img) if img.ndim == 3 else img
-        except (NotSupportedError, struct.error, ValueError, MemoryError) as e:
-            raise MetadataError(f"cannot read image {path}: a TIFF page the port's readers "
-                                f"do not decode: {e}") from e
-        except MetadataError as e:
-            raise MetadataError(f"cannot read image {path}: {e}") from e
+    if head.startswith(bmp.SIGNATURE):
+        return "BMP"
+    if head.startswith(b"\xff\xd8\xff"):
+        return "JPEG"
+    if head.startswith(png.SIGNATURE):
+        return "PNG"
+    if len(head) >= 3 and head[0] == 80 and 49 <= head[1] <= 55 and head[2] in b" \t\n\v\f\r":
+        return "PAM" if head[1] == 55 else "PNM"
+    if head[:4] in _TIFF_MAGICS:
+        return "TIFF"
     return None
+
+
+def _decode(path: Path, fmt: str, page: int) -> np.ndarray:
+    """The image cv2 would return for a file of format ``fmt`` (colour
+    left as it is), each codec's own errors raised."""
+    if fmt == "BMP":
+        return bmp.read(path)
+    if fmt == "JPEG":
+        return native.jpeg_decode_array(path.read_bytes())
+    if fmt == "PNG":
+        return png.read(path)
+    if fmt in ("PNM", "PAM"):
+        return pnm.read(path)
+    return read_tiff_page_cv2(path, page)
+
+
+def image_dimensions(path) -> "tuple[int, int] | None":
+    """``(height, width)`` of the image cv2 reads from a file (the
+    site-shape probe, which reads the file whole as the reference's
+    ``cv2.imread`` does; a JPEG by its SOF), or None when no decoder of
+    :func:`decode_image_file` takes its leading bytes.  Raises
+    :class:`MetadataError` where cv2 reads no image; a file the port
+    leaves out (``NotSupportedError``) gives its header's size."""
+    path = Path(path)
+    fmt = _sniff(path)
+    if fmt is None:
+        return None
+    try:
+        if fmt == "JPEG":
+            return native.jpeg_dimensions(path.read_bytes())
+        return _decode(path, fmt, 0).shape[:2]
+    except NotSupportedError:
+        if fmt == "PNG":
+            return png.info(path)[:2]
+        return tiff_dimensions(path) if fmt == "TIFF" else None
+    except (struct.error, ValueError, MemoryError) as e:
+        raise MetadataError(f"cannot read image {path}: {e}") from e
+
+
+def decode_image_file(path, page: int) -> "np.ndarray | None":
+    """The decoders the port puts after the grey TIFF readers, in cv2's
+    order of sniffing (:func:`_sniff`: the BMP codec, the JPEG decoder,
+    the PNG codec, the Netpbm codec, then the TIFF pages cv2 reads:
+    :func:`decode_tiff_page`), each plane as ``cv2`` hands it to
+    ``cvtColor``: grey as stored, colour converted by
+    :func:`~tmlibrary_tpu_torch.io.png.to_gray` (a PAM of 2 channels,
+    which ``cvtColor`` refuses, raises).  ``page`` is read where the
+    format has pages (the reference's ``ImageReader`` returns page 0 of a
+    file that reaches cv2, whatever ``page`` says).  None when no such
+    decoder takes the file; a file one takes and cannot decode raises
+    :class:`MetadataError` naming the file and the feature."""
+    path = Path(path)
+    fmt = _sniff(path)
+    if fmt is None:
+        return None
+    if page and fmt != "TIFF":
+        raise MetadataError(f"cannot read page {page} of {path}: a {fmt} file has one")
+    try:
+        img = _decode(path, fmt, page)
+        if img.ndim == 3 and img.shape[2] not in (3, 4):
+            raise MetadataError(f"a {img.shape[2]}-channel image, which cvtColor refuses")
+        return png.to_gray(img) if img.ndim == 3 else img
+    except (NotSupportedError, struct.error, ValueError, MemoryError) as e:
+        raise MetadataError(f"cannot read image {path}: a {fmt} file the port's readers "
+                            f"do not decode: {e}") from e
+    except MetadataError as e:
+        raise MetadataError(f"cannot read image {path}: {e}") from e
 
 
 class ImageReader(Reader):
     """Read one 2-D plane of an image file, in the JAX package's order: a
     container by its linear page index, then the C++ TIFF reader, the
     Python TIFF reader (``.tif``/``.tiff``), then what the JAX package
-    hands to ``cv2`` (:func:`decode_image_file`: PNG, JPEG of 1 or 3
-    components, baseline or progressive, and the TIFF pages cv2 reads),
+    hands to ``cv2`` (:func:`decode_image_file`: BMP, JPEG of 1 or 3
+    components, baseline or progressive, PNG, PBM/PGM/PPM/PAM, and the
+    TIFF pages cv2 reads),
     colour converted to grey as cv2 converts it.  Pages are read as asked
     where the reference's cv2 path reads page 0 (ROADMAP C).  A file no
     reader takes raises :class:`~tmlibrary_tpu_torch.errors.MetadataError`."""

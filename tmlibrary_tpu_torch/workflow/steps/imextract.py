@@ -12,9 +12,10 @@ LIF, DV, STK, LSM, OIF/OIB, FLEX, OME-NGFF), then the C++ TIFF reader
 (:func:`~tmlibrary_tpu_torch.native.tiff_read`), then the Python TIFF
 reader for what it declines (BigTIFF, deflate strips), then the
 decoders of what the JAX package hands to ``cv2``
-(:func:`~tmlibrary_tpu_torch.readers.decode_image_file`: the PNG codec,
-the JPEG decoder for 1- and 3-component baseline and progressive
-streams, the TIFF pages cv2 reads -- tiled, colour, float, JPEG-in-TIFF),
+(:func:`~tmlibrary_tpu_torch.readers.decode_image_file`: BMP, the JPEG
+decoder for 1- and 3-component baseline and progressive streams, PNG of
+every colour type and depth, PBM/PGM/PPM/PAM, the TIFF pages cv2 reads --
+tiled, colour, float, 1- to 64-bit, any orientation, JPEG-in-TIFF),
 colour converted to grey as cv2 converts it.  A file none of them
 decodes raises :class:`~tmlibrary_tpu_torch.errors.MetadataError` naming
 the file and its format or feature.  The decode thread pool is sized by
@@ -43,8 +44,9 @@ from tmlibrary_tpu_torch.workflow.args import Argument, ArgumentCollection
 from tmlibrary_tpu_torch.workflow.registry import register_step
 
 #: leading bytes -> the format named when no reader of the port takes a
-#: file (PNG, JPEG and TIFF files reach a decoder, which names its refusal)
-_MAGIC = ((b"BM", "BMP"), (b"GIF8", "GIF"))
+#: file (BMP, JPEG, PNG, Netpbm and TIFF files reach a decoder, which
+#: names its refusal)
+_MAGIC = ((b"GIF8", "GIF"), (b"RIFF", "RIFF (WebP)"))
 
 
 def _unreadable(path: str, page: "int | None") -> MetadataError:
@@ -82,9 +84,9 @@ class ImageExtractor(Step):
     def _read_plane(path: str, page: "int | None", height: int, width: int) -> np.ndarray:
         """One grayscale plane: a container, the C++ TIFF reader, the
         Python TIFF reader (``.tif``/``.tiff``), then
-        :func:`~tmlibrary_tpu_torch.readers.decode_image_file` (PNG,
-        JPEG, the TIFF pages cv2 reads; page ``page``, as the reference's
-        ``cv2.imreadmulti``), in that order; anything else raises
+        :func:`~tmlibrary_tpu_torch.readers.decode_image_file` (BMP,
+        JPEG, PNG, Netpbm, the TIFF pages cv2 reads; page ``page``, as
+        the reference's ``cv2.imreadmulti``), in that order; anything else raises
         :class:`MetadataError`.  The plane keeps the dtype it was decoded
         in (uint8, uint16, int16, uint32, int32, float32, float64);
         :meth:`run_batch` then casts it with the reference's

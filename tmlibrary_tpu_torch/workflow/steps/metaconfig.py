@@ -107,25 +107,20 @@ def well_num_to_rowcol(num: int, plate_cols: int = 24) -> tuple[int, int]:
 
 
 def probe_shape(path: str) -> tuple[int, int]:
-    """(height, width) of a site from its file's header: a container
-    gives its planes' (:func:`~tmlibrary_tpu_torch.readers.container_dimensions`),
-    a TIFF gives its first page's, a PNG its image's, a grey baseline
-    JPEG its SOF's; anything else raises :class:`MetadataError`."""
-    from tmlibrary_tpu_torch import native
-    from tmlibrary_tpu_torch.io import png
-    from tmlibrary_tpu_torch.readers import container_dimensions, tiff_dimensions
+    """(height, width) of a site from its file's header, as the reference's
+    ``cv2.imread`` probe gives it: a container gives its planes'
+    (:func:`~tmlibrary_tpu_torch.readers.container_dimensions`), a TIFF
+    its first page's, a PNG, BMP, Netpbm or JPEG file its image's
+    (:func:`~tmlibrary_tpu_torch.readers.image_dimensions`); a file cv2
+    reads no image from raises :class:`MetadataError`."""
+    from tmlibrary_tpu_torch.readers import container_dimensions, image_dimensions
 
-    dims = container_dimensions(path) or tiff_dimensions(path)
-    if dims is None and png.is_png(path):
-        dims = png.info(path)[:2]
+    dims = container_dimensions(path)
     if dims is None:
-        with open(path, "rb") as f:
-            raw = f.read()
-        if raw.startswith(b"\xff\xd8\xff"):
-            try:
-                dims = native.jpeg_dimensions(raw)
-            except MetadataError:
-                dims = None
+        try:
+            dims = image_dimensions(path)
+        except MetadataError as e:
+            raise MetadataError(f"cannot read probe image {path}: {e}") from e
     if dims is None:
         raise MetadataError(f"cannot read probe image {path}")
     return dims

@@ -2,11 +2,12 @@
 
 Counterpart: ``tmlibrary_tpu/writers.py`` ``ImageWriter`` (``:33-38``,
 reference ``tmlib/writers.py``), which writes with ``cv2.imwrite``.  The
-port's target machine has no ``cv2``: :class:`ImageWriter` writes a
-``.tif``/``.tiff`` as an uncompressed classic TIFF of one strip
-(:func:`encode_tiff`) and a ``.png`` through the port's PNG codec
-(:mod:`tmlibrary_tpu_torch.io.png`), 8- or 16-bit greyscale; any other
-suffix or image raises :class:`~tmlibrary_tpu_torch.errors.NotSupportedError`.
+port's target machine has no ``cv2``: :class:`ImageWriter` writes what
+``cv2.imwrite`` writes for ``.png``, ``.tif``/``.tiff``, ``.jpg``/
+``.jpeg``/``.jpe`` (byte for byte), ``.bmp``/``.dib`` and ``.pbm``/
+``.pgm``/``.ppm``/``.pnm`` through the port's encoders
+(:func:`encode_image`); the other suffixes cv2 writes raise
+:class:`~tmlibrary_tpu_torch.errors.NotSupportedError` naming them.
 :class:`OMETiffWriter` and :func:`minimal_ome_xml` (``:95-197``) write
 multi-page OME-TIFFs byte for byte as the JAX package's do.
 :class:`DatasetWriter` (``:41-71``, ``h5py`` there) writes HDF5 through
@@ -29,31 +30,134 @@ from xml.etree import ElementTree
 import numpy as np
 
 from tmlibrary_tpu_torch.errors import NotSupportedError
-from tmlibrary_tpu_torch.io import hdf5, png
+from tmlibrary_tpu_torch import native
+from tmlibrary_tpu_torch.io import bmp, hdf5, png, pnm
+
+
+#: numpy dtypes a TIFF holds as cv2 writes them: (BitsPerSample, SampleFormat)
+_TIFF_TYPES = {np.dtype(np.uint8): 1, np.dtype(np.int8): 2, np.dtype(np.uint16): 1,
+               np.dtype(np.int16): 2, np.dtype(np.uint32): 1, np.dtype(np.int32): 2,
+               np.dtype(np.float32): 3, np.dtype(np.float64): 3}
 
 
 def encode_tiff(image: np.ndarray) -> bytes:
-    """An ``(H, W)`` uint8/uint16 image as a little-endian classic TIFF:
-    the pixels in one uncompressed strip right after the header, then the
-    IFD (BlackIsZero, one sample a pixel)."""
+    """An ``(H, W)`` grey, ``(H, W, 3)`` BGR or ``(H, W, 4)`` BGRA image of
+    8-, 16-, 32- or 64-bit samples (uint8, int8, uint16, int16, uint32,
+    int32, float32, float64) as a little-endian classic TIFF: the pixels
+    in one uncompressed strip right after the header (colour as RGB(A),
+    no ExtraSamples, as cv2 writes it), then the IFD."""
     img = np.asarray(image)
-    if img.ndim != 2 or img.dtype not in (np.uint8, np.uint16) or 0 in img.shape:
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    channels = 1 if img.ndim == 2 else (img.shape[2] if img.ndim == 3 else 0)
+    if channels not in (1, 3, 4) or img.dtype not in _TIFF_TYPES or 0 in img.shape:
         raise NotSupportedError(
-            f"TIFF encode takes (H, W) uint8 or uint16 greyscale, got {img.shape} {img.dtype}")
-    h, w = img.shape
-    data = np.ascontiguousarray(img, "<u2" if img.dtype == np.uint16 else "u1").tobytes()
+            "TIFF encode takes (H, W), (H, W, 3) or (H, W, 4) of uint8, int8, uint16, int16, "
+            f"uint32, int32, float32 or float64, got {img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    if channels > 1:
+        img = img[:, :, [2, 1, 0, 3][:channels]]  # BGR(A) -> the file's RGB(A)
+    data = np.ascontiguousarray(img, img.dtype.newbyteorder("<")).tobytes()
     ifd_at = 8 + len(data) + (len(data) & 1)  # the IFD starts on a word boundary
     short, long_ = 3, 4
-    tags = [(256, long_, w), (257, long_, h), (258, short, img.dtype.itemsize * 8),
-            (259, short, 1), (262, short, 1), (273, long_, 8), (277, short, 1),
-            (278, long_, h), (279, long_, len(data))]
+    bits = img.dtype.itemsize * 8
+    # (tag, type, values); values past 4 bytes go after the IFD
+    tags = [(256, long_, [w]), (257, long_, [h]), (258, short, [bits] * channels),
+            (259, short, [1]), (262, short, [1 if channels == 1 else 2]), (273, long_, [8]),
+            (277, short, [channels]), (278, long_, [h]), (279, long_, [len(data)]),
+            (284, short, [1]), (339, short, [_TIFF_TYPES[img.dtype]] * channels)]
     ifd = struct.pack("<H", len(tags))
-    for tag, typ, value in tags:
-        field = struct.pack("<H", value) + b"\0\0" if typ == short else struct.pack("<I", value)
-        ifd += struct.pack("<HHI", tag, typ, 1) + field
+    extra = b""
+    extra_at = ifd_at + 2 + 12 * len(tags) + 4
+    for tag, typ, values in tags:
+        packed = struct.pack(f"<{len(values)}{'H' if typ == short else 'I'}", *values)
+        if len(packed) <= 4:
+            field = packed.ljust(4, b"\0")
+        else:
+            field = struct.pack("<I", extra_at + len(extra))
+            extra += packed
+        ifd += struct.pack("<HHI", tag, typ, len(values)) + field
     ifd += struct.pack("<I", 0)
     return (b"II" + struct.pack("<HI", 42, ifd_at) + data + b"\0" * (ifd_at - 8 - len(data))
-            + ifd)
+            + ifd + extra)
+
+
+#: suffix -> the encoder cv2.imwrite picks for it (what the port writes)
+_WRITERS = {".png": "png", ".tif": "tiff", ".tiff": "tiff", ".jpg": "jpeg", ".jpeg": "jpeg",
+            ".jpe": "jpeg", ".bmp": "bmp", ".dib": "bmp", ".pbm": "pbm", ".pgm": "pgm",
+            ".ppm": "ppm", ".pnm": "pnm"}
+#: suffixes cv2 5.0 writes that the port does not (ROADMAP A)
+UNPORTED_SUFFIXES = (".webp", ".jp2", ".sr", ".ras", ".hdr", ".pic", ".pfm", ".avif", ".pam",
+                     ".gif", ".exr")
+#: the depths each encoder keeps; any other is saturated to uint8 first
+_KEEPS = {"png": ("u1", "u2"), "jpeg": ("u1",), "bmp": ("u1",),
+          "pbm": ("u1", "u2"), "pgm": ("u1", "u2"), "ppm": ("u1", "u2"), "pnm": ("u1", "u2"),
+          "tiff": ("u1", "i1", "u2", "i2", "u4", "i4", "f4", "f8")}
+
+
+def saturate_u8(image: np.ndarray) -> np.ndarray:
+    """``image.convertTo(CV_8U)`` as cv2 does it before an encoder that
+    takes 8 bits only: integers clamped to 0-255, floats rounded half to
+    even first (``cvRound``), a float that is not finite or lies outside
+    32-bit integers 0 (``cvRound``'s sentinel, clamped), booleans 0/1."""
+    img = np.asarray(image)
+    if img.dtype == np.uint8:
+        return img
+    if img.dtype == np.bool_:
+        return img.astype(np.uint8)
+    if img.dtype.kind in "iu":
+        return np.clip(img.astype(np.int64), 0, 255).astype(np.uint8)
+    x = np.rint(img.astype(np.float64))
+    with np.errstate(invalid="ignore"):
+        x = np.where(np.isfinite(x) & (x >= -2.0**31) & (x < 2.0**31), x, 0)
+    return np.clip(x, 0, 255).astype(np.uint8)
+
+
+def encode_image(suffix: str, image: np.ndarray) -> bytes:
+    """The bytes ``cv2.imwrite`` would give a file of this ``suffix``
+    (any case) for ``image``, by the port's encoders: PNG
+    (:mod:`~tmlibrary_tpu_torch.io.png`), TIFF (:func:`encode_tiff`), JPEG
+    byte for byte as cv2 writes it at quality 95
+    (:func:`~tmlibrary_tpu_torch.native.jpeg_encode`; BGRA loses its
+    alpha), BMP (:mod:`~tmlibrary_tpu_torch.io.bmp`) and binary PBM, PGM,
+    PPM (:mod:`~tmlibrary_tpu_torch.io.pnm`; ``.pnm`` as PGM or PPM by
+    channels).  Depths an encoder does not keep are saturated to uint8
+    first (:func:`saturate_u8`), as ``imwrite`` converts them.  Where cv2
+    refuses (2 channels, an empty image, colour in ``.pgm``/``.pbm``, grey
+    in ``.ppm``, BGRA in PNM, a suffix with no writer) it raises
+    :class:`IOError`; a suffix cv2 writes and the port does not
+    (:data:`UNPORTED_SUFFIXES`) raises
+    :class:`~tmlibrary_tpu_torch.errors.NotSupportedError` naming it."""
+    suffix = suffix.lower()
+    if suffix in UNPORTED_SUFFIXES:
+        raise NotSupportedError(f"the port does not write {suffix} images (cv2 does)")
+    kind = _WRITERS.get(suffix)
+    if kind is None:
+        raise IOError(f"no image writer for the suffix {suffix!r}")
+    img = np.asarray(image)
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[:, :, 0]
+    channels = 1 if img.ndim == 2 else (img.shape[2] if img.ndim == 3 else 0)
+    if channels not in (1, 3, 4) or img.size == 0:
+        raise IOError(f"cannot write a {img.shape} image (cv2 writes 1, 3 or 4 channels)")
+    if img.dtype.kind not in "biuf" or img.dtype.itemsize > 8 or \
+            (img.dtype.kind in "iu" and img.dtype.itemsize == 8):
+        raise NotSupportedError(f"the port does not write {img.dtype} images")
+    if img.dtype.str[1:] not in _KEEPS[kind]:
+        img = saturate_u8(img)
+    if kind == "png":
+        return png.encode(img)
+    if kind == "tiff":
+        return encode_tiff(img)
+    if kind == "jpeg":
+        return native.jpeg_encode(img[:, :, :3] if channels == 4 else img, quality=95)
+    if kind == "bmp":
+        return bmp.encode(img)
+    if kind == "pnm":
+        kind = "pgm" if channels == 1 else "ppm"
+    if channels != (3 if kind == "ppm" else 1):
+        raise IOError(f"cannot write a {channels}-channel image as {suffix} (cv2 refuses)")
+    return pnm.encode(img, {"pbm": 4, "pgm": 5, "ppm": 6}[kind])
 
 
 class Writer:
@@ -72,17 +176,12 @@ class Writer:
 
 
 class ImageWriter(Writer):
-    """Write one greyscale image, the format chosen by the suffix."""
+    """Write one image, the format chosen by the suffix, as
+    ``cv2.imwrite`` writes it (:func:`encode_image`)."""
 
     def write(self, image: np.ndarray) -> None:
-        suffix = self.filename.suffix.lower()
-        if suffix in (".tif", ".tiff"):
-            self.filename.write_bytes(encode_tiff(image))
-        elif suffix == ".png":
-            png.write(self.filename, image)
-        else:
-            raise NotSupportedError(
-                f"{self.filename.name}: the port writes .tif, .tiff and .png images only")
+        data = encode_image(self.filename.suffix, image)
+        self.filename.write_bytes(data)
 
 
 def minimal_ome_xml(name: str, height: int, width: int, n_zplanes: int = 1,
