@@ -231,9 +231,12 @@ Phases (any failure exits non-zero before the last line):
    CZI, a Gray8 zstd0 CZI, a Gray8 JPEG CZI (its pixels hash to
    :data:`JPEG_DIGEST`), grey ``.jpg`` sites and Imaris files (contiguous;
    chunked and deflated) through metaconfig and imextract; the decode
-   well (``decode_well_run``: 3x3 sites in 18 files of what the
+   well (``decode_well_run``: 5 rows of 3 sites in 30 files of what the
    reference hands to cv2 -- TIFF, JPEG, PNG, BMP, PGM, PPM, two JPEGs
-   by the port's ``ImageWriter`` held byte for byte to cv2's streams --
+   by the port's ``ImageWriter`` held byte for byte to cv2's streams,
+   arithmetic-coded, lossless, CMYK, YCCK and block-smoothed JPEG,
+   LogL16, LogLuv32 and LogLuv24 TIFF with the host's SGILog luminances
+   held to :data:`SGILOG_LUMINANCE_DIGEST` --
    through metaconfig ``pattern``, imextract and config 3 with rows 1-4
    at 1, 1, 1, 2, planes to the manifest's digests; a ``decode:`` line
    with each variant's host Mpix/s and the JPEG encode rates) and the
@@ -5864,11 +5867,13 @@ def phase_containers(torch, wrappers, card, device: str = "cuda") -> dict:
 #: which the card's machine does not have
 DECODE_WELL_DIR = Path(__file__).resolve().parent / "tests" / "data" / "decode_well"
 #: the decode well's files: (site, channel) -> (file, variant); one well
-#: of 3x3 sites, DAPI and Actin, each file another variant of what the
-#: port decodes where the reference calls cv2 (sites 0-1: TIFFs the smoke
-#: writes and holds to their pixels; 2-3: the JPEG family, committed;
-#: 4-8: the PNG, TIFF, BMP and Netpbm decoders and the port's ImageWriter,
-#: committed or written by :func:`decode_well_port_files`)
+#: of 5 rows of 3 sites, DAPI and Actin, each file another variant of what
+#: the port decodes where the reference calls cv2 (sites 0-1: TIFFs the
+#: smoke writes and holds to their pixels; 2-3: the JPEG family,
+#: committed; 4-8: the PNG, TIFF, BMP and Netpbm decoders and the port's
+#: ImageWriter, committed or written by :func:`decode_well_port_files`;
+#: 9-14: arithmetic-coded, lossless, CMYK, YCCK and block-smoothed JPEG,
+#: committed, and SGILog TIFFs the smoke writes)
 DECODE_WELL = {
     (0, "DAPI"): ("A01_s0_DAPI.tif", "tiled 16-bit grey, deflate, predictor 2, BigTIFF"),
     (0, "Actin"): ("A01_s0_Actin.tif", "planar 16-bit RGB, strips of 40 rows"),
@@ -5888,7 +5893,28 @@ DECODE_WELL = {
     (7, "Actin"): ("A01_s7_Actin.jpg", "grey JPEG by the port's ImageWriter"),
     (8, "DAPI"): ("A01_s8_DAPI.jpg", "4:2:0 colour JPEG by the port's ImageWriter"),
     (8, "Actin"): ("A01_s8_Actin.ppm", "8-bit binary PPM by the port's ImageWriter"),
+    (9, "DAPI"): ("A01_s9_DAPI.jpg", "arithmetic grey JPEG, restart interval 8"),
+    (9, "Actin"): ("A01_s9_Actin.jpg", "arithmetic progressive 4:2:0 colour JPEG"),
+    (10, "DAPI"): ("A01_s10_DAPI.jpg", "lossless grey JPEG, predictor 7, Pt 1"),
+    (10, "Actin"): ("A01_s10_Actin.jpg", "Adobe CMYK JPEG"),
+    (11, "DAPI"): ("A01_s11_DAPI.jpg", "Adobe YCCK JPEG"),
+    (11, "Actin"): ("A01_s11_Actin.jpg", "block-smoothed progressive 4:2:0 JPEG"),
+    (12, "DAPI"): ("A01_s12_DAPI.jpg", "block-smoothed arithmetic grey JPEG"),
+    (12, "Actin"): ("A01_s12_Actin.tif", "LogL16 TIFF"),
+    (13, "DAPI"): ("A01_s13_DAPI.tif", "LogLuv32 TIFF, strips of 32 rows"),
+    (13, "Actin"): ("A01_s13_Actin.tif", "LogLuv24 TIFF"),
+    (14, "DAPI"): ("A01_s14_DAPI.tif", "tiled LogLuv32 TIFF, Orientation 3"),
+    (14, "Actin"): ("A01_s14_Actin.jpg", "arithmetic 4:2:2 JPEG, DAC L1 U4 Kx2"),
 }
+#: the decode well's sites a row (its files sort into rows of 3 sites)
+DECODE_WELL_ROW = 3
+#: the sha256 of the port's SGILog luminances (``native.sgilog_luminances``:
+#: ``tif_luv.c``'s 33,792 ``exp`` values) on the machine that wrote the
+#: decode well's manifest: the LogLuv planes are bit-exact where the host's
+#: libm gives these
+SGILOG_LUMINANCE_DIGEST = "99df50cea0882dfbae22381b4e3778823efb4396effdb8e18bf54dee81c23095"
+#: LogLuv24's (u', v') index of tif_luv.c's neutral chromaticity
+LUV24_NEUTRAL = 12266
 #: metaconfig's ``pattern`` for the decode well (the default filename
 #: style with the suffixes of its files)
 DECODE_WELL_PATTERN = (r"(?P<well>[A-Z]{1,2}\d{2})_s(?P<site>\d+)_(?P<channel>[A-Za-z0-9\-]+)"
@@ -6075,13 +6101,54 @@ def decode_well_bgr(v8):
     return np.stack([b, g, r], -1)
 
 
+def sgilog_l16(v):
+    """LogL16 codes of integer luminances ``v``: ``16384 + 256 e + m``
+    with ``e`` the leading bit's place and ``m`` the 8 bits after it (a
+    piecewise-linear log2; integers throughout, so every machine writes
+    the same codes), 0 for 0."""
+    import numpy as np
+
+    v = np.asarray(v).astype(np.int64)
+    e = sum((v >= (1 << k)).astype(np.int64) for k in range(1, 32))
+    return np.where(v > 0, 16384 + 256 * e + ((v << 8) >> e) - 256, 0)
+
+
+def decode_well_sgilog(cw, src: Path, px: dict) -> None:
+    """The decode well's SGILog TIFFs (sites 12-14 of ``px``), written by
+    ``cw.write_sgilog_tiff`` from integer codes: LogL16 whose 8-bit grey
+    (``256 sqrt(Y)``) is about the 8-bit plane, LogLuv32 in strips and in
+    tiles under Orientation 3 (its codes stored turned, so it reads
+    upright) of luminance about the plane at tif_luv.c's neutral (u, v),
+    and LogLuv24 of luminance about the plane / 256 (its 10-bit log holds
+    2^-12 to 2^4) at :data:`LUV24_NEUTRAL`."""
+    import numpy as np
+
+    name = {k: v[0] for k, v in DECODE_WELL.items()}
+    v8 = decode_well_v8(px["Actin"][12]).astype(np.int64)
+    cw.write_sgilog_tiff(src / name[12, "Actin"], np.where(v8 > 0, sgilog_l16(v8 * v8) - 4096, 0),
+                         "L16", rows_per_strip=64, dtype=np.uint16)
+    neutral = (86 << 8) | 194  # tif_luv.c's U_NEU and V_NEU at UVSCALE 410
+    cw.write_sgilog_tiff(src / name[13, "DAPI"], (sgilog_l16(px["DAPI"][13]) << 16) | neutral,
+                         "Luv32", rows_per_strip=32)
+    v = np.asarray(px["Actin"][13]).astype(np.int64)
+    e = sum((v >= (1 << k)).astype(np.int64) for k in range(1, 32))
+    le = np.clip(np.where(v > 0, 256 + 64 * e + ((v << 6) >> e) - 64, 0), 0, 1023)
+    cw.write_sgilog_tiff(src / name[13, "Actin"], (le << 14) | LUV24_NEUTRAL, "Luv24",
+                         rows_per_strip=16)
+    turned = (sgilog_l16(px["DAPI"][14]) << 16) | neutral
+    cw.write_sgilog_tiff(src / name[14, "DAPI"], turned[::-1, ::-1], "Luv32", tile=(64, 96),
+                         orientation=3)
+
+
 def decode_well_port_files(cw, writers, src: Path, px: dict) -> dict:
     """Write the decode well's files that the port writes itself (sites
-    5-8 of ``px`` but the committed PNGs and BMP) into ``src``: the 12-bit,
-    Orientation 4 and YCbCr TIFFs with ``cw.write_tiff``, the PGM, PPM and
-    both JPEGs with ``writers.ImageWriter``.  Returns ``{file: the array
-    handed to ImageWriter}`` of the two JPEGs (the manifest holds
-    ``cv2.imencode``'s stream of each)."""
+    5-8 of ``px`` but the committed PNGs and BMP, and the SGILog TIFFs of
+    sites 12-14) into ``src``: the 12-bit, Orientation 4 and YCbCr TIFFs
+    with ``cw.write_tiff``, the PGM, PPM and both JPEGs with
+    ``writers.ImageWriter``, the SGILog pages with
+    :func:`decode_well_sgilog`.  Returns ``{file: the array handed to
+    ImageWriter}`` of the two JPEGs (the manifest holds ``cv2.imencode``'s
+    stream of each)."""
     import numpy as np
 
     name = {k: v[0] for k, v in DECODE_WELL.items()}
@@ -6101,6 +6168,7 @@ def decode_well_port_files(cw, writers, src: Path, px: dict) -> dict:
              name[8, "DAPI"]: decode_well_bgr(decode_well_v8(px["DAPI"][8]))}
     for file, img in jpegs.items():
         writers.ImageWriter(src / file).write(img)
+    decode_well_sgilog(cw, src, px)
     return jpegs
 
 
@@ -6261,18 +6329,22 @@ def config3_cpu_hold(store, cpu_root: Path) -> dict:
 
 
 def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict:
-    """Phase 13's decode well: one well of 3x3 sites (sites 0-8 of
-    ``px``), DAPI and Actin, each of its 18 files another variant the
+    """Phase 13's decode well: one well of 5 rows of 3 sites (sites 0-14
+    of ``px``), DAPI and Actin, each of its 30 files another variant the
     reference hands to cv2 (:data:`DECODE_WELL`: the TIFFs written here by
     :func:`decode_well_tiffs` and :func:`decode_well_port_files` with the
-    PGM, the PPM and two JPEGs by the port's ``ImageWriter``, the rest
-    from :data:`DECODE_WELL_DIR`).  ``workflow submit --device`` runs
-    metaconfig (``pattern``), imextract and jterator (config 3,
-    ``max_objects=256``) with the launch counters set to 0 just before and
-    read just after (1, 1, 1, 2: one batch at ``max_objects``,
-    ``object_buckets`` off).  Holds every stored plane of sites 0-1 against
-    the written pixels (colour through :func:`gray15`) and of sites 2-8
-    against the manifest's sha256 of the reference's decode, each
+    PGM, the PPM and two JPEGs by the port's ``ImageWriter`` and the
+    SGILog TIFFs by :func:`decode_well_sgilog`, the rest from
+    :data:`DECODE_WELL_DIR`).  ``workflow submit --device`` runs
+    metaconfig (``pattern``, rows of :data:`DECODE_WELL_ROW` sites),
+    imextract and jterator (config 3, ``max_objects=256``) with the launch
+    counters set to 0 just before and read just after (1, 1, 1, 2: one
+    batch at ``max_objects``, ``object_buckets`` off).  Holds the host's
+    SGILog luminances to :data:`SGILOG_LUMINANCE_DIGEST`, every stored
+    plane of sites 0-1 against the written pixels (colour through
+    :func:`gray15`) and of sites 2-14 against the manifest's sha256 of the
+    reference's decode (a float decode: the store's uint16 plane against
+    ``stored_sha256``, the host's float plane against ``sha256``), each
     port-written JPEG's bytes against the manifest's sha256 of
     ``cv2.imencode``'s stream, the card's labels exactly and its features
     within ``CARD_TIERS`` against the port's CPU run of the same well.
@@ -6288,13 +6360,18 @@ def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict
 
     started = time.perf_counter()
     size = px["DAPI"].shape[-1]
+    n_sites = max(site for site, _ in DECODE_WELL) + 1
     src = base / "decode_well"
     src.mkdir(parents=True)
     expected = decode_well_tiffs(container_writers, src, {ch: px[ch][:4] for ch in ("DAPI", "Actin")})
     t0 = time.perf_counter()
     jpegs = decode_well_port_files(container_writers, writers, src,
-                                   {ch: px[ch][:9] for ch in ("DAPI", "Actin")})
+                                   {ch: px[ch][:n_sites] for ch in ("DAPI", "Actin")})
     write_s = time.perf_counter() - t0
+    l16, l10 = native.sgilog_luminances()
+    if hashlib.sha256(l16.tobytes() + l10.tobytes()).hexdigest() != SGILOG_LUMINANCE_DIGEST:
+        raise SmokeFailure("decode well: this host's exp gives other SGILog luminances than "
+                           "the manifest's machine (ROADMAP C: the LogLuv planes' libm envelope)")
     manifest = json.loads((DECODE_WELL_DIR / "manifest.json").read_text())
     digests_by_file = {e["file"]: e for e in manifest["files"]}
     for name, e in digests_by_file.items():
@@ -6309,7 +6386,8 @@ def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict
                                f"cv2.imencode's {digests_by_file[name]['stream_sha256']}")
     store, submit_s, launches = config3_well(
         torch, wrappers, device, base, "decode_well",
-        {"source_dir": str(src), "pattern": DECODE_WELL_PATTERN})
+        {"source_dir": str(src), "pattern": DECODE_WELL_PATTERN,
+         "sites_per_well_x": DECODE_WELL_ROW})
     mapping = json.loads((store.workflow_dir / "metaconfig" / "file_mapping.json").read_text())
     by_name = {v[0]: k for k, v in DECODE_WELL.items()}
     if sorted(Path(e["path"]).name for e in mapping) != sorted(by_name):
@@ -6318,7 +6396,19 @@ def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict
         name = Path(e["path"]).name
         plane = store.read_sites([e["site_index"]],
                                  channel=store.experiment.channel_index(by_name[name][1]))[0]
-        if name in digests_by_file:
+        if name in digests_by_file and "stored_sha256" in digests_by_file[name]:
+            # a float plane: the store holds its uint16 cast, the host's decode
+            # is held float for float
+            want = digests_by_file[name]
+            got = hashlib.sha256(np.ascontiguousarray(plane, np.uint16).tobytes()).hexdigest()
+            host = ImageExtractor._read_plane(str(src / name), None, size, size)
+            host_got = hashlib.sha256(np.ascontiguousarray(host).tobytes()).hexdigest()
+            if got != want["stored_sha256"] or host_got != want["sha256"] or \
+                    str(host.dtype) != want["dtype"]:
+                raise SmokeFailure(f"decode well: {name} ({want['variant']}) stores {got} and "
+                                   f"decodes to {host_got}, not the reference's "
+                                   f"{want['stored_sha256']} and {want['sha256']}")
+        elif name in digests_by_file:
             want = digests_by_file[name]
             top = np.iinfo(want["dtype"]).max
             got = hashlib.sha256(np.ascontiguousarray(plane.astype(want["dtype"])).tobytes()
@@ -6344,8 +6434,10 @@ def decode_well_run(torch, wrappers, card, device, px: dict, base: Path) -> dict
     large = decode_large_pages(container_writers, src, px, ImageExtractor)
     encode = jpeg_encode_rates(native, px)
     well_s = time.perf_counter() - started
-    print(f"  decode well ({len(DECODE_WELL)} files, 3x3 sites of {size}x{size}, DAPI and "
-          f"Actin, {well_s:.1f} s; the port wrote 7 of them in {write_s:.2f} s, its JPEGs "
+    print(f"  decode well ({len(DECODE_WELL)} files, {n_sites // DECODE_WELL_ROW}x"
+          f"{DECODE_WELL_ROW} sites of {size}x{size}, DAPI and Actin, {well_s:.1f} s; the port "
+          f"wrote {sum(not e['committed'] for e in manifest['files'])} of them in {write_s:.2f} s, "
+          "its JPEGs "
           "byte-identical to cv2.imencode's): metaconfig (pattern) -> imextract -> jterator "
           f"(config 3) through `workflow submit --device {device}` in {submit_s:.2f} s; "
           f"launches { {k: v for k, v in launches.items() if v} } over 1 batch; every plane "

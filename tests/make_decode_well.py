@@ -4,30 +4,34 @@ into ``tests/data/decode_well/``, with ``manifest.json``.
 The card's machine has no cv2 and no JAX package, so what only cv2 (or a
 writer here) can make is committed, and every digest is: the JPEG family
 of sites 2-3 (encoded by cv2), the 8-bit palette PNG and the 16-bit Adam7
-PNG of site 4 and the RLE4 BMP of site 6 (written here).  The smoke
-writes the rest itself: the four TIFFs of sites 0-1
-(``chip_smoke.decode_well_tiffs``, held to their pixels) and the TIFFs,
-PGM, PPM and JPEGs of sites 5-8 (``chip_smoke.decode_well_port_files``,
-with the port's ``ImageWriter``), which this script writes the same way
-to take their digests.  The sites are the first 9 of
-``benchmarks.synthetic_cell_painting_batch(384, size=256, seed=0)``,
-phase 13's plate; 8-bit variants cut each plane as ``min(v >> 4, 255)``
-and colour ones give it R = v, G = 3v/4, B = v/2
+PNG of site 4, the RLE4 BMP of site 6 (written here) and the JPEG streams
+of sites 9-12 and 14 that the port's encoder does not write (arithmetic-
+coded and lossless by ``tests/jpeg_streams.py``, CMYK and YCCK by Pillow,
+progressive streams cut short).  The smoke writes the rest itself: the
+four TIFFs of sites 0-1 (``chip_smoke.decode_well_tiffs``, held to their
+pixels), and the TIFFs, PGM, PPM and JPEGs of sites 5-8 and the SGILog
+TIFFs of sites 12-14 (``chip_smoke.decode_well_port_files``, with the
+port's ``ImageWriter`` and ``container_writers.write_sgilog_tiff``), which
+this script writes the same way to take their digests.  The sites are the
+first 15 of ``benchmarks.synthetic_cell_painting_batch(384, size=256,
+seed=0)``, phase 13's plate; 8-bit variants cut each plane as ``min(v >>
+4, 255)`` and colour ones give it R = v, G = 3v/4, B = v/2
 (``chip_smoke.decode_well_colour``).  The manifest holds each file of
-sites 2-8 with its variant, whether it is committed, the shape, dtype and
+sites 2-14 with its variant, whether it is committed, the shape, dtype and
 sha256 of the reference's decode of it (``tmlibrary_tpu``'s
-``ImageExtractor._read_plane``), and for the port's JPEGs the sha256 of
-``cv2.imencode``'s stream of the same array, which the smoke holds the
-card machine's files against.
+``ImageExtractor._read_plane``; for a float decode also
+``stored_sha256``, that of the uint16 plane imextract stores), and for
+the port's JPEGs the sha256 of ``cv2.imencode``'s stream of the same
+array, which the smoke holds the card machine's files against.
 
-Run from the repository root, on a machine with cv2 and the JAX
+Run from the repository root, on a machine with cv2, Pillow and the JAX
 package::
 
     python tests/make_decode_well.py
 
-It writes the same bytes on every run (cv2's encoder is deterministic,
-the sites are seeded); ``tests/test_torch_decode.py`` checks that the
-committed files and the smoke's decode to the manifest.
+It writes the same bytes on every run (cv2's and Pillow's encoders are
+deterministic, the sites are seeded); ``tests/test_torch_decode.py``
+checks that the committed files and the smoke's decode to the manifest.
 """
 
 from __future__ import annotations
@@ -48,15 +52,15 @@ if str(ROOT) not in sys.path:
 import chip_smoke  # noqa: E402
 from tmlibrary_tpu_torch import container_writers, writers  # noqa: E402
 
-#: phase 13's plate: its first 9 sites are the decode well's
-PLATE_SITES, SIZE, WELL_SITES = 384, 256, 9
+#: phase 13's plate: its first 15 sites are the decode well's
+PLATE_SITES, SIZE, WELL_SITES = 384, 256, 15
 #: the JPEG-in-TIFF's tiles, multiples of 16 that leave edge tiles at 256
 JPEG_TIFF_TILE = (112, 96)
 QUALITY = 90
 
 
 def well_sites(n: int = PLATE_SITES, size: int = SIZE) -> dict:
-    """The first 9 sites of the seeded plate, uint16 as phase 13 casts them."""
+    """The first 15 sites of the seeded plate, uint16 as phase 13 casts them."""
     from tmlibrary_tpu_torch import benchmarks
 
     data = benchmarks.synthetic_cell_painting_batch(n, size=size, seed=0)
@@ -173,6 +177,72 @@ def committed_family(px: dict) -> dict:
     }
 
 
+def stream_family(px: dict) -> dict:
+    """File name -> bytes of the well's JPEG streams of sites 9-12 and 14,
+    which the port's encoder does not write: arithmetic-coded (sequential
+    with restarts, progressive 4:2:0, 4:2:2 under DAC conditioning) and
+    lossless streams by ``tests/jpeg_streams.py``, Pillow's Adobe CMYK
+    stream and one read as YCCK (YCbCr of the inverted colours and K 255,
+    Adobe transform 2), and progressive streams cut short, which libjpeg
+    block-smooths (cv2's 4:2:0 after its DC scan, an arithmetic grey one
+    after its first AC scan)."""
+    import io
+
+    import cv2
+    from PIL import Image
+
+    import jpeg_streams as js
+
+    names = {k: v[0] for k, v in chip_smoke.DECODE_WELL.items()}
+    v8, bgr = chip_smoke.decode_well_v8, chip_smoke.decode_well_bgr
+    q = js.quality_table(js.STD_LUMA_Q, QUALITY)
+    cq = js.quality_table(js.STD_CHROMA_Q, QUALITY)
+
+    def grey(plane):
+        geom = js.Geometry(*plane.shape, [(1, 1)])
+        return geom, js.dct_coefficients(geom, [plane], [q]), [q]
+
+    def colour(img, factors):
+        ycc = cv2.cvtColor(img, cv2.COLOR_BGR2YCrCb)
+        geom = js.Geometry(*img.shape[:2], factors)
+        tables = [q, cq, cq]
+        return geom, js.dct_coefficients(geom, [ycc[..., 0], ycc[..., 2], ycc[..., 1]],
+                                         tables), tables
+
+    def pillow_cmyk(planes) -> bytes:
+        """The four planes as a stream stores them (Pillow inverts CMYK
+        as it writes it, the Adobe convention)."""
+        buf = io.BytesIO()
+        Image.fromarray(255 - np.stack(planes, -1).astype(np.uint8), "CMYK").save(
+            buf, "JPEG", quality=75)
+        return buf.getvalue()
+
+    out = {names[9, "DAPI"]: js.arith_stream(*grey(v8(px["DAPI"][9])), restart=8),
+           names[9, "Actin"]: js.arith_stream(*colour(bgr(v8(px["Actin"][9])),
+                                                      [(2, 2), (1, 1), (1, 1)]),
+                                              progressive=True),
+           names[10, "DAPI"]: js.lossless_stream([v8(px["DAPI"][10])], psv=7, pt=1,
+                                                 table="optimal"),
+           names[14, "Actin"]: js.arith_stream(*colour(bgr(v8(px["Actin"][14])),
+                                                       [(2, 1), (1, 1), (1, 1)]),
+                                               conditioning={"L": [1] * 16, "U": [4] * 16,
+                                                             "K": [2] * 16})}
+    r, g, b = chip_smoke.decode_well_colour(v8(px["Actin"][10]))
+    k = np.full_like(r, 255)
+    out[names[10, "Actin"]] = pillow_cmyk([r, g, b, k])
+    inverted = 255 - bgr(v8(px["DAPI"][11]))
+    ycc = cv2.cvtColor(inverted, cv2.COLOR_BGR2YCrCb)
+    out[names[11, "DAPI"]] = js.set_adobe_transform(
+        pillow_cmyk([ycc[..., 0], ycc[..., 2], ycc[..., 1], k]), 2)
+    progressive = cv2.imencode(".jpg", bgr(v8(px["Actin"][11])), [
+        cv2.IMWRITE_JPEG_QUALITY, QUALITY, cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+        cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420])[1].tobytes()
+    out[names[11, "Actin"]] = js.cut_after_scans(progressive, 1)
+    out[names[12, "DAPI"]] = js.cut_after_scans(
+        js.arith_stream(*grey(v8(px["DAPI"][12])), progressive=True), 2)
+    return out
+
+
 def reference_decode(path: Path, size: int) -> np.ndarray:
     """The JAX package's plane of ``path``, as its imextract reads it."""
     from tmlibrary_tpu.workflow.steps.imextract import ImageExtractor
@@ -183,19 +253,23 @@ def reference_decode(path: Path, size: int) -> np.ndarray:
 def manifest_entry(path: Path, site: int, channel: str, variant: str, size: int,
                    committed: bool) -> dict:
     plane = reference_decode(path, size)
-    return {"file": path.name, "site": site, "channel": channel, "variant": variant,
-            "committed": committed, "shape": list(plane.shape), "dtype": str(plane.dtype),
-            "sha256": hashlib.sha256(np.ascontiguousarray(plane).tobytes()).hexdigest()}
+    entry = {"file": path.name, "site": site, "channel": channel, "variant": variant,
+             "committed": committed, "shape": list(plane.shape), "dtype": str(plane.dtype),
+             "sha256": hashlib.sha256(np.ascontiguousarray(plane).tobytes()).hexdigest()}
+    if plane.dtype.kind == "f":  # what imextract stores of it
+        entry["stored_sha256"] = hashlib.sha256(
+            np.ascontiguousarray(np.asarray(plane, np.uint16)).tobytes()).hexdigest()
+    return entry
 
 
 def manifest_entries(px: dict, out_dir: Path, written: Path, size: int = SIZE) -> list:
-    """The manifest's entries for sites 2-8 (committed files in
+    """The manifest's entries for sites 2-14 (committed files in
     ``out_dir``, the smoke's in ``written``): the reference's decode of
     each, ``cv2.imencode``'s stream of each port-written JPEG."""
     import cv2
 
     jpegs = chip_smoke.decode_well_port_files(container_writers, writers, written, px)
-    committed = set(jpeg_family(px)) | set(committed_family(px))
+    committed = set(jpeg_family(px)) | set(committed_family(px)) | set(stream_family(px))
     entries = []
     for (site, channel), (name, variant) in sorted(chip_smoke.DECODE_WELL.items()):
         if site < 2:
@@ -214,13 +288,13 @@ def main() -> int:
     out_dir = chip_smoke.DECODE_WELL_DIR
     out_dir.mkdir(parents=True, exist_ok=True)
     px = well_sites()
-    files = {**jpeg_family(px), **committed_family(px)}
+    files = {**jpeg_family(px), **committed_family(px), **stream_family(px)}
     for name, blob in files.items():
         (out_dir / name).write_bytes(blob)
     with tempfile.TemporaryDirectory() as tmp:
         entries = manifest_entries(px, out_dir, Path(tmp))
     (out_dir / "manifest.json").write_text(json.dumps(
-        {"source": "the first 9 sites of benchmarks.synthetic_cell_painting_batch(384, "
+        {"source": "the first 15 sites of benchmarks.synthetic_cell_painting_batch(384, "
                    "size=256, seed=0), 8-bit variants cut as min(v >> 4, 255)",
          "files": entries}, indent=1) + "\n")
     total = sum((out_dir / name).stat().st_size for name in files)

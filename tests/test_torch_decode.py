@@ -13,8 +13,7 @@ each recorded in ROADMAP C: a planar 16/32/64-bit TIFF (cv2 reads it from
 memory it never wrote; the port returns the stored samples), page k > 0
 through ``ImageReader.read`` (the reference returns page 0; the port is
 held to ``cv2.imreadmulti``), and what the port refuses where cv2 reads
-(arithmetic-coded JPEG, old-style JPEG TIFF, a progressive stream whose
-scans stop early).  Sizes are
+(old-style JPEG TIFF).  Sizes are
 small (at most 96x96, odd shapes such as 37x53).  Tolerance: exact
 (features of the slice test: ``FEATURE_TIERS``).
 """
@@ -33,7 +32,7 @@ import make_decode_well
 import test_czi
 import test_stk
 from chip_smoke import (
-    DECODE_WELL, DECODE_WELL_DIR, DECODE_WELL_PATTERN, decode_well_colour,
+    DECODE_WELL, DECODE_WELL_DIR, DECODE_WELL_PATTERN, DECODE_WELL_ROW, decode_well_colour,
     decode_well_port_files, decode_well_tiffs, gray15,
 )
 from test_torch_ingest import ingest
@@ -234,18 +233,14 @@ def jpeg_mutations(blob: bytes, rng, flips: int, cuts: int):
         yield blob[:int(rng.integers(1, len(blob)))]
 
 
-#: the refusal a damaged stream may meet where cv2 decodes it (ROADMAP C)
-SMOOTHING = "block smoothing"
-
-
 @pytest.mark.parametrize("rst", [0, 2])
 @pytest.mark.parametrize("progressive", [False, True])
 @pytest.mark.parametrize("sampling", ["420", "422", "411"])
 def test_damaged_streams_decode_as_libjpeg(sampling, progressive, rst):
     """``tests/test_torch_jpeg.py``'s damage test on colour and
     progressive streams: byte flips (markers, tables, scan headers,
-    entropy data) and truncations give cv2's pixels, or an error in both,
-    or the block-smoothing refusal (ROADMAP C)."""
+    entropy data) and truncations give cv2's pixels (block-smoothed where
+    a flip ends the scans early), or an error in both."""
     rng = np.random.default_rng(sorted(SAMPLINGS).index(sampling) * 4 + progressive * 2
                                 + (rst > 0))
     img = rng.integers(0, 255, (40, 56, 3)).astype(np.uint8)
@@ -253,7 +248,7 @@ def test_damaged_streams_decode_as_libjpeg(sampling, progressive, rst):
     for i, m in enumerate(jpeg_mutations(stream, rng, 100, 20)):
         want, got = cv2_decode(m), port_decode(m)
         if isinstance(got, str):
-            assert want is None or SMOOTHING in got, (i, got)
+            assert want is None, (i, got)
         else:
             assert want is not None, i
             assert_same(got, want, str(i))
@@ -261,18 +256,26 @@ def test_damaged_streams_decode_as_libjpeg(sampling, progressive, rst):
 
 def test_early_stopping_progressive_stream_is_refused():
     """A progressive stream cut after its DC scans reaches EOI with its
-    AC coefficients unrefined: libjpeg would smooth the blocks
-    (``jdcoefct.c``), cv2.imread decodes it; the port refuses it."""
+    AC coefficients unrefined: libjpeg smooths the blocks (``jdcoefct.c``
+    ``decompress_smooth_data``), which the port once refused; it now
+    decodes to cv2's pixels."""
     img = colour_image("smooth", (32, 40), 0)
     stream = encode(img, 90, "420", True)
     second_sos = stream.index(b"\xff\xda", stream.index(b"\xff\xda") + 2)
     cut = stream[:stream.rindex(b"\xff", 0, second_sos)] + b"\xff\xd9"
-    assert cv2_decode(cut) is not None
-    with pytest.raises(MetadataError, match=SMOOTHING):
-        native.jpeg_decode_array(cut)
+    want = cv2_decode(cut)
+    assert want is not None
+    assert_same(native.jpeg_decode_array(cut), want)
+    full = native.jpeg_decode_array(stream)
+    assert not np.array_equal(full, want)  # the smoothed image is not the full one
 
 
 def test_refused_streams_name_the_feature():
+    """What cv2 reads no image of raises naming the feature: hierarchical
+    and 12-bit streams, a DCT stream relabelled lossless.  A baseline
+    stream relabelled arithmetic-coded (SOF9) and one whose SOF declares a
+    fourth component it never codes (read as CMYK) were refused once and
+    now decode to cv2's pixels (the rest: ``tests/test_torch_jpeg_streams.py``)."""
     img = colour_image("smooth", (24, 32), 0)
     base = encode(img, 90, "420")
     sof = base.index(b"\xff\xc0")
@@ -280,15 +283,21 @@ def test_refused_streams_name_the_feature():
     # a fourth component (CMYK/YCCK's count) in the SOF
     four = (base[:sof + 2] + struct.pack(">H", length + 3) + base[sof + 4:sof + 9] + b"\x04"
             + base[sof + 10:sof + 2 + length] + b"\x04\x11\x00" + base[sof + 2 + length:])
-    cases = {
-        "arithmetic-coded": base[:sof] + b"\xff\xc9" + base[sof + 2:],
+    twelve = bytearray(base)
+    twelve[sof + 4] = 12
+    refused = {
         "lossless": base[:sof] + b"\xff\xc3" + base[sof + 2:],
         "hierarchical": base[:sof] + b"\xff\xc5" + base[sof + 2:],
-        "4-component \\(CMYK/YCCK\\)": four,
+        "12-bit JPEG": bytes(twelve),
     }
-    for what, stream in cases.items():
+    for what, stream in refused.items():
+        assert cv2_decode(stream) is None, what
         with pytest.raises(MetadataError, match=what):
             native.jpeg_decode_array(stream)
+    for stream in (base[:sof] + b"\xff\xc9" + base[sof + 2:], four):
+        want = cv2_decode(stream)
+        assert want is not None
+        assert_same(native.jpeg_decode_array(stream), want)
 
 
 @pytest.mark.parametrize("progressive", [False, True])
@@ -769,29 +778,33 @@ def run_jterator(store, port: bool, max_objects: int):
 
 def test_the_decode_well_through_ingest_and_config_3(tmp_path):
     """``chip_smoke.py`` phase 13's decode well at 96x96 on the CPU: the
-    18 variants (TIFF, JPEG, PNG, BMP, PGM, PPM, the port's ImageWriter
-    JPEGs) through both packages' metaconfig (``pattern``), imextract and
-    jterator config 3.  The stores are equal plane for plane, save the
-    planar 16-bit RGB file (the reference's cv2 reads it from
-    uninitialised memory), which equals its written pixels through the
-    integer colour formula; with that plane set in the reference's store
-    as well, the labels are equal bit for bit and the features within
-    ``FEATURE_TIERS``."""
-    data = benchmarks.synthetic_cell_painting_batch(9, size=96, seed=0)
+    30 variants (TIFF, JPEG, PNG, BMP, PGM, PPM, the port's ImageWriter
+    JPEGs, arithmetic-coded, lossless, CMYK, YCCK and block-smoothed JPEG,
+    SGILog TIFF) through both packages' metaconfig (``pattern``, rows of 3
+    sites), imextract and jterator config 3.  The stores are equal plane
+    for plane, save the planar 16-bit RGB file (the reference's cv2 reads
+    it from uninitialised memory), which equals its written pixels through
+    the integer colour formula; with that plane set in the reference's
+    store as well, the labels are equal bit for bit and the features
+    within ``FEATURE_TIERS``."""
+    n_sites = max(site for site, _ in DECODE_WELL) + 1
+    data = benchmarks.synthetic_cell_painting_batch(n_sites, size=96, seed=0)
     px = {ch: data[ch].astype(np.uint16) for ch in ("DAPI", "Actin")}
     src = tmp_path / "src"
     src.mkdir()
     expected = decode_well_tiffs(container_writers, src, px)
     decode_well_port_files(container_writers, writers, src, px)
     for name, blob in {**make_decode_well.jpeg_family(px),
-                       **make_decode_well.committed_family(px)}.items():
+                       **make_decode_well.committed_family(px),
+                       **make_decode_well.stream_family(px)}.items():
         (src / name).write_bytes(blob)
     assert sorted(p.name for p in src.iterdir()) == sorted(v[0] for v in DECODE_WELL.values())
-    args = {"source_dir": str(src), "pattern": DECODE_WELL_PATTERN}
+    args = {"source_dir": str(src), "pattern": DECODE_WELL_PATTERN,
+            "sites_per_well_x": DECODE_WELL_ROW}
     assert ingest(tmp_path / "port", args, port=True) == ingest(tmp_path / "ref", args,
                                                                 port=False)
     port, ref = ExperimentStore.open(tmp_path / "port"), JStore.open(tmp_path / "ref")
-    assert port.n_sites == 9
+    assert port.n_sites == n_sites
     mapping = json.loads((tmp_path / "port" / "workflow" / "metaconfig" /
                           "file_mapping.json").read_text())
     by_name = {v[0]: k for k, v in DECODE_WELL.items()}
@@ -816,13 +829,14 @@ def test_the_decode_well_through_ingest_and_config_3(tmp_path):
 
 def test_the_committed_fixtures_decode_to_the_manifest(tmp_path):
     """``tests/data/decode_well/``: the manifest lists every file of sites
-    2-8; each committed one and each the smoke writes
+    2-14; each committed one and each the smoke writes
     (``chip_smoke.decode_well_port_files``, written here the same way)
     decodes, in the reference and in the port, to the manifest's dtype,
-    shape and sha256; the port's JPEGs hash to ``cv2.imencode``'s stream
-    of the same array; the committed set stays under 256 KiB; the
-    JPEG-in-TIFF's tables and tiles are as ``make_decode_well.py`` writes
-    them."""
+    shape and sha256 (a float plane's uint16 cast, which imextract stores,
+    to ``stored_sha256`` too); the port's JPEGs hash to ``cv2.imencode``'s
+    stream of the same array; the committed set stays under 256 KiB and is
+    what ``make_decode_well.py`` writes; the JPEG-in-TIFF's tables and
+    tiles are as it writes them."""
     manifest = json.loads((DECODE_WELL_DIR / "manifest.json").read_text())
     files = {e["file"]: e for e in manifest["files"]}
     assert sorted(files) == sorted(v[0] for k, v in DECODE_WELL.items() if k[0] >= 2)
@@ -838,6 +852,10 @@ def test_the_committed_fixtures_decode_to_the_manifest(tmp_path):
             assert str(plane.dtype) == e["dtype"] and list(plane.shape) == e["shape"]
             assert hashlib.sha256(np.ascontiguousarray(plane).tobytes()).hexdigest() == \
                 e["sha256"], name
+            assert ("stored_sha256" in e) == (plane.dtype.kind == "f"), name
+            if "stored_sha256" in e:
+                stored = np.ascontiguousarray(np.asarray(plane, np.uint16))
+                assert hashlib.sha256(stored.tobytes()).hexdigest() == e["stored_sha256"]
         assert DECODE_WELL[e["site"], e["channel"]] == (name, e["variant"])
         if name in jpegs:
             stream = cv2.imencode(".jpg", jpegs[name])[1].tobytes()
@@ -845,6 +863,8 @@ def test_the_committed_fixtures_decode_to_the_manifest(tmp_path):
             assert hashlib.sha256(stream).hexdigest() == e["stream_sha256"]
     assert set(jpegs) == {n for n, e in files.items() if "stream_sha256" in e}
     assert total < 256 * 1024
+    for name, blob in make_decode_well.stream_family(px).items():
+        assert (DECODE_WELL_DIR / name).read_bytes() == blob, name
     tiff = readers.read_tiff_page_cv2(DECODE_WELL_DIR / DECODE_WELL[3, "Actin"][0], 0)
     assert tiff.shape == (256, 256, 3)
 

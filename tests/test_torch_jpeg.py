@@ -8,10 +8,11 @@ IMREAD_UNCHANGED)`` decodes them; so do byte flips and truncations of
 them (the same pixels, or an error in both).  The port's encoder
 (integer forward DCT) writes streams that cv2 and the port decode alike,
 and phase 13's JPEG sites hash to ``chip_smoke.JPEG_DIGEST``.
-Progressive and colour streams decode as cv2 decodes them (their full
-coverage is ``tests/test_torch_decode.py``); arithmetic-coded, lossless,
-hierarchical and 12-bit streams are refused naming the feature (cv2
-decodes some of them: ROADMAP C).  ``tests/test_czi.py:522-570`` is
+Progressive, colour and arithmetic-coded streams decode as cv2 decodes
+them (their full coverage is ``tests/test_torch_decode.py`` and
+``tests/test_torch_jpeg_streams.py``); what cv2 reads no image of --
+hierarchical and 12-bit streams, a DCT stream relabelled lossless -- is
+refused naming the feature.  ``tests/test_czi.py:522-570`` is
 mirrored for the port.  Tolerance: exact.
 """
 
@@ -115,9 +116,9 @@ def refused_streams() -> dict:
     }
 
 
-#: cases the decoder refused until it read progressive and colour streams:
-#: they now decode as cv2 decodes them
-DECODED = ("progressive", "colour")
+#: cases the decoder refused until it read progressive, colour and
+#: arithmetic-coded streams: they now decode as cv2 decodes them
+DECODED = ("progressive", "colour", "arithmetic")
 
 
 @pytest.mark.parametrize("case", sorted(refused_streams()))
@@ -128,6 +129,7 @@ def test_refusals_name_the_feature(case):
         assert want is not None
         np.testing.assert_array_equal(native.jpeg_decode_array(stream), want)
         return
+    assert cv2_decode(stream) is None
     with pytest.raises(MetadataError, match=what):
         native.jpeg_decode(stream)
 

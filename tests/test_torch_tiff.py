@@ -186,11 +186,12 @@ def test_container_suffixes_raise(tmp_path, suffix):
 
 
 def test_files_no_reader_takes_raise_naming_their_format(tmp_path):
-    """A colour JPEG, an RGB TIFF and a float TIFF were refused here until
-    the port read what cv2 reads: they now equal the JAX package's
-    ``_read_plane``.  An arithmetic-coded JPEG (which cv2 reads: ROADMAP
-    C) and a file of no known format raise naming their format (the TIFF
-    pages both refuse: ``tests/test_torch_decode.py``)."""
+    """A colour JPEG, an RGB TIFF, a float TIFF and a baseline stream
+    relabelled arithmetic-coded (SOF9) were refused here until the port
+    read what cv2 reads: they now equal the JAX package's ``_read_plane``.
+    A hierarchical JPEG (which cv2 reads no image of) and a file of no
+    known format raise naming their format (the TIFF pages both refuse:
+    ``tests/test_torch_decode.py``)."""
     rng = np.random.default_rng(2)
     rgb = rng.integers(0, 255, (16, 16, 3)).astype(np.uint8)
     cv2.imwrite(str(tmp_path / "x.jpg"), rgb)
@@ -204,17 +205,20 @@ def test_files_no_reader_takes_raise_naming_their_format(tmp_path):
     base = cv2.imencode(".jpg", rgb)[1].tobytes()
     sof = base.index(b"\xff\xc0")
     (tmp_path / "a.jpg").write_bytes(base[:sof] + b"\xff\xc9" + base[sof + 2:])
+    (tmp_path / "h.jpg").write_bytes(base[:sof] + b"\xff\xc5" + base[sof + 2:])
     (tmp_path / "x.bin").write_bytes(b"\x00\x01junk")
-    cases = {"a.jpg": "JPEG", "x.bin": "unknown format"}
+    cases = {"h.jpg": "JPEG", "x.bin": "unknown format"}
     for name, fmt in cases.items():
         with pytest.raises(MetadataError, match=fmt) as err:
             ImageExtractor._read_plane(str(tmp_path / name), None, 16, 16)
         assert name in str(err.value)
-    with pytest.raises(Exception):
-        JExtractor._read_plane(str(tmp_path / "x.bin"), None, 16, 16)
-    with pytest.raises(MetadataError, match="arithmetic-coded"):  # cv2 reads it: ROADMAP C
-        ImageExtractor._read_plane(str(tmp_path / "a.jpg"), None, 16, 16)
-    assert JExtractor._read_plane(str(tmp_path / "a.jpg"), None, 16, 16).shape == (16, 16)
+    for name in ("x.bin", "h.jpg"):
+        with pytest.raises(Exception):
+            JExtractor._read_plane(str(tmp_path / name), None, 16, 16)
+    want = JExtractor._read_plane(str(tmp_path / "a.jpg"), None, 16, 16)
+    assert want.shape == (16, 16)  # the SOF9 stream decodes to cv2's pixels
+    np.testing.assert_array_equal(ImageExtractor._read_plane(str(tmp_path / "a.jpg"), None, 16, 16),
+                                  want)
 
 
 @pytest.mark.parametrize("suffix", [".tif", ".png"])

@@ -19,7 +19,8 @@ does through ``h5py``, and :func:`write_jpeg_sites` a directory of grey
 ``.jpg`` site files.  :func:`write_tiff` writes the TIFF layouts beyond
 the grey strips (tiles, colour, planar, float, JPEG chunks given whole)
 with struct and zlib, for the decode of what the JAX package hands to
-``cv2``.
+``cv2``, and :func:`write_sgilog_tiff` a LogL or LogLuv page in libtiff's
+SGILog coding from integer codes.
 """
 
 from __future__ import annotations
@@ -1145,3 +1146,85 @@ def write_tiff(path, pages, *, photometric=None, planar=1, tile=None, rows_per_s
         header = (b"II" if bo == "<" else b"MM") + struct.pack(bo + "HI", 42, ifd_offsets[0])
     with open(path, "wb") as f:
         f.write(header + bytes(body) + bytes(out))
+
+
+def _rle_plane(data: bytes, min_run: int = 4) -> bytes:
+    """One byte plane of a row as libtiff's SGILog encoder codes it: runs
+    of ``min_run`` or more equal bytes (at most 129) as ``128 + n - 2``
+    and the byte, the bytes between as literals of at most 127 after
+    their count."""
+    out = bytearray()
+    lit = bytearray()
+
+    def flush():
+        for j in range(0, len(lit), 127):
+            chunk = lit[j:j + 127]
+            out.append(len(chunk))
+            out.extend(chunk)
+        lit.clear()
+
+    i, n = 0, len(data)
+    while i < n:
+        run = 1
+        while i + run < n and run < 129 and data[i + run] == data[i]:
+            run += 1
+        if run >= min_run:
+            flush()
+            out += bytes([128 + run - 2, data[i]])
+            i += run
+        else:
+            lit.append(data[i])
+            i += 1
+    flush()
+    return bytes(out)
+
+
+#: :func:`write_sgilog_tiff`'s kinds: (photometric, compression, bytes a
+#: code, run-length coded)
+SGILOG_KINDS = {"L16": (32844, 34676, 2, True), "Luv32": (32845, 34676, 4, True),
+                "Luv24": (32845, 34677, 3, False)}
+
+
+def sgilog_chunk(codes: np.ndarray, kind: str) -> bytes:
+    """Rows of integer codes as one SGILog strip or tile: each row's byte
+    planes (most significant first) run-length coded for LogL16 and
+    LogLuv32 (34676), three bytes a pixel for LogLuv24 (34677)."""
+    _, _, nbytes, rle = SGILOG_KINDS[kind]
+    c = np.asarray(codes).astype(np.int64) & ((1 << (8 * nbytes)) - 1)
+    if not rle:
+        return np.stack([(c >> 16) & 0xFF, (c >> 8) & 0xFF, c & 0xFF], -1).astype(
+            np.uint8).tobytes()
+    out = bytearray()
+    for row in c:
+        for shift in range(8 * (nbytes - 1), -1, -8):
+            out += _rle_plane(((row >> shift) & 0xFF).astype(np.uint8).tobytes())
+    return bytes(out)
+
+
+def write_sgilog_tiff(path, codes: np.ndarray, kind: str, *, rows_per_strip=None, tile=None,
+                      dtype=np.int16, orientation=None) -> None:
+    """A one-page SGILog TIFF of ``(H, W)`` integer ``codes``: ``kind``
+    ``"L16"`` (LogL, 34676: sign and 15-bit log luminance), ``"Luv32"``
+    (LogLuv, 34676: that, then 8-bit u and v) or ``"Luv24"`` (LogLuv,
+    34677: 10-bit log luminance and a 14-bit (u', v') index), as libtiff's
+    ``tif_luv.c`` writes them; ``dtype`` gives the BitsPerSample and
+    SampleFormat tags (int16 as cv2's writer leaves them)."""
+    phot, compression, _, _ = SGILOG_KINDS[kind]
+    codes = np.asarray(codes)
+    h, w = codes.shape
+    if tile:
+        th, tw = tile
+        chunks = []
+        for y in range(0, h, th):
+            for x in range(0, w, tw):
+                blk = np.zeros((th, tw), np.int64)
+                part = codes[y:y + th, x:x + tw]
+                blk[:part.shape[0], :part.shape[1]] = part
+                chunks.append(sgilog_chunk(blk, kind))
+    else:
+        rps = rows_per_strip or h
+        chunks = [sgilog_chunk(codes[y:y + rps], kind) for y in range(0, h, rps)]
+    spp = 1 if kind == "L16" else 3
+    page = np.zeros((h, w, spp) if spp > 1 else (h, w), dtype)
+    write_tiff(path, [page], photometric=phot, compression=compression, tile=tile,
+               rows_per_strip=rows_per_strip, chunks=[chunks], orientation=orientation)

@@ -2,9 +2,10 @@
 ``Morphology_solidity``, the TIFF reader behind imextract, the spatial
 layout's boundary trace and mosaic accumulators, the Douglas-Peucker
 simplification behind ``export --simplify``, and the codecs of the
-microscope containers: Zstandard (CZI zstd0/zstd1 subblocks), grey
-baseline JPEG (CZI JPEG subblocks and ``.jpg`` site files), and HDF5's
-lookup3 checksum and h5py's LZF filter (:mod:`tmlibrary_tpu_torch.io.hdf5`).
+microscope containers: Zstandard (CZI zstd0/zstd1 subblocks), JPEG (CZI
+JPEG subblocks, ``.jpg`` site files and JPEG-in-TIFF), libtiff's SGILog
+codec (LogL and LogLuv TIFF pages), and HDF5's lookup3 checksum and
+h5py's LZF filter (:mod:`tmlibrary_tpu_torch.io.hdf5`).
 
 Counterpart: ``tmlibrary_tpu/native.py`` ``hull_pixel_counts_host`` and
 ``solidity_host`` (``:323-392``), ``tiff_info``, ``tiff_read``,
@@ -23,8 +24,8 @@ features when a batch persists.
 The port keeps its own copy of the C++ (``csrc/host/hull.cpp``,
 ``csrc/host/tiff.cpp``, ``csrc/host/mosaic.cpp``,
 ``csrc/host/simplify.cpp``, ``csrc/host/zstd.cpp``,
-``csrc/host/jpeg.cpp``, ``csrc/host/hdf5.cpp`` and
-``csrc/host/raster.cpp``).  At first use they are compiled with the host
+``csrc/host/jpeg.cpp``, ``csrc/host/hdf5.cpp``, ``csrc/host/raster.cpp``
+and ``csrc/host/luv.cpp``).  At first use they are compiled with the host
 compiler (``c++``/``g++`` on the ``PATH``, else ``nvcc``) into one
 library in ``build/host/`` at the root of the checkout, named by a
 digest of the sources and flags (imported from the kernel-library
@@ -66,6 +67,7 @@ ZSTD_SRC = HOST_SRC.with_name("zstd.cpp")
 JPEG_SRC = HOST_SRC.with_name("jpeg.cpp")
 HDF5_SRC = HOST_SRC.with_name("hdf5.cpp")
 RASTER_SRC = HOST_SRC.with_name("raster.cpp")
+LUV_SRC = HOST_SRC.with_name("luv.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "host"
 FLAGS = ("-O3", "-std=c++17", "-shared")
 
@@ -89,7 +91,7 @@ def _compiler() -> list[str]:
 
 def _sources() -> tuple[Path, ...]:
     return (HOST_SRC, TIFF_SRC, MOSAIC_SRC, SIMPLIFY_SRC, ZSTD_SRC, JPEG_SRC, HDF5_SRC,
-            RASTER_SRC)
+            RASTER_SRC, LUV_SRC)
 
 
 def source_digest() -> str:
@@ -101,8 +103,8 @@ def source_digest() -> str:
 
 def build() -> Path:
     """Compile ``hull.cpp``, ``tiff.cpp``, ``mosaic.cpp``, ``simplify.cpp``,
-    ``zstd.cpp``, ``jpeg.cpp``, ``hdf5.cpp`` and ``raster.cpp`` into one
-    library (if its digest-named file is missing) and return the library
+    ``zstd.cpp``, ``jpeg.cpp``, ``hdf5.cpp``, ``raster.cpp`` and ``luv.cpp``
+    into one library (if its digest-named file is missing) and return the library
     path."""
     digest = source_digest()
     path = BUILD_DIR / f"libtmhost_{digest}.so"
@@ -150,7 +152,7 @@ def lib() -> ctypes.CDLL:
                                 ("tm_mosaic_morph", [ptr, i32, i32, i32, *[ptr] * 7]),
                                 ("tm_simplify_polygon", [ptr, i32, ctypes.c_double, ptr]),
                                 ("tm_jpeg_decode", [ptr, i64, ptr, ptr, i32]),
-                                ("tm_jpeg_header", [ptr, i64, ptr]),
+                                ("tm_jpeg_header", [ptr, i64, ptr, i32]),
                                 ("tm_png_unfilter", [ptr, i64, i64, i32, ptr]),
                                 ("tm_bmp_rle", [ptr, i64, i32, i32, i32, ptr])):
                 fn = getattr(loaded, fname)
@@ -161,7 +163,8 @@ def lib() -> ctypes.CDLL:
                                 ("tm_zstd_compress", [ptr, i64, ptr, i64]),
                                 ("tm_lzf_decompress", [ptr, i64, ptr, i64]),
                                 ("tm_lzf_compress", [ptr, i64, ptr, i64]),
-                                ("tm_jpeg_encode", [ptr, i32, i32, i32, i32, ptr, i64])):
+                                ("tm_jpeg_encode", [ptr, i32, i32, i32, i32, ptr, i64]),
+                                ("tm_sgilog_decode", [ptr, i64, i32, i64, i64, ptr])):
                 fn = getattr(loaded, fname)
                 fn.restype = i64
                 fn.argtypes = args
@@ -172,6 +175,8 @@ def lib() -> ctypes.CDLL:
             fn.restype = None
             fn.argtypes = [ptr, i64, i64, i32, ptr]
             for fname, args in (("tm_unpack_bits", [ptr, i64, i64, i64, i32, ptr]),
+                                ("tm_xyz2bgr", [ptr, i64, i64, ptr]),
+                                ("tm_sgilog_luminances", [ptr, ptr]),
                                 ("tm_tiff_ycbcr", [ptr, ptr, ptr, i64, ptr, ptr, ptr]),
                                 ("tm_tiff_cielab", [ptr, i64, i32, ptr, ptr])):
                 fn = getattr(loaded, fname)
@@ -677,39 +682,60 @@ def lzf_compress(data: bytes) -> "bytes | None":
     return out[:n].tobytes() if n > 0 else None
 
 
-#: how :func:`jpeg_decode_array` turns three components into colour: as
+#: how :func:`jpeg_decode_array` turns the components into colour: as
 #: libjpeg guesses the colour space from the JFIF and Adobe markers and
-#: the component ids, YCbCr whatever they say (TIFF's JPEG tiles under
-#: ``JPEGCOLORMODE_RGB``), or the components as stored (a TIFF's RGB JPEG)
+#: the component ids (then CMYK and YCCK into BGR as cv2 does), YCbCr
+#: whatever they say (TIFF's JPEG tiles under ``JPEGCOLORMODE_RGB``), or
+#: the components as stored (a TIFF's RGB or CMYK JPEG)
 JPEG_GUESS, JPEG_YCC, JPEG_RAW = 0, 1, 2
 
+#: the SOF markers the decoder reads, by what they declare
+JPEG_PROCESSES = {0xC0: "baseline", 0xC1: "extended sequential", 0xC2: "progressive",
+                  0xC3: "lossless", 0xC9: "arithmetic-coded sequential",
+                  0xCA: "arithmetic-coded progressive"}
 
-def jpeg_info(src: bytes) -> "tuple[int, int, int]":
-    """``(height, width, channels)`` from a JPEG's SOF (the stream is read
-    up to it): 1 channel for one component, 3 for three;
+
+def jpeg_info(src: bytes, mode: int = JPEG_GUESS) -> "tuple[int, int, int]":
+    """``(height, width, channels)`` of what :func:`jpeg_decode_array`
+    returns (the stream's markers are read up to its first SOS): 1 channel
+    for one component, else 3 (the component count in ``JPEG_RAW``);
     :class:`MetadataError` for a stream the decoder refuses there."""
     from tmlibrary_tpu_torch.errors import MetadataError
 
     hwc = np.zeros(3, np.int32)
-    if lib().tm_jpeg_decode(_buffer(src).ctypes.data, len(src), None, hwc.ctypes.data, 0) != 0:
+    if lib().tm_jpeg_decode(_buffer(src).ctypes.data, len(src), None, hwc.ctypes.data,
+                            int(mode)) != 0:
         raise MetadataError(lib().tm_jpeg_error().decode())
     return int(hwc[0]), int(hwc[1]), int(hwc[2])
 
 
-def jpeg_sampling(src: bytes) -> "list[tuple[int, int]]":
-    """Each component's ``(horizontal, vertical)`` sampling factors from
-    a JPEG's SOF; :class:`MetadataError` for a stream the decoder refuses
-    there."""
+def jpeg_header(src: bytes, mode: int = JPEG_GUESS) -> dict:
+    """A stream's frame: ``height``, ``width``, ``components``, ``sof``
+    (its SOF marker), ``process`` (:data:`JPEG_PROCESSES`), ``precision``
+    and each component's ``(horizontal, vertical)`` ``sampling``;
+    :class:`MetadataError` for a stream the decoder refuses up to its
+    first SOS."""
     from tmlibrary_tpu_torch.errors import MetadataError
 
-    info = np.zeros(12, np.int32)
-    if lib().tm_jpeg_header(_buffer(src).ctypes.data, len(src), info.ctypes.data) != 0:
+    info = np.zeros(14, np.int32)
+    if lib().tm_jpeg_header(_buffer(src).ctypes.data, len(src), info.ctypes.data,
+                            int(mode)) != 0:
         raise MetadataError(lib().tm_jpeg_error().decode())
-    return [(int(info[4 + 2 * c]), int(info[5 + 2 * c])) for c in range(int(info[2]))]
+    sof = int(info[12])
+    return {"height": int(info[0]), "width": int(info[1]), "components": int(info[2]),
+            "sof": sof, "process": JPEG_PROCESSES[sof], "precision": int(info[13]),
+            "sampling": [(int(info[4 + 2 * c]), int(info[5 + 2 * c]))
+                         for c in range(int(info[2]))]}
+
+
+def jpeg_sampling(src: bytes, mode: int = JPEG_GUESS) -> "list[tuple[int, int]]":
+    """Each component's ``(horizontal, vertical)`` sampling factors
+    (:func:`jpeg_header`)."""
+    return jpeg_header(src, mode)["sampling"]
 
 
 def jpeg_dimensions(src: bytes) -> "tuple[int, int]":
-    """``(height, width)`` from a JPEG's SOF (:func:`jpeg_info`)."""
+    """``(height, width)`` of a JPEG (:func:`jpeg_info`)."""
     return jpeg_info(src)[:2]
 
 
@@ -726,17 +752,19 @@ def jpeg_decode(src: bytes) -> "tuple[int, int, bytes]":
 
 
 def jpeg_decode_array(src: bytes, mode: int = JPEG_GUESS) -> np.ndarray:
-    """A baseline, extended or progressive Huffman JPEG of 1 or 3
-    components as libjpeg-turbo decodes it for ``cv2.imdecode(...,
-    IMREAD_UNCHANGED)``: ``(H, W)`` uint8 for grey, ``(H, W, 3)`` BGR for
-    colour (fancy upsampling, ``jdcolor.c``'s YCbCr tables; ``mode`` as
-    :data:`JPEG_GUESS`).  Arithmetic-coded, lossless, hierarchical,
-    12-bit, 2- and 4-component streams, a progressive stream whose scans
-    stop before libjpeg's block smoothing is off, and damaged headers
-    raise :class:`MetadataError` naming the reason."""
+    """A JPEG as libjpeg-turbo decodes it for ``cv2.imdecode(...,
+    IMREAD_UNCHANGED)``: baseline, extended or progressive, Huffman or
+    arithmetic-coded, or lossless at 2-8 bits (:data:`JPEG_PROCESSES`), of
+    1, 3 or 4 components: ``(H, W)`` uint8 for grey, ``(H, W, 3)`` BGR for
+    colour (fancy upsampling, ``jdcolor.c``'s YCbCr tables, a progressive
+    stream that stops early block-smoothed, CMYK and YCCK as cv2 turns
+    them into BGR; ``mode`` as :data:`JPEG_GUESS`).  What cv2 reads no
+    image of (hierarchical, 12- and 16-bit, 2-component, fractional
+    sampling, lossless streams that need a colour conversion) and damaged
+    headers raise :class:`MetadataError` naming the reason."""
     from tmlibrary_tpu_torch.errors import MetadataError
 
-    h, w, c = jpeg_info(src)
+    h, w, c = jpeg_info(src, mode)
     out = np.empty((h, w, c) if c > 1 else (h, w), np.uint8)
     hwc = np.zeros(3, np.int32)
     if lib().tm_jpeg_decode(_buffer(src).ctypes.data, len(src), out.ctypes.data,
@@ -833,3 +861,43 @@ def tiff_cielab_to_rgb(lab: np.ndarray, white=None) -> np.ndarray:
     out = np.empty(lab.shape[:-1] + (3,), np.uint8)
     lib().tm_tiff_cielab(lab.ctypes.data, lab.size // 3, bits, wp.ctypes.data, out.ctypes.data)
     return out
+
+
+# ---------------------------------------------------------------- SGILog
+#: :func:`sgilog_decode`'s kinds: LogL16 and LogLuv32 (compression 34676),
+#: LogLuv24 (34677)
+SGILOG_L16, SGILOG_LUV32, SGILOG_LUV24 = 0, 1, 2
+
+
+def sgilog_decode(chunk, kind: int, width: int, rows: int) -> np.ndarray:
+    """``rows`` rows of ``width`` pixels of one SGILog strip or tile as
+    libtiff's ``tif_luv.c`` hands them to cv2: LogL16 as ``(rows, width)``
+    uint8 grey (``SGILOGDATAFMT_8BIT``), LogLuv32 and LogLuv24 as
+    ``(rows, width, 3)`` float32 X, Y, Z (``SGILOGDATAFMT_FLOAT``).
+    Raises ``ValueError`` naming the first row the data runs out in."""
+    data = np.frombuffer(bytes(chunk), np.uint8)
+    out = np.empty((rows, width) if kind == SGILOG_L16 else (rows, width, 3),
+                   np.uint8 if kind == SGILOG_L16 else np.float32)
+    n = lib().tm_sgilog_decode(data.ctypes.data, data.size, int(kind), int(width), int(rows),
+                               out.ctypes.data)
+    if n < 0:
+        raise ValueError(f"SGILog data ends in row {-1 - n} of {rows}")
+    return out
+
+
+def xyz_to_bgr(xyz: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(xyz, COLOR_XYZ2BGR)`` of an ``(H, W, 3)`` float32
+    image, float for float (each row's first multiple of 4 pixels summed as
+    cv2's vector loop sums them, the rest as its scalar loop does)."""
+    xyz = np.ascontiguousarray(xyz, np.float32)
+    out = np.empty_like(xyz)
+    lib().tm_xyz2bgr(xyz.ctypes.data, xyz.shape[0], xyz.shape[1], out.ctypes.data)
+    return out
+
+
+def sgilog_luminances() -> "tuple[np.ndarray, np.ndarray]":
+    """The luminances the SGILog decoder takes from the host's ``exp``:
+    LogL16's 32,768 (by code) and LogL10's 1,024, float64."""
+    l16, l10 = np.empty(32768), np.empty(1024)
+    lib().tm_sgilog_luminances(l16.ctypes.data, l10.ctypes.data)
+    return l16, l10

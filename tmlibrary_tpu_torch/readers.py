@@ -457,7 +457,8 @@ def tiff_dimensions(path) -> "tuple[int, int] | None":
 # ------------------------------------------------ the TIFF pages cv2 reads
 #: what the grey readers above decline and ``cv2.imread(...,
 #: IMREAD_UNCHANGED)`` reads: tiles, 1-4 samples, chunky or planar,
-#: 8/16/32/64-bit samples, JPEG (7) chunks; TIFF's name for each refusal
+#: 8/16/32/64-bit samples, JPEG (7) chunks, SGILog (34676, 34677);
+#: TIFF's name for each refusal
 _TIFF_PHOTOMETRIC = {0: "MinIsWhite", 1: "MinIsBlack", 2: "RGB", 3: "palette", 4: "mask",
                      5: "separated (CMYK)", 6: "YCbCr", 8: "CIELab", 9: "ICCLab",
                      10: "ITULab", 32844: "LogL", 32845: "LogLuv"}
@@ -527,7 +528,7 @@ def _tiff_jpeg_chunk(chunk: bytes, tables: "bytes | None", ycc: bool, want: tupl
     if not (w == cols and h > rows and last_strip) and (w > cols or h > rows):
         raise MetadataError(f"{filename}: JPEG strip/tile size exceeds expected dimensions, "
                             f"expected {cols}x{rows}, got {w}x{h}")
-    hv = native.jpeg_sampling(stream)
+    hv = native.jpeg_sampling(stream, native.JPEG_YCC if ycc else native.JPEG_RAW)
     if hv[0] != sampling or any(f != (1, 1) for f in hv[1:]):
         raise MetadataError(f"{filename}: improper JPEG sampling factors {hv}, apparently "
                             f"should be {sampling}")
@@ -541,20 +542,33 @@ def _tiff_jpeg_chunk(chunk: bytes, tables: "bytes | None", ycc: bool, want: tupl
     return img
 
 
-def _ycbcr_units(raw, rows: int, cols: int, hs: int, vs: int) -> np.ndarray:
+def _ycbcr_units(raw, rows: int, cols: int, hs: int, vs: int, visible: int = 0) -> np.ndarray:
     """A chunk of 8-bit YCbCr data units (``hs * vs`` luma samples, then
     Cb and Cr, units in raster order) as ``(rows, cols, 3)`` Y, Cb, Cr,
     each pixel given its unit's chroma (libtiff's putcontig8bitYCbCr*
-    routines)."""
+    routines).  ``visible`` > 0 reads a 4x4 tile clipped to its first
+    ``visible`` columns as ``putcontig8bitYCbCr44tile`` reads it: after
+    each row of units it skips the clipped units as 10 bytes each (the 4x2
+    unit) where they hold 18, so each later row starts inside the row
+    above's skipped units; columns past ``visible`` are left 0."""
     uy, ux = -(-rows // vs), -(-cols // hs)
-    units = np.frombuffer(raw, np.uint8, uy * ux * (hs * vs + 2)).reshape(uy, ux, hs * vs + 2)
+    unit = hs * vs + 2
+    data = np.frombuffer(raw, np.uint8)
+    if visible:
+        ux = -(-visible // hs)
+        step = ux * unit + ((cols - visible) // 4) * 10
+        at = (np.arange(uy)[:, None] * step + np.arange(ux)[None, :] * unit)[..., None]
+        units = data[at + np.arange(unit)]
+    else:
+        units = data[:uy * ux * unit].reshape(uy, ux, unit)
     y = units[:, :, :hs * vs].reshape(uy, ux, vs, hs).transpose(0, 2, 1, 3).reshape(uy * vs,
                                                                                   ux * hs)
-    out = np.empty((rows, cols, 3), np.uint8)
-    out[:, :, 0] = y[:rows, :cols]
+    out = np.zeros((rows, cols, 3), np.uint8)
+    w = min(cols, ux * hs)
+    out[:, :w, 0] = y[:rows, :w]
     for c in (1, 2):
-        out[:, :, c] = np.repeat(np.repeat(units[:, :, hs * vs + c - 1], vs, 0), hs, 1)[:rows,
-                                                                                       :cols]
+        out[:, :w, c] = np.repeat(np.repeat(units[:, :, hs * vs + c - 1], vs, 0), hs,
+                                  1)[:rows, :w]
     return out
 
 
@@ -613,6 +627,100 @@ def _none(filename, what: str) -> MetadataError:
     return MetadataError(f"{filename}: {what} (cv2 reads no such TIFF page)")
 
 
+def _tiff_tiling(tag, ifd: dict, width: int, height: int, filename) -> tuple:
+    """``(tiled, chunk rows, chunk columns)`` of a page: its tiles, or its
+    strips of RowsPerStrip rows."""
+    tiled = 322 in ifd or 323 in ifd
+    if tiled:
+        th, tw = tag(323, 0), tag(322, 0)
+        if th <= 0 or tw <= 0:
+            raise MetadataError(f"corrupt TIFF tile size in {filename}")
+    else:
+        th, tw = min(tag(278, 0xFFFFFFFF) or 0xFFFFFFFF, height), width
+    return tiled, th, tw
+
+
+def _cv2_limits(width: int, height: int, th: int, tw: int, spp: int, itemsize: int,
+                filename) -> None:
+    """cv2's limits (its validateInputImageSize, its TIFF decoder's tile
+    checks), held before the file's sizes size anything."""
+    if width > 1 << 20 or height > 1 << 20 or width * height > 1 << 30:
+        raise MetadataError(f"{filename}: a {width}x{height} TIFF page (cv2 reads at most "
+                            f"2^20 pixels a side and 2^30 in all)")
+    if th > 1 << 24 or tw > 1 << 24 or th * tw * spp * itemsize >= 1 << 30:
+        raise MetadataError(f"{filename}: a {tw}x{th} TIFF tile of {spp} samples "
+                            f"(cv2 reads tiles under 1 GiB)")
+
+
+#: libtiff's SGILog compressions (``tif_luv.c``): 34676 (LogL16 and
+#: LogLuv32, run-length coded byte planes) and 34677 (LogLuv24)
+_SGILOG = (34676, 34677)
+
+
+def _sgilog_plan(tag, ifd: dict, filename, width: int, height: int, bits: int, spp: int,
+                 fmt: int, phot: int, planar: int, compression: int, orientation: int) -> dict:
+    """:func:`tiff_page_plan` of a LogL or LogLuv page, as cv2 5.0 reads it:
+    LogLuv (3 chunky samples, 34676 or 34677, any BitsPerSample: cv2 asks
+    libtiff for floats) as float32 X, Y, Z turned into BGR; LogL (1
+    sample of 8 or 16 bits, unsigned or signed, 34676) through libtiff's
+    RGBA interface as 8-bit grey.  Any other mix of an SGILog compression
+    and a photometric is a page cv2 returns None for."""
+    if phot == 32845 and compression in _SGILOG and spp == 3 and planar == 1:
+        kind = native.SGILOG_LUV24 if compression == 34677 else native.SGILOG_LUV32
+        rgba8, itemsize = False, 4
+    elif phot == 32844 and compression == 34676 and spp == 1 and bits in (8, 16) and \
+            fmt in (1, 2):
+        kind, rgba8, itemsize = native.SGILOG_L16, True, 1
+    else:
+        name = _TIFF_PHOTOMETRIC.get(phot, f"photometric {phot}")
+        raise _none(filename, f"a {name} TIFF page of {spp} {bits}-bit samples"
+                              f"{' in planes' if planar == 2 else ''} with compression "
+                              f"{compression}")
+    tiled, th, tw = _tiff_tiling(tag, ifd, width, height, filename)
+    _cv2_limits(width, height, th, tw, 3 if kind != native.SGILOG_L16 else 1, itemsize,
+                filename)
+    return {"width": width, "height": height, "bits": bits, "spp": spp, "fmt": fmt,
+            "phot": phot, "planar": planar, "compression": compression, "predictor": 1,
+            "orientation": orientation, "extra": [], "rgba8": rgba8, "packed": False,
+            "sampling": (1, 1), "tiled": tiled, "th": th, "tw": tw,
+            "fdtype": np.dtype(np.uint8 if rgba8 else np.float32), "sgilog": kind}
+
+
+def _sgilog_page(bo: str, buf, ifd: dict, plan: dict, filename) -> np.ndarray:
+    """An SGILog page (:func:`_sgilog_plan`) as cv2 returns it: every strip
+    or tile decoded by ``native.sgilog_decode`` (a chunk short of its data
+    fails the read, as libtiff fails it), LogL grey as uint8 (int8 when
+    signed) oriented as the RGBA interface orients it, LogLuv's X, Y, Z
+    oriented whole, then turned into BGR as ``cvtColor(COLOR_XYZ2BGR)``
+    turns them."""
+    width, height, tiled, th, tw = (plan[k] for k in ("width", "height", "tiled", "th", "tw"))
+    kind, grey = plan["sgilog"], plan["sgilog"] == native.SGILOG_L16
+    what = "tile" if tiled else "strip"
+    ny, nx = -(-height // th), -(-width // tw)
+    offs, counts = _tiff_chunk_table(bo, buf, ifd, tiled, filename)
+    if len(offs) < ny * nx or len(counts) < ny * nx:
+        raise MetadataError(f"corrupt TIFF {what} layout in {filename}: {len(offs)} offsets "
+                            f"for {ny * nx} {what}s")
+    page = np.empty((ny * th, nx * tw) + (() if grey else (3,)),
+                    np.uint8 if grey else np.float32)
+    for k in range(ny * nx):
+        iy, ix = divmod(k, nx)
+        rows = th if tiled else min(th, height - iy * th)
+        off, cnt = offs[k], counts[k]
+        if off + cnt > len(buf) or cnt <= 0:
+            raise MetadataError(f"truncated TIFF {what} {k} in {filename}")
+        try:
+            block = native.sgilog_decode(buf[off:off + cnt], kind, tw, rows)
+        except ValueError as e:
+            raise _none(filename, f"SGILog {what} {k}: {e}") from e
+        page[iy * th:iy * th + rows, ix * tw:(ix + 1) * tw] = block
+    page = page[:height, :width]
+    if grey:
+        out = np.ascontiguousarray(page).view(np.int8 if plan["fmt"] == 2 else np.uint8)
+        return _orient(out, plan["orientation"], tw, True)
+    return native.xyz_to_bgr(_orient(page, plan["orientation"], tw, False))
+
+
 def tiff_page_plan(bo: str, buf, ifd: dict, filename) -> dict:
     """The layout of one IFD and the route its pixels take to ``cv2``'s
     result, every check ``decode_tiff_page`` makes before it reads a
@@ -644,6 +752,9 @@ def tiff_page_plan(bo: str, buf, ifd: dict, filename) -> dict:
                               "(cv2 5.0 transposes only square pages)")
     if compression == 6:
         raise _tiff_refuse(filename, "old-style JPEG TIFF (compression 6)")
+    if compression in _SGILOG or phot in (32844, 32845):
+        return _sgilog_plan(tag, ifd, filename, width, height, bits, spp, fmt, phot, planar,
+                            compression, orientation)
     if compression not in (1, 5, 7, 8, 32946, 32773):
         raise _tiff_refuse(filename, f"TIFF compression {compression}")
     if spp > 4:
@@ -713,31 +824,18 @@ def tiff_page_plan(bo: str, buf, ifd: dict, filename) -> dict:
     else:
         predictor = 1
 
-    tiled = 322 in ifd or 323 in ifd
-    if tiled:
-        th, tw = tag(323, 0), tag(322, 0)
-        if th <= 0 or tw <= 0:
-            raise MetadataError(f"corrupt TIFF tile size in {filename}")
-    else:
-        th, tw = min(tag(278, 0xFFFFFFFF) or 0xFFFFFFFF, height), width
-    if phot == 6 and compression != 7 and sampling == (4, 4):
-        # libtiff reads a 4x4 strip a whole number of scanlines short when
-        # a row of units is not a multiple of 4 bytes, and skips the wrong
-        # number of units past a clipped tile (putcontig8bitYCbCr44tile)
-        quirk = (width % tw) if tiled else (-(-width // 4) % 2)
-        if quirk:
-            raise _tiff_refuse(filename, "a 4x4-subsampled YCbCr page whose units libtiff "
-                                         "misreads at its right edge")
+    tiled, th, tw = _tiff_tiling(tag, ifd, width, height, filename)
+    if phot == 6 and compression != 7 and sampling == (4, 4) and not tiled and \
+            -(-width // 4) % 2:
+        # libtiff reads such a 4x4 strip a whole number of scanlines short
+        # (a row of units is not a multiple of 4 bytes) and converts memory
+        # it never wrote (ROADMAP C); a clipped 4x4 tile it misreads
+        # deterministically, which _ycbcr_units models
+        raise _tiff_refuse(filename, "a 4x4-subsampled YCbCr strip page whose units libtiff "
+                                     "reads from memory it never wrote")
     kind = {1: "u", 2: "i", 3: "f"}[fmt]
     fdtype = np.dtype(f"{bo}{kind}{bits // 8}") if not packed else np.dtype("=u2")
-    # cv2's limits (its validateInputImageSize, its TIFF decoder's tile
-    # checks), held before the file's sizes size anything
-    if width > 1 << 20 or height > 1 << 20 or width * height > 1 << 30:
-        raise MetadataError(f"{filename}: a {width}x{height} TIFF page (cv2 reads at most "
-                            f"2^20 pixels a side and 2^30 in all)")
-    if th > 1 << 24 or tw > 1 << 24 or th * tw * spp * fdtype.itemsize >= 1 << 30:
-        raise MetadataError(f"{filename}: a {tw}x{th} TIFF tile of {spp} samples "
-                            f"(cv2 reads tiles under 1 GiB)")
+    _cv2_limits(width, height, th, tw, spp, fdtype.itemsize, filename)
     return {"width": width, "height": height, "bits": bits, "spp": spp, "fmt": fmt,
             "phot": phot, "planar": planar, "compression": compression,
             "predictor": predictor, "orientation": orientation, "extra": extra,
@@ -795,17 +893,25 @@ def decode_tiff_page(bo: str, buf, ifd: dict, filename) -> np.ndarray:
       uint32/int32/float32, float64) with R and B swapped; grey of 3 or 4
       samples at 10-16 bits as cv2's ``BGRA2Gray`` of the first three; 10,
       12 and 14 bits shifted to the top of 16.
+    - SGILog pages (compression 34676/34677) as :func:`_sgilog_page`:
+      LogLuv as float32 BGR (libtiff's X, Y, Z, then cv2's
+      ``COLOR_XYZ2BGR``), LogL as 8-bit grey.
     - Orientation 2-8 as :func:`_orient` (5-8 on square pages; cv2 5.0
       returns None for others).
 
     Strips or tiles (BigTIFF too), chunky or planar (cv2 reads a planar
     16-, 32- or 64-bit page from memory it never wrote; this returns the
     stored samples), none/LZW/deflate/PackBits with predictors 2 and 3,
-    JPEG with ``JPEGTables``.  What cv2 does not read raises
-    :class:`MetadataError`, what the port leaves out (old-style JPEG,
-    LogLuv, a 4x4 YCbCr page libtiff misreads) :class:`NotSupportedError`,
-    each naming it (:func:`tiff_page_plan`)."""
+    JPEG with ``JPEGTables`` (every stream the port's JPEG decoder reads:
+    arithmetic-coded, lossless, CMYK), a clipped 4x4 YCbCr tile as
+    libtiff misreads it (:func:`_ycbcr_units`).  What cv2 does not read
+    raises :class:`MetadataError`, what the port leaves out (old-style
+    JPEG, a 4x4 YCbCr strip page whose units libtiff reads from memory it
+    never wrote) :class:`NotSupportedError`, each naming it
+    (:func:`tiff_page_plan`)."""
     plan = tiff_page_plan(bo, buf, ifd, filename)
+    if "sgilog" in plan:
+        return _sgilog_page(bo, buf, ifd, plan, filename)
     width, height, bits, spp = plan["width"], plan["height"], plan["bits"], plan["spp"]
     fmt, phot, planar, compression = plan["fmt"], plan["phot"], plan["planar"], \
         plan["compression"]
@@ -830,7 +936,7 @@ def decode_tiff_page(bo: str, buf, ifd: dict, filename) -> np.ndarray:
         if ycc:
             sub = _tiff_ints(bo, buf, ifd[530]) if 530 in ifd else []
             sampling = tuple(sub[:2]) if len(sub) >= 2 else \
-                native.jpeg_sampling(buf[offs[0]:offs[0] + counts[0]])[0]
+                native.jpeg_sampling(buf[offs[0]:offs[0] + counts[0]], native.JPEG_YCC)[0]
         else:
             sampling = (1, 1)
     hs, vs = plan["sampling"]
@@ -852,7 +958,8 @@ def decode_tiff_page(bo: str, buf, ifd: dict, filename) -> np.ndarray:
         elif ycc_units:
             expect = -(-rows // vs) * -(-tw // hs) * (hs * vs + 2)
             raw = _decode_strip(buf[off:off + cnt], compression, expect, filename)
-            block = _ycbcr_units(raw, rows, tw, hs, vs)
+            clipped = (width % tw) if tiled and (hs, vs) == (4, 4) and k % nx == nx - 1 else 0
+            block = _ycbcr_units(raw, rows, tw, hs, vs, clipped)
             flat[at:at + block.size] = block.reshape(-1)
         elif packed:
             row_bytes = -(-tw * cspp * bits // 8)
@@ -1013,7 +1120,8 @@ def _decode(path: Path, fmt: str, page: int) -> np.ndarray:
 def image_dimensions(path) -> "tuple[int, int] | None":
     """``(height, width)`` of the image cv2 reads from a file (the
     site-shape probe, which reads the file whole as the reference's
-    ``cv2.imread`` does; a JPEG by its SOF), or None when no decoder of
+    ``cv2.imread`` does; a JPEG by its markers up to the first SOS), or
+    None when no decoder of
     :func:`decode_image_file` takes its leading bytes.  Raises
     :class:`MetadataError` where cv2 reads no image; a file the port
     leaves out (``NotSupportedError``) gives its header's size."""
@@ -1067,9 +1175,10 @@ class ImageReader(Reader):
     """Read one 2-D plane of an image file, in the JAX package's order: a
     container by its linear page index, then the C++ TIFF reader, the
     Python TIFF reader (``.tif``/``.tiff``), then what the JAX package
-    hands to ``cv2`` (:func:`decode_image_file`: BMP, JPEG of 1 or 3
-    components, baseline or progressive, PNG, PBM/PGM/PPM/PAM, and the
-    TIFF pages cv2 reads),
+    hands to ``cv2`` (:func:`decode_image_file`: BMP, every JPEG cv2
+    reads -- baseline, progressive, arithmetic-coded or lossless, grey,
+    colour, CMYK or YCCK --, PNG, PBM/PGM/PPM/PAM, and the TIFF pages cv2
+    reads, SGILog among them),
     colour converted to grey as cv2 converts it.  Pages are read as asked
     where the reference's cv2 path reads page 0 (ROADMAP C).  A file no
     reader takes raises :class:`~tmlibrary_tpu_torch.errors.MetadataError`."""
@@ -1665,8 +1774,8 @@ def _czi_zstd_plane(raw: bytes, h: int, w: int, zstd1: bool, filename,
 def _jpeg_plane(raw: bytes, h: int, w: int, dtype, filename) -> np.ndarray:
     """A JPEG (compression 1, ZEN's legacy lossy option) CZI subblock as an
     ``(h, w)`` plane of ``dtype``, decoded by the port's JPEG decoder
-    (:func:`tmlibrary_tpu_torch.native.jpeg_decode_array`: grey or
-    colour, baseline or progressive), colour converted to grey as cv2
+    (:func:`tmlibrary_tpu_torch.native.jpeg_decode_array`: every stream
+    cv2 reads), colour converted to grey as cv2
     converts it; a stream it cannot decode or another geometry than the
     directory's raises :class:`MetadataError`.  Counterpart:
     ``tmlibrary_tpu/readers.py:1324-1354`` (``cv2.imdecode`` and

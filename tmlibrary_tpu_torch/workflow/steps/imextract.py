@@ -13,9 +13,11 @@ LIF, DV, STK, LSM, OIF/OIB, FLEX, OME-NGFF), then the C++ TIFF reader
 reader for what it declines (BigTIFF, deflate strips), then the
 decoders of what the JAX package hands to ``cv2``
 (:func:`~tmlibrary_tpu_torch.readers.decode_image_file`: BMP, the JPEG
-decoder for 1- and 3-component baseline and progressive streams, PNG of
+decoder for every stream cv2 reads -- baseline, progressive,
+arithmetic-coded and lossless, grey, colour, CMYK and YCCK --, PNG of
 every colour type and depth, PBM/PGM/PPM/PAM, the TIFF pages cv2 reads --
-tiled, colour, float, 1- to 64-bit, any orientation, JPEG-in-TIFF),
+tiled, colour, float, 1- to 64-bit, any orientation, JPEG-in-TIFF,
+SGILog),
 colour converted to grey as cv2 converts it.  A file none of them
 decodes raises :class:`~tmlibrary_tpu_torch.errors.MetadataError` naming
 the file and its format or feature.  The decode thread pool is sized by

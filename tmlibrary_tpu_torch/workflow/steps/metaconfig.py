@@ -12,7 +12,8 @@ same text as the JAX package's for the same directory.
 
 Host work, one batch.  The site-shape probe reads the first file's
 header through the port's TIFF reader, PNG codec or JPEG decoder (its
-SOF) where the JAX package decodes it with ``cv2.imread``; a microscope
+markers up to the first SOS, refusing there what libjpeg refuses) where
+the JAX package decodes it with ``cv2.imread``; a microscope
 container gives its planes' shape (:func:`~tmlibrary_tpu_torch.readers.container_dimensions`).
 """
 
